@@ -1,13 +1,34 @@
 """Model configurations of the port: the reference package's ``LMConfig``
-with ``dtype`` as a torch dtype.  Shape cells and input specs stay behind:
-they serve the reference's dry-run only."""
+with ``dtype`` as a torch dtype, its shape cells, and the LM branch of
+``input_specs`` as shape/dtype records (``TensorSpec``, no allocation).
+GNN and recsys configs are not ported yet (ROADMAP.md queue 1, items 7
+and 8)."""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+
+
+# --------------------------------------------------------------------------
+# shape cells
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str  # train | prefill | decode | full_graph | minibatch | batch | retrieval
+    params: dict[str, int] = field(default_factory=dict)
+    note: str = ""
+
+
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+)
 
 
 @dataclass(frozen=True)
@@ -104,3 +125,59 @@ def get_config(arch_id: str, smoke: bool = False) -> LMConfig:
 
 def reduced(config: LMConfig, **overrides) -> LMConfig:
     return dataclasses.replace(config, **overrides)
+
+
+# --------------------------------------------------------------------------
+# input specs (shape/dtype records, no allocation)
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TensorSpec:
+    """The port's stand-in for ``jax.ShapeDtypeStruct``."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+UNPORTED_FAMILIES = (
+    "is not ported yet: GNN and recsys models wait for ROADMAP.md queue 1, "
+    "items 7 (GNN) and 8 (recsys)"
+)
+
+
+def input_specs(config: Any, cell: ShapeCell) -> dict[str, Any]:
+    """Model-input stand-ins for one (arch x shape) cell."""
+    if isinstance(config, LMConfig):
+        return _lm_input_specs(config, cell)
+    raise NotImplementedError(f"{type(config).__name__} {UNPORTED_FAMILIES}")
+
+
+def _lm_input_specs(cfg: LMConfig, cell: ShapeCell) -> dict[str, Any]:
+    p = cell.params
+    B, S = p["global_batch"], p["seq_len"]
+    if cell.kind == "train":
+        return {
+            "tokens": TensorSpec((B, S), torch.int32),
+            "targets": TensorSpec((B, S), torch.int32),
+        }
+    if cell.kind == "prefill":
+        return {"tokens": TensorSpec((B, S), torch.int32)}
+    if cell.kind == "decode":
+        # one new token against a KV cache of length S
+        if cfg.mla is not None:
+            m = cfg.mla
+            cache = {
+                "c_kv": TensorSpec((cfg.n_layers, B, S, m.kv_lora_rank), cfg.dtype),
+                "k_rope": TensorSpec((cfg.n_layers, B, S, m.rope_head_dim), cfg.dtype),
+            }
+        else:
+            hkv, dh = cfg.n_kv_heads, cfg.head_dim
+            cache = {
+                "k": TensorSpec((cfg.n_layers, B, S, hkv, dh), cfg.dtype),
+                "v": TensorSpec((cfg.n_layers, B, S, hkv, dh), cfg.dtype),
+            }
+        return {
+            "tokens": TensorSpec((B, 1), torch.int32),
+            "cache": cache,
+            "cache_len": TensorSpec((B,), torch.int32),
+        }
+    raise ValueError(cell.kind)

@@ -1,0 +1,4 @@
+from .ops import flash_attention
+from .ref import attention_lse_ref, attention_ref
+
+__all__ = ["attention_lse_ref", "attention_ref", "flash_attention"]

@@ -57,6 +57,12 @@ def init_params(
     return build(specs)
 
 
+def param_count(specs: Any) -> int:
+    if isinstance(specs, PSpec):
+        return math.prod(specs.shape)
+    return sum(param_count(s) for s in specs.values())
+
+
 # --------------------------------------------------------------------------
 # functional layers
 # --------------------------------------------------------------------------
@@ -65,6 +71,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
+    g = x @ w_gate
+    u = x @ w_up
+    return (torch.nn.functional.silu(g) * u) @ w_down
 
 
 # -- rotary ------------------------------------------------------------------

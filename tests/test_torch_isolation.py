@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
     n = int(out.stdout.split()[0])
-    assert n >= 20  # every module was walked, not just the package root
+    assert n >= 49  # every module was walked (serving and training slices), not just the root
 
 
 def test_chip_smoke_fails_without_a_card():
