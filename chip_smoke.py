@@ -22,6 +22,26 @@ with checkpoints and an injected failure on the card; and prefills 2,048
 tokens at full width, then checks ``prefill`` against a chain of
 ``prefill_chunk`` calls on a smoke model.
 
+Then the recsys and GNN paths: it holds the embedding-bag kernel against its
+plain version at the FM, DCN-v2 and retrieval lookup shapes over the
+full-size tables (and a SASRec-like mean and a smoke case); serves FM,
+DCN-v2, BST and SASRec at full width through ``build_serve_step`` at
+``serve_p99``, ``serve_bulk`` and ``retrieval_cand``, counting the kernel's
+launches and profiling one ``serve_p99`` call per model, and checks the fp32
+smoke models on the card against the CPU; holds the gated-aggregation
+kernels (forward, and the backward's dh and dgates) against the plain version
+plus autograd at the ``minibatch_lg`` block, a Cora-scale graph and a smoke
+graph, and checks that two backward runs give equal bits (each kernel's
+device time is read back to back under the profiler and by CUDA events
+behind a device sleep that hides the host; the embedding bag's and the
+aggregation's also under the profiler with the L2 evicted before each call,
+and the forward once more with every gate nonzero, a control for the
+block's zero padding gates); and trains
+full-width GatedGCN through ``build_train_step`` on ``minibatch_lg`` blocks
+sampled from a synthetic power-law graph (one warm-up, three timed steps,
+one profiled), takes one ``full_graph_sm`` step, and trains an fp32 smoke
+GatedGCN five steps on the card and on the CPU and compares them.
+
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
 check exits non-zero.  The last line is a JSON object naming the device.
@@ -52,6 +72,13 @@ class CheckFailed(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def assert_close_ratio(got: torch.Tensor, ref: torch.Tensor, tol: float) -> tuple[float, float]:
+    """(max abs err, worst err / (tol + tol * |ref|)): torch.testing's rule
+    with atol = rtol = tol."""
+    diff = (got.float() - ref).abs()
+    return diff.max().item(), (diff / (tol + tol * ref.abs())).max().item()
 
 
 def card_line() -> str:
@@ -150,7 +177,6 @@ def phase_kernels(dev) -> dict:
     from repro_torch.kernels.decode_attention import ops
 
     results = {}
-    worst = 0.0
     gen = torch.Generator(device=dev).manual_seed(1234)
     for case in KERNEL_CASES:
         label, B, S, T, Hq, Hkv, dh, qs_list, window = case
@@ -168,18 +194,21 @@ def phase_kernels(dev) -> dict:
             print(f"kernel check {label:18s} {tname:8s} max_abs_err {err:.3e} tol {tol:.0e}")
             check(math.isfinite(err) and err <= tol,
                   f"decode_attention {label} {tname}: max_abs_err {err} > {tol}")
-            worst = max(worst, err)
             ms = cuda_ms(lambda: ops.decode_attention(q, k, v, q_start, window=window))
             plain_ms = cuda_ms(lambda: ops.decode_attention_plain(q, k, v, q_start, window=window))
             lib_ms = cuda_ms(lambda: library_call(q, k, v, q_start, window))
-            dev_ms = kernel_device_ms(lambda: ops.decode_attention(q, k, v, q_start, window=window))
+            dev_ms, span_ms = kernel_device_ms(
+                lambda: ops.decode_attention(q, k, v, q_start, window=window))
+            q_ms = queued_ms(lambda: ops.decode_attention(q, k, v, q_start, window=window))
             bms, by = bound_ms(case, dtype)
-            results[(label, tname)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            results[(label, tname)] = dict(ms=ms, device_ms=dev_ms, span_ms=span_ms,
+                                           queued_ms=q_ms, plain_ms=plain_ms,
                                            library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                            max_abs_err=err)
             print(f"kernel time  {label:18s} {tname:8s} ms {ms:.6f} device_ms {dev_ms:.6f} "
+                  f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} "
                   f"plain_ms {plain_ms:.6f} library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
-    return {"cases": results, "max_abs_err": worst}
+    return {"cases": results}
 
 
 # --------------------------------------------------------------------------
@@ -273,18 +302,68 @@ def phase_profile(engine, prompt, max_new: int) -> None:
           f"new_tokens {st.n_new_tokens}")
 
 
-def kernel_device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of the kernels ``fn`` launches, from the profiler."""
+DEVICE_SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz
+
+
+def kernel_device_ms(fn, iters: int = 20) -> tuple[float, float]:
+    """Device time per call of the kernels ``fn`` launches, from the
+    profiler's kernel records of back-to-back calls queued behind a device
+    sleep: (their summed durations, the span from the first start to the
+    last end), each over ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = device_events(prof)
-    return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3 if evs else float("nan")
+    evs = sorted(device_events(prof), key=lambda e: e.time_range.start)[1:]  # [0]: the sleep
+    if not evs:
+        return float("nan"), float("nan")
+    total = sum(e.time_range.elapsed_us() for e in evs)
+    span = max(e.time_range.end for e in evs) - evs[0].time_range.start
+    return total / iters / 1e3, span / iters / 1e3
+
+
+def queued_ms(fn, iters: int = 10) -> float:
+    """Milliseconds per call by CUDA events around back-to-back calls that
+    are queued behind a device sleep, so the host's launch work is hidden
+    and the events time the device alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+
+
+def flushed_ms(fn, iters: int = 10) -> float:
+    """Milliseconds per call by CUDA events around each call alone, each
+    after a read of a 256 MB buffer that evicts the L2, all queued behind a
+    device sleep so that the events time the device alone."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+    for start, end in pairs:
+        buf.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
 # --------------------------------------------------------------------------
@@ -295,6 +374,9 @@ def leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from leaves(v)
     else:
         yield tree
 
@@ -302,6 +384,8 @@ def leaves(tree):
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -424,7 +508,6 @@ def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops
 
     results = {}
-    worst = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator(device=dev).manual_seed(4321)
     for case in FLASH_CASES:
         label, B, S, Hq, Hkv, dh, causal, window = case
@@ -441,19 +524,17 @@ def phase_flash(dev) -> dict:
                                             window=window)
             torch.cuda.synchronize()
             tol = TOL[dtype]
+            errs = {"fwd": 0.0, "bwd": 0.0}
             for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads),
                                       want):
-                diff = (got.float() - ref).abs()
-                err = diff.max().item()
-                # torch.testing.assert_close's rule with atol = rtol = tol
-                ratio = (diff / (tol + tol * ref.abs())).max().item()
+                err, ratio = assert_close_ratio(got, ref, tol)
                 print(f"flash check {label:16s} {tname:8s} {name:3s} max_abs_err {err:.3e} "
                       f"tol atol=rtol={tol:.0e} worst err/(atol+rtol*|ref|) {ratio:.3f}")
                 check(math.isfinite(err) and ratio <= 1.0,
                       f"flash_attention {label} {tname} {name}: max_abs_err {err}, "
                       f"worst ratio {ratio} > 1")
                 kind = "fwd" if name in ("out", "lse") else "bwd"
-                worst[kind] = max(worst[kind], err)
+                errs[kind] = max(errs[kind], err)
             del want
             fwd = lambda: ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
             bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
@@ -461,9 +542,10 @@ def phase_flash(dev) -> dict:
             row = {}
             for kind, fn in (("fwd", fwd), ("bwd", bwd)):
                 bms, by = flash_bound_ms(case, dtype, kind == "bwd")
-                row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2),
-                                 device_ms=kernel_device_ms(fn, iters=min(iters, 10)),
-                                 bound_ms=bms, bound_by=by)
+                dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
+                row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
+                                 queued_ms=queued_ms(fn), bound_ms=bms, bound_by=by,
+                                 max_abs_err=errs[kind])
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
             row["fwd"]["plain_ms"] = cuda_ms(
                 lambda: attention_ref(q, k, v, causal=causal, window=window), iters=iters,
@@ -479,13 +561,15 @@ def phase_flash(dev) -> dict:
             for kind in ("fwd", "bwd"):
                 r = row[kind]
                 print(f"flash time  {label:16s} {tname:8s} {kind} ms {r['ms']:.6f} "
-                      f"device_ms {r['device_ms']:.6f} plain_ms {r['plain_ms']:.6f} "
+                      f"device_ms {r['device_ms']:.6f} device_span_ms {r['span_ms']:.6f} "
+                      f"queued_ms {r['queued_ms']:.6f} "
+                      f"plain_ms {r['plain_ms']:.6f} "
                       f"library_ms {r['library_ms']:.6f} bound_ms {r['bound_ms']:.6f} "
                       f"({r['bound_by']})")
             results[(label, tname)] = row
             del q, k, v, dout, out, lse, grads, qg, kg, vg
             torch.cuda.empty_cache()
-    return {"cases": results, "max_abs_err": worst}
+    return {"cases": results}
 
 
 # --------------------------------------------------------------------------
@@ -719,6 +803,502 @@ def phase_prefill(dev) -> dict:
     return {"launches": launches, "ms": ms}
 
 
+# --------------------------------------------------------------------------
+# phase: embedding-bag kernel against its plain version
+# --------------------------------------------------------------------------
+BAG_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+BAG_TPU = "src/repro/kernels/embedding_bag/kernel.py:70"
+# (label, arch whose full table is gathered, cell whose batch gives the ids,
+#  combiner, weighted)
+BAG_CASES = [
+    ("fm serve_bulk bags", "fm", "serve_bulk", "sum", False),
+    ("dcn-v2 bags of one", "dcn-v2", "serve_bulk", "sum", False),
+    ("retrieval bags of one", "bst", "retrieval_cand", "sum", False),
+    ("sasrec-like mean", "sasrec", "serve_bulk", "mean", True),
+    ("smoke fm bags", "fm-smoke", "serve_p99", "sum", True),
+]
+BAG_MAIN = "fm serve_bulk bags"  # FM's field sums at serve_bulk: the largest bag of the path
+
+
+def bag_inputs(arch: str, cell_name: str, dev):
+    """(table spec (V, dim), ids [n_bags, bag] int32) as the model path
+    makes them from ``make_batch``: FM's stacked field ids as one bag per
+    row, DCN-v2's as bags of one, candidates as bags of one, SASRec's
+    histories as bags."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.models.recsys import _stacked_ids
+
+    smoke = arch.endswith("-smoke")
+    name = arch[:-len("-smoke")] if smoke else arch
+    cfg = get_config(name, smoke=smoke)
+    cell = next(c for c in get_shapes(name) if c.name == cell_name)
+    batch = make_batch(cfg, cell, seed=0, device=dev)
+    V = sum(cfg.vocab_sizes) or cfg.item_vocab
+    if name == "fm":
+        ids = _stacked_ids(cfg, batch["sparse_ids"])
+    elif name == "dcn-v2":
+        ids = _stacked_ids(cfg, batch["sparse_ids"]).reshape(-1, 1)
+    elif "candidate_ids" in batch:
+        ids = batch["candidate_ids"].reshape(-1, 1)
+    else:
+        ids = batch["hist_ids"]
+    return (V, cfg.embed_dim), ids.contiguous()
+
+
+def bag_bound_ms(ids, dim: int, itemsize: int, weighted: bool) -> tuple[float, str]:
+    """Least time.  Bytes: the distinct rows the bags gather, read once, the
+    ids (and weights) read once, the output written once.  Operations: one
+    add (and one multiply, weighted) per gathered element, at the fp32 rate
+    (the sums run in fp32)."""
+    n_bags, bag = ids.shape
+    rows = torch.unique(ids).numel()
+    nbytes = rows * dim * itemsize + ids.numel() * 4 * (2 if weighted else 1)
+    nbytes += n_bags * dim * itemsize
+    ops = (2 if weighted else 1) * ids.numel() * dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bag(dev) -> dict:
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+
+    F = torch.nn.functional
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(77)
+    for label, arch, cell_name, combiner, weighted in BAG_CASES:
+        (V, dim), ids = bag_inputs(arch, cell_name, dev)
+        n_bags, bag = ids.shape
+        table32 = torch.randn(V, dim, generator=gen, device=dev)
+        w = torch.rand(n_bags, bag, generator=gen, device=dev) if weighted else None
+        iters = 10 if ids.numel() > 10**6 else 50
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).replace("torch.", "")
+            table = table32 if dtype == torch.float32 else table32.to(dtype)
+            got = embedding_bag(table, ids, w, combiner=combiner)
+            want = embedding_bag_ref(table.float(), ids, w, combiner)  # fp32, same values
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            err, ratio = assert_close_ratio(got, want, tol)
+            print(f"bag check {label:22s} {tname:8s} bags {n_bags} x {bag} dim {dim} V {V} "
+                  f"max_abs_err {err:.3e} tol atol=rtol={tol:.0e} worst ratio {ratio:.3f}")
+            check(math.isfinite(err) and ratio <= 1.0,
+                  f"embedding_bag {label} {tname}: max_abs_err {err}, worst ratio {ratio}")
+            del got, want
+            run = lambda: embedding_bag(table, ids, w, combiner=combiner)
+            dms, sms = kernel_device_ms(run, iters=min(iters, 10))
+            row = dict(ms=cuda_ms(run, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
+                       queued_ms=queued_ms(run), flushed_ms=flushed_ms(run),
+                       plain_ms=cuda_ms(lambda: embedding_bag_ref(table, ids, w, combiner),
+                                        iters=iters, warmup=2),
+                       library_ms=None, max_abs_err=err)
+            if not weighted:  # F.embedding_bag computes the same function only unweighted
+                row["library_ms"] = cuda_ms(
+                    lambda: F.embedding_bag(ids, table, mode=combiner), iters=iters, warmup=2)
+            row["bound_ms"], row["bound_by"] = bag_bound_ms(ids, dim, table.element_size(),
+                                                            weighted)
+            lib = f"{row['library_ms']:.6f}" if row["library_ms"] is not None else "n/a"
+            print(f"bag time  {label:22s} {tname:8s} ms {row['ms']:.6f} device_ms "
+                  f"{row['device_ms']:.6f} device_span_ms {row['span_ms']:.6f} queued_ms "
+                  f"{row['queued_ms']:.6f} l2_flushed_ms {row['flushed_ms']:.6f} "
+                  f"plain_ms {row['plain_ms']:.6f} library_ms {lib} "
+                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']})")
+            results[(label, tname)] = row
+            del table
+        del table32, ids, w
+        torch.cuda.empty_cache()
+    return {"cases": results}
+
+
+# --------------------------------------------------------------------------
+# phase: full-width recsys serving
+# --------------------------------------------------------------------------
+RECSYS = ("fm", "dcn-v2", "bst", "sasrec")
+RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+
+
+@torch.no_grad()
+def phase_recsys(dev) -> dict:
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.layers import init_params
+    from repro_torch.train import build_param_specs, build_serve_step
+
+    rows = {}
+    embedding_bag.launches = 0
+    for arch in RECSYS:
+        cfg = get_config(arch)  # full width, fp32 (the reference's dtype)
+        cells = {c.name: c for c in get_shapes(arch)}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(gen, build_param_specs(cfg, cells["serve_p99"]), cfg.dtype, dev)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        print(f"recsys {arch}: params bytes {n_bytes}")
+        for name in RECSYS_CELLS:
+            cell = cells[name]
+            batch = make_batch(cfg, cell, seed=0, device=dev)
+            fn = build_serve_step(cfg, cell)
+            before = embedding_bag.launches
+            out = fn(params, **batch)
+            per_call = embedding_bag.launches - before
+            B = cell.params["batch"]
+            shape = (B, cell.params["n_candidates"]) if cell.kind == "retrieval" else (B,)
+            ok = bool(torch.isfinite(out).all())
+            check(tuple(out.shape) == shape and ok,
+                  f"recsys {arch} {name}: output {tuple(out.shape)} finite {ok}")
+            check(per_call > 0, f"recsys {arch} {name}: no embedding-bag launch")
+            del out
+            ms = cuda_ms(lambda: fn(params, **batch), iters=20 if B <= 512 else 5, warmup=2)
+            print(f"recsys {arch:7s} {name:15s} ms_per_call {ms:.6f} "
+                  f"embedding_bag_launches_per_call {per_call} output {shape}")
+            rows[(arch, name)] = dict(ms=ms, launches_per_call=per_call)
+            if name == "serve_p99":
+                prof = profile_call(f"recsys {arch} serve_p99", lambda: fn(params, **batch),
+                                    n_kernels=5)
+                rows[(arch, name)]["profile"] = prof
+            del batch
+        del params
+        torch.cuda.empty_cache()
+    launches = embedding_bag.launches
+    print(f"recsys: embedding_bag launches {launches}")
+    check(launches > 0, "recsys serving never launched the embedding-bag kernel")
+    recsys_parity(dev)
+    return {"launches": launches, "rows": rows}
+
+
+def recsys_parity(dev) -> None:
+    """The fp32 smoke models' scores and retrievals on the card against the
+    same models on the CPU.  FM's and DCN-v2's candidates are drawn inside
+    their smoke tables (``make_batch`` draws them below 1,000, past the 290
+    and 260 rows there, which both packages score NaN)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.layers import init_params
+    from repro_torch.train import build_param_specs, build_serve_step
+
+    before = embedding_bag.launches
+    for arch in RECSYS:
+        cfg = get_config(arch, smoke=True)
+        for cell in get_shapes(arch)[1:]:
+            if cell.kind == "retrieval":
+                n_c = min(cfg.item_vocab or sum(cfg.vocab_sizes), 1000)
+                cell = dc.replace(cell, params=dict(cell.params, n_candidates=n_c))
+            elif cell.name == "serve_bulk":
+                cell = dc.replace(cell, params=dict(cell.params, batch=4096))
+            cpu_params = init_params(torch.Generator().manual_seed(0),
+                                     build_param_specs(cfg, cell), cfg.dtype, "cpu")
+            batch = make_batch(cfg, cell, seed=1, device="cpu")
+            if "candidate_ids" in batch and not cfg.item_vocab:
+                batch["candidate_ids"] = torch.arange(n_c, dtype=torch.int32)
+            fn = build_serve_step(cfg, cell)
+            want = fn(cpu_params, **batch)
+            got = fn(to_device(cpu_params, dev), **to_device(batch, dev)).cpu()
+            tol = 1e-4 * want.abs().max().item()
+            diff = (got - want).abs()
+            ratio = (diff / (tol + 1e-4 * want.abs())).max().item()
+            print(f"recsys parity {arch:7s} {cell.name:15s} card vs cpu max_abs_err "
+                  f"{diff.max().item():.3e} (tol 1e-4 x max|score| = {tol:.3e}, rtol 1e-4) "
+                  f"worst ratio {ratio:.3f}")
+            check(ratio <= 1.0, f"recsys parity {arch} {cell.name}: worst ratio {ratio}")
+    check(embedding_bag.launches > before, "recsys parity: the card never launched the kernel")
+
+
+# --------------------------------------------------------------------------
+# phase: gated-aggregation kernels against the plain version plus autograd
+# --------------------------------------------------------------------------
+AGG_SRC = "src/repro_torch/kernels/gnn_aggregate/csrc/gnn_aggregate.cu"
+AGG_TPU = "src/repro/kernels/gnn_aggregate/kernel.py:59"
+AGG_MAIN = "minibatch_lg block"
+REDDIT_NODES = 232_965
+REDDIT_EDGES_CUT = 11_461_589  # a tenth of the published 114,615,892: keeps the host build short
+
+
+def power_law_sampler(seed: int = 0):
+    """A NeighborSampler (fanout 15-10) over a synthetic power-law graph with
+    Reddit's node count and a tenth of its edges; the block shapes do not
+    depend on the edge count."""
+    from repro_torch.data import CSRGraph, NeighborSampler, random_graph
+
+    t0 = time.perf_counter()
+    ei = random_graph(REDDIT_NODES, REDDIT_EDGES_CUT, seed=seed)
+    sampler = NeighborSampler(CSRGraph.from_edge_index(ei, REDDIT_NODES), (15, 10), seed=seed)
+    print(f"graph: {REDDIT_NODES} nodes {REDDIT_EDGES_CUT} edges (power law) built in "
+          f"{time.perf_counter() - t0:.3f} s; largest in-degree "
+          f"{int(np.bincount(ei[1], minlength=REDDIT_NODES).max())}")
+    return sampler
+
+
+def agg_graphs(sampler) -> list:
+    """(label, edge_index [2,E] numpy, n_nodes, dim) for the kernel checks."""
+    block = sampler.sample(np.random.default_rng(0).choice(REDDIT_NODES, 1024, replace=False)
+                           .astype(np.int32))
+    r = np.random.default_rng(1)
+    cora = r.integers(0, 2708, size=(2, 10752))  # full_graph_sm: make_batch's edges, padded
+    smoke = r.integers(0, 40, size=(2, 160))
+    return [(AGG_MAIN, block["edge_index"], block["nodes"].shape[0], 70),
+            ("full_graph_sm", cora, 3072, 70), ("smoke", smoke, 40, 16)]
+
+
+def agg_bound_ms(ell, n_rows: int, dim: int, itemsize: int, backward: bool) -> tuple[float, str]:
+    """Least time.  Both ways read the neighbour table and the distinct rows
+    of h it references once.  Forward bytes: those, every ELL gate (a
+    padding slot cannot be told from an edge of row 0) read once, and the
+    output written once.  Backward bytes: those, dout, the source index and
+    the gates at the real slots only (dh needs no other) read once, dgates
+    (every slot) and dh written once.  Operations: a multiply-add per gate
+    element forward (2), a multiply per gate element and a multiply-add per
+    real slot and element backward, at the fp32 rate."""
+    N, D = ell.nbr.shape
+    E = ell.rev_slot.numel()
+    rows = torch.unique(ell.nbr).numel()
+    all_gates = N * D * dim * itemsize
+    nbytes = N * D * 4 + rows * dim * itemsize + N * dim * itemsize  # + out or dout
+    ops = 2 * N * D * dim
+    if backward:
+        nbytes += E * dim * itemsize + all_gates + (n_rows + 1 + E) * 4 + n_rows * dim * itemsize
+        ops = N * D * dim + 2 * E * dim
+    else:
+        nbytes += all_gates
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_agg(dev, sampler) -> dict:
+    from repro_torch.kernels.gnn_aggregate import ell_index, gnn_aggregate_ref
+    from repro_torch.kernels.gnn_aggregate import ops
+
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(99)
+    for label, ei, n, dim in agg_graphs(sampler):
+        ell = ell_index(ei, n, dev)
+        src, dst = (torch.from_numpy(np.asarray(a)).to(dev).long() for a in ei)
+        E = src.numel()
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).replace("torch.", "")
+            h = torch.randn(n, dim, generator=gen, device=dev).to(dtype)
+            eta = torch.rand(E, dim, generator=gen, device=dev).to(dtype)
+            gates = torch.zeros(n * ell.max_deg, dim, device=dev, dtype=dtype)
+            gates.index_copy_(0, ell.slot, eta)
+            gates = gates.view(n, ell.max_deg, dim)
+            dout = torch.randn(n, dim, generator=gen, device=dev).to(dtype)
+            h32, g32 = (t.float().requires_grad_(True) for t in (h, gates))
+            ref_out = gnn_aggregate_ref(h32, ell.nbr, g32)
+            ref = (ref_out.detach(), *torch.autograd.grad(ref_out, (h32, g32), dout.float()))
+            del ref_out, h32, g32
+            out = ops.gnn_aggregate_fwd(h, ell.nbr, gates)
+            dh, dg = ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
+            dh2, dg2 = ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
+            torch.cuda.synchronize()
+            same = torch.equal(dh, dh2) and torch.equal(dg, dg2)
+            del dh2, dg2
+            tol = TOL[dtype]
+            errs = {"fwd": 0.0, "bwd": 0.0}
+            for name, got, want in zip(("out", "dh", "dgates"), (out, dh, dg), ref):
+                err, ratio = assert_close_ratio(got, want, tol)
+                print(f"agg check {label:18s} {tname:8s} {name:6s} N {n} max_deg {ell.max_deg} "
+                      f"dim {dim} max_abs_err {err:.3e} tol atol=rtol={tol:.0e} "
+                      f"worst ratio {ratio:.3f}")
+                check(math.isfinite(err) and ratio <= 1.0,
+                      f"gnn_aggregate {label} {tname} {name}: max_abs_err {err}, ratio {ratio}")
+                kind = "fwd" if name == "out" else "bwd"
+                errs[kind] = max(errs[kind], err)
+            print(f"agg check {label:18s} {tname:8s} backward equal bit for bit over two runs: "
+                  f"{same}")
+            check(same, f"gnn_aggregate {label} {tname}: the backward is not deterministic")
+            del ref, out, dh, dg
+            iters = 10 if n > 10**5 else 50
+            fwd = lambda: ops.gnn_aggregate_fwd(h, ell.nbr, gates)
+            bwd = lambda: ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
+            row = {}
+            for kind, fn in (("fwd", fwd), ("bwd", bwd)):
+                bms, by = agg_bound_ms(ell, n, dim, h.element_size(), kind == "bwd")
+                dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
+                row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
+                                 queued_ms=queued_ms(fn), flushed_ms=flushed_ms(fn),
+                                 bound_ms=bms, bound_by=by, library_ms=None,
+                                 max_abs_err=errs[kind])
+            if label == AGG_MAIN:
+                # control for the data: the same forward with every slot's gate
+                # nonzero (93% of the block's slots are padding, whose gates are 0)
+                dense = torch.rand(gates.shape, generator=gen, device=dev).to(dtype)
+                row["fwd"]["dense_flushed_ms"] = flushed_ms(
+                    lambda: ops.gnn_aggregate_fwd(h, ell.nbr, dense))
+                print(f"agg time  {label:18s} {tname:8s} fwd with every gate nonzero: "
+                      f"l2_flushed_ms {row['fwd']['dense_flushed_ms']:.6f}")
+                del dense
+            hg, gg = (t.clone().requires_grad_(True) for t in (h, gates))
+            row["fwd"]["plain_ms"] = cuda_ms(lambda: gnn_aggregate_ref(h, ell.nbr, gates),
+                                             iters=iters, warmup=2)
+            plain_out = gnn_aggregate_ref(hg, ell.nbr, gg)
+            row["bwd"]["plain_ms"] = backward_ms(plain_out, (hg, gg), dout, iters)
+            del plain_out
+            # yardstick, labelled as such: the reference model's segment-sum form,
+            # index_add_ of eta * h[src] (its own inputs: eta per edge, not ELL gates)
+            seg = lambda e_, h_: torch.zeros(n, dim, device=dev, dtype=dtype).index_add_(
+                0, dst, e_ * h_[src])
+            row["fwd"]["yardstick_ms"] = cuda_ms(lambda: seg(eta, h), iters=iters, warmup=2)
+            eg = eta.clone().requires_grad_(True)
+            seg_out = seg(eg, hg)
+            row["bwd"]["yardstick_ms"] = backward_ms(seg_out, (hg, eg), dout, iters)
+            del seg_out, hg, gg, eg
+            for kind in ("fwd", "bwd"):
+                r = row[kind]
+                print(f"agg time  {label:18s} {tname:8s} {kind} ms {r['ms']:.6f} device_ms "
+                      f"{r['device_ms']:.6f} device_span_ms {r['span_ms']:.6f} queued_ms "
+                      f"{r['queued_ms']:.6f} l2_flushed_ms {r['flushed_ms']:.6f} "
+                      f"plain_ms {r['plain_ms']:.6f} "
+                      f"yardstick_index_add_ms {r['yardstick_ms']:.6f} bound_ms "
+                      f"{r['bound_ms']:.6f} ({r['bound_by']})")
+            results[(label, tname)] = row
+            del h, eta, gates, dout
+            torch.cuda.empty_cache()
+    return {"cases": results}
+
+
+# --------------------------------------------------------------------------
+# phase: full-width GatedGCN training
+# --------------------------------------------------------------------------
+def minibatch(sampler, feats, labels, step: int, dev) -> dict:
+    """A minibatch_lg batch: 1,024 seeds (numpy seed = step) and their
+    sampled 2-hop block, features and labels gathered on the card."""
+    seeds = np.random.default_rng(step).choice(REDDIT_NODES, 1024, replace=False)
+    block = sampler.sample(seeds.astype(np.int32))
+    nodes = torch.from_numpy(block["nodes"]).to(dev).long()
+    return {"node_feat": feats[nodes], "edge_index": torch.from_numpy(block["edge_index"]).to(dev),
+            "labels": labels[nodes[:1024]], "seed_ids": torch.arange(1024, device=dev,
+                                                                   dtype=torch.int32)}
+
+
+def phase_gnn_train(dev, sampler) -> dict:
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_param_specs, build_train_step, make_train_state
+
+    cfg = get_config("gatedgcn")  # full width: 16 layers, d_hidden 70, 47 classes, fp32
+    cells = {c.name: c for c in get_shapes("gatedgcn")}
+    cell = cells["minibatch_lg"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = make_train_state(init_params(gen, build_param_specs(cfg, cell), cfg.dtype, dev))
+    step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100))
+    feats = torch.randn(REDDIT_NODES, 602, generator=gen, device=dev).mul_(0.1)
+    labels = torch.randint(0, cfg.n_classes, (REDDIT_NODES,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    batches = [minibatch(sampler, feats, labels, i, dev) for i in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gnn_aggregate.launches_fwd = gnn_aggregate.launches_bwd = 0
+    rows = []
+    n_steps = 4
+    for i in range(n_steps):  # one warm-up step, three timed
+        f0, b0 = gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        m = {k: float(v) for k, v in m.items()}  # waits for the device
+        dt = time.perf_counter() - t0
+        nf, nb = gnn_aggregate.launches_fwd - f0, gnn_aggregate.launches_bwd - b0
+        tag = "warm-up" if i == 0 else f"step {i}"
+        print(f"gnn train {tag}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} "
+              f"step_ms {dt * 1e3:.3f} seeds_per_s {1024 / dt:.1f} agg_fwd {nf} agg_bwd {nb}")
+        check(all(math.isfinite(v) for v in m.values()), f"gnn train {tag}: non-finite {m}")
+        check(nf == cfg.n_layers and nb == cfg.n_layers,
+              f"gnn train {tag}: {nf} forward / {nb} backward aggregations, wanted {cfg.n_layers}")
+        rows.append(dict(step_s=dt, **m))
+    launches = [gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd]
+    mem = torch.cuda.max_memory_allocated(dev)
+    timed = rows[1:]
+    mean_s = sum(r["step_s"] for r in timed) / len(timed)
+    print(f"gnn train: {cfg.name} minibatch_lg (1024 seeds, fanout 15-10, 169984 nodes, "
+          f"168960 edges, d_feat 602) fp32: mean step_ms {mean_s * 1e3:.3f} seeds_per_s "
+          f"{1024 / mean_s:.1f} max_memory_allocated {mem}; aggregation launches in the "
+          f"{n_steps} steps fwd {launches[0]} bwd {launches[1]}")
+
+    def one_more():
+        nonlocal state
+        state, m = step(state, batches[4])
+        check(math.isfinite(float(m["loss"])), "profiled gnn step: non-finite loss")
+
+    prof = profile_call("gnn train step", one_more)
+    del state, batches, feats, labels
+    torch.cuda.empty_cache()
+
+    # one full_graph_sm step (Cora-scale, d_feat 1433, the train mask)
+    fcell = cells["full_graph_sm"]
+    fstate = make_train_state(init_params(gen, build_param_specs(cfg, fcell), cfg.dtype, dev))
+    fbatch = make_batch(cfg, fcell, seed=0, device=dev)
+    torch.cuda.synchronize()
+    gnn_aggregate.launches_fwd = gnn_aggregate.launches_bwd = 0
+    t0 = time.perf_counter()
+    fstate, m = build_train_step(cfg, fcell)(fstate, fbatch)
+    loss = float(m["loss"])
+    dt = time.perf_counter() - t0
+    full = [gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd]
+    print(f"gnn train full_graph_sm: loss {loss:.6f} step_ms {dt * 1e3:.3f} (first call) "
+          f"agg_fwd {full[0]} agg_bwd {full[1]}")
+    check(math.isfinite(loss) and full == [cfg.n_layers, cfg.n_layers],
+          f"full_graph_sm step: loss {loss}, {full[0]}/{full[1]} aggregations")
+    del fstate, fbatch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": n_steps, "launches_full_graph": full, "rows": rows,
+            "mean_step_s": mean_s, "max_memory": mem, "profile": prof}
+
+
+def phase_gnn_parity(dev) -> None:
+    """Five fp32 smoke GatedGCN steps on minibatch blocks, on the card
+    (kernels) and on the CPU (plain path), from the same parameters."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import CSRGraph, NeighborSampler, random_graph
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate
+    from repro_torch.models.gnn import gnn_specs
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step, make_train_state
+
+    cfg = get_config("gatedgcn", smoke=True)  # fp32
+    cell = ShapeCell("mb", "minibatch", {"d_feat": 32})
+    n = 2000
+    sampler = NeighborSampler(CSRGraph.from_edge_index(random_graph(n, 20000, seed=3), n),
+                              (15, 10), seed=3)
+    feats = (np.random.default_rng(4).normal(size=(n, 32)) * 0.1).astype(np.float32)
+    cpu_params = init_params(torch.Generator().manual_seed(0), gnn_specs(cfg, 32), cfg.dtype,
+                             "cpu")
+    dev_state = make_train_state(to_device(cpu_params, dev))
+    cpu_state = make_train_state(cpu_params)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=5)
+    dev_step, cpu_step = build_train_step(cfg, cell, opt), build_train_step(cfg, cell, opt)
+    before = gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd
+    for s in range(5):
+        seeds = np.random.default_rng(10 + s).choice(n, 64, replace=False).astype(np.int32)
+        block = sampler.sample(seeds)
+        batch = {"node_feat": torch.from_numpy(feats[block["nodes"]]),
+                 "edge_index": torch.from_numpy(block["edge_index"]),
+                 "labels": torch.from_numpy(seeds % cfg.n_classes).int()}
+        dev_state, a = dev_step(dev_state, to_device(batch, dev))
+        cpu_state, b = cpu_step(cpu_state, batch)
+        la, lb = float(a["loss"]), float(b["loss"])
+        print(f"gnn parity step {s + 1}: loss card {la:.7f} cpu {lb:.7f} "
+              f"grad_norm card {float(a['grad_norm']):.7f} cpu {float(b['grad_norm']):.7f}")
+        check(abs(la - lb) <= 1e-4 + 1e-4 * abs(lb),
+              f"gnn parity step {s + 1}: loss {la} on the card, {lb} on the CPU")
+    worst = 0.0
+    for pa, pb in zip(leaves(dev_state["params"]), leaves(cpu_state["params"])):
+        diff = (pa.cpu() - pb).abs()
+        worst = max(worst, (diff / (1e-4 + 1e-4 * pb.abs())).max().item())
+    launched = (gnn_aggregate.launches_fwd - before[0], gnn_aggregate.launches_bwd - before[1])
+    print(f"gnn parity: final params worst err/(1e-4+1e-4*|cpu|) {worst:.4f}; aggregation "
+          f"launches on the card fwd {launched[0]} bwd {launched[1]}")
+    check(worst <= 1.0, f"gnn parity: final parameters differ (worst ratio {worst})")
+    check(min(launched) > 0, "gnn parity: the card never launched the aggregation kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -738,9 +1318,9 @@ def main() -> int:
     build_s = build.build_all()
     print(f"build: {build_s:.3f} s for {len(build.sources())} source(s)")
 
-    def timed(fn):
+    def timed(fn, *args):
         t = time.perf_counter()
-        out = fn(dev)
+        out = fn(dev, *args)
         print(f"phase {fn.__name__}: {time.perf_counter() - t:.3f} s")
         return out
 
@@ -752,6 +1332,12 @@ def main() -> int:
     timed(phase_train_parity)
     timed(phase_driver)
     pre = timed(phase_prefill)
+    bag = timed(phase_bag)
+    rec = timed(phase_recsys)
+    sampler = power_law_sampler()
+    agg = timed(phase_agg, sampler)
+    gtrain = timed(phase_gnn_train, sampler)
+    timed(phase_gnn_parity)
 
     main_case = next(c for c in KERNEL_CASES if c[0] == MAIN_CASE)
     m = kern["cases"][(MAIN_CASE, "bfloat16")]
@@ -768,9 +1354,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:106",
         "launches": eng["launches"],
-        "max_abs_err": kern["max_abs_err"],
+        "max_abs_err": m["max_abs_err"],
         "ms": m["ms"],
         "device_ms": m["device_ms"],
+        "queued_ms": m["queued_ms"],
         "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"],
@@ -793,15 +1380,69 @@ def main() -> int:
             "replaces": flash_tpu,
             "launches": launches,
             "launches_by_path": by_path,
-            "max_abs_err": flash["max_abs_err"][kind],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "device_ms": r["device_ms"],
+            "queued_ms": r["queued_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "held": True,
             "shape": flash_shape,
+        })
+    bm = bag["cases"][(BAG_MAIN, "float32")]
+    bag_case = next(c for c in BAG_CASES if c[0] == BAG_MAIN)
+    line["kernels"].append({
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": BAG_SRC,
+        "replaces": BAG_TPU,
+        "launches": rec["launches"],
+        "launches_by_path": {"recsys serving": rec["launches"]},
+        "max_abs_err": bm["max_abs_err"],
+        "ms": bm["ms"],
+        "device_ms": bm["device_ms"],
+        "queued_ms": bm["queued_ms"],
+        "l2_flushed_ms": bm["flushed_ms"],
+        "plain_ms": bm["plain_ms"],
+        "bound_ms": bm["bound_ms"],
+        "bound_by": bm["bound_by"],
+        "library_ms": bm["library_ms"],
+        "held": True,
+        "shape": {"case": BAG_MAIN, "arch": bag_case[1], "cell": bag_case[2],
+                  "combiner": bag_case[3], "dtype": "float32"},
+    })
+    am = agg["cases"][(AGG_MAIN, "float32")]
+    mb_path = f"gnn train minibatch_lg ({gtrain['steps']} steps)"
+    for i, (name, kind) in enumerate((("gnn_aggregate", "fwd"), ("gnn_aggregate_bwd", "bwd"))):
+        r = am[kind]
+        by_path = {mb_path: gtrain["launches"][i],
+                   "gnn train full_graph_sm (1 step)": gtrain["launches_full_graph"][i]}
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": AGG_SRC,
+            "replaces": AGG_TPU,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_step": gtrain["launches"][i] // gtrain["steps"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "queued_ms": r["queued_ms"],
+            "l2_flushed_ms": r["flushed_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the gated ELL aggregation
+            "yardstick_ms": r["yardstick_ms"],
+            "yardstick": "index_add_ of eta * h[src] (the reference model's segment-sum form)",
+            **({"dense_gates_l2_flushed_ms": r["dense_flushed_ms"]}
+               if "dense_flushed_ms" in r else {}),
+            "held": True,
+            "shape": {"case": AGG_MAIN, "N": 169_984, "max_deg": 15, "dim": 70,
+                      "dtype": "float32"},
         })
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))

@@ -1,8 +1,7 @@
-"""Model configurations of the port: the reference package's ``LMConfig``
-with ``dtype`` as a torch dtype, its shape cells, and the LM branch of
-``input_specs`` as shape/dtype records (``TensorSpec``, no allocation).
-GNN and recsys configs are not ported yet (ROADMAP.md queue 1, items 7
-and 8)."""
+"""Model configurations of the port: the reference package's ``LMConfig``,
+``GNNConfig`` and ``RecsysConfig`` with ``dtype`` as a torch dtype, their
+shape cells, and ``input_specs`` as shape/dtype records (``TensorSpec``, no
+allocation)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +27,42 @@ LM_SHAPES = (
     ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+GNN_SHAPES = (
+    ShapeCell(
+        "full_graph_sm",
+        "full_graph",
+        {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433},
+    ),
+    ShapeCell(
+        "minibatch_lg",
+        "minibatch",
+        {
+            "n_nodes": 232_965,
+            "n_edges": 114_615_892,
+            "batch_nodes": 1024,
+            "fanout1": 15,
+            "fanout2": 10,
+        },
+    ),
+    ShapeCell(
+        "ogb_products",
+        "full_graph",
+        {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100},
+    ),
+    ShapeCell(
+        "molecule",
+        "batched_graphs",
+        {"n_nodes": 30, "n_edges": 64, "batch": 128},
+    ),
+)
+
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )
 
 
@@ -95,6 +130,43 @@ class LMConfig:
         return self.d_head or self.d_model // self.n_heads
 
 
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "gated"
+    d_edge: int = 8
+    n_classes: int = 47
+    dtype: torch.dtype = torch.float32
+    # scan-carry sharding constraints (mesh axis names) for node/edge states
+    act_node_axes: tuple = ()
+    act_edge_axes: tuple = ()
+    shard_overrides: tuple = ()
+    family: str = "gnn"
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    interaction: str  # transformer-seq | cross | fm-2way | self-attn-seq
+    embed_dim: int
+    n_dense: int = 0
+    n_sparse: int = 0
+    seq_len: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    n_cross_layers: int = 0
+    mlp: tuple[int, ...] = ()
+    vocab_sizes: tuple[int, ...] = ()  # per sparse field
+    item_vocab: int = 0  # for sequence models
+    dtype: torch.dtype = torch.float32
+    family: str = "recsys"
+
+
+Config = LMConfig | GNNConfig | RecsysConfig
+
+
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
@@ -118,12 +190,16 @@ def get_arch(arch_id: str):
     return importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch_id]}")
 
 
-def get_config(arch_id: str, smoke: bool = False) -> LMConfig:
+def get_config(arch_id: str, smoke: bool = False) -> Config:
     mod = get_arch(arch_id)
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-def reduced(config: LMConfig, **overrides) -> LMConfig:
+def get_shapes(arch_id: str) -> tuple[ShapeCell, ...]:
+    return get_arch(arch_id).SHAPES
+
+
+def reduced(config: Config, **overrides) -> Config:
     return dataclasses.replace(config, **overrides)
 
 
@@ -138,17 +214,15 @@ class TensorSpec:
     dtype: torch.dtype
 
 
-UNPORTED_FAMILIES = (
-    "is not ported yet: GNN and recsys models wait for ROADMAP.md queue 1, "
-    "items 7 (GNN) and 8 (recsys)"
-)
-
-
-def input_specs(config: Any, cell: ShapeCell) -> dict[str, Any]:
+def input_specs(config: Config, cell: ShapeCell) -> dict[str, Any]:
     """Model-input stand-ins for one (arch x shape) cell."""
     if isinstance(config, LMConfig):
         return _lm_input_specs(config, cell)
-    raise NotImplementedError(f"{type(config).__name__} {UNPORTED_FAMILIES}")
+    if isinstance(config, GNNConfig):
+        return _gnn_input_specs(config, cell)
+    if isinstance(config, RecsysConfig):
+        return _recsys_input_specs(config, cell)
+    raise TypeError(type(config))
 
 
 def _lm_input_specs(cfg: LMConfig, cell: ShapeCell) -> dict[str, Any]:
@@ -181,3 +255,81 @@ def _lm_input_specs(cfg: LMConfig, cell: ShapeCell) -> dict[str, Any]:
             "cache_len": TensorSpec((B,), torch.int32),
         }
     raise ValueError(cell.kind)
+
+
+def _pad512(n: int) -> int:
+    """Graph/candidate dims padded to a 512 multiple so every mesh divides
+    them (GSPMD rejects uneven shardings).  Padding rows are isolated
+    self-loop nodes masked out of the loss — <0.03% overhead at these sizes."""
+    return ((n + 511) // 512) * 512
+
+
+def _gnn_input_specs(cfg: GNNConfig, cell: ShapeCell) -> dict[str, Any]:
+    p = cell.params
+    if cell.kind == "full_graph":
+        n, e, df = _pad512(p["n_nodes"]), _pad512(p["n_edges"]), p["d_feat"]
+        return {
+            "node_feat": TensorSpec((n, df), cfg.dtype),
+            "edge_index": TensorSpec((2, e), torch.int32),
+            "labels": TensorSpec((n,), torch.int32),
+            "train_mask": TensorSpec((n,), torch.bool),
+        }
+    if cell.kind == "minibatch":
+        b, f1, f2 = p["batch_nodes"], p["fanout1"], p["fanout2"]
+        n_sub = b * (1 + f1 + f1 * f2)  # padded sampled subgraph
+        e_sub = b * (f1 + f1 * f2)
+        return {
+            "node_feat": TensorSpec((n_sub, 602), cfg.dtype),  # reddit d_feat
+            "edge_index": TensorSpec((2, e_sub), torch.int32),
+            "labels": TensorSpec((b,), torch.int32),
+            "seed_ids": TensorSpec((b,), torch.int32),
+        }
+    if cell.kind == "batched_graphs":
+        b, n, e = p["batch"], p["n_nodes"], p["n_edges"]
+        return {
+            "node_feat": TensorSpec((b, n, 16), cfg.dtype),
+            "edge_index": TensorSpec((b, 2, e), torch.int32),
+            "labels": TensorSpec((b,), torch.int32),
+        }
+    raise ValueError(cell.kind)
+
+
+def _recsys_input_specs(cfg: RecsysConfig, cell: ShapeCell) -> dict[str, Any]:
+    p = cell.params
+    if cell.kind == "retrieval":
+        specs = _recsys_batch_specs(cfg, p["batch"])
+        specs.pop("labels", None)
+        specs["candidate_ids"] = TensorSpec((p["n_candidates"],), torch.int32)
+        return specs
+    specs = _recsys_batch_specs(cfg, p["batch"])
+    if cell.kind != "train":
+        specs.pop("labels", None)
+    return specs
+
+
+def _recsys_batch_specs(cfg: RecsysConfig, B: int) -> dict[str, Any]:
+    if cfg.interaction == "cross":  # dcn-v2
+        return {
+            "dense": TensorSpec((B, cfg.n_dense), cfg.dtype),
+            "sparse_ids": TensorSpec((B, cfg.n_sparse), torch.int32),
+            "labels": TensorSpec((B,), cfg.dtype),
+        }
+    if cfg.interaction == "fm-2way":  # fm
+        return {
+            "sparse_ids": TensorSpec((B, cfg.n_sparse), torch.int32),
+            "labels": TensorSpec((B,), cfg.dtype),
+        }
+    if cfg.interaction == "transformer-seq":  # bst
+        return {
+            "hist_ids": TensorSpec((B, cfg.seq_len), torch.int32),
+            "target_id": TensorSpec((B,), torch.int32),
+            "labels": TensorSpec((B,), cfg.dtype),
+        }
+    if cfg.interaction == "self-attn-seq":  # sasrec
+        return {
+            "hist_ids": TensorSpec((B, cfg.seq_len), torch.int32),
+            "pos_ids": TensorSpec((B,), torch.int32),
+            "neg_ids": TensorSpec((B,), torch.int32),
+            "labels": TensorSpec((B,), cfg.dtype),
+        }
+    raise ValueError(cfg.interaction)

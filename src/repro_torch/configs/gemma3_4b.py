@@ -1,5 +1,5 @@
 """Gemma-3 4B (hf:google/gemma-3-*): 5:1 local:global attention, 128k ctx."""
-from .base import LMConfig, reduced
+from .base import LM_SHAPES, LMConfig, reduced
 
 CONFIG = LMConfig(
     name="gemma3-4b",
@@ -21,3 +21,5 @@ SMOKE = reduced(
     n_kv_heads=2, d_head=16, d_ff=128, vocab=256, local_global=(2, 1),
     local_window=8,
 )
+
+SHAPES = LM_SHAPES

@@ -1,5 +1,5 @@
 """TinyLlama 1.1B (arXiv:2401.02385): llama2-arch small, GQA kv=4."""
-from .base import LMConfig, reduced
+from .base import LM_SHAPES, LMConfig, reduced
 
 CONFIG = LMConfig(
     name="tinyllama-1.1b",
@@ -17,3 +17,5 @@ SMOKE = reduced(
     CONFIG, name="tinyllama-smoke", n_layers=2, d_model=64, n_heads=8,
     n_kv_heads=2, d_head=8, d_ff=128, vocab=256,
 )
+
+SHAPES = LM_SHAPES

@@ -25,12 +25,15 @@ def _leaf_to_torch(a: Any, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
-    """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
+    """Nested dicts and lists of numpy arrays -> the same structure of
+    tensors on ``device``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("params_from_numpy: device='cuda' requested but CUDA is not available")
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     return _leaf_to_torch(tree, device)
 
 
@@ -39,6 +42,8 @@ def params_to_numpy(tree: Any) -> Any:
     ``ml_dtypes.bfloat16`` arrays."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
     t = tree.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # only this direction needs numpy's bf16 type

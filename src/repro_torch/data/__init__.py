@@ -1,3 +1,4 @@
+from .graph import CSRGraph, NeighborSampler, random_graph
 from .synthetic import make_batch
 
-__all__ = ["make_batch"]
+__all__ = ["CSRGraph", "NeighborSampler", "make_batch", "random_graph"]

@@ -1,19 +1,19 @@
-"""Synthetic batch generators matching input_specs, LM family, on torch.
+"""Synthetic batch generators matching input_specs for every family/cell,
+on torch.
 
 Values come from numpy's generator, as in the reference, so the same seed
-gives the same batch in both packages.  GNN and recsys cells are not ported
-yet (``input_specs`` raises for them).
+gives the same batch in both packages; tensors go to an explicit device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..configs.base import LMConfig, ShapeCell, input_specs
+from ..configs.base import Config, ShapeCell, input_specs
 
 
 def make_batch(
-    cfg: LMConfig, cell: ShapeCell, seed: int = 0, device: str | torch.device = "cuda"
+    cfg: Config, cell: ShapeCell, seed: int = 0, device: str | torch.device = "cuda"
 ) -> dict:
     """Materialize a concrete batch with the exact spec shapes/dtypes on
     ``device``."""
@@ -25,15 +25,35 @@ def make_batch(
             for name, spec in input_specs(cfg, cell).items()}
 
 
-def _fill(rng, name, spec, cfg: LMConfig, cell: ShapeCell, device):
+def _ints(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+
+
+def _fill(rng, name, spec, cfg: Config, cell: ShapeCell, device):
     if isinstance(spec, dict):  # nested (decode cache)
         return {k: _fill(rng, k, v, cfg, cell, device) for k, v in spec.items()}
     shape, dtype = spec.shape, spec.dtype
     if name in ("tokens", "targets"):
-        a = torch.from_numpy(rng.integers(0, cfg.vocab, size=shape).astype(np.int32))
-        return a.to(device)
+        return _ints(rng.integers(0, cfg.vocab, size=shape), device)
     if name == "cache_len":
         return torch.full(shape, cell.params["seq_len"] // 2, dtype=torch.int32, device=device)
+    if name == "edge_index":
+        n = cell.params.get("n_nodes", 16)
+        return _ints(rng.integers(0, n, size=shape), device)
+    if name == "labels":
+        if not dtype.is_floating_point:
+            n_cls = getattr(cfg, "n_classes", 2)
+            return _ints(rng.integers(0, n_cls, size=shape), device)
+        x = torch.from_numpy(rng.integers(0, 2, size=shape).astype(np.float32))
+        return x.to(dtype).to(device)
+    if name == "train_mask":
+        return torch.from_numpy(rng.random(shape) < 0.5).to(device)
+    if name == "sparse_ids":
+        vocabs = np.asarray(cfg.vocab_sizes, np.int64)
+        return _ints(rng.integers(0, vocabs[None, :], size=shape), device)
+    if name in ("hist_ids", "target_id", "pos_ids", "neg_ids", "candidate_ids", "seed_ids"):
+        hi = getattr(cfg, "item_vocab", 0) or cell.params.get("n_nodes", 1000)
+        return _ints(rng.integers(0, hi, size=shape), device)
     if dtype.is_floating_point:
         # float64 -> float32 -> dtype, the rounding path of jnp.asarray(...).astype
         x = torch.from_numpy(rng.normal(size=shape) * 0.1).float()

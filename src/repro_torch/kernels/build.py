@@ -2,9 +2,12 @@
 
 Every ``kernels/*/csrc/*.cu`` is compiled for ``sm_90a`` into its own shared
 library with a plain C interface, under ``build/repro_torch/`` at the root of
-the checkout.  Each library's name carries a hash of its source and flags, so
-a changed source is rebuilt and an unchanged one is loaded as it is.  Only the
-sources in this package are used; a failed build raises with nvcc's stderr.
+the checkout; the headers the sources share live in ``kernels/include/``.
+Each library's name carries a hash of its source, the shared headers and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+loaded as it is.  Only the sources in this package are used; a failed build
+raises with nvcc's stderr.  ``vector_width`` picks the load width that the
+gather kernels take as an argument.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,7 +52,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    h = digest.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{h}.so"
 
 
@@ -59,7 +66,7 @@ def _start(src: Path) -> tuple[subprocess.Popen, Path, Path] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, tmp, out
 
@@ -106,3 +113,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(src)))
             _libs[name] = lib
         return lib
+
+
+def vector_width(dim: int, itemsize: int, *tensors) -> int:
+    """Elements per load: the widest power of two, at most 16 bytes, that
+    divides ``dim`` and keeps every row of ``tensors`` aligned to its bytes."""
+    vec = 16 // itemsize
+    while vec > 1 and (dim % vec or any(t.data_ptr() % (vec * itemsize) for t in tensors)):
+        vec //= 2
+    return vec

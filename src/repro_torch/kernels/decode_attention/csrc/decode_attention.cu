@@ -40,20 +40,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;           // warps per block
 constexpr int kRowsPerWarp = 4;     // query rows each warp owns
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kMaxDPL = 8;          // head-dim elements per lane: 256 / 32
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

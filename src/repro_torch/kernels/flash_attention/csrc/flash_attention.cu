@@ -46,6 +46,8 @@
 
 #include <type_traits>
 
+#include "vec_io.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // a 16 x 8 grid of threads
@@ -54,13 +56,6 @@ constexpr int kColGroups = 8;
 constexpr int kKeyTile = 64;   // keys per tile in the forward and dQ kernels
 constexpr int kRowTileBwd = 32;  // query rows per tile in the dK/dV kernel
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 // x rounded to T and back: the cast of P to V's type
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));

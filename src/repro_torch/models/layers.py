@@ -51,7 +51,9 @@ def init_params(
             fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
             scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
             w = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
-            return (w * scale).to(dtype)
+            return w.mul_(scale).to(dtype)
+        if isinstance(s, list):
+            return [build(x) for x in s]
         return {k: build(s[k]) for k in sorted(s)}
 
     return build(specs)
@@ -60,6 +62,8 @@ def init_params(
 def param_count(specs: Any) -> int:
     if isinstance(specs, PSpec):
         return math.prod(specs.shape)
+    if isinstance(specs, list):
+        return sum(param_count(s) for s in specs)
     return sum(param_count(s) for s in specs.values())
 
 
@@ -71,6 +75,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics (population variance)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
@@ -96,3 +109,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# -- embedding / segment ops ---------------------------------------------------
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids.long()]
+
+
+def embedding_bag(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    combiner: str = "sum",
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """EmbeddingBag in segment form, as plain torch ops (gather, then a
+    sum per segment with ``index_add``).
+
+    ids: [nnz] row indices; segment_ids: [nnz] output bag per id (sorted not
+    required); returns [num_segments, dim].  The models use the fixed-size
+    bag kernel of :mod:`repro_torch.kernels.embedding_bag` instead.
+    """
+    rows = table[ids.long()]
+    if weights is not None:
+        rows = rows * weights[:, None]
+    seg = segment_ids.long()
+    out = rows.new_zeros((num_segments, rows.shape[-1])).index_add_(0, seg, rows)
+    if combiner == "mean":
+        cnt = rows.new_zeros(num_segments).index_add_(0, seg, torch.ones_like(seg, dtype=rows.dtype))
+        out = out / torch.clamp(cnt, min=1.0)[:, None]
+    return out
+
+
+def mlp(x: torch.Tensor, layers: list[dict[str, torch.Tensor]], act=torch.relu):
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(layers) - 1:
+            x = act(x)
+    return x
+
+
+def mlp_specs(d_in: int, widths: tuple[int, ...], axes_in="embed", prefix="mlp"):
+    layers = []
+    d = d_in
+    for i, w in enumerate(widths):
+        layers.append(
+            {
+                "w": PSpec((d, w), (axes_in if i == 0 else "mlp_hidden", "mlp_hidden")),
+                "b": PSpec((w,), ("mlp_hidden",), init="zeros"),
+            }
+        )
+        d = w
+    return layers

@@ -1,4 +1,5 @@
-"""train_step / serve_step builders, LM family, on torch.
+"""train_step / serve_step builders for the LM, GNN and recsys families, on
+torch.
 
 ``build_param_specs(cfg, cell)`` -> PSpec tree
 ``build_train_step(cfg, ...)``  -> fn(state, batch) -> (state, metrics)
@@ -7,7 +8,8 @@
 The step runs eagerly where the reference is jitted.  Gradients come from
 ``torch.autograd.grad`` on detached views of the parameters, and the
 optimizer updates the state in place (see :mod:`repro_torch.optim.adamw`).
-GNN and recsys families are not ported yet.
+Recsys models serve (score and retrieval); their training waits for a
+backward of the embedding-bag kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import CheckpointPolicy
 
-from ..configs.base import UNPORTED_FAMILIES, LMConfig, ShapeCell
-from ..models import transformer
+from ..configs.base import Config, GNNConfig, LMConfig, RecsysConfig, ShapeCell
+from ..models import gnn, recsys, transformer
 from ..optim import AdamWConfig, apply_updates, init_state
 from ..tree import leaves, tree_map, unflatten
 
@@ -48,17 +50,31 @@ REMAT_POLICIES: dict[str, Any] = {
 }
 
 
-def _lm_only(cfg: Any) -> LMConfig:
-    if not isinstance(cfg, LMConfig):
-        raise NotImplementedError(f"{type(cfg).__name__} {UNPORTED_FAMILIES}")
-    return cfg
+RECSYS_TRAINING = (
+    "recsys training is not ported yet: it waits for a backward of the "
+    "embedding-bag kernel (ROADMAP.md queue 1, module 8)"
+)
 
 
 # --------------------------------------------------------------------------
 # param specs
 # --------------------------------------------------------------------------
-def build_param_specs(cfg: Any, cell: ShapeCell | None = None) -> Any:
-    return transformer.lm_specs(_lm_only(cfg))
+def build_param_specs(cfg: Config, cell: ShapeCell | None = None) -> Any:
+    if isinstance(cfg, LMConfig):
+        return transformer.lm_specs(cfg)
+    if isinstance(cfg, GNNConfig):
+        d_feat = 16
+        if cell is not None:
+            d_feat = cell.params.get("d_feat", 602 if cell.kind == "minibatch" else 16)
+        return gnn.gnn_specs(cfg, d_feat)
+    if isinstance(cfg, RecsysConfig):
+        return {
+            "fm-2way": recsys.fm_specs,
+            "cross": recsys.dcn_specs,
+            "transformer-seq": recsys.bst_specs,
+            "self-attn-seq": recsys.sasrec_specs,
+        }[cfg.interaction](cfg)
+    raise TypeError(type(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -80,12 +96,43 @@ def _lm_loss(params, cfg: LMConfig, batch, *, remat=None, unroll=1):
     return loss, {"loss": loss, "ppl_proxy": loss}
 
 
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()
+
+
+def _gnn_loss(params, cfg: GNNConfig, batch, cell: ShapeCell, remat=None):
+    if cell.kind == "batched_graphs":
+        logits = gnn.forward_batched(params, cfg, batch["node_feat"], batch["edge_index"])
+        loss = _ce(logits, batch["labels"])
+        return loss, {"loss": loss}
+    if cell.kind == "minibatch":
+        logits = gnn.forward(params, cfg, batch["node_feat"], batch["edge_index"])
+        loss = _ce(logits[: batch["labels"].shape[0]], batch["labels"])
+        return loss, {"loss": loss}
+    mask = batch.get("train_mask")
+    loss = gnn.loss_fn(
+        params, cfg, batch["node_feat"], batch["edge_index"], batch["labels"],
+        mask.float() if mask is not None else None,
+        remat=remat,
+    )
+    return loss, {"loss": loss}
+
+
 def build_loss_fn(
-    cfg: Any, cell: ShapeCell | None = None, *, remat: str = "none", unroll: int = 1
+    cfg: Config, cell: ShapeCell | None = None, *, remat: str = "none", unroll: int = 1
 ) -> Callable:
-    cfg = _lm_only(cfg)
-    policy = REMAT_POLICIES[remat]
-    return lambda params, batch: _lm_loss(params, cfg, batch, remat=policy, unroll=unroll)
+    if isinstance(cfg, LMConfig):
+        policy = REMAT_POLICIES[remat]
+        return lambda params, batch: _lm_loss(params, cfg, batch, remat=policy, unroll=unroll)
+    if isinstance(cfg, GNNConfig):
+        if cell is None:
+            raise ValueError("build_loss_fn: a GNN loss needs its shape cell")
+        policy = REMAT_POLICIES[remat]
+        return lambda params, batch: _gnn_loss(params, cfg, batch, cell, remat=policy)
+    if isinstance(cfg, RecsysConfig):
+        raise NotImplementedError(RECSYS_TRAINING)
+    raise TypeError(type(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -147,18 +194,54 @@ def build_train_step(
 # --------------------------------------------------------------------------
 # serve step
 # --------------------------------------------------------------------------
-def build_serve_step(cfg: Any, cell: ShapeCell, *, unroll: int = 1) -> Callable:
-    cfg = _lm_only(cfg)
-    if cell.kind == "prefill":
+def build_serve_step(cfg: Config, cell: ShapeCell, *, unroll: int = 1) -> Callable:
+    if isinstance(cfg, LMConfig):
+        if cell.kind == "prefill":
 
-        def prefill_step(params, tokens):
-            return transformer.prefill(params, cfg, tokens, unroll=unroll)
+            def prefill_step(params, tokens):
+                return transformer.prefill(params, cfg, tokens, unroll=unroll)
 
-        return prefill_step
-    if cell.kind == "decode":
+            return prefill_step
+        if cell.kind == "decode":
 
-        def decode_step(params, tokens, cache, cache_len):
-            return transformer.decode_step(params, cfg, tokens, cache, cache_len)
+            def decode_step(params, tokens, cache, cache_len):
+                return transformer.decode_step(params, cfg, tokens, cache, cache_len)
 
-        return decode_step
-    raise ValueError(cell.kind)
+            return decode_step
+        raise ValueError(cell.kind)
+
+    if isinstance(cfg, RecsysConfig):
+        if cell.kind == "retrieval":
+            fn = {
+                "fm-2way": lambda p, **b: recsys.fm_retrieval(
+                    p, cfg, b["sparse_ids"], b["candidate_ids"]
+                ),
+                "cross": lambda p, **b: recsys.dcn_retrieval(
+                    p, cfg, b["dense"], b["sparse_ids"], b["candidate_ids"]
+                ),
+                "transformer-seq": lambda p, **b: recsys.bst_retrieval(
+                    p, cfg, b["hist_ids"], b["candidate_ids"]
+                ),
+                "self-attn-seq": lambda p, **b: recsys.sasrec_retrieval(
+                    p, cfg, b["hist_ids"], b["candidate_ids"]
+                ),
+            }[cfg.interaction]
+            return fn
+
+        def score(params, **batch):
+            if cfg.interaction == "fm-2way":
+                return recsys.fm_forward(params, cfg, batch["sparse_ids"])
+            if cfg.interaction == "cross":
+                return recsys.dcn_forward(params, cfg, batch["dense"], batch["sparse_ids"])
+            if cfg.interaction == "transformer-seq":
+                return recsys.bst_forward(params, cfg, batch["hist_ids"], batch["target_id"])
+            if cfg.interaction == "self-attn-seq":
+                pos, neg = recsys.sasrec_forward(
+                    params, cfg, batch["hist_ids"], batch["pos_ids"], batch["neg_ids"]
+                )
+                return pos
+            raise ValueError(cfg.interaction)
+
+        return score
+
+    raise TypeError(f"no serve step for {type(cfg)}")

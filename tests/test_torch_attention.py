@@ -160,5 +160,6 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_found():
-    assert [p.name for p in build.sources()] == ["decode_attention.cu", "flash_attention.cu"]
+    assert [p.name for p in build.sources()] == [
+        "decode_attention.cu", "embedding_bag.cu", "flash_attention.cu", "gnn_aggregate.cu"]
 
