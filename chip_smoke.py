@@ -14,12 +14,14 @@ counting the kernel's launches; checks an fp32 smoke engine on the card
 against the same engine on the CPU, token for token; holds the flash-attention
 kernels (forward: out and logsumexp; backward: dq, dk, dv) against the plain
 version plus autograd at the training, gemma3-like, smoke and ragged shapes,
-with their times; trains full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for
+with their times and the variant (``wgmma``, ``wmma`` or ``fma``) that each
+shape takes; trains full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for
 one warm-up and three timed steps through ``build_train_step``, counting the
-flash launches, and profiles one more step; trains an fp32 smoke model five
+flash launches by variant (all must be ``wgmma``), and profiles one more step; trains an fp32 smoke model five
 steps on the card and on the CPU and compares them; runs ``TrainDriver``
 with checkpoints and an injected failure on the card; and prefills 2,048
-tokens at full width, then checks ``prefill`` against a chain of
+tokens at full width (every flash call ``wgmma``) and profiles one more
+prefill, then checks ``prefill`` against a chain of
 ``prefill_chunk`` calls on a smoke model.
 
 Then the recsys and GNN paths: it holds the embedding-bag kernel against its
@@ -539,7 +541,7 @@ def phase_flash(dev) -> dict:
             fwd = lambda: ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
             bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                                   window=window)
-            row = {}
+            row = {"variant": ops.variant(dtype, dh, Hq // Hkv)}
             for kind, fn in (("fwd", fwd), ("bwd", bwd)):
                 bms, by = flash_bound_ms(case, dtype, kind == "bwd")
                 dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
@@ -560,7 +562,8 @@ def phase_flash(dev) -> dict:
             del lib_out
             for kind in ("fwd", "bwd"):
                 r = row[kind]
-                print(f"flash time  {label:16s} {tname:8s} {kind} ms {r['ms']:.6f} "
+                print(f"flash time  {label:16s} {tname:8s} {row['variant']:5s} {kind} "
+                      f"ms {r['ms']:.6f} "
                       f"device_ms {r['device_ms']:.6f} device_span_ms {r['span_ms']:.6f} "
                       f"queued_ms {r['queued_ms']:.6f} "
                       f"plain_ms {r['plain_ms']:.6f} "
@@ -611,7 +614,7 @@ def profile_call(label: str, fn, n_kernels: int = 10) -> dict:
 
 def phase_train(dev) -> dict:
     from repro_torch.configs import ShapeCell, get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches, variant
     from repro_torch.models.layers import init_params
     from repro_torch.models.transformer import lm_specs
     from repro_torch.optim import AdamWConfig
@@ -627,7 +630,7 @@ def phase_train(dev) -> dict:
     batches = [lm_batch(cfg.vocab, B, S, i, dev) for i in range(5)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention.launches_fwd = flash_attention.launches_bwd = 0
+    reset_launches()
     rows = []
     for i in range(4):  # one warm-up step, three timed
         f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
@@ -646,6 +649,11 @@ def phase_train(dev) -> dict:
               f"train {tag}: {nf} forward / {nb} backward flash calls, wanted {cfg.n_layers}")
         rows.append(dict(step_s=dt, **m))
     launches = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+    var = variant(cfg.dtype, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)
+    by_var = flash_attention.launches_by_variant
+    print(f"train: flash launches by variant {by_var}; the train shape's variant is {var}")
+    check(var == "wgmma" and by_var["wgmma"] == {"fwd": launches[0], "bwd": launches[1]},
+          f"train: not every flash call ran the wgmma kernels: {by_var}")
     mem = torch.cuda.max_memory_allocated(dev)
     timed = rows[1:]
     mean_s = sum(r["step_s"] for r in timed) / len(timed)
@@ -662,7 +670,7 @@ def phase_train(dev) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"launches": launches, "rows": rows, "mean_step_s": mean_s, "max_memory": mem,
-            "profile": prof}
+            "profile": prof, "variant": var}
 
 
 def phase_train_parity(dev) -> None:
@@ -747,7 +755,7 @@ def phase_driver(dev) -> None:
 def phase_prefill(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
     from repro_torch.models import transformer
     from repro_torch.models.layers import init_params
 
@@ -759,7 +767,7 @@ def phase_prefill(dev) -> dict:
     ).to(dev)
     transformer.prefill(params, cfg, toks)  # warm-up
     torch.cuda.synchronize()
-    flash_attention.launches_fwd = flash_attention.launches_bwd = 0
+    reset_launches()
     t0 = time.perf_counter()
     logits, cache, clen = transformer.prefill(params, cfg, toks)
     ok = bool(torch.isfinite(logits).all())  # waits for the device
@@ -771,9 +779,15 @@ def phase_prefill(dev) -> dict:
     check(ok, "prefill: non-finite logits")
     check(launches == cfg.n_layers and flash_attention.launches_bwd == 0,
           f"prefill: {launches} flash launches, wanted {cfg.n_layers}")
+    by_var = flash_attention.launches_by_variant
+    print(f"prefill: flash launches by variant {by_var}")
+    check(by_var["wgmma"]["fwd"] == launches,
+          f"prefill: not every flash call ran the wgmma kernels: {by_var}")
     check(clen.tolist() == [2048] and cache["k"].shape == (cfg.n_layers, 1, 2048, 4, 64),
           "prefill: cache shape or length")
-    del params, cache, logits
+    del cache, logits
+    prof = profile_call("prefill", lambda: transformer.prefill(params, cfg, toks), n_kernels=8)
+    del params
     torch.cuda.empty_cache()
 
     # prefill (flash kernel) against a chain of prefill_chunk calls (decode kernel)
@@ -800,7 +814,7 @@ def phase_prefill(dev) -> dict:
           f"prefill differs from the prefill_chunk chain: {errs}")
     check(flash_attention.launches_fwd > f0 and decode_attention.launches > d0,
           "prefill check: a kernel was not launched")
-    return {"launches": launches, "ms": ms}
+    return {"launches": launches, "ms": ms, "profile": prof}
 
 
 # --------------------------------------------------------------------------
@@ -1379,6 +1393,7 @@ def main() -> int:
             "source": flash_src,
             "replaces": flash_tpu,
             "launches": launches,
+            "variant": fm["variant"],
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -15,28 +15,36 @@
 // What bounds it on this card: operations.  At the training shape (S 2048,
 // dh 64) a causal call does ~2*S*S*dh multiply-adds per head and moves each
 // of q, k, v and o once, some 300 operations a byte, above the H100's bf16
-// ridge.  bf16 inputs go to the tensor cores through mma.sync (WMMA 16x16x16
-// tiles, fp32 sums; see the tensor-core section below); fp32 inputs stay on
-// the CUDA cores (67 TFLOP/s peak), since TF32 would round the inputs.
-// wgmma with TMA-fed tiles is the later step.  What the design does:
+// ridge.  Three variants, chosen from the shape before any launch by the
+// wrapper's variant() (a launch checks that its variant takes the shape):
+//  * wgmma: bf16 with padded dh <= 128 and G dividing 64 (the training,
+//    prefill and smoke shapes).  Warp-specialised kernels: a producer warp
+//    feeds a TMA ring of K/V (or Q/dO) tiles, two consumer warpgroups run
+//    every tile product with wgmma and keep S, P, dS and the O/dQ/dK/dV
+//    accumulators in registers; see the section below.
+//  * wmma: bf16 otherwise (dh 136..256, or G not dividing 64): mma.sync
+//    through WMMA 16x16x16 tiles of 32 rows, products through shared memory.
+//  * fma: fp32 on the CUDA cores (67 TFLOP/s peak), since TF32 would round
+//    the inputs: the exact parity path.
+// What the design does, in all three:
 //  * The TPU grid (B, Hq, n_q, n_k) walks the KV axis in order and carries
 //    m/l/acc in VMEM.  Here one block owns a tile of query rows and loops
-//    over key tiles itself, carrying m/l/acc in registers.  A block's rows
+//    over key tiles itself, carrying m/l/acc on the chip.  A block's rows
 //    are (position, head) pairs of one KV head, r = s*G + g, so the G query
 //    heads of a GQA group share every K/V tile the block stages.
 //  * Key tiles wholly outside the rows' causal/window range are never read
 //    (the TPU kernel computes them and lets alpha wash them out); the ragged
 //    edge t >= Sk is masked here, so the wrapper pads nothing.
-//  * Register tiling: 128 threads form a 16 x 8 grid; a thread owns TM rows
-//    (strided by 16) and 8 keys or dh/8 head columns (strided by 8), so every
-//    product reads shared memory without bank conflicts (tiles are stored
-//    with an odd row stride) and does TM*8 FMAs per 8+TM loads.
 //  * Backward: one block per (b, kv head, key tile) accumulates dK and dV over
 //    every query row of the G heads that sees the tile; one block per (b, kv
 //    head, row tile) accumulates dQ over key tiles.  Both recompute P from Q,
-//    K and the saved logsumexp, and compute D = rowsum(dO * O) for their own
-//    rows.  No atomics: the gradients are the same from run to run.
-//  * Tiles shrink as dh grows (TM 4 -> 2 or 1) so that accumulators stay in
+//    K and the saved logsumexp.  No atomics: the gradients are the same from
+//    run to run.
+//  * fp32: register tiling over a 16 x 8 grid of 128 threads; a thread owns
+//    TM rows (strided by 16) and 8 keys or dh/8 head columns (strided by 8),
+//    so every product reads shared memory without bank conflicts (tiles are
+//    stored with an odd row stride) and does TM*8 FMAs per 8+TM loads.  Tiles
+//    shrink as dh grows (TM 4 -> 2 or 1) so that accumulators stay in
 //    registers and tiles fit the 227 KB of dynamic shared memory at dh 256.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,6 +54,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "vec_io.cuh"
 
 namespace {
@@ -557,7 +566,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // are exact products of the bf16 inputs summed in fp32, as above; P is
 // rounded to bf16 for P.V and dV (the cast of _flash_kernel:76), and dS is
 // rounded to bf16 for dQ and dK, as FlashAttention-2 does.  TILE is both the
-// row tile and the key tile: 64, or 32 when dh > 128 so that tiles fit.
+// row tile and the key tile, 32 so that tiles fit at dh 256.  These kernels
+// serve the bf16 shapes the wgmma kernels below do not take: padded dh above
+// 128, and GQA groups G that do not divide 64.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -566,6 +577,8 @@ constexpr int kF32Pad = 4;  // fp32 row padding: ld stays a multiple of 4
 
 __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+
+constexpr int TILE = 32;  // row and key tile of the WMMA kernels
 
 // C[M x N] (fp32, row-major, ldc) = (kAccumulate ? C : 0) + A[M x K] . B[K x N]
 // on the tensor cores; A and B are bf16 in shared memory, each row- or
@@ -640,7 +653,6 @@ struct SmemCarver {
 };
 
 // forward, tensor cores.  grid: (ceil(Sq*G / TILE), B*Hkv)
-template <int TILE>
 struct FwdTcSmem {
   bf16 *Qs, *Ks, *Vs, *Ps;
   float *Ss, *Os;
@@ -657,7 +669,6 @@ struct FwdTcSmem {
   }
 };
 
-template <int TILE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
@@ -669,7 +680,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) char smem_raw[];
   const int dhp = pad16(dh);
   const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  FwdTcSmem<TILE> sm;
+  FwdTcSmem sm;
   sm.carve(smem_raw, dhp);
 
   const int G = Hq / Hkv;
@@ -774,7 +785,6 @@ __device__ __forceinline__ void stage_lse(float* lse_s, const float* __restrict_
 }
 
 // dQ, tensor cores.  grid: (ceil(Sq*G / TILE), B*Hkv)
-template <int TILE>
 struct DqTcSmem {
   bf16 *Qs, *dOs, *Ks, *Vs, *dSs;
   float *Ss, *dPs, *dQs, *lse_s, *D_s;
@@ -795,7 +805,6 @@ struct DqTcSmem {
   }
 };
 
-template <int TILE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -808,7 +817,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) char smem_raw[];
   const int dhp = pad16(dh);
   const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  DqTcSmem<TILE> sm;
+  DqTcSmem sm;
   sm.carve(smem_raw, dhp);
 
   const int G = Hq / Hkv;
@@ -869,7 +878,6 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK and dV, tensor cores.  grid: (ceil(Sk / TILE), B*Hkv)
-template <int TILE>
 struct DkdvTcSmem {
   bf16 *Ks, *Vs, *Qs, *dOs, *Ps, *dSs;
   float *Ss, *dPs, *dKs, *dVs, *lse_s, *D_s;
@@ -892,7 +900,6 @@ struct DkdvTcSmem {
   }
 };
 
-template <int TILE>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -905,7 +912,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) char smem_raw[];
   const int dhp = pad16(dh);
   const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  DkdvTcSmem<TILE> sm;
+  DkdvTcSmem sm;
   sm.carve(smem_raw, dhp);
 
   const int G = Hq / Hkv;
@@ -970,6 +977,671 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = tn; c < dh; c += kColGroups) {
       dk[off + c] = __float2bfloat16(sm.dKs[kl * ldo + c] * scale);
       dv[off + c] = __float2bfloat16(sm.dVs[kl * ldo + c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: wgmma fed by TMA (padded dh <= 128, G dividing 64)
+//
+// Each kernel is warp-specialised: warpgroup 0 is the producer (one thread
+// issues TMA loads into a ring of kStages stages, guarded by full/empty
+// mbarriers), warpgroups 1 and 2 are consumers that own 64 rows (or keys)
+// each and run every tile product with wgmma.  Tiles are 128-byte rows (64
+// head columns) under the 128-byte swizzle; dh <= 64 takes one such column
+// chunk, dh <= 128 two (DC).  TMA's zero fill pads dh to the chunk, the
+// ragged Sq/Sk edges and rows past Sq; masks remain only on the scores.
+//
+// Q (and dO) come through a 4-D tensor map (dh, Hq, S, B) with boxes of
+// (64, G, 64/G, 1): the box is the 64 rows r = s*G + g of one kv head, and
+// a box past S reads zeros instead of the next batch's rows.  K and V come
+// through a map (dh, Hkv, Sk, B).
+//
+// The softmax and the gradients' elementwise work run on the wgmma
+// accumulators in registers: a thread holds two rows (lane/4 and lane/4 + 8
+// of its warp's 16) and reduces over the quad of lanes that share them.  An
+// accumulator converts to a bf16 A operand in registers without moving
+// (wgmma_rs_64x64's layout), so P (and dS) feed the next product directly.
+// ---------------------------------------------------------------------------
+constexpr int kWgRows = 64;                  // rows (or keys) of one consumer warpgroup
+constexpr int kConsumers = 2;                // consumer warpgroups
+constexpr int kWsThreads = 128 * (1 + kConsumers);
+constexpr int kBlockRows = kWgRows * kConsumers;
+constexpr int kStages = 2;                   // depth of the TMA ring
+constexpr int kFwdKeys = 128;                // keys per forward tile
+constexpr int kDqKeys = 64;                  // keys per dQ tile
+constexpr int kChunk = 64;                   // head columns per 128-byte row
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// bytes of one [rows][64] bf16 tile
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kChunk * 2; }
+
+// The dynamic shared memory rounded up to the 1024 bytes the swizzle needs
+// (the launchers ask for 1024 bytes more than the layout).
+template <typename S> __device__ __forceinline__ S& smem_layout(char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(raw + pad);
+}
+
+// Scores of a tile whose every (row, key) pair is visible skip the masks.
+__device__ __forceinline__ bool tile_needs_mask(int key0, int nkeys, int pos_lo, int pos_hi,
+                                                int Sk, int causal, int window) {
+  return key0 + nkeys > Sk || (causal && key0 + nkeys - 1 > pos_lo) ||
+         (window > 0 && key0 <= pos_hi - window);
+}
+
+// No (row, key) pair of the tile is visible.
+__device__ __forceinline__ bool tile_invisible(int key0, int nkeys, int pos_lo, int pos_hi,
+                                               int Sk, int causal, int window) {
+  const int key_last = min(Sk, key0 + nkeys) - 1;
+  return key0 >= Sk || (causal && key0 > pos_hi) || (window > 0 && key_last <= pos_lo - window);
+}
+
+// Quad reductions: the four lanes that hold the same two rows.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Eight accumulator values s[0..7], the 8-column blocks 2q and 2q+1 of a
+// 64-row accumulator, as the bf16 A fragment of one 16-deep k-step (its
+// columns 0-7 and 8-15).
+__device__ __forceinline__ void to_a_frag(const float* s, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[0], s[1]);
+  a[1] = pack_bf16(s[2], s[3]);
+  a[2] = pack_bf16(s[4], s[5]);
+  a[3] = pack_bf16(s[6], s[7]);
+}
+
+template <int DC>
+struct FwdWgSmem {
+  alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
+  alignas(1024) bf16 k[kStages][DC][kFwdKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DC][kFwdKeys * kChunk];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+// forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
+template <int DC>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh,
+                       int causal, int window, float scale) {
+  extern __shared__ char smem_raw[];
+  FwdWgSmem<DC>& sm = smem_layout<FwdWgSmem<DC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * kBlockRows;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kBlockRows) - 1) / G;
+  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
+  const int t_first = key_lo / kFwdKeys;
+  const int n_tiles = key_hi >= key_lo ? key_hi / kFwdKeys - t_first + 1 : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kConsumers * DC * tile_bytes(kWgRows));
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < DC; ++c)
+          tma_load_4d(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, kvh * G,
+                      (r0 + w * kWgRows) / G, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kFwdKeys));
+        const int t0 = (t_first + i) * kFwdKeys;
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+        }
+      }
+    }
+  } else {
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int rw0 = r0 + cw * kWgRows;  // this warpgroup's first row
+    const int r_lo = rw0 + 16 * warp + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+    const int pos[2] = {r_lo / G, (r_lo + 8) / G};
+    const int wp_lo = rw0 / G, wp_hi = (min(Rtot, rw0 + kWgRows) - 1) / G;
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
+
+    float oacc[DC][32];
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    mbar_wait(&sm.q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int t0 = (t_first + i) * kFwdKeys;
+      mbar_wait(&sm.full[s], (i / kStages) & 1);
+      if (rw0 < Rtot && !tile_invisible(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
+        // S = Q . K^T: 64 rows x 128 keys, as two 64-key halves
+        float sacc[2][32];
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int kc = 0; kc < DC * 4; ++kc) {
+            const uint64_t da = wgmma_desc(sm.q[cw][kc / 4]) + 2 * (kc % 4);
+            const uint64_t db = wgmma_desc(sm.k[s][kc / 4] + h * 64 * kChunk) + 2 * (kc % 4);
+            wgmma_ss_64x64(sacc[h], da, db, kc > 0);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc[0]);
+        fence_regs(sacc[1]);
+
+        if (tile_needs_mask(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int key = t0 + 64 * h + 8 * (e / 4) + col + (e & 1);
+              if (!visible(key, pos[(e >> 1) & 1], Sk, causal, window)) sacc[h][e] = -INFINITY;
+            }
+        }
+        // online softmax over the quad's rows
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[h][e]);
+        float m_use[2], alpha[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float m_new = fmaxf(m_run[x], quad_max(mx[x]) * sc);
+          // rows that have seen no visible key keep m = -inf, l = 0, O = 0
+          m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+          alpha[x] = fast_exp2(m_run[x] - m_use[x]);
+          m_run[x] = m_new;
+          l_run[x] *= alpha[x];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int x = (e >> 1) & 1;
+            const float p = fast_exp2(sacc[h][e] * sc - m_use[x]);
+            l_run[x] += p;
+            sacc[h][e] = p;
+          }
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
+        // P in bf16 (the cast of _flash_kernel:76) as the A operand of O += P . V
+        uint32_t pa[kFwdKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kFwdKeys / 16; ++kk) to_a_frag(&sacc[kk / 4][8 * (kk % 4)], pa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[s][c]) + kk * 16 * 128 / 16);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < DC; ++c) fence_regs(oacc[c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float l = quad_sum(l_run[x]);
+      const int r = r_lo + 8 * x;
+      if (r >= Rtot) continue;  // rows past Sq write nothing
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = kChunk * c + 8 * j + col;
+          if (cc < dh)
+            *reinterpret_cast<__nv_bfloat162*>(o + off + cc) = __floats2bfloat162_rn(
+                oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
+        }
+      if (lane % 4 == 0) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        lse[((size_t)b * Hq + h) * Sq + sp] = l > 0.f ? (m_run[x] + log2f(l)) * kLn2 : -INFINITY;
+      }
+    }
+  }
+}
+
+template <int DC>
+struct DqWgSmem {
+  alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
+  alignas(1024) bf16 dout[kConsumers][DC][kWgRows * kChunk];
+  alignas(1024) bf16 k[kStages][DC][kDqKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DC][kDqKeys * kChunk];
+  float delta[kConsumers][kWgRows];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+// backward, dQ; also writes D = rowsum(dO * O) into delta [B,Hq,Sq] for
+// the dK/dV kernel.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest first
+template <int DC>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int dh,
+                          int causal, int window, float scale) {
+  extern __shared__ char smem_raw[];
+  DqWgSmem<DC>& sm = smem_layout<DqWgSmem<DC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * kBlockRows;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kBlockRows) - 1) / G;
+  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
+  const int t_first = key_lo / kDqKeys;
+  const int n_tiles = key_hi >= key_lo ? key_hi / kDqKeys - t_first + 1 : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, 2 * kConsumers * DC * tile_bytes(kWgRows));
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < DC; ++c) {
+          const int s0 = (r0 + w * kWgRows) / G;
+          tma_load_4d(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, kvh * G, s0, b);
+          tma_load_4d(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, kvh * G, s0, b);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kDqKeys));
+        const int t0 = (t_first + i) * kDqKeys;
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+        }
+      }
+    }
+  } else {
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int rw0 = r0 + cw * kWgRows;
+    const int r_lo = rw0 + 16 * warp + lane / 4;
+    const int pos[2] = {r_lo / G, (r_lo + 8) / G};
+    const int wp_lo = rw0 / G, wp_hi = (min(Rtot, rw0 + kWgRows) - 1) / G;
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;
+
+    // D = rowsum(dO * O), once per row: two threads a row, 16 bytes a load
+    {
+      const int i = tid / 2, r = rw0 + i;
+      float acc = 0.f;
+      if (r < Rtot) {
+        const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
+        for (int d = (tid % 2) * 8; d < dh; d += 16) {
+          const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
+          const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
+          const bf16* av = reinterpret_cast<const bf16*>(&a);
+          const bf16* gv = reinterpret_cast<const bf16*>(&g);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc = fmaf(__bfloat162float(gv[u]), __bfloat162float(av[u]), acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (tid % 2 == 0) {
+        sm.delta[cw][i] = acc;
+        if (r < Rtot) {
+          const int sp = r / G, h = kvh * G + (r - sp * G);
+          delta[((size_t)b * Hq + h) * Sq + sp] = acc;
+        }
+      }
+    }
+    named_barrier(1 + cw, 128);
+    float D[2], L[2];  // D and lse * log2(e) of this thread's two rows
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r_lo + 8 * x;
+      D[x] = sm.delta[cw][r - rw0];
+      L[x] = 0.f;
+      if (r < Rtot) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+      }
+    }
+
+    float dqacc[DC][32];
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dqacc[c][e] = 0.f;
+    mbar_wait(&sm.q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int t0 = (t_first + i) * kDqKeys;
+      mbar_wait(&sm.full[s], (i / kStages) & 1);
+      if (rw0 < Rtot && !tile_invisible(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
+        // two commit groups, so that P is formed while dP is computed
+        float sacc[32], pacc[32];  // S = Q . K^T and dP = dO . V^T
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < DC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][c]) + kb, wgmma_desc(sm.k[s][c]) + kb, kc > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kc = 0; kc < DC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
+                         kc > 0);
+        }
+        wgmma_commit();
+        const bool masked = tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window);
+        wgmma_wait<1>();  // S is done
+        fence_regs(sacc);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int x = (e >> 1) & 1;
+          const int key = t0 + 8 * (e / 4) + col + (e & 1);
+          const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
+          sacc[e] = ok ? fast_exp2(sacc[e] * sc - L[x]) : 0.f;  // P
+        }
+        wgmma_wait<0>();
+        fence_regs(pacc);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          sacc[e] *= pacc[e] - D[(e >> 1) & 1];  // dS, rounded to bf16 below
+        uint32_t da[kDqKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk) to_a_frag(&sacc[8 * kk], da[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            wgmma_rs_64x64(dqacc[c], da[kk], wgmma_desc(sm.k[s][c]) + kk * 16 * 128 / 16);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < DC; ++c) fence_regs(dqacc[c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r_lo + 8 * x;
+      if (r >= Rtot) continue;
+      const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = kChunk * c + 8 * j + col;
+          if (cc < dh)
+            *reinterpret_cast<__nv_bfloat162*>(dq + off + cc) = __floats2bfloat162_rn(
+                dqacc[c][4 * j + 2 * x] * scale, dqacc[c][4 * j + 2 * x + 1] * scale);
+        }
+    }
+  }
+}
+
+constexpr int kKvKeys = kWgRows * kConsumers;  // keys per dK/dV block
+constexpr int kBwdRows = 64;                   // rows per dK/dV tile
+constexpr int kBwdStages = 3;                  // depth of the dK/dV kernel's Q/dO ring
+
+template <int DC>
+struct DkdvWgSmem {
+  alignas(1024) bf16 k[DC][kKvKeys * kChunk];
+  alignas(1024) bf16 v[DC][kKvKeys * kChunk];
+  alignas(1024) bf16 q[kBwdStages][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kBwdStages][DC][kBwdRows * kChunk];
+  float lse2[kBwdStages][kBwdRows];   // lse * log2(e) of the tile's rows
+  float delta[kBwdStages][kBwdRows];  // D of the tile's rows
+  uint64_t kv_full, full[kBwdStages], empty[kBwdStages];
+};
+
+// backward, dK and dV, after the dQ kernel has written delta.  Keys are the
+// M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
+// dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
+// ceil(Sk / 128)); the first key tiles, which see the most rows under
+// causal, launch first.
+template <int DC>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+                            int Hq, int Hkv, int dh, int causal, int window, float scale) {
+  extern __shared__ char smem_raw[];
+  DkdvWgSmem<DC>& sm = smem_layout<DkdvWgSmem<DC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int k0 = blockIdx.y * kKvKeys;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  // query positions that can see a key of this block
+  const int k_last = min(Sk, k0 + kKvKeys) - 1;
+  const int p_min = causal ? k0 : 0;
+  const int p_max = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int row_first = (min(p_min, Sq) * G / kBwdRows) * kBwdRows;
+  const int row_end = min(Rtot, (p_max + 1) * G);
+  const int n_tiles = row_end > row_first ? (row_end - row_first + kBwdRows - 1) / kBwdRows : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      // the TMA's expect_tx, then every producer lane once its lse and D are written
+      mbar_init(&sm.full[s], 1 + 32);
+      mbar_init(&sm.empty[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    warpgroup_reg_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * DC * tile_bytes(kKvKeys));
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(sm.k[c], &k_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+          tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+        }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kBwdStages;
+        const int rt0 = row_first + i * kBwdRows;
+        if (i >= kBwdStages) mbar_wait(&sm.empty[s], (i / kBwdStages - 1) & 1);
+        if (lane == 0) {  // the tiles first, so their latency overlaps the loads below
+          mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kBwdRows));
+          for (int c = 0; c < DC; ++c) {
+            tma_load_4d(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, kvh * G, rt0 / G, b);
+            tma_load_4d(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, kvh * G, rt0 / G, b);
+          }
+        }
+        for (int x = lane; x < kBwdRows; x += 32) {
+          const int r = rt0 + x;
+          float l2 = 0.f, d = 0.f;
+          if (r < Rtot) {
+            const int sp = r / G, h = kvh * G + (r - sp * G);
+            const size_t idx = ((size_t)b * Hq + h) * Sq + sp;
+            l2 = lse[idx] * kLog2e;
+            d = delta[idx];
+          }
+          sm.lse2[s][x] = l2;
+          sm.delta[s][x] = d;
+        }
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+  } else {
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int kw0 = k0 + cw * kWgRows;  // this warpgroup's first key
+    const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;
+
+    float dkacc[DC][32], dvacc[DC][32];
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dkacc[c][e] = dvacc[c][e] = 0.f;
+    mbar_wait(&sm.kv_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kBwdStages;
+      const int rt0 = row_first + i * kBwdRows;
+      mbar_wait(&sm.full[s], (i / kBwdStages) & 1);
+      const int tp_lo = rt0 / G, tp_hi = (min(Rtot, rt0 + kBwdRows) - 1) / G;
+      // the tile's rows against this warpgroup's keys, with rows and keys
+      // swapped in the tests of tile_invisible and tile_needs_mask
+      const int kw_last = min(Sk, kw0 + kWgRows) - 1;
+      const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
+                        (window > 0 && kw_last <= tp_lo - window);
+      if (!skip) {
+        // three commit groups: S^T, dP^T, then dV += P^T . dO runs while
+        // dS^T is formed, and dK += dS^T . Q last
+        float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < DC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(st, wgmma_desc(sm.k[c] + cw * kWgRows * kChunk) + kb,
+                         wgmma_desc(sm.q[s][c]) + kb, kc > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kc = 0; kc < DC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + cw * kWgRows * kChunk) + kb,
+                         wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
+        }
+        wgmma_commit();
+        const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                            (causal && tp_lo < kw0 + kWgRows - 1) ||
+                            (window > 0 && tp_hi - window + 1 > kw0);
+        wgmma_wait<1>();  // S^T is done
+        fence_regs(st);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+          const int r = rt0 + rl;
+          const int key = key_lo + 8 * ((e >> 1) & 1);
+          const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
+          st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+        }
+        uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&st[8 * kk], pa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            wgmma_rs_64x64(dvacc[c], pa[kk], wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is done (dV may still run)
+        fence_regs(dpt);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int rl = 8 * (e / 4) + col + (e & 1);
+          dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
+        }
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&dpt[8 * kk], dsa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            wgmma_rs_64x64(dkacc[c], dsa[kk], wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < kBwdRows / 16; ++kk) fence_regs(pa[kk]);  // read by the dV group
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          fence_regs(dkacc[c]);
+          fence_regs(dvacc[c]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int key = key_lo + 8 * x;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * Hkv + kvh) * dh;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = kChunk * c + 8 * j + col;
+          if (cc < dh) {
+            const int e = 4 * j + 2 * x;
+            *reinterpret_cast<__nv_bfloat162*>(dk + off + cc) =
+                __floats2bfloat162_rn(dkacc[c][e] * scale, dkacc[c][e + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv + off + cc) =
+                __floats2bfloat162_rn(dvacc[c][e], dvacc[c][e + 1]);
+          }
+        }
     }
   }
 }
@@ -1066,11 +1738,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   } while (0)
 
 // bf16: the tensor-core kernels, with tiles of 64 (32 when dh > 128)
-template <int TILE>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
                           const Shape& s, cudaStream_t st) {
-  const size_t smem = FwdTcSmem<TILE>().carve(nullptr, pad16(s.dh));
-  auto kern = flash_fwd_tc_kernel<TILE>;
+  const size_t smem = FwdTcSmem().carve(nullptr, pad16(s.dh));
+  auto kern = flash_fwd_tc_kernel;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const int G = s.Hq / s.Hkv;
@@ -1081,12 +1752,11 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, 
   return cudaGetLastError();
 }
 
-template <int TILE>
 cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const float* lse, void* dk, void* dv,
                            const Shape& s, cudaStream_t st) {
-  const size_t smem = DkdvTcSmem<TILE>().carve(nullptr, pad16(s.dh));
-  auto kern = flash_bwd_dkdv_tc_kernel<TILE>;
+  const size_t smem = DkdvTcSmem().carve(nullptr, pad16(s.dh));
+  auto kern = flash_bwd_dkdv_tc_kernel;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((s.Sk + TILE - 1) / TILE, s.B * s.Hkv);
@@ -1097,12 +1767,11 @@ cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-template <int TILE>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, void* dq, const Shape& s,
                          cudaStream_t st) {
-  const size_t smem = DqTcSmem<TILE>().carve(nullptr, pad16(s.dh));
-  auto kern = flash_bwd_dq_tc_kernel<TILE>;
+  const size_t smem = DqTcSmem().carve(nullptr, pad16(s.dh));
+  auto kern = flash_bwd_dq_tc_kernel;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const int G = s.Hq / s.Hkv;
@@ -1112,13 +1781,6 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
       s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
   return cudaGetLastError();
-}
-
-bool big_head(const Shape& s) { return pad16(s.dh) > 128; }
-
-bool bad_shape(const Shape& s) {
-  return s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.Hq % s.Hkv != 0 ||
-         s.dh <= 0 || s.dh > 256 || s.dh % 8 != 0;
 }
 
 template <typename T>
@@ -1139,54 +1801,135 @@ cudaError_t dq_typed(const void* q, const void* k, const void* v, const void* o,
   FLASH_DISPATCH_DPT(s.dh, launch_dq, T, q, k, v, o, dout, lse, dq, s, st);
 }
 
+// bf16 through wgmma: tensor maps, shared memory and grids
+
+// the maps of the row tensors (q, out, dout: boxes of 64 rows r = s*G + g)
+// and of the key tensors (k, v: boxes of `keys` keys)
+bool row_map(CUtensorMap* m, const void* p, const Shape& s) {
+  const int G = s.Hq / s.Hkv;
+  return make_map_bf16_4d(m, p, s.dh, s.Hq, s.Sq, s.B, G, kWgRows / G);
+}
+bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys) {
+  return make_map_bf16_4d(m, p, s.dh, s.Hkv, s.Sk, s.B, 1, keys);
+}
+
+dim3 row_grid(const Shape& s) {
+  const int G = s.Hq / s.Hkv;
+  return dim3(s.B * s.Hkv, (s.Sq * G + kBlockRows - 1) / kBlockRows);
+}
+
+template <int DC>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                             const Shape& s, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (!row_map(&qm, q, s) || !key_map(&km, k, s, kFwdKeys) || !key_map(&vm, v, s, kFwdKeys))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(FwdWgSmem<DC>) + 1024;
+  auto kern = flash_fwd_wgmma_kernel<DC>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<row_grid(s), kWsThreads, smem, st>>>(qm, km, vm, static_cast<bf16*>(o), lse, s.Sq,
+                                              s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window,
+                                              s.scale);
+  return cudaGetLastError();
+}
+
+template <int DC>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  CUtensorMap qm, dom, km, vm;
+  if (!row_map(&qm, q, s) || !row_map(&dom, dout, s) || !key_map(&km, k, s, kDqKeys) ||
+      !key_map(&vm, v, s, kDqKeys))
+    return cudaErrorInvalidValue;
+  size_t smem = sizeof(DqWgSmem<DC>) + 1024;
+  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC>;
+  cudaError_t e = allow_smem(dq_kern, smem);
+  if (e != cudaSuccess) return e;
+  dq_kern<<<row_grid(s), kWsThreads, smem, st>>>(
+      qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  if (!key_map(&km, k, s, kKvKeys) || !key_map(&vm, v, s, kKvKeys)) return cudaErrorInvalidValue;
+  smem = sizeof(DkdvWgSmem<DC>) + 1024;
+  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC>;
+  e = allow_smem(kv_kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(s.B * s.Hkv, (s.Sk + kKvKeys - 1) / kKvKeys);
+  kv_kern<<<grid, kWsThreads, smem, st>>>(qm, km, vm, dom, lse, delta, static_cast<bf16*>(dk),
+                                          static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh,
+                                          s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+// The variants: 0 the fp32 FMA kernels, 1 the bf16 WMMA kernels, 2 the bf16
+// wgmma kernels.  The wrapper's variant() chooses one from the shape; a
+// launch refuses a variant that cannot take the shape.
+enum Variant { kFma = 0, kWmma = 1, kWgmma = 2 };
+
+bool bad_shape(const Shape& s) {
+  return s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.Hq % s.Hkv != 0 ||
+         s.dh <= 0 || s.dh > 256 || s.dh % 8 != 0;
+}
+
+bool bad_variant(const Shape& s, int dtype, int variant) {
+  if (bad_shape(s)) return true;
+  if (variant == kFma) return dtype != 0;
+  if (variant == kWmma) return dtype != 1;
+  if (variant != kWgmma || dtype != 1) return true;
+  // whole positions per 64-row box, at most two 64-column chunks, grid rows
+  const int G = s.Hq / s.Hkv;
+  const long long rows = ((long long)s.Sq * G + kBlockRows - 1) / kBlockRows;
+  return kWgRows % G != 0 || pad16(s.dh) > 2 * kChunk || rows > 65535 ||
+         (s.Sk + kKvKeys - 1) / kKvKeys > 65535;
+}
+
 }  // namespace
 
-// C entry points (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  causal:
-// 0/1.  window <= 0 means no window.  lse is fp32 [B,Hq,Sq].  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// C entry points (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  variant:
+// see Variant.  causal: 0/1.  window <= 0 means no window.  lse is fp32
+// [B,Hq,Sq].  Each returns cudaGetLastError() after its launch (0 on
+// success), or cudaErrorInvalidValue for a shape or variant it refuses.
+
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Sk, int Hq, int Hkv, int dh,
-                                   int causal, int window, float scale, int dtype,
+                                   int causal, int window, float scale, int dtype, int variant,
                                    void* stream) {
   const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
-  if (bad_shape(s)) return (int)cudaErrorInvalidValue;
+  if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (dtype == 0) return (int)fwd_typed<float>(q, k, v, o, l, s, st);
-  if (dtype == 1)
-    return (int)(big_head(s) ? launch_fwd_tc<32>(q, k, v, o, l, s, st)
-                             : launch_fwd_tc<64>(q, k, v, o, l, s, st));
-  return (int)cudaErrorInvalidValue;
+  if (variant == kFma) return (int)fwd_typed<float>(q, k, v, o, l, s, st);
+  if (variant == kWmma) return (int)launch_fwd_tc(q, k, v, o, l, s, st);
+  return (int)(pad16(dh) <= kChunk ? launch_fwd_wgmma<1>(q, k, v, o, l, s, st)
+                                   : launch_fwd_wgmma<2>(q, k, v, o, l, s, st));
 }
 
-extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
-                                        const void* o, const void* dout, const void* lse,
-                                        void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-                                        int Hkv, int dh, int causal, int window, float scale,
-                                        int dtype, void* stream) {
+// Both backward kernels: dK/dV then dQ (fma, wmma), or dQ, which also writes
+// delta (fp32 [B,Hq,Sq] scratch, used by the wgmma variant alone), then
+// dK/dV (wgmma).
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int dh, int causal, int window, float scale, int dtype,
+                                   int variant, void* stream) {
   const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
-  if (bad_shape(s)) return (int)cudaErrorInvalidValue;
+  if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
-  if (dtype == 0) return (int)dkdv_typed<float>(q, k, v, o, dout, l, dk, dv, s, st);
-  if (dtype == 1)
-    return (int)(big_head(s) ? launch_dkdv_tc<32>(q, k, v, o, dout, l, dk, dv, s, st)
-                             : launch_dkdv_tc<64>(q, k, v, o, dout, l, dk, dv, s, st));
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* o, const void* dout, const void* lse,
-                                      void* dq, int B, int Sq, int Sk, int Hq, int Hkv, int dh,
-                                      int causal, int window, float scale, int dtype,
-                                      void* stream) {
-  const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
-  if (bad_shape(s)) return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto l = static_cast<const float*>(lse);
-  if (dtype == 0) return (int)dq_typed<float>(q, k, v, o, dout, l, dq, s, st);
-  if (dtype == 1)
-    return (int)(big_head(s) ? launch_dq_tc<32>(q, k, v, o, dout, l, dq, s, st)
-                             : launch_dq_tc<64>(q, k, v, o, dout, l, dq, s, st));
-  return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (variant == kFma) {
+    e = dkdv_typed<float>(q, k, v, o, dout, l, dk, dv, s, st);
+    return (int)(e != cudaSuccess ? e : dq_typed<float>(q, k, v, o, dout, l, dq, s, st));
+  }
+  if (variant == kWmma) {
+    e = launch_dkdv_tc(q, k, v, o, dout, l, dk, dv, s, st);
+    return (int)(e != cudaSuccess ? e : launch_dq_tc(q, k, v, o, dout, l, dq, s, st));
+  }
+  auto d = static_cast<float*>(delta);
+  return (int)(pad16(dh) <= kChunk
+                   ? launch_bwd_wgmma<1>(q, k, v, o, dout, l, d, dq, dk, dv, s, st)
+                   : launch_bwd_wgmma<2>(q, k, v, o, dout, l, d, dq, dk, dv, s, st));
 }

@@ -3,10 +3,13 @@
 
 ``flash_attention`` is a ``torch.autograd.Function`` on CUDA tensors: its
 forward launches the forward kernel, which also writes the per-row
-logsumexp, and its backward launches the two backward kernels (dK/dV, then
-dQ).  A tensor on the CPU goes to the plain version (:func:`attention_ref`),
-which autograd differentiates.  A CUDA tensor goes to the kernels, or the
-wrapper raises: there is no fallback.
+logsumexp, and its backward launches the two backward kernels.  Which
+kernels take a shape is :func:`variant`'s choice, made from the dtype, the
+head dim and the GQA group before any launch: ``"wgmma"`` (bf16, padded head
+dim up to 128, group dividing 64), ``"wmma"`` (other bf16) or ``"fma"``
+(fp32).  A tensor on the CPU goes to the plain version (:func:`attention_ref`),
+which autograd differentiates.  A CUDA tensor goes to the kernels of its
+variant, or the wrapper raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -18,11 +21,30 @@ import torch
 from .. import build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_fwd"]
+__all__ = [
+    "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "reset_launches", "variant",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("fma", "wmma", "wgmma")  # index = the kernels' variant number
 _INTS = 8  # B, Sq, Sk, Hq, Hkv, dh, causal, window
 _fns: dict[str, object] = {}
+
+
+def variant(dtype: torch.dtype, dh: int, G: int) -> str:
+    """The kernels that take a shape: ``"wgmma"`` for bf16 with the head
+    dim padded to 16 at most 128 and a GQA group G that divides 64 (the
+    wgmma kernels' 64-row boxes hold whole positions); ``"wmma"`` for other
+    bf16; ``"fma"`` for fp32.  Raises for what no kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}; fp32 or bf16")
+    if dh <= 0 or dh > 256 or dh % 8:
+        raise ValueError(f"flash_attention: head dim {dh} must be a multiple of 8 up to 256")
+    if G <= 0:
+        raise ValueError(f"flash_attention: GQA group {G} must be positive")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if (dh + 15) // 16 * 16 <= 128 and 64 % G == 0 else "wmma"
 
 
 def _kernel(name: str, n_ptr: int):
@@ -31,7 +53,7 @@ def _kernel(name: str, n_ptr: int):
         fn = getattr(build.load("flash_attention"), name)
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * _INTS
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -71,11 +93,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"flash_attention: window must be positive, got {window}")
 
 
-def _shape_args(q, k, causal, window):
+def _shape_args(q, k, causal, window) -> tuple[tuple, str]:
+    """The kernels' shape arguments, and the variant that takes them."""
     B, Sq, Hq, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    var = variant(q.dtype, dh, Hq // Hkv)
     return (B, Sq, Sk, Hq, Hkv, dh, int(causal), window or 0,
-            1.0 / math.sqrt(dh), _DTYPES[q.dtype])
+            1.0 / math.sqrt(dh), _DTYPES[q.dtype], VARIANTS.index(var)), var
 
 
 def flash_attention_fwd(
@@ -88,15 +112,17 @@ def flash_attention_fwd(
     B, Sq, Hq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    args, var = _shape_args(q, k, causal, window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel("flash_attention_fwd", 5)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *_shape_args(q, k, causal, window), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *args,
+            stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {var} forward launch failed: CUDA error {err}")
     flash_attention.launches_fwd += 1
+    flash_attention.launches_by_variant[var]["fwd"] += 1
     return out, lse
 
 
@@ -105,7 +131,9 @@ def flash_attention_bwd(
     lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True, window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The two backward kernels (dK/dV per key tile, dQ per row tile):
-    (dq, dk, dv) in the inputs' dtype.  Counts one backward launch."""
+    (dq, dk, dv) in the inputs' dtype.  Counts one backward launch.  The
+    wgmma variant runs dQ first, which writes D = rowsum(dO * O) once into an
+    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads."""
     _check(q, k, v, window)
     if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
             or dout.dtype != q.dtype or not (out.is_contiguous() and dout.is_contiguous())
@@ -115,21 +143,19 @@ def flash_attention_bwd(
     if lse.dtype != torch.float32 or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"flash_attention: lse must be fp32 [B,Hq,Sq], got {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args = _shape_args(q, k, causal, window)
+    args, var = _shape_args(q, k, causal, window)
+    delta = torch.empty_like(lse) if var == "wgmma" else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_bwd_dkdv", 8)(
+        err = _kernel("flash_attention_bwd", 10)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args, stream,
+            lse.data_ptr(), None if delta is None else delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *args, stream,
         )
-        if err == 0:
-            err = _kernel("flash_attention_bwd_dq", 7)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), dq.data_ptr(), *args, stream,
-            )
     if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {var} backward launch failed: CUDA error {err}")
     flash_attention.launches_bwd += 1
+    flash_attention.launches_by_variant[var]["bwd"] += 1
     return dq, dk, dv
 
 
@@ -171,7 +197,13 @@ def flash_attention(
 
 # kernel launches: forward-kernel calls and backward calls (each backward
 # call launches the dK/dV and the dQ kernel) that reached the card, and
-# nowhere else.  Callers that prove a path went through the kernels set them
-# to 0 and read them.
-flash_attention.launches_fwd = 0
-flash_attention.launches_bwd = 0
+# nowhere else; launches_by_variant splits them by variant().  Callers that
+# prove a path went through the kernels reset them (reset_launches) and read
+# them.
+def reset_launches() -> None:
+    flash_attention.launches_fwd = 0
+    flash_attention.launches_bwd = 0
+    flash_attention.launches_by_variant = {v: {"fwd": 0, "bwd": 0} for v in VARIANTS}
+
+
+reset_launches()

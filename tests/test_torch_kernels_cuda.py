@@ -71,7 +71,11 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 
 # (B, S, Hq, Hkv, dh, causal, window): the train shape, gemma3-like local,
 # smoke, ragged non-causal, MQA/MHA with a ragged edge, and head dims the
-# bf16 kernels pad to 16 (24) or that take their smaller tiles (136)
+# bf16 kernels pad to 16 (24) or that take the WMMA kernels (136; and G 3,
+# which does not divide the wgmma kernels' 64-row boxes); then edges of the
+# wgmma kernels: S not a multiple of their row (128) or key (64, 128) tiles,
+# G 1, 2, 8 and 64, a window on a causal and on a non-causal layer, dh 16
+# and 128 (two 64-column chunks)
 FLASH_CASES = [
     (4, 2048, 32, 4, 64, True, None),
     (1, 2048, 8, 4, 256, True, 1024),
@@ -81,6 +85,12 @@ FLASH_CASES = [
     (2, 130, 4, 4, 128, True, None),
     (1, 90, 6, 3, 24, True, None),
     (1, 100, 2, 1, 136, False, 40),
+    (1, 1000, 8, 8, 64, True, None),
+    (2, 2047, 4, 2, 16, True, 300),
+    (1, 1000, 16, 2, 128, False, None),
+    (1, 2047, 16, 2, 64, False, 128),
+    (1, 333, 64, 1, 32, True, None),
+    (2, 517, 8, 1, 64, True, 100),
 ]
 
 
@@ -110,14 +120,18 @@ def test_flash_attention_kernels_match_plain(case, dtype):
     v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
     dout = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(dtype)
     want = flash_oracle(q, k, v, dout, causal, window)
-    f0, b0 = flash_ops.flash_attention.launches_fwd, flash_ops.flash_attention.launches_bwd
+    fa = flash_ops.flash_attention
+    var = flash_ops.variant(dtype, dh, Hq // Hkv)
+    f0, b0 = fa.launches_fwd, fa.launches_bwd
+    v0 = dict(fa.launches_by_variant[var])
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = flash_ops.flash_attention(qg, kg, vg, causal=causal, window=window)
     dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout)
     _, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_ops.flash_attention.launches_fwd == f0 + 2
-    assert flash_ops.flash_attention.launches_bwd == b0 + 1
+    assert fa.launches_fwd == f0 + 2
+    assert fa.launches_bwd == b0 + 1
+    assert fa.launches_by_variant[var] == {"fwd": v0["fwd"] + 2, "bwd": v0["bwd"] + 1}
     tol = TOLS[dtype]
     for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, dq, dk, dv), want):
         assert got.dtype == (torch.float32 if name == "lse" else dtype), name
@@ -125,14 +139,41 @@ def test_flash_attention_kernels_match_plain(case, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_is_deterministic():
+def test_flash_attention_train_shape_runs_wgmma():
+    """The train step's attention shape (bf16, dh 64, G 8) takes the wgmma
+    kernels, forward and backward, as the per-variant counters show."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(4, 2048, 32, 64, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(4, 2048, 4, 64, generator=g, device=dev).to(torch.bfloat16)
+    q.requires_grad_(True)
+    flash_ops.reset_launches()
+    out = flash_ops.flash_attention(q, kv, kv, causal=True)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    by = flash_ops.flash_attention.launches_by_variant
+    assert flash_ops.variant(torch.bfloat16, 64, 8) == "wgmma"
+    assert by["wgmma"] == {"fwd": 1, "bwd": 1}
+    assert by["wmma"] == by["fma"] == {"fwd": 0, "bwd": 0}
+
+
+# (B, S, Hq, Hkv, dh): a ragged shape, and the train shape
+DETERMINISM_CASES = [(2, 300, 8, 2, 64), (4, 2048, 32, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DETERMINISM_CASES)
+def test_flash_attention_backward_is_deterministic(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, S, Hq, Hkv, dh = case
+    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn(2, 300, 8, 64, generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn(2, 300, 2, 64, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(2, 300, 2, 64, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
     dout = torch.randn_like(q)
     out, lse = flash_ops.flash_attention_fwd(q, k, v)
     first = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout)
