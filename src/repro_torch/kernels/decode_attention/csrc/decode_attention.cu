@@ -1,22 +1,27 @@
-// Cached GQA decode attention for Hopper (sm_90a), flash-decoding style.
+// Cached GQA decode attention for Hopper (sm_90a), in two variants.
 //
-// Replaces the Pallas TPU kernel
+// Both replace the Pallas TPU kernel
 //   src/repro/kernels/decode_attention/kernel.py::decode_attention_kernel
 //   (pallas_call at :106, body _decode_kernel at :22)
-// and computes what the model function computes
+// and compute what the model function computes
 //   src/repro/models/attention.py::decode_attention
-// S >= 1 query rows per sequence start at a per-sequence q_start (read on the
-// device: it stands in for the TPU's scalar prefetch), are causal, and may
-// carry a sliding window (local layers).  At S = 1 with lens = q_start + 1 it
-// computes what the TPU kernel computes.
+// The fused variant also computes the two cache inserts before it
+//   src/repro/models/attention.py::insert_kv, as the layer body at
+//   src/repro/models/transformer.py:351-353 calls them.
 //
-// What bounds it on this card: the bytes of the visible K/V.  At decode the
+// What bounds both on this card: the bytes of the visible K/V.  At decode the
 // work per key is a few FMAs per query row, far below the ~295 operations a
 // byte that would make the H100 compute-bound, so the least time is the
 // visible K/V over the memory rate (at serving sizes that is well under a
-// microsecond per layer, so in practice launch latency sets the time).
+// microsecond per layer, so in practice launch latency and the chain of
+// dependent steps inside one launch set the time).
 //
-// What the design does about it:
+// ---------------------------------------------------------------------------
+// Split variant (decode_attention_launch): S >= 1 query rows per sequence
+// start at a per-sequence q_start (read on the device: it stands in for the
+// TPU's scalar prefetch), are causal, and may carry a sliding window (local
+// layers).  At S = 1 with lens = q_start + 1 it computes what the TPU kernel
+// computes.  prefill_chunk takes it.
 //  * The TPU grid (B, Hkv, n_k) walks the KV axis in order on one core; on
 //    Hopper B*Hkv blocks would leave most of the 132 SMs idle at decode.  The
 //    KV axis is split across blocks (flash-decoding): one block per
@@ -34,12 +39,62 @@
 //    combines the splits and skips empty partials.
 //  * Plain fp32 FMAs, no tensor cores: the smoke config's head dim of 8 is
 //    below any MMA tile, and every head dim that is a multiple of 8 up to 256
-//    is taken.  wgmma, TMA and fusing the cache insert are later work.
+//    is taken.
+//
+// ---------------------------------------------------------------------------
+// Fused variant (decode_attention_fused_launch): one query row per sequence
+// (S = 1, decode_step) and G <= 16 rows per KV head.  At decode the split
+// variant's time is all fixed cost: two launches, a round trip of the
+// partials through device memory, scalar loads with an integer division per
+// element, serial FMA chains, and two more launches before it for the cache
+// inserts.  This variant is one launch that does all of it:
+//  * Grid (n_splits, B*Hkv), a cluster of the n_splits <= 8 blocks of one
+//    (b, KV head) along x; n_splits comes from the static T (plan_fused), so
+//    q_start stays on the device and the launch can be captured in a CUDA
+//    graph.
+//  * The block whose split holds position q_start[b] writes k_new/v_new into
+//    the cache there, and puts the same 16-byte chunks in its shared tile in
+//    place of the cache row, so the cache is never read back.
+//  * K/V tiles of tk keys (a power of two from 16 to 128 and 16 KB of K at
+//    most: 128 keys at dh 64 in bf16, one tile a split at TinyLlama's decode;
+//    a kernel built for 128-key tiles and one that reads tk at run time)
+//    come in through 16-byte cp.async
+//    copies in their own dtype, double-buffered: the next tile's copies fly
+//    while this tile is scored.  Only rows of visible keys are copied.
+//  * Scores: 128 threads a block, 128/tk per key, each over interleaved
+//    16-byte chunks of the row (the K tile's row stride is padded so that a
+//    quarter-warp's chunks fall in distinct banks), all query rows from fp32
+//    shared memory (G padded with zero rows to GMAX, so no row loop
+//    branches); 32/(128/tk) keys per warp in flight.  Per-row maxima are
+//    reduced across warps in shared memory, the online softmax (m, l) runs
+//    in fp32.
+//  * P·V: each thread owns pairs of output elements and walks the whole
+//    tile, eight keys in flight (rows that are not visible are zero-filled
+//    and have probability 0, so the loop has a fixed count); V pairs are
+//    read as one 4- or 8-byte access.
+//  * Combine: each block leaves (m, l, acc) in its own shared memory; after a
+//    cluster barrier every rank takes 1/n_splits of the head's outputs and
+//    reads all ranks' partials for them through distributed shared memory,
+//    every load in flight at once, summed in split order (reruns are equal
+//    bit for bit), and writes out in q's dtype; a second cluster barrier
+//    keeps every rank's shared memory alive until all have read it.  A block
+//    with no visible key leaves an empty partial (m = -inf, l = 0) and still
+//    reaches both barriers.
+//  * No scratch in device memory; the shared-memory limit is set once, at
+//    load (decode_attention_fused_init).
+//  * Every loop over chunks, rows or keys runs a fixed count with a
+//    predicate.  An earlier form, with loops bounded by the visible range,
+//    gave wrong sums and staged rows past the tile in the G <= 4 kernels on
+//    the card, and was right when built with -Xptxas -O0.  Whether that was a
+//    fault of nvcc 12.9 at -O3 or undefined behaviour in that form is not
+//    known: no reduced reproducer or SASS comparison was kept.
+//  * Positions at or past T write nothing (the engine refuses such requests).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "vec_io.cuh"
 
 namespace {
@@ -303,6 +358,436 @@ cudaError_t launch_tk(int tk, const void* q, const void* k, const void* v, const
   }
 }
 
+// ---------------------------------------------------------------------------
+// Fused variant
+// ---------------------------------------------------------------------------
+constexpr int kFusedThreads = 128;
+constexpr int kFusedWarps = kFusedThreads / 32;
+constexpr int kFusedMaxSplits = 8;  // the portable cluster size
+// 16-byte chunks of the largest tile the launch takes (16 KB of K), of a
+// G x dh query block (16 x 256 fp32) and of a row's score pass, per thread:
+// every loop over them runs a fixed count with a predicate
+constexpr int kFusedChunkIters = (16384 / 16) / kFusedThreads;
+
+// Row stride (bytes) of a K tile: a row of dh elements padded so that the
+// 16-byte chunks of a quarter-warp in the score pass ((key, sub) lanes, key
+// stride `stride`, chunk `sub`) fall in distinct banks.
+__host__ __device__ inline int fused_kstride(int row_bytes, int tpk) {
+  const int want = (tpk * 16) & 127;
+  return row_bytes + ((want - (row_bytes & 127)) & 127);
+}
+
+// Dynamic shared memory of one block: q (later the partial acc) [GMAX][dh] fp32,
+// two K and two V tiles, probabilities [GMAX][tk + 1], per-warp row values
+// [warps][GMAX], alpha, m and l [GMAX].
+__host__ __device__ inline size_t fused_smem_bytes(int dh, int isz, int tk, int gmax) {
+  const int row = dh * isz;
+  const int tpk = kFusedThreads / tk;
+  return (size_t)gmax * dh * 4 + 2 * (size_t)tk * fused_kstride(row, tpk) + 2 * (size_t)tk * row +
+         4 * ((size_t)gmax * (tk + 1) + (size_t)kFusedWarps * gmax + 3 * (size_t)gmax);
+}
+
+template <typename T>
+__device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&x)[16 / sizeof(T)]) {
+  T e[16 / sizeof(T)];
+  memcpy(e, &raw, 16);
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) x[i] = to_f32(e[i]);
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// grid: (n_splits, B * Hkv), cluster (n_splits, 1, 1); block: kFusedThreads.
+// tk (16, 32, 64 or 128) keys per tile: TK if it is set at build, else the
+// tk_arg of the launch.  GMAX >= G query rows per KV head.
+template <typename T, int TK, int GMAX>
+__global__ void __launch_bounds__(kFusedThreads)
+decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
+                              const T* __restrict__ k_new,  // [B,1,Hkv,dh]
+                              const T* __restrict__ v_new,
+                              T* __restrict__ k,            // [B,Tlen,Hkv,dh]
+                              T* __restrict__ v,
+                              const int32_t* __restrict__ q_start,  // [B]
+                              T* __restrict__ out,          // [B,1,Hq,dh]
+                              int Hkv, int G, int Tlen, int dh, int window, int split_len,
+                              int tk_arg) {
+  const int tk = TK > 0 ? TK : tk_arg;
+  const int tpk = kFusedThreads / tk;  // threads per key in the score pass
+  constexpr int EPC = 16 / sizeof(T);      // elements per 16-byte chunk
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  const int row_bytes = dh * (int)sizeof(T);
+  const int cpr = row_bytes / 16;  // chunks per K/V row
+  const int kstride = fused_kstride(row_bytes, tpk);
+  float* q_s = reinterpret_cast<float*>(fsmem);  // [GMAX][dh]; after the loop: the partial acc
+  unsigned char* kb = fsmem + (size_t)GMAX * dh * 4;  // 2 x [tk][kstride]
+  unsigned char* vb = kb + 2 * tk * kstride;      // 2 x [tk][row_bytes]
+  float* p_s = reinterpret_cast<float*>(vb + 2 * tk * row_bytes);  // [GMAX][tk + 1]
+  float* red = p_s + GMAX * (tk + 1);   // [warps][GMAX]
+  float* alpha_s = red + kFusedWarps * GMAX;
+  float* part_m = alpha_s + GMAX;
+  float* part_l = part_m + GMAX;
+
+  const int split = blockIdx.x;  // the block's rank in its cluster
+  const int bh = blockIdx.y;
+  const int b = bh / Hkv;
+  const int kvh = bh - b * Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // this split's visible keys [key_lo, key_hi]
+  const int qpos = q_start[b];
+  const int vis_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int vis_hi = min(Tlen - 1, qpos);
+  const int split_lo = split * split_len;
+  const int split_hi = min(Tlen, split_lo + split_len) - 1;
+  const int key_lo = max(vis_lo, split_lo);
+  const int key_hi = min(vis_hi, split_hi);
+  const size_t pos_stride = (size_t)Hkv * dh;  // elements from one position to the next
+  T* krows = k + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;  // position t at t * pos_stride
+  T* vrows = v + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
+  const uint4* kn = reinterpret_cast<const uint4*>(k_new + (size_t)bh * dh);
+  const uint4* vn = reinterpret_cast<const uint4*>(v_new + (size_t)bh * dh);
+
+  // the split that holds q_start writes the new row into the cache
+  if (qpos >= split_lo && qpos <= split_hi) {
+    for (int c = tid; c < cpr; c += kFusedThreads) {
+      reinterpret_cast<uint4*>(krows + (size_t)qpos * pos_stride)[c] = __ldg(kn + c);
+      reinterpret_cast<uint4*>(vrows + (size_t)qpos * pos_stride)[c] = __ldg(vn + c);
+    }
+  }
+
+  // copies of the visible rows of the tile at t0 into buffer `buf`; the new
+  // row comes from k_new/v_new, never from the cache
+  auto stage = [&](int t0, int buf) {
+    const int r_lo = max(key_lo, t0) - t0;
+    const int r_hi = min(key_hi, t0 + tk - 1) - t0;
+    unsigned char* kd = kb + buf * tk * kstride;
+    unsigned char* vd = vb + buf * tk * row_bytes;
+#pragma unroll
+    for (int it = 0; it < kFusedChunkIters; ++it) {  // tk * cpr <= 1024 chunks
+      const int c = tid + kFusedThreads * it;
+      const int r = c / cpr;  // one division per 16-byte chunk
+      const int ch = c - r * cpr;
+      if (r >= tk) continue;
+      const int kp = t0 + r;
+      uint4* kdst = reinterpret_cast<uint4*>(kd + r * kstride) + ch;
+      uint4* vdst = reinterpret_cast<uint4*>(vd + r * row_bytes) + ch;
+      if (r < r_lo || r > r_hi) {  // not visible: its probability is 0, its V row zeros
+        *vdst = make_uint4(0u, 0u, 0u, 0u);
+      } else if (kp == qpos) {
+        *kdst = __ldg(kn + ch);
+        *vdst = __ldg(vn + ch);
+      } else {
+        cp_async_16(kdst, reinterpret_cast<const uint4*>(krows + (size_t)kp * pos_stride) + ch);
+        cp_async_16(vdst, reinterpret_cast<const uint4*>(vrows + (size_t)kp * pos_stride) + ch);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int n_tiles = key_lo <= key_hi ? key_hi / tk - key_lo / tk + 1 : 0;
+  const int t_first = (key_lo / tk) * tk;
+  if (n_tiles > 0) {
+    stage(t_first, 0);
+    // this head's G query rows are contiguous: G * dh elements, fp32 in shared
+    // memory, and rows G..GMAX-1 zeros (every row loop then runs GMAX rows
+    // without a branch; those rows are never written out)
+    const uint4* qg = reinterpret_cast<const uint4*>(q + (size_t)bh * G * dh);
+#pragma unroll
+    for (int it = 0; it < kFusedChunkIters; ++it) {  // GMAX * cpr <= 16 * 64 chunks
+      const int c = tid + kFusedThreads * it;
+      if (c >= GMAX * cpr) break;
+      float x[EPC];
+      chunk_to_f32<T>(c < G * cpr ? __ldg(qg + c) : make_uint4(0u, 0u, 0u, 0u), x);
+#pragma unroll
+      for (int e = 0; e < EPC; e += 4)
+        *reinterpret_cast<float4*>(q_s + c * EPC + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  }
+
+  const float scale = rsqrtf((float)dh);
+  const int j = tid / tpk;   // this thread's key in the score pass
+  const int sub = tid % tpk;
+  // output pairs this thread owns in P·V: element 2 * (tid + kFusedThreads * i)
+  const int n_pairs = G * dh / 2;
+  int pg[GMAX], pd[GMAX];
+#pragma unroll
+  for (int i = 0; i < GMAX; ++i) {
+    const int e = 2 * (tid + kFusedThreads * i);
+    pg[i] = e / dh;
+    pd[i] = e - pg[i] * dh;
+  }
+  float m_run[GMAX], l_part[GMAX], acc[GMAX][2];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m_run[g] = -INFINITY;
+    l_part[g] = 0.f;
+    acc[g][0] = acc[g][1] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_first + it * tk;
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` (and q) visible; the other buffer fully consumed
+    if (it + 1 < n_tiles) stage(t0 + tk, buf ^ 1);
+
+    // scores of key j for every row
+    float s[GMAX];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
+    const unsigned char* krow = kb + buf * tk * kstride + j * kstride;
+#pragma unroll
+    for (int it = 0; it < kFusedChunkIters; ++it) {  // cpr / tpk = tk * cpr / kFusedThreads chunks
+      const int ch = sub + tpk * it;
+      if (ch >= cpr) break;
+      float kx[EPC];
+      chunk_to_f32<T>(*reinterpret_cast<const uint4*>(krow + ch * 16), kx);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+#pragma unroll
+        for (int e = 0; e < EPC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(q_s + g * dh + ch * EPC + e);
+          s[g] = fmaf(qv.x, kx[e], s[g]);
+          s[g] = fmaf(qv.y, kx[e + 1], s[g]);
+          s[g] = fmaf(qv.z, kx[e + 2], s[g]);
+          s[g] = fmaf(qv.w, kx[e + 3], s[g]);
+        }
+      }
+    }
+    const int kp = t0 + j;
+    const bool visible = kp >= key_lo && kp <= key_hi;
+#pragma unroll
+    for (int o = tpk / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+    }
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) s[g] = visible ? s[g] * scale : -INFINITY;
+    float mx[GMAX];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) mx[g] = s[g];
+#pragma unroll
+    for (int o = tpk; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) red[warp * GMAX + g] = mx[g];
+    }
+    __syncthreads();  // per-warp maxima in
+
+    // online softmax: every thread keeps the same (m) per row
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      float tmax = red[g];
+#pragma unroll
+      for (int w = 1; w < kFusedWarps; ++w) tmax = fmaxf(tmax, red[w * GMAX + g]);
+      const float m_new = fmaxf(m_run[g], tmax);  // finite: every tile holds a visible key
+      const float alpha = expf(m_run[g] - m_new);  // 0 on the first tile
+      const float p = s[g] == -INFINITY ? 0.f : expf(s[g] - m_new);
+      if (sub == 0) {
+        p_s[g * (tk + 1) + j] = p;
+        l_part[g] = l_part[g] * alpha + p;
+      }
+      m_run[g] = m_new;
+      if (tid == 0) alpha_s[g] = alpha;
+    }
+    __syncthreads();  // probabilities and alpha in
+
+    // acc = acc * alpha + P·V over the whole tile (a key that is not visible
+    // has probability 0 and a zero V row), eight keys in flight
+    const unsigned char* vt = vb + buf * tk * row_bytes;
+#pragma unroll
+    for (int i = 0; i < GMAX; ++i) {
+      if (tid + kFusedThreads * i < n_pairs) {
+        const float a = alpha_s[pg[i]];
+        acc[i][0] *= a;
+        acc[i][1] *= a;
+      }
+    }
+#pragma unroll 8
+    for (int jj = 0; jj < tk; ++jj) {
+      const T* vrow = reinterpret_cast<const T*>(vt + jj * row_bytes);
+#pragma unroll
+      for (int i = 0; i < GMAX; ++i) {
+        if (tid + kFusedThreads * i < n_pairs) {
+          const float p = p_s[pg[i] * (tk + 1) + jj];
+          const float2 vv = load_pair(vrow + pd[i]);
+          acc[i][0] = fmaf(p, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(p, vv.y, acc[i][1]);
+        }
+      }
+    }
+  }
+
+  // this block's partial: l summed over threads, acc into q's place
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) l_part[g] += __shfl_xor_sync(0xffffffffu, l_part[g], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) red[warp * GMAX + g] = l_part[g];
+  }
+  float* part_acc = q_s;
+#pragma unroll
+  for (int i = 0; i < GMAX; ++i) {
+    const int pi = tid + kFusedThreads * i;
+    if (pi < n_pairs) store_pair(part_acc + 2 * pi, acc[i][0], acc[i][1]);
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      float l = red[g];
+#pragma unroll
+      for (int w = 1; w < kFusedWarps; ++w) l += red[w * GMAX + g];
+      part_m[g] = m_run[g];
+      part_l[g] = l;
+    }
+  }
+  cluster_sync();  // every rank's partial is in its shared memory
+
+  // combine: each rank takes a slice of this head's output pairs and reads
+  // every rank's (m, l, acc) for it through distributed shared memory, all
+  // loads in flight at once, summed in split order (reruns are bit-equal)
+  {
+    const int n_splits = gridDim.x;
+    const int per_rank = (n_pairs + n_splits - 1) / n_splits;
+    const int p_end = min(n_pairs, (split + 1) * per_rank);
+    T* o = out + (size_t)bh * G * dh;  // this head's G rows are contiguous
+#pragma unroll 1
+    for (int it = 0; it < GMAX; ++it) {  // per_rank <= n_pairs <= kFusedThreads * GMAX
+      const int pi = split * per_rank + tid + kFusedThreads * it;
+      if (pi >= p_end) continue;
+      const int g = 2 * pi / dh;
+      float mr[kFusedMaxSplits], lr[kFusedMaxSplits];
+      float2 ar[kFusedMaxSplits];
+#pragma unroll
+      for (int r = 0; r < kFusedMaxSplits; ++r) {
+        if (r < n_splits) {
+          mr[r] = ld_cluster_f32(cluster_map(part_m + g, r));
+          lr[r] = ld_cluster_f32(cluster_map(part_l + g, r));
+          ar[r] = ld_cluster_f32x2(cluster_map(part_acc + 2 * pi, r));
+        }
+      }
+      float M = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kFusedMaxSplits; ++r)
+        if (r < n_splits) M = fmaxf(M, mr[r]);
+      float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int r = 0; r < kFusedMaxSplits; ++r) {
+        if (r < n_splits && mr[r] != -INFINITY) {  // skip empty splits
+          const float w = expf(mr[r] - M);
+          L = fmaf(lr[r], w, L);
+          a0 = fmaf(ar[r].x, w, a0);
+          a1 = fmaf(ar[r].y, w, a1);
+        }
+      }
+      const float inv = L > 0.f ? 1.f / L : 0.f;
+      store_pair(o + 2 * pi, a0 * inv, a1 * inv);
+    }
+  }
+  cluster_sync();  // every rank's shared memory stays until all have read it
+}
+
+template <typename T, int TK, int GMAX>
+size_t fused_max_smem() {
+  // the largest block over the key tiles the kernel takes: at tk keys the
+  // widest row plan_fused gives is 16 KB / tk (at most 256 elements)
+  size_t most = 0;
+  for (int tk = 16; tk <= 128; tk *= 2) {
+    if (TK > 0 && tk != TK) continue;
+    const int widest = (16384 / tk) / (int)sizeof(T);
+    const size_t bytes = fused_smem_bytes(widest < 256 ? widest : 256, sizeof(T), tk, GMAX);
+    most = bytes > most ? bytes : most;
+  }
+  return most;
+}
+
+template <typename T, int TK, int GMAX>
+cudaError_t fused_init_one() {
+  return cudaFuncSetAttribute(decode_attention_fused_kernel<T, TK, GMAX>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)fused_max_smem<T, TK, GMAX>());
+}
+
+template <typename T, int TK, int GMAX>
+cudaError_t fused_launch_typed(const void* q, const void* kn, const void* vn, void* k, void* v,
+                               const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen,
+                               int dh, int window, int n_splits, int split_len, int tk,
+                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_splits, B * Hkv, 1);
+  cfg.blockDim = dim3(kFusedThreads, 1, 1);
+  cfg.dynamicSmemBytes = fused_smem_bytes(dh, sizeof(T), tk, GMAX);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_attention_fused_kernel<T, TK, GMAX>, static_cast<const T*>(q),
+      static_cast<const T*>(kn), static_cast<const T*>(vn), static_cast<T*>(k),
+      static_cast<T*>(v), qs, static_cast<T*>(out), Hkv, G, Tlen, dh, window, split_len, tk);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T, int TK>
+cudaError_t fused_launch_g(const void* q, const void* kn, const void* vn, void* k, void* v,
+                           const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen, int dh,
+                           int window, int n_splits, int split_len, int tk, cudaStream_t st) {
+  if (G <= 4)
+    return fused_launch_typed<T, TK, 4>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+  if (G <= 8)
+    return fused_launch_typed<T, TK, 8>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+  return fused_launch_typed<T, TK, 16>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+}
+
+// 128-key tiles (rows of at most 128 bytes: dh <= 64 in bf16, the decode
+// shapes of the smaller models) take a kernel built for them: with the tile
+// read at run time the TinyLlama decode shape took 0.0189 ms instead of
+// 0.0155 on an H100.  Other tiles share one kernel that reads tk at run time.
+template <typename T>
+cudaError_t fused_launch_tk(const void* q, const void* kn, const void* vn, void* k, void* v,
+                            const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen, int dh,
+                            int window, int n_splits, int split_len, int tk, cudaStream_t st) {
+  if (tk == 128)
+    return fused_launch_g<T, 128>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+  return fused_launch_g<T, 0>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+}
+
+template <typename T>
+cudaError_t fused_init_typed() {
+  const cudaError_t errs[] = {
+      fused_init_one<T, 128, 4>(), fused_init_one<T, 128, 8>(), fused_init_one<T, 128, 16>(),
+      fused_init_one<T, 0, 4>(), fused_init_one<T, 0, 8>(), fused_init_one<T, 0, 16>(),
+  };
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  window <= 0
@@ -330,4 +815,43 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   else
     e = cudaErrorInvalidValue;
   return (int)e;
+}
+
+// Sets the dynamic shared-memory limit of every fused kernel; called once,
+// when the library is loaded, so that no launch (or graph capture) does it.
+extern "C" int decode_attention_fused_init() {
+  cudaError_t e = fused_init_typed<float>();
+  if (e == cudaSuccess) e = fused_init_typed<__nv_bfloat16>();
+  return (int)e;
+}
+
+// C entry point of the fused variant (bound with ctypes).  q [B,1,Hq,dh],
+// k_new/v_new [B,1,Hkv,dh], k/v caches [B,T,Hkv,dh] (row q_start[b] written
+// in place), out [B,1,Hq,dh]; every pointer 16-byte aligned.  dtype: 0 = fp32,
+// 1 = bf16.  window <= 0 means no window.  tk keys per tile (128, 64, 32 or 16,
+// with dh * itemsize * tk <= 16 KB); split_len a multiple of tk, and
+// n_splits = ceil(T / split_len) <= 8.  Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int decode_attention_fused_launch(const void* q, const void* k_new, const void* v_new,
+                                             void* k, void* v, const void* q_start, void* out,
+                                             int B, int Hq, int Hkv, int Tlen, int dh, int window,
+                                             int n_splits, int split_len, int tk, int dtype,
+                                             void* stream) {
+  const int isz = dtype == 0 ? 4 : 2;
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || B * Hkv > 65535 || dh <= 0 ||
+      dh > 256 || dh % 8 != 0 || (tk != 128 && tk != 64 && tk != 32 && tk != 16) ||
+      dh * isz * tk > 16384 || split_len <= 0 || split_len % tk != 0 || n_splits <= 0 ||
+      n_splits > kFusedMaxSplits || (n_splits - 1) * split_len >= Tlen ||
+      n_splits * split_len < Tlen)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qs = static_cast<const int32_t*>(q_start);
+  const int G = Hq / Hkv;
+  if (dtype == 0)
+    return (int)fused_launch_tk<float>(q, k_new, v_new, k, v, qs, out, B, Hkv, G, Tlen, dh,
+                                       window, n_splits, split_len, tk, st);
+  if (dtype == 1)
+    return (int)fused_launch_tk<__nv_bfloat16>(q, k_new, v_new, k, v, qs, out, B, Hkv, G, Tlen,
+                                               dh, window, n_splits, split_len, tk, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,47 +1,151 @@
-"""Wrapper of the hand-written decode-attention kernel
-(``csrc/decode_attention.cu``), with the model function's signature.
+"""Wrappers of the hand-written decode-attention kernels
+(``csrc/decode_attention.cu``), with the model functions' signatures.
+
+Two variants; :func:`variant` names the one that takes the model's cached
+attention call of a shape, from static shapes before any launch:
+
+* ``"fused"``: one query row (S = 1) and at most 16 rows per KV head.  One
+  launch writes the step's K/V row into the cache, attends, and combines its
+  KV splits inside a thread-block cluster.  ``decode_step`` takes it through
+  :func:`decode_attention_insert`.
+* ``"split"`` (:func:`decode_attention`, at any S >= 1 and any GQA group):
+  a split kernel over KV splits, then a combine kernel: two launches a call.
+  ``prefill_chunk`` takes it after an index write of the chunk's rows, and
+  so does :func:`decode_attention_insert` for more than 16 rows per KV head.
 
 A tensor on the CPU goes to the plain version
-(:func:`repro_torch.models.attention.decode_attention`).  A CUDA tensor goes
-to the kernel, or the wrapper raises: there is no fallback.
+(:mod:`repro_torch.models.attention`).  A CUDA tensor goes to a kernel, or
+the wrapper raises: there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...models.attention import decode_attention as decode_attention_plain
+from ...models.attention import decode_attention_insert as decode_attention_insert_plain
+from ...models.attention import insert_kv
 from .. import build
 
-__all__ = ["decode_attention", "decode_attention_plain", "plan"]
+__all__ = [
+    "count_replays", "decode_attention", "decode_attention_insert",
+    "decode_attention_insert_plain", "decode_attention_plain", "plan", "plan_fused",
+    "reset_launches", "variant",
+]
 
 _WARPS, _ROWS_PER_WARP = 4, 4  # must match kWarps / kRowsPerWarp in the source
 _ROWS = _WARPS * _ROWS_PER_WARP
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+VARIANTS = ("split", "fused")
+KERNELS_PER_CALL = {"split": 2, "fused": 1}  # split: the split and the combine kernel
+FUSED_MAX_G = 16  # query rows per KV head that one fused block holds
+FUSED_MAX_SPLITS = 8  # the portable cluster size
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("decode_attention").decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        lib = build.load("decode_attention")
+        if name == "fused":
+            init = lib.decode_attention_fused_init
+            init.restype = ctypes.c_int
+            err = init()  # the shared-memory limit of every fused kernel, once
+            if err != 0:
+                raise RuntimeError(f"decode_attention fused init failed: CUDA error {err}")
+            fn = lib.decode_attention_fused_launch
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        else:
+            fn = lib.decode_attention_launch
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def variant(S: int, G: int, dh: int, dtype: torch.dtype) -> str:
+    """The kernel that takes a call: ``"fused"`` for one query row (S = 1)
+    with G <= 16 rows per KV head, ``"split"`` for other S >= 1 and G >= 1;
+    both need fp32 or bf16 and a head dim that is a multiple of 8 up to 256.
+    Raises for what no kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decode_attention: no kernel for {dtype}; fp32 or bf16")
+    if dh <= 0 or dh > 256 or dh % 8:
+        raise ValueError(f"decode_attention: head dim {dh} must be a multiple of 8 up to 256")
+    if S <= 0 or G <= 0:
+        raise ValueError(f"decode_attention: S={S} query rows and G={G} must be positive")
+    return "fused" if S == 1 and G <= FUSED_MAX_G else "split"
 
 
 def plan(B: int, S: int, Hq: int, Hkv: int, T: int, dh: int, n_sm: int) -> tuple[int, int, int]:
-    """(key tile, split length, number of splits), from static shapes only:
-    enough blocks to give every SM two, splits a whole number of tiles.  The
-    key tile (keys staged in shared memory per step) shrinks as dh grows."""
+    """Split variant: (key tile, split length, number of splits), from static
+    shapes only: enough blocks to give every SM two, splits a whole number of
+    tiles.  The key tile (keys staged in shared memory per step) shrinks as
+    dh grows."""
     tk = 64 if dh <= 64 else 32 if dh <= 128 else 16
     row_tiles = -(-(S * (Hq // Hkv)) // _ROWS)
     n_tiles = -(-T // tk)
     want = min(n_tiles, max(1, -(-2 * n_sm // (B * Hkv * row_tiles))))
     split_len = -(-n_tiles // want) * tk
     return tk, split_len, -(-T // split_len)
+
+
+def plan_fused(T: int, dh: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """Fused variant: (key tile, split length, number of splits) from the
+    static T only, so a launch never waits on the device's lengths.  A key
+    tile is a power of two from 16 to 128 keys and at most 16 KB of K; a
+    split is a whole number of tiles, aiming at 64 keys or more; at most 8
+    splits, the blocks of one cluster."""
+    row_bytes = dh * torch.finfo(dtype).bits // 8
+    tk = 128
+    while tk * row_bytes > 16384:
+        tk //= 2
+    want = max(1, min(FUSED_MAX_SPLITS, -(-T // 64)))
+    per_split = -(-T // want)
+    split_len = -(-per_split // tk) * tk
+    return tk, split_len, -(-T // split_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _count(var: str) -> None:
+    """One call of ``var`` reached the card, or, while the stream is being
+    captured into a CUDA graph, was recorded into it (counted on replay)."""
+    n = KERNELS_PER_CALL[var]
+    if torch.cuda.is_current_stream_capturing():
+        decode_attention.captured_by_variant[var] += n
+        return
+    decode_attention.launches_by_variant[var] += n
+
+
+def count_replays(per_replay: dict[str, int], replays: int = 1) -> None:
+    """Count the kernels of ``replays`` replays of a CUDA graph that holds
+    ``per_replay`` kernels of each variant."""
+    for var, n in per_replay.items():
+        decode_attention.launches_by_variant[var] += n * replays
+
+
+def _check_common(name: str, q, tensors, q_start, window) -> None:
+    for tname, t in tensors + (("q_start", q_start),):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {tname} on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for _, t in tensors):
+        raise TypeError(
+            f"{name}: q/k/v must share fp32 or bf16, got "
+            f"{q.dtype}/" + "/".join(str(t.dtype) for _, t in tensors)
+        )
+    if q_start.dtype != torch.int32:
+        raise TypeError(f"{name}: q_start must be int32, got {q_start.dtype}")
+    if not (q.is_contiguous() and q_start.is_contiguous()
+            and all(t.is_contiguous() for _, t in tensors)):
+        raise ValueError(f"{name}: q, k, v and q_start must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
 
 
 def decode_attention(
@@ -54,24 +158,13 @@ def decode_attention(
 ) -> torch.Tensor:
     """Query row s of sequence b attends keys ``kpos <= q_start[b]+s`` (and,
     with ``window``, ``kpos > q_start[b]+s-window``).  Returns [B,S,Hq,dh]
-    in q's dtype."""
+    in q's dtype.  The split variant, whatever S is."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, q_start, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("q_start", q_start)):
-        if t.device != q.device:
-            raise ValueError(f"decode_attention: {name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(
-            f"decode_attention: q/k/v must share fp32 or bf16, got "
-            f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}"
-        )
-    if q_start.dtype != torch.int32:
-        raise TypeError(f"decode_attention: q_start must be int32, got {q_start.dtype}")
-    if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()
-            and q_start.is_contiguous()):
-        raise ValueError("decode_attention: q, k_cache, v_cache and q_start must be contiguous")
+    _check_common("decode_attention", q, (("k_cache", k_cache), ("v_cache", v_cache)),
+                  q_start, window)
     B, S, Hq, dh = q.shape
     Bk, T, Hkv, dhk = k_cache.shape
     if v_cache.shape != k_cache.shape or Bk != B or dhk != dh or q_start.shape != (B,):
@@ -81,34 +174,97 @@ def decode_attention(
         )
     if Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"decode_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if dh > 256 or dh % 8:
-        raise ValueError(f"decode_attention: head dim {dh} must be a multiple of 8 up to 256")
-    if window is not None and window <= 0:
-        raise ValueError(f"decode_attention: window must be positive, got {window}")
+    variant(S, Hq // Hkv, dh, q.dtype)  # raises for what no kernel takes
 
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    tk, split_len, n_splits = plan(B, S, Hq, Hkv, T, dh, n_sm)
+    tk, split_len, n_splits = plan(B, S, Hq, Hkv, T, dh, _n_sm(q.device.index or 0))
     n_part = B * Hkv * S * (Hq // Hkv) * n_splits
     out = torch.empty_like(q)
     m_part = torch.empty(n_part, dtype=torch.float32, device=q.device)
     l_part = torch.empty(n_part, dtype=torch.float32, device=q.device)
     acc_part = torch.empty(n_part * dh, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = _kernel()
     with torch.cuda.device(q.device):
-        err = fn(
+        err = _kernel("split")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), q_start.data_ptr(),
             out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
             B, S, Hq, Hkv, T, dh, window or 0, n_splits, split_len, tk, _DTYPES[q.dtype],
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+        raise RuntimeError(f"decode_attention split launch failed: CUDA error {err}")
+    _count("split")
     return out
 
 
-# kernel launches: one per call that reached the card, and nowhere else.
-# Callers that prove a path went through the kernel set it to 0 and read it.
-decode_attention.launches = 0
+def decode_attention_insert(
+    q: torch.Tensor,  # [B,1,Hq,dh]
+    k_new: torch.Tensor,  # [B,1,Hkv,dh]
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; row q_start[b] is written in place
+    v_cache: torch.Tensor,
+    q_start: torch.Tensor,  # [B] int32
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Write the step's K/V row at ``q_start[b]`` into the caches, then
+    attend as :func:`decode_attention`.  Returns [B,1,Hq,dh] in q's dtype.
+    On the card :func:`variant` picks the route from static shapes: at
+    S = 1 with G <= 16 one launch of the fused variant does both (a position
+    at or past T writes nothing); otherwise two index writes, then the split
+    variant.  The engine refuses positions past T before any work (the plain
+    version raises for them)."""
+    if q.device.type == "cpu":
+        return decode_attention_insert_plain(
+            q, k_new, v_new, k_cache, v_cache, q_start, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_insert: unsupported device {q.device}")
+    tensors = (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache))
+    _check_common("decode_attention_insert", q, tensors, q_start, window)
+    B, S, Hq, dh = q.shape
+    Bk, T, Hkv, dhk = k_cache.shape
+    if (v_cache.shape != k_cache.shape or Bk != B or dhk != dh or q_start.shape != (B,)
+            or k_new.shape != (B, S, Hkv, dh) or v_new.shape != k_new.shape):
+        raise ValueError(
+            f"decode_attention_insert: shapes q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+            f"v_new {tuple(v_new.shape)}, k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
+            f"q_start {tuple(q_start.shape)} do not agree"
+        )
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"decode_attention_insert: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if variant(S, Hq // Hkv, dh, q.dtype) == "split":  # more rows than one fused block holds
+        insert_kv(k_cache, k_new, q_start)
+        insert_kv(v_cache, v_new, q_start)
+        return decode_attention(q, k_cache, v_cache, q_start, window=window)
+    # every operand is read and written 16 bytes at a time
+    if any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_cache, v_cache)):
+        raise ValueError("decode_attention_insert: q, k and v must start on a 16-byte boundary")
 
+    tk, split_len, n_splits = plan_fused(T, dh, q.dtype)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel("fused")(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, T, dh, window or 0, n_splits, split_len, tk, _DTYPES[q.dtype],
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_attention fused launch failed: CUDA error {err}")
+    _count("fused")
+    return out
+
+
+# Kernel launches that reached the card, and nowhere else, by variant
+# (``launches_by_variant``; a split call launches two kernels, a fused call
+# one).  A call made while its stream is being captured into a
+# CUDA graph launches nothing; it adds to ``captured_by_variant``, and the
+# graph's owner counts each replay with :func:`count_replays`.  Callers that
+# prove a path went through the kernels reset them (reset_launches) and read
+# them.
+def reset_launches() -> None:
+    decode_attention.launches_by_variant = {v: 0 for v in VARIANTS}
+    decode_attention.captured_by_variant = {v: 0 for v in VARIANTS}
+
+
+reset_launches()

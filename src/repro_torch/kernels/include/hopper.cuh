@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's CUDA
-// sources: mbarriers, TMA tile loads through a tensor map, wgmma with its
+// sources: mbarriers, cp.async copies, cluster barriers and distributed
+// shared memory, TMA tile loads through a tensor map, wgmma with its
 // shared-memory descriptors, warpgroup register rebalancing, and the host
 // call that encodes a tensor map without linking libcuda.
 //
@@ -60,6 +61,58 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (16-byte asynchronous copies, completed per group)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem_dst)),
+               "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters and distributed shared memory
+// ---------------------------------------------------------------------------
+// Every thread of every block of the cluster arrives and waits; shared-memory
+// writes before it are visible to the cluster's blocks after it.  Not the
+// .aligned form: a warp may reach it diverged.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) in the
+// shared memory of block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 x;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y)
+               : "r"(addr)
+               : "memory");
+  return x;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """GQA attention as plain torch ops: full-sequence (``gqa_attention``,
-``chunked_gqa_attention``) and cached (``decode_attention``).
+``chunked_gqa_attention``) and cached (``decode_attention``, and
+``decode_attention_insert``, which first writes the step's K/V row).
 
-``decode_attention`` is the plain version of the hand-written kernel in
-:mod:`repro_torch.kernels.decode_attention`: the wrapper there runs it for
-tensors on the CPU, the tests hold it against the reference package, and
-the chip smoke holds the kernel against it on the card.  The full-sequence
+``decode_attention`` and ``decode_attention_insert`` are the plain versions
+of the hand-written kernels in :mod:`repro_torch.kernels.decode_attention`:
+the wrappers there run them for tensors on the CPU, the tests hold them
+against the reference package, and the chip smoke holds the kernels against
+them on the card.  The full-sequence
 functions are the model's CPU lowering (on the card the model calls
 :mod:`repro_torch.kernels.flash_attention`).  All cast where the reference
 casts: scores leave the product in the working dtype and are then cast to
@@ -128,3 +130,21 @@ def insert_kv(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor) -
     """Write new [B,1,...] into cache [B,T,...] at position cache_len[B], in
     place (see :func:`insert_chunk`)."""
     return insert_chunk(cache, new, cache_len)
+
+
+def decode_attention_insert(
+    q: torch.Tensor,  # [B,1,Hq,dh]
+    k_new: torch.Tensor,  # [B,1,Hkv,dh]
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; row q_start[b] is written in place
+    v_cache: torch.Tensor,
+    q_start: torch.Tensor,  # [B] position of the new token
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """One decode step's attention, as the reference's layer body computes
+    it: insert the new K/V row at ``q_start``, then attend.  Updates the
+    caches in place and returns [B,1,Hq,dh]."""
+    insert_kv(k_cache, k_new, q_start)
+    insert_kv(v_cache, v_new, q_start)
+    return decode_attention(q, k_cache, v_cache, q_start, window=window)

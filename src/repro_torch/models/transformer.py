@@ -9,7 +9,9 @@ between the packages unchanged.  A Python loop over layers takes the place
 of ``lax.scan``: ``forward`` unbinds the stacked tensors once (their
 gradient is one stack), the cached path indexes them.  On the card every
 full-sequence attention goes through the flash-attention kernels and every
-cached one through the decode-attention kernel; on the CPU ``forward``
+cached one through a decode-attention kernel (``decode_step``: the fused
+variant, which also writes the step's K/V row; ``prefill_chunk``: the split
+variant after the chunk's rows are written); on the CPU ``forward``
 lowers attention as the reference does (``cfg.attention_impl``).  The cache
 is updated in place.
 """
@@ -24,9 +26,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import LMConfig
-from ..kernels.decode_attention import decode_attention
+from ..kernels.decode_attention import decode_attention, decode_attention_insert
 from ..kernels.flash_attention import flash_attention
-from .attention import chunked_gqa_attention, gqa_attention, insert_chunk, insert_kv
+from .attention import chunked_gqa_attention, gqa_attention, insert_chunk
 from .layers import PSpec, apply_rope, rms_norm, swiglu
 
 _UNPORTED = (
@@ -276,7 +278,11 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *, unroll: int = 
 # cached forward (serving)
 # --------------------------------------------------------------------------
 
-def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len, insert):
+def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len, *, decode: bool):
+    """``decode``: one new token per sequence; the attention call writes its
+    K/V row itself (on the card one fused kernel a layer, at G <= 16 query
+    heads per KV head).  Otherwise the chunk's rows are written first, then
+    attended (the split kernel)."""
     _check_dense(cfg)
     B, c = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
@@ -289,9 +295,12 @@ def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len, inser
         q = apply_rope(_proj_heads(h, ap["wq"][i]), positions, cfg.rope_theta)
         k = apply_rope(_proj_heads(h, ap["wk"][i]), positions, cfg.rope_theta)
         v = _proj_heads(h, ap["wv"][i])
-        insert(k_c, k, cache_len)
-        insert(v_c, v, cache_len)
-        out = decode_attention(q, k_c, v_c, cache_len, window=window)
+        if decode:
+            out = decode_attention_insert(q, k, v, k_c, v_c, cache_len, window=window)
+        else:
+            insert_chunk(k_c, k, cache_len)
+            insert_chunk(v_c, v, cache_len)
+            out = decode_attention(q, k_c, v_c, cache_len, window=window)
         x = x + _out_proj(out, ap["wo"][i])
         h2 = rms_norm(x, lp["ln2"][i])
         x = x + swiglu(h2, fp["w_gate"][i], fp["w_up"][i], fp["w_down"][i])
@@ -309,7 +318,7 @@ def decode_step(
     cache_len: torch.Tensor,  # [B] int32 current valid length (new token goes here)
 ):
     """One decode step. Returns (logits [B,V] fp32, cache, cache_len + 1)."""
-    return _cached_forward(params, cfg, tokens, cache, cache_len, insert_kv)
+    return _cached_forward(params, cfg, tokens, cache, cache_len, decode=True)
 
 
 def prefill_chunk(
@@ -322,4 +331,4 @@ def prefill_chunk(
     """Chunked prefill against an existing cache (serving engine / RISP
     prefix reuse): appends c tokens at positions cache_len..cache_len+c-1.
     Returns (last-position logits [B,V] fp32, cache, cache_len + c)."""
-    return _cached_forward(params, cfg, tokens, cache, cache_len, insert_chunk)
+    return _cached_forward(params, cfg, tokens, cache, cache_len, decode=False)

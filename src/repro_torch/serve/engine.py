@@ -16,7 +16,17 @@ Differences that follow from torch:
   shared by a single-flight is cloned by each party before it is extended;
 * a device's work is awaited with ``torch.cuda.synchronize`` before the
   clock is read, so measured prefill seconds, the price in gain-loss
-  eviction, are device time and not enqueue time.
+  eviction, are device time and not enqueue time;
+* on the card, decoding replays one CUDA graph of ``transformer.decode_step``
+  per new token, the counterpart of the reference's ``jax.jit`` of the step.
+  The graph works on static buffers of the engine (a ``[L,1,max_len,...]``
+  cache, its length, the token and the logits); the step it holds advances
+  its own length.  The first decode captures it (after one eager warm-up
+  step on the capture stream); every request copies its cache and length
+  into the static buffers, which no snapshot or boundary clone ever aliases,
+  and a lock keeps two threads from interleaving there.  A failed capture
+  raises: nothing falls back to eager steps on the card.  On the CPU decoding
+  stays eager.
 
 The engine runs on ``device`` ("cuda" by default; asking for CUDA without a
 card raises).  Snapshots live in a :class:`MemorySnapshotStore` unless
@@ -25,6 +35,7 @@ card raises).  Snapshots live in a :class:`MemorySnapshotStore` unless
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -35,6 +46,7 @@ import torch
 from ..configs.base import LMConfig
 from ..core.risp import RISP, StoragePolicy, StoredRecord
 from ..core.workflow import ModuleRef, Workflow
+from ..kernels.decode_attention import ops as decode_ops
 from ..models import transformer
 from ..obs import tracing as _tracing
 from ..obs.metrics import MetricsRegistry
@@ -116,6 +128,54 @@ class _PrefixResult:
 
 
 
+class _DecodeGraph:
+    """``transformer.decode_step`` captured once as a CUDA graph over static
+    buffers: the cache ``{"k","v": [L,1,max_len,Hkv,dh]}``, its length
+    ``[1]`` int32, the token ``[1,1]`` int64 and the logits ``[1,V]``.  The
+    captured step writes its K/V rows into the static cache and advances the
+    static length.  Decode-attention kernels recorded into the graph are
+    counted once per replay."""
+
+    def __init__(self, engine: "ServeEngine") -> None:
+        cfg, dev = engine.cfg, engine._dev
+        self.cache = transformer.init_cache(cfg, 1, engine.max_len, dev)
+        self.cache_len = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.token = torch.zeros(1, 1, dtype=torch.int64, device=dev)
+
+        def step() -> torch.Tensor:
+            logits, _, new_len = transformer.decode_step(
+                engine.params, cfg, self.token, self.cache, self.cache_len)
+            self.cache_len.copy_(new_len)
+            return logits
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):  # warm-up: libraries set up outside the capture
+            step()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        captured = dict(decode_ops.decode_attention.captured_by_variant)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+            self.logits = step()
+        self.kernels = {
+            v: n - captured[v]
+            for v, n in decode_ops.decode_attention.captured_by_variant.items()
+            if n - captured[v]
+        }
+
+    def load(self, cache: dict[str, torch.Tensor], cache_len: torch.Tensor) -> None:
+        """Copy a request's cache and length into the static buffers."""
+        for name, a in self.cache.items():
+            a.copy_(cache[name])
+        self.cache_len.copy_(cache_len)
+
+    def step(self, token: int) -> torch.Tensor:
+        self.token.fill_(token)
+        self.graph.replay()
+        decode_ops.count_replays(self.kernels)
+        return self.logits
+
+
 @dataclass
 class ServeEngine:
     cfg: LMConfig
@@ -166,6 +226,8 @@ class ServeEngine:
         self._chunk_prefill_s = 0.0  # EMA seconds to prefill one chunk
         self._t_first: float | None = None
         self._t_last = 0.0
+        self._graph: _DecodeGraph | None = None
+        self._graph_lock = threading.Lock()
 
     # -- device plumbing -----------------------------------------------------
     def _sync(self) -> None:
@@ -181,6 +243,32 @@ class ServeEngine:
 
     def _decode(self, tok, cache, cache_len):
         return transformer.decode_step(self.params, self.cfg, tok, cache, cache_len)
+
+    def _decode_tokens(self, logits, cache, cache_len, n: int) -> list[int]:
+        """Greedy tokens from ``logits`` on: ``n`` decode steps, eager on the
+        CPU, replays of the captured graph on the card."""
+        out: list[int] = []
+        if self._dev.type != "cuda":
+            for _ in range(n):
+                nxt = int(torch.argmax(logits[0]))
+                out.append(nxt)
+                tok = torch.tensor([[nxt]], dtype=torch.int64, device=self._dev)
+                logits, cache, cache_len = self._decode(tok, cache, cache_len)
+            return out
+        with self._graph_lock:
+            if self._graph is None:
+                self._graph = _DecodeGraph(self)
+            graph = self._graph
+            graph.load(cache, cache_len)
+            for _ in range(n):
+                nxt = int(torch.argmax(logits[0]))
+                out.append(nxt)
+                logits = self._replay(graph, nxt)
+        return out
+
+    def _replay(self, graph: "_DecodeGraph", token: int) -> torch.Tensor:
+        """One decode step on the card: the graph's logits after ``token``."""
+        return graph.step(token)
 
     # -- RISP bookkeeping over request chunks ------------------------------
     def _workflow(self, chunks: list[np.ndarray]) -> Workflow:
@@ -378,16 +466,11 @@ class ServeEngine:
 
         # decode
         t1 = time.perf_counter()
-        out: list[int] = []
         if logits is None:  # full-prompt cache hit: re-run last chunk's logits
             tok = self._tokens(chunks[-1][None])
             trimmed_cache, trimmed_len = self._trim_last_chunk(cache, cache_len)
             logits, cache, cache_len = self._prefill(tok, trimmed_cache, trimmed_len)
-        for _ in range(max_new_tokens):
-            nxt = int(torch.argmax(logits[0]))
-            out.append(nxt)
-            tok = torch.tensor([[nxt]], dtype=torch.int64, device=self._dev)
-            logits, cache, cache_len = self._decode(tok, cache, cache_len)
+        out = self._decode_tokens(logits, cache, cache_len, max_new_tokens)
         self._sync()  # the last decode step is still in flight otherwise
         decode_s = time.perf_counter() - t1
 

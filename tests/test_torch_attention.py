@@ -73,11 +73,11 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     k = torch.from_numpy(rng.normal(size=(2, 16, 2, 8)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(2, 16, 2, 8)).astype(np.float32))
     qs = torch.tensor([0, 7], dtype=torch.int32)
-    before = ops.decode_attention.launches
+    before = dict(ops.decode_attention.launches_by_variant)
     got = ops.decode_attention(q, k, v, qs, window=3)
     want = attention.decode_attention(q, k, v, qs, window=3)
     assert torch.equal(got, want)
-    assert ops.decode_attention.launches == before  # no kernel launched
+    assert ops.decode_attention.launches_by_variant == before  # no kernel launched
 
 
 def test_wrapper_rejects_other_devices():

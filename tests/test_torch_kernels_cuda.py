@@ -40,11 +40,13 @@ def test_decode_attention_kernel_matches_plain(case, dtype):
     k = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
     v = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
     q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
-    before = ops.decode_attention.launches
+    before = dict(ops.decode_attention.launches_by_variant)
     got = ops.decode_attention(q, k, v, q_start, window=window)
     want = attention.decode_attention(q, k, v, q_start, window=window)
     torch.cuda.synchronize()
-    assert ops.decode_attention.launches == before + 1
+    # the split variant at any S: its split kernel and its combine kernel
+    assert ops.decode_attention.launches_by_variant == {
+        "split": before["split"] + 2, "fused": before["fused"]}
     torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
@@ -61,6 +63,200 @@ def test_decode_attention_kernel_rejects_bad_inputs():
     with pytest.raises(TypeError, match="int32"):
         ops.decode_attention(q[..., :8].contiguous(), kv[..., :8].contiguous(),
                              kv[..., :8].contiguous(), qs.long())
+
+
+# --------------------------------------------------------------------------
+# decode attention, fused variant: write the new K/V row, attend, combine the
+# KV splits in a cluster, in one launch
+# --------------------------------------------------------------------------
+# (B, Hq, Hkv, T, dh, q_start, window)
+FUSED_CASES = [
+    (1, 32, 4, 1024, 64, [575], None),  # the S = 1 row of CASES: TinyLlama's decode step
+    (4, 32, 4, 1024, 64, [0, 1023, 575, 7], None),  # q_start 0 and T - 1
+    (1, 8, 2, 256, 8, [150], None),  # the smoke config's head dim
+    (2, 8, 8, 300, 128, [0, 299], None),  # G 1
+    (2, 16, 1, 512, 256, [300, 10], None),  # G 16, dh 256
+    (3, 8, 2, 1000, 64, [999, 5, 500], 100),  # a window
+    (1, 64, 4, 4096, 64, [4000], 256),  # G 16, eight splits of 512, a window
+    (2, 4, 2, 20, 16, [3, 19], None),  # one split, a ragged tile
+    # rows that are not a power of two bytes: key tiles of 64 (bf16) and 32
+    # (fp32) at dh 96, 128 and 64 at dh 40, 32 and 16 at dh 136
+    (2, 16, 2, 1000, 96, [999, 400], None),
+    (1, 8, 1, 700, 40, [650], 300),
+    (3, 6, 2, 333, 136, [0, 200, 332], None),
+]
+
+
+def _fused_inputs(case, dtype, seed=0):
+    B, Hq, Hkv, T, dh, qs, _ = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, Hq, dh, generator=g, device=dev).to(dtype)
+    k_new = torch.randn(B, 1, Hkv, dh, generator=g, device=dev).to(dtype)
+    v_new = torch.randn(B, 1, Hkv, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    return q, k_new, v_new, k, v, q_start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_decode_attention_matches_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, Hq, Hkv, T, dh, qs, window = case
+    assert ops.variant(1, Hq // Hkv, dh, dtype) == "fused"
+    q, k_new, v_new, k, v, q_start = _fused_inputs(case, dtype)
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_insert(
+        q, k_new, v_new, k_want, v_want, q_start, window=window)
+    runs = []
+    for _ in range(2):
+        k_got, v_got = k.clone(), v.clone()
+        before = dict(ops.decode_attention.launches_by_variant)
+        got = ops.decode_attention_insert(q, k_new, v_new, k_got, v_got, q_start, window=window)
+        torch.cuda.synchronize()
+        # one launch of the fused kernel, nothing of the split variant
+        assert ops.decode_attention.launches_by_variant["fused"] == before["fused"] + 1
+        assert ops.decode_attention.launches_by_variant["split"] == before["split"]
+        torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+        # the new rows were written, and nothing else of the caches changed
+        assert torch.equal(k_got, k_want) and torch.equal(v_got, v_want)
+        runs.append(got)
+    assert torch.equal(runs[0], runs[1])  # reruns are equal bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [17, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_insert_wide_groups_take_the_split_kernel(G, dtype):
+    """More query rows per KV head than a fused block holds: the wrapper
+    writes the new rows, then runs the split variant (two kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (2, 2 * G, 2, 512, 64, [100, 511], None)
+    assert ops.variant(1, G, 64, dtype) == "split"
+    q, k_new, v_new, k, v, q_start = _fused_inputs(case, dtype)
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_insert(q, k_new, v_new, k_want, v_want, q_start)
+    before = dict(ops.decode_attention.launches_by_variant)
+    got = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches_by_variant == {
+        "split": before["split"] + 2, "fused": before["fused"]}
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+    assert torch.equal(k, k_want) and torch.equal(v, v_want)
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_writes_nothing_past_the_cache():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (2, 8, 2, 64, 16, [63, 64], None)  # the second sequence is full
+    q, k_new, v_new, k, v, q_start = _fused_inputs(case, torch.float32)
+    k_got, v_got = k.clone(), v.clone()
+    got = ops.decode_attention_insert(q, k_new, v_new, k_got, v_got, q_start)
+    torch.cuda.synchronize()
+    assert torch.equal(k_got[1], k[1]) and torch.equal(v_got[1], v[1])
+    # sequence 1 attends its whole cache, as the plain attention does
+    want = attention.decode_attention(q[1:], k[1:], v[1:], q_start[1:])
+    torch.testing.assert_close(got[1:], want, atol=TOLS[torch.float32], rtol=TOLS[torch.float32])
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_counts_graph_replays():
+    """A call recorded into a CUDA graph launches nothing; each replay of the
+    graph launches the fused kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (1, 32, 4, 1024, 64, [575], None)
+    q, k_new, v_new, k, v, q_start = _fused_inputs(case, torch.bfloat16)
+    ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0}
+    assert ops.decode_attention.captured_by_variant == {"split": 0, "fused": 1}
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_insert(q, k_new, v_new, k_want, v_want, q_start)
+    for _ in range(3):
+        graph.replay()
+        ops.count_replays({"fused": 1})
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 3}
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(k, k_want)
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k_new, v_new, k, v, q_start = _fused_inputs((1, 8, 2, 64, 16, [5], None), torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention_insert(q, k_new, v_new, k, v, q_start.long())
+    with pytest.raises(ValueError, match="do not agree"):
+        ops.decode_attention_insert(q, k_new[:, :, :1].contiguous(), v_new, k, v, q_start)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(k.numel() + 1, device=k.device)
+        ops.decode_attention_insert(q, k_new, v_new, flat[1:].view(k.shape), v, q_start)
+
+
+@pytest.mark.cuda
+def test_engine_graph_on_the_card_matches_the_cpu():
+    """The fp32 smoke engine on the card, which replays one captured graph a
+    token, gives the CPU engine's tokens over the smoke stream, and the
+    snapshots it stored are untouched by later requests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True), dtype=torch.float32)
+    cpu_params = init_params(torch.Generator().manual_seed(0), lm_specs(cfg), cfg.dtype, "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.cuda()
+
+    dev_params = to_card(cpu_params)
+    on_dev = ServeEngine(cfg, dev_params, max_len=128, chunk=16, device="cuda")
+    on_cpu = ServeEngine(cfg, cpu_params, max_len=128, chunk=16, device="cpu")
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab, size=48).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab, size=16).tolist() for _ in range(6)]
+    ops.reset_launches()
+    tokens = 0
+    snaps = None
+    for i, prompt in enumerate(prompts + [system, system]):
+        a, sa = on_dev.generate(prompt, max_new_tokens=8)
+        b, sb = on_cpu.generate(prompt, max_new_tokens=8)
+        assert a == b, f"request {i + 1}"
+        assert sa.chunks_skipped == sb.chunks_skipped
+        tokens += sa.n_new_tokens
+        if i == 2:  # after the system prompt was stored: copies of every snapshot
+            snaps = {key: {n: t.clone() for n, t in on_dev.snapshots.load(key).cache.items()}
+                     for key in list(on_dev.policy.stored)}
+    assert snaps, "no snapshot was stored"
+    for key, cache in snaps.items():
+        now = on_dev.snapshots.load(key).cache
+        assert all(torch.equal(now[n], t) for n, t in cache.items()), key
+    # every decode step's attention ran the fused kernel: one per layer per
+    # replayed token, plus the capture's eager warm-up step
+    assert on_dev._graph is not None
+    assert on_dev._graph.kernels == {"fused": cfg.n_layers}
+    assert ops.decode_attention.launches_by_variant["fused"] == cfg.n_layers * (tokens + 1)
 
 
 # --------------------------------------------------------------------------
