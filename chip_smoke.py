@@ -36,18 +36,25 @@ full-size tables (and a SASRec-like mean and a smoke case); serves FM,
 DCN-v2, BST and SASRec at full width through ``build_serve_step`` at
 ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``, counting the kernel's
 launches and profiling one ``serve_p99`` call per model, and checks the fp32
-smoke models on the card against the CPU; holds the gated-aggregation
-kernels (forward, and the backward's dh and dgates) against the plain version
-plus autograd at the ``minibatch_lg`` block, a Cora-scale graph and a smoke
-graph, and checks that two backward runs give equal bits (each kernel's
-device time is read back to back under the profiler and by CUDA events
-behind a device sleep that hides the host; the embedding bag's and the
-aggregation's also under the profiler with the L2 evicted before each call,
-and the forward once more with every gate nonzero, a control for the
-block's zero padding gates); and trains
+smoke models on the card against the CPU; builds the gated aggregation's
+row-pointer (CSR) index on the card under the sync debug mode (any read back
+to the host fails) and holds the aggregation kernels (forward with num and
+den; one backward launch for dgates and dh) against their plain versions
+plus autograd on both layouts, the CSR index and the padded-ELL contract,
+at the ``minibatch_lg`` block, a Cora-scale graph and a smoke graph, and on
+the CSR index alone over the whole synthetic power-law graph (232,965 nodes,
+11,461,589 edges, hubs of tens of thousands of edges) and a uniform graph of
+the same size (its control, with no hub), and checks that two
+backward runs give equal bits (each kernel's device time is read back to
+back under the profiler and by CUDA events behind a device sleep that hides
+the host, also with the L2 evicted before each call, beside each layout's
+bound and the ``index_add_`` form of the reference model's segment sums; the
+ELL forward once more with every gate nonzero, a control for the block's
+zero padding gates); and trains
 full-width GatedGCN through ``build_train_step`` on ``minibatch_lg`` blocks
-sampled from a synthetic power-law graph (one warm-up, three timed steps,
-one profiled), takes one ``full_graph_sm`` step, and trains an fp32 smoke
+sampled from that graph (one warm-up, three timed steps, one profiled;
+every aggregation launch must run on the CSR index), times the index build
+alone, takes one ``full_graph_sm`` step, and trains an fp32 smoke
 GatedGCN five steps on the card and on the CPU and compares them.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
@@ -127,6 +134,9 @@ KERNEL_CASES = [
     ("smoke prefill", 2, 16, 256, 8, 2, 8, [0, 200], None),
 ]
 MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
+# the engine's prefill_chunk call (chunk 64 at q_start 512 over max_len 1024):
+# the split variant's shape on the main path
+CHUNK_CASE = "prefill B1"
 
 
 def visible_keys(q_start: list[int], S: int, T: int, window: int | None) -> int:
@@ -1158,14 +1168,16 @@ def recsys_parity(dev) -> None:
 AGG_SRC = "src/repro_torch/kernels/gnn_aggregate/csrc/gnn_aggregate.cu"
 AGG_TPU = "src/repro/kernels/gnn_aggregate/kernel.py:59"
 AGG_MAIN = "minibatch_lg block"
+AGG_SKEW = "power-law graph"
+AGG_UNIFORM = "uniform graph"  # control: the power-law graph's sizes without its skew
 REDDIT_NODES = 232_965
 REDDIT_EDGES_CUT = 11_461_589  # a tenth of the published 114,615,892: keeps the host build short
 
 
-def power_law_sampler(seed: int = 0):
-    """A NeighborSampler (fanout 15-10) over a synthetic power-law graph with
-    Reddit's node count and a tenth of its edges; the block shapes do not
-    depend on the edge count."""
+def power_law_graph(seed: int = 0):
+    """A synthetic power-law graph with Reddit's node count and a tenth of
+    its edges (edge_index [2, E] numpy), and a NeighborSampler (fanout 15-10)
+    over it; the block shapes do not depend on the edge count."""
     from repro_torch.data import CSRGraph, NeighborSampler, random_graph
 
     t0 = time.perf_counter()
@@ -1174,29 +1186,41 @@ def power_law_sampler(seed: int = 0):
     print(f"graph: {REDDIT_NODES} nodes {REDDIT_EDGES_CUT} edges (power law) built in "
           f"{time.perf_counter() - t0:.3f} s; largest in-degree "
           f"{int(np.bincount(ei[1], minlength=REDDIT_NODES).max())}")
-    return sampler
+    return ei, sampler
 
 
-def agg_graphs(sampler) -> list:
-    """(label, edge_index [2,E] numpy, n_nodes, dim) for the kernel checks."""
+def agg_graphs(graph, sampler) -> list:
+    """(label, edge_index [2,E] numpy, n_nodes, dim, dtypes, layouts) for the
+    kernel checks.  The power-law graph runs on the CSR index alone: its
+    padded ELL would not fit the card.  A uniform random graph with the same
+    node and edge counts (largest in-degree below 100) is its control: what
+    the kernels read at that size with no hub to split."""
+    from repro_torch.data import random_graph
+
     block = sampler.sample(np.random.default_rng(0).choice(REDDIT_NODES, 1024, replace=False)
                            .astype(np.int32))
     r = np.random.default_rng(1)
     cora = r.integers(0, 2708, size=(2, 10752))  # full_graph_sm: make_batch's edges, padded
     smoke = r.integers(0, 40, size=(2, 160))
-    return [(AGG_MAIN, block["edge_index"], block["nodes"].shape[0], 70),
-            ("full_graph_sm", cora, 3072, 70), ("smoke", smoke, 40, 16)]
+    both, all_types = ("ell", "csr"), (torch.float32, torch.bfloat16)
+    return [(AGG_MAIN, block["edge_index"], block["nodes"].shape[0], 70, all_types, both),
+            ("full_graph_sm", cora, 3072, 70, all_types, both),
+            ("smoke", smoke, 40, 16, all_types, both),
+            (AGG_SKEW, graph, REDDIT_NODES, 70, (torch.float32,), ("csr",)),
+            (AGG_UNIFORM, random_graph(REDDIT_NODES, REDDIT_EDGES_CUT, seed=0, power_law=False),
+             REDDIT_NODES, 70, (torch.float32,), ("csr",))]
 
 
 def agg_bound_ms(ell, n_rows: int, dim: int, itemsize: int, backward: bool) -> tuple[float, str]:
-    """Least time.  Both ways read the neighbour table and the distinct rows
-    of h it references once.  Forward bytes: those, every ELL gate (a
-    padding slot cannot be told from an edge of row 0) read once, and the
-    output written once.  Backward bytes: those, dout, the source index and
-    the gates at the real slots only (dh needs no other) read once, dgates
-    (every slot) and dh written once.  Operations: a multiply-add per gate
-    element forward (2), a multiply per gate element and a multiply-add per
-    real slot and element backward, at the fp32 rate."""
+    """Least time of the padded-ELL call.  Both ways read the neighbour table
+    and the distinct rows of h it references once.  Forward bytes: those,
+    every ELL gate (a padding slot cannot be told from an edge of row 0)
+    read once, and the output written once.  Backward bytes: those, dout,
+    the source index and the gates at the real slots only (dh needs no
+    other) read once, dgates (every slot) and dh written once.  Operations:
+    a multiply-add per gate element forward (2), a multiply per gate element
+    and a multiply-add per real slot and element backward, at the fp32
+    rate."""
     N, D = ell.nbr.shape
     E = ell.rev_slot.numel()
     rows = torch.unique(ell.nbr).numel()
@@ -1213,96 +1237,287 @@ def agg_bound_ms(ell, n_rows: int, dim: int, itemsize: int, backward: bool) -> t
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_agg(dev, sampler) -> dict:
-    from repro_torch.kernels.gnn_aggregate import ell_index, gnn_aggregate_ref
+def csr_bound_ms(idx, n_rows: int, dim: int, itemsize: int, backward: bool,
+                 with_den: bool) -> tuple[float, str]:
+    """Least time of the CSR call, counting what these inputs need.  Forward
+    bytes: row_ptr and col, the gates (one row a real edge) and the distinct
+    rows of h that col names read once; num (and den) written once, every
+    row.  Backward bytes: dnum (and dden) at the rows that have an edge, the
+    distinct rows of h, the gates, row_ptr, col and the reverse list
+    (rev_ptr, rev_slot, rev_row) read once; dgates (one row a real edge) and
+    dh written once.  Operations at the fp32 rate: a multiply-add per gate
+    element forward (2, and 1 more for den); backward a multiply per gate
+    element for dgates (and an add for dden) and a multiply-add for dh."""
+    N, E = idx.row_ptr.numel() - 1, idx.col.numel()
+    outs = 2 if with_den else 1
+    h_rows = torch.unique(idx.col).numel()
+    gates = E * dim * itemsize
+    if backward:
+        rows_with_edges = int((idx.row_ptr[1:] > idx.row_ptr[:-1]).sum())
+        nbytes = (outs * rows_with_edges * dim * itemsize + h_rows * dim * itemsize + gates
+                  + (N + 1 + E + n_rows + 1 + 2 * E) * 4 + gates + n_rows * dim * itemsize)
+        ops = E * dim * (outs + 2)
+    else:
+        nbytes = (N + 1 + E) * 4 + gates + h_rows * dim * itemsize + outs * N * dim * itemsize
+        ops = E * dim * (1 + outs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def agg_times(fn, iters: int) -> dict:
+    dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
+    return dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
+                queued_ms=queued_ms(fn), flushed_ms=flushed_ms(fn))
+
+
+def agg_check(label: str, tname: str, layout: str, names, got, want, tol: float) -> dict:
+    """Each kernel output against the plain version within atol = rtol =
+    tol; returns the largest error of the forward and of the backward."""
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for name, g, w in zip(names, got, want):
+        err, ratio = assert_close_ratio(g, w, tol)
+        print(f"agg check {label:20s} {tname:8s} {layout} {name:6s} max_abs_err {err:.3e} "
+              f"tol atol=rtol={tol:.0e} worst ratio {ratio:.3f}")
+        check(math.isfinite(err) and ratio <= 1.0,
+              f"gnn_aggregate {label} {tname} {layout} {name}: max_abs_err {err}, ratio {ratio}")
+        kind = "fwd" if name in ("out", "num", "den") else "bwd"
+        errs[kind] = max(errs[kind], err)
+    return errs
+
+
+def csr_check64(label: str, idx, h, gates, dnum, dden, got, tol: float,
+                chunk: int = 1 << 21) -> dict:
+    """The CSR call's outputs (num, den, dh, dgates) against the same
+    function in fp64, slots taken in chunks.  Each element is held to
+    |got - ref| <= tol * (1 + S), S the sum of the magnitudes of the terms it
+    adds up: the normwise bound of a float32 sum.  The elementwise rule
+    (S = |ref|) cannot hold for a hub's sum of tens of thousands of terms
+    in any other order: the plain fp32 version (index_add_, whose atomics
+    fix no order) is printed against it too."""
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate_csr_ref
+
+    dev, (N, dim), E = h.device, dnum.shape, idx.col.numel()
+    row_of = torch.searchsorted(idx.row_ptr, torch.arange(E, dtype=torch.int32, device=dev),
+                                right=True) - 1
+    src = idx.col.long()
+    h64, dnum64, dden64 = h.double(), dnum.double(), dden.double()
+    zeros = lambda n: torch.zeros(n, dim, dtype=torch.float64, device=dev)
+    num, num_s, den, dh, dh_s = zeros(N), zeros(N), zeros(N), zeros(h.shape[0]), zeros(h.shape[0])
+    dg_err = dg_ratio = 0.0
+    for a in range(0, E, chunk):
+        r, c, g = row_of[a:a + chunk], src[a:a + chunk], gates[a:a + chunk].double()
+        t = g * h64[c]
+        num.index_add_(0, r, t)
+        num_s.index_add_(0, r, t.abs())
+        den.index_add_(0, r, g)
+        u = g * dnum64[r]
+        dh.index_add_(0, c, u)
+        dh_s.index_add_(0, c, u.abs())
+        p, q = dnum64[r] * h64[c], dden64[r]
+        diff = (got[3][a:a + chunk].double() - (p + q)).abs()
+        dg_err = max(dg_err, diff.max().item())
+        dg_ratio = max(dg_ratio, (diff / (tol * (1 + p.abs() + q.abs()))).max().item())
+        del t, u, p, q, diff
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    tname = str(h.dtype).replace("torch.", "")
+    rows = [("num", got[0], num, num_s), ("den", got[1], den, den.abs()),
+            ("dh", got[2], dh, dh_s)]
+    for name, g, ref, scale in rows:
+        diff = (g.double() - ref).abs()
+        err, ratio = diff.max().item(), (diff / (tol * (1 + scale))).max().item()
+        elementwise = (diff / (tol * (1 + ref.abs()))).max().item()
+        print(f"agg check {label:20s} {tname:8s} csr {name:6s} against fp64: max_abs_err "
+              f"{err:.3e} worst err/(tol*(1+sum|terms|)) {ratio:.3f} (tol {tol:.0e}); "
+              f"elementwise rule {elementwise:.3f}")
+        check(math.isfinite(err) and ratio <= 1.0,
+              f"gnn_aggregate {label} csr {name}: max_abs_err {err}, ratio {ratio}")
+        errs["fwd" if name in ("num", "den") else "bwd"] = max(
+            errs["fwd" if name in ("num", "den") else "bwd"], err)
+    print(f"agg check {label:20s} {tname:8s} csr dgates against fp64: max_abs_err {dg_err:.3e} "
+          f"worst err/(tol*(1+sum|terms|)) {dg_ratio:.3f}")
+    check(math.isfinite(dg_err) and dg_ratio <= 1.0,
+          f"gnn_aggregate {label} csr dgates: max_abs_err {dg_err}, ratio {dg_ratio}")
+    errs["bwd"] = max(errs["bwd"], dg_err)
+    plain, _ = gnn_aggregate_csr_ref(h, idx.row_ptr, idx.col, gates, False)
+    diff = (plain.double() - num).abs()
+    print(f"agg check {label:20s} {tname:8s} plain fp32 num against fp64: max_abs_err "
+          f"{diff.max().item():.3e} worst err/(tol*(1+sum|terms|)) "
+          f"{(diff / (tol * (1 + num_s))).max().item():.3f}; elementwise rule "
+          f"{(diff / (tol * (1 + num.abs()))).max().item():.3f}")
+    return errs
+
+
+def agg_print(label: str, tname: str, layout: str, row: dict) -> None:
+    for kind in ("fwd", "bwd"):
+        r = row[kind]
+        print(f"agg time  {label:20s} {tname:8s} {layout} {kind} ms {r['ms']:.6f} device_ms "
+              f"{r['device_ms']:.6f} device_span_ms {r['span_ms']:.6f} queued_ms "
+              f"{r['queued_ms']:.6f} l2_flushed_ms {r['flushed_ms']:.6f} "
+              f"plain_ms {r['plain_ms']:.6f} yardstick_index_add_ms {r['yardstick_ms']:.6f} "
+              f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+
+
+def agg_ell_case(ops, label, ei, n, h, eta, dout, iters, gen) -> dict:
+    """The padded-ELL contract (run as its CSR form on the same kernels):
+    forward and backward against the ELL plain version plus autograd, two
+    backward runs equal bit for bit, times beside the ELL bound."""
+    from repro_torch.kernels.gnn_aggregate import ell_as_csr, ell_index, gnn_aggregate_ref
+
+    dev, dtype, dim = h.device, h.dtype, h.shape[1]
+    tname = str(dtype).replace("torch.", "")
+    ell = ell_index(ei, n, dev)
+    gates = torch.zeros(n * ell.max_deg, dim, device=dev, dtype=dtype)
+    gates.index_copy_(0, ell.slot, eta)
+    row_ptr, col, rev = ell_as_csr(ell.nbr, ell.rev)
+    h32 = h.detach().float().requires_grad_(True)
+    g32 = gates.detach().float().view(n, ell.max_deg, dim).requires_grad_(True)
+    ref_out = gnn_aggregate_ref(h32, ell.nbr, g32)
+    ref_dh, ref_dg = torch.autograd.grad(ref_out, (h32, g32), dout.float())
+    want = (ref_out.detach(), ref_dh, ref_dg.view(-1, dim))
+    del ref_out, h32, g32
+    fwd = lambda: ops.gnn_aggregate_fwd(h, row_ptr, col, gates, layout="ell")
+    bwd = lambda: ops.gnn_aggregate_bwd(h, row_ptr, col, gates, dout, None, rev, layout="ell")
+    out, _ = fwd()
+    dh, dg = bwd()
+    dh2, dg2 = bwd()
+    torch.cuda.synchronize()
+    same = torch.equal(dh, dh2) and torch.equal(dg, dg2)
+    del dh2, dg2
+    print(f"agg check {label:20s} {tname:8s} ell N {n} max_deg {ell.max_deg} dim {dim}")
+    errs = agg_check(label, tname, "ell", ("out", "dh", "dgates"), (out, dh, dg), want,
+                     TOL[dtype])
+    print(f"agg check {label:20s} {tname:8s} ell backward equal bit for bit over two runs: "
+          f"{same}")
+    check(same, f"gnn_aggregate {label} {tname} ell: the backward is not deterministic")
+    del want, out, dh, dg
+    row = {}
+    for kind, fn in (("fwd", fwd), ("bwd", bwd)):
+        bms, by = agg_bound_ms(ell, n, dim, h.element_size(), kind == "bwd")
+        row[kind] = dict(agg_times(fn, iters), bound_ms=bms, bound_by=by, max_abs_err=errs[kind])
+    if label == AGG_MAIN:
+        # control for the data: the same forward with every slot's gate
+        # nonzero (93% of the block's slots are padding, whose gates are 0)
+        dense = torch.rand(gates.shape, generator=gen, device=dev).to(dtype)
+        row["fwd"]["dense_flushed_ms"] = flushed_ms(
+            lambda: ops.gnn_aggregate_fwd(h, row_ptr, col, dense, layout="ell"))
+        print(f"agg time  {label:20s} {tname:8s} ell fwd with every gate nonzero: "
+              f"l2_flushed_ms {row['fwd']['dense_flushed_ms']:.6f}")
+        del dense
+    gates3 = gates.view(n, ell.max_deg, dim)
+    hg, gg = (t.clone().requires_grad_(True) for t in (h, gates3))
+    row["fwd"]["plain_ms"] = cuda_ms(lambda: gnn_aggregate_ref(h, ell.nbr, gates3),
+                                     iters=iters, warmup=2)
+    plain_out = gnn_aggregate_ref(hg, ell.nbr, gg)
+    row["bwd"]["plain_ms"] = backward_ms(plain_out, (hg, gg), dout, iters)
+    return row
+
+
+def agg_csr_case(ops, label, idx, n, h, gates, dnum, dden, iters, exact: bool) -> dict:
+    """The CSR call the model makes (num and den in one launch; the backward
+    with dnum and dden): against the CSR plain version plus autograd (or,
+    with ``exact``, the fp64 function: :func:`csr_check64`), two backward
+    runs equal bit for bit, times beside the CSR bound."""
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate_csr_ref
+
+    dtype, dim = h.dtype, h.shape[1]
+    tname = str(dtype).replace("torch.", "")
+    fwd = lambda: ops.gnn_aggregate_fwd(h, idx.row_ptr, idx.col, gates, with_den=True)
+    bwd = lambda: ops.gnn_aggregate_bwd(h, idx.row_ptr, idx.col, gates, dnum, dden, idx.rev)
+    num, den = fwd()
+    dh, dg = bwd()
+    dh2, dg2 = bwd()
+    torch.cuda.synchronize()
+    same = torch.equal(dh, dh2) and torch.equal(dg, dg2)
+    del dh2, dg2
+    deg = idx.row_ptr[1:] - idx.row_ptr[:-1]
+    max_deg = int(deg.max())
+    print(f"agg check {label:20s} {tname:8s} csr N {n} E {idx.col.numel()} largest in-degree "
+          f"{max_deg} dim {dim}; its padded ELL gates would take "
+          f"{n * max_deg * dim * h.element_size()} B")
+    if exact:
+        errs = csr_check64(label, idx, h, gates, dnum, dden, (num, den, dh, dg), TOL[dtype])
+    else:
+        h32, g32 = (t.detach().float().requires_grad_(True) for t in (h, gates))
+        ref_num, ref_den = gnn_aggregate_csr_ref(h32, idx.row_ptr, idx.col, g32, True)
+        want = (ref_num.detach(), ref_den.detach(),
+                *torch.autograd.grad((ref_num, ref_den), (h32, g32),
+                                     (dnum.float(), dden.float())))
+        del ref_num, ref_den, h32, g32
+        errs = agg_check(label, tname, "csr", ("num", "den", "dh", "dgates"),
+                         (num, den, dh, dg), want, TOL[dtype])
+        del want
+    print(f"agg check {label:20s} {tname:8s} csr backward equal bit for bit over two runs: "
+          f"{same}")
+    check(same, f"gnn_aggregate {label} {tname} csr: the backward is not deterministic")
+    del num, den, dh, dg
+    row = {}
+    for kind, fn in (("fwd", fwd), ("bwd", bwd)):
+        bms, by = csr_bound_ms(idx, n, dim, h.element_size(), kind == "bwd", True)
+        row[kind] = dict(agg_times(fn, iters), bound_ms=bms, bound_by=by, max_abs_err=errs[kind])
+    num_only = lambda: ops.gnn_aggregate_fwd(h, idx.row_ptr, idx.col, gates)
+    row["fwd"]["no_den_queued_ms"] = queued_ms(num_only)
+    row["fwd"]["no_den_bound_ms"] = csr_bound_ms(idx, n, dim, h.element_size(), False, False)[0]
+    print(f"agg time  {label:20s} {tname:8s} csr fwd without den: queued_ms "
+          f"{row['fwd']['no_den_queued_ms']:.6f} bound_ms {row['fwd']['no_den_bound_ms']:.6f}")
+    plain = lambda h_, g_: gnn_aggregate_csr_ref(h_, idx.row_ptr, idx.col, g_, True)
+    row["fwd"]["plain_ms"] = cuda_ms(lambda: plain(h, gates), iters=iters, warmup=1)
+    hg, gg = (t.clone().requires_grad_(True) for t in (h, gates))
+    row["bwd"]["plain_ms"] = backward_ms(plain(hg, gg), (hg, gg), (dnum, dden), iters)
+    return row
+
+
+def phase_agg(dev, graphs) -> dict:
+    from repro_torch.kernels.gnn_aggregate import csr_index
     from repro_torch.kernels.gnn_aggregate import ops
 
-    results = {}
+    results, index_ms = {}, {}
     gen = torch.Generator(device=dev).manual_seed(99)
-    for label, ei, n, dim in agg_graphs(sampler):
-        ell = ell_index(ei, n, dev)
-        src, dst = (torch.from_numpy(np.asarray(a)).to(dev).long() for a in ei)
+    for label, ei, n, dim, dtypes, layouts in graphs:
+        ei_dev = torch.from_numpy(np.asarray(ei, np.int32)).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any read back to the host raises
+        try:
+            idx = csr_index(ei_dev, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        index_ms[label] = queued_ms(lambda: csr_index(ei_dev, n))
+        print(f"agg index {label:20s} csr_index on the card without a sync: queued_ms "
+              f"{index_ms[label]:.6f}")
+        src, dst = (ei_dev[i].long() for i in (0, 1))
         E = src.numel()
-        for dtype in (torch.float32, torch.bfloat16):
+        big = E > 10**6  # held against fp64 (csr_check64), timed with few calls
+        iters = 3 if big else (10 if n > 10**5 else 50)
+        for dtype in dtypes:
             tname = str(dtype).replace("torch.", "")
             h = torch.randn(n, dim, generator=gen, device=dev).to(dtype)
-            eta = torch.rand(E, dim, generator=gen, device=dev).to(dtype)
-            gates = torch.zeros(n * ell.max_deg, dim, device=dev, dtype=dtype)
-            gates.index_copy_(0, ell.slot, eta)
-            gates = gates.view(n, ell.max_deg, dim)
-            dout = torch.randn(n, dim, generator=gen, device=dev).to(dtype)
-            h32, g32 = (t.float().requires_grad_(True) for t in (h, gates))
-            ref_out = gnn_aggregate_ref(h32, ell.nbr, g32)
-            ref = (ref_out.detach(), *torch.autograd.grad(ref_out, (h32, g32), dout.float()))
-            del ref_out, h32, g32
-            out = ops.gnn_aggregate_fwd(h, ell.nbr, gates)
-            dh, dg = ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
-            dh2, dg2 = ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
-            torch.cuda.synchronize()
-            same = torch.equal(dh, dh2) and torch.equal(dg, dg2)
-            del dh2, dg2
-            tol = TOL[dtype]
-            errs = {"fwd": 0.0, "bwd": 0.0}
-            for name, got, want in zip(("out", "dh", "dgates"), (out, dh, dg), ref):
-                err, ratio = assert_close_ratio(got, want, tol)
-                print(f"agg check {label:18s} {tname:8s} {name:6s} N {n} max_deg {ell.max_deg} "
-                      f"dim {dim} max_abs_err {err:.3e} tol atol=rtol={tol:.0e} "
-                      f"worst ratio {ratio:.3f}")
-                check(math.isfinite(err) and ratio <= 1.0,
-                      f"gnn_aggregate {label} {tname} {name}: max_abs_err {err}, ratio {ratio}")
-                kind = "fwd" if name == "out" else "bwd"
-                errs[kind] = max(errs[kind], err)
-            print(f"agg check {label:18s} {tname:8s} backward equal bit for bit over two runs: "
-                  f"{same}")
-            check(same, f"gnn_aggregate {label} {tname}: the backward is not deterministic")
-            del ref, out, dh, dg
-            iters = 10 if n > 10**5 else 50
-            fwd = lambda: ops.gnn_aggregate_fwd(h, ell.nbr, gates)
-            bwd = lambda: ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
+            eta = torch.rand(E, dim, generator=gen, device=dev).to(dtype)  # input edge order
+            dnum, dden = (torch.randn(n, dim, generator=gen, device=dev).to(dtype)
+                          for _ in range(2))
             row = {}
-            for kind, fn in (("fwd", fwd), ("bwd", bwd)):
-                bms, by = agg_bound_ms(ell, n, dim, h.element_size(), kind == "bwd")
-                dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
-                row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
-                                 queued_ms=queued_ms(fn), flushed_ms=flushed_ms(fn),
-                                 bound_ms=bms, bound_by=by, library_ms=None,
-                                 max_abs_err=errs[kind])
-            if label == AGG_MAIN:
-                # control for the data: the same forward with every slot's gate
-                # nonzero (93% of the block's slots are padding, whose gates are 0)
-                dense = torch.rand(gates.shape, generator=gen, device=dev).to(dtype)
-                row["fwd"]["dense_flushed_ms"] = flushed_ms(
-                    lambda: ops.gnn_aggregate_fwd(h, ell.nbr, dense))
-                print(f"agg time  {label:18s} {tname:8s} fwd with every gate nonzero: "
-                      f"l2_flushed_ms {row['fwd']['dense_flushed_ms']:.6f}")
-                del dense
-            hg, gg = (t.clone().requires_grad_(True) for t in (h, gates))
-            row["fwd"]["plain_ms"] = cuda_ms(lambda: gnn_aggregate_ref(h, ell.nbr, gates),
-                                             iters=iters, warmup=2)
-            plain_out = gnn_aggregate_ref(hg, ell.nbr, gg)
-            row["bwd"]["plain_ms"] = backward_ms(plain_out, (hg, gg), dout, iters)
-            del plain_out
-            # yardstick, labelled as such: the reference model's segment-sum form,
-            # index_add_ of eta * h[src] (its own inputs: eta per edge, not ELL gates)
-            seg = lambda e_, h_: torch.zeros(n, dim, device=dev, dtype=dtype).index_add_(
-                0, dst, e_ * h_[src])
-            row["fwd"]["yardstick_ms"] = cuda_ms(lambda: seg(eta, h), iters=iters, warmup=2)
-            eg = eta.clone().requires_grad_(True)
-            seg_out = seg(eg, hg)
-            row["bwd"]["yardstick_ms"] = backward_ms(seg_out, (hg, eg), dout, iters)
-            del seg_out, hg, gg, eg
-            for kind in ("fwd", "bwd"):
-                r = row[kind]
-                print(f"agg time  {label:18s} {tname:8s} {kind} ms {r['ms']:.6f} device_ms "
-                      f"{r['device_ms']:.6f} device_span_ms {r['span_ms']:.6f} queued_ms "
-                      f"{r['queued_ms']:.6f} l2_flushed_ms {r['flushed_ms']:.6f} "
-                      f"plain_ms {r['plain_ms']:.6f} "
-                      f"yardstick_index_add_ms {r['yardstick_ms']:.6f} bound_ms "
-                      f"{r['bound_ms']:.6f} ({r['bound_by']})")
+            if "ell" in layouts:
+                row["ell"] = agg_ell_case(ops, label, ei, n, h, eta, dnum, iters, gen)
+            row["csr"] = agg_csr_case(ops, label, idx, n, h, eta[idx.perm], dnum, dden, iters,
+                                      exact=big)
+            # yardstick, labelled as such: the reference model's segment-sum
+            # form, index_add_ of eta * h[src] and of eta, exactly the CSR call
+            seg = lambda e_, h_: (
+                torch.zeros(n, dim, device=dev, dtype=dtype).index_add_(0, dst, e_ * h_[src]),
+                torch.zeros(n, dim, device=dev, dtype=dtype).index_add_(0, dst, e_))
+            fwd_ms = cuda_ms(lambda: seg(eta, h), iters=iters, warmup=1)
+            hg, eg = h.clone().requires_grad_(True), eta.clone().requires_grad_(True)
+            bwd_ms = backward_ms(seg(eg, hg), (hg, eg), (dnum, dden), iters)
+            del hg, eg
+            for layout in row:
+                row[layout]["fwd"]["yardstick_ms"] = fwd_ms
+                row[layout]["bwd"]["yardstick_ms"] = bwd_ms
+                agg_print(label, tname, layout, row[layout])
             results[(label, tname)] = row
-            del h, eta, gates, dout
+            del h, eta, dnum, dden
+            gc.collect()
             torch.cuda.empty_cache()
-    return {"cases": results}
+        del idx, ei_dev, src, dst
+    return {"cases": results, "index_ms": index_ms}
 
 
 # --------------------------------------------------------------------------
@@ -1322,7 +1537,7 @@ def minibatch(sampler, feats, labels, step: int, dev) -> dict:
 def phase_gnn_train(dev, sampler) -> dict:
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.data import make_batch
-    from repro_torch.kernels.gnn_aggregate import gnn_aggregate
+    from repro_torch.kernels.gnn_aggregate import csr_index, gnn_aggregate, reset_launches
     from repro_torch.models.layers import init_params
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import build_param_specs, build_train_step, make_train_state
@@ -1337,9 +1552,15 @@ def phase_gnn_train(dev, sampler) -> dict:
     labels = torch.randint(0, cfg.n_classes, (REDDIT_NODES,), generator=gen, device=dev,
                            dtype=torch.int32)
     batches = [minibatch(sampler, feats, labels, i, dev) for i in range(5)]
+    # the step's index build alone: device time of csr_index on a block
+    ei0, n0 = batches[0]["edge_index"], batches[0]["node_feat"].shape[0]
+    index_ms = queued_ms(lambda: csr_index(ei0, n0))
+    index_host_ms = cuda_ms(lambda: csr_index(ei0, n0), iters=20, warmup=2)
+    print(f"gnn train: csr_index of a minibatch_lg block ({n0} nodes, {ei0.shape[1]} edges) "
+          f"queued_ms {index_ms:.6f} ms (back to back, host included) {index_host_ms:.6f}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    gnn_aggregate.launches_fwd = gnn_aggregate.launches_bwd = 0
+    reset_launches()
     rows = []
     n_steps = 4
     for i in range(n_steps):  # one warm-up step, three timed
@@ -1358,13 +1579,17 @@ def phase_gnn_train(dev, sampler) -> dict:
               f"gnn train {tag}: {nf} forward / {nb} backward aggregations, wanted {cfg.n_layers}")
         rows.append(dict(step_s=dt, **m))
     launches = [gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd]
+    layouts = dict(gnn_aggregate.launches_by_layout)
+    # no [N, max_deg, d] tensor in the step: every launch ran on the CSR index
+    check(layouts == {"csr": 2 * n_steps * cfg.n_layers, "ell": 0},
+          f"gnn train: launches by layout {layouts}, wanted every one on the CSR index")
     mem = torch.cuda.max_memory_allocated(dev)
     timed = rows[1:]
     mean_s = sum(r["step_s"] for r in timed) / len(timed)
     print(f"gnn train: {cfg.name} minibatch_lg (1024 seeds, fanout 15-10, 169984 nodes, "
           f"168960 edges, d_feat 602) fp32: mean step_ms {mean_s * 1e3:.3f} seeds_per_s "
           f"{1024 / mean_s:.1f} max_memory_allocated {mem}; aggregation launches in the "
-          f"{n_steps} steps fwd {launches[0]} bwd {launches[1]}")
+          f"{n_steps} steps fwd {launches[0]} bwd {launches[1]} by layout {layouts}")
 
     def one_more():
         nonlocal state
@@ -1380,12 +1605,13 @@ def phase_gnn_train(dev, sampler) -> dict:
     fstate = make_train_state(init_params(gen, build_param_specs(cfg, fcell), cfg.dtype, dev))
     fbatch = make_batch(cfg, fcell, seed=0, device=dev)
     torch.cuda.synchronize()
-    gnn_aggregate.launches_fwd = gnn_aggregate.launches_bwd = 0
+    reset_launches()
     t0 = time.perf_counter()
     fstate, m = build_train_step(cfg, fcell)(fstate, fbatch)
     loss = float(m["loss"])
     dt = time.perf_counter() - t0
     full = [gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd]
+    check(gnn_aggregate.launches_by_layout["ell"] == 0, "full_graph_sm step: an ELL launch")
     print(f"gnn train full_graph_sm: loss {loss:.6f} step_ms {dt * 1e3:.3f} (first call) "
           f"agg_fwd {full[0]} agg_bwd {full[1]}")
     check(math.isfinite(loss) and full == [cfg.n_layers, cfg.n_layers],
@@ -1393,7 +1619,7 @@ def phase_gnn_train(dev, sampler) -> dict:
     del fstate, fbatch
     torch.cuda.empty_cache()
     return {"launches": launches, "steps": n_steps, "launches_full_graph": full, "rows": rows,
-            "mean_step_s": mean_s, "max_memory": mem, "profile": prof}
+            "mean_step_s": mean_s, "max_memory": mem, "profile": prof, "index_ms": index_ms}
 
 
 def phase_gnn_parity(dev) -> None:
@@ -1480,15 +1706,17 @@ def main() -> int:
     pre = timed(phase_prefill)
     bag = timed(phase_bag)
     rec = timed(phase_recsys)
-    sampler = power_law_sampler()
-    agg = timed(phase_agg, sampler)
+    graph, sampler = power_law_graph()
+    agg = timed(phase_agg, agg_graphs(graph, sampler))
+    del graph
     gtrain = timed(phase_gnn_train, sampler)
     timed(phase_gnn_parity)
 
-    main_case = next(c for c in KERNEL_CASES if c[0] == MAIN_CASE)
-    decode_shape = {"B": main_case[1], "S": main_case[2], "T": main_case[3], "Hq": main_case[4],
-                    "Hkv": main_case[5], "dh": main_case[6], "q_start": main_case[7],
-                    "dtype": "bfloat16"}
+    def decode_shape(label):
+        c = next(c for c in KERNEL_CASES if c[0] == label)
+        return {"case": label, "B": c[1], "S": c[2], "T": c[3], "Hq": c[4], "Hkv": c[5],
+                "dh": c[6], "q_start": c[7], "dtype": "bfloat16"}
+
     flash_case = next(c for c in FLASH_CASES if c[0] == FLASH_MAIN)
     flash_shape = {"B": flash_case[1], "S": flash_case[2], "Hq": flash_case[3],
                    "Hkv": flash_case[4], "dh": flash_case[5], "causal": flash_case[6],
@@ -1497,10 +1725,10 @@ def main() -> int:
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     flash_tpu = "src/repro/kernels/flash_attention/kernel.py:114"
     line = {"kernels": []}
-    for name, var, r, path in (
-        ("decode_attention_fused", "fused", kern["fused"][(MAIN_CASE, "bfloat16")],
+    for name, var, case, r, path in (
+        ("decode_attention_fused", "fused", MAIN_CASE, kern["fused"][(MAIN_CASE, "bfloat16")],
          "serving decode steps (CUDA graph replays and the capture's warm-up step)"),
-        ("decode_attention", "split", kern["cases"][(MAIN_CASE, "bfloat16")],
+        ("decode_attention", "split", CHUNK_CASE, kern["cases"][(CHUNK_CASE, "bfloat16")],
          "serving prefill chunks (split and combine kernel per call)"),
     ):
         line["kernels"].append({
@@ -1520,7 +1748,7 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "held": True,
-            "shape": decode_shape,
+            "shape": decode_shape(case),
         })
     for name, kind, launches, by_path in (
         ("flash_attention", "fwd", train["launches"][0] + pre["launches"],
@@ -1570,9 +1798,10 @@ def main() -> int:
                   "combiner": bag_case[3], "dtype": "float32"},
     })
     am = agg["cases"][(AGG_MAIN, "float32")]
+    skew = agg["cases"][(AGG_SKEW, "float32")]["csr"]
     mb_path = f"gnn train minibatch_lg ({gtrain['steps']} steps)"
     for i, (name, kind) in enumerate((("gnn_aggregate", "fwd"), ("gnn_aggregate_bwd", "bwd"))):
-        r = am[kind]
+        r, e = am["csr"][kind], am["ell"][kind]
         by_path = {mb_path: gtrain["launches"][i],
                    "gnn train full_graph_sm (1 step)": gtrain["launches_full_graph"][i]}
         line["kernels"].append({
@@ -1580,6 +1809,7 @@ def main() -> int:
             "route": "cuda",
             "source": AGG_SRC,
             "replaces": AGG_TPU,
+            "layout": "csr",  # the model's call (with den); ell_*: the padded-ELL contract
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_step": gtrain["launches"][i] // gtrain["steps"],
@@ -1591,14 +1821,25 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes the gated ELL aggregation
+            "library_ms": None,  # no single PyTorch call computes the gated aggregation
             "yardstick_ms": r["yardstick_ms"],
-            "yardstick": "index_add_ of eta * h[src] (the reference model's segment-sum form)",
-            **({"dense_gates_l2_flushed_ms": r["dense_flushed_ms"]}
-               if "dense_flushed_ms" in r else {}),
+            "yardstick": "index_add_ of eta * h[src] and of eta (the reference model's "
+                         "segment sums)",
+            "ell_max_abs_err": e["max_abs_err"],
+            "ell_ms": e["ms"],
+            "ell_queued_ms": e["queued_ms"],
+            "ell_l2_flushed_ms": e["flushed_ms"],
+            "ell_plain_ms": e["plain_ms"],
+            "ell_bound_ms": e["bound_ms"],
+            "ell_bound_by": e["bound_by"],
+            **({"ell_dense_gates_l2_flushed_ms": e["dense_flushed_ms"]}
+               if "dense_flushed_ms" in e else {}),
+            "power_law_queued_ms": skew[kind]["queued_ms"],
+            "power_law_bound_ms": skew[kind]["bound_ms"],
             "held": True,
-            "shape": {"case": AGG_MAIN, "N": 169_984, "max_deg": 15, "dim": 70,
-                      "dtype": "float32"},
+            "shape": {"case": AGG_MAIN, "N": 169_984, "E": 168_960, "dim": 70,
+                      "dtype": "float32", "ell_max_deg": 15,
+                      "power_law": {"N": REDDIT_NODES, "E": REDDIT_EDGES_CUT}},
         })
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))

@@ -1,11 +1,17 @@
 """Wrapper of the hand-written gated-aggregation kernels
-(``csrc/gnn_aggregate.cu``), with the reference wrapper's signature.
+(``csrc/gnn_aggregate.cu``): one forward and one backward over a row-pointer
+(CSR) index of the slots, and the reference wrapper's padded-ELL contract on
+the same kernels.
 
-``gnn_aggregate`` is a ``torch.autograd.Function`` on CUDA tensors: its
-forward launches the forward kernel and its backward launches the dgates and
-dh kernels (deterministic: dh sums over a source-sorted list of the real
-slots, no atomics).  Tensors on the CPU go to the plain version
-(:func:`gnn_aggregate_ref`), which autograd differentiates.  A CUDA tensor
+``gnn_aggregate_csr`` is the model's call: ``num`` (and, when asked, ``den``)
+over the slots of each row, differentiable in h and the gates.
+``gnn_aggregate`` keeps the reference wrapper's signature over a padded-ELL
+table, the case ``row_ptr[n] = n * max_deg`` (:func:`ell_as_csr`).  On CUDA
+tensors both go through ``torch.autograd.Function`` to the kernels: one
+forward launch, and one backward launch that writes dgates per slot and dh
+per source over the source-sorted reverse list (deterministic, no atomics).
+Tensors on the CPU go to the plain versions (:func:`gnn_aggregate_csr_ref`,
+:func:`gnn_aggregate_ref`), which autograd differentiates.  A CUDA tensor
 goes to the kernels, or the wrapper raises: there is no fallback.  The
 reference pads the width to 128 TPU lanes; here nothing is padded.
 """
@@ -16,11 +22,13 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import gnn_aggregate_ref
+from .ref import ell_as_csr, gnn_aggregate_csr_ref, gnn_aggregate_ref
 
-__all__ = ["gnn_aggregate", "gnn_aggregate_bwd", "gnn_aggregate_fwd"]
+__all__ = ["gnn_aggregate", "gnn_aggregate_bwd", "gnn_aggregate_csr", "gnn_aggregate_fwd",
+           "reset_launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LAYOUTS = ("csr", "ell")
 _fns: dict[str, object] = {}
 
 
@@ -29,117 +37,153 @@ def _kernel(name: str, n_ptr: int):
     if fn is None:
         fn = getattr(build.load("gnn_aggregate"), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _check(h: torch.Tensor, nbr: torch.Tensor, gates: torch.Tensor) -> None:
+def _index_vector(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"gnn_aggregate: {name} must be a contiguous int32 vector on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check(h: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor, gates: torch.Tensor,
+           rev: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None) -> None:
     if h.device.type != "cuda":
         raise ValueError(f"gnn_aggregate: unsupported device {h.device}")
-    for name, t in (("nbr", nbr), ("gates", gates)):
-        if t.device != h.device:
-            raise ValueError(f"gnn_aggregate: {name} on {t.device}, h on {h.device}")
+    if gates.device != h.device:
+        raise ValueError(f"gnn_aggregate: gates on {gates.device}, h on {h.device}")
     if h.dtype not in _DTYPES or gates.dtype != h.dtype:
         raise TypeError(
             f"gnn_aggregate: h and gates must share fp32 or bf16, got {h.dtype}/{gates.dtype}"
         )
-    if nbr.dtype != torch.int32:
-        raise TypeError(f"gnn_aggregate: nbr must be int32, got {nbr.dtype}")
-    if (h.dim() != 2 or nbr.dim() != 2 or h.shape[0] == 0
-            or gates.shape != (nbr.shape[0], nbr.shape[1], h.shape[1])):
+    for name, t in (("row_ptr", row_ptr), ("col", col)):
+        _index_vector(name, t, h.device)
+    if (h.dim() != 2 or h.shape[0] == 0 or row_ptr.shape[0] < 2
+            or gates.shape != (col.shape[0], h.shape[1])):
         raise ValueError(
-            f"gnn_aggregate: shapes h {tuple(h.shape)}, nbr {tuple(nbr.shape)}, gates "
-            f"{tuple(gates.shape)} are not [N_h>0, dim], [N, max_deg], [N, max_deg, dim]"
+            f"gnn_aggregate: shapes h {tuple(h.shape)}, row_ptr {tuple(row_ptr.shape)}, col "
+            f"{tuple(col.shape)}, gates {tuple(gates.shape)} are not [N_h>0, dim], [N+1>1], "
+            f"[slots], [slots, dim]"
         )
-    if not (h.is_contiguous() and nbr.is_contiguous() and gates.is_contiguous()):
-        raise ValueError("gnn_aggregate: h, nbr and gates must be contiguous")
+    if col.shape[0] >= 2**31:
+        raise ValueError(f"gnn_aggregate: {col.shape[0]} slots overflow int32")
+    if not (h.is_contiguous() and gates.is_contiguous()):
+        raise ValueError("gnn_aggregate: h and gates must be contiguous")
+    if rev is not None:
+        for name, t in zip(("rev_ptr", "rev_slot", "rev_row"), rev):
+            _index_vector(name, t, h.device)
+        if rev[0].shape[0] != h.shape[0] + 1 or rev[1].shape != rev[2].shape:
+            raise ValueError(
+                f"gnn_aggregate: rev_ptr has {rev[0].shape[0]} entries (wanted "
+                f"{h.shape[0] + 1}), rev_slot {rev[1].shape[0]}, rev_row {rev[2].shape[0]}"
+            )
 
 
-def _check_rev(h: torch.Tensor, rev_ptr: torch.Tensor, rev_slot: torch.Tensor) -> None:
-    for name, t in (("rev_ptr", rev_ptr), ("rev_slot", rev_slot)):
-        if t.device != h.device or t.dtype != torch.int32 or t.dim() != 1 \
-                or not t.is_contiguous():
-            raise ValueError(f"gnn_aggregate: {name} must be a contiguous int32 vector on "
-                             f"{h.device}")
-    if rev_ptr.shape[0] != h.shape[0] + 1:
-        raise ValueError(f"gnn_aggregate: rev_ptr has {rev_ptr.shape[0]} entries, wanted "
-                         f"{h.shape[0] + 1}")
-
-
-def _args(h: torch.Tensor, nbr: torch.Tensor, *tensors: torch.Tensor) -> tuple:
-    N, deg = nbr.shape
+def _launch(name: str, n_ptr: int, h: torch.Tensor, ptrs: list, rows: int, rows_t: list,
+            layout: str) -> None:
+    """One launch; ``rows_t`` are the tensors read or written as rows of dim
+    (their alignment bounds the vector width)."""
     dim = h.shape[1]
-    vec = build.vector_width(dim, h.element_size(), h, *tensors)
-    return N, h.shape[0], dim, deg, vec, _DTYPES[h.dtype]
-
-
-def gnn_aggregate_fwd(h: torch.Tensor, nbr: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
-    """One launch of the forward kernel: out [N, dim] in h's dtype."""
-    _check(h, nbr, gates)
-    out = torch.empty(nbr.shape[0], h.shape[1], dtype=h.dtype, device=h.device)
-    if out.numel() == 0:
-        return out.zero_()
+    vec = build.vector_width(dim, h.element_size(), *rows_t)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
-        err = _kernel("gnn_aggregate_fwd", 4)(
-            h.data_ptr(), nbr.data_ptr(), gates.data_ptr(), out.data_ptr(),
-            *_args(h, nbr, gates, out), stream,
-        )
+        err = _kernel(name, n_ptr)(*ptrs, rows, h.shape[0], dim, vec, _DTYPES[h.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"gnn_aggregate forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"gnn_aggregate: {name} launch failed: CUDA error {err}")
+    gnn_aggregate.launches_by_layout[layout] += 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return t.data_ptr() if t is not None else None
+
+
+def gnn_aggregate_fwd(
+    h: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor, gates: torch.Tensor, *,
+    with_den: bool = False, layout: str = "csr",
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the forward kernel: (num [N, dim], den [N, dim] or
+    None) in h's dtype.  ``layout`` names the index for the launch counts."""
+    _check(h, row_ptr, col, gates)
+    N = row_ptr.shape[0] - 1
+    num = torch.empty(N, h.shape[1], dtype=h.dtype, device=h.device)
+    den = torch.empty_like(num) if with_den else None
+    outs = [t for t in (num, den) if t is not None]
+    _launch("gnn_aggregate_fwd", 6, h,
+            [h.data_ptr(), row_ptr.data_ptr(), col.data_ptr(), gates.data_ptr(), num.data_ptr(),
+             _ptr(den)], N, [h, gates, *outs], layout)
     gnn_aggregate.launches_fwd += 1
-    return out
+    return num, den
 
 
 def gnn_aggregate_bwd(
-    h: torch.Tensor, nbr: torch.Tensor, gates: torch.Tensor, dout: torch.Tensor,
-    rev_ptr: torch.Tensor, rev_slot: torch.Tensor, *, need_h: bool = True,
-    need_gates: bool = True,
+    h: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor, gates: torch.Tensor,
+    dnum: torch.Tensor, dden: torch.Tensor | None,
+    rev: tuple[torch.Tensor, torch.Tensor, torch.Tensor], *, need_h: bool = True,
+    need_gates: bool = True, layout: str = "csr",
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """The backward kernels: (dh [N_h, dim], dgates [N, max_deg, dim]) in
-    h's dtype, None where not wanted.  Counts one backward launch."""
-    _check(h, nbr, gates)
-    _check_rev(h, rev_ptr, rev_slot)
-    if dout.shape != (nbr.shape[0], h.shape[1]) or dout.dtype != h.dtype \
-            or dout.device != h.device or not dout.is_contiguous():
-        raise ValueError("gnn_aggregate: dout must be contiguous, [N, dim] and typed as h")
+    """One launch of the backward kernel: (dh [N_h, dim], dgates [slots,
+    dim]) in h's dtype, None where not wanted.  ``rev`` is the (rev_ptr,
+    rev_slot, rev_row) source-sorted list of the slots that dh sums over."""
+    _check(h, row_ptr, col, gates, rev)
+    N = row_ptr.shape[0] - 1
+    for name, t in (("dnum", dnum), ("dden", dden)):
+        if t is not None and (t.shape != (N, h.shape[1]) or t.dtype != h.dtype
+                              or t.device != h.device or not t.is_contiguous()):
+            raise ValueError(f"gnn_aggregate: {name} must be contiguous, [N, dim] and typed as h")
     dh = torch.empty_like(h) if need_h else None
     dgates = torch.empty_like(gates) if need_gates else None
-    if dout.numel() == 0 or not (need_h or need_gates):
-        return (dh.zero_() if dh is not None else None,
-                dgates.zero_() if dgates is not None else None)
-    outs = [t for t in (dh, dgates) if t is not None]
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    ptr = lambda t: t.data_ptr() if t is not None else None
-    with torch.cuda.device(h.device):
-        err = _kernel("gnn_aggregate_bwd", 8)(
-            h.data_ptr(), nbr.data_ptr(), gates.data_ptr(), dout.data_ptr(),
-            rev_ptr.data_ptr(), rev_slot.data_ptr(), ptr(dgates), ptr(dh),
-            *_args(h, nbr, gates, dout, *outs), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gnn_aggregate backward kernel launch failed: CUDA error {err}")
+    if not (need_h or need_gates):
+        return dh, dgates
+    rows_t = [t for t in (h, gates, dnum, dden, dh, dgates) if t is not None]
+    _launch("gnn_aggregate_bwd", 11, h,
+            [h.data_ptr(), row_ptr.data_ptr(), col.data_ptr(), gates.data_ptr(),
+             dnum.data_ptr(), _ptr(dden), *(t.data_ptr() for t in rev), _ptr(dgates),
+             _ptr(dh)], N, rows_t, layout)
     gnn_aggregate.launches_bwd += 1
     return dh, dgates
 
 
-class _GnnAggregate(torch.autograd.Function):
+class _Aggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, nbr, gates, rev_ptr, rev_slot):
-        out = gnn_aggregate_fwd(h, nbr, gates)
-        ctx.save_for_backward(h, nbr, gates, rev_ptr, rev_slot)
-        return out
+    def forward(ctx, h, gates, row_ptr, col, rev_ptr, rev_slot, rev_row, with_den, layout):
+        num, den = gnn_aggregate_fwd(h, row_ptr, col, gates, with_den=with_den, layout=layout)
+        ctx.save_for_backward(h, gates, row_ptr, col, rev_ptr, rev_slot, rev_row)
+        ctx.layout = layout
+        return num, den
 
     @staticmethod
-    def backward(ctx, dout):
-        h, nbr, gates, rev_ptr, rev_slot = ctx.saved_tensors
+    def backward(ctx, dnum, dden):
+        h, gates, row_ptr, col, *rev = ctx.saved_tensors
         dh, dgates = gnn_aggregate_bwd(
-            h, nbr, gates, dout.contiguous(), rev_ptr, rev_slot,
-            need_h=ctx.needs_input_grad[0], need_gates=ctx.needs_input_grad[2],
+            h, row_ptr, col, gates, dnum.contiguous(),
+            dden.contiguous() if dden is not None else None, tuple(rev),
+            need_h=ctx.needs_input_grad[0], need_gates=ctx.needs_input_grad[1],
+            layout=ctx.layout,
         )
-        return dh, None, dgates, None, None
+        return dh, dgates, None, None, None, None, None, None, None
+
+
+def gnn_aggregate_csr(
+    h: torch.Tensor,  # [N_h, dim]
+    row_ptr: torch.Tensor,  # [N+1] int32: the slots of row n are row_ptr[n]..row_ptr[n+1]
+    col: torch.Tensor,  # [slots] int32: the source of each slot
+    gates: torch.Tensor,  # [slots, dim]
+    rev: tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # CsrIndex.rev of the same index
+    *, with_den: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(num, den): num[n] = sum over the slots k of row n of gates[k] *
+    h[col[k]], den[n] the sum of those gates (None unless ``with_den``),
+    accumulated in fp32; [N, dim] in h's dtype; differentiable in h and
+    gates.  ``rev`` is the (rev_ptr, rev_slot, rev_row) source-sorted list of
+    the slots (:attr:`CsrIndex.rev`) that the backward kernel sums dh over;
+    the plain version on the CPU does not read it."""
+    if h.device.type == "cpu":
+        return gnn_aggregate_csr_ref(h, row_ptr, col, gates, with_den)
+    _check(h, row_ptr, col, gates, rev)
+    return _Aggregate.apply(h, gates, row_ptr, col, *rev, with_den, "csr")
 
 
 def gnn_aggregate(
@@ -148,21 +192,44 @@ def gnn_aggregate(
     gates: torch.Tensor,  # [N, max_deg, dim], padding -> 0
     rev: tuple[torch.Tensor, torch.Tensor],  # EllIndex.rev of the graph nbr was built from
 ) -> torch.Tensor:
-    """out[n] = sum_j gates[n,j] * h[nbr[n,j]], accumulated in fp32; [N, dim]
-    in h's dtype; differentiable in h and gates.  ``rev`` is the
-    (rev_ptr, rev_slot) source index of the real slots (:attr:`EllIndex.rev`,
-    built with ``nbr`` by :func:`ell_index`) that the backward kernel sums
-    dh over; the plain version on the CPU does not read it."""
+    """The reference wrapper's contract: out[n] = sum_j gates[n,j] *
+    h[nbr[n,j]], accumulated in fp32; [N, dim] in h's dtype; differentiable
+    in h and gates.  ``rev`` is the (rev_ptr, rev_slot) source index of the
+    real slots (:attr:`EllIndex.rev`, built with ``nbr`` by
+    :func:`ell_index`); on CUDA the table runs as its CSR index
+    (:func:`ell_as_csr`) through the same kernels.  The plain version on the
+    CPU does not read ``rev``."""
     if h.device.type == "cpu":
         return gnn_aggregate_ref(h, nbr, gates)
-    _check(h, nbr, gates)
-    _check_rev(h, *rev)
-    return _GnnAggregate.apply(h, nbr, gates, *rev)
+    if nbr.dim() != 2 or gates.shape != (*nbr.shape, h.shape[-1]):
+        raise ValueError(
+            f"gnn_aggregate: shapes h {tuple(h.shape)}, nbr {tuple(nbr.shape)}, gates "
+            f"{tuple(gates.shape)} are not [N_h>0, dim], [N, max_deg], [N, max_deg, dim]"
+        )
+    if nbr.dtype != torch.int32:
+        raise TypeError(f"gnn_aggregate: nbr must be int32, got {nbr.dtype}")
+    if nbr.numel() >= 2**31:
+        raise ValueError(f"gnn_aggregate: {tuple(nbr.shape)} slots overflow int32")
+    if not (nbr.is_contiguous() and gates.is_contiguous()):
+        raise ValueError("gnn_aggregate: nbr and gates must be contiguous")
+    for name, t in zip(("rev_ptr", "rev_slot"), rev):
+        _index_vector(name, t, h.device)
+    row_ptr, col, rev3 = ell_as_csr(nbr, rev)
+    flat = gates.view(nbr.numel(), gates.shape[-1])
+    _check(h, row_ptr, col, flat, rev3)
+    return _Aggregate.apply(h, flat, row_ptr, col, *rev3, False, "ell")[0]
 
 
-# kernel launches: forward-kernel calls and backward calls (each backward
-# call launches the dgates and the dh kernel) that reached the card, and
-# nowhere else.  Callers that prove a path went through the kernels set them
-# to 0 and read them.
-gnn_aggregate.launches_fwd = 0
-gnn_aggregate.launches_bwd = 0
+# Kernel launches that reached the card, and nowhere else: forward launches
+# (``launches_fwd``), backward launches (``launches_bwd``; one kernel writes
+# both dgates and dh), and both by the index they ran on
+# (``launches_by_layout``: "csr", or "ell" for the padded-ELL contract).
+# Callers that prove a path went through the kernels reset them
+# (reset_launches) and read them.
+def reset_launches() -> None:
+    gnn_aggregate.launches_fwd = 0
+    gnn_aggregate.launches_bwd = 0
+    gnn_aggregate.launches_by_layout = {layout: 0 for layout in LAYOUTS}
+
+
+reset_launches()

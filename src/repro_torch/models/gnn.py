@@ -6,15 +6,16 @@ Layer update (with edge features, residuals, and norm):
     eta_ij = sigma(e'_ij) / (sum_j sigma(e'_ij) + eps)
     h'_i  = h_i + ReLU(Norm(U h_i + sum_j eta_ij * (V h_j)))
 
-The reference sums messages with ``jax.ops.segment_sum`` over the edges.
-Here the numerator goes through the gated-aggregation kernel
-(:func:`repro_torch.kernels.gnn_aggregate.gnn_aggregate`) over a padded-ELL
-index of the graph, built once per graph on the host: the gates are the
-edges' sigma(e') scattered into their slots of a zeroed
-``[N, max_deg, d_hidden]`` tensor, and ``max_deg`` is the largest in-degree,
-so no edge is dropped.  The denominator stays a plain sum over those gates.
-The reference's ``act_*_axes`` are GSPMD annotations: on one card there is
-nothing to do.
+The reference sums messages and gates with two ``jax.ops.segment_sum``s
+over the edges.  Here one call of the gated-aggregation kernel
+(:func:`repro_torch.kernels.gnn_aggregate.gnn_aggregate_csr`) gives both,
+over a row-pointer (CSR) index of the real edges that ``forward`` builds once
+per graph on the graph's own device (:func:`csr_index`, no read back to the
+host).  The edges are taken in destination order, so the edge states and
+their gates sigma(e') are already in the index's slot order: no padded
+tensor is built.  Edge order cannot show in the logits, since every edge's
+state starts from the same encoded constant.  The reference's
+``act_*_axes`` are GSPMD annotations: on one card there is nothing to do.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import GNNConfig
-from ..kernels.gnn_aggregate import EllIndex, ell_index, gnn_aggregate
+from ..kernels.gnn_aggregate import CsrIndex, csr_index, gnn_aggregate_csr
 from .layers import PSpec, layer_norm
 
 RematPolicy = Callable[..., Any]  # a selective-checkpoint policy (ctx, op, ...)
@@ -52,23 +53,19 @@ def gnn_specs(cfg: GNNConfig, d_feat: int) -> dict:
 
 
 def _gated_layer(p: dict, h: torch.Tensor, e: torch.Tensor, src: torch.Tensor,
-                 dst: torch.Tensor, ell: EllIndex):
-    n, d = h.shape
+                 dst: torch.Tensor, index: CsrIndex):
     h_src = h[src]
     h_dst = h[dst]
     e_new = h_dst @ p["A"] + h_src @ p["B"] + e @ p["C"]
     e_new = torch.relu(layer_norm(e_new, p["ln_e_scale"], p["ln_e_bias"]))
     e = e + e_new
 
-    eta = torch.sigmoid(e)
-    # in place into fresh zeros: an out-of-place index_copy would copy the
-    # [N*max_deg, d] tensor once more
-    gates = eta.new_zeros(n * ell.max_deg, d).index_copy_(0, ell.slot, eta)
-    gates = gates.view(n, ell.max_deg, d)
-    # sum_j eta_ij * (V h_j): the reference's segment_sum of eta * (h_src @ V)
-    num = gnn_aggregate(h @ p["V"], ell.nbr, gates, ell.rev)
-    den = gates.sum(dim=1) + 1e-6
-    agg = num / den
+    eta = torch.sigmoid(e)  # the gates, one row a slot
+    # sum_j eta_ij * (V h_j) and sum_j eta_ij: the reference's segment_sums
+    # of eta * (h_src @ V) and of eta
+    num, den = gnn_aggregate_csr(h @ p["V"], index.row_ptr, index.col, eta, index.rev,
+                                 with_den=True)
+    agg = num / (den + 1e-6)
     h_new = h @ p["U"] + agg
     h_new = torch.relu(layer_norm(h_new, p["ln_h_scale"], p["ln_h_bias"]))
     return h + h_new, e
@@ -83,20 +80,27 @@ def forward(
     unroll: int = 1,
     remat: RematPolicy | None = None,
 ) -> torch.Tensor:
-    """Returns per-node class logits [N, n_classes] in fp32.  The graph's ELL
-    index is built here, on the host, from ``edge_index``.  ``remat`` is None
-    or a selective-checkpoint policy applied per layer; ``unroll`` has no
-    effect."""
+    """Returns per-node class logits [N, n_classes] in fp32.  The graph's CSR
+    index is built here, on ``edge_index``'s device, once a call.  The ids
+    are checked to lie in [0, N) by one read of their min and max on the host,
+    the call's only sync (:func:`csr_index` itself reads nothing back).
+    ``remat`` is None or a selective-checkpoint policy applied per layer;
+    ``unroll`` has no effect."""
     n = node_feat.shape[0]
-    ell = ell_index(edge_index, n, node_feat.device)
-    src, dst = edge_index[0].long(), edge_index[1].long()
+    if edge_index.numel():
+        lo, hi = torch.stack(torch.aminmax(edge_index)).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"gnn forward: edge ids span [{lo}, {hi}], outside [0, {n})")
+    index = csr_index(edge_index, n)
+    # the edges in slot order, so that the edge states line up with the index
+    src, dst = (edge_index[i].long()[index.perm] for i in (0, 1))
     h = node_feat.to(cfg.dtype) @ params["node_encoder"]
     # edge features: encoded from a constant when the dataset has none
     e = torch.ones(src.shape[0], cfg.d_edge, dtype=cfg.dtype,
                    device=node_feat.device) @ params["edge_encoder"]
 
     def body(layer_p, h, e):
-        return _gated_layer(layer_p, h, e, src, dst, ell)
+        return _gated_layer(layer_p, h, e, src, dst, index)
 
     if remat is not None:
         ctx = partial(create_selective_checkpoint_contexts, remat)

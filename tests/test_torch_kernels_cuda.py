@@ -547,15 +547,26 @@ def test_embedding_bag_rejects_bad_inputs():
 
 
 # --------------------------------------------------------------------------
-# gated aggregation: forward and backward
+# gated aggregation: forward and backward, on both layouts
 # --------------------------------------------------------------------------
-from repro_torch.kernels.gnn_aggregate import ell_index, gnn_aggregate_ref
+from repro_torch.kernels.gnn_aggregate import (
+    csr_index,
+    ell_as_csr,
+    ell_index,
+    gnn_aggregate_csr_ref,
+    gnn_aggregate_ref,
+)
 from repro_torch.kernels.gnn_aggregate import ops as agg_ops
 
 # (n_nodes, n_edges, dim): the smoke width, the full width with padding
 # slots, a Cora-like graph, odd widths (scalar loads), and an isolated tail
 AGG_GRAPHS = [(40, 160, 16), (300, 2000, 70), (3072, 10752, 70), (64, 500, 13),
               (50, 30, 8), (200, 1500, 128)]
+# CSR graphs (n_nodes, n_edges, dim, hub edges): the rows above, a hub row
+# and a hub source of 5,000 edges each (split over a block's warps), and
+# widths past one panel of lanes (fp32 300: two panels; bf16 264 likewise)
+CSR_GRAPHS = AGG_GRAPHS + [(3000, 20000, 70, 5000), (500, 3000, 16, 4500),
+                           (200, 1500, 300, 0), (200, 1500, 264, 300)]
 
 
 def _ell_case(n, e, dim, dtype, dev, seed=0):
@@ -571,6 +582,22 @@ def _ell_case(n, e, dim, dtype, dev, seed=0):
     return ell, h, gates.view(n, ell.max_deg, dim), dout
 
 
+def _csr_case(n, e, dim, hub, dtype, dev, seed=0):
+    """A graph with no in-edge into the upper half of the nodes, plus `hub`
+    edges into node 7 and `hub` edges out of node 11; its CSR index, h,
+    gates in slot order and the gradients of num and den."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, e), rng.integers(0, n, hub), np.full(hub, 11)])
+    dst = np.concatenate([rng.integers(0, n // 2 + 1, e), np.full(hub, 7),
+                          rng.integers(0, n // 2 + 1, hub)])
+    idx = csr_index(torch.from_numpy(np.stack([src, dst]).astype(np.int32)).to(dev), n)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, dim, generator=g, device=dev).to(dtype)
+    gates = torch.rand(src.shape[0], dim, generator=g, device=dev).to(dtype)
+    dnum, dden = (torch.randn(n, dim, generator=g, device=dev).to(dtype) for _ in range(2))
+    return idx, h, gates, dnum, dden
+
+
 def _agg_oracle(h, nbr, gates, dout):
     """The plain version plus autograd, in fp32 on the same values."""
     h32, g32 = (t.detach().float().requires_grad_(True) for t in (h, gates))
@@ -579,20 +606,36 @@ def _agg_oracle(h, nbr, gates, dout):
     return out.detach(), dh, dg
 
 
+def _csr_oracle(h, idx, gates, dnum, dden, with_den):
+    """The plain CSR version plus autograd, in fp32 on the same values:
+    (num, den or None, dh, dgates)."""
+    h32, g32 = (t.detach().float().requires_grad_(True) for t in (h, gates))
+    num, den = gnn_aggregate_csr_ref(h32, idx.row_ptr, idx.col, g32, with_den)
+    outs, grads = [num], [dnum.float()]
+    if with_den:
+        outs.append(den)
+        grads.append(dden.float())
+    dh, dg = torch.autograd.grad(outs, (h32, g32), grads)
+    return num.detach(), den.detach() if with_den else None, dh, dg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("graph", AGG_GRAPHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gnn_aggregate_kernels_match_plain(graph, dtype):
+    """The padded-ELL contract, run as its CSR form on the same kernels."""
     dev = _cuda()
     ell, h, gates, dout = _ell_case(*graph, dtype, dev)
     want = _agg_oracle(h, ell.nbr, gates, dout)
     f0, b0 = agg_ops.gnn_aggregate.launches_fwd, agg_ops.gnn_aggregate.launches_bwd
+    e0 = agg_ops.gnn_aggregate.launches_by_layout["ell"]
     hg, gg = h.clone().requires_grad_(True), gates.clone().requires_grad_(True)
     out = agg_ops.gnn_aggregate(hg, ell.nbr, gg, ell.rev)
     dh, dg = torch.autograd.grad(out, (hg, gg), dout)
     torch.cuda.synchronize()
     assert agg_ops.gnn_aggregate.launches_fwd == f0 + 1
     assert agg_ops.gnn_aggregate.launches_bwd == b0 + 1
+    assert agg_ops.gnn_aggregate.launches_by_layout["ell"] == e0 + 2
     tol = TOLS[dtype]
     for name, got, ref in zip(("out", "dh", "dgates"), (out, dh, dg), want):
         assert got.dtype == dtype, name
@@ -600,14 +643,92 @@ def test_gnn_aggregate_kernels_match_plain(graph, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("graph", CSR_GRAPHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_den", [False, True])
+def test_gnn_aggregate_csr_kernels_match_plain(graph, dtype, with_den):
+    dev = _cuda()
+    n, e, dim, *hub = graph
+    idx, h, gates, dnum, dden = _csr_case(n, e, dim, hub[0] if hub else 0, dtype, dev)
+    want = _csr_oracle(h, idx, gates, dnum, dden, with_den)
+    f0, c0 = agg_ops.gnn_aggregate.launches_fwd, agg_ops.gnn_aggregate.launches_by_layout["csr"]
+    hg, gg = h.clone().requires_grad_(True), gates.clone().requires_grad_(True)
+    num, den = agg_ops.gnn_aggregate_csr(hg, idx.row_ptr, idx.col, gg, idx.rev,
+                                         with_den=with_den)
+    outs, grads = ([num, den], [dnum, dden]) if with_den else ([num], [dnum])
+    dh, dg = torch.autograd.grad(outs, (hg, gg), grads)
+    torch.cuda.synchronize()
+    assert agg_ops.gnn_aggregate.launches_fwd == f0 + 1
+    assert agg_ops.gnn_aggregate.launches_by_layout["csr"] == c0 + 2
+    assert (den is None) == (not with_den)
+    tol = TOLS[dtype]
+    for name, got, ref in zip(("num", "den", "dh", "dgates"), (num, den, dh, dg), want):
+        if ref is None:
+            continue
+        assert got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol, msg=name)
+    assert not num[n // 2 + 1:].any()  # rows with no in-edge are zero
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gnn_aggregate_backward_is_deterministic(dtype):
+    """Two backward launches give equal bits, on the padded ELL and on a CSR
+    index whose hub row and hub source are split over a block's warps."""
     dev = _cuda()
     ell, h, gates, dout = _ell_case(3000, 40000, 70, dtype, dev, seed=1)
-    first = agg_ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
-    second = agg_ops.gnn_aggregate_bwd(h, ell.nbr, gates, dout, *ell.rev)
+    row_ptr, col, rev = ell_as_csr(ell.nbr, ell.rev)
+    flat = gates.view(-1, 70)
+    first = agg_ops.gnn_aggregate_bwd(h, row_ptr, col, flat, dout, None, rev)
+    second = agg_ops.gnn_aggregate_bwd(h, row_ptr, col, flat, dout, None, rev)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    idx, h, gates, dnum, dden = _csr_case(3000, 40000, 70, 6000, dtype, dev, seed=2)
+    first = agg_ops.gnn_aggregate_bwd(h, idx.row_ptr, idx.col, gates, dnum, dden, idx.rev)
+    second = agg_ops.gnn_aggregate_bwd(h, idx.row_ptr, idx.col, gates, dnum, dden, idx.rev)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gnn_aggregate_ell_out_of_range_ids_give_nan():
+    """Source ids index as jnp.take does: an id outside [-N_h, N_h) makes its
+    row NaN, a negative one counts from the end."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(rng.normal(size=(10, 8)).astype(np.float32)).to(dev)
+    nbr = rng.integers(0, 10, size=(6, 3)).astype(np.int32)
+    nbr[1, 2], nbr[4, 0], nbr[5, 1] = 10, -11, -1
+    g = torch.from_numpy(rng.random((6, 3, 8)).astype(np.float32)).to(dev)
+    nbr = torch.from_numpy(nbr).to(dev)
+    rev = (torch.zeros(11, dtype=torch.int32, device=dev),  # no gradient asked for
+           torch.zeros(0, dtype=torch.int32, device=dev))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = agg_ops.gnn_aggregate(h.to(dtype), nbr, g.to(dtype), rev)
+        want = gnn_aggregate_ref(h.to(dtype).float(), nbr, g.to(dtype).float())
+        bad = torch.tensor([False, True, False, False, True, False], device=dev)
+        assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
+        torch.testing.assert_close(got[~bad].float(), want[~bad], atol=TOLS[dtype],
+                                   rtol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_csr_index_builds_without_a_sync():
+    """The index is built on the card with no read back to the host: any
+    sync raises under the sync debug mode.  It matches the CPU build."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    ei = torch.from_numpy(rng.integers(0, 5000, size=(2, 60000)).astype(np.int32))
+    ei_dev = ei.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx = csr_index(ei_dev, 5000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = csr_index(ei, 5000)
+    for name in ("perm", "row_ptr", "col", "rev_ptr", "rev_slot", "rev_row"):
+        assert torch.equal(getattr(idx, name).cpu(), getattr(want, name)), name
 
 
 @pytest.mark.cuda
@@ -631,6 +752,14 @@ def test_gnn_aggregate_rejects_bad_inputs():
     with pytest.raises(ValueError, match="rev_ptr"):
         agg_ops.gnn_aggregate(h, nbr, gates, (torch.zeros(5, dtype=torch.int32, device=dev),
                                               torch.zeros(30, dtype=torch.int32, device=dev)))
+    idx = csr_index(torch.zeros(2, 4, dtype=torch.int32, device=dev), 10)
+    flat = torch.rand(4, 8, device=dev)
+    with pytest.raises(ValueError, match="row_ptr"):
+        agg_ops.gnn_aggregate_csr(h, idx.row_ptr.long(), idx.col, flat, idx.rev)
+    with pytest.raises(ValueError, match="shapes"):
+        agg_ops.gnn_aggregate_csr(h, idx.row_ptr, idx.col, flat[:3], idx.rev)
+    with pytest.raises(ValueError, match="rev_row"):
+        agg_ops.gnn_aggregate_csr(h, idx.row_ptr, idx.col, flat, idx.rev[:2] + (idx.col.cpu(),))
 
 
 # --------------------------------------------------------------------------
@@ -690,6 +819,7 @@ def test_gnn_train_steps_on_the_card_match_the_cpu():
     opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
     dev_step, cpu_step = build_train_step(cfg, cell, opt), build_train_step(cfg, cell, opt)
     f0 = agg_ops.gnn_aggregate.launches_fwd
+    e0 = agg_ops.gnn_aggregate.launches_by_layout["ell"]
     for s in range(3):
         block = sampler.sample(np.arange(8 * s, 8 * s + 8, dtype=np.int32))
         batch = {"node_feat": torch.from_numpy(feats[block["nodes"]]),
@@ -699,6 +829,7 @@ def test_gnn_train_steps_on_the_card_match_the_cpu():
         cpu_state, b = cpu_step(cpu_state, batch)
         torch.testing.assert_close(a["loss"].cpu(), b["loss"], atol=1e-4, rtol=1e-4)
     assert agg_ops.gnn_aggregate.launches_fwd - f0 == 3 * cfg.n_layers
+    assert agg_ops.gnn_aggregate.launches_by_layout["ell"] == e0  # the model runs on CSR
     for k in ("node_encoder", "readout"):
         torch.testing.assert_close(dev_state["params"][k].cpu(), cpu_state["params"][k],
                                    atol=1e-4, rtol=1e-4)
