@@ -8,16 +8,18 @@ kernel of the port from the sources in this checkout (one nvcc per source,
 all at once); holds the decode-attention kernels against their plain torch
 versions on the card at TinyLlama-1.1B's attention shapes (and gemma3-like
 and smoke shapes), with the kernels', the plain versions' and a library
-call's times: the split variant at every shape, and at one query row per
+call's times: the split variant at every shape, at one query row per
 sequence also the fused variant (new K/V row written, splits combined in a
-cluster: written caches and reruns equal bit for bit); serves six full-width
-TinyLlama-1.1B requests (bf16, random weights from a seeded CUDA generator)
-through ``repro_torch.serve.ServeEngine``, which prefills chunks eagerly
-(split variant) and decodes by replaying a CUDA graph of ``decode_step``
-(fused variant), counting each variant's kernels, and times eager
-``decode_step`` against graph replays from one cache state; checks an fp32
-smoke engine on the card (graph replays) against the same engine on the CPU,
-token for token; holds the flash-attention
+cluster) and at the bf16 chunk shapes also the chunk variant (the chunk's
+K/V rows written, ``wgmma``), both with written caches and reruns equal bit
+for bit; serves six full-width TinyLlama-1.1B requests (bf16, random weights
+from a seeded CUDA generator) through ``repro_torch.serve.ServeEngine``,
+which prefills chunks eagerly (chunk variant, no index write) and decodes by
+replaying a CUDA graph of ``decode_step`` (fused variant), counting each
+variant's kernels, and times eager ``decode_step`` against graph replays
+from one cache state; checks an fp32 smoke engine on the card (graph
+replays; its chunks on the split variant) against the same engine on the
+CPU, token for token; holds the flash-attention
 kernels (forward: out and logsumexp; backward: dq, dk, dv) against the plain
 version plus autograd at the training, gemma3-like, smoke and ragged shapes,
 with their times and the variant (``wgmma``, ``wmma`` or ``fma``) that each
@@ -27,8 +29,9 @@ flash launches by variant (all must be ``wgmma``), and profiles one more step; t
 steps on the card and on the CPU and compares them; runs ``TrainDriver``
 with checkpoints and an injected failure on the card; and prefills 2,048
 tokens at full width (every flash call ``wgmma``) and profiles one more
-prefill, then checks ``prefill`` against a chain of
-``prefill_chunk`` calls on a smoke model.
+prefill, then checks ``prefill`` (flash kernel) against a chain of
+``prefill_chunk`` calls (chunk kernel) of the same 576 tokens at full width,
+and against a chain on a smoke model (split kernel).
 
 Then the recsys and GNN paths: it holds the embedding-bag kernel against its
 plain version at the FM, DCN-v2 and retrieval lookup shapes over the
@@ -135,8 +138,10 @@ KERNEL_CASES = [
 ]
 MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
 # the engine's prefill_chunk call (chunk 64 at q_start 512 over max_len 1024):
-# the split variant's shape on the main path
+# the chunk variant's shape on the main path
 CHUNK_CASE = "prefill B1"
+# the split variant's path now: fp32 chunks of the smoke models (dh 8)
+SPLIT_CASE = "smoke prefill"
 
 
 def visible_keys(q_start: list[int], S: int, T: int, window: int | None) -> int:
@@ -160,17 +165,17 @@ def attended_pairs(q_start: list[int], S: int, T: int, window: int | None) -> in
     return n
 
 
-def bound_ms(case, dtype, fused: bool = False) -> tuple[float, str]:
+def bound_ms(case, dtype, writes: bool = False) -> tuple[float, str]:
     """Least time: bytes moved (q, visible K/V and q_start read once, out
-    written once; fused: the new K/V rows also written into the cache) over
-    HBM rate, or operations (2 per multiply-add in QK^T and PV over the
-    unmasked pairs) over the peak rate for the input type."""
+    written once; writes: the S new K/V rows a sequence also written into the
+    cache) over HBM rate, or operations (2 per multiply-add in QK^T and PV
+    over the unmasked pairs) over the peak rate for the input type."""
     _, B, S, T, Hq, Hkv, dh, q_start, window = case
     isz = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * S * Hq * dh + 2 * visible_keys(q_start, S, T, window) * Hkv * dh) * isz
     nbytes += 4 * B
-    if fused:  # the new rows are read from k_new/v_new instead of the cache, and written
-        nbytes += 2 * B * Hkv * dh * isz
+    if writes:  # the new rows are read from k_new/v_new instead of the cache, and written
+        nbytes += 2 * B * S * Hkv * dh * isz
     ops = 4 * attended_pairs(q_start, S, T, window) * Hq * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -198,7 +203,7 @@ def library_call(q, k, v, q_start, window):
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels.decode_attention import ops
 
-    results, fused = {}, {}
+    results, written = {}, {}
     gen = torch.Generator(device=dev).manual_seed(1234)
     for case in KERNEL_CASES:
         label, B, S, T, Hq, Hkv, dh, qs_list, window = case
@@ -230,56 +235,77 @@ def phase_kernels(dev) -> dict:
             print(f"kernel time  {label:18s} {tname:8s} ms {ms:.6f} device_ms {dev_ms:.6f} "
                   f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} "
                   f"plain_ms {plain_ms:.6f} library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
-            if S == 1:
-                fused[(label, tname)] = fused_case(ops, case, q, k, v, q_start, gen, dtype,
-                                                   lib_ms)
-    return {"cases": results, "fused": fused}
+            var = ops.variant(S, Hq // Hkv, dh, dtype)
+            if var != "split":  # the fused (S = 1) or the chunk variant takes the call
+                written[(label, tname)] = written_case(ops, var, case, q, k, v, q_start, gen,
+                                                       dtype, lib_ms)
+    return {"cases": results, "written": written}
 
 
-def fused_case(ops, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
-    """The fused variant (write the new K/V row, attend, combine the splits
-    in a cluster) against its plain version on the same inputs: output within
-    the tolerance, written caches and reruns equal bit for bit; then its times
-    beside the split variant's."""
+def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
+    """The variant ``var`` that writes the new K/V rows and attends in one
+    launch (fused: S = 1, splits combined in a cluster; chunk: S > 1,
+    ``wgmma``) against its plain version on the same inputs: output within
+    the tolerance, written caches and reruns equal bit for bit; then its
+    times beside the split variant's."""
     label, B, S, T, Hq, Hkv, dh, qs_list, window = case
     tname = str(dtype).replace("torch.", "")
-    check(ops.variant(S, Hq // Hkv, dh, dtype) == "fused", f"{label}: not the fused variant")
-    k_new = torch.randn(B, 1, Hkv, dh, generator=gen, device=q.device).to(dtype)
-    v_new = torch.randn(B, 1, Hkv, dh, generator=gen, device=q.device).to(dtype)
+    check(ops.variant(S, Hq // Hkv, dh, dtype) == var, f"{label}: not the {var} variant")
+    k_new = torch.randn(B, S, Hkv, dh, generator=gen, device=q.device).to(dtype)
+    v_new = torch.randn(B, S, Hkv, dh, generator=gen, device=q.device).to(dtype)
     k_want, v_want = k.clone(), v.clone()
-    want = ops.decode_attention_insert_plain(q, k_new, v_new, k_want, v_want, q_start,
-                                             window=window)
+    want = ops.decode_attention_chunk_plain(q, k_new, v_new, k_want, v_want, q_start,
+                                            window=window)
     runs = []
     for _ in range(2):
         k_got, v_got = k.clone(), v.clone()
-        runs.append(ops.decode_attention_insert(q, k_new, v_new, k_got, v_got, q_start,
-                                                window=window))
+        before = dict(ops.decode_attention.launches_by_variant)
+        runs.append(ops.decode_attention_chunk(q, k_new, v_new, k_got, v_got, q_start,
+                                               window=window))
         torch.cuda.synchronize()
+        after = ops.decode_attention.launches_by_variant
+        check(all(after[v_] - before[v_] == (1 if v_ == var else 0) for v_ in after),
+              f"{var} {label} {tname}: launches {before} -> {after}")
         check(torch.equal(k_got, k_want) and torch.equal(v_got, v_want),
-              f"fused {label} {tname}: the written caches differ from the plain version's")
+              f"{var} {label} {tname}: the written caches differ from the plain version's")
     err = (runs[0].float() - want.float()).abs().max().item()
     tol = TOL[dtype]
-    print(f"kernel check {label:18s} {tname:8s} fused max_abs_err {err:.3e} tol {tol:.0e} "
+    print(f"kernel check {label:18s} {tname:8s} {var} max_abs_err {err:.3e} tol {tol:.0e} "
           f"caches bit-equal reruns bit-equal {torch.equal(runs[0], runs[1])}")
     check(math.isfinite(err) and err <= tol,
-          f"fused decode_attention {label} {tname}: max_abs_err {err} > {tol}")
-    check(torch.equal(runs[0], runs[1]), f"fused {label} {tname}: reruns differ")
+          f"{var} decode_attention {label} {tname}: max_abs_err {err} > {tol}")
+    check(torch.equal(runs[0], runs[1]), f"{var} {label} {tname}: reruns differ")
 
-    def call():  # rewrites the same row each time: every call does the same work
-        return ops.decode_attention_insert(q, k_new, v_new, k_got, v_got, q_start, window=window)
+    def call():  # rewrites the same rows each time: every call does the same work
+        return ops.decode_attention_chunk(q, k_new, v_new, k_got, v_got, q_start, window=window)
 
     def plain():
-        return ops.decode_attention_insert_plain(q, k_new, v_new, k_want, v_want, q_start,
-                                                 window=window)
+        return ops.decode_attention_chunk_plain(q, k_new, v_new, k_want, v_want, q_start,
+                                                window=window)
 
     ms = cuda_ms(call)
     plain_ms = cuda_ms(plain)
     dev_ms, span_ms = kernel_device_ms(call)
     q_ms = queued_ms(call)
-    bms, by = bound_ms(case, dtype, fused=True)
-    print(f"kernel time  {label:18s} {tname:8s} fused ms {ms:.6f} device_ms {dev_ms:.6f} "
+    bms, by = bound_ms(case, dtype, writes=True)
+    print(f"kernel time  {label:18s} {tname:8s} {var} ms {ms:.6f} device_ms {dev_ms:.6f} "
           f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} plain_ms {plain_ms:.6f} "
           f"library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
+    if var == "chunk":  # the cluster sizes beside the plan's choice (outputs checked too)
+        planned = ops.plan_chunk(B, S, Hq // Hkv, Hkv, T, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        plan, sweep = ops.plan_chunk, {}
+        try:
+            for n in (1, 2, 4, 8):
+                ops.plan_chunk = lambda *_, n=n: n
+                out = call()
+                e = (out.float() - want.float()).abs().max().item()
+                check(math.isfinite(e) and e <= tol, f"chunk {label} at {n} splits: err {e}")
+                sweep[n] = queued_ms(call)
+        finally:
+            ops.plan_chunk = plan
+        print(f"kernel time  {label:18s} {tname:8s} chunk queued_ms by blocks a cluster "
+              + " ".join(f"{n}: {t:.6f}" for n, t in sweep.items()) + f" (planned {planned})")
     return dict(ms=ms, device_ms=dev_ms, span_ms=span_ms, queued_ms=q_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
 
@@ -322,6 +348,16 @@ def phase_engine(dev) -> dict:
         return logits
 
     engine._prefill, engine._replay = watched_prefill, watched_replay
+    # the index writes a chunk would take before the split kernel: none on
+    # this path, since the chunk kernel writes its rows itself
+    index_writes = [0]
+    inner_insert = ops.insert_chunk
+
+    def counted_insert(*args, **kwargs):
+        index_writes[0] += 1
+        return inner_insert(*args, **kwargs)
+
+    ops.insert_chunk = counted_insert
 
     rng = np.random.default_rng(0)
     system = rng.integers(0, cfg.vocab, size=512).tolist()
@@ -335,29 +371,34 @@ def phase_engine(dev) -> dict:
     for i, prompt in enumerate(prompts):
         before = dict(by_var)
         out, st = engine.generate(prompt, max_new_tokens=max_new)
-        split, fused = (by_var[v] - before[v] for v in ("split", "fused"))
+        split, fused, chunk = (by_var[v] - before[v] for v in ("split", "fused", "chunk"))
         trimmed = 1 if st.chunks_skipped == st.n_chunks else 0
         chunk_calls = (st.n_chunks - st.chunks_skipped) + trimmed
         # the first decode warms up one eager step, then captures the graph
         steps = st.n_new_tokens + (1 if i == 0 else 0)
         mem = torch.cuda.max_memory_allocated(dev)
+        chunk_ms = st.prefill_s * 1e3 / chunk_calls
         tps = st.n_new_tokens / st.decode_s
         print(f"req {i + 1}: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
-              f"prefill_ms {st.prefill_s * 1e3:.3f} decode_ms {st.decode_s * 1e3:.3f} "
+              f"prefill_ms {st.prefill_s * 1e3:.3f} prefill_ms_per_chunk_call {chunk_ms:.3f} "
+              f"decode_ms {st.decode_s * 1e3:.3f} "
               f"decode_ms_per_token {st.decode_s * 1e3 / st.n_new_tokens:.6f} "
               f"decode_tok_s {tps:.2f} max_memory_allocated {mem} "
-              f"kernels split {split} fused {fused}")
+              f"kernels chunk {chunk} split {split} fused {fused}")
         check(len(out) == max_new, f"request {i + 1}: {len(out)} tokens, wanted {max_new}")
-        check(split == 2 * cfg.n_layers * chunk_calls,
-              f"request {i + 1}: {split} split kernels, wanted 2 x {cfg.n_layers} x {chunk_calls}")
+        check(chunk == cfg.n_layers * chunk_calls,
+              f"request {i + 1}: {chunk} chunk kernels, wanted {cfg.n_layers} x {chunk_calls}")
+        check(split == 0, f"request {i + 1}: {split} split kernels, wanted none")
         check(fused == cfg.n_layers * steps,
               f"request {i + 1}: {fused} fused kernels, wanted {cfg.n_layers} x {steps}")
         rows.append(dict(skipped=st.chunks_skipped, n=st.n_chunks, prefill_s=st.prefill_s,
                          decode_s=st.decode_s, tokens=st.n_new_tokens))
     launches = dict(by_var)
+    ops.insert_chunk = inner_insert
     graph = engine._graph
-    print(f"engine: kernels {launches} graph holds {graph.kernels} snapshots "
-          f"{engine.n_snapshots}")
+    print(f"engine: kernels {launches} index writes {index_writes[0]} graph holds "
+          f"{graph.kernels} snapshots {engine.n_snapshots}")
+    check(index_writes[0] == 0, f"{index_writes[0]} index writes of chunk rows on the main path")
     check(graph.kernels == {"fused": cfg.n_layers},
           f"the decode graph holds {graph.kernels}, wanted {cfg.n_layers} fused kernels")
     for i in range(2, 6):
@@ -432,7 +473,8 @@ def phase_profile(engine, prompt, max_new: int) -> dict:
     def request():
         _, stats["st"] = engine.generate(prompt, max_new_tokens=max_new)
 
-    prof = profile_call("request", request, n_kernels=8)
+    prof = profile_call("request", request, n_kernels=8,
+                        watch=("decode_attention_chunk_kernel", "decode_attention_fused_kernel"))
     st = stats["st"]
     print(f"profile request: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
           f"new_tokens {st.n_new_tokens}")
@@ -536,9 +578,10 @@ def smoke_stream(vocab: int) -> list[list[int]]:
     return prompts + [system, system]
 
 
-def phase_parity(dev) -> None:
+def phase_parity(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import reset_launches
     from repro_torch.models.layers import init_params
     from repro_torch.models.transformer import lm_specs
     from repro_torch.serve import ServeEngine
@@ -549,7 +592,7 @@ def phase_parity(dev) -> None:
     dev_params = to_device(cpu_params, dev)
     on_dev = ServeEngine(cfg, dev_params, max_len=128, chunk=16, device=dev)
     on_cpu = ServeEngine(cfg, cpu_params, max_len=128, chunk=16, device="cpu")
-    before = dict(decode_attention.launches_by_variant)
+    reset_launches()
     for i, prompt in enumerate(smoke_stream(cfg.vocab)):
         a, sa = on_dev.generate(prompt, max_new_tokens=8)
         b, sb = on_cpu.generate(prompt, max_new_tokens=8)
@@ -560,11 +603,14 @@ def phase_parity(dev) -> None:
               f"parity request {i + 1}: chunks_skipped {sa.chunks_skipped} != {sb.chunks_skipped}")
         if i >= 6:
             check(sa.chunks_skipped == sa.n_chunks, f"parity request {i + 1} was not a full hit")
-    after = decode_attention.launches_by_variant
-    check(all(after[v] > before[v] for v in ("split", "fused")),
-          f"the device engine did not launch both decode kernels: {before} -> {after}")
+    after = dict(decode_attention.launches_by_variant)
+    print(f"parity: decode kernels on the card {after}")
+    check(after["split"] > 0 and after["fused"] > 0 and after["chunk"] == 0,
+          f"the fp32 device engine did not run its chunks on the split kernel and its decode "
+          f"steps on the fused kernel: {after}")
     check(on_dev._graph is not None and on_dev._graph.kernels == {"fused": cfg.n_layers},
           "the device engine did not decode through its CUDA graph")
+    return after
 
 
 # --------------------------------------------------------------------------
@@ -725,9 +771,10 @@ def lm_batch(vocab: int, B: int, S: int, step: int, dev) -> dict:
             "targets": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
-def profile_call(label: str, fn, n_kernels: int = 10) -> dict:
+def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = ()) -> dict:
     """``fn`` once under torch.profiler: wall time, the device's busy and
-    idle share, and the kernels that take the device time."""
+    idle share, the kernels that take the device time, and the time and
+    count of the kernels whose names hold a string of ``watch``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -748,7 +795,12 @@ def profile_call(label: str, fn, n_kernels: int = 10) -> dict:
           f"device_idle_share {1 - busy_us / wall_us:.4f} device_kernels {len(evs)}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n_kernels]:
         print(f"profile {label}: {us / 1e3:10.3f} ms {us / busy_us:7.2%} {name[:100]}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3}
+    for w in watch:
+        hits = [e.time_range.elapsed_us() for e in evs if w in e.name]
+        print(f"profile {label}: {w}: {sum(hits) / 1e3:.3f} ms {sum(hits) / busy_us:.2%} "
+              f"of busy in {len(hits)} kernels")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / wall_us}
 
 
 def phase_train(dev) -> dict:
@@ -891,9 +943,64 @@ def phase_driver(dev) -> None:
         check(step == 10 and same, "driver: the restored state differs from the saved one")
 
 
+CHAIN_CHUNKS = 9  # 64-token prefill_chunk calls held against one prefill of their tokens
+CHAIN_TOL = 5e-2  # of the largest |value|: see chunk_chain
+
+
+def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
+    """``transformer.prefill`` (flash kernel) of the first 64 * CHAIN_CHUNKS
+    tokens against a chain of 64-token ``prefill_chunk`` calls (chunk kernel)
+    over the engine's 1024-row cache.  Returns the errors, {"logits": (max
+    abs err, largest |ref|), "k"/"v": [(max abs err, largest |ref|) per
+    layer]}, and the chain's decode-attention launches by variant; fails
+    unless the chain ran one chunk kernel a layer and call and no flash
+    kernel.  Tolerance, held by the caller: 5e-2 of the largest |logit| and
+    of each layer's largest cached |value|, as tests/test_torch_transformer.py
+    holds bf16 logits and caches: a rounding difference in the hidden state
+    moves every value by an amount that scales with the layer's values, not
+    with each value's own size, and it grows through the layers (layer 0 is
+    equal bit for bit; each later layer adds about one bf16 step)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+
+    n = 64 * CHAIN_CHUNKS
+    plg, pc, _ = transformer.prefill(params, cfg, toks[:, :n])
+    chain = transformer.init_cache(cfg, 1, 1024, dev)
+    chain_len = torch.zeros(1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    f0 = flash_attention.launches_fwd
+    for i in range(0, n, 64):
+        clg, chain, chain_len = transformer.prefill_chunk(params, cfg, toks[:, i:i + 64], chain,
+                                                         chain_len)
+    torch.cuda.synchronize()
+    launches = dict(decode_attention.launches_by_variant)
+    errs = {"logits": ((plg - clg).abs().max().item(), plg.abs().max().item())}
+    for name in ("k", "v"):
+        ref = pc[name].float()
+        diff = (chain[name][:, :, :n].float() - ref).abs()
+        errs[name] = [(diff[i].max().item(), ref[i].abs().max().item())
+                      for i in range(cfg.n_layers)]
+    worst = {k: max(errs[k], key=lambda er: er[0] / er[1]) for k in ("k", "v")}
+    print(f"prefill vs prefill_chunk chain ({cfg.name} bf16, {CHAIN_CHUNKS} chunks of 64, "
+          f"wo std {params['layers']['attn']['wo'].float().std().item():.4e}): logits "
+          f"max_abs_err {errs['logits'][0]:.4e} largest {errs['logits'][1]:.4e}; "
+          + " ".join(f"{k} layer 0 {errs[k][0][0]:.4e} of {errs[k][0][1]:.4e}, worst layer "
+                     f"{worst[k][0]:.4e} of {worst[k][1]:.4e}" for k in ("k", "v"))
+          + f"; decode kernels {launches} flash launches {flash_attention.launches_fwd - f0}")
+    check(launches == {"split": 0, "fused": 0, "chunk": CHAIN_CHUNKS * cfg.n_layers}
+          and flash_attention.launches_fwd == f0,
+          f"the prefill_chunk chain did not run one chunk kernel a layer: {launches}")
+    check(chain_len.tolist() == [n], f"prefill_chunk chain length {chain_len.tolist()}")
+    return errs, launches
+
+
 def phase_prefill(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import reset_launches as reset_decode
     from repro_torch.kernels.flash_attention import flash_attention, reset_launches
     from repro_torch.models import transformer
     from repro_torch.models.layers import init_params
@@ -926,36 +1033,63 @@ def phase_prefill(dev) -> dict:
           "prefill: cache shape or length")
     del cache, logits
     prof = profile_call("prefill", lambda: transformer.prefill(params, cfg, toks), n_kernels=8)
-    del params
+
+    # prefill (flash kernel) against a chain of 64-token prefill_chunk calls
+    # (chunk kernel) of the same tokens, at full width in bf16.  With these
+    # weights a 4-D projection is drawn at 1/sqrt of its head axis (the
+    # reference's fan-in rule), so layer 0's scores have a std near 180 and
+    # the softmax is an argmax that one bf16 step of a K row flips: past
+    # layer 0 the two paths part whatever the kernels.  Held here: layer 0's
+    # caches (no attention before them).  The whole chain is held with the
+    # projections drawn at 1/sqrt(d_model) (wq, wk, wv) and 1/sqrt(Hq * dh)
+    # (wo), where scores have a std near 1.
+    cerrs, chain_launches = chunk_chain(params, cfg, toks, dev)
+    check(all(cerrs[k][0][0] <= CHAIN_TOL * cerrs[k][0][1] for k in ("k", "v")),
+          f"prefill_chunk chain layer-0 caches differ from prefill's: {cerrs}")
+    attn = params["layers"]["attn"]
+    fan = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads, "wo": cfg.head_dim}
+    true_fan = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+                "wo": cfg.n_heads * cfg.head_dim}
+    scaled = {**params, "layers": {**params["layers"], "attn": {
+        **attn, **{w: attn[w] * math.sqrt(fan[w] / true_fan[w]) for w in fan}}}}
+    serrs, scaled_launches = chunk_chain(scaled, cfg, toks, dev)
+    check(serrs["logits"][0] <= CHAIN_TOL * serrs["logits"][1],
+          f"prefill_chunk chain logits differ from prefill's: {serrs['logits']}")
+    check(all(e <= CHAIN_TOL * r for k in ("k", "v") for e, r in serrs[k]),
+          f"prefill_chunk chain caches differ from prefill's: {serrs}")
+    chain_launches = {v: chain_launches[v] + scaled_launches[v] for v in chain_launches}
+    del params, scaled, attn
     torch.cuda.empty_cache()
 
-    # prefill (flash kernel) against a chain of prefill_chunk calls (decode kernel)
+    # prefill (flash kernel) against a chain of prefill_chunk calls (split
+    # kernel: fp32)
     scfg = dataclasses.replace(get_config("gemma3-4b", smoke=True), dtype=torch.float32)
     sp = init_params(torch.Generator(device=dev).manual_seed(1), transformer.lm_specs(scfg),
                      scfg.dtype, dev)
     stoks = torch.from_numpy(
         np.random.default_rng(1).integers(0, scfg.vocab, size=(2, 48)).astype(np.int32)
     ).to(dev)
-    d0, f0 = sum(decode_attention.launches_by_variant.values()), flash_attention.launches_fwd
+    f0 = flash_attention.launches_fwd
     lg, c, cl = transformer.prefill(sp, scfg, stoks)
     chain = transformer.init_cache(scfg, 2, 64, dev)
     chain_len = torch.zeros(2, dtype=torch.int32, device=dev)
+    reset_decode()
     for i in range(0, 48, 16):
         clg, chain, chain_len = transformer.prefill_chunk(sp, scfg, stoks[:, i:i + 16], chain,
                                                          chain_len)
+    smoke_launches = dict(decode_attention.launches_by_variant)
     errs = [(lg - clg).abs().max().item(),
             (c["k"] - chain["k"][:, :, :48]).abs().max().item(),
             (c["v"] - chain["v"][:, :, :48]).abs().max().item()]
     print(f"prefill vs prefill_chunk chain (gemma3 smoke fp32, window 8): max_abs_err logits "
           f"{errs[0]:.3e} k {errs[1]:.3e} v {errs[2]:.3e} (tol 1e-4); flash launches "
-          f"{flash_attention.launches_fwd - f0} decode kernels "
-          f"{sum(decode_attention.launches_by_variant.values()) - d0}")
+          f"{flash_attention.launches_fwd - f0} decode kernels {smoke_launches}")
     check(max(errs) <= 1e-4 and torch.equal(cl, chain_len),
           f"prefill differs from the prefill_chunk chain: {errs}")
-    check(flash_attention.launches_fwd > f0
-          and sum(decode_attention.launches_by_variant.values()) > d0,
+    check(flash_attention.launches_fwd > f0 and smoke_launches["split"] > 0,
           "prefill check: a kernel was not launched")
-    return {"launches": launches, "ms": ms, "profile": prof}
+    return {"launches": launches, "ms": ms, "profile": prof, "chain_errs": serrs,
+            "chain_launches": chain_launches, "smoke_chain_launches": smoke_launches}
 
 
 # --------------------------------------------------------------------------
@@ -1698,7 +1832,7 @@ def main() -> int:
 
     kern = timed(phase_kernels)
     eng = timed(phase_engine)
-    timed(phase_parity)
+    par = timed(phase_parity)
     flash = timed(phase_flash)
     train = timed(phase_train)
     timed(phase_train_parity)
@@ -1712,10 +1846,10 @@ def main() -> int:
     gtrain = timed(phase_gnn_train, sampler)
     timed(phase_gnn_parity)
 
-    def decode_shape(label):
+    def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
         return {"case": label, "B": c[1], "S": c[2], "T": c[3], "Hq": c[4], "Hkv": c[5],
-                "dh": c[6], "q_start": c[7], "dtype": "bfloat16"}
+                "dh": c[6], "q_start": c[7], "dtype": tname}
 
     flash_case = next(c for c in FLASH_CASES if c[0] == FLASH_MAIN)
     flash_shape = {"B": flash_case[1], "S": flash_case[2], "Hq": flash_case[3],
@@ -1724,21 +1858,31 @@ def main() -> int:
     fm = flash["cases"][(FLASH_MAIN, "bfloat16")]
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     flash_tpu = "src/repro/kernels/flash_attention/kernel.py:114"
+    decode_src = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+    decode_tpu = "src/repro/kernels/decode_attention/kernel.py:106"
+    split_paths = {"fp32 smoke serving (card vs CPU)": par["split"],
+                   "fp32 gemma3 smoke prefill_chunk chain": pre["smoke_chain_launches"]["split"]}
+    split_at_chunk = kern["cases"][(CHUNK_CASE, "bfloat16")]
     line = {"kernels": []}
-    for name, var, case, r, path in (
-        ("decode_attention_fused", "fused", MAIN_CASE, kern["fused"][(MAIN_CASE, "bfloat16")],
-         "serving decode steps (CUDA graph replays and the capture's warm-up step)"),
-        ("decode_attention", "split", CHUNK_CASE, kern["cases"][(CHUNK_CASE, "bfloat16")],
-         "serving prefill chunks (split and combine kernel per call)"),
+    for name, var, case, tname, r, by_path in (
+        ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
+         kern["written"][(MAIN_CASE, "bfloat16")],
+         {"serving decode steps (CUDA graph replays and the capture's warm-up step)":
+          eng["launches"]["fused"]}),
+        ("decode_attention_chunk", "chunk", CHUNK_CASE, "bfloat16",
+         kern["written"][(CHUNK_CASE, "bfloat16")],
+         {"serving prefill chunks": eng["launches"]["chunk"]}),
+        ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
+         split_paths),
     ):
-        line["kernels"].append({
+        entry = {
             "name": name,
             "route": "cuda",
-            "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention/kernel.py:106",
-            "launches": eng["launches"][var],
+            "source": decode_src,
+            "replaces": decode_tpu,
+            "launches": sum(by_path.values()),
             "variant": var,
-            "launches_by_path": {path: eng["launches"][var]},
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "device_ms": r["device_ms"],
@@ -1748,8 +1892,14 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "held": True,
-            "shape": decode_shape(case),
-        })
+            "shape": decode_shape(case, tname),
+        }
+        if var == "chunk":
+            entry["full_width_chain_launches"] = pre["chain_launches"]["chunk"]
+        if var == "split":  # the variant the chunk kernel replaced at the engine's chunk call
+            entry["at_chunk_case"] = {k: split_at_chunk[k] for k in (
+                "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        line["kernels"].append(entry)
     for name, kind, launches, by_path in (
         ("flash_attention", "fwd", train["launches"][0] + pre["launches"],
          {"train": train["launches"][0], "prefill": pre["launches"]}),

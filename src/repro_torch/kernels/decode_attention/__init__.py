@@ -1,4 +1,6 @@
-from .ops import decode_attention, decode_attention_insert
+from .ops import decode_attention, decode_attention_chunk, decode_attention_insert
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_insert", "decode_attention_ref"]
+__all__ = [
+    "decode_attention", "decode_attention_chunk", "decode_attention_insert", "decode_attention_ref",
+]

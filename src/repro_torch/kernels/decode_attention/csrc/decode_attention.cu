@@ -1,15 +1,16 @@
-// Cached GQA decode attention for Hopper (sm_90a), in two variants.
+// Cached GQA decode attention for Hopper (sm_90a), in three variants.
 //
-// Both replace the Pallas TPU kernel
+// All replace the Pallas TPU kernel
 //   src/repro/kernels/decode_attention/kernel.py::decode_attention_kernel
 //   (pallas_call at :106, body _decode_kernel at :22)
 // and compute what the model function computes
 //   src/repro/models/attention.py::decode_attention
-// The fused variant also computes the two cache inserts before it
-//   src/repro/models/attention.py::insert_kv, as the layer body at
-//   src/repro/models/transformer.py:351-353 calls them.
+// The fused and chunk variants also compute the two cache inserts before it
+//   src/repro/models/attention.py::insert_kv / insert_chunk, as the layer
+//   body calls them at decode (src/repro/models/transformer.py:351-353) and
+//   for a prefill chunk (:448-450).
 //
-// What bounds both on this card: the bytes of the visible K/V.  At decode the
+// What bounds all three on this card: the bytes of the visible K/V.  At decode the
 // work per key is a few FMAs per query row, far below the ~295 operations a
 // byte that would make the H100 compute-bound, so the least time is the
 // visible K/V over the memory rate (at serving sizes that is well under a
@@ -89,6 +90,54 @@
 //    fault of nvcc 12.9 at -O3 or undefined behaviour in that form is not
 //    known: no reduced reproducer or SASS comparison was kept.
 //  * Positions at or past T write nothing (the engine refuses such requests).
+//
+// ---------------------------------------------------------------------------
+// Chunk variant (decode_attention_chunk_launch): prefill_chunk's call, in
+// bf16 with S > 1 query rows a sequence, the head dim padded to 16 at most
+// 128 and G dividing 64 (TinyLlama's chunk: S 64, G 8, dh 64).  At the
+// engine's chunk that is 512 query rows a KV head against at most 576 keys:
+// well under a microsecond of bytes, so launch latency and the chain of
+// dependent tile steps inside a block set the time.  The split variant ran
+// it at 16 rows a block on fp32 FMAs, restaged every K/V tile as fp32 for
+// each of a head's 32 row tiles, sent its partials through device memory to
+// a second kernel, and needed two index writes before it.  This variant is
+// one launch:
+//  * Grid (n_split, ceil(S*G / 64), B*Hkv), one warpgroup a block.  A block's 64
+//    rows are r = s*G + g of one KV head (G divides 64, so they hold whole
+//    positions), so every K/V tile it stages serves all G heads of the
+//    group.  Scores S = Q.K^T and O += P.V are wgmma products on 64 x 64
+//    tiles with fp32 sums; P is packed to bf16 in registers as the A operand
+//    of P.V, and the online softmax's m and l stay in registers, as in the
+//    flash kernels' forward.
+//  * K/V tiles of 64 keys come in through 16-byte cp.async copies into the
+//    128-byte-swizzled layout wgmma reads, double-buffered: the next tile's
+//    copies fly while this tile is multiplied.  Each key row picks its
+//    source: below q_start[b] the cache, at or above it the chunk's own
+//    k_new/v_new.  So any q_start works, aligned to a tile or not, and no
+//    block reads a cache row that another block of the launch writes.  Only
+//    tiles that hold a key some row of the block sees are read; rows of keys
+//    no row sees are zeros.
+//  * At the engine's chunk the grid holds 32 row tiles for 132 SMs, each
+//    walking 9 key tiles.  So the key tiles of a row tile are split over a
+//    cluster of n_split blocks (1, 2, 4 or 8, from static shapes: enough to
+//    give every SM two blocks, plan_chunk in ops.py), each
+//    taking a contiguous share of the tiles its rows see.  Each block leaves
+//    its partial (m, l, unnormalised O) in its own shared memory; after a
+//    cluster barrier each rank takes 64 / n_split rows and reads every
+//    rank's partial of them through distributed shared memory, summed in
+//    rank order, and a second barrier keeps the partials alive until all
+//    have read them.  With one block a row tile, out comes from registers:
+//    the combine through shared memory took 0.0205 ms there against 0.0130
+//    at the engine's chunk on an H100 (chip_smoke.py's cluster sweep).
+//  * The blocks of a row tile write the chunk's K/V rows at its 64/G
+//    positions into the cache, 16 bytes a thread: the values insert_chunk
+//    writes, bit for bit.  Positions at or past T write nothing (the engine
+//    refuses such requests).
+//  * q_start is read on the device and the grid and tiles come from static
+//    shapes, so a launch never waits on the host and a CUDA graph may
+//    capture it.  No atomics: reruns are equal bit for bit.
+//  * Every loop over chunks, rows or keys inside a tile runs a fixed count
+//    with a predicate, as in the fused variant.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -788,6 +837,355 @@ cudaError_t fused_init_typed() {
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// Chunk variant
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kChunkThreads = 128;  // one warpgroup
+constexpr int kChunkRows = 64;      // query rows of a block: one wgmma M tile
+constexpr int kChunkKeys = 64;      // keys of a tile: one wgmma N tile
+
+constexpr int kChunkMaxSplits = 8;  // the portable cluster size
+
+// Q and two buffers each of K and V: DC column chunks of [64][64] bf16 each,
+// under the 128-byte swizzle (DC = 1 up to dh 64, 2 up to 128).  After the
+// key loop the K buffers hold the block's partial O ([64][64 * DC] fp32) and
+// part_m / part_l its rows' m and l, for the cluster's combine.
+template <int DC>
+struct ChunkSmem {
+  alignas(1024) bf16 q[DC][kChunkRows * 64];
+  alignas(1024) bf16 k[2][DC][kChunkKeys * 64];
+  alignas(1024) bf16 v[2][DC][kChunkKeys * 64];
+  float part_m[kChunkRows], part_l[kChunkRows];
+};
+
+template <int DC> constexpr size_t chunk_smem_bytes() { return sizeof(ChunkSmem<DC>) + 1024; }
+
+__device__ __forceinline__ void zero_chunk(bf16* tile, int row, int c) {
+  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(tile) + swizzle128(row, c)) =
+      make_uint4(0u, 0u, 0u, 0u);
+}
+
+// grid: (n_split, ceil(S*G / 64), B * Hkv), cluster (n_split, 1, 1): the
+// n_split blocks of a row tile share its key tiles; block: kChunkThreads.
+template <int DC>
+__global__ void __launch_bounds__(kChunkThreads)
+decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
+                              const bf16* __restrict__ k_new,  // [B,S,Hkv,dh]
+                              const bf16* __restrict__ v_new,
+                              bf16* __restrict__ k,            // [B,Tlen,Hkv,dh]
+                              bf16* __restrict__ v,
+                              const int32_t* __restrict__ q_start,  // [B]
+                              bf16* __restrict__ out,          // [B,S,Hq,dh]
+                              int S, int Hkv, int G, int Tlen, int dh, int window,
+                              float scale) {
+  constexpr int kCpr = DC * 8;  // 16-byte chunks of a padded row
+  // chunks of a [64][64 * DC] tile a thread: every loop over a tile's (row,
+  // chunk) pairs runs this count with a predicate
+  constexpr int kIters = kChunkRows * kCpr / kChunkThreads;
+  extern __shared__ char smem_raw[];
+  ChunkSmem<DC>& sm = smem_layout<ChunkSmem<DC>>(smem_raw);
+  const int R = S * G;
+  const int Hq = Hkv * G;
+  const int n_split = gridDim.x;
+  const int rank = blockIdx.x;  // the block's rank in its cluster
+  const int r0 = blockIdx.y * kChunkRows;
+  const int bh = blockIdx.z;
+  const int b = bh / Hkv;
+  const int kvh = bh - b * Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int cpr = dh / 8;  // 16-byte chunks of a row
+  const int qs0 = q_start[b];
+  const size_t pos_stride = (size_t)Hkv * dh;  // elements from one position to the next
+  bf16* kc = k + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;  // position t at t * pos_stride
+  bf16* vc = v + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
+  const bf16* kn = k_new + (size_t)b * S * pos_stride + (size_t)kvh * dh;  // chunk row s
+  const bf16* vn = v_new + (size_t)b * S * pos_stride + (size_t)kvh * dh;
+
+  // this block's rows r0..r1 sit at positions qs0 + s_lo .. qs0 + s_hi; the
+  // keys some row sees: [key_lo, key_hi]
+  const int r1 = min(R, r0 + kChunkRows) - 1;
+  const int s_lo = r0 / G, s_hi = r1 / G;
+  const int p_lo = qs0 + s_lo, p_hi = qs0 + s_hi;
+  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int key_hi = min(Tlen - 1, p_hi);
+  const int n_all = key_hi >= key_lo ? key_hi / kChunkKeys - key_lo / kChunkKeys + 1 : 0;
+  // this block's share: contiguous key tiles from t_first, n_tiles of them
+  const int per = (n_all + n_split - 1) / n_split;
+  const int t_first = key_lo / kChunkKeys + rank * per;
+  const int n_tiles = max(0, min(per, n_all - rank * per));
+
+  // the chunk's K/V rows at the row tile's positions go into the cache,
+  // shared out over the cluster's blocks
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int idx = tid + kChunkThreads * it;
+    const int i = idx / kCpr, c = idx % kCpr;
+    const int s = s_lo + i;
+    if (it % n_split == rank && c < cpr && s <= s_hi && qs0 + s < Tlen) {
+      const size_t src = (size_t)s * pos_stride + c * 8;
+      const size_t dst = (size_t)(qs0 + s) * pos_stride + c * 8;
+      *reinterpret_cast<uint4*>(kc + dst) = __ldg(reinterpret_cast<const uint4*>(kn + src));
+      *reinterpret_cast<uint4*>(vc + dst) = __ldg(reinterpret_cast<const uint4*>(vn + src));
+    }
+  }
+  // head columns dh..64*DC-1 are zeros in every tile, written once
+  if (n_tiles > 0 && cpr < kCpr) {
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int idx = tid + kChunkThreads * it;
+      const int i = idx / kCpr, c = idx % kCpr;
+      if (c >= cpr) {
+        zero_chunk(sm.q[c / 8], i, c % 8);
+#pragma unroll
+        for (int buf = 0; buf < 2; ++buf) {
+          zero_chunk(sm.k[buf][c / 8], i, c % 8);
+          zero_chunk(sm.v[buf][c / 8], i, c % 8);
+        }
+      }
+    }
+  }
+  // this block's query rows (zeros past R)
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int idx = tid + kChunkThreads * it;
+    const int i = idx / kCpr, c = idx % kCpr;
+    const int r = r0 + i;
+    if (n_tiles > 0 && c < cpr) {
+      if (r < R) {
+        const int s = r / G;
+        const bf16* src = q + (((size_t)b * S + s) * Hq + kvh * G + (r - s * G)) * dh + c * 8;
+        cp_async_16(reinterpret_cast<char*>(sm.q[c / 8]) + swizzle128(i, c % 8), src);
+      } else {
+        zero_chunk(sm.q[c / 8], i, c % 8);
+      }
+    }
+  }
+  // copies of key tile `tile` into buffer `buf`: each row from the cache
+  // below q_start, from the chunk's own rows at or above it, zeros where no
+  // row of the block sees the key
+  auto stage = [&](int tile, int buf) {
+    const int t0 = (t_first + tile) * kChunkKeys;
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int idx = tid + kChunkThreads * it;
+      const int j = idx / kCpr, c = idx % kCpr;
+      const int kp = t0 + j;
+      if (c >= cpr) continue;
+      if (kp < key_lo || kp > key_hi) {
+        zero_chunk(sm.k[buf][c / 8], j, c % 8);
+        zero_chunk(sm.v[buf][c / 8], j, c % 8);
+      } else {
+        const size_t row = kp < qs0 ? (size_t)kp * pos_stride : (size_t)(kp - qs0) * pos_stride;
+        const bf16* ks = (kp < qs0 ? kc : kn) + row + c * 8;
+        const bf16* vs = (kp < qs0 ? vc : vn) + row + c * 8;
+        const uint32_t off = swizzle128(j, c % 8);
+        cp_async_16(reinterpret_cast<char*>(sm.k[buf][c / 8]) + off, ks);
+        cp_async_16(reinterpret_cast<char*>(sm.v[buf][c / 8]) + off, vs);
+      }
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) stage(0, 0);  // one group with the query rows
+
+  const int rl = 16 * warp + lane / 4;  // this thread's rows of the tile: rl and rl + 8
+  int pos[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) pos[x] = qs0 + (r0 + rl + 8 * x) / G;
+  const int col = 2 * (lane % 4);
+  const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
+  float oacc[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    const int t0 = (t_first + i) * kChunkKeys;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile i (and the query rows) in; the other buffer's products done
+    if (i + 1 < n_tiles) stage(i + 1, buf ^ 1);
+
+    // S = Q . K^T: 64 rows x 64 keys
+    float sacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DC * 4; ++kk)
+      wgmma_ss_64x64(sacc, wgmma_desc(sm.q[kk / 4]) + 2 * (kk % 4),
+                     wgmma_desc(sm.k[buf][kk / 4]) + 2 * (kk % 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // masks, unless every (row, key) pair of the tile is visible
+    if (t0 + kChunkKeys - 1 > p_lo || t0 + kChunkKeys > Tlen ||
+        (window > 0 && t0 <= p_hi - window)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = t0 + 8 * (e / 4) + col + (e & 1);
+        const int p = pos[(e >> 1) & 1];
+        if (!(key <= p && key < Tlen && (window <= 0 || key > p - window))) sacc[e] = -INFINITY;
+      }
+    }
+    // online softmax over the quad's two rows
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+    float m_use[2], alpha[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float m_new = fmaxf(m_run[x], quad_max(mx[x]) * sc);
+      // a row that has seen no key yet keeps m = -inf, l = 0, O = 0
+      m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[x] = fast_exp2(m_run[x] - m_use[x]);
+      m_run[x] = m_new;
+      l_run[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int x = (e >> 1) & 1;
+      const float p = fast_exp2(sacc[e] * sc - m_use[x]);
+      l_run[x] += p;
+      sacc[e] = p;
+    }
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
+    // O += P . V, P in bf16 (the reference's cast of the probabilities)
+    uint32_t pa[kChunkKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kChunkKeys / 16; ++kk) to_a_frag(&sacc[8 * kk], pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunkKeys / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[buf][c]) + kk * 16 * 128 / 16);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(oacc[c]);
+  }
+
+  float l_row[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) l_row[x] = quad_sum(l_run[x]);
+  if (n_split == 1) {  // one block a row tile: out from the registers
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r0 + rl + 8 * x;
+      if (r >= R) continue;  // rows past the chunk write nothing
+      const float inv = l_row[x] > 0.f ? 1.f / l_row[x] : 0.f;
+      const int s = r / G;
+      bf16* o = out + (((size_t)b * S + s) * Hq + kvh * G + (r - s * G)) * dh;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = 64 * c + 8 * j + col;
+          if (cc < dh)
+            *reinterpret_cast<__nv_bfloat162*>(o + cc) = __floats2bfloat162_rn(
+                oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
+        }
+    }
+    return;
+  }
+
+  // this block's partial (m, l, unnormalised O) into its shared memory; a
+  // block with no key tile leaves an empty one (m = -inf, l = 0, O = 0)
+  constexpr int kLd = 64 * DC;  // fp32 row stride of the partial O
+  float* part_o = reinterpret_cast<float*>(&sm.k[0][0][0]);
+  __syncthreads();  // every product of the block has read the K buffers
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = rl + 8 * x;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(part_o + row * kLd + 64 * c + 8 * j + col) =
+            make_float2(oacc[c][4 * j + 2 * x], oacc[c][4 * j + 2 * x + 1]);
+    if (lane % 4 == 0) {
+      sm.part_m[row] = m_run[x];
+      sm.part_l[row] = l_row[x];
+    }
+  }
+  cluster_sync();  // every rank's partial is in its shared memory
+
+  // combine: rank `rank` takes rows [rank, rank + 1) * 64 / n_split and
+  // reads every rank's partial of them through distributed shared memory,
+  // all loads in flight at once, summed in rank order (reruns are equal bit
+  // for bit); the most a rank takes is at two splits
+  const int rows_per = kChunkRows / n_split;
+#pragma unroll 1
+  for (int it = 0; it < kChunkRows / 2 * 32 * DC / kChunkThreads; ++it) {
+    const int idx = tid + kChunkThreads * it;
+    const int row = rank * rows_per + idx / (32 * DC);
+    const int cc = 2 * (idx % (32 * DC));
+    const int r = r0 + row;
+    if (idx >= rows_per * 32 * DC || cc >= dh || r >= R) continue;
+    float mr[kChunkMaxSplits], lr[kChunkMaxSplits];
+    float2 ar[kChunkMaxSplits];
+#pragma unroll
+    for (int q_ = 0; q_ < kChunkMaxSplits; ++q_) {
+      if (q_ < n_split) {
+        mr[q_] = ld_cluster_f32(cluster_map(sm.part_m + row, q_));
+        lr[q_] = ld_cluster_f32(cluster_map(sm.part_l + row, q_));
+        ar[q_] = ld_cluster_f32x2(cluster_map(part_o + row * kLd + cc, q_));
+      }
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int q_ = 0; q_ < kChunkMaxSplits; ++q_)
+      if (q_ < n_split) M = fmaxf(M, mr[q_]);
+    float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int q_ = 0; q_ < kChunkMaxSplits; ++q_) {
+      if (q_ < n_split && mr[q_] != -INFINITY) {  // skip empty partials
+        const float w = fast_exp2(mr[q_] - M);  // m is in the log2 domain
+        L = fmaf(lr[q_], w, L);
+        a0 = fmaf(ar[q_].x, w, a0);
+        a1 = fmaf(ar[q_].y, w, a1);
+      }
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    const int s = r / G;
+    bf16* o = out + (((size_t)b * S + s) * Hq + kvh * G + (r - s * G)) * dh;
+    *reinterpret_cast<__nv_bfloat162*>(o + cc) = __floats2bfloat162_rn(a0 * inv, a1 * inv);
+  }
+  cluster_sync();  // every rank's shared memory stays until all have read it
+}
+
+template <int DC>
+cudaError_t chunk_launch_typed(const void* q, const void* kn, const void* vn, void* k, void* v,
+                               const int32_t* qs, void* out, int B, int S, int Hkv, int G,
+                               int Tlen, int dh, int window, int n_split, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, (S * G + kChunkRows - 1) / kChunkRows, B * Hkv);
+  cfg.blockDim = dim3(kChunkThreads, 1, 1);
+  cfg.dynamicSmemBytes = chunk_smem_bytes<DC>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_attention_chunk_kernel<DC>, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(kn), static_cast<const bf16*>(vn), static_cast<bf16*>(k),
+      static_cast<bf16*>(v), qs, static_cast<bf16*>(out), S, Hkv, G, Tlen, dh, window,
+      1.f / sqrtf((float)dh));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  window <= 0
@@ -854,4 +1252,44 @@ extern "C" int decode_attention_fused_launch(const void* q, const void* k_new, c
     return (int)fused_launch_tk<__nv_bfloat16>(q, k_new, v_new, k, v, qs, out, B, Hkv, G, Tlen,
                                                dh, window, n_splits, split_len, tk, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Sets the dynamic shared-memory limit of the chunk kernels; called once,
+// when the library is loaded, so that no launch (or graph capture) does it.
+extern "C" int decode_attention_chunk_init() {
+  cudaError_t e = cudaFuncSetAttribute(decode_attention_chunk_kernel<1>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)chunk_smem_bytes<1>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(decode_attention_chunk_kernel<2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)chunk_smem_bytes<2>());
+  return (int)e;
+}
+
+// C entry point of the chunk variant (bound with ctypes), bf16 only.
+// q [B,S,Hq,dh], k_new/v_new [B,S,Hkv,dh], k/v caches [B,T,Hkv,dh] (rows
+// q_start[b] .. q_start[b]+S-1 below T written in place), out [B,S,Hq,dh];
+// every pointer 16-byte aligned.  dh a multiple of 8 from 16 to 128
+// (padded to 16 at most 128), G = Hq / Hkv dividing 64.  window <= 0 means
+// no window.  n_split (1, 2, 4 or 8) blocks of a cluster share each row
+// tile's key tiles.  Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int decode_attention_chunk_launch(const void* q, const void* k_new, const void* v_new,
+                                             void* k, void* v, const void* q_start, void* out,
+                                             int B, int S, int Hq, int Hkv, int Tlen, int dh,
+                                             int window, int n_split, void* stream) {
+  if (B <= 0 || S <= 0 || Tlen <= 0 || Hkv <= 0 || Hq < Hkv || Hq % Hkv != 0 ||
+      64 % (Hq / Hkv) != 0 || B * Hkv > 65535 || dh < 16 || dh % 8 != 0 ||
+      (dh + 15) / 16 * 16 > 128 || n_split < 1 || n_split > kChunkMaxSplits ||
+      (n_split & (n_split - 1)) != 0 || ((long long)S * (Hq / Hkv) + 63) / 64 > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qs = static_cast<const int32_t*>(q_start);
+  const int G = Hq / Hkv;
+  if (dh <= 64)
+    return (int)chunk_launch_typed<1>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
+                                      window, n_split, st);
+  return (int)chunk_launch_typed<2>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
+                                    window, n_split, st);
 }

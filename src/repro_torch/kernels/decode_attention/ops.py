@@ -1,17 +1,24 @@
 """Wrappers of the hand-written decode-attention kernels
 (``csrc/decode_attention.cu``), with the model functions' signatures.
 
-Two variants; :func:`variant` names the one that takes the model's cached
+Three variants; :func:`variant` names the one that takes the model's cached
 attention call of a shape, from static shapes before any launch:
 
 * ``"fused"``: one query row (S = 1) and at most 16 rows per KV head.  One
   launch writes the step's K/V row into the cache, attends, and combines its
   KV splits inside a thread-block cluster.  ``decode_step`` takes it through
-  :func:`decode_attention_insert`.
+  :func:`decode_attention_chunk` (alias :func:`decode_attention_insert`).
+* ``"chunk"``: S > 1 query rows in bf16, the head dim padded to 16 at most
+  128 (dh 16 and up) and a GQA group dividing 64.  One launch writes the
+  chunk's K/V rows into the cache and attends with ``wgmma``; a cluster of
+  :func:`plan_chunk` blocks shares each 64-row tile's keys.
+  ``prefill_chunk`` takes it through :func:`decode_attention_chunk`.
 * ``"split"`` (:func:`decode_attention`, at any S >= 1 and any GQA group):
   a split kernel over KV splits, then a combine kernel: two launches a call.
-  ``prefill_chunk`` takes it after an index write of the chunk's rows, and
-  so does :func:`decode_attention_insert` for more than 16 rows per KV head.
+  :func:`decode_attention_chunk` takes it, after two index writes of the new
+  rows, for what the other two do not take: fp32 chunks (the exact parity
+  path), dh 8 or above 128, groups that do not divide 64, and more than 16
+  rows per KV head at S = 1.
 
 A tensor on the CPU goes to the plain version
 (:mod:`repro_torch.models.attention`).  A CUDA tensor goes to a kernel, or
@@ -25,23 +32,25 @@ import functools
 import torch
 
 from ...models.attention import decode_attention as decode_attention_plain
-from ...models.attention import decode_attention_insert as decode_attention_insert_plain
-from ...models.attention import insert_kv
+from ...models.attention import decode_attention_chunk as decode_attention_chunk_plain
+from ...models.attention import insert_chunk
 from .. import build
 
 __all__ = [
-    "count_replays", "decode_attention", "decode_attention_insert",
-    "decode_attention_insert_plain", "decode_attention_plain", "plan", "plan_fused",
+    "count_replays", "decode_attention", "decode_attention_chunk", "decode_attention_chunk_plain",
+    "decode_attention_insert", "decode_attention_plain", "plan", "plan_chunk", "plan_fused",
     "reset_launches", "variant",
 ]
 
 _WARPS, _ROWS_PER_WARP = 4, 4  # must match kWarps / kRowsPerWarp in the source
 _ROWS = _WARPS * _ROWS_PER_WARP
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = ("split", "fused")
-KERNELS_PER_CALL = {"split": 2, "fused": 1}  # split: the split and the combine kernel
+VARIANTS = ("split", "fused", "chunk")
+KERNELS_PER_CALL = {"split": 2, "fused": 1, "chunk": 1}  # split: the split and the combine kernel
 FUSED_MAX_G = 16  # query rows per KV head that one fused block holds
-FUSED_MAX_SPLITS = 8  # the portable cluster size
+MAX_CLUSTER = 8  # the portable cluster size: splits of a fused or a chunk call
+CHUNK_ROWS = 64  # query rows of a chunk block (one wgmma tile): G must divide it
+CHUNK_KEYS = 64  # keys of a chunk block's tile
 _fns: dict[str, object] = {}
 
 
@@ -49,14 +58,15 @@ def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         lib = build.load("decode_attention")
-        if name == "fused":
-            init = lib.decode_attention_fused_init
+        if name in ("fused", "chunk"):
+            init = getattr(lib, f"decode_attention_{name}_init")
             init.restype = ctypes.c_int
-            err = init()  # the shared-memory limit of every fused kernel, once
+            err = init()  # the shared-memory limit of the variant's kernels, once
             if err != 0:
-                raise RuntimeError(f"decode_attention fused init failed: CUDA error {err}")
-            fn = lib.decode_attention_fused_launch
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                raise RuntimeError(f"decode_attention {name} init failed: CUDA error {err}")
+            fn = getattr(lib, f"decode_attention_{name}_launch")
+            n_int = 10 if name == "fused" else 8
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         else:
             fn = lib.decode_attention_launch
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -66,17 +76,23 @@ def _kernel(name: str):
 
 
 def variant(S: int, G: int, dh: int, dtype: torch.dtype) -> str:
-    """The kernel that takes a call: ``"fused"`` for one query row (S = 1)
-    with G <= 16 rows per KV head, ``"split"`` for other S >= 1 and G >= 1;
-    both need fp32 or bf16 and a head dim that is a multiple of 8 up to 256.
-    Raises for what no kernel takes."""
+    """The kernel that takes a call that writes its new K/V rows and
+    attends: ``"fused"`` for one query row (S = 1) with G <= 16 rows per KV
+    head; ``"chunk"`` for S > 1 in bf16 with dh from 16 to 128 and G
+    dividing 64; ``"split"`` for the rest.  All need fp32 or bf16 and a head
+    dim that is a multiple of 8 up to 256.  Raises for what no kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"decode_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
         raise ValueError(f"decode_attention: head dim {dh} must be a multiple of 8 up to 256")
     if S <= 0 or G <= 0:
         raise ValueError(f"decode_attention: S={S} query rows and G={G} must be positive")
-    return "fused" if S == 1 and G <= FUSED_MAX_G else "split"
+    if S == 1:
+        return "fused" if G <= FUSED_MAX_G else "split"
+    # dh 8 stays split: a 64-column wgmma tile would be seven eighths padding
+    if dtype == torch.bfloat16 and 16 <= dh <= 128 and CHUNK_ROWS % G == 0:
+        return "chunk"
+    return "split"
 
 
 def plan(B: int, S: int, Hq: int, Hkv: int, T: int, dh: int, n_sm: int) -> tuple[int, int, int]:
@@ -102,10 +118,23 @@ def plan_fused(T: int, dh: int, dtype: torch.dtype) -> tuple[int, int, int]:
     tk = 128
     while tk * row_bytes > 16384:
         tk //= 2
-    want = max(1, min(FUSED_MAX_SPLITS, -(-T // 64)))
+    want = max(1, min(MAX_CLUSTER, -(-T // 64)))
     per_split = -(-T // want)
     split_len = -(-per_split // tk) * tk
     return tk, split_len, -(-T // split_len)
+
+
+def plan_chunk(B: int, S: int, G: int, Hkv: int, T: int, n_sm: int) -> int:
+    """Chunk variant: the blocks of a cluster that share each 64-row tile's
+    key tiles (1, 2, 4 or 8), from static shapes only: as many as give
+    every SM two blocks, as the split variant's plan does, and no more than
+    T has key tiles."""
+    blocks = B * Hkv * -(-(S * G) // CHUNK_ROWS)
+    want = min(MAX_CLUSTER, 2 * n_sm // blocks, -(-T // CHUNK_KEYS))
+    n = 1
+    while 2 * n <= want:
+        n *= 2
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,68 +225,75 @@ def decode_attention(
     return out
 
 
-def decode_attention_insert(
-    q: torch.Tensor,  # [B,1,Hq,dh]
-    k_new: torch.Tensor,  # [B,1,Hkv,dh]
+def decode_attention_chunk(
+    q: torch.Tensor,  # [B,S,Hq,dh]
+    k_new: torch.Tensor,  # [B,S,Hkv,dh]
     v_new: torch.Tensor,
-    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; row q_start[b] is written in place
+    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; rows q_start[b]..q_start[b]+S-1 written in place
     v_cache: torch.Tensor,
     q_start: torch.Tensor,  # [B] int32
     *,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Write the step's K/V row at ``q_start[b]`` into the caches, then
-    attend as :func:`decode_attention`.  Returns [B,1,Hq,dh] in q's dtype.
-    On the card :func:`variant` picks the route from static shapes: at
-    S = 1 with G <= 16 one launch of the fused variant does both (a position
-    at or past T writes nothing); otherwise two index writes, then the split
+    """Write the new K/V rows at ``q_start[b] + s`` into the caches, then
+    attend as :func:`decode_attention`.  Returns [B,S,Hq,dh] in q's dtype.
+    On the card :func:`variant` picks the route from static shapes: the
+    ``"chunk"`` or ``"fused"`` variant does both in one launch (positions at
+    or past T write nothing); otherwise two index writes, then the split
     variant.  The engine refuses positions past T before any work (the plain
     version raises for them)."""
     if q.device.type == "cpu":
-        return decode_attention_insert_plain(
+        return decode_attention_chunk_plain(
             q, k_new, v_new, k_cache, v_cache, q_start, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_insert: unsupported device {q.device}")
+        raise ValueError(f"decode_attention_chunk: unsupported device {q.device}")
     tensors = (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache))
-    _check_common("decode_attention_insert", q, tensors, q_start, window)
+    _check_common("decode_attention_chunk", q, tensors, q_start, window)
     B, S, Hq, dh = q.shape
     Bk, T, Hkv, dhk = k_cache.shape
     if (v_cache.shape != k_cache.shape or Bk != B or dhk != dh or q_start.shape != (B,)
             or k_new.shape != (B, S, Hkv, dh) or v_new.shape != k_new.shape):
         raise ValueError(
-            f"decode_attention_insert: shapes q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+            f"decode_attention_chunk: shapes q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
             f"v_new {tuple(v_new.shape)}, k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
             f"q_start {tuple(q_start.shape)} do not agree"
         )
     if Hkv <= 0 or Hq % Hkv:
-        raise ValueError(f"decode_attention_insert: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if variant(S, Hq // Hkv, dh, q.dtype) == "split":  # more rows than one fused block holds
-        insert_kv(k_cache, k_new, q_start)
-        insert_kv(v_cache, v_new, q_start)
+        raise ValueError(f"decode_attention_chunk: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    var = variant(S, Hq // Hkv, dh, q.dtype)
+    if var == "split":
+        insert_chunk(k_cache, k_new, q_start)
+        insert_chunk(v_cache, v_new, q_start)
         return decode_attention(q, k_cache, v_cache, q_start, window=window)
     # every operand is read and written 16 bytes at a time
     if any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_cache, v_cache)):
-        raise ValueError("decode_attention_insert: q, k and v must start on a 16-byte boundary")
+        raise ValueError("decode_attention_chunk: q, k and v must start on a 16-byte boundary")
 
-    tk, split_len, n_splits = plan_fused(T, dh, q.dtype)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        err = _kernel("fused")(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, T, dh, window or 0, n_splits, split_len, tk, _DTYPES[q.dtype],
-            stream,
-        )
+        if var == "fused":
+            tk, split_len, n_splits = plan_fused(T, dh, q.dtype)
+            err = _kernel("fused")(*ptrs, B, Hq, Hkv, T, dh, window or 0, n_splits, split_len,
+                                   tk, _DTYPES[q.dtype], stream)
+        else:
+            n_split = plan_chunk(B, S, Hq // Hkv, Hkv, T, _n_sm(q.device.index or 0))
+            err = _kernel("chunk")(*ptrs, B, S, Hq, Hkv, T, dh, window or 0, n_split, stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention fused launch failed: CUDA error {err}")
-    _count("fused")
+        raise RuntimeError(f"decode_attention {var} launch failed: CUDA error {err}")
+    _count(var)
     return out
 
 
+# one decode step's call (S = 1): the fused variant at G <= 16 on the card
+decode_attention_insert = decode_attention_chunk
+
+
 # Kernel launches that reached the card, and nowhere else, by variant
-# (``launches_by_variant``; a split call launches two kernels, a fused call
-# one).  A call made while its stream is being captured into a
+# (``launches_by_variant``; a split call launches two kernels, a fused or a
+# chunk call one).  A call made while its stream is being captured into a
 # CUDA graph launches nothing; it adds to ``captured_by_variant``, and the
 # graph's owner counts each replay with :func:`count_replays`.  Callers that
 # prove a path went through the kernels reset them (reset_launches) and read

@@ -1014,18 +1014,10 @@ constexpr int kChunk = 64;                   // head columns per 128-byte row
 // registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // bytes of one [rows][64] bf16 tile
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kChunk * 2; }
-
-// The dynamic shared memory rounded up to the 1024 bytes the swizzle needs
-// (the launchers ask for 1024 bytes more than the layout).
-template <typename S> __device__ __forceinline__ S& smem_layout(char* raw) {
-  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<S*>(raw + pad);
-}
 
 // Scores of a tile whose every (row, key) pair is visible skip the masks.
 __device__ __forceinline__ bool tile_needs_mask(int key0, int nkeys, int pos_lo, int pos_hi,
@@ -1039,26 +1031,6 @@ __device__ __forceinline__ bool tile_invisible(int key0, int nkeys, int pos_lo, 
                                                int Sk, int causal, int window) {
   const int key_last = min(Sk, key0 + nkeys) - 1;
   return key0 >= Sk || (causal && key0 > pos_hi) || (window > 0 && key_last <= pos_lo - window);
-}
-
-// Quad reductions: the four lanes that hold the same two rows.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Eight accumulator values s[0..7], the 8-column blocks 2q and 2q+1 of a
-// 64-row accumulator, as the bf16 A fragment of one 16-deep k-step (its
-// columns 0-7 and 8-15).
-__device__ __forceinline__ void to_a_frag(const float* s, uint32_t (&a)[4]) {
-  a[0] = pack_bf16(s[0], s[1]);
-  a[1] = pack_bf16(s[2], s[3]);
-  a[2] = pack_bf16(s[4], s[5]);
-  a[3] = pack_bf16(s[6], s[7]);
 }
 
 template <int DC>

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's CUDA
 // sources: mbarriers, cp.async copies, cluster barriers and distributed
 // shared memory, TMA tile loads through a tensor map, wgmma with its
-// shared-memory descriptors, warpgroup register rebalancing, and the host
-// call that encodes a tensor map without linking libcuda.
+// shared-memory descriptors and the register work around its accumulators,
+// warpgroup register rebalancing, and the host call that encodes a tensor
+// map without linking libcuda.
 //
 // Every shared-memory tile used here is a stack of rows of 128 bytes (64
-// bf16) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, starting on a
+// bf16) under the 128-byte swizzle (written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B, or chunk by chunk at swizzle128), starting on a
 // 1024-byte boundary.  The same bytes serve wgmma as a K-major operand (the
 // 64 elements of a row run along K) or as an MN-major one (they run along M
 // or N, and successive rows along K); either way 8 rows form one 1024-byte
@@ -33,6 +35,13 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // Makes the initialised barriers visible to the async proxy (TMA).
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Makes this thread's earlier writes to shared memory through the generic
+// proxy (stores, cp.async) visible to the async proxy, which reads wgmma's
+// shared-memory operands; a barrier after it publishes them to the block.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -66,6 +75,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // cp.async (16-byte asynchronous copies, completed per group)
 // ---------------------------------------------------------------------------
+// Byte offset of the 16-byte chunk `c` (0..7) of row `row` in a tile of
+// 128-byte rows under the 128-byte swizzle (the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma_desc reads), for copies that fill the
+// tile by hand.
+__device__ __forceinline__ uint32_t swizzle128(int row, int c) {
+  return (uint32_t)(row * 128 + ((c ^ (row & 7)) << 4));
+}
+
 __device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem_dst)),
                "l"(gmem_src)
@@ -259,6 +276,36 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Eight accumulator values s[0..7], the 8-column blocks 2q and 2q+1 of a
+// 64-row accumulator, as the bf16 A fragment of one 16-deep k-step (its
+// columns 0-7 and 8-15).
+__device__ __forceinline__ void to_a_frag(const float* s, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[0], s[1]);
+  a[1] = pack_bf16(s[2], s[3]);
+  a[2] = pack_bf16(s[4], s[5]);
+  a[3] = pack_bf16(s[6], s[7]);
+}
+
+// Quad reductions over a wgmma accumulator: the four lanes that hold the
+// same two rows.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The dynamic shared memory rounded up to the 1024 bytes the swizzle needs
+// (the launchers ask for 1024 bytes more than the layout).
+template <typename S> __device__ __forceinline__ S& smem_layout(char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(raw + pad);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """GQA attention as plain torch ops: full-sequence (``gqa_attention``,
 ``chunked_gqa_attention``) and cached (``decode_attention``, and
-``decode_attention_insert``, which first writes the step's K/V row).
+``decode_attention_chunk`` / ``decode_attention_insert``, which first write
+the chunk's or the step's K/V rows).
 
-``decode_attention`` and ``decode_attention_insert`` are the plain versions
+``decode_attention``, ``decode_attention_chunk`` and
+``decode_attention_insert`` are the plain versions
 of the hand-written kernels in :mod:`repro_torch.kernels.decode_attention`:
 the wrappers there run them for tensors on the CPU, the tests hold them
 against the reference package, and the chip smoke holds the kernels against
@@ -132,19 +134,24 @@ def insert_kv(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor) -
     return insert_chunk(cache, new, cache_len)
 
 
-def decode_attention_insert(
-    q: torch.Tensor,  # [B,1,Hq,dh]
-    k_new: torch.Tensor,  # [B,1,Hkv,dh]
+def decode_attention_chunk(
+    q: torch.Tensor,  # [B,S,Hq,dh]
+    k_new: torch.Tensor,  # [B,S,Hkv,dh]
     v_new: torch.Tensor,
-    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; row q_start[b] is written in place
+    k_cache: torch.Tensor,  # [B,T,Hkv,dh]; rows q_start[b]..q_start[b]+S-1 written in place
     v_cache: torch.Tensor,
-    q_start: torch.Tensor,  # [B] position of the new token
+    q_start: torch.Tensor,  # [B] position of the first new token
     *,
     window: int | None = None,
 ) -> torch.Tensor:
-    """One decode step's attention, as the reference's layer body computes
-    it: insert the new K/V row at ``q_start``, then attend.  Updates the
-    caches in place and returns [B,1,Hq,dh]."""
-    insert_kv(k_cache, k_new, q_start)
-    insert_kv(v_cache, v_new, q_start)
+    """A chunk's (or, at S = 1, a decode step's) attention, as the
+    reference's layer body computes it: insert the new K/V rows at
+    ``q_start``, then attend.  Updates the caches in place and returns
+    [B,S,Hq,dh]."""
+    insert_chunk(k_cache, k_new, q_start)
+    insert_chunk(v_cache, v_new, q_start)
     return decode_attention(q, k_cache, v_cache, q_start, window=window)
+
+
+# one decode step's attention (S = 1)
+decode_attention_insert = decode_attention_chunk

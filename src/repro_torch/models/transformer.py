@@ -26,9 +26,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import LMConfig
-from ..kernels.decode_attention import decode_attention, decode_attention_insert
+from ..kernels.decode_attention import decode_attention_chunk
 from ..kernels.flash_attention import flash_attention
-from .attention import chunked_gqa_attention, gqa_attention, insert_chunk
+from .attention import chunked_gqa_attention, gqa_attention
 from .layers import PSpec, apply_rope, rms_norm, swiglu
 
 _UNPORTED = (
@@ -278,11 +278,12 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *, unroll: int = 
 # cached forward (serving)
 # --------------------------------------------------------------------------
 
-def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len, *, decode: bool):
-    """``decode``: one new token per sequence; the attention call writes its
-    K/V row itself (on the card one fused kernel a layer, at G <= 16 query
-    heads per KV head).  Otherwise the chunk's rows are written first, then
-    attended (the split kernel)."""
+def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len):
+    """c new tokens per sequence (c = 1: a decode step).  The attention call
+    writes the new K/V rows itself: on the card one kernel a layer, the fused
+    variant at decode (G <= 16 query heads per KV head) and the chunk variant
+    for a bf16 chunk (dh 16 to 128, G dividing 64); other shapes write the
+    rows with index writes, then run the split kernel."""
     _check_dense(cfg)
     B, c = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
@@ -295,12 +296,7 @@ def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len, *, de
         q = apply_rope(_proj_heads(h, ap["wq"][i]), positions, cfg.rope_theta)
         k = apply_rope(_proj_heads(h, ap["wk"][i]), positions, cfg.rope_theta)
         v = _proj_heads(h, ap["wv"][i])
-        if decode:
-            out = decode_attention_insert(q, k, v, k_c, v_c, cache_len, window=window)
-        else:
-            insert_chunk(k_c, k, cache_len)
-            insert_chunk(v_c, v, cache_len)
-            out = decode_attention(q, k_c, v_c, cache_len, window=window)
+        out = decode_attention_chunk(q, k, v, k_c, v_c, cache_len, window=window)
         x = x + _out_proj(out, ap["wo"][i])
         h2 = rms_norm(x, lp["ln2"][i])
         x = x + swiglu(h2, fp["w_gate"][i], fp["w_up"][i], fp["w_down"][i])
@@ -318,7 +314,7 @@ def decode_step(
     cache_len: torch.Tensor,  # [B] int32 current valid length (new token goes here)
 ):
     """One decode step. Returns (logits [B,V] fp32, cache, cache_len + 1)."""
-    return _cached_forward(params, cfg, tokens, cache, cache_len, decode=True)
+    return _cached_forward(params, cfg, tokens, cache, cache_len)
 
 
 def prefill_chunk(
@@ -331,4 +327,4 @@ def prefill_chunk(
     """Chunked prefill against an existing cache (serving engine / RISP
     prefix reuse): appends c tokens at positions cache_len..cache_len+c-1.
     Returns (last-position logits [B,V] fp32, cache, cache_len + c)."""
-    return _cached_forward(params, cfg, tokens, cache, cache_len, decode=False)
+    return _cached_forward(params, cfg, tokens, cache, cache_len)

@@ -94,7 +94,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     got = ops.decode_attention_insert(q, kn, kn, k1, v1, qs)
     want = attention.decode_attention_insert(q, kn, kn, k2, v2, qs)
     assert torch.equal(got, want) and torch.equal(k1, k2) and torch.equal(v1, v2)
-    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0}  # no kernel
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0, "chunk": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -113,9 +113,18 @@ def test_one_row_per_sequence_takes_the_fused_kernel(G, dh, dtype):
     assert ops.variant(1, G, dh, dtype) == "fused"
 
 
+# the variant each (S, G) takes in bf16 at dh 64: a chunk whose group divides
+# 64 takes the chunk kernel, wide groups at S = 1 the split kernel
+BF16_VARIANT = {(2, 1): "chunk", (16, 4): "chunk", (64, 8): "chunk", (1, 17): "split",
+                (1, 32): "split", (5, 64): "chunk"}
+
+
 @pytest.mark.parametrize("S, G", [(2, 1), (16, 4), (64, 8), (1, 17), (1, 32), (5, 64)])
 def test_chunks_and_wide_groups_take_the_split_kernel(S, G):
-    assert ops.variant(S, G, 64, torch.bfloat16) == "split"
+    """In fp32 every chunk and every wide group takes the split kernel; in
+    bf16 a chunk takes the chunk kernel and a wide group at S = 1 still the
+    split kernel."""
+    assert ops.variant(S, G, 64, torch.bfloat16) == BF16_VARIANT[(S, G)]
     assert ops.variant(S, G, 64, torch.float32) == "split"
 
 

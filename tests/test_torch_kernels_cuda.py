@@ -46,7 +46,7 @@ def test_decode_attention_kernel_matches_plain(case, dtype):
     torch.cuda.synchronize()
     # the split variant at any S: its split kernel and its combine kernel
     assert ops.decode_attention.launches_by_variant == {
-        "split": before["split"] + 2, "fused": before["fused"]}
+        "split": before["split"] + 2, "fused": before["fused"], "chunk": before["chunk"]}
     torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
@@ -145,7 +145,7 @@ def test_decode_attention_insert_wide_groups_take_the_split_kernel(G, dtype):
     got = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
     torch.cuda.synchronize()
     assert ops.decode_attention.launches_by_variant == {
-        "split": before["split"] + 2, "fused": before["fused"]}
+        "split": before["split"] + 2, "fused": before["fused"], "chunk": before["chunk"]}
     torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
     assert torch.equal(k, k_want) and torch.equal(v, v_want)
 
@@ -179,15 +179,15 @@ def test_fused_decode_attention_counts_graph_replays():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
-    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0}
-    assert ops.decode_attention.captured_by_variant == {"split": 0, "fused": 1}
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0, "chunk": 0}
+    assert ops.decode_attention.captured_by_variant == {"split": 0, "fused": 1, "chunk": 0}
     k_want, v_want = k.clone(), v.clone()
     want = attention.decode_attention_insert(q, k_new, v_new, k_want, v_want, q_start)
     for _ in range(3):
         graph.replay()
         ops.count_replays({"fused": 1})
     torch.cuda.synchronize()
-    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 3}
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 3, "chunk": 0}
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert torch.equal(k, k_want)
 
@@ -257,6 +257,161 @@ def test_engine_graph_on_the_card_matches_the_cpu():
     assert on_dev._graph is not None
     assert on_dev._graph.kernels == {"fused": cfg.n_layers}
     assert ops.decode_attention.launches_by_variant["fused"] == cfg.n_layers * (tokens + 1)
+
+
+# --------------------------------------------------------------------------
+# decode attention, chunk variant: write a prefill chunk's K/V rows and
+# attend with wgmma, in one launch
+# --------------------------------------------------------------------------
+# (B, S, Hq, Hkv, T, dh, q_start, window)
+CHUNK_CASES = [
+    (1, 64, 32, 4, 1024, 64, [512], None),  # the engine's chunk call (TinyLlama)
+    (4, 64, 32, 4, 1024, 64, [0, 64, 448, 960], None),  # mixed starts, one ending at T
+    (3, 13, 32, 4, 1024, 64, [5, 333, 1000], None),  # unaligned starts, S not a multiple of 64/G
+    (2, 64, 32, 4, 1024, 64, [700, 77], 100),  # a window
+    (2, 64, 16, 2, 512, 128, [128, 300], None),  # dh 128
+    (2, 37, 32, 4, 1024, 64, [987, 0], None),  # the last rows of T, unaligned
+    (1, 100, 4, 4, 300, 64, [150], 40),  # G 1, two row tiles of 64 positions
+    (1, 3, 64, 1, 200, 64, [10], None),  # G 64: one position a row tile
+    (2, 20, 8, 2, 128, 16, [5, 100], None),  # dh 16, two blocks a cluster
+    (1, 33, 8, 2, 256, 72, [40], 50),  # dh 72: padded columns
+    (1, 64, 8, 1, 1024, 64, [700], None),  # eight blocks a cluster
+    (8, 64, 32, 4, 256, 64, [0, 17, 64, 100, 128, 150, 190, 192], None),  # one block a row tile
+]
+
+
+def _chunk_inputs(case, dtype, seed=0):
+    B, S, Hq, Hkv, T, dh, qs, _ = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(dtype)
+    k_new = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+    v_new = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, T, Hkv, dh, generator=g, device=dev).to(dtype)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    return q, k_new, v_new, k, v, q_start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_decode_attention_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, S, Hq, Hkv, T, dh, qs, window = case
+    dtype = torch.bfloat16
+    assert ops.variant(S, Hq // Hkv, dh, dtype) == "chunk"
+    # the cases cover clusters of 1, 2, 4 and 8 blocks
+    assert ops.plan_chunk(B, S, Hq // Hkv, Hkv, T, 132) in (1, 2, 4, 8)
+    q, k_new, v_new, k, v, q_start = _chunk_inputs(case, dtype)
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_chunk(
+        q, k_new, v_new, k_want, v_want, q_start, window=window)
+    runs = []
+    for _ in range(2):
+        k_got, v_got = k.clone(), v.clone()
+        before = dict(ops.decode_attention.launches_by_variant)
+        got = ops.decode_attention_chunk(q, k_new, v_new, k_got, v_got, q_start, window=window)
+        torch.cuda.synchronize()
+        # one launch of the chunk kernel, no other kernel of the family
+        assert ops.decode_attention.launches_by_variant == {
+            "split": before["split"], "fused": before["fused"], "chunk": before["chunk"] + 1}
+        torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+        # the chunk's rows were written, and nothing else of the caches changed
+        assert torch.equal(k_got, k_want) and torch.equal(v_got, v_want)
+        runs.append(got)
+    assert torch.equal(runs[0], runs[1])  # reruns are equal bit for bit
+
+
+@pytest.mark.cuda
+def test_chunk_decode_attention_writes_nothing_past_the_cache():
+    """Sequence 0's chunk runs 10 rows into T and 54 past it: the rows past T
+    are not written (they would land on sequence 1's first rows), and its
+    first 10 query rows are what a 10-row chunk gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (2, 64, 32, 4, 256, 64, [246, 100], None)
+    q, k_new, v_new, k, v, q_start = _chunk_inputs(case, torch.bfloat16)
+    k_got, v_got = k.clone(), v.clone()
+    got = ops.decode_attention_chunk(q, k_new, v_new, k_got, v_got, q_start)
+    torch.cuda.synchronize()
+    assert torch.equal(k_got[0, :246], k[0, :246]) and torch.equal(k_got[0, 246:], k_new[0, :10])
+    assert torch.equal(v_got[0, :246], v[0, :246]) and torch.equal(v_got[0, 246:], v_new[0, :10])
+    assert torch.equal(k_got[1, :100], k[1, :100]) and torch.equal(k_got[1, 164:], k[1, 164:])
+    assert torch.equal(v_got[1, :100], v[1, :100]) and torch.equal(v_got[1, 164:], v[1, 164:])
+    k_want, v_want = k[:1].clone(), v[:1].clone()
+    want = attention.decode_attention_chunk(
+        q[:1, :10], k_new[:1, :10], v_new[:1, :10], k_want, v_want, q_start[:1])
+    torch.testing.assert_close(got[:1, :10].float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, dh", [(torch.float32, 64), (torch.bfloat16, 256),
+                                       (torch.bfloat16, 8)])
+def test_other_chunks_never_launch_the_chunk_kernel(dtype, dh):
+    """fp32 chunks (the exact parity path), dh 256 and dh 8 take the index
+    writes and the split kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (2, 16, 8, 2, 256, dh, [0, 200], None)
+    assert ops.variant(16, 4, dh, dtype) == "split"
+    q, k_new, v_new, k, v, q_start = _chunk_inputs(case, dtype)
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_chunk(q, k_new, v_new, k_want, v_want, q_start)
+    before = dict(ops.decode_attention.launches_by_variant)
+    got = ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches_by_variant == {
+        "split": before["split"] + 2, "fused": before["fused"], "chunk": before["chunk"]}
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+    assert torch.equal(k, k_want) and torch.equal(v, v_want)
+
+
+@pytest.mark.cuda
+def test_chunk_decode_attention_counts_graph_replays():
+    """The chunk kernel's plan comes from static shapes and q_start stays on
+    the card, so a CUDA graph captures the call: the capture launches
+    nothing, and each replay runs the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = CHUNK_CASES[0]
+    q, k_new, v_new, k, v, q_start = _chunk_inputs(case, torch.bfloat16)
+    ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0, "chunk": 0}
+    assert ops.decode_attention.captured_by_variant == {"split": 0, "fused": 0, "chunk": 1}
+    k_want, v_want = k.clone(), v.clone()
+    want = attention.decode_attention_chunk(q, k_new, v_new, k_want, v_want, q_start)
+    for _ in range(3):
+        graph.replay()
+        ops.count_replays({"chunk": 1})
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 0, "chunk": 3}
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(k, k_want) and torch.equal(v, v_want)
+
+
+@pytest.mark.cuda
+def test_chunk_decode_attention_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (1, 16, 8, 2, 64, 16, [5], None)
+    q, k_new, v_new, k, v, q_start = _chunk_inputs(case, torch.bfloat16)
+    before = dict(ops.decode_attention.launches_by_variant)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start.long())
+    with pytest.raises(ValueError, match="do not agree"):
+        ops.decode_attention_chunk(q, k_new[:, :8].contiguous(), v_new, k, v, q_start)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ops.decode_attention_chunk(q, k_new.float(), v_new, k, v, q_start)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(k.numel() + 1, dtype=k.dtype, device=k.device)
+        ops.decode_attention_chunk(q, k_new, v_new, flat[1:].view(k.shape), v, q_start)
+    assert ops.decode_attention.launches_by_variant == before  # nothing was launched
 
 
 # --------------------------------------------------------------------------
