@@ -19,19 +19,29 @@ replaying a CUDA graph of ``decode_step`` (fused variant), counting each
 variant's kernels, and times eager ``decode_step`` against graph replays
 from one cache state; checks an fp32 smoke engine on the card (graph
 replays; its chunks on the split variant) against the same engine on the
-CPU, token for token; holds the flash-attention
-kernels (forward: out and logsumexp; backward: dq, dk, dv) against the plain
-version plus autograd at the training, gemma3-like, smoke and ragged shapes,
-with their times and the variant (``wgmma``, ``wmma`` or ``fma``) that each
-shape takes; trains full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for
-one warm-up and three timed steps through ``build_train_step``, counting the
-flash launches by variant (all must be ``wgmma``), and profiles one more step; trains an fp32 smoke model five
-steps on the card and on the CPU and compares them; runs ``TrainDriver``
-with checkpoints and an injected failure on the card; and prefills 2,048
-tokens at full width (every flash call ``wgmma``) and profiles one more
-prefill, then checks ``prefill`` (flash kernel) against a chain of
+CPU, token for token; prints ptxas's registers and spills for each
+``wgmma`` flash kernel; holds the flash-attention kernels (forward: out and
+logsumexp; backward: dq, dk, dv) against the plain version plus autograd at
+the training shape, gemma3-4b's local and global layers (dh 256), head dims
+192 and 136 at G 2 and 8, a dh-256 shape at G 3 (the ``wmma`` kernels),
+and smoke and ragged shapes, with their times and the variant (``wgmma``,
+``wmma`` or ``fma``) that each shape takes; trains
+full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for one warm-up and three
+timed steps through ``build_train_step``, counting the flash launches by
+variant (all must be ``wgmma``), and profiles one more step; trains an fp32
+smoke model five steps on the card and on the CPU and compares them; runs
+``TrainDriver`` with checkpoints and an injected failure on the card; and
+prefills 2,048 tokens at full width (every flash call ``wgmma``) and
+profiles one more prefill, then checks ``prefill`` (flash kernel) against a chain of
 ``prefill_chunk`` calls (chunk kernel) of the same 576 tokens at full width,
-and against a chain on a smoke model (split kernel).
+and against a chain on a smoke model (split kernel).  Then gemma3-4b at full
+width (dh 256, bf16, 4.55B parameters): a 2,048-token prefill through all 34
+layers (every flash call ``wgmma``), profiled once more; one forward and
+backward at the reference's init through the flash kernels and through the
+plain version, whose gradient norms are held against each other; a train
+step at full depth (B 1 x S 2048, remat full, two warm-up and three timed);
+and a 6-layer model whose card logits (bf16) are held against the CPU
+port's in fp32.
 
 Then the recsys and GNN paths: it holds the embedding-bag kernel against its
 plain version at the FM, DCN-v2 and retrieval lookup shapes over the
@@ -71,6 +81,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -484,11 +495,13 @@ def phase_profile(engine, prompt, max_new: int) -> dict:
 DEVICE_SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz
 
 
-def kernel_device_ms(fn, iters: int = 20) -> tuple[float, float]:
+def kernel_device_ms(fn, iters: int = 20, by_kernel: dict | None = None) -> tuple[float, float]:
     """Device time per call of the kernels ``fn`` launches, from the
     profiler's kernel records of back-to-back calls queued behind a device
     sleep: (their summed durations, the span from the first start to the
-    last end), each over ``iters``."""
+    last end), each over ``iters``.  ``by_kernel``, where given, receives
+    the summed durations per kernel function (its name without template
+    arguments), over ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -503,6 +516,11 @@ def kernel_device_ms(fn, iters: int = 20) -> tuple[float, float]:
         return float("nan"), float("nan")
     total = sum(e.time_range.elapsed_us() for e in evs)
     span = max(e.time_range.end for e in evs) - evs[0].time_range.start
+    if by_kernel is not None:
+        for e in evs:
+            m = re.search(r"(\w+)[<(]", e.name.replace("(anonymous namespace)::", ""))
+            name = m.group(1) if m else e.name
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
     return total / iters / 1e3, span / iters / 1e3
 
 
@@ -558,6 +576,13 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+def cpu_f32(tree):
+    """A tree of tensors copied to the CPU in fp32."""
+    if isinstance(tree, dict):
+        return {k: cpu_f32(v) for k, v in tree.items()}
+    return tree.detach().cpu().float()
 
 
 def to_device(tree, dev):
@@ -616,14 +641,26 @@ def phase_parity(dev) -> dict:
 # --------------------------------------------------------------------------
 # phase: flash-attention kernels against the plain version plus autograd
 # --------------------------------------------------------------------------
-# (label, B, S, Hq, Hkv, dh, causal, window)
+# (label, B, S, Hq, Hkv, dh, causal, window): TinyLlama's train shape,
+# gemma3-4b's local (window 1024) and global layers at full width, head dims
+# of three 64-column chunks (192, and 136: mostly padding) at G 2 and 8,
+# gemma3's local layer at G 3 (a group that does not divide 64: the WMMA
+# kernels), and the smoke and ragged shapes
 FLASH_CASES = [
     ("train", 4, 2048, 32, 4, 64, True, None),
     ("gemma3-like", 1, 2048, 8, 4, 256, True, 1024),
+    ("gemma3 global", 1, 2048, 8, 4, 256, True, None),
+    ("dh192 G2", 1, 2048, 8, 4, 192, True, None),
+    ("dh192 G8", 1, 2048, 32, 4, 192, True, None),
+    ("dh136 G2", 1, 2048, 8, 4, 136, True, None),
+    ("dh136 G8", 1, 2048, 32, 4, 136, True, None),
+    ("dh256 G3", 1, 2048, 6, 2, 256, True, 1024),
     ("smoke", 2, 64, 8, 2, 8, True, None),
     ("non-causal S200", 2, 200, 8, 2, 64, False, None),
 ]
 FLASH_MAIN = "train"  # the shape of every attention call of the train step
+GEMMA_LOCAL, GEMMA_GLOBAL = "gemma3-like", "gemma3 global"  # gemma3-4b's attention calls
+FLASH_WMMA = "dh256 G3"  # the one bf16 case on the WMMA kernels
 
 
 def flash_pairs(S: int, causal: bool, window: int | None) -> int:
@@ -690,10 +727,21 @@ def backward_ms(out, inputs, dout, iters) -> float:
                    iters=iters, warmup=2)
 
 
+def print_ptxas() -> None:
+    """ptxas's registers and spills for each wgmma flash kernel as built."""
+    from repro_torch.kernels import build
+
+    for row in build.ptxas_report("flash_attention"):
+        if "wgmma" in row["kernel"]:
+            print(f"ptxas {row['kernel']}: registers {row['registers']} spill stores "
+                  f"{row['spill_stores']} B loads {row['spill_loads']} B")
+
+
 def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops
 
+    print_ptxas()
     results = {}
     gen = torch.Generator(device=dev).manual_seed(4321)
     for case in FLASH_CASES:
@@ -727,12 +775,17 @@ def phase_flash(dev) -> dict:
             bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                                   window=window)
             row = {"variant": ops.variant(dtype, dh, Hq // Hkv)}
+            want_var = ("fma" if dtype == torch.float32 else
+                        "wmma" if label == FLASH_WMMA else "wgmma")
+            check(row["variant"] == want_var,
+                  f"flash {label} {tname}: variant {row['variant']}, wanted {want_var}")
             for kind, fn in (("fwd", fwd), ("bwd", bwd)):
                 bms, by = flash_bound_ms(case, dtype, kind == "bwd")
-                dms, sms = kernel_device_ms(fn, iters=min(iters, 10))
+                split: dict[str, float] = {}
+                dms, sms = kernel_device_ms(fn, iters=min(iters, 10), by_kernel=split)
                 row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
                                  queued_ms=queued_ms(fn), bound_ms=bms, bound_by=by,
-                                 max_abs_err=errs[kind])
+                                 max_abs_err=errs[kind], device_ms_by_kernel=split)
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
             row["fwd"]["plain_ms"] = cuda_ms(
                 lambda: attention_ref(q, k, v, causal=causal, window=window), iters=iters,
@@ -753,7 +806,8 @@ def phase_flash(dev) -> dict:
                       f"queued_ms {r['queued_ms']:.6f} "
                       f"plain_ms {r['plain_ms']:.6f} "
                       f"library_ms {r['library_ms']:.6f} bound_ms {r['bound_ms']:.6f} "
-                      f"({r['bound_by']})")
+                      f"({r['bound_by']}); device_ms by kernel "
+                      + " ".join(f"{k} {v:.6f}" for k, v in r["device_ms_by_kernel"].items()))
             results[(label, tname)] = row
             del q, k, v, dout, out, lse, grads, qg, kg, vg
             torch.cuda.empty_cache()
@@ -997,6 +1051,20 @@ def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
     return errs, launches
 
 
+def at_true_fan_in(params: dict, cfg) -> dict:
+    """``params`` with the attention projections redrawn at 1/sqrt of their
+    true fan-in: wq, wk, wv at 1/sqrt(d_model) and wo at 1/sqrt(Hq * dh)
+    (the reference's init draws a 4-D projection at 1/sqrt of its head
+    axis, where scores have a spread of hundreds and the softmax is an
+    argmax); the other leaves are shared."""
+    attn = params["layers"]["attn"]
+    fan = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads, "wo": cfg.head_dim}
+    true_fan = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+                "wo": cfg.n_heads * cfg.head_dim}
+    return {**params, "layers": {**params["layers"], "attn": {
+        **attn, **{w: attn[w] * math.sqrt(fan[w] / true_fan[w]) for w in fan}}}}
+
+
 def phase_prefill(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1046,19 +1114,14 @@ def phase_prefill(dev) -> dict:
     cerrs, chain_launches = chunk_chain(params, cfg, toks, dev)
     check(all(cerrs[k][0][0] <= CHAIN_TOL * cerrs[k][0][1] for k in ("k", "v")),
           f"prefill_chunk chain layer-0 caches differ from prefill's: {cerrs}")
-    attn = params["layers"]["attn"]
-    fan = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads, "wo": cfg.head_dim}
-    true_fan = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
-                "wo": cfg.n_heads * cfg.head_dim}
-    scaled = {**params, "layers": {**params["layers"], "attn": {
-        **attn, **{w: attn[w] * math.sqrt(fan[w] / true_fan[w]) for w in fan}}}}
+    scaled = at_true_fan_in(params, cfg)
     serrs, scaled_launches = chunk_chain(scaled, cfg, toks, dev)
     check(serrs["logits"][0] <= CHAIN_TOL * serrs["logits"][1],
           f"prefill_chunk chain logits differ from prefill's: {serrs['logits']}")
     check(all(e <= CHAIN_TOL * r for k in ("k", "v") for e, r in serrs[k]),
           f"prefill_chunk chain caches differ from prefill's: {serrs}")
     chain_launches = {v: chain_launches[v] + scaled_launches[v] for v in chain_launches}
-    del params, scaled, attn
+    del params, scaled
     torch.cuda.empty_cache()
 
     # prefill (flash kernel) against a chain of prefill_chunk calls (split
@@ -1090,6 +1153,245 @@ def phase_prefill(dev) -> dict:
           "prefill check: a kernel was not launched")
     return {"launches": launches, "ms": ms, "profile": prof, "chain_errs": serrs,
             "chain_launches": chain_launches, "smoke_chain_launches": smoke_launches}
+
+
+# --------------------------------------------------------------------------
+# phase: gemma3-4b at full width (head dim 256)
+# --------------------------------------------------------------------------
+GEMMA_SEQ = 2048
+GEMMA_CYCLE = 6  # layers of one 5:1 local:global cycle: the model check's depth
+GEMMA_CHECK_SEQ = 1152  # the model check's tokens: past the local window of 1024
+GEMMA_CHECK_TOL = 5e-2  # of the largest |logit|, as tests/test_torch_transformer.py holds bf16
+GEMMA_GRAD_TOL = 5e-2  # the worst leaf's |g - g_fp32| / |g_fp32|, bf16 against the fp32 oracle
+
+
+def gemma3_grad_witness(dev, cfg, params, label: str) -> dict:
+    """One forward and backward of ``cfg`` at ``params`` (B 1 x S 2048,
+    remat full, the train phase's first batch) through three attentions:
+    the flash kernels, the plain version in the model's dtype (its scores
+    rounded to bf16 before the softmax) and the plain version in fp32 on
+    the same values (the oracle ``phase_flash`` holds the kernels against;
+    the kernels too keep scores in fp32).  For each: the gradient's norm in
+    fp64 and in fp32 as the optimizer takes it (``global_norm``); and the
+    worst leaf's relative difference from the fp32 oracle's gradient.  At
+    the reference's init the fp32 norm overflows under every attention (the
+    init's doing, not the kernels'); at the true fan-in ``phase_gemma3``
+    holds the kernels' gradient against the oracle's."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import build_loss_fn
+    from repro_torch.tree import leaves as tree_leaves, unflatten
+
+    cell = ShapeCell("train", "train", {"seq_len": GEMMA_SEQ, "global_batch": 1})
+    loss_fn = build_loss_fn(cfg, cell, remat="full")
+    batch = lm_batch(cfg.vocab, 1, GEMMA_SEQ, 0, dev)
+
+    def plain(q, k, v, *, causal=True, window=None):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def plain_fp32(q, k, v, *, causal=True, window=None):
+        return attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window).to(q.dtype)
+
+    def run(attn):
+        req = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        transformer.flash_attention = attn
+        try:
+            loss, _ = loss_fn(unflatten(params, req), batch)
+            grads = torch.autograd.grad(loss, req)
+        finally:
+            transformer.flash_attention = flash_attention
+        norm64 = math.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
+                               for g in grads))
+        return grads, {"loss": float(loss.detach()), "norm_fp64": norm64,
+                       "norm_fp32": float(global_norm(list(grads)))}
+
+    ref, out = run(plain_fp32)
+    out = {"fp32": out}
+    for name, attn in (("kernel", flash_attention), ("plain", plain)):
+        grads, out[name] = run(attn)
+        out[name]["worst_leaf"] = max(
+            torch.linalg.vector_norm(a.float() - b.float(), dtype=torch.float64).item()
+            / max(torch.linalg.vector_norm(b, dtype=torch.float64).item(), 1e-300)
+            for a, b in zip(grads, ref))
+        del grads
+    del ref
+    print(f"gemma3 grad witness, {label}: {cfg.n_layers} layers, B 1 S {GEMMA_SEQ}: " + "; ".join(
+        f"{name} loss {r['loss']:.6f} grad norm fp64 {r['norm_fp64']:.6e} fp32 "
+        f"{r['norm_fp32']}" + (f" worst leaf |g - g_fp32| / |g_fp32| {r['worst_leaf']:.4e}"
+                               if "worst_leaf" in r else "")
+        for name, r in out.items()))
+    check(all(math.isfinite(r["loss"]) for r in out.values()),
+          f"gemma3 grad witness: non-finite loss {out}")
+    return out
+
+
+def gemma3_train(dev, cfg) -> dict:
+    """Two warm-up and three timed train steps of ``cfg`` (B 1 x S 2048,
+    bf16 parameters and gradients, fp32 AdamW moments, every layer under
+    the port's full remat), counting the flash launches of each step.  The
+    attention projections are drawn at their true fan-in: under the
+    reference's init the gradient's norm at 34 layers overflows fp32
+    (``gemma3_grad_witness`` shows it, with the kernels and without)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step, make_train_state
+
+    B, S = 1, GEMMA_SEQ
+    cell = ShapeCell("train", "train", {"seq_len": S, "global_batch": B})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = make_train_state(at_true_fan_in(init_params(gen, lm_specs(cfg), cfg.dtype, dev),
+                                            cfg))
+    step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100),
+                            remat="full")
+    batches = [lm_batch(cfg.vocab, B, S, i, dev) for i in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rows = []
+    for i in range(5):  # two warm-up steps (the allocator settles), three timed
+        f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        m = {k: float(v) for k, v in m.items()}  # waits for the device
+        dt = time.perf_counter() - t0
+        nf, nb = flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0
+        tag = f"warm-up {i + 1}" if i < 2 else f"step {i - 1}"
+        print(f"gemma3 train {tag}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} "
+              f"step_ms {dt * 1e3:.3f} tokens_per_s {B * S / dt:.1f} flash_fwd {nf} "
+              f"flash_bwd {nb}")
+        check(all(math.isfinite(v) for v in m.values()), f"gemma3 train {tag}: non-finite {m}")
+        # a forward a layer, and one more a layer where the backward recomputes it
+        check(nf == 2 * cfg.n_layers and nb == cfg.n_layers,
+              f"gemma3 train {tag}: {nf} forward / {nb} backward flash calls for "
+              f"{cfg.n_layers} layers")
+        rows.append(dict(step_s=dt, **m))
+    launches = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+    by_var = flash_attention.launches_by_variant
+    check(by_var["wgmma"] == {"fwd": launches[0], "bwd": launches[1]},
+          f"gemma3 train: not every flash call ran the wgmma kernels: {by_var}")
+    mem = torch.cuda.max_memory_allocated(dev)
+    mean_s = sum(r["step_s"] for r in rows[2:]) / 3
+    return {"launches": launches, "rows": rows, "mean_step_s": mean_s, "max_memory": mem,
+            "tokens_per_s": B * S / mean_s, "depth": cfg.n_layers}
+
+
+def phase_gemma3(dev) -> dict:
+    """gemma3-4b (34 layers, d_model 2560, Hq 8, Hkv 4, dh 256, d_ff 10,240,
+    vocab 262,144; 29 local layers with a window of 1024 and 5 global ones)
+    at full width in bf16, random weights from a seeded CUDA generator: one
+    2,048-token prefill (every flash call the wgmma kernels at dh 256), a
+    gradient witness at the reference's init (the kernels against the
+    plain version), a train step at full depth, and a 6-layer model whose
+    card logits (bf16, flash kernels) are held against the CPU port's in
+    fp32 on the same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-4b")  # full width and depth, bf16
+    windows = transformer._layer_windows(cfg)
+    n_local = sum(w is not None for w in windows)
+    check(cfg.head_dim == 256 and (n_local, len(windows) - n_local) == (29, 5),
+          f"gemma3-4b: head dim {cfg.head_dim}, local/global layers {n_local}/"
+          f"{len(windows) - n_local}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(gen, transformer.lm_specs(cfg), cfg.dtype, dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, size=(1, GEMMA_SEQ)).astype(np.int32)
+    ).to(dev)
+    transformer.prefill(params, cfg, toks)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache, clen = transformer.prefill(params, cfg, toks)
+    ok = bool(torch.isfinite(logits).all())  # waits for the device
+    ms = (time.perf_counter() - t0) * 1e3
+    pre_launches = flash_attention.launches_fwd
+    by_var = flash_attention.launches_by_variant
+    print(f"gemma3 prefill: {cfg.name} {n_params} parameters bf16 B 1 S {GEMMA_SEQ} ms {ms:.3f} "
+          f"flash launches fwd {pre_launches} bwd {flash_attention.launches_bwd} by variant "
+          f"{by_var} cache {tuple(cache['k'].shape)} logits finite {ok}")
+    check(ok, "gemma3 prefill: non-finite logits")
+    check(pre_launches == cfg.n_layers and flash_attention.launches_bwd == 0
+          and by_var["wgmma"]["fwd"] == pre_launches,
+          f"gemma3 prefill: {pre_launches} flash launches {by_var}, wanted {cfg.n_layers} wgmma")
+    check(clen.tolist() == [GEMMA_SEQ]
+          and cache["k"].shape == (cfg.n_layers, 1, GEMMA_SEQ, cfg.n_kv_heads, 256),
+          "gemma3 prefill: cache shape or length")
+    del logits, cache
+    prof = profile_call("gemma3 prefill", lambda: transformer.prefill(params, cfg, toks),
+                        n_kernels=8, watch=("flash_fwd_wgmma",))
+    # the gradient at the reference's init (its norm overflows fp32 under
+    # every attention) and at the true fan-in (the train step's first)
+    witness = {label: gemma3_grad_witness(dev, cfg, p, label) for label, p in (
+        ("reference init", params), ("true fan-in", at_true_fan_in(params, cfg)))}
+    ref, fan = witness["reference init"], witness["true fan-in"]
+    check(all(math.isinf(r["norm_fp32"]) for r in ref.values()),
+          f"gemma3 grad witness: at the reference's init the fp32 norm overflows under some "
+          f"attentions only: {ref}")
+    check(all(math.isfinite(r["norm_fp32"]) for r in fan.values())
+          and fan["kernel"]["worst_leaf"] <= GEMMA_GRAD_TOL,
+          f"gemma3 grad witness: at the true fan-in the kernels' gradient is "
+          f"{fan['kernel']['worst_leaf']} from the fp32 oracle's (tol {GEMMA_GRAD_TOL}): {fan}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = gemma3_train(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"gemma3 train: {cfg.name} depth {tr['depth']} of {cfg.n_layers} "
+          f"B 1 S {GEMMA_SEQ} bf16 remat full: mean step_ms {tr['mean_step_s'] * 1e3:.3f} "
+          f"tokens_per_s {tr['tokens_per_s']:.1f} max_memory_allocated {tr['max_memory']} "
+          f"flash launches fwd {tr['launches'][0]} bwd {tr['launches'][1]}")
+
+    # one 6-layer cycle at full width: card logits (bf16, flash kernels)
+    # against the CPU port in fp32 on the same parameters, projections at
+    # 1/sqrt of their true fan-in
+    c6 = dataclasses.replace(cfg, n_layers=GEMMA_CYCLE)
+    p6 = at_true_fan_in(
+        init_params(torch.Generator(device=dev).manual_seed(1), transformer.lm_specs(c6),
+                    c6.dtype, dev), c6)
+    t6 = torch.from_numpy(
+        np.random.default_rng(1).integers(0, c6.vocab, size=(1, GEMMA_CHECK_SEQ)).astype(np.int32)
+    )
+    reset_launches()
+    with torch.no_grad():
+        card, _ = transformer.forward(p6, c6, t6.to(dev))
+        card = card.cpu()
+    check_launches = flash_attention.launches_fwd
+    check(check_launches == GEMMA_CYCLE
+          and flash_attention.launches_by_variant["wgmma"]["fwd"] == GEMMA_CYCLE,
+          f"gemma3 check: flash launches {flash_attention.launches_by_variant}")
+    cpu_params = cpu_f32(p6)
+    del p6
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref, _ = transformer.forward(cpu_params, dataclasses.replace(c6, dtype=torch.float32), t6)
+    cpu_s = time.perf_counter() - t0
+    err, largest = (card - ref).abs().max().item(), ref.abs().max().item()
+    print(f"gemma3 check: 6 layers full width, S {GEMMA_CHECK_SEQ}: card bf16 logits against "
+          f"the CPU port in fp32 (same parameters; {cpu_s:.1f} s on the CPU): max_abs_err "
+          f"{err:.4e} largest {largest:.4e} tol {GEMMA_CHECK_TOL:.0e} of the largest; "
+          f"flash launches {check_launches}")
+    check(math.isfinite(err) and err <= GEMMA_CHECK_TOL * largest,
+          f"gemma3 check: card logits differ from the CPU port's by {err} (largest {largest})")
+    return {"prefill_launches": pre_launches, "prefill_ms": ms, "profile": prof,
+            "n_params": n_params, "train": tr, "witness": witness,
+            "check_launches": check_launches,
+            "check_err": (err, largest)}
 
 
 # --------------------------------------------------------------------------
@@ -1838,6 +2140,7 @@ def main() -> int:
     timed(phase_train_parity)
     timed(phase_driver)
     pre = timed(phase_prefill)
+    gem = timed(phase_gemma3)
     bag = timed(phase_bag)
     rec = timed(phase_recsys)
     graph, sampler = power_law_graph()
@@ -1924,6 +2227,45 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "held": True,
             "shape": flash_shape,
+        })
+    gtr = gem["train"]
+    for name, kind, by_path in (
+        ("flash_attention_dh256", "fwd",
+         {"gemma3 prefill": gem["prefill_launches"],
+          f"gemma3 train ({gtr['depth']} layers, 5 steps, remat full)": gtr["launches"][0],
+          "gemma3 6-layer check": gem["check_launches"]}),
+        ("flash_attention_dh256_bwd", "bwd",
+         {f"gemma3 train ({gtr['depth']} layers, 5 steps)": gtr["launches"][1]}),
+    ):
+        r = flash["cases"][(GEMMA_LOCAL, "bfloat16")]
+        g = flash["cases"][(GEMMA_GLOBAL, "bfloat16")]
+        w = flash["cases"][(FLASH_WMMA, "bfloat16")]
+        check(r["variant"] == g["variant"] == "wgmma" and min(by_path.values()) > 0,
+              f"{name}: launches {by_path}, variants {r['variant']}/{g['variant']}")
+        c = next(c for c in FLASH_CASES if c[0] == GEMMA_LOCAL)
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": flash_src,
+            "replaces": flash_tpu,
+            "launches": sum(by_path.values()),
+            "variant": r["variant"],
+            "launches_by_path": by_path,
+            "max_abs_err": r[kind]["max_abs_err"],
+            "ms": r[kind]["ms"],
+            "device_ms": r[kind]["device_ms"],
+            "queued_ms": r[kind]["queued_ms"],
+            "plain_ms": r[kind]["plain_ms"],
+            "bound_ms": r[kind]["bound_ms"],
+            "bound_by": r[kind]["bound_by"],
+            "library_ms": r[kind]["library_ms"],
+            "held": True,
+            "shape": {"case": GEMMA_LOCAL, "B": c[1], "S": c[2], "Hq": c[3], "Hkv": c[4],
+                      "dh": c[5], "causal": c[6], "window": c[7], "dtype": "bfloat16"},
+            "global": {k: g[kind][k] for k in (
+                "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+            "wmma_dh256_G3": {k: w[kind][k] for k in (
+                "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
         })
     bm = bag["cases"][(BAG_MAIN, "float32")]
     bag_case = next(c for c in BAG_CASES if c[0] == BAG_MAIN)

@@ -6,14 +6,17 @@ the checkout; the headers the sources share live in ``kernels/include/``.
 Each library's name carries a hash of its source, the shared headers and the
 flags, so a changed source or header is rebuilt and an unchanged one is
 loaded as it is.  Only the sources in this package are used; a failed build
-raises with nvcc's stderr.  ``vector_width`` picks the load width that the
-gather kernels take as an argument.
+raises with nvcc's stderr.  ptxas reports every kernel's registers and
+spills (``-Xptxas -v``); the report is kept beside the library and
+:func:`ptxas_report` reads it.  ``vector_width`` picks the load width that
+the gather kernels take as an argument.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +25,7 @@ from pathlib import Path
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = KERNELS_DIR / "include"
@@ -77,6 +80,7 @@ def _finish(src: Path, job: tuple[subprocess.Popen, Path, Path]) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{err}")
+    out.with_suffix(".ptxas.txt").write_text(err)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
@@ -113,6 +117,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(src)))
             _libs[name] = lib
         return lib
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """ptxas's report on every kernel of ``kernels/<name>/csrc/<name>.cu``
+    as built: [{"kernel" (its mangled name), "registers", "spill_stores",
+    "spill_loads"}] (bytes), or [] for a library built before the report
+    was kept."""
+    path = _target(KERNELS_DIR / name / "csrc" / f"{name}.cu").with_suffix(".ptxas.txt")
+    if not path.exists():
+        return []
+    rows = []
+    for block in path.read_text().split("Compiling entry function")[1:]:
+        mangled = re.search(r"'(\S+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if mangled and regs and spill:
+            rows.append({"kernel": mangled.group(1),
+                         "registers": int(regs.group(1)),
+                         "spill_stores": int(spill.group(1)),
+                         "spill_loads": int(spill.group(2))})
+    return rows
 
 
 def vector_width(dim: int, itemsize: int, *tensors) -> int:

@@ -17,13 +17,15 @@
 // of q, k, v and o once, some 300 operations a byte, above the H100's bf16
 // ridge.  Three variants, chosen from the shape before any launch by the
 // wrapper's variant() (a launch checks that its variant takes the shape):
-//  * wgmma: bf16 with padded dh <= 128 and G dividing 64 (the training,
-//    prefill and smoke shapes).  Warp-specialised kernels: a producer warp
-//    feeds a TMA ring of K/V (or Q/dO) tiles, two consumer warpgroups run
-//    every tile product with wgmma and keep S, P, dS and the O/dQ/dK/dV
-//    accumulators in registers; see the section below.
-//  * wmma: bf16 otherwise (dh 136..256, or G not dividing 64): mma.sync
-//    through WMMA 16x16x16 tiles of 32 rows, products through shared memory.
+//  * wgmma: bf16 with G dividing 64, every head dim (the training, prefill
+//    and smoke shapes, and gemma3's dh 256).  Warp-specialised kernels: a
+//    producer warp feeds a TMA ring of K/V (or Q/dO) tiles, consumer
+//    warpgroups run every tile product with wgmma and keep S, P, dS and the
+//    O/dQ/dK/dV accumulators in registers; the tiles, ring depths and the
+//    split of the dK/dV accumulators change with the head dim; see the
+//    section below.
+//  * wmma: bf16 with G not dividing 64: mma.sync through WMMA 16x16x16
+//    tiles of 32 rows, products through shared memory.
 //  * fma: fp32 on the CUDA cores (67 TFLOP/s peak), since TF32 would round
 //    the inputs: the exact parity path.
 // What the design does, in all three:
@@ -982,15 +984,46 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper: wgmma fed by TMA (padded dh <= 128, G dividing 64)
+// bf16 on Hopper: wgmma fed by TMA (G dividing 64)
 //
 // Each kernel is warp-specialised: warpgroup 0 is the producer (one thread
-// issues TMA loads into a ring of kStages stages, guarded by full/empty
-// mbarriers), warpgroups 1 and 2 are consumers that own 64 rows (or keys)
-// each and run every tile product with wgmma.  Tiles are 128-byte rows (64
-// head columns) under the 128-byte swizzle; dh <= 64 takes one such column
-// chunk, dh <= 128 two (DC).  TMA's zero fill pads dh to the chunk, the
-// ragged Sq/Sk edges and rows past Sq; masks remain only on the scores.
+// starts TMA loads into a ring of stages, guarded by full/empty mbarriers),
+// the other warpgroups are consumers that own 64 rows (or keys) each and run
+// every tile product with wgmma.  Tiles are 128-byte rows (64 head columns)
+// under the 128-byte swizzle; the padded head dim takes DC such column
+// chunks, 1 to 4 (dh 8..64, 72..128, 136..192, 200..256).  TMA's zero fill
+// pads dh to the chunk, the ragged Sq/Sk edges and rows past Sq; masks
+// remain only on the scores.
+//
+// What grows with DC, and what each kernel does about it (each launcher
+// holds its layout under the 227 KB a block may have with a static_assert;
+// every layout below is 192 KB of tiles at DC 3 and 4, plus the dK/dV
+// kernel's 32 KB hand-off):
+//  * Forward: the O accumulator, DC x 32 fp32 registers a thread.  At DC
+//    <= 2 a key tile is 128 keys (S two 64-key halves, 64 registers); at DC
+//    3 and 4 it is 64 keys, so S takes 32 registers beside O's 128 and the
+//    two-stage K/V ring fits (at 128 keys DC 4 would need 320 KB).  P.V is
+//    DC wgmmas of N = 64 per 16 keys, one per column chunk of V.
+//  * dQ: Q and dO stay resident for the block's rows beside a two-stage K/V
+//    ring of 64 keys.  Two consumer warpgroups (128 rows) fit up to DC 3;
+//    at DC 4 the block has one (64 rows; 192 KB rather than 256) and no
+//    register rebalancing, since 256 threads may each hold 255.
+//  * dK/dV: a thread would hold dK and dV for its keys, 2 x DC x 32
+//    registers: 256 at DC 4, more than a thread has.  At DC <= 2 the two
+//    consumer warpgroups own 64 keys each.  At DC 3 and 4 both own the same
+//    64 keys and split the head columns: warpgroup w accumulates dK and dV
+//    for the chunks [w * ceil(DC/2), (w+1) * ceil(DC/2)), 128 registers at
+//    most.  Each needs all of P^T and dS^T, so warpgroup 0 computes S^T
+//    (and P^T) over the whole head dim and warpgroup 1 dP^T, and they hand
+//    the two 64 x 64 fp32 products over through 32 KB of shared memory
+//    between two named barriers; both then form the same dS^T.  That is the
+//    four products a tile and no more, where the alternatives cost more:
+//    each warpgroup computing S^T and dP^T for itself does six, and dV and
+//    dK in two passes re-read every Q/dO tile and recompute S^T.  The Q/dO
+//    ring is three stages at DC 3 and two at DC 4, which with the hand-off
+//    fills the 227 KB exactly.
+// Every sum keeps a fixed order: dK/dV over row tiles, dQ over key tiles,
+// with no float atomics, so the backward gives equal bits from run to run.
 //
 // Q (and dO) come through a 4-D tensor map (dh, Hq, S, B) with boxes of
 // (64, G, 64/G, 1): the box is the 64 rows r = s*G + g of one kv head, and
@@ -1007,14 +1040,22 @@ constexpr int kWgRows = 64;                  // rows (or keys) of one consumer w
 constexpr int kConsumers = 2;                // consumer warpgroups
 constexpr int kWsThreads = 128 * (1 + kConsumers);
 constexpr int kBlockRows = kWgRows * kConsumers;
-constexpr int kStages = 2;                   // depth of the TMA ring
-constexpr int kFwdKeys = 128;                // keys per forward tile
+constexpr int kStages = 2;                   // depth of the forward's and dQ's TMA ring
 constexpr int kDqKeys = 64;                  // keys per dQ tile
 constexpr int kChunk = 64;                   // head columns per 128-byte row
 // registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr size_t kSmemPerBlock = 232448;    // dynamic shared memory a block may have
+// The plan at DC column chunks (see above).
+__host__ __device__ constexpr int fwd_keys(int DC) { return DC <= 2 ? 128 : 64; }
+__host__ __device__ constexpr int dq_consumers(int DC) { return DC <= 3 ? 2 : 1; }
+__host__ __device__ constexpr int kv_keys(int DC) { return DC <= 2 ? 128 : 64; }
+__host__ __device__ constexpr int kv_stages(int DC) { return DC <= 3 ? 3 : 2; }
+// dK/dV column chunks a consumer warpgroup accumulates
+__host__ __device__ constexpr int kv_chunks(int DC) { return DC <= 2 ? DC : (DC + 1) / 2; }
 
 // bytes of one [rows][64] bf16 tile
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kChunk * 2; }
@@ -1036,8 +1077,8 @@ __device__ __forceinline__ bool tile_invisible(int key0, int nkeys, int pos_lo, 
 template <int DC>
 struct FwdWgSmem {
   alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kStages][DC][kFwdKeys * kChunk];
-  alignas(1024) bf16 v[kStages][DC][kFwdKeys * kChunk];
+  alignas(1024) bf16 k[kStages][DC][fwd_keys(DC) * kChunk];
+  alignas(1024) bf16 v[kStages][DC][fwd_keys(DC) * kChunk];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
@@ -1049,6 +1090,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh,
                        int causal, int window, float scale) {
+  constexpr int kFwdKeys = fwd_keys(DC);
+  constexpr int NH = kFwdKeys / 64;  // 64-key blocks of a key tile
   extern __shared__ char smem_raw[];
   FwdWgSmem<DC>& sm = smem_layout<FwdWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
@@ -1116,11 +1159,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int t0 = (t_first + i) * kFwdKeys;
       mbar_wait(&sm.full[s], (i / kStages) & 1);
       if (rw0 < Rtot && !tile_invisible(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
-        // S = Q . K^T: 64 rows x 128 keys, as two 64-key halves
-        float sacc[2][32];
+        // S = Q . K^T: 64 rows x kFwdKeys keys, as NH blocks of 64 keys
+        float sacc[NH][32];
         wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < NH; ++h)
 #pragma unroll
           for (int kc = 0; kc < DC * 4; ++kc) {
             const uint64_t da = wgmma_desc(sm.q[cw][kc / 4]) + 2 * (kc % 4);
@@ -1129,12 +1172,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           }
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs(sacc[0]);
-        fence_regs(sacc[1]);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) fence_regs(sacc[h]);
 
         if (tile_needs_mask(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < NH; ++h)
 #pragma unroll
             for (int e = 0; e < 32; ++e) {
               const int key = t0 + 64 * h + 8 * (e / 4) + col + (e & 1);
@@ -1144,7 +1187,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         // online softmax over the quad's rows
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < NH; ++h)
 #pragma unroll
           for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[h][e]);
         float m_use[2], alpha[2];
@@ -1158,7 +1201,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           l_run[x] *= alpha[x];
         }
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < NH; ++h)
 #pragma unroll
           for (int e = 0; e < 32; ++e) {
             const int x = (e >> 1) & 1;
@@ -1215,18 +1258,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int DC>
 struct DqWgSmem {
-  alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 dout[kConsumers][DC][kWgRows * kChunk];
+  alignas(1024) bf16 q[dq_consumers(DC)][DC][kWgRows * kChunk];
+  alignas(1024) bf16 dout[dq_consumers(DC)][DC][kWgRows * kChunk];
   alignas(1024) bf16 k[kStages][DC][kDqKeys * kChunk];
   alignas(1024) bf16 v[kStages][DC][kDqKeys * kChunk];
-  float delta[kConsumers][kWgRows];
+  float delta[dq_consumers(DC)][kWgRows];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
 // backward, dQ; also writes D = rowsum(dO * O) into delta [B,Hq,Sq] for
-// the dK/dV kernel.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest first
+// the dK/dV kernel.  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))),
+// heaviest first
 template <int DC>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -1235,14 +1279,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ lse, float* __restrict__ delta,
                           bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int dh,
                           int causal, int window, float scale) {
+  constexpr int NC = dq_consumers(DC);
   extern __shared__ char smem_raw[];
   DqWgSmem<DC>& sm = smem_layout<DqWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int r0 = tile * kBlockRows;
+  const int r0 = tile * NC * kWgRows;
   const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kBlockRows) - 1) / G;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + NC * kWgRows) - 1) / G;
   const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
   const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
   const int t_first = key_lo / kDqKeys;
@@ -1253,17 +1298,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumers * 4);
+      mbar_init(&sm.empty[s], NC * 4);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (wg == 0) {
-    warpgroup_reg_dealloc<kProducerRegs>();
+    if constexpr (NC == 2) warpgroup_reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, 2 * kConsumers * DC * tile_bytes(kWgRows));
-      for (int w = 0; w < kConsumers; ++w)
+      mbar_arrive_expect_tx(&sm.q_full, 2 * NC * DC * tile_bytes(kWgRows));
+      for (int w = 0; w < NC; ++w)
         for (int c = 0; c < DC; ++c) {
           const int s0 = (r0 + w * kWgRows) / G;
           tma_load_4d(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, kvh * G, s0, b);
@@ -1281,7 +1326,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   } else {
-    warpgroup_reg_alloc<kConsumerRegs>();
+    if constexpr (NC == 2) warpgroup_reg_alloc<kConsumerRegs>();
     const int cw = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int rw0 = r0 + cw * kWgRows;
@@ -1407,26 +1452,34 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-constexpr int kKvKeys = kWgRows * kConsumers;  // keys per dK/dV block
-constexpr int kBwdRows = 64;                   // rows per dK/dV tile
-constexpr int kBwdStages = 3;                  // depth of the dK/dV kernel's Q/dO ring
+constexpr int kBwdRows = 64;  // rows per dK/dV tile
+
+// The 64 x 64 fp32 products that the dK/dV kernel's two consumer warpgroups
+// hand each other at DC 3 and 4 (P^T, then dP^T): 8 float4 a thread each,
+// thread-major, so that a warp's accesses touch every bank once.
+template <int N> struct Handoff { float4 v[N][128]; };
+template <> struct Handoff<0> {};
+__host__ __device__ constexpr int kv_handoff(int DC) { return DC <= 2 ? 0 : 16; }
 
 template <int DC>
 struct DkdvWgSmem {
-  alignas(1024) bf16 k[DC][kKvKeys * kChunk];
-  alignas(1024) bf16 v[DC][kKvKeys * kChunk];
-  alignas(1024) bf16 q[kBwdStages][DC][kBwdRows * kChunk];
-  alignas(1024) bf16 dout[kBwdStages][DC][kBwdRows * kChunk];
-  float lse2[kBwdStages][kBwdRows];   // lse * log2(e) of the tile's rows
-  float delta[kBwdStages][kBwdRows];  // D of the tile's rows
-  uint64_t kv_full, full[kBwdStages], empty[kBwdStages];
+  alignas(1024) bf16 k[DC][kv_keys(DC) * kChunk];
+  alignas(1024) bf16 v[DC][kv_keys(DC) * kChunk];
+  alignas(1024) bf16 q[kv_stages(DC)][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kv_stages(DC)][DC][kBwdRows * kChunk];
+  float lse2[kv_stages(DC)][kBwdRows];   // lse * log2(e) of the tile's rows
+  float delta[kv_stages(DC)][kBwdRows];  // D of the tile's rows
+  uint64_t kv_full, full[kv_stages(DC)], empty[kv_stages(DC)];
+  Handoff<kv_handoff(DC)> handoff;
 };
 
 // backward, dK and dV, after the dQ kernel has written delta.  Keys are the
 // M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
 // dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
-// ceil(Sk / 128)); the first key tiles, which see the most rows under
-// causal, launch first.
+// ceil(Sk / kv_keys(DC))); the first key tiles, which see the most rows
+// under causal, launch first.  At DC <= 2 consumer warpgroup w owns keys
+// 64w..64w+63 of the block and every head column; at DC 3 and 4 both own
+// the block's 64 keys and w the column chunks from w * kv_chunks(DC).
 template <int DC>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1436,6 +1489,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
                             int Hq, int Hkv, int dh, int causal, int window, float scale) {
+  constexpr int kKvKeys = kv_keys(DC), kBwdStages = kv_stages(DC), CH = kv_chunks(DC);
+  constexpr bool kSplit = kKvKeys == kWgRows;  // the warpgroups split the head columns
   extern __shared__ char smem_raw[];
   DkdvWgSmem<DC>& sm = smem_layout<DkdvWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
@@ -1503,16 +1558,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     warpgroup_reg_alloc<kConsumerRegs>();
     const int cw = wg - 1;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int kw0 = k0 + cw * kWgRows;  // this warpgroup's first key
+    const int kw0 = k0 + (kSplit ? 0 : cw * kWgRows);  // this warpgroup's first key
     const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;
+    const int c0 = kSplit ? cw * CH : 0;  // dK/dV accumulator j holds column chunk c0 + j
 
-    float dkacc[DC][32], dvacc[DC][32];
+    float dkacc[CH][32], dvacc[CH][32];
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int j = 0; j < CH; ++j)
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dkacc[c][e] = dvacc[c][e] = 0.f;
+      for (int e = 0; e < 32; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
     mbar_wait(&sm.kv_full, 0);
 
     for (int i = 0; i < n_tiles; ++i) {
@@ -1525,7 +1581,92 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int kw_last = min(Sk, kw0 + kWgRows) - 1;
       const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
                         (window > 0 && kw_last <= tp_lo - window);
-      if (!skip) {
+      if constexpr (kSplit) {
+        if (!skip) {
+          // warpgroup 0 forms P^T from S^T = K . Q^T, warpgroup 1 forms
+          // dP^T = V . dO^T, each over the whole head dim; they hand the
+          // products over, so both hold the same P^T and dP^T and form the
+          // same dS^T, and each adds its own column chunks to dV and dK
+          const int tid = threadIdx.x % 128;
+          const bf16* a_tile = cw == 0 ? sm.k[0] : sm.v[0];
+          const bf16* b_tile = cw == 0 ? sm.q[s][0] : sm.dout[s][0];
+          float mine[32], other[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < DC * 4; ++kc) {
+            const int c = kc / 4, kb = 2 * (kc % 4);
+            wgmma_ss_64x64(mine, wgmma_desc(a_tile + c * kKvKeys * kChunk) + kb,
+                           wgmma_desc(b_tile + c * kBwdRows * kChunk) + kb, kc > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(mine);
+          if (cw == 0) {
+            const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                                (causal && tp_lo < kw0 + kWgRows - 1) ||
+                                (window > 0 && tp_hi - window + 1 > kw0);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+              const int r = rt0 + rl;
+              const int key = key_lo + 8 * ((e >> 1) & 1);
+              const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
+              mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            sm.handoff.v[cw * 8 + j][tid] =
+                make_float4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
+          named_barrier(1, 2 * 128);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 t = sm.handoff.v[(1 - cw) * 8 + j][tid];
+            other[4 * j] = t.x;
+            other[4 * j + 1] = t.y;
+            other[4 * j + 2] = t.z;
+            other[4 * j + 3] = t.w;
+          }
+          named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int rl = 8 * (e / 4) + col + (e & 1);
+            const float p = cw == 0 ? mine[e] : other[e];
+            const float dp = cw == 0 ? other[e] : mine[e];
+            mine[e] = p;                              // P^T
+            other[e] = p * (dp - sm.delta[s][rl]);    // dS^T, rounded to bf16 below
+          }
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            to_a_frag(&mine[8 * kk], pa[kk]);
+            to_a_frag(&other[8 * kk], dsa[kk]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+            for (int j = 0; j < CH; ++j)
+              if (c0 + j < DC) {
+                wgmma_rs_64x64(dvacc[j], pa[kk],
+                               wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16);
+                wgmma_rs_64x64(dkacc[j], dsa[kk],
+                               wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16);
+              }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(dsa[kk]);
+          }
+#pragma unroll
+          for (int j = 0; j < CH; ++j) {
+            fence_regs(dkacc[j]);
+            fence_regs(dvacc[j]);
+          }
+        }
+      } else if (!skip) {
         // three commit groups: S^T, dP^T, then dV += P^T . dO runs while
         // dS^T is formed, and dK += dS^T . Q last
         float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
@@ -1602,16 +1743,16 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (key >= Sk) continue;
       const size_t off = (((size_t)b * Sk + key) * Hkv + kvh) * dh;
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
+      for (int j = 0; j < CH; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int cc = kChunk * c + 8 * j + col;
+        for (int jj = 0; jj < 8; ++jj) {
+          const int cc = kChunk * (c0 + j) + 8 * jj + col;  // past dh for a chunk past DC
           if (cc < dh) {
-            const int e = 4 * j + 2 * x;
+            const int e = 4 * jj + 2 * x;
             *reinterpret_cast<__nv_bfloat162*>(dk + off + cc) =
-                __floats2bfloat162_rn(dkacc[c][e] * scale, dkacc[c][e + 1] * scale);
+                __floats2bfloat162_rn(dkacc[j][e] * scale, dkacc[j][e + 1] * scale);
             *reinterpret_cast<__nv_bfloat162*>(dv + off + cc) =
-                __floats2bfloat162_rn(dvacc[c][e], dvacc[c][e + 1]);
+                __floats2bfloat162_rn(dvacc[j][e], dvacc[j][e + 1]);
           }
         }
     }
@@ -1785,24 +1926,30 @@ bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys) {
   return make_map_bf16_4d(m, p, s.dh, s.Hkv, s.Sk, s.B, 1, keys);
 }
 
-dim3 row_grid(const Shape& s) {
+// 64-column chunks of the padded head dim
+int wgmma_chunks(int dh) { return (pad16(dh) + kChunk - 1) / kChunk; }
+
+// a grid over row blocks of `rows` rows
+dim3 row_grid(const Shape& s, int rows) {
   const int G = s.Hq / s.Hkv;
-  return dim3(s.B * s.Hkv, (s.Sq * G + kBlockRows - 1) / kBlockRows);
+  return dim3(s.B * s.Hkv, (s.Sq * G + rows - 1) / rows);
 }
 
 template <int DC>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                              const Shape& s, cudaStream_t st) {
   CUtensorMap qm, km, vm;
-  if (!row_map(&qm, q, s) || !key_map(&km, k, s, kFwdKeys) || !key_map(&vm, v, s, kFwdKeys))
+  if (!row_map(&qm, q, s) || !key_map(&km, k, s, fwd_keys(DC)) ||
+      !key_map(&vm, v, s, fwd_keys(DC)))
     return cudaErrorInvalidValue;
+  static_assert(sizeof(FwdWgSmem<DC>) + 1024 <= kSmemPerBlock, "forward layout over 227 KB");
   const size_t smem = sizeof(FwdWgSmem<DC>) + 1024;
   auto kern = flash_fwd_wgmma_kernel<DC>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<row_grid(s), kWsThreads, smem, st>>>(qm, km, vm, static_cast<bf16*>(o), lse, s.Sq,
-                                              s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window,
-                                              s.scale);
+  kern<<<row_grid(s, kBlockRows), kWsThreads, smem, st>>>(
+      qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window,
+      s.scale);
   return cudaGetLastError();
 }
 
@@ -1814,22 +1961,26 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   if (!row_map(&qm, q, s) || !row_map(&dom, dout, s) || !key_map(&km, k, s, kDqKeys) ||
       !key_map(&vm, v, s, kDqKeys))
     return cudaErrorInvalidValue;
+  static_assert(sizeof(DqWgSmem<DC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
+  static_assert(sizeof(DkdvWgSmem<DC>) + 1024 <= kSmemPerBlock, "dK/dV layout over 227 KB");
   size_t smem = sizeof(DqWgSmem<DC>) + 1024;
   auto dq_kern = flash_bwd_dq_wgmma_kernel<DC>;
   cudaError_t e = allow_smem(dq_kern, smem);
   if (e != cudaSuccess) return e;
-  dq_kern<<<row_grid(s), kWsThreads, smem, st>>>(
+  constexpr int nc = dq_consumers(DC);
+  dq_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
       qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  if (!key_map(&km, k, s, kKvKeys) || !key_map(&vm, v, s, kKvKeys)) return cudaErrorInvalidValue;
+  constexpr int keys = kv_keys(DC);
+  if (!key_map(&km, k, s, keys) || !key_map(&vm, v, s, keys)) return cudaErrorInvalidValue;
   smem = sizeof(DkdvWgSmem<DC>) + 1024;
   auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC>;
   e = allow_smem(kv_kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(s.B * s.Hkv, (s.Sk + kKvKeys - 1) / kKvKeys);
+  const dim3 grid(s.B * s.Hkv, (s.Sk + keys - 1) / keys);
   kv_kern<<<grid, kWsThreads, smem, st>>>(qm, km, vm, dom, lse, delta, static_cast<bf16*>(dk),
                                           static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh,
                                           s.causal, s.window, s.scale);
@@ -1851,11 +2002,13 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
   if (variant == kFma) return dtype != 0;
   if (variant == kWmma) return dtype != 1;
   if (variant != kWgmma || dtype != 1) return true;
-  // whole positions per 64-row box, at most two 64-column chunks, grid rows
+  // whole positions per 64-row box, and the grids' second dimension (the
+  // dQ kernel's row blocks are the smallest, the dK/dV kernel's key blocks)
   const int G = s.Hq / s.Hkv;
-  const long long rows = ((long long)s.Sq * G + kBlockRows - 1) / kBlockRows;
-  return kWgRows % G != 0 || pad16(s.dh) > 2 * kChunk || rows > 65535 ||
-         (s.Sk + kKvKeys - 1) / kKvKeys > 65535;
+  const int dc = wgmma_chunks(s.dh);
+  const long long rows = dq_consumers(dc) * kWgRows;
+  return kWgRows % G != 0 || ((long long)s.Sq * G + rows - 1) / rows > 65535 ||
+         (s.Sk + kv_keys(dc) - 1) / kv_keys(dc) > 65535;
 }
 
 }  // namespace
@@ -1875,8 +2028,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   auto l = static_cast<float*>(lse);
   if (variant == kFma) return (int)fwd_typed<float>(q, k, v, o, l, s, st);
   if (variant == kWmma) return (int)launch_fwd_tc(q, k, v, o, l, s, st);
-  return (int)(pad16(dh) <= kChunk ? launch_fwd_wgmma<1>(q, k, v, o, l, s, st)
-                                   : launch_fwd_wgmma<2>(q, k, v, o, l, s, st));
+  switch (wgmma_chunks(dh)) {
+    case 1: return (int)launch_fwd_wgmma<1>(q, k, v, o, l, s, st);
+    case 2: return (int)launch_fwd_wgmma<2>(q, k, v, o, l, s, st);
+    case 3: return (int)launch_fwd_wgmma<3>(q, k, v, o, l, s, st);
+    default: return (int)launch_fwd_wgmma<4>(q, k, v, o, l, s, st);
+  }
 }
 
 // Both backward kernels: dK/dV then dQ (fma, wmma), or dQ, which also writes
@@ -1901,7 +2058,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return (int)(e != cudaSuccess ? e : launch_dq_tc(q, k, v, o, dout, l, dq, s, st));
   }
   auto d = static_cast<float*>(delta);
-  return (int)(pad16(dh) <= kChunk
-                   ? launch_bwd_wgmma<1>(q, k, v, o, dout, l, d, dq, dk, dv, s, st)
-                   : launch_bwd_wgmma<2>(q, k, v, o, dout, l, d, dq, dk, dv, s, st));
+  switch (wgmma_chunks(dh)) {
+    case 1: return (int)launch_bwd_wgmma<1>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
+    case 2: return (int)launch_bwd_wgmma<2>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
+    case 3: return (int)launch_bwd_wgmma<3>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
+    default: return (int)launch_bwd_wgmma<4>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
+  }
 }

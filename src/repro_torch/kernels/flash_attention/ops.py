@@ -5,11 +5,11 @@
 forward launches the forward kernel, which also writes the per-row
 logsumexp, and its backward launches the two backward kernels.  Which
 kernels take a shape is :func:`variant`'s choice, made from the dtype, the
-head dim and the GQA group before any launch: ``"wgmma"`` (bf16, padded head
-dim up to 128, group dividing 64), ``"wmma"`` (other bf16) or ``"fma"``
-(fp32).  A tensor on the CPU goes to the plain version (:func:`attention_ref`),
-which autograd differentiates.  A CUDA tensor goes to the kernels of its
-variant, or the wrapper raises: there is no fallback.
+head dim and the GQA group before any launch: ``"wgmma"`` (bf16, group
+dividing 64, every head dim), ``"wmma"`` (other bf16) or ``"fma"`` (fp32).
+A tensor on the CPU goes to the plain version (:func:`attention_ref`), which
+autograd differentiates.  A CUDA tensor goes to the kernels of its variant,
+or the wrapper raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -32,10 +32,10 @@ _fns: dict[str, object] = {}
 
 
 def variant(dtype: torch.dtype, dh: int, G: int) -> str:
-    """The kernels that take a shape: ``"wgmma"`` for bf16 with the head
-    dim padded to 16 at most 128 and a GQA group G that divides 64 (the
-    wgmma kernels' 64-row boxes hold whole positions); ``"wmma"`` for other
-    bf16; ``"fma"`` for fp32.  Raises for what no kernel takes."""
+    """The kernels that take a shape: ``"wgmma"`` for bf16 with a GQA group
+    G that divides 64 (the wgmma kernels' 64-row boxes hold whole
+    positions), at every head dim; ``"wmma"`` for other bf16; ``"fma"`` for
+    fp32.  Raises for what no kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
@@ -44,7 +44,7 @@ def variant(dtype: torch.dtype, dh: int, G: int) -> str:
         raise ValueError(f"flash_attention: GQA group {G} must be positive")
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if (dh + 15) // 16 * 16 <= 128 and 64 % G == 0 else "wmma"
+    return "wgmma" if 64 % G == 0 else "wmma"
 
 
 def _kernel(name: str, n_ptr: int):

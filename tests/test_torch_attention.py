@@ -163,3 +163,30 @@ def test_every_kernel_source_is_found():
     assert [p.name for p in build.sources()] == [
         "decode_attention.cu", "embedding_bag.cu", "flash_attention.cu", "gnn_aggregate.cu"]
 
+
+def test_ptxas_report_reads_each_kernel(tmp_path, monkeypatch):
+    """The report ptxas leaves beside a library: each kernel's mangled
+    name, registers and spill bytes; none before a build."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    assert build.ptxas_report("flash_attention") == []
+    report = build._target(build.KERNELS_DIR / "flash_attention" / "csrc" /
+                           "flash_attention.cu").with_suffix(".ptxas.txt")
+    dkdv = ("_ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_2c13897927flash_bwd_dkdv_wgmma_"
+            "kernelILi4EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiiif")
+    fwd = ("_ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_2c13897916flash_fwd_kernelIfLi4ELi8EE"
+           "EvPKT_S3_S3_PS1_Pfiiiiiiif")
+    report.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{dkdv}' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__2c138979\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__2c138979\n"
+        "    24 bytes stack frame, 28 bytes spill stores, 76 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 384 bytes cmem[0]\n"
+    )
+    assert build.ptxas_report("flash_attention") == [
+        {"kernel": dkdv, "registers": 168, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": fwd, "registers": 255, "spill_stores": 28, "spill_loads": 76},
+    ]

@@ -30,7 +30,9 @@ from repro_torch.models import attention
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# tests/test_kernels.py:24-30, plus the smoke head dim of 8
+# tests/test_kernels.py:24-30, the smoke head dim of 8, and gemma3's head
+# dim of 256 (four 64-column chunks in the kernels on the card) and 192
+# (three), at its group of 2, with a window and without
 FLASH_CASES = [
     # (B, Sq, Sk, Hq, Hkv, d, causal, window, blk)
     (1, 64, 64, 1, 1, 32, True, None, 32),
@@ -39,6 +41,10 @@ FLASH_CASES = [
     (1, 256, 256, 4, 1, 64, True, 64, 64),  # MQA + sliding window
     (2, 128, 128, 4, 4, 128, True, None, 128),
     (2, 40, 40, 8, 2, 8, True, None, 16),  # smoke head dim
+    (1, 64, 64, 2, 1, 192, True, 16, 32),
+    (1, 64, 64, 2, 1, 192, True, None, 32),
+    (1, 64, 64, 2, 1, 256, True, 16, 32),
+    (1, 64, 64, 2, 1, 256, True, None, 32),
 ]
 
 
@@ -154,6 +160,22 @@ def test_attention_gradients_match_jax_grad(name, tfn, jfn):
     want = vjp(jnp.asarray(ct))
     q, k, v = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
     out = tfn(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(ct))
+    for g, w in zip(got, want):
+        _close(g, w, TOLS["float32"])
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_flash_attention_gradients_match_jax_vjp_at_head_dim_256(window):
+    """gemma3's head dim, at its group of 2, global and local: the port's
+    gradients against ``jax.vjp`` of the reference function."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs((1, 24, 24, 4, 2, 256), "float32", 13)
+    ct = np.random.default_rng(14).normal(size=(1, 24, 4, 256)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention_ref(q, k, v, causal=True, window=window),
+                     qj, kj, vj)
+    want = vjp(jnp.asarray(ct))
+    q, k, v = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    out = flash_attention(q, k, v, causal=True, window=window)
     got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(ct))
     for g, w in zip(got, want):
         _close(g, w, TOLS["float32"])

@@ -1,7 +1,8 @@
 """Which flash-attention kernels take a shape: ``variant()`` of the port's
 wrapper, on the CPU.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py`` checks there that every case runs the
-variant chosen here, and that the train shape runs the wgmma kernels)."""
+variant chosen here, and that the train and gemma3 shapes run the wgmma
+kernels)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,8 +18,8 @@ def test_bf16_head_dims_up_to_128_take_wgmma(dh):
 
 
 @pytest.mark.parametrize("dh", range(136, 257, 8))
-def test_bf16_head_dims_above_128_take_wmma(dh):
-    assert variant(torch.bfloat16, dh, 8) == "wmma"
+def test_bf16_head_dims_above_128_take_wgmma(dh):
+    assert variant(torch.bfloat16, dh, 8) == "wgmma"
 
 
 @pytest.mark.parametrize("dh", [8, 64, 128, 136, 256])
@@ -36,6 +37,12 @@ def test_groups_not_dividing_64_take_wmma(G):
     """The wgmma kernels' 64-row boxes hold whole positions of a group."""
     assert variant(torch.bfloat16, 64, G) == "wmma"
     assert variant(torch.float32, 64, G) == "fma"
+
+
+@pytest.mark.parametrize("dh", [136, 192, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 12])
+def test_head_dims_above_128_take_wgmma_where_the_group_divides_64(dh, G):
+    assert variant(torch.bfloat16, dh, G) == ("wgmma" if 64 % G == 0 else "wmma")
 
 
 @pytest.mark.parametrize("dh", [0, 12, 100, 264])

@@ -421,12 +421,13 @@ from repro_torch.kernels.flash_attention import attention_lse_ref, attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 # (B, S, Hq, Hkv, dh, causal, window): the train shape, gemma3-like local,
-# smoke, ragged non-causal, MQA/MHA with a ragged edge, and head dims the
-# bf16 kernels pad to 16 (24) or that take the WMMA kernels (136; and G 3,
-# which does not divide the wgmma kernels' 64-row boxes); then edges of the
-# wgmma kernels: S not a multiple of their row (128) or key (64, 128) tiles,
-# G 1, 2, 8 and 64, a window on a causal and on a non-causal layer, dh 16
-# and 128 (two 64-column chunks)
+# smoke, ragged non-causal, MQA/MHA with a ragged edge, a head dim the bf16
+# kernels pad to 16 (24) at G 3, which does not divide the wgmma kernels'
+# 64-row boxes and takes the WMMA kernels, and dh 136 with a window on a
+# non-causal layer; then edges of the wgmma
+# kernels: S not a multiple of their row (128) or key (64, 128) tiles, G 1,
+# 2, 8 and 64, a window on a causal and on a non-causal layer, dh 16 and 128
+# (two 64-column chunks); then head dims above 128 (WIDE_FLASH_CASES)
 FLASH_CASES = [
     (4, 2048, 32, 4, 64, True, None),
     (1, 2048, 8, 4, 256, True, 1024),
@@ -443,6 +444,24 @@ FLASH_CASES = [
     (1, 333, 64, 1, 32, True, None),
     (2, 517, 8, 1, 64, True, 100),
 ]
+# dh 136 (three 64-column chunks, the last mostly padding), 192 (three) and
+# 256 (four; gemma3's local and global layers at G 2) at G 1, 2 and 8,
+# causal, windowed and non-causal, with S ragged against the 64-key and
+# 128-row tiles; and dh 256 at G 3, which takes the WMMA kernels
+WIDE_FLASH_CASES = [
+    (1, 333, 2, 1, 136, True, None),
+    (2, 200, 8, 8, 136, False, None),
+    (1, 517, 16, 2, 136, True, 100),
+    (1, 300, 2, 1, 192, True, 64),
+    (1, 1000, 8, 8, 192, True, None),
+    (2, 130, 16, 2, 192, False, None),
+    (1, 2048, 8, 4, 256, True, None),
+    (2, 259, 4, 4, 256, True, 50),
+    (1, 777, 16, 2, 256, False, None),
+    (1, 100, 8, 1, 256, False, 40),
+    (1, 190, 6, 2, 256, True, None),
+]
+FLASH_CASES += WIDE_FLASH_CASES
 
 
 def flash_oracle(q, k, v, dout, causal, window):
@@ -510,8 +529,33 @@ def test_flash_attention_train_shape_runs_wgmma():
     assert by["wmma"] == by["fma"] == {"fwd": 0, "bwd": 0}
 
 
-# (B, S, Hq, Hkv, dh): a ragged shape, and the train shape
-DETERMINISM_CASES = [(2, 300, 8, 2, 64), (4, 2048, 32, 4, 64)]
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1024, None], ids=["local", "global"])
+def test_flash_attention_gemma3_shape_runs_wgmma(window):
+    """gemma3-4b's attention (bf16, dh 256, G 2, S 2048, local window 1024 or
+    global) takes the wgmma kernels, forward and backward, and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(1, 2048, 8, 256, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 2048, 4, 256, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, 2048, 4, 256, generator=g, device=dev).to(torch.bfloat16)
+    q.requires_grad_(True)
+    flash_ops.reset_launches()
+    for _ in range(3):
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    by = flash_ops.flash_attention.launches_by_variant
+    assert flash_ops.variant(torch.bfloat16, 256, 2) == "wgmma"
+    assert by["wgmma"] == {"fwd": 3, "bwd": 3}
+    assert by["wmma"] == by["fma"] == {"fwd": 0, "bwd": 0}
+
+
+# (B, S, Hq, Hkv, dh): a ragged shape, the train shape, and gemma3's head
+# dim (dK/dV columns split between the two warpgroups)
+DETERMINISM_CASES = [(2, 300, 8, 2, 64), (4, 2048, 32, 4, 64), (1, 2048, 8, 4, 256)]
 
 
 @pytest.mark.cuda

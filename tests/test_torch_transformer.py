@@ -85,3 +85,40 @@ def test_moe_and_mla_configs_are_not_ported_yet():
         transformer.lm_specs(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_cache(moe, 1, 8, "cpu")
+
+
+def test_gemma3_head_dim_256_forward_matches_reference():
+    """gemma3-smoke's depth and widths with gemma3-4b's head dim of 256 (the
+    full-width model's attention shape per head, two query heads a KV head,
+    local and global layers): ``forward`` and ``prefill`` against the
+    reference's in fp32, from the same converted parameters.
+
+    Tolerance: 1e-4 of the largest reference value of each output (the rule
+    ``tests/test_torch_train.py`` holds gradients to).  The reference's init
+    draws a projection at 1/sqrt of its head axis, so at this head dim the
+    cached K/V values reach about 25 and the scores have a spread of tens:
+    the softmax is nearly an argmax, and one fp32 rounding of a score, taken
+    in another order, moves the outputs by an amount that scales with the
+    layer's values (here up to 2.4e-4 of logits that reach 4.3)."""
+    over = dict(d_head=256)
+    jcfg = dataclasses.replace(jax_config("gemma3-4b", smoke=True), dtype=jnp.float32, **over)
+    tcfg = dataclasses.replace(get_config("gemma3-4b", smoke=True), dtype=torch.float32, **over)
+    assert tcfg.head_dim == 256 and tcfg.n_heads // tcfg.n_kv_heads == 2
+    jp = jax_init(jax.random.PRNGKey(4), jax_tf.lm_specs(jcfg), jcfg.dtype)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab, size=(2, 20)).astype(np.int32)
+
+    def close(got, want):
+        want = np.asarray(want, np.float32)
+        assert got.shape == want.shape
+        assert np.abs(got.numpy() - want).max() <= TOLS["float32"] * np.abs(want).max()
+
+    want, _ = jax_tf.forward(jp, jcfg, jnp.asarray(toks))  # 20 > the window of 8
+    got, _ = transformer.forward(tp, tcfg, torch.from_numpy(toks))
+    close(got, want)
+    jl, jc, _ = jax_tf.prefill(jp, jcfg, jnp.asarray(toks))
+    tl, tc, _ = transformer.prefill(tp, tcfg, torch.from_numpy(toks))
+    close(tl, jl)
+    for name in ("k", "v"):
+        assert tc[name].shape == (tcfg.n_layers, 2, 20, tcfg.n_kv_heads, 256)
+        close(tc[name], jc[name])
