@@ -25,7 +25,8 @@ logsumexp; backward: dq, dk, dv) against the plain version plus autograd at
 the training shape, gemma3-4b's local and global layers (dh 256), head dims
 192 and 136 at G 2 and 8, a dh-256 shape at G 3 (the ``wmma`` kernels),
 and smoke and ragged shapes, with their times and the variant (``wgmma``,
-``wmma`` or ``fma``) that each shape takes; trains
+``wmma`` or ``tf32x3``) that each shape takes, one full-width fp32 backward
+run twice and held equal bit for bit; trains
 full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for one warm-up and three
 timed steps through ``build_train_step``, counting the flash launches by
 variant (all must be ``wgmma``), and profiles one more step; trains an fp32
@@ -93,6 +94,9 @@ import torch
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per input type
+# fp32 attention products as three TF32 products on the tensor cores (the
+# flash kernels' tf32x3 variant): 495 TFLOP/s of TF32 over three passes
+TF32X3_OPS_PER_S = 495e12 / 3
 
 
 class CheckFailed(RuntimeError):
@@ -661,6 +665,7 @@ FLASH_CASES = [
 FLASH_MAIN = "train"  # the shape of every attention call of the train step
 GEMMA_LOCAL, GEMMA_GLOBAL = "gemma3-like", "gemma3 global"  # gemma3-4b's attention calls
 FLASH_WMMA = "dh256 G3"  # the one bf16 case on the WMMA kernels
+FLASH_BITS = "gemma3 global"  # its fp32 backward runs twice and must give equal bits
 
 
 def flash_pairs(S: int, causal: bool, window: int | None) -> int:
@@ -679,7 +684,11 @@ def flash_bound_ms(case, dtype, backward: bool) -> tuple[float, str]:
     writes dq, dk, dv.  Operations (2 per multiply-add over the unmasked
     pairs): forward Q.K and P.V (4 per pair and head dim); backward
     dO.V, P.dO, dS.K and dS.Q (8; the recomputation of Q.K is not counted).
-    The peak is the rate for the input type."""
+    The peak is the rate for the input type, except that fp32 products are
+    counted at TF32X3_OPS_PER_S: on this card the least time for an fp32
+    product is three TF32 passes on the tensor cores, which the fp32 kernels
+    take, not the CUDA cores' 67 TFLOP/s (PEAK_OPS_PER_S, kept for the
+    kernels whose fp32 work is not products)."""
     _, B, S, Hq, Hkv, dh, causal, window = case
     isz = torch.finfo(dtype).bits // 8
     qo = B * S * Hq * dh * isz
@@ -688,7 +697,8 @@ def flash_bound_ms(case, dtype, backward: bool) -> tuple[float, str]:
     nbytes = (2 * qo + 2 * kv + lse) if not backward else (4 * qo + 4 * kv + lse)
     ops = (8 if backward else 4) * B * Hq * dh * flash_pairs(S, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    peak = TF32X3_OPS_PER_S if dtype == torch.float32 else PEAK_OPS_PER_S[dtype]
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -728,13 +738,17 @@ def backward_ms(out, inputs, dout, iters) -> float:
 
 
 def print_ptxas() -> None:
-    """ptxas's registers and spills for each wgmma flash kernel as built."""
+    """ptxas's registers and spills for each wgmma and tf32x3 flash kernel
+    as built; a tf32x3 kernel that spills fails the run."""
     from repro_torch.kernels import build
 
     for row in build.ptxas_report("flash_attention"):
-        if "wgmma" in row["kernel"]:
+        if "wgmma" in row["kernel"] or "_x3_" in row["kernel"]:
             print(f"ptxas {row['kernel']}: registers {row['registers']} spill stores "
                   f"{row['spill_stores']} B loads {row['spill_loads']} B")
+        if "_x3_" in row["kernel"]:
+            check(row["spill_stores"] == row["spill_loads"] == 0,
+                  f"ptxas: {row['kernel']} spills {row['spill_stores']} B")
 
 
 def phase_flash(dev) -> dict:
@@ -771,11 +785,18 @@ def phase_flash(dev) -> dict:
                 kind = "fwd" if name in ("out", "lse") else "bwd"
                 errs[kind] = max(errs[kind], err)
             del want
+            if (label, dtype) == (FLASH_BITS, torch.float32):  # a full-width fp32 backward, twice
+                again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                                window=window)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                print(f"flash bits  {label:16s} {tname:8s} backward run twice: equal bits {same}")
+                check(same, f"flash_attention {label} {tname}: two backward runs differ")
+                del again
             fwd = lambda: ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
             bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                                   window=window)
             row = {"variant": ops.variant(dtype, dh, Hq // Hkv)}
-            want_var = ("fma" if dtype == torch.float32 else
+            want_var = ("tf32x3" if dtype == torch.float32 else
                         "wmma" if label == FLASH_WMMA else "wgmma")
             check(row["variant"] == want_var,
                   f"flash {label} {tname}: variant {row['variant']}, wanted {want_var}")
@@ -918,12 +939,13 @@ def phase_train(dev) -> dict:
             "profile": prof, "variant": var}
 
 
-def phase_train_parity(dev) -> None:
+def phase_train_parity(dev) -> dict:
     """Five fp32 smoke steps on the card (kernels) and on the CPU (plain
-    path) from the same parameters and numpy batches."""
+    path) from the same parameters and numpy batches; returns the tf32x3
+    flash launches of the card's steps."""
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data import make_batch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
     from repro_torch.models.layers import init_params
     from repro_torch.models.transformer import lm_specs
     from repro_torch.optim import AdamWConfig
@@ -936,7 +958,7 @@ def phase_train_parity(dev) -> None:
     cpu_state = make_train_state(cpu_params)
     opt = AdamWConfig(warmup_steps=2, total_steps=5)
     dev_step, cpu_step = build_train_step(cfg, cell, opt), build_train_step(cfg, cell, opt)
-    before = flash_attention.launches_fwd, flash_attention.launches_bwd
+    reset_launches()
     for s in range(5):
         dev_state, a = dev_step(dev_state, make_batch(cfg, cell, seed=s, device=dev))
         cpu_state, b = cpu_step(cpu_state, make_batch(cfg, cell, seed=s, device="cpu"))
@@ -949,11 +971,14 @@ def phase_train_parity(dev) -> None:
     for pa, pb in zip(leaves(dev_state["params"]), leaves(cpu_state["params"])):
         diff = (pa.cpu() - pb).abs()
         worst = max(worst, (diff / (1e-4 + 1e-4 * pb.abs())).max().item())
-    launched = (flash_attention.launches_fwd - before[0], flash_attention.launches_bwd - before[1])
+    by_var = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
     print(f"train parity: final params worst err/(1e-4+1e-4*|cpu|) {worst:.4f}; "
-          f"flash launches on the card fwd {launched[0]} bwd {launched[1]}")
+          f"flash launches on the card by variant {by_var}")
     check(worst <= 1.0, f"train parity: final parameters differ (worst ratio {worst})")
-    check(min(launched) > 0, "train parity: the card never launched the flash kernels")
+    check(min(by_var["tf32x3"].values()) > 0
+          and sum(n for v, c in by_var.items() if v != "tf32x3" for n in c.values()) == 0,
+          f"train parity: the fp32 steps did not run every flash call on tf32x3: {by_var}")
+    return by_var["tf32x3"]
 
 
 def phase_driver(dev) -> None:
@@ -1132,8 +1157,9 @@ def phase_prefill(dev) -> dict:
     stoks = torch.from_numpy(
         np.random.default_rng(1).integers(0, scfg.vocab, size=(2, 48)).astype(np.int32)
     ).to(dev)
-    f0 = flash_attention.launches_fwd
+    reset_launches()
     lg, c, cl = transformer.prefill(sp, scfg, stoks)
+    smoke_flash = dict(flash_attention.launches_by_variant["tf32x3"])
     chain = transformer.init_cache(scfg, 2, 64, dev)
     chain_len = torch.zeros(2, dtype=torch.int32, device=dev)
     reset_decode()
@@ -1146,13 +1172,14 @@ def phase_prefill(dev) -> dict:
             (c["v"] - chain["v"][:, :, :48]).abs().max().item()]
     print(f"prefill vs prefill_chunk chain (gemma3 smoke fp32, window 8): max_abs_err logits "
           f"{errs[0]:.3e} k {errs[1]:.3e} v {errs[2]:.3e} (tol 1e-4); flash launches "
-          f"{flash_attention.launches_fwd - f0} decode kernels {smoke_launches}")
+          f"{flash_attention.launches_by_variant} decode kernels {smoke_launches}")
     check(max(errs) <= 1e-4 and torch.equal(cl, chain_len),
           f"prefill differs from the prefill_chunk chain: {errs}")
-    check(flash_attention.launches_fwd > f0 and smoke_launches["split"] > 0,
-          "prefill check: a kernel was not launched")
+    check(0 < smoke_flash["fwd"] == flash_attention.launches_fwd and smoke_launches["split"] > 0,
+          "prefill check: a kernel was not launched, or a flash call was not tf32x3")
     return {"launches": launches, "ms": ms, "profile": prof, "chain_errs": serrs,
-            "chain_launches": chain_launches, "smoke_chain_launches": smoke_launches}
+            "chain_launches": chain_launches, "smoke_chain_launches": smoke_launches,
+            "smoke_flash": smoke_flash}
 
 
 # --------------------------------------------------------------------------
@@ -2137,7 +2164,7 @@ def main() -> int:
     par = timed(phase_parity)
     flash = timed(phase_flash)
     train = timed(phase_train)
-    timed(phase_train_parity)
+    tpar = timed(phase_train_parity)
     timed(phase_driver)
     pre = timed(phase_prefill)
     gem = timed(phase_gemma3)
@@ -2266,6 +2293,39 @@ def main() -> int:
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "wmma_dh256_G3": {k: w[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+        })
+    f32_main = flash["cases"][(FLASH_MAIN, "float32")]
+    for name, kind, by_path in (
+        ("flash_attention_tf32x3", "fwd",
+         {"fp32 smoke train (card vs CPU, 5 steps)": tpar["fwd"],
+          "fp32 gemma3 smoke prefill": pre["smoke_flash"]["fwd"]}),
+        ("flash_attention_tf32x3_bwd", "bwd",
+         {"fp32 smoke train (card vs CPU, 5 steps)": tpar["bwd"]}),
+    ):
+        r = f32_main[kind]
+        check(f32_main["variant"] == "tf32x3" and min(by_path.values()) > 0,
+              f"{name}: launches {by_path}, variant {f32_main['variant']}")
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": flash_src,
+            "replaces": flash_tpu,
+            "launches": sum(by_path.values()),
+            "variant": "tf32x3",
+            "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "queued_ms": r["queued_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "held": True,
+            "shape": dict(flash_shape, dtype="float32"),
+            "cases": {c[0]: {k: flash["cases"][(c[0], "float32")][kind][k] for k in (
+                "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for c in FLASH_CASES},
         })
     bm = bag["cases"][(BAG_MAIN, "float32")]
     bag_case = next(c for c in BAG_CASES if c[0] == BAG_MAIN)

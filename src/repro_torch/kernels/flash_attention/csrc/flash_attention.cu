@@ -26,8 +26,14 @@
 //    section below.
 //  * wmma: bf16 with G not dividing 64: mma.sync through WMMA 16x16x16
 //    tiles of 32 rows, products through shared memory.
-//  * fma: fp32 on the CUDA cores (67 TFLOP/s peak), since TF32 would round
-//    the inputs: the exact parity path.
+//  * tf32x3: fp32, every head dim and every G.  Each fp32 product is three
+//    TF32 products on wgmma (a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, fp32 sums),
+//    which keep close to fp32's precision where one TF32 pass would round
+//    the inputs to 11 bits; bounded by the tensor cores at 495 / 3 = 165
+//    TFLOP/s, against the CUDA cores' 67 for plain fp32 FMAs.  A split pass
+//    writes hi and lo (and the operands wgmma needs transposed), then the
+//    same warp-specialised shape as wgmma streams them through a TMA ring;
+//    see the section below.
 // What the design does, in all three:
 //  * The TPU grid (B, Hq, n_q, n_k) walks the KV axis in order and carries
 //    m/l/acc in VMEM.  Here one block owns a tile of query rows and loops
@@ -42,12 +48,6 @@
 //    head, row tile) accumulates dQ over key tiles.  Both recompute P from Q,
 //    K and the saved logsumexp.  No atomics: the gradients are the same from
 //    run to run.
-//  * fp32: register tiling over a 16 x 8 grid of 128 threads; a thread owns
-//    TM rows (strided by 16) and 8 keys or dh/8 head columns (strided by 8),
-//    so every product reads shared memory without bank conflicts (tiles are
-//    stored with an odd row stride) and does TM*8 FMAs per 8+TM loads.  Tiles
-//    shrink as dh grows (TM 4 -> 2 or 1) so that accumulators stay in
-//    registers and tiles fit the 227 KB of dynamic shared memory at dh 256.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -64,13 +64,6 @@ namespace {
 constexpr int kThreads = 128;  // a 16 x 8 grid of threads
 constexpr int kRowGroups = 16;
 constexpr int kColGroups = 8;
-constexpr int kKeyTile = 64;   // keys per tile in the forward and dQ kernels
-constexpr int kRowTileBwd = 32;  // query rows per tile in the dK/dV kernel
-
-// x rounded to T and back: the cast of P to V's type
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -97,32 +90,6 @@ __device__ __forceinline__ size_t row_offset(int b, int r, int G, int kvh, int S
   return (((size_t)b * S + s) * Hq + h) * dh;
 }
 
-// Stage `n` rows starting at row r0 of a [B,S,Hq,dh] tensor into dst[n][ld]
-// (zeros past Rtot).
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int n, int r0,
-                                           int Rtot, int b, int G, int kvh, int S, int Hq,
-                                           int dh, int ld) {
-  for (int idx = threadIdx.x; idx < n * dh; idx += kThreads) {
-    const int i = idx / dh, d = idx - (idx / dh) * dh;
-    const int r = r0 + i;
-    dst[i * ld + d] = r < Rtot ? to_f32(src[row_offset(b, r, G, kvh, S, Hq, dh) + d]) : 0.f;
-  }
-}
-
-// Stage `n` keys starting at t0 of a [B,Sk,Hkv,dh] tensor into dst[n][ld]
-// (zeros past Sk).
-template <typename T>
-__device__ __forceinline__ void stage_keys(float* dst, const T* __restrict__ src, int n, int t0,
-                                           int b, int kvh, int Sk, int Hkv, int dh, int ld) {
-  for (int idx = threadIdx.x; idx < n * dh; idx += kThreads) {
-    const int j = idx / dh, d = idx - (idx / dh) * dh;
-    const int kp = t0 + j;
-    dst[j * ld + d] =
-        kp < Sk ? to_f32(src[(((size_t)b * Sk + kp) * Hkv + kvh) * dh + d]) : 0.f;
-  }
-}
-
 // D[i] = sum_d dO[r0+i, d] * O[r0+i, d] for n rows, one warp per row.
 template <typename T>
 __device__ __forceinline__ void stage_delta(float* D, const T* __restrict__ o,
@@ -138,422 +105,6 @@ __device__ __forceinline__ void stage_delta(float* D, const T* __restrict__ o,
     }
     acc = warp_sum(acc);
     if (lane == 0) D[i] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// grid: (ceil(Sq*G / R), B*Hkv); R = 16*TM rows; key tiles of 64.
-// smem: Qs[R][dh+1], Ks[64][dh+1], Vs[64][dh+1], Ps[R][65]
-// ---------------------------------------------------------------------------
-template <typename T, int TM, int DPT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                 int dh, int causal, int window, float scale) {
-  constexpr int R = kRowGroups * TM;
-  constexpr int TK = kKeyTile;
-  constexpr int TN = TK / kColGroups;  // keys per thread
-  constexpr int ldp = TK + 1;
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* Qs = smem;
-  float* Ks = Qs + R * ld;
-  float* Vs = Ks + TK * ld;
-  float* Ps = Vs + TK * ld;
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int r0 = blockIdx.x * R;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-  const int dpt = dh / kColGroups;
-
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + R) - 1) / G;
-  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
-
-  stage_rows(Qs, q, R, r0, Rtot, b, G, kvh, Sq, Hq, dh, ld);
-
-  int qpos[TM];
-  bool row_ok[TM];
-  float m_run[TM], l_run[TM], acc[TM][DPT];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + tm + kRowGroups * i;
-    row_ok[i] = r < Rtot;
-    qpos[i] = r / G;
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t0 = (key_lo / TK) * TK; t0 <= key_hi; t0 += TK) {
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    stage_keys(Ks, k, TK, t0, b, kvh, Sk, Hkv, dh, ld);
-    stage_keys(Vs, v, TK, t0, b, kvh, Sk, Hkv, dh, ld);
-    __syncthreads();
-
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float a[TM], bk[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Qs[(tm + kRowGroups * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bk[j] = Ks[(tn + kColGroups * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kp = t0 + tn + kColGroups * j;
-        const bool ok = row_ok[i] && visible(kp, qpos[i], Sk, causal, window);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = group8_max(mt);
-      const float m_new = fmaxf(m_run[i], mt);
-      // rows that have seen no visible key yet keep m = -inf, l = 0, acc = 0;
-      // subtracting 0 instead of -inf keeps exp() away from NaN
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m_run[i] - m_use);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_use);
-        psum += p;
-        Ps[(tm + kRowGroups * i) * ldp + tn + kColGroups * j] = round_to<T>(p);
-      }
-      psum = group8_sum(psum);
-      l_run[i] = l_run[i] * alpha + psum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < TK; ++j) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Ps[(tm + kRowGroups * i) * ldp + j];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        if (c < dpt) {
-          const float bv = Vs[j * ld + tn + kColGroups * c];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) acc[i][c] = fmaf(a[i], bv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (!row_ok[i]) continue;  // rows past Sq write nothing
-    const int r = r0 + tm + kRowGroups * i;
-    const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      if (c < dpt) o[off + tn + kColGroups * c] = from_f32<T>(acc[i][c] * inv);
-    if (tn == 0) {
-      const int s = r / G, h = kvh * G + (r - s * G);
-      lse[((size_t)b * Hq + h) * Sq + s] =
-          l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : -INFINITY;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dK and dV
-// grid: (ceil(Sk / TKB), B*Hkv); TKB = 16*TM keys; row tiles of 32.
-// smem: Ks[TKB][dh+1], Vs[TKB][dh+1], Qs[32][dh+1], dOs[32][dh+1],
-//       Ps[32][TKB+1], dSs[32][TKB+1], lse_s[32], D_s[32]
-// ---------------------------------------------------------------------------
-template <typename T, int TM, int DPT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ o,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
-                      int dh, int causal, int window, float scale) {
-  constexpr int TKB = kRowGroups * TM;
-  constexpr int RB = kRowTileBwd;
-  constexpr int TN = RB / kColGroups;  // rows per thread
-  constexpr int ldp = TKB + 1;
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* Ks = smem;
-  float* Vs = Ks + TKB * ld;
-  float* Qs = Vs + TKB * ld;
-  float* dOs = Qs + RB * ld;
-  float* Ps = dOs + RB * ld;
-  float* dSs = Ps + RB * ldp;
-  float* lse_s = dSs + RB * ldp;
-  float* D_s = lse_s + RB;
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int k0 = blockIdx.x * TKB;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-  const int dpt = dh / kColGroups;
-
-  // query positions that can see a key of this tile
-  const int k_last = min(Sk, k0 + TKB) - 1;
-  const int p_min = causal ? k0 : 0;
-  const int p_max = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
-
-  stage_keys(Ks, k, TKB, k0, b, kvh, Sk, Hkv, dh, ld);
-  stage_keys(Vs, v, TKB, k0, b, kvh, Sk, Hkv, dh, ld);
-
-  int kpos[TM];
-  float dk_acc[TM][DPT], dv_acc[TM][DPT];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    kpos[i] = k0 + tm + kRowGroups * i;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  }
-
-  const int row_end = min(Rtot, (p_max + 1) * G);
-  for (int rt0 = ((p_min * G) / RB) * RB; rt0 < row_end; rt0 += RB) {
-    __syncthreads();  // the previous row tile is consumed (and K/V are staged)
-    stage_rows(Qs, q, RB, rt0, Rtot, b, G, kvh, Sq, Hq, dh, ld);
-    stage_rows(dOs, dout, RB, rt0, Rtot, b, G, kvh, Sq, Hq, dh, ld);
-    stage_delta(D_s, o, dout, RB, rt0, Rtot, b, G, kvh, Sq, Hq, dh);
-    for (int i = threadIdx.x; i < RB; i += kThreads) {
-      const int r = rt0 + i;
-      float x = 0.f;
-      if (r < Rtot) {
-        const int s = r / G, h = kvh * G + (r - s * G);
-        x = lse[((size_t)b * Hq + h) * Sq + s];
-      }
-      lse_s[i] = x;
-    }
-    __syncthreads();
-
-    // S^T and dP^T for this thread's keys x rows
-    float st[TM][TN], dps[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) st[i][j] = dps[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float ak[TM], av[TM], bq[TN], bdo[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        ak[i] = Ks[(tm + kRowGroups * i) * ld + d];
-        av[i] = Vs[(tm + kRowGroups * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bq[j] = Qs[(tn + kColGroups * j) * ld + d];
-        bdo[j] = dOs[(tn + kColGroups * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          st[i][j] = fmaf(ak[i], bq[j], st[i][j]);
-          dps[i][j] = fmaf(av[i], bdo[j], dps[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int rl = tn + kColGroups * j;
-        const int r = rt0 + rl;
-        const bool ok = r < Rtot && visible(kpos[i], r / G, Sk, causal, window);
-        const float p = ok ? expf(st[i][j] * scale - lse_s[rl]) : 0.f;
-        const int kl = tm + kRowGroups * i;
-        Ps[rl * ldp + kl] = round_to<T>(p);
-        dSs[rl * ldp + kl] = p * (dps[i][j] - D_s[rl]);
-      }
-    __syncthreads();
-
-    for (int rl = 0; rl < RB; ++rl) {
-      float pa[TM], da[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        pa[i] = Ps[rl * ldp + tm + kRowGroups * i];
-        da[i] = dSs[rl * ldp + tm + kRowGroups * i];
-      }
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        if (c < dpt) {
-          const float bdo = dOs[rl * ld + tn + kColGroups * c];
-          const float bq = Qs[rl * ld + tn + kColGroups * c];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            dv_acc[i][c] = fmaf(pa[i], bdo, dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(da[i], bq, dk_acc[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (kpos[i] >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kpos[i]) * Hkv + kvh) * dh;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      if (c < dpt) {
-        dk[off + tn + kColGroups * c] = from_f32<T>(dk_acc[i][c] * scale);
-        dv[off + tn + kColGroups * c] = from_f32<T>(dv_acc[i][c]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dQ
-// grid: (ceil(Sq*G / R), B*Hkv); R = 16*TM rows; key tiles of 64.
-// smem: Qs[R][dh+1], dOs[R][dh+1], Ks[64][dh+1], Vs[64][dh+1], dSs[R][65],
-//       lse_s[R], D_s[R]
-// ---------------------------------------------------------------------------
-template <typename T, int TM, int DPT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq, int Sq, int Sk, int Hq,
-                    int Hkv, int dh, int causal, int window, float scale) {
-  constexpr int R = kRowGroups * TM;
-  constexpr int TK = kKeyTile;
-  constexpr int TN = TK / kColGroups;
-  constexpr int ldp = TK + 1;
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* Qs = smem;
-  float* dOs = Qs + R * ld;
-  float* Ks = dOs + R * ld;
-  float* Vs = Ks + TK * ld;
-  float* dSs = Vs + TK * ld;
-  float* lse_s = dSs + R * ldp;
-  float* D_s = lse_s + R;
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int r0 = blockIdx.x * R;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-  const int dpt = dh / kColGroups;
-
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + R) - 1) / G;
-  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
-
-  stage_rows(Qs, q, R, r0, Rtot, b, G, kvh, Sq, Hq, dh, ld);
-  stage_rows(dOs, dout, R, r0, Rtot, b, G, kvh, Sq, Hq, dh, ld);
-  stage_delta(D_s, o, dout, R, r0, Rtot, b, G, kvh, Sq, Hq, dh);
-  for (int i = threadIdx.x; i < R; i += kThreads) {
-    const int r = r0 + i;
-    float x = 0.f;
-    if (r < Rtot) {
-      const int s = r / G, h = kvh * G + (r - s * G);
-      x = lse[((size_t)b * Hq + h) * Sq + s];
-    }
-    lse_s[i] = x;
-  }
-
-  int qpos[TM];
-  bool row_ok[TM];
-  float dq_acc[TM][DPT];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + tm + kRowGroups * i;
-    row_ok[i] = r < Rtot;
-    qpos[i] = r / G;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) dq_acc[i][c] = 0.f;
-  }
-
-  for (int t0 = (key_lo / TK) * TK; t0 <= key_hi; t0 += TK) {
-    __syncthreads();  // the previous tile is consumed (and Q, dO, lse, D are staged)
-    stage_keys(Ks, k, TK, t0, b, kvh, Sk, Hkv, dh, ld);
-    stage_keys(Vs, v, TK, t0, b, kvh, Sk, Hkv, dh, ld);
-    __syncthreads();
-
-    float s[TM][TN], dp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float aq[TM], ado[TM], bk[TN], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        aq[i] = Qs[(tm + kRowGroups * i) * ld + d];
-        ado[i] = dOs[(tm + kRowGroups * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bk[j] = Ks[(tn + kColGroups * j) * ld + d];
-        bv[j] = Vs[(tn + kColGroups * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(ado[i], bv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = tm + kRowGroups * i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kl = tn + kColGroups * j;
-        const bool ok = row_ok[i] && visible(t0 + kl, qpos[i], Sk, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
-        dSs[rl * ldp + kl] = p * (dp[i][j] - D_s[rl]);
-      }
-    }
-    __syncthreads();
-
-    for (int j = 0; j < TK; ++j) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = dSs[(tm + kRowGroups * i) * ldp + j];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        if (c < dpt) {
-          const float bk = Ks[j * ld + tn + kColGroups * c];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) dq_acc[i][c] = fmaf(a[i], bk, dq_acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (!row_ok[i]) continue;
-    const size_t off = row_offset(b, r0 + tm + kRowGroups * i, G, kvh, Sq, Hq, dh);
-#pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      if (c < dpt) dq[off + tn + kColGroups * c] = from_f32<T>(dq_acc[i][c] * scale);
   }
 }
 
@@ -1760,6 +1311,790 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 on Hopper's tensor cores: three-pass TF32 (tf32x3) on wgmma, fed by TMA
+//
+// Every fp32 product a.b of the three kernels is a_hi.b_hi + a_hi.b_lo +
+// a_lo.b_hi on wgmma ...f32.tf32.tf32 with fp32 sums, where hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest (cvt.rna, as CUTLASS's fast-fp32
+// operator rounds): x - hi - lo is below 2^-22 |x| and the dropped a_lo.b_lo
+// below 2^-22 |a.b|, so each product keeps close to fp32's 24 bits.
+//
+// A split pass (flash_x3_split_kernel) writes hi and lo of every operand
+// once a call, in the layouts wgmma reads, into the wrapper's scratch:
+//  * row-major "rows" tensors [2][B*Hkv][rows][dh] (hi, then lo): the query
+//    rows r = s*G + g of one kv head laid out one after another (GroupRows),
+//    and the keys of one kv head.  A tile is then 64 consecutive rows of one
+//    kv head for every G, with no tail of masked rows for a G that does not
+//    divide 64 and no case for G > 64.
+//  * transposed tensors [2][B*Hkv][dh][Np] for the four B operands that are
+//    MN-major as stored (V in O += P.V, K in dQ += dS.K, dO and Q in dV +=
+//    P^T.dO and dK += dS^T.Q): tf32 wgmma reads shared memory K-major only.
+// Rounding hi explicitly means nothing rests on how the tensor cores read
+// the low 13 bits of an fp32 operand, and the producer does no arithmetic;
+// the price is one more pass over the inputs in device memory.
+//
+// The kernels (forward, dQ, and dK/dV, every head dim and GQA group):
+//  * Warp-specialised: two consumer warpgroups own 64 rows (query rows, or
+//    keys in dK/dV) each, and one thread of the producer warpgroup keeps a
+//    ring of shared-memory slots filled by TMA.  A slot holds one "unit": a
+//    32-column chunk of the 128 A rows and of a 64-row B tile, hi and lo (S,
+//    dP and their transposes are summed over the head dim one chunk at a
+//    time), or a 64-column chunk of a transposed B tile over 64 keys (or
+//    rows), hi and lo (the update of O, dQ, dK or dV).  Q, K, V and dO all
+//    stream through the ring: fp32 hi and lo of 64 rows at dh 256 are 128
+//    KB, too many to keep resident next to a ring in 227 KB.  A consumer
+//    commits each S (or dP) unit's wgmmas as a group and frees a slot once
+//    the group after it is issued (X3Ring), so at most two slots are held
+//    and the rest are loads in flight.
+//  * P (or dS, or their transposes) goes to the warpgroup's own hi/lo tile
+//    in shared memory, the A operand of the update.  The tf32 A fragment in
+//    registers is not the accumulator's layout, and hi/lo fragments of a 64
+//    x 64 tile would hold 64 registers a thread for the whole update.
+//  * The tensor cores sum a chain of wgmmas into their accumulator
+//    truncating each step, a bias towards zero of up to an ulp a step: over
+//    the 6,144 steps of a dK/dV accumulator at 16,384 rows that is some 2e-4
+//    of the result.  So each update unit sums into fresh accumulators that
+//    join the thread's O (dQ, dK or dV) by fp32 adds, rounded to nearest
+//    (x3_update).  The a_hi.b_hi terms of an update are summed apart from
+//    the cross terms, 2^-11 of their size, so that the chain that truncates
+//    at the result's scale is a third as long (8 steps, up to dh 128), and
+//    so are those of the S and dP products up to dh 192 (dh / 8 steps;
+//    above, where the registers are not there, 3 dh / 8).
+//  * Registers: the O (dQ, dK or dV) accumulator is ceil(dh/64) x 32 fp32 a
+//    thread, 128 at dh 256, beside one product at a time (S, dP or the
+//    update's; 32 or 64 registers): P is staged before dP is summed, and dS
+//    is formed from the staged P (x3_staged).  The producer warpgroup gives
+//    its registers to the consumers (setmaxnreg: 24 and 240).  dK and dV
+//    are accumulated by separate blocks (grid z): each recomputes S^T (the
+//    dV block needs no dP^T), five products a tile for the pair instead of
+//    four, where holding both needs 256 registers at dh 256.
+//  * The backward cuts a long walk over key (row) tiles into chunks, each
+//    its own block, and adds the chunks' partial sums in a last kernel
+//    (X3Walk): under a causal mask one wave of blocks would otherwise wait
+//    on the longest walk.
+//  * Every sum keeps a fixed order and no float atomics are used, so two
+//    backward runs give equal bits.
+// What bounds it: operations on the tensor cores, at 495 / 3 = 165 TFLOP/s
+// for fp32 products in three TF32 passes; the streamed hi and lo tiles put
+// some 32 operations a byte through the L2 in the S and dP products.
+// ---------------------------------------------------------------------------
+constexpr int kX3Box = 64 * 32 * 4;  // bytes of one [64][32] fp32 box (8 KB)
+// The cross terms in accumulators of their own, where a second 32-register
+// accumulator fits beside O: in S and dP (x3_product) up to dh 192, in the
+// update (x3_update), whose chain is short, up to dh 128.
+__host__ __device__ constexpr bool x3_two_products(int OC) { return OC <= 3; }
+__host__ __device__ constexpr bool x3_two_updates(int OC) { return OC <= 2; }
+constexpr int kX3Slots = 3;          // ring depth
+constexpr int kX3SlotBytes = 6 * kX3Box;  // an S unit: A hi, lo (128 rows), B hi, lo
+constexpr int kX3Threads = 3 * 128;  // the producer warpgroup and two consumers
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65,536
+constexpr int kX3ProducerRegs = 24;
+constexpr int kX3ConsumerRegs = 240;
+
+struct X3Smem {
+  alignas(1024) char slot[kX3Slots][kX3SlotBytes];
+  alignas(1024) char pa[kConsumers][4 * kX3Box];  // a consumer's A tile: hi, lo
+  uint64_t full[kX3Slots], empty[kX3Slots];
+};
+
+// The 64-wide B tiles a block walks: the key tiles of a 128-row block
+// (forward, dQ) or the row tiles of a 128-key block (dK/dV) that the causal
+// and window masks leave visible, from tile `first`, `n` of them.  The
+// backward cuts a walk into chunks of kX3Chunk tiles, each its own block:
+// under a causal mask the longest walk is twice the mean and, with B * Hkv
+// small, one block of it would set the time of a kernel of one wave.  The
+// chunks' partial sums are added in chunk order by a reduction kernel.
+constexpr int kX3Chunk = 16;
+struct X3Walk {
+  int first, n;
+};
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline X3Walk x3_key_walk(int r0, int Sq, int Sk, int G, int causal,
+                                              int window) {
+  const int R = Sq * G;
+  const int p_lo = r0 / G, p_hi = (imin(R, r0 + kBlockRows) - 1) / G;
+  const int key_lo = window > 0 ? imax(0, p_lo - window + 1) : 0;
+  const int key_hi = causal ? imin(Sk - 1, p_hi) : Sk - 1;
+  const int first = key_lo / 64;
+  return {first, key_hi >= key_lo ? key_hi / 64 - first + 1 : 0};
+}
+__host__ __device__ inline X3Walk x3_row_walk(int k0, int Sq, int Sk, int G, int causal,
+                                              int window) {
+  const int R = Sq * G;
+  const int k_last = imin(Sk, k0 + kBlockRows) - 1;
+  const int p_min = causal ? k0 : 0;  // query positions that can see a key of the block
+  const int p_max = window > 0 ? imin(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int first = imin(p_min, Sq) * G / 64;
+  const int end = imin(R, (p_max + 1) * G);
+  return {first, end > first * 64 ? (end - first * 64 + 63) / 64 : 0};
+}
+// chunks of a walk (a walk of no tile is one chunk, which writes zeros)
+__host__ __device__ constexpr int x3_chunks(int n) {
+  return n > kX3Chunk ? (n + kX3Chunk - 1) / kX3Chunk : 1;
+}
+
+// the maps of one launch: a1 . b1^T, then a2 . b2^T (dP), then updates
+// from u (u2 in the dK blocks of the dK/dV kernel)
+struct X3Maps {
+  CUtensorMap a1, b1, a2, b2, u, u2;
+};
+
+// The query rows of one kv head: row r = s * G + g is position s of head
+// kvh * G + g.  The tf32x3 kernels and the split pass map rows with it
+// (keys are the case G = 1, H = Hkv).
+struct GroupRows {
+  int b, kvh, G, S, H, dh;
+  __device__ int pos(int r) const { return r / G; }
+  __device__ int head(int r) const { return kvh * G + r % G; }
+  // offset of the row's first element in a [B,S,H,dh] tensor
+  __device__ size_t offset(int r) const { return row_offset(b, r, G, kvh, S, H, dh); }
+  // index of the row in a [B,H,S] tensor (the logsumexp)
+  __device__ size_t lse_index(int r) const { return ((size_t)b * H + head(r)) * S + pos(r); }
+};
+
+// x [B,S,H,dh] (H = Hkv * G) into hi and lo: the rows tensor [2][B*Hkv][S*G][dh]
+// (rows_out) and the transposed one [2][B*Hkv][dh][Np] (cols_out, zeros past
+// S*G); either may be null.  grid (ceil(max(S*G, Np) / 32), ceil(dh / 32),
+// B*Hkv), 256 threads: a 32 x 32 tile through shared memory, so that both
+// writes are coalesced.
+__global__ void __launch_bounds__(256)
+flash_x3_split_kernel(const float* __restrict__ x, float* __restrict__ rows_out,
+                      float* __restrict__ cols_out, int S, int H, int Hkv, int dh, int Np) {
+  __shared__ float tile[32][33];
+  const int bh = blockIdx.z;
+  const GroupRows g{bh / Hkv, bh % Hkv, H / Hkv, S, H, dh};
+  const int R = S * g.G;
+  const int r0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, d = d0 + tx;
+    const float v = r < R && d < dh ? x[g.offset(r) + d] : 0.f;
+    tile[i][tx] = v;
+    if (rows_out != nullptr && r < R && d < dh) {
+      const size_t at = ((size_t)bh * R + r) * dh + d;
+      const uint32_t hi = tf32_rna(v);
+      rows_out[at] = __uint_as_float(hi);
+      rows_out[(size_t)gridDim.z * R * dh + at] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+    }
+  }
+  if (cols_out == nullptr) return;
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int d = d0 + i, p = r0 + tx;
+    if (d >= dh || p >= Np) continue;
+    const float v = tile[tx][i];
+    const size_t at = ((size_t)bh * dh + d) * Np + p;
+    const uint32_t hi = tf32_rna(v);
+    cols_out[at] = __uint_as_float(hi);
+    cols_out[(size_t)gridDim.z * dh * Np + at] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+  }
+}
+
+// Per row of the rows layout ([B*Hkv][R64], zeros past S*G): lse * log2(e)
+// and D = rowsum(dO * O), one warp a row, summed in a fixed order.
+__global__ void __launch_bounds__(256)
+flash_x3_row_stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                          const float* __restrict__ lse, float* __restrict__ lse2,
+                          float* __restrict__ delta, int Sq, int Hq, int Hkv, int dh, int R64,
+                          int BH) {
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (w >= BH * R64) return;
+  const int bh = w / R64, r = w % R64;
+  const GroupRows g{bh / Hkv, bh % Hkv, Hq / Hkv, Sq, Hq, dh};
+  float acc = 0.f, l2 = 0.f;
+  if (r < Sq * g.G) {
+    const size_t off = g.offset(r);
+    for (int d = lane; d < dh; d += 32) acc = fmaf(dout[off + d], o[off + d], acc);
+    l2 = lse[g.lse_index(r)] * kLog2e;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    lse2[w] = l2;
+    delta[w] = acc;
+  }
+}
+
+// The producer (one thread): for each of n_tiles B tiles of 64 rows from
+// n_first, the ncs S units of a1/b1 (A: the block's 128 rows from m0), the
+// ncs dP units of a2/b2 when `two`, then the OC update units of `u`.
+__device__ void x3_produce(X3Smem& sm, const X3Maps& m, const CUtensorMap* u_map, int n_tiles,
+                           int n_first, int ncs, int two, int OC, int m0, int bh) {
+  int u = 0;
+  auto take = [&](uint32_t bytes) {
+    const int s = u % kX3Slots;
+    if (u >= kX3Slots) mbar_wait(&sm.empty[s], (u / kX3Slots - 1) & 1);
+    mbar_arrive_expect_tx(&sm.full[s], bytes);
+    ++u;
+    return s;
+  };
+  for (int i = 0; i < n_tiles; ++i) {
+    const int n0 = (n_first + i) * 64;
+    for (int ph = 0; ph <= two; ++ph) {
+      const CUtensorMap* a = ph ? &m.a2 : &m.a1;
+      const CUtensorMap* b = ph ? &m.b2 : &m.b1;
+      for (int c = 0; c < ncs; ++c) {
+        const int s = take(kX3SlotBytes);
+        char* base = sm.slot[s];
+        for (int hl = 0; hl < 2; ++hl) {
+          tma_load_4d(base + 2 * hl * kX3Box, a, &sm.full[s], 32 * c, m0, bh, hl);
+          tma_load_4d(base + (4 + hl) * kX3Box, b, &sm.full[s], 32 * c, n0, bh, hl);
+        }
+      }
+    }
+    for (int o = 0; o < OC; ++o) {
+      const int s = take(4 * kX3Box);
+      char* base = sm.slot[s];
+      for (int hl = 0; hl < 2; ++hl)
+        for (int bx = 0; bx < 2; ++bx)
+          tma_load_4d(base + (2 * hl + bx) * kX3Box, u_map, &sm.full[s], n0 + 32 * bx, 64 * o,
+                      bh, hl);
+    }
+  }
+}
+
+// A consumer warpgroup's walk over the ring: one unit at a time, each
+// unit's wgmmas one commit group; a slot is freed once the group after its
+// own has been issued and the one before has completed.
+struct X3Ring {
+  int u = 0, pending = -1;
+  __device__ int acquire(uint64_t* full) {
+    const int s = u % kX3Slots;
+    mbar_wait(&full[s], (u / kX3Slots) & 1);
+    ++u;
+    return s;
+  }
+  __device__ void release(uint64_t* empty, int s, int lane) {
+    if (s < 0) return;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // one arrival per consumer warp
+  }
+  __device__ void retire(uint64_t* empty, int s, int lane) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(empty, pending, lane);
+    pending = s;
+  }
+  __device__ void drain(uint64_t* empty, int lane) {
+    wgmma_wait<0>();
+    release(empty, pending, lane);
+    pending = -1;
+  }
+};
+
+// A . B^T over the head dim, this warpgroup's 64 A rows (box cw of each
+// unit) against the unit's 64 B rows: ncs units of 32 columns, ksteps (dh /
+// 8) k-steps of 8 in all, each as three passes.  With kTwo the a_hi.b_hi
+// terms sum into big and the cross terms into small (x3_finish adds them);
+// without, all three into big.  The last group is left pending.
+template <bool kTwo>
+__device__ __forceinline__ void x3_product(float (&big)[32], float (&small)[32], X3Ring& ring,
+                                           X3Smem& sm, int cw, int ncs, int ksteps, bool active,
+                                           int lane) {
+  for (int c = 0; c < ncs; ++c) {
+    const int s = ring.acquire(sm.full);
+    if (active) {
+      const uint64_t d = wgmma_desc(sm.slot[s]);  // 16-byte units: a box is kX3Box / 16
+      const uint64_t ah = d + cw * (kX3Box / 16), al = d + (2 + cw) * (kX3Box / 16);
+      const uint64_t bh = d + 4 * (kX3Box / 16), bl = d + 5 * (kX3Box / 16);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * c + j < ksteps) {  // past dh the chunk is TMA's zeros
+          if constexpr (kTwo) {
+            wgmma_tf32_ss_64x64(small, ah + 2 * j, bl + 2 * j, c + j > 0);
+            wgmma_tf32_ss_64x64(small, al + 2 * j, bh + 2 * j);
+          } else {
+            wgmma_tf32_ss_64x64(big, ah + 2 * j, bl + 2 * j, c + j > 0);
+            wgmma_tf32_ss_64x64(big, al + 2 * j, bh + 2 * j);
+          }
+          wgmma_tf32_ss_64x64(big, ah + 2 * j, bh + 2 * j, kTwo ? c + j > 0 : 1);
+        }
+    }
+    ring.retire(sm.empty, s, lane);
+  }
+}
+
+// The product of x3_product once its last group is done (big += small).
+template <bool kTwo>
+__device__ __forceinline__ void x3_finish(float (&big)[32], float (&small)[32], X3Ring& ring,
+                                          X3Smem& sm, int lane) {
+  ring.drain(sm.empty, lane);
+  fence_regs(big);
+  if constexpr (kTwo) {
+    fence_regs(small);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) big[e] += small[e];
+  }
+}
+
+// A 64 x 64 fp32 accumulator (P, dS or their transposes) as the hi and lo
+// tf32 tiles of an update's A operand: two boxes of 32 columns each,
+// 128-byte rows under the 128-byte swizzle, as TMA would write them.  The
+// caller brackets it with barriers: before, every reader of the last tile
+// is past its update; after, the tile is whole.
+__device__ __forceinline__ void x3_stage_a(const float (&x)[32], char* pa, int warp, int lane) {
+  const int c = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + lane / 4 + 8 * h;
+      const float v0 = x[4 * j + 2 * h], v1 = x[4 * j + 2 * h + 1];
+      const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
+      const uint32_t l0 = tf32_rna(v0 - __uint_as_float(h0)), l1 = tf32_rna(v1 - __uint_as_float(h1));
+      // columns 8j + 2c, +1: box j / 4, byte 32 (j % 4) + 8c of the row
+      const uint32_t at = (j / 4) * kX3Box + swizzle128(row, 2 * (j % 4) + c / 2) + 8 * (c % 2);
+      *reinterpret_cast<uint2*>(pa + at) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(pa + 2 * kX3Box + at) = make_uint2(l0, l1);
+    }
+  fence_proxy_async();
+}
+
+// Element e of this thread's 64 x 64 accumulator as staged by x3_stage_a
+// (hi + lo, within 2^-22 of the value staged).
+__device__ __forceinline__ float x3_staged(const char* pa, int e, int warp, int lane) {
+  const int j = e / 4, c = lane % 4, row = 16 * warp + lane / 4 + 8 * ((e >> 1) & 1);
+  const uint32_t at =
+      (j / 4) * kX3Box + swizzle128(row, 2 * (j % 4) + c / 2) + 8 * (c % 2) + 4 * (e & 1);
+  return *reinterpret_cast<const float*>(pa + at) +
+         *reinterpret_cast<const float*>(pa + 2 * kX3Box + at);
+}
+
+// acc += X . Bt over one update unit: X this warpgroup's staged A tile
+// (x3_stage_a); Bt 64 columns of the transposed operand over the tile's 64
+// keys (or rows), two boxes of 32 along K.  The x_hi.b_hi terms and the
+// two cross terms sum into fresh accumulators, which join acc by fp32 adds:
+// apart with kTwo, else all three in one.  The unit is drained before its
+// slot is freed.
+template <bool kTwo>
+__device__ __forceinline__ void x3_update(float (&acc)[32], const char* pa, X3Ring& ring,
+                                          X3Smem& sm, bool active, int lane) {
+  const int s = ring.acquire(sm.full);
+  if (active) {
+    // descriptors step in 16-byte units: a box is kX3Box / 16, a k-step 2
+    const uint64_t a = wgmma_desc(pa), b = wgmma_desc(sm.slot[s]);
+    constexpr int kLo = 2 * kX3Box / 16;
+    if constexpr (kTwo) {
+      float big[32], small[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int off = (kk / 4) * (kX3Box / 16) + 2 * (kk % 4);
+        wgmma_tf32_ss_64x64(small, a + kLo + off, b + off, kk > 0);
+        wgmma_tf32_ss_64x64(small, a + off, b + kLo + off);
+        wgmma_tf32_ss_64x64(big, a + off, b + off, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(big);
+      fence_regs(small);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] += big[e] + small[e];
+    } else {
+      float part[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int off = (kk / 4) * (kX3Box / 16) + 2 * (kk % 4);
+        wgmma_tf32_ss_64x64(part, a + kLo + off, b + off, kk > 0);
+        wgmma_tf32_ss_64x64(part, a + off, b + kLo + off);
+        wgmma_tf32_ss_64x64(part, a + off, b + off);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] += part[e];
+    }
+  }
+  ring.release(sm.empty, s, lane);
+}
+
+// The kernels' common start: barriers, then the producer warpgroup (one
+// thread issuing every load) and the consumers part, with their registers.
+__device__ __forceinline__ bool x3_start(X3Smem& sm) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kX3Slots; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    warpgroup_reg_dealloc<kX3ProducerRegs>();
+    return true;
+  }
+  warpgroup_reg_alloc<kX3ConsumerRegs>();
+  return false;
+}
+
+// forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
+template <int OC>
+__global__ void __launch_bounds__(kX3Threads, 1)
+flash_fwd_x3_kernel(const __grid_constant__ X3Maps maps, float* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh, int causal,
+                    int window, float scale) {
+  constexpr bool kTwo = x3_two_products(OC), kTwoU = x3_two_updates(OC);
+  extern __shared__ char smem_raw[];
+  X3Smem& sm = smem_layout<X3Smem>(smem_raw);
+  const int G = Hq / Hkv, R = Sq * G;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * kBlockRows;
+  const int bh = blockIdx.x;
+  const GroupRows rows{bh / Hkv, bh % Hkv, G, Sq, Hq, dh};
+  const X3Walk walk = x3_key_walk(r0, Sq, Sk, G, causal, window);
+  const int t_first = walk.first, n_tiles = walk.n;
+  const int ncs = (dh + 31) / 32;
+
+  if (x3_start(sm)) {
+    if (threadIdx.x == 0)
+      x3_produce(sm, maps, &maps.u, n_tiles, t_first, ncs, 0, OC, r0, bh);
+    return;
+  }
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int rw0 = r0 + cw * 64;  // this warpgroup's first row
+  const int r_lo = rw0 + 16 * warp + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+  const int pos[2] = {rows.pos(r_lo), rows.pos(r_lo + 8)};
+  const int wp_lo = rows.pos(rw0), wp_hi = rows.pos(max(rw0, min(R, rw0 + 64) - 1));
+  const int col = 2 * (lane % 4);
+  const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
+  char* pa = sm.pa[cw];
+
+  float oacc[OC][32];
+#pragma unroll
+  for (int c = 0; c < OC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  X3Ring ring;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = (t_first + i) * 64;
+    const bool active = rw0 < R && !tile_invisible(t0, 64, wp_lo, wp_hi, Sk, causal, window);
+    float sacc[32], small[32];  // S = Q . K^T, 64 rows x 64 keys
+    x3_product<kTwo>(sacc, small, ring, sm, cw, ncs, dh / 8, active, lane);
+    x3_finish<kTwo>(sacc, small, ring, sm, lane);
+    if (active) {
+      if (tile_needs_mask(t0, 64, wp_lo, wp_hi, Sk, causal, window)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int key = t0 + 8 * (e / 4) + col + (e & 1);
+          if (!visible(key, pos[(e >> 1) & 1], Sk, causal, window)) sacc[e] = -INFINITY;
+        }
+      }
+      // online softmax over the quad's rows
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float m_new = fmaxf(m_run[x], quad_max(mx[x]) * sc);
+        // rows that have seen no visible key keep m = -inf, l = 0, O = 0
+        m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[x] = fast_exp2(m_run[x] - m_use[x]);
+        m_run[x] = m_new;
+        l_run[x] *= alpha[x];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int x = (e >> 1) & 1;
+        const float p = fast_exp2(sacc[e] * sc - m_use[x]);
+        l_run[x] += p;
+        sacc[e] = p;
+      }
+#pragma unroll
+      for (int c = 0; c < OC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
+      named_barrier(1 + cw, 128);  // every warp is past the last tile's update
+      x3_stage_a(sacc, pa, warp, lane);  // P
+      named_barrier(1 + cw, 128);
+    }
+#pragma unroll
+    for (int c = 0; c < OC; ++c) x3_update<kTwoU>(oacc[c], pa, ring, sm, active, lane);
+  }
+
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const float l = quad_sum(l_run[x]);
+    const int r = r_lo + 8 * x;
+    if (r >= R) continue;  // rows past Sq write nothing
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const size_t off = rows.offset(r);
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = 64 * c + 8 * j + col;
+        if (cc < dh)
+          *reinterpret_cast<float2*>(o + off + cc) =
+              make_float2(oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
+      }
+    if (lane % 4 == 0) lse[rows.lse_index(r)] = l > 0.f ? (m_run[x] + log2f(l)) * kLn2 : -INFINITY;
+  }
+}
+
+// backward, dQ: one chunk of a row block's key walk, its partial sum into
+// dq_part [chunks][B*Hkv][Sq*G][dh] (unscaled).  lse2 and delta are the
+// split's per-row stats ([B*Hkv][R64]).  grid: (B*Hkv, ceil(Sq*G / 128) *
+// chunks), heaviest row blocks first.
+template <int OC>
+__global__ void __launch_bounds__(kX3Threads, 1)
+flash_bwd_dq_x3_kernel(const __grid_constant__ X3Maps maps, const float* __restrict__ lse2,
+                       const float* __restrict__ delta, float* __restrict__ dq_part, int Sq,
+                       int Sk, int Hq, int Hkv, int dh, int causal, int window, float scale,
+                       int R64, int chunks) {
+  constexpr bool kTwo = x3_two_products(OC), kTwoU = x3_two_updates(OC);
+  extern __shared__ char smem_raw[];
+  X3Smem& sm = smem_layout<X3Smem>(smem_raw);
+  const int G = Hq / Hkv, R = Sq * G;
+  const int n_blocks = (R + kBlockRows - 1) / kBlockRows;
+  const int rb = blockIdx.y / chunks, chunk = blockIdx.y % chunks;
+  const int r0 = (causal ? n_blocks - 1 - rb : rb) * kBlockRows;
+  const int bh = blockIdx.x;
+  const GroupRows rows{bh / Hkv, bh % Hkv, G, Sq, Hq, dh};
+  const X3Walk walk = x3_key_walk(r0, Sq, Sk, G, causal, window);
+  if (chunk >= x3_chunks(walk.n)) return;
+  const int t_first = walk.first + chunk * kX3Chunk;
+  const int n_tiles = imin(kX3Chunk, walk.n - chunk * kX3Chunk);
+  const int ncs = (dh + 31) / 32;
+
+  if (x3_start(sm)) {
+    if (threadIdx.x == 0) x3_produce(sm, maps, &maps.u, n_tiles, t_first, ncs, 1, OC, r0, bh);
+    return;
+  }
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int rw0 = r0 + cw * 64;  // this warpgroup's first row
+  const int r_lo = rw0 + 16 * warp + lane / 4;
+  const int pos[2] = {rows.pos(r_lo), rows.pos(r_lo + 8)};
+  const int wp_lo = rows.pos(rw0), wp_hi = rows.pos(max(rw0, min(R, rw0 + 64) - 1));
+  const int col = 2 * (lane % 4);
+  const float sc = scale * kLog2e;
+  char* pa = sm.pa[cw];
+  float L[2], D[2];  // lse * log2(e) and D of this thread's two rows
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = r_lo + 8 * x;
+    L[x] = r < R ? lse2[(size_t)bh * R64 + r] : 0.f;
+    D[x] = r < R ? delta[(size_t)bh * R64 + r] : 0.f;
+  }
+
+  float dqacc[OC][32];
+#pragma unroll
+  for (int c = 0; c < OC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dqacc[c][e] = 0.f;
+  X3Ring ring;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = (t_first + i) * 64;
+    const bool active = rw0 < R && !tile_invisible(t0, 64, wp_lo, wp_hi, Sk, causal, window);
+    // S = Q . K^T, then P, staged; then dP = dO . V^T in the same registers
+    // (one product beside the dQ accumulator at a time) and dS from the
+    // staged P
+    float prod[32], small[32];
+    x3_product<kTwo>(prod, small, ring, sm, cw, ncs, dh / 8, active, lane);
+    x3_finish<kTwo>(prod, small, ring, sm, lane);
+    named_barrier(1 + cw, 128);  // every warp is past the last tile's update
+    if (active) {
+      const bool masked = tile_needs_mask(t0, 64, wp_lo, wp_hi, Sk, causal, window);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int x = (e >> 1) & 1;
+        const int key = t0 + 8 * (e / 4) + col + (e & 1);
+        const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
+        prod[e] = ok ? fast_exp2(prod[e] * sc - L[x]) : 0.f;  // P
+      }
+      x3_stage_a(prod, pa, warp, lane);
+    }
+    x3_product<kTwo>(prod, small, ring, sm, cw, ncs, dh / 8, active, lane);
+    x3_finish<kTwo>(prod, small, ring, sm, lane);
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        prod[e] = x3_staged(pa, e, warp, lane) * (prod[e] - D[(e >> 1) & 1]);  // dS
+      x3_stage_a(prod, pa, warp, lane);
+    }
+    named_barrier(1 + cw, 128);
+#pragma unroll
+    for (int c = 0; c < OC; ++c) x3_update<kTwoU>(dqacc[c], pa, ring, sm, active, lane);
+  }
+
+  float* out = dq_part + ((size_t)chunk * gridDim.x + bh) * R * dh;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = r_lo + 8 * x;
+    if (r >= R) continue;
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = 64 * c + 8 * j + col;
+        if (cc < dh)
+          *reinterpret_cast<float2*>(out + (size_t)r * dh + cc) =
+              make_float2(dqacc[c][4 * j + 2 * x], dqacc[c][4 * j + 2 * x + 1]);
+      }
+  }
+}
+
+// backward, dK (blockIdx.z 1) or dV (0): one chunk of a key block's row
+// walk, its partial sum into dk_part or dv_part [chunks][B*Hkv][Sk][dh]
+// (unscaled).  Keys are the M dimension: S^T = K . Q^T (and, for dK, dP^T =
+// V . dO^T), then dV += P^T . dO or dK += dS^T . Q from the transposed dO
+// or Q.  grid: (B*Hkv, ceil(Sk / 128) * chunks, 2); the first key blocks,
+// which see the most rows under causal, launch first.
+template <int OC>
+__global__ void __launch_bounds__(kX3Threads, 1)
+flash_bwd_dkdv_x3_kernel(const __grid_constant__ X3Maps maps, const float* __restrict__ lse2,
+                         const float* __restrict__ delta, float* __restrict__ dk_part,
+                         float* __restrict__ dv_part, int Sq, int Sk, int Hq, int Hkv, int dh,
+                         int causal, int window, float scale, int R64, int chunks) {
+  constexpr bool kTwo = x3_two_products(OC), kTwoU = x3_two_updates(OC);
+  extern __shared__ char smem_raw[];
+  X3Smem& sm = smem_layout<X3Smem>(smem_raw);
+  const int G = Hq / Hkv, R = Sq * G;
+  const int want_dk = blockIdx.z;
+  const int chunk = blockIdx.y % chunks;
+  const int k0 = blockIdx.y / chunks * kBlockRows;
+  const int bh = blockIdx.x;
+  const GroupRows rows{bh / Hkv, bh % Hkv, G, Sq, Hq, dh};
+  const X3Walk walk = x3_row_walk(k0, Sq, Sk, G, causal, window);
+  if (chunk >= x3_chunks(walk.n)) return;
+  const int row_first = (walk.first + chunk * kX3Chunk) * 64;
+  const int n_tiles = imin(kX3Chunk, walk.n - chunk * kX3Chunk);
+  const int ncs = (dh + 31) / 32;
+
+  if (x3_start(sm)) {
+    if (threadIdx.x == 0)
+      x3_produce(sm, maps, want_dk ? &maps.u2 : &maps.u, n_tiles, row_first / 64, ncs, want_dk,
+                 OC, k0, bh);
+    return;
+  }
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int kw0 = k0 + cw * 64;  // this warpgroup's first key
+  const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+  const int col = 2 * (lane % 4);
+  const float sc = scale * kLog2e;
+  char* pa = sm.pa[cw];
+
+  float acc[OC][32];  // dK or dV of this thread's keys
+#pragma unroll
+  for (int c = 0; c < OC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  X3Ring ring;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int rt0 = row_first + i * 64;
+    const int tp_lo = rows.pos(rt0), tp_hi = rows.pos(min(R, rt0 + 64) - 1);
+    // the tile's rows against this warpgroup's keys, with rows and keys
+    // swapped in the tests of tile_invisible and tile_needs_mask
+    const int kw_last = min(Sk, kw0 + 64) - 1;
+    const bool active = !(kw0 >= Sk || (causal && tp_hi < kw0) ||
+                          (window > 0 && kw_last <= tp_lo - window));
+    const float* l2 = lse2 + (size_t)bh * R64 + rt0;  // the tile's rows (R64 covers them)
+    const float* dl = delta + (size_t)bh * R64 + rt0;
+    // S^T, then P^T, staged; for dK then dP^T in the same registers and dS^T
+    // from the staged P^T, as in the dQ kernel
+    float prod[32], small[32];
+    x3_product<kTwo>(prod, small, ring, sm, cw, ncs, dh / 8, active, lane);
+    x3_finish<kTwo>(prod, small, ring, sm, lane);
+    named_barrier(1 + cw, 128);  // every warp is past the last tile's update
+    if (active) {
+      const bool masked = rt0 + 64 > R || kw0 + 64 > Sk || (causal && tp_lo < kw0 + 63) ||
+                          (window > 0 && tp_hi - window + 1 > kw0);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+        const int r = rt0 + rl;
+        const int key = key_lo + 8 * ((e >> 1) & 1);
+        const bool ok = !masked || (r < R && visible(key, rows.pos(r), Sk, causal, window));
+        prod[e] = ok ? fast_exp2(prod[e] * sc - l2[rl]) : 0.f;  // P^T
+      }
+      x3_stage_a(prod, pa, warp, lane);
+    }
+    if (want_dk) {
+      x3_product<kTwo>(prod, small, ring, sm, cw, ncs, dh / 8, active, lane);
+      x3_finish<kTwo>(prod, small, ring, sm, lane);
+      if (active) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)  // dS^T
+          prod[e] = x3_staged(pa, e, warp, lane) * (prod[e] - dl[8 * (e / 4) + col + (e & 1)]);
+        x3_stage_a(prod, pa, warp, lane);
+      }
+    }
+    named_barrier(1 + cw, 128);
+#pragma unroll
+    for (int c = 0; c < OC; ++c) x3_update<kTwoU>(acc[c], pa, ring, sm, active, lane);
+  }
+
+  float* out = (want_dk ? dk_part : dv_part) + ((size_t)chunk * gridDim.x + bh) * Sk * dh;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int key = key_lo + 8 * x;
+    if (key >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = 64 * c + 8 * j + col;
+        if (cc < dh)
+          *reinterpret_cast<float2*>(out + (size_t)key * dh + cc) =
+              make_float2(acc[c][4 * j + 2 * x], acc[c][4 * j + 2 * x + 1]);
+      }
+  }
+}
+
+// The backward's partial sums added in chunk order, scaled, into dq
+// [B,Sq,Hq,dh] (rows r of the rows layout) and dk, dv [B,Sk,Hkv,dh]: one
+// thread per 4 values.
+__global__ void __launch_bounds__(256)
+flash_x3_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dk_part,
+                       const float* __restrict__ dv_part, float* __restrict__ dq,
+                       float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int Hq,
+                       int Hkv, int dh, int causal, int window, float scale) {
+  const int G = Hq / Hkv, R = Sq * G, BH = gridDim.y;
+  const int bh = blockIdx.y;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const long long nq = (long long)R * dh, nk = (long long)Sk * dh;
+  const GroupRows rows{bh / Hkv, bh % Hkv, G, Sq, Hq, dh};
+  if (i < nq) {  // dq
+    const int r = (int)(i / dh), d = (int)(i % dh);
+    const int rb0 = r / kBlockRows * kBlockRows;
+    const int n = x3_chunks(x3_key_walk(rb0, Sq, Sk, G, causal, window).n);
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < n; ++c) {
+      const float4 p = *reinterpret_cast<const float4*>(dq_part + ((size_t)c * BH + bh) * nq + i);
+      t.x += p.x; t.y += p.y; t.z += p.z; t.w += p.w;
+    }
+    *reinterpret_cast<float4*>(dq + rows.offset(r) + d) =
+        make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale);
+  }
+  if (i < nk) {  // dk and dv
+    const int key = (int)(i / dh), d = (int)(i % dh);
+    const int kb0 = key / kBlockRows * kBlockRows;
+    const int n = x3_chunks(x3_row_walk(kb0, Sq, Sk, G, causal, window).n);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    for (int c = 0; c < n; ++c) {
+      const size_t at = ((size_t)c * BH + bh) * nk + i;
+      const float4 p = *reinterpret_cast<const float4*>(dk_part + at);
+      const float4 q = *reinterpret_cast<const float4*>(dv_part + at);
+      a.x += p.x; a.y += p.y; a.z += p.z; a.w += p.w;
+      b.x += q.x; b.y += q.y; b.z += q.z; b.w += q.w;
+    }
+    const size_t off = (((size_t)rows.b * Sk + key) * Hkv + rows.kvh) * dh + d;
+    *reinterpret_cast<float4*>(dk + off) = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+    *reinterpret_cast<float4*>(dv + off) = b;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------
 struct Shape {
@@ -1767,88 +2102,11 @@ struct Shape {
   float scale;
 };
 
-// rows (or keys) per thread: fewer as dh grows, so accumulators stay in registers
-constexpr int fwd_tm(int dpt) { return dpt <= 16 ? 4 : 2; }
-constexpr int dkdv_tm(int dpt) { return dpt <= 8 ? 4 : dpt <= 16 ? 2 : 1; }
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
-
-template <typename T, int DPT>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                       const Shape& s, cudaStream_t st) {
-  constexpr int TM = fwd_tm(DPT);
-  constexpr int R = kRowGroups * TM;
-  const int ld = s.dh + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)R * ld + 2 * (size_t)kKeyTile * ld + (size_t)R * (kKeyTile + 1));
-  auto kern = flash_fwd_kernel<T, TM, DPT>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const int G = s.Hq / s.Hkv;
-  dim3 grid((s.Sq * G + R - 1) / R, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<T*>(o), lse, s.Sq,
-                                     s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int DPT>
-cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const float* lse, void* dk, void* dv, const Shape& s,
-                        cudaStream_t st) {
-  constexpr int TM = dkdv_tm(DPT);
-  constexpr int TKB = kRowGroups * TM;
-  constexpr int RB = kRowTileBwd;
-  const int ld = s.dh + 1;
-  const size_t smem = sizeof(float) * (2 * (size_t)TKB * ld + 2 * (size_t)RB * ld +
-                                       2 * (size_t)RB * (TKB + 1) + 2 * (size_t)RB);
-  auto kern = flash_bwd_dkdv_kernel<T, TM, DPT>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.Sk + TKB - 1) / TKB, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-      static_cast<T*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int DPT>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, void* dq, const Shape& s,
-                      cudaStream_t st) {
-  constexpr int TM = fwd_tm(DPT);
-  constexpr int R = kRowGroups * TM;
-  const int ld = s.dh + 1;
-  const size_t smem = sizeof(float) * (2 * (size_t)R * ld + 2 * (size_t)kKeyTile * ld +
-                                       (size_t)R * (kKeyTile + 1) + 2 * (size_t)R);
-  auto kern = flash_bwd_dq_kernel<T, TM, DPT>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const int G = s.Hq / s.Hkv;
-  dim3 grid((s.Sq * G + R - 1) / R, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), s.Sq,
-      s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
-  return cudaGetLastError();
-}
-
-// head-dim columns per thread (dh / 8), rounded up to the compiled bucket
-#define FLASH_DISPATCH_DPT(dh, F, T, ...)                       \
-  do {                                                          \
-    const int dpt_ = (dh) / kColGroups;                         \
-    if (dpt_ <= 1) return F<T, 1>(__VA_ARGS__);                 \
-    if (dpt_ <= 2) return F<T, 2>(__VA_ARGS__);                 \
-    if (dpt_ <= 4) return F<T, 4>(__VA_ARGS__);                 \
-    if (dpt_ <= 8) return F<T, 8>(__VA_ARGS__);                 \
-    if (dpt_ <= 16) return F<T, 16>(__VA_ARGS__);               \
-    return F<T, 32>(__VA_ARGS__);                               \
-  } while (0)
 
 // bf16: the tensor-core kernels, with tiles of 64 (32 when dh > 128)
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -1894,24 +2152,6 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
       s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o, float* lse,
-                      const Shape& s, cudaStream_t st) {
-  FLASH_DISPATCH_DPT(s.dh, launch_fwd, T, q, k, v, o, lse, s, st);
-}
-template <typename T>
-cudaError_t dkdv_typed(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, void* dk, void* dv, const Shape& s,
-                       cudaStream_t st) {
-  FLASH_DISPATCH_DPT(s.dh, launch_dkdv, T, q, k, v, o, dout, lse, dk, dv, s, st);
-}
-template <typename T>
-cudaError_t dq_typed(const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const float* lse, void* dq, const Shape& s,
-                     cudaStream_t st) {
-  FLASH_DISPATCH_DPT(s.dh, launch_dq, T, q, k, v, o, dout, lse, dq, s, st);
 }
 
 // bf16 through wgmma: tensor maps, shared memory and grids
@@ -1987,10 +2227,170 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-// The variants: 0 the fp32 FMA kernels, 1 the bf16 WMMA kernels, 2 the bf16
-// wgmma kernels.  The wrapper's variant() chooses one from the shape; a
+// fp32 through tf32x3: the split's scratch, tensor maps and grids
+static_assert(sizeof(X3Smem) + 1024 <= kSmemPerBlock, "tf32x3 layout over 227 KB");
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The scratch of one call, carved from `base` (sizes only when base is null),
+// in floats: the rows tensors [2][B*Hkv][rows][dh] of q, dout, k (and v in
+// the backward), the transposed [2][B*Hkv][dh][Np] of v (forward) or of q,
+// dout and k (backward), Np the rows rounded up to 8, and the backward's
+// per-row lse2 and delta [B*Hkv][R64] and its partial sums of dq
+// [chunks][B*Hkv][rows][dh] and of dk and dv [chunks][B*Hkv][Sk][dh].  Every part starts 16-byte aligned
+// (dh and Np are multiples of 8), as TMA needs.
+// the most chunks a row block's key walk (q) or a key block's row walk (kv)
+// is cut into (X3Walk)
+int x3_q_chunks(const Shape& s) {
+  const int G = s.Hq / s.Hkv;
+  int most = 1;
+  for (int r0 = 0; r0 < s.Sq * G; r0 += kBlockRows)
+    most = imax(most, x3_chunks(x3_key_walk(r0, s.Sq, s.Sk, G, s.causal, s.window).n));
+  return most;
+}
+int x3_kv_chunks(const Shape& s) {
+  const int G = s.Hq / s.Hkv;
+  int most = 1;
+  for (int k0 = 0; k0 < s.Sk; k0 += kBlockRows)
+    most = imax(most, x3_chunks(x3_row_walk(k0, s.Sq, s.Sk, G, s.causal, s.window).n));
+  return most;
+}
+
+struct X3Work {
+  float *qr = nullptr, *qt = nullptr, *dor = nullptr, *dot = nullptr, *kr = nullptr,
+        *kt = nullptr, *vr = nullptr, *vt = nullptr, *lse2 = nullptr, *delta = nullptr,
+        *dq_part = nullptr, *dk_part = nullptr, *dv_part = nullptr;
+  size_t floats = 0;
+  X3Work(const Shape& s, float* base, bool backward) {
+    const size_t BH = (size_t)s.B * s.Hkv, R = (size_t)s.Sq * (s.Hq / s.Hkv), dh = s.dh;
+    const size_t rows_q = 2 * BH * R * dh, rows_k = 2 * BH * s.Sk * dh;
+    const size_t cols_q = 2 * BH * dh * round_up((int)R, 8), cols_k = 2 * BH * dh * round_up(s.Sk, 8);
+    auto take = [&](float*& p, size_t n) {
+      p = base == nullptr ? nullptr : base + floats;
+      floats += n;
+    };
+    take(qr, rows_q);
+    take(kr, rows_k);
+    if (!backward) {
+      take(vt, cols_k);
+      return;
+    }
+    take(qt, cols_q);
+    take(dor, rows_q);
+    take(dot, cols_q);
+    take(kt, cols_k);
+    take(vr, rows_k);
+    take(lse2, BH * round_up((int)R, 64));
+    take(delta, BH * round_up((int)R, 64));
+    take(dq_part, x3_q_chunks(s) * BH * R * dh);
+    take(dk_part, x3_kv_chunks(s) * BH * s.Sk * dh);
+    take(dv_part, x3_kv_chunks(s) * BH * s.Sk * dh);
+  }
+};
+
+// x [B,S,H,dh] into hi/lo rows (if rows) and transposed (if cols, Np wide)
+cudaError_t x3_split(const void* x, int S, int H, float* rows, float* cols, int Np, const Shape& s,
+                     cudaStream_t st) {
+  const int R = S * (H / s.Hkv);
+  const dim3 grid(((R > Np ? R : Np) + 31) / 32, (s.dh + 31) / 32, s.B * s.Hkv);
+  flash_x3_split_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x), rows, cols, S, H,
+                                               s.Hkv, s.dh, Np);
+  return cudaGetLastError();
+}
+
+// maps over a rows tensor (boxes of `box_rows` rows of 32 columns) and over a
+// transposed one (boxes of 64 head columns of 32 rows)
+bool x3_rows_map(CUtensorMap* m, const float* p, int dh, int rows, const Shape& s, int box_rows) {
+  return make_map_f32_4d(m, p, dh, rows, (uint64_t)s.B * s.Hkv, 2, box_rows);
+}
+bool x3_cols_map(CUtensorMap* m, const float* p, int Np, const Shape& s) {
+  return make_map_f32_4d(m, p, Np, s.dh, (uint64_t)s.B * s.Hkv, 2, 64);
+}
+
+template <int OC>
+cudaError_t launch_fwd_x3(const void* q, const void* k, const void* v, void* o, float* lse,
+                          void* work, const Shape& s, cudaStream_t st) {
+  const int G = s.Hq / s.Hkv, R = s.Sq * G, Skp = round_up(s.Sk, 8);
+  const X3Work w(s, static_cast<float*>(work), false);
+  cudaError_t e = x3_split(q, s.Sq, s.Hq, w.qr, nullptr, R, s, st);
+  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, w.kr, nullptr, s.Sk, s, st);
+  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, nullptr, w.vt, Skp, s, st);
+  if (e != cudaSuccess) return e;
+  X3Maps m{};
+  if (!x3_rows_map(&m.a1, w.qr, s.dh, R, s, kBlockRows) ||
+      !x3_rows_map(&m.b1, w.kr, s.dh, s.Sk, s, 64) || !x3_cols_map(&m.u, w.vt, Skp, s))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(X3Smem) + 1024;
+  auto kern = flash_fwd_x3_kernel<OC>;
+  e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<row_grid(s, kBlockRows), kX3Threads, smem, st>>>(
+      m, static_cast<float*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+template <int OC>
+cudaError_t launch_bwd_x3(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, void* work, void* dq, void* dk,
+                          void* dv, const Shape& s, cudaStream_t st) {
+  const int G = s.Hq / s.Hkv, R = s.Sq * G, Rp = round_up(R, 8), R64 = round_up(R, 64);
+  const int Skp = round_up(s.Sk, 8), BH = s.B * s.Hkv;
+  const X3Work w(s, static_cast<float*>(work), true);
+  cudaError_t e = x3_split(q, s.Sq, s.Hq, w.qr, w.qt, Rp, s, st);
+  if (e == cudaSuccess) e = x3_split(dout, s.Sq, s.Hq, w.dor, w.dot, Rp, s, st);
+  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, w.kr, w.kt, Skp, s, st);
+  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, w.vr, nullptr, s.Sk, s, st);
+  if (e != cudaSuccess) return e;
+  const long long warps = (long long)BH * R64;
+  flash_x3_row_stats_kernel<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, w.lse2, w.delta, s.Sq,
+      s.Hq, s.Hkv, s.dh, R64, BH);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const size_t smem = sizeof(X3Smem) + 1024;
+  X3Maps m{};
+  if (!x3_rows_map(&m.a1, w.qr, s.dh, R, s, kBlockRows) ||
+      !x3_rows_map(&m.b1, w.kr, s.dh, s.Sk, s, 64) ||
+      !x3_rows_map(&m.a2, w.dor, s.dh, R, s, kBlockRows) ||
+      !x3_rows_map(&m.b2, w.vr, s.dh, s.Sk, s, 64) || !x3_cols_map(&m.u, w.kt, Skp, s))
+    return cudaErrorInvalidValue;
+  const int q_chunks = x3_q_chunks(s), kv_chunks = x3_kv_chunks(s);
+  auto dq_kern = flash_bwd_dq_x3_kernel<OC>;
+  e = allow_smem(dq_kern, smem);
+  if (e != cudaSuccess) return e;
+  dq_kern<<<dim3(BH, (R + kBlockRows - 1) / kBlockRows * q_chunks), kX3Threads, smem, st>>>(
+      m, w.lse2, w.delta, w.dq_part, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale,
+      R64, q_chunks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  if (!x3_rows_map(&m.a1, w.kr, s.dh, s.Sk, s, kBlockRows) ||
+      !x3_rows_map(&m.b1, w.qr, s.dh, R, s, 64) ||
+      !x3_rows_map(&m.a2, w.vr, s.dh, s.Sk, s, kBlockRows) ||
+      !x3_rows_map(&m.b2, w.dor, s.dh, R, s, 64) || !x3_cols_map(&m.u, w.dot, Rp, s) ||
+      !x3_cols_map(&m.u2, w.qt, Rp, s))
+    return cudaErrorInvalidValue;
+  auto kv_kern = flash_bwd_dkdv_x3_kernel<OC>;
+  e = allow_smem(kv_kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (s.Sk + kBlockRows - 1) / kBlockRows * kv_chunks, 2);
+  kv_kern<<<grid, kX3Threads, smem, st>>>(m, w.lse2, w.delta, w.dk_part, w.dv_part, s.Sq, s.Sk,
+                                             s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale, R64,
+                                             kv_chunks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long most = (long long)(R > s.Sk ? R : s.Sk) * s.dh / 4;
+  flash_x3_reduce_kernel<<<dim3((unsigned)((most + 255) / 256), BH), 256, 0, st>>>(
+      w.dq_part, w.dk_part, w.dv_part, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
+// The variants: 0 the fp32 tf32x3 kernels, 1 the bf16 WMMA kernels, 2 the
+// bf16 wgmma kernels.  The wrapper's variant() chooses one from the shape; a
 // launch refuses a variant that cannot take the shape.
-enum Variant { kFma = 0, kWmma = 1, kWgmma = 2 };
+enum Variant { kTf32x3 = 0, kWmma = 1, kWgmma = 2 };
 
 bool bad_shape(const Shape& s) {
   return s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.Hq % s.Hkv != 0 ||
@@ -1999,12 +2399,18 @@ bool bad_shape(const Shape& s) {
 
 bool bad_variant(const Shape& s, int dtype, int variant) {
   if (bad_shape(s)) return true;
-  if (variant == kFma) return dtype != 0;
+  const int G = s.Hq / s.Hkv;
+  if (variant == kTf32x3) {
+    // the grids' second dimensions (row blocks, key blocks) and the split's third
+    const long long rows = kBlockRows;
+    return dtype != 0 || (long long)s.B * s.Hkv > 65535 ||
+           ((long long)s.Sq * G + rows - 1) / rows * x3_q_chunks(s) > 65535 ||
+           (s.Sk + rows - 1) / rows * x3_kv_chunks(s) > 65535;
+  }
   if (variant == kWmma) return dtype != 1;
   if (variant != kWgmma || dtype != 1) return true;
   // whole positions per 64-row box, and the grids' second dimension (the
   // dQ kernel's row blocks are the smallest, the dK/dV kernel's key blocks)
-  const int G = s.Hq / s.Hkv;
   const int dc = wgmma_chunks(s.dh);
   const long long rows = dq_consumers(dc) * kWgRows;
   return kWgRows % G != 0 || ((long long)s.Sq * G + rows - 1) / rows > 65535 ||
@@ -2015,19 +2421,42 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
 
 // C entry points (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  variant:
 // see Variant.  causal: 0/1.  window <= 0 means no window.  lse is fp32
-// [B,Hq,Sq].  Each returns cudaGetLastError() after its launch (0 on
-// success), or cudaErrorInvalidValue for a shape or variant it refuses.
+// [B,Hq,Sq].  work is fp32 scratch of flash_attention_work_floats() floats
+// (null where that is 0).  Each returns cudaGetLastError() after its
+// launches (0 on success), or cudaErrorInvalidValue for a shape or variant
+// it refuses.
+
+// Floats of scratch a call needs: the tf32x3 split's operands and row stats,
+// the wgmma backward's delta [B,Hq,Sq]; 0 otherwise.
+extern "C" long long flash_attention_work_floats(int B, int Sq, int Sk, int Hq, int Hkv, int dh,
+                                                 int causal, int window, int variant,
+                                                 int backward) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return 0;
+  if (variant == kTf32x3) {
+    const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, 0.f};
+    return (long long)X3Work(s, nullptr, backward != 0).floats;
+  }
+  if (variant == kWgmma && backward) return (long long)B * Hq * Sq;
+  return 0;
+}
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* lse, int B, int Sq, int Sk, int Hq, int Hkv, int dh,
-                                   int causal, int window, float scale, int dtype, int variant,
-                                   void* stream) {
+                                   void* lse, void* work, int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int dh, int causal, int window, float scale, int dtype,
+                                   int variant, void* stream) {
   const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (variant == kFma) return (int)fwd_typed<float>(q, k, v, o, l, s, st);
   if (variant == kWmma) return (int)launch_fwd_tc(q, k, v, o, l, s, st);
+  if (variant == kTf32x3) {
+    switch ((dh + 63) / 64) {
+      case 1: return (int)launch_fwd_x3<1>(q, k, v, o, l, work, s, st);
+      case 2: return (int)launch_fwd_x3<2>(q, k, v, o, l, work, s, st);
+      case 3: return (int)launch_fwd_x3<3>(q, k, v, o, l, work, s, st);
+      default: return (int)launch_fwd_x3<4>(q, k, v, o, l, work, s, st);
+    }
+  }
   switch (wgmma_chunks(dh)) {
     case 1: return (int)launch_fwd_wgmma<1>(q, k, v, o, l, s, st);
     case 2: return (int)launch_fwd_wgmma<2>(q, k, v, o, l, s, st);
@@ -2036,11 +2465,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   }
 }
 
-// Both backward kernels: dK/dV then dQ (fma, wmma), or dQ, which also writes
-// delta (fp32 [B,Hq,Sq] scratch, used by the wgmma variant alone), then
-// dK/dV (wgmma).
+// Both backward kernels: dK/dV then dQ (wmma); the split, then dQ, then
+// dK/dV (tf32x3); or dQ, which also writes delta into work, then dK/dV
+// (wgmma).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   const void* dout, const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
                                    int dh, int causal, int window, float scale, int dtype,
                                    int variant, void* stream) {
@@ -2048,16 +2477,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
-  cudaError_t e;
-  if (variant == kFma) {
-    e = dkdv_typed<float>(q, k, v, o, dout, l, dk, dv, s, st);
-    return (int)(e != cudaSuccess ? e : dq_typed<float>(q, k, v, o, dout, l, dq, s, st));
-  }
   if (variant == kWmma) {
-    e = launch_dkdv_tc(q, k, v, o, dout, l, dk, dv, s, st);
+    const cudaError_t e = launch_dkdv_tc(q, k, v, o, dout, l, dk, dv, s, st);
     return (int)(e != cudaSuccess ? e : launch_dq_tc(q, k, v, o, dout, l, dq, s, st));
   }
-  auto d = static_cast<float*>(delta);
+  if (variant == kTf32x3) {
+    switch ((dh + 63) / 64) {
+      case 1: return (int)launch_bwd_x3<1>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+      case 2: return (int)launch_bwd_x3<2>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+      case 3: return (int)launch_bwd_x3<3>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+      default: return (int)launch_bwd_x3<4>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+    }
+  }
+  auto d = static_cast<float*>(work);
   switch (wgmma_chunks(dh)) {
     case 1: return (int)launch_bwd_wgmma<1>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
     case 2: return (int)launch_bwd_wgmma<2>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);

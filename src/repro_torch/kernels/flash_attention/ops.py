@@ -6,10 +6,14 @@ forward launches the forward kernel, which also writes the per-row
 logsumexp, and its backward launches the two backward kernels.  Which
 kernels take a shape is :func:`variant`'s choice, made from the dtype, the
 head dim and the GQA group before any launch: ``"wgmma"`` (bf16, group
-dividing 64, every head dim), ``"wmma"`` (other bf16) or ``"fma"`` (fp32).
-A tensor on the CPU goes to the plain version (:func:`attention_ref`), which
-autograd differentiates.  A CUDA tensor goes to the kernels of its variant,
-or the wrapper raises: there is no fallback.
+dividing 64, every head dim), ``"wmma"`` (other bf16) or ``"tf32x3"`` (fp32,
+every head dim and group: each fp32 product as three TF32 products on the
+tensor cores).  A tensor on the CPU goes to the plain version
+(:func:`attention_ref`), which autograd differentiates.  A CUDA tensor goes
+to the kernels of its variant, or the wrapper raises: there is no fallback.
+The wrapper allocates the scratch a call needs (the size is the library's
+``flash_attention_work_floats``): the tf32x3 split's operands, the wgmma
+backward's delta.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = ("fma", "wmma", "wgmma")  # index = the kernels' variant number
+VARIANTS = ("tf32x3", "wmma", "wgmma")  # index = the kernels' variant number
 _INTS = 8  # B, Sq, Sk, Hq, Hkv, dh, causal, window
 _fns: dict[str, object] = {}
 
@@ -34,8 +38,9 @@ _fns: dict[str, object] = {}
 def variant(dtype: torch.dtype, dh: int, G: int) -> str:
     """The kernels that take a shape: ``"wgmma"`` for bf16 with a GQA group
     G that divides 64 (the wgmma kernels' 64-row boxes hold whole
-    positions), at every head dim; ``"wmma"`` for other bf16; ``"fma"`` for
-    fp32.  Raises for what no kernel takes."""
+    positions), at every head dim; ``"wmma"`` for other bf16; ``"tf32x3"``
+    for fp32 at every head dim and every G.  Raises for what no kernel
+    takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
@@ -43,7 +48,7 @@ def variant(dtype: torch.dtype, dh: int, G: int) -> str:
     if G <= 0:
         raise ValueError(f"flash_attention: GQA group {G} must be positive")
     if dtype == torch.float32:
-        return "fma"
+        return "tf32x3"
     return "wgmma" if 64 % G == 0 else "wmma"
 
 
@@ -58,6 +63,18 @@ def _kernel(name: str, n_ptr: int):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _work(args: tuple, backward: bool, device) -> torch.Tensor | None:
+    """The fp32 scratch of one call (None where it needs none)."""
+    fn = _fns.get("work")
+    if fn is None:
+        fn = build.load("flash_attention").flash_attention_work_floats
+        fn.argtypes = [ctypes.c_int] * 10
+        fn.restype = ctypes.c_longlong
+        _fns["work"] = fn
+    n = fn(*args[:8], args[-1], int(backward))
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
@@ -113,11 +130,12 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     args, var = _shape_args(q, k, causal, window)
+    work = _work(args, False, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_fwd", 5)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *args,
-            stream,
+        err = _kernel("flash_attention_fwd", 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            None if work is None else work.data_ptr(), *args, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention {var} forward launch failed: CUDA error {err}")
@@ -133,7 +151,9 @@ def flash_attention_bwd(
     """The two backward kernels (dK/dV per key tile, dQ per row tile):
     (dq, dk, dv) in the inputs' dtype.  Counts one backward launch.  The
     wgmma variant runs dQ first, which writes D = rowsum(dO * O) once into an
-    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads."""
+    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads; the tf32x3 variant
+    first splits q, k, v and dout into its scratch and writes D and the
+    logsumexp per row there."""
     _check(q, k, v, window)
     if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
             or dout.dtype != q.dtype or not (out.is_contiguous() and dout.is_contiguous())
@@ -144,12 +164,12 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention: lse must be fp32 [B,Hq,Sq], got {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args, var = _shape_args(q, k, causal, window)
-    delta = torch.empty_like(lse) if var == "wgmma" else None
+    work = _work(args, True, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel("flash_attention_bwd", 10)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), None if delta is None else delta.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), None if work is None else work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *args, stream,
         )
     if err != 0:

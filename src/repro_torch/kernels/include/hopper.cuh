@@ -6,7 +6,7 @@
 // map without linking libcuda.
 //
 // Every shared-memory tile used here is a stack of rows of 128 bytes (64
-// bf16) under the 128-byte swizzle (written by TMA with
+// bf16, or 32 fp32 read as tf32) under the 128-byte swizzle (written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B, or chunk by chunk at swizzle128), starting on a
 // 1024-byte boundary.  The same bytes serve wgmma as a K-major operand (the
 // 64 elements of a row run along K) or as an MN-major one (they run along M
@@ -265,6 +265,43 @@ __device__ __forceinline__ void wgmma_rs_64x64(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d[64 x 64] (fp32) += A[64 x 8] . B[8 x 64], A and B tf32 (32-bit values
+// whose low 13 mantissa bits are zero) in shared memory, both K-major: a
+// row of a 128-byte swizzled tile holds 32 values, four k-steps of 32 bytes.
+// tf32 takes no transpose, so an operand that is MN-major as stored has to be
+// written transposed.  With accumulate 0, d = A . B.
+__device__ __forceinline__ void wgmma_tf32_ss_64x64(float (&d)[32], uint64_t a, uint64_t b,
+                                                    int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// x rounded to tf32 (10 explicit mantissa bits, the low 13 bits zero), to
+// nearest with ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // Two fp32 values as a bf16 pair in one register (x in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   uint32_t r;
@@ -350,6 +387,24 @@ inline bool make_map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, ui
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D fp32 tensor map over a contiguous [d3][d2][d1][d0] array, with boxes
+// of (32, box1, 1, 1) elements (one 128-byte row of 32 values a box row)
+// under the 128-byte swizzle; elements outside the array read as zeros.
+// False if cuTensorMapEncodeTiled refuses it.
+inline bool make_map_f32_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                            uint64_t d2, uint64_t d3, uint32_t box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {d0 * 4, d0 * d1 * 4, d0 * d1 * d2 * 4};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {32, box1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides, box,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

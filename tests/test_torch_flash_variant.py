@@ -24,7 +24,9 @@ def test_bf16_head_dims_above_128_take_wgmma(dh):
 
 @pytest.mark.parametrize("dh", [8, 64, 128, 136, 256])
 def test_fp32_takes_fma(dh):
-    assert variant(torch.float32, dh, 8) == "fma"
+    """fp32 takes the three-pass TF32 kernels (named for the FMA kernels
+    they replaced) at every head dim."""
+    assert variant(torch.float32, dh, 8) == "tf32x3"
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32, 64])
@@ -34,9 +36,15 @@ def test_groups_dividing_64_take_wgmma(G):
 
 @pytest.mark.parametrize("G", [3, 5, 6, 12, 128])
 def test_groups_not_dividing_64_take_wmma(G):
-    """The wgmma kernels' 64-row boxes hold whole positions of a group."""
+    """The bf16 wgmma kernels' 64-row boxes hold whole positions of a group;
+    the fp32 kernels tile the split's rows, so every group takes them."""
     assert variant(torch.bfloat16, 64, G) == "wmma"
-    assert variant(torch.float32, 64, G) == "fma"
+    assert variant(torch.float32, 64, G) == "tf32x3"
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 64, 72, 128])
+def test_fp32_takes_tf32x3_at_every_head_dim_and_group(G):
+    assert {variant(torch.float32, dh, G) for dh in range(8, 257, 8)} == {"tf32x3"}
 
 
 @pytest.mark.parametrize("dh", [136, 192, 256])
@@ -66,5 +74,5 @@ def test_cpu_tensors_count_no_launch():
     torch.testing.assert_close(out, attention_ref(q, kv, kv), atol=0, rtol=0)
     assert flash_attention.launches_fwd == flash_attention.launches_bwd == 0
     assert flash_attention.launches_by_variant == {
-        v: {"fwd": 0, "bwd": 0} for v in ("fma", "wmma", "wgmma")
+        v: {"fwd": 0, "bwd": 0} for v in ("tf32x3", "wmma", "wgmma")
     }

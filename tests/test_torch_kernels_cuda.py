@@ -462,6 +462,14 @@ WIDE_FLASH_CASES = [
     (1, 190, 6, 2, 256, True, None),
 ]
 FLASH_CASES += WIDE_FLASH_CASES
+# fp32 only: groups past one 64-row tile (G 72 and 128: the tf32x3 kernels'
+# tile is then 64 heads of one position) and G 5, which the fp32 kernels
+# take like any other group
+FP32_FLASH_CASES = [
+    (1, 70, 72, 1, 64, True, None),
+    (1, 33, 128, 1, 16, False, None),
+    (2, 150, 10, 2, 256, True, 64),
+]
 
 
 def flash_oracle(q, k, v, dout, causal, window):
@@ -475,8 +483,11 @@ def flash_oracle(q, k, v, dout, causal, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "case, dtype",
+    [(c, d) for d in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
+    + [(c, torch.float32) for c in FP32_FLASH_CASES],
+)
 def test_flash_attention_kernels_match_plain(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -526,7 +537,7 @@ def test_flash_attention_train_shape_runs_wgmma():
     by = flash_ops.flash_attention.launches_by_variant
     assert flash_ops.variant(torch.bfloat16, 64, 8) == "wgmma"
     assert by["wgmma"] == {"fwd": 1, "bwd": 1}
-    assert by["wmma"] == by["fma"] == {"fwd": 0, "bwd": 0}
+    assert by["wmma"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
 
 
 @pytest.mark.cuda
@@ -550,12 +561,17 @@ def test_flash_attention_gemma3_shape_runs_wgmma(window):
     by = flash_ops.flash_attention.launches_by_variant
     assert flash_ops.variant(torch.bfloat16, 256, 2) == "wgmma"
     assert by["wgmma"] == {"fwd": 3, "bwd": 3}
-    assert by["wmma"] == by["fma"] == {"fwd": 0, "bwd": 0}
+    assert by["wmma"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
 
 
-# (B, S, Hq, Hkv, dh): a ragged shape, the train shape, and gemma3's head
-# dim (dK/dV columns split between the two warpgroups)
-DETERMINISM_CASES = [(2, 300, 8, 2, 64), (4, 2048, 32, 4, 64), (1, 2048, 8, 4, 256)]
+# (B, S, Hq, Hkv, dh, dtype): a ragged shape, the train shape, and gemma3's
+# head dim (bf16: dK/dV columns split between the two warpgroups), in bf16;
+# the ragged shape at G 3, gemma3's global layer and the train shape in fp32
+DETERMINISM_CASES = [
+    (2, 300, 8, 2, 64, torch.bfloat16), (4, 2048, 32, 4, 64, torch.bfloat16),
+    (1, 2048, 8, 4, 256, torch.bfloat16), (2, 300, 6, 2, 64, torch.float32),
+    (1, 2048, 8, 4, 256, torch.float32), (4, 2048, 32, 4, 64, torch.float32),
+]
 
 
 @pytest.mark.cuda
@@ -563,12 +579,12 @@ DETERMINISM_CASES = [(2, 300, 8, 2, 64), (4, 2048, 32, 4, 64), (1, 2048, 8, 4, 2
 def test_flash_attention_backward_is_deterministic(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    B, S, Hq, Hkv, dh = case
+    B, S, Hq, Hkv, dh, dtype = case
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
     dout = torch.randn_like(q)
     out, lse = flash_ops.flash_attention_fwd(q, k, v)
     first = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout)
