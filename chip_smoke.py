@@ -20,13 +20,15 @@ variant's kernels, and times eager ``decode_step`` against graph replays
 from one cache state; checks an fp32 smoke engine on the card (graph
 replays; its chunks on the split variant) against the same engine on the
 CPU, token for token; prints ptxas's registers and spills for each
-``wgmma`` flash kernel; holds the flash-attention kernels (forward: out and
-logsumexp; backward: dq, dk, dv) against the plain version plus autograd at
-the training shape, gemma3-4b's local and global layers (dh 256), head dims
-192 and 136 at G 2 and 8, a dh-256 shape at G 3 (the ``wmma`` kernels),
-and smoke and ragged shapes, with their times and the variant (``wgmma``,
-``wmma`` or ``tf32x3``) that each shape takes, one full-width fp32 backward
-run twice and held equal bit for bit; trains
+``wgmma``, ``wgmma_rows`` and ``tf32x3`` flash kernel (one of the last two
+that spills fails the run); holds the flash-attention kernels (forward: out
+and logsumexp; backward: dq, dk, dv) against the plain version plus autograd
+at the training shape, gemma3-4b's local and global layers (dh 256), head
+dims 192 and 136 at G 2 and 8, groups that do not divide 64 (the
+``wgmma_rows`` kernels: a dh-256 shape at G 3, and small shapes at G 72 and
+at G 5 with dh 256), and smoke and ragged shapes, with their times and the
+variant (``wgmma``, ``wgmma_rows`` or ``tf32x3``) that each shape takes, one
+full-width fp32 backward run twice and held equal bit for bit; trains
 full-width TinyLlama-1.1B (bf16, B 4 x S 2048) for one warm-up and three
 timed steps through ``build_train_step``, counting the flash launches by
 variant (all must be ``wgmma``), and profiles one more step; trains an fp32
@@ -648,8 +650,9 @@ def phase_parity(dev) -> dict:
 # (label, B, S, Hq, Hkv, dh, causal, window): TinyLlama's train shape,
 # gemma3-4b's local (window 1024) and global layers at full width, head dims
 # of three 64-column chunks (192, and 136: mostly padding) at G 2 and 8,
-# gemma3's local layer at G 3 (a group that does not divide 64: the WMMA
-# kernels), and the smoke and ragged shapes
+# groups that do not divide 64 (the wgmma_rows kernels): gemma3's local layer
+# at G 3, G 72 (a 64-row tile is part of one position's heads) and G 5 at dh
+# 256 with a window, and the smoke and ragged shapes
 FLASH_CASES = [
     ("train", 4, 2048, 32, 4, 64, True, None),
     ("gemma3-like", 1, 2048, 8, 4, 256, True, 1024),
@@ -659,12 +662,15 @@ FLASH_CASES = [
     ("dh136 G2", 1, 2048, 8, 4, 136, True, None),
     ("dh136 G8", 1, 2048, 32, 4, 136, True, None),
     ("dh256 G3", 1, 2048, 6, 2, 256, True, 1024),
+    ("G72 S70", 1, 70, 72, 1, 64, True, None),
+    ("G5 dh256", 2, 150, 10, 2, 256, True, 64),
     ("smoke", 2, 64, 8, 2, 8, True, None),
     ("non-causal S200", 2, 200, 8, 2, 64, False, None),
 ]
 FLASH_MAIN = "train"  # the shape of every attention call of the train step
 GEMMA_LOCAL, GEMMA_GLOBAL = "gemma3-like", "gemma3 global"  # gemma3-4b's attention calls
-FLASH_WMMA = "dh256 G3"  # the one bf16 case on the WMMA kernels
+FLASH_ROWS = "dh256 G3"  # the timed bf16 case on the wgmma_rows kernels
+FLASH_ROWS_CASES = (FLASH_ROWS, "G72 S70", "G5 dh256")  # every bf16 case on them
 FLASH_BITS = "gemma3 global"  # its fp32 backward runs twice and must give equal bits
 
 
@@ -738,17 +744,22 @@ def backward_ms(out, inputs, dout, iters) -> float:
 
 
 def print_ptxas() -> None:
-    """ptxas's registers and spills for each wgmma and tf32x3 flash kernel
-    as built; a tf32x3 kernel that spills fails the run."""
+    """ptxas's registers and spills for each wgmma, wgmma_rows and tf32x3
+    flash kernel as built (mangled names: a wgmma kernel's template
+    arguments end in ``Lb0E``, a wgmma_rows kernel's in ``Lb1E``; the
+    gather pass is ``flash_rows_gather_kernel``); a tf32x3 or wgmma_rows
+    kernel that spills fails the run."""
     from repro_torch.kernels import build
 
     for row in build.ptxas_report("flash_attention"):
-        if "wgmma" in row["kernel"] or "_x3_" in row["kernel"]:
-            print(f"ptxas {row['kernel']}: registers {row['registers']} spill stores "
+        name = row["kernel"]
+        strict = "_x3_" in name or "Lb1E" in name or "rows_gather" in name
+        if strict or "wgmma" in name:
+            print(f"ptxas {name}: registers {row['registers']} spill stores "
                   f"{row['spill_stores']} B loads {row['spill_loads']} B")
-        if "_x3_" in row["kernel"]:
+        if strict:
             check(row["spill_stores"] == row["spill_loads"] == 0,
-                  f"ptxas: {row['kernel']} spills {row['spill_stores']} B")
+                  f"ptxas: {name} spills {row['spill_stores']} B")
 
 
 def phase_flash(dev) -> dict:
@@ -797,7 +808,7 @@ def phase_flash(dev) -> dict:
                                                   window=window)
             row = {"variant": ops.variant(dtype, dh, Hq // Hkv)}
             want_var = ("tf32x3" if dtype == torch.float32 else
-                        "wmma" if label == FLASH_WMMA else "wgmma")
+                        "wgmma_rows" if label in FLASH_ROWS_CASES else "wgmma")
             check(row["variant"] == want_var,
                   f"flash {label} {tname}: variant {row['variant']}, wanted {want_var}")
             for kind, fn in (("fwd", fwd), ("bwd", bwd)):
@@ -2266,9 +2277,11 @@ def main() -> int:
     ):
         r = flash["cases"][(GEMMA_LOCAL, "bfloat16")]
         g = flash["cases"][(GEMMA_GLOBAL, "bfloat16")]
-        w = flash["cases"][(FLASH_WMMA, "bfloat16")]
-        check(r["variant"] == g["variant"] == "wgmma" and min(by_path.values()) > 0,
-              f"{name}: launches {by_path}, variants {r['variant']}/{g['variant']}")
+        w = flash["cases"][(FLASH_ROWS, "bfloat16")]
+        check(r["variant"] == g["variant"] == "wgmma" and w["variant"] == "wgmma_rows"
+              and min(by_path.values()) > 0,
+              f"{name}: launches {by_path}, variants {r['variant']}/{g['variant']}/"
+              f"{w['variant']}")
         c = next(c for c in FLASH_CASES if c[0] == GEMMA_LOCAL)
         line["kernels"].append({
             "name": name,
@@ -2291,7 +2304,7 @@ def main() -> int:
                       "dh": c[5], "causal": c[6], "window": c[7], "dtype": "bfloat16"},
             "global": {k: g[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
-            "wmma_dh256_G3": {k: w[kind][k] for k in (
+            "wgmma_rows_dh256_G3": {k: w[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
         })
     f32_main = flash["cases"][(FLASH_MAIN, "float32")]

@@ -24,8 +24,12 @@
 //    O/dQ/dK/dV accumulators in registers; the tiles, ring depths and the
 //    split of the dK/dV accumulators change with the head dim; see the
 //    section below.
-//  * wmma: bf16 with G not dividing 64: mma.sync through WMMA 16x16x16
-//    tiles of 32 rows, products through shared memory.
+//  * wgmma_rows: bf16 with any other G (3, 5, 6, 72, ...), every head dim.
+//    The same kernels, fed from a copy of q (and dout) that a gather pass
+//    writes with the rows of one kv head contiguous, so that a 64-row tile
+//    needs no whole positions; their backward keeps D and the A operands of
+//    dV and dK to about 16 bits, where the many rows of a large group would
+//    add up bf16's rounding past the tolerance.  See the section below.
 //  * tf32x3: fp32, every head dim and every G.  Each fp32 product is three
 //    TF32 products on wgmma (a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, fp32 sums),
 //    which keep close to fp32's precision where one TF32 pass would round
@@ -50,32 +54,17 @@
 //    run to run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "hopper.cuh"
-#include "vec_io.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // a 16 x 8 grid of threads
-constexpr int kRowGroups = 16;
-constexpr int kColGroups = 8;
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-// reductions over the 8 lanes (tn = 0..7) that hold one row
-__device__ __forceinline__ float group8_max(float x) {
-  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group8_sum(float x) {
-  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
@@ -90,452 +79,10 @@ __device__ __forceinline__ size_t row_offset(int b, int r, int G, int kvh, int S
   return (((size_t)b * S + s) * Hq + h) * dh;
 }
 
-// D[i] = sum_d dO[r0+i, d] * O[r0+i, d] for n rows, one warp per row.
-template <typename T>
-__device__ __forceinline__ void stage_delta(float* D, const T* __restrict__ o,
-                                            const T* __restrict__ dout, int n, int r0, int Rtot,
-                                            int b, int G, int kvh, int S, int Hq, int dh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < n; i += kThreads / 32) {
-    const int r = r0 + i;
-    float acc = 0.f;
-    if (r < Rtot) {
-      const size_t off = row_offset(b, r, G, kvh, S, Hq, dh);
-      for (int d = lane; d < dh; d += 32) acc = fmaf(to_f32(dout[off + d]), to_f32(o[off + d]), acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) D[i] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync through WMMA, 16x16x16, fp32 sums)
-//
-// The same three kernels for bf16 inputs, with every tile product on the
-// tensor cores.  Tiles stay bf16 in shared memory (dh padded to a multiple of
-// 16 with zeros, so dh 8 works); each product writes or accumulates an fp32
-// tile in shared memory, and the 16 x 8 thread grid does the softmax, the
-// masks and the rescaling on those tiles as the fp32 kernels do.  S and dP
-// are exact products of the bf16 inputs summed in fp32, as above; P is
-// rounded to bf16 for P.V and dV (the cast of _flash_kernel:76), and dS is
-// rounded to bf16 for dQ and dK, as FlashAttention-2 does.  TILE is both the
-// row tile and the key tile, 32 so that tiles fit at dh 256.  These kernels
-// serve the bf16 shapes the wgmma kernels below do not take: padded dh above
-// 128, and GQA groups G that do not divide 64.
-// ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-
-constexpr int kBfPad = 8;  // bf16 row padding: ld stays a multiple of 8
-constexpr int kF32Pad = 4;  // fp32 row padding: ld stays a multiple of 4
-
 __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-constexpr int TILE = 32;  // row and key tile of the WMMA kernels
-
-// C[M x N] (fp32, row-major, ldc) = (kAccumulate ? C : 0) + A[M x K] . B[K x N]
-// on the tensor cores; A and B are bf16 in shared memory, each row- or
-// column-major.  M, N, K are multiples of 16; the block's 4 warps share the
-// 16 x 16 output tiles.
-template <typename ALayout, typename BLayout, bool kAccumulate>
-__device__ __forceinline__ void tc_gemm(float* C, int ldc, const bf16* A, int lda,
-                                        const bf16* B, int ldb, int M, int N, int K) {
-  using namespace nvcuda;
-  constexpr bool a_row = std::is_same<ALayout, wmma::row_major>::value;
-  constexpr bool b_row = std::is_same<BLayout, wmma::row_major>::value;
-  const int tiles_n = N / 16;
-  for (int t = threadIdx.x >> 5; t < (M / 16) * tiles_n; t += kThreads / 32) {
-    const int m0 = (t / tiles_n) * 16, n0 = (t % tiles_n) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (kAccumulate)
-      wmma::load_matrix_sync(acc, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-      wmma::load_matrix_sync(a, a_row ? A + m0 * lda + k0 : A + k0 * lda + m0, lda);
-      wmma::load_matrix_sync(b, b_row ? B + k0 * ldb + n0 : B + n0 * ldb + k0, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// Stage n rows from r0 of a [B,S,Hq,dh] bf16 tensor into dst[n][ld], 16 bytes
-// at a time; columns dh..dhp-1 and rows past Rtot are zeros.
-__device__ __forceinline__ void stage_rows_tc(bf16* dst, int ld, const bf16* __restrict__ src,
-                                              int n, int r0, int Rtot, int b, int G, int kvh,
-                                              int S, int Hq, int dh, int dhp) {
-  const int chunks = dhp / 8;
-  for (int idx = threadIdx.x; idx < n * chunks; idx += kThreads) {
-    const int i = idx / chunks, d = (idx - (idx / chunks) * chunks) * 8;
-    const int r = r0 + i;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < Rtot && d < dh)
-      val = *reinterpret_cast<const uint4*>(src + row_offset(b, r, G, kvh, S, Hq, dh) + d);
-    *reinterpret_cast<uint4*>(dst + i * ld + d) = val;
-  }
-}
-
-// Stage n keys from t0 of a [B,Sk,Hkv,dh] bf16 tensor into dst[n][ld].
-__device__ __forceinline__ void stage_keys_tc(bf16* dst, int ld, const bf16* __restrict__ src,
-                                              int n, int t0, int b, int kvh, int Sk, int Hkv,
-                                              int dh, int dhp) {
-  const int chunks = dhp / 8;
-  for (int idx = threadIdx.x; idx < n * chunks; idx += kThreads) {
-    const int j = idx / chunks, d = (idx - (idx / chunks) * chunks) * 8;
-    const int kp = t0 + j;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (kp < Sk && d < dh)
-      val = *reinterpret_cast<const uint4*>(src + (((size_t)b * Sk + kp) * Hkv + kvh) * dh + d);
-    *reinterpret_cast<uint4*>(dst + j * ld + d) = val;
-  }
-}
-
-// Carves consecutive 128-byte aligned buffers out of dynamic shared memory;
-// the launchers size it with the same calls on a null base.
-struct SmemCarver {
-  char* base;
-  size_t off = 0;
-  template <typename X> __host__ __device__ X* take(size_t count) {
-    X* p = reinterpret_cast<X*>(reinterpret_cast<uintptr_t>(base) + off);
-    off = align128(off + count * sizeof(X));
-    return p;
-  }
-};
-
-// forward, tensor cores.  grid: (ceil(Sq*G / TILE), B*Hkv)
-struct FwdTcSmem {
-  bf16 *Qs, *Ks, *Vs, *Ps;
-  float *Ss, *Os;
-  __host__ __device__ size_t carve(char* base, int dhp) {
-    SmemCarver c{base};
-    const int ldb = dhp + kBfPad;
-    Qs = c.take<bf16>(TILE * ldb);
-    Ks = c.take<bf16>(TILE * ldb);
-    Vs = c.take<bf16>(TILE * ldb);
-    Ss = c.take<float>(TILE * (TILE + kF32Pad));
-    Ps = c.take<bf16>(TILE * (TILE + kBfPad));
-    Os = c.take<float>(TILE * (dhp + kF32Pad));
-    return c.off;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                    int Sq, int Sk, int Hq, int Hkv, int dh, int causal, int window,
-                    float scale) {
-  using namespace nvcuda;
-  constexpr int TM = TILE / kRowGroups;  // rows per thread
-  constexpr int TN = TILE / kColGroups;  // keys per thread
-  extern __shared__ __align__(128) char smem_raw[];
-  const int dhp = pad16(dh);
-  const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  FwdTcSmem sm;
-  sm.carve(smem_raw, dhp);
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int r0 = blockIdx.x * TILE;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + TILE) - 1) / G;
-  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
-
-  stage_rows_tc(sm.Qs, ldb, q, TILE, r0, Rtot, b, G, kvh, Sq, Hq, dh, dhp);
-  for (int idx = threadIdx.x; idx < TILE * ldo; idx += kThreads) sm.Os[idx] = 0.f;
-
-  int qpos[TM];
-  bool row_ok[TM];
-  float m_run[TM], l_run[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + tm + kRowGroups * i;
-    row_ok[i] = r < Rtot;
-    qpos[i] = r / G;
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-
-  for (int t0 = (key_lo / TILE) * TILE; t0 <= key_hi; t0 += TILE) {
-    __syncthreads();  // the previous tile is consumed (and Q, O are staged)
-    stage_keys_tc(sm.Ks, ldb, k, TILE, t0, b, kvh, Sk, Hkv, dh, dhp);
-    stage_keys_tc(sm.Vs, ldb, v, TILE, t0, b, kvh, Sk, Hkv, dh, dhp);
-    __syncthreads();
-    tc_gemm<wmma::row_major, wmma::col_major, false>(sm.Ss, lds, sm.Qs, ldb, sm.Ks, ldb, TILE,
-                                                     TILE, dhp);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = tm + kRowGroups * i;
-      float s[TN];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kl = tn + kColGroups * j;
-        const bool ok = row_ok[i] && visible(t0 + kl, qpos[i], Sk, causal, window);
-        s[j] = ok ? sm.Ss[rl * lds + kl] * scale : -INFINITY;
-        mt = fmaxf(mt, s[j]);
-      }
-      mt = group8_max(mt);
-      const float m_new = fmaxf(m_run[i], mt);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m_run[i] - m_use);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m_use);
-        psum += p;
-        sm.Ps[rl * ldp + tn + kColGroups * j] = __float2bfloat16(p);
-      }
-      psum = group8_sum(psum);
-      l_run[i] = l_run[i] * alpha + psum;
-      m_run[i] = m_new;
-      for (int c = tn; c < dhp; c += kColGroups) sm.Os[rl * ldo + c] *= alpha;
-    }
-    __syncthreads();
-    tc_gemm<wmma::row_major, wmma::row_major, true>(sm.Os, ldo, sm.Ps, ldp, sm.Vs, ldb, TILE,
-                                                    dhp, TILE);
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    if (!row_ok[i]) continue;  // rows past Sq write nothing
-    const int rl = tm + kRowGroups * i;
-    const int r = r0 + rl;
-    const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-    for (int c = tn; c < dh; c += kColGroups) o[off + c] = __float2bfloat16(sm.Os[rl * ldo + c] * inv);
-    if (tn == 0) {
-      const int s = r / G, h = kvh * G + (r - s * G);
-      lse[((size_t)b * Hq + h) * Sq + s] =
-          l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : -INFINITY;
-    }
-  }
-}
-
-// rows r0..r0+n-1 of lse into lse_s (0 past Rtot)
-__device__ __forceinline__ void stage_lse(float* lse_s, const float* __restrict__ lse, int n,
-                                          int r0, int Rtot, int b, int G, int kvh, int Sq,
-                                          int Hq) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int r = r0 + i;
-    float x = 0.f;
-    if (r < Rtot) {
-      const int s = r / G, h = kvh * G + (r - s * G);
-      x = lse[((size_t)b * Hq + h) * Sq + s];
-    }
-    lse_s[i] = x;
-  }
-}
-
-// dQ, tensor cores.  grid: (ceil(Sq*G / TILE), B*Hkv)
-struct DqTcSmem {
-  bf16 *Qs, *dOs, *Ks, *Vs, *dSs;
-  float *Ss, *dPs, *dQs, *lse_s, *D_s;
-  __host__ __device__ size_t carve(char* base, int dhp) {
-    SmemCarver c{base};
-    const int ldb = dhp + kBfPad;
-    Qs = c.take<bf16>(TILE * ldb);
-    dOs = c.take<bf16>(TILE * ldb);
-    Ks = c.take<bf16>(TILE * ldb);
-    Vs = c.take<bf16>(TILE * ldb);
-    Ss = c.take<float>(TILE * (TILE + kF32Pad));
-    dPs = c.take<float>(TILE * (TILE + kF32Pad));
-    dSs = c.take<bf16>(TILE * (TILE + kBfPad));
-    dQs = c.take<float>(TILE * (dhp + kF32Pad));
-    lse_s = c.take<float>(TILE);
-    D_s = c.take<float>(TILE);
-    return c.off;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
-                       const bf16* __restrict__ dout, const float* __restrict__ lse,
-                       bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int dh,
-                       int causal, int window, float scale) {
-  using namespace nvcuda;
-  constexpr int TM = TILE / kRowGroups;
-  constexpr int TN = TILE / kColGroups;
-  extern __shared__ __align__(128) char smem_raw[];
-  const int dhp = pad16(dh);
-  const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  DqTcSmem sm;
-  sm.carve(smem_raw, dhp);
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int r0 = blockIdx.x * TILE;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + TILE) - 1) / G;
-  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
-
-  stage_rows_tc(sm.Qs, ldb, q, TILE, r0, Rtot, b, G, kvh, Sq, Hq, dh, dhp);
-  stage_rows_tc(sm.dOs, ldb, dout, TILE, r0, Rtot, b, G, kvh, Sq, Hq, dh, dhp);
-  stage_delta(sm.D_s, o, dout, TILE, r0, Rtot, b, G, kvh, Sq, Hq, dh);
-  stage_lse(sm.lse_s, lse, TILE, r0, Rtot, b, G, kvh, Sq, Hq);
-  for (int idx = threadIdx.x; idx < TILE * ldo; idx += kThreads) sm.dQs[idx] = 0.f;
-
-  for (int t0 = (key_lo / TILE) * TILE; t0 <= key_hi; t0 += TILE) {
-    __syncthreads();  // the previous tile is consumed (and the rows are staged)
-    stage_keys_tc(sm.Ks, ldb, k, TILE, t0, b, kvh, Sk, Hkv, dh, dhp);
-    stage_keys_tc(sm.Vs, ldb, v, TILE, t0, b, kvh, Sk, Hkv, dh, dhp);
-    __syncthreads();
-    tc_gemm<wmma::row_major, wmma::col_major, false>(sm.Ss, lds, sm.Qs, ldb, sm.Ks, ldb, TILE,
-                                                     TILE, dhp);
-    tc_gemm<wmma::row_major, wmma::col_major, false>(sm.dPs, lds, sm.dOs, ldb, sm.Vs, ldb,
-                                                     TILE, TILE, dhp);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = tm + kRowGroups * i;
-      const int r = r0 + rl;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kl = tn + kColGroups * j;
-        const bool ok = r < Rtot && visible(t0 + kl, r / G, Sk, causal, window);
-        const float p = ok ? expf(sm.Ss[rl * lds + kl] * scale - sm.lse_s[rl]) : 0.f;
-        sm.dSs[rl * ldp + kl] = __float2bfloat16(p * (sm.dPs[rl * lds + kl] - sm.D_s[rl]));
-      }
-    }
-    __syncthreads();
-    tc_gemm<wmma::row_major, wmma::row_major, true>(sm.dQs, ldo, sm.dSs, ldp, sm.Ks, ldb, TILE,
-                                                    dhp, TILE);
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int rl = tm + kRowGroups * i;
-    const int r = r0 + rl;
-    if (r >= Rtot) continue;
-    const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
-    for (int c = tn; c < dh; c += kColGroups)
-      dq[off + c] = __float2bfloat16(sm.dQs[rl * ldo + c] * scale);
-  }
-}
-
-// dK and dV, tensor cores.  grid: (ceil(Sk / TILE), B*Hkv)
-struct DkdvTcSmem {
-  bf16 *Ks, *Vs, *Qs, *dOs, *Ps, *dSs;
-  float *Ss, *dPs, *dKs, *dVs, *lse_s, *D_s;
-  __host__ __device__ size_t carve(char* base, int dhp) {
-    SmemCarver c{base};
-    const int ldb = dhp + kBfPad;
-    Ks = c.take<bf16>(TILE * ldb);
-    Vs = c.take<bf16>(TILE * ldb);
-    Qs = c.take<bf16>(TILE * ldb);
-    dOs = c.take<bf16>(TILE * ldb);
-    Ss = c.take<float>(TILE * (TILE + kF32Pad));
-    dPs = c.take<float>(TILE * (TILE + kF32Pad));
-    Ps = c.take<bf16>(TILE * (TILE + kBfPad));
-    dSs = c.take<bf16>(TILE * (TILE + kBfPad));
-    dKs = c.take<float>(TILE * (dhp + kF32Pad));
-    dVs = c.take<float>(TILE * (dhp + kF32Pad));
-    lse_s = c.take<float>(TILE);
-    D_s = c.take<float>(TILE);
-    return c.off;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int Hq,
-                         int Hkv, int dh, int causal, int window, float scale) {
-  using namespace nvcuda;
-  constexpr int TM = TILE / kRowGroups;  // query rows per thread
-  constexpr int TN = TILE / kColGroups;  // keys per thread
-  extern __shared__ __align__(128) char smem_raw[];
-  const int dhp = pad16(dh);
-  const int ldb = dhp + kBfPad, lds = TILE + kF32Pad, ldp = TILE + kBfPad, ldo = dhp + kF32Pad;
-  DkdvTcSmem sm;
-  sm.carve(smem_raw, dhp);
-
-  const int G = Hq / Hkv;
-  const int Rtot = Sq * G;
-  const int k0 = blockIdx.x * TILE;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tm = warp * 4 + (lane >> 3);
-  const int tn = lane & 7;
-
-  // query positions that can see a key of this tile
-  const int k_last = min(Sk, k0 + TILE) - 1;
-  const int p_min = causal ? k0 : 0;
-  const int p_max = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
-
-  stage_keys_tc(sm.Ks, ldb, k, TILE, k0, b, kvh, Sk, Hkv, dh, dhp);
-  stage_keys_tc(sm.Vs, ldb, v, TILE, k0, b, kvh, Sk, Hkv, dh, dhp);
-  for (int idx = threadIdx.x; idx < TILE * ldo; idx += kThreads) sm.dKs[idx] = sm.dVs[idx] = 0.f;
-
-  const int row_end = min(Rtot, (p_max + 1) * G);
-  for (int rt0 = ((p_min * G) / TILE) * TILE; rt0 < row_end; rt0 += TILE) {
-    __syncthreads();  // the previous row tile is consumed (and K/V are staged)
-    stage_rows_tc(sm.Qs, ldb, q, TILE, rt0, Rtot, b, G, kvh, Sq, Hq, dh, dhp);
-    stage_rows_tc(sm.dOs, ldb, dout, TILE, rt0, Rtot, b, G, kvh, Sq, Hq, dh, dhp);
-    stage_delta(sm.D_s, o, dout, TILE, rt0, Rtot, b, G, kvh, Sq, Hq, dh);
-    stage_lse(sm.lse_s, lse, TILE, rt0, Rtot, b, G, kvh, Sq, Hq);
-    __syncthreads();
-    // S and dP as [rows x keys]
-    tc_gemm<wmma::row_major, wmma::col_major, false>(sm.Ss, lds, sm.Qs, ldb, sm.Ks, ldb, TILE,
-                                                     TILE, dhp);
-    tc_gemm<wmma::row_major, wmma::col_major, false>(sm.dPs, lds, sm.dOs, ldb, sm.Vs, ldb,
-                                                     TILE, TILE, dhp);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int rl = tm + kRowGroups * i;
-      const int r = rt0 + rl;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kl = tn + kColGroups * j;
-        const bool ok = r < Rtot && visible(k0 + kl, r / G, Sk, causal, window);
-        const float p = ok ? expf(sm.Ss[rl * lds + kl] * scale - sm.lse_s[rl]) : 0.f;
-        sm.Ps[rl * ldp + kl] = __float2bfloat16(p);
-        sm.dSs[rl * ldp + kl] = __float2bfloat16(p * (sm.dPs[rl * lds + kl] - sm.D_s[rl]));
-      }
-    }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q: [keys x dh], P and dS read column-major
-    tc_gemm<wmma::col_major, wmma::row_major, true>(sm.dVs, ldo, sm.Ps, ldp, sm.dOs, ldb, TILE,
-                                                    dhp, TILE);
-    tc_gemm<wmma::col_major, wmma::row_major, true>(sm.dKs, ldo, sm.dSs, ldp, sm.Qs, ldb, TILE,
-                                                    dhp, TILE);
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int kl = tm + kRowGroups * i;
-    const int kp = k0 + kl;
-    if (kp >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kp) * Hkv + kvh) * dh;
-    for (int c = tn; c < dh; c += kColGroups) {
-      dk[off + c] = __float2bfloat16(sm.dKs[kl * ldo + c] * scale);
-      dv[off + c] = __float2bfloat16(sm.dVs[kl * ldo + c]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper: wgmma fed by TMA (G dividing 64)
+// bf16 on Hopper: wgmma fed by TMA (variants wgmma and wgmma_rows)
 //
 // Each kernel is warp-specialised: warpgroup 0 is the producer (one thread
 // starts TMA loads into a ring of stages, guarded by full/empty mbarriers),
@@ -561,8 +108,9 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //    register rebalancing, since 256 threads may each hold 255.
 //  * dK/dV: a thread would hold dK and dV for its keys, 2 x DC x 32
 //    registers: 256 at DC 4, more than a thread has.  At DC <= 2 the two
-//    consumer warpgroups own 64 keys each.  At DC 3 and 4 both own the same
-//    64 keys and split the head columns: warpgroup w accumulates dK and dV
+//    consumer warpgroups own 64 keys each.  At DC 3 and 4 (and at DC 2 for
+//    wgmma_rows: kv_split) both own the same 64 keys and split the head
+//    columns: warpgroup w accumulates dK and dV
 //    for the chunks [w * ceil(DC/2), (w+1) * ceil(DC/2)), 128 registers at
 //    most.  Each needs all of P^T and dS^T, so warpgroup 0 computes S^T
 //    (and P^T) over the whole head dim and warpgroup 1 dP^T, and they hand
@@ -576,10 +124,36 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Every sum keeps a fixed order: dK/dV over row tiles, dQ over key tiles,
 // with no float atomics, so the backward gives equal bits from run to run.
 //
-// Q (and dO) come through a 4-D tensor map (dh, Hq, S, B) with boxes of
-// (64, G, 64/G, 1): the box is the 64 rows r = s*G + g of one kv head, and
-// a box past S reads zeros instead of the next batch's rows.  K and V come
-// through a map (dh, Hkv, Sk, B).
+// Q (and dO) come through one of two tensor maps, which the kernels' kRows
+// flag picks; K and V always through a map (dh, Hkv, Sk, B).
+//  * wgmma (kRows false): a 4-D map (dh, Hq, S, B) over the caller's tensor
+//    with boxes of (64, G, 64/G, 1).  When G divides 64 the box is the 64
+//    rows r = s*G + g of one kv head from r = 64i, loaded at (64c, kvh*G,
+//    r/G, b), and a box past S reads zeros instead of the next batch's rows.
+//    No copy.
+//  * wgmma_rows (kRows true): for any other G a box of whole positions
+//    would leave masked rows in every tile, and past G 64 could not hold
+//    one position.  So flash_rows_gather_kernel first copies q (and dout)
+//    into the wrapper's scratch as [B*Hkv][S*G][dh], row r = s*G + g of kv
+//    head kvh at row r of slab b*Hkv + kvh, and a map (dh, S*G, B*Hkv, 1)
+//    with boxes of (64, 64, 1, 1) loads the 64 rows from any r at (64c, r,
+//    b*Hkv + kvh, 0); rows past S*G read zeros.  Everything else already
+//    takes a row r as position r/G of head kvh*G + r%G (the masks, the
+//    walks, lse and delta, the output rows), which holds for every G: past
+//    G 64 a 64-row tile is part of one position's heads (pos_lo == pos_hi).
+//  The flag is a template parameter, not a kernel argument, because it also
+//  changes the backward's arithmetic (below) and the registers that takes,
+//  and the wgmma kernels (kRows false) compile without any of it.
+// The precision of the backward at kRows.  A key's dK and dV sum over every
+// row that sees it, G times the positions: 5,040 rows at G 72, S 70.  With
+// P^T and dS^T rounded once to bf16 as the A operands of dV and dK, and D =
+// rowsum(dO * O) taken from the bf16 output, the rounding adds up past the
+// 2e-2 tolerance against the fp32 oracle at such groups (a plain-torch
+// emulation of both arithmetics: tests/test_torch_flash_rows.py).  So at
+// kRows the dQ kernel first walks its key tiles once to sum D = rowsum(P *
+// dP) in fp32 (two more products a tile), and the dK/dV kernel passes P^T and
+// dS^T as hi + lo, hi = bf16(x) and lo = bf16(x - hi), two wgmmas each: six
+// products a tile rather than four.
 //
 // The softmax and the gradients' elementwise work run on the wgmma
 // accumulators in registers: a thread holds two rows (lane/4 and lane/4 + 8
@@ -603,10 +177,21 @@ constexpr size_t kSmemPerBlock = 232448;    // dynamic shared memory a block may
 // The plan at DC column chunks (see above).
 __host__ __device__ constexpr int fwd_keys(int DC) { return DC <= 2 ? 128 : 64; }
 __host__ __device__ constexpr int dq_consumers(int DC) { return DC <= 3 ? 2 : 1; }
-__host__ __device__ constexpr int kv_keys(int DC) { return DC <= 2 ? 128 : 64; }
+// dK/dV: whether the two warpgroups split the head columns of 64 shared
+// keys: at DC 3 and 4, and at kRows also at DC 2, where the layout of two
+// 64-key halves spills under ptxas (48 bytes; the wgmma kernel at DC 2
+// spills 44 and keeps that layout)
+__host__ __device__ constexpr bool kv_split(int DC, bool rows) {
+  return DC >= 3 || (rows && DC == 2);
+}
+__host__ __device__ constexpr int kv_keys(int DC, bool rows) {
+  return kv_split(DC, rows) ? 64 : 128;
+}
 __host__ __device__ constexpr int kv_stages(int DC) { return DC <= 3 ? 3 : 2; }
 // dK/dV column chunks a consumer warpgroup accumulates
-__host__ __device__ constexpr int kv_chunks(int DC) { return DC <= 2 ? DC : (DC + 1) / 2; }
+__host__ __device__ constexpr int kv_chunks(int DC, bool rows) {
+  return kv_split(DC, rows) ? (DC + 1) / 2 : DC;
+}
 
 // bytes of one [rows][64] bf16 tile
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kChunk * 2; }
@@ -625,6 +210,31 @@ __device__ __forceinline__ bool tile_invisible(int key0, int nkeys, int pos_lo, 
   return key0 >= Sk || (causal && key0 > pos_hi) || (window > 0 && key_last <= pos_lo - window);
 }
 
+// Starts the TMA load of 64 rows from row r of kv head kvh (batch b), head
+// columns from c0, of q or dout: at kRows from the gathered copy, any r; else
+// from the caller's tensor at whole positions (r a multiple of 64, G
+// dividing 64).  See above.
+template <bool kRows>
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int c0, int r, int b, int kvh, int G, int Hkv) {
+  if constexpr (kRows)
+    tma_load_4d(dst, map, bar, c0, r, b * Hkv + kvh, 0);
+  else
+    tma_load_4d(dst, map, bar, c0, kvh * G, r / G, b);
+}
+
+// s[0..7] as two bf16 A fragments of one k-step (to_a_frag's layout), hi =
+// bf16(s) and lo = bf16(s - hi): a product with hi and one with lo keep some
+// 16 bits of each value where hi alone keeps 8.
+__device__ __forceinline__ void to_a_frags_hilo(const float* s, uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+  to_a_frag(s, hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)  // hi[i] holds bf16(s[2i]) in its low half
+    lo[i] = pack_bf16(s[2 * i] - __uint_as_float(hi[i] << 16),
+                      s[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
+}
+
 template <int DC>
 struct FwdWgSmem {
   alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
@@ -634,7 +244,7 @@ struct FwdWgSmem {
 };
 
 // forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
-template <int DC>
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -673,8 +283,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_arrive_expect_tx(&sm.q_full, kConsumers * DC * tile_bytes(kWgRows));
       for (int w = 0; w < kConsumers; ++w)
         for (int c = 0; c < DC; ++c)
-          tma_load_4d(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, kvh * G,
-                      (r0 + w * kWgRows) / G, b);
+          tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, r0 + w * kWgRows,
+                               b, kvh, G, Hkv);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
@@ -818,9 +428,10 @@ struct DqWgSmem {
 };
 
 // backward, dQ; also writes D = rowsum(dO * O) into delta [B,Hq,Sq] for
-// the dK/dV kernel.  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))),
+// the dK/dV kernel (at kRows D = rowsum(P * dP), from a first walk over the
+// key tiles).  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))),
 // heaviest first
-template <int DC>
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -843,6 +454,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
   const int t_first = key_lo / kDqKeys;
   const int n_tiles = key_hi >= key_lo ? key_hi / kDqKeys - t_first + 1 : 0;
+  const int n_walks = kRows ? 2 : 1;  // the ring carries the key tiles once per walk
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -861,15 +473,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_arrive_expect_tx(&sm.q_full, 2 * NC * DC * tile_bytes(kWgRows));
       for (int w = 0; w < NC; ++w)
         for (int c = 0; c < DC; ++c) {
-          const int s0 = (r0 + w * kWgRows) / G;
-          tma_load_4d(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, kvh * G, s0, b);
-          tma_load_4d(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, kvh * G, s0, b);
+          const int rw = r0 + w * kWgRows;
+          tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, rw, b, kvh, G, Hkv);
+          tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
+                               Hkv);
         }
-      for (int i = 0; i < n_tiles; ++i) {
+      for (int i = 0; i < n_walks * n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kDqKeys));
-        const int t0 = (t_first + i) * kDqKeys;
+        const int t0 = (t_first + (kRows ? i % n_tiles : i)) * kDqKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
           tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
@@ -887,40 +500,100 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;
 
-    // D = rowsum(dO * O), once per row: two threads a row, 16 bytes a load
-    {
-      const int i = tid / 2, r = rw0 + i;
-      float acc = 0.f;
-      if (r < Rtot) {
-        const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
-        for (int d = (tid % 2) * 8; d < dh; d += 16) {
-          const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
-          const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
-          const bf16* av = reinterpret_cast<const bf16*>(&a);
-          const bf16* gv = reinterpret_cast<const bf16*>(&g);
+    float D[2], L[2];  // D and lse * log2(e) of this thread's two rows
+    if constexpr (kRows) {
 #pragma unroll
-          for (int u = 0; u < 8; ++u) acc = fmaf(__bfloat162float(gv[u]), __bfloat162float(av[u]), acc);
-        }
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (tid % 2 == 0) {
-        sm.delta[cw][i] = acc;
+      for (int x = 0; x < 2; ++x) {
+        const int r = r_lo + 8 * x;
+        L[x] = 0.f;
         if (r < Rtot) {
           const int sp = r / G, h = kvh * G + (r - sp * G);
-          delta[((size_t)b * Hq + h) * Sq + sp] = acc;
+          L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
         }
       }
-    }
-    named_barrier(1 + cw, 128);
-    float D[2], L[2];  // D and lse * log2(e) of this thread's two rows
+      // D = rowsum(P * dP) over the key tiles in order: the first walk
+      float dsum[2] = {0.f, 0.f};
+      mbar_wait(&sm.q_full, 0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const int t0 = (t_first + i) * kDqKeys;
+        mbar_wait(&sm.full[s], (i / kStages) & 1);
+        if (rw0 < Rtot && !tile_invisible(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
+          float sacc[32], pacc[32];  // S = Q . K^T and dP = dO . V^T
+          wgmma_fence();
 #pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      const int r = r_lo + 8 * x;
-      D[x] = sm.delta[cw][r - rw0];
-      L[x] = 0.f;
-      if (r < Rtot) {
-        const int sp = r / G, h = kvh * G + (r - sp * G);
-        L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+          for (int kc = 0; kc < DC * 4; ++kc) {
+            const int c = kc / 4, kb = 2 * (kc % 4);
+            wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][c]) + kb, wgmma_desc(sm.k[s][c]) + kb,
+                           kc > 0);
+          }
+#pragma unroll
+          for (int kc = 0; kc < DC * 4; ++kc) {
+            const int c = kc / 4, kb = 2 * (kc % 4);
+            wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
+                           kc > 0);
+          }
+          wgmma_commit();
+          const bool masked = tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window);
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          fence_regs(pacc);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int x = (e >> 1) & 1;
+            const int key = t0 + 8 * (e / 4) + col + (e & 1);
+            const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
+            dsum[x] += ok ? fast_exp2(sacc[e] * sc - L[x]) * pacc[e] : 0.f;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[s]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        D[x] = quad_sum(dsum[x]);
+        const int r = r_lo + 8 * x;
+        if (lane % 4 == 0 && r < Rtot) {
+          const int sp = r / G, h = kvh * G + (r - sp * G);
+          delta[((size_t)b * Hq + h) * Sq + sp] = D[x];
+        }
+      }
+    } else {
+      // D = rowsum(dO * O), once per row: two threads a row, 16 bytes a load
+      {
+        const int i = tid / 2, r = rw0 + i;
+        float acc = 0.f;
+        if (r < Rtot) {
+          const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
+          for (int d = (tid % 2) * 8; d < dh; d += 16) {
+            const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
+            const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
+            const bf16* av = reinterpret_cast<const bf16*>(&a);
+            const bf16* gv = reinterpret_cast<const bf16*>(&g);
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              acc = fmaf(__bfloat162float(gv[u]), __bfloat162float(av[u]), acc);
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (tid % 2 == 0) {
+          sm.delta[cw][i] = acc;
+          if (r < Rtot) {
+            const int sp = r / G, h = kvh * G + (r - sp * G);
+            delta[((size_t)b * Hq + h) * Sq + sp] = acc;
+          }
+        }
+      }
+      named_barrier(1 + cw, 128);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = r_lo + 8 * x;
+        D[x] = sm.delta[cw][r - rw0];
+        L[x] = 0.f;
+        if (r < Rtot) {
+          const int sp = r / G, h = kvh * G + (r - sp * G);
+          L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+        }
       }
     }
 
@@ -932,9 +605,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(&sm.q_full, 0);
 
     for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
+      const int j = (n_walks - 1) * n_tiles + i;  // the ring's count
+      const int s = j % kStages;
       const int t0 = (t_first + i) * kDqKeys;
-      mbar_wait(&sm.full[s], (i / kStages) & 1);
+      mbar_wait(&sm.full[s], (j / kStages) & 1);
       if (rw0 < Rtot && !tile_invisible(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
         // two commit groups, so that P is formed while dP is computed
         float sacc[32], pacc[32];  // S = Q . K^T and dP = dO . V^T
@@ -1006,32 +680,34 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 constexpr int kBwdRows = 64;  // rows per dK/dV tile
 
 // The 64 x 64 fp32 products that the dK/dV kernel's two consumer warpgroups
-// hand each other at DC 3 and 4 (P^T, then dP^T): 8 float4 a thread each,
-// thread-major, so that a warp's accesses touch every bank once.
+// hand each other where they split the head columns (P^T, then dP^T): 8
+// float4 a thread each, thread-major, so that a warp's accesses touch every
+// bank once.
 template <int N> struct Handoff { float4 v[N][128]; };
 template <> struct Handoff<0> {};
-__host__ __device__ constexpr int kv_handoff(int DC) { return DC <= 2 ? 0 : 16; }
 
-template <int DC>
+template <int DC, bool kRows>
 struct DkdvWgSmem {
-  alignas(1024) bf16 k[DC][kv_keys(DC) * kChunk];
-  alignas(1024) bf16 v[DC][kv_keys(DC) * kChunk];
+  alignas(1024) bf16 k[DC][kv_keys(DC, kRows) * kChunk];
+  alignas(1024) bf16 v[DC][kv_keys(DC, kRows) * kChunk];
   alignas(1024) bf16 q[kv_stages(DC)][DC][kBwdRows * kChunk];
   alignas(1024) bf16 dout[kv_stages(DC)][DC][kBwdRows * kChunk];
   float lse2[kv_stages(DC)][kBwdRows];   // lse * log2(e) of the tile's rows
   float delta[kv_stages(DC)][kBwdRows];  // D of the tile's rows
   uint64_t kv_full, full[kv_stages(DC)], empty[kv_stages(DC)];
-  Handoff<kv_handoff(DC)> handoff;
+  Handoff<kv_split(DC, kRows) ? 16 : 0> handoff;
 };
 
 // backward, dK and dV, after the dQ kernel has written delta.  Keys are the
 // M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
 // dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
-// ceil(Sk / kv_keys(DC))); the first key tiles, which see the most rows
-// under causal, launch first.  At DC <= 2 consumer warpgroup w owns keys
-// 64w..64w+63 of the block and every head column; at DC 3 and 4 both own
-// the block's 64 keys and w the column chunks from w * kv_chunks(DC).
-template <int DC>
+// ceil(Sk / kv_keys(DC, kRows))); the first key tiles, which see the most
+// rows under causal, launch first.  Where the plan does not split (DC <= 2,
+// DC 1 at kRows) consumer warpgroup w owns keys 64w..64w+63 of the block
+// and every head column; where it splits both own the block's 64 keys and w
+// the column chunks from w * kv_chunks(DC, kRows).  At kRows P^T and dS^T
+// enter dV and dK as hi + lo (see above).
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -1040,10 +716,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
                             int Hq, int Hkv, int dh, int causal, int window, float scale) {
-  constexpr int kKvKeys = kv_keys(DC), kBwdStages = kv_stages(DC), CH = kv_chunks(DC);
-  constexpr bool kSplit = kKvKeys == kWgRows;  // the warpgroups split the head columns
+  constexpr int kKvKeys = kv_keys(DC, kRows), kBwdStages = kv_stages(DC);
+  constexpr int CH = kv_chunks(DC, kRows);
+  constexpr bool kSplit = kv_split(DC, kRows);  // the warpgroups split the head columns
   extern __shared__ char smem_raw[];
-  DkdvWgSmem<DC>& sm = smem_layout<DkdvWgSmem<DC>>(smem_raw);
+  DkdvWgSmem<DC, kRows>& sm = smem_layout<DkdvWgSmem<DC, kRows>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int k0 = blockIdx.y * kKvKeys;
@@ -1086,8 +763,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         if (lane == 0) {  // the tiles first, so their latency overlaps the loads below
           mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kBwdRows));
           for (int c = 0; c < DC; ++c) {
-            tma_load_4d(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, kvh * G, rt0 / G, b);
-            tma_load_4d(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, kvh * G, rt0 / G, b);
+            tma_load_rows<kRows>(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, rt0, b, kvh, G,
+                                 Hkv);
+            tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
+                                 G, Hkv);
           }
         }
         for (int x = lane; x < kBwdRows; x += 32) {
@@ -1187,11 +866,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             mine[e] = p;                              // P^T
             other[e] = p * (dp - sm.delta[s][rl]);    // dS^T, rounded to bf16 below
           }
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
+          constexpr int NL = kRows ? kBwdRows / 16 : 1;  // the lo fragments, at kRows
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4], pl[NL][4], dsl[NL][4];
 #pragma unroll
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            to_a_frag(&mine[8 * kk], pa[kk]);
-            to_a_frag(&other[8 * kk], dsa[kk]);
+            if constexpr (kRows) {
+              to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
+              to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
+            } else {
+              to_a_frag(&mine[8 * kk], pa[kk]);
+              to_a_frag(&other[8 * kk], dsa[kk]);
+            }
           }
           wgmma_fence();
 #pragma unroll
@@ -1199,10 +884,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
             for (int j = 0; j < CH; ++j)
               if (c0 + j < DC) {
-                wgmma_rs_64x64(dvacc[j], pa[kk],
-                               wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16);
-                wgmma_rs_64x64(dkacc[j], dsa[kk],
-                               wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16);
+                const uint64_t bo = wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16;
+                const uint64_t bq = wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16;
+                wgmma_rs_64x64(dvacc[j], pa[kk], bo);
+                if constexpr (kRows) wgmma_rs_64x64(dvacc[j], pl[kk], bo);
+                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
+                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
               }
           wgmma_commit();
           wgmma_wait<0>();
@@ -1210,6 +897,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
             fence_regs(pa[kk]);
             fence_regs(dsa[kk]);
+            if constexpr (kRows) {
+              fence_regs(pl[kk]);
+              fence_regs(dsl[kk]);
+            }
           }
 #pragma unroll
           for (int j = 0; j < CH; ++j) {
@@ -1249,39 +940,83 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
           st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
         }
-        uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
+        if constexpr (kRows) {
+          // dS^T first, then dV and dK with hi and lo fragments, one group
+          wgmma_wait<0>();
+          fence_regs(dpt);
 #pragma unroll
-        for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&st[8 * kk], pa[kk]);
-        wgmma_fence();
+          for (int e = 0; e < 32; ++e) {
+            const int rl = 8 * (e / 4) + col + (e & 1);
+            dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T
+          }
+          uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];
+          uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
+            to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
+          }
+          wgmma_fence();
 #pragma unroll
-          for (int c = 0; c < DC; ++c)
-            wgmma_rs_64x64(dvacc[c], pa[kk], wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16);
-        wgmma_commit();
-        wgmma_wait<1>();  // dP^T is done (dV may still run)
-        fence_regs(dpt);
+          for (int kk = 0; kk < kBwdRows / 16; ++kk)
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int rl = 8 * (e / 4) + col + (e & 1);
-          dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
-        }
+            for (int c = 0; c < DC; ++c) {
+              const uint64_t bo = wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16;
+              const uint64_t bq = wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16;
+              wgmma_rs_64x64(dvacc[c], pa[kk], bo);
+              wgmma_rs_64x64(dvacc[c], pl[kk], bo);
+              wgmma_rs_64x64(dkacc[c], dsa[kk], bq);
+              wgmma_rs_64x64(dkacc[c], dsl[kk], bq);
+            }
+          wgmma_commit();
+          wgmma_wait<0>();
 #pragma unroll
-        for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&dpt[8 * kk], dsa[kk]);
-        wgmma_fence();
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(pl[kk]);
+            fence_regs(dsa[kk]);
+            fence_regs(dsl[kk]);
+          }
 #pragma unroll
-        for (int kk = 0; kk < kBwdRows / 16; ++kk)
+          for (int c = 0; c < DC; ++c) {
+            fence_regs(dkacc[c]);
+            fence_regs(dvacc[c]);
+          }
+        } else {
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
 #pragma unroll
-          for (int c = 0; c < DC; ++c)
-            wgmma_rs_64x64(dkacc[c], dsa[kk], wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16);
-        wgmma_commit();
-        wgmma_wait<0>();
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&st[8 * kk], pa[kk]);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBwdRows / 16; ++kk) fence_regs(pa[kk]);  // read by the dV group
+          for (int kk = 0; kk < kBwdRows / 16; ++kk)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          fence_regs(dkacc[c]);
-          fence_regs(dvacc[c]);
+            for (int c = 0; c < DC; ++c)
+              wgmma_rs_64x64(dvacc[c], pa[kk], wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16);
+          wgmma_commit();
+          wgmma_wait<1>();  // dP^T is done (dV may still run)
+          fence_regs(dpt);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int rl = 8 * (e / 4) + col + (e & 1);
+            dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
+          }
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&dpt[8 * kk], dsa[kk]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+            for (int c = 0; c < DC; ++c)
+              wgmma_rs_64x64(dkacc[c], dsa[kk], wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16);
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) fence_regs(pa[kk]);  // read by the dV group
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            fence_regs(dkacc[c]);
+            fence_regs(dvacc[c]);
+          }
         }
       }
       __syncwarp();
@@ -1308,6 +1043,28 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
     }
   }
+}
+
+// x0 (and x1, where it is not null) [B,S,Hq,dh] into the gathered copies y0
+// (y1) [B*Hkv][S*G][dh] that the wgmma_rows kernels read: row r = s*G + g of
+// slab b*Hkv + kvh is position s of head kvh*G + g.  The G heads of one
+// position are contiguous on both sides, so this is a plain copy, 16 bytes a
+// thread, with neighbouring threads on neighbouring addresses.  grid
+// (ceil(B*Hq*S*dh / 8 / 256), 1 or 2): y picks the tensor.
+__global__ void __launch_bounds__(256)
+flash_rows_gather_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
+                         bf16* __restrict__ y0, bf16* __restrict__ y1, int B, int S, int Hq,
+                         int Hkv, int dh) {
+  const bf16* x = blockIdx.y == 0 ? x0 : x1;
+  bf16* y = blockIdx.y == 0 ? y0 : y1;
+  const int G = Hq / Hkv, chunks = dh / 8;
+  const long long R = (long long)S * G;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // chunk of y
+  if (i >= (long long)B * Hkv * R * chunks) return;
+  const long long row = i / chunks;  // over every slab
+  const int bh = (int)(row / R), r = (int)(row % R), c = (int)(i % chunks);
+  reinterpret_cast<uint4*>(y)[i] = *reinterpret_cast<const uint4*>(
+      x + row_offset(bh / Hkv, r, G, bh % Hkv, S, Hq, dh) + 8 * c);
 }
 
 // ---------------------------------------------------------------------------
@@ -2108,59 +1865,54 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// bf16: the tensor-core kernels, with tiles of 64 (32 when dh > 128)
-cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse,
-                          const Shape& s, cudaStream_t st) {
-  const size_t smem = FwdTcSmem().carve(nullptr, pad16(s.dh));
-  auto kern = flash_fwd_tc_kernel;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const int G = s.Hq / s.Hkv;
-  dim3 grid((s.Sq * G + TILE - 1) / TILE, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                     static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
-                                     s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+// bf16 through wgmma: scratch, tensor maps, shared memory and grids
+
+// The scratch of one wgmma call, carved from `base` (sizes only when base is
+// null), in floats: at kRows the gathered copies of q and (backward) of dout,
+// [B*Hkv][Sq*G][dh] bf16 each; then the backward's delta [B,Hq,Sq].  Each
+// part starts 16-byte aligned (dh is a multiple of 8), as TMA needs.
+struct WgWork {
+  bf16 *q = nullptr, *dout = nullptr;
+  float* delta = nullptr;
+  size_t floats = 0;
+  WgWork(const Shape& s, void* base, bool rows, bool backward) {
+    const size_t rows_floats = rows ? (size_t)s.B * s.Hq * s.Sq * s.dh / 2 : 0;
+    auto take = [&](size_t n) {
+      void* p = base == nullptr ? nullptr : static_cast<float*>(base) + floats;
+      floats += n;
+      return p;
+    };
+    q = static_cast<bf16*>(take(rows_floats));
+    if (!backward) return;
+    dout = static_cast<bf16*>(take(rows_floats));
+    delta = static_cast<float*>(take((size_t)s.B * s.Hq * s.Sq));
+  }
+};
+
+// 16-byte chunks of the gathered copy of one tensor, and its gather's grid
+long long rows_chunks(const Shape& s) { return (long long)s.B * s.Hq * s.Sq * (s.dh / 8); }
+long long rows_gather_blocks(const Shape& s) { return (rows_chunks(s) + 255) / 256; }
+
+// q (and dout, where x1 is not null) into the gathered copies
+cudaError_t gather_rows(const void* x0, const void* x1, bf16* y0, bf16* y1, const Shape& s,
+                        cudaStream_t st) {
+  const dim3 grid((unsigned)rows_gather_blocks(s), x1 == nullptr ? 1 : 2);
+  flash_rows_gather_kernel<<<grid, 256, 0, st>>>(static_cast<const bf16*>(x0),
+                                                 static_cast<const bf16*>(x1), y0, y1, s.B, s.Sq,
+                                                 s.Hq, s.Hkv, s.dh);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const float* lse, void* dk, void* dv,
-                           const Shape& s, cudaStream_t st) {
-  const size_t smem = DkdvTcSmem().carve(nullptr, pad16(s.dh));
-  auto kern = flash_bwd_dkdv_tc_kernel;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.Sk + TILE - 1) / TILE, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, void* dq, const Shape& s,
-                         cudaStream_t st) {
-  const size_t smem = DqTcSmem().carve(nullptr, pad16(s.dh));
-  auto kern = flash_bwd_dq_tc_kernel;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const int G = s.Hq / s.Hkv;
-  dim3 grid((s.Sq * G + TILE - 1) / TILE, s.B * s.Hkv);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
-      s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
-  return cudaGetLastError();
-}
-
-// bf16 through wgmma: tensor maps, shared memory and grids
-
-// the maps of the row tensors (q, out, dout: boxes of 64 rows r = s*G + g)
-// and of the key tensors (k, v: boxes of `keys` keys)
+// the maps of the row tensors (q, dout: boxes of 64 rows r = s*G + g; at
+// kRows over their gathered copies) and of the key tensors (k, v: boxes of
+// `keys` keys)
+template <bool kRows>
 bool row_map(CUtensorMap* m, const void* p, const Shape& s) {
   const int G = s.Hq / s.Hkv;
-  return make_map_bf16_4d(m, p, s.dh, s.Hq, s.Sq, s.B, G, kWgRows / G);
+  if constexpr (kRows)
+    return make_map_bf16_4d(m, p, s.dh, (uint64_t)s.Sq * G, (uint64_t)s.B * s.Hkv, 1, kWgRows, 1);
+  else
+    return make_map_bf16_4d(m, p, s.dh, s.Hq, s.Sq, s.B, G, kWgRows / G);
 }
 bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys) {
   return make_map_bf16_4d(m, p, s.dh, s.Hkv, s.Sk, s.B, 1, keys);
@@ -2175,16 +1927,22 @@ dim3 row_grid(const Shape& s, int rows) {
   return dim3(s.B * s.Hkv, (s.Sq * G + rows - 1) / rows);
 }
 
-template <int DC>
+template <int DC, bool kRows>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
-                             const Shape& s, cudaStream_t st) {
+                             void* work, const Shape& s, cudaStream_t st) {
+  if constexpr (kRows) {
+    const WgWork w(s, work, true, false);
+    const cudaError_t e = gather_rows(q, nullptr, w.q, nullptr, s, st);
+    if (e != cudaSuccess) return e;
+    q = w.q;
+  }
   CUtensorMap qm, km, vm;
-  if (!row_map(&qm, q, s) || !key_map(&km, k, s, fwd_keys(DC)) ||
+  if (!row_map<kRows>(&qm, q, s) || !key_map(&km, k, s, fwd_keys(DC)) ||
       !key_map(&vm, v, s, fwd_keys(DC)))
     return cudaErrorInvalidValue;
   static_assert(sizeof(FwdWgSmem<DC>) + 1024 <= kSmemPerBlock, "forward layout over 227 KB");
   const size_t smem = sizeof(FwdWgSmem<DC>) + 1024;
-  auto kern = flash_fwd_wgmma_kernel<DC>;
+  auto kern = flash_fwd_wgmma_kernel<DC, kRows>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<row_grid(s, kBlockRows), kWsThreads, smem, st>>>(
@@ -2193,38 +1951,70 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-template <int DC>
+template <int DC, bool kRows>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const float* lse, float* delta, void* dq,
-                             void* dk, void* dv, const Shape& s, cudaStream_t st) {
+                             const void* dout, const float* lse, void* work, void* dq, void* dk,
+                             void* dv, const Shape& s, cudaStream_t st) {
+  const WgWork w(s, work, kRows, true);
+  const void *qr = q, *dor = dout;  // what the row maps read
+  if constexpr (kRows) {
+    const cudaError_t e = gather_rows(q, dout, w.q, w.dout, s, st);
+    if (e != cudaSuccess) return e;
+    qr = w.q;
+    dor = w.dout;
+  }
   CUtensorMap qm, dom, km, vm;
-  if (!row_map(&qm, q, s) || !row_map(&dom, dout, s) || !key_map(&km, k, s, kDqKeys) ||
-      !key_map(&vm, v, s, kDqKeys))
+  if (!row_map<kRows>(&qm, qr, s) || !row_map<kRows>(&dom, dor, s) ||
+      !key_map(&km, k, s, kDqKeys) || !key_map(&vm, v, s, kDqKeys))
     return cudaErrorInvalidValue;
   static_assert(sizeof(DqWgSmem<DC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
-  static_assert(sizeof(DkdvWgSmem<DC>) + 1024 <= kSmemPerBlock, "dK/dV layout over 227 KB");
+  static_assert(sizeof(DkdvWgSmem<DC, kRows>) + 1024 <= kSmemPerBlock,
+                "dK/dV layout over 227 KB");
   size_t smem = sizeof(DqWgSmem<DC>) + 1024;
-  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC>;
+  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, kRows>;
   cudaError_t e = allow_smem(dq_kern, smem);
   if (e != cudaSuccess) return e;
   constexpr int nc = dq_consumers(DC);
   dq_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
-      qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
+      qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, w.delta,
       static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr int keys = kv_keys(DC);
+  constexpr int keys = kv_keys(DC, kRows);
   if (!key_map(&km, k, s, keys) || !key_map(&vm, v, s, keys)) return cudaErrorInvalidValue;
-  smem = sizeof(DkdvWgSmem<DC>) + 1024;
-  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC>;
+  smem = sizeof(DkdvWgSmem<DC, kRows>) + 1024;
+  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, kRows>;
   e = allow_smem(kv_kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(s.B * s.Hkv, (s.Sk + keys - 1) / keys);
-  kv_kern<<<grid, kWsThreads, smem, st>>>(qm, km, vm, dom, lse, delta, static_cast<bf16*>(dk),
+  kv_kern<<<grid, kWsThreads, smem, st>>>(qm, km, vm, dom, lse, w.delta, static_cast<bf16*>(dk),
                                           static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh,
                                           s.causal, s.window, s.scale);
   return cudaGetLastError();
+}
+
+// the launchers above at the head dim's count of column chunks
+template <bool kRows>
+cudaError_t launch_fwd_wgmma_dc(const void* q, const void* k, const void* v, void* o, float* lse,
+                                void* work, const Shape& s, cudaStream_t st) {
+  switch (wgmma_chunks(s.dh)) {
+    case 1: return launch_fwd_wgmma<1, kRows>(q, k, v, o, lse, work, s, st);
+    case 2: return launch_fwd_wgmma<2, kRows>(q, k, v, o, lse, work, s, st);
+    case 3: return launch_fwd_wgmma<3, kRows>(q, k, v, o, lse, work, s, st);
+    default: return launch_fwd_wgmma<4, kRows>(q, k, v, o, lse, work, s, st);
+  }
+}
+template <bool kRows>
+cudaError_t launch_bwd_wgmma_dc(const void* q, const void* k, const void* v, const void* o,
+                                const void* dout, const float* lse, void* work, void* dq,
+                                void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  switch (wgmma_chunks(s.dh)) {
+    case 1: return launch_bwd_wgmma<1, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 2: return launch_bwd_wgmma<2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 3: return launch_bwd_wgmma<3, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    default: return launch_bwd_wgmma<4, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+  }
 }
 
 // fp32 through tf32x3: the split's scratch, tensor maps and grids
@@ -2387,10 +2177,11 @@ cudaError_t launch_bwd_x3(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-// The variants: 0 the fp32 tf32x3 kernels, 1 the bf16 WMMA kernels, 2 the
-// bf16 wgmma kernels.  The wrapper's variant() chooses one from the shape; a
-// launch refuses a variant that cannot take the shape.
-enum Variant { kTf32x3 = 0, kWmma = 1, kWgmma = 2 };
+// The variants: 0 the fp32 tf32x3 kernels, 1 the bf16 wgmma kernels on the
+// caller's q and dout, 2 the same kernels on their gathered copies
+// (wgmma_rows).  The wrapper's variant() chooses one from the shape; a launch
+// refuses a variant that cannot take the shape.
+enum Variant { kTf32x3 = 0, kWgmma = 1, kWgmmaRows = 2 };
 
 bool bad_shape(const Shape& s) {
   return s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.Hq % s.Hkv != 0 ||
@@ -2407,14 +2198,17 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
            ((long long)s.Sq * G + rows - 1) / rows * x3_q_chunks(s) > 65535 ||
            (s.Sk + rows - 1) / rows * x3_kv_chunks(s) > 65535;
   }
-  if (variant == kWmma) return dtype != 1;
-  if (variant != kWgmma || dtype != 1) return true;
-  // whole positions per 64-row box, and the grids' second dimension (the
-  // dQ kernel's row blocks are the smallest, the dK/dV kernel's key blocks)
+  if ((variant != kWgmma && variant != kWgmmaRows) || dtype != 1) return true;
+  // whole positions per 64-row box (wgmma), the gather's grid (wgmma_rows),
+  // and the grids' second dimension (the dQ kernel's row blocks are the
+  // smallest, the dK/dV kernel's key blocks)
   const int dc = wgmma_chunks(s.dh);
+  const bool rows_v = variant == kWgmmaRows;
   const long long rows = dq_consumers(dc) * kWgRows;
-  return kWgRows % G != 0 || ((long long)s.Sq * G + rows - 1) / rows > 65535 ||
-         (s.Sk + kv_keys(dc) - 1) / kv_keys(dc) > 65535;
+  return (variant == kWgmma && kWgRows % G != 0) ||
+         (variant == kWgmmaRows && rows_gather_blocks(s) > 0x7fffffffLL) ||
+         ((long long)s.Sq * G + rows - 1) / rows > 65535 ||
+         (s.Sk + kv_keys(dc, rows_v) - 1) / kv_keys(dc, rows_v) > 65535;
 }
 
 }  // namespace
@@ -2426,17 +2220,17 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
 // launches (0 on success), or cudaErrorInvalidValue for a shape or variant
 // it refuses.
 
-// Floats of scratch a call needs: the tf32x3 split's operands and row stats,
-// the wgmma backward's delta [B,Hq,Sq]; 0 otherwise.
+// Floats of scratch a call needs: the tf32x3 split's operands and row stats;
+// the wgmma_rows gathered copies of q (and dout); the wgmma and wgmma_rows
+// backward's delta [B,Hq,Sq]; 0 otherwise.
 extern "C" long long flash_attention_work_floats(int B, int Sq, int Sk, int Hq, int Hkv, int dh,
                                                  int causal, int window, int variant,
                                                  int backward) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return 0;
-  if (variant == kTf32x3) {
-    const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, 0.f};
-    return (long long)X3Work(s, nullptr, backward != 0).floats;
-  }
-  if (variant == kWgmma && backward) return (long long)B * Hq * Sq;
+  const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, 0.f};
+  if (variant == kTf32x3) return (long long)X3Work(s, nullptr, backward != 0).floats;
+  if (variant == kWgmma || variant == kWgmmaRows)
+    return (long long)WgWork(s, nullptr, variant == kWgmmaRows, backward != 0).floats;
   return 0;
 }
 
@@ -2448,7 +2242,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (variant == kWmma) return (int)launch_fwd_tc(q, k, v, o, l, s, st);
   if (variant == kTf32x3) {
     switch ((dh + 63) / 64) {
       case 1: return (int)launch_fwd_x3<1>(q, k, v, o, l, work, s, st);
@@ -2457,17 +2250,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       default: return (int)launch_fwd_x3<4>(q, k, v, o, l, work, s, st);
     }
   }
-  switch (wgmma_chunks(dh)) {
-    case 1: return (int)launch_fwd_wgmma<1>(q, k, v, o, l, s, st);
-    case 2: return (int)launch_fwd_wgmma<2>(q, k, v, o, l, s, st);
-    case 3: return (int)launch_fwd_wgmma<3>(q, k, v, o, l, s, st);
-    default: return (int)launch_fwd_wgmma<4>(q, k, v, o, l, s, st);
-  }
+  if (variant == kWgmmaRows) return (int)launch_fwd_wgmma_dc<true>(q, k, v, o, l, work, s, st);
+  return (int)launch_fwd_wgmma_dc<false>(q, k, v, o, l, work, s, st);
 }
 
-// Both backward kernels: dK/dV then dQ (wmma); the split, then dQ, then
-// dK/dV (tf32x3); or dQ, which also writes delta into work, then dK/dV
-// (wgmma).
+// The backward kernels: the split, then dQ, then dK/dV, then the reduce
+// (tf32x3); dQ, which also writes delta into work, then dK/dV (wgmma); or
+// the gather of q and dout into work, then the same two (wgmma_rows).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
@@ -2477,10 +2266,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
-  if (variant == kWmma) {
-    const cudaError_t e = launch_dkdv_tc(q, k, v, o, dout, l, dk, dv, s, st);
-    return (int)(e != cudaSuccess ? e : launch_dq_tc(q, k, v, o, dout, l, dq, s, st));
-  }
   if (variant == kTf32x3) {
     switch ((dh + 63) / 64) {
       case 1: return (int)launch_bwd_x3<1>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
@@ -2489,11 +2274,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       default: return (int)launch_bwd_x3<4>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
     }
   }
-  auto d = static_cast<float*>(work);
-  switch (wgmma_chunks(dh)) {
-    case 1: return (int)launch_bwd_wgmma<1>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
-    case 2: return (int)launch_bwd_wgmma<2>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
-    case 3: return (int)launch_bwd_wgmma<3>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
-    default: return (int)launch_bwd_wgmma<4>(q, k, v, o, dout, l, d, dq, dk, dv, s, st);
-  }
+  if (variant == kWgmmaRows)
+    return (int)launch_bwd_wgmma_dc<true>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+  return (int)launch_bwd_wgmma_dc<false>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
 }

@@ -6,14 +6,15 @@ forward launches the forward kernel, which also writes the per-row
 logsumexp, and its backward launches the two backward kernels.  Which
 kernels take a shape is :func:`variant`'s choice, made from the dtype, the
 head dim and the GQA group before any launch: ``"wgmma"`` (bf16, group
-dividing 64, every head dim), ``"wmma"`` (other bf16) or ``"tf32x3"`` (fp32,
-every head dim and group: each fp32 product as three TF32 products on the
-tensor cores).  A tensor on the CPU goes to the plain version
+dividing 64, every head dim), ``"wgmma_rows"`` (bf16, any other group: the
+same kernels on a gathered copy of q and dout) or ``"tf32x3"`` (fp32, every
+head dim and group: each fp32 product as three TF32 products on the tensor
+cores).  A tensor on the CPU goes to the plain version
 (:func:`attention_ref`), which autograd differentiates.  A CUDA tensor goes
 to the kernels of its variant, or the wrapper raises: there is no fallback.
 The wrapper allocates the scratch a call needs (the size is the library's
-``flash_attention_work_floats``): the tf32x3 split's operands, the wgmma
-backward's delta.
+``flash_attention_work_floats``): the tf32x3 split's operands, the
+wgmma_rows gathered copies, the bf16 backward's delta.
 """
 from __future__ import annotations
 
@@ -30,17 +31,18 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = ("tf32x3", "wmma", "wgmma")  # index = the kernels' variant number
+VARIANTS = ("tf32x3", "wgmma", "wgmma_rows")  # index = the kernels' variant number
 _INTS = 8  # B, Sq, Sk, Hq, Hkv, dh, causal, window
 _fns: dict[str, object] = {}
 
 
 def variant(dtype: torch.dtype, dh: int, G: int) -> str:
     """The kernels that take a shape: ``"wgmma"`` for bf16 with a GQA group
-    G that divides 64 (the wgmma kernels' 64-row boxes hold whole
-    positions), at every head dim; ``"wmma"`` for other bf16; ``"tf32x3"``
-    for fp32 at every head dim and every G.  Raises for what no kernel
-    takes."""
+    G that divides 64 (a 64-row box of q then holds whole positions), at
+    every head dim; ``"wgmma_rows"`` for bf16 with any other G, at every head
+    dim (a gather pass first lays out the rows of each kv head contiguously);
+    ``"tf32x3"`` for fp32 at every head dim and every G.  Raises for what no
+    kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
@@ -49,7 +51,7 @@ def variant(dtype: torch.dtype, dh: int, G: int) -> str:
         raise ValueError(f"flash_attention: GQA group {G} must be positive")
     if dtype == torch.float32:
         return "tf32x3"
-    return "wgmma" if 64 % G == 0 else "wmma"
+    return "wgmma" if 64 % G == 0 else "wgmma_rows"
 
 
 def _kernel(name: str, n_ptr: int):
@@ -151,9 +153,10 @@ def flash_attention_bwd(
     """The two backward kernels (dK/dV per key tile, dQ per row tile):
     (dq, dk, dv) in the inputs' dtype.  Counts one backward launch.  The
     wgmma variant runs dQ first, which writes D = rowsum(dO * O) once into an
-    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads; the tf32x3 variant
-    first splits q, k, v and dout into its scratch and writes D and the
-    logsumexp per row there."""
+    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads; wgmma_rows first
+    gathers q and dout into its scratch, and its dQ kernel sums D = rowsum(P
+    * dP) over the keys; the tf32x3 variant first splits q, k, v and dout
+    into its scratch and writes D and the logsumexp per row there."""
     _check(q, k, v, window)
     if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
             or dout.dtype != q.dtype or not (out.is_contiguous() and dout.is_contiguous())
@@ -215,9 +218,10 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
-# kernel launches: forward-kernel calls and backward calls (each backward
-# call launches the dK/dV and the dQ kernel) that reached the card, and
-# nowhere else; launches_by_variant splits them by variant().  Callers that
+# kernel launches: forward calls and backward calls (each backward call
+# launches the dQ and the dK/dV kernel, after the gather pass of wgmma_rows
+# or the split of tf32x3) that reached the card, and nowhere else;
+# launches_by_variant splits them by variant().  Callers that
 # prove a path went through the kernels reset them (reset_launches) and read
 # them.
 def reset_launches() -> None:

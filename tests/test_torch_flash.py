@@ -32,7 +32,9 @@ TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # tests/test_kernels.py:24-30, the smoke head dim of 8, and gemma3's head
 # dim of 256 (four 64-column chunks in the kernels on the card) and 192
-# (three), at its group of 2, with a window and without
+# (three), at its group of 2, with a window and without; then groups that do
+# not divide 64 (on the card, bf16 takes the wgmma_rows kernels there): G 3,
+# G 5 with a window, and G 72, past one 64-row tile
 FLASH_CASES = [
     # (B, Sq, Sk, Hq, Hkv, d, causal, window, blk)
     (1, 64, 64, 1, 1, 32, True, None, 32),
@@ -45,6 +47,9 @@ FLASH_CASES = [
     (1, 64, 64, 2, 1, 192, True, None, 32),
     (1, 64, 64, 2, 1, 256, True, 16, 32),
     (1, 64, 64, 2, 1, 256, True, None, 32),
+    (1, 40, 40, 6, 2, 24, True, None, 16),
+    (2, 30, 30, 10, 2, 32, True, 8, 16),
+    (1, 20, 20, 72, 1, 16, True, None, 16),
 ]
 
 

@@ -34,11 +34,13 @@ def test_groups_dividing_64_take_wgmma(G):
     assert variant(torch.bfloat16, 64, G) == "wgmma"
 
 
-@pytest.mark.parametrize("G", [3, 5, 6, 12, 128])
-def test_groups_not_dividing_64_take_wmma(G):
-    """The bf16 wgmma kernels' 64-row boxes hold whole positions of a group;
-    the fp32 kernels tile the split's rows, so every group takes them."""
-    assert variant(torch.bfloat16, 64, G) == "wmma"
+@pytest.mark.parametrize("G", [3, 5, 6, 12, 72, 96, 128])
+def test_groups_not_dividing_64_take_wgmma_rows(G):
+    """A 64-row box of q holds whole positions only where G divides 64; for
+    any other group the bf16 kernels read a gathered copy of the rows
+    (wgmma_rows), at every head dim.  The fp32 kernels tile the split's
+    rows, so every group takes them."""
+    assert {variant(torch.bfloat16, dh, G) for dh in range(8, 257, 8)} == {"wgmma_rows"}
     assert variant(torch.float32, 64, G) == "tf32x3"
 
 
@@ -50,7 +52,7 @@ def test_fp32_takes_tf32x3_at_every_head_dim_and_group(G):
 @pytest.mark.parametrize("dh", [136, 192, 256])
 @pytest.mark.parametrize("G", [1, 2, 3, 8, 12])
 def test_head_dims_above_128_take_wgmma_where_the_group_divides_64(dh, G):
-    assert variant(torch.bfloat16, dh, G) == ("wgmma" if 64 % G == 0 else "wmma")
+    assert variant(torch.bfloat16, dh, G) == ("wgmma" if 64 % G == 0 else "wgmma_rows")
 
 
 @pytest.mark.parametrize("dh", [0, 12, 100, 264])
@@ -74,5 +76,5 @@ def test_cpu_tensors_count_no_launch():
     torch.testing.assert_close(out, attention_ref(q, kv, kv), atol=0, rtol=0)
     assert flash_attention.launches_fwd == flash_attention.launches_bwd == 0
     assert flash_attention.launches_by_variant == {
-        v: {"fwd": 0, "bwd": 0} for v in ("tf32x3", "wmma", "wgmma")
+        v: {"fwd": 0, "bwd": 0} for v in ("tf32x3", "wgmma", "wgmma_rows")
     }

@@ -422,9 +422,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 
 # (B, S, Hq, Hkv, dh, causal, window): the train shape, gemma3-like local,
 # smoke, ragged non-causal, MQA/MHA with a ragged edge, a head dim the bf16
-# kernels pad to 16 (24) at G 3, which does not divide the wgmma kernels'
-# 64-row boxes and takes the WMMA kernels, and dh 136 with a window on a
-# non-causal layer; then edges of the wgmma
+# kernels pad to 16 (24) at G 3, which does not divide 64 and takes the
+# wgmma_rows kernels (the rows of a kv head gathered first), and dh 136 with
+# a window on a non-causal layer; then edges of the wgmma
 # kernels: S not a multiple of their row (128) or key (64, 128) tiles, G 1,
 # 2, 8 and 64, a window on a causal and on a non-causal layer, dh 16 and 128
 # (two 64-column chunks); then head dims above 128 (WIDE_FLASH_CASES)
@@ -447,7 +447,7 @@ FLASH_CASES = [
 # dh 136 (three 64-column chunks, the last mostly padding), 192 (three) and
 # 256 (four; gemma3's local and global layers at G 2) at G 1, 2 and 8,
 # causal, windowed and non-causal, with S ragged against the 64-key and
-# 128-row tiles; and dh 256 at G 3, which takes the WMMA kernels
+# 128-row tiles; and dh 256 at G 3, which takes the wgmma_rows kernels
 WIDE_FLASH_CASES = [
     (1, 333, 2, 1, 136, True, None),
     (2, 200, 8, 8, 136, False, None),
@@ -461,14 +461,16 @@ WIDE_FLASH_CASES = [
     (1, 100, 8, 1, 256, False, 40),
     (1, 190, 6, 2, 256, True, None),
 ]
-FLASH_CASES += WIDE_FLASH_CASES
-# fp32 only: groups past one 64-row tile (G 72 and 128: the tf32x3 kernels'
-# tile is then 64 heads of one position) and G 5, which the fp32 kernels
-# take like any other group
-FP32_FLASH_CASES = [
+# groups past one 64-row tile (G 72 and 128: a row tile is then 64 heads of
+# one position, in the wgmma_rows and the tf32x3 kernels), G 5 at dh 256
+# with a window, and the wgmma_rows kernels at two and three 64-column
+# chunks (G 3 at dh 96, G 5 at dh 136)
+FLASH_CASES += WIDE_FLASH_CASES + [
     (1, 70, 72, 1, 64, True, None),
     (1, 33, 128, 1, 16, False, None),
     (2, 150, 10, 2, 256, True, 64),
+    (1, 45, 9, 3, 96, True, 16),
+    (1, 77, 15, 3, 136, False, 20),
 ]
 
 
@@ -485,8 +487,7 @@ def flash_oracle(q, k, v, dout, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "case, dtype",
-    [(c, d) for d in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
-    + [(c, torch.float32) for c in FP32_FLASH_CASES],
+    [(c, d) for d in (torch.float32, torch.bfloat16) for c in FLASH_CASES],
 )
 def test_flash_attention_kernels_match_plain(case, dtype):
     if not torch.cuda.is_available():
@@ -537,7 +538,7 @@ def test_flash_attention_train_shape_runs_wgmma():
     by = flash_ops.flash_attention.launches_by_variant
     assert flash_ops.variant(torch.bfloat16, 64, 8) == "wgmma"
     assert by["wgmma"] == {"fwd": 1, "bwd": 1}
-    assert by["wmma"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
+    assert by["wgmma_rows"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
 
 
 @pytest.mark.cuda
@@ -561,15 +562,17 @@ def test_flash_attention_gemma3_shape_runs_wgmma(window):
     by = flash_ops.flash_attention.launches_by_variant
     assert flash_ops.variant(torch.bfloat16, 256, 2) == "wgmma"
     assert by["wgmma"] == {"fwd": 3, "bwd": 3}
-    assert by["wmma"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
+    assert by["wgmma_rows"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
 
 
-# (B, S, Hq, Hkv, dh, dtype): a ragged shape, the train shape, and gemma3's
-# head dim (bf16: dK/dV columns split between the two warpgroups), in bf16;
-# the ragged shape at G 3, gemma3's global layer and the train shape in fp32
+# (B, S, Hq, Hkv, dh, dtype): a ragged shape, the train shape, gemma3's head
+# dim (bf16: dK/dV columns split between the two warpgroups) and the ragged
+# shape at G 3 (wgmma_rows), in bf16; the ragged shape at G 3, gemma3's
+# global layer and the train shape in fp32
 DETERMINISM_CASES = [
     (2, 300, 8, 2, 64, torch.bfloat16), (4, 2048, 32, 4, 64, torch.bfloat16),
-    (1, 2048, 8, 4, 256, torch.bfloat16), (2, 300, 6, 2, 64, torch.float32),
+    (1, 2048, 8, 4, 256, torch.bfloat16), (2, 300, 6, 2, 64, torch.bfloat16),
+    (2, 300, 6, 2, 64, torch.float32),
     (1, 2048, 8, 4, 256, torch.float32), (4, 2048, 32, 4, 64, torch.float32),
 ]
 
