@@ -46,13 +46,22 @@ step at full depth (B 1 x S 2048, remat full, two warm-up and three timed);
 and a 6-layer model whose card logits (bf16) are held against the CPU
 port's in fp32.
 
-Then the recsys and GNN paths: it holds the embedding-bag kernel against its
-plain version at the FM, DCN-v2 and retrieval lookup shapes over the
-full-size tables (and a SASRec-like mean and a smoke case); serves FM,
+Then the recsys and GNN paths: it prints ptxas's registers and spills for
+every embedding-bag instantiation (a spill fails the run) and holds the
+embedding-bag kernel, fp32 and bf16, against its plain versions at every bag
+shape the recsys ``serve_bulk`` path launches over the full-size tables
+(FM's field sums, its linear term at width 1 and its ``rows()`` bags of
+one; DCN-v2's, BST's and SASRec's bags of one), at the retrieval
+candidates, a SASRec-like weighted mean, a smoke case and 1,024 bags of
+4,096 ids: bit for bit against ``embedding_bag_seq_ref`` (the kernel's
+arithmetic) and within TOL of ``embedding_bag_ref``, with its times beside
+the bound, a sector-rounded diagnostic, the plain version and the library
+call; serves FM,
 DCN-v2, BST and SASRec at full width through ``build_serve_step`` at
 ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``, counting the kernel's
-launches and profiling one ``serve_p99`` call per model, and checks the fp32
-smoke models on the card against the CPU; builds the gated aggregation's
+launches by model and cell and profiling one ``serve_p99`` call per model
+and FM's ``serve_bulk`` call by kernel, and checks the fp32 smoke models on
+the card against the CPU; builds the gated aggregation's
 row-pointer (CSR) index on the card under the sync debug mode (any read back
 to the host fails) and holds the aggregation kernels (forward with num and
 den; one backward launch for dgates and dh) against their plain versions
@@ -857,19 +866,39 @@ def lm_batch(vocab: int, B: int, S: int, step: int, dev) -> dict:
             "targets": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
-def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = ()) -> dict:
+PROFILE_LEAD_CYCLES = 100_000  # about 50 us at the H100's 1.98 GHz
+
+
+def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = (),
+                 warm: bool = False) -> dict:
     """``fn`` once under torch.profiler: wall time, the device's busy and
     idle share, the kernels that take the device time, and the time and
-    count of the kernels whose names hold a string of ``watch``."""
+    count of the kernels whose names hold a string of ``watch``.  ``warm``
+    (for an ``fn`` that may run twice): a first, uncounted call goes before
+    the counted one."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the first kernels after it starts (it dropped
+        # FM serve_bulk's first three, and in a later run its first): a short
+        # sleep kernel goes first and is not counted; with warm, a whole
+        # call goes first, and only what follows the last sleep is counted
+        torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
+        if warm:
+            fn()
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = device_events(prof)
+    spins = [e.time_range.end for e in evs if "spin_kernel" in e.name]
+    if warm and spins:
+        evs = [e for e in evs if e.time_range.start >= max(spins)]
+    evs = [e for e in evs if "spin_kernel" not in e.name]
     if not evs:
         print(f"profile {label}: the profiler saw no device events; idle share not measured")
         return {}
@@ -881,12 +910,15 @@ def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = (
           f"device_idle_share {1 - busy_us / wall_us:.4f} device_kernels {len(evs)}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n_kernels]:
         print(f"profile {label}: {us / 1e3:10.3f} ms {us / busy_us:7.2%} {name[:100]}")
+    watched = {}
     for w in watch:
         hits = [e.time_range.elapsed_us() for e in evs if w in e.name]
         print(f"profile {label}: {w}: {sum(hits) / 1e3:.3f} ms {sum(hits) / busy_us:.2%} "
               f"of busy in {len(hits)} kernels")
+        watched[w] = {"ms": sum(hits) / 1e3, "busy_share": sum(hits) / busy_us,
+                      "kernels": len(hits)}
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": 1 - busy_us / wall_us}
+            "idle_share": 1 - busy_us / wall_us, "watch": watched}
 
 
 def phase_train(dev) -> dict:
@@ -1437,23 +1469,39 @@ def phase_gemma3(dev) -> dict:
 # --------------------------------------------------------------------------
 BAG_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 BAG_TPU = "src/repro/kernels/embedding_bag/kernel.py:70"
+BAG_VARIANT = "tile_ring"  # tiles of bags, ids and rows staged by cp.async into a ring
 # (label, arch whose full table is gathered, cell whose batch gives the ids,
-#  combiner, weighted)
+#  lookup, combiner, weighted).  lookup: "fields" FM's stacked field ids, one
+#  bag a sample; "linear" the same bags over FM's w_linear (width 1); "rows"
+#  the model's rows() lookups at the cell, as bags of one; "candidates" the
+#  candidate ids as bags of one; "history" SASRec's histories as bags; "long"
+#  LONG_BAGS bags of LONG_IDS ids over a LONG_V x LONG_DIM table, each bag
+#  longer than a stage
 BAG_CASES = [
-    ("fm serve_bulk bags", "fm", "serve_bulk", "sum", False),
-    ("dcn-v2 bags of one", "dcn-v2", "serve_bulk", "sum", False),
-    ("retrieval bags of one", "bst", "retrieval_cand", "sum", False),
-    ("sasrec-like mean", "sasrec", "serve_bulk", "mean", True),
-    ("smoke fm bags", "fm-smoke", "serve_p99", "sum", True),
+    ("fm serve_bulk bags", "fm", "serve_bulk", "fields", "sum", False),
+    ("dcn-v2 bags of one", "dcn-v2", "serve_bulk", "rows", "sum", False),
+    ("retrieval bags of one", "bst", "retrieval_cand", "candidates", "sum", False),
+    ("sasrec-like mean", "sasrec", "serve_bulk", "history", "mean", True),
+    ("smoke fm bags", "fm-smoke", "serve_p99", "fields", "sum", True),
+    ("fm rows", "fm", "serve_bulk", "rows", "sum", False),
+    ("fm linear bags", "fm", "serve_bulk", "linear", "sum", False),
+    ("bst bags of one", "bst", "serve_bulk", "rows", "sum", False),
+    ("sasrec bags of one", "sasrec", "serve_bulk", "rows", "sum", False),
+    ("long bags", None, None, "long", "sum", False),
 ]
 BAG_MAIN = "fm serve_bulk bags"  # FM's field sums at serve_bulk: the largest bag of the path
+LONG_V, LONG_DIM, LONG_BAGS, LONG_IDS = 100_000, 128, 1024, 4096
+SECTOR_BYTES = 32
 
 
-def bag_inputs(arch: str, cell_name: str, dev):
+def bag_inputs(arch: str | None, cell_name: str | None, lookup: str, dev):
     """(table spec (V, dim), ids [n_bags, bag] int32) as the model path
-    makes them from ``make_batch``: FM's stacked field ids as one bag per
-    row, DCN-v2's as bags of one, candidates as bags of one, SASRec's
-    histories as bags."""
+    makes them from ``make_batch`` (see BAG_CASES)."""
+    if lookup == "long":
+        gen = torch.Generator(device=dev).manual_seed(11)
+        ids = torch.randint(0, LONG_V, (LONG_BAGS, LONG_IDS), generator=gen, device=dev,
+                            dtype=torch.int32)
+        return (LONG_V, LONG_DIM), ids
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.data import make_batch
     from repro_torch.models.recsys import _stacked_ids
@@ -1464,15 +1512,20 @@ def bag_inputs(arch: str, cell_name: str, dev):
     cell = next(c for c in get_shapes(name) if c.name == cell_name)
     batch = make_batch(cfg, cell, seed=0, device=dev)
     V = sum(cfg.vocab_sizes) or cfg.item_vocab
-    if name == "fm":
+    dim = 1 if lookup == "linear" else cfg.embed_dim
+    if lookup in ("fields", "linear"):
         ids = _stacked_ids(cfg, batch["sparse_ids"])
-    elif name == "dcn-v2":
-        ids = _stacked_ids(cfg, batch["sparse_ids"]).reshape(-1, 1)
-    elif "candidate_ids" in batch:
+    elif lookup == "candidates":
         ids = batch["candidate_ids"].reshape(-1, 1)
-    else:
+    elif lookup == "history":
         ids = batch["hist_ids"]
-    return (V, cfg.embed_dim), ids.contiguous()
+    elif name in ("fm", "dcn-v2"):  # rows(): the field rows
+        ids = _stacked_ids(cfg, batch["sparse_ids"]).reshape(-1, 1)
+    elif name == "bst":  # rows(): the history with the target appended
+        ids = torch.cat([batch["hist_ids"], batch["target_id"][:, None]], dim=1).reshape(-1, 1)
+    else:  # sasrec rows(): the history
+        ids = batch["hist_ids"].reshape(-1, 1)
+    return (V, dim), ids.to(torch.int32).contiguous()
 
 
 def bag_bound_ms(ids, dim: int, itemsize: int, weighted: bool) -> tuple[float, str]:
@@ -1490,14 +1543,73 @@ def bag_bound_ms(ids, dim: int, itemsize: int, weighted: bool) -> tuple[float, s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_bag(dev) -> dict:
-    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+def bag_sector_ms(ids, dim: int, itemsize: int, weighted: bool) -> float:
+    """A diagnostic beside the bound: the bound's bytes with each distinct
+    row rounded up to the whole 32-byte sectors it touches (a 40-byte row
+    touches two or three)."""
+    n_bags, _ = ids.shape
+    row = dim * itemsize
+    start = torch.unique(ids).long() * row
+    sectors = ((start + row - 1) // SECTOR_BYTES - start // SECTOR_BYTES + 1).sum().item()
+    nbytes = sectors * SECTOR_BYTES + ids.numel() * 4 * (2 if weighted else 1) + n_bags * row
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
+
+def long_bag_ratio(got, table, ids, w, combiner: str, tol: float) -> tuple[float, float]:
+    """(max abs err, worst err / allowed) of a sum over thousands of ids per
+    bag, against the exact sum (fp64).  A j-ordered fp32 sum of 4,096 terms
+    (the kernel's, bit for bit ``embedding_bag_seq_ref``) and torch's pairwise
+    one differ by more than TOL, so the allowance is TOL (1 + |exact|) plus
+    the bound on n sequential fp32 additions, gamma_n sum_j |w_j x_j| with
+    gamma_n = n u / (1 - n u), u = 2^-24 (Higham, Accuracy and Stability of
+    Numerical Algorithms, 4.2)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+
+    t64 = table.double()
+    w64 = None if w is None else w.double()
+    want = embedding_bag_ref(t64, ids, w64, combiner)
+    mass = embedding_bag_ref(t64.abs(), ids, None if w is None else w64.abs(), combiner)
+    nu = ids.shape[1] * 2.0**-24
+    diff = (got.double() - want).abs()
+    ratio = (diff / (tol * (1 + want.abs()) + nu / (1 - nu) * mass)).max().item()
+    return diff.max().item(), ratio
+
+
+def print_bag_ptxas() -> None:
+    """ptxas's registers and spills for every embedding-bag instantiation as
+    built; one that spills fails the run."""
+    from repro_torch.kernels import build
+
+    rows = build.ptxas_report("embedding_bag")
+    for row in rows:
+        print(f"ptxas {row['kernel']}: registers {row['registers']} spill stores "
+              f"{row['spill_stores']} B loads {row['spill_loads']} B")
+        check(row["spill_stores"] == row["spill_loads"] == 0,
+              f"ptxas: {row['kernel']} spills {row['spill_stores']} B")
+    check(len(rows) > 0, "ptxas: no report for the embedding-bag library")
+
+
+def phase_bag(dev) -> dict:
+    """Every BAG_CASES case in fp32 and bf16: the kernel against its plain
+    versions (bit for bit against ``embedding_bag_seq_ref``, the kernel's
+    arithmetic; within TOL of ``embedding_bag_ref``), then its times and
+    plan beside the bound, the plain version and the library call
+    (``F.embedding`` for bags of one, ``F.embedding_bag`` for other bags but
+    weighted means and bf16 weighted sums, which no single call computes on
+    fp32 weights)."""
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag,
+        embedding_bag_ref,
+        embedding_bag_seq_ref,
+    )
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    print_bag_ptxas()
     F = torch.nn.functional
     results = {}
     gen = torch.Generator(device=dev).manual_seed(77)
-    for label, arch, cell_name, combiner, weighted in BAG_CASES:
-        (V, dim), ids = bag_inputs(arch, cell_name, dev)
+    for label, arch, cell_name, lookup, combiner, weighted in BAG_CASES:
+        (V, dim), ids = bag_inputs(arch, cell_name, lookup, dev)
         n_bags, bag = ids.shape
         table32 = torch.randn(V, dim, generator=gen, device=dev)
         w = torch.rand(n_bags, bag, generator=gen, device=dev) if weighted else None
@@ -1507,11 +1619,20 @@ def phase_bag(dev) -> dict:
             table = table32 if dtype == torch.float32 else table32.to(dtype)
             got = embedding_bag(table, ids, w, combiner=combiner)
             want = embedding_bag_ref(table.float(), ids, w, combiner)  # fp32, same values
+            exact = embedding_bag_seq_ref(table, ids, w, combiner)
+            same = bool(((got == exact) | (got.isnan() & exact.isnan())).all())
+            bits = "equal" if same else "DIFFER"
+            check(same, f"embedding_bag {label} {tname}: differs from embedding_bag_seq_ref")
+            del exact
             torch.cuda.synchronize()
             tol = TOL[dtype]
-            err, ratio = assert_close_ratio(got, want, tol)
+            if lookup == "long":
+                err, ratio = long_bag_ratio(got, table, ids, w, combiner, tol)
+            else:
+                err, ratio = assert_close_ratio(got, want, tol)
             print(f"bag check {label:22s} {tname:8s} bags {n_bags} x {bag} dim {dim} V {V} "
-                  f"max_abs_err {err:.3e} tol atol=rtol={tol:.0e} worst ratio {ratio:.3f}")
+                  f"bits vs seq_ref {bits} max_abs_err {err:.3e} tol atol=rtol={tol:.0e} "
+                  f"worst ratio {ratio:.3f}")
             check(math.isfinite(err) and ratio <= 1.0,
                   f"embedding_bag {label} {tname}: max_abs_err {err}, worst ratio {ratio}")
             del got, want
@@ -1520,19 +1641,36 @@ def phase_bag(dev) -> dict:
             row = dict(ms=cuda_ms(run, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
                        queued_ms=queued_ms(run), flushed_ms=flushed_ms(run),
                        plain_ms=cuda_ms(lambda: embedding_bag_ref(table, ids, w, combiner),
-                                        iters=iters, warmup=2),
-                       library_ms=None, max_abs_err=err)
-            if not weighted:  # F.embedding_bag computes the same function only unweighted
+                                        iters=min(iters, 10), warmup=1),
+                       library_ms=None, max_abs_err=err, bits=bits)
+            if bag == 1 and not weighted:  # a bag of one is a row: F.embedding
+                flat = ids[:, 0]
+                row["library_ms"] = cuda_ms(lambda: F.embedding(flat, table), iters=iters,
+                                            warmup=2)
+            elif not weighted or (combiner == "sum" and dtype == torch.float32):
+                # it weighs only sums, by weights of the table's type (fp32 here)
                 row["library_ms"] = cuda_ms(
-                    lambda: F.embedding_bag(ids, table, mode=combiner), iters=iters, warmup=2)
+                    lambda: F.embedding_bag(ids, table, mode=combiner, per_sample_weights=w),
+                    iters=iters, warmup=2)
             row["bound_ms"], row["bound_by"] = bag_bound_ms(ids, dim, table.element_size(),
                                                             weighted)
+            row["sector_ms"] = bag_sector_ms(ids, dim, table.element_size(), weighted)
+            out = torch.empty(n_bags, dim, dtype=dtype, device=dev)
+            vec = bag_ops.build.vector_width(dim, table.element_size(), table, out)
+            p = bag_ops.plan(n_bags, bag, dim, dtype, vec, weighted=weighted,
+                             sms=bag_ops._sms(dev))
+            row["plan"] = {"tile_bags": p.tile_bags, "chunk_ids": p.chunk_ids,
+                           "chunks": p.chunks, "copy_bytes": p.copy_bytes, "one": p.one,
+                           "wide": p.wide, "grid": p.grid, "smem_bytes": p.smem_bytes}
+            del out
             lib = f"{row['library_ms']:.6f}" if row["library_ms"] is not None else "n/a"
             print(f"bag time  {label:22s} {tname:8s} ms {row['ms']:.6f} device_ms "
                   f"{row['device_ms']:.6f} device_span_ms {row['span_ms']:.6f} queued_ms "
                   f"{row['queued_ms']:.6f} l2_flushed_ms {row['flushed_ms']:.6f} "
                   f"plain_ms {row['plain_ms']:.6f} library_ms {lib} "
-                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']})")
+                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}) sector_ms "
+                  f"{row['sector_ms']:.6f} plan tb {p.tile_bags} ic {p.chunk_ids} k "
+                  f"{p.chunks} copy {p.copy_bytes} B grid {p.grid} smem {p.smem_bytes}")
             results[(label, tname)] = row
             del table
         del table32, ids, w
@@ -1545,6 +1683,7 @@ def phase_bag(dev) -> dict:
 # --------------------------------------------------------------------------
 RECSYS = ("fm", "dcn-v2", "bst", "sasrec")
 RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+BAG_PROFILED = ("fm", "serve_bulk")  # the call profiled by kernel for the bag's share
 
 
 @torch.no_grad()
@@ -1582,18 +1721,29 @@ def phase_recsys(dev) -> dict:
             print(f"recsys {arch:7s} {name:15s} ms_per_call {ms:.6f} "
                   f"embedding_bag_launches_per_call {per_call} output {shape}")
             rows[(arch, name)] = dict(ms=ms, launches_per_call=per_call)
-            if name == "serve_p99":
-                prof = profile_call(f"recsys {arch} serve_p99", lambda: fn(params, **batch),
-                                    n_kernels=5)
+            if name == "serve_p99" or (arch, name) == BAG_PROFILED:
+                # serve_p99 for each model; FM's serve_bulk by kernel, the bag's share.
+                # The record says whether the profile saw every bag kernel the
+                # call launches.
+                prof = profile_call(f"recsys {arch} {name}", lambda: fn(params, **batch),
+                                    n_kernels=5 if name == "serve_p99" else 12,
+                                    watch=("embedding_bag_kernel",), warm=True)
+                seen = prof.get("watch", {}).get("embedding_bag_kernel", {}).get("kernels", 0)
+                prof["complete"] = seen == per_call
+                print(f"profile recsys {arch} {name}: saw {seen} of the call's {per_call} "
+                      "bag kernels")
                 rows[(arch, name)]["profile"] = prof
+            rows[(arch, name)]["launches"] = embedding_bag.launches - before
             del batch
         del params
         torch.cuda.empty_cache()
     launches = embedding_bag.launches
     print(f"recsys: embedding_bag launches {launches}")
     check(launches > 0, "recsys serving never launched the embedding-bag kernel")
+    before = embedding_bag.launches
     recsys_parity(dev)
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows,
+            "parity_launches": embedding_bag.launches - before}
 
 
 def recsys_parity(dev) -> None:
@@ -2342,13 +2492,16 @@ def main() -> int:
         })
     bm = bag["cases"][(BAG_MAIN, "float32")]
     bag_case = next(c for c in BAG_CASES if c[0] == BAG_MAIN)
+    bag_paths = {f"recsys {a} {c}": r["launches"] for (a, c), r in rec["rows"].items()}
+    bag_paths["recsys fp32 smoke parity (card vs CPU)"] = rec["parity_launches"]
     line["kernels"].append({
         "name": "embedding_bag",
         "route": "cuda",
         "source": BAG_SRC,
         "replaces": BAG_TPU,
-        "launches": rec["launches"],
-        "launches_by_path": {"recsys serving": rec["launches"]},
+        "launches": sum(bag_paths.values()),
+        "variant": BAG_VARIANT,
+        "launches_by_path": bag_paths,
         "max_abs_err": bm["max_abs_err"],
         "ms": bm["ms"],
         "device_ms": bm["device_ms"],
@@ -2360,7 +2513,11 @@ def main() -> int:
         "library_ms": bm["library_ms"],
         "held": True,
         "shape": {"case": BAG_MAIN, "arch": bag_case[1], "cell": bag_case[2],
-                  "combiner": bag_case[3], "dtype": "float32"},
+                  "combiner": bag_case[4], "dtype": "float32"},
+        "cases": {f"{label} {tname}": {k: r[k] for k in (
+            "queued_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")}
+            for (label, tname), r in bag["cases"].items()},
+        "fm_serve_bulk_profile": rec["rows"][BAG_PROFILED].get("profile", {}),
     })
     am = agg["cases"][(AGG_MAIN, "float32")]
     skew = agg["cases"][(AGG_SKEW, "float32")]["csr"]

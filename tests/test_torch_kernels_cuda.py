@@ -658,12 +658,16 @@ def test_train_step_remat_on_the_card(remat):
 # --------------------------------------------------------------------------
 import numpy as np
 
-from repro_torch.kernels.embedding_bag import embedding_bag_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.embedding_bag import embedding_bag_ref, embedding_bag_seq_ref
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 
 # (V, dim, n_bags, bag_size, combiner, weighted): the FM, DCN-v2 (bags of
 # one), retrieval and SASRec-like widths, the smoke widths, 128 and an odd
-# width (scalar loads), and an empty bag
+# width (scalar loads), and an empty bag; then bags longer than the shared
+# memory (96 rows of 4 KB, their sums carried across stages), bags of one by
+# the hundred thousand at FM's and SASRec's widths, and FM's linear term
+# (width 1, 39 ids)
 BAG_CASES = [
     (300, 10, 64, 39, "sum", False),
     (5000, 16, 1000, 1, "sum", False),
@@ -675,6 +679,10 @@ BAG_CASES = [
     (77, 13, 20, 5, "sum", True),
     (50, 1, 20, 9, "sum", False),
     (10, 6, 3, 0, "sum", False),
+    (20_000, 1024, 24, 96, "sum", True),
+    (100_000, 10, 100_000, 1, "sum", False),
+    (100_000, 50, 100_000, 1, "sum", False),
+    (1000, 1, 512, 39, "sum", False),
 ]
 
 
@@ -686,24 +694,123 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _bag_inputs(case, dtype, dev, seed=3):
+    V, dim, n_bags, bag, combiner, weighted = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(V, dim, generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, V, (n_bags, bag), generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand(n_bags, bag, generator=g, device=dev) if weighted else None
+    return table, ids, w, combiner
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BAG_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_embedding_bag_kernel_matches_plain(case, dtype):
     dev = _cuda()
     V, dim, n_bags, bag, combiner, weighted = case
-    g = torch.Generator(device=dev).manual_seed(3)
-    table = torch.randn(V, dim, generator=g, device=dev).to(dtype)
-    ids = torch.randint(0, V, (n_bags, bag), generator=g, device=dev, dtype=torch.int32)
-    w = torch.rand(n_bags, bag, generator=g, device=dev) if weighted else None
+    table, ids, w, combiner = _bag_inputs(case, dtype, dev)
     before = bag_ops.embedding_bag.launches
     got = bag_ops.embedding_bag(table, ids, w, combiner=combiner)
     want = embedding_bag_ref(table.float(), ids, w, combiner)  # fp32 on the same values
+    exact = embedding_bag_seq_ref(table, ids, w, combiner)  # the kernel's arithmetic
     torch.cuda.synchronize()
     assert bag_ops.embedding_bag.launches == before + 1
     assert got.dtype == dtype and got.shape == (n_bags, dim)
+    torch.testing.assert_close(got, exact, atol=0, rtol=0, equal_nan=True)
     torch.testing.assert_close(got.float(), want, atol=TOLS[dtype], rtol=TOLS[dtype],
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_sums_4096_ids_a_bag_in_order():
+    """Bags of 4,096 ids at width 128 (2 MB of rows a bag): the kernel's sum
+    is the j-ordered one, bit for bit.  Such a sum differs from the plain
+    version's (torch's pairwise order) by more than 2e-5, so it is held
+    against the exact sum (fp64) within 2e-5 plus the bound on the rounding
+    of n sequential fp32 additions, gamma_n * sum_j |w_j x_j| with
+    gamma_n = n u / (1 - n u), u = 2^-24 (Higham, Accuracy and Stability of
+    Numerical Algorithms, 4.2)."""
+    dev = _cuda()
+    table, ids, w, _ = _bag_inputs((5000, 128, 40, 4096, "sum", True), torch.float32, dev)
+    got = bag_ops.embedding_bag(table, ids, w)
+    exact = embedding_bag_seq_ref(table, ids, w)
+    want = embedding_bag_ref(table.double(), ids, w.double())
+    mass = embedding_bag_ref(table.double().abs(), ids, w.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, exact, atol=0, rtol=0)
+    nu = 4096 * 2.0**-24
+    bound = 2e-5 * (1 + want.abs()) + nu / (1 - nu) * mass
+    assert ((got.double() - want).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_copies_bf16_rows_below_4_byte_alignment():
+    """bf16 at an odd width: 26-byte rows, copied into the stage by 2-byte
+    loads, in one launch."""
+    dev = _cuda()
+    table, ids, w, _ = _bag_inputs((301, 13, 700, 11, "sum", True), torch.bfloat16, dev)
+    assert build.vector_width(13, 2, table) == 1
+    before = bag_ops.embedding_bag.launches
+    got = bag_ops.embedding_bag(table, ids, w)
+    torch.cuda.synchronize()
+    assert bag_ops.embedding_bag.launches == before + 1
+    torch.testing.assert_close(got, embedding_bag_seq_ref(table, ids, w), atol=0, rtol=0)
+    ones = bag_ops.embedding_bag(table, ids[:, :1].contiguous())
+    torch.testing.assert_close(ones, table[ids[:, 0].long()], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_bytes", [600, 2048, 6000])
+def test_embedding_bag_kernel_gives_the_same_bits_on_every_plan(stage_bytes, monkeypatch):
+    """FM's field sums (width 10, 39 ids, cut into chunks over the stages) and
+    bags of one, in stages of 600 B to 6 KB (the plan's stage sizes set for
+    the test), over eight SMs' worth of blocks: every plan gives the oracle's
+    bits."""
+    dev = _cuda()
+    monkeypatch.setattr(bag_ops, "STAGE_BYTES", stage_bytes)
+    monkeypatch.setattr(bag_ops, "STAGE_BYTES_ONE", stage_bytes)
+    for case in ((3000, 10, 999, 39, "sum", False), (3000, 10, 4099, 1, "sum", False)):
+        table, ids, w, combiner = _bag_inputs(case, torch.float32, dev)
+        p = bag_ops.plan(ids.shape[0], ids.shape[1], 10, torch.float32, 2, sms=8)
+        assert p.chunks > 1 or p.one
+        out = torch.empty(ids.shape[0], 10, device=dev)
+        got = bag_ops.launch(table, ids, w, combiner, p, out)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, embedding_bag_seq_ref(table, ids, w, combiner),
+                                   atol=0, rtol=0)
+
+
+def _misaligned(V: int, dim: int, dev) -> torch.Tensor:
+    """A contiguous [V, dim] fp32 table whose pointer is 4 bytes past a
+    16-byte boundary, so the kernel copies it a float a piece."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    return torch.randn(V * dim + 1, generator=g, device=dev)[1:].view(V, dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp32 width 257", "misaligned width 512"])
+@pytest.mark.parametrize("bag", [1, 39])
+def test_embedding_bag_kernel_sums_rows_wider_than_the_block(case, bag):
+    """Rows of more copied pieces than the block has threads (fp32 at width
+    257; a misaligned view at width 512): wide tiles, whose threads loop over
+    the (bag, chunk) pairs and carry the sums of a bag cut into chunks in
+    shared memory; bags of one and weighted bags of 39 ids, one launch each,
+    bit for bit the oracle's."""
+    dev = _cuda()
+    if case == "fp32 width 257":
+        table, ids, w, _ = _bag_inputs((700, 257, 600, bag, "sum", True), torch.float32, dev)
+    else:
+        table = _misaligned(700, 512, dev)
+        _, ids, w, _ = _bag_inputs((700, 8, 600, bag, "sum", True), torch.float32, dev)
+    assert build.vector_width(table.shape[1], 4, table) == 1
+    for weights in (None, w):
+        before = bag_ops.embedding_bag.launches
+        got = bag_ops.embedding_bag(table, ids, weights)
+        torch.cuda.synchronize()
+        assert bag_ops.embedding_bag.launches == before + 1
+        torch.testing.assert_close(got, embedding_bag_seq_ref(table, ids, weights), atol=0,
+                                   rtol=0)
 
 
 @pytest.mark.cuda
