@@ -82,6 +82,27 @@ every aggregation launch must run on the CSR index), times the index build
 alone, takes one ``full_graph_sm`` step, and trains an fp32 smoke
 GatedGCN five steps on the card and on the CPU and compares them.
 
+Last, the thesis's workflow path at full TinyLlama-1.1B width: a 64 MB
+corpus on the card goes through tokenize -> pack -> split (the port's
+``data/pipeline.py``) -> train (4 AdamW steps of B 4 x S 2048 from seeded
+weights; 2.2 GB of bf16 weights out) -> eval (per-row cross-entropy of two
+held-out rows chosen by a parameter) in ``WorkflowExecutor`` over an
+``IntermediateStore`` in a temporary directory, with RISP: cold runs until
+RISP admits the train prefix, reuse runs that skip tokenize to train (eval
+equal bit for bit to the cold runs'), a run whose eval raises once and its
+resumed run (restarting at the failure point), and ``t1_gt_t2`` runs whose
+Eq. 4.9 decision must be the one its t1 and t2 give; each run printed with
+its module, save and load seconds and bytes, and the train module's
+seconds held at or above its steps' device time (CUDA events in the
+module), beside one call's host time with no device wait.  Then the same
+DAG (the prefix, two eval branches) twice at once through ``DagScheduler``
+over a fresh store: train computed once, by single-flight, and every branch
+equal bit for bit to the sequential runs.  Then two engines mounted by
+``mount_serve_engine`` on one fabric directory serve the six requests of
+the serving phase: the second's first request restores the first's
+snapshots, tokens equal the memory-store engine's, and the chunk and fused
+kernel counts hold as in the serving phase.
+
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
 check exits non-zero.  The last line is a JSON object naming the device.
@@ -385,40 +406,12 @@ def phase_engine(dev) -> dict:
 
     ops.insert_chunk = counted_insert
 
-    rng = np.random.default_rng(0)
-    system = rng.integers(0, cfg.vocab, size=512).tolist()
-    prompts = [system + rng.integers(0, cfg.vocab, size=64).tolist() for _ in range(6)]
-    max_new = 32
+    prompts, max_new = engine_prompts(cfg.vocab), ENGINE_NEW
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     by_var = ops.decode_attention.launches_by_variant
-    rows = []
-    for i, prompt in enumerate(prompts):
-        before = dict(by_var)
-        out, st = engine.generate(prompt, max_new_tokens=max_new)
-        split, fused, chunk = (by_var[v] - before[v] for v in ("split", "fused", "chunk"))
-        trimmed = 1 if st.chunks_skipped == st.n_chunks else 0
-        chunk_calls = (st.n_chunks - st.chunks_skipped) + trimmed
-        # the first decode warms up one eager step, then captures the graph
-        steps = st.n_new_tokens + (1 if i == 0 else 0)
-        mem = torch.cuda.max_memory_allocated(dev)
-        chunk_ms = st.prefill_s * 1e3 / chunk_calls
-        tps = st.n_new_tokens / st.decode_s
-        print(f"req {i + 1}: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
-              f"prefill_ms {st.prefill_s * 1e3:.3f} prefill_ms_per_chunk_call {chunk_ms:.3f} "
-              f"decode_ms {st.decode_s * 1e3:.3f} "
-              f"decode_ms_per_token {st.decode_s * 1e3 / st.n_new_tokens:.6f} "
-              f"decode_tok_s {tps:.2f} max_memory_allocated {mem} "
-              f"kernels chunk {chunk} split {split} fused {fused}")
-        check(len(out) == max_new, f"request {i + 1}: {len(out)} tokens, wanted {max_new}")
-        check(chunk == cfg.n_layers * chunk_calls,
-              f"request {i + 1}: {chunk} chunk kernels, wanted {cfg.n_layers} x {chunk_calls}")
-        check(split == 0, f"request {i + 1}: {split} split kernels, wanted none")
-        check(fused == cfg.n_layers * steps,
-              f"request {i + 1}: {fused} fused kernels, wanted {cfg.n_layers} x {steps}")
-        rows.append(dict(skipped=st.chunks_skipped, n=st.n_chunks, prefill_s=st.prefill_s,
-                         decode_s=st.decode_s, tokens=st.n_new_tokens))
+    rows = serve_requests(engine, cfg, prompts, max_new, "req")
     launches = dict(by_var)
     ops.insert_chunk = inner_insert
     graph = engine._graph
@@ -443,6 +436,58 @@ def phase_engine(dev) -> dict:
     del engine._prefill, engine._replay
     return {"launches": launches, "rows": rows, "graph_ms": graph_ms, "eager_ms": eager_ms,
             "replay_ms": replay_ms, "profile": prof}
+
+
+ENGINE_SYSTEM, ENGINE_TAIL, ENGINE_NEW = 512, 64, 32  # the six requests' shared prompt
+
+
+def engine_prompts(vocab: int) -> list[list[int]]:
+    """Six requests sharing a 512-token system prompt, each with its own
+    64-token tail."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, size=ENGINE_SYSTEM).tolist()
+    return [system + rng.integers(0, vocab, size=ENGINE_TAIL).tolist() for _ in range(6)]
+
+
+def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]:
+    """``engine.generate`` on each prompt in turn, with its times and the
+    decode kernels it launched by variant: chunk calls on the chunk kernel
+    (one a layer), decode steps on the fused kernel (one a layer; the
+    engine's first decode adds an eager warm-up step before its capture),
+    and no split kernel."""
+    from repro_torch.kernels.decode_attention import ops
+
+    by_var = ops.decode_attention.launches_by_variant
+    dev = engine._dev
+    first = engine._graph is None
+    rows = []
+    for i, prompt in enumerate(prompts):
+        before = dict(by_var)
+        out, st = engine.generate(prompt, max_new_tokens=max_new)
+        split, fused, chunk = (by_var[v] - before[v] for v in ("split", "fused", "chunk"))
+        trimmed = 1 if st.chunks_skipped == st.n_chunks else 0
+        chunk_calls = (st.n_chunks - st.chunks_skipped) + trimmed
+        # the first decode warms up one eager step, then captures the graph
+        steps = st.n_new_tokens + (1 if first and i == 0 else 0)
+        mem = torch.cuda.max_memory_allocated(dev)
+        chunk_ms = st.prefill_s * 1e3 / chunk_calls
+        tps = st.n_new_tokens / st.decode_s
+        print(f"{label} {i + 1}: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
+              f"prefill_ms {st.prefill_s * 1e3:.3f} prefill_ms_per_chunk_call {chunk_ms:.3f} "
+              f"decode_ms {st.decode_s * 1e3:.3f} "
+              f"decode_ms_per_token {st.decode_s * 1e3 / st.n_new_tokens:.6f} "
+              f"decode_tok_s {tps:.2f} max_memory_allocated {mem} "
+              f"kernels chunk {chunk} split {split} fused {fused}")
+        check(len(out) == max_new, f"{label} {i + 1}: {len(out)} tokens, wanted {max_new}")
+        check(chunk == cfg.n_layers * chunk_calls,
+              f"{label} {i + 1}: {chunk} chunk kernels, wanted {cfg.n_layers} x {chunk_calls}")
+        check(split == 0, f"{label} {i + 1}: {split} split kernels, wanted none")
+        check(fused == cfg.n_layers * steps,
+              f"{label} {i + 1}: {fused} fused kernels, wanted {cfg.n_layers} x {steps}")
+        rows.append(dict(skipped=st.chunks_skipped, n=st.n_chunks, prefill_s=st.prefill_s,
+                         decode_s=st.decode_s, tokens=st.n_new_tokens, out=out,
+                         stored=st.stored_prefixes))
+    return rows
 
 
 def decode_yardstick(engine, n: int) -> tuple[float, float]:
@@ -2294,6 +2339,390 @@ def phase_gnn_parity(dev) -> None:
     check(min(launched) > 0, "gnn parity: the card never launched the aggregation kernels")
 
 
+WF_CORPUS_BYTES = 1 << 26  # 64 MB: 16,376 packed rows of 2,049 tokens
+WF_SEQ = 2048
+WF_HOLDOUT = 8  # eval rows held out by split; the t1_gt_t2 runs hold out 16
+WF_STEPS, WF_BATCH = 4, 4  # AdamW steps of B 4 x S 2048 in the train module
+WF_EVAL_ROWS = 2  # eval rows a call, from the parameter ``start`` on
+
+
+def wf_steps(start: int, holdout: int = WF_HOLDOUT) -> list:
+    """corpus -> tokenize -> pack -> split -> train -> eval(start)."""
+    return ["tokenize", ("pack", {"seq_len": WF_SEQ}), ("split", {"holdout": holdout}),
+            "train", ("eval", {"start": start})]
+
+
+def wf_registry(cfg, dev, witness: list, failures: list, computes: dict):
+    """The workflow's modules: the port's data stages, and ``train`` and
+    ``eval`` at full width.  ``train`` records CUDA events around its steps
+    in ``witness``; ``eval`` raises once for each entry of ``failures``;
+    ``computes`` counts each module's calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core import ModuleRegistry
+    from repro_torch.data.pipeline import register_data_modules
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step, make_train_state
+
+    cell = ShapeCell("train", "train", {"seq_len": WF_SEQ, "global_batch": WF_BATCH})
+    opt = AdamWConfig(warmup_steps=10, total_steps=100)
+
+    def train(split, steps=WF_STEPS, seed=0):
+        """``steps`` AdamW steps from weights drawn with ``seed``; returns
+        the bf16 weights (no optimizer moments) and the eval rows."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = make_train_state(init_params(gen, transformer.lm_specs(cfg), cfg.dtype, dev))
+        step = build_train_step(cfg, cell, opt, remat="none")
+        rows = split["train"]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        losses = []
+        start.record()
+        for i in range(steps):
+            r = rows[i * WF_BATCH:(i + 1) * WF_BATCH]
+            state, m = step(state, {"tokens": r[:, :-1].contiguous(),
+                                    "targets": r[:, 1:].contiguous()})
+            losses.append(m["loss"])
+        end.record()
+        witness.append((start, end, losses))
+        return {"params": state["params"], "eval": split["eval"]}
+
+    def evaluate(trained, start=0, n=WF_EVAL_ROWS):
+        """Per-row mean cross-entropy (fp32) of eval rows start..start+n."""
+        if failures:
+            failures.pop()
+            raise RuntimeError("injected eval failure")
+        rows = trained["eval"][start:start + n]
+        with torch.no_grad():
+            logits, _ = transformer.forward(trained["params"], cfg, rows[:, :-1].contiguous())
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 rows[:, 1:].reshape(-1).long(), reduction="none")
+        return ce.view(rows.shape[0], -1).mean(1)
+
+    reg = ModuleRegistry()
+    register_data_modules(reg, vocab=cfg.vocab)
+    reg.register_fn("train", train, steps=WF_STEPS, seed=0)
+    reg.register_fn("eval", evaluate, start=0, n=WF_EVAL_ROWS)
+    for mid in list(reg):
+        spec = reg[mid]
+
+        def counted(x, _fn=spec.fn, _mid=mid, **kw):
+            computes[_mid] = computes.get(_mid, 0) + 1
+            return _fn(x, **kw)
+
+        spec.fn = counted
+    return reg
+
+
+def wf_report(label: str, r, store, dev) -> dict:
+    """One run's line: skips, each module's seconds, load and save seconds,
+    the bytes loaded and stored, and the eval output."""
+    loaded = 0
+    if r.reused_prefix is not None:
+        rec = store.records.get(r.reused_prefix.key(True))
+        loaded = rec.nbytes_raw if rec is not None else 0
+    stored = sum(store.records[k].nbytes_raw for k in r.stored_keys if k in store.records)
+    out = [float(v) for v in r.output.float().cpu()]
+    secs = " ".join(f"{s:.6f}" for s in r.module_seconds)
+    print(f"workflow {label}: n_skipped {r.n_skipped}/{len(r.workflow)} module_s [{secs}] "
+          f"load_s {r.load_seconds:.6f} bytes_loaded {loaded} save_s {r.store_seconds:.6f} "
+          f"bytes_stored {stored} total_s {r.total_seconds:.6f} eval_ce {out}")
+    check(r.output.dtype == torch.float32 and r.output.device == torch.device(dev)
+          and tuple(r.output.shape) == (WF_EVAL_ROWS,) and all(map(math.isfinite, out)),
+          f"workflow {label}: eval output {r.output}")
+    return {"n_skipped": r.n_skipped, "module_s": list(r.module_seconds),
+            "load_s": r.load_seconds, "save_s": r.store_seconds, "bytes_loaded": loaded,
+            "bytes_stored": stored, "total_s": r.total_seconds, "eval_ce": out}
+
+
+def wf_witness(label: str, r, witness: list) -> dict:
+    """The train module's seconds in run ``r`` against the device time of
+    its steps (CUDA events recorded inside the module)."""
+    at = 3  # train's index in wf_steps
+    start, end, losses = witness[-1]
+    device_s = start.elapsed_time(end) / 1e3
+    loss = [float(x) for x in losses]
+    print(f"workflow {label}: train compute_s {r.module_seconds[at]:.6f} "
+          f"device_s_of_its_steps {device_s:.6f} losses {loss}")
+    check(all(map(math.isfinite, loss)), f"workflow {label}: losses {loss}")
+    check(r.module_seconds[at] >= device_s,
+          f"workflow {label}: train compute_s {r.module_seconds[at]} < its device time "
+          f"{device_s}")
+    return {"compute_s": r.module_seconds[at], "device_s": device_s, "losses": loss}
+
+
+def phase_workflow(dev, engine_rows) -> dict:
+    """The thesis's workflow path at full TinyLlama-1.1B width, through
+    ``WorkflowExecutor`` and ``DagScheduler`` over ``IntermediateStore``s in
+    temporary directories, then two serving engines sharing snapshots
+    through one fabric directory (``mount_serve_engine``)."""
+    import dataclasses as dc
+    import shutil
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import RISP, CostModel, IntermediateStore, WorkflowError
+    from repro_torch.core import WorkflowExecutor
+    from repro_torch.data.pipeline import (
+        byte_tokenize, make_corpus_blob, pack_sequences, train_split)
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import reset_launches as reset_flash
+    from repro_torch.sched import DagScheduler
+
+    @dc.dataclass
+    class WitnessCost(CostModel):
+        """Records each Eq. 4.9 decision with the t1 and t2 it compared."""
+        decisions: list = dc.field(default_factory=list)
+
+        def should_store(self, prefix, measured_exec_s=None):
+            t1, t2 = self.t1(prefix, measured_exec_s), self.t2(prefix)
+            ok = super().should_store(prefix, measured_exec_s)
+            self.decisions.append((prefix, measured_exec_s, t1, t2, ok))
+            return ok
+
+    cfg = get_config("tinyllama-1.1b")  # full width, bf16
+    witness: list = []
+    failures: list = []
+    computes: dict = {}
+    reg = wf_registry(cfg, dev, witness, failures, computes)
+    root = tempfile.mkdtemp(prefix="wf-")
+    torch.cuda.synchronize()
+    reset_flash()
+    decode_ops.reset_launches()
+    out: dict = {"runs": {}}
+    try:
+        t0 = time.perf_counter()
+        blob = make_corpus_blob(WF_CORPUS_BYTES, seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"workflow: corpus {WF_CORPUS_BYTES} bytes on the card in "
+              f"{time.perf_counter() - t0:.3f} s; {cfg.name} {cfg.n_layers} layers d_model "
+              f"{cfg.d_model}; pack {WF_SEQ} split holdout {WF_HOLDOUT}; train {WF_STEPS} "
+              f"steps of B {WF_BATCH} x S {WF_SEQ}; eval {WF_EVAL_ROWS} rows")
+        store = IntermediateStore(os.path.join(root, "seq"), codec="none")
+        ex = WorkflowExecutor(store=store, policy=RISP(with_state=True), registry=reg,
+                              device=dev)
+        train_key = ex.make_workflow("corpus", wf_steps(0)).prefix(4).key(True)
+
+        # cold runs with differing eval parameters until RISP admits train
+        cold = {}
+        for i, start in enumerate((0, 2, 4)):
+            r = ex.run("corpus", blob, wf_steps(start), f"cold{i}")
+            check(r.n_skipped == 0, f"workflow cold {i}: skipped {r.n_skipped}")
+            cold[start] = r
+            out["runs"][f"cold {i}"] = wf_report(f"cold {i} eval start {start}", r, store, dev)
+            out["runs"][f"cold {i}"]["witness"] = wf_witness(f"cold {i}", r, witness)
+            if train_key in r.stored_keys:
+                break
+        check(train_key in store.records, f"workflow: RISP never admitted train in {len(cold)} runs")
+        rec = store.records[train_key]
+        print(f"workflow: RISP admitted train after {len(cold)} cold runs: {rec.nbytes_raw} "
+              f"bytes, save_s {rec.save_s:.6f}, compute_s {rec.compute_s:.6f}")
+        check(rec.compute_s >= out["runs"][f"cold {len(cold) - 1}"]["witness"]["device_s"],
+              "workflow: the stored train prefix's compute_s is under its steps' device time")
+        stored_by = start
+
+        # reuse: the same eval on the stored bits, then the first cold run's eval
+        for label, start in (("reuse", stored_by), ("reuse first", 0)):
+            n_train = computes.get("train", 0)
+            r = ex.run("corpus", blob, wf_steps(start), label)
+            out["runs"][label] = wf_report(f"{label} eval start {start}", r, store, dev)
+            check(r.n_skipped == 4 and computes.get("train", 0) == n_train,
+                  f"workflow {label}: skipped {r.n_skipped}, wanted tokenize to train")
+            check(torch.equal(r.output, cold[start].output),
+                  f"workflow {label}: eval {r.output} differs from the cold run's "
+                  f"{cold[start].output}")
+        out["reuse_load_s"] = out["runs"]["reuse"]["load_s"]
+
+        # recovery: eval raises once; the resumed run restarts at the failure point
+        failures.append(1)
+        try:
+            ex.run("corpus", blob, wf_steps(6), "recover")
+            check(False, "workflow recovery: the injected failure did not raise")
+        except WorkflowError as e:
+            failed_at = e.failed_at
+        r = ex.run("corpus", blob, wf_steps(6), "resumed")
+        out["runs"]["resumed"] = wf_report(f"resumed after a failure at module {failed_at}",
+                                           r, store, dev)
+        check(failed_at == 4 and r.n_skipped == failed_at,
+              f"workflow recovery: failed at {failed_at}, resumed after {r.n_skipped}")
+        out["recovery"] = {"failed_at": failed_at, "resumed_skipped": r.n_skipped}
+
+        # Eq. 4.9 admission over the same store (its measured save and load
+        # rates); holdout 16 makes a prefix this store does not hold yet
+        cost = WitnessCost(store=store)
+        ex2 = WorkflowExecutor(store=store, policy=RISP(with_state=True), registry=reg,
+                               admission="t1_gt_t2", cost_model=cost, device=dev)
+        key16 = ex2.make_workflow("corpus", wf_steps(0, 16)).prefix(4).key(True)
+        for i, start in enumerate((0, 2, 4)):
+            r = ex2.run("corpus", blob, wf_steps(start, 16), f"t1t2 {i}")
+            out["runs"][f"t1_gt_t2 {i}"] = wf_report(f"t1_gt_t2 {i} eval start {start}",
+                                                    r, store, dev)
+            if any(p.key(True) == key16 for p, *_ in cost.decisions):
+                break
+        check(bool(cost.decisions), "workflow t1_gt_t2: no admission decision was taken")
+        for prefix, measured, t1, t2, ok in cost.decisions:
+            kept = prefix.key(True) in store.records
+            print(f"workflow t1_gt_t2: prefix depth {prefix.depth} compute_s {measured:.6f} "
+                  f"t1 {t1:.6f} t2 {t2:.6f} decision {'store' if ok else 'skip'} "
+                  f"stored {kept}")
+            check(ok == (t1 > t2) and kept == ok,
+                  f"workflow t1_gt_t2: decision {ok} stored {kept} for t1 {t1} t2 {t2}")
+        check(any(p.key(True) == key16 for p, *_ in cost.decisions),
+              "workflow t1_gt_t2: no decision on the train prefix")
+        out["t1_gt_t2"] = [{"depth": p.depth, "compute_s": m, "t1": t1, "t2": t2,
+                            "store": ok} for p, m, t1, t2, ok in cost.decisions]
+
+        # the host's time of one train call with no device wait, beside the
+        # executor's compute_s of the same module (cold run 0)
+        split = train_split(pack_sequences(byte_tokenize(blob, cfg.vocab), WF_SEQ), WF_HOLDOUT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = reg["train"].fn(split)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        start, end, _ = witness[-1]
+        dev_s = start.elapsed_time(end) / 1e3
+        cs = out["runs"]["cold 0"]["witness"]["compute_s"]
+        print(f"workflow witness: train host_s (no device wait) {host_s:.6f} wall_s with the "
+              f"wait {wall_s:.6f} device_s_of_its_steps {dev_s:.6f}; executor compute_s "
+              f"(cold 0) {cs:.6f}")
+        out["witness"] = {"host_s": host_s, "wall_s": wall_s, "device_s": dev_s,
+                          "executor_compute_s": cs}
+        del trained, split
+        shutil.rmtree(os.path.join(root, "seq"), ignore_errors=True)
+        del ex, ex2, store
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the DAG: the shared prefix, then two eval branches, run twice at once
+        # over a fresh store; single-flight computes the prefix once
+        sched = DagScheduler(store=IntermediateStore(os.path.join(root, "dag"), codec="none"),
+                             policy=RISP(with_state=True), registry=reg, max_workers=4,
+                             device=dev)
+        starts = sorted(cold)[:2]
+        before = dict(computes)
+        results: dict = {}
+
+        def run_dag(name):
+            dag = sched.dag("corpus", name)
+            prev = None
+            for i, (mid, params) in enumerate(
+                    [(s, None) if isinstance(s, str) else s for s in wf_steps(0)[:4]]):
+                dag.add(mid, mid, params, after=prev)
+                prev = mid
+            for s in starts:
+                dag.add(f"eval{s}", "eval", {"start": s}, after="train")
+            results[name] = sched.run(dag, blob)
+
+        threads = [threading.Thread(target=run_dag, args=(n,)) for n in ("dag a", "dag b")]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        dag_s = time.perf_counter() - t0
+        sched.close()
+        check(set(results) == {"dag a", "dag b"}, f"workflow dag: runs finished {set(results)}")
+        n_train = computes.get("train", 0) - before.get("train", 0)
+        srcs = {n: {k: v.source for k, v in r.node_results.items()} for n, r in results.items()}
+        print(f"workflow dag: two runs at once in {dag_s:.6f} s; train computed {n_train} time(s); "
+              f"single-flight leads {sched.singleflight.leads} waits {sched.singleflight.waits}; "
+              f"sources {srcs}")
+        for name, r in results.items():
+            secs = " ".join(f"{s:.6f}" for s in r.module_seconds)
+            print(f"workflow {name}: module_s [{secs}] load_s {r.load_seconds:.6f} save_s "
+                  f"{r.store_seconds:.6f} stored {len(r.stored_keys)} total_s "
+                  f"{r.total_seconds:.6f}")
+            for s in starts:
+                check(torch.equal(r.outputs[f"eval{s}"], cold[s].output),
+                      f"workflow {name}: branch eval{s} {r.outputs[f'eval{s}']} differs from "
+                      f"the sequential run's {cold[s].output}")
+        check(n_train == 1, f"workflow dag: train computed {n_train} times, wanted once")
+        check(sorted(srcs[n]["train"] for n in srcs)[0] == "computed"
+              and {srcs[n]["train"] for n in srcs} <= {"computed", "singleflight", "loaded"},
+              f"workflow dag: train sources {srcs}")
+        out["dag"] = {"seconds": dag_s, "train_computes": n_train, "sources": srcs,
+                      "leads": sched.singleflight.leads, "waits": sched.singleflight.waits}
+        del sched, results
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["flash"] = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+        out["flash_by_variant"] = {v: dict(c) for v, c in
+                                   flash_attention.launches_by_variant.items()}
+        out["train_calls"] = computes.get("train", 0)
+        out["eval_calls"] = computes.get("eval", 0)
+        print(f"workflow: module calls {computes}; flash launches fwd {out['flash'][0]} "
+              f"bwd {out['flash'][1]} by variant {out['flash_by_variant']}")
+        check(out["flash"][1] == cfg.n_layers * WF_STEPS * out["train_calls"]
+              and out["flash"][0] == cfg.n_layers * (WF_STEPS * out["train_calls"]
+                                                     + out["eval_calls"] - 1)
+              and out["flash_by_variant"]["wgmma"] == {"fwd": out["flash"][0],
+                                                       "bwd": out["flash"][1]},
+              f"workflow: flash launches {out['flash']} by variant "
+              f"{out['flash_by_variant']} for {out['train_calls']} train and "
+              f"{out['eval_calls']} eval calls (one raised before its forward)")
+
+        out["fabric"] = wf_fabric(dev, cfg, os.path.join(root, "fabric"), engine_rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["decode"] = dict(decode_ops.decode_attention.launches_by_variant)
+    return out
+
+
+def wf_fabric(dev, cfg, root: str, engine_rows: list) -> dict:
+    """Two engines mounted on one fabric directory, each with its own
+    registry, serve the six requests of ``phase_engine``; the second's first
+    request restores the first's snapshots from the backend.  Tokens must
+    equal those of the engine on ``MemorySnapshotStore``."""
+    from repro_torch.core import LocalFSBackend, ModuleRegistry
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import mount_serve_engine
+
+    gen = torch.Generator(device=dev).manual_seed(0)  # phase_engine's weights
+    params = init_params(gen, transformer.lm_specs(cfg), cfg.dtype, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts = engine_prompts(cfg.vocab)
+    out = {}
+    regs = []
+    for e in (1, 2):
+        reg = ModuleRegistry()
+        regs.append(reg)
+        engine = mount_serve_engine(LocalFSBackend(root), cfg, params, registry=reg,
+                                    max_len=1024, chunk=64, device=dev)
+        loads0 = engine.snapshots._m_loads.value
+        rows = serve_requests(engine, cfg, prompts, ENGINE_NEW, f"fabric engine {e} req")
+        for i, (got, want) in enumerate(zip(rows, engine_rows)):
+            check(got["out"] == want["out"],
+                  f"fabric engine {e} request {i + 1}: tokens differ from the memory-store "
+                  f"engine's")
+        print(f"fabric engine {e}: snapshots {engine.snapshots.n_snapshots} loads "
+              f"{int(engine.snapshots._m_loads.value - loads0)} saves "
+              f"{int(engine.snapshots._m_saves.value)} bytes "
+              f"{engine.snapshots.snapshot_bytes()} registry modules {len(reg)}")
+        out[e] = {"rows": [{k: v for k, v in r.items() if k != "out"} for r in rows],
+                  "snapshots": engine.snapshots.n_snapshots,
+                  "loads": int(engine.snapshots._m_loads.value - loads0)}
+        del engine
+        gc.collect()
+    shared = ENGINE_SYSTEM // 64
+    first = out[2]["rows"][0]
+    check(first["skipped"] == shared and out[2]["loads"] >= 1,
+          f"fabric engine 2 request 1: skipped {first['skipped']}, wanted the {shared} shared "
+          f"chunks from engine 1's snapshots")
+    check(out[1]["rows"][0]["skipped"] == 0, "fabric engine 1 request 1 skipped a chunk")
+    check(sorted(regs[0]) == sorted(regs[1]) and len(regs[0]) == shared + len(prompts),
+          f"fabric: the registries hold {len(regs[0])} and {len(regs[1])} chunk modules")
+    print(f"fabric: engine 2's first request restored {first['skipped']}/{first['n']} chunks "
+          f"from engine 1's snapshots: hit prefill_ms {first['prefill_s'] * 1e3:.3f}; engine "
+          f"1's first request (cold) prefill_ms {out[1]['rows'][0]['prefill_s'] * 1e3:.3f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2336,6 +2765,7 @@ def main() -> int:
     del graph
     gtrain = timed(phase_gnn_train, sampler)
     timed(phase_gnn_parity)
+    wf = timed(phase_workflow, eng["rows"])
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -2359,10 +2789,12 @@ def main() -> int:
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
          kern["written"][(MAIN_CASE, "bfloat16")],
          {"serving decode steps (CUDA graph replays and the capture's warm-up step)":
-          eng["launches"]["fused"]}),
+          eng["launches"]["fused"],
+          "fabric serving decode steps (two engines)": wf["decode"]["fused"]}),
         ("decode_attention_chunk", "chunk", CHUNK_CASE, "bfloat16",
          kern["written"][(CHUNK_CASE, "bfloat16")],
-         {"serving prefill chunks": eng["launches"]["chunk"]}),
+         {"serving prefill chunks": eng["launches"]["chunk"],
+          "fabric serving prefill chunks (two engines)": wf["decode"]["chunk"]}),
         ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
          split_paths),
     ):
@@ -2391,10 +2823,11 @@ def main() -> int:
             entry["at_chunk_case"] = {k: split_at_chunk[k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         line["kernels"].append(entry)
-    for name, kind, launches, by_path in (
-        ("flash_attention", "fwd", train["launches"][0] + pre["launches"],
-         {"train": train["launches"][0], "prefill": pre["launches"]}),
-        ("flash_attention_bwd", "bwd", train["launches"][1], {"train": train["launches"][1]}),
+    wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
+    for name, kind, by_path in (
+        ("flash_attention", "fwd",
+         {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0]}),
+        ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1]}),
     ):
         r = fm[kind]
         line["kernels"].append({
@@ -2402,7 +2835,7 @@ def main() -> int:
             "route": "cuda",
             "source": flash_src,
             "replaces": flash_tpu,
-            "launches": launches,
+            "launches": sum(by_path.values()),
             "variant": fm["variant"],
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],

@@ -1,13 +1,23 @@
+from ..sched.service import WorkflowService
 from ..sched.stats import AggregateStats
 from .engine import GenStats, ServeEngine, ServeMetrics
-from .snapshots import LoadedSnapshot, MemorySnapshotStore, SnapshotStore
+from .fabric import mount_serve_engine
+from .snapshots import (
+    FabricSnapshotStore,
+    LoadedSnapshot,
+    MemorySnapshotStore,
+    SnapshotStore,
+)
 
 __all__ = [
     "AggregateStats",
+    "FabricSnapshotStore",
     "GenStats",
     "LoadedSnapshot",
     "MemorySnapshotStore",
     "ServeEngine",
     "ServeMetrics",
     "SnapshotStore",
+    "WorkflowService",
+    "mount_serve_engine",
 ]

@@ -30,7 +30,11 @@ Differences that follow from torch:
 
 The engine runs on ``device`` ("cuda" by default; asking for CUDA without a
 card raises).  Snapshots live in a :class:`MemorySnapshotStore` unless
-``snapshots`` is given; the fabric store waits for a later slice.
+``snapshots`` is given: a :class:`FabricSnapshotStore` puts them on a shared
+storage backend, where an engine of either package restores them, and a
+``flight`` (:class:`~repro_torch.net.flight.DistributedSingleFlight`) elects
+one prefiller of a shared prefix across processes
+(:func:`repro_torch.serve.fabric.mount_serve_engine` wires both).
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..configs.base import LMConfig
+from ..core.registry import ModuleRegistry
 from ..core.risp import RISP, StoragePolicy, StoredRecord
 from ..core.workflow import ModuleRef, Workflow
 from ..kernels.decode_attention import ops as decode_ops
@@ -188,9 +193,16 @@ class ServeEngine:
     # retention as the disk store (ignored when ``snapshots`` is passed)
     snapshot_budget_bytes: int | None = None
     eviction: str = "gain_loss"
-    # where snapshots live (None -> engine-private MemorySnapshotStore)
+    # optional shared ModuleRegistry: observed prompt chunks are recorded as
+    # (non-executable) modules with prefill-cost hints, so the serving
+    # workload's module universe is introspectable through the same registry
+    # the workflow engines consume
+    registry: ModuleRegistry | None = None
+    # where snapshots live (None -> engine-private MemorySnapshotStore);
+    # pass a FabricSnapshotStore to share prefills across processes
     snapshots: SnapshotStore | None = None
-    # single-flight election over shared-prefix prefills
+    # single-flight election over shared-prefix prefills; a
+    # DistributedSingleFlight makes the election fleet-wide
     flight: SingleFlight | None = None
     metrics: MetricsRegistry | None = None
     # dataset identity of the prompt workflows (snapshot keys are scoped by it)
@@ -273,6 +285,11 @@ class ServeEngine:
     # -- RISP bookkeeping over request chunks ------------------------------
     def _workflow(self, chunks: list[np.ndarray]) -> Workflow:
         mods = tuple(ModuleRef(_chunk_id(c)) for c in chunks)
+        if self.registry is not None:
+            for m in mods:
+                self.registry.ensure(
+                    m.module_id, cost_hint=self._chunk_prefill_s or None
+                )
         return Workflow(
             self.dataset_id, mods, workflow_id=f"req{self.policy.n_pipelines}"
         )

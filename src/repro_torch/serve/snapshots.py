@@ -1,9 +1,20 @@
 """The ``SnapshotStore`` seam: where a serving engine's KV snapshots live.
 
-The port's copy of the reference's ``serve/snapshots.py``.  It carries the
-interface and :class:`MemorySnapshotStore`, the engine-private host-RAM tier
-with a gain-loss budget; ``FabricSnapshotStore`` (snapshots shared through a
-storage backend and the KV codec) waits for a later slice.
+The port's copy of the reference's ``serve/snapshots.py``.  Two
+implementations stand behind one interface:
+
+* :class:`MemorySnapshotStore` — the engine-private host-RAM tier with a
+  gain-loss budget;
+* :class:`FabricSnapshotStore` — snapshots as artifacts on any
+  :class:`~repro_torch.core.backends.StorageBackend` (a local directory, or a
+  store server through ``RemoteBackend``), encoded by the KV codec
+  (:mod:`repro_torch.core.kvcodec`), whose blobs and manifests are the
+  reference's byte for byte: an engine of either package restores the
+  other's snapshots.  Every way a snapshot can disappear (local eviction,
+  another process's eviction on the event stream, an absence found by a
+  probe or a load) funnels through one ``_forget`` path that drops the
+  record, fires the evict listeners (the engine's ``policy.stored``) and
+  credits the tenant ledger.
 
 A snapshot is a dict of tensors.  The store keeps host copies that share no
 memory with the device cache the engine goes on writing in place, and a
@@ -19,12 +30,15 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from ..core.backends import BackendUnavailable, StorageBackend
 from ..core.eviction import EvictionContext, EvictionManager
+from ..core.kvcodec import load_kv, save_kv
 from ..core.records import ArtifactRecord
 from ..core.workflow import PrefixKey
 from ..obs.metrics import MetricsRegistry
 
 __all__ = [
+    "FabricSnapshotStore",
     "LoadedSnapshot",
     "MemorySnapshotStore",
     "SnapshotStore",
@@ -246,6 +260,209 @@ class MemorySnapshotStore(SnapshotStore):
     @property
     def n_snapshots(self) -> int:
         return len(self._snaps)
+
+    @property
+    def n_evictions(self) -> int:
+        return self._evictor.n_evictions
+
+    def snapshot_bytes(self) -> int:
+        with self._lock:
+            return sum(r.nbytes_disk for r in self._records.values())
+
+
+class FabricSnapshotStore(SnapshotStore):
+    """KV snapshots as shared artifacts on a :class:`StorageBackend`.
+
+    Parameters
+    ----------
+    backend: where bytes live — ``LocalFSBackend``, ``MemoryBackend``, or a
+        ``RemoteBackend`` (``mount_serve_engine`` builds one for an engine).
+    capacity_bytes: gain-loss budget *this store enforces* on the fabric; an
+        eviction here deletes the artifact fleet-wide (same semantics as the
+        workflow store's capacity over a shared backend).  ``None`` = no
+        local enforcement.
+    codec: per-leaf payload codec name from the codec registry (default
+        ``"none"`` — the zero-copy raw path).
+    catalog: snapshots publish ``CatalogRecord``s at the admission seam and
+        discard them on any removal, so ``find``/``--dedup`` see serving
+        artifacts exactly like workflow artifacts.
+    ledger / tenant: optional ``TenantLedger`` billing — ``charge_stored``
+        on admission, ``credit_evicted`` on every removal path.
+    events_from: a backend with ``add_event_listener`` (RemoteBackend /
+        ShardedBackend): fleet-wide eviction events prune local records so
+        no engine keeps planning around a snapshot another process evicted.
+    """
+
+    def __init__(
+        self,
+        backend: StorageBackend,
+        *,
+        capacity_bytes: int | None = None,
+        eviction: str = "gain_loss",
+        codec: str | None = "none",
+        registry: MetricsRegistry | None = None,
+        catalog: Any = None,
+        ledger: Any = None,
+        tenant: str = "",
+        events_from: Any = None,
+        load_bps: float = 4e9,
+    ) -> None:
+        super().__init__(registry)
+        self.backend = backend
+        self.codec = codec
+        self.catalog = catalog
+        self.ledger = ledger
+        self.tenant = tenant
+        self._records: dict[str, ArtifactRecord] = {}
+        self._prefixes: dict[str, PrefixKey] = {}  # for catalog re-publish
+        self._evictor = EvictionManager(capacity_bytes, eviction)
+        self._ctx = EvictionContext(load_bps=load_bps)
+        self._lock = threading.Lock()
+        if events_from is not None:
+            events_from.add_event_listener(self._on_fabric_event)
+
+    # -- removal funnel ------------------------------------------------------
+    def _forget(self, key: str, source: str) -> None:
+        """The one path out: record + catalog + ledger + listeners converge."""
+        with self._lock:
+            known = self._records.pop(key, None) is not None
+            self._prefixes.pop(key, None)
+        if not known:
+            return
+        if self.catalog is not None:
+            self.catalog.discard(key)
+        if self.ledger is not None:
+            self.ledger.credit_evicted(key)
+        self._m_drops.labels(source=source).inc()
+        self._fire(key)
+
+    def _on_fabric_event(self, event: str, key: str) -> None:
+        if event == "evicted":
+            self._forget(key, source="event")
+
+    def _evict(self, key: str) -> None:
+        try:
+            self.backend.delete(key)
+        except BackendUnavailable:
+            # can't reach the fabric: keep the record — the artifact still
+            # exists, and pretending otherwise would leak the ledger bytes
+            return
+        invalidate = getattr(self.backend, "invalidate", None)
+        if callable(invalidate):
+            invalidate(key)
+        self._forget(key, source="evict")
+
+    # -- contract ------------------------------------------------------------
+    def save(
+        self,
+        key: str,
+        cache: Any,
+        length: int,
+        *,
+        prefill_s: float,
+        prefix: PrefixKey | None = None,
+    ) -> bool:
+        host, nbytes = _host_tree(cache)
+        if not self._evictor.admits(nbytes):
+            return False
+        t0 = time.perf_counter()
+        try:
+            info = save_kv(
+                self.backend,
+                key,
+                host,
+                length,
+                codec=self.codec,
+                prefill_s=prefill_s,
+            )
+        except BackendUnavailable:
+            return False
+        save_s = time.perf_counter() - t0
+        rec = ArtifactRecord(
+            key, info.nbytes_raw, info.nbytes_disk, save_s=save_s, compute_s=prefill_s
+        )
+        with self._lock:
+            self._records[key] = rec
+            if prefix is not None:
+                self._prefixes[key] = prefix
+            total = sum(r.nbytes_disk for r in self._records.values())
+            victims = self._evictor.select_victims(
+                self._records, total, ctx=self._ctx, incoming=key
+            )
+        if self.catalog is not None and prefix is not None:
+            self.catalog.publish(prefix, key, rec)
+        if self.ledger is not None:
+            self.ledger.charge_stored(self.tenant, key, info.nbytes_disk)
+        for victim in victims:
+            self._evict(victim)
+        if key in victims:
+            return False
+        self._m_saves.inc()
+        self._m_save_s.observe(save_s)
+        return True
+
+    def load(self, key: str) -> LoadedSnapshot | None:
+        t0 = time.perf_counter()
+        try:
+            tree, length, info = load_kv(self.backend, key)
+        except (KeyError, FileNotFoundError):
+            # authoritative absence: evicted elsewhere before the event (or
+            # any event at all) reached us — prune so nothing phantom-plans
+            self._forget(key, source="phantom")
+            return None
+        except BackendUnavailable:
+            return None  # unreachable is not absent: keep records intact
+        load_s = time.perf_counter() - t0
+        now = time.time()
+        with self._lock:
+            rec = self._records.get(key)
+            if rec is None:
+                # cross-process adoption: another engine stored it; the
+                # manifest carries the measured prefill cost so gain-loss
+                # prices it here exactly as it did there
+                rec = ArtifactRecord(
+                    key,
+                    info.nbytes_raw,
+                    info.nbytes_disk,
+                    save_s=0.0,
+                    compute_s=info.prefill_s,
+                    created_at=info.created_at or now,
+                )
+                self._records[key] = rec
+            rec.n_loads += 1
+            rec.last_used_at = now
+            rec.load_s = load_s
+        if self.catalog is not None:
+            self.catalog.touch(key, rec)
+        self._m_loads.inc()
+        self._m_load_s.observe(load_s)
+        return LoadedSnapshot(
+            cache=tree,
+            length=length,
+            prefill_s=float(info.prefill_s or rec.compute_s or 0.0),
+            load_s=load_s,
+        )
+
+    def presence_many(self, keys: Iterable[str]) -> dict[str, bool | None]:
+        keys = list(keys)
+        try:
+            result = self.backend.exists_many(keys)
+        except BackendUnavailable:
+            return {k: None for k in keys}
+        for k, present in result.items():
+            if present is False:
+                self._forget(k, source="phantom")
+        return result
+
+    def drop(self, key: str) -> None:
+        self._evict(key)
+
+    def record(self, key: str) -> ArtifactRecord | None:
+        return self._records.get(key)
+
+    @property
+    def n_snapshots(self) -> int:
+        return len(self._records)
 
     @property
     def n_evictions(self) -> int:

@@ -1158,3 +1158,116 @@ def test_gnn_train_steps_on_the_card_match_the_cpu():
     for k in ("node_encoder", "readout"):
         torch.testing.assert_close(dev_state["params"][k].cpu(), cpu_state["params"][k],
                                    atol=1e-4, rtol=1e-4)
+
+
+def _cuda_executor(tmp_path, **kw):
+    from repro_torch.core import TSAR, IntermediateStore, WorkflowExecutor
+
+    return WorkflowExecutor(store=IntermediateStore(tmp_path / "store"),
+                            policy=TSAR(with_state=True), **kw)
+
+
+@pytest.mark.cuda
+def test_executor_on_cuda_values_stores_reloads_and_reuses(tmp_path):
+    dev = _cuda()
+    ex = _cuda_executor(tmp_path)
+    assert ex.device == "cuda"
+    calls = {"scale": 0, "mix": 0}
+
+    def scale(x, by=2.0):
+        calls["scale"] += 1
+        return x * by
+
+    def mix(x, k=1):
+        calls["mix"] += 1
+        return {"sum": x.sum(0), "rows": x[:k].to(torch.bfloat16)}
+
+    ex.register_fn("scale", scale, by=2.0)
+    ex.register_fn("mix", mix, k=1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    data = torch.randn(64, 32, generator=g, device=dev)
+    steps = ["scale", ("mix", {"k": 3})]
+    cold = ex.run("ds", data, steps, "w1")
+    assert cold.n_skipped == 0 and len(cold.stored_keys) == 2
+    warm = ex.run("ds", data, steps, "w2")
+    assert warm.n_skipped == 2 and calls == {"scale": 1, "mix": 1}
+    for k in ("sum", "rows"):
+        assert warm.output[k].is_cuda
+        assert torch.equal(warm.output[k], cold.output[k])
+    assert warm.output["rows"].dtype == torch.bfloat16
+    tail = ex.run("ds", data, ["scale", ("mix", {"k": 5})], "w3")  # the scaled prefix reloads
+    assert tail.n_skipped == 1 and calls == {"scale": 1, "mix": 2}
+    assert tail.output["rows"].is_cuda
+
+
+@pytest.mark.cuda
+def test_module_seconds_cover_the_device_work(tmp_path):
+    """A module that queues a known device sleep and returns at once: its
+    seconds in the executor and in the DAG scheduler hold the sleep, which
+    CUDA events recorded inside the module time."""
+    dev = _cuda()
+    from repro_torch.sched import DagScheduler
+
+    slept = []
+
+    def sleepy(x, cycles=200_000_000):  # about 0.1 s at the H100's 1.98 GHz
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        slept.append((start, end))
+        return x + 1  # queued behind the sleep: the host returns before it ends
+
+    ex = _cuda_executor(tmp_path)
+    ex.register_fn("sleepy", sleepy, cycles=200_000_000)
+    r = ex.run("ds", torch.zeros(4, device=dev), ["sleepy"], "w1")
+    start, end = slept[-1]
+    device_s = start.elapsed_time(end) / 1e3
+    assert device_s > 0.02
+    assert r.module_seconds[0] >= device_s
+    rec = ex.store.records[r.stored_keys[0]]
+    assert rec.compute_s >= device_s  # the gain eviction prices it by
+
+    sched = DagScheduler(store=ex.store, policy=ex.policy, registry=ex.registry)
+    try:
+        dag = sched.dag("ds2", "d1")
+        dag.add("a", "sleepy", {"cycles": 100_000_000})
+        res = sched.run(dag, torch.zeros(4, device=dev))
+        start, end = slept[-1]
+        assert res.module_seconds[0] >= start.elapsed_time(end) / 1e3
+        assert res.output.is_cuda
+    finally:
+        sched.close()
+
+
+@pytest.mark.cuda
+def test_dag_branches_on_the_card_equal_the_sequential_runs(tmp_path):
+    dev = _cuda()
+    from repro_torch.core import TSAR, IntermediateStore, WorkflowExecutor
+    from repro_torch.sched import DagScheduler
+
+    def stem(x):
+        return torch.tanh(x @ x.T)
+
+    def head(x, col=0):
+        return (x[:, col:col + 8] @ x[:8]).float()
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    data = torch.randn(256, 256, generator=g, device=dev)
+    ex = WorkflowExecutor(store=IntermediateStore(tmp_path / "a"), policy=TSAR(with_state=True))
+    sched = DagScheduler(store=IntermediateStore(tmp_path / "b"), policy=TSAR(with_state=True),
+                         max_workers=2)
+    for reg in (ex, sched):
+        reg.register_fn("stem", stem)
+        reg.register_fn("head", head, col=0)
+    want = [ex.run("ds", data, ["stem", ("head", {"col": c})], f"w{c}").output for c in (0, 8)]
+    try:
+        dag = sched.dag("ds", "d")
+        dag.add("s", "stem")
+        dag.add("h0", "head", {"col": 0}, after="s")
+        dag.add("h8", "head", {"col": 8}, after="s")
+        res = sched.run(dag, data)
+    finally:
+        sched.close()
+    assert res.node_results["s"].source == "computed" and res.n_computed == 3
+    assert torch.equal(res.outputs["h0"], want[0]) and torch.equal(res.outputs["h8"], want[1])
