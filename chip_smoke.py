@@ -56,12 +56,28 @@ candidates, a SASRec-like weighted mean, a smoke case and 1,024 bags of
 4,096 ids: bit for bit against ``embedding_bag_seq_ref`` (the kernel's
 arithmetic) and within TOL of ``embedding_bag_ref``, with its times beside
 the bound, a sector-rounded diagnostic, the plain version and the library
-call; serves FM,
+call; holds the embedding-bag backward kernel (the table's gradient over a
+reverse index sorted on the card), fp32 and bf16, at the same cases, at the
+recsys train path's three shapes (FM's field sums, DCN-v2's bags of one,
+SASRec's history at ``train_batch``) and at a hub row whose positions span
+4,096 chunks: bit for bit against ``embedding_bag_bwd_seq_ref``, equal bits
+on a second call, and within TOL plus the bound of a sequential fp32 sum of
+the fp64 gradient, with the kernel's and the whole call's times (index, zero
+fill, kernel) beside the bound, the zero fill's bound, autograd of the plain
+version and the library's backward at the train shapes; serves FM,
 DCN-v2, BST and SASRec at full width through ``build_serve_step`` at
 ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``, counting the kernel's
 launches by model and cell and profiling one ``serve_p99`` call per model
 and FM's ``serve_bulk`` call by kernel, and checks the fp32 smoke models on
-the card against the CPU; builds the gated aggregation's
+the card against the CPU; trains the four at full width in fp32 through
+``build_train_step`` at ``train_batch`` (B 65,536): one step's gradients
+taken twice from the same state must be equal bit for bit, then three steps
+(finite metrics; one forward and one backward bag launch a lookup: FM 3,
+DCN-v2 1, BST 1, SASRec 3), each timed by CUDA events, peak memory, and one
+profiled step that must hold no kernel of a plain table gradient (the
+wrapper's plain path is watched and must never run on the card); and trains
+the fp32 smoke models five AdamW steps on the card and on the CPU and
+compares them; builds the gated aggregation's
 row-pointer (CSR) index on the card under the sync debug mode (any read back
 to the host fails) and holds the aggregation kernels (forward with num and
 den; one backward launch for dgates and dh) against their plain versions
@@ -1832,6 +1848,355 @@ def recsys_parity(dev) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase: the embedding-bag backward kernel against its plain versions
+# --------------------------------------------------------------------------
+BAG_BWD_NOTE = ("no Pallas backward: the reference differentiates its lookups by XLA's "
+                "transpose of jnp.take (src/repro/models/recsys.py:57)")
+# the train path's three shapes at train_batch (B 65,536), as BAG_CASES: FM's
+# field sums, DCN-v2's bags of one and SASRec's history as bags of one
+BAG_BWD_TRAIN = [
+    ("fm train bags", "fm", "train_batch", "fields", "sum", False),
+    ("dcn-v2 train bags of one", "dcn-v2", "train_batch", "rows", "sum", False),
+    ("sasrec train history", "sasrec", "train_batch", "rows", "sum", False),
+]
+BAG_BWD_MAIN = "fm train bags"
+# a hub: HUB_IDS of HUB_BAGS x 4 positions read one row of a HUB_V x 10
+# table, so its run spans HUB_IDS / 256 chunks of the kernel's walk
+HUB_V, HUB_BAGS, HUB_IDS = 1_000_000, 262_144, 400_000
+BAG_BWD_HUB = ("hub over many chunks", None, None, "hub", "sum", True)
+BAG_BWD_FORBIDDEN = ("indexing_backward", "index_put", "indexFunc", "embedding_backward",
+                     "compute_grad_weight", "sum_and_scatter")  # a plain table gradient
+
+
+def bwd_inputs(case, dev, gen):
+    """(V, dim, ids, weights or None, dout fp32) for a BAG_CASES-shaped case."""
+    label, arch, cell_name, lookup, combiner, weighted = case
+    if lookup == "hub":
+        V, dim = HUB_V, 10
+        ids = torch.randint(0, V, (HUB_BAGS, 4), generator=gen, device=dev, dtype=torch.int32)
+        at = torch.randperm(ids.numel(), generator=gen, device=dev)[:HUB_IDS]
+        ids.view(-1)[at] = 4321
+    else:
+        (V, dim), ids = bag_inputs(arch, cell_name, lookup, dev)
+    n_bags, bag = ids.shape
+    w = torch.rand(n_bags, bag, generator=gen, device=dev) if weighted else None
+    return V, dim, ids, w, torch.randn(n_bags, dim, generator=gen, device=dev)
+
+
+def bwd_check(V, ids, w, dout, combiner, got, tol) -> tuple[float, float]:
+    """(max abs err, worst err / allowed) against the fp64 gradient:
+    allowed = tol (1 + |exact|) + gamma_n sum |w x| for a row of n
+    positions, gamma_n = n u / (1 - n u), u = 2^-24 (the bound on n
+    sequential fp32 additions, Higham 4.2; the kernel's chunked sum is
+    within it)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_ref
+
+    w64 = None if w is None else w.double()
+    exact = embedding_bag_bwd_ref(V, ids, w64, dout.double(), combiner)
+    mass = embedding_bag_bwd_ref(V, ids, None if w is None else w64.abs(), dout.double().abs(),
+                                 combiner)
+    rows = torch.where(ids < 0, ids + V, ids).long().view(-1)
+    nu = torch.bincount(rows[(rows >= 0) & (rows < V)], minlength=V).double()[:, None] * 2.0**-24
+    diff = (got.double() - exact).abs()
+    ratio = (diff / (tol * (1 + exact.abs()) + nu / (1 - nu) * mass)).max().item()
+    return diff.max().item(), ratio
+
+
+def bwd_bound_ms(V, ids, dim: int, itemsize: int, weighted: bool) -> tuple[float, str, float]:
+    """(least time, what bounds it, the zero fill's least time).  Bytes: the
+    ids (and weights) read once, each bag's dout row read once, each row an
+    id reads written once; operations: one add (and a multiply, weighted)
+    per position and element at the fp32 rate.  The dense zero fill of
+    dtable (V x dim written) is its own line."""
+    n_bags, _ = ids.shape
+    rows = torch.where(ids < 0, ids + V, ids)
+    touched = torch.unique(rows[(rows >= 0) & (rows < V)]).numel()
+    nbytes = ids.numel() * 4 * (2 if weighted else 1) + n_bags * dim * itemsize
+    nbytes += touched * dim * itemsize
+    ops = (2 if weighted else 1) * ids.numel() * dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    fill = V * dim * itemsize / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes", fill) if t_bytes >= t_ops else (t_ops, "operations", fill)
+
+
+def bwd_times(V, dim, ids, w, dout, combiner, bag_ops) -> dict:
+    """The backward's times: the kernel alone on a built index, back to back
+    and queued behind a device sleep; the whole call (reverse index, zero
+    fill, kernel) the same ways and with the L2 evicted; the index and the
+    fill alone; autograd of ``embedding_bag_ref`` (plain); the backward
+    alone of ``F.embedding`` (bags of one) or ``F.embedding_bag`` (sum),
+    the yardstick."""
+    from repro_torch.kernels.embedding_bag import bwd_index, embedding_bag_ref
+
+    F = torch.nn.functional
+    n_bags, bag = ids.shape
+    call = lambda: bag_ops.embedding_bag_bwd(V, ids, w, dout, combiner)
+    key, pos = bwd_index(ids, V)
+    dtable = torch.zeros(V, dim, dtype=dout.dtype, device=dout.device)
+    tickets = torch.zeros(-(-ids.numel() // bag_ops.bwd_chunk(dim)), dtype=torch.int32,
+                          device=dout.device)
+    kernel = lambda: bag_ops.launch_bwd(key, pos, dout, w, combiner, bag, dtable, tickets)
+    row = dict(ms=cuda_ms(kernel, iters=10, warmup=2), queued_ms=queued_ms(kernel),
+               call_ms=cuda_ms(call, iters=10, warmup=2), call_queued_ms=queued_ms(call),
+               call_flushed_ms=flushed_ms(call),
+               index_ms=queued_ms(lambda: bwd_index(ids, V)),
+               fill_ms=queued_ms(lambda: torch.zeros(V, dim, dtype=dout.dtype,
+                                                     device=dout.device)))
+    del dtable, key, pos
+    table = torch.zeros(V, dim, dtype=dout.dtype, device=dout.device, requires_grad=True)
+    out = embedding_bag_ref(table, ids, w, combiner)
+    row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, table, dout, retain_graph=True),
+                              iters=5, warmup=1)
+    del out
+    row["library_ms"] = None
+    if bag == 1 and w is None:
+        out = F.embedding(ids[:, 0], table)
+    elif w is None or (combiner == "sum" and dout.dtype == torch.float32):
+        out = F.embedding_bag(ids, table, mode=combiner, per_sample_weights=w)
+    else:
+        out = None
+    if out is not None:
+        row["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(out, table, dout, retain_graph=True), iters=5, warmup=1)
+    del out, table
+    return row
+
+
+def phase_bag_bwd(dev) -> dict:
+    """The backward kernel at every BAG_CASES case, the train path's three
+    shapes and a hub over many chunks, fp32 and bf16: bit for bit against
+    ``embedding_bag_bwd_seq_ref`` (the kernel's arithmetic), the same bits
+    on a second call, and within TOL plus the bound of a sequential fp32
+    sum of the fp64 gradient; then, at the train shapes, its times beside
+    the bound, the plain version and the library call."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_seq_ref
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    gen = torch.Generator(device=dev).manual_seed(78)
+    results = {}
+    for case in BAG_CASES + BAG_BWD_TRAIN + [BAG_BWD_HUB]:
+        label, combiner, weighted = case[0], case[4], case[5]
+        V, dim, ids, w, dout32 = bwd_inputs(case, dev, gen)
+        n_bags, bag = ids.shape
+        timed = case in BAG_BWD_TRAIN
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).replace("torch.", "")
+            dout = dout32.to(dtype)
+            before = bag_ops.embedding_bag.launches_bwd
+            got = bag_ops.embedding_bag_bwd(V, ids, w, dout, combiner)
+            again = bag_ops.embedding_bag_bwd(V, ids, w, dout, combiner)
+            check(bag_ops.embedding_bag.launches_bwd == before + 2,
+                  f"embedding_bag_bwd {label} {tname}: not one launch a call")
+            same = bool(torch.equal(got, again))
+            del again
+            exact = embedding_bag_bwd_seq_ref(V, ids, w, dout, combiner)
+            bits = bool(torch.equal(got, exact))
+            del exact
+            err, ratio = bwd_check(V, ids, w, dout, combiner, got, TOL[dtype])
+            chunks = -(-ids.numel() // bag_ops.bwd_chunk(dim))
+            print(f"bag bwd check {label:24s} {tname:8s} bags {n_bags} x {bag} dim {dim} V {V} "
+                  f"chunks {chunks} bits vs seq_ref {'equal' if bits else 'DIFFER'} rerun "
+                  f"{'equal' if same else 'DIFFER'} max_abs_err {err:.3e} vs fp64 (tol "
+                  f"{TOL[dtype]:.0e} + sequential-sum bound) worst ratio {ratio:.3f}")
+            check(bits, f"embedding_bag_bwd {label} {tname}: differs from the seq_ref")
+            check(same, f"embedding_bag_bwd {label} {tname}: two calls differ")
+            check(math.isfinite(err) and ratio <= 1.0,
+                  f"embedding_bag_bwd {label} {tname}: max_abs_err {err}, worst ratio {ratio}")
+            del got
+            row = {"max_abs_err": err, "bits": bits}
+            if timed:
+                row.update(bwd_times(V, dim, ids, w, dout, combiner, bag_ops))
+                row["bound_ms"], row["bound_by"], row["fill_bound_ms"] = bwd_bound_ms(
+                    V, ids, dim, dout.element_size(), w is not None)
+                lib = f"{row['library_ms']:.6f}" if row["library_ms"] is not None else "n/a"
+                print(f"bag bwd time  {label:24s} {tname:8s} kernel ms {row['ms']:.6f} "
+                      f"queued_ms {row['queued_ms']:.6f} bound_ms {row['bound_ms']:.6f} "
+                      f"({row['bound_by']}); call (index + zero fill + kernel) ms "
+                      f"{row['call_ms']:.6f} queued_ms {row['call_queued_ms']:.6f} "
+                      f"l2_flushed_ms {row['call_flushed_ms']:.6f}; index_ms "
+                      f"{row['index_ms']:.6f} fill_ms {row['fill_ms']:.6f} fill_bound_ms "
+                      f"{row['fill_bound_ms']:.6f}; plain_ms {row['plain_ms']:.6f} "
+                      f"library_ms {lib}")
+            results[(label, tname)] = row
+            torch.cuda.empty_cache()
+        del ids, w, dout32
+        torch.cuda.empty_cache()
+    return {"cases": results}
+
+
+# --------------------------------------------------------------------------
+# phase: full-width recsys training
+# --------------------------------------------------------------------------
+# embedding-bag launches a train step makes (forward = backward): FM its
+# rows() bags of one, its linear term and its field sums; DCN-v2 and BST one
+# rows() lookup; SASRec the history, the positives and the negatives
+TRAIN_BAGS = {"fm": 3, "dcn-v2": 1, "bst": 1, "sasrec": 3}
+TRAIN_STEPS = 3  # one warm-up, two timed
+
+
+def step_grads(loss_fn, params, batch) -> list:
+    """Every leaf's gradient of one step's loss at ``params``, as the train
+    step takes it (zeros for a leaf the loss does not read)."""
+    from repro_torch.tree import unflatten
+
+    req = [t.detach().requires_grad_(True) for t in leaves(params)]
+    loss, _ = loss_fn(unflatten(params, req), batch)
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(req, grads)]
+
+
+def phase_recsys_train(dev) -> dict:
+    """FM, DCN-v2, BST and SASRec at full width in fp32 through
+    ``build_train_step`` at ``train_batch`` (B 65,536): one step's gradients
+    twice from the same state (equal bits), then TRAIN_STEPS steps (finite
+    metrics, TRAIN_BAGS forward and backward bag launches each, step time
+    by CUDA events, peak memory) and one profiled step (no kernel of a plain
+    table gradient); the wrapper's plain path is watched and must never run
+    on the card.  Then the smoke models' train parity, card vs CPU."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag, reset_launches
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (build_loss_fn, build_param_specs, build_train_step,
+                                   make_train_state)
+
+    plain = bag_ops.embedding_bag_ref
+    plain_on_card = [0]
+
+    def watched_plain(table, *args, **kwargs):  # the wrapper's plain path, watched
+        if table.device.type != "cpu":
+            plain_on_card[0] += 1
+        return plain(table, *args, **kwargs)
+
+    bag_ops.embedding_bag_ref = watched_plain
+    rows = {}
+    try:
+        for arch in RECSYS:
+            cfg = get_config(arch)  # full width, fp32 (the reference's dtype)
+            cell = next(c for c in get_shapes(arch) if c.name == "train_batch")
+            B = cell.params["batch"]
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = init_params(gen, build_param_specs(cfg, cell), cfg.dtype, dev)
+            batches = [make_batch(cfg, cell, seed=i, device=dev) for i in range(TRAIN_STEPS)]
+            loss_fn = build_loss_fn(cfg, cell)
+            g1 = step_grads(loss_fn, params, batches[0])
+            g2 = step_grads(loss_fn, params, batches[0])
+            differ = [i for i, (a, b) in enumerate(zip(g1, g2)) if not torch.equal(a, b)]
+            del g1, g2
+            print(f"recsys train {arch}: one step's gradients twice from the same state: "
+                  f"{'equal bit for bit' if not differ else f'leaves {differ} DIFFER'}")
+            check(not differ, f"recsys train {arch}: gradients of leaves {differ} differ")
+            state = make_train_state(params)
+            step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            steps = []
+            for i in range(TRAIN_STEPS):
+                f0, b0 = embedding_bag.launches, embedding_bag.launches_bwd
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                state, m = step(state, batches[i])
+                end.record()
+                m = {k: float(v) for k, v in m.items()}  # waits for the device
+                wall = time.perf_counter() - t0
+                ms = start.elapsed_time(end)
+                nf, nb = embedding_bag.launches - f0, embedding_bag.launches_bwd - b0
+                tag = "warm-up" if i == 0 else f"step {i}"
+                print(f"recsys train {arch} {tag}: loss {m['loss']:.6f} grad_norm "
+                      f"{m['grad_norm']:.6f} step_ms {ms:.3f} (host wall {wall * 1e3:.3f}) "
+                      f"samples_per_s {B / ms * 1e3:.1f} bag_fwd {nf} bag_bwd {nb}")
+                check(all(math.isfinite(v) for v in m.values()),
+                      f"recsys train {arch} {tag}: non-finite {m}")
+                check(nf == nb == TRAIN_BAGS[arch],
+                      f"recsys train {arch} {tag}: {nf} forward / {nb} backward bag launches, "
+                      f"wanted {TRAIN_BAGS[arch]}")
+                steps.append(dict(step_ms=ms, wall_ms=wall * 1e3, **m))
+            launches = (embedding_bag.launches, embedding_bag.launches_bwd)
+            mem = torch.cuda.max_memory_allocated(dev)
+            n_bytes = sum(t.numel() * t.element_size() for t in leaves(state["params"]))
+            mean_ms = sum(r["step_ms"] for r in steps[1:]) / (TRAIN_STEPS - 1)
+            print(f"recsys train {arch}: train_batch B {B} fp32: mean step_ms {mean_ms:.3f} "
+                  f"samples_per_s {B / mean_ms * 1e3:.1f} params bytes {n_bytes} "
+                  f"max_memory_allocated {mem}; bag launches fwd {launches[0]} bwd {launches[1]}")
+
+            def one_more():
+                nonlocal state
+                state, m = step(state, batches[0])
+                check(math.isfinite(float(m["loss"])), f"profiled {arch} step: non-finite loss")
+
+            prof = profile_call(f"recsys train {arch} step", one_more, n_kernels=8,
+                                watch=("embedding_bag_bwd_kernel",) + BAG_BWD_FORBIDDEN)
+            seen = prof.get("watch", {})
+            plain_kernels = sum(seen.get(w, {}).get("kernels", 0) for w in BAG_BWD_FORBIDDEN)
+            check(plain_kernels == 0, f"recsys train {arch}: {plain_kernels} kernels of a plain "
+                                      "table gradient in the profiled step")
+            rows[arch] = dict(steps=steps, mean_step_ms=mean_ms, max_memory=mem,
+                              params_bytes=n_bytes, launches=launches, profile=prof)
+            del state, params, batches, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(plain_on_card[0] == 0,
+              f"recsys train: the plain embedding bag ran {plain_on_card[0]} times on the card")
+        parity = recsys_train_parity(dev)
+    finally:
+        bag_ops.embedding_bag_ref = plain
+    return {"rows": rows, "parity_launches": parity}
+
+
+def recsys_train_parity(dev) -> tuple[int, int]:
+    """Five fp32 AdamW steps of each smoke model at B 1,024 on the card
+    (kernels) and on the CPU (plain path), from the same parameters: loss
+    and parameters within 1e-4 + 1e-4 |cpu|, as the GatedGCN parity holds
+    them.  Returns the card's (forward, backward) bag launches."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_param_specs, build_train_step, make_train_state
+
+    before = embedding_bag.launches, embedding_bag.launches_bwd
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=5)
+    for arch in RECSYS:
+        cfg = get_config(arch, smoke=True)  # fp32
+        cell = next(c for c in get_shapes(arch) if c.name == "train_batch")
+        cell = dc.replace(cell, params=dict(cell.params, batch=1024))
+        cpu_params = init_params(torch.Generator().manual_seed(0), build_param_specs(cfg, cell),
+                                 cfg.dtype, "cpu")
+        dev_state = make_train_state(to_device(cpu_params, dev))
+        cpu_state = make_train_state(cpu_params)
+        step = build_train_step(cfg, cell, opt)
+        for s in range(5):
+            batch = make_batch(cfg, cell, seed=20 + s, device="cpu")
+            dev_state, a = step(dev_state, to_device(batch, dev))
+            cpu_state, b = step(cpu_state, batch)
+            la, lb = float(a["loss"]), float(b["loss"])
+            check(abs(la - lb) <= 1e-4 + 1e-4 * abs(lb),
+                  f"recsys train parity {arch} step {s + 1}: loss {la} on the card, {lb} on the "
+                  "CPU")
+        worst = 0.0
+        for pa, pb in zip(leaves(dev_state["params"]), leaves(cpu_state["params"])):
+            diff = (pa.cpu() - pb).abs()
+            worst = max(worst, (diff / (1e-4 + 1e-4 * pb.abs())).max().item())
+        print(f"recsys train parity {arch}: 5 steps, last loss card {la:.7f} cpu {lb:.7f}; "
+              f"final params worst err/(1e-4+1e-4*|cpu|) {worst:.4f}")
+        check(worst <= 1.0, f"recsys train parity {arch}: parameters differ (worst {worst})")
+    launched = (embedding_bag.launches - before[0], embedding_bag.launches_bwd - before[1])
+    check(min(launched) > 0, "recsys train parity: the card never launched the bag kernels")
+    return launched
+
+
+# --------------------------------------------------------------------------
 # phase: gated-aggregation kernels against the plain version plus autograd
 # --------------------------------------------------------------------------
 AGG_SRC = "src/repro_torch/kernels/gnn_aggregate/csrc/gnn_aggregate.cu"
@@ -2759,7 +3124,9 @@ def main() -> int:
     pre = timed(phase_prefill)
     gem = timed(phase_gemma3)
     bag = timed(phase_bag)
+    bwd = timed(phase_bag_bwd)
     rec = timed(phase_recsys)
+    rtrain = timed(phase_recsys_train)
     graph, sampler = power_law_graph()
     agg = timed(phase_agg, agg_graphs(graph, sampler))
     del graph
@@ -2927,6 +3294,10 @@ def main() -> int:
     bag_case = next(c for c in BAG_CASES if c[0] == BAG_MAIN)
     bag_paths = {f"recsys {a} {c}": r["launches"] for (a, c), r in rec["rows"].items()}
     bag_paths["recsys fp32 smoke parity (card vs CPU)"] = rec["parity_launches"]
+    for arch, r in rtrain["rows"].items():
+        bag_paths[f"recsys train {arch} ({TRAIN_STEPS} steps)"] = r["launches"][0]
+    bag_paths["recsys fp32 smoke train parity (card vs CPU, 5 steps)"] = \
+        rtrain["parity_launches"][0]
     line["kernels"].append({
         "name": "embedding_bag",
         "route": "cuda",
@@ -2951,6 +3322,46 @@ def main() -> int:
             "queued_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")}
             for (label, tname), r in bag["cases"].items()},
         "fm_serve_bulk_profile": rec["rows"][BAG_PROFILED].get("profile", {}),
+    })
+    bb = bwd["cases"][(BAG_BWD_MAIN, "float32")]
+    bwd_case = next(c for c in BAG_BWD_TRAIN if c[0] == BAG_BWD_MAIN)
+    bwd_paths = {f"recsys train {arch} ({TRAIN_STEPS} steps)": r["launches"][1]
+                 for arch, r in rtrain["rows"].items()}
+    bwd_paths["recsys fp32 smoke train parity (card vs CPU, 5 steps)"] = \
+        rtrain["parity_launches"][1]
+    line["kernels"].append({
+        "name": "embedding_bag_bwd",
+        "route": "cuda",
+        "source": BAG_SRC,
+        "replaces": BAG_TPU,
+        "replaces_note": BAG_BWD_NOTE,
+        "launches": sum(bwd_paths.values()),
+        "variant": "sorted_chunks",
+        "launches_by_path": bwd_paths,
+        "launches_per_step": {arch: r["launches"][1] // TRAIN_STEPS
+                              for arch, r in rtrain["rows"].items()},
+        "max_abs_err": bb["max_abs_err"],
+        "ms": bb["ms"],
+        "queued_ms": bb["queued_ms"],
+        "call_ms": bb["call_ms"],
+        "call_queued_ms": bb["call_queued_ms"],
+        "call_l2_flushed_ms": bb["call_flushed_ms"],
+        "index_ms": bb["index_ms"],
+        "fill_ms": bb["fill_ms"],
+        "plain_ms": bb["plain_ms"],
+        "bound_ms": bb["bound_ms"],
+        "bound_by": bb["bound_by"],
+        "fill_bound_ms": bb["fill_bound_ms"],
+        "library_ms": bb["library_ms"],
+        "held": True,
+        "shape": {"case": BAG_BWD_MAIN, "arch": bwd_case[1], "cell": bwd_case[2],
+                  "combiner": bwd_case[4], "dtype": "float32"},
+        "cases": {f"{label} {tname}": {k: r[k] for k in (
+            "queued_ms", "call_queued_ms", "bound_ms", "fill_bound_ms", "plain_ms",
+            "library_ms", "max_abs_err")} for (label, tname), r in bwd["cases"].items()
+            if "queued_ms" in r},
+        "train_steps": {arch: {k: r[k] for k in ("mean_step_ms", "max_memory")}
+                        for arch, r in rtrain["rows"].items()},
     })
     am = agg["cases"][(AGG_MAIN, "float32")]
     skew = agg["cases"][(AGG_SKEW, "float32")]["csr"]

@@ -638,3 +638,306 @@ extern "C" int embedding_bag_launch(const void* table, const void* ids, const vo
   }
   return static_cast<int>(e);
 }
+
+// ---------------------------------------------------------------------------
+// Backward: the table's gradient.
+//
+// Replaces no Pallas kernel: the reference has no backward of its own
+// (jax.grad transposes jnp.take into a scatter-add, which XLA emits).  It
+// computes what autograd of ref.py::embedding_bag_ref gives the table
+//   dtable[v] = sum over (b, j) with ids[b, j] = v of w[b, j] * dout[b]
+// (dout[b] / bag for "mean"; an id in [-V, 0) counts from the end, one
+// outside [-V, V) adds nothing), and its arithmetic is, bit for bit,
+// ref.py::embedding_bag_bwd_seq_ref.  The weights are constants: they get no
+// gradient.
+//
+// What bounds it on this card: bytes.  Each position reads its index entry
+// and its bag's dout row and adds one product per element; each row that an
+// id reads is written once.  The dense zero fill of dtable (V x dim, up to
+// 2.16 GB at DCN-v2) is the wrapper's, and larger than all of that.  What
+// the kernel must not do is let a hub serialise: at FM's train batch one row
+// of a field of 4 values takes 16,384 positions.
+//
+// What the design does about it:
+//  * The wrapper sorts the flat positions b * bag + j stably by the row they
+//    read (ref.py::bwd_index, on the card); an invalid id sorts last with key
+//    V.  The kernel walks that list in fixed chunks of `chunk` positions,
+//    one block a chunk, so a hub is spread over as many blocks as it has
+//    chunks, whatever its size.
+//  * A block loads its chunk's keys and positions (one a thread, coalesced),
+//    gathers each position's dout row into shared memory as fp32 terms
+//    (divided by the bag for "mean", times its weight), and finds the runs
+//    of one key in the chunk by a ballot scan.  One thread a (run, vector
+//    chunk) pair sums the run in position order and writes the row, or, for
+//    a run that continues into the chunk before or after, writes an fp32
+//    partial into scratch: slot 1 of its chunk where the row's first
+//    position lies in the chunk, slot 0 otherwise.
+//  * A row whose positions span chunks c0 .. c1 is finished by the last of
+//    those blocks to arrive: each writes its partial, fences, and takes a
+//    ticket (an integer atomicAdd on the counter of c0); the block that
+//    draws the last ticket adds partial[c0][1] + partial[c0+1][0] + ... +
+//    partial[c1][0] in chunk order, writes the row, and puts the counter
+//    back to 0.  c0 and c1 come from a warp search over the keys at chunk
+//    edges (32 probes a step).  No float atomics, no block waits on another:
+//    the sums' order is fixed, and two runs give equal bits.
+//  * Products and sums are rounded separately (no fused multiply-add).
+//    Addresses are 64-bit.
+namespace {
+
+constexpr int kBwdThreads = 256;  // and the most positions a chunk
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+
+struct BwdPlan {
+  int64_t V;
+  int64_t n;         // positions: n_bags * bag
+  int64_t n_chunks;  // ceil(n / chunk)
+  int bag;
+  int dim;
+  int chunk;         // positions a block takes (<= kBwdThreads)
+  int mean;
+  int weighted;
+};
+
+// Byte offsets of the shared-memory regions: the chunk's fp32 terms [chunk,
+// dim], its keys, bags and weights [chunk], and the first position of each
+// run [chunk + 1].
+struct BwdCarve {
+  int terms, keys, bags, wts, first, total;
+};
+
+__host__ __device__ inline BwdCarve bwd_carve(int chunk, int dim) {
+  BwdCarve c;
+  c.terms = 0;
+  c.keys = chunk * dim * 4;
+  c.bags = c.keys + chunk * 4;
+  c.wts = c.bags + chunk * 4;
+  c.first = c.wts + chunk * 4;
+  c.total = align_up(c.first + (chunk + 1) * 4, 16);
+  return c;
+}
+
+// The first k in (lo, hi] with pred(k), for a pred that is false and then
+// true as k grows, and true at hi (lo may be a bound never probed).  The warp
+// probes 32 points a step, so a range shrinks 32-fold a step.
+template <class Pred>
+__device__ __forceinline__ int64_t warp_first_true(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 1) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t k = lo + step * (lane + 1) < hi ? lo + step * (lane + 1) : hi;
+    const unsigned m = __ballot_sync(kAll, k == hi || pred(k));
+    const int l = __ffs(m) - 1;  // lane 31 probes hi, so m is not 0
+    const int64_t nhi = lo + step * (l + 1) < hi ? lo + step * (l + 1) : hi;
+    if (l > 0) lo += step * l;
+    hi = nhi;
+  }
+  return hi;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+embedding_bag_bwd_kernel(const int32_t* __restrict__ skey, const int32_t* __restrict__ spos,
+                         const T* __restrict__ dout, const float* __restrict__ weights,
+                         T* __restrict__ dtable, float* __restrict__ partial,
+                         int32_t* __restrict__ tickets, const BwdPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdCarve cv = bwd_carve(p.chunk, p.dim);
+  float* terms = reinterpret_cast<float*>(smem + cv.terms);
+  int* keys = reinterpret_cast<int*>(smem + cv.keys);
+  int* bags = reinterpret_cast<int*>(smem + cv.bags);
+  float* wts = reinterpret_cast<float*>(smem + cv.wts);
+  int* first = reinterpret_cast<int*>(smem + cv.first);
+  __shared__ int warp_runs[kBwdWarps], warp_live[kBwdWarps];
+  __shared__ int key_prev, key_next;
+
+  const int64_t c = blockIdx.x;
+  const int64_t i0 = c * p.chunk;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ppr = p.dim / VEC;  // vector chunks of a row
+
+  // this thread's position: its key (-1 past the list's end or for an
+  // invalid id, which sort last), bag and weight
+  int key = -1;
+  if (t < p.chunk && i0 + t < p.n) {
+    const int k = __ldg(skey + i0 + t);
+    if (k < p.V) {
+      key = k;
+      const int pos = __ldg(spos + i0 + t);
+      const int b = pos / p.bag;
+      bags[t] = b;
+      wts[t] = weights ? __ldg(weights + pos) : 1.f;
+    }
+  }
+  if (t < p.chunk) keys[t] = key;
+  if (t == 0) key_prev = i0 > 0 ? __ldg(skey + i0 - 1) : -1;
+  if (t == 32) key_next = i0 + p.chunk < p.n ? __ldg(skey + i0 + p.chunk) : -1;
+  __syncthreads();
+
+  // runs: a live position whose key differs from the one before it in the
+  // chunk starts one; live positions are a prefix of the chunk
+  const bool live = key >= 0;
+  const bool starts = live && (t == 0 || keys[t - 1] != key);
+  const unsigned ms = __ballot_sync(kAll, starts), ml = __ballot_sync(kAll, live);
+  if (lane == 0) {
+    warp_runs[warp] = __popc(ms);
+    warp_live[warp] = __popc(ml);
+  }
+  __syncthreads();
+  int before = 0, runs = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < kBwdWarps; ++w) {
+    if (w < warp) before += warp_runs[w];
+    runs += warp_runs[w];
+    n_live += warp_live[w];
+  }
+  if (starts) first[before + __popc(ms & ((1u << lane) - 1u))] = t;
+  if (t == 0) first[runs] = n_live;
+
+  // the terms: dout[b] in fp32, / bag ("mean"), * w (weighted)
+  const float fbag = static_cast<float>(p.bag);
+  for (int item = t; item < n_live * ppr; item += kBwdThreads) {
+    const int j = item / ppr, q = item - j * ppr;
+    float x[VEC];
+    load_vec<T, VEC>(dout + static_cast<int64_t>(bags[j]) * p.dim + q * VEC, x);
+    const float wj = wts[j];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float v = x[i];
+      if (p.mean) v = __fdiv_rn(v, fbag);
+      if (p.weighted) v = __fmul_rn(v, wj);
+      terms[j * p.dim + q * VEC + i] = v;
+    }
+  }
+  __syncthreads();
+
+  // head: the chunk's first run continues the chunk before; tail: its last
+  // run continues into the chunk after
+  const bool head = n_live > 0 && key_prev == keys[0];
+  const bool tail = n_live == p.chunk && key_next == keys[p.chunk - 1];
+  for (int item = t; item < runs * ppr; item += kBwdThreads) {
+    const int r = item / ppr, q = item - r * ppr;
+    const int lo = first[r], hi = first[r + 1];
+    float acc[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int j = lo; j < hi; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], terms[j * p.dim + q * VEC + i]);
+    }
+    const bool h = r == 0 && head, tl = r == runs - 1 && tail;
+    if (!h && !tl) {
+      store_vec<T, VEC>(dtable + static_cast<int64_t>(keys[lo]) * p.dim + q * VEC, acc);
+    } else {
+      float* dst = partial + (c * 2 + (h ? 0 : 1)) * p.dim + q * VEC;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) dst[i] = acc[i];
+    }
+  }
+  if (!head && !tail) return;  // uniform over the block
+  __threadfence();
+  __syncthreads();
+
+  // warp 0 takes the head run's ticket, warp 1 the tail run's (one run that
+  // is both is warp 0's)
+  const bool one = runs == 1 && head;
+  int slot;
+  if (warp == 0 && head) {
+    slot = 0;
+  } else if (warp == 1 && tail && !one) {
+    slot = 1;
+  } else {
+    return;
+  }
+  const int v = slot == 0 ? keys[0] : keys[n_live - 1];
+  int64_t c0 = c, c1 = c;
+  if (slot == 0)  // the first chunk whose last key is v
+    c0 = warp_first_true(-1, c - 1, [&](int64_t k) {
+      return __ldg(skey + (k + 1) * p.chunk - 1) == v;
+    });
+  if (tail && (slot == 1 || one))  // the last chunk whose first key is v
+    c1 = warp_first_true(c, p.n_chunks, [&](int64_t k) {
+      return __ldg(skey + k * p.chunk) != v;
+    }) - 1;
+  int drawn = 0;
+  if (lane == 0) drawn = atomicAdd(tickets + c0, 1);
+  drawn = __shfl_sync(kAll, drawn, 0);
+  if (drawn != c1 - c0) return;  // another piece is still to come
+  __threadfence();
+  for (int e = lane; e < p.dim; e += 32) {
+    float acc = __ldcg(partial + (c0 * 2 + 1) * p.dim + e);
+    for (int64_t k = c0 + 1; k <= c1; ++k)
+      acc = __fadd_rn(acc, __ldcg(partial + k * 2 * p.dim + e));
+    dtable[static_cast<int64_t>(v) * p.dim + e] = from_f32<T>(acc);
+  }
+  if (lane == 0) tickets[c0] = 0;  // ready for the next launch
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd(const int32_t* skey, const int32_t* spos, const void* dout,
+                       const float* w, void* dtable, float* partial, int32_t* tickets,
+                       const BwdPlan& p, int smem, cudaStream_t st) {
+  auto kernel = embedding_bag_bwd_kernel<T, VEC>;
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed = smem;
+  }
+  kernel<<<static_cast<unsigned>(p.n_chunks), kBwdThreads, smem, st>>>(
+      skey, spos, static_cast<const T*>(dout), w, static_cast<T*>(dtable), partial, tickets, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The table's gradient over the reverse index (skey, spos) of n positions
+// (ref.py::bwd_index): writes each row of dtable [V, dim] that an id reads.
+// partial: 2 * dim fp32 of scratch a chunk; tickets: one int32 a chunk, 0 on
+// entry and on exit.  dtype 0: fp32, 1: bf16 (dout and dtable); vec:
+// elements per load and store (a power of two that divides dim, at most 16
+// bytes, from the wrapper); weights may be null.  chunk and smem_bytes are
+// ops.py::bwd_chunk and bwd_smem_bytes.  Returns a CUDA error code.
+extern "C" int embedding_bag_bwd_launch(const void* skey, const void* spos, const void* dout,
+                                        const void* weights, void* dtable, void* partial,
+                                        void* tickets, long long V, long long n, int bag,
+                                        int dim, int mean, int vec, int dtype, int chunk,
+                                        int smem_bytes, void* stream) {
+  const int isz = dtype == 0 ? 4 : 2;
+  if (V <= 0 || V > 0x7fffffffLL || n <= 0 || n > 0x7fffffffLL || bag <= 0 || dim <= 0 ||
+      vec <= 0 || dim % vec != 0 || vec * isz > 16 || (dtype != 0 && dtype != 1) ||
+      chunk <= 0 || chunk > kBwdThreads || chunk % 32 != 0 ||
+      bwd_carve(chunk, dim).total != smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdPlan p;
+  p.V = V;
+  p.n = n;
+  p.n_chunks = (n + chunk - 1) / chunk;
+  p.bag = bag;
+  p.dim = dim;
+  p.chunk = chunk;
+  p.mean = mean;
+  p.weighted = weights != nullptr;
+  if (p.n_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto k = static_cast<const int32_t*>(skey);
+  auto s = static_cast<const int32_t*>(spos);
+  auto w = static_cast<const float*>(weights);
+  auto part = static_cast<float*>(partial);
+  auto tk = static_cast<int32_t*>(tickets);
+  const int sm = smem_bytes;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (vec == 1) e = launch_bwd<float, 1>(k, s, dout, w, dtable, part, tk, p, sm, st);
+    else if (vec == 2) e = launch_bwd<float, 2>(k, s, dout, w, dtable, part, tk, p, sm, st);
+    else if (vec == 4) e = launch_bwd<float, 4>(k, s, dout, w, dtable, part, tk, p, sm, st);
+  } else {
+    using bf = __nv_bfloat16;
+    if (vec == 1) e = launch_bwd<bf, 1>(k, s, dout, w, dtable, part, tk, p, sm, st);
+    else if (vec == 2) e = launch_bwd<bf, 2>(k, s, dout, w, dtable, part, tk, p, sm, st);
+    else if (vec == 4) e = launch_bwd<bf, 4>(k, s, dout, w, dtable, part, tk, p, sm, st);
+    else if (vec == 8) e = launch_bwd<bf, 8>(k, s, dout, w, dtable, part, tk, p, sm, st);
+  }
+  return static_cast<int>(e);
+}

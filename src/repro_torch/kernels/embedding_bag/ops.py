@@ -1,13 +1,23 @@
-"""Wrapper of the hand-written embedding-bag kernel
+"""Wrapper of the hand-written embedding-bag kernels
 (``csrc/embedding_bag.cu``), with the reference wrapper's signature, and the
-static plan of the kernel's walk.
+static plan of the forward kernel's walk.
 
-A table on the CPU goes to the plain version (:func:`embedding_bag_ref`).  A
-table on a CUDA device goes to the kernel, or the wrapper raises: there is no
-fallback.  The reference pads the width to 128 TPU lanes; here the kernel
+A table on the CPU goes to the plain version (:func:`embedding_bag_ref`),
+which autograd differentiates.  A table on a CUDA device goes to the
+kernels, or the wrapper raises: there is no fallback.  With grad mode on and
+a table that requires grad, the call goes through a
+``torch.autograd.Function``: the forward kernel, then one launch of the
+backward kernel (:func:`embedding_bag_bwd`), which writes the dense table
+gradient over a reverse index sorted on the card (:func:`bwd_index`),
+deterministically and with no float atomics.  The gradient goes to the
+table only: weights are constants, and a CUDA ``weights`` that requires
+grad is refused.
+
+The reference pads the width to 128 TPU lanes; here the forward kernel
 takes any width whose row fits its shared memory (two stages of one row,
 the output row and, for a bag cut into chunks, the row's fp32 sums: up to
-14,520 fp32 or 23,232 bf16 columns), so nothing is padded.
+14,520 fp32 or 23,232 bf16 columns), and the backward any width whose
+chunk of 32 positions does (:func:`bwd_chunk`), so nothing is padded.
 
 :func:`plan` computes, from static shapes only, how the kernel cuts the work:
 tiles of consecutive bags, each bag's ids cut into chunks so that a unit (one
@@ -25,13 +35,15 @@ from typing import Iterator, NamedTuple
 import torch
 
 from .. import build
-from .ref import embedding_bag_ref
+from .ref import bwd_index, embedding_bag_bwd_ref, embedding_bag_ref
 
-__all__ = ["Plan", "Unit", "embedding_bag", "embedding_bag_ref", "launch", "plan", "walk"]
+__all__ = ["Plan", "Unit", "bwd_chunk", "bwd_index", "embedding_bag", "embedding_bag_bwd",
+           "embedding_bag_ref", "launch", "launch_bwd", "plan", "reset_launches", "walk"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMBINERS = ("sum", "mean")
 _fn = None
+_fn_bwd = None
 
 # the kernel's constants (csrc/embedding_bag.cu)
 THREADS = 256  # kThreads
@@ -234,26 +246,28 @@ def _sms(device: torch.device) -> int:
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
-           combiner: str) -> None:
+           combiner: str, name: str = "table") -> None:
+    """The kernels' checks; ``table`` is the table (forward) or the output's
+    gradient ``dout`` [n_bags, dim] (backward, ``name`` "dout")."""
     if table.device.type != "cuda":
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
     if combiner not in _COMBINERS:
         raise ValueError(f"embedding_bag: combiner must be 'sum' or 'mean', got {combiner!r}")
     if table.dtype not in _DTYPES:
-        raise TypeError(f"embedding_bag: table must be fp32 or bf16, got {table.dtype}")
+        raise TypeError(f"embedding_bag: {name} must be fp32 or bf16, got {table.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"embedding_bag: ids must be int32, got {ids.dtype}")
     if table.dim() != 2 or ids.dim() != 2 or table.shape[0] == 0:
         raise ValueError(
-            f"embedding_bag: shapes table {tuple(table.shape)}, ids {tuple(ids.shape)} are "
+            f"embedding_bag: shapes {name} {tuple(table.shape)}, ids {tuple(ids.shape)} are "
             "not [V>0, dim] and [n_bags, bag_size]"
         )
     if table.shape[0] >= 2**31:
         raise ValueError(f"embedding_bag: {table.shape[0]} table rows; the kernel takes < 2^31")
     tensors = [("ids", ids)] + ([("weights", weights)] if weights is not None else [])
-    for name, t in tensors:
+    for tname, t in tensors:
         if t.device != table.device:
-            raise ValueError(f"embedding_bag: {name} on {t.device}, table on {table.device}")
+            raise ValueError(f"embedding_bag: {tname} on {t.device}, {name} on {table.device}")
     if weights is not None:
         if weights.dtype != torch.float32:
             raise TypeError(f"embedding_bag: weights must be fp32, got {weights.dtype}")
@@ -261,8 +275,8 @@ def _check(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
             raise ValueError(
                 f"embedding_bag: weights {tuple(weights.shape)} differ from ids {tuple(ids.shape)}"
             )
-    if not all(t.is_contiguous() for _, t in [("table", table)] + tensors):
-        raise ValueError("embedding_bag: table, ids and weights must be contiguous")
+    if not all(t.is_contiguous() for _, t in [(name, table)] + tensors):
+        raise ValueError(f"embedding_bag: {name}, ids and weights must be contiguous")
 
 
 def launch(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None, combiner: str,
@@ -284,20 +298,9 @@ def launch(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
     return out
 
 
-def embedding_bag(
-    table: torch.Tensor,  # [V, dim]
-    ids: torch.Tensor,  # [n_bags, bag_size] int32
-    weights: torch.Tensor | None = None,  # [n_bags, bag_size] fp32; None: ones
-    *,
-    combiner: str = "sum",
-) -> torch.Tensor:
-    """Per bag, the weighted sum of its rows (``"mean"``: divided by
-    bag_size), accumulated in fp32.  Returns [n_bags, dim] in the table's
-    dtype.  A negative id in [-V, 0) counts from the end; an id outside
-    [-V, V) makes its bag's row NaN."""
-    if table.device.type == "cpu":
-        return embedding_bag_ref(table, ids, weights, combiner)
-    _check(table, ids, weights, combiner)
+def _forward(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
+             combiner: str) -> torch.Tensor:
+    """One launch of the forward kernel on checked inputs."""
     n_bags, bag = ids.shape
     dim = table.shape[1]
     out = torch.empty(n_bags, dim, dtype=table.dtype, device=table.device)
@@ -309,6 +312,168 @@ def embedding_bag(
     return launch(table, ids, weights, combiner, p, out)
 
 
-# kernel launches: one per call that reached the card, and nowhere else.
-# Callers that prove a path went through the kernel set it to 0 and read it.
-embedding_bag.launches = 0
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+# the backward kernel's constants (csrc/embedding_bag.cu)
+BWD_THREADS = 256  # kBwdThreads: a block takes a chunk of at most this many positions
+BWD_TERM_BYTES = 64 * 1024  # the fp32 terms of a chunk, staged in shared memory
+BWD_STATIC_SMEM = 72  # the kernel's static shared memory: per-warp counts, two keys
+
+
+def bwd_chunk(dim: int) -> int:
+    """Positions of the sorted list a block of the backward kernel takes at
+    width ``dim``: BWD_THREADS, or fewer (a multiple of 32, at least 32) so
+    that the chunk's fp32 terms fit about BWD_TERM_BYTES."""
+    return max(32, min(BWD_THREADS, BWD_TERM_BYTES // (4 * max(dim, 1)) // 32 * 32))
+
+
+def bwd_smem_bytes(chunk: int, dim: int) -> int:
+    """The shared memory the backward kernel carves (``bwd_carve`` in the
+    source): the chunk's fp32 terms, its keys, bags and weights, and the
+    first position of each of its runs."""
+    return _align(chunk * dim * 4 + 3 * chunk * 4 + (chunk + 1) * 4, 16)
+
+
+def _kernel_bwd():
+    global _fn_bwd
+    if _fn_bwd is None:
+        fn = build.load("embedding_bag").embedding_bag_bwd_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_longlong, ctypes.c_longlong]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn_bwd = fn
+    return _fn_bwd
+
+
+def launch_bwd(key: torch.Tensor, pos: torch.Tensor, dout: torch.Tensor,
+               weights: torch.Tensor | None, combiner: str, bag: int, dtable: torch.Tensor,
+               tickets: torch.Tensor) -> torch.Tensor:
+    """One launch of the backward kernel (checked inputs on the card) over
+    the reverse index (key, pos) of :func:`bwd_index`: writes every row of
+    ``dtable`` that an id reads (the others are left as they are) and counts
+    the launch in ``embedding_bag.launches_bwd``.  ``tickets`` (one int32 a
+    chunk) must be 0; the kernel leaves them 0, so they serve the next
+    launch too."""
+    n = key.numel()
+    V, dim = dtable.shape
+    chunk = bwd_chunk(dim)
+    n_chunks = -(-n // chunk)
+    smem = bwd_smem_bytes(chunk, dim)
+    if smem + BWD_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f"embedding_bag: no backward at width {dim}: a chunk of {chunk} "
+                         f"positions takes {smem} bytes of shared memory")
+    if tickets.numel() < n_chunks or tickets.dtype != torch.int32:
+        raise ValueError(f"embedding_bag: {n_chunks} int32 tickets wanted")
+    partial = torch.empty(n_chunks * 2 * dim, dtype=torch.float32, device=dtable.device)
+    vec = build.vector_width(dim, dtable.element_size(), dout, dtable)
+    stream = torch.cuda.current_stream(dtable.device).cuda_stream
+    with torch.cuda.device(dtable.device):
+        err = _kernel_bwd()(
+            key.data_ptr(), pos.data_ptr(), dout.data_ptr(),
+            weights.data_ptr() if weights is not None else None, dtable.data_ptr(),
+            partial.data_ptr(), tickets.data_ptr(),
+            V, n, bag, dim, int(combiner == "mean"), vec, _DTYPES[dtable.dtype], chunk, smem,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"embedding_bag backward kernel launch failed: CUDA error {err}")
+    embedding_bag.launches_bwd += 1
+    return dtable
+
+
+def embedding_bag_bwd(
+    V: int,  # table rows
+    ids: torch.Tensor,  # [n_bags, bag_size] int32
+    weights: torch.Tensor | None,  # [n_bags, bag_size] fp32; None: ones
+    dout: torch.Tensor,  # [n_bags, dim], the output's gradient, in the table's dtype
+    combiner: str = "sum",
+) -> torch.Tensor:
+    """The table's gradient [V, dim] in ``dout``'s dtype (the weights get
+    none): ``dtable[v]`` is the sum over the positions (b, j) with
+    ``ids[b, j] = v`` of ``w[b, j] * dout[b]`` (``dout[b] / bag`` for
+    "mean"), accumulated in fp32; an id in [-V, 0) counts from the end, and
+    an id outside [-V, V) adds nothing.  On the card: the reverse index
+    (:func:`bwd_index`, a stable sort), a zeroed ``dtable``, and one launch
+    of the backward kernel, whose sums are :func:`embedding_bag_bwd_seq_ref`
+    bit for bit.  On the CPU: :func:`embedding_bag_bwd_ref`."""
+    if dout.device.type == "cpu":
+        return embedding_bag_bwd_ref(V, ids, weights, dout, combiner)
+    _check(dout, ids, weights, combiner, name="dout")
+    if weights is not None and weights.requires_grad:
+        raise ValueError(_WEIGHTS_GRAD)
+    n_bags, bag = ids.shape
+    if dout.shape[0] != n_bags:
+        raise ValueError(f"embedding_bag: dout {tuple(dout.shape)} has not one row a bag of "
+                         f"ids {tuple(ids.shape)}")
+    if not 0 < V < 2**31 or ids.numel() >= 2**31:
+        raise ValueError(f"embedding_bag: backward of {ids.numel()} ids over {V} rows; the "
+                         "kernel takes fewer than 2^31 of each")
+    dim = dout.shape[1]
+    dtable = torch.zeros(V, dim, dtype=dout.dtype, device=dout.device)
+    if ids.numel() == 0 or dim == 0:
+        return dtable
+    key, pos = bwd_index(ids, V)
+    tickets = torch.zeros(-(-ids.numel() // bwd_chunk(dim)), dtype=torch.int32,
+                          device=dout.device)
+    return launch_bwd(key, pos, dout, weights, combiner, bag, dtable, tickets)
+
+
+_WEIGHTS_GRAD = ("embedding_bag: the gradient goes to the table only; weights that require "
+                 "grad are refused on the card (pass weights.detach())")
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The forward kernel, and the backward kernel for the table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, combiner):
+        ctx.save_for_backward(ids, weights)
+        ctx.rows, ctx.combiner = table.shape[0], combiner
+        return _forward(table, ids, weights, combiner)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ids, weights = ctx.saved_tensors
+        dtable = embedding_bag_bwd(ctx.rows, ids, weights, dout.contiguous(), ctx.combiner)
+        return dtable, None, None, None
+
+
+def embedding_bag(
+    table: torch.Tensor,  # [V, dim]
+    ids: torch.Tensor,  # [n_bags, bag_size] int32
+    weights: torch.Tensor | None = None,  # [n_bags, bag_size] fp32; None: ones
+    *,
+    combiner: str = "sum",
+) -> torch.Tensor:
+    """Per bag, the weighted sum of its rows (``"mean"``: divided by
+    bag_size), accumulated in fp32.  Returns [n_bags, dim] in the table's
+    dtype.  A negative id in [-V, 0) counts from the end; an id outside
+    [-V, V) makes its bag's row NaN.  Differentiable in the table only: on
+    the card, with grad mode on and a table that requires grad, the backward
+    kernel gives the table's gradient (:func:`embedding_bag_bwd`); weights
+    are constants there, and weights that require grad are refused.  Under
+    ``torch.no_grad`` the call launches the forward kernel alone."""
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, ids, weights, combiner)
+    _check(table, ids, weights, combiner)
+    if torch.is_grad_enabled():
+        if weights is not None and weights.requires_grad:
+            raise ValueError(_WEIGHTS_GRAD)
+        if table.requires_grad:
+            return _EmbeddingBag.apply(table, ids, weights, combiner)
+    return _forward(table, ids, weights, combiner)
+
+
+# Kernel launches that reached the card, and nowhere else: forward launches
+# (``launches``) and backward launches (``launches_bwd``).  Callers that prove
+# a path went through the kernels reset them (reset_launches) and read them.
+def reset_launches() -> None:
+    embedding_bag.launches = 0
+    embedding_bag.launches_bwd = 0
+
+
+reset_launches()

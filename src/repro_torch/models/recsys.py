@@ -16,6 +16,13 @@ The dense products and the sequence models' attention stay plain torch, as
 the reference computes them outside any Pallas kernel.  Tables use one
 logical "table_vocab" axis (a sharding annotation in the reference).
 
+Training differentiates every lookup in its table only (ids and weights
+are constants).  On the card each lookup's table gradient is one launch of
+the embedding-bag backward kernel, a dense [V, dim] tensor as the
+reference's transpose of ``jnp.take`` gives; FM's table is read twice (its
+square term's ``rows()`` and its field sums), so autograd adds two dense
+gradients.  On the CPU autograd differentiates the plain version.
+
 Retrieval scoring (``retrieval_cand``): one query against 10^6 candidates as
 a batched dot against the candidate-embedding matrix — FM factorizes exactly
 (score = <sum_user v, v_cand> + w_cand + const); sequence models use their

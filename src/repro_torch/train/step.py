@@ -8,8 +8,10 @@ torch.
 The step runs eagerly where the reference is jitted.  Gradients come from
 ``torch.autograd.grad`` on detached views of the parameters, and the
 optimizer updates the state in place (see :mod:`repro_torch.optim.adamw`).
-Recsys models serve (score and retrieval); their training waits for a
-backward of the embedding-bag kernel.
+Recsys models train on the reference's losses (BCE for FM, DCN-v2 and BST,
+BPR for SASRec); on the card every table gradient comes from the
+embedding-bag backward kernel, a dense [V, dim] gradient as the reference's
+transpose of ``jnp.take`` gives.
 """
 from __future__ import annotations
 
@@ -48,12 +50,6 @@ REMAT_POLICIES: dict[str, Any] = {
     "dots_no_batch": _save_dots,
     "full": _save_nothing,
 }
-
-
-RECSYS_TRAINING = (
-    "recsys training is not ported yet: it waits for a backward of the "
-    "embedding-bag kernel (ROADMAP.md queue 1, module 8)"
-)
 
 
 # --------------------------------------------------------------------------
@@ -101,6 +97,11 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
 
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on logits, in the reference's stable form."""
+    return (torch.relu(logits) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
 def _gnn_loss(params, cfg: GNNConfig, batch, cell: ShapeCell, remat=None):
     if cell.kind == "batched_graphs":
         logits = gnn.forward_batched(params, cfg, batch["node_feat"], batch["edge_index"])
@@ -119,6 +120,26 @@ def _gnn_loss(params, cfg: GNNConfig, batch, cell: ShapeCell, remat=None):
     return loss, {"loss": loss}
 
 
+def _recsys_loss(params, cfg: RecsysConfig, batch):
+    if cfg.interaction == "fm-2way":
+        logits = recsys.fm_forward(params, cfg, batch["sparse_ids"])
+        loss = _bce(logits, batch["labels"])
+    elif cfg.interaction == "cross":
+        logits = recsys.dcn_forward(params, cfg, batch["dense"], batch["sparse_ids"])
+        loss = _bce(logits, batch["labels"])
+    elif cfg.interaction == "transformer-seq":
+        logits = recsys.bst_forward(params, cfg, batch["hist_ids"], batch["target_id"])
+        loss = _bce(logits, batch["labels"])
+    elif cfg.interaction == "self-attn-seq":
+        pos, neg = recsys.sasrec_forward(
+            params, cfg, batch["hist_ids"], batch["pos_ids"], batch["neg_ids"]
+        )
+        loss = -torch.nn.functional.logsigmoid(pos - neg).mean()  # BPR
+    else:
+        raise ValueError(cfg.interaction)
+    return loss, {"loss": loss}
+
+
 def build_loss_fn(
     cfg: Config, cell: ShapeCell | None = None, *, remat: str = "none", unroll: int = 1
 ) -> Callable:
@@ -131,7 +152,7 @@ def build_loss_fn(
         policy = REMAT_POLICIES[remat]
         return lambda params, batch: _gnn_loss(params, cfg, batch, cell, remat=policy)
     if isinstance(cfg, RecsysConfig):
-        raise NotImplementedError(RECSYS_TRAINING)
+        return lambda params, batch: _recsys_loss(params, cfg, batch)
     raise TypeError(type(cfg))
 
 
@@ -159,7 +180,10 @@ def build_train_step(
     def single_grads(params, batch):
         req = [t.detach().requires_grad_(True) for t in leaves(params)]
         loss, metrics = loss_fn(unflatten(params, req), batch)
-        grads = torch.autograd.grad(loss, req)
+        # a leaf the loss does not read (DCN-v2's retrieval tower) gets zeros,
+        # as jax.grad gives it
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(req, torch.autograd.grad(loss, req, allow_unused=True))]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, unflatten(params, grads)
 

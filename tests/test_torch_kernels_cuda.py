@@ -872,6 +872,129 @@ def test_embedding_bag_rejects_bad_inputs():
 
 
 # --------------------------------------------------------------------------
+# embedding bag: the backward kernel (the table's gradient)
+# --------------------------------------------------------------------------
+from repro_torch.kernels.embedding_bag import embedding_bag_bwd_ref, embedding_bag_bwd_seq_ref
+
+
+def _bwd_bound(V, ids, w, dout, combiner, tol):
+    """(exact fp64 gradient, allowed |err| per element): tol (1 + |exact|)
+    plus the bound on n sequential fp32 additions, gamma_n sum |w x| with
+    gamma_n = n u / (1 - n u), u = 2^-24, n the ids the row takes (Higham,
+    4.2); a chunked sum is no worse than the sequential one."""
+    w64 = None if w is None else w.double()
+    exact = embedding_bag_bwd_ref(V, ids, w64, dout.double(), combiner)
+    mass = embedding_bag_bwd_ref(V, ids, None if w is None else w64.abs(), dout.double().abs(),
+                                 combiner)
+    rows = torch.where(ids < 0, ids + V, ids).long()
+    nu = torch.bincount(rows[(rows >= 0) & (rows < V)], minlength=V).double()[:, None] * 2.0**-24
+    return exact, tol * (1 + exact.abs()) + nu / (1 - nu) * mass
+
+
+def _bwd_inputs(case, dtype, dev, seed=4):
+    table, ids, w, combiner = _bag_inputs(case, dtype, dev, seed)
+    V = table.shape[0]
+    if ids.numel() > 20:  # negative ids count from the end; ids past either end add nothing
+        flat = ids.view(-1)
+        flat[::7] -= V
+        flat[3::11] = V + 5
+        flat[5::13] = -V - 2
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(ids.shape[0], table.shape[1], generator=g, device=dev).to(dtype)
+    return V, ids, w, dout, combiner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_bwd_kernel_matches_plain(case, dtype):
+    """One launch a call, the kernel's arithmetic bit for bit, the same bits
+    on a second call, and the fp64 gradient within TOL plus the bound of a
+    sequential fp32 sum."""
+    dev = _cuda()
+    V, ids, w, dout, combiner = _bwd_inputs(case, dtype, dev)
+    before = bag_ops.embedding_bag.launches_bwd
+    got = bag_ops.embedding_bag_bwd(V, ids, w, dout, combiner)
+    again = bag_ops.embedding_bag_bwd(V, ids, w, dout, combiner)
+    exact = embedding_bag_bwd_seq_ref(V, ids, w, dout, combiner)
+    torch.cuda.synchronize()
+    assert bag_ops.embedding_bag.launches_bwd == before + (2 if ids.numel() else 0)
+    assert got.dtype == dtype and got.shape == (V, dout.shape[1])
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, exact, atol=0, rtol=0)
+    want, allowed = _bwd_bound(V, ids, w, dout, combiner, TOLS[dtype])
+    assert ((got.double() - want).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_bwd_kernel_sums_a_hub_over_many_chunks(dtype):
+    """A hub row read by 200,000 of 262,144 positions (782 chunks of 256),
+    beside bags of one over a wide table: bit for bit the oracle's, the
+    pieces added in chunk order by whichever block arrives last."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    V, dim = 100_000, 10
+    ids = torch.randint(0, V, (65_536, 4), generator=g, device=dev, dtype=torch.int32)
+    ids.view(-1)[torch.randperm(ids.numel(), generator=g, device=dev)[:200_000]] = 12_345
+    w = torch.rand(ids.shape, generator=g, device=dev)
+    dout = torch.randn(65_536, dim, generator=g, device=dev).to(dtype)
+    got = bag_ops.embedding_bag_bwd(V, ids, w, dout)
+    exact = embedding_bag_bwd_seq_ref(V, ids, w, dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, exact, atol=0, rtol=0)
+    want, allowed = _bwd_bound(V, ids, w, dout, "sum", TOLS[dtype])
+    assert ((got.double() - want).abs() <= allowed).all()
+    for _ in range(2):
+        assert torch.equal(bag_ops.embedding_bag_bwd(V, ids, w, dout), got)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_autograd_launches_the_backward_only_for_a_table_with_grad():
+    dev = _cuda()
+    table = torch.randn(300, 10, device=dev, requires_grad=True)
+    ids = torch.randint(0, 300, (64, 39), device=dev, dtype=torch.int32)
+    f0, b0 = bag_ops.embedding_bag.launches, bag_ops.embedding_bag.launches_bwd
+    with torch.no_grad():  # serving: the forward kernel alone
+        out = bag_ops.embedding_bag(table, ids)
+    assert out.grad_fn is None
+    out = bag_ops.embedding_bag(table.detach(), ids)  # no table gradient wanted
+    assert out.grad_fn is None
+    assert (bag_ops.embedding_bag.launches, bag_ops.embedding_bag.launches_bwd) == (f0 + 2, b0)
+    dout = torch.randn(64, 10, device=dev)
+    out = bag_ops.embedding_bag(table, ids)
+    (g,) = torch.autograd.grad(out, table, dout)
+    torch.cuda.synchronize()
+    assert (bag_ops.embedding_bag.launches, bag_ops.embedding_bag.launches_bwd) == (f0 + 3, b0 + 1)
+    torch.testing.assert_close(g, embedding_bag_bwd_seq_ref(300, ids, None, dout), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_bwd_rejects_bad_inputs():
+    dev = _cuda()
+    table = torch.randn(50, 8, device=dev, requires_grad=True)
+    ids = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    w = torch.ones(4, 3, device=dev, requires_grad=True)
+    dout = torch.randn(4, 8, device=dev)
+    with pytest.raises(ValueError, match="table only"):
+        bag_ops.embedding_bag(table, ids, w)
+    with pytest.raises(ValueError, match="table only"):
+        bag_ops.embedding_bag_bwd(50, ids, w, dout)
+    with pytest.raises(TypeError, match="dout must be fp32 or bf16"):
+        bag_ops.embedding_bag_bwd(50, ids, None, dout.half())
+    with pytest.raises(ValueError, match="one row a bag"):
+        bag_ops.embedding_bag_bwd(50, ids, None, dout[:3])
+    with pytest.raises(ValueError, match="shapes"):
+        bag_ops.embedding_bag_bwd(50, ids[0], None, dout)
+    with pytest.raises(TypeError, match="int32"):
+        bag_ops.embedding_bag_bwd(50, ids.long(), None, dout)
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_ops.embedding_bag_bwd(50, ids, None, torch.randn(8, 4, device=dev).T)
+    with pytest.raises(ValueError, match="2\\^31"):
+        bag_ops.embedding_bag_bwd(2**31, ids, None, dout)
+
+
+# --------------------------------------------------------------------------
 # gated aggregation: forward and backward, on both layouts
 # --------------------------------------------------------------------------
 from repro_torch.kernels.gnn_aggregate import (
@@ -1121,6 +1244,42 @@ def test_recsys_serve_steps_on_the_card_match_the_cpu(arch):
         assert bag_ops.embedding_bag.launches > before
         tol = 1e-4 * float(want.abs().max())
         torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["fm", "dcn-v2", "bst", "sasrec"])
+def test_recsys_train_steps_on_the_card_match_the_cpu(arch):
+    """Two fp32 smoke train steps on the card (every table gradient from the
+    backward kernel) against the same steps on the CPU: loss and parameters
+    within 1e-4."""
+    dev = _cuda()
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.models.layers import init_params
+    from repro_torch.train import build_param_specs, build_train_step, make_train_state
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch, smoke=True)
+    cell = next(c for c in get_shapes(arch) if c.kind == "train")
+    cell = dataclasses.replace(cell, params=dict(cell.params, batch=256))
+    params = init_params(torch.Generator().manual_seed(0), build_param_specs(cfg, cell),
+                         cfg.dtype, "cpu")
+    clone = lambda t: [clone(v) for v in t] if isinstance(t, list) else (
+        {k: clone(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev))
+    dev_state, cpu_state = make_train_state(clone(params)), make_train_state(params)
+    step = build_train_step(cfg, cell)
+    before = bag_ops.embedding_bag.launches_bwd
+    for s in range(2):
+        batch = make_batch(cfg, cell, seed=s, device="cpu")
+        dev_state, a = step(dev_state, clone(batch))
+        cpu_state, b = step(cpu_state, batch)
+        torch.testing.assert_close(a["loss"].cpu(), b["loss"], atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert bag_ops.embedding_bag.launches_bwd > before
+    for pa, pb in zip(leaves(dev_state["params"]), leaves(cpu_state["params"])):
+        torch.testing.assert_close(pa.cpu(), pb, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

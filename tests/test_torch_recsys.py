@@ -113,11 +113,26 @@ def test_port_registers_the_reference_configs():
             assert jd == td
 
 
-def test_recsys_training_waits_for_the_embedding_bag_backward():
-    cfg = get_config("fm", smoke=True)
-    cell = next(c for c in get_shapes("fm") if c.kind == "train")
-    with pytest.raises(NotImplementedError, match="embedding-bag"):
-        build_train_step(cfg, cell)
+@pytest.mark.parametrize("arch", RECSYS)
+def test_recsys_train_step_runs_on_the_cpu(arch):
+    """``build_train_step`` trains every recsys model (parity with the
+    reference: tests/test_torch_recsys_train.py): finite metrics, every
+    table changed by the step, the CPU on the plain version."""
+    cfg = get_config(arch, smoke=True)
+    cell = _small(next(c for c in get_shapes(arch) if c.kind == "train"))
+    from repro_torch.train import build_param_specs
+
+    params = layers.init_params(torch.Generator().manual_seed(0), build_param_specs(cfg, cell),
+                                cfg.dtype, "cpu")
+    tables = {k: params[k].clone() for k in ("table", "item_table", "w_linear") if k in params}
+    before = embedding_bag.launches_bwd
+    state, m = build_train_step(cfg, cell)(make_train_state(params), make_batch(
+        cfg, cell, seed=0, device="cpu"))
+    assert embedding_bag.launches_bwd == before
+    assert {"loss", "grad_norm", "lr"} <= set(m)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    for k, t in tables.items():
+        assert not torch.equal(state["params"][k], t), k
 
 
 def test_layer_norm_and_mlp_match_reference():

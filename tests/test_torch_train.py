@@ -288,20 +288,17 @@ def _numpy(tree):
 
 
 def test_serve_and_batch_builders_refuse_unported_families():
-    """Recsys training is the one family path not ported yet (it waits for an
-    embedding-bag backward); a config of no known family is refused as the
-    reference refuses it."""
-    from repro_torch.configs import get_config, get_shapes, input_specs
+    """A config of no known family is refused as the reference refuses it
+    (every family's loss is ported: recsys training's parity is
+    tests/test_torch_recsys_train.py)."""
+    from repro_torch.configs import input_specs
     from repro_torch.train import build_loss_fn, build_param_specs
-
-    train_cell = next(c for c in get_shapes("fm") if c.kind == "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_loss_fn(get_config("fm", smoke=True), train_cell)
 
     class OtherConfig:  # stands in for a family neither package has
         family = "other"
 
-    for fn in (lambda: build_param_specs(OtherConfig()), lambda: input_specs(OtherConfig(), CELL)):
+    for fn in (lambda: build_param_specs(OtherConfig()), lambda: input_specs(OtherConfig(), CELL),
+               lambda: build_loss_fn(OtherConfig(), CELL)):
         with pytest.raises(TypeError):
             fn()
 
