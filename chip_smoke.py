@@ -46,6 +46,25 @@ step at full depth (B 1 x S 2048, remat full, two warm-up and three timed);
 and a 6-layer model whose card logits (bf16) are held against the CPU
 port's in fp32.
 
+Then the MoE and MLA families at full width, bf16: deepseek-7b (dense MHA,
+dh 128) and qwen2-moe-a2.7b (60 routed experts top-4 and 4 shared, MHA at
+dh 128) each serve the six requests (chunk and fused kernels at dh 128, G 1;
+one fused kernel a layer in the decode graph; later requests skip chunks;
+graph replays token-equal to eager ``decode_step`` from one state; decode ms
+per token against the weights read once and, for qwen2-moe, the active
+weights alone; the share of routed pairs capacity dropped) and prefill
+2,048 tokens (flash at dh 128; qwen2-moe's two groups of 1,024, C 86);
+deepseek-v2-236b at full width cut to 4 of its 60 layers (MLA: the latent
+cache, whose snapshot bytes a token are printed against an MHA cache's; no
+decode kernel) serves three requests and holds a 1,024-token ``forward``
+(flash at dh 192 with the values padded from 128) against one
+``prefill_chunk`` over the same tokens (the absorbed attention); each
+family's flash shape is timed beside its bound, the plain version and SDPA.
+Then card against CPU in fp32: the three smoke configs through two engines
+(tokens equal), and qwen2-moe-a2.7b at full width cut to 2 layers (a
+64-token chunk and 4 decode steps within 1e-4 of the largest logit; the
+router's expert ids and slots equal on both devices).
+
 Then the recsys and GNN paths: it prints ptxas's registers and spills for
 every embedding-bag instantiation (a spill fails the run) and holds the
 embedding-bag kernel, fp32 and bf16, against its plain versions at every bag
@@ -198,6 +217,12 @@ KERNEL_CASES = [
     ("gemma3-like local", 2, 64, 1024, 8, 4, 256, [700, 300], 256),
     ("smoke decode", 1, 1, 256, 8, 2, 8, [150], None),
     ("smoke prefill", 2, 16, 256, 8, 2, 8, [0, 200], None),
+    # MHA at dh 128 (G 1): the decode step and engine chunk of deepseek-7b
+    # (Hq 32) and qwen2-moe-a2.7b (Hq 16)
+    ("deepseek-7b decode", 1, 1, 1024, 32, 32, 128, [575], None),
+    ("deepseek-7b chunk", 1, 64, 1024, 32, 32, 128, [512], None),
+    ("qwen2-moe decode", 1, 1, 1024, 16, 16, 128, [575], None),
+    ("qwen2-moe chunk", 1, 64, 1024, 16, 16, 128, [512], None),
 ]
 MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
 # the engine's prefill_chunk call (chunk 64 at q_start 512 over max_len 1024):
@@ -205,6 +230,8 @@ MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
 CHUNK_CASE = "prefill B1"
 # the split variant's path now: fp32 chunks of the smoke models (dh 8)
 SPLIT_CASE = "smoke prefill"
+FAMILY_DECODE = ("deepseek-7b decode", "qwen2-moe decode")  # the fused variant at dh 128, G 1
+FAMILY_CHUNK = ("deepseek-7b chunk", "qwen2-moe chunk")  # the chunk variant at dh 128, G 1
 
 
 def visible_keys(q_start: list[int], S: int, T: int, window: int | None) -> int:
@@ -378,30 +405,62 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
 # --------------------------------------------------------------------------
 def phase_engine(dev) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops
     from repro_torch.models import transformer
     from repro_torch.models.layers import init_params
-    from repro_torch.serve import ServeEngine
 
     cfg = get_config("tinyllama-1.1b")  # full width, bf16
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(gen, transformer.lm_specs(cfg), cfg.dtype, dev)
-    engine = ServeEngine(cfg, params, max_len=1024, chunk=64, device=dev)
+    return serve_engine(dev, cfg, params, engine_prompts(cfg.vocab), ENGINE_NEW, "engine", "req",
+                        profile=True)
+
+
+def param_bytes(params: dict) -> tuple[int, int]:
+    """(parameters, bytes) of a tree."""
     n_par = n_bytes = 0
     for t in leaves(params):
         n_par += t.numel()
         n_bytes += t.numel() * t.element_size()
-    print(f"engine: {cfg.name} params {n_par} bytes {n_bytes} decode bound "
+    return n_par, n_bytes
+
+
+def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
+                 profile: bool = False, max_len: int = 1024) -> dict:
+    """``prompts`` through one ``ServeEngine`` (chunk 64) on ``params``:
+    the kernels by variant (``serve_requests``), no index write of chunk
+    rows through the decode wrapper (the chunk kernel writes its rows; an
+    MLA model's latent rows are written by the model), a decode graph that
+    holds one fused kernel a layer (none for MLA), chunks skipped by every
+    request from the third on, and finite logits in every prefill chunk and
+    graph replay.  Then decode ms per token by graph, and eager
+    ``decode_step`` against replays from one state (times and tokens); with
+    ``profile``, one more request under the profiler.  For an MoE model it
+    counts the routed (token, k) pairs of the prefill chunks that capacity
+    dropped (a decode step drops none: one token a group, C >= 4 >= K, and a
+    token's K experts differ)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import moe
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, params, max_len=max_len, chunk=64, device=dev)
+    n_par, n_bytes = param_bytes(params)
+    print(f"{tag}: {cfg.name} params {n_par} bytes {n_bytes} decode bound "
           f"(weights read once per token) {n_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
 
     # every logits tensor the engine computes (prefill chunks and graph
     # replays) is checked for finiteness on the device; the flags are read
     # once at the end
     finite: list[torch.Tensor] = []
-    inner_prefill, inner_replay = engine._prefill, engine._replay
+    drops: list[torch.Tensor] = []  # [dropped, routed] of each MoE call in a prefill chunk
+    in_prefill = [False]
+    inner_prefill, inner_replay, inner_route = engine._prefill, engine._replay, moe.route
 
     def watched_prefill(tok, cache, cache_len):
-        out = inner_prefill(tok, cache, cache_len)
+        in_prefill[0] = True
+        try:
+            out = inner_prefill(tok, cache, cache_len)
+        finally:
+            in_prefill[0] = False
         finite.append(torch.isfinite(out[0]).all())
         return out
 
@@ -409,6 +468,14 @@ def phase_engine(dev) -> dict:
         logits = inner_replay(graph, token)
         finite.append(torch.isfinite(logits).all())
         return logits
+
+    def counted_route(x, router, dims):
+        out = inner_route(x, router, dims)
+        if in_prefill[0]:
+            slot = out[2]
+            drops.append(torch.stack([(slot < 0).sum(), torch.full_like(slot[0, 0, 0],
+                                                                         slot.numel())]))
+        return out
 
     engine._prefill, engine._replay = watched_prefill, watched_replay
     # the index writes a chunk would take before the split kernel: none on
@@ -420,38 +487,52 @@ def phase_engine(dev) -> dict:
         index_writes[0] += 1
         return inner_insert(*args, **kwargs)
 
-    ops.insert_chunk = counted_insert
-
-    prompts, max_new = engine_prompts(cfg.vocab), ENGINE_NEW
+    ops.insert_chunk, moe.route = counted_insert, counted_route
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     by_var = ops.decode_attention.launches_by_variant
-    rows = serve_requests(engine, cfg, prompts, max_new, "req")
+    try:
+        rows = serve_requests(engine, cfg, prompts, max_new, label)
+    finally:
+        ops.insert_chunk, moe.route = inner_insert, inner_route
     launches = dict(by_var)
-    ops.insert_chunk = inner_insert
     graph = engine._graph
-    print(f"engine: kernels {launches} index writes {index_writes[0]} graph holds "
+    want_graph = {} if cfg.mla is not None else {"fused": cfg.n_layers}
+    print(f"{tag}: kernels {launches} index writes {index_writes[0]} graph holds "
           f"{graph.kernels} snapshots {engine.n_snapshots}")
     check(index_writes[0] == 0, f"{index_writes[0]} index writes of chunk rows on the main path")
-    check(graph.kernels == {"fused": cfg.n_layers},
-          f"the decode graph holds {graph.kernels}, wanted {cfg.n_layers} fused kernels")
-    for i in range(2, 6):
-        check(rows[i]["skipped"] > 0, f"request {i + 1} skipped no chunk")
-    check(bool(torch.stack(finite).all()), "non-finite logits on the main path")
+    check(graph.kernels == want_graph,
+          f"{tag}: the decode graph holds {graph.kernels}, wanted {want_graph}")
+    for i in range(2, len(prompts)):
+        check(rows[i]["skipped"] > 0, f"{tag}: request {i + 1} skipped no chunk")
+    check(bool(torch.stack(finite).all()), f"{tag}: non-finite logits on the main path")
+    out = {"launches": launches, "rows": rows}
+    if drops:
+        dropped, routed = (int(v) for v in torch.stack(drops).sum(0).tolist())
+        print(f"{tag}: routed (token, k) pairs in prefill chunks {routed} dropped by capacity "
+              f"{dropped} share {dropped / routed:.6f}")
+        out["drop"] = (dropped, routed)
+    snap = engine.snapshot_bytes()
+    cached = engine.n_snapshots * cfg.n_layers * max_len
+    print(f"{tag}: snapshots {engine.n_snapshots} bytes {snap} per cached position and layer "
+          f"{snap / cached:.1f}")
+    out["snapshot"] = (engine.n_snapshots, snap, snap / cached)
     steady = rows[1:]
     graph_ms = sum(r["decode_s"] for r in steady) * 1e3 / sum(r["tokens"] for r in steady)
-    eager_ms, replay_ms = decode_yardstick(engine, max_new)
-    print(f"engine: decode ms per token (requests 2-6, graph) {graph_ms:.6f}; at one state, "
-          f"replay {replay_ms:.6f} eager decode_step {eager_ms:.6f} "
-          f"(eager / replay {eager_ms / replay_ms:.3f})")
-    prof = phase_profile(engine, prompts[-1], max_new)
+    eager_ms, replay_ms, eager_toks, replay_toks = decode_yardstick(engine, max_new)
+    print(f"{tag}: decode ms per token (requests 2-{len(rows)}, graph) {graph_ms:.6f}; at one "
+          f"state, replay {replay_ms:.6f} eager decode_step {eager_ms:.6f} "
+          f"(eager / replay {eager_ms / replay_ms:.3f}); tokens equal {eager_toks == replay_toks}")
+    out.update(graph_ms=graph_ms, eager_ms=eager_ms, replay_ms=replay_ms,
+               tokens_equal=eager_toks == replay_toks)
+    if profile:
+        out["profile"] = phase_profile(engine, prompts[-1], max_new)
     # the watchers close over the engine: without them it is freed on return,
     # with its graph, the graph's memory pool and the static cache, before the
     # later phases measure their peak memory
     del engine._prefill, engine._replay
-    return {"launches": launches, "rows": rows, "graph_ms": graph_ms, "eager_ms": eager_ms,
-            "replay_ms": replay_ms, "profile": prof}
+    return out
 
 
 ENGINE_SYSTEM, ENGINE_TAIL, ENGINE_NEW = 512, 64, 32  # the six requests' shared prompt
@@ -470,9 +551,11 @@ def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]
     decode kernels it launched by variant: chunk calls on the chunk kernel
     (one a layer), decode steps on the fused kernel (one a layer; the
     engine's first decode adds an eager warm-up step before its capture),
-    and no split kernel."""
+    and no split kernel.  An MLA model launches none: its cached attention
+    is plain torch."""
     from repro_torch.kernels.decode_attention import ops
 
+    attn_layers = 0 if cfg.mla is not None else cfg.n_layers
     by_var = ops.decode_attention.launches_by_variant
     dev = engine._dev
     first = engine._graph is None
@@ -495,22 +578,23 @@ def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]
               f"decode_tok_s {tps:.2f} max_memory_allocated {mem} "
               f"kernels chunk {chunk} split {split} fused {fused}")
         check(len(out) == max_new, f"{label} {i + 1}: {len(out)} tokens, wanted {max_new}")
-        check(chunk == cfg.n_layers * chunk_calls,
-              f"{label} {i + 1}: {chunk} chunk kernels, wanted {cfg.n_layers} x {chunk_calls}")
+        check(chunk == attn_layers * chunk_calls,
+              f"{label} {i + 1}: {chunk} chunk kernels, wanted {attn_layers} x {chunk_calls}")
         check(split == 0, f"{label} {i + 1}: {split} split kernels, wanted none")
-        check(fused == cfg.n_layers * steps,
-              f"{label} {i + 1}: {fused} fused kernels, wanted {cfg.n_layers} x {steps}")
+        check(fused == attn_layers * steps,
+              f"{label} {i + 1}: {fused} fused kernels, wanted {attn_layers} x {steps}")
         rows.append(dict(skipped=st.chunks_skipped, n=st.n_chunks, prefill_s=st.prefill_s,
                          decode_s=st.decode_s, tokens=st.n_new_tokens, out=out,
                          stored=st.stored_prefixes))
     return rows
 
 
-def decode_yardstick(engine, n: int) -> tuple[float, float]:
-    """ms per token of ``n`` greedy steps from one cache state (the graph's
-    state after the last request), eager ``transformer.decode_step`` and
-    graph replays, each step's argmax read on the host as the engine reads
-    it: (eager, replay).  Runs after the main path's counts were read."""
+def decode_yardstick(engine, n: int) -> tuple[float, float, list, list]:
+    """``n`` greedy steps from one cache state (the graph's state after the
+    last request), eager ``transformer.decode_step`` and graph replays, each
+    step's argmax read on the host as the engine reads it: (eager ms per
+    token, replay ms per token, eager tokens, replay tokens).  Runs after
+    the main path's counts were read."""
     from repro_torch.models import transformer
 
     graph = engine._graph
@@ -520,7 +604,7 @@ def decode_yardstick(engine, n: int) -> tuple[float, float]:
 
     def eager():
         cache = {k: a.clone() for k, a in state.items()}
-        cache_len, nxt = state_len.clone(), first
+        cache_len, nxt, toks = state_len.clone(), first, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
@@ -528,21 +612,24 @@ def decode_yardstick(engine, n: int) -> tuple[float, float]:
             logits, cache, cache_len = transformer.decode_step(
                 engine.params, engine.cfg, tok, cache, cache_len)
             nxt = int(torch.argmax(logits[0]))
-        return (time.perf_counter() - t0) * 1e3 / n
+            toks.append(nxt)
+        return (time.perf_counter() - t0) * 1e3 / n, toks
 
     def replay():
         graph.load(state, state_len)
-        nxt = first
+        nxt, toks = first, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             nxt = int(torch.argmax(graph.step(nxt)[0]))
-        return (time.perf_counter() - t0) * 1e3 / n
+            toks.append(nxt)
+        return (time.perf_counter() - t0) * 1e3 / n, toks
 
     with torch.inference_mode():  # the graph's static buffers are inference tensors
         eager()  # warm-up
-        times = [eager(), replay(), replay(), eager()]  # in turns
-    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        runs = [eager(), replay(), replay(), eager()]  # in turns
+    return ((runs[0][0] + runs[3][0]) / 2, (runs[1][0] + runs[2][0]) / 2, runs[0][1],
+            runs[1][1])
 
 
 # --------------------------------------------------------------------------
@@ -1181,15 +1268,25 @@ def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
 
 
 def at_true_fan_in(params: dict, cfg) -> dict:
-    """``params`` with the attention projections redrawn at 1/sqrt of their
-    true fan-in: wq, wk, wv at 1/sqrt(d_model) and wo at 1/sqrt(Hq * dh)
-    (the reference's init draws a 4-D projection at 1/sqrt of its head
-    axis, where scores have a spread of hundreds and the softmax is an
-    argmax); the other leaves are shared."""
+    """``params`` with the attention projections that the reference's init
+    draws at 1/sqrt of a head axis (a 4-D projection's fan-in is its
+    second-last axis) redrawn at 1/sqrt of their true fan-in: for GQA wq,
+    wk, wv at 1/sqrt(d_model) and wo at 1/sqrt(Hq * dh); for MLA w_uq at
+    1/sqrt(q_lora_rank) and w_uk, w_uv at 1/sqrt(kv_lora_rank).  At the
+    reference's scale, GQA scores have a spread of hundreds and the softmax
+    is an argmax.  The other leaves are shared: MLA's w_dq, w_dkv and w_o,
+    the router and every expert matrix are 2-D or 3-D products already drawn
+    at their true fan-in."""
     attn = params["layers"]["attn"]
-    fan = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads, "wo": cfg.head_dim}
-    true_fan = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
-                "wo": cfg.n_heads * cfg.head_dim}
+    if cfg.mla is not None:
+        m = cfg.mla
+        fan = {"w_uq": cfg.n_heads, "w_uk": cfg.n_heads, "w_uv": cfg.n_heads}
+        true_fan = {"w_uq": m.q_lora_rank, "w_uk": m.kv_lora_rank, "w_uv": m.kv_lora_rank}
+    else:
+        fan = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads,
+               "wo": cfg.head_dim}
+        true_fan = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+                    "wo": cfg.n_heads * cfg.head_dim}
     return {**params, "layers": {**params["layers"], "attn": {
         **attn, **{w: attn[w] * math.sqrt(fan[w] / true_fan[w]) for w in fan}}}}
 
@@ -1523,6 +1620,540 @@ def phase_gemma3(dev) -> dict:
             "n_params": n_params, "train": tr, "witness": witness,
             "check_launches": check_launches,
             "check_err": (err, largest)}
+
+
+# --------------------------------------------------------------------------
+# phase: the MoE and MLA families at full width
+# --------------------------------------------------------------------------
+FAMILY_SEQ = 2048  # deepseek-7b's and qwen2-moe-a2.7b's prefill: qwen2's two groups of 1,024
+MLA_LAYERS = 4  # deepseek-v2-236b's cut: its 60 layers take about 478 GB in bf16
+MLA_SEQ = 1024  # the flash prefill against the absorbed chunk: one MoE group in both
+MLA_REQUESTS, MLA_NEW = 3, 16
+FAMILY_TOL = 5e-2  # of the largest |logit|, as tests/test_torch_transformer.py holds bf16
+FAMILY_PARAMS = {"deepseek-7b": 6_910_365_696, "qwen2-moe-a2.7b": 14_315_587_584,
+                 f"deepseek-v2-236b@{MLA_LAYERS}": 16_937_038_848}
+
+
+def decode_bounds(cfg, params) -> dict[str, tuple[float, float]]:
+    """The least bytes a decode step reads, and their ms at HBM rate: every
+    parameter but the embedding table (one row of it is read); for an MoE
+    model also the active weights alone (attention, norms, router, shared
+    experts, the K routed experts a token takes, the head)."""
+    read = param_bytes(params)[1] - param_bytes({"e": params["embed"]})[1]
+    out = {"weights": read}
+    if cfg.moe is not None:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert * params["embed"].element_size()
+        out["active"] = read - cfg.n_layers * (m.n_experts - m.top_k) * per_expert
+    return {k: (b, b / HBM_BYTES_PER_S * 1e3) for k, b in out.items()}
+
+
+def flash_bound_mla_ms(B, S, H, dh, dv, dtype) -> tuple[float, str]:
+    """Least time of causal MHA with keys of width dh and values of width dv
+    (the function, not the padded call): q and k read at dh, v at dv, the
+    output written at dv, the fp32 logsumexp; 2 operations a multiply-add in
+    Q.K (dh) and P.V (dv) over the unmasked pairs."""
+    isz = torch.finfo(dtype).bits // 8
+    nbytes = B * S * H * (2 * dh + 2 * dv) * isz + B * H * S * 4
+    ops = 2 * B * H * (dh + dv) * flash_pairs(S, True, None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev) -> dict:
+    """The flash forward at a family's prefill shape (bf16, MHA, causal;
+    values of width dv < dh padded with zero columns, as the model pads
+    them): the output's first dv columns against the plain version in fp32
+    on the same values, within TOL; the padded columns zero; the kernel's
+    ``queued_ms`` beside the bound, the plain version (on the padded values,
+    the model's call) and SDPA (on the unpadded values)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+    vp = torch.nn.functional.pad(v, (0, dh - dv)) if dv < dh else v
+    var = ops.variant(dtype, dh, 1)
+    check(var == "wgmma", f"flash {label}: variant {var}, wanted wgmma")
+    out, _ = ops.flash_attention_fwd(q, k, vp, causal=True)
+    want = attention_ref(q.float(), k.float(), torch.nn.functional.pad(v.float(), (0, dh - dv)),
+                         causal=True)[..., :dv]
+    err, ratio = assert_close_ratio(out[..., :dv], want, TOL[dtype])
+    zero = bool((out[..., dv:] == 0).all())
+    check(math.isfinite(err) and ratio <= 1.0 and zero,
+          f"flash {label}: max_abs_err {err} worst ratio {ratio} padded columns zero {zero}")
+    del want
+    fwd = lambda: ops.flash_attention_fwd(q, k, vp, causal=True)
+    row = dict(variant=var, max_abs_err=err, queued_ms=queued_ms(fwd),
+               ms=cuda_ms(fwd, iters=10, warmup=2),
+               plain_ms=cuda_ms(lambda: attention_ref(q, k, vp, causal=True), iters=5, warmup=1),
+               library_ms=cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2))
+    row["bound_ms"], row["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype)
+    print(f"flash family {label}: B {B} S {S} Hq=Hkv {H} dh {dh} dv {dv} bf16 {var} "
+          f"max_abs_err {err:.3e} worst err/(atol+rtol*|ref|) {ratio:.3f} padded columns zero "
+          f"{zero}; queued_ms {row['queued_ms']:.6f} ms {row['ms']:.6f} plain_ms "
+          f"{row['plain_ms']:.6f} library_ms (SDPA) {row['library_ms']:.6f} bound_ms "
+          f"{row['bound_ms']:.6f} ({row['bound_by']})")
+    del q, k, v, vp, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def family_prefill(dev, cfg, params, S: int, tag: str) -> dict:
+    """``transformer.prefill`` of B 1 x S tokens (a warm-up, then one timed
+    call): every flash call the ``wgmma`` kernels, one a layer, finite
+    logits, the cache's shape."""
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
+    from repro_torch.models import transformer
+
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, size=(1, S)).astype(np.int32)).to(dev)
+    transformer.prefill(params, cfg, toks)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache, clen = transformer.prefill(params, cfg, toks)
+    ok = bool(torch.isfinite(logits).all())  # waits for the device
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention.launches_fwd
+    by_var = flash_attention.launches_by_variant
+    shapes = {k: tuple(a.shape) for k, a in cache.items()}
+    print(f"{tag} prefill: B 1 S {S} bf16 ms {ms:.3f} flash launches fwd {launches} by variant "
+          f"{by_var} cache {shapes} logits finite {ok}")
+    check(ok, f"{tag} prefill: non-finite logits")
+    check(launches == cfg.n_layers == by_var["wgmma"]["fwd"] and flash_attention.launches_bwd == 0,
+          f"{tag} prefill: flash launches {by_var}, wanted {cfg.n_layers} wgmma")
+    want = transformer.init_cache(cfg, 1, S, "meta")
+    check(clen.tolist() == [S] and shapes == {k: tuple(a.shape) for k, a in want.items()},
+          f"{tag} prefill: cache {shapes} length {clen.tolist()}")
+    return {"ms": ms, "launches": launches}
+
+
+def family_params(dev, cfg, key: str) -> dict:
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(cfg),
+                         cfg.dtype, dev)
+    n_par, n_bytes = param_bytes(params)
+    print(f"{key}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} bf16 parameters "
+          f"{n_par} bytes {n_bytes}")
+    check(n_par == FAMILY_PARAMS[key], f"{key}: {n_par} parameters, wanted {FAMILY_PARAMS[key]}")
+    return params
+
+
+def print_decode_bounds(tag: str, cfg, params, run: dict) -> None:
+    b = decode_bounds(cfg, params)
+    print(f"{tag}: decode ms per token (graph) {run['graph_ms']:.6f} against its bounds: "
+          + "; ".join(f"{k} {n} B {ms:.6f} ms ({run['graph_ms'] / ms:.2f}x)"
+                      for k, (n, ms) in b.items()))
+    run["bounds"] = b
+
+
+def phase_deepseek7b(dev) -> dict:
+    """deepseek-7b at full width (30 layers, d_model 4096, MHA: 32 heads of
+    128), bf16: the serving phase's six requests and a 2,048-token prefill
+    (flash at dh 128, G 1; chunk and fused kernels at dh 128, G 1)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-7b")
+    params = family_params(dev, cfg, "deepseek-7b")
+    run = serve_engine(dev, cfg, params, engine_prompts(cfg.vocab), ENGINE_NEW, "deepseek-7b",
+                       "deepseek-7b req")
+    check(run["tokens_equal"], "deepseek-7b: graph replays and eager steps gave other tokens")
+    print_decode_bounds("deepseek-7b", cfg, params, run)
+    run["prefill"] = family_prefill(dev, cfg, params, FAMILY_SEQ, "deepseek-7b")
+    del params
+    run["flash"] = flash_family_case("deepseek-7b prefill", 1, FAMILY_SEQ, 32, 128, 128, dev)
+    return run
+
+
+def phase_qwen2_moe(dev) -> dict:
+    """qwen2-moe-a2.7b at full width (24 layers, d_model 2048, MHA: 16 heads
+    of 128; 60 routed experts top-4 and 4 shared, each of 1,408), bf16: the
+    six requests (graph replay's tokens held equal to eager ``decode_step``'s
+    from one state, the share of routed pairs capacity dropped), a 2,048-token
+    prefill (two groups of 1,024, C 86), and decode ms per token against
+    every expert's weights read once and against the active weights alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import groups
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    dims = transformer._moe_dims(cfg)
+    check(groups(FAMILY_SEQ, dims) == (2, 1024, 86),
+          f"qwen2-moe prefill groups {groups(FAMILY_SEQ, dims)}, wanted (2, 1024, 86)")
+    params = family_params(dev, cfg, "qwen2-moe-a2.7b")
+    run = serve_engine(dev, cfg, params, engine_prompts(cfg.vocab), ENGINE_NEW, "qwen2-moe",
+                       "qwen2-moe req")
+    check(run["tokens_equal"], "qwen2-moe: graph replays and eager steps gave other tokens")
+    print_decode_bounds("qwen2-moe", cfg, params, run)
+    run["prefill"] = family_prefill(dev, cfg, params, FAMILY_SEQ, "qwen2-moe")
+    del params
+    run["flash"] = flash_family_case("qwen2-moe prefill", 1, FAMILY_SEQ, 16, 128, 128, dev)
+    return run
+
+
+def mla_tokens(dev, cfg) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(1, MLA_SEQ)).astype(np.int32)).to(dev)
+
+
+def routing_flips(a: tuple, b: tuple) -> float:
+    """Share of (token, k) expert choices of route result ``a`` that ``b``
+    does not make for the same token (in any k)."""
+    ia, ib = a[1], b[1]
+    return 1.0 - (ia[..., :, None] == ib[..., None, :]).any(-1).float().mean().item()
+
+
+def mla_witness(dev, cfg, params, label: str) -> dict:
+    """``forward`` over B 1 x MLA_SEQ tokens (one MoE group; flash at dh 192
+    with values padded to it) against one ``prefill_chunk`` call over the
+    same tokens (the absorbed attention over the latent cache; the same
+    group): the last position's logits, (max abs err, largest |ref|).  The
+    chunk runs twice: routing freely, and replaying the forward's routing
+    (``moe.route``'s gates, ids and slots, layer by layer), which leaves the
+    attention's rounding as the only source of the gap; the share of expert
+    choices the free chunk makes otherwise is read per layer."""
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches, variant
+    from repro_torch.models import moe, transformer
+
+    toks = mla_tokens(dev, cfg)
+    inner = moe.route
+    routes: dict[str, list] = {"forward": [], "chunk": []}
+
+    def recorded(where):
+        def route(x, router, dims):
+            routes[where].append(inner(x, router, dims))
+            return routes[where][-1]
+        return route
+
+    def replayed():
+        it = iter(routes["forward"])
+        return lambda x, router, dims: next(it)
+
+    def chunk():
+        cache = transformer.init_cache(cfg, 1, MLA_SEQ, dev)
+        return transformer.prefill_chunk(
+            params, cfg, toks, cache, torch.zeros(1, dtype=torch.int32, device=dev))
+
+    try:
+        with torch.no_grad():
+            transformer.forward(params, cfg, toks, last_only=True)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            moe.route = recorded("forward")
+            t0 = time.perf_counter()
+            full, _ = transformer.forward(params, cfg, toks, last_only=True)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            by_var = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+            moe.route = recorded("chunk")
+            t0 = time.perf_counter()
+            free, _, clen = chunk()
+            torch.cuda.synchronize()
+            chunk_ms = (time.perf_counter() - t0) * 1e3
+            moe.route = replayed()
+            same, _, _ = chunk()
+    finally:
+        moe.route = inner
+    full = full[:, -1]
+    err, largest = (full - free).abs().max().item(), full.abs().max().item()
+    err_same = (full - same).abs().max().item()
+    flips = [routing_flips(a, b) for a, b in zip(routes["forward"], routes["chunk"])]
+    var = variant(cfg.dtype, cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, 1)
+    print(f"deepseek-v2 witness ({label}): {cfg.n_layers} layers {str(cfg.dtype)[6:]} forward "
+          f"(flash {var}, dh 192, values padded) ms {fwd_ms:.3f} against one prefill_chunk "
+          f"(absorbed) ms {chunk_ms:.3f} over {MLA_SEQ} tokens: last logits max_abs_err "
+          f"{err:.4e} largest {largest:.4e} ({err / largest:.4e} of it); with the forward's "
+          f"routing replayed {err_same:.4e} ({err_same / largest:.4e} of it); expert choices "
+          f"the free chunk makes otherwise, by layer {[f'{f:.6f}' for f in flips]}; "
+          f"flash launches {by_var}")
+    check(by_var[var]["fwd"] == cfg.n_layers and sum(
+        n["fwd"] for n in by_var.values()) == cfg.n_layers,
+        f"deepseek-v2 witness: flash launches {by_var}, wanted {cfg.n_layers} {var}")
+    check(clen.tolist() == [MLA_SEQ], f"deepseek-v2 witness: length {clen.tolist()}")
+    check(len(flips) == cfg.n_layers and len(routes["chunk"]) == cfg.n_layers,
+          f"deepseek-v2 witness: routed {len(routes['forward'])} and {len(routes['chunk'])} "
+          f"times, wanted {cfg.n_layers}")
+    return {"err": err, "err_same_routing": err_same, "largest": largest, "flips": flips,
+            "fwd_ms": fwd_ms, "chunk_ms": chunk_ms, "launches": cfg.n_layers}
+
+
+def absorbed_scores_rounded(x, p, c_kv, k_rope, cfg, dtype) -> torch.Tensor:
+    """``mla_decode`` of MLA_SEQ tokens over their own latent rows in fp32,
+    with only the score terms rounded to ``dtype`` where the working-dtype
+    path rounds them: the absorbed query, each of the two score products and
+    their sum.  Against fp32, it shows what the score rounding alone moves."""
+    from repro_torch.models import attention
+
+    m = cfg.mla
+    B, S, _ = x.shape
+
+    def rnd(t):
+        return t.to(dtype).float()
+
+    q_nope, q_rope = attention._mla_query(x, p, m.nope_head_dim,
+                                          torch.arange(S, device=x.device)[None], cfg.rope_theta)
+    q_lat = rnd(torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"]))
+    scores = rnd(rnd(torch.einsum("bshr,btr->bhst", q_lat, c_kv))
+                 + rnd(torch.einsum("bshe,bte->bhst", q_rope, k_rope)))
+    scores = scores / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    future = torch.ones(S, S, dtype=torch.bool, device=x.device).triu(1)
+    probs = torch.softmax(scores.masked_fill(future, float("-inf")), dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", probs, c_kv)
+    return torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"]).reshape(B, S, -1)
+
+
+def mla_attention_witness(dev, cfg, params, label: str) -> dict:
+    """Layer 0's attention alone, with no MoE after it, on the witness's
+    tokens: ``mla_prefill`` on the flash kernel and the absorbed
+    ``mla_decode`` over the prefill's own latent rows, both in the working
+    dtype, each against ``mla_prefill`` in fp32 (plain attention) from the
+    same rounded inputs, as is ``absorbed_scores_rounded``.  Held: the fp32
+    absorbed path within 1e-4 of the fp32 prefill, the flash prefill within
+    the bf16 bound of it, and the working-dtype absorbed path no further
+    from it than that bound past what rounding its scores alone moves.
+    (max abs err, largest |fp32|) of each."""
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import rms_norm
+
+    m = cfg.mla
+    toks = mla_tokens(dev, cfg)
+    p0 = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    x = rms_norm(torch.nn.functional.embedding(toks, params["embed"]), params["layers"]["ln1"][0])
+    kw = dict(n_heads=cfg.n_heads, nope=m.nope_head_dim, rope=m.rope_head_dim,
+              v_dim=m.v_head_dim, positions=torch.arange(MLA_SEQ, device=dev)[None],
+              theta=cfg.rope_theta)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    p32 = {k: v.float() for k, v in p0.items()}
+    reset_launches()
+    with torch.no_grad():
+        flash, c_kv, k_rope = attention.mla_prefill(
+            x, p0, attend=lambda q, k, v: transformer._full_attention(cfg, q, k, v, 1.0, True),
+            **kw)
+        absorbed = attention.mla_decode(x, p0, c_kv, k_rope, start, **kw)
+        ref, c32, r32 = attention.mla_prefill(
+            x.float(), p32, attend=lambda q, k, v: attention.gqa_attention(q, k, v, causal=True),
+            **kw)
+        abs32 = attention.mla_decode(x.float(), p32, c32, r32, start, **kw)
+        scores_rounded = absorbed_scores_rounded(x.float(), p32, c32, r32, cfg, cfg.dtype)
+    n = sum(c["fwd"] for c in flash_attention.launches_by_variant.values())
+    check(n == 1, f"deepseek-v2 attention witness ({label}): {n} flash launches, wanted 1")
+    largest = ref.abs().max().item()
+    out = {"largest": largest, "launches": n, **{name: (a.float() - b.float()).abs().max().item()
+                                                 for name, a, b in (
+        ("flash", flash, ref), ("absorbed", absorbed, ref), ("flash_absorbed", flash, absorbed),
+        ("fp32_absorbed", abs32, ref), ("scores_rounded", scores_rounded, ref),
+        ("absorbed_scores_rounded", absorbed, scores_rounded))}}
+    print(f"deepseek-v2 attention witness ({label}, layer 0, no MoE, {str(cfg.dtype)[6:]}): "
+          f"largest fp32 output {largest:.4e}; max_abs_err against it: flash prefill "
+          f"{out['flash']:.4e} ({out['flash'] / largest:.4e} of it), absorbed "
+          f"{out['absorbed']:.4e} ({out['absorbed'] / largest:.4e}), fp32 absorbed with only "
+          f"its scores rounded {out['scores_rounded']:.4e} "
+          f"({out['scores_rounded'] / largest:.4e}), fp32 absorbed {out['fp32_absorbed']:.4e} "
+          f"({out['fp32_absorbed'] / largest:.4e}); flash against absorbed "
+          f"{out['flash_absorbed']:.4e} ({out['flash_absorbed'] / largest:.4e}); absorbed "
+          f"against the scores-only rounding {out['absorbed_scores_rounded']:.4e} "
+          f"({out['absorbed_scores_rounded'] / largest:.4e})")
+    for key, tol, what in (("fp32_absorbed", 1e-4, "fp32 absorbed path and fp32 prefill"),
+                           ("flash", FAMILY_TOL, "flash prefill and fp32 prefill")):
+        check(math.isfinite(out[key]) and out[key] <= tol * largest,
+              f"deepseek-v2 attention witness ({label}): {what} differ by {out[key]} "
+              f"(largest {largest}, tol {tol} of it)")
+    # the two roundings of the scores fall apart (their errors are of one
+    # size, not one sign), so what is held is the size
+    check(math.isfinite(out["absorbed"])
+          and out["absorbed"] <= out["scores_rounded"] + FAMILY_TOL * largest,
+          f"deepseek-v2 attention witness ({label}): the absorbed path is {out['absorbed']} from "
+          f"fp32, more than the bf16 bound past its scores' rounding alone "
+          f"({out['scores_rounded']}; largest {largest})")
+    return out
+
+
+def phase_deepseek_v2(dev) -> dict:
+    """deepseek-v2-236b at full width (d_model 5120; MLA: 128 heads, latent
+    512, rope 64, nope 128, values 128; 160 routed experts top-6 and 2
+    shared, each of 1,536) cut to MLA_LAYERS of its 60 layers, bf16: three
+    requests sharing the 512-token prompt (the latent cache; the absorbed
+    attention is plain torch, so no decode kernel), the snapshot bytes a
+    token against an MHA cache's, and the flash prefill against the
+    absorbed path on the same 1,024 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    m = cfg.mla
+    print(f"deepseek-v2: reduced n_layers {full.n_layers} -> {MLA_LAYERS} (60 layers take about "
+          f"478 GB in bf16); widths as published")
+    params = family_params(dev, cfg, f"deepseek-v2-236b@{MLA_LAYERS}")
+    run = serve_engine(dev, cfg, params, engine_prompts(cfg.vocab)[:MLA_REQUESTS], MLA_NEW,
+                       "deepseek-v2", "deepseek-v2 req")
+    check(run["tokens_equal"], "deepseek-v2: graph replays and eager steps gave other tokens")
+    check(sum(run["launches"].values()) == 0,
+          f"deepseek-v2: decode kernels {run['launches']}, wanted none (MLA)")
+    print_decode_bounds("deepseek-v2", cfg, params, run)
+    isz = params["embed"].element_size()
+    latent = (m.kv_lora_rank + m.rope_head_dim) * isz
+    mha = cfg.n_heads * ((m.nope_head_dim + m.rope_head_dim) + m.v_head_dim) * isz
+    print(f"deepseek-v2: snapshot bytes a token a layer {run['snapshot'][2]:.1f} (latent "
+          f"{latent}) against an MHA cache's {mha} ({mha / latent:.2f}x)")
+    check(run["snapshot"][2] == latent, f"deepseek-v2: snapshot {run['snapshot']} B")
+    run["snapshot_mha"] = mha
+    # the flash prefill against the absorbed chunk.  In bf16 the absorbed
+    # path rounds its score terms to bf16 before the softmax (as the
+    # reference does), where the flash kernel keeps fp32 scores.  At the
+    # reference's init (w_uq, w_uk, w_uv drawn at 1/sqrt of the head axis,
+    # 128, not of the ranks 1,536 and 512) the scores spread several times
+    # wider: that rounding alone then moves layer 0's attention about as far
+    # from fp32 as the whole bf16 absorbed path does (mla_attention_witness),
+    # the 160-way routing of the two paths parts more with each layer, and
+    # their logits part past the bound.  So at that init the bf16 logits are
+    # printed with their split, and held are the attention alone against
+    # fp32 and, in fp32 at one layer, the logits (below); at the true fan-in
+    # the bf16 logits are held, as tests/test_torch_transformer.py holds them
+    run["witness"] = {label: mla_witness(dev, cfg, p, label) for label, p in (
+        ("reference init", params), ("true fan-in", at_true_fan_in(params, cfg)))}
+    run["attention_witness"] = {label: mla_attention_witness(dev, cfg, p, label) for label, p in (
+        ("reference init", params), ("true fan-in", at_true_fan_in(params, cfg)))}
+    w = run["witness"]["true fan-in"]
+    check(math.isfinite(w["err"]) and w["err"] <= FAMILY_TOL * w["largest"],
+          f"deepseek-v2 witness: flash prefill and absorbed chunk differ by {w['err']} "
+          f"(largest {w['largest']}) at the true fan-in")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
+    p32 = init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(c32),
+                      c32.dtype, dev)
+    w = mla_witness(dev, c32, p32, "fp32, reference init")
+    check(math.isfinite(w["err"]) and w["err"] <= 1e-4 * w["largest"],
+          f"deepseek-v2 fp32 witness: flash prefill and absorbed chunk differ by {w['err']} "
+          f"(largest {w['largest']}; tol 1e-4 of it)")
+    run["witness"]["fp32, 1 layer, reference init"] = w
+    del p32
+    torch.cuda.empty_cache()
+    run["flash"] = flash_family_case("deepseek-v2 prefill (MLA)", 1, MLA_SEQ, cfg.n_heads,
+                                     m.nope_head_dim + m.rope_head_dim, m.v_head_dim, dev)
+    return run
+
+
+FAMILY_CHECK_LAYERS = 2  # qwen2-moe-a2.7b's card-vs-CPU check in fp32: 7.05 GB
+
+
+def phase_family_parity(dev) -> dict:
+    """Card against CPU in fp32.  The smoke configs of qwen2-moe,
+    deepseek-v2 and deepseek-7b through two engines (tokens and chunks
+    skipped equal, as ``phase_parity``); then qwen2-moe-a2.7b at full width
+    cut to FAMILY_CHECK_LAYERS layers, attention projections at their true
+    fan-in (``at_true_fan_in``; the experts are drawn at it already): one
+    64-token chunk and 4 decode steps of the same tokens on both devices,
+    logits within 1e-4 of the largest, and ``moe.route`` on the card's MoE
+    inputs giving the same expert ids and slots on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import reset_launches
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeEngine
+
+    out = {"split": 0, "fused": 0}
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b", "deepseek-7b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+        cpu_params = init_params(torch.Generator(device="cpu").manual_seed(0),
+                                 transformer.lm_specs(cfg), cfg.dtype, "cpu")
+        on_dev = ServeEngine(cfg, to_device(cpu_params, dev), max_len=128, chunk=16, device=dev)
+        on_cpu = ServeEngine(cfg, cpu_params, max_len=128, chunk=16, device="cpu")
+        reset_launches()
+        for i, prompt in enumerate(smoke_stream(cfg.vocab)):
+            a, sa = on_dev.generate(prompt, max_new_tokens=8)
+            b, sb = on_cpu.generate(prompt, max_new_tokens=8)
+            check(a == b and sa.chunks_skipped == sb.chunks_skipped,
+                  f"{cfg.name} parity request {i + 1}: card {a} skipped {sa.chunks_skipped}, "
+                  f"cpu {b} skipped {sb.chunks_skipped}")
+        n = dict(decode_attention.launches_by_variant)
+        skipped = on_dev.aggregate_stats().units_skipped
+        print(f"family parity {cfg.name} fp32: {len(smoke_stream(cfg.vocab))} requests tokens "
+              f"equal, chunks skipped {skipped} on both; decode kernels {n}; graph holds "
+              f"{on_dev._graph.kernels}")
+        check(skipped > 0, f"{cfg.name} parity: no chunk skipped")
+        out["split"] += n["split"]
+        out["fused"] += n["fused"]
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=FAMILY_CHECK_LAYERS,
+                              dtype=torch.float32)
+    params = at_true_fan_in(init_params(torch.Generator(device=dev).manual_seed(3),
+                                        transformer.lm_specs(cfg), cfg.dtype, dev), cfg)
+    cpu_params = cpu_f32(params)
+    print(f"family parity {cfg.name} fp32 {cfg.n_layers} layers: parameters "
+          f"{param_bytes(params)[0]} bytes {param_bytes(params)[1]}")
+    rng = np.random.default_rng(3)
+    steps = [rng.integers(0, cfg.vocab, size=(1, 64))] + [
+        rng.integers(0, cfg.vocab, size=(1, 1)) for _ in range(4)]
+    routes: dict[str, list] = {"card": [], "cpu": []}
+    inner_route = moe.route
+
+    def recorded(where):
+        def route(x, router, dims):
+            r = inner_route(x, router, dims)
+            routes[where].append((x, router, dims, r))
+            return r
+        return route
+
+    reset_launches()
+    logits = {}
+    t0 = time.perf_counter()
+    try:
+        for where, p, d in (("card", params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+            moe.route = recorded(where)
+            cache = transformer.init_cache(cfg, 1, 128, d)
+            clen = torch.zeros(1, dtype=torch.int32, device=d)
+            logits[where] = []
+            with torch.no_grad():
+                for i, toks in enumerate(steps):
+                    fn = transformer.prefill_chunk if i == 0 else transformer.decode_step
+                    lg, cache, clen = fn(p, cfg, torch.from_numpy(toks).to(d), cache, clen)
+                    logits[where].append(lg.cpu())
+    finally:
+        moe.route = inner_route
+    cpu_s = time.perf_counter() - t0
+    n = dict(decode_attention.launches_by_variant)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+        err, largest = (a - b).abs().max().item(), b.abs().max().item()
+        worst = max(worst, err / largest)
+        print(f"family parity {cfg.name} {cfg.n_layers} layers fp32 step {i} "
+              f"({'chunk of 64' if i == 0 else 'decode'}): max_abs_err {err:.4e} largest "
+              f"{largest:.4e} (tol 1e-4 of the largest)")
+        check(math.isfinite(err) and err <= 1e-4 * largest,
+              f"{cfg.name} parity step {i}: card logits differ by {err} (largest {largest})")
+    same = diff_ids = 0
+    for (x, router, dims, r), (_, _, _, rc) in zip(routes["card"], routes["cpu"]):
+        # the routing of the card's own inputs, on the CPU
+        again = inner_route(x.cpu(), router.cpu(), dims)
+        for a, b in zip(r[1:], again[1:]):
+            check(torch.equal(a.cpu(), b), f"{cfg.name} parity: route differs between devices")
+        diff_ids += int((r[1].cpu() != rc[1]).sum())
+        same += 1
+    check(len(routes["card"]) == len(routes["cpu"]) == FAMILY_CHECK_LAYERS * len(steps),
+          f"{cfg.name} parity: MoE calls {len(routes['card'])} / {len(routes['cpu'])}")
+    check(diff_ids == 0, f"{cfg.name} parity: the two runs routed {diff_ids} pairs differently")
+    print(f"family parity {cfg.name}: route on the card's inputs gives equal expert ids and "
+          f"slots on both devices in {same} MoE calls; the two runs' own routes equal; worst "
+          f"err / largest {worst:.3e}; decode kernels {n}; {cpu_s:.1f} s")
+    out["split"] += n["split"]
+    out["fused"] += n["fused"]
+    out["check_split"], out["check_fused"] = n["split"], n["fused"]
+    del params, cpu_params, routes
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3123,6 +3754,10 @@ def main() -> int:
     timed(phase_driver)
     pre = timed(phase_prefill)
     gem = timed(phase_gemma3)
+    ds7 = timed(phase_deepseek7b)
+    qwen = timed(phase_qwen2_moe)
+    dsv2 = timed(phase_deepseek_v2)
+    fpar = timed(phase_family_parity)
     bag = timed(phase_bag)
     bwd = timed(phase_bag_bwd)
     rec = timed(phase_recsys)
@@ -3149,19 +3784,29 @@ def main() -> int:
     decode_src = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
     decode_tpu = "src/repro/kernels/decode_attention/kernel.py:106"
     split_paths = {"fp32 smoke serving (card vs CPU)": par["split"],
-                   "fp32 gemma3 smoke prefill_chunk chain": pre["smoke_chain_launches"]["split"]}
+                   "fp32 gemma3 smoke prefill_chunk chain": pre["smoke_chain_launches"]["split"],
+                   "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)":
+                   fpar["split"]}
     split_at_chunk = kern["cases"][(CHUNK_CASE, "bfloat16")]
-    line = {"kernels": []}
+    # the cuts of scale this run makes to a published configuration
+    line = {"kernels": [], "reduced": {
+        "deepseek-v2-236b": {"n_layers": [60, MLA_LAYERS],
+                             "why": "60 layers take about 478 GB in bf16"}}}
     for name, var, case, tname, r, by_path in (
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
          kern["written"][(MAIN_CASE, "bfloat16")],
          {"serving decode steps (CUDA graph replays and the capture's warm-up step)":
           eng["launches"]["fused"],
-          "fabric serving decode steps (two engines)": wf["decode"]["fused"]}),
+          "fabric serving decode steps (two engines)": wf["decode"]["fused"],
+          "deepseek-7b serving decode steps": ds7["launches"]["fused"],
+          "qwen2-moe-a2.7b serving decode steps": qwen["launches"]["fused"],
+          "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)": fpar["fused"]}),
         ("decode_attention_chunk", "chunk", CHUNK_CASE, "bfloat16",
          kern["written"][(CHUNK_CASE, "bfloat16")],
          {"serving prefill chunks": eng["launches"]["chunk"],
-          "fabric serving prefill chunks (two engines)": wf["decode"]["chunk"]}),
+          "fabric serving prefill chunks (two engines)": wf["decode"]["chunk"],
+          "deepseek-7b serving prefill chunks": ds7["launches"]["chunk"],
+          "qwen2-moe-a2.7b serving prefill chunks": qwen["launches"]["chunk"]}),
         ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
          split_paths),
     ):
@@ -3184,6 +3829,11 @@ def main() -> int:
             "held": True,
             "shape": decode_shape(case, tname),
         }
+        if var in ("fused", "chunk"):  # MHA at dh 128, G 1: deepseek-7b's and qwen2-moe's
+            entry["family_cases"] = {
+                label: {k: kern["written"][(label, "bfloat16")][k] for k in (
+                    "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for label in ((FAMILY_DECODE if var == "fused" else FAMILY_CHUNK))}
         if var == "chunk":
             entry["full_width_chain_launches"] = pre["chain_launches"]["chunk"]
         if var == "split":  # the variant the chunk kernel replaced at the engine's chunk call
@@ -3191,9 +3841,17 @@ def main() -> int:
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
+    family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
+                    "qwen2-moe-a2.7b prefill": qwen["prefill"]["launches"],
+                    f"deepseek-v2-236b forward ({MLA_LAYERS} layers, two witnesses)":
+                    sum(dsv2["witness"][k]["launches"] for k in ("reference init",
+                                                                  "true fan-in")),
+                    "deepseek-v2-236b layer 0 attention (two witnesses)":
+                    sum(w["launches"] for w in dsv2["attention_witness"].values())}
     for name, kind, by_path in (
         ("flash_attention", "fwd",
-         {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0]}),
+         {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
+          **family_flash}),
         ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1]}),
     ):
         r = fm[kind]
@@ -3215,6 +3873,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "held": True,
             "shape": flash_shape,
+            **({"family_cases": {
+                "deepseek-7b prefill (B 1, S 2048, Hq=Hkv 32, dh 128)": ds7["flash"],
+                "qwen2-moe-a2.7b prefill (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"],
+                f"deepseek-v2 prefill (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 "
+                "padded)": dsv2["flash"]}} if kind == "fwd" else {}),
         })
     gtr = gem["train"]
     for name, kind, by_path in (
@@ -3261,7 +3924,9 @@ def main() -> int:
     for name, kind, by_path in (
         ("flash_attention_tf32x3", "fwd",
          {"fp32 smoke train (card vs CPU, 5 steps)": tpar["fwd"],
-          "fp32 gemma3 smoke prefill": pre["smoke_flash"]["fwd"]}),
+          "fp32 gemma3 smoke prefill": pre["smoke_flash"]["fwd"],
+          "fp32 deepseek-v2 witness (1 layer, dh 192, values padded)":
+          dsv2["witness"]["fp32, 1 layer, reference init"]["launches"]}),
         ("flash_attention_tf32x3_bwd", "bwd",
          {"fp32 smoke train (card vs CPU, 5 steps)": tpar["bwd"]}),
     ):

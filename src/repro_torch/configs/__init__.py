@@ -1,6 +1,6 @@
-"""Architecture registry: --arch <id> resolves here.  The port carries the
-dense-GQA configs of its serving and training slices, GatedGCN and the four
-recsys models."""
+"""Architecture registry: --arch <id> resolves here.  The port carries every
+configuration the reference registers: the five LM architectures (dense
+GQA, MoE and MLA), GatedGCN and the four recsys models."""
 from .base import (
     GNN_SHAPES,
     LM_SHAPES,
@@ -22,8 +22,11 @@ from .base import (
     register,
 )
 
+register("deepseek-7b", "deepseek_7b")
 register("gemma3-4b", "gemma3_4b")
 register("tinyllama-1.1b", "tinyllama_1_1b")
+register("qwen2-moe-a2.7b", "qwen2_moe_a2_7b")
+register("deepseek-v2-236b", "deepseek_v2_236b")
 register("gatedgcn", "gatedgcn")
 register("bst", "bst")
 register("dcn-v2", "dcn_v2")

@@ -4,11 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --device cpu
 
+``--arch`` takes every LM architecture of ``repro_torch.configs``:
+``tinyllama-1.1b``, ``gemma3-4b``, ``deepseek-7b`` (dense MHA),
+``qwen2-moe-a2.7b`` (MoE) and ``deepseek-v2-236b`` (MLA + MoE; at full width
+its 60 layers do not fit one card, ``--layers`` cuts the depth and prints
+the cut).
+
 Weights are random (seed 0), drawn with the reference's init scheme.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +31,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
@@ -35,6 +43,10 @@ def main() -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda requested but CUDA is not available")
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        print(f"{cfg.name}: reduced n_layers {cfg.n_layers} -> {args.layers}; "
+              f"this is not the published model")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(gen, lm_specs(cfg), cfg.dtype, device)
     engine = ServeEngine(

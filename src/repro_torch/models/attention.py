@@ -1,7 +1,8 @@
 """GQA attention as plain torch ops: full-sequence (``gqa_attention``,
 ``chunked_gqa_attention``) and cached (``decode_attention``, and
 ``decode_attention_chunk`` / ``decode_attention_insert``, which first write
-the chunk's or the step's K/V rows).
+the chunk's or the step's K/V rows); and DeepSeek-V2's multi-head latent
+attention (``mla_prefill``, ``mla_decode``).
 
 ``decode_attention``, ``decode_attention_chunk`` and
 ``decode_attention_insert`` are the plain versions
@@ -19,8 +20,12 @@ from __future__ import annotations
 
 import math
 
+from typing import Callable
+
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from .layers import apply_rope
 
 NEG_INF = -1e30
 
@@ -155,3 +160,86 @@ def decode_attention_chunk(
 
 # one decode step's attention (S = 1)
 decode_attention_insert = decode_attention_chunk
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2, arXiv:2405.04434) — with the absorbed-matmul decode path
+# --------------------------------------------------------------------------
+def _mla_query(x, p, nope: int, positions, theta: float):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated)."""
+    cq = x @ p["w_dq"]
+    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])  # e = nope+rope
+    return q[..., :nope], apply_rope(q[..., nope:], positions, theta)
+
+
+def mla_latent(x, w_dkv, rope: int, positions, theta: float):
+    """The rows MLA caches for x [B,S,d]: (c_kv [B,S,r], k_rope [B,S,rope]
+    rotated, shared by every head)."""
+    ckv_full = x @ w_dkv  # r = kv_lora + rope
+    c_kv, k_rope = ckv_full[..., :-rope], ckv_full[..., -rope:]
+    return c_kv, apply_rope(k_rope[:, :, None, :], positions, theta)[:, :, 0, :]
+
+
+def mla_prefill(
+    x: torch.Tensor,  # [B,S,d]
+    p: dict,
+    *,
+    n_heads: int,
+    nope: int,
+    rope: int,
+    v_dim: int,
+    positions: torch.Tensor,
+    theta: float,
+    attend: Callable,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (attn_out [B,S,H*v_dim], c_kv [B,S,r], k_rope [B,S,rope]).
+
+    The heads' keys are decompressed from the latent, and attention is MHA
+    at head dim nope + rope with values of width v_dim, computed by
+    ``attend(q, k, v)``: the model passes the reference's lowering on the
+    CPU and the flash kernels on the card."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_query(x, p, nope, positions, theta)
+    c_kv, k_rope = mla_latent(x, p["w_dkv"], rope, positions, theta)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])  # [B,S,H,nope]
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])  # [B,S,H,v_dim]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, n_heads, rope)], dim=-1)
+    out = attend(torch.cat([q_nope, q_rope], dim=-1), k, v)
+    return out.reshape(B, S, n_heads * v_dim), c_kv, k_rope
+
+
+def mla_decode(
+    x: torch.Tensor,  # [B,S,d]  (S=1 decode; S=chunk for chunked prefill)
+    p: dict,
+    c_kv_cache: torch.Tensor,  # [B,T,r]   (new latents already inserted)
+    k_rope_cache: torch.Tensor,  # [B,T,rope]
+    q_start: torch.Tensor,  # [B] position of the FIRST query token
+    *,
+    n_heads: int,
+    nope: int,
+    rope: int,
+    v_dim: int,
+    positions: torch.Tensor,  # [B,S]
+    theta: float,
+) -> torch.Tensor:
+    """Absorbed-matmul cached attention: scores live in the latent space, the
+    cache is only the rank-r latent + shared rope key — the MLA memory win.
+    Query token s (global position q_start+s) attends kpos <= q_start+s.
+    Every product rounds to the working dtype where the reference's does
+    (the two score terms are added in it, then cast to fp32)."""
+    B, S, _ = x.shape
+    T = c_kv_cache.shape[1]
+    q_nope, q_rope = _mla_query(x, p, nope, positions, theta)
+    # absorb w_uk into the query: q_lat [B,S,H,r]
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])
+    scores = torch.einsum("bshr,btr->bhst", q_lat, c_kv_cache)
+    scores = scores + torch.einsum("bshe,bte->bhst", q_rope, k_rope_cache)
+    scores = scores.float() / math.sqrt(nope + rope)
+    kpos = torch.arange(T, device=x.device)
+    qpos = q_start.long()[:, None] + torch.arange(S, device=x.device)[None, :]  # [B,S]
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # [B,S,T]
+    scores = scores.masked_fill(~mask[:, None, :, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv_cache)  # [B,S,H,r]
+    v = torch.einsum("bshr,rhe->bshe", ctx_lat, p["w_uv"])  # [B,S,H,v_dim]
+    return v.reshape(B, S, n_heads * v_dim)

@@ -1,19 +1,25 @@
-"""Config-driven transformer LM, dense GQA, as torch ops: the full-sequence
-``forward`` (training, ``prefill``) and the cached serving path
-(``prefill_chunk``, ``decode_step``).
+"""Config-driven transformer LM as torch ops: GQA or MLA attention, dense
+or MoE FFN.  The full-sequence ``forward`` (training, ``prefill``) and the
+cached serving path (``prefill_chunk``, ``decode_step``).
 
 Parameters keep the reference's stacked per-layer layout (``[L, ...]`` under
 the names of :func:`lm_specs`) and the cache keeps its pytree
-``{"k","v": [L,B,T,Hkv,dh]}``, so snapshots and converted parameters move
-between the packages unchanged.  A Python loop over layers takes the place
-of ``lax.scan``: ``forward`` unbinds the stacked tensors once (their
-gradient is one stack), the cached path indexes them.  On the card every
-full-sequence attention goes through the flash-attention kernels and every
-cached one through a decode-attention kernel (``decode_step``: the fused
-variant, which also writes the step's K/V row; ``prefill_chunk``: the split
-variant after the chunk's rows are written); on the CPU ``forward``
-lowers attention as the reference does (``cfg.attention_impl``).  The cache
-is updated in place.
+(``{"k","v": [L,B,T,Hkv,dh]}``, or for MLA the latent cache
+``{"c_kv": [L,B,T,r], "k_rope": [L,B,T,rope]}``), so snapshots and
+converted parameters move between the packages unchanged.  A Python loop
+over layers takes the place of ``lax.scan``: ``forward`` unbinds the stacked
+tensors once (their gradient is one stack), the cached path indexes them.
+On the card every full-sequence attention goes through the flash-attention
+kernels (MLA's too: its values are padded with zero columns to the key
+width) and every cached GQA one through a decode-attention kernel
+(``decode_step``: the fused variant, which also writes the step's K/V row;
+``prefill_chunk``: the chunk variant, or the split variant after the
+chunk's rows are written); MLA's cached attention is the reference's
+absorbed product in plain torch on both devices.  On the CPU ``forward``
+lowers attention as the reference does (``cfg.attention_impl``).  The
+cache is updated in place.  The MoE FFN (:mod:`.moe`) groups the tokens of
+each call as the reference does, so a chunk routes as the reference's
+chunk routes.
 """
 from __future__ import annotations
 
@@ -28,44 +34,64 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ..configs.base import LMConfig
 from ..kernels.decode_attention import decode_attention_chunk
 from ..kernels.flash_attention import flash_attention
-from .attention import chunked_gqa_attention, gqa_attention
-from .layers import PSpec, apply_rope, rms_norm, swiglu
-
-_UNPORTED = (
-    "is not ported yet: MoE and MLA configs wait for ROADMAP.md queue 1, item 9 "
-    "(MoE and MLA)"
+from .attention import (
+    chunked_gqa_attention,
+    gqa_attention,
+    insert_chunk,
+    mla_decode,
+    mla_latent,
+    mla_prefill,
 )
-
-
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(f"MLA attention ({cfg.name}) {_UNPORTED}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE FFN ({cfg.name}) {_UNPORTED}")
+from .layers import PSpec, apply_rope, rms_norm, swiglu
+from .moe import MoEDims, moe_ffn, moe_specs
 
 
 # --------------------------------------------------------------------------
 # param specs
 # --------------------------------------------------------------------------
 def lm_specs(cfg: LMConfig) -> dict:
-    _check_dense(cfg)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
     hq, hkv, dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     layers: dict[str, Any] = {
         "ln1": PSpec((L, d), ("layers", "embed"), init="zeros"),
         "ln2": PSpec((L, d), ("layers", "embed"), init="zeros"),
-        "attn": {
+    }
+    if cfg.mla is not None:
+        m = cfg.mla
+        e_q = m.nope_head_dim + m.rope_head_dim
+        layers["attn"] = {
+            "w_dq": PSpec((L, d, m.q_lora_rank), ("layers", "embed", "q_lora")),
+            "w_uq": PSpec(
+                (L, m.q_lora_rank, hq, e_q), ("layers", "q_lora", "heads", "head_dim")
+            ),
+            "w_dkv": PSpec(
+                (L, d, m.kv_lora_rank + m.rope_head_dim), ("layers", "embed", "kv_lora")
+            ),
+            "w_uk": PSpec(
+                (L, m.kv_lora_rank, hq, m.nope_head_dim),
+                ("layers", "kv_lora", "heads", "head_dim"),
+            ),
+            "w_uv": PSpec(
+                (L, m.kv_lora_rank, hq, m.v_head_dim),
+                ("layers", "kv_lora", "heads", "head_dim"),
+            ),
+            "w_o": PSpec((L, hq * m.v_head_dim, d), ("layers", "qkv", "embed")),
+        }
+    else:
+        layers["attn"] = {
             "wq": PSpec((L, d, hq, dh), ("layers", "attn_in", "heads", "head_dim")),
             "wk": PSpec((L, d, hkv, dh), ("layers", "attn_in", "kv_heads", "head_dim")),
             "wv": PSpec((L, d, hkv, dh), ("layers", "attn_in", "kv_heads", "head_dim")),
             "wo": PSpec((L, hq, dh, d), ("layers", "heads", "head_dim", "attn_out")),
-        },
-        "ffn": {
+        }
+    if cfg.moe is not None:
+        layers["moe"] = moe_specs(cfg.moe, d, L)
+    else:
+        layers["ffn"] = {
             "w_gate": PSpec((L, d, f), ("layers", "embed", "ff")),
             "w_up": PSpec((L, d, f), ("layers", "embed", "ff")),
             "w_down": PSpec((L, f, d), ("layers", "ff", "embed")),
-        },
-    }
+        }
     specs = {
         "embed": PSpec((V, d), ("vocab", "embed"), scale=0.02),
         "layers": layers,
@@ -93,16 +119,32 @@ def _layer_windows(cfg: LMConfig) -> list[int | None]:
     return [None if g > 0.5 else cfg.local_window for g in layer_flags(cfg)]
 
 
+def _moe_dims(cfg: LMConfig) -> MoEDims:
+    assert cfg.moe is not None
+    return MoEDims(
+        n_experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k,
+        n_shared=cfg.moe.n_shared,
+        d_model=cfg.d_model,
+        d_ff=cfg.moe.d_ff_expert,
+        group_size=cfg.moe_group_size,
+        capacity_factor=cfg.moe_capacity_factor,
+    )
+
+
 def init_cache(
     cfg: LMConfig, batch: int, max_len: int, device: str | torch.device = "cuda"
 ) -> dict:
-    """Zeroed KV cache stacked over layers."""
-    _check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-    }
+    """Zeroed KV (or MLA latent) cache stacked over layers."""
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        m = cfg.mla
+        shapes = {"c_kv": (L, batch, max_len, m.kv_lora_rank),
+                  "k_rope": (L, batch, max_len, m.rope_head_dim)}
+    else:
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device) for k, s in shapes.items()}
 
 
 def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -121,6 +163,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 # blocks (full sequence)
 # --------------------------------------------------------------------------
 def _full_attention(cfg: LMConfig, q, k, v, is_global: float, causal: bool):
+    """Full-sequence attention of q [B,S,Hq,dh] over k [B,S,Hkv,dh] and v
+    [B,S,Hkv,dv], dv <= dh (MLA's values are narrower than its keys)."""
     window = None if cfg.local_global is None else cfg.local_window
     if q.device.type == "cpu":  # the reference's lowering, differentiated by autograd
         if cfg.attention_impl == "chunked":
@@ -130,13 +174,27 @@ def _full_attention(cfg: LMConfig, q, k, v, is_global: float, causal: bool):
             )
         return gqa_attention(q, k, v, causal=causal, window=window, global_flag=is_global)
     # on the card: the flash kernels, whatever attention_impl says; a global
-    # layer attends without the window
-    return flash_attention(q, k, v, causal=causal, window=None if is_global > 0.5 else window)
+    # layer attends without the window.  The kernels take one head dim for q,
+    # k and v: narrower values get zero columns, which change neither the
+    # softmax nor the other columns of the output, and are cut off again
+    dv = v.shape[-1]
+    if dv < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - dv))
+    out = flash_attention(q, k, v, causal=causal, window=None if is_global > 0.5 else window)
+    return out if dv == q.shape[-1] else out[..., :dv]
 
 
 def _attn_block(cfg: LMConfig, p: dict, x, positions, is_global, *, causal=True):
-    """Full-sequence attention (train / prefill). Returns (out, kv-for-cache)."""
-    _check_dense(cfg)
+    """Full-sequence attention (train / prefill). Returns (out, kv-for-cache):
+    (k, v), or for MLA the latent rows (c_kv, k_rope)."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        out, c_kv, k_rope = mla_prefill(
+            x, p, n_heads=cfg.n_heads, nope=m.nope_head_dim, rope=m.rope_head_dim,
+            v_dim=m.v_head_dim, positions=positions, theta=cfg.rope_theta,
+            attend=lambda q, k, v: _full_attention(cfg, q, k, v, float(is_global), causal),
+        )
+        return out @ p["w_o"], (c_kv, k_rope)
     q = apply_rope(_proj_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj_heads(x, p["wv"])
@@ -145,7 +203,8 @@ def _attn_block(cfg: LMConfig, p: dict, x, positions, is_global, *, causal=True)
 
 
 def _ffn_block(cfg: LMConfig, layer_p: dict, x):
-    _check_dense(cfg)
+    if cfg.moe is not None:
+        return moe_ffn(x, layer_p["moe"], _moe_dims(cfg))
     f = layer_p["ffn"]
     return swiglu(x, f["w_gate"], f["w_up"], f["w_down"])
 
@@ -196,7 +255,6 @@ def forward(
     decides which op outputs are saved.  ``unroll`` is accepted for the
     reference's signature and has no effect.  The reference's act-sharding
     constraint is a GSPMD annotation: on one card there is nothing to do."""
-    _check_dense(cfg)
     B, S = tokens.shape
     x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -269,7 +327,8 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *, unroll: int = 
         params, cfg, tokens, unroll=unroll, collect_kv=True,
         last_only=cfg.prefill_last_only,
     )
-    cache = {"k": caches[0], "v": caches[1]}
+    names = ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")
+    cache = dict(zip(names, caches))
     cache_len = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits[:, -1], cache, cache_len
 
@@ -278,28 +337,48 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *, unroll: int = 
 # cached forward (serving)
 # --------------------------------------------------------------------------
 
+def _layer_slice(tree: Any, i: int) -> Any:
+    """Layer ``i``'s views of stacked ``[L, ...]`` leaves."""
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len):
-    """c new tokens per sequence (c = 1: a decode step).  The attention call
-    writes the new K/V rows itself: on the card one kernel a layer, the fused
-    variant at decode (G <= 16 query heads per KV head) and the chunk variant
-    for a bf16 chunk (dh 16 to 128, G dividing 64); other shapes write the
-    rows with index writes, then run the split kernel."""
-    _check_dense(cfg)
+    """c new tokens per sequence (c = 1: a decode step).  GQA: the attention
+    call writes the new K/V rows itself: on the card one kernel a layer, the
+    fused variant at decode (G <= 16 query heads per KV head) and the chunk
+    variant for a bf16 chunk (dh 16 to 128, G dividing 64); other shapes
+    write the rows with index writes, then run the split kernel.  MLA: the
+    chunk's latent and rope rows are written with index writes, then the
+    absorbed attention reads the cache."""
     B, c = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     positions = cache_len[:, None].long() + torch.arange(c, device=tokens.device)[None, :]
     lp = params["layers"]
-    ap, fp = lp["attn"], lp["ffn"]
+    m = cfg.mla
     for i, window in enumerate(_layer_windows(cfg)):
-        k_c, v_c = cache["k"][i], cache["v"][i]
-        h = rms_norm(x, lp["ln1"][i])
-        q = apply_rope(_proj_heads(h, ap["wq"][i]), positions, cfg.rope_theta)
-        k = apply_rope(_proj_heads(h, ap["wk"][i]), positions, cfg.rope_theta)
-        v = _proj_heads(h, ap["wv"][i])
-        out = decode_attention_chunk(q, k, v, k_c, v_c, cache_len, window=window)
-        x = x + _out_proj(out, ap["wo"][i])
-        h2 = rms_norm(x, lp["ln2"][i])
-        x = x + swiglu(h2, fp["w_gate"][i], fp["w_up"][i], fp["w_down"][i])
+        p = _layer_slice(lp, i)
+        ap = p["attn"]
+        h = rms_norm(x, p["ln1"])
+        if m is not None:
+            c_kv, k_rope = mla_latent(h, ap["w_dkv"], m.rope_head_dim, positions, cfg.rope_theta)
+            ckv_c = insert_chunk(cache["c_kv"][i], c_kv, cache_len)
+            krope_c = insert_chunk(cache["k_rope"][i], k_rope, cache_len)
+            out = mla_decode(
+                h, ap, ckv_c, krope_c, cache_len, n_heads=cfg.n_heads,
+                nope=m.nope_head_dim, rope=m.rope_head_dim, v_dim=m.v_head_dim,
+                positions=positions, theta=cfg.rope_theta,
+            )
+            x = x + out @ ap["w_o"]
+        else:
+            q = apply_rope(_proj_heads(h, ap["wq"]), positions, cfg.rope_theta)
+            k = apply_rope(_proj_heads(h, ap["wk"]), positions, cfg.rope_theta)
+            v = _proj_heads(h, ap["wv"])
+            out = decode_attention_chunk(q, k, v, cache["k"][i], cache["v"][i], cache_len,
+                                         window=window)
+            x = x + _out_proj(out, ap["wo"])
+        x = x + _ffn_block(cfg, p, rms_norm(x, p["ln2"]))
     # only the last position's logits are returned, so only it is projected
     x = rms_norm(x[:, -1:], params["final_norm"])
     logits = x @ lm_head(params)

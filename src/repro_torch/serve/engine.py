@@ -20,7 +20,7 @@ Differences that follow from torch:
 * on the card, decoding replays one CUDA graph of ``transformer.decode_step``
   per new token, the counterpart of the reference's ``jax.jit`` of the step.
   The graph works on static buffers of the engine (a ``[L,1,max_len,...]``
-  cache, its length, the token and the logits); the step it holds advances
+  cache, KV or MLA's latent, its length, the token and the logits); the step it holds advances
   its own length.  The first decode captures it (after one eager warm-up
   step on the capture stream); every request copies its cache and length
   into the static buffers, which no snapshot or boundary clone ever aliases,
@@ -135,11 +135,13 @@ class _PrefixResult:
 
 class _DecodeGraph:
     """``transformer.decode_step`` captured once as a CUDA graph over static
-    buffers: the cache ``{"k","v": [L,1,max_len,Hkv,dh]}``, its length
+    buffers: the cache (``{"k","v": [L,1,max_len,Hkv,dh]}``, or MLA's
+    ``{"c_kv": [L,1,max_len,r], "k_rope": [L,1,max_len,rope]}``), its length
     ``[1]`` int32, the token ``[1,1]`` int64 and the logits ``[1,V]``.  The
-    captured step writes its K/V rows into the static cache and advances the
-    static length.  Decode-attention kernels recorded into the graph are
-    counted once per replay."""
+    captured step writes its cache rows into the static cache and advances
+    the static length.  Decode-attention kernels recorded into the graph are
+    counted once per replay (``kernels``: one fused kernel a layer for GQA;
+    none for MLA, whose absorbed attention is plain torch)."""
 
     def __init__(self, engine: "ServeEngine") -> None:
         cfg, dev = engine.cfg, engine._dev

@@ -19,7 +19,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models.layers import PSpec, init_params
 from repro_torch.models.transformer import lm_specs
 
-ARCHS = ["tinyllama-1.1b", "gemma3-4b"]
+ARCHS = ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b", "qwen2-moe-a2.7b", "deepseek-v2-236b"]
 
 
 def _flat(tree, prefix=""):

@@ -45,7 +45,8 @@ def _stream(vocab):
     return prompts + [system, system]
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+@pytest.mark.parametrize(
+    "arch", ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b", "qwen2-moe-a2.7b", "deepseek-v2-236b"])
 def test_generate_matches_reference_engine(arch):
     jcfg, jp, tcfg, tp = _models(arch)
     ref = JaxEngine(jcfg, jp, max_len=MAX_LEN, chunk=CHUNK)

@@ -2,7 +2,8 @@
 the CPU (modelled on ``tests/test_serve_fabric.py``).
 
 * a snapshot saved by an engine of either package restores in the other, and
-  generation is token-equal on an fp32 smoke stream;
+  generation is token-equal on an fp32 smoke stream, for a KV cache
+  (tinyllama-smoke) and for MLA's latent cache (deepseek-v2-smoke);
 * a JAX engine and a torch engine share one election over a reference
   ``StoreServer`` and prefill the shared prefix exactly once, also when the
   first leader dies mid-prefill;
@@ -44,13 +45,24 @@ from repro_torch.serve import FabricSnapshotStore, ServeEngine, mount_serve_engi
 CHUNK, MAX_LEN, NEW = 8, 64, 4
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = dataclasses.replace(jax_config("tinyllama-1.1b", smoke=True), dtype=jnp.float32)
-    tcfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True), dtype=torch.float32)
+def _model(arch):
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True), dtype=jnp.float32)
+    tcfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     jp = jax_init(jax.random.PRNGKey(1), jax_tf.lm_specs(jcfg), jcfg.dtype)
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jcfg, jp, tcfg, tp
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model("tinyllama-1.1b")
+
+
+@pytest.fixture(scope="module")
+def mla_model():
+    """deepseek-v2-smoke: MLA attention (the cache is the latent
+    ``{"c_kv","k_rope"}``) and MoE FFNs."""
+    return _model("deepseek-v2-236b")
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +119,27 @@ def test_port_snapshots_restore_in_the_reference(model, prompt, reference, tmp_p
     toks, st = reader.generate(prompt, NEW)
     assert st.chunks_skipped == st.n_chunks == 3
     assert toks == reference
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_mla_latent_snapshots_cross_packages(mla_model, prompt, writer, tmp_path):
+    """An MLA latent-cache snapshot saved by one package's engine restores in
+    the other's: every chunk restored, the restored leaves are the latent
+    cache, and generation equals the reference's cold generation."""
+    jcfg, jp, _, _ = mla_model
+    cold, st = JaxEngine(jcfg, jp, max_len=MAX_LEN, chunk=CHUNK).generate(prompt, NEW)
+    assert st.chunks_skipped == 0
+    engines = [lambda: _jax_engine(mla_model, JaxFS(tmp_path)),
+               lambda: _port_engine(mla_model, LocalFSBackend(tmp_path))]
+    first, second = engines if writer == "reference" else engines[::-1]
+    toks, st = first().generate(prompt, NEW)
+    assert toks == cold and st.stored_prefixes >= 1
+    reader = second()
+    toks, st = reader.generate(prompt, NEW)
+    assert st.chunks_skipped == st.n_chunks == 3  # every chunk restored, none prefilled
+    assert toks == cold
+    key = next(iter(reader.policy.stored))
+    assert sorted(reader.snapshots.load(key).cache) == ["c_kv", "k_rope"]
 
 
 def test_both_packages_store_the_same_snapshot_keys(model, prompt, tmp_path):

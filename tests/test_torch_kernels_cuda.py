@@ -84,6 +84,9 @@ FUSED_CASES = [
     (2, 16, 2, 1000, 96, [999, 400], None),
     (1, 8, 1, 700, 40, [650], 300),
     (3, 6, 2, 333, 136, [0, 200, 332], None),
+    # deepseek-7b's and qwen2-moe-a2.7b's decode step: G 1 at dh 128
+    (1, 32, 32, 1024, 128, [575], None),
+    (1, 16, 16, 1024, 128, [600], None),
 ]
 
 
@@ -207,10 +210,13 @@ def test_fused_decode_attention_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-def test_engine_graph_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b", "deepseek-v2-236b"])
+def test_engine_graph_on_the_card_matches_the_cpu(arch):
     """The fp32 smoke engine on the card, which replays one captured graph a
     token, gives the CPU engine's tokens over the smoke stream, and the
-    snapshots it stored are untouched by later requests."""
+    snapshots it stored are untouched by later requests.  qwen2-moe-smoke's
+    graph holds the MoE routing (no read back to the host); deepseek-v2-smoke's
+    holds MLA's absorbed attention, which is plain torch: no decode kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -222,7 +228,7 @@ def test_engine_graph_on_the_card_matches_the_cpu():
     from repro_torch.models.transformer import lm_specs
     from repro_torch.serve import ServeEngine
 
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True), dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     cpu_params = init_params(torch.Generator().manual_seed(0), lm_specs(cfg), cfg.dtype, "cpu")
 
     def to_card(tree):
@@ -253,10 +259,11 @@ def test_engine_graph_on_the_card_matches_the_cpu():
         now = on_dev.snapshots.load(key).cache
         assert all(torch.equal(now[n], t) for n, t in cache.items()), key
     # every decode step's attention ran the fused kernel: one per layer per
-    # replayed token, plus the capture's eager warm-up step
+    # replayed token, plus the capture's eager warm-up step (none for MLA)
     assert on_dev._graph is not None
-    assert on_dev._graph.kernels == {"fused": cfg.n_layers}
-    assert ops.decode_attention.launches_by_variant["fused"] == cfg.n_layers * (tokens + 1)
+    fused = 0 if cfg.mla is not None else cfg.n_layers
+    assert on_dev._graph.kernels == ({"fused": fused} if fused else {})
+    assert ops.decode_attention.launches_by_variant["fused"] == fused * (tokens + 1)
 
 
 # --------------------------------------------------------------------------
@@ -277,6 +284,8 @@ CHUNK_CASES = [
     (1, 33, 8, 2, 256, 72, [40], 50),  # dh 72: padded columns
     (1, 64, 8, 1, 1024, 64, [700], None),  # eight blocks a cluster
     (8, 64, 32, 4, 256, 64, [0, 17, 64, 100, 128, 150, 190, 192], None),  # one block a row tile
+    (1, 64, 32, 32, 1024, 128, [512], None),  # deepseek-7b's engine chunk: G 1, dh 128
+    (1, 64, 16, 16, 1024, 128, [448], None),  # qwen2-moe-a2.7b's
 ]
 
 
@@ -471,6 +480,10 @@ FLASH_CASES += WIDE_FLASH_CASES + [
     (2, 150, 10, 2, 256, True, 64),
     (1, 45, 9, 3, 96, True, 16),
     (1, 77, 15, 3, 136, False, 20),
+    # the prefill attention of deepseek-7b (Hq 32) and qwen2-moe-a2.7b (Hq
+    # 16): MHA, G 1 at dh 128
+    (1, 2048, 32, 32, 128, True, None),
+    (1, 2048, 16, 16, 128, True, None),
 ]
 
 
@@ -539,6 +552,34 @@ def test_flash_attention_train_shape_runs_wgmma():
     assert flash_ops.variant(torch.bfloat16, 64, 8) == "wgmma"
     assert by["wgmma"] == {"fwd": 1, "bwd": 1}
     assert by["wgmma_rows"] == by["tf32x3"] == {"fwd": 0, "bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_prefill_shape_with_padded_values(dtype):
+    """deepseek-v2's prefill attention (MHA over 128 heads, keys of nope 128
+    + rope 64 = 192 columns, values of 128): the model pads the values with
+    zero columns to 192, runs the flash forward (bf16: ``wgmma`` at three
+    64-column chunks) and keeps the first 128 output columns, which must be
+    the attention over the unpadded values; the padded columns come out zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, dh, dv = 1, 1024, 128, 192, 128
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, H, dv, generator=g, device=dev).to(dtype)
+    flash_ops.reset_launches()
+    out = flash_ops.flash_attention(q, k, torch.nn.functional.pad(v, (0, dh - dv)), causal=True)
+    torch.cuda.synchronize()
+    want_var = "tf32x3" if dtype == torch.float32 else "wgmma"
+    assert flash_ops.variant(dtype, dh, 1) == want_var
+    assert flash_ops.flash_attention.launches_by_variant[want_var]["fwd"] == 1
+    assert torch.equal(out[..., dv:], torch.zeros_like(out[..., dv:]))
+    want = attention.gqa_attention(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(out[..., :dv].float(), want, atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
 @pytest.mark.cuda

@@ -98,7 +98,8 @@ def _tree_close(got, want, tol):
 # --------------------------------------------------------------------------
 # forward / prefill
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+@pytest.mark.parametrize(
+    "arch", ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b", "qwen2-moe-a2.7b", "deepseek-v2-236b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("impl", ["einsum", "chunked"])
 def test_forward_logits_match_reference(arch, dtype, impl):

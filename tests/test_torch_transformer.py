@@ -23,15 +23,19 @@ import jax.numpy as jnp
 from repro.configs import get_config as jax_config
 from repro.models import transformer as jax_tf
 from repro.models.layers import init_params as jax_init
-from repro_torch.configs import MoESpec, get_config
+from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import transformer
 
 TOLS = {"float32": 1e-4, "bfloat16": 5e-2}
+# every LM architecture both packages register: dense GQA (tinyllama, gemma3's
+# local:global layers), dense MHA (deepseek-7b), MoE (qwen2-moe) and MLA + MoE
+# (deepseek-v2)
+LM_ARCHS = ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b", "qwen2-moe-a2.7b", "deepseek-v2-236b"]
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_then_decode_matches_reference(arch, dtype):
     jcfg = dataclasses.replace(jax_config(arch, smoke=True), dtype=getattr(jnp, dtype))
@@ -61,7 +65,8 @@ def test_prefill_then_decode_matches_reference(arch, dtype):
         else:
             assert np.abs(tlog.numpy() - want).max() <= tol * np.abs(want).max()
         np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
-    for name in ("k", "v"):
+    assert sorted(tcache) == sorted(jcache)
+    for name in jcache:
         got, want = tcache[name].float().numpy(), np.asarray(jcache[name], np.float32)
         if dtype == "float32":
             np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
@@ -78,13 +83,27 @@ def test_layer_flags_match_reference():
             )
 
 
-def test_moe_and_mla_configs_are_not_ported_yet():
-    base = get_config("tinyllama-1.1b", smoke=True)
-    moe = dataclasses.replace(base, moe=MoESpec(n_experts=4, top_k=2, d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.lm_specs(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(moe, 1, 8, "cpu")
+def _spec_tree(tree):
+    """A spec tree as plain values: {path: (shape, axes, init, scale)}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update({f"{k}/{p}": s for p, s in _spec_tree(v).items()})
+        return out
+    return {"": (tuple(tree.shape), tuple(tree.axes), tree.init, tree.scale)}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_lm_specs_match_reference(arch, smoke):
+    """The port's spec tree is the reference's, leaf for leaf: names,
+    shapes, logical axes (the fan-in of a normal init is the second-last
+    axis in both packages), init and scale; built from the configs alone,
+    with nothing allocated."""
+    tcfg, jcfg = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
+    assert tcfg.name == jcfg.name and (tcfg.moe is None) == (jcfg.moe is None)
+    assert (tcfg.mla is None) == (jcfg.mla is None)
+    assert _spec_tree(transformer.lm_specs(tcfg)) == _spec_tree(jax_tf.lm_specs(jcfg))
 
 
 def test_gemma3_head_dim_256_forward_matches_reference():
