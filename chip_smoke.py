@@ -59,11 +59,24 @@ cache, whose snapshot bytes a token are printed against an MHA cache's; no
 decode kernel) serves three requests and holds a 1,024-token ``forward``
 (flash at dh 192 with the values padded from 128) against one
 ``prefill_chunk`` over the same tokens (the absorbed attention); each
-family's flash shape is timed beside its bound, the plain version and SDPA.
-Then card against CPU in fp32: the three smoke configs through two engines
-(tokens equal), and qwen2-moe-a2.7b at full width cut to 2 layers (a
-64-token chunk and 4 decode steps within 1e-4 of the largest logit; the
-router's expert ids and slots equal on both devices).
+family's flash shape, forward and backward (values padded as the model pads
+them), is held against fp32 autograd of the plain version and timed beside
+its bound, the plain version and SDPA.  Then card against CPU in fp32: the
+three smoke configs through two engines (tokens equal), and qwen2-moe-a2.7b
+at full width cut to 2 layers (a 64-token chunk and 4 decode steps within
+1e-4 of the largest logit; the router's expert ids and slots equal on both
+devices).  Then the three families train at full width and cut depth (bf16,
+B 1 x S 2048, deepseek-7b, qwen2-moe-a2.7b and deepseek-v2-236b at the
+depths of FAMILY_TRAIN): first, on the parameters alone, a gradient under
+remat full against remat none with each layer's recomputed routing equal
+bit for bit to its forward's, qwen2-moe's gradient taken twice (equal bits,
+or the leaves that differ named), and deepseek-v2's gradient through the
+flash kernels against the plain attention in fp32 (routing free and
+replayed; norms and attention leaves within 5e-2); then one warm-up and
+three timed AdamW steps (step ms, tokens/s, peak memory, the flash launches
+of each step, the routed pairs capacity dropped); then each family's smoke
+config trains five fp32 steps on the card and on the CPU (losses and
+parameters within 1e-4, routing equal at every step).
 
 Then the recsys and GNN paths: it prints ptxas's registers and spills for
 every embedding-bag instantiation (a spill fails the run) and holds the
@@ -136,7 +149,12 @@ equal bit for bit to the sequential runs.  Then two engines mounted by
 ``mount_serve_engine`` on one fabric directory serve the six requests of
 the serving phase: the second's first request restores the first's
 snapshots, tokens equal the memory-store engine's, and the chunk and fused
-kernel counts hold as in the serving phase.
+kernel counts hold as in the serving phase.  Then the port's own store
+server: ``python -m repro_torch.net.serve`` in a child process, two engines
+mounted on it through ``RemoteBackend`` with a cache tier serve the six
+requests in turn (one election stores the shared prefix; engine 2 restores
+it over the wire with its tier cold, then from the tier with no server read;
+tokens equal the memory-store engine's), and the server stops on SIGTERM.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
@@ -150,9 +168,11 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -403,6 +423,184 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
 # --------------------------------------------------------------------------
 # phase: full-width serving
 # --------------------------------------------------------------------------
+STORE_CACHE_BYTES = 1 << 30  # each engine's cache tier in front of the store server
+STORE_RESTORES = 5  # cold and warm restores of the shared prefix, in turns
+
+
+def tier_restore_ms(engine, rb) -> dict:
+    """The shared prefix's snapshot loaded through ``engine``'s cache tier
+    STORE_RESTORES times cold (its entry invalidated first: the blobs cross
+    the wire) and warm (read again from the tier), in turns: ms of each
+    load, and the server reads each kind made."""
+    snaps = engine.snapshots
+    cache = snaps.backend
+    key = next(iter(snaps._records))
+    reads = lambda: rb.server_stats()["ops"].get("read_blob", 0)
+    ms: dict[str, list] = {"cold": [], "warm": []}
+    n_reads = {"cold": 0, "warm": 0}
+    for _ in range(STORE_RESTORES):
+        for kind in ("cold", "warm"):
+            if kind == "cold":
+                cache.invalidate(key)
+            r0 = reads()
+            t0 = time.perf_counter()
+            snap = snaps.load(key)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            n_reads[kind] += reads() - r0
+            check(snap is not None, f"store server: the snapshot {key} did not load")
+    nbytes = snaps.record(key).nbytes_disk
+    print(f"store server: restore of the shared prefix's snapshot ({nbytes} B) through the "
+          f"cache tier, {STORE_RESTORES} in turns: cold ms "
+          f"{[round(x, 3) for x in ms['cold']]} ({n_reads['cold']} server reads), warm ms "
+          f"{[round(x, 3) for x in ms['warm']]} ({n_reads['warm']} server reads)")
+    check(n_reads["warm"] == 0 and n_reads["cold"] >= STORE_RESTORES,
+          f"store server: restores read {n_reads} from the server")
+    return {"bytes": nbytes, "cold_ms": ms["cold"], "warm_ms": ms["warm"]}
+
+
+def start_store_server(root: str):
+    """``python -m repro_torch.net.serve --root root --port 0`` in a child
+    process: (the process, the url it printed).  A thread reads the rest of
+    its output until it exits."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.net.serve", "--root", root, "--port", "0",
+         "--host", "127.0.0.1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        if "store server listening on" in line:
+            # drain what the server logs later, so that it never blocks on a full pipe
+            threading.Thread(target=proc.stdout.read, daemon=True).start()
+            return proc, line.split("listening on ")[1].split()[0]
+    proc.kill()
+    proc.wait()
+    raise CheckFailed("store server: the CLI printed no url")
+
+
+def phase_store_server(dev, engine_rows) -> dict:
+    """The port's own store server on the card's host: ``repro_torch.net.serve``
+    started in a child process over a temporary root, and two full-width
+    TinyLlama-1.1B engines mounted on it (``mount_serve_engine`` over a
+    ``RemoteBackend``, the lease table and eviction events from the server,
+    snapshots read through a cache tier of STORE_CACHE_BYTES) serving the six
+    requests of ``phase_engine`` in turn, engine 1 then engine 2.  RISP
+    admits the shared prefix at its second sight, so engine 1's second
+    request is the one election of the run: it leads it, prefills the
+    prefix and stores its snapshot, the only one either engine stores.
+    Every later request restores it: engine 1's from its own tier (written
+    through), engine 2's first over the wire (its tier cold) and its second
+    from the tier with no read reaching the server (warm).  Tokens equal the
+    memory-store engine's; the server stops on SIGTERM with exit code 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.net import RemoteBackend
+    from repro_torch.serve import mount_serve_engine
+
+    cfg = get_config("tinyllama-1.1b")  # full width, bf16
+    params = init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(cfg),
+                         cfg.dtype, dev)  # phase_engine's weights
+    prompts = engine_prompts(cfg.vocab)
+    shared = ENGINE_SYSTEM // 64
+    out: dict = {}
+    by_var = ops.decode_attention.launches_by_variant
+    with tempfile.TemporaryDirectory() as root:
+        proc, url = start_store_server(root)
+        rbs = []
+        try:
+            engines = []
+            for e in (1, 2):
+                rbs.append(RemoteBackend(url))
+                engines.append(mount_serve_engine(rbs[-1], cfg, params, remote=rbs[-1],
+                                                  cache_bytes=STORE_CACHE_BYTES, max_len=1024,
+                                                  chunk=64, device=dev))
+            print(f"store server: {url} (python -m repro_torch.net.serve, pid {proc.pid}); two "
+                  f"engines, cache tier {STORE_CACHE_BYTES} B each")
+            reads = lambda: rbs[0].server_stats()["ops"].get("read_blob", 0)
+            rows: dict[int, list] = {}
+            tier: dict[str, dict] = {}
+            before_all = dict(by_var)
+            for e, engine in zip((1, 2), engines):
+                cache = engine.snapshots.backend
+                # seconds spent loading snapshots (GenStats.prefill_s starts after the restore)
+                load_s = lambda: engine.snapshots._m_load_s.unlabeled.sum
+                rows[e] = []
+                for i, prompt in enumerate(prompts):
+                    before = (cache.hits, cache.misses, reads(), load_s())
+                    rows[e] += serve_requests(engine, cfg, [prompt], ENGINE_NEW,
+                                              f"store engine {e} request {i + 1}, call")
+                    after = (cache.hits, cache.misses, reads(), load_s())
+                    r = rows[e][-1]
+                    r.update(hits=after[0] - before[0], misses=after[1] - before[1],
+                             server_reads=after[2] - before[2],
+                             restore_ms=(after[3] - before[3]) * 1e3)
+                    if e == 2 and i < 2:
+                        tier["cold" if i == 0 else "warm"] = {k: r[k] for k in (
+                            "skipped", "hits", "misses", "server_reads", "restore_ms")}
+                        tier["cold" if i == 0 else "warm"]["prefill_ms"] = r["prefill_s"] * 1e3
+                for i, (got, want) in enumerate(zip(rows[e], engine_rows)):
+                    check(got["out"] == want["out"],
+                          f"store engine {e} request {i + 1}: tokens differ from the "
+                          f"memory-store engine's")
+                fl = engine.flight
+                print(f"store engine {e}: skipped {[r['skipped'] for r in rows[e]]} stored "
+                      f"{[r['stored'] for r in rows[e]]}; elections led {fl.remote_leads} "
+                      f"waited {fl.remote_waits}; cache tier hits {cache.hits} misses "
+                      f"{cache.misses} bytes {cache.cached_bytes}; server reads a request "
+                      f"{[r['server_reads'] for r in rows[e]]}")
+                out[f"engine {e}"] = {"leads": fl.remote_leads, "waits": fl.remote_waits,
+                                      "skipped": [r["skipped"] for r in rows[e]]}
+            out.update({v: by_var[v] - before_all[v] for v in ("fused", "chunk", "split")})
+            cold, warm = tier["cold"], tier["warm"]
+            print(f"store server: the shared prefix ({shared} chunks) stored once, by engine "
+                  f"1's second request under the one election; engine 2's hits, restore_ms + "
+                  f"prefill_ms (the tail chunk): cache tier cold {cold['restore_ms']:.3f} + "
+                  f"{cold['prefill_ms']:.3f} (tier misses {cold['misses']}, server reads "
+                  f"{cold['server_reads']}), warm {warm['restore_ms']:.3f} + "
+                  f"{warm['prefill_ms']:.3f} (tier hits {warm['hits']}, misses "
+                  f"{warm['misses']}, server reads {warm['server_reads']}); decode kernels "
+                  f"{ {k: out[k] for k in ('chunk', 'fused', 'split')} }; server ops "
+                  f"{rbs[0].server_stats()['ops']}")
+            stored = [r["stored"] for e in (1, 2) for r in rows[e]]
+            check(out["engine 1"]["leads"] == 1 and out["engine 2"]["leads"] == 0
+                  and sum(stored) == 1 and rows[1][1]["stored"] == 1,
+                  f"store server: elections led {out['engine 1']['leads']} and "
+                  f"{out['engine 2']['leads']}, snapshots stored {stored}: wanted one, by "
+                  f"engine 1's second request")
+            check([r["skipped"] for r in rows[1][2:] + rows[2]] == [shared] * 10,
+                  "store server: a request after the election prefilled the shared prefix")
+            check(cold["misses"] > 0 and cold["server_reads"] > 0,
+                  f"store server: engine 2's first restore did not cross the wire: {cold}")
+            check(warm["misses"] == 0 and warm["hits"] > 0 and warm["server_reads"] == 0,
+                  f"store server: a warm hit went to the server: {warm}")
+            check(out["split"] == 0, f"store server: {out['split']} split kernels")
+            out["restore"] = tier_restore_ms(engines[1], rbs[1])
+            out["tier"] = tier
+            del engines
+        finally:
+            for rb in rbs:
+                rb.close()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = None
+        print(f"store server: stopped on SIGTERM, exit code {rc}")
+        check(rc == 0, f"store server: exit code {rc} after SIGTERM")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_engine(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -1648,56 +1846,94 @@ def decode_bounds(cfg, params) -> dict[str, tuple[float, float]]:
     return {k: (b, b / HBM_BYTES_PER_S * 1e3) for k, b in out.items()}
 
 
-def flash_bound_mla_ms(B, S, H, dh, dv, dtype) -> tuple[float, str]:
+def flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward: bool = False) -> tuple[float, str]:
     """Least time of causal MHA with keys of width dh and values of width dv
-    (the function, not the padded call): q and k read at dh, v at dv, the
-    output written at dv, the fp32 logsumexp; 2 operations a multiply-add in
-    Q.K (dh) and P.V (dv) over the unmasked pairs."""
+    (the function, not the padded call).  Forward: q and k read at dh, v at
+    dv, the output written at dv, the fp32 logsumexp; 2 operations a
+    multiply-add in Q.K (dh) and P.V (dv) over the unmasked pairs.
+    Backward: q, k, v, out, dout and the logsumexp read, dq, dk and dv
+    written; dO.V and P^T.dO (dv), dS.K and dS^T.Q (dh), the recomputation
+    of Q.K not counted."""
     isz = torch.finfo(dtype).bits // 8
-    nbytes = B * S * H * (2 * dh + 2 * dv) * isz + B * H * S * 4
-    ops = 2 * B * H * (dh + dv) * flash_pairs(S, True, None)
+    if backward:
+        nbytes = B * S * H * (4 * dh + 4 * dv) * isz + B * H * S * 4
+        ops = 2 * B * H * (2 * dh + 2 * dv) * flash_pairs(S, True, None)
+    else:
+        nbytes = B * S * H * (2 * dh + 2 * dv) * isz + B * H * S * 4
+        ops = 2 * B * H * (dh + dv) * flash_pairs(S, True, None)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev) -> dict:
-    """The flash forward at a family's prefill shape (bf16, MHA, causal;
-    values of width dv < dh padded with zero columns, as the model pads
-    them): the output's first dv columns against the plain version in fp32
-    on the same values, within TOL; the padded columns zero; the kernel's
-    ``queued_ms`` beside the bound, the plain version (on the padded values,
-    the model's call) and SDPA (on the unpadded values)."""
+    """The flash forward and backward at a family's prefill and train shape
+    (bf16, MHA, causal; values of width dv < dh padded with zero columns, as
+    the model pads them): the output's first dv columns against the plain
+    version in fp32 on the same values, within TOL; the padded columns zero;
+    the backward as the model's autograd takes it (a dout whose padded
+    columns are zero; dv's first dv columns kept), dq, dk and dv against
+    fp32 autograd of the plain version on the unpadded values (padded inside
+    the graph, its output cut), within TOL;
+    each kernel's ``queued_ms`` beside the bound, the plain version (on the
+    padded values, the model's call) and SDPA (on the unpadded values)."""
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops
 
     dtype = torch.bfloat16
+    pad = torch.nn.functional.pad
     gen = torch.Generator(device=dev).manual_seed(4322)
     q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
-    vp = torch.nn.functional.pad(v, (0, dh - dv)) if dv < dh else v
+    dout = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+    vp = pad(v, (0, dh - dv)) if dv < dh else v
+    doutp = pad(dout, (0, dh - dv)) if dv < dh else dout
     var = ops.variant(dtype, dh, 1)
     check(var == "wgmma", f"flash {label}: variant {var}, wanted wgmma")
-    out, _ = ops.flash_attention_fwd(q, k, vp, causal=True)
-    want = attention_ref(q.float(), k.float(), torch.nn.functional.pad(v.float(), (0, dh - dv)),
-                         causal=True)[..., :dv]
-    err, ratio = assert_close_ratio(out[..., :dv], want, TOL[dtype])
+    out, lse = ops.flash_attention_fwd(q, k, vp, causal=True)
+    grads = ops.flash_attention_bwd(q, k, vp, out, lse, doutp, causal=True)
+    q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
+    want = attention_ref(q32, k32, pad(v32, (0, dh - dv)), causal=True)[..., :dv]
+    wgrads = torch.autograd.grad(want, (q32, k32, v32), dout.float())
+    err, ratio = assert_close_ratio(out[..., :dv], want.detach(), TOL[dtype])
     zero = bool((out[..., dv:] == 0).all())
     check(math.isfinite(err) and ratio <= 1.0 and zero,
           f"flash {label}: max_abs_err {err} worst ratio {ratio} padded columns zero {zero}")
-    del want
+    berr = bratio = 0.0
+    for name, got, ref in zip(("dq", "dk", "dv"), (grads[0], grads[1], grads[2][..., :dv]),
+                              wgrads):
+        e, r = assert_close_ratio(got, ref, TOL[dtype])
+        check(math.isfinite(e) and r <= 1.0,
+              f"flash {label} {name}: max_abs_err {e} worst err/(atol+rtol*|ref|) {r}")
+        berr, bratio = max(berr, e), max(bratio, r)
+    del want, wgrads, q32, k32, v32
     fwd = lambda: ops.flash_attention_fwd(q, k, vp, causal=True)
+    bwd = lambda: ops.flash_attention_bwd(q, k, vp, out, lse, doutp, causal=True)
     row = dict(variant=var, max_abs_err=err, queued_ms=queued_ms(fwd),
                ms=cuda_ms(fwd, iters=10, warmup=2),
                plain_ms=cuda_ms(lambda: attention_ref(q, k, vp, causal=True), iters=5, warmup=1),
                library_ms=cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2))
     row["bound_ms"], row["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype)
+    qg, kg, vg, vpg = (t.clone().requires_grad_(True) for t in (q, k, v, vp))
+    b = dict(max_abs_err=berr, queued_ms=queued_ms(bwd), ms=cuda_ms(bwd, iters=10, warmup=2))
+    plain_out = attention_ref(qg, kg, vpg, causal=True)
+    b["plain_ms"] = backward_ms(plain_out, (qg, kg, vpg), doutp, 5)
+    del plain_out
+    lib_out = sdpa(qg, kg, vg, True, None)
+    b["library_ms"] = backward_ms(lib_out, (qg, kg, vg), dout, 10)
+    del lib_out
+    b["bound_ms"], b["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward=True)
+    row["bwd"] = b
     print(f"flash family {label}: B {B} S {S} Hq=Hkv {H} dh {dh} dv {dv} bf16 {var} "
           f"max_abs_err {err:.3e} worst err/(atol+rtol*|ref|) {ratio:.3f} padded columns zero "
           f"{zero}; queued_ms {row['queued_ms']:.6f} ms {row['ms']:.6f} plain_ms "
           f"{row['plain_ms']:.6f} library_ms (SDPA) {row['library_ms']:.6f} bound_ms "
           f"{row['bound_ms']:.6f} ({row['bound_by']})")
-    del q, k, v, vp, out
+    print(f"flash family {label} backward: dq, dk, dv[..., :{dv}] max_abs_err {berr:.3e} worst "
+          f"err/(atol+rtol*|ref|) {bratio:.3f}; queued_ms {b['queued_ms']:.6f} ms "
+          f"{b['ms']:.6f} plain_ms {b['plain_ms']:.6f} library_ms (SDPA) "
+          f"{b['library_ms']:.6f} bound_ms {b['bound_ms']:.6f} ({b['bound_by']})")
+    del q, k, v, vp, dout, doutp, out, lse, grads, qg, kg, vg, vpg
     torch.cuda.empty_cache()
     return row
 
@@ -2153,6 +2389,333 @@ def phase_family_parity(dev) -> dict:
     out["fused"] += n["fused"]
     out["check_split"], out["check_fused"] = n["split"], n["fused"]
     del params, cpu_params, routes
+    return out
+
+
+# (arch, layers the card trains at full width): the deepest cut whose train
+# step keeps its peak under about 75 GB (bf16 parameters and gradients, fp32
+# moments: 12 B a parameter, plus the step's activations and temporaries)
+FAMILY_TRAIN = (("deepseek-7b", 24), ("qwen2-moe-a2.7b", 9), ("deepseek-v2-236b", 1))
+FAMILY_TRAIN_SEQ = 2048  # B 1 x S 2048: two MoE groups of 1,024
+FAMILY_TRAIN_STEPS = 4  # one warm-up, three timed
+FAMILY_GRAD_TOL = 5e-2  # of the plain attention's gradient norm, as gemma3's witness holds it
+FAMILY_SMOKE_STEPS = 5
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The leaves' paths ("layers/attn/w_uq"), in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| in fp64 norms."""
+    return (torch.linalg.vector_norm(a.float() - b.float(), dtype=torch.float64).item()
+            / max(torch.linalg.vector_norm(b, dtype=torch.float64).item(), 1e-300))
+
+
+def family_grads(params, cfg, batch, remat: str = "none", attn=None, route=None):
+    """(loss, gradient leaves, the ``moe.route`` results in call order) of one
+    forward and backward of ``_lm_loss``; ``attn`` stands in for the flash
+    kernels and ``route`` for ``moe.route`` (given the inner route)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import build_loss_fn
+    from repro_torch.tree import leaves as tree_leaves, unflatten
+
+    S = batch["tokens"].shape[1]
+    loss_fn = build_loss_fn(cfg, ShapeCell("train", "train", {"seq_len": S, "global_batch": 1}),
+                            remat=remat)
+    inner = moe.route
+    routes: list = []
+
+    def recorded(x, router, dims):
+        out = (route or inner)(x, router, dims)
+        routes.append(tuple(t.detach() for t in out))
+        return out
+
+    req = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    moe.route = recorded
+    transformer.flash_attention = attn or flash_attention
+    try:
+        loss, _ = loss_fn(unflatten(params, req), batch)
+        grads = torch.autograd.grad(loss, req)
+    finally:
+        moe.route, transformer.flash_attention = inner, flash_attention
+    return float(loss.detach()), list(grads), routes
+
+
+def replayed_route(recorded: list):
+    """``moe.route`` that takes each call's expert ids and slots from
+    ``recorded`` and computes the gates from this call's own inputs (so the
+    router still gets its gradient), as ``route`` computes them."""
+    from repro_torch.models.moe import groups
+
+    calls = iter(recorded)
+
+    def route(x, router, dims):
+        _, idx, slot = next(calls)
+        B, S, d = x.shape
+        G, g, _ = groups(B * S, dims)
+        probs = torch.softmax((x.reshape(G, g, d) @ router).float(), dim=-1)
+        gates = probs.gather(-1, idx)
+        return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx, slot
+    return route
+
+
+def equal_routes(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def family_checks(dev, cfg, params, batch, tag: str) -> dict:
+    """Gradient checks at full width and cut depth, on the parameters alone
+    (before the train state exists): a gradient under remat full against
+    remat none, with each layer's recomputed route (gates, ids, slots) equal
+    bit for bit to its forward's; for qwen2-moe the gradient taken twice
+    from one state and batch (equal bits, or the leaves that differ are
+    named); for deepseek-v2 the MLA gradient witness: the gradient through
+    the flash kernels (values padded) against the plain ``attention_ref`` in
+    fp32 on the same values, routing free and with the flash run's routing
+    replayed, gradient norms and the attention leaves within 5e-2."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    names = leaf_paths(params)
+    out: dict = {}
+    f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+    loss, g_none, r_none = family_grads(params, cfg, batch)
+    norm = lambda gs: math.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
+                                    for g in gs))
+    n_none = norm(g_none)
+    _, g_full, r_full = family_grads(params, cfg, batch, remat="full")
+    L = cfg.n_layers
+    moe_layers = L if cfg.moe is not None else 0
+    recomputed = [r_full[2 * L - 1 - i] for i in range(L)] if moe_layers else []
+    same_routes = equal_routes(r_full[:L], recomputed) and equal_routes(r_full[:L], r_none)
+    worst = max(rel_diff(a, b) for a, b in zip(g_full, g_none))
+    bits = all(torch.equal(a, b) for a, b in zip(g_full, g_none))
+    print(f"{tag} remat full against none: loss {loss:.6f} grad norm {n_none:.6e}; worst leaf "
+          f"|g_full - g_none| / |g_none| {worst:.4e} equal bits {bits}; MoE calls "
+          f"{len(r_full)} (forward {moe_layers}, recomputed {len(r_full) - moe_layers}); "
+          f"recomputed routes equal the forward's bit for bit {same_routes}")
+    check(math.isfinite(loss) and math.isfinite(n_none), f"{tag}: non-finite loss or gradient")
+    check(len(r_full) == 2 * moe_layers and same_routes,
+          f"{tag}: under remat the recomputed routing differs from the forward's")
+    out.update(loss=loss, grad_norm=n_none, remat_worst=worst, remat_bits=bits)
+    del g_full, r_full, recomputed
+    if cfg.moe is not None and cfg.mla is None:  # qwen2-moe: two runs, one state and batch
+        _, g_again, r_again = family_grads(params, cfg, batch)
+        differ = [n for n, a, b in zip(names, g_none, g_again) if not torch.equal(a, b)]
+        print(f"{tag} determinism: gradients taken twice from one state and batch: "
+              f"{'equal bits in every leaf' if not differ else 'leaves that differ: ' + str(differ)}"
+              f"; routes equal {equal_routes(r_none, r_again)}")
+        check(equal_routes(r_none, r_again), f"{tag}: two runs routed differently")
+        out["determinism_differ"] = differ
+        del g_again, r_again
+    if cfg.mla is not None:  # the MLA gradient witness
+
+        def plain_fp32(q, k, v, *, causal=True, window=None):
+            return attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                 window=window).to(q.dtype)
+
+        attn_idx = [i for i, n in enumerate(names) if n.startswith("layers/attn/")]
+        wit = {}
+        for label, route in (("free", None), ("replayed", replayed_route(r_none))):
+            lp, gp, rp = family_grads(params, cfg, batch, attn=plain_fp32, route=route)
+            flips = sum(routing_flips(a, b) for a, b in zip(r_none, rp)) / max(len(rp), 1)
+            leaf = {names[i]: rel_diff(g_none[i], gp[i]) for i in attn_idx}
+            n_plain = norm(gp)
+            wit[label] = dict(loss=lp, norm=n_plain, norm_rel=abs(n_none - n_plain) / n_plain,
+                              attn_worst=max(leaf.values()), flips=flips)
+            print(f"{tag} MLA gradient witness, plain attention_ref fp32, routing {label}: loss "
+                  f"{lp:.6f} grad norm {n_plain:.6e} against the kernels' {n_none:.6e} (rel "
+                  f"{wit[label]['norm_rel']:.4e}); expert choices parting {flips:.6f}; "
+                  f"attention leaves |g_kernel - g_plain| / |g_plain| "
+                  + " ".join(f"{n.split('/')[-1]} {d:.4e}" for n, d in leaf.items()))
+            del gp, rp
+        w = wit["replayed"]
+        check(w["norm_rel"] <= FAMILY_GRAD_TOL and w["attn_worst"] <= FAMILY_GRAD_TOL,
+              f"{tag}: the kernels' gradient differs from the plain attention's: {w}")
+        out["witness"] = wit
+    out["launches"] = (flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0)
+    del g_none, r_none
+    return out
+
+
+def family_train(dev, arch: str, layers: int) -> dict:
+    """One family at full width cut to ``layers`` layers, bf16, B 1 x S
+    2048: the gradient checks (``family_checks``), then one warm-up and
+    three timed train steps through ``build_train_step`` (remat none, AdamW
+    with its large leaves updated in slices): loss, grad norm, lr, step ms,
+    tokens/s, peak memory, the flash launches of each step (one forward and
+    one backward a layer, every one ``wgmma``) and, for MoE, the routed
+    (token, k) pairs capacity dropped.  The attention projections are drawn
+    at their true fan-in (``at_true_fan_in``; the expert, router and shared
+    leaves are drawn at it already)."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.kernels.flash_attention import flash_attention, reset_launches
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step, make_train_state
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    B, S = 1, FAMILY_TRAIN_SEQ
+    tag = f"{arch} train"
+    print(f"{tag}: reduced n_layers {full.n_layers} -> {layers} (the train state of more does "
+          f"not fit one card); widths as published; attention projections at the true fan-in")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = at_true_fan_in(init_params(torch.Generator(device=dev).manual_seed(0),
+                                        transformer.lm_specs(cfg), cfg.dtype, dev), cfg)
+    n_par = param_bytes(params)[0]
+    batches = [lm_batch(cfg.vocab, B, S, i, dev) for i in range(FAMILY_TRAIN_STEPS)]
+    run = {"layers": layers, "params": n_par, "checks": family_checks(dev, cfg, params,
+                                                                      batches[0], tag)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_train_state(params)
+    del params
+    step = build_train_step(cfg, ShapeCell("train", "train", {"seq_len": S, "global_batch": B}),
+                            AdamWConfig(warmup_steps=10, total_steps=100), remat="none")
+    drops: list[torch.Tensor] = []
+    inner = moe.route
+    retries = lambda: torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+
+    def counted(x, router, dims):
+        out = inner(x, router, dims)
+        drops.append((out[2] < 0).sum())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rows = []
+    moe.route = counted
+    try:
+        for i in range(FAMILY_TRAIN_STEPS):
+            f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+            drops.clear()
+            r0 = retries()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            m = {k: float(v) for k, v in m.items()}  # waits for the device
+            dt = time.perf_counter() - t0
+            nf, nb = flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0
+            tag_i = "warm-up" if i == 0 else f"step {i}"
+            drop = ""
+            if cfg.moe is not None:
+                routed = layers * B * S * cfg.moe.top_k
+                n_drop = int(torch.stack(drops).sum())
+                drop = f" dropped {n_drop} of {routed} routed pairs ({n_drop / routed:.6f})"
+                m["drop_share"] = n_drop / routed
+            print(f"{tag} {tag_i}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} lr "
+                  f"{m['lr']:.6e} step_ms {dt * 1e3:.3f} tokens_per_s {B * S / dt:.1f} "
+                  f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} allocator "
+                  f"retries {retries() - r0} flash_fwd {nf} flash_bwd {nb}{drop}")
+            check(all(math.isfinite(v) for v in m.values()), f"{tag} {tag_i}: non-finite {m}")
+            check(nf == layers and nb == layers,
+                  f"{tag} {tag_i}: {nf} forward / {nb} backward flash calls for {layers} layers")
+            rows.append(dict(step_s=dt, **m))
+    finally:
+        moe.route = inner
+    launches = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+    by_var = flash_attention.launches_by_variant
+    check(by_var["wgmma"] == {"fwd": launches[0], "bwd": launches[1]},
+          f"{tag}: not every flash call ran the wgmma kernels: {by_var}")
+    mem = torch.cuda.max_memory_allocated(dev)
+    mean_s = sum(r["step_s"] for r in rows[1:]) / (len(rows) - 1)
+    print(f"{tag}: {layers} of {full.n_layers} layers, {n_par} parameters, B {B} S {S} bf16 "
+          f"remat none: mean step_ms {mean_s * 1e3:.3f} tokens_per_s {B * S / mean_s:.1f} "
+          f"max_memory_allocated {mem} flash launches fwd {launches[0]} bwd {launches[1]}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    run.update(rows=rows, mean_step_s=mean_s, tokens_per_s=B * S / mean_s, max_memory=mem,
+               launches=launches, full_layers=full.n_layers)
+    return run
+
+
+def family_smoke_parity(dev, arch: str) -> dict:
+    """FAMILY_SMOKE_STEPS fp32 train steps of ``arch``'s smoke config on the
+    card (tf32x3 flash kernels) and on the CPU from the same parameters and
+    numpy batches: losses within 1e-4, the final parameters within 1e-4, and
+    ``moe.route``'s expert ids and slots equal on both devices at every step."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step, make_train_state
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    cell = ShapeCell("t", "train", {"seq_len": 64, "global_batch": 4})
+    cpu_params = init_params(torch.Generator().manual_seed(0), lm_specs(cfg), cfg.dtype, "cpu")
+    states = {"card": make_train_state(to_device(cpu_params, dev)),
+              "cpu": make_train_state(cpu_params)}
+    opt = AdamWConfig(warmup_steps=2, total_steps=5)
+    steps = {k: build_train_step(cfg, cell, opt) for k in states}
+    inner = moe.route
+    routes: dict[str, list] = {"card": [], "cpu": []}
+
+    def recorded(where):
+        def route(x, router, dims):
+            out = inner(x, router, dims)
+            routes[where].append([t.detach().cpu() for t in out[1:]])
+            return out
+        return route
+
+    f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+    worst_loss = 0.0
+    try:
+        for s in range(FAMILY_SMOKE_STEPS):
+            m = {}
+            for where, d in (("card", dev), ("cpu", "cpu")):
+                moe.route = recorded(where)
+                states[where], m[where] = steps[where](states[where],
+                                                       make_batch(cfg, cell, seed=s, device=d))
+            la, lb = float(m["card"]["loss"]), float(m["cpu"]["loss"])
+            worst_loss = max(worst_loss, abs(la - lb) / (1e-4 + 1e-4 * abs(lb)))
+            check(abs(la - lb) <= 1e-4 + 1e-4 * abs(lb),
+                  f"{cfg.name} train parity step {s + 1}: loss {la} on the card, {lb} on the CPU")
+    finally:
+        moe.route = inner
+    worst = 0.0
+    for pa, pb in zip(leaves(states["card"]["params"]), leaves(states["cpu"]["params"])):
+        worst = max(worst, ((pa.cpu() - pb).abs() / (1e-4 + 1e-4 * pb.abs())).max().item())
+    n_moe = len(routes["card"])
+    same = n_moe == len(routes["cpu"]) and all(
+        torch.equal(x, y) for a, b in zip(routes["card"], routes["cpu"]) for x, y in zip(a, b))
+    launches = (flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0)
+    print(f"family train parity {cfg.name} fp32, {FAMILY_SMOKE_STEPS} steps card vs CPU: worst "
+          f"loss err/(1e-4+1e-4*|cpu|) {worst_loss:.4f}; final params worst {worst:.4f}; MoE "
+          f"calls {n_moe}, expert ids and slots equal on both devices {same}; flash launches "
+          f"fwd {launches[0]} bwd {launches[1]}")
+    check(worst <= 1.0, f"{cfg.name} train parity: final parameters differ (worst ratio {worst})")
+    want_moe = cfg.n_layers * FAMILY_SMOKE_STEPS if cfg.moe is not None else 0
+    check(n_moe == want_moe and same, f"{cfg.name} train parity: routing differs between devices")
+    return {"launches": launches, "worst": worst, "worst_loss": worst_loss}
+
+
+def phase_family_train(dev) -> dict:
+    """deepseek-7b, qwen2-moe-a2.7b and deepseek-v2-236b trained at full
+    width and cut depth (``family_train``), then their smoke configs card
+    against CPU in fp32 (``family_smoke_parity``)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    out = {"train": {arch: family_train(dev, arch, layers) for arch, layers in FAMILY_TRAIN}}
+    before = dict(flash_attention.launches_by_variant["tf32x3"])
+    out["parity"] = {arch: family_smoke_parity(dev, arch) for arch, _ in FAMILY_TRAIN}
+    after = flash_attention.launches_by_variant["tf32x3"]
+    check(sum(p["launches"][0] for p in out["parity"].values()) == after["fwd"] - before["fwd"],
+          "family train parity: not every fp32 flash call ran the tf32x3 kernels")
     return out
 
 
@@ -3758,6 +4321,7 @@ def main() -> int:
     qwen = timed(phase_qwen2_moe)
     dsv2 = timed(phase_deepseek_v2)
     fpar = timed(phase_family_parity)
+    ftrain = timed(phase_family_train)
     bag = timed(phase_bag)
     bwd = timed(phase_bag_bwd)
     rec = timed(phase_recsys)
@@ -3768,6 +4332,7 @@ def main() -> int:
     gtrain = timed(phase_gnn_train, sampler)
     timed(phase_gnn_parity)
     wf = timed(phase_workflow, eng["rows"])
+    store = timed(phase_store_server, eng["rows"])
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -3791,13 +4356,18 @@ def main() -> int:
     # the cuts of scale this run makes to a published configuration
     line = {"kernels": [], "reduced": {
         "deepseek-v2-236b": {"n_layers": [60, MLA_LAYERS],
-                             "why": "60 layers take about 478 GB in bf16"}}}
+                             "why": "60 layers take about 478 GB in bf16"},
+        **{f"{arch} train": {"n_layers": [r["full_layers"], r["layers"]],
+                             "why": "the train state (12 B a parameter) of more layers and the "
+                                    "step's activations do not fit 80 GB"}
+           for arch, r in ftrain["train"].items()}}}
     for name, var, case, tname, r, by_path in (
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
          kern["written"][(MAIN_CASE, "bfloat16")],
          {"serving decode steps (CUDA graph replays and the capture's warm-up step)":
           eng["launches"]["fused"],
           "fabric serving decode steps (two engines)": wf["decode"]["fused"],
+          "store-server serving decode steps (two engines, cache tier)": store["fused"],
           "deepseek-7b serving decode steps": ds7["launches"]["fused"],
           "qwen2-moe-a2.7b serving decode steps": qwen["launches"]["fused"],
           "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)": fpar["fused"]}),
@@ -3805,6 +4375,7 @@ def main() -> int:
          kern["written"][(CHUNK_CASE, "bfloat16")],
          {"serving prefill chunks": eng["launches"]["chunk"],
           "fabric serving prefill chunks (two engines)": wf["decode"]["chunk"],
+          "store-server serving prefill chunks (two engines, cache tier)": store["chunk"],
           "deepseek-7b serving prefill chunks": ds7["launches"]["chunk"],
           "qwen2-moe-a2.7b serving prefill chunks": qwen["launches"]["chunk"]}),
         ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
@@ -3848,11 +4419,20 @@ def main() -> int:
                                                                   "true fan-in")),
                     "deepseek-v2-236b layer 0 attention (two witnesses)":
                     sum(w["launches"] for w in dsv2["attention_witness"].values())}
+    family_train_flash = [{}, {}]
+    for arch, r in ftrain["train"].items():
+        for i in (0, 1):
+            family_train_flash[i][f"{arch} train ({r['layers']} of {r['full_layers']} layers, "
+                                  f"{FAMILY_TRAIN_STEPS} steps)"] = r["launches"][i]
+            family_train_flash[i][f"{arch} gradient checks ({r['layers']} of "
+                                  f"{r['full_layers']} layers)"] = \
+                r["checks"]["launches"][i]
     for name, kind, by_path in (
         ("flash_attention", "fwd",
          {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
-          **family_flash}),
-        ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1]}),
+          **family_flash, **family_train_flash[0]}),
+        ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1],
+                                        **family_train_flash[1]}),
     ):
         r = fm[kind]
         line["kernels"].append({
@@ -3873,11 +4453,16 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "held": True,
             "shape": flash_shape,
-            **({"family_cases": {
-                "deepseek-7b prefill (B 1, S 2048, Hq=Hkv 32, dh 128)": ds7["flash"],
-                "qwen2-moe-a2.7b prefill (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"],
-                f"deepseek-v2 prefill (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 "
-                "padded)": dsv2["flash"]}} if kind == "fwd" else {}),
+            "family_cases": {
+                "deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)": ds7["flash"],
+                "qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"],
+                f"deepseek-v2 (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 "
+                "padded)": dsv2["flash"]} if kind == "fwd" else {
+                label: r["bwd"] for label, r in (
+                    ("deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)", ds7["flash"]),
+                    ("qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)", qwen["flash"]),
+                    (f"deepseek-v2 (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 padded)",
+                     dsv2["flash"]))},
         })
     gtr = gem["train"]
     for name, kind, by_path in (
@@ -3924,11 +4509,15 @@ def main() -> int:
     for name, kind, by_path in (
         ("flash_attention_tf32x3", "fwd",
          {"fp32 smoke train (card vs CPU, 5 steps)": tpar["fwd"],
+          "fp32 MoE/MLA smoke train (card vs CPU, 5 steps, three configs)":
+          sum(r["launches"][0] for r in ftrain["parity"].values()),
           "fp32 gemma3 smoke prefill": pre["smoke_flash"]["fwd"],
           "fp32 deepseek-v2 witness (1 layer, dh 192, values padded)":
           dsv2["witness"]["fp32, 1 layer, reference init"]["launches"]}),
         ("flash_attention_tf32x3_bwd", "bwd",
-         {"fp32 smoke train (card vs CPU, 5 steps)": tpar["bwd"]}),
+         {"fp32 smoke train (card vs CPU, 5 steps)": tpar["bwd"],
+          "fp32 MoE/MLA smoke train (card vs CPU, 5 steps, three configs)":
+          sum(r["launches"][1] for r in ftrain["parity"].values())}),
     ):
         r = f32_main[kind]
         check(f32_main["variant"] == "tf32x3" and min(by_path.values()) > 0,
@@ -4072,6 +4661,13 @@ def main() -> int:
                       "dtype": "float32", "ell_max_deg": 15,
                       "power_law": {"N": REDDIT_NODES, "E": REDDIT_EDGES_CUT}},
         })
+    line["family_train"] = {arch: {
+        "layers": [r["layers"], r["full_layers"]], "parameters": r["params"],
+        "mean_step_ms": r["mean_step_s"] * 1e3, "tokens_per_s": r["tokens_per_s"],
+        "max_memory": r["max_memory"], **({"drop_share": [x["drop_share"] for x in r["rows"]]}
+                                          if "drop_share" in r["rows"][0] else {})}
+        for arch, r in ftrain["train"].items()}
+    line["store_server"] = {**store["tier"], "restore": store["restore"]}
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,23 @@ the reference's driver.
         --steps 4 --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
         --steps 6 --batch 2 --seq 32 --device cpu --fail-at 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b \
+        --layers 1 --steps 4 --batch 1 --seq 2048
+
+``--arch`` takes every LM architecture of ``repro_torch.configs``, at smoke
+width with ``--smoke`` (the CPU's) and at full width otherwise (the card's):
+``tinyllama-1.1b``, ``gemma3-4b``, ``deepseek-7b``, ``qwen2-moe-a2.7b`` and
+``deepseek-v2-236b``.  ``--layers N`` cuts the depth to N layers and prints
+the cut.  The reference's CLI has no such option: it exists because one card
+holds the train state (bf16 parameters and gradients, fp32 moments: 12 B a
+parameter) of only so many layers at full width: at B 1 x S 2048 on an 80 GB
+card, deepseek-7b 24 of its 30, qwen2-moe-a2.7b 9 of 24, deepseek-v2-236b 1
+of 60.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 
 import numpy as np
@@ -32,6 +45,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -48,6 +62,10 @@ def main() -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family != "lm":
         raise SystemExit("train.py drives LM archs")
+    if args.layers:
+        print(f"{cfg.name}: reduced n_layers {cfg.n_layers} -> {args.layers}; "
+              f"this is not the published model")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     cell = ShapeCell("train", "train", {"seq_len": args.seq, "global_batch": args.batch})
     specs = build_param_specs(cfg, cell)
     print(f"arch={cfg.name} params={param_count(specs)/1e6:.1f}M device={device}")

@@ -1,1 +1,2 @@
-"""Metrics registry and tracing: copies of the reference package's modules."""
+"""Metrics registry, tracing and structured logging: copies of the reference
+package's modules."""

@@ -4,6 +4,11 @@ The reference's pure update, done in place: the moments are fp32 tensors
 updated with in-place ops, and each parameter is overwritten with its fp32
 update cast back to its dtype.  Callers that keep the old state must copy
 it first.  ``step`` is an int32 tensor, replaced (not mutated) each update.
+
+A leaf whose fp32 temporaries would pass ``SLICE_BYTES`` each (deepseek-v2's
+expert leaves: 5 GB apiece) is updated in slices of whole rows along its
+leading axes.  The arithmetic is elementwise, so the result is the same bit
+for bit; only the peak memory of the update shrinks.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ from typing import Any
 import torch
 
 from ..tree import leaves, tree_map
+
+SLICE_BYTES = 1 << 30  # the largest fp32 temporary of one leaf's update
 
 
 @dataclass(frozen=True)
@@ -69,11 +76,29 @@ def apply_updates(
     bc2 = 1 - cfg.b2 ** stepf
     for p, g, mu, nu in zip(leaves(params), leaves(grads), leaves(state["mu"]),
                             leaves(state["nu"])):
-        g = g.float() * scale
-        mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        p32 = p.float()
-        delta = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        rows = _slice_rows(p, g, mu, nu)
+        if rows is None:
+            _update(p, g, mu, nu, scale, lr, bc1, bc2, cfg)
+            continue
+        flat = [t.view(-1, t.shape[-1]) for t in (p, g, mu, nu)]
+        for lo in range(0, flat[0].shape[0], rows):
+            _update(*(t[lo:lo + rows] for t in flat), scale, lr, bc1, bc2, cfg)
     new_state = {"mu": state["mu"], "nu": state["nu"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _slice_rows(*ts: torch.Tensor) -> int | None:
+    """Rows (of the last axis) a slice takes, or None to update whole."""
+    p = ts[0]
+    if p.numel() * 4 <= SLICE_BYTES or p.dim() < 2 or not all(t.is_contiguous() for t in ts):
+        return None
+    return max(SLICE_BYTES // (4 * p.shape[-1]), 1)
+
+
+def _update(p, g, mu, nu, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    g = g.float() * scale
+    mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+    p32 = p.float()
+    delta = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps) + cfg.weight_decay * p32
+    p.copy_(p32 - lr * delta)

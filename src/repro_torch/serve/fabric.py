@@ -9,12 +9,16 @@ prefills.  With ``remote`` (the ``RemoteBackend`` of a store server), prefill
 is a coordinated compute: the server's lease table elects one prefiller of
 each shared prefix across processes, followers load its snapshot, and the
 server's eviction events prune every engine's records and ``policy.stored``.
+With ``cache_bytes`` the snapshots are read through a :class:`CachingBackend`
+in front of ``backend``, as the reference's ``Client`` mounts a remote pool,
+so repeat restores of a shared prefix stay off the wire.
 """
 from __future__ import annotations
 
 from typing import Any
 
 from ..core.backends import StorageBackend
+from ..net.cache import CachingBackend
 from ..net.flight import DistributedSingleFlight
 from ..obs.metrics import MetricsRegistry
 from ..sched.singleflight import SingleFlight
@@ -28,6 +32,7 @@ def mount_serve_engine(
     params: Any,
     *,
     remote: Any = None,
+    cache_bytes: int | None = None,
     snapshot_budget_bytes: int | None = None,
     ledger: Any = None,
     tenant: str = "",
@@ -38,7 +43,10 @@ def mount_serve_engine(
     ``remote`` (a ``RemoteBackend``, usually ``backend`` itself) adds the
     fleet-wide election and the eviction-event stream; without it a
     process-local ``SingleFlight`` still coalesces concurrent identical
-    prefixes.  ``snapshot_budget_bytes`` is the gain-loss budget the store
+    prefixes.  ``cache_bytes`` puts a ``CachingBackend`` of that capacity
+    between the snapshot store and ``backend``; elections and eviction
+    events still go to ``remote``, and an eviction event purges the cache's
+    copy.  ``snapshot_budget_bytes`` is the gain-loss budget the store
     enforces on the backend.  ``ledger`` (a
     :class:`~repro_torch.sched.stats.TenantLedger`) bills the stored snapshot
     bytes to ``tenant``.  The remaining ``engine_kw`` (``max_len``,
@@ -46,6 +54,8 @@ def mount_serve_engine(
     pass through to ``ServeEngine``.
     """
     metrics = MetricsRegistry()  # one home for the store's, flight's and engine's series
+    if cache_bytes is not None:
+        backend = CachingBackend(backend, capacity_bytes=cache_bytes, registry=metrics)
     snapshots = FabricSnapshotStore(
         backend,
         capacity_bytes=snapshot_budget_bytes,

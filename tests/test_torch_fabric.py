@@ -5,8 +5,10 @@ the CPU (modelled on ``tests/test_serve_fabric.py``).
   generation is token-equal on an fp32 smoke stream, for a KV cache
   (tinyllama-smoke) and for MLA's latent cache (deepseek-v2-smoke);
 * a JAX engine and a torch engine share one election over a reference
-  ``StoreServer`` and prefill the shared prefix exactly once, also when the
-  first leader dies mid-prefill;
+  ``StoreServer``, and over the port's own, and prefill the shared prefix
+  exactly once, also when the first leader dies mid-prefill;
+* engines mounted with a cache tier (``cache_bytes``) restore token-equal,
+  and a repeat restore is served from the tier with no round trip;
 * a remote eviction event prunes the torch engine's records and
   ``policy.stored``, and every local removal path credits the tenant ledger.
 """
@@ -39,6 +41,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import LocalFSBackend, MemoryBackend
 from repro_torch.core.risp import TSAR
 from repro_torch.net import RemoteBackend
+from repro_torch.net import StoreServer as PortStoreServer
 from repro_torch.sched.stats import TenantLedger
 from repro_torch.serve import FabricSnapshotStore, ServeEngine, mount_serve_engine
 
@@ -168,8 +171,7 @@ def _served_pair(model, port):
     return jeng, teng, jrb, trb
 
 
-def test_mixed_engines_prefill_a_shared_prefix_exactly_once(model, prompt, reference):
-    server = StoreServer(JaxMemory()).start()
+def _shared_prefix_once(model, prompt, reference, server):
     jeng, teng, jrb, trb = _served_pair(model, server.port)
     barrier = threading.Barrier(2)
     results: dict = {}
@@ -200,6 +202,41 @@ def test_mixed_engines_prefill_a_shared_prefix_exactly_once(model, prompt, refer
     finally:
         jrb.close()
         trb.close()
+        server.stop()
+
+
+def test_mixed_engines_prefill_a_shared_prefix_exactly_once(model, prompt, reference):
+    _shared_prefix_once(model, prompt, reference, StoreServer(JaxMemory()).start())
+
+
+def test_mixed_engines_share_one_election_over_the_port_server(model, prompt, reference):
+    """The same election over the port's own ``StoreServer``."""
+    _shared_prefix_once(model, prompt, reference, PortStoreServer(MemoryBackend()).start())
+
+
+def test_cache_tier_restores_token_equal_with_no_round_trip(model, prompt, reference):
+    """Two engines over one port server, each behind a cache tier: the second
+    restores the first's prefill token-equal, and its repeat restore reads
+    every blob from its tier, no ``read_blob`` reaching the server."""
+    server = PortStoreServer(MemoryBackend()).start()
+    rbs = [RemoteBackend(server.url), RemoteBackend(server.url)]
+    try:
+        writer, reader = (_port_engine(model, rb, remote=rb, cache_bytes=64 << 20) for rb in rbs)
+        toks, st = writer.generate(prompt, NEW)
+        assert toks == reference and st.stored_prefixes >= 1
+        cache = reader.snapshots.backend
+        assert cache.inner is rbs[1] and cache.capacity_bytes == 64 << 20
+        toks, st = reader.generate(prompt, NEW)
+        assert toks == reference and st.chunks_skipped == st.n_chunks
+        misses, reads = cache.misses, server.stats()["ops"].get("read_blob", 0)
+        assert misses > 0 and cache.hits == 0  # the first restore crossed the wire
+        toks, st = reader.generate(prompt, NEW)
+        assert toks == reference and st.chunks_skipped == st.n_chunks
+        assert cache.misses == misses and cache.hits > 0
+        assert server.stats()["ops"].get("read_blob", 0) == reads
+    finally:
+        for rb in rbs:
+            rb.close()
         server.stop()
 
 

@@ -561,7 +561,12 @@ def test_flash_attention_mla_prefill_shape_with_padded_values(dtype):
     + rope 64 = 192 columns, values of 128): the model pads the values with
     zero columns to 192, runs the flash forward (bf16: ``wgmma`` at three
     64-column chunks) and keeps the first 128 output columns, which must be
-    the attention over the unpadded values; the padded columns come out zero."""
+    the attention over the unpadded values; the padded columns come out zero.
+    The backward runs as the model's autograd takes it: the cut gives the
+    kernel a dout whose 64 padded columns are zero, and the pad's backward
+    keeps dv's first 128 columns; dq, dk and dv are held against fp32
+    autograd of ``attention_ref`` on the unpadded values (padded inside the
+    graph, the output cut)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -571,15 +576,26 @@ def test_flash_attention_mla_prefill_shape_with_padded_values(dtype):
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, H, dv, generator=g, device=dev).to(dtype)
+    dout = torch.randn(B, S, H, dv, generator=g, device=dev).to(dtype)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     flash_ops.reset_launches()
-    out = flash_ops.flash_attention(q, k, torch.nn.functional.pad(v, (0, dh - dv)), causal=True)
+    out = flash_ops.flash_attention(qg, kg, torch.nn.functional.pad(vg, (0, dh - dv)),
+                                    causal=True)
+    dq, dk, dvg = torch.autograd.grad(out[..., :dv], (qg, kg, vg), dout)
     torch.cuda.synchronize()
     want_var = "tf32x3" if dtype == torch.float32 else "wgmma"
     assert flash_ops.variant(dtype, dh, 1) == want_var
-    assert flash_ops.flash_attention.launches_by_variant[want_var]["fwd"] == 1
+    assert flash_ops.flash_attention.launches_by_variant[want_var] == {"fwd": 1, "bwd": 1}
     assert torch.equal(out[..., dv:], torch.zeros_like(out[..., dv:]))
-    want = attention.gqa_attention(q.float(), k.float(), v.float(), causal=True)
-    torch.testing.assert_close(out[..., :dv].float(), want, atol=TOLS[dtype], rtol=TOLS[dtype])
+    assert dvg.shape == v.shape
+    q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
+    want = attention_ref(q32, k32, torch.nn.functional.pad(v32, (0, dh - dv)),
+                         causal=True)[..., :dv]
+    wq, wk, wv = torch.autograd.grad(want, (q32, k32, v32), dout.float())
+    tol = dict(atol=TOLS[dtype], rtol=TOLS[dtype])
+    torch.testing.assert_close(out[..., :dv].detach().float(), want.detach(), **tol)
+    for got, ref in ((dq, wq), (dk, wk), (dvg, wv)):
+        torch.testing.assert_close(got.float(), ref, **tol)
 
 
 @pytest.mark.cuda
@@ -609,12 +625,15 @@ def test_flash_attention_gemma3_shape_runs_wgmma(window):
 # (B, S, Hq, Hkv, dh, dtype): a ragged shape, the train shape, gemma3's head
 # dim (bf16: dK/dV columns split between the two warpgroups) and the ragged
 # shape at G 3 (wgmma_rows), in bf16; the ragged shape at G 3, gemma3's
-# global layer and the train shape in fp32
+# global layer and the train shape in fp32; the MoE/MLA families' shapes
 DETERMINISM_CASES = [
     (2, 300, 8, 2, 64, torch.bfloat16), (4, 2048, 32, 4, 64, torch.bfloat16),
     (1, 2048, 8, 4, 256, torch.bfloat16), (2, 300, 6, 2, 64, torch.bfloat16),
     (2, 300, 6, 2, 64, torch.float32),
     (1, 2048, 8, 4, 256, torch.float32), (4, 2048, 32, 4, 64, torch.float32),
+    # the families' train shapes: deepseek-7b's MHA at dh 128 (Hq 32) and
+    # deepseek-v2's MLA at dh 192 (Hq 128)
+    (1, 2048, 32, 32, 128, torch.bfloat16), (1, 2048, 128, 128, 192, torch.bfloat16),
 ]
 
 
@@ -692,6 +711,65 @@ def test_train_step_remat_on_the_card(remat):
     torch.testing.assert_close(m["loss"], ref_m["loss"], atol=1e-6, rtol=1e-6)
     for k in ("embed", "head"):
         torch.testing.assert_close(got["params"][k], ref["params"][k], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_moe_train_step_on_the_card_matches_the_cpu():
+    """One fp32 train step of qwen2-moe-smoke, on the card (flash kernels,
+    the dispatch gathers' backward as accumulating scatters) and on the CPU
+    from the same parameters and batch: the loss, the grad norm and every
+    updated parameter within 1e-4, and the router's expert ids and slots
+    equal on both devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.train import build_train_step, make_train_state
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True), dtype=torch.float32)
+    cell = ShapeCell("t", "train", {"seq_len": 64, "global_batch": 4})
+    params = init_params(torch.Generator().manual_seed(0), lm_specs(cfg), cfg.dtype, "cpu")
+    routes = {"cuda": [], "cpu": []}
+    inner = moe.route
+
+    def recorded(x, router, dims):
+        out = inner(x, router, dims)
+        routes[x.device.type].append([t.detach().cpu() for t in out[1:]])
+        return out
+
+    moe.route = recorded
+    try:
+        f0 = flash_ops.flash_attention.launches_by_variant["tf32x3"]["bwd"]
+        on_dev, m_dev = build_train_step(cfg, cell)(
+            make_train_state(_to(params, dev)),
+            make_batch(cfg, cell, seed=0, device=dev))
+        on_cpu, m_cpu = build_train_step(cfg, cell)(
+            make_train_state(_to(params, "cpu")), make_batch(cfg, cell, seed=0, device="cpu"))
+        torch.cuda.synchronize()
+    finally:
+        moe.route = inner
+    assert flash_ops.flash_attention.launches_by_variant["tf32x3"]["bwd"] - f0 == cfg.n_layers
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_dev[k].cpu(), m_cpu[k], atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves(on_dev["params"]), leaves(on_cpu["params"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    assert len(routes["cuda"]) == len(routes["cpu"]) == cfg.n_layers
+    for a, b in zip(routes["cuda"], routes["cpu"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
 
 
 # --------------------------------------------------------------------------

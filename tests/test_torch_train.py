@@ -47,7 +47,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import make_batch
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.optim import AdamWConfig, apply_updates, init_state
 from repro_torch.runtime import TrainDriver
 from repro_torch.train import build_loss_fn, build_train_step, make_train_state
@@ -188,12 +188,23 @@ def test_streaming_ce_loss_value_and_gradient():
     _close(tl, full.detach().numpy(), "float32", 2e-5)
 
 
-@pytest.mark.parametrize("arch,tol", [("tinyllama-1.1b", 1e-4), ("gemma3-4b", 5e-4)])
+FAMILIES = ["deepseek-7b", "qwen2-moe-a2.7b", "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("arch,tol", [("tinyllama-1.1b", 1e-4), ("gemma3-4b", 5e-4)]
+                         + [(a, 1e-4) for a in FAMILIES])
 @pytest.mark.parametrize("chunks", [0, 4])
 def test_lm_loss_gradients_match_reference(arch, tol, chunks):
     jcfg, tcfg = _configs(arch, "float32", loss_vocab_chunks=chunks)
-    jp, tp = _params(jcfg, seed=8)
-    batch = jax_make_batch(jcfg, JCELL, seed=9)
+    _grads_match(jcfg, tcfg, tol)
+
+
+def _grads_match(jcfg, tcfg, tol, seed=8):
+    """The loss and every gradient leaf of ``_lm_loss`` against
+    ``jax.value_and_grad`` of the reference's, from the same parameters and
+    batch."""
+    jp, tp = _params(jcfg, seed=seed)
+    batch = jax_make_batch(jcfg, JCELL, seed=seed + 1)
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     (jl, _), jg = jax.value_and_grad(jax_build_loss_fn(jcfg, JCELL), has_aux=True)(jp, batch)
     leaves = {}
@@ -218,12 +229,46 @@ def test_lm_loss_gradients_match_reference(arch, tol, chunks):
         assert err <= tol * np.abs(want).max(), ("/".join(path), err, np.abs(want).max())
 
 
-def test_one_adamw_step_matches_reference():
+def _recording_route(calls: list):
+    """``moe.route`` that keeps each call's (gates, ids, slots)."""
+    inner = moe.route
+
+    def route(x, router, dims):
+        out = inner(x, router, dims)
+        calls.append(tuple(t.detach().clone() for t in out))
+        return out
+    return route
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-236b"])
+def test_moe_gradients_with_capacity_drops_match_reference(arch, monkeypatch):
+    """Several MoE groups a call (group 16 of the 64 tokens) at capacity
+    factor 1.0 (C 4 for a mean load of 4): the routing drops pairs, which
+    the test asserts, and the loss and every gradient leaf still match
+    ``jax.grad`` of the reference's one-hot dispatch and combine."""
+    jcfg, tcfg = _configs(arch, "float32", moe_group_size=16, moe_capacity_factor=1.0)
+    calls = []
+    monkeypatch.setattr(moe, "route", _recording_route(calls))
+    _grads_match(jcfg, tcfg, 1e-4, seed=14)
+    assert len(calls) == tcfg.n_layers
+    for gates, idx, slot in calls:
+        assert slot.shape[:2] == (4, 16)  # G 4 groups of g 16
+        assert int(slot.max()) == 3  # C 4
+    assert sum(int((slot < 0).sum()) for _, _, slot in calls) > 0, "no pair was dropped"
+
+
+@pytest.mark.parametrize("arch", ["synthetic"] + FAMILIES)
+def test_one_adamw_step_matches_reference(arch):
+    """Three AdamW updates (warm-up, then the cosine branch) of a small tree,
+    or of a smoke family's parameters with gradients drawn at their shapes."""
     rng = np.random.default_rng(10)
-    params = {"a": rng.normal(size=(4, 3)).astype(np.float32),
-              "b": {"c": rng.normal(size=(5,)).astype(np.float32)}}
-    grads = {"a": rng.normal(size=(4, 3)).astype(np.float32) * 3,
-             "b": {"c": rng.normal(size=(5,)).astype(np.float32) * 3}}
+    if arch == "synthetic":
+        params = {"a": rng.normal(size=(4, 3)).astype(np.float32),
+                  "b": {"c": rng.normal(size=(5,)).astype(np.float32)}}
+    else:
+        params = jax.tree_util.tree_map(np.asarray, _params(_configs(arch, "float32")[0])[0])
+    grads = jax.tree_util.tree_map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32) * 3, params)
     jcfg = JaxAdamWConfig(warmup_steps=2, total_steps=10)
     tcfg = AdamWConfig(warmup_steps=2, total_steps=10)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
@@ -243,8 +288,39 @@ def test_one_adamw_step_matches_reference():
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-6)
 
 
-def test_five_step_loss_curve_matches_reference():
-    jcfg, tcfg = _configs("tinyllama-1.1b", "float32")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_adamw_update_is_bit_equal(dtype, monkeypatch):
+    """A leaf above the slicing size is updated in slices of whole rows
+    (here of 8 rows of 64, the last slice short); parameters and moments
+    equal the update of the whole leaf bit for bit, over three steps."""
+    from repro_torch.optim import adamw
+
+    rng = np.random.default_rng(15)
+    shape = (3, 50, 64)
+    p0 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    gs = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+          for _ in range(3)]
+    small = {"b": torch.from_numpy(rng.normal(size=(7,)).astype(np.float32))}
+    cfg = AdamWConfig(warmup_steps=2, total_steps=10)
+    out = {}
+    for name, limit in (("whole", adamw.SLICE_BYTES), ("sliced", 4 * 64 * 8)):
+        monkeypatch.setattr(adamw, "SLICE_BYTES", limit)
+        assert (adamw._slice_rows(p0, p0, p0, p0) is None) == (name == "whole")
+        params = {"w": p0.clone(), **{k: v.clone() for k, v in small.items()}}
+        state = init_state(params)
+        for g in gs:
+            params, state, m = apply_updates(params, {"w": g, "b": small["b"] * 2}, state, cfg)
+        out[name] = (params, state, m)
+    (pw, sw, mw), (ps, ss, ms) = out["whole"], out["sliced"]
+    for a, b in ((pw["w"], ps["w"]), (sw["mu"]["w"], ss["mu"]["w"]),
+                 (sw["nu"]["w"], ss["nu"]["w"]), (pw["b"], ps["b"])):
+        assert torch.equal(a, b)
+    assert torch.equal(mw["grad_norm"], ms["grad_norm"])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b"] + FAMILIES)
+def test_five_step_loss_curve_matches_reference(arch):
+    jcfg, tcfg = _configs(arch, "float32")
     jp, tp = _params(jcfg, seed=11)
     opt = dict(warmup_steps=2, total_steps=5)
     jstep = jax.jit(jax_build_train_step(jcfg, JCELL, JaxAdamWConfig(**opt)))
@@ -280,6 +356,50 @@ def test_remat_and_grad_accum_give_the_same_step(remat, accum):
         np.testing.assert_allclose(float(m[k]), float(ref_m[k]), rtol=tol, atol=tol)
     _tree_close(state["params"], {k: v.numpy() if isinstance(v, torch.Tensor) else v
                                   for k, v in _numpy(ref_state["params"]).items()}, tol)
+
+
+def test_moe_grad_accum_step_matches_the_reference_accumulated_step(monkeypatch):
+    """``grad_accum=2`` on qwen2-moe-smoke: each micro-batch of 32 tokens is
+    routed as its own group (g = min(group_size, tokens) of the call), so the
+    accumulated step is not the plain step; it is held against the
+    reference's own ``grad_accum=2`` step."""
+    jcfg, tcfg = _configs("qwen2-moe-a2.7b", "float32")
+    jp, tp = _params(jcfg, seed=16)
+    opt = dict(warmup_steps=2, total_steps=5)
+    jstep = jax.jit(jax_build_train_step(jcfg, JCELL, JaxAdamWConfig(**opt), grad_accum=2))
+    tstep = build_train_step(tcfg, CELL, AdamWConfig(**opt), grad_accum=2)
+    calls = []
+    monkeypatch.setattr(moe, "route", _recording_route(calls))
+    jstate, jm = jstep(jax_make_train_state(jp), jax_make_batch(jcfg, JCELL, seed=17))
+    tstate, tm = tstep(make_train_state(tp), make_batch(tcfg, CELL, seed=17, device="cpu"))
+    assert [tuple(c[1].shape) for c in calls] == [(1, 32, 2)] * (2 * tcfg.n_layers)
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-4, rtol=1e-4, err_msg=k)
+    _tree_close(tstate["params"], jstate["params"], 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_moe_remat_recomputes_the_forward_routes(arch, remat, monkeypatch):
+    """Under remat each layer's forward runs again in the backward, routing
+    included: the recomputed routes (gates, expert ids and slots) equal the
+    forward's bit for bit, layer by layer, and the step equals the step
+    without remat."""
+    _, tcfg = _configs(arch, "float32")
+    _, tp = _params(_configs(arch, "float32")[0], seed=18)
+    batch = make_batch(tcfg, CELL, seed=19, device="cpu")
+    ref_state, ref_m = build_train_step(tcfg, CELL)(make_train_state(_clone(tp)), batch)
+    calls = []
+    monkeypatch.setattr(moe, "route", _recording_route(calls))
+    state, m = build_train_step(tcfg, CELL, remat=remat)(make_train_state(_clone(tp)), batch)
+    L = tcfg.n_layers
+    assert len(calls) == 2 * L  # the forward's L, then the backward's L, last layer first
+    for i in range(L):
+        for a, b in zip(calls[i], calls[2 * L - 1 - i]):
+            assert torch.equal(a, b)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(ref_m[k]), rtol=1e-6, atol=1e-6)
+    _tree_close(state["params"], _numpy(ref_state["params"]), 1e-6)
 
 
 def _numpy(tree):
@@ -371,3 +491,16 @@ def test_train_cli_smoke_with_failure(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "restart from step 2" in out.stdout
     assert "done: 6 steps" in out.stdout
+
+
+def test_train_cli_cuts_the_depth():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-moe-a2.7b",
+         "--smoke", "--layers", "1", "--device", "cpu", "--steps", "2", "--batch", "2",
+         "--seq", "32"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "qwen2-moe-smoke: reduced n_layers 2 -> 1" in out.stdout
+    assert "done: 2 steps" in out.stdout
