@@ -155,6 +155,18 @@ mounted on it through ``RemoteBackend`` with a cache tier serve the six
 requests in turn (one election stores the shared prefix; engine 2 restores
 it over the wire with its tier cold, then from the tier with no server read;
 tokens equal the memory-store engine's), and the server stops on SIGTERM.
+Then the front door, ``repro_torch.api.Client``: the thesis's Ch. 4 and
+Ch. 5 evaluation on the host (each policy's row, exact); a local client
+with PT runs the workflow pipeline above as a ``WorkflowSpec`` three times
+(the third skips the stored train prefix), replays the Ch. 4 corpus, and
+``recommend`` and ``find`` name the prefix stored on the card; then three
+``python -m repro_torch.net.serve`` children form a cluster, two clients
+mounted with ``store_url`` (replication 2, a cache tier each) serve the six
+requests through ``Client.serve_engine`` under one election, tokens equal
+the memory-store engine's; the primary of the shared prefix's snapshot is
+killed and one more request restores from its replica (a failover read,
+tokens unchanged), ``find`` lists the snapshot's catalog record, and the
+survivors stop on SIGTERM with exit code 0.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
@@ -4282,6 +4294,277 @@ def wf_fabric(dev, cfg, root: str, engine_rows: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+CLIENT_CH4 = {"PT": (51.97, 67), "TSAR": (65.16, 4302), "TSPAR": (51.97, 131),
+              "TSFR": (12.2, 447)}  # LR_pct and stored of each policy on the Ch. 4 corpus
+CLIENT_CH5_PT = (49.81, 91)  # PT on the Ch. 5 corpus with tool states
+
+
+def metric_total(doc: dict, name: str) -> float:
+    """The sum of a counter's series in a metrics document, the process's
+    own series only (the servers' carry a ``shard`` label)."""
+    entry = doc.get(name, {"series": []})
+    return sum(s["value"] or 0 for s in entry["series"] if "shard" not in s["labels"])
+
+
+def client_evaluation() -> dict:
+    """The thesis's replay evaluation (host only): every policy on the
+    Ch. 4 corpus, and on the Ch. 5 corpus with tool states."""
+    from repro_torch.core import evaluate_all, galaxy_ch4_corpus, galaxy_ch5_corpus
+
+    out: dict = {}
+    for label, corpus, with_state in (("ch4", galaxy_ch4_corpus, False),
+                                      ("ch5", galaxy_ch5_corpus, True)):
+        t0 = time.perf_counter()
+        reports = evaluate_all(corpus(), with_state=with_state)
+        secs = time.perf_counter() - t0
+        rows = {name: r.row() for name, r in reports.items()}
+        for row in rows.values():
+            print(f"client evaluation {label} (host): {json.dumps(row)}")
+        print(f"client evaluation {label} (host): corpus and evaluate_all in {secs:.3f} s")
+        out[label] = {"rows": rows, "seconds": secs}
+    ch4, ch5 = out["ch4"]["rows"], out["ch5"]["rows"]
+    check(45 <= ch4["PT"]["LR_pct"] <= 60 and 35 <= ch5["PT"]["LR_pct"] <= 60,
+          f"client evaluation: PT LR {ch4['PT']['LR_pct']} (ch4), {ch5['PT']['LR_pct']} (ch5)")
+    got = {n: (r["LR_pct"], r["stored"]) for n, r in ch4.items()}
+    check(got == CLIENT_CH4 and (ch5["PT"]["LR_pct"], ch5["PT"]["stored"]) == CLIENT_CH5_PT,
+          f"client evaluation: ch4 {got}, ch5 PT {ch5['PT']}; the thesis's rows are "
+          f"{CLIENT_CH4} and {CLIENT_CH5_PT}")
+    return out
+
+
+def client_local(dev, cfg, root: str) -> dict:
+    """A local ``Client`` with PT runs the workflow phase's pipeline as a
+    ``WorkflowSpec``: cold (eval start 0), again with eval start 2 (the
+    prefix up to train repeats, so PT stores it), then eval start 4, which
+    skips the stored prefix.  Then the Ch. 4 corpus is replayed into the
+    same policy, and ``recommend`` and ``find`` must name the stored prefix."""
+    from repro_torch.api import Client, WorkflowSpec
+    from repro_torch.core import galaxy_ch4_corpus
+    from repro_torch.data.pipeline import make_corpus_blob
+
+    witness: list = []
+    computes: dict = {}
+    reg = wf_registry(cfg, dev, witness, [], computes)
+    blob = make_corpus_blob(WF_CORPUS_BYTES, seed=0, device=dev)
+    out: dict = {"runs": {}}
+    with Client(root, policy="PT", registry=reg, codec="none", device=dev) as client:
+        train_key = WorkflowSpec.from_steps("corpus", wf_steps(0)).prefix_keys(reg)[3]
+        results = {}
+        for label, start in (("cold", 0), ("again", 2), ("reuse", 4)):
+            spec = WorkflowSpec.from_steps("corpus", wf_steps(start), f"client {label}")
+            n_train = computes.get("train", 0)
+            r = client.run(WorkflowSpec.from_json(spec.to_json()), blob)
+            results[label] = r
+            row = wf_report(f"client {label} eval start {start}", r, client.store, dev)
+            row["trained"] = computes.get("train", 0) - n_train
+            out["runs"][label] = row
+        check(results["cold"].n_skipped == 0 and results["again"].n_skipped == 0
+              and train_key in results["again"].stored_keys,
+              f"client: skipped {results['cold'].n_skipped}, {results['again'].n_skipped}; "
+              f"stored {results['again'].stored_keys}, wanted the train prefix by the second run")
+        check(results["reuse"].n_skipped == 4 and out["runs"]["reuse"]["trained"] == 0,
+              f"client reuse: skipped {results['reuse'].n_skipped}, train ran "
+              f"{out['runs']['reuse']['trained']} time(s); wanted tokenize to train skipped")
+        rec = client.store.records[train_key]
+        print(f"client: PT stored the train prefix ({rec.nbytes_raw} B) in the second run: "
+              f"save_s {results['again'].store_seconds:.6f}; the third run loaded it in "
+              f"load_s {results['reuse'].load_seconds:.6f}; run seconds "
+              f"{[round(r.total_seconds, 6) for r in results.values()]}")
+        t0 = time.perf_counter()
+        n = client.replay(galaxy_ch4_corpus())
+        replay_s = time.perf_counter() - t0
+        partial = WorkflowSpec.from_steps("corpus", wf_steps(0)[:4])
+        recommend_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            report = client.recommend(partial)
+            recommend_ms.append((time.perf_counter() - t0) * 1e3)
+        best = report.best_reuse
+        print(f"client: replayed {n} pipelines in {replay_s:.3f} s; recommend of the partial "
+              f"spec (tokenize..train) ms {[round(x, 3) for x in recommend_ms]}: "
+              f"{[s.describe() for s in report.reusable_prefixes]}; next "
+              f"{[s.describe() for s in report.next_modules]}")
+        check(best is not None and best.prefix.key(True) == train_key and best.stored,
+              f"client recommend: best reuse {best and best.describe()}, wanted the stored "
+              f"train prefix")
+        check(bool(report.next_modules) and report.best_next.module_id == "eval",
+              f"client recommend: next modules {[s.module_id for s in report.next_modules]}")
+        hits = client.find(module="train")
+        print(f"client find(module='train'): {[(h.key, h.nbytes, h.n_loads) for h in hits]}")
+        check([h.key for h in hits] == [train_key] and client.store.has(train_key),
+              f"client find: {[h.key for h in hits]}, wanted only the stored train prefix")
+        out.update(replayed=n, replay_s=replay_s, recommend_ms=recommend_ms,
+                   train_bytes=rec.nbytes_raw, save_s=results["again"].store_seconds,
+                   load_s=results["reuse"].load_seconds,
+                   run_s={k: r.total_seconds for k, r in results.items()},
+                   train_calls=computes.get("train", 0), eval_calls=computes.get("eval", 0))
+        del results
+    del blob
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def client_cluster(dev, cfg, root: str, engine_rows: list) -> dict:
+    """Three store servers in child processes, two clients mounted on all
+    three (replication 2, a cache tier each) serving the six requests
+    through ``Client.serve_engine``; then the primary of the shared prefix's
+    snapshot is killed and one more request restores from its replica."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.api import Client
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    params = init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(cfg),
+                         cfg.dtype, dev)  # phase_engine's weights
+    prompts = engine_prompts(cfg.vocab)
+    shared = ENGINE_SYSTEM // 64
+    roots = [os.path.join(root, f"shard{i}") for i in range(3)]
+    with ThreadPoolExecutor(3) as pool:
+        started = list(pool.map(start_store_server, roots))
+    procs = [p for p, _ in started]
+    url = ",".join(u for _, u in started)
+    clients: list = []
+    out: dict = {}
+    try:
+        engines = []
+        for e in (1, 2):
+            clients.append(Client(store_url=url, replication=2, cache_bytes=STORE_CACHE_BYTES,
+                                  client_id=f"client-{e}", device=dev))
+            engines.append(clients[-1].serve_engine(cfg, params, max_len=1024, chunk=64,
+                                                    device=dev))
+            check(engines[-1].snapshots.catalog is clients[-1].catalog,
+                  "client cluster: the engine's snapshot store has no catalog")
+        print(f"client cluster: {url} (three python -m repro_torch.net.serve, pids "
+              f"{[p.pid for p in procs]}); two clients, replication 2, cache tier "
+              f"{STORE_CACHE_BYTES} B each")
+        rows: dict[int, list] = {}
+        restore: dict[str, float] = {}
+        for e, engine in zip((1, 2), engines):
+            load_s = lambda: engine.snapshots._m_load_s.unlabeled.sum
+            cache = engine.snapshots.backend
+            rows[e] = []
+            for i, prompt in enumerate(prompts):
+                before = (load_s(), cache.misses)
+                rows[e] += serve_requests(engine, cfg, [prompt], ENGINE_NEW,
+                                          f"client engine {e} request {i + 1}, call")
+                rows[e][-1]["restore_ms"] = (load_s() - before[0]) * 1e3
+                rows[e][-1]["misses"] = cache.misses - before[1]
+            for i, (got, want) in enumerate(zip(rows[e], engine_rows)):
+                check(got["out"] == want["out"],
+                      f"client engine {e} request {i + 1}: tokens differ from the "
+                      f"memory-store engine's")
+            print(f"client engine {e}: skipped {[r['skipped'] for r in rows[e]]} stored "
+                  f"{[r['stored'] for r in rows[e]]} restore_ms "
+                  f"{[round(r['restore_ms'], 3) for r in rows[e]]} tier misses "
+                  f"{[r['misses'] for r in rows[e]]}")
+        restore["cold_ms"] = rows[2][0]["restore_ms"]
+        restore["warm_ms"] = rows[2][1]["restore_ms"]
+        check(rows[2][0]["misses"] > 0 and rows[2][1]["misses"] == 0,
+              f"client cluster: engine 2's tier misses {[r['misses'] for r in rows[2][:2]]}, "
+              f"wanted a cold restore over the wire and then a warm one from the tier")
+        elections = sum(metric_total(c.metrics_doc(), "repro_singleflight_remote_leads_total")
+                        for c in clients)
+        leads = [engine.flight.remote_leads for engine in engines]
+        stored = [r["stored"] for e in (1, 2) for r in rows[e]]
+        print(f"client cluster: elections {elections} (metrics_doc), led by engine "
+              f"{leads}; snapshots stored {stored}")
+        check(elections == 1 and leads == [1, 0] and sum(stored) == 1,
+              f"client cluster: {elections} elections, leads {leads}, stored {stored}; wanted "
+              f"one, by engine 1")
+        check([r["skipped"] for r in rows[1][2:] + rows[2]] == [shared] * 10,
+              "client cluster: a request after the election prefilled the shared prefix")
+
+        key = next(iter(engines[1].snapshots._records))
+        remote = clients[1]._remote
+        primary = remote.shard_for(key)
+        replicas = remote._replicas(key)
+        victim = next(i for i, (_, u) in enumerate(started) if u.endswith(primary))
+        procs[victim].kill()
+        procs[victim].wait()
+        engines[1].snapshots.backend.invalidate(key)  # the restore must cross the wire
+        before = (remote.failover_reads, engines[1].snapshots._m_load_s.unlabeled.sum)
+        row = serve_requests(engines[1], cfg, [prompts[2]], ENGINE_NEW,
+                             "client engine 2 after the kill, request 3 again, call")[0]
+        failover = remote.failover_reads - before[0]
+        restore["failover_ms"] = (engines[1].snapshots._m_load_s.unlabeled.sum - before[1]) * 1e3
+        print(f"client cluster: killed the snapshot's primary {primary} (replicas {replicas}); "
+              f"request 3 again skipped {row['skipped']}/{row['n']}, failover reads "
+              f"{failover}, restore_ms {restore['failover_ms']:.3f}")
+        check(row["out"] == engine_rows[2]["out"] and row["skipped"] == shared,
+              "client cluster: the request after the kill differs from the memory-store "
+              "engine's or prefilled the shared prefix")
+        check(failover > 0, "client cluster: no failover read after the primary died")
+        hits = clients[1].find(dataset="prompts", any_position=True, limit=100)
+        print(f"client cluster find(dataset='prompts'): {[(h.key, h.depth) for h in hits]}")
+        check(key in {h.key for h in hits},
+              f"client cluster: find did not list the snapshot {key}")
+        out = {"restore": restore, "elections": elections, "failover_reads": failover,
+               "rows": {e: [{k: v for k, v in r.items() if k != "out"} for r in rows[e]]
+                        for e in rows}}
+        del engines
+    finally:
+        for c in clients:
+            c.close()
+        codes = []
+        for proc in procs:
+            if proc.poll() is not None:
+                continue  # the server killed above
+            proc.send_signal(signal.SIGTERM)
+            try:
+                codes.append(proc.wait(timeout=30))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                codes.append(None)
+    print(f"client cluster: survivors stopped on SIGTERM, exit codes {codes}")
+    check(codes == [0, 0], f"client cluster: survivors' exit codes {codes} after SIGTERM")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_client(dev, engine_rows) -> dict:
+    """The front door (``repro_torch.api.Client``) at full TinyLlama-1.1B
+    width: the thesis's evaluation, a local client running the workflow
+    pipeline, and two clients serving on a three-server cluster."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import reset_launches as reset_flash
+
+    cfg = get_config("tinyllama-1.1b")  # full width, bf16
+    out = {"evaluation": client_evaluation()}
+    root = tempfile.mkdtemp(prefix="client-")
+    torch.cuda.synchronize()
+    reset_flash()
+    decode_ops.reset_launches()
+    try:
+        out["local"] = client_local(dev, cfg, os.path.join(root, "local"))
+        out["cluster"] = client_cluster(dev, cfg, os.path.join(root, "cluster"), engine_rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["flash"] = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+    out["decode"] = dict(decode_ops.decode_attention.launches_by_variant)
+    loc = out["local"]
+    print(f"client: module calls train {loc['train_calls']} eval {loc['eval_calls']}; flash "
+          f"launches fwd {out['flash'][0]} bwd {out['flash'][1]}; decode kernels "
+          f"{out['decode']}")
+    check(out["flash"][1] == cfg.n_layers * WF_STEPS * loc["train_calls"]
+          and out["flash"][0] == cfg.n_layers * (WF_STEPS * loc["train_calls"]
+                                                 + loc["eval_calls"]),
+          f"client: flash launches {out['flash']} for {loc['train_calls']} train and "
+          f"{loc['eval_calls']} eval calls")
+    check(out["decode"]["fused"] > 0 and out["decode"]["chunk"] > 0
+          and out["decode"]["split"] == 0, f"client: decode kernels {out['decode']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -4333,6 +4616,7 @@ def main() -> int:
     timed(phase_gnn_parity)
     wf = timed(phase_workflow, eng["rows"])
     store = timed(phase_store_server, eng["rows"])
+    cli = timed(phase_client, eng["rows"])
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -4368,6 +4652,7 @@ def main() -> int:
           eng["launches"]["fused"],
           "fabric serving decode steps (two engines)": wf["decode"]["fused"],
           "store-server serving decode steps (two engines, cache tier)": store["fused"],
+          "client": cli["decode"]["fused"],
           "deepseek-7b serving decode steps": ds7["launches"]["fused"],
           "qwen2-moe-a2.7b serving decode steps": qwen["launches"]["fused"],
           "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)": fpar["fused"]}),
@@ -4376,6 +4661,7 @@ def main() -> int:
          {"serving prefill chunks": eng["launches"]["chunk"],
           "fabric serving prefill chunks (two engines)": wf["decode"]["chunk"],
           "store-server serving prefill chunks (two engines, cache tier)": store["chunk"],
+          "client": cli["decode"]["chunk"],
           "deepseek-7b serving prefill chunks": ds7["launches"]["chunk"],
           "qwen2-moe-a2.7b serving prefill chunks": qwen["launches"]["chunk"]}),
         ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
@@ -4430,9 +4716,9 @@ def main() -> int:
     for name, kind, by_path in (
         ("flash_attention", "fwd",
          {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
-          **family_flash, **family_train_flash[0]}),
+          "client": cli["flash"][0], **family_flash, **family_train_flash[0]}),
         ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1],
-                                        **family_train_flash[1]}),
+                                        "client": cli["flash"][1], **family_train_flash[1]}),
     ):
         r = fm[kind]
         line["kernels"].append({
@@ -4668,6 +4954,13 @@ def main() -> int:
                                           if "drop_share" in r["rows"][0] else {})}
         for arch, r in ftrain["train"].items()}
     line["store_server"] = {**store["tier"], "restore": store["restore"]}
+    line["client"] = {
+        "policies": {k: v["rows"] for k, v in cli["evaluation"].items()},
+        "evaluation_s": {k: v["seconds"] for k, v in cli["evaluation"].items()},
+        "run_s": cli["local"]["run_s"], "save_s": cli["local"]["save_s"],
+        "load_s": cli["local"]["load_s"], "recommend_ms": cli["local"]["recommend_ms"],
+        "restore_ms": cli["cluster"]["restore"], "elections": cli["cluster"]["elections"],
+        "failover_reads": cli["cluster"]["failover_reads"]}
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

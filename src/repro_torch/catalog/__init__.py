@@ -1,7 +1,12 @@
-"""The provenance catalog's records and in-memory index, copied from the
-reference package's ``catalog`` for the store server, which answers the
-``catalog_*`` ops from them.  ``catalog.py`` and ``query.py`` (the
-client-side ``Catalog``) are not copied yet."""
+"""``repro_torch.catalog`` — queryable provenance index over the artifact space.
+
+The store answers exact :class:`~repro_torch.core.workflow.PrefixKey` lookups;
+the catalog answers *find-by-statepoint* questions ("what artifacts exist
+for module ``align`` with ``k=31`` on this dataset?") — the discoverability
+surface the thesis' reuse results depend on, modeled on signac's
+content-hashed statepoint index with ``find(filter)``.
+"""
+from .catalog import CATALOG_META, Catalog
 from .index import CatalogIndex
 from .records import (
     CatalogQuery,
@@ -12,6 +17,8 @@ from .records import (
 )
 
 __all__ = [
+    "CATALOG_META",
+    "Catalog",
     "CatalogIndex",
     "CatalogQuery",
     "CatalogRecord",

@@ -1,9 +1,8 @@
-"""Core RISP library: the paper's contribution as composable components.
-
-The port exports what the reference package's ``core`` exports from the
-modules it has ported (``adaptive``, ``corpus`` and ``metrics`` are not)."""
+"""Core RISP library: the paper's contribution as composable components."""
+from .adaptive import adaptive_policy, adaptive_risp
 from .backends import LocalFSBackend, MemoryBackend, StorageBackend, TieredBackend
 from .codecs import Codec, available_codecs, register_codec, resolve_codec
+from .corpus import CorpusSpec, galaxy_ch4_corpus, galaxy_ch5_corpus, generate_corpus
 from .cost import CostModel
 from .eviction import (
     EvictionManager,
@@ -14,6 +13,7 @@ from .eviction import (
 )
 from .executor import RunResult, WorkflowError, WorkflowExecutor
 from .kvcodec import KVSnapshotInfo, load_kv, read_kv_info, save_kv
+from .metrics import PolicyReport, evaluate_all, evaluate_policy
 from .provenance import ProvenanceLog, RunRecord
 from .registry import ModuleRegistry, ToolStateError, UnknownModuleError
 from .risp import RISP, TSAR, TSFR, TSPAR, Recommendation, StoragePolicy, make_policy
@@ -32,6 +32,7 @@ from .workflow import (
 __all__ = [
     "ArtifactRecord",
     "Codec",
+    "CorpusSpec",
     "CostModel",
     "EvictionManager",
     "EvictionPolicy",
@@ -44,6 +45,7 @@ __all__ = [
     "ModuleRef",
     "ModuleRegistry",
     "ModuleSpec",
+    "PolicyReport",
     "PrefixKey",
     "ProvenanceLog",
     "PutResult",
@@ -65,10 +67,17 @@ __all__ = [
     "Workflow",
     "WorkflowError",
     "WorkflowExecutor",
+    "adaptive_policy",
+    "adaptive_risp",
     "available_codecs",
     "decode_param",
     "encode_param",
+    "evaluate_all",
+    "evaluate_policy",
     "gain_loss_ratio",
+    "galaxy_ch4_corpus",
+    "galaxy_ch5_corpus",
+    "generate_corpus",
     "load_kv",
     "make_policy",
     "read_kv_info",

@@ -1,6 +1,8 @@
-"""Mount a :class:`ServeEngine` on a storage backend: the port's counterpart
-of the reference's ``Client.serve_engine`` (``repro.api``, which the port
-does not import).
+"""Mount a :class:`ServeEngine` on a bare storage backend, with no ``Client``
+around it.  :meth:`repro_torch.api.Client.serve_engine` is the documented way
+to serve on a client's fabric (its snapshots also go to the client's
+provenance catalog); this helper keeps the engine phases that predate the
+front door.
 
 The engine's prefix KV snapshots become artifacts on ``backend`` (a local
 directory, a memory backend, or a store server through ``RemoteBackend``),

@@ -6,8 +6,8 @@ parsing and framing, the backend contract over the wire, the
 cache tier (bounded LRU, fences against eviction events, indexed purges),
 the eviction-event stream, the failure modes (server restart, truncated
 frames, digest mismatch, an artifact evicted while planned), leases and the
-distributed single-flight.  The two tests there that drive the reference's
-``Client`` run here on ``WorkflowExecutor`` over ``IntermediateStore``.
+distributed single-flight; the two that drive the reference's ``Client``
+drive the port's, mounted with ``store_url``.
 Beyond them: each package's ``RemoteBackend`` against the other package's
 server, and the CLI started with ``--port 0`` and stopped by SIGTERM.
 """
@@ -30,8 +30,8 @@ torch.set_num_threads(2)
 
 from repro import core as jcore
 from repro import net as jnet
-from repro_torch.core import IntermediateStore, LocalFSBackend, MemoryBackend, ModuleSpec
-from repro_torch.core import WorkflowExecutor, make_policy
+from repro_torch.api import Client
+from repro_torch.core import IntermediateStore, LocalFSBackend, MemoryBackend
 from repro_torch.net import (
     CachingBackend,
     DistributedSingleFlight,
@@ -397,59 +397,46 @@ def test_digest_mismatch_raises_integrity_error():
         ls.close()
 
 
-def _executor(url, calls, client_id):
-    """A workflow executor over the store server (what the reference's
-    ``Client(store_url=...)`` mounts: a remote pool behind a cache tier)."""
-    rb = _fast_backend(url, client_id=client_id)
-    ex = WorkflowExecutor(store=IntermediateStore(backend=CachingBackend(rb)),
-                          policy=make_policy("TSAR"), device="cpu")
-
-    def count(name, fn):
-        def wrapped(x, **params):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(x, **params)
-        return wrapped
-
-    ex.register(ModuleSpec("double", count("double", lambda x: x * 2)))
-    ex.register(ModuleSpec("inc", count("inc", lambda x, by=1: x + by), {"by": 1}))
-    return ex, rb
-
-
 def test_evicted_while_planned_recomputes_through_remote(server):
-    calls = {}
-    ex, rb = _executor(server.url, calls, "a")
-    try:
-        r1 = ex.run("ds", torch.arange(4.0), ["inc"], "w1")
-        assert calls["inc"] == 1
+    calls = {"n": 0}
+    with Client(store_url=server.url, policy="TSAR", device="cpu") as client:
+        @client.module("count")
+        def count(x):
+            calls["n"] += 1
+            return x + 1
+
+        r1 = client.run_steps("ds", torch.arange(4.0), ["count"], "w1")
+        assert calls["n"] == 1
         # wipe the artifact on the server's backend: no eviction event reaches
-        # the executor, whose policy still plans a load that will vanish
+        # the client, whose policy still plans a load that will vanish
         key = r1.stored_keys[0]
         server.backend.delete(key)
-        assert key in ex.policy.stored
-        r2 = ex.run("ds", torch.arange(4.0), ["inc"], "w2")
-        assert calls["inc"] == 2  # recompute fallback, not a crash
+        assert key in client.policy.stored
+        r2 = client.run_steps("ds", torch.arange(4.0), ["count"], "w2")
+        assert calls["n"] == 2  # recompute fallback, not a crash
         assert torch.equal(r2.output, torch.arange(4.0) + 1)
-    finally:
-        rb.close()
 
 
 def test_two_executors_reuse_each_other_through_the_server(server):
-    """Two executors on one server: artifacts stored by one are reused by the
-    other (``test_client_store_url_end_to_end`` without the ``Client``)."""
-    calls_a, calls_b = {}, {}
-    a, rba = _executor(server.url, calls_a, "a")
-    b, rbb = _executor(server.url, calls_b, "b")
+    """Two ``Client``s on one server: artifacts stored by one are reused by
+    the other (``test_client_store_url_end_to_end`` of the reference)."""
+    def mk(cid):
+        c = Client(store_url=server.url, policy="TSAR", client_id=cid, device="cpu")
+        c.register_fn("double", lambda x: x * 2)
+        c.register_fn("inc", lambda x, by=1: x + by, by=1)
+        return c
+
+    a, b = mk("a"), mk("b")
     try:
         data = torch.arange(32.0)
-        ra = a.run("ds", data, ["double", "inc"], "wa")
+        ra = a.run_steps("ds", data, ["double", "inc"], "wa")
         assert ra.n_skipped == 0
-        rb_ = b.run("ds", data, ["double", "inc"], "wb")
-        assert rb_.n_skipped >= 1, "second executor must reuse the first's prefix"
+        rb_ = b.run_steps("ds", data, ["double", "inc"], "wb")
+        assert rb_.n_skipped >= 1, "second client must reuse the first's prefix"
         assert torch.equal(ra.output, rb_.output)
-        assert calls_b.get("double", 0) == 0
     finally:
-        rba.close()
-        rbb.close()
+        a.close()
+        b.close()
 
 
 # -- leases and the distributed single-flight -------------------------------------
