@@ -8,11 +8,12 @@ kernel of the port from the sources in this checkout (one nvcc per source,
 all at once); holds the decode-attention kernels against their plain torch
 versions on the card at TinyLlama-1.1B's attention shapes (and gemma3-like
 and smoke shapes), with the kernels', the plain versions' and a library
-call's times: the split variant at every shape, at one query row per
-sequence also the fused variant (new K/V row written, splits combined in a
-cluster) and at the bf16 chunk shapes also the chunk variant (the chunk's
-K/V rows written, ``wgmma``), both with written caches and reruns equal bit
-for bit; serves six full-width TinyLlama-1.1B requests (bf16, random weights
+call's times: the split variant at every shape, then at every shape the
+variant that writes the new K/V rows and attends (fused at one query row
+per sequence, splits combined in a cluster; chunk at the bf16 chunk shapes
+up to dh 128, ``wgmma``; split, after two index writes, past them, as at
+gemma3-4b's served chunks), with written caches and reruns equal bit for
+bit; serves six full-width TinyLlama-1.1B requests (bf16, random weights
 from a seeded CUDA generator) through ``repro_torch.serve.ServeEngine``,
 which prefills chunks eagerly (chunk variant, no index write) and decodes by
 replaying a CUDA graph of ``decode_step`` (fused variant), counting each
@@ -62,7 +63,9 @@ decode kernel) serves three requests and holds a 1,024-token ``forward``
 family's flash shape, forward and backward (values padded as the model pads
 them), is held against fp32 autograd of the plain version and timed beside
 its bound, the plain version and SDPA.  Then card against CPU in fp32: the
-three smoke configs through two engines (tokens equal), and qwen2-moe-a2.7b
+three smoke configs and gemma3's at dh 256 (window 8: the split and fused
+variants at dh 256 with the window biting) through two engines (tokens
+equal), and qwen2-moe-a2.7b
 at full width cut to 2 layers (a 64-token chunk and 4 decode steps within
 1e-4 of the largest logit; the router's expert ids and slots equal on both
 devices).  Then the three families train at full width and cut depth (bf16,
@@ -167,6 +170,22 @@ the memory-store engine's; the primary of the shared prefix's snapshot is
 killed and one more request restores from its replica (a failover read,
 tokens unchanged), ``find`` lists the snapshot's catalog record, and the
 survivors stop on SIGTERM with exit code 0.
+Then the multi-tenant HTTP gateway, ``repro_torch.gateway``, over the same
+pipeline (a first module, ``blob``, draws the corpus on the card from the
+POST's JSON): one ``python -m repro_torch.net.serve --trace-dir D`` child,
+the gateway in this process over a ``Client`` mounted on it (PT, codec
+none, tracing into D), and two tenants over HTTP on loopback: alice's
+three runs in ``shared`` (the third skips blob to train), a 429 over her
+quota while one trains, bob's private run (every module computed) and his
+shared run (blob to train skipped: another tenant's prefix), the event
+stream, recommend, stats, artifacts and metrics, then a drain (503 to a
+new POST, the run in flight ends done); a start/SIGTERM smoke of the
+gateway's CLI with ``--device cuda`` (its demo modules compute host lists);
+and ``python -m repro_torch.obs.trace`` over the spans
+of both processes.  Last, gemma3-4b served at full width and depth (seven
+requests through ``ServeEngine(max_len=2048, chunk=64)``, the last of
+1,600 prompt tokens, past the local window; its chunks on the split
+variant, its decode steps on the fused one at dh 256).
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
@@ -240,6 +259,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # --------------------------------------------------------------------------
 # phase: kernel against its plain version
 # --------------------------------------------------------------------------
+GEMMA_SERVE_LEN = 2048  # gemma3-4b's engine max_len: the long request's 1,632 positions fit
 # (label, B, S, T, Hq, Hkv, dh, q_start per sequence, window)
 KERNEL_CASES = [
     ("decode B1", 1, 1, 1024, 32, 4, 64, [575], None),
@@ -255,6 +275,18 @@ KERNEL_CASES = [
     ("deepseek-7b chunk", 1, 64, 1024, 32, 32, 128, [512], None),
     ("qwen2-moe decode", 1, 1, 1024, 16, 16, 128, [575], None),
     ("qwen2-moe chunk", 1, 64, 1024, 16, 16, 128, [512], None),
+    # gemma3-4b's engine at full width (Hq 8, Hkv 4, dh 256) over its cache
+    # of GEMMA_SERVE_LEN rows: decode steps (fused) and 64-row chunk calls,
+    # which the split variant takes at dh 256 after the wrapper's two index
+    # writes; in a local layer (window 1024) the first requests' positions,
+    # then the long request's last chunk and first step, where the window
+    # cuts keys; in a global layer the long request's, every key visible
+    ("gemma3 decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [575], 1024),
+    ("gemma3 chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [512], 1024),
+    ("gemma3 long decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [1600], 1024),
+    ("gemma3 long chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [1536], 1024),
+    ("gemma3 global decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [1600], None),
+    ("gemma3 global chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [1536], None),
 ]
 MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
 # the engine's prefill_chunk call (chunk 64 at q_start 512 over max_len 1024):
@@ -264,6 +296,11 @@ CHUNK_CASE = "prefill B1"
 SPLIT_CASE = "smoke prefill"
 FAMILY_DECODE = ("deepseek-7b decode", "qwen2-moe decode")  # the fused variant at dh 128, G 1
 FAMILY_CHUNK = ("deepseek-7b chunk", "qwen2-moe chunk")  # the chunk variant at dh 128, G 1
+GEMMA_DECODE, GEMMA_CHUNK = "gemma3 decode", "gemma3 chunk"  # fused and split at dh 256, G 2
+# the long request's decode step and last chunk call, in a local layer
+# (the window bites) and in a global one
+GEMMA_SERVED = {"fused": ("gemma3 long decode", "gemma3 global decode"),
+                "split": ("gemma3 long chunk", "gemma3 global chunk")}
 
 
 def visible_keys(q_start: list[int], S: int, T: int, window: int | None) -> int:
@@ -357,19 +394,18 @@ def phase_kernels(dev) -> dict:
             print(f"kernel time  {label:18s} {tname:8s} ms {ms:.6f} device_ms {dev_ms:.6f} "
                   f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} "
                   f"plain_ms {plain_ms:.6f} library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
-            var = ops.variant(S, Hq // Hkv, dh, dtype)
-            if var != "split":  # the fused (S = 1) or the chunk variant takes the call
-                written[(label, tname)] = written_case(ops, var, case, q, k, v, q_start, gen,
-                                                       dtype, lib_ms)
+            written[(label, tname)] = written_case(ops, ops.variant(S, Hq // Hkv, dh, dtype),
+                                                   case, q, k, v, q_start, gen, dtype, lib_ms)
     return {"cases": results, "written": written}
 
 
 def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
     """The variant ``var`` that writes the new K/V rows and attends in one
     launch (fused: S = 1, splits combined in a cluster; chunk: S > 1,
-    ``wgmma``) against its plain version on the same inputs: output within
-    the tolerance, written caches and reruns equal bit for bit; then its
-    times beside the split variant's."""
+    ``wgmma``; split: two index writes, then its two kernels) against its
+    plain version on the same inputs: output within the tolerance, written
+    caches and reruns equal bit for bit; then its times beside the split
+    variant's."""
     label, B, S, T, Hq, Hkv, dh, qs_list, window = case
     tname = str(dtype).replace("torch.", "")
     check(ops.variant(S, Hq // Hkv, dh, dtype) == var, f"{label}: not the {var} variant")
@@ -386,7 +422,8 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
                                                window=window))
         torch.cuda.synchronize()
         after = ops.decode_attention.launches_by_variant
-        check(all(after[v_] - before[v_] == (1 if v_ == var else 0) for v_ in after),
+        check(all(after[v_] - before[v_] == (ops.KERNELS_PER_CALL[var] if v_ == var else 0)
+                  for v_ in after),
               f"{var} {label} {tname}: launches {before} -> {after}")
         check(torch.equal(k_got, k_want) and torch.equal(v_got, v_want),
               f"{var} {label} {tname}: the written caches differ from the plain version's")
@@ -470,15 +507,16 @@ def tier_restore_ms(engine, rb) -> dict:
     return {"bytes": nbytes, "cold_ms": ms["cold"], "warm_ms": ms["warm"]}
 
 
-def start_store_server(root: str):
+def start_store_server(root: str, trace_dir: str | None = None):
     """``python -m repro_torch.net.serve --root root --port 0`` in a child
-    process: (the process, the url it printed).  A thread reads the rest of
-    its output until it exits."""
+    process (with ``--trace-dir trace_dir`` where given): (the process, the
+    url it printed).  A thread reads the rest of its output until it exits."""
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                    "src"))
+    trace = ["--trace-dir", trace_dir] if trace_dir else []
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.net.serve", "--root", root, "--port", "0",
-         "--host", "127.0.0.1"],
+         "--host", "127.0.0.1", *trace],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
     deadline = time.monotonic() + 120
     while time.monotonic() < deadline:
@@ -635,19 +673,24 @@ def param_bytes(params: dict) -> tuple[int, int]:
 
 
 def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
-                 profile: bool = False, max_len: int = 1024) -> dict:
+                 profile: bool = False, max_len: int = 1024,
+                 profile_chunk_at: int | None = None) -> dict:
     """``prompts`` through one ``ServeEngine`` (chunk 64) on ``params``:
-    the kernels by variant (``serve_requests``), no index write of chunk
-    rows through the decode wrapper (the chunk kernel writes its rows; an
-    MLA model's latent rows are written by the model), a decode graph that
+    the kernels by variant (``serve_requests``), the index writes of chunk
+    rows through the decode wrapper (none where the chunk kernel takes the
+    chunk shape and writes its rows, two a layer a chunk call, K and V,
+    where the split variant takes it; an MLA model's latent rows are
+    written by the model), a decode graph that
     holds one fused kernel a layer (none for MLA), chunks skipped by every
     request from the third on, and finite logits in every prefill chunk and
     graph replay.  Then decode ms per token by graph, and eager
     ``decode_step`` against replays from one state (times and tokens); with
-    ``profile``, one more request under the profiler.  For an MoE model it
-    counts the routed (token, k) pairs of the prefill chunks that capacity
-    dropped (a decode step drops none: one token a group, C >= 4 >= K, and a
-    token's K experts differ)."""
+    ``profile``, one more request under the profiler; with
+    ``profile_chunk_at``, one chunk call at that position (``profile_chunk``).
+    ``chunk_starts`` holds each chunk call's cache position, in order.  For
+    an MoE model it counts the routed (token, k) pairs of the prefill chunks
+    that capacity dropped (a decode step drops none: one token a group,
+    C >= 4 >= K, and a token's K experts differ)."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.models import moe
     from repro_torch.serve import ServeEngine
@@ -661,11 +704,13 @@ def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
     # replays) is checked for finiteness on the device; the flags are read
     # once at the end
     finite: list[torch.Tensor] = []
+    starts: list[torch.Tensor] = []  # each chunk call's cache_len, read once at the end
     drops: list[torch.Tensor] = []  # [dropped, routed] of each MoE call in a prefill chunk
     in_prefill = [False]
     inner_prefill, inner_replay, inner_route = engine._prefill, engine._replay, moe.route
 
     def watched_prefill(tok, cache, cache_len):
+        starts.append(cache_len.clone())
         in_prefill[0] = True
         try:
             out = inner_prefill(tok, cache, cache_len)
@@ -688,8 +733,8 @@ def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
         return out
 
     engine._prefill, engine._replay = watched_prefill, watched_replay
-    # the index writes a chunk would take before the split kernel: none on
-    # this path, since the chunk kernel writes its rows itself
+    # the index writes a chunk takes before the split kernel: none where the
+    # chunk kernel takes the chunk shape, since it writes its rows itself
     index_writes = [0]
     inner_insert = ops.insert_chunk
 
@@ -709,15 +754,21 @@ def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
     launches = dict(by_var)
     graph = engine._graph
     want_graph = {} if cfg.mla is not None else {"fused": cfg.n_layers}
-    print(f"{tag}: kernels {launches} index writes {index_writes[0]} graph holds "
-          f"{graph.kernels} snapshots {engine.n_snapshots}")
-    check(index_writes[0] == 0, f"{index_writes[0]} index writes of chunk rows on the main path")
+    attn_layers = 0 if cfg.mla is not None else cfg.n_layers
+    chunk_var = engine_variants(engine, cfg)[0] if attn_layers else "chunk"
+    want_writes = (2 * attn_layers * sum(r["chunk_calls"] for r in rows)
+                   if chunk_var == "split" else 0)
+    print(f"{tag}: kernels {launches} index writes {index_writes[0]} (chunk shape on "
+          f"{chunk_var}) graph holds {graph.kernels} snapshots {engine.n_snapshots}")
+    check(index_writes[0] == want_writes,
+          f"{tag}: {index_writes[0]} index writes of chunk rows, wanted {want_writes} "
+          f"(chunks on the {chunk_var} variant)")
     check(graph.kernels == want_graph,
           f"{tag}: the decode graph holds {graph.kernels}, wanted {want_graph}")
     for i in range(2, len(prompts)):
         check(rows[i]["skipped"] > 0, f"{tag}: request {i + 1} skipped no chunk")
     check(bool(torch.stack(finite).all()), f"{tag}: non-finite logits on the main path")
-    out = {"launches": launches, "rows": rows}
+    out = {"launches": launches, "rows": rows, "chunk_starts": torch.cat(starts).tolist()}
     if drops:
         dropped, routed = (int(v) for v in torch.stack(drops).sum(0).tolist())
         print(f"{tag}: routed (token, k) pairs in prefill chunks {routed} dropped by capacity "
@@ -738,6 +789,8 @@ def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
                tokens_equal=eager_toks == replay_toks)
     if profile:
         out["profile"] = phase_profile(engine, prompts[-1], max_new)
+    if profile_chunk_at is not None:
+        out["chunk_profile"] = profile_chunk(engine, inner_prefill, profile_chunk_at)
     # the watchers close over the engine: without them it is freed on return,
     # with its graph, the graph's memory pool and the static cache, before the
     # later phases measure their peak memory
@@ -756,16 +809,29 @@ def engine_prompts(vocab: int) -> list[list[int]]:
     return [system + rng.integers(0, vocab, size=ENGINE_TAIL).tolist() for _ in range(6)]
 
 
+def engine_variants(engine, cfg) -> tuple[str, str]:
+    """The decode-attention variants that take ``engine``'s chunk calls and
+    its decode steps: ``ops.variant`` of the chunk shape and of one row."""
+    from repro_torch.kernels.decode_attention import ops
+
+    G = cfg.n_heads // cfg.n_kv_heads
+    return (ops.variant(engine.chunk, G, cfg.head_dim, cfg.dtype),
+            ops.variant(1, G, cfg.head_dim, cfg.dtype))
+
+
 def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]:
     """``engine.generate`` on each prompt in turn, with its times and the
-    decode kernels it launched by variant: chunk calls on the chunk kernel
-    (one a layer), decode steps on the fused kernel (one a layer; the
-    engine's first decode adds an eager warm-up step before its capture),
-    and no split kernel.  An MLA model launches none: its cached attention
-    is plain torch."""
+    decode kernels it launched by variant: chunk calls on the variant that
+    ``ops.variant`` names for the chunk shape (the chunk kernel, one a
+    layer, up to dh 128 in bf16; the split variant's two a layer past it),
+    decode steps on the fused kernel (one a layer; the engine's first decode
+    adds an eager warm-up step before its capture), and no kernel of any
+    other variant.  An MLA model launches none: its cached attention is
+    plain torch."""
     from repro_torch.kernels.decode_attention import ops
 
     attn_layers = 0 if cfg.mla is not None else cfg.n_layers
+    chunk_var, step_var = engine_variants(engine, cfg) if attn_layers else ("chunk", "fused")
     by_var = ops.decode_attention.launches_by_variant
     dev = engine._dev
     first = engine._graph is None
@@ -773,7 +839,8 @@ def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]
     for i, prompt in enumerate(prompts):
         before = dict(by_var)
         out, st = engine.generate(prompt, max_new_tokens=max_new)
-        split, fused, chunk = (by_var[v] - before[v] for v in ("split", "fused", "chunk"))
+        got = {v: by_var[v] - before[v] for v in ops.VARIANTS}
+        split, fused, chunk = (got[v] for v in ("split", "fused", "chunk"))
         trimmed = 1 if st.chunks_skipped == st.n_chunks else 0
         chunk_calls = (st.n_chunks - st.chunks_skipped) + trimmed
         # the first decode warms up one eager step, then captures the graph
@@ -788,14 +855,15 @@ def serve_requests(engine, cfg, prompts, max_new: int, label: str) -> list[dict]
               f"decode_tok_s {tps:.2f} max_memory_allocated {mem} "
               f"kernels chunk {chunk} split {split} fused {fused}")
         check(len(out) == max_new, f"{label} {i + 1}: {len(out)} tokens, wanted {max_new}")
-        check(chunk == attn_layers * chunk_calls,
-              f"{label} {i + 1}: {chunk} chunk kernels, wanted {attn_layers} x {chunk_calls}")
-        check(split == 0, f"{label} {i + 1}: {split} split kernels, wanted none")
-        check(fused == attn_layers * steps,
-              f"{label} {i + 1}: {fused} fused kernels, wanted {attn_layers} x {steps}")
+        want = {v: 0 for v in ops.VARIANTS}
+        want[chunk_var] += ops.KERNELS_PER_CALL[chunk_var] * attn_layers * chunk_calls
+        want[step_var] += ops.KERNELS_PER_CALL[step_var] * attn_layers * steps
+        check(got == want,
+              f"{label} {i + 1}: kernels {got}, wanted {want} ({attn_layers} layers, "
+              f"{chunk_calls} chunk calls on {chunk_var}, {steps} decode steps on {step_var})")
         rows.append(dict(skipped=st.chunks_skipped, n=st.n_chunks, prefill_s=st.prefill_s,
                          decode_s=st.decode_s, tokens=st.n_new_tokens, out=out,
-                         stored=st.stored_prefixes))
+                         stored=st.stored_prefixes, chunk_calls=chunk_calls))
     return rows
 
 
@@ -863,6 +931,19 @@ def phase_profile(engine, prompt, max_new: int) -> dict:
     print(f"profile request: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
           f"new_tokens {st.n_new_tokens}")
     return prof
+
+
+def profile_chunk(engine, prefill, at: int) -> dict:
+    """One eager chunk call under torch.profiler, after an uncounted one:
+    ``engine.chunk`` tokens written at cache position ``at`` into a copy of
+    the decode graph's cache, through ``prefill`` (the engine's own): its
+    wall time beside the device's busy time and idle share, and the kernels
+    that take the device.  Runs after the main path's counts were read."""
+    cache = {k: a.clone() for k, a in engine._graph.cache.items()}
+    tok = engine._tokens(np.zeros((1, engine.chunk), np.int32))
+    at_len = torch.tensor([at], dtype=torch.int32, device=engine._dev)
+    return profile_call(f"chunk call at {at}", lambda: prefill(tok, cache, at_len.clone()),
+                        n_kernels=8, watch=("decode_attention",), warm=True)
 
 
 DEVICE_SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz
@@ -1832,6 +1913,100 @@ def phase_gemma3(dev) -> dict:
             "check_err": (err, largest)}
 
 
+GEMMA_LONG = 1600  # the long request's prompt: the shared 512 tokens and 1,088 more
+GEMMA_PARAMS = 4_550_996_480
+
+
+def gemma3_prompts(vocab: int) -> list[list[int]]:
+    """The six requests of ``engine_prompts``, then a long one: their shared
+    512 tokens followed by 1,088 more, which takes the local layers past
+    their window of 1024 in its chunk calls and decode steps."""
+    prompts = engine_prompts(vocab)
+    rng = np.random.default_rng(1)
+    tail = rng.integers(0, vocab, size=GEMMA_LONG - ENGINE_SYSTEM).tolist()
+    return prompts + [prompts[0][:ENGINE_SYSTEM] + tail]
+
+
+def phase_gemma3_serve(dev) -> dict:
+    """gemma3-4b served at full width and depth in bf16 (34 layers, Hq 8,
+    Hkv 4, dh 256; 29 local layers with a window of 1024), random weights
+    from a seeded CUDA generator with the attention projections at their
+    true fan-in (``at_true_fan_in``: at the reference's scale the scores'
+    spread makes the softmax an argmax), through ``ServeEngine(max_len=2048,
+    chunk=64)``: the six requests of ``engine_prompts`` and one long request
+    of 1,600 prompt tokens.  Its chunk calls take the split variant (two
+    kernels a layer, after the wrapper's two index writes), its decode steps
+    the fused one (the graph holds one a layer); ``serve_engine`` holds the
+    kernel counts, the index writes, finite logits, and replay tokens equal
+    to eager ``decode_step``'s, and its decode ms a token is set beside the
+    bytes of weights a step reads.  The long request's chunk calls must
+    start where its prompt puts them, the last past the window; one more
+    chunk call at the last one's position runs under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-4b")  # full width and depth, bf16: nothing cut
+    windows = transformer._layer_windows(cfg)
+    n_local = sum(w is not None for w in windows)
+    G = cfg.n_heads // cfg.n_kv_heads
+    check((cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, n_local, cfg.dtype)
+          == (34, 8, 4, 256, 29, torch.bfloat16)
+          and {w for w in windows if w is not None} == {1024},
+          f"gemma3-4b: {cfg.n_layers} layers, heads {cfg.n_heads}/{cfg.n_kv_heads}, dh "
+          f"{cfg.head_dim}, {n_local} local layers, windows {set(windows)}, {cfg.dtype}")
+    chunk_var = ops.variant(64, G, cfg.head_dim, cfg.dtype)
+    step_var = ops.variant(1, G, cfg.head_dim, cfg.dtype)
+    check((chunk_var, step_var) == ("split", "fused"),
+          f"gemma3-4b: chunk calls on {chunk_var}, decode steps on {step_var}")
+    params = at_true_fan_in(
+        init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(cfg),
+                    cfg.dtype, dev), cfg)
+    n_par = param_bytes(params)[0]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(n_par == GEMMA_PARAMS, f"gemma3-4b: {n_par} parameters, wanted {GEMMA_PARAMS}")
+    print(f"gemma3 serve: {cfg.name} full width and depth, bf16, max_len {GEMMA_SERVE_LEN} "
+          f"chunk 64; chunk calls on {chunk_var} (split plan "
+          f"{ops.plan(1, 64, cfg.n_heads, cfg.n_kv_heads, GEMMA_SERVE_LEN, cfg.head_dim, n_sm)}"
+          f" at {n_sm} SMs), decode steps on {step_var} (plan_fused "
+          f"{ops.plan_fused(GEMMA_SERVE_LEN, cfg.head_dim, cfg.dtype)})")
+    prompts = gemma3_prompts(cfg.vocab)
+    run = serve_engine(dev, cfg, params, prompts, ENGINE_NEW, "gemma3-4b", "gemma3-4b req",
+                       max_len=GEMMA_SERVE_LEN, profile_chunk_at=GEMMA_LONG - 64)
+    check(run["tokens_equal"], "gemma3-4b: graph replays and eager steps gave other tokens")
+    print_decode_bounds("gemma3-4b", cfg, params, run)
+    rows = run["rows"]
+    long = rows[-1]
+    check(long["n"] == GEMMA_LONG // 64 and long["skipped"] == ENGINE_SYSTEM // 64,
+          f"gemma3-4b long request: skipped {long['skipped']}/{long['n']} chunks, wanted "
+          f"{ENGINE_SYSTEM // 64}/{GEMMA_LONG // 64}")
+    # the long request's chunk calls, as the engine made them: its last rows
+    # reach past the local window, which then cuts the keys of its first
+    long_starts = run["chunk_starts"][-long["chunk_calls"]:]
+    check(long_starts == list(range(ENGINE_SYSTEM, GEMMA_LONG, 64))
+          and long_starts[-1] + 64 > cfg.local_window,
+          f"gemma3-4b long request: chunk calls at {long_starts}, wanted "
+          f"{ENGINE_SYSTEM} to {GEMMA_LONG - 64} by 64, past the window {cfg.local_window}")
+    calls = sum(r["chunk_calls"] for r in rows)
+    chunk_ms = sum(r["prefill_s"] for r in rows) * 1e3 / calls
+    long_ms = long["prefill_s"] * 1e3 / long["chunk_calls"]
+    n_snap, snap_bytes, per_pos = run["snapshot"]
+    print(f"gemma3 serve: {len(rows)} requests, prefill ms per chunk call {chunk_ms:.3f} over "
+          f"{calls} calls (long request {long_ms:.3f} over {long['chunk_calls']}); chunks "
+          f"skipped {[r['skipped'] for r in rows]} of {[r['n'] for r in rows]}; snapshot "
+          f"bytes a token a layer {per_pos:.1f}; decode ms a token graph "
+          f"{run['graph_ms']:.6f} replay {run['replay_ms']:.6f} eager {run['eager_ms']:.6f}; "
+          f"decode kernels {run['launches']}")
+    run.update(chunk_ms=chunk_ms, long_chunk_ms=long_ms, calls=calls, n_params=n_par)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
 # --------------------------------------------------------------------------
 # phase: the MoE and MLA families at full width
 # --------------------------------------------------------------------------
@@ -2299,8 +2474,12 @@ FAMILY_CHECK_LAYERS = 2  # qwen2-moe-a2.7b's card-vs-CPU check in fp32: 7.05 GB
 
 def phase_family_parity(dev) -> dict:
     """Card against CPU in fp32.  The smoke configs of qwen2-moe,
-    deepseek-v2 and deepseek-7b through two engines (tokens and chunks
-    skipped equal, as ``phase_parity``); then qwen2-moe-a2.7b at full width
+    deepseek-v2 and deepseek-7b, and gemma3's at dh 256 (window 8, as
+    tests/test_torch_transformer.py widens it; attention projections at
+    their true fan-in, where a rounding in another order moves no argmax)
+    through two engines (tokens and chunks skipped equal, as
+    ``phase_parity``; gemma3's chunks on the split variant and its decode
+    steps on the fused one at dh 256, G 2); then qwen2-moe-a2.7b at full width
     cut to FAMILY_CHECK_LAYERS layers, attention projections at their true
     fan-in (``at_true_fan_in``; the experts are drawn at it already): one
     64-token chunk and 4 decode steps of the same tokens on both devices,
@@ -2314,10 +2493,14 @@ def phase_family_parity(dev) -> dict:
     from repro_torch.serve import ServeEngine
 
     out = {"split": 0, "fused": 0}
-    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b", "deepseek-7b"):
-        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b", "deepseek-7b", "gemma3-4b"):
+        gemma = arch == "gemma3-4b"  # at dh 256, projections at their true fan-in
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                                  **({"d_head": 256} if gemma else {}))
         cpu_params = init_params(torch.Generator(device="cpu").manual_seed(0),
                                  transformer.lm_specs(cfg), cfg.dtype, "cpu")
+        if gemma:
+            cpu_params = at_true_fan_in(cpu_params, cfg)
         on_dev = ServeEngine(cfg, to_device(cpu_params, dev), max_len=128, chunk=16, device=dev)
         on_cpu = ServeEngine(cfg, cpu_params, max_len=128, chunk=16, device="cpu")
         reset_launches()
@@ -2333,6 +2516,11 @@ def phase_family_parity(dev) -> dict:
               f"equal, chunks skipped {skipped} on both; decode kernels {n}; graph holds "
               f"{on_dev._graph.kernels}")
         check(skipped > 0, f"{cfg.name} parity: no chunk skipped")
+        if gemma:
+            check(cfg.head_dim == 256 and n["split"] > 0 and n["fused"] > 0 and n["chunk"] == 0,
+                  f"{cfg.name} dh {cfg.head_dim} parity: decode kernels {n}, wanted split and "
+                  f"fused only")
+            out["gemma3_split"], out["gemma3_fused"] = n["split"], n["fused"]
         out["split"] += n["split"]
         out["fused"] += n["fused"]
 
@@ -4565,6 +4753,428 @@ def phase_client(dev, engine_rows) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase: the multi-tenant HTTP gateway over the workflow, and the trace CLI
+# --------------------------------------------------------------------------
+GW_TOKENS = {"tok-alice": "alice", "tok-bob": "bob"}
+GW_BLOB = {"n_bytes": WF_CORPUS_BYTES, "seed": 0}  # the POST's data: ``blob`` draws the corpus
+GW_TRAIN_AT = 4  # train's index in gw_steps
+GW_PRINT_LINES = 24  # lines of the trace CLI's output printed from each end
+
+
+def gw_request(base: str, method: str, path: str, token: str | None = None, body=None,
+               timeout: float = 600):
+    """(status, parsed JSON body, headers) of one HTTP request to the
+    gateway; 4xx and 5xx answers are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method=method)
+    if token is not None:
+        req.add_header("Authorization", f"Bearer {token}")
+    data = None
+    if body is not None:
+        data = json.dumps(body).encode()
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, data=data, timeout=timeout) as resp:
+            raw = resp.read()
+            is_json = resp.headers.get_content_type() == "application/json"
+            return resp.status, (json.loads(raw) if is_json else raw.decode()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, (json.loads(raw) if raw else {}), dict(e.headers)
+
+
+def gw_steps(start: int) -> list:
+    """blob -> tokenize -> pack -> split -> train -> eval(start)."""
+    return ["blob", *wf_steps(start)]
+
+
+def gw_registry(cfg, dev, computes: dict):
+    """The workflow phase's modules (``wf_registry``) behind a first module,
+    ``blob``, that draws the 64 MB corpus on the card from the POST's JSON
+    data (a POST cannot carry the tensor; it carries its size and seed).
+    ``eval`` returns a list of floats, so that the run document carries it;
+    ``pack`` defaults to the workflow's sequence length, so that the chain
+    of module names that ``/v1/recommend`` takes resolves to the stored
+    prefix's key."""
+    from repro_torch.data.pipeline import make_corpus_blob
+
+    reg = wf_registry(cfg, dev, [], [], computes)
+
+    def blob(data):
+        computes["blob"] = computes.get("blob", 0) + 1
+        return make_corpus_blob(int(data["n_bytes"]), seed=int(data["seed"]), device=dev)
+
+    reg.register_fn("blob", blob)
+    evaluate = reg["eval"].fn
+    reg["eval"].fn = lambda x, _fn=evaluate, **kw: _fn(x, **kw).tolist()
+    reg["pack"].default_params["seq_len"] = WF_SEQ
+    return reg
+
+
+def gw_metric(text: str, name: str) -> float:
+    """The sum of a metric's series without a ``shard`` label (this
+    process's own) in a Prometheus exposition."""
+    total = 0.0
+    for line in text.splitlines():
+        head, _, value = line.rpartition(" ")
+        if (head == name or head.startswith(name + "{")) and "shard=" not in head:
+            total += float(value)
+    return total
+
+
+def gateway_runs(dev, cfg, url: str, computes: dict) -> dict:
+    """The gateway in this process over a ``Client`` mounted on the store
+    server at ``url`` (PT, codec none, the workflow's modules at full
+    TinyLlama-1.1B width on the card; one run at a time), driven over HTTP
+    on loopback by two tenants, alice and bob."""
+    from repro_torch.api import Client, WorkflowSpec
+    from repro_torch.gateway import GatewayServer, TenancyPolicy, TokenAuthenticator
+
+    reg = gw_registry(cfg, dev, computes)
+    alice, bob = "tok-alice", "tok-bob"
+    train_key = WorkflowSpec.from_steps("corpus", gw_steps(0)).with_namespace(
+        "shared").prefix_keys(reg)[GW_TRAIN_AT]
+    out: dict = {"runs": {}}
+    client = Client(store_url=url, policy="PT", codec="none", device=dev, registry=reg,
+                    max_concurrent_runs=1)
+    gw = GatewayServer(client, TokenAuthenticator(GW_TOKENS), tenancy=TenancyPolicy(("shared",)),
+                       max_inflight_per_tenant=1)
+    gw.start()
+
+    def body(start: int, namespace: str | None, wait: bool) -> dict:
+        spec = WorkflowSpec.from_steps("corpus", gw_steps(start), f"gateway eval {start}")
+        doc = {"spec": json.loads(spec.to_json()), "data": GW_BLOB, "wait": wait}
+        if namespace:
+            doc["namespace"] = namespace
+        return doc
+
+    def idle(token: str) -> None:
+        # a run's slot is released just after its status turns done
+        deadline = time.monotonic() + 60
+        while gw.ledger.in_flight(GW_TOKENS[token]) and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    def report(label: str, doc: dict, n_train: int | None) -> dict:
+        """One run's line; ``n_train``: train's call count before the run,
+        where no other run ran beside it (None where one may have)."""
+        res = doc["result"]
+        trained = None if n_train is None else computes.get("train", 0) - n_train
+        row = {"run_s": res["total_seconds"], "n_skipped": res["n_skipped"],
+               "n_computed": res["n_computed"], "trained": trained,
+               "stored": res["stored_keys"], "eval_ce": res["output"],
+               "namespace": doc["namespace"], "trace_id": doc.get("trace_id")}
+        print(f"gateway {label}: {doc['status']} namespace {doc['namespace']} n_skipped "
+              f"{res['n_skipped']}/{res['n_nodes']} n_computed {res['n_computed']} train ran "
+              f"{row['trained']} run_s {res['total_seconds']:.6f} stored {res['stored_keys']} "
+              f"eval_ce {res['output']} trace {row['trace_id']}")
+        check(doc["status"] == "done" and res["n_nodes"] == len(gw_steps(0))
+              and isinstance(res["output"], list) and len(res["output"]) == WF_EVAL_ROWS
+              and all(map(math.isfinite, res["output"])), f"gateway {label}: {doc}")
+        out["runs"][label] = row
+        return row
+
+    def run_wait(label: str, token: str, start: int, namespace: str | None) -> dict:
+        idle(token)
+        n_train = computes.get("train", 0)
+        st, doc, _ = gw_request(gw.url, "POST", "/v1/workflows", token,
+                                body(start, namespace, True))
+        check(st == 200, f"gateway {label}: HTTP {st} {doc}")
+        return report(label, doc, n_train)
+
+    def wait_done(token: str, run_id: str) -> dict:
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            st, doc, _ = gw_request(gw.url, "GET", f"/v1/runs/{run_id}", token)
+            check(st == 200, f"gateway GET run {run_id}: HTTP {st} {doc}")
+            if doc["status"] in ("done", "failed"):
+                return doc
+            time.sleep(0.05)
+        raise CheckFailed(f"gateway: run {run_id} never finished")
+
+    try:
+        print(f"gateway: {gw.url} over the store server {url}; tenants {sorted(GW_TOKENS.values())}"
+              f", shared namespace 'shared', one run in flight per tenant, PT, codec none")
+        cold = run_wait("alice shared cold (eval start 0)", alice, 0, "shared")
+        check(cold["n_skipped"] == 0 and cold["trained"] == 1, f"gateway cold: {cold}")
+
+        # alice's second run trains and stores the prefix; meanwhile her
+        # next POST is over her quota and bob's is accepted (it waits for
+        # the one run slot, then runs in his private namespace)
+        n_train = computes.get("train", 0)
+        st, a2, _ = gw_request(gw.url, "POST", "/v1/workflows", alice, body(2, "shared", False))
+        check(st == 202, f"gateway alice again: HTTP {st} {a2}")
+        t0 = time.perf_counter()
+        st429, rej, hdrs = gw_request(gw.url, "POST", "/v1/workflows", alice,
+                                      body(4, "shared", False))
+        quota_ms = (time.perf_counter() - t0) * 1e3
+        st, bp, _ = gw_request(gw.url, "POST", "/v1/workflows", bob, body(0, None, False))
+        print(f"gateway: alice's POST while her run {a2['run_id']} is {a2['status']}: HTTP "
+              f"{st429} {rej.get('error')} Retry-After {hdrs.get('Retry-After')} in "
+              f"{quota_ms:.3f} ms; bob's POST: HTTP {st} namespace {bp.get('namespace')}")
+        check(st429 == 429 and rej.get("error") == "quota_exceeded"
+              and int(hdrs.get("Retry-After", 0)) >= 1,
+              f"gateway: alice's POST over quota got HTTP {st429} {rej} {hdrs}")
+        check(st == 202 and bp["namespace"] == "tenant:bob", f"gateway bob private: {st} {bp}")
+        out["quota"] = {"status": st429, "error": rej["error"],
+                        "retry_after": int(hdrs["Retry-After"]), "ms": quota_ms}
+
+        # alice's run to its terminal event, over the chunked event stream
+        t0 = time.perf_counter()
+        st, text, hdrs = gw_request(gw.url, "GET", f"/v1/runs/{a2['run_id']}/events", alice)
+        events = [json.loads(line) for line in text.splitlines()]
+        names = [e["event"] for e in events]
+        print(f"gateway: GET /v1/runs/{a2['run_id']}/events ({hdrs.get('Content-Type')}) "
+              f"{names} in {(time.perf_counter() - t0) * 1e3:.3f} ms")
+        check(st == 200 and names[0] == "accepted" and names[-1] == "finished"
+              and all(e["run_id"] == a2["run_id"] for e in events), f"gateway events: {events}")
+        out["events"] = names
+        again = report("alice shared again (eval start 2)", wait_done(alice, a2["run_id"]),
+                       None)
+        check(again["n_skipped"] == 0 and train_key in again["stored"],
+              f"gateway again: {again}; wanted the train prefix {train_key} stored")
+        priv = report("bob private (eval start 0)", wait_done(bob, bp["run_id"]), None)
+        check(priv["n_computed"] == len(gw_steps(0)) and priv["n_skipped"] == 0
+              and computes.get("train", 0) - n_train == 2,
+              f"gateway bob private: {priv}, train calls {computes.get('train', 0) - n_train} "
+              f"in the two runs; wanted every module computed, after the shared prefix was "
+              f"stored")
+
+        reuse = run_wait("alice shared reuse (eval start 4)", alice, 4, "shared")
+        shared = run_wait("bob shared (eval start 6)", bob, 6, "shared")
+        for label, r in (("alice reuse", reuse), ("bob shared", shared)):
+            check(r["n_skipped"] == GW_TRAIN_AT + 1 and r["trained"] == 0,
+                  f"gateway {label}: skipped {r['n_skipped']}, train ran {r['trained']}; "
+                  f"wanted blob..train skipped")
+        out["trace_id"] = shared["trace_id"]
+
+        t0 = time.perf_counter()
+        st, rec, _ = gw_request(
+            gw.url, "GET", "/v1/recommend?dataset=corpus&modules=blob,tokenize,pack,split,"
+            "train&namespace=shared", bob)
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        print(f"gateway: GET /v1/recommend (blob..train, shared) in {rec_ms:.3f} ms: reusable "
+              f"{rec.get('reusable_prefixes')} next {rec.get('next_modules')}")
+        best = (rec.get("reusable_prefixes") or [{}])[0]
+        check(st == 200 and best.get("modules") == ["blob", "tokenize", "pack", "split", "train"]
+              and best.get("stored") is True,
+              f"gateway recommend: {rec}; wanted the stored train prefix")
+        st, arts, _ = gw_request(gw.url, "GET", "/v1/artifacts?module=train&namespace=shared",
+                                 bob)
+        listed = [(a["key"], a["nbytes"], a["n_loads"], a["compute_s"])
+                  for a in arts.get("artifacts", [])]
+        print(f"gateway: GET /v1/artifacts (train, shared) (key, bytes, loads, compute_s: the "
+              f"recompute seconds a hit's saving is set against): {listed}")
+        check(st == 200 and [a["key"] for a in arts["artifacts"]] == [train_key],
+              f"gateway artifacts: {arts}")
+        out["prefix_compute_s"] = arts["artifacts"][0]["compute_s"]
+        stats = {}
+        for name, token in (("alice", alice), ("bob", bob)):
+            st, doc, _ = gw_request(gw.url, "GET", "/v1/stats", token)
+            check(st == 200, f"gateway stats: HTTP {st}")
+            stats[name] = doc["tenant"][name]
+        print(f"gateway: GET /v1/stats tenants {stats}; gateway counts {doc['gateway']}; "
+              f"fabric runs {doc['fabric']['runs']} reuse_rate {doc['fabric']['reuse_rate']}")
+        check(stats["alice"]["runs_total"] == 3 and stats["bob"]["runs_total"] == 2
+              and stats["alice"]["rejected"] == 1 and stats["alice"]["bytes_stored"] > 0,
+              f"gateway stats: {stats}")
+        st, text, _ = gw_request(gw.url, "GET", "/metrics")
+        saved = gw_metric(text, "repro_reuse_seconds_saved_total")
+        hits = gw_metric(text, "repro_reuse_hits_total")
+        print(f"gateway: GET /metrics ({len(text)} bytes): repro_reuse_seconds_saved_total "
+              f"{saved} repro_reuse_hits_total {hits}")
+        check(st == 200 and hits >= 2, f"gateway metrics: reuse hits {hits}")
+        out.update(recommend_ms=rec_ms, stats=stats, metrics={"reuse_seconds_saved": saved,
+                                                              "reuse_hits": hits})
+
+        # drain: a training run in flight, then the two-phase shutdown
+        idle(alice)
+        n_train = computes.get("train", 0)
+        st, dr, _ = gw_request(gw.url, "POST", "/v1/workflows", alice, body(0, None, False))
+        check(st == 202, f"gateway drain run: HTTP {st} {dr}")
+        deadline = time.monotonic() + 120
+        while computes.get("train", 0) == n_train and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(computes.get("train", 0) > n_train, "gateway drain: train never started")
+        t0 = time.perf_counter()
+        gw.begin_shutdown()
+        st503, doc503, hdrs = gw_request(gw.url, "POST", "/v1/workflows", bob,
+                                         body(8, "shared", False))
+        st, health, _ = gw_request(gw.url, "GET", "/healthz")
+        print(f"gateway drain: POST while draining: HTTP {st503} {doc503.get('error')} "
+              f"Retry-After {hdrs.get('Retry-After')}; /healthz {health}")
+        check(st503 == 503 and doc503.get("error") == "draining" and "Retry-After" in hdrs
+              and health.get("draining") is True, f"gateway drain: {st503} {doc503} {health}")
+        drained = report("alice private, drained (eval start 0)",
+                         wait_done(alice, dr["run_id"]), n_train)
+        gw.close()
+        drain_s = time.perf_counter() - t0
+        print(f"gateway drain: the run in flight ended {drained['n_computed']} computed; close() "
+              f"returned {drain_s:.3f} s after begin_shutdown()")
+        check(drained["trained"] == 1, f"gateway drain: {drained}")
+        out["drain"] = {"status": st503, "error": doc503["error"], "close_s": drain_s}
+    finally:
+        gw.close()
+        client.close()
+    return out
+
+
+def gateway_cli(root: str) -> dict:
+    """A start/SIGTERM smoke of the CLI: ``python -m repro_torch.gateway.serve
+    --device cuda --demo-modules`` in a child process, one demo workflow
+    through it (its modules compute host lists and load nothing stored, so
+    no tensor reaches the card), then SIGTERM, which must end it with exit
+    code 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.gateway.serve", "--device", "cuda",
+         "--demo-modules", "--port", "0", "--token", "t=alice", "--root",
+         os.path.join(root, "cli")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        line = proc.stdout.readline()
+        check("gateway listening on http://" in line, f"gateway CLI: first line {line!r}")
+        base = line.split("listening on ")[1].split()[0]
+        start_s = time.perf_counter() - t0
+        spec = {"dataset_id": "nums", "nodes": [
+            {"id": "normalize", "module": "normalize"},
+            {"id": "scale", "module": "scale", "after": ["normalize"]},
+            {"id": "stats", "module": "stats", "after": ["scale"]}]}
+        st, doc, _ = gw_request(base, "POST", "/v1/workflows", "t",
+                                {"spec": spec, "data": [1, 2, 3], "wait": True}, timeout=60)
+        check(st == 200 and doc["status"] == "done", f"gateway CLI run: HTTP {st} {doc}")
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"gateway CLI: {base} (python -m repro_torch.gateway.serve --device cuda, pid "
+          f"{proc.pid}) up in {start_s:.3f} s; demo run {doc['result']['output']}; exit code "
+          f"{proc.returncode} after SIGTERM")
+    check(proc.returncode == 0 and "gateway stopped" in text,
+          f"gateway CLI: exit code {proc.returncode}: {text[-2000:]}")
+    return {"start_s": start_s, "rc": proc.returncode}
+
+
+def gateway_trace(trace_dir: str, trace_id: str) -> dict:
+    """``python -m repro_torch.obs.trace --dir D --list``, then the same for
+    bob's shared run: a tree that spans the gateway's process and the store
+    server's, with its critical path and reuse rollup."""
+    from repro_torch.obs.trace import build_trace, critical_path, reuse_rollup
+    from repro_torch.obs.tracing import iter_spans
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    outs = {}
+    for args in (["--list"], [trace_id]):
+        got = subprocess.run([sys.executable, "-m", "repro_torch.obs.trace", "--dir", trace_dir,
+                              *args], capture_output=True, text=True, env=env, timeout=120)
+        check(got.returncode == 0, f"trace CLI {args}: exit code {got.returncode} {got.stderr}")
+        lines = got.stdout.splitlines()
+        shown = lines if len(lines) <= 2 * GW_PRINT_LINES else (
+            lines[:GW_PRINT_LINES] + [f"... {len(lines) - 2 * GW_PRINT_LINES} lines ..."]
+            + lines[-GW_PRINT_LINES:])
+        print(f"trace CLI {' '.join(args)}: {len(lines)} lines")
+        for line in shown:
+            print(f"  | {line}")
+        outs[args[0]] = got.stdout
+    check(trace_id in outs["--list"], f"trace CLI: {trace_id} not listed")
+    tree = build_trace(list(iter_spans(trace_dir)), trace_id)
+    path = critical_path(tree)
+    roll = reuse_rollup(tree)
+    spans = tree["spans"]
+    print(f"trace {trace_id}: {len(spans)} spans, processes {tree['processes']}; critical path "
+          f"{[(spans[s]['name'], spans[s]['svc'], round(spans[s]['dur'] * 1e3, 3)) for s in path]}"
+          f"; reuse rollup {roll}")
+    check({"gateway", "store"} <= set(tree["services"]) and len(tree["processes"]) >= 2,
+          f"trace {trace_id}: services {tree['services']} processes {tree['processes']}")
+    check("critical path" in outs[trace_id] and "reuse:" in outs[trace_id],
+          "trace CLI: no critical path or reuse line")
+    # where a hit's load goes: the store.get span against the read_blob
+    # round trips under it (the gateway's side) and the store server's reads
+    gets = [s for s in spans.values() if s["name"] == "store.get"
+            and (s.get("attrs") or {}).get("source") == "store"]
+    check(len(gets) == 1, f"trace {trace_id}: {len(gets)} store.get spans that loaded, wanted 1")
+    under = tree["children"].get(gets[0]["span"], [])
+    load = {"store_get_s": gets[0]["dur"],
+            "read_blob_rpc_s": sum(s["dur"] for s in under if s["name"] == "rpc"
+                                   and (s.get("attrs") or {}).get("op") == "read_blob"),
+            "store_read_blob_s": sum(s["dur"] for s in under if s["name"] == "store.read_blob"),
+            "saved_s": (gets[0].get("attrs") or {}).get("saved_s")}
+    print(f"trace {trace_id}: the prefix's load: store.get {load['store_get_s']:.6f} s, of it "
+          f"read_blob round trips {load['read_blob_rpc_s']:.6f} s (the store server's reads "
+          f"{load['store_read_blob_s']:.6f} s); saved_s {load['saved_s']}")
+    return {"spans": len(spans), "processes": [list(p) for p in tree["processes"]],
+            "critical_path": [spans[s]["name"] for s in path], "rollup": roll, "load": load}
+
+
+def phase_gateway(dev) -> dict:
+    """The multi-tenant HTTP gateway (``repro_torch.gateway``) over the
+    workflow at full TinyLlama-1.1B width: one port store server as a child
+    process (``python -m repro_torch.net.serve --trace-dir D``), the gateway
+    in this process over a ``Client`` mounted on it (tracing into the same
+    directory), two tenants driving it over HTTP on loopback (shared
+    prefixes reused across tenants, a private namespace computed in full,
+    a 429 over quota, the event stream, recommend, stats, artifacts,
+    metrics, the drain's 503); then a start/SIGTERM smoke of the gateway's
+    CLI with ``--device cuda``; then ``python -m repro_torch.obs.trace``
+    over the spans of both processes, with the stored prefix's load split
+    under its ``store.get`` span.  Tracing is off again when the phase
+    ends."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import reset_launches as reset_flash
+    from repro_torch.obs.tracing import configure_tracing
+
+    cfg = get_config("tinyllama-1.1b")  # full width, bf16
+    root = tempfile.mkdtemp(prefix="gateway-")
+    trace_dir = os.path.join(root, "traces")
+    computes: dict = {}
+    t0 = time.perf_counter()
+    try:
+        configure_tracing(trace_dir, "gateway")
+        proc, url = start_store_server(os.path.join(root, "store"), trace_dir)
+        try:
+            torch.cuda.synchronize()
+            reset_flash()
+            out = gateway_runs(dev, cfg, url, computes)
+            out["flash"] = (flash_attention.launches_fwd, flash_attention.launches_bwd)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = None
+        check(rc == 0, f"gateway: the store server's exit code {rc} after SIGTERM")
+        out["cli"] = gateway_cli(root)
+    finally:
+        configure_tracing(None)
+    out["wall_s"] = time.perf_counter() - t0
+    try:
+        out["trace"] = gateway_trace(trace_dir, out["trace_id"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_train, n_eval = computes.get("train", 0), computes.get("eval", 0)
+    print(f"gateway: module calls {computes}; flash launches fwd {out['flash'][0]} bwd "
+          f"{out['flash'][1]}")
+    check(out["flash"][1] == cfg.n_layers * WF_STEPS * n_train
+          and out["flash"][0] == cfg.n_layers * (WF_STEPS * n_train + n_eval),
+          f"gateway: flash launches {out['flash']} for {n_train} train and {n_eval} eval calls")
+    out.update(train_calls=n_train, eval_calls=n_eval)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -4617,6 +5227,8 @@ def main() -> int:
     wf = timed(phase_workflow, eng["rows"])
     store = timed(phase_store_server, eng["rows"])
     cli = timed(phase_client, eng["rows"])
+    gwy = timed(phase_gateway)
+    g3s = timed(phase_gemma3_serve)
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -4632,10 +5244,12 @@ def main() -> int:
     flash_tpu = "src/repro/kernels/flash_attention/kernel.py:114"
     decode_src = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
     decode_tpu = "src/repro/kernels/decode_attention/kernel.py:106"
+    family_parity = ("fp32 MoE/MLA and gemma3 dh-256 smoke engines and 2-layer qwen2-moe "
+                     "(card vs CPU)")
     split_paths = {"fp32 smoke serving (card vs CPU)": par["split"],
                    "fp32 gemma3 smoke prefill_chunk chain": pre["smoke_chain_launches"]["split"],
-                   "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)":
-                   fpar["split"]}
+                   family_parity: fpar["split"],
+                   "gemma3-4b serving prefill chunks (dh 256)": g3s["launches"]["split"]}
     split_at_chunk = kern["cases"][(CHUNK_CASE, "bfloat16")]
     # the cuts of scale this run makes to a published configuration
     line = {"kernels": [], "reduced": {
@@ -4655,7 +5269,8 @@ def main() -> int:
           "client": cli["decode"]["fused"],
           "deepseek-7b serving decode steps": ds7["launches"]["fused"],
           "qwen2-moe-a2.7b serving decode steps": qwen["launches"]["fused"],
-          "fp32 MoE/MLA smoke engines and 2-layer qwen2-moe (card vs CPU)": fpar["fused"]}),
+          family_parity: fpar["fused"],
+          "gemma3-4b serving decode steps (dh 256)": g3s["launches"]["fused"]}),
         ("decode_attention_chunk", "chunk", CHUNK_CASE, "bfloat16",
          kern["written"][(CHUNK_CASE, "bfloat16")],
          {"serving prefill chunks": eng["launches"]["chunk"],
@@ -4686,16 +5301,33 @@ def main() -> int:
             "held": True,
             "shape": decode_shape(case, tname),
         }
+        timed_keys = ("queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
         if var in ("fused", "chunk"):  # MHA at dh 128, G 1: deepseek-7b's and qwen2-moe's
             entry["family_cases"] = {
-                label: {k: kern["written"][(label, "bfloat16")][k] for k in (
-                    "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                label: {k: kern["written"][(label, "bfloat16")][k] for k in timed_keys}
                 for label in ((FAMILY_DECODE if var == "fused" else FAMILY_CHUNK))}
+        # gemma3-4b's engine at dh 256, G 2 (fused: its decode steps; split:
+        # its chunk calls), at the first requests' positions in a local layer,
+        # then at the long request's, where the window bites, and in a global
+        # layer
+        gemma_served = {label: {k: kern["written"][(label, "bfloat16")][k] for k in timed_keys}
+                        for label in GEMMA_SERVED.get(var, ())}
+        if var == "fused":
+            entry["at_gemma3_decode"] = {
+                k: kern["written"][(GEMMA_DECODE, "bfloat16")][k] for k in timed_keys}
+            entry["at_gemma3_served"] = gemma_served
         if var == "chunk":
             entry["full_width_chain_launches"] = pre["chain_launches"]["chunk"]
         if var == "split":  # the variant the chunk kernel replaced at the engine's chunk call
-            entry["at_chunk_case"] = {k: split_at_chunk[k] for k in (
-                "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            entry["at_chunk_case"] = {k: split_at_chunk[k] for k in timed_keys}
+            # gemma3-4b's engine chunk (dh 256), which the split variant takes:
+            # the whole call (two index writes and two kernels), and its
+            # kernels alone on a cache that holds the rows
+            entry["at_gemma3_chunk"] = {
+                k: kern["written"][(GEMMA_CHUNK, "bfloat16")][k] for k in timed_keys}
+            entry["at_gemma3_chunk"]["kernels_alone_queued_ms"] = \
+                kern["cases"][(GEMMA_CHUNK, "bfloat16")]["queued_ms"]
+            entry["at_gemma3_served"] = gemma_served
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
     family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
@@ -4716,9 +5348,11 @@ def main() -> int:
     for name, kind, by_path in (
         ("flash_attention", "fwd",
          {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
-          "client": cli["flash"][0], **family_flash, **family_train_flash[0]}),
+          "client": cli["flash"][0], "gateway": gwy["flash"][0], **family_flash,
+          **family_train_flash[0]}),
         ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1],
-                                        "client": cli["flash"][1], **family_train_flash[1]}),
+                                        "client": cli["flash"][1], "gateway": gwy["flash"][1],
+                                        **family_train_flash[1]}),
     ):
         r = fm[kind]
         line["kernels"].append({
@@ -4961,6 +5595,25 @@ def main() -> int:
         "load_s": cli["local"]["load_s"], "recommend_ms": cli["local"]["recommend_ms"],
         "restore_ms": cli["cluster"]["restore"], "elections": cli["cluster"]["elections"],
         "failover_reads": cli["cluster"]["failover_reads"]}
+    line["gateway"] = {
+        "run_s": {k: r["run_s"] for k, r in gwy["runs"].items()},
+        "n_skipped": {k: r["n_skipped"] for k, r in gwy["runs"].items()},
+        "quota_429": gwy["quota"], "drain": gwy["drain"], "events": gwy["events"],
+        "recommend_ms": gwy["recommend_ms"], "metrics": gwy["metrics"],
+        "rollup": gwy["trace"]["rollup"], "trace_processes": gwy["trace"]["processes"],
+        "critical_path": gwy["trace"]["critical_path"], "cli": gwy["cli"],
+        "prefix_compute_s": gwy["prefix_compute_s"], "prefix_load": gwy["trace"]["load"],
+        "wall_s": gwy["wall_s"]}
+    line["gemma3_serve"] = {
+        "decode_ms_graph": g3s["graph_ms"], "decode_ms_replay": g3s["replay_ms"],
+        "decode_ms_eager": g3s["eager_ms"],
+        "decode_bound_ms": {k: ms for k, (_, ms) in g3s["bounds"].items()},
+        "prefill_ms_per_chunk_call": g3s["chunk_ms"],
+        "long_prefill_ms_per_chunk_call": g3s["long_chunk_ms"],
+        "chunks_skipped": [[r["skipped"], r["n"]] for r in g3s["rows"]],
+        "snapshot_bytes_per_token_layer": g3s["snapshot"][2], "launches": g3s["launches"],
+        "chunk_call_profile": {k: g3s["chunk_profile"].get(k)
+                               for k in ("wall_ms", "busy_ms", "idle_share")}}
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
