@@ -131,7 +131,29 @@ full-width GatedGCN through ``build_train_step`` on ``minibatch_lg`` blocks
 sampled from that graph (one warm-up, three timed steps, one profiled;
 every aggregation launch must run on the CSR index), times the index build
 alone, takes one ``full_graph_sm`` step, and trains an fp32 smoke
-GatedGCN five steps on the card and on the CPU and compares them.
+GatedGCN five steps on the card and on the CPU and compares them.  Then the
+two GatedGCN cells no phase above runs, at full width (16 layers, d_hidden
+70, 47 classes, fp32) through ``build_train_step`` and AdamW on
+``make_batch``'s graphs: ``molecule`` at its full size (B 128 graphs of 30
+nodes and 64 edges through ``forward_batched``; the first step's loss and
+every gradient leaf held against the CPU's within 1e-4 of the leaf's largest
+value; 16 + 16 aggregation launches a step, all on the CSR index), and
+``ogb_products`` cut in scale, not in shape (nodes and edges by one factor,
+the largest whose dry-run peak lies under 75 GB, remat full; the cut goes
+into ``reduced``), with its index build's device time; then the aggregation
+kernels at ogb_products' full published size (2,449,029 rows and 61,859,140
+slots x 70 fp32, past 2^31 elements) on ``make_batch``'s uniform graph and
+on a power-law graph of the same counts drawn on the card: two backward runs
+equal bit for bit, every output against the same function in fp64 and (on
+the uniform graph) against the plain version in row blocks, the times
+beside the bound, the plain version and the ``index_add_`` yardstick.  Then
+the dry-run (``repro_torch.launch.dryrun``, on the meta device) reckons
+each step whose peak a phase measured (TinyLlama's, the three families',
+``minibatch_lg``'s and the two new cells'): its peak within 10% of the
+step's measured one, its roofline time at most the measured step time,
+TinyLlama's counted FLOPs within 10% of ``model_flops``; it prints the depth
+it gives each family under 75 GB beside FAMILY_TRAIN's, and holds its flash
+scratch sizes to the library's.
 
 Last, the thesis's workflow path at full TinyLlama-1.1B width: a 64 MB
 corpus on the card goes through tokenize -> pack -> split (the port's
@@ -1371,6 +1393,7 @@ def phase_train(dev) -> dict:
     cfg = get_config("tinyllama-1.1b")  # full width, bf16
     B, S = 4, 2048
     cell = ShapeCell("train", "train", {"seq_len": S, "global_batch": B})
+    pre = torch.cuda.memory_allocated(dev)  # what the process holds before the step's state
     gen = torch.Generator(device=dev).manual_seed(0)
     state = make_train_state(init_params(gen, lm_specs(cfg), cfg.dtype, dev))
     step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100),
@@ -1378,6 +1401,7 @@ def phase_train(dev) -> dict:
     batches = [lm_batch(cfg.vocab, B, S, i, dev) for i in range(5)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)  # live at the reset: the state, the batches, pre
     reset_launches()
     rows = []
     for i in range(4):  # one warm-up step, three timed
@@ -1418,7 +1442,8 @@ def phase_train(dev) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"launches": launches, "rows": rows, "mean_step_s": mean_s, "max_memory": mem,
-            "profile": prof, "variant": var}
+            "base_memory": base, "pre_memory": pre, "batches": len(batches), "profile": prof,
+            "variant": var}
 
 
 def phase_train_parity(dev) -> dict:
@@ -2770,6 +2795,7 @@ def family_train(dev, arch: str, layers: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    pre = torch.cuda.memory_allocated(dev)  # what the process holds before the step's state
     params = at_true_fan_in(init_params(torch.Generator(device=dev).manual_seed(0),
                                         transformer.lm_specs(cfg), cfg.dtype, dev), cfg)
     n_par = param_bytes(params)[0]
@@ -2793,6 +2819,7 @@ def family_train(dev, arch: str, layers: int) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)  # live at the reset: the state, the batches, pre
     reset_launches()
     rows = []
     moe.route = counted
@@ -2837,7 +2864,7 @@ def family_train(dev, arch: str, layers: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     run.update(rows=rows, mean_step_s=mean_s, tokens_per_s=B * S / mean_s, max_memory=mem,
-               launches=launches, full_layers=full.n_layers)
+               base_memory=base, pre_memory=pre, launches=launches, full_layers=full.n_layers)
     return run
 
 
@@ -3714,6 +3741,17 @@ def agg_check(label: str, tname: str, layout: str, names, got, want, tol: float)
     return errs
 
 
+def row_blocks(idx, blocks: int) -> list[tuple[int, int, int, int]]:
+    """(first row, end row, first slot, end slot) of ``blocks`` blocks of
+    whole rows of a CSR index, each about as many slots, none empty."""
+    N, E = idx.row_ptr.numel() - 1, idx.col.numel()
+    ends = torch.searchsorted(idx.row_ptr, torch.linspace(0, E, blocks + 1, device=idx.col.device)
+                              .long().int()).tolist()
+    ends[0], ends[-1] = 0, N
+    slots = idx.row_ptr[ends].tolist()
+    return [(r0, r1, a, b) for r0, r1, a, b in zip(ends, ends[1:], slots, slots[1:]) if r1 > r0]
+
+
 def csr_check64(label: str, idx, h, gates, dnum, dden, got, tol: float,
                 chunk: int = 1 << 21) -> dict:
     """The CSR call's outputs (num, den, dh, dgates) against the same
@@ -3767,12 +3805,20 @@ def csr_check64(label: str, idx, h, gates, dnum, dden, got, tol: float,
     check(math.isfinite(dg_err) and dg_ratio <= 1.0,
           f"gnn_aggregate {label} csr dgates: max_abs_err {dg_err}, ratio {dg_ratio}")
     errs["bwd"] = max(errs["bwd"], dg_err)
-    plain, _ = gnn_aggregate_csr_ref(h, idx.row_ptr, idx.col, gates, False)
-    diff = (plain.double() - num).abs()
+    # the plain fp32 num in blocks of rows of about 2^23 slots: its [slots,
+    # dim] temporaries of a graph of 6e7 slots would not fit beside the rest
+    err = norm_ratio = elem_ratio = 0.0
+    for r0, r1, a, b in row_blocks(idx, -(-E // (1 << 23))):
+        plain, _ = gnn_aggregate_csr_ref(h, idx.row_ptr[r0:r1 + 1] - a, idx.col[a:b],
+                                         gates[a:b], False)
+        diff = (plain.double() - num[r0:r1]).abs()
+        err = max(err, diff.max().item())
+        norm_ratio = max(norm_ratio, (diff / (tol * (1 + num_s[r0:r1]))).max().item())
+        elem_ratio = max(elem_ratio, (diff / (tol * (1 + num[r0:r1].abs()))).max().item())
+        del plain, diff
     print(f"agg check {label:20s} {tname:8s} plain fp32 num against fp64: max_abs_err "
-          f"{diff.max().item():.3e} worst err/(tol*(1+sum|terms|)) "
-          f"{(diff / (tol * (1 + num_s))).max().item():.3f}; elementwise rule "
-          f"{(diff / (tol * (1 + num.abs()))).max().item():.3f}")
+          f"{err:.3e} worst err/(tol*(1+sum|terms|)) {norm_ratio:.3f}; elementwise rule "
+          f"{elem_ratio:.3f}")
     return errs
 
 
@@ -3973,6 +4019,7 @@ def phase_gnn_train(dev, sampler) -> dict:
     cfg = get_config("gatedgcn")  # full width: 16 layers, d_hidden 70, 47 classes, fp32
     cells = {c.name: c for c in get_shapes("gatedgcn")}
     cell = cells["minibatch_lg"]
+    pre = torch.cuda.memory_allocated(dev)  # what the process holds before the step's state
     gen = torch.Generator(device=dev).manual_seed(0)
     state = make_train_state(init_params(gen, build_param_specs(cfg, cell), cfg.dtype, dev))
     step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100))
@@ -3988,6 +4035,7 @@ def phase_gnn_train(dev, sampler) -> dict:
           f"queued_ms {index_ms:.6f} ms (back to back, host included) {index_host_ms:.6f}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)  # the state, feats, labels, the batches, pre
     reset_launches()
     rows = []
     n_steps = 4
@@ -4047,7 +4095,8 @@ def phase_gnn_train(dev, sampler) -> dict:
     del fstate, fbatch
     torch.cuda.empty_cache()
     return {"launches": launches, "steps": n_steps, "launches_full_graph": full, "rows": rows,
-            "mean_step_s": mean_s, "max_memory": mem, "profile": prof, "index_ms": index_ms}
+            "mean_step_s": mean_s, "max_memory": mem, "base_memory": base, "pre_memory": pre,
+            "profile": prof, "index_ms": index_ms}
 
 
 def phase_gnn_parity(dev) -> None:
@@ -4096,6 +4145,490 @@ def phase_gnn_parity(dev) -> None:
           f"launches on the card fwd {launched[0]} bwd {launched[1]}")
     check(worst <= 1.0, f"gnn parity: final parameters differ (worst ratio {worst})")
     check(min(launched) > 0, "gnn parity: the card never launched the aggregation kernels")
+
+
+# --------------------------------------------------------------------------
+# phase: the GatedGCN cells molecule and ogb_products, and the aggregation
+# kernel at ogb_products' full size
+# --------------------------------------------------------------------------
+FIT_BYTES = 75 * 10**9  # a cut's reckoned peak stays under this (tools/family_depth.py's)
+OGB_NODES, OGB_EDGES = 2_449_029, 61_859_140  # ogb_products as published
+OGB_STEPS = 3  # one warm-up, two timed
+MOLECULE_STEPS = 4  # one warm-up, three timed
+OGB_AGG_ITERS = 3
+OGB_AGG_BLOCKS = 8  # row blocks of the plain version's check at the full size
+
+
+def first_step_parity(dev, cfg, cell, cpu_params, batch) -> dict:
+    """The loss and every gradient leaf of one step at ``cpu_params`` on the
+    card (kernels) and on the CPU (plain path), each leaf held within 1e-4
+    of its largest value (the loss within 1e-4 of itself)."""
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate
+    from repro_torch.train import build_loss_fn
+    from repro_torch.tree import unflatten
+
+    loss_fn = build_loss_fn(cfg, cell)
+
+    def grads(params, b):
+        req = [t.detach().requires_grad_(True) for t in leaves(params)]
+        loss, _ = loss_fn(unflatten(params, req), b)
+        return float(loss.detach()), torch.autograd.grad(loss, req)
+
+    f0, b0 = gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd
+    la, ga = grads(to_device(cpu_params, dev), to_device(batch, dev))
+    launched = (gnn_aggregate.launches_fwd - f0, gnn_aggregate.launches_bwd - b0)
+    lb, gb = grads(cpu_params, batch)
+    worst = abs(la - lb) / (1e-4 * max(abs(lb), 1e-3))
+    for a, b in zip(ga, gb):
+        worst = max(worst, ((a.cpu() - b).abs().max() / (1e-4 * max(b.abs().max(), 1e-3))).item())
+    print(f"gnn {cell.name} first step card vs CPU (fp32): loss {la:.7f} / {lb:.7f}; worst "
+          f"|card - cpu| / (1e-4 * the leaf's largest |value|) {worst:.4f} over {len(gb)} "
+          f"gradient leaves and the loss; aggregation launches fwd {launched[0]} bwd "
+          f"{launched[1]}")
+    check(worst <= 1.0, f"gnn {cell.name}: the card's first step differs from the CPU's "
+                        f"(worst ratio {worst})")
+    check(launched == (cfg.n_layers, cfg.n_layers),
+          f"gnn {cell.name} first step: aggregation launches {launched}")
+    return {"worst": worst, "loss": (la, lb)}
+
+
+def gnn_train_steps(dev, cfg, cell, step, state, batches, n_steps: int, unit: str,
+                    per_step: float, remat: bool, pre: int) -> dict:
+    """``n_steps`` train steps (the first a warm-up) from a peak reset: loss,
+    step ms, ``unit`` a second (``per_step`` of them a step), the aggregation
+    launches of each step (a forward and a backward a layer, and under remat
+    the recomputed forward too, every one on the CSR index) and the peak.
+    ``pre`` is what the process held before the step's state was built."""
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate, reset_launches
+    from repro_torch.launch.dryrun import CARD_BYTES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launches()
+    rows = []
+    want = ((2 if remat else 1) * cfg.n_layers, cfg.n_layers)
+    for i in range(n_steps):
+        f0, b0 = gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i % len(batches)])
+        m = {k: float(v) for k, v in m.items()}  # waits for the device
+        dt = time.perf_counter() - t0
+        nf, nb = gnn_aggregate.launches_fwd - f0, gnn_aggregate.launches_bwd - b0
+        tag = "warm-up" if i == 0 else f"step {i}"
+        print(f"gnn {cell.name} {tag}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} "
+              f"step_ms {dt * 1e3:.3f} {unit}_per_s {per_step / dt:.1f} agg_fwd {nf} "
+              f"agg_bwd {nb}")
+        check(all(math.isfinite(v) for v in m.values()), f"gnn {cell.name} {tag}: {m}")
+        check((nf, nb) == want, f"gnn {cell.name} {tag}: {nf} forward / {nb} backward "
+                                f"aggregations, wanted {want}")
+        rows.append(dict(step_s=dt, **m))
+    layouts = dict(gnn_aggregate.launches_by_layout)
+    launches = [gnn_aggregate.launches_fwd, gnn_aggregate.launches_bwd]
+    check(layouts == {"csr": sum(launches), "ell": 0},
+          f"gnn {cell.name}: launches by layout {layouts}, wanted every one on the CSR index")
+    mem = torch.cuda.max_memory_allocated(dev)
+    mean_s = sum(r["step_s"] for r in rows[1:]) / (n_steps - 1)
+    print(f"gnn {cell.name}: {cfg.name} fp32, {cell.params}: mean step_ms {mean_s * 1e3:.3f} "
+          f"{unit}_per_s {per_step / mean_s:.1f} max_memory_allocated {mem} (live at the reset "
+          f"{base}); aggregation launches in the {n_steps} steps fwd {launches[0]} bwd "
+          f"{launches[1]} by layout {layouts}")
+    check(mem < CARD_BYTES, f"gnn {cell.name}: peak {mem} B")
+    return {"rows": rows, "mean_step_s": mean_s, "max_memory": mem, "base_memory": base,
+            "pre_memory": pre, "launches": launches, "steps": n_steps,
+            f"{unit}_per_s": per_step / mean_s}
+
+
+def gnn_molecule(dev, cfg, cell) -> dict:
+    """``molecule`` not cut: B 128 graphs of 30 nodes and 64 edges through
+    ``forward_batched``; the first step card against CPU, then the steps."""
+    from repro_torch.data import make_batch
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_param_specs, build_train_step, make_train_state
+
+    cpu_params = init_params(torch.Generator().manual_seed(0), build_param_specs(cfg, cell),
+                             cfg.dtype, "cpu")
+    cpu_batches = [make_batch(cfg, cell, seed=i, device="cpu") for i in range(MOLECULE_STEPS)]
+    parity = first_step_parity(dev, cfg, cell, cpu_params, cpu_batches[0])
+    gc.collect()
+    pre = torch.cuda.memory_allocated(dev)
+    state = make_train_state(to_device(cpu_params, dev))
+    batches = [to_device(b, dev) for b in cpu_batches]
+    step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100))
+    p = cell.params
+    run = gnn_train_steps(dev, cfg, cell, step, state, batches, MOLECULE_STEPS, "graphs",
+                          p["batch"], remat=False, pre=pre)
+    del state, batches
+    run.update(parity=parity, resident_batches=MOLECULE_STEPS - 1)
+    return run
+
+
+def gnn_ogb_cut(dev, cfg, full) -> dict:
+    """``ogb_products`` cut in scale, not in shape: the dry-run's largest
+    node count (its edges cut by the same factor) whose step, remat full,
+    peaks under FIT_BYTES; d_feat 100, 16 layers at width 70; the index
+    build's device time (no sync), then the steps on one graph."""
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.gnn_aggregate import csr_index
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_param_specs, build_train_step, make_train_state
+
+    t0 = time.perf_counter()
+    cell, rec = dryrun.largest_cut("gatedgcn", full, FIT_BYTES, remat="full")
+    n, e = cell.params["n_nodes"], cell.params["n_edges"]
+    print(f"gnn ogb_products: the dry-run's cut for a peak under {FIT_BYTES} B (remat full): "
+          f"{n} of {OGB_NODES} nodes, {e} of {OGB_EDGES} edges (factor {n / OGB_NODES:.6f}; "
+          f"{e / n:.3f} edges a node, published {OGB_EDGES / OGB_NODES:.3f}); reckoned peak "
+          f"{rec['memory']['peak_hbm_bytes']} B, roofline "
+          f"{rec['roofline']['step_time_s'] * 1e3:.3f} ms; search "
+          f"{time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = make_train_state(init_params(gen, build_param_specs(cfg, cell), cfg.dtype, dev))
+    step = build_train_step(cfg, cell, AdamWConfig(warmup_steps=10, total_steps=100),
+                            remat="full")
+    batch = make_batch(cfg, cell, seed=0, device=dev)
+    ei, n_pad = batch["edge_index"], batch["node_feat"].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any read back to the host raises
+    try:
+        csr_index(ei, n_pad)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    index_ms = queued_ms(lambda: csr_index(ei, n_pad))
+    print(f"gnn ogb_products: csr_index of the cut graph ({n_pad} nodes, {ei.shape[1]} edges) on "
+          f"the card without a sync: queued_ms {index_ms:.6f}")
+    run = gnn_train_steps(dev, cfg, cell, step, state, [batch], OGB_STEPS, "nodes", n,
+                          remat=True, pre=pre)
+    del state, batch, ei
+    gc.collect()
+    torch.cuda.empty_cache()
+    run.update(cell=cell, reckoned=rec, index_ms=index_ms)
+    return run
+
+
+def power_law_on_card(n: int, e: int, dev, seed: int = 0) -> torch.Tensor:
+    """Edges [2, e] int32 with ``random_graph``'s power law (node weights
+    pareto(1.5) + 1, both ends drawn in proportion to them), drawn on the
+    card: the host's ``rng.choice`` takes tens of seconds at this size."""
+    w = np.random.default_rng(seed).pareto(1.5, size=n) + 1.0
+    cdf = torch.from_numpy(np.cumsum(w / w.sum())).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ends = [torch.searchsorted(cdf, torch.rand(e, generator=gen, device=dev, dtype=torch.float64))
+            .clamp_(max=n - 1).int() for _ in range(2)]
+    return torch.stack(ends)
+
+
+def csr_rows_against_plain(idx, h, gates, dnum, dden, got, blocks: int) -> tuple[dict, dict]:
+    """The CSR call's outputs (num, den, dh, dgates) against the plain
+    version plus autograd in fp32, on every row, in ``blocks`` blocks of
+    rows (the plain version's [slots, dim] temporaries of the whole graph
+    would not fit beside the kernel's).  Returns the largest errors (fwd,
+    bwd) and the plain version's summed times of the blocks (fwd, bwd)."""
+    from repro_torch.kernels.gnn_aggregate import gnn_aggregate_csr_ref
+
+    h32 = h.detach().clone().requires_grad_(True)
+    dh_acc = torch.zeros_like(h)
+    errs, ms = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    for r0, r1, a, b in row_blocks(idx, blocks):
+        rp = idx.row_ptr[r0:r1 + 1] - a
+        g = gates[a:b].detach().requires_grad_(True)
+        t = [ev() for _ in range(3)]
+        t[0].record()
+        num, den = gnn_aggregate_csr_ref(h32, rp, idx.col[a:b], g, True)
+        t[1].record()
+        dh, dg = torch.autograd.grad((num, den), (h32, g), (dnum[r0:r1], dden[r0:r1]))
+        t[2].record()
+        torch.cuda.synchronize()
+        ms["fwd"] += t[0].elapsed_time(t[1])
+        ms["bwd"] += t[1].elapsed_time(t[2])
+        dh_acc += dh
+        for kind, x, y in (("fwd", got[0][r0:r1], num), ("fwd", got[1][r0:r1], den),
+                           ("bwd", got[3][a:b], dg)):
+            err, ratio = assert_close_ratio(x, y.detach(), TOL[torch.float32])
+            check(math.isfinite(err) and ratio <= 1.0,
+                  f"gnn_aggregate ogb_products rows {r0}..{r1} {kind}: max_abs_err {err}, "
+                  f"ratio {ratio}")
+            errs[kind] = max(errs[kind], err)
+        del num, den, dh, dg, g
+    err, ratio = assert_close_ratio(got[2], dh_acc, TOL[torch.float32])
+    check(math.isfinite(err) and ratio <= 1.0,
+          f"gnn_aggregate ogb_products dh: max_abs_err {err}, ratio {ratio}")
+    errs["bwd"] = max(errs["bwd"], err)
+    print(f"agg check ogb_products full uniform csr against the plain version in {blocks} row "
+          f"blocks (atol=rtol={TOL[torch.float32]:.0e}): fwd max_abs_err {errs['fwd']:.3e}, bwd "
+          f"{errs['bwd']:.3e}; plain ms fwd {ms['fwd']:.3f} bwd {ms['bwd']:.3f} (block sums)")
+    return errs, ms
+
+
+def agg_ogb_full(dev) -> dict:
+    """The aggregation kernels at ogb_products' published size, 2,449,029
+    rows and 61,859,140 slots x 70 fp32 (4.33e9 gate elements, past 2^31),
+    forward with den and backward, on make_batch's uniform graph and on a
+    power-law graph of the same counts: the index built without a sync; two
+    backward runs equal bit for bit; against the same function in fp64
+    (``csr_check64``, the large graphs' rule of ``phase_agg``) and, on the
+    uniform graph, against the plain version in row blocks; then the times
+    beside the bound and the ``index_add_`` yardstick, written out in place
+    (autograd of the whole ``index_add_`` form would not fit beside it)."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.gnn_aggregate import csr_index
+    from repro_torch.kernels.gnn_aggregate import ops
+
+    cfg = get_config("gatedgcn")
+    full = {c.name: c for c in get_shapes("gatedgcn")}["ogb_products"]
+    n, E, dim = OGB_NODES, OGB_EDGES, cfg.d_hidden
+    t0 = time.perf_counter()
+    uniform = make_batch(cfg, full, seed=0, device="cpu")["edge_index"][:, :E].contiguous()
+    print(f"agg ogb_products: make_batch's graph drawn in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for label in ("uniform", "power law"):
+        t0 = time.perf_counter()
+        ei = uniform.to(dev) if label == "uniform" else power_law_on_card(n, E, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any read back to the host raises
+        try:
+            idx = csr_index(ei, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        index_ms = queued_ms(lambda: csr_index(ei, n))
+        del ei
+        max_deg = int((idx.row_ptr[1:] - idx.row_ptr[:-1]).max())
+        print(f"agg ogb_products {label}: {n} rows, {E} slots x {dim} fp32 ({E * dim} gate "
+              f"elements, 2^31 = {2**31}); largest in-degree {max_deg}; graph on the card in "
+              f"{time.perf_counter() - t0:.3f} s; csr_index queued_ms {index_ms:.6f}")
+        h = torch.randn(n, dim, generator=gen, device=dev)
+        gates = torch.rand(E, dim, generator=gen, device=dev)  # slot order: i.i.d., as drawn
+        dnum, dden = (torch.randn(n, dim, generator=gen, device=dev) for _ in range(2))
+        fwd = lambda: ops.gnn_aggregate_fwd(h, idx.row_ptr, idx.col, gates, with_den=True)
+        bwd = lambda: ops.gnn_aggregate_bwd(h, idx.row_ptr, idx.col, gates, dnum, dden, idx.rev)
+        num, den = fwd()
+        dh, dg = bwd()
+        dh2, dg2 = bwd()
+        torch.cuda.synchronize()
+        same = torch.equal(dh, dh2) and torch.equal(dg, dg2)
+        del dh2, dg2
+        print(f"agg check ogb_products {label}: backward equal bit for bit over two runs: {same}")
+        check(same, f"gnn_aggregate ogb_products {label}: the backward is not deterministic")
+        errs = csr_check64(f"ogb_products {label}", idx, h, gates, dnum, dden,
+                           (num, den, dh, dg), TOL[torch.float32])
+        row = {"index_ms": index_ms, "max_in_degree": max_deg}
+        plain_ms = {}
+        if label == "uniform":
+            plain_errs, plain_ms = csr_rows_against_plain(idx, h, gates, dnum, dden,
+                                                          (num, den, dh, dg), OGB_AGG_BLOCKS)
+            errs = {k: max(errs[k], plain_errs[k]) for k in errs}
+        del num, den, dh, dg
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kind, fn in (("fwd", fwd), ("bwd", bwd)):
+            bms, by = csr_bound_ms(idx, n, dim, 4, kind == "bwd", True)
+            row[kind] = dict(agg_times(fn, OGB_AGG_ITERS), bound_ms=bms, bound_by=by,
+                             max_abs_err=errs[kind], plain_ms=plain_ms.get(kind))
+        # yardstick: the reference model's segment sums as index_add_, and
+        # their backward written out (what autograd of that form runs), in place
+        src, dst = idx.col.long(), torch.searchsorted(
+            idx.row_ptr, torch.arange(E, dtype=torch.int32, device=dev), right=True) - 1
+
+        def seg_fwd():
+            t = gates * h[src]
+            a = torch.zeros(n, dim, device=dev).index_add_(0, dst, t)
+            del t
+            return a, torch.zeros(n, dim, device=dev).index_add_(0, dst, gates)
+
+        def seg_bwd():
+            dg_ = dnum[dst]
+            dg_.mul_(h[src]).add_(dden[dst])
+            u = dnum[dst]
+            u.mul_(gates)
+            return torch.zeros(n, dim, device=dev).index_add_(0, src, u), dg_
+
+        row["fwd"]["yardstick_ms"] = cuda_ms(seg_fwd, iters=OGB_AGG_ITERS, warmup=1)
+        row["bwd"]["yardstick_ms"] = cuda_ms(seg_bwd, iters=OGB_AGG_ITERS, warmup=1)
+        for kind in ("fwd", "bwd"):
+            r = row[kind]
+            print(f"agg time  ogb_products {label:9s} float32 csr {kind} ms {r['ms']:.6f} "
+                  f"device_ms {r['device_ms']:.6f} queued_ms {r['queued_ms']:.6f} "
+                  f"l2_flushed_ms {r['flushed_ms']:.6f} plain_ms {r['plain_ms']} "
+                  f"yardstick_index_add_ms {r['yardstick_ms']:.6f} bound_ms "
+                  f"{r['bound_ms']:.6f} ({r['bound_by']}) on {card_line()}")
+        out[label] = row
+        del h, gates, dnum, dden, idx, src, dst
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gnn_cells(dev) -> dict:
+    """Full-width GatedGCN (16 layers, d_hidden 70, 47 classes, fp32) on the
+    two cells the other phases do not run, through ``build_train_step`` and
+    AdamW on ``make_batch``'s graphs: ``molecule`` at its full size and
+    ``ogb_products`` at the dry-run's cut; then the aggregation kernels at
+    ogb_products' full size."""
+    from repro_torch.configs import get_config, get_shapes
+
+    cfg = get_config("gatedgcn")
+    cells = {c.name: c for c in get_shapes("gatedgcn")}
+    out = {"molecule": gnn_molecule(dev, cfg, cells["molecule"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ogb_products"] = gnn_ogb_cut(dev, cfg, cells["ogb_products"])
+    out["agg_full"] = agg_ogb_full(dev)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase: the dry-run's reckoning against the card's measurements
+# --------------------------------------------------------------------------
+DRYRUN_TOL = 0.10  # the reckoned peak against max_memory_allocated, and TinyLlama's FLOPs
+
+
+def lm_resident(B: int, S: int, n: int) -> dict:
+    """``n`` batches of tokens and targets [B, S] int32 held beside a step."""
+    from repro_torch.configs.base import TensorSpec
+
+    spec = TensorSpec((B, S), torch.int32)
+    return {"batches": [{"tokens": spec, "targets": spec} for _ in range(n)]}
+
+
+def dryrun_steps(train, ftrain, gtrain, cells) -> list[dict]:
+    """The seven steps whose peak a phase measured, each as the dry-run
+    takes it: (label, arch, cell, remat, cfg overrides, what the phase holds
+    beside the step and its one batch, the measured run)."""
+    from repro_torch.configs import ShapeCell, get_shapes
+    from repro_torch.configs.base import TensorSpec
+
+    gnn = {c.name: c for c in get_shapes("gatedgcn")}
+    f32, i32 = torch.float32, torch.int32
+    block = {"node_feat": TensorSpec((169_984, 602), f32),
+             "edge_index": TensorSpec((2, 168_960), i32),
+             "labels": TensorSpec((1024,), i32), "seed_ids": TensorSpec((1024,), i32)}
+    mol = gnn["molecule"].params
+    mol_batch = {"node_feat": TensorSpec((mol["batch"], mol["n_nodes"], 16), f32),
+                 "edge_index": TensorSpec((mol["batch"], 2, mol["n_edges"]), i32),
+                 "labels": TensorSpec((mol["batch"],), i32)}
+    steps = [dict(label="tinyllama-1.1b train B 4 x S 2048", arch="tinyllama-1.1b",
+                  cell=ShapeCell("train", "train", {"seq_len": 2048, "global_batch": 4}),
+                  remat="none", overrides=[], resident=lm_resident(4, 2048, train["batches"] - 1),
+                  run=train)]
+    for arch, r in ftrain["train"].items():
+        steps.append(dict(
+            label=f"{arch} train at {r['layers']} of {r['full_layers']} layers, B 1 x S 2048",
+            arch=arch, cell=ShapeCell("train", "train", {"seq_len": FAMILY_TRAIN_SEQ,
+                                                         "global_batch": 1}),
+            remat="none", overrides=[f"n_layers={r['layers']}"],
+            resident=lm_resident(1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS - 1), run=r))
+    steps.append(dict(label="gatedgcn minibatch_lg", arch="gatedgcn", cell=gnn["minibatch_lg"],
+                      remat="none", overrides=[],
+                      resident={"feats": TensorSpec((REDDIT_NODES, 602), f32),
+                                "labels": TensorSpec((REDDIT_NODES,), i32),
+                                "batches": [block] * 4}, run=gtrain))
+    m = cells["molecule"]
+    steps.append(dict(label="gatedgcn molecule", arch="gatedgcn", cell=gnn["molecule"],
+                      remat="none", overrides=[],
+                      resident={"batches": [mol_batch] * m["resident_batches"]}, run=m))
+    o = cells["ogb_products"]
+    steps.append(dict(label="gatedgcn ogb_products at the cut", arch="gatedgcn", cell=o["cell"],
+                      remat="full", overrides=[], resident=None, run=o))
+    return steps
+
+
+def phase_dryrun(dev, train, ftrain, gtrain, cells) -> dict:
+    """The dry-run (``repro_torch.launch.dryrun``, on the meta device) of
+    each step whose peak an earlier phase measured, at the same shape,
+    dtype, remat and depth, holding what the phase held beside it: the
+    reckoned peak within DRYRUN_TOL of the step's measured peak
+    (``max_memory_allocated`` after the phase's ``reset_peak_memory_stats``,
+    less what the process held before the phase built the step's state), the
+    roofline time at most the
+    measured step ms, TinyLlama's counted FLOPs within DRYRUN_TOL of
+    ``model_flops`` (the embedding lookup, a product there, is a gather
+    here).  Then the depth the dry-run gives each family under FIT_BYTES
+    beside FAMILY_TRAIN's, and its flash scratch sizes against the library's."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import dryrun
+
+    library = build.load("flash_attention").flash_attention_work_floats
+    library.argtypes = [ctypes.c_int] * 10
+    library.restype = ctypes.c_longlong
+
+    rows, steps = {}, dryrun_steps(train, ftrain, gtrain, cells)
+    for s in steps:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(s["arch"], s["cell"], remat=s["remat"], cfg_overrides=s["overrides"],
+                              resident=s["resident"])
+        check(rec["status"] == "ok", f"dry-run {s['label']}: {rec}")
+        run = s["run"]
+        # the step's own peak: what the process held before the phase built
+        # the step's state (earlier phases' tensors, cuBLAS workspaces) is not
+        # the step's
+        peak, measured = rec["memory"]["peak_hbm_bytes"], run["max_memory"] - run["pre_memory"]
+        roof_ms = rec["roofline"]["step_time_s"] * 1e3
+        step_ms = run["mean_step_s"] * 1e3
+        counted = rec["roofline"]["flops_per_chip"]
+        r = dict(reckoned_peak=peak, measured_peak=measured, ratio=peak / measured,
+                 max_memory_allocated=run["max_memory"], before_the_step=run["pre_memory"],
+                 reckoned_argument_bytes=rec["memory"]["argument_bytes"],
+                 measured_argument_bytes=run["base_memory"] - run["pre_memory"],
+                 roofline_ms=roof_ms, step_ms=step_ms,
+                 dominant=rec["roofline"]["dominant"], counted_flops=counted,
+                 model_flops=rec["model_flops_global"],
+                 counted_over_model=counted / rec["model_flops_global"],
+                 trace_s=time.perf_counter() - t0)
+        print(f"dryrun {s['label']}: reckoned peak {peak} B against the step's measured "
+              f"{measured} (ratio {r['ratio']:.4f}: max_memory_allocated {run['max_memory']} "
+              f"less {run['pre_memory']} held before the step's state); live at the start "
+              f"reckoned {r['reckoned_argument_bytes']}, measured "
+              f"{r['measured_argument_bytes']}; "
+              f"roofline {roof_ms:.3f} ms ({r['dominant']}) against the measured step "
+              f"{step_ms:.3f} ms; FLOPs counted {counted:.6e} against model_flops "
+              f"{r['model_flops']:.6e} ({r['counted_over_model']:.4f}); traced in "
+              f"{r['trace_s']:.3f} s")
+        check(abs(peak - measured) <= DRYRUN_TOL * measured,
+              f"dry-run {s['label']}: reckoned peak {peak} B, measured {measured} B")
+        check(roof_ms <= step_ms, f"dry-run {s['label']}: roofline {roof_ms} ms above the "
+                                  f"measured {step_ms} ms")
+        rows[s["label"]] = r
+    tl = rows[steps[0]["label"]]  # TinyLlama's
+    check(abs(tl["counted_over_model"] - 1) <= DRYRUN_TOL,
+          f"dry-run TinyLlama: counted FLOPs {tl['counted_flops']} against model_flops "
+          f"{tl['model_flops']}")
+    # tools/family_depth.py's question, answered by the dry-run
+    depths = {}
+    for arch, used in FAMILY_TRAIN:
+        cell = next(s["cell"] for s in steps if s["arch"] == arch)
+        L, rec = dryrun.deepest(arch, cell, FIT_BYTES,
+                                resident=lm_resident(1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS - 1))
+        depths[arch] = {"dryrun": L, "used": used,
+                        "reckoned_peak": rec["memory"]["peak_hbm_bytes"] if rec else None}
+        print(f"dryrun family depth {arch}: the dry-run's deepest under {FIT_BYTES} B is {L} "
+              f"layers (reckoned peak {depths[arch]['reckoned_peak']} B); FAMILY_TRAIN uses "
+              f"{used}")
+    # the meta path's flash scratch against the library's size, at every case
+    n_cases = 0
+    for c in FLASH_CASES:
+        _, B, S, Hq, Hkv, dh, causal, window = c
+        for var in range(len(flash_ops.VARIANTS)):
+            for backward in (False, True):
+                args = (B, S, S, Hq, Hkv, dh, int(causal), window or 0, var)
+                got, want = flash_ops.work_floats(*args, backward), library(*args, int(backward))
+                check(got == want, f"flash work_floats {c[0]} variant {var} backward "
+                                   f"{backward}: {got} against the library's {want}")
+                n_cases += 1
+    print(f"dryrun flash scratch: work_floats equals the library's at {n_cases} cases")
+    return {"steps": rows, "family_depth": depths}
 
 
 WF_CORPUS_BYTES = 1 << 26  # 64 MB: 16,376 packed rows of 2,049 tokens
@@ -5224,6 +5757,8 @@ def main() -> int:
     del graph
     gtrain = timed(phase_gnn_train, sampler)
     timed(phase_gnn_parity)
+    cells = timed(phase_gnn_cells)
+    dr = timed(phase_dryrun, train, ftrain, gtrain, cells)
     wf = timed(phase_workflow, eng["rows"])
     store = timed(phase_store_server, eng["rows"])
     cli = timed(phase_client, eng["rows"])
@@ -5258,7 +5793,12 @@ def main() -> int:
         **{f"{arch} train": {"n_layers": [r["full_layers"], r["layers"]],
                              "why": "the train state (12 B a parameter) of more layers and the "
                                     "step's activations do not fit 80 GB"}
-           for arch, r in ftrain["train"].items()}}}
+           for arch, r in ftrain["train"].items()},
+        "ogb_products": {"n_nodes": [OGB_NODES, cells["ogb_products"]["cell"].params["n_nodes"]],
+                         "n_edges": [OGB_EDGES, cells["ogb_products"]["cell"].params["n_edges"]],
+                         "why": "the full graph's train step needs about 450 GB with remat "
+                                "full (7.3 KB an edge); nodes and edges cut by one factor, the "
+                                f"largest whose dry-run peak lies under {FIT_BYTES} B"}}}
     for name, var, case, tname, r, by_path in (
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
          kern["written"][(MAIN_CASE, "bfloat16")],
@@ -5540,10 +6080,14 @@ def main() -> int:
     am = agg["cases"][(AGG_MAIN, "float32")]
     skew = agg["cases"][(AGG_SKEW, "float32")]["csr"]
     mb_path = f"gnn train minibatch_lg ({gtrain['steps']} steps)"
+    mol, ogb, full = cells["molecule"], cells["ogb_products"], cells["agg_full"]
     for i, (name, kind) in enumerate((("gnn_aggregate", "fwd"), ("gnn_aggregate_bwd", "bwd"))):
         r, e = am["csr"][kind], am["ell"][kind]
         by_path = {mb_path: gtrain["launches"][i],
-                   "gnn train full_graph_sm (1 step)": gtrain["launches_full_graph"][i]}
+                   "gnn train full_graph_sm (1 step)": gtrain["launches_full_graph"][i],
+                   f"gnn train molecule ({mol['steps']} steps)": mol["launches"][i],
+                   f"gnn train ogb_products at the cut ({ogb['steps']} steps, remat full)":
+                   ogb["launches"][i]}
         line["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -5576,6 +6120,12 @@ def main() -> int:
                if "dense_flushed_ms" in e else {}),
             "power_law_queued_ms": skew[kind]["queued_ms"],
             "power_law_bound_ms": skew[kind]["bound_ms"],
+            "ogb_products_full": {
+                label: {"max_in_degree": full[label]["max_in_degree"],
+                        **{k: full[label][kind][k] for k in (
+                            "queued_ms", "flushed_ms", "ms", "bound_ms", "bound_by", "plain_ms",
+                            "yardstick_ms", "max_abs_err")}}
+                for label in full},
             "held": True,
             "shape": {"case": AGG_MAIN, "N": 169_984, "E": 168_960, "dim": 70,
                       "dtype": "float32", "ell_max_deg": 15,
@@ -5587,6 +6137,11 @@ def main() -> int:
         "max_memory": r["max_memory"], **({"drop_share": [x["drop_share"] for x in r["rows"]]}
                                           if "drop_share" in r["rows"][0] else {})}
         for arch, r in ftrain["train"].items()}
+    line["gnn_cells"] = {
+        name: {"mean_step_ms": r["mean_step_s"] * 1e3, "max_memory": r["max_memory"],
+               **{k: v for k, v in r.items() if k.endswith("_per_s")}}
+        for name, r in (("molecule", mol), ("ogb_products", ogb))}
+    line["dryrun"] = dr
     line["store_server"] = {**store["tier"], "restore": store["restore"]}
     line["client"] = {
         "policies": {k: v["rows"] for k, v in cli["evaluation"].items()},

@@ -129,6 +129,46 @@ class LMConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    def n_params(self) -> int:
+        """Total parameter count (for MODEL_FLOPS = 6*N*D bookkeeping)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        if self.mla is not None:
+            m = self.mla
+            attn = (
+                d * m.q_lora_rank
+                + m.q_lora_rank * hq * (m.nope_head_dim + m.rope_head_dim)
+                + d * (m.kv_lora_rank + m.rope_head_dim)
+                + m.kv_lora_rank * hq * (m.nope_head_dim + m.v_head_dim)
+                + hq * m.v_head_dim * d
+            )
+        else:
+            attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+        if self.moe is not None:
+            ffn_per_layer = (
+                self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+                + self.moe.n_shared * 3 * d * self.moe.d_ff_expert
+                + d * self.moe.n_experts  # router
+            )
+        else:
+            ffn_per_layer = 3 * d * f
+        per_layer = attn + ffn_per_layer + 2 * d  # 2 rmsnorm scales
+        n = L * per_layer + V * d + d  # embed + final norm
+        if not self.tie_embeddings:
+            n += V * d
+        return int(n)
+
+    def n_active_params(self) -> int:
+        if self.moe is None:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        dense_like = self.n_params()
+        all_experts = L * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+        active = L * (self.moe.top_k + self.moe.n_shared) * 3 * d * self.moe.d_ff_expert
+        # shared experts always active; replace routed total by top_k
+        shared = L * self.moe.n_shared * 3 * d * self.moe.d_ff_expert
+        return int(dense_like - all_experts - shared + active)
+
 
 @dataclass(frozen=True)
 class GNNConfig:

@@ -22,7 +22,13 @@ attention call of a shape, from static shapes before any launch:
 
 A tensor on the CPU goes to the plain version
 (:mod:`repro_torch.models.attention`).  A CUDA tensor goes to a kernel, or
-the wrapper raises: there is no fallback.
+the wrapper raises: there is no fallback.  A tensor on the ``meta`` device
+(the dry-run) takes an explicit shape-only path: the variant's outputs and
+scratch (the split variant's partials, planned for the H100's SMs) as meta
+tensors, the call's FLOPs and bytes reported to
+:mod:`repro_torch.kernels.meta`, and no launch.  The valid lengths are
+values a meta tensor does not hold, so the count takes every key of the
+cache, as ``model_flops`` does for a decode step.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from ...models.attention import decode_attention as decode_attention_plain
 from ...models.attention import decode_attention_chunk as decode_attention_chunk_plain
 from ...models.attention import insert_chunk
-from .. import build
+from .. import build, meta
 
 __all__ = [
     "count_replays", "decode_attention", "decode_attention_chunk", "decode_attention_chunk_plain",
@@ -142,6 +148,25 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(device: torch.device) -> int:
+    return meta.SMS if device.type == "meta" else _n_sm(device.index or 0)
+
+
+def _record(var: str, q: torch.Tensor, T: int, Hkv: int, writes: bool) -> None:
+    """A meta call's count: bytes q read and out written, every cached K/V
+    row read (and with ``writes`` the new rows read and written), q_start
+    read; FLOPs 4 per (query row, key) pair and head dim in QK^T and PV.
+    The chunk variant's products run on the tensor cores, the split and
+    fused variants' on the CUDA cores in fp32."""
+    B, S, Hq, dh = q.shape
+    isz = q.element_size()
+    nbytes = (2 * B * S * Hq * dh + 2 * B * T * Hkv * dh) * isz + 4 * B
+    if writes:
+        nbytes += 4 * B * S * Hkv * dh * isz
+    unit = "bf16" if var == "chunk" else "fp32"
+    meta.record(f"decode_attention_{var}", 4 * B * S * T * Hq * dh, nbytes, unit)
+
+
 def _count(var: str) -> None:
     """One call of ``var`` reached the card, or, while the stream is being
     captured into a CUDA graph, was recorded into it (counted on replay)."""
@@ -190,7 +215,7 @@ def decode_attention(
     in q's dtype.  The split variant, whatever S is."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, q_start, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check_common("decode_attention", q, (("k_cache", k_cache), ("v_cache", v_cache)),
                   q_start, window)
@@ -205,12 +230,15 @@ def decode_attention(
         raise ValueError(f"decode_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
     variant(S, Hq // Hkv, dh, q.dtype)  # raises for what no kernel takes
 
-    tk, split_len, n_splits = plan(B, S, Hq, Hkv, T, dh, _n_sm(q.device.index or 0))
+    tk, split_len, n_splits = plan(B, S, Hq, Hkv, T, dh, _sms(q.device))
     n_part = B * Hkv * S * (Hq // Hkv) * n_splits
     out = torch.empty_like(q)
     m_part = torch.empty(n_part, dtype=torch.float32, device=q.device)
     l_part = torch.empty(n_part, dtype=torch.float32, device=q.device)
     acc_part = torch.empty(n_part * dh, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
+        _record("split", q, T, Hkv, writes=False)
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel("split")(
@@ -245,7 +273,7 @@ def decode_attention_chunk(
     if q.device.type == "cpu":
         return decode_attention_chunk_plain(
             q, k_new, v_new, k_cache, v_cache, q_start, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention_chunk: unsupported device {q.device}")
     tensors = (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache), ("v_cache", v_cache))
     _check_common("decode_attention_chunk", q, tensors, q_start, window)
@@ -270,6 +298,9 @@ def decode_attention_chunk(
         raise ValueError("decode_attention_chunk: q, k and v must start on a 16-byte boundary")
 
     out = torch.empty_like(q)
+    if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
+        _record(var, q, T, Hkv, writes=True)
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr())
@@ -279,7 +310,7 @@ def decode_attention_chunk(
             err = _kernel("fused")(*ptrs, B, Hq, Hkv, T, dh, window or 0, n_splits, split_len,
                                    tk, _DTYPES[q.dtype], stream)
         else:
-            n_split = plan_chunk(B, S, Hq // Hkv, Hkv, T, _n_sm(q.device.index or 0))
+            n_split = plan_chunk(B, S, Hq // Hkv, Hkv, T, _sms(q.device))
             err = _kernel("chunk")(*ptrs, B, S, Hq, Hkv, T, dh, window or 0, n_split, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention {var} launch failed: CUDA error {err}")

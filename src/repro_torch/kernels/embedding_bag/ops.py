@@ -11,7 +11,11 @@ backward kernel (:func:`embedding_bag_bwd`), which writes the dense table
 gradient over a reverse index sorted on the card (:func:`bwd_index`),
 deterministically and with no float atomics.  The gradient goes to the
 table only: weights are constants, and a CUDA ``weights`` that requires
-grad is refused.
+grad is refused.  A table on the ``meta`` device (the dry-run) takes an
+explicit shape-only path through the same functions: the outputs, the
+backward's sort buffers, dense fill, tickets and partials as meta tensors,
+each launch's FLOPs and bytes reported to :mod:`repro_torch.kernels.meta`
+in its place, and no launch.
 
 The reference pads the width to 128 TPU lanes; here the forward kernel
 takes any width whose row fits its shared memory (two stages of one row,
@@ -34,7 +38,7 @@ from typing import Iterator, NamedTuple
 
 import torch
 
-from .. import build
+from .. import build, meta
 from .ref import bwd_index, embedding_bag_bwd_ref, embedding_bag_ref
 
 __all__ = ["Plan", "Unit", "bwd_chunk", "bwd_index", "embedding_bag", "embedding_bag_bwd",
@@ -239,6 +243,8 @@ _sm_counts: dict[int, int] = {}
 
 
 def _sms(device: torch.device) -> int:
+    if device.type == "meta":
+        return meta.SMS
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _sm_counts:
         _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
@@ -249,7 +255,7 @@ def _check(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
            combiner: str, name: str = "table") -> None:
     """The kernels' checks; ``table`` is the table (forward) or the output's
     gradient ``dout`` [n_bags, dim] (backward, ``name`` "dout")."""
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
     if combiner not in _COMBINERS:
         raise ValueError(f"embedding_bag: combiner must be 'sum' or 'mean', got {combiner!r}")
@@ -282,7 +288,16 @@ def _check(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None,
 def launch(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor | None, combiner: str,
            p: Plan, out: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel on ``p`` (checked inputs on the card) into
-    ``out``; counts it in ``embedding_bag.launches``."""
+    ``out``; counts it in ``embedding_bag.launches``.  On meta tensors it
+    records the call's count instead: each id's row read once, the ids (and
+    weights) read, the output written; one add (and a multiply, weighted)
+    an element of a row, in fp32 on the CUDA cores."""
+    if table.device.type == "meta":  # the dry-run: no launch
+        n_ids, weighted = p.n_bags * p.bag, weights is not None
+        nbytes = (n_ids * p.row_bytes + n_ids * 4 * (2 if weighted else 1)
+                  + p.n_bags * p.row_bytes)
+        meta.record("embedding_bag", (2 if weighted else 1) * n_ids * p.dim, nbytes, "fp32")
+        return out
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
         err = _kernel()(
@@ -369,6 +384,15 @@ def launch_bwd(key: torch.Tensor, pos: torch.Tensor, dout: torch.Tensor,
     if tickets.numel() < n_chunks or tickets.dtype != torch.int32:
         raise ValueError(f"embedding_bag: {n_chunks} int32 tickets wanted")
     partial = torch.empty(n_chunks * 2 * dim, dtype=torch.float32, device=dtable.device)
+    if dtable.device.type == "meta":  # the dry-run: no launch
+        # the sorted index, dout and the weights read, dtable's rows written
+        # (the dense fill before the launch is its own op); an add (and a
+        # multiply, weighted) an element of each position's row, in fp32
+        weighted = weights is not None
+        nbytes = n * 8 + dout.numel() * dout.element_size() + (n * 4 if weighted else 0)
+        nbytes += min(n, V) * dim * dtable.element_size()
+        meta.record("embedding_bag_bwd", (2 if weighted else 1) * n * dim, nbytes, "fp32")
+        return dtable
     vec = build.vector_width(dim, dtable.element_size(), dout, dtable)
     stream = torch.cuda.current_stream(dtable.device).cuda_stream
     with torch.cuda.device(dtable.device):

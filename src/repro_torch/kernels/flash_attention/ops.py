@@ -14,20 +14,26 @@ cores).  A tensor on the CPU goes to the plain version
 to the kernels of its variant, or the wrapper raises: there is no fallback.
 The wrapper allocates the scratch a call needs (the size is the library's
 ``flash_attention_work_floats``): the tf32x3 split's operands, the
-wgmma_rows gathered copies, the bf16 backward's delta.
+wgmma_rows gathered copies, the bf16 backward's delta.  A tensor on the
+``meta`` device (the dry-run) takes an explicit shape-only path: the same
+outputs and scratch (sized by :func:`work_floats`, the library's function in
+Python) as meta tensors, the call's FLOPs and bytes reported to
+:mod:`repro_torch.kernels.meta`, and no launch.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from .. import build
+from .. import build, meta
 from .ref import attention_ref
 
 __all__ = [
     "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "reset_launches", "variant",
+    "work_floats",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,20 +73,106 @@ def _kernel(name: str, n_ptr: int):
     return fn
 
 
+# the kernels' tiling constants that size the scratch (csrc/flash_attention.cu)
+_BLOCK_ROWS = 128  # kBlockRows: rows (or keys) of a block
+_X3_CHUNK = 16  # kX3Chunk: tiles of a tf32x3 backward walk a block takes
+_TILE = 64  # a tile of keys or of rows
+
+
+def _x3_chunks(n: int) -> int:
+    return -(-n // _X3_CHUNK) if n > _X3_CHUNK else 1
+
+
+def _x3_q_chunks(Sq: int, Sk: int, G: int, causal: int, window: int) -> int:
+    """x3_q_chunks: the most chunks a block of rows' key walk takes."""
+    R, most = Sq * G, 1
+    for r0 in range(0, R, _BLOCK_ROWS):
+        p_lo, p_hi = r0 // G, (min(R, r0 + _BLOCK_ROWS) - 1) // G
+        key_lo = max(0, p_lo - window + 1) if window > 0 else 0
+        key_hi = min(Sk - 1, p_hi) if causal else Sk - 1
+        first = key_lo // _TILE
+        most = max(most, _x3_chunks(key_hi // _TILE - first + 1 if key_hi >= key_lo else 0))
+    return most
+
+
+def _x3_kv_chunks(Sq: int, Sk: int, G: int, causal: int, window: int) -> int:
+    """x3_kv_chunks: the most chunks a block of keys' row walk takes."""
+    R, most = Sq * G, 1
+    for k0 in range(0, Sk, _BLOCK_ROWS):
+        k_last = min(Sk, k0 + _BLOCK_ROWS) - 1
+        p_min = k0 if causal else 0
+        p_max = min(Sq - 1, k_last + window - 1) if window > 0 else Sq - 1
+        first = min(p_min, Sq) * G // _TILE
+        end = min(R, (p_max + 1) * G)
+        n = (end - first * _TILE + _TILE - 1) // _TILE if end > first * _TILE else 0
+        most = max(most, _x3_chunks(n))
+    return most
+
+
+def work_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, dh: int, causal: int,
+                window: int, var: int, backward: bool) -> int:
+    """Floats of fp32 scratch a call needs: the library's
+    ``flash_attention_work_floats`` (``X3Work``, ``WgWork``) in Python, for
+    the meta path, which loads no library.  ``var`` indexes VARIANTS."""
+    if B <= 0 or Sq <= 0 or Sk <= 0 or Hkv <= 0 or Hq % Hkv or dh <= 0:
+        return 0
+    up = lambda x, m: -(-x // m) * m
+    if VARIANTS[var] == "tf32x3":
+        BH, R = B * Hkv, Sq * (Hq // Hkv)
+        rows_q, rows_k = 2 * BH * R * dh, 2 * BH * Sk * dh
+        cols_q, cols_k = 2 * BH * dh * up(R, 8), 2 * BH * dh * up(Sk, 8)
+        if not backward:
+            return rows_q + rows_k + cols_k
+        G = Hq // Hkv
+        return (2 * rows_q + 2 * rows_k + 2 * cols_q + cols_k + 2 * BH * up(R, 64)
+                + _x3_q_chunks(Sq, Sk, G, causal, window) * BH * R * dh
+                + 2 * _x3_kv_chunks(Sq, Sk, G, causal, window) * BH * Sk * dh)
+    rows = B * Hq * Sq * dh // 2 if VARIANTS[var] == "wgmma_rows" else 0
+    return 2 * rows + B * Hq * Sq if backward else rows
+
+
 def _work(args: tuple, backward: bool, device) -> torch.Tensor | None:
     """The fp32 scratch of one call (None where it needs none)."""
-    fn = _fns.get("work")
-    if fn is None:
-        fn = build.load("flash_attention").flash_attention_work_floats
-        fn.argtypes = [ctypes.c_int] * 10
-        fn.restype = ctypes.c_longlong
-        _fns["work"] = fn
-    n = fn(*args[:8], args[-1], int(backward))
+    if device.type == "meta":
+        n = work_floats(*args[:8], args[-1], backward)
+    else:
+        fn = _fns.get("work")
+        if fn is None:
+            fn = build.load("flash_attention").flash_attention_work_floats
+            fn.argtypes = [ctypes.c_int] * 10
+            fn.restype = ctypes.c_longlong
+            _fns["work"] = fn
+        n = fn(*args[:8], args[-1], int(backward))
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
+def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps, per (b, query head): query s sees
+    key t < Sk with (causal) t <= s and (window) t > s - window."""
+    s = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(s, Sk - 1) if causal else np.full(Sq, Sk - 1, np.int64)
+    lo = np.maximum(0, s - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _cost(q, k, causal: bool, window: int | None, backward: bool) -> tuple[int, int, str]:
+    """(FLOPs, bytes, unit) of one call, as PERF.md counts the bound.
+    Bytes: forward reads q, k, v and writes out and the fp32 logsumexp;
+    backward reads q, k, v, out, dout and the logsumexp and writes dq, dk,
+    dv.  FLOPs, 2 a multiply-add over the pairs the mask keeps: forward
+    Q.K and P.V (4 per pair and head dim), backward dO.V, P.dO, dS.K and
+    dS.Q (8)."""
+    B, Sq, Hq, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    isz = q.element_size()
+    qo, kv, lse = B * Sq * Hq * dh * isz, B * Sk * Hkv * dh * isz, B * Hq * Sq * 4
+    nbytes = 4 * qo + 4 * kv + lse if backward else 2 * qo + 2 * kv + lse
+    flops = (8 if backward else 4) * B * Hq * dh * unmasked_pairs(Sq, Sk, causal, window)
+    return flops, nbytes, "bf16" if q.dtype == torch.bfloat16 else "tf32x3"
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> None:
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
@@ -133,6 +225,9 @@ def flash_attention_fwd(
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     args, var = _shape_args(q, k, causal, window)
     work = _work(args, False, q.device)
+    if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
+        meta.record("flash_attention_fwd", *_cost(q, k, causal, window, False))
+        return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel("flash_attention_fwd", 6)(
@@ -168,6 +263,9 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args, var = _shape_args(q, k, causal, window)
     work = _work(args, True, q.device)
+    if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
+        meta.record("flash_attention_bwd", *_cost(q, k, causal, window, True))
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel("flash_attention_bwd", 10)(

@@ -12,8 +12,12 @@ forward launch, and one backward launch that writes dgates per slot and dh
 per source over the source-sorted reverse list (deterministic, no atomics).
 Tensors on the CPU go to the plain versions (:func:`gnn_aggregate_csr_ref`,
 :func:`gnn_aggregate_ref`), which autograd differentiates.  A CUDA tensor
-goes to the kernels, or the wrapper raises: there is no fallback.  The
-reference pads the width to 128 TPU lanes; here nothing is padded.
+goes to the kernels, or the wrapper raises: there is no fallback.  A
+tensor on the ``meta`` device (the dry-run) takes an explicit shape-only
+path through the same functions: the outputs and gradients as meta tensors,
+each launch's FLOPs and bytes reported to :mod:`repro_torch.kernels.meta` in
+its place, and no launch.  The reference pads the width to 128 TPU lanes;
+here nothing is padded.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, meta
 from .ref import ell_as_csr, gnn_aggregate_csr_ref, gnn_aggregate_ref
 
 __all__ = ["gnn_aggregate", "gnn_aggregate_bwd", "gnn_aggregate_csr", "gnn_aggregate_fwd",
@@ -51,7 +55,7 @@ def _index_vector(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 def _check(h: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor, gates: torch.Tensor,
            rev: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None) -> None:
-    if h.device.type != "cuda":
+    if h.device.type not in ("cuda", "meta"):
         raise ValueError(f"gnn_aggregate: unsupported device {h.device}")
     if gates.device != h.device:
         raise ValueError(f"gnn_aggregate: gates on {gates.device}, h on {h.device}")
@@ -96,6 +100,28 @@ def _launch(name: str, n_ptr: int, h: torch.Tensor, ptrs: list, rows: int, rows_
     gnn_aggregate.launches_by_layout[layout] += 1
 
 
+def _record(name: str, h: torch.Tensor, n_rows: int, n_slots: int, outs: int,
+            backward: bool) -> None:
+    """A meta call's count over the real slots: the index, the gates (one
+    row a slot) and a row of h for each slot (at most every row of h) read;
+    forward: num (and den) written, a multiply-add an element of a slot (and
+    an add for den); backward: dnum (and dden) read at every row, the
+    reverse list read, dgates and dh written, a multiply an element of a
+    slot for dgates (and an add for dden) and a multiply-add for dh.  fp32
+    work on the CUDA cores."""
+    dim, isz, Nh = h.shape[1], h.element_size(), h.shape[0]
+    gates = n_slots * dim * isz
+    rows = min(n_slots, Nh) * dim * isz
+    if backward:
+        nbytes = (outs * n_rows * dim * isz + rows + gates + (n_rows + 1 + n_slots) * 4
+                  + (Nh + 1 + 2 * n_slots) * 4 + gates + Nh * dim * isz)
+        flops = n_slots * dim * (outs + 2)
+    else:
+        nbytes = (n_rows + 1 + n_slots) * 4 + gates + rows + outs * n_rows * dim * isz
+        flops = n_slots * dim * (1 + outs)
+    meta.record(name, flops, nbytes, "fp32")
+
+
 def _ptr(t: torch.Tensor | None):
     return t.data_ptr() if t is not None else None
 
@@ -111,6 +137,9 @@ def gnn_aggregate_fwd(
     num = torch.empty(N, h.shape[1], dtype=h.dtype, device=h.device)
     den = torch.empty_like(num) if with_den else None
     outs = [t for t in (num, den) if t is not None]
+    if h.device.type == "meta":  # the dry-run: no launch
+        _record("gnn_aggregate_fwd", h, N, col.shape[0], len(outs), False)
+        return num, den
     _launch("gnn_aggregate_fwd", 6, h,
             [h.data_ptr(), row_ptr.data_ptr(), col.data_ptr(), gates.data_ptr(), num.data_ptr(),
              _ptr(den)], N, [h, gates, *outs], layout)
@@ -136,6 +165,9 @@ def gnn_aggregate_bwd(
     dh = torch.empty_like(h) if need_h else None
     dgates = torch.empty_like(gates) if need_gates else None
     if not (need_h or need_gates):
+        return dh, dgates
+    if h.device.type == "meta":  # the dry-run: no launch
+        _record("gnn_aggregate_bwd", h, N, col.shape[0], 1 if dden is None else 2, True)
         return dh, dgates
     rows_t = [t for t in (h, gates, dnum, dden, dh, dgates) if t is not None]
     _launch("gnn_aggregate_bwd", 11, h,

@@ -83,11 +83,12 @@ def forward(
     """Returns per-node class logits [N, n_classes] in fp32.  The graph's CSR
     index is built here, on ``edge_index``'s device, once a call.  The ids
     are checked to lie in [0, N) by one read of their min and max on the host,
-    the call's only sync (:func:`csr_index` itself reads nothing back).
-    ``remat`` is None or a selective-checkpoint policy applied per layer;
-    ``unroll`` has no effect."""
+    the call's only sync (:func:`csr_index` itself reads nothing back); on
+    the ``meta`` device (the dry-run) there are no ids to read, and the
+    check is skipped.  ``remat`` is None or a selective-checkpoint policy
+    applied per layer; ``unroll`` has no effect."""
     n = node_feat.shape[0]
-    if edge_index.numel():
+    if edge_index.numel() and edge_index.device.type != "meta":
         lo, hi = torch.stack(torch.aminmax(edge_index)).tolist()
         if lo < 0 or hi >= n:
             raise ValueError(f"gnn forward: edge ids span [{lo}, {hi}], outside [0, {n})")

@@ -59,6 +59,24 @@ def init_params(
     return build(specs)
 
 
+def abstract_params(specs: Any, dtype: torch.dtype, device: str | torch.device = "meta") -> Any:
+    """Uninitialised tensors of a spec tree's shapes (on ``meta``: shapes
+    alone, the dry-run's stand-ins for the reference's ShapeDtypeStructs)."""
+    if isinstance(specs, PSpec):
+        return torch.empty(specs.shape, dtype=dtype, device=device)
+    if isinstance(specs, list):
+        return [abstract_params(s, dtype, device) for s in specs]
+    return {k: abstract_params(specs[k], dtype, device) for k in sorted(specs)}
+
+
+def logical_axes(specs: Any) -> Any:
+    if isinstance(specs, PSpec):
+        return specs.axes
+    if isinstance(specs, list):
+        return [logical_axes(s) for s in specs]
+    return {k: logical_axes(v) for k, v in specs.items()}
+
+
 def param_count(specs: Any) -> int:
     if isinstance(specs, PSpec):
         return math.prod(specs.shape)

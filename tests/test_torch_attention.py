@@ -3,6 +3,8 @@ function ``decode_attention`` (S >= 1, per-sequence q_start, window with
 global_flag), the kernel oracle ``ref.py`` against the Pallas kernel run in
 interpret mode, and the cache inserts.  The hand kernel itself runs only on
 the card: ``tests/test_torch_kernels_cuda.py``."""
+import types
+
 import numpy as np
 import pytest
 
@@ -83,8 +85,13 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 def test_wrapper_rejects_other_devices():
     q = torch.empty(1, 1, 4, 8, device="meta")
     kv = torch.empty(1, 16, 2, 8, device="meta")
+    qs = torch.zeros(1, dtype=torch.int32, device="meta")
+    # meta is the dry-run's shape-only path: an output of q's shape, no launch
+    assert ops.decode_attention(q, kv, kv, qs).shape == q.shape
+    # any device but cpu, cuda and meta is refused before any work
+    other = types.SimpleNamespace(device=torch.device("xpu", 0))
     with pytest.raises(ValueError, match="device"):
-        ops.decode_attention(q, kv, kv, torch.zeros(1, dtype=torch.int32, device="meta"))
+        ops.decode_attention(other, kv, kv, qs)
 
 
 @pytest.mark.parametrize("shape", [

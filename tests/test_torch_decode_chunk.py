@@ -5,6 +5,7 @@ takes a call, and ``prefill_chunk`` through the new call against the
 reference's logits.  The chunk kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -170,8 +171,12 @@ def test_wrapper_rejects_other_devices():
     kv = torch.empty(1, 4, 2, 16, dtype=torch.bfloat16, device="meta")
     cache = torch.empty(1, 16, 2, 16, dtype=torch.bfloat16, device="meta")
     qs = torch.zeros(1, dtype=torch.int32, device="meta")
+    # meta is the dry-run's shape-only path: an output of q's shape, no launch
+    assert ops.decode_attention_chunk(q, kv, kv, cache, cache, qs).shape == q.shape
+    # any device but cpu, cuda and meta is refused before any work
+    other = types.SimpleNamespace(device=torch.device("xpu", 0))
     with pytest.raises(ValueError, match="device"):
-        ops.decode_attention_chunk(q, kv, kv, cache, cache, qs)
+        ops.decode_attention_chunk(other, kv, kv, cache, cache, qs)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,6 +3,8 @@ attend) on the CPU: ``decode_attention_insert`` against the reference's two
 ``insert_kv`` calls and ``decode_attention``, which variant of the kernel
 takes a call, and the fused variant's static plan.  The kernel itself runs
 only on the card (``tests/test_torch_kernels_cuda.py``)."""
+import types
+
 import numpy as np
 import pytest
 
@@ -102,8 +104,12 @@ def test_wrapper_rejects_other_devices():
     kv = torch.empty(1, 1, 2, 8, device="meta")
     cache = torch.empty(1, 16, 2, 8, device="meta")
     qs = torch.zeros(1, dtype=torch.int32, device="meta")
+    # meta is the dry-run's shape-only path: an output of q's shape, no launch
+    assert ops.decode_attention_insert(q, kv, kv, cache, cache, qs).shape == q.shape
+    # any device but cpu, cuda and meta is refused before any work
+    other = types.SimpleNamespace(device=torch.device("xpu", 0))
     with pytest.raises(ValueError, match="device"):
-        ops.decode_attention_insert(q, kv, kv, cache, cache, qs)
+        ops.decode_attention_insert(other, kv, kv, cache, cache, qs)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])

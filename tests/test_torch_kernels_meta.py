@@ -1,0 +1,264 @@
+"""The kernels' shape-only path on the ``meta`` device (the dry-run's), on
+the CPU: each wrapper, forward and backward, gives on meta tensors the
+shapes and dtypes that its plain version gives on the CPU, counts its work
+and launches nothing; no plain version runs in a dry-run (a spy on each);
+``run_cell`` on the smoke configs gives ``status: ok`` with the outputs of a
+real CPU run of the same step; and ``gnn.forward`` on meta reads nothing
+back to the host."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.configs import ShapeCell, get_config, get_shapes
+from repro_torch.data import make_batch
+from repro_torch.kernels import meta
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.gnn_aggregate import csr_index, ell_index
+from repro_torch.kernels.gnn_aggregate import ops as agg_ops
+from repro_torch.launch import dryrun
+from repro_torch.models import gnn, transformer
+from repro_torch.models.layers import init_params
+from repro_torch.train import build_param_specs
+
+M = torch.device("meta")
+
+
+def _pair(shape, dtype, seed, grad=True):
+    """The same shape on the CPU (values) and on meta."""
+    g = torch.Generator().manual_seed(seed)
+    cpu = torch.randn(shape, generator=g).to(dtype).requires_grad_(grad)
+    return cpu, torch.empty(shape, dtype=dtype, device=M).requires_grad_(grad)
+
+
+def _sig(ts):
+    return [(tuple(t.shape), t.dtype) for t in ts]
+
+
+def _launch_counts():
+    return (flash_ops.flash_attention.launches_fwd, flash_ops.flash_attention.launches_bwd,
+            dict(decode_ops.decode_attention.launches_by_variant),
+            bag_ops.embedding_bag.launches, bag_ops.embedding_bag.launches_bwd,
+            agg_ops.gnn_aggregate.launches_fwd, agg_ops.gnn_aggregate.launches_bwd)
+
+
+FLASH = [  # B, Sq, Sk, Hq, Hkv, dh, causal, window, dtype (variant)
+    (2, 64, 64, 8, 2, 64, True, None, torch.bfloat16),  # wgmma
+    (1, 40, 40, 6, 2, 128, True, 16, torch.bfloat16),  # wgmma_rows (G 3)
+    (2, 48, 48, 4, 4, 32, False, None, torch.float32),  # tf32x3
+]
+
+
+@pytest.mark.parametrize("case", FLASH, ids=["wgmma", "wgmma_rows", "tf32x3"])
+def test_flash_meta_shapes_equal_the_plain_version(case):
+    B, Sq, Sk, Hq, Hkv, dh, causal, window, dtype = case
+    (qc, qm), (kc, km), (vc, vm) = (_pair(s, dtype, i) for i, s in enumerate(
+        ((B, Sq, Hq, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh))))
+    before = _launch_counts()
+    with meta.counting() as counts:
+        om = flash_ops.flash_attention(qm, km, vm, causal=causal, window=window)
+        gm = torch.autograd.grad(om, (qm, km, vm), torch.empty_like(om))
+    oc = flash_ops.flash_attention(qc, kc, vc, causal=causal, window=window)
+    gc_ = torch.autograd.grad(oc, (qc, kc, vc), torch.ones_like(oc))
+    assert _sig([om, *gm]) == _sig([oc, *gc_])
+    assert om.device.type == "meta" and _launch_counts() == before
+    assert counts.calls == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    pairs = flash_ops.unmasked_pairs(Sq, Sk, causal, window)
+    assert counts.flops["flash_attention_fwd"] == 4 * B * Hq * dh * pairs
+    assert counts.flops["flash_attention_bwd"] == 8 * B * Hq * dh * pairs
+    unit = "tf32x3" if dtype == torch.float32 else "bf16"
+    assert set(counts.flops_by_unit) == {unit}
+
+
+def test_unmasked_pairs_count_the_mask():
+    assert flash_ops.unmasked_pairs(4, 4, True, None) == 10
+    assert flash_ops.unmasked_pairs(4, 4, False, None) == 16
+    assert flash_ops.unmasked_pairs(5, 5, True, 2) == 9  # 1 + 2 * 4
+    S, w = 300, 37
+    want = sum(s - max(0, s - w + 1) + 1 for s in range(S))
+    assert flash_ops.unmasked_pairs(S, S, True, w) == want
+
+
+def test_flash_meta_allocates_the_kernels_scratch():
+    """The tf32x3 backward's scratch (the split operands and the chunk
+    partials) is allocated on meta, sized by work_floats."""
+    B, S, Hq, Hkv, dh = 1, 256, 4, 2, 64
+    args = (B, S, S, Hq, Hkv, dh, 1, 0, flash_ops.VARIANTS.index("tf32x3"))
+    n_bwd = flash_ops.work_floats(*args, True)
+    assert n_bwd > flash_ops.work_floats(*args, False) > 0
+    wg = flash_ops.VARIANTS.index("wgmma")
+    assert flash_ops.work_floats(*args[:8], wg, False) == 0
+    assert flash_ops.work_floats(*args[:8], wg, True) == B * Hq * S
+    rk = dryrun.Reckoner()
+    with rk:
+        q = torch.empty(B, S, Hq, dh, device=M)
+        k = torch.empty(B, S, Hkv, dh, device=M)
+        out, lse = flash_ops.flash_attention_fwd(q, k, k, causal=True)
+        base = rk.live
+        flash_ops.flash_attention_bwd(q, k, k, out, lse, torch.empty_like(out), causal=True)
+    assert rk.peak - base >= 4 * n_bwd
+
+
+@pytest.mark.parametrize("S,dtype,var", [(1, torch.bfloat16, "fused"),
+                                         (8, torch.bfloat16, "chunk"),
+                                         (8, torch.float32, "split")])
+def test_decode_meta_shapes_equal_the_plain_version(S, dtype, var):
+    B, T, Hq, Hkv, dh = 2, 64, 8, 2, 32
+    assert decode_ops.variant(S, Hq // Hkv, dh, dtype) == var
+    q_start = torch.tensor([3, 17], dtype=torch.int32)
+    cpu = [_pair(s, dtype, i, grad=False)[0] for i, s in enumerate(
+        ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dh), (B, T, Hkv, dh), (B, T, Hkv, dh)))]
+    mt = [torch.empty(t.shape, dtype=dtype, device=M) for t in cpu]
+    before = _launch_counts()
+    with meta.counting() as counts:
+        om = decode_ops.decode_attention_chunk(*mt, q_start.to(M))
+        sm = decode_ops.decode_attention(mt[0], mt[3], mt[4], q_start.to(M))
+    oc = decode_ops.decode_attention_chunk(*cpu, q_start)
+    sc = decode_ops.decode_attention(cpu[0], cpu[3], cpu[4], q_start)
+    assert _sig([om, sm]) == _sig([oc, sc]) and _launch_counts() == before
+    assert counts.calls == ({"decode_attention_split": 2} if var == "split" else
+                            {f"decode_attention_{var}": 1, "decode_attention_split": 1})
+    assert counts.flops[f"decode_attention_{var}"] > 0
+
+
+@pytest.mark.parametrize("weighted,combiner", [(False, "sum"), (True, "mean")])
+def test_embedding_bag_meta_shapes_equal_the_plain_version(weighted, combiner):
+    V, dim, n_bags, bag = 50, 16, 12, 5
+    tc, tm = _pair((V, dim), torch.float32, 0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, V, (n_bags, bag))
+                           .astype(np.int32))
+    w = torch.rand(n_bags, bag) if weighted else None
+    before = _launch_counts()
+    with meta.counting() as counts:
+        om = bag_ops.embedding_bag(tm, ids.to(M), None if w is None else w.to(M),
+                                   combiner=combiner)
+        (gm,) = torch.autograd.grad(om, tm, torch.empty_like(om))
+    oc = bag_ops.embedding_bag(tc, ids, w, combiner=combiner)
+    (gc_,) = torch.autograd.grad(oc, tc, torch.ones_like(oc))
+    assert _sig([om, gm]) == _sig([oc, gc_]) and _launch_counts() == before
+    assert counts.calls == {"embedding_bag": 1, "embedding_bag_bwd": 1}
+    assert counts.flops["embedding_bag"] == (2 if weighted else 1) * n_bags * bag * dim
+
+
+def test_gnn_aggregate_meta_shapes_equal_the_plain_version():
+    n, E, dim = 30, 90, 16
+    ei = np.random.default_rng(0).integers(0, n, (2, E)).astype(np.int32)
+    idx_c = csr_index(torch.from_numpy(ei), n)
+    idx_m = csr_index(torch.from_numpy(ei).to(M), n)
+    hc, hm = _pair((n, dim), torch.float32, 1)
+    gc_, gm = _pair((E, dim), torch.float32, 2)
+    before = _launch_counts()
+    with meta.counting() as counts:
+        num_m, den_m = agg_ops.gnn_aggregate_csr(hm, idx_m.row_ptr, idx_m.col, gm, idx_m.rev,
+                                                 with_den=True)
+        grads_m = torch.autograd.grad((num_m, den_m), (hm, gm),
+                                      (torch.empty_like(num_m), torch.empty_like(den_m)))
+    num_c, den_c = agg_ops.gnn_aggregate_csr(hc, idx_c.row_ptr, idx_c.col, gc_, idx_c.rev,
+                                             with_den=True)
+    grads_c = torch.autograd.grad((num_c, den_c), (hc, gc_),
+                                  (torch.ones_like(num_c), torch.ones_like(den_c)))
+    assert _sig([num_m, den_m, *grads_m]) == _sig([num_c, den_c, *grads_c])
+    assert _launch_counts() == before
+    assert counts.calls == {"gnn_aggregate_fwd": 1, "gnn_aggregate_bwd": 1}
+    assert counts.flops["gnn_aggregate_fwd"] == E * dim * 3
+    # the padded-ELL contract
+    ell = ell_index(ei, n)
+    gates_c = torch.rand(n, ell.max_deg, dim).requires_grad_(True)
+    gates_m = torch.empty(gates_c.shape, device=M).requires_grad_(True)
+    with meta.counting() as counts:
+        om = agg_ops.gnn_aggregate(hm, ell.nbr.to(M), gates_m,
+                                   tuple(t.to(M) for t in ell.rev))
+        gm2 = torch.autograd.grad(om, (hm, gates_m), torch.empty_like(om))
+    oc = agg_ops.gnn_aggregate(hc, ell.nbr, gates_c, ell.rev)
+    gc2 = torch.autograd.grad(oc, (hc, gates_c), torch.ones_like(oc))
+    assert _sig([om, *gm2]) == _sig([oc, *gc2]) and _launch_counts() == before
+    assert counts.calls == {"gnn_aggregate_fwd": 1, "gnn_aggregate_bwd": 1}
+
+
+class _NoHostRead(TorchDispatchMode):
+    """Fails on an op that reads a value back to the host."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.item.default):
+            raise AssertionError(f"{func} reads a value back to the host")
+        return func(*args, **(kwargs or {}))
+
+
+def test_gnn_forward_on_meta_reads_nothing_back_to_the_host():
+    cfg = get_config("gatedgcn", smoke=True)
+    params = {k: v for k, v in init_params(torch.Generator().manual_seed(0),
+                                           gnn.gnn_specs(cfg, 12), cfg.dtype, "cpu").items()}
+    params = _to(params, M)
+    with _NoHostRead():
+        logits = gnn.forward(params, cfg, torch.empty(40, 12, device=M),
+                             torch.empty(2, 160, dtype=torch.int32, device=M))
+    assert logits.shape == (40, cfg.n_classes) and logits.device.type == "meta"
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.fixture
+def spied(monkeypatch):
+    """Every plain version a kernel wrapper (or the model's CPU attention)
+    could take raises: a dry-run must never reach one."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran in the dry-run")
+
+    for mod, name in ((flash_ops, "attention_ref"), (decode_ops, "decode_attention_plain"),
+                      (decode_ops, "decode_attention_chunk_plain"),
+                      (bag_ops, "embedding_bag_ref"), (bag_ops, "embedding_bag_bwd_ref"),
+                      (agg_ops, "gnn_aggregate_csr_ref"), (agg_ops, "gnn_aggregate_ref"),
+                      (transformer, "gqa_attention"), (transformer, "chunked_gqa_attention")):
+        monkeypatch.setattr(mod, name, boom)
+
+
+LM_TRAIN = ShapeCell("t", "train", {"seq_len": 32, "global_batch": 2})
+LM_PREFILL = ShapeCell("p", "prefill", {"seq_len": 32, "global_batch": 2})
+LM_DECODE = ShapeCell("d", "decode", {"seq_len": 64, "global_batch": 2})
+RECSYS_TRAIN = ShapeCell("r", "train", {"batch": 8})
+RECSYS_SERVE = ShapeCell("s", "serve", {"batch": 8})
+GRAPH = ShapeCell("g", "full_graph", {"n_nodes": 40, "n_edges": 160, "d_feat": 100})
+MOLECULE = next(c for c in get_shapes("gatedgcn") if c.name == "molecule")
+RUNS = [
+    ("tinyllama-1.1b", LM_TRAIN, "none", {"flash_attention_fwd", "flash_attention_bwd"}),
+    ("tinyllama-1.1b", LM_PREFILL, "none", {"flash_attention_fwd"}),
+    ("tinyllama-1.1b", LM_DECODE, "none", {"decode_attention_fused"}),
+    ("qwen2-moe-a2.7b", LM_TRAIN, "none", {"flash_attention_fwd", "flash_attention_bwd"}),
+    ("deepseek-v2-236b", LM_TRAIN, "full", {"flash_attention_fwd", "flash_attention_bwd"}),
+    ("deepseek-v2-236b", LM_DECODE, "none", set()),  # MLA decode: plain on the card too
+    ("fm", RECSYS_TRAIN, "none", {"embedding_bag", "embedding_bag_bwd"}),
+    ("fm", RECSYS_SERVE, "none", {"embedding_bag"}),
+    ("gatedgcn", MOLECULE, "none", {"gnn_aggregate_fwd", "gnn_aggregate_bwd"}),
+    ("gatedgcn", GRAPH, "full", {"gnn_aggregate_fwd", "gnn_aggregate_bwd"}),
+]
+
+
+@pytest.mark.parametrize("arch,cell,remat,kernels", RUNS,
+                         ids=[f"{a}-{c.kind}-{r}" for a, c, r, _ in RUNS])
+def test_run_cell_gives_the_outputs_of_a_real_cpu_run(arch, cell, remat, kernels, spied):
+    rec = dryrun.run_cell(arch, cell, smoke=True, remat=remat)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert set(rec["kernels"]) == kernels
+    assert rec["memory"]["peak_hbm_bytes"] >= rec["memory"]["argument_bytes"] > 0
+    assert rec["roofline"]["flops_per_chip"] > 0 and rec["roofline"]["hbm_bytes_per_chip"] > 0
+
+
+@pytest.mark.parametrize("arch,cell,remat,kernels", RUNS,
+                         ids=[f"{a}-{c.kind}-{r}" for a, c, r, _ in RUNS])
+def test_run_cell_outputs_equal_a_cpu_run(arch, cell, remat, kernels):
+    rec = dryrun.run_cell(arch, cell, smoke=True, remat=remat)
+    cfg = get_config(arch, smoke=True)
+    params = init_params(torch.Generator().manual_seed(0), build_param_specs(cfg, cell),
+                         cfg.dtype, "cpu")
+    make_state, step = dryrun.build_step(cfg, cell, remat=remat)
+    out = step(make_state(params), make_batch(cfg, cell, seed=0, device="cpu"))
+    assert rec["outputs"] == dryrun.output_shapes(out)
