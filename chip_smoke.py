@@ -5,19 +5,22 @@
 
 In order it: prints the card's name and power limit; builds every CUDA
 kernel of the port from the sources in this checkout (one nvcc per source,
-all at once); holds the decode-attention kernels against their plain torch
-versions on the card at TinyLlama-1.1B's attention shapes (and gemma3-like
-and smoke shapes), with the kernels', the plain versions' and a library
-call's times: the split variant at every shape, then at every shape the
-variant that writes the new K/V rows and attends (fused at one query row
-per sequence, splits combined in a cluster; chunk at the bf16 chunk shapes
-up to dh 128, ``wgmma``; split, after two index writes, past them, as at
-gemma3-4b's served chunks), with written caches and reruns equal bit for
-bit; serves six full-width TinyLlama-1.1B requests (bf16, random weights
-from a seeded CUDA generator) through ``repro_torch.serve.ServeEngine``,
-which prefills chunks eagerly (chunk variant, no index write) and decodes by
-replaying a CUDA graph of ``decode_step`` (fused variant), counting each
-variant's kernels, and times eager ``decode_step`` against graph replays
+all at once); prints ptxas's report of every decode kernel (a chunk kernel
+that spills fails the run); holds the decode-attention kernels against
+their plain torch versions on the card at TinyLlama-1.1B's attention
+shapes (and gemma3 and smoke shapes), with the kernels', the plain
+versions' and a library call's times: the split variant at every shape,
+then at every shape the variant that writes the new K/V rows and attends
+(fused at one query row per sequence, splits combined in a cluster; chunk
+at the bf16 chunk shapes up to dh 256, ``wgmma``, each beside the split
+variant's route at the same shape and a sweep of cluster sizes; split,
+after two index writes, for fp32 and dh 8), with written caches and
+reruns equal bit for bit; serves six full-width TinyLlama-1.1B requests
+(bf16, random weights from a seeded CUDA generator) through
+``repro_torch.serve.ServeEngine``, which prefills chunks eagerly (chunk
+variant, no index write) and decodes by replaying a CUDA graph of
+``decode_step`` (fused variant), counting each variant's kernels, and
+times eager ``decode_step`` against graph replays
 from one cache state; checks an fp32 smoke engine on the card (graph
 replays; its chunks on the split variant) against the same engine on the
 CPU, token for token; prints ptxas's registers and spills for each
@@ -206,8 +209,10 @@ gateway's CLI with ``--device cuda`` (its demo modules compute host lists);
 and ``python -m repro_torch.obs.trace`` over the spans
 of both processes.  Last, gemma3-4b served at full width and depth (seven
 requests through ``ServeEngine(max_len=2048, chunk=64)``, the last of
-1,600 prompt tokens, past the local window; its chunks on the split
-variant, its decode steps on the fused one at dh 256).
+1,600 prompt tokens, past the local window; its chunks on the chunk
+variant, 34 kernels a call and no index write, its decode steps on the
+fused one at dh 256), then a chain of 25 64-token ``prefill_chunk`` calls
+over its 2,048-row cache held against ``prefill`` of the same tokens.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
@@ -298,11 +303,12 @@ KERNEL_CASES = [
     ("qwen2-moe decode", 1, 1, 1024, 16, 16, 128, [575], None),
     ("qwen2-moe chunk", 1, 64, 1024, 16, 16, 128, [512], None),
     # gemma3-4b's engine at full width (Hq 8, Hkv 4, dh 256) over its cache
-    # of GEMMA_SERVE_LEN rows: decode steps (fused) and 64-row chunk calls,
-    # which the split variant takes at dh 256 after the wrapper's two index
-    # writes; in a local layer (window 1024) the first requests' positions,
-    # then the long request's last chunk and first step, where the window
-    # cuts keys; in a global layer the long request's, every key visible
+    # of GEMMA_SERVE_LEN rows: decode steps (fused) and 64-row chunk calls
+    # (the chunk variant at DC 4; the split variant's route, two index
+    # writes and its two kernels, is timed beside it); in a local layer
+    # (window 1024) the first requests' positions, then the long request's
+    # last chunk and first step, where the window cuts keys; in a global
+    # layer the long request's, every key visible
     ("gemma3 decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [575], 1024),
     ("gemma3 chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [512], 1024),
     ("gemma3 long decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [1600], 1024),
@@ -318,11 +324,11 @@ CHUNK_CASE = "prefill B1"
 SPLIT_CASE = "smoke prefill"
 FAMILY_DECODE = ("deepseek-7b decode", "qwen2-moe decode")  # the fused variant at dh 128, G 1
 FAMILY_CHUNK = ("deepseek-7b chunk", "qwen2-moe chunk")  # the chunk variant at dh 128, G 1
-GEMMA_DECODE, GEMMA_CHUNK = "gemma3 decode", "gemma3 chunk"  # fused and split at dh 256, G 2
+GEMMA_DECODE, GEMMA_CHUNK = "gemma3 decode", "gemma3 chunk"  # fused and chunk at dh 256, G 2
 # the long request's decode step and last chunk call, in a local layer
 # (the window bites) and in a global one
 GEMMA_SERVED = {"fused": ("gemma3 long decode", "gemma3 global decode"),
-                "split": ("gemma3 long chunk", "gemma3 global chunk")}
+                "chunk": ("gemma3 long chunk", "gemma3 global chunk")}
 
 
 def visible_keys(q_start: list[int], S: int, T: int, window: int | None) -> int:
@@ -381,9 +387,29 @@ def library_call(q, k, v, q_start, window):
     return out.transpose(1, 2)
 
 
+def print_decode_ptxas() -> None:
+    """ptxas's registers and spills for every decode-attention kernel as
+    built; a chunk kernel (``decode_attention_chunk_kernelILi<DC>E``, DC 1
+    to 4) that spills fails the run, and so does a missing instantiation."""
+    from repro_torch.kernels import build
+
+    chunk_dcs = set()
+    for row in build.ptxas_report("decode_attention"):
+        name = row["kernel"]
+        print(f"ptxas {name}: registers {row['registers']} spill stores "
+              f"{row['spill_stores']} B loads {row['spill_loads']} B")
+        m = re.search(r"decode_attention_chunk_kernelILi(\d)E", name)
+        if m:
+            chunk_dcs.add(int(m.group(1)))
+            check(row["spill_stores"] == row["spill_loads"] == 0,
+                  f"ptxas: {name} spills {row['spill_stores']} B")
+    check(chunk_dcs == {1, 2, 3, 4}, f"ptxas: chunk kernels at DC {sorted(chunk_dcs)}")
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels.decode_attention import ops
 
+    print_decode_ptxas()
     results, written = {}, {}
     gen = torch.Generator(device=dev).manual_seed(1234)
     for case in KERNEL_CASES:
@@ -472,6 +498,8 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
     print(f"kernel time  {label:18s} {tname:8s} {var} ms {ms:.6f} device_ms {dev_ms:.6f} "
           f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} plain_ms {plain_ms:.6f} "
           f"library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
+    res = dict(ms=ms, device_ms=dev_ms, span_ms=span_ms, queued_ms=q_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
     if var == "chunk":  # the cluster sizes beside the plan's choice (outputs checked too)
         planned = ops.plan_chunk(B, S, Hq // Hkv, Hkv, T, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
@@ -485,10 +513,26 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
                 sweep[n] = queued_ms(call)
         finally:
             ops.plan_chunk = plan
-        print(f"kernel time  {label:18s} {tname:8s} chunk queued_ms by blocks a cluster "
+        # the split variant's route at the same shape, as the wrapper took it
+        # before the chunk kernel did: two index writes, then its two kernels
+        k_s, v_s = k.clone(), v.clone()
+
+        def split_route():
+            ops.insert_chunk(k_s, k_new, q_start)
+            ops.insert_chunk(v_s, v_new, q_start)
+            return ops.decode_attention(q, k_s, v_s, q_start, window=window)
+
+        e = (split_route().float() - want.float()).abs().max().item()
+        check(math.isfinite(e) and e <= tol, f"split route at {label}: err {e}")
+        split_ms = queued_ms(split_route)
+        cold_ms = flushed_ms(call)
+        print(f"kernel chunk vs split {label:18s} {tname:8s} chunk queued_ms {q_ms:.6f} "
+              f"l2_flushed_ms {cold_ms:.6f} split queued_ms {split_ms:.6f} (two index writes, "
+              f"split and combine: {split_ms / q_ms:.2f} times) library_ms {lib_ms:.6f} "
+              f"bound_ms {bms:.6f} ({by}) chunk queued_ms by blocks a cluster "
               + " ".join(f"{n}: {t:.6f}" for n, t in sweep.items()) + f" (planned {planned})")
-    return dict(ms=ms, device_ms=dev_ms, span_ms=span_ms, queued_ms=q_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+        res.update(flushed_ms=cold_ms, split_queued_ms=split_ms, sweep=sweep, planned=planned)
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1533,12 +1577,13 @@ CHAIN_CHUNKS = 9  # 64-token prefill_chunk calls held against one prefill of the
 CHAIN_TOL = 5e-2  # of the largest |value|: see chunk_chain
 
 
-def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
-    """``transformer.prefill`` (flash kernel) of the first 64 * CHAIN_CHUNKS
+def chunk_chain(params, cfg, toks, dev, cache_rows: int = 1024,
+                n_chunks: int = CHAIN_CHUNKS) -> tuple[dict, dict]:
+    """``transformer.prefill`` (flash kernel) of the first 64 * ``n_chunks``
     tokens against a chain of 64-token ``prefill_chunk`` calls (chunk kernel)
-    over the engine's 1024-row cache.  Returns the errors, {"logits": (max
-    abs err, largest |ref|), "k"/"v": [(max abs err, largest |ref|) per
-    layer]}, and the chain's decode-attention launches by variant; fails
+    over an engine's cache of ``cache_rows`` rows.  Returns the errors,
+    {"logits": (max abs err, largest |ref|), "k"/"v": [(max abs err,
+    largest |ref|) per layer]}, and the chain's decode-attention launches by variant; fails
     unless the chain ran one chunk kernel a layer and call and no flash
     kernel.  Tolerance, held by the caller: 5e-2 of the largest |logit| and
     of each layer's largest cached |value|, as tests/test_torch_transformer.py
@@ -1551,9 +1596,9 @@ def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import transformer
 
-    n = 64 * CHAIN_CHUNKS
+    n = 64 * n_chunks
     plg, pc, _ = transformer.prefill(params, cfg, toks[:, :n])
-    chain = transformer.init_cache(cfg, 1, 1024, dev)
+    chain = transformer.init_cache(cfg, 1, cache_rows, dev)
     chain_len = torch.zeros(1, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     reset_launches()
@@ -1570,13 +1615,14 @@ def chunk_chain(params, cfg, toks, dev) -> tuple[dict, dict]:
         errs[name] = [(diff[i].max().item(), ref[i].abs().max().item())
                       for i in range(cfg.n_layers)]
     worst = {k: max(errs[k], key=lambda er: er[0] / er[1]) for k in ("k", "v")}
-    print(f"prefill vs prefill_chunk chain ({cfg.name} bf16, {CHAIN_CHUNKS} chunks of 64, "
+    print(f"prefill vs prefill_chunk chain ({cfg.name} bf16, {n_chunks} chunks of 64 over "
+          f"{cache_rows} cache rows, "
           f"wo std {params['layers']['attn']['wo'].float().std().item():.4e}): logits "
           f"max_abs_err {errs['logits'][0]:.4e} largest {errs['logits'][1]:.4e}; "
           + " ".join(f"{k} layer 0 {errs[k][0][0]:.4e} of {errs[k][0][1]:.4e}, worst layer "
                      f"{worst[k][0]:.4e} of {worst[k][1]:.4e}" for k in ("k", "v"))
           + f"; decode kernels {launches} flash launches {flash_attention.launches_fwd - f0}")
-    check(launches == {"split": 0, "fused": 0, "chunk": CHAIN_CHUNKS * cfg.n_layers}
+    check(launches == {"split": 0, "fused": 0, "chunk": n_chunks * cfg.n_layers}
           and flash_attention.launches_fwd == f0,
           f"the prefill_chunk chain did not run one chunk kernel a layer: {launches}")
     check(chain_len.tolist() == [n], f"prefill_chunk chain length {chain_len.tolist()}")
@@ -1939,6 +1985,7 @@ def phase_gemma3(dev) -> dict:
 
 
 GEMMA_LONG = 1600  # the long request's prompt: the shared 512 tokens and 1,088 more
+GEMMA_CHAIN_CHUNKS = 25  # the long prompt's 1,600 tokens, past the local window of 1024
 GEMMA_PARAMS = 4_550_996_480
 
 
@@ -1959,14 +2006,18 @@ def phase_gemma3_serve(dev) -> dict:
     true fan-in (``at_true_fan_in``: at the reference's scale the scores'
     spread makes the softmax an argmax), through ``ServeEngine(max_len=2048,
     chunk=64)``: the six requests of ``engine_prompts`` and one long request
-    of 1,600 prompt tokens.  Its chunk calls take the split variant (two
-    kernels a layer, after the wrapper's two index writes), its decode steps
+    of 1,600 prompt tokens.  Its chunk calls take the chunk variant (one
+    kernel a layer, which writes the rows: no index write), its decode steps
     the fused one (the graph holds one a layer); ``serve_engine`` holds the
     kernel counts, the index writes, finite logits, and replay tokens equal
     to eager ``decode_step``'s, and its decode ms a token is set beside the
     bytes of weights a step reads.  The long request's chunk calls must
     start where its prompt puts them, the last past the window; one more
-    chunk call at the last one's position runs under the profiler."""
+    chunk call at the last one's position runs under the profiler.  Then a
+    chain of GEMMA_CHAIN_CHUNKS 64-token ``prefill_chunk`` calls over the
+    engine's 2,048-row cache (chunk kernel; the last chunks past the window)
+    is held against ``transformer.prefill`` of the same tokens (flash
+    kernel), as ``chunk_chain`` holds TinyLlama's."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.models import transformer
@@ -1985,7 +2036,7 @@ def phase_gemma3_serve(dev) -> dict:
           f"{cfg.head_dim}, {n_local} local layers, windows {set(windows)}, {cfg.dtype}")
     chunk_var = ops.variant(64, G, cfg.head_dim, cfg.dtype)
     step_var = ops.variant(1, G, cfg.head_dim, cfg.dtype)
-    check((chunk_var, step_var) == ("split", "fused"),
+    check((chunk_var, step_var) == ("chunk", "fused"),
           f"gemma3-4b: chunk calls on {chunk_var}, decode steps on {step_var}")
     params = at_true_fan_in(
         init_params(torch.Generator(device=dev).manual_seed(0), transformer.lm_specs(cfg),
@@ -1993,10 +2044,11 @@ def phase_gemma3_serve(dev) -> dict:
     n_par = param_bytes(params)[0]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     check(n_par == GEMMA_PARAMS, f"gemma3-4b: {n_par} parameters, wanted {GEMMA_PARAMS}")
+    cluster = ops.plan_chunk(1, 64, G, cfg.n_kv_heads, GEMMA_SERVE_LEN, n_sm)
     print(f"gemma3 serve: {cfg.name} full width and depth, bf16, max_len {GEMMA_SERVE_LEN} "
-          f"chunk 64; chunk calls on {chunk_var} (split plan "
-          f"{ops.plan(1, 64, cfg.n_heads, cfg.n_kv_heads, GEMMA_SERVE_LEN, cfg.head_dim, n_sm)}"
-          f" at {n_sm} SMs), decode steps on {step_var} (plan_fused "
+          f"chunk 64; chunk calls on {chunk_var} (plan_chunk: clusters of {cluster} blocks, "
+          f"{-(-64 * G // ops.CHUNK_ROWS) * cfg.n_kv_heads} row tiles, at {n_sm} SMs), decode "
+          f"steps on {step_var} (plan_fused "
           f"{ops.plan_fused(GEMMA_SERVE_LEN, cfg.head_dim, cfg.dtype)})")
     prompts = gemma3_prompts(cfg.vocab)
     run = serve_engine(dev, cfg, params, prompts, ENGINE_NEW, "gemma3-4b", "gemma3-4b req",
@@ -2025,7 +2077,23 @@ def phase_gemma3_serve(dev) -> dict:
           f"bytes a token a layer {per_pos:.1f}; decode ms a token graph "
           f"{run['graph_ms']:.6f} replay {run['replay_ms']:.6f} eager {run['eager_ms']:.6f}; "
           f"decode kernels {run['launches']}")
-    run.update(chunk_ms=chunk_ms, long_chunk_ms=long_ms, calls=calls, n_params=n_par)
+    per_call = run["launches"]["chunk"] / calls
+    check(per_call == cfg.n_layers and run["launches"]["split"] == 0,
+          f"gemma3-4b: {run['launches']} decode kernels over {calls} chunk calls, wanted "
+          f"{cfg.n_layers} chunk kernels a call and no split kernel")
+    run.update(chunk_ms=chunk_ms, long_chunk_ms=long_ms, calls=calls, n_params=n_par,
+               cluster=cluster)
+
+    # the chunk kernel at DC 4 on the real model: a chain of 64-token chunks
+    # over the engine's cache, past the local window, against prefill
+    toks = torch.tensor([prompts[-1][:64 * GEMMA_CHAIN_CHUNKS]], dtype=torch.int32, device=dev)
+    cerrs, chain_launches = chunk_chain(params, cfg, toks, dev, cache_rows=GEMMA_SERVE_LEN,
+                                        n_chunks=GEMMA_CHAIN_CHUNKS)
+    check(cerrs["logits"][0] <= CHAIN_TOL * cerrs["logits"][1],
+          f"gemma3-4b prefill_chunk chain logits differ from prefill's: {cerrs['logits']}")
+    check(all(e <= CHAIN_TOL * r for k in ("k", "v") for e, r in cerrs[k]),
+          f"gemma3-4b prefill_chunk chain caches differ from prefill's: {cerrs}")
+    run.update(chain_errs=cerrs, chain_launches=chain_launches)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5783,8 +5851,7 @@ def main() -> int:
                      "(card vs CPU)")
     split_paths = {"fp32 smoke serving (card vs CPU)": par["split"],
                    "fp32 gemma3 smoke prefill_chunk chain": pre["smoke_chain_launches"]["split"],
-                   family_parity: fpar["split"],
-                   "gemma3-4b serving prefill chunks (dh 256)": g3s["launches"]["split"]}
+                   family_parity: fpar["split"]}
     split_at_chunk = kern["cases"][(CHUNK_CASE, "bfloat16")]
     # the cuts of scale this run makes to a published configuration
     line = {"kernels": [], "reduced": {
@@ -5818,7 +5885,8 @@ def main() -> int:
           "store-server serving prefill chunks (two engines, cache tier)": store["chunk"],
           "client": cli["decode"]["chunk"],
           "deepseek-7b serving prefill chunks": ds7["launches"]["chunk"],
-          "qwen2-moe-a2.7b serving prefill chunks": qwen["launches"]["chunk"]}),
+          "qwen2-moe-a2.7b serving prefill chunks": qwen["launches"]["chunk"],
+          "gemma3-4b serving prefill chunks (dh 256)": g3s["launches"]["chunk"]}),
         ("decode_attention", "split", SPLIT_CASE, "float32", kern["cases"][(SPLIT_CASE, "float32")],
          split_paths),
     ):
@@ -5846,7 +5914,7 @@ def main() -> int:
             entry["family_cases"] = {
                 label: {k: kern["written"][(label, "bfloat16")][k] for k in timed_keys}
                 for label in ((FAMILY_DECODE if var == "fused" else FAMILY_CHUNK))}
-        # gemma3-4b's engine at dh 256, G 2 (fused: its decode steps; split:
+        # gemma3-4b's engine at dh 256, G 2 (fused: its decode steps; chunk:
         # its chunk calls), at the first requests' positions in a local layer,
         # then at the long request's, where the window bites, and in a global
         # layer
@@ -5857,17 +5925,24 @@ def main() -> int:
                 k: kern["written"][(GEMMA_DECODE, "bfloat16")][k] for k in timed_keys}
             entry["at_gemma3_served"] = gemma_served
         if var == "chunk":
+            entry["l2_flushed_ms"] = r["flushed_ms"]
             entry["full_width_chain_launches"] = pre["chain_launches"]["chunk"]
-        if var == "split":  # the variant the chunk kernel replaced at the engine's chunk call
-            entry["at_chunk_case"] = {k: split_at_chunk[k] for k in timed_keys}
-            # gemma3-4b's engine chunk (dh 256), which the split variant takes:
-            # the whole call (two index writes and two kernels), and its
-            # kernels alone on a cache that holds the rows
+            entry["gemma3_chain_launches"] = g3s["chain_launches"]["chunk"]
+            # beside each gemma3 chunk shape: the split variant's route there
+            # (two index writes and two kernels), its two kernels alone on a
+            # cache that holds the rows, and the cluster sweep
             entry["at_gemma3_chunk"] = {
                 k: kern["written"][(GEMMA_CHUNK, "bfloat16")][k] for k in timed_keys}
-            entry["at_gemma3_chunk"]["kernels_alone_queued_ms"] = \
-                kern["cases"][(GEMMA_CHUNK, "bfloat16")]["queued_ms"]
             entry["at_gemma3_served"] = gemma_served
+            for label, r in ((GEMMA_CHUNK, entry["at_gemma3_chunk"]), *gemma_served.items()):
+                w = kern["written"][(label, "bfloat16")]
+                r.update(l2_flushed_ms=w["flushed_ms"], split_queued_ms=w["split_queued_ms"],
+                         sweep=w["sweep"],
+                         planned=w["planned"],
+                         split_kernels_alone_queued_ms=kern["cases"][(label, "bfloat16")][
+                             "queued_ms"])
+        if var == "split":  # the variant the chunk kernel replaced at the engine's chunk call
+            entry["at_chunk_case"] = {k: split_at_chunk[k] for k in timed_keys}
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
     family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
@@ -6168,7 +6243,10 @@ def main() -> int:
         "chunks_skipped": [[r["skipped"], r["n"]] for r in g3s["rows"]],
         "snapshot_bytes_per_token_layer": g3s["snapshot"][2], "launches": g3s["launches"],
         "chunk_call_profile": {k: g3s["chunk_profile"].get(k)
-                               for k in ("wall_ms", "busy_ms", "idle_share")}}
+                               for k in ("wall_ms", "busy_ms", "idle_share", "watch")},
+        "chunk_cluster": g3s["cluster"],
+        "chain_errs": {"logits": g3s["chain_errs"]["logits"],
+                       **{k: max(e / r for e, r in g3s["chain_errs"][k]) for k in ("k", "v")}}}
     print(f"total: {time.perf_counter() - t0:.3f} s on {card}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -94,7 +94,8 @@
 // ---------------------------------------------------------------------------
 // Chunk variant (decode_attention_chunk_launch): prefill_chunk's call, in
 // bf16 with S > 1 query rows a sequence, the head dim padded to 16 at most
-// 128 and G dividing 64 (TinyLlama's chunk: S 64, G 8, dh 64).  At the
+// 256 and G dividing 64 (TinyLlama's chunk: S 64, G 8, dh 64; gemma3-4b's:
+// S 64, G 2, dh 256).  At the
 // engine's chunk that is 512 query rows a KV head against at most 576 keys:
 // well under a microsecond of bytes, so launch latency and the chain of
 // dependent tile steps inside a block set the time.  The split variant ran
@@ -102,7 +103,8 @@
 // each of a head's 32 row tiles, sent its partials through device memory to
 // a second kernel, and needed two index writes before it.  This variant is
 // one launch:
-//  * Grid (n_split, ceil(S*G / 64), B*Hkv), one warpgroup a block.  A block's 64
+//  * Grid (n_split, ceil(S*G / 64), B*Hkv), one warpgroup a block (two at
+//    dh above 192: below).  A block's 64
 //    rows are r = s*G + g of one KV head (G divides 64, so they hold whole
 //    positions), so every K/V tile it stages serves all G heads of the
 //    group.  Scores S = Q.K^T and O += P.V are wgmma products on 64 x 64
@@ -138,6 +140,30 @@
 //    capture it.  No atomics: reruns are equal bit for bit.
 //  * Every loop over chunks, rows or keys inside a tile runs a fixed count
 //    with a predicate, as in the fused variant.
+//  * The head dim takes DC column chunks of 64 (DC 1 to 4: dh 16..64,
+//    72..128, 136..192, 200..256), one kernel each, as the flash kernels'
+//    forward does; columns past dh are zeros in Q, K and V.  What grows with
+//    DC is shared memory and the O accumulator.  Shared memory is Q plus two
+//    buffers of K and V, 40 KB a chunk: 160 KB at DC 4, under the 227 KB a
+//    block may have, so an SM holds one block there; the cluster's
+//    partial O ([64][64 * DC] fp32) is exactly the two K buffers at every
+//    DC and is kept in them.  O is DC x 32 fp32 registers a thread, beside
+//    the scores' 32 and P's 16 as bf16 pairs.  With one warpgroup ptxas
+//    fits DC 3 in 239 registers, but at DC 4 (O 128) it took all 255 and
+//    spilled 68 bytes of stores and 92 of loads (nvcc 12, sm_90a).  So at DC
+//    4 a block has two warpgroups over the same 64 rows (chunk_wgs): each
+//    computes S = Q.K^T and the online softmax itself (the same bits in
+//    both: 64 keys, 16 wgmma steps) and owns two of O's four column chunks,
+//    64 registers, in P.V: 194 registers a thread, no spill.  That costs a
+//    second S product a tile and nothing in shared memory; the 256 threads
+//    share the copies.
+//    chip_smoke.py prints ptxas's report of every chunk kernel and fails on
+//    a spill.
+//  * At gemma3-4b's chunk (S 64, G 2, Hkv 4, dh 256) a KV head has 2 row
+//    tiles, 8 a call, each seeing 9 to 25 key tiles of 64: plan_chunk gives
+//    clusters of 8, one block an SM.  decode_attention_chunk_init checks,
+//    once, that a cluster of 8 can be placed at every DC's shared memory,
+//    and fails otherwise: no launch quietly takes fewer blocks.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -842,15 +868,19 @@ cudaError_t fused_init_typed() {
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int kChunkThreads = 128;  // one warpgroup
+// warpgroups of a block at DC column chunks: two at DC 4, over the same 64
+// rows, each owning half of O's column chunks (see the header)
+__host__ __device__ constexpr int chunk_wgs(int DC) { return DC == 4 ? 2 : 1; }
 constexpr int kChunkRows = 64;      // query rows of a block: one wgmma M tile
 constexpr int kChunkKeys = 64;      // keys of a tile: one wgmma N tile
 
 constexpr int kChunkMaxSplits = 8;  // the portable cluster size
 
 // Q and two buffers each of K and V: DC column chunks of [64][64] bf16 each,
-// under the 128-byte swizzle (DC = 1 up to dh 64, 2 up to 128).  After the
-// key loop the K buffers hold the block's partial O ([64][64 * DC] fp32) and
-// part_m / part_l its rows' m and l, for the cluster's combine.
+// under the 128-byte swizzle (DC = 1 up to dh 64, 2 up to 128, 3 up to 192,
+// 4 up to 256).  After the key loop the K buffers hold the block's partial O
+// ([64][64 * DC] fp32) and part_m / part_l its rows' m and l, for the
+// cluster's combine.
 template <int DC>
 struct ChunkSmem {
   alignas(1024) bf16 q[DC][kChunkRows * 64];
@@ -861,15 +891,26 @@ struct ChunkSmem {
 
 template <int DC> constexpr size_t chunk_smem_bytes() { return sizeof(ChunkSmem<DC>) + 1024; }
 
+constexpr size_t kChunkSmemMax = 232448;  // dynamic shared memory a block may have
+template <int DC> constexpr bool chunk_layout_fits() {
+  static_assert(sizeof(ChunkSmem<DC>::k) == sizeof(float) * kChunkRows * 64 * DC,
+                "the partial O must fill the two K buffers exactly");
+  static_assert(chunk_smem_bytes<DC>() <= kChunkSmemMax, "chunk layout over 227 KB");
+  return true;
+}
+static_assert(chunk_layout_fits<1>() && chunk_layout_fits<2>() && chunk_layout_fits<3>() &&
+              chunk_layout_fits<4>(), "chunk layouts");
+
 __device__ __forceinline__ void zero_chunk(bf16* tile, int row, int c) {
   *reinterpret_cast<uint4*>(reinterpret_cast<char*>(tile) + swizzle128(row, c)) =
       make_uint4(0u, 0u, 0u, 0u);
 }
 
 // grid: (n_split, ceil(S*G / 64), B * Hkv), cluster (n_split, 1, 1): the
-// n_split blocks of a row tile share its key tiles; block: kChunkThreads.
+// n_split blocks of a row tile share its key tiles; block: chunk_wgs(DC)
+// warpgroups.
 template <int DC>
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kChunkThreads * chunk_wgs(DC))
 decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
                               const bf16* __restrict__ k_new,  // [B,S,Hkv,dh]
                               const bf16* __restrict__ v_new,
@@ -880,9 +921,11 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
                               int S, int Hkv, int G, int Tlen, int dh, int window,
                               float scale) {
   constexpr int kCpr = DC * 8;  // 16-byte chunks of a padded row
+  constexpr int kThreads = kChunkThreads * chunk_wgs(DC);
+  constexpr int kOc = DC / chunk_wgs(DC);  // O's column chunks a warpgroup owns
   // chunks of a [64][64 * DC] tile a thread: every loop over a tile's (row,
   // chunk) pairs runs this count with a predicate
-  constexpr int kIters = kChunkRows * kCpr / kChunkThreads;
+  constexpr int kIters = kChunkRows * kCpr / kThreads;
   extern __shared__ char smem_raw[];
   ChunkSmem<DC>& sm = smem_layout<ChunkSmem<DC>>(smem_raw);
   const int R = S * G;
@@ -894,7 +937,9 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   const int b = bh / Hkv;
   const int kvh = bh - b * Hkv;
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int warp = tid % kChunkThreads / 32, lane = tid % 32;  // warp of its warpgroup
+  // the warpgroup's first column chunk of O (a constant with one warpgroup)
+  const int c0 = chunk_wgs(DC) == 1 ? 0 : tid / kChunkThreads * kOc;
   const int cpr = dh / 8;  // 16-byte chunks of a row
   const int qs0 = q_start[b];
   const size_t pos_stride = (size_t)Hkv * dh;  // elements from one position to the next
@@ -920,7 +965,7 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   // shared out over the cluster's blocks
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
-    const int idx = tid + kChunkThreads * it;
+    const int idx = tid + kThreads * it;
     const int i = idx / kCpr, c = idx % kCpr;
     const int s = s_lo + i;
     if (it % n_split == rank && c < cpr && s <= s_hi && qs0 + s < Tlen) {
@@ -934,7 +979,7 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   if (n_tiles > 0 && cpr < kCpr) {
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
-      const int idx = tid + kChunkThreads * it;
+      const int idx = tid + kThreads * it;
       const int i = idx / kCpr, c = idx % kCpr;
       if (c >= cpr) {
         zero_chunk(sm.q[c / 8], i, c % 8);
@@ -949,7 +994,7 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   // this block's query rows (zeros past R)
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
-    const int idx = tid + kChunkThreads * it;
+    const int idx = tid + kThreads * it;
     const int i = idx / kCpr, c = idx % kCpr;
     const int r = r0 + i;
     if (n_tiles > 0 && c < cpr) {
@@ -969,7 +1014,7 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
     const int t0 = (t_first + tile) * kChunkKeys;
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
-      const int idx = tid + kChunkThreads * it;
+      const int idx = tid + kThreads * it;
       const int j = idx / kCpr, c = idx % kCpr;
       const int kp = t0 + j;
       if (c >= cpr) continue;
@@ -995,9 +1040,9 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   for (int x = 0; x < 2; ++x) pos[x] = qs0 + (r0 + rl + 8 * x) / G;
   const int col = 2 * (lane % 4);
   const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
-  float oacc[DC][32];
+  float oacc[kOc][32];  // O's column chunks c0 .. c0 + kOc - 1
 #pragma unroll
-  for (int c = 0; c < DC; ++c)
+  for (int c = 0; c < kOc; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -1053,7 +1098,7 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
       sacc[e] = p;
     }
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < kOc; ++c)
 #pragma unroll
       for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
     // O += P . V, P in bf16 (the reference's cast of the probabilities)
@@ -1064,12 +1109,12 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
 #pragma unroll
     for (int kk = 0; kk < kChunkKeys / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
-        wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[buf][c]) + kk * 16 * 128 / 16);
+      for (int c = 0; c < kOc; ++c)
+        wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[buf][c0 + c]) + kk * 16 * 128 / 16);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < DC; ++c) fence_regs(oacc[c]);
+    for (int c = 0; c < kOc; ++c) fence_regs(oacc[c]);
   }
 
   float l_row[2];
@@ -1084,10 +1129,10 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
       const int s = r / G;
       bf16* o = out + (((size_t)b * S + s) * Hq + kvh * G + (r - s * G)) * dh;
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
+      for (int c = 0; c < kOc; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int cc = 64 * c + 8 * j + col;
+          const int cc = 64 * (c0 + c) + 8 * j + col;
           if (cc < dh)
             *reinterpret_cast<__nv_bfloat162*>(o + cc) = __floats2bfloat162_rn(
                 oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
@@ -1105,12 +1150,12 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   for (int x = 0; x < 2; ++x) {
     const int row = rl + 8 * x;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < kOc; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(part_o + row * kLd + 64 * c + 8 * j + col) =
+        *reinterpret_cast<float2*>(part_o + row * kLd + 64 * (c0 + c) + 8 * j + col) =
             make_float2(oacc[c][4 * j + 2 * x], oacc[c][4 * j + 2 * x + 1]);
-    if (lane % 4 == 0) {
+    if (lane % 4 == 0 && c0 == 0) {  // both warpgroups hold the same m and l
       sm.part_m[row] = m_run[x];
       sm.part_l[row] = l_row[x];
     }
@@ -1123,8 +1168,8 @@ decode_attention_chunk_kernel(const bf16* __restrict__ q,      // [B,S,Hq,dh]
   // for bit); the most a rank takes is at two splits
   const int rows_per = kChunkRows / n_split;
 #pragma unroll 1
-  for (int it = 0; it < kChunkRows / 2 * 32 * DC / kChunkThreads; ++it) {
-    const int idx = tid + kChunkThreads * it;
+  for (int it = 0; it < kChunkRows / 2 * 32 * DC / kThreads; ++it) {
+    const int idx = tid + kThreads * it;
     const int row = rank * rows_per + idx / (32 * DC);
     const int cc = 2 * (idx % (32 * DC));
     const int r = r0 + row;
@@ -1167,7 +1212,7 @@ cudaError_t chunk_launch_typed(const void* q, const void* kn, const void* vn, vo
                                int Tlen, int dh, int window, int n_split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, (S * G + kChunkRows - 1) / kChunkRows, B * Hkv);
-  cfg.blockDim = dim3(kChunkThreads, 1, 1);
+  cfg.blockDim = dim3(kChunkThreads * chunk_wgs(DC), 1, 1);
   cfg.dynamicSmemBytes = chunk_smem_bytes<DC>();
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1254,24 +1299,56 @@ extern "C" int decode_attention_fused_launch(const void* q, const void* k_new, c
   return (int)cudaErrorInvalidValue;
 }
 
-// Sets the dynamic shared-memory limit of the chunk kernels; called once,
-// when the library is loaded, so that no launch (or graph capture) does it.
-extern "C" int decode_attention_chunk_init() {
-  cudaError_t e = cudaFuncSetAttribute(decode_attention_chunk_kernel<1>,
+namespace {
+
+constexpr int kChunkUnplaceable = -1;
+
+// Sets the dynamic shared-memory limit of the chunk kernel at DC column
+// chunks, then asks whether a cluster of kChunkMaxSplits blocks of that size
+// can be placed on this device: kChunkUnplaceable if not.
+template <int DC>
+int chunk_init_one() {
+  cudaError_t e = cudaFuncSetAttribute(decode_attention_chunk_kernel<DC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)chunk_smem_bytes<1>());
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(decode_attention_chunk_kernel<2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)chunk_smem_bytes<2>());
-  return (int)e;
+                                       (int)chunk_smem_bytes<DC>());
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kChunkMaxSplits, 1, 1);
+  cfg.blockDim = dim3(kChunkThreads * chunk_wgs(DC), 1, 1);
+  cfg.dynamicSmemBytes = chunk_smem_bytes<DC>();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kChunkMaxSplits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, decode_attention_chunk_kernel<DC>, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  return clusters >= 1 ? 0 : kChunkUnplaceable;
+}
+
+}  // namespace
+
+// Sets the dynamic shared-memory limit of the chunk kernels and checks that
+// a cluster of 8 blocks can be placed at each one's shared memory (160 KB a
+// block at DC 4); called once, when the library is loaded, so that no launch
+// (or graph capture) does it.  Returns 0, a CUDA error, or -1 where a cluster
+// of 8 cannot be placed.
+extern "C" int decode_attention_chunk_init() {
+  const int errs[] = {chunk_init_one<1>(), chunk_init_one<2>(), chunk_init_one<3>(),
+                      chunk_init_one<4>()};
+  for (int e : errs)
+    if (e != 0) return e;
+  return 0;
 }
 
 // C entry point of the chunk variant (bound with ctypes), bf16 only.
 // q [B,S,Hq,dh], k_new/v_new [B,S,Hkv,dh], k/v caches [B,T,Hkv,dh] (rows
 // q_start[b] .. q_start[b]+S-1 below T written in place), out [B,S,Hq,dh];
-// every pointer 16-byte aligned.  dh a multiple of 8 from 16 to 128
-// (padded to 16 at most 128), G = Hq / Hkv dividing 64.  window <= 0 means
+// every pointer 16-byte aligned.  dh a multiple of 8 from 16 to 256
+// (padded to 16 at most 256), G = Hq / Hkv dividing 64.  window <= 0 means
 // no window.  n_split (1, 2, 4 or 8) blocks of a cluster share each row
 // tile's key tiles.  Returns cudaGetLastError() after the launch (0 on
 // success).
@@ -1281,15 +1358,22 @@ extern "C" int decode_attention_chunk_launch(const void* q, const void* k_new, c
                                              int window, int n_split, void* stream) {
   if (B <= 0 || S <= 0 || Tlen <= 0 || Hkv <= 0 || Hq < Hkv || Hq % Hkv != 0 ||
       64 % (Hq / Hkv) != 0 || B * Hkv > 65535 || dh < 16 || dh % 8 != 0 ||
-      (dh + 15) / 16 * 16 > 128 || n_split < 1 || n_split > kChunkMaxSplits ||
+      (dh + 15) / 16 * 16 > 256 || n_split < 1 || n_split > kChunkMaxSplits ||
       (n_split & (n_split - 1)) != 0 || ((long long)S * (Hq / Hkv) + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto qs = static_cast<const int32_t*>(q_start);
   const int G = Hq / Hkv;
+  // the padded width's column chunks of 64
   if (dh <= 64)
     return (int)chunk_launch_typed<1>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
                                       window, n_split, st);
-  return (int)chunk_launch_typed<2>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
+  if (dh <= 128)
+    return (int)chunk_launch_typed<2>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
+                                      window, n_split, st);
+  if (dh <= 192)
+    return (int)chunk_launch_typed<3>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
+                                      window, n_split, st);
+  return (int)chunk_launch_typed<4>(q, k_new, v_new, k, v, qs, out, B, S, Hkv, G, Tlen, dh,
                                     window, n_split, st);
 }

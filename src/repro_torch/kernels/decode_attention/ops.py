@@ -9,7 +9,7 @@ attention call of a shape, from static shapes before any launch:
   KV splits inside a thread-block cluster.  ``decode_step`` takes it through
   :func:`decode_attention_chunk` (alias :func:`decode_attention_insert`).
 * ``"chunk"``: S > 1 query rows in bf16, the head dim padded to 16 at most
-  128 (dh 16 and up) and a GQA group dividing 64.  One launch writes the
+  256 (dh 16 and up) and a GQA group dividing 64.  One launch writes the
   chunk's K/V rows into the cache and attends with ``wgmma``; a cluster of
   :func:`plan_chunk` blocks shares each 64-row tile's keys.
   ``prefill_chunk`` takes it through :func:`decode_attention_chunk`.
@@ -17,8 +17,8 @@ attention call of a shape, from static shapes before any launch:
   a split kernel over KV splits, then a combine kernel: two launches a call.
   :func:`decode_attention_chunk` takes it, after two index writes of the new
   rows, for what the other two do not take: fp32 chunks (the exact parity
-  path), dh 8 or above 128, groups that do not divide 64, and more than 16
-  rows per KV head at S = 1.
+  path), dh 8, groups that do not divide 64, and more than 16 rows per KV
+  head at S = 1.
 
 A tensor on the CPU goes to the plain version
 (:mod:`repro_torch.models.attention`).  A CUDA tensor goes to a kernel, or
@@ -68,6 +68,10 @@ def _kernel(name: str):
             init = getattr(lib, f"decode_attention_{name}_init")
             init.restype = ctypes.c_int
             err = init()  # the shared-memory limit of the variant's kernels, once
+            if err == -1:  # the chunk kernels' check of their largest cluster
+                raise RuntimeError(
+                    f"decode_attention chunk init: a cluster of {MAX_CLUSTER} chunk blocks "
+                    "cannot be placed on this device at the kernels' shared memory")
             if err != 0:
                 raise RuntimeError(f"decode_attention {name} init failed: CUDA error {err}")
             fn = getattr(lib, f"decode_attention_{name}_launch")
@@ -84,9 +88,10 @@ def _kernel(name: str):
 def variant(S: int, G: int, dh: int, dtype: torch.dtype) -> str:
     """The kernel that takes a call that writes its new K/V rows and
     attends: ``"fused"`` for one query row (S = 1) with G <= 16 rows per KV
-    head; ``"chunk"`` for S > 1 in bf16 with dh from 16 to 128 and G
-    dividing 64; ``"split"`` for the rest.  All need fp32 or bf16 and a head
-    dim that is a multiple of 8 up to 256.  Raises for what no kernel takes."""
+    head; ``"chunk"`` for S > 1 in bf16 with dh from 16 to 256 and G
+    dividing 64; ``"split"`` for the rest (fp32 chunks, dh 8, other
+    groups).  All need fp32 or bf16 and a head dim that is a multiple of 8
+    up to 256.  Raises for what no kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"decode_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
@@ -96,7 +101,7 @@ def variant(S: int, G: int, dh: int, dtype: torch.dtype) -> str:
     if S == 1:
         return "fused" if G <= FUSED_MAX_G else "split"
     # dh 8 stays split: a 64-column wgmma tile would be seven eighths padding
-    if dtype == torch.bfloat16 and 16 <= dh <= 128 and CHUNK_ROWS % G == 0:
+    if dtype == torch.bfloat16 and dh >= 16 and CHUNK_ROWS % G == 0:
         return "chunk"
     return "split"
 

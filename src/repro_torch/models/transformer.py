@@ -348,7 +348,7 @@ def _cached_forward(params: dict, cfg: LMConfig, tokens, cache, cache_len):
     """c new tokens per sequence (c = 1: a decode step).  GQA: the attention
     call writes the new K/V rows itself: on the card one kernel a layer, the
     fused variant at decode (G <= 16 query heads per KV head) and the chunk
-    variant for a bf16 chunk (dh 16 to 128, G dividing 64); other shapes
+    variant for a bf16 chunk (dh 16 to 256, G dividing 64); other shapes
     write the rows with index writes, then run the split kernel.  MLA: the
     chunk's latent and rope rows are written with index writes, then the
     absorbed attention reads the cache."""

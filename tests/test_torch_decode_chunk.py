@@ -98,8 +98,10 @@ def test_plain_version_is_the_two_inserts_then_attention():
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
-# (S, G, dh): shapes the chunk kernel takes in bf16
-CHUNK_SHAPES = [(64, 8, 64), (2, 1, 16), (7, 4, 128), (3, 64, 64), (64, 2, 120), (1000, 16, 24)]
+# (S, G, dh): shapes the chunk kernel takes in bf16 (gemma3-4b's served
+# chunk: S 64, G 2, dh 256)
+CHUNK_SHAPES = [(64, 8, 64), (2, 1, 16), (7, 4, 128), (3, 64, 64), (64, 2, 120), (1000, 16, 24),
+                (64, 2, 256), (64, 8, 136), (7, 4, 192)]
 
 
 @pytest.mark.parametrize("S, G, dh", CHUNK_SHAPES)
@@ -111,8 +113,8 @@ def test_bf16_chunks_take_the_chunk_kernel(S, G, dh):
 
 @pytest.mark.parametrize("S, G, dh", [
     (64, 8, 8),  # the smoke configs' head dim
-    (64, 8, 136), (64, 2, 256),  # padded head dim above 128
     (64, 3, 64), (16, 128, 64), (8, 6, 128),  # groups that do not divide 64
+    (64, 3, 256), (64, 6, 192),  # the same above dh 128
 ])
 def test_other_chunks_take_the_split_kernel(S, G, dh):
     assert ops.variant(S, G, dh, torch.bfloat16) == "split"
@@ -141,6 +143,9 @@ def test_chunk_plan_fills_the_card_from_static_shapes():
     assert ops.plan_chunk(1, 64, 8, 1, 1024, 132) == 8
     assert ops.plan_chunk(2, 20, 4, 2, 128, 132) == 2  # two key tiles
     assert ops.plan_chunk(8, 512, 8, 8, 4096, 132) == 1
+    # gemma3-4b's served chunk (G 2, Hkv 4, T 2048): 8 row tiles, 64 blocks,
+    # one an SM at dh 256's 160 KB of shared memory
+    assert ops.plan_chunk(1, 64, 2, 4, 2048, 132) == 8
     for B in (1, 2, 3, 4):
         for S in (2, 13, 64, 200):
             for G in (1, 4, 8, 64):

@@ -286,6 +286,18 @@ CHUNK_CASES = [
     (8, 64, 32, 4, 256, 64, [0, 17, 64, 100, 128, 150, 190, 192], None),  # one block a row tile
     (1, 64, 32, 32, 1024, 128, [512], None),  # deepseek-7b's engine chunk: G 1, dh 128
     (1, 64, 16, 16, 1024, 128, [448], None),  # qwen2-moe-a2.7b's
+    # gemma3-4b's served chunk (G 2, dh 256, T 2048): a local layer at the
+    # first requests' positions, the long request's last chunk (the window
+    # bites), a global layer
+    (1, 64, 8, 4, 2048, 256, [512], 1024),
+    (1, 64, 8, 4, 2048, 256, [1536], 1024),
+    (1, 64, 8, 4, 2048, 256, [1536], None),
+    (2, 64, 8, 4, 2048, 256, [77, 1001], 1024),  # B 2, unaligned starts
+    (2, 37, 16, 8, 1024, 192, [333, 5], None),  # dh 192, unaligned, S not a multiple of 32
+    (1, 64, 4, 4, 512, 256, [200], None),  # G 1 at dh 256
+    (1, 20, 16, 2, 256, 136, [100], None),  # G 8 at dh 136: padded columns
+    (1, 64, 8, 1, 1024, 192, [700], 100),  # a window that cuts keys, G 8 at dh 192
+    (2, 50, 4, 2, 512, 136, [13, 400], 64),  # G 2 at dh 136, windowed, unaligned
 ]
 
 
@@ -355,15 +367,15 @@ def test_chunk_decode_attention_writes_nothing_past_the_cache():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype, dh", [(torch.float32, 64), (torch.bfloat16, 256),
-                                       (torch.bfloat16, 8)])
-def test_other_chunks_never_launch_the_chunk_kernel(dtype, dh):
-    """fp32 chunks (the exact parity path), dh 256 and dh 8 take the index
-    writes and the split kernel."""
+@pytest.mark.parametrize("dtype, dh, Hq", [(torch.float32, 64, 8), (torch.bfloat16, 256, 6),
+                                           (torch.bfloat16, 8, 8)])
+def test_other_chunks_never_launch_the_chunk_kernel(dtype, dh, Hq):
+    """fp32 chunks (the exact parity path), a group that does not divide
+    64 (G 3 at dh 256) and dh 8 take the index writes and the split kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    case = (2, 16, 8, 2, 256, dh, [0, 200], None)
-    assert ops.variant(16, 4, dh, dtype) == "split"
+    case = (2, 16, Hq, 2, 256, dh, [0, 200], None)
+    assert ops.variant(16, Hq // 2, dh, dtype) == "split"
     q, k_new, v_new, k, v, q_start = _chunk_inputs(case, dtype)
     k_want, v_want = k.clone(), v.clone()
     want = attention.decode_attention_chunk(q, k_new, v_new, k_want, v_want, q_start)

@@ -104,11 +104,14 @@ def test_flash_meta_allocates_the_kernels_scratch():
     assert rk.peak - base >= 4 * n_bwd
 
 
-@pytest.mark.parametrize("S,dtype,var", [(1, torch.bfloat16, "fused"),
-                                         (8, torch.bfloat16, "chunk"),
-                                         (8, torch.float32, "split")])
-def test_decode_meta_shapes_equal_the_plain_version(S, dtype, var):
-    B, T, Hq, Hkv, dh = 2, 64, 8, 2, 32
+@pytest.mark.parametrize("S,dtype,var,dh", [
+    pytest.param(1, torch.bfloat16, "fused", 32, id="1-dtype0-fused"),
+    pytest.param(8, torch.bfloat16, "chunk", 32, id="8-dtype1-chunk"),
+    pytest.param(8, torch.float32, "split", 32, id="8-dtype2-split"),
+    pytest.param(8, torch.bfloat16, "chunk", 256, id="8-dtype3-chunk-dh256"),  # gemma3-4b's
+])
+def test_decode_meta_shapes_equal_the_plain_version(S, dtype, var, dh):
+    B, T, Hq, Hkv = 2, 64, 8, 2
     assert decode_ops.variant(S, Hq // Hkv, dh, dtype) == var
     q_start = torch.tensor([3, 17], dtype=torch.int32)
     cpu = [_pair(s, dtype, i, grad=False)[0] for i, s in enumerate(
