@@ -24,8 +24,9 @@ times eager ``decode_step`` against graph replays
 from one cache state; checks an fp32 smoke engine on the card (graph
 replays; its chunks on the split variant) against the same engine on the
 CPU, token for token; prints ptxas's registers and spills for each
-``wgmma``, ``wgmma_rows`` and ``tf32x3`` flash kernel (one of the last two
-that spills fails the run); holds the flash-attention kernels (forward: out
+``wgmma``, ``wgmma_rows`` and ``tf32x3`` flash kernel (one of the last two,
+or one of the six at MLA's (3, 2) chunk instantiation, that spills fails the
+run); holds the flash-attention kernels (forward: out
 and logsumexp; backward: dq, dk, dv) against the plain version plus autograd
 at the training shape, gemma3-4b's local and global layers (dh 256), head
 dims 192 and 136 at G 2 and 8, groups that do not divide 64 (the
@@ -61,11 +62,12 @@ weights alone; the share of routed pairs capacity dropped) and prefill
 deepseek-v2-236b at full width cut to 4 of its 60 layers (MLA: the latent
 cache, whose snapshot bytes a token are printed against an MHA cache's; no
 decode kernel) serves three requests and holds a 1,024-token ``forward``
-(flash at dh 192 with the values padded from 128) against one
-``prefill_chunk`` over the same tokens (the absorbed attention); each
-family's flash shape, forward and backward (values padded as the model pads
-them), is held against fp32 autograd of the plain version and timed beside
-its bound, the plain version and SDPA.  Then card against CPU in fp32: the
+(flash at dh 192 with values of 128, every launch the (3, 2) chunk
+instantiation) against one ``prefill_chunk`` over the same tokens (the
+absorbed attention); each family's flash shape, forward and backward (for
+deepseek-v2 on the values as they are, and beside it on values padded to
+192, the earlier design), is held against fp32 autograd of the plain version
+and timed beside its bound, the plain version and SDPA.  Then card against CPU in fp32: the
 three smoke configs and gemma3's at dh 256 (window 8: the split and fused
 variants at dh 256 with the window biting) through two engines (tokens
 equal), and qwen2-moe-a2.7b
@@ -1257,23 +1259,32 @@ def backward_ms(out, inputs, dout, iters) -> float:
                    iters=iters, warmup=2)
 
 
+MLA_INSTANCE = "ILi3ELi2E"  # the (keys 3, values 2) chunk instantiation, mangled
+
+
 def print_ptxas() -> None:
     """ptxas's registers and spills for each wgmma, wgmma_rows and tf32x3
     flash kernel as built (mangled names: a wgmma kernel's template
-    arguments end in ``Lb0E``, a wgmma_rows kernel's in ``Lb1E``; the
+    arguments end in ``Lb0E``, a wgmma_rows kernel's in ``Lb1E``, and begin
+    with the key and value chunk counts, ``ILi3ELi2E`` for MLA's; the
     gather pass is ``flash_rows_gather_kernel``); a tf32x3 or wgmma_rows
-    kernel that spills fails the run."""
+    kernel, or any of the six (3, 2) kernels, that spills fails the run."""
     from repro_torch.kernels import build
 
+    mla = 0
     for row in build.ptxas_report("flash_attention"):
         name = row["kernel"]
-        strict = "_x3_" in name or "Lb1E" in name or "rows_gather" in name
+        mla += MLA_INSTANCE in name
+        strict = ("_x3_" in name or "Lb1E" in name or "rows_gather" in name
+                  or MLA_INSTANCE in name)
         if strict or "wgmma" in name:
             print(f"ptxas {name}: registers {row['registers']} spill stores "
                   f"{row['spill_stores']} B loads {row['spill_loads']} B")
         if strict:
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"ptxas: {name} spills {row['spill_stores']} B")
+    check(mla == 6, f"ptxas: {mla} kernels at the (3, 2) instantiation, wanted 6 (forward, dQ "
+                    f"and dK/dV, wgmma and wgmma_rows)")
 
 
 def phase_flash(dev) -> dict:
@@ -2147,16 +2158,17 @@ def flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward: bool = False) -> tuple[
 
 def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev) -> dict:
     """The flash forward and backward at a family's prefill and train shape
-    (bf16, MHA, causal; values of width dv < dh padded with zero columns, as
-    the model pads them): the output's first dv columns against the plain
-    version in fp32 on the same values, within TOL; the padded columns zero;
-    the backward as the model's autograd takes it (a dout whose padded
-    columns are zero; dv's first dv columns kept), dq, dk and dv against
-    fp32 autograd of the plain version on the unpadded values (padded inside
-    the graph, its output cut), within TOL;
-    each kernel's ``queued_ms`` beside the bound, the plain version (on the
-    padded values, the model's call) and SDPA (on the unpadded values)."""
-    from repro_torch.kernels.flash_attention import attention_ref
+    (bf16, MHA, causal) on the values as they are, dv wide (MLA: dv < dh,
+    which the kernels take natively): out, and dq, dk and dv of the
+    backward, against fp32 autograd of the plain version on the same values,
+    within TOL; the launches under the instantiation ``ops.instance`` names;
+    each kernel's ``queued_ms`` and cold time (``l2_flushed_ms``) beside the
+    bound, the plain version and SDPA.  Where dv < dh, the values padded with
+    zero columns to dh (the model's route before the kernels took narrower
+    values, the earlier design) run in the same process as the before: their
+    first dv output columns and gradient columns held the same way, the
+    padded output columns zero, their times beside the native ones."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention import ops
 
     dtype = torch.bfloat16
@@ -2166,54 +2178,83 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     k = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
     dout = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
-    vp = pad(v, (0, dh - dv)) if dv < dh else v
-    doutp = pad(dout, (0, dh - dv)) if dv < dh else dout
-    var = ops.variant(dtype, dh, 1)
+    var, inst = ops.variant(dtype, dh, 1, dv), ops.instance(dtype, dh, 1, dv)
     check(var == "wgmma", f"flash {label}: variant {var}, wanted wgmma")
-    out, lse = ops.flash_attention_fwd(q, k, vp, causal=True)
-    grads = ops.flash_attention_bwd(q, k, vp, out, lse, doutp, causal=True)
     q32, k32, v32 = (t.float().requires_grad_(True) for t in (q, k, v))
-    want = attention_ref(q32, k32, pad(v32, (0, dh - dv)), causal=True)[..., :dv]
+    want = attention_ref(q32, k32, v32, causal=True)
     wgrads = torch.autograd.grad(want, (q32, k32, v32), dout.float())
-    err, ratio = assert_close_ratio(out[..., :dv], want.detach(), TOL[dtype])
-    zero = bool((out[..., dv:] == 0).all())
-    check(math.isfinite(err) and ratio <= 1.0 and zero,
-          f"flash {label}: max_abs_err {err} worst ratio {ratio} padded columns zero {zero}")
-    berr = bratio = 0.0
-    for name, got, ref in zip(("dq", "dk", "dv"), (grads[0], grads[1], grads[2][..., :dv]),
-                              wgrads):
-        e, r = assert_close_ratio(got, ref, TOL[dtype])
-        check(math.isfinite(e) and r <= 1.0,
-              f"flash {label} {name}: max_abs_err {e} worst err/(atol+rtol*|ref|) {r}")
-        berr, bratio = max(berr, e), max(bratio, r)
-    del want, wgrads, q32, k32, v32
-    fwd = lambda: ops.flash_attention_fwd(q, k, vp, causal=True)
-    bwd = lambda: ops.flash_attention_bwd(q, k, vp, out, lse, doutp, causal=True)
-    row = dict(variant=var, max_abs_err=err, queued_ms=queued_ms(fwd),
-               ms=cuda_ms(fwd, iters=10, warmup=2),
-               plain_ms=cuda_ms(lambda: attention_ref(q, k, vp, causal=True), iters=5, warmup=1),
-               library_ms=cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2))
+    want = want.detach()
+    del q32, k32, v32
+
+    def held(what: str, vv, dd) -> dict:
+        """One forward and backward on values vv (dv wide, or padded), the
+        output's and dv's first dv columns held; their launches' instance."""
+        by = flash_attention.launches_by_instance
+        before = {key: dict(n) for key, n in by.items()}
+        out, lse = ops.flash_attention_fwd(q, k, vv, causal=True)
+        grads = ops.flash_attention_bwd(q, k, vv, out, lse, dd, causal=True)
+        torch.cuda.synchronize()
+        moved = {key: {c: n[c] - before.get(key, {}).get(c, 0) for c in n}
+                 for key, n in by.items() if n != before.get(key)}
+        err, ratio = assert_close_ratio(out[..., :dv], want, TOL[dtype])
+        zero = bool((out[..., dv:] == 0).all())
+        check(math.isfinite(err) and ratio <= 1.0 and zero,
+              f"flash {label} {what}: max_abs_err {err} worst ratio {ratio} padded columns zero "
+              f"{zero}")
+        berr = bratio = 0.0
+        for name, got, ref in zip(("dq", "dk", "dv"), (grads[0], grads[1], grads[2][..., :dv]),
+                                  wgrads):
+            e, r = assert_close_ratio(got, ref, TOL[dtype])
+            check(math.isfinite(e) and r <= 1.0,
+                  f"flash {label} {what} {name}: max_abs_err {e} worst err/(atol+rtol*|ref|) {r}")
+            berr, bratio = max(berr, e), max(bratio, r)
+        check(len(moved) == 1 and list(moved.values())[0] == {"fwd": 1, "bwd": 1},
+              f"flash {label} {what}: launches by instance {moved}")
+        fwd = lambda: ops.flash_attention_fwd(q, k, vv, causal=True)
+        bwd = lambda: ops.flash_attention_bwd(q, k, vv, out, lse, dd, causal=True)
+        row = dict(instance=list(moved)[0], max_abs_err=err, ratio=ratio, queued_ms=queued_ms(fwd),
+                   l2_flushed_ms=flushed_ms(fwd), ms=cuda_ms(fwd, iters=10, warmup=2))
+        row["bwd"] = dict(max_abs_err=berr, ratio=bratio, queued_ms=queued_ms(bwd),
+                          l2_flushed_ms=flushed_ms(bwd), ms=cuda_ms(bwd, iters=10, warmup=2))
+        del out, lse, grads
+        return row
+
+    row = held("native", v, dout)
+    row["variant"] = var
+    check(row["instance"] == inst, f"flash {label}: ran {row['instance']}, wanted {inst}")
+    b = row["bwd"]
+    row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5, warmup=1)
+    row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2)
     row["bound_ms"], row["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype)
-    qg, kg, vg, vpg = (t.clone().requires_grad_(True) for t in (q, k, v, vp))
-    b = dict(max_abs_err=berr, queued_ms=queued_ms(bwd), ms=cuda_ms(bwd, iters=10, warmup=2))
-    plain_out = attention_ref(qg, kg, vpg, causal=True)
-    b["plain_ms"] = backward_ms(plain_out, (qg, kg, vpg), doutp, 5)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    plain_out = attention_ref(qg, kg, vg, causal=True)
+    b["plain_ms"] = backward_ms(plain_out, (qg, kg, vg), dout, 5)
     del plain_out
     lib_out = sdpa(qg, kg, vg, True, None)
     b["library_ms"] = backward_ms(lib_out, (qg, kg, vg), dout, 10)
-    del lib_out
+    del lib_out, qg, kg, vg
     b["bound_ms"], b["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward=True)
-    row["bwd"] = b
     print(f"flash family {label}: B {B} S {S} Hq=Hkv {H} dh {dh} dv {dv} bf16 {var} "
-          f"max_abs_err {err:.3e} worst err/(atol+rtol*|ref|) {ratio:.3f} padded columns zero "
-          f"{zero}; queued_ms {row['queued_ms']:.6f} ms {row['ms']:.6f} plain_ms "
-          f"{row['plain_ms']:.6f} library_ms (SDPA) {row['library_ms']:.6f} bound_ms "
-          f"{row['bound_ms']:.6f} ({row['bound_by']})")
-    print(f"flash family {label} backward: dq, dk, dv[..., :{dv}] max_abs_err {berr:.3e} worst "
-          f"err/(atol+rtol*|ref|) {bratio:.3f}; queued_ms {b['queued_ms']:.6f} ms "
-          f"{b['ms']:.6f} plain_ms {b['plain_ms']:.6f} library_ms (SDPA) "
-          f"{b['library_ms']:.6f} bound_ms {b['bound_ms']:.6f} ({b['bound_by']})")
-    del q, k, v, vp, dout, doutp, out, lse, grads, qg, kg, vg, vpg
+          f"({row['instance']}) max_abs_err {row['max_abs_err']:.3e} worst err/(atol+rtol*|ref|) "
+          f"{row['ratio']:.3f}; queued_ms {row['queued_ms']:.6f} l2_flushed_ms "
+          f"{row['l2_flushed_ms']:.6f} ms {row['ms']:.6f} plain_ms {row['plain_ms']:.6f} "
+          f"library_ms (SDPA) {row['library_ms']:.6f} bound_ms {row['bound_ms']:.6f} "
+          f"({row['bound_by']})")
+    print(f"flash family {label} backward: dq, dk, dv max_abs_err {b['max_abs_err']:.3e} worst "
+          f"err/(atol+rtol*|ref|) {b['ratio']:.3f}; queued_ms {b['queued_ms']:.6f} l2_flushed_ms "
+          f"{b['l2_flushed_ms']:.6f} ms {b['ms']:.6f} plain_ms {b['plain_ms']:.6f} library_ms "
+          f"(SDPA) {b['library_ms']:.6f} bound_ms {b['bound_ms']:.6f} ({b['bound_by']})")
+    if dv < dh:
+        p = held("padded values", pad(v, (0, dh - dv)), pad(dout, (0, dh - dv)))
+        pb = p["bwd"]
+        print(f"flash family {label} padded values (the earlier design, {p['instance']}): "
+              f"forward queued_ms {p['queued_ms']:.6f} l2_flushed_ms {p['l2_flushed_ms']:.6f} "
+              f"ms {p['ms']:.6f}; backward queued_ms {pb['queued_ms']:.6f} l2_flushed_ms "
+              f"{pb['l2_flushed_ms']:.6f} ms {pb['ms']:.6f}; native over padded queued_ms: "
+              f"forward {row['queued_ms'] / p['queued_ms']:.4f} backward "
+              f"{b['queued_ms'] / pb['queued_ms']:.4f}")
+        row["padded"] = p
+    del q, k, v, dout, want, wgrads
     torch.cuda.empty_cache()
     return row
 
@@ -2327,9 +2368,24 @@ def routing_flips(a: tuple, b: tuple) -> float:
     return 1.0 - (ia[..., :, None] == ib[..., None, :]).any(-1).float().mean().item()
 
 
+def mla_instance(cfg) -> str:
+    """The flash instantiation every MLA attention call must take: keys of
+    nope + rope columns, values of v_head_dim, unpadded ("wgmma 3x2" in bf16
+    at deepseek-v2's widths; "tf32x3" in fp32)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    m = cfg.mla
+    inst = ops.instance(cfg.dtype, m.nope_head_dim + m.rope_head_dim,
+                        cfg.n_heads // cfg.n_kv_heads, m.v_head_dim)
+    check(cfg.dtype != torch.bfloat16 or inst == "wgmma 3x2",
+          f"{cfg.name}: flash instance {inst}, wanted wgmma 3x2")
+    return inst
+
+
 def mla_witness(dev, cfg, params, label: str) -> dict:
     """``forward`` over B 1 x MLA_SEQ tokens (one MoE group; flash at dh 192
-    with values padded to it) against one ``prefill_chunk`` call over the
+    with values of 128, every launch the instantiation ``mla_instance``
+    names) against one ``prefill_chunk`` call over the
     same tokens (the absorbed attention over the latent cache; the same
     group): the last position's logits, (max abs err, largest |ref|).  The
     chunk runs twice: routing freely, and replaying the forward's routing
@@ -2340,6 +2396,7 @@ def mla_witness(dev, cfg, params, label: str) -> dict:
     from repro_torch.models import moe, transformer
 
     toks = mla_tokens(dev, cfg)
+    inst = mla_instance(cfg)
     inner = moe.route
     routes: dict[str, list] = {"forward": [], "chunk": []}
 
@@ -2369,6 +2426,7 @@ def mla_witness(dev, cfg, params, label: str) -> dict:
             torch.cuda.synchronize()
             fwd_ms = (time.perf_counter() - t0) * 1e3
             by_var = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+            by_inst = {v: dict(n) for v, n in flash_attention.launches_by_instance.items()}
             moe.route = recorded("chunk")
             t0 = time.perf_counter()
             free, _, clen = chunk()
@@ -2384,15 +2442,18 @@ def mla_witness(dev, cfg, params, label: str) -> dict:
     flips = [routing_flips(a, b) for a, b in zip(routes["forward"], routes["chunk"])]
     var = variant(cfg.dtype, cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, 1)
     print(f"deepseek-v2 witness ({label}): {cfg.n_layers} layers {str(cfg.dtype)[6:]} forward "
-          f"(flash {var}, dh 192, values padded) ms {fwd_ms:.3f} against one prefill_chunk "
+          f"(flash {inst}, dh 192, values 128) ms {fwd_ms:.3f} against one prefill_chunk "
           f"(absorbed) ms {chunk_ms:.3f} over {MLA_SEQ} tokens: last logits max_abs_err "
           f"{err:.4e} largest {largest:.4e} ({err / largest:.4e} of it); with the forward's "
           f"routing replayed {err_same:.4e} ({err_same / largest:.4e} of it); expert choices "
           f"the free chunk makes otherwise, by layer {[f'{f:.6f}' for f in flips]}; "
-          f"flash launches {by_var}")
+          f"flash launches {by_var} by instance {by_inst}")
     check(by_var[var]["fwd"] == cfg.n_layers and sum(
         n["fwd"] for n in by_var.values()) == cfg.n_layers,
         f"deepseek-v2 witness: flash launches {by_var}, wanted {cfg.n_layers} {var}")
+    check(by_inst == {inst: {"fwd": cfg.n_layers, "bwd": 0}},
+          f"deepseek-v2 witness: flash launches by instance {by_inst}, wanted {cfg.n_layers} "
+          f"{inst} (values unpadded)")
     check(clen.tolist() == [MLA_SEQ], f"deepseek-v2 witness: length {clen.tolist()}")
     check(len(flips) == cfg.n_layers and len(routes["chunk"]) == cfg.n_layers,
           f"deepseek-v2 witness: routed {len(routes['forward'])} and {len(routes['chunk'])} "
@@ -2462,6 +2523,9 @@ def mla_attention_witness(dev, cfg, params, label: str) -> dict:
         scores_rounded = absorbed_scores_rounded(x.float(), p32, c32, r32, cfg, cfg.dtype)
     n = sum(c["fwd"] for c in flash_attention.launches_by_variant.values())
     check(n == 1, f"deepseek-v2 attention witness ({label}): {n} flash launches, wanted 1")
+    by_inst = flash_attention.launches_by_instance
+    check(by_inst == {mla_instance(cfg): {"fwd": 1, "bwd": 0}},
+          f"deepseek-v2 attention witness ({label}): flash launches by instance {by_inst}")
     largest = ref.abs().max().item()
     out = {"largest": largest, "launches": n, **{name: (a.float() - b.float()).abs().max().item()
                                                  for name, a, b in (
@@ -2770,7 +2834,7 @@ def family_checks(dev, cfg, params, batch, tag: str) -> dict:
     bit for bit to its forward's; for qwen2-moe the gradient taken twice
     from one state and batch (equal bits, or the leaves that differ are
     named); for deepseek-v2 the MLA gradient witness: the gradient through
-    the flash kernels (values padded) against the plain ``attention_ref`` in
+    the flash kernels (values unpadded) against the plain ``attention_ref`` in
     fp32 on the same values, routing free and with the flash run's routing
     replayed, gradient norms and the attention leaves within 5e-2."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -2778,6 +2842,7 @@ def family_checks(dev, cfg, params, batch, tag: str) -> dict:
     names = leaf_paths(params)
     out: dict = {}
     f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+    by_inst0 = {k: dict(n) for k, n in flash_attention.launches_by_instance.items()}
     loss, g_none, r_none = family_grads(params, cfg, batch)
     norm = lambda gs: math.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
                                     for g in gs))
@@ -2833,6 +2898,13 @@ def family_checks(dev, cfg, params, batch, tag: str) -> dict:
               f"{tag}: the kernels' gradient differs from the plain attention's: {w}")
         out["witness"] = wit
     out["launches"] = (flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0)
+    if cfg.mla is not None:  # every flash call of the checks at the unpadded values
+        moved = {k: {c: n[c] - by_inst0.get(k, {}).get(c, 0) for c in n}
+                 for k, n in flash_attention.launches_by_instance.items()
+                 if n != by_inst0.get(k)}
+        want = {mla_instance(cfg): {"fwd": out["launches"][0], "bwd": out["launches"][1]}}
+        print(f"{tag} gradient checks: flash launches by instance {moved}")
+        check(moved == want, f"{tag}: gradient checks' flash launches {moved}, wanted {want}")
     del g_none, r_none
     return out
 
@@ -2923,6 +2995,12 @@ def family_train(dev, arch: str, layers: int) -> dict:
     by_var = flash_attention.launches_by_variant
     check(by_var["wgmma"] == {"fwd": launches[0], "bwd": launches[1]},
           f"{tag}: not every flash call ran the wgmma kernels: {by_var}")
+    if cfg.mla is not None:  # every step's flash call at the unpadded values
+        by_inst = flash_attention.launches_by_instance
+        print(f"{tag}: flash launches by instance {by_inst}")
+        check(by_inst == {mla_instance(cfg): {"fwd": launches[0], "bwd": launches[1]}},
+              f"{tag}: flash launches by instance {by_inst}, wanted every one "
+              f"{mla_instance(cfg)}")
     mem = torch.cuda.max_memory_allocated(dev)
     mean_s = sum(r["step_s"] for r in rows[1:]) / (len(rows) - 1)
     print(f"{tag}: {layers} of {full.n_layers} layers, {n_par} parameters, B {B} S {S} bf16 "
@@ -4621,16 +4699,9 @@ def phase_dryrun(dev, train, ftrain, gtrain, cells) -> dict:
     measured step ms, TinyLlama's counted FLOPs within DRYRUN_TOL of
     ``model_flops`` (the embedding lookup, a product there, is a gather
     here).  Then the depth the dry-run gives each family under FIT_BYTES
-    beside FAMILY_TRAIN's, and its flash scratch sizes against the library's."""
-    import ctypes
-
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+    beside FAMILY_TRAIN's, and its flash scratch sizes against the library's
+    (``check_flash_work_floats``)."""
     from repro_torch.launch import dryrun
-
-    library = build.load("flash_attention").flash_attention_work_floats
-    library.argtypes = [ctypes.c_int] * 10
-    library.restype = ctypes.c_longlong
 
     rows, steps = {}, dryrun_steps(train, ftrain, gtrain, cells)
     for s in steps:
@@ -4684,19 +4755,36 @@ def phase_dryrun(dev, train, ftrain, gtrain, cells) -> dict:
         print(f"dryrun family depth {arch}: the dry-run's deepest under {FIT_BYTES} B is {L} "
               f"layers (reckoned peak {depths[arch]['reckoned_peak']} B); FAMILY_TRAIN uses "
               f"{used}")
-    # the meta path's flash scratch against the library's size, at every case
+    check_flash_work_floats()
+    return {"steps": rows, "family_depth": depths}
+
+
+def check_flash_work_floats() -> None:
+    """The meta path's flash scratch (``ops.work_floats``) against the
+    library's ``flash_attention_work_floats`` at every flash case, and at
+    MLA's values of 128 beside keys of 192 (G 1 and G 3)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    library = build.load("flash_attention").flash_attention_work_floats
+    library.argtypes = [ctypes.c_int] * 11  # B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, var, bwd
+    library.restype = ctypes.c_longlong
     n_cases = 0
-    for c in FLASH_CASES:
-        _, B, S, Hq, Hkv, dh, causal, window = c
+    mla_cases = [("mla", 1, MLA_SEQ, 128, 128, 192, True, None, 128),
+                 ("mla G 3", 1, 300, 6, 2, 192, True, None, 128)]
+    for c in [(*c, c[5]) for c in FLASH_CASES] + mla_cases:
+        _, B, S, Hq, Hkv, dh, causal, window, dv = c
         for var in range(len(flash_ops.VARIANTS)):
             for backward in (False, True):
                 args = (B, S, S, Hq, Hkv, dh, int(causal), window or 0, var)
-                got, want = flash_ops.work_floats(*args, backward), library(*args, int(backward))
+                got = flash_ops.work_floats(*args, backward, dv=dv)
+                want = library(*args[:6], dv, *args[6:], int(backward))
                 check(got == want, f"flash work_floats {c[0]} variant {var} backward "
                                    f"{backward}: {got} against the library's {want}")
                 n_cases += 1
     print(f"dryrun flash scratch: work_floats equals the library's at {n_cases} cases")
-    return {"steps": rows, "family_depth": depths}
 
 
 WF_CORPUS_BYTES = 1 << 26  # 64 MB: 16,376 packed rows of 2,049 tokens
@@ -5946,19 +6034,19 @@ def main() -> int:
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
     family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
-                    "qwen2-moe-a2.7b prefill": qwen["prefill"]["launches"],
-                    f"deepseek-v2-236b forward ({MLA_LAYERS} layers, two witnesses)":
-                    sum(dsv2["witness"][k]["launches"] for k in ("reference init",
-                                                                  "true fan-in")),
-                    "deepseek-v2-236b layer 0 attention (two witnesses)":
-                    sum(w["launches"] for w in dsv2["attention_witness"].values())}
+                    "qwen2-moe-a2.7b prefill": qwen["prefill"]["launches"]}
+    # deepseek-v2's flash calls, every one at the (3, 2) instantiation
+    mla_flash = [{f"deepseek-v2-236b forward ({MLA_LAYERS} layers, two witnesses)":
+                  sum(dsv2["witness"][k]["launches"] for k in ("reference init", "true fan-in")),
+                  "deepseek-v2-236b layer 0 attention (two witnesses)":
+                  sum(w["launches"] for w in dsv2["attention_witness"].values())}, {}]
     family_train_flash = [{}, {}]
     for arch, r in ftrain["train"].items():
+        into = mla_flash if arch == "deepseek-v2-236b" else family_train_flash
         for i in (0, 1):
-            family_train_flash[i][f"{arch} train ({r['layers']} of {r['full_layers']} layers, "
-                                  f"{FAMILY_TRAIN_STEPS} steps)"] = r["launches"][i]
-            family_train_flash[i][f"{arch} gradient checks ({r['layers']} of "
-                                  f"{r['full_layers']} layers)"] = \
+            into[i][f"{arch} train ({r['layers']} of {r['full_layers']} layers, "
+                    f"{FAMILY_TRAIN_STEPS} steps)"] = r["launches"][i]
+            into[i][f"{arch} gradient checks ({r['layers']} of {r['full_layers']} layers)"] = \
                 r["checks"]["launches"][i]
     for name, kind, by_path in (
         ("flash_attention", "fwd",
@@ -5990,14 +6078,45 @@ def main() -> int:
             "shape": flash_shape,
             "family_cases": {
                 "deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)": ds7["flash"],
-                "qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"],
-                f"deepseek-v2 (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 "
-                "padded)": dsv2["flash"]} if kind == "fwd" else {
+                "qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"]}
+            if kind == "fwd" else {
                 label: r["bwd"] for label, r in (
                     ("deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)", ds7["flash"]),
-                    ("qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)", qwen["flash"]),
-                    (f"deepseek-v2 (B 1, S {MLA_SEQ}, Hq=Hkv 128, dh 192, values 128 padded)",
-                     dsv2["flash"]))},
+                    ("qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)", qwen["flash"]))},
+        })
+    # MLA's keys of 192 and values of 128 at the (3, 2) chunk instantiation,
+    # timed on deepseek-v2's prefill shape beside the padded values of the
+    # earlier design (instantiation 3x3)
+    mf = dsv2["flash"]
+    for name, kind, by_path in (("flash_attention_mla", "fwd", mla_flash[0]),
+                                ("flash_attention_mla_bwd", "bwd", mla_flash[1])):
+        r = mf if kind == "fwd" else mf["bwd"]
+        pad_r = mf["padded"] if kind == "fwd" else mf["padded"]["bwd"]
+        check(mf["instance"] == "wgmma 3x2" and min(by_path.values()) > 0,
+              f"{name}: launches {by_path}, instance {mf['instance']}")
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": flash_src,
+            "replaces": flash_tpu,
+            "launches": sum(by_path.values()),
+            "variant": mf["variant"],
+            "instance": mf["instance"],
+            "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "queued_ms": r["queued_ms"],
+            "l2_flushed_ms": r["l2_flushed_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "held": True,
+            "shape": {"B": 1, "S": MLA_SEQ, "Hq": 128, "Hkv": 128, "dh": 192, "dv": 128,
+                      "causal": True, "dtype": "bfloat16"},
+            "padded_values": {"instance": mf["padded"]["instance"],
+                              **{k: pad_r[k] for k in ("queued_ms", "l2_flushed_ms", "ms",
+                                                        "max_abs_err")}},
         })
     gtr = gem["train"]
     for name, kind, by_path in (
@@ -6047,7 +6166,7 @@ def main() -> int:
           "fp32 MoE/MLA smoke train (card vs CPU, 5 steps, three configs)":
           sum(r["launches"][0] for r in ftrain["parity"].values()),
           "fp32 gemma3 smoke prefill": pre["smoke_flash"]["fwd"],
-          "fp32 deepseek-v2 witness (1 layer, dh 192, values padded)":
+          "fp32 deepseek-v2 witness (1 layer, dh 192, values 128)":
           dsv2["witness"]["fp32, 1 layer, reference init"]["launches"]}),
         ("flash_attention_tf32x3_bwd", "bwd",
          {"fp32 smoke train (card vs CPU, 5 steps)": tpar["bwd"],

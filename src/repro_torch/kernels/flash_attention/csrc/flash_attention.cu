@@ -6,8 +6,10 @@
 //   (pallas_call at :114, body _flash_kernel at :23; wrapper ops.py:26)
 // and computes what its oracle computes
 //   src/repro/kernels/flash_attention/ref.py::attention_ref
-// q [B,Sq,Hq,dh], k/v [B,Sk,Hkv,dh]; query position s of head h attends key
-// position t when t < Sk, and (causal) t <= s, and (window) t > s - window.
+// q [B,Sq,Hq,dh], k [B,Sk,Hkv,dh], v [B,Sk,Hkv,dv] with dv <= dh (MLA's
+// values are narrower than its keys), out [B,Sq,Hq,dv]; query position s of
+// head h attends key position t when t < Sk, and (causal) t <= s, and
+// (window) t > s - window.
 // Scores leave the Q.K product in fp32 (as the Pallas kernel, and unlike the
 // einsum oracle, which rounds them to the input type first); probabilities
 // are cast to V's type before P.V, as _flash_kernel:76 does.
@@ -121,6 +123,26 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    dK in two passes re-read every Q/dO tile and recompute S^T.  The Q/dO
 //    ring is three stages at DC 3 and two at DC 4, which with the hand-off
 //    fills the 227 KB exactly.
+// Values narrower than keys.  V, O and dO take DVC = ceil(dv / 64) column
+// chunks (dv padded to 16) beside the keys' DC: P.V, dP = dO.V^T, D =
+// rowsum(dO * O), dP^T and dV += P^T.dO run over the DVC chunks only, TMA's
+// zero fill pads dv to its last chunk, and the stores write dv columns.  The
+// kernels are instantiated at DVC == DC (DC 1 to 4) and at (3, 2), MLA's
+// keys of 192 and values of 128, whose layout differs from DC 3's:
+//  * Forward: O takes 2 x 32 registers, so the key tile is 128 keys, as at
+//    DC <= 2 (S 64 registers beside O's 64): half the softmax rescales and
+//    ring hand-offs a key of 64-key tiles.  Q 48 KB, the K ring 2 x 48 KB,
+//    the V ring 2 x 32 KB: 208 KB.
+//  * dQ: dO stays resident at DVC chunks and the V ring carries DVC.
+//  * dK/dV: dK (3 chunks) and dV (2) do not fit one warpgroup's registers
+//    beside the products, so the two warpgroups share 64 keys and own the
+//    five accumulators apart (kv_own).  Warpgroup 0 computes S^T over dh and
+//    accumulates dK's first DVC chunks; warpgroup 1 computes dP^T over dv
+//    and accumulates dK's other DC - DVC chunks and dV's DVC; P^T and dP^T
+//    cross through the 32 KB hand-off.  Four products a tile over dh + dv +
+//    dv + dh columns, where the padded values took 4 x dh, and each
+//    warpgroup issues 20 k-steps of 16 a tile (warpgroup 0 owning all of dK
+//    would issue 24 beside 1's 16, and wait at every hand-off).
 // Every sum keeps a fixed order: dK/dV over row tiles, dQ over key tiles,
 // with no float atomics, so the backward gives equal bits from run to run.
 //
@@ -174,18 +196,30 @@ constexpr int kConsumerRegs = 232;
 constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr size_t kSmemPerBlock = 232448;    // dynamic shared memory a block may have
-// The plan at DC column chunks (see above).
-__host__ __device__ constexpr int fwd_keys(int DC) { return DC <= 2 ? 128 : 64; }
+// The plan at DC column chunks of the keys and DVC of the values (see
+// above).  The forward's key tile follows the O accumulator, DVC x 32.
+__host__ __device__ constexpr int fwd_keys(int DVC) { return DVC <= 2 ? 128 : 64; }
 __host__ __device__ constexpr int dq_consumers(int DC) { return DC <= 3 ? 2 : 1; }
-// dK/dV: whether the two warpgroups split the head columns of 64 shared
-// keys: at DC 3 and 4, and at kRows also at DC 2, where the layout of two
-// 64-key halves spills under ptxas (48 bytes; the wgmma kernel at DC 2
-// spills 44 and keeps that layout)
+// the (DC, DVC) pairs the wgmma kernels are instantiated at
+__host__ __device__ constexpr bool wgmma_pair(int DC, int DVC) {
+  return DVC == DC || (DC == 3 && DVC == 2);
+}
+// dK/dV at values narrower than keys: over 64 shared keys, warpgroup 0 owns
+// dK's first DVC column chunks, warpgroup 1 the rest of dK and all of dV
+__host__ __device__ constexpr bool kv_own(int DC, int DVC) { return DVC < DC; }
+// dK/dV at equal chunk counts: whether the two warpgroups split the head
+// columns of 64 shared keys: at DC 3 and 4, and at kRows also at DC 2, where
+// the layout of two 64-key halves spills under ptxas (48 bytes; the wgmma
+// kernel at DC 2 spills 44 and keeps that layout)
 __host__ __device__ constexpr bool kv_split(int DC, bool rows) {
   return DC >= 3 || (rows && DC == 2);
 }
-__host__ __device__ constexpr int kv_keys(int DC, bool rows) {
-  return kv_split(DC, rows) ? 64 : 128;
+// the warpgroups share 64 keys and hand P^T and dP^T over
+__host__ __device__ constexpr bool kv_handoff(int DC, int DVC, bool rows) {
+  return kv_own(DC, DVC) || kv_split(DC, rows);
+}
+__host__ __device__ constexpr int kv_keys(int DC, int DVC, bool rows) {
+  return kv_handoff(DC, DVC, rows) ? 64 : 128;
 }
 __host__ __device__ constexpr int kv_stages(int DC) { return DC <= 3 ? 3 : 2; }
 // dK/dV column chunks a consumer warpgroup accumulates
@@ -235,26 +269,26 @@ __device__ __forceinline__ void to_a_frags_hilo(const float* s, uint32_t (&hi)[4
                       s[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
 }
 
-template <int DC>
+template <int DC, int DVC>
 struct FwdWgSmem {
   alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kStages][DC][fwd_keys(DC) * kChunk];
-  alignas(1024) bf16 v[kStages][DC][fwd_keys(DC) * kChunk];
+  alignas(1024) bf16 k[kStages][DC][fwd_keys(DVC) * kChunk];
+  alignas(1024) bf16 v[kStages][DVC][fwd_keys(DVC) * kChunk];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
 // forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
-template <int DC, bool kRows>
+template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dv,
                        int causal, int window, float scale) {
-  constexpr int kFwdKeys = fwd_keys(DC);
+  constexpr int kFwdKeys = fwd_keys(DVC);
   constexpr int NH = kFwdKeys / 64;  // 64-key blocks of a key tile
   extern __shared__ char smem_raw[];
-  FwdWgSmem<DC>& sm = smem_layout<FwdWgSmem<DC>>(smem_raw);
+  FwdWgSmem<DC, DVC>& sm = smem_layout<FwdWgSmem<DC, DVC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -288,11 +322,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kFwdKeys));
+        mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kFwdKeys));
         const int t0 = (t_first + i) * kFwdKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
-          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
         }
       }
     }
@@ -307,9 +341,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
 
-    float oacc[DC][32];
+    float oacc[DVC][32];
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < DVC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -371,7 +405,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             sacc[h][e] = p;
           }
 #pragma unroll
-        for (int c = 0; c < DC; ++c)
+        for (int c = 0; c < DVC; ++c)
 #pragma unroll
           for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
         // P in bf16 (the cast of _flash_kernel:76) as the A operand of O += P . V
@@ -382,12 +416,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kk = 0; kk < kFwdKeys / 16; ++kk)
 #pragma unroll
-          for (int c = 0; c < DC; ++c)
+          for (int c = 0; c < DVC; ++c)
             wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[s][c]) + kk * 16 * 128 / 16);
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int c = 0; c < DC; ++c) fence_regs(oacc[c]);
+        for (int c = 0; c < DVC; ++c) fence_regs(oacc[c]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[s]);
@@ -399,13 +433,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int r = r_lo + 8 * x;
       if (r >= Rtot) continue;  // rows past Sq write nothing
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
+      const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
+      for (int c = 0; c < DVC; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int cc = kChunk * c + 8 * j + col;
-          if (cc < dh)
+          if (cc < dv)
             *reinterpret_cast<__nv_bfloat162*>(o + off + cc) = __floats2bfloat162_rn(
                 oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
         }
@@ -417,12 +451,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int DC>
+template <int DC, int DVC>
 struct DqWgSmem {
   alignas(1024) bf16 q[dq_consumers(DC)][DC][kWgRows * kChunk];
-  alignas(1024) bf16 dout[dq_consumers(DC)][DC][kWgRows * kChunk];
+  alignas(1024) bf16 dout[dq_consumers(DC)][DVC][kWgRows * kChunk];
   alignas(1024) bf16 k[kStages][DC][kDqKeys * kChunk];
-  alignas(1024) bf16 v[kStages][DC][kDqKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DVC][kDqKeys * kChunk];
   float delta[dq_consumers(DC)][kWgRows];
   uint64_t q_full, full[kStages], empty[kStages];
 };
@@ -431,7 +465,7 @@ struct DqWgSmem {
 // the dK/dV kernel (at kRows D = rowsum(P * dP), from a first walk over the
 // key tiles).  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))),
 // heaviest first
-template <int DC, bool kRows>
+template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -440,10 +474,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const bf16* __restrict__ o, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, float* __restrict__ delta,
                           bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int dh,
-                          int causal, int window, float scale) {
+                          int dv, int causal, int window, float scale) {
   constexpr int NC = dq_consumers(DC);
   extern __shared__ char smem_raw[];
-  DqWgSmem<DC>& sm = smem_layout<DqWgSmem<DC>>(smem_raw);
+  DqWgSmem<DC, DVC>& sm = smem_layout<DqWgSmem<DC, DVC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -470,22 +504,23 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     if constexpr (NC == 2) warpgroup_reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, 2 * NC * DC * tile_bytes(kWgRows));
+      mbar_arrive_expect_tx(&sm.q_full, NC * (DC + DVC) * tile_bytes(kWgRows));
       for (int w = 0; w < NC; ++w)
         for (int c = 0; c < DC; ++c) {
           const int rw = r0 + w * kWgRows;
           tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, rw, b, kvh, G, Hkv);
-          tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
-                               Hkv);
+          if (c < DVC)
+            tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
+                                 Hkv);
         }
       for (int i = 0; i < n_walks * n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kDqKeys));
+        mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kDqKeys));
         const int t0 = (t_first + (kRows ? i % n_tiles : i)) * kDqKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
-          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
         }
       }
     }
@@ -528,7 +563,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            kc > 0);
           }
 #pragma unroll
-          for (int kc = 0; kc < DC * 4; ++kc) {
+          for (int kc = 0; kc < DVC * 4; ++kc) {
             const int c = kc / 4, kb = 2 * (kc % 4);
             wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
                            kc > 0);
@@ -559,13 +594,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
     } else {
-      // D = rowsum(dO * O), once per row: two threads a row, 16 bytes a load
+      // D = rowsum(dO * O) over the dv columns, once per row: two threads a
+      // row, 16 bytes a load
       {
         const int i = tid / 2, r = rw0 + i;
         float acc = 0.f;
         if (r < Rtot) {
-          const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dh);
-          for (int d = (tid % 2) * 8; d < dh; d += 16) {
+          const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
+          for (int d = (tid % 2) * 8; d < dv; d += 16) {
             const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
             const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
             const bf16* av = reinterpret_cast<const bf16*>(&a);
@@ -620,7 +656,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         wgmma_commit();
 #pragma unroll
-        for (int kc = 0; kc < DC * 4; ++kc) {
+        for (int kc = 0; kc < DVC * 4; ++kc) {
           const int c = kc / 4, kb = 2 * (kc % 4);
           wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
                          kc > 0);
@@ -680,47 +716,51 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 constexpr int kBwdRows = 64;  // rows per dK/dV tile
 
 // The 64 x 64 fp32 products that the dK/dV kernel's two consumer warpgroups
-// hand each other where they split the head columns (P^T, then dP^T): 8
-// float4 a thread each, thread-major, so that a warp's accesses touch every
-// bank once.
+// hand each other where they share 64 keys (P^T, then dP^T): 8 float4 a
+// thread each, thread-major, so that a warp's accesses touch every bank once.
 template <int N> struct Handoff { float4 v[N][128]; };
 template <> struct Handoff<0> {};
 
-template <int DC, bool kRows>
+template <int DC, int DVC, bool kRows>
 struct DkdvWgSmem {
-  alignas(1024) bf16 k[DC][kv_keys(DC, kRows) * kChunk];
-  alignas(1024) bf16 v[DC][kv_keys(DC, kRows) * kChunk];
+  alignas(1024) bf16 k[DC][kv_keys(DC, DVC, kRows) * kChunk];
+  alignas(1024) bf16 v[DVC][kv_keys(DC, DVC, kRows) * kChunk];
   alignas(1024) bf16 q[kv_stages(DC)][DC][kBwdRows * kChunk];
-  alignas(1024) bf16 dout[kv_stages(DC)][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kv_stages(DC)][DVC][kBwdRows * kChunk];
   float lse2[kv_stages(DC)][kBwdRows];   // lse * log2(e) of the tile's rows
   float delta[kv_stages(DC)][kBwdRows];  // D of the tile's rows
   uint64_t kv_full, full[kv_stages(DC)], empty[kv_stages(DC)];
-  Handoff<kv_split(DC, kRows) ? 16 : 0> handoff;
+  Handoff<kv_handoff(DC, DVC, kRows) ? 16 : 0> handoff;
 };
 
 // backward, dK and dV, after the dQ kernel has written delta.  Keys are the
 // M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
 // dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
-// ceil(Sk / kv_keys(DC, kRows))); the first key tiles, which see the most
-// rows under causal, launch first.  Where the plan does not split (DC <= 2,
-// DC 1 at kRows) consumer warpgroup w owns keys 64w..64w+63 of the block
-// and every head column; where it splits both own the block's 64 keys and w
-// the column chunks from w * kv_chunks(DC, kRows).  At kRows P^T and dS^T
-// enter dV and dK as hi + lo (see above).
-template <int DC, bool kRows>
+// ceil(Sk / kv_keys(DC, DVC, kRows))); the first key tiles, which see the
+// most rows under causal, launch first.  Where the plan neither splits nor
+// owns (DC <= 2, DC 1 at kRows, DVC == DC) consumer warpgroup w owns keys
+// 64w..64w+63 of the block and every head column; where it splits both own
+// the block's 64 keys and w the column chunks from w * kv_chunks(DC, kRows);
+// where the values are narrower (kv_own) both own the block's 64 keys,
+// warpgroup 0 dK's first DVC chunks and warpgroup 1 the rest of dK and all
+// of dV.  At kRows P^T and dS^T enter dV and dK as hi + lo (see above).
+template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap do_map,
                             const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-                            int Hq, int Hkv, int dh, int causal, int window, float scale) {
-  constexpr int kKvKeys = kv_keys(DC, kRows), kBwdStages = kv_stages(DC);
-  constexpr int CH = kv_chunks(DC, kRows);
-  constexpr bool kSplit = kv_split(DC, kRows);  // the warpgroups split the head columns
+                            bf16* __restrict__ dk, bf16* __restrict__ dvo, int Sq, int Sk,
+                            int Hq, int Hkv, int dh, int dv, int causal, int window,
+                            float scale) {
+  constexpr int kKvKeys = kv_keys(DC, DVC, kRows), kBwdStages = kv_stages(DC);
+  constexpr bool kOwn = kv_own(DC, DVC);  // the warpgroups own dK's and dV's chunks apart
+  constexpr bool kSplit = !kOwn && kv_split(DC, kRows);  // the warpgroups split the columns
+  constexpr int CH = kOwn ? DC : kv_chunks(DC, kRows);
+  static_assert(kOwn || DVC == DC, "narrower values take the kv_own plan");
   extern __shared__ char smem_raw[];
-  DkdvWgSmem<DC, kRows>& sm = smem_layout<DkdvWgSmem<DC, kRows>>(smem_raw);
+  DkdvWgSmem<DC, DVC, kRows>& sm = smem_layout<DkdvWgSmem<DC, DVC, kRows>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int k0 = blockIdx.y * kKvKeys;
@@ -750,10 +790,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int lane = threadIdx.x % 32;
     if (threadIdx.x < 32) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.kv_full, 2 * DC * tile_bytes(kKvKeys));
+        mbar_arrive_expect_tx(&sm.kv_full, (DC + DVC) * tile_bytes(kKvKeys));
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[c], &k_map, &sm.kv_full, kChunk * c, kvh, k0, b);
-          tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+          if (c < DVC) tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
         }
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -761,12 +801,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int rt0 = row_first + i * kBwdRows;
         if (i >= kBwdStages) mbar_wait(&sm.empty[s], (i / kBwdStages - 1) & 1);
         if (lane == 0) {  // the tiles first, so their latency overlaps the loads below
-          mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kBwdRows));
+          mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kBwdRows));
           for (int c = 0; c < DC; ++c) {
             tma_load_rows<kRows>(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, rt0, b, kvh, G,
                                  Hkv);
-            tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
-                                 G, Hkv);
+            if (c < DVC)
+              tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
+                                   G, Hkv);
           }
         }
         for (int x = lane; x < kBwdRows; x += 32) {
@@ -788,17 +829,23 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     warpgroup_reg_alloc<kConsumerRegs>();
     const int cw = wg - 1;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int kw0 = k0 + (kSplit ? 0 : cw * kWgRows);  // this warpgroup's first key
+    const int kw0 = k0 + (kSplit || kOwn ? 0 : cw * kWgRows);  // this warpgroup's first key
     const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;
     const int c0 = kSplit ? cw * CH : 0;  // dK/dV accumulator j holds column chunk c0 + j
 
-    float dkacc[CH][32], dvacc[CH][32];
+    // kOwn: dkacc holds this warpgroup's column chunks of dK and dV (see the
+    // store below) and dvacc is not used
+    float dkacc[CH][32], dvacc[kOwn ? 1 : CH][32];
 #pragma unroll
     for (int j = 0; j < CH; ++j)
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
+      for (int e = 0; e < 32; ++e) dkacc[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (kOwn ? 1 : CH); ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dvacc[j][e] = 0.f;
     mbar_wait(&sm.kv_full, 0);
 
     for (int i = 0; i < n_tiles; ++i) {
@@ -811,7 +858,123 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int kw_last = min(Sk, kw0 + kWgRows) - 1;
       const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
                         (window > 0 && kw_last <= tp_lo - window);
-      if constexpr (kSplit) {
+      if constexpr (kOwn) {
+        if (!skip) {
+          // warpgroup 0 forms P^T from S^T = K . Q^T over the dh columns,
+          // warpgroup 1 dP^T = V . dO^T over the dv columns; they hand the
+          // products over and both form dS^T; warpgroup 0 adds dS^T . Q to
+          // dK's first DVC column chunks, warpgroup 1 to its other DC - DVC
+          // and P^T . dO to dV's DVC chunks
+          const int tid = threadIdx.x % 128;
+          float mine[32], other[32];
+          wgmma_fence();
+          if (cw == 0) {
+#pragma unroll
+            for (int kc = 0; kc < DC * 4; ++kc) {
+              const int c = kc / 4, kb = 2 * (kc % 4);
+              wgmma_ss_64x64(mine, wgmma_desc(sm.k[c]) + kb, wgmma_desc(sm.q[s][c]) + kb,
+                             kc > 0);
+            }
+          } else {
+#pragma unroll
+            for (int kc = 0; kc < DVC * 4; ++kc) {
+              const int c = kc / 4, kb = 2 * (kc % 4);
+              wgmma_ss_64x64(mine, wgmma_desc(sm.v[c]) + kb, wgmma_desc(sm.dout[s][c]) + kb,
+                             kc > 0);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(mine);
+          if (cw == 0) {
+            const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                                (causal && tp_lo < kw0 + kWgRows - 1) ||
+                                (window > 0 && tp_hi - window + 1 > kw0);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+              const int r = rt0 + rl;
+              const int key = key_lo + 8 * ((e >> 1) & 1);
+              const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
+              mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            sm.handoff.v[cw * 8 + j][tid] =
+                make_float4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
+          named_barrier(1, 2 * 128);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 t = sm.handoff.v[(1 - cw) * 8 + j][tid];
+            other[4 * j] = t.x;
+            other[4 * j + 1] = t.y;
+            other[4 * j + 2] = t.z;
+            other[4 * j + 3] = t.w;
+          }
+          named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int rl = 8 * (e / 4) + col + (e & 1);
+            const float p = cw == 0 ? mine[e] : other[e];
+            const float dp = cw == 0 ? other[e] : mine[e];
+            mine[e] = p;                            // P^T
+            other[e] = p * (dp - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
+          }
+          constexpr int NL = kRows ? kBwdRows / 16 : 1;  // the lo fragments, at kRows
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4], pl[NL][4], dsl[NL][4];
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            if constexpr (kRows) {
+              to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
+              to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
+            } else {
+              to_a_frag(&mine[8 * kk], pa[kk]);
+              to_a_frag(&other[8 * kk], dsa[kk]);
+            }
+          }
+          wgmma_fence();
+          if (cw == 0) {
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+              for (int j = 0; j < DVC; ++j) {
+                const uint64_t bq = wgmma_desc(sm.q[s][j]) + kk * 16 * 128 / 16;
+                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
+                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+              }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+#pragma unroll
+              for (int j = 0; j < DC - DVC; ++j) {
+                const uint64_t bq = wgmma_desc(sm.q[s][DVC + j]) + kk * 16 * 128 / 16;
+                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
+                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+              }
+#pragma unroll
+              for (int j = 0; j < DVC; ++j) {
+                const uint64_t bo = wgmma_desc(sm.dout[s][j]) + kk * 16 * 128 / 16;
+                wgmma_rs_64x64(dkacc[DC - DVC + j], pa[kk], bo);
+                if constexpr (kRows) wgmma_rs_64x64(dkacc[DC - DVC + j], pl[kk], bo);
+              }
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(dsa[kk]);
+            if constexpr (kRows) {
+              fence_regs(pl[kk]);
+              fence_regs(dsl[kk]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < CH; ++j) fence_regs(dkacc[j]);
+        }
+      } else if constexpr (kSplit) {
         if (!skip) {
           // warpgroup 0 forms P^T from S^T = K . Q^T, warpgroup 1 forms
           // dP^T = V . dO^T, each over the whole head dim; they hand the
@@ -921,7 +1084,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         wgmma_commit();
 #pragma unroll
-        for (int kc = 0; kc < DC * 4; ++kc) {
+        for (int kc = 0; kc < DVC * 4; ++kc) {
           const int c = kc / 4, kb = 2 * (kc % 4);
           wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + cw * kWgRows * kChunk) + kb,
                          wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
@@ -1027,7 +1190,29 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int x = 0; x < 2; ++x) {
       const int key = key_lo + 8 * x;
       if (key >= Sk) continue;
-      const size_t off = (((size_t)b * Sk + key) * Hkv + kvh) * dh;
+      const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
+      if constexpr (kOwn) {
+        // accumulator j: at warpgroup 0 dK's chunk j (j < DVC); at 1 dK's
+        // chunk DVC + j (j < DC - DVC), then dV's chunk j - (DC - DVC)
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          if (cw == 0 && j >= DVC) continue;
+          const bool is_k = cw == 0 || j < DC - DVC;
+          const int c = cw == 0 ? j : is_k ? DVC + j : j - (DC - DVC);
+          bf16* out = is_k ? dk + row * dh : dvo + row * dv;
+          const int width = is_k ? dh : dv;
+          const float mul = is_k ? scale : 1.f;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int cc = kChunk * c + 8 * jj + col;
+            const int e = 4 * jj + 2 * x;
+            if (cc < width)
+              *reinterpret_cast<__nv_bfloat162*>(out + cc) =
+                  __floats2bfloat162_rn(dkacc[j][e] * mul, dkacc[j][e + 1] * mul);
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < CH; ++j)
 #pragma unroll
@@ -1035,28 +1220,31 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           const int cc = kChunk * (c0 + j) + 8 * jj + col;  // past dh for a chunk past DC
           if (cc < dh) {
             const int e = 4 * jj + 2 * x;
-            *reinterpret_cast<__nv_bfloat162*>(dk + off + cc) =
+            *reinterpret_cast<__nv_bfloat162*>(dk + row * dh + cc) =
                 __floats2bfloat162_rn(dkacc[j][e] * scale, dkacc[j][e + 1] * scale);
-            *reinterpret_cast<__nv_bfloat162*>(dv + off + cc) =
-                __floats2bfloat162_rn(dvacc[j][e], dvacc[j][e + 1]);
+            if (cc < dv)
+              *reinterpret_cast<__nv_bfloat162*>(dvo + row * dv + cc) =
+                  __floats2bfloat162_rn(dvacc[j][e], dvacc[j][e + 1]);
           }
         }
     }
   }
 }
 
-// x0 (and x1, where it is not null) [B,S,Hq,dh] into the gathered copies y0
-// (y1) [B*Hkv][S*G][dh] that the wgmma_rows kernels read: row r = s*G + g of
-// slab b*Hkv + kvh is position s of head kvh*G + g.  The G heads of one
-// position are contiguous on both sides, so this is a plain copy, 16 bytes a
-// thread, with neighbouring threads on neighbouring addresses.  grid
-// (ceil(B*Hq*S*dh / 8 / 256), 1 or 2): y picks the tensor.
+// x0 [B,S,Hq,dh0] (and x1 [B,S,Hq,dh1], where it is not null) into the
+// gathered copies y0 [B*Hkv][S*G][dh0] (y1) that the wgmma_rows kernels read:
+// row r = s*G + g of slab b*Hkv + kvh is position s of head kvh*G + g.  The G
+// heads of one position are contiguous on both sides, so this is a plain
+// copy, 16 bytes a thread, with neighbouring threads on neighbouring
+// addresses.  grid (ceil(B*Hq*S*max(dh0, dh1) / 8 / 256), 1 or 2): y picks
+// the tensor.
 __global__ void __launch_bounds__(256)
 flash_rows_gather_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
                          bf16* __restrict__ y0, bf16* __restrict__ y1, int B, int S, int Hq,
-                         int Hkv, int dh) {
+                         int Hkv, int dh0, int dh1) {
   const bf16* x = blockIdx.y == 0 ? x0 : x1;
   bf16* y = blockIdx.y == 0 ? y0 : y1;
+  const int dh = blockIdx.y == 0 ? dh0 : dh1;
   const int G = Hq / Hkv, chunks = dh / 8;
   const long long R = (long long)S * G;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // chunk of y
@@ -1210,23 +1398,25 @@ struct GroupRows {
   __device__ size_t lse_index(int r) const { return ((size_t)b * H + head(r)) * S + pos(r); }
 };
 
-// x [B,S,H,dh] (H = Hkv * G) into hi and lo: the rows tensor [2][B*Hkv][S*G][dh]
+// x [B,S,H,dx] (H = Hkv * G, dx <= dh) into hi and lo, zeros in the columns
+// from dx to dh (the values' past dv): the rows tensor [2][B*Hkv][S*G][dh]
 // (rows_out) and the transposed one [2][B*Hkv][dh][Np] (cols_out, zeros past
 // S*G); either may be null.  grid (ceil(max(S*G, Np) / 32), ceil(dh / 32),
 // B*Hkv), 256 threads: a 32 x 32 tile through shared memory, so that both
 // writes are coalesced.
 __global__ void __launch_bounds__(256)
 flash_x3_split_kernel(const float* __restrict__ x, float* __restrict__ rows_out,
-                      float* __restrict__ cols_out, int S, int H, int Hkv, int dh, int Np) {
+                      float* __restrict__ cols_out, int S, int H, int Hkv, int dh, int dx,
+                      int Np) {
   __shared__ float tile[32][33];
   const int bh = blockIdx.z;
-  const GroupRows g{bh / Hkv, bh % Hkv, H / Hkv, S, H, dh};
+  const GroupRows g{bh / Hkv, bh % Hkv, H / Hkv, S, H, dx};
   const int R = S * g.G;
   const int r0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int i = ty; i < 32; i += 8) {
     const int r = r0 + i, d = d0 + tx;
-    const float v = r < R && d < dh ? x[g.offset(r) + d] : 0.f;
+    const float v = r < R && d < dx ? x[g.offset(r) + d] : 0.f;
     tile[i][tx] = v;
     if (rows_out != nullptr && r < R && d < dh) {
       const size_t at = ((size_t)bh * R + r) * dh + d;
@@ -1249,20 +1439,21 @@ flash_x3_split_kernel(const float* __restrict__ x, float* __restrict__ rows_out,
 }
 
 // Per row of the rows layout ([B*Hkv][R64], zeros past S*G): lse * log2(e)
-// and D = rowsum(dO * O), one warp a row, summed in a fixed order.
+// and D = rowsum(dO * O) over o's and dout's dv columns, one warp a row,
+// summed in a fixed order.
 __global__ void __launch_bounds__(256)
 flash_x3_row_stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                           const float* __restrict__ lse, float* __restrict__ lse2,
-                          float* __restrict__ delta, int Sq, int Hq, int Hkv, int dh, int R64,
+                          float* __restrict__ delta, int Sq, int Hq, int Hkv, int dv, int R64,
                           int BH) {
   const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (w >= BH * R64) return;
   const int bh = w / R64, r = w % R64;
-  const GroupRows g{bh / Hkv, bh % Hkv, Hq / Hkv, Sq, Hq, dh};
+  const GroupRows g{bh / Hkv, bh % Hkv, Hq / Hkv, Sq, Hq, dv};
   float acc = 0.f, l2 = 0.f;
   if (r < Sq * g.G) {
     const size_t off = g.offset(r);
-    for (int d = lane; d < dh; d += 32) acc = fmaf(dout[off + d], o[off + d], acc);
+    for (int d = lane; d < dv; d += 32) acc = fmaf(dout[off + d], o[off + d], acc);
     l2 = lse[g.lse_index(r)] * kLog2e;
   }
   acc = warp_sum(acc);
@@ -1487,12 +1678,13 @@ __device__ __forceinline__ bool x3_start(X3Smem& sm) {
   return false;
 }
 
-// forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
+// forward: O over the dh columns of V's split (zeros past dv), out written
+// at dv.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
 template <int OC>
 __global__ void __launch_bounds__(kX3Threads, 1)
 flash_fwd_x3_kernel(const __grid_constant__ X3Maps maps, float* __restrict__ o,
-                    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh, int causal,
-                    int window, float scale) {
+                    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dh, int dv,
+                    int causal, int window, float scale) {
   constexpr bool kTwo = x3_two_products(OC), kTwoU = x3_two_updates(OC);
   extern __shared__ char smem_raw[];
   X3Smem& sm = smem_layout<X3Smem>(smem_raw);
@@ -1581,13 +1773,13 @@ flash_fwd_x3_kernel(const __grid_constant__ X3Maps maps, float* __restrict__ o,
     const int r = r_lo + 8 * x;
     if (r >= R) continue;  // rows past Sq write nothing
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    const size_t off = rows.offset(r);
+    const size_t off = row_offset(rows.b, r, G, rows.kvh, Sq, Hq, dv);
 #pragma unroll
     for (int c = 0; c < OC; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int cc = 64 * c + 8 * j + col;
-        if (cc < dh)
+        if (cc < dv)
           *reinterpret_cast<float2*>(o + off + cc) =
               make_float2(oacc[c][4 * j + 2 * x] * inv, oacc[c][4 * j + 2 * x + 1] * inv);
       }
@@ -1809,13 +2001,13 @@ flash_bwd_dkdv_x3_kernel(const __grid_constant__ X3Maps maps, const float* __res
 }
 
 // The backward's partial sums added in chunk order, scaled, into dq
-// [B,Sq,Hq,dh] (rows r of the rows layout) and dk, dv [B,Sk,Hkv,dh]: one
-// thread per 4 values.
+// [B,Sq,Hq,dh] (rows r of the rows layout), dk [B,Sk,Hkv,dh] and the first
+// dvw columns of the dV sums into dv [B,Sk,Hkv,dvw]: one thread per 4 values.
 __global__ void __launch_bounds__(256)
 flash_x3_reduce_kernel(const float* __restrict__ dq_part, const float* __restrict__ dk_part,
                        const float* __restrict__ dv_part, float* __restrict__ dq,
                        float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int Hq,
-                       int Hkv, int dh, int causal, int window, float scale) {
+                       int Hkv, int dh, int dvw, int causal, int window, float scale) {
   const int G = Hq / Hkv, R = Sq * G, BH = gridDim.y;
   const int bh = blockIdx.y;
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
@@ -1845,9 +2037,10 @@ flash_x3_reduce_kernel(const float* __restrict__ dq_part, const float* __restric
       a.x += p.x; a.y += p.y; a.z += p.z; a.w += p.w;
       b.x += q.x; b.y += q.y; b.z += q.z; b.w += q.w;
     }
-    const size_t off = (((size_t)rows.b * Sk + key) * Hkv + rows.kvh) * dh + d;
-    *reinterpret_cast<float4*>(dk + off) = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
-    *reinterpret_cast<float4*>(dv + off) = b;
+    const size_t row = ((size_t)rows.b * Sk + key) * Hkv + rows.kvh;
+    *reinterpret_cast<float4*>(dk + row * dh + d) =
+        make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+    if (d < dvw) *reinterpret_cast<float4*>(dv + row * dvw + d) = b;  // dvw % 8 == 0
   }
 }
 
@@ -1855,7 +2048,7 @@ flash_x3_reduce_kernel(const float* __restrict__ dq_part, const float* __restric
 // launch helpers
 // ---------------------------------------------------------------------------
 struct Shape {
-  int B, Sq, Sk, Hq, Hkv, dh, causal, window;
+  int B, Sq, Sk, Hq, Hkv, dh, dv, causal, window;  // v [B,Sk,Hkv,dv], dv <= dh
   float scale;
 };
 
@@ -1868,9 +2061,10 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 // bf16 through wgmma: scratch, tensor maps, shared memory and grids
 
 // The scratch of one wgmma call, carved from `base` (sizes only when base is
-// null), in floats: at kRows the gathered copies of q and (backward) of dout,
-// [B*Hkv][Sq*G][dh] bf16 each; then the backward's delta [B,Hq,Sq].  Each
-// part starts 16-byte aligned (dh is a multiple of 8), as TMA needs.
+// null), in floats: at kRows the gathered copies of q, [B*Hkv][Sq*G][dh]
+// bf16, and (backward) of dout, [B*Hkv][Sq*G][dv]; then the backward's delta
+// [B,Hq,Sq].  Each part starts 16-byte aligned (dh and dv are multiples of
+// 8), as TMA needs.
 struct WgWork {
   bf16 *q = nullptr, *dout = nullptr;
   float* delta = nullptr;
@@ -1884,7 +2078,7 @@ struct WgWork {
     };
     q = static_cast<bf16*>(take(rows_floats));
     if (!backward) return;
-    dout = static_cast<bf16*>(take(rows_floats));
+    dout = static_cast<bf16*>(take(rows ? (size_t)s.B * s.Hq * s.Sq * s.dv / 2 : 0));
     delta = static_cast<float*>(take((size_t)s.B * s.Hq * s.Sq));
   }
 };
@@ -1893,29 +2087,30 @@ struct WgWork {
 long long rows_chunks(const Shape& s) { return (long long)s.B * s.Hq * s.Sq * (s.dh / 8); }
 long long rows_gather_blocks(const Shape& s) { return (rows_chunks(s) + 255) / 256; }
 
-// q (and dout, where x1 is not null) into the gathered copies
+// q (and dout, where x1 is not null: dv wide) into the gathered copies
 cudaError_t gather_rows(const void* x0, const void* x1, bf16* y0, bf16* y1, const Shape& s,
                         cudaStream_t st) {
   const dim3 grid((unsigned)rows_gather_blocks(s), x1 == nullptr ? 1 : 2);
   flash_rows_gather_kernel<<<grid, 256, 0, st>>>(static_cast<const bf16*>(x0),
                                                  static_cast<const bf16*>(x1), y0, y1, s.B, s.Sq,
-                                                 s.Hq, s.Hkv, s.dh);
+                                                 s.Hq, s.Hkv, s.dh, s.dv);
   return cudaGetLastError();
 }
 
-// the maps of the row tensors (q, dout: boxes of 64 rows r = s*G + g; at
-// kRows over their gathered copies) and of the key tensors (k, v: boxes of
-// `keys` keys)
+// the maps of the row tensors (q at dh, dout at dv columns: boxes of 64 rows
+// r = s*G + g; at kRows over their gathered copies) and of the key tensors (k
+// at dh, v at dv columns: boxes of `keys` keys)
 template <bool kRows>
-bool row_map(CUtensorMap* m, const void* p, const Shape& s) {
+bool row_map(CUtensorMap* m, const void* p, const Shape& s, int width) {
   const int G = s.Hq / s.Hkv;
   if constexpr (kRows)
-    return make_map_bf16_4d(m, p, s.dh, (uint64_t)s.Sq * G, (uint64_t)s.B * s.Hkv, 1, kWgRows, 1);
+    return make_map_bf16_4d(m, p, width, (uint64_t)s.Sq * G, (uint64_t)s.B * s.Hkv, 1, kWgRows,
+                            1);
   else
-    return make_map_bf16_4d(m, p, s.dh, s.Hq, s.Sq, s.B, G, kWgRows / G);
+    return make_map_bf16_4d(m, p, width, s.Hq, s.Sq, s.B, G, kWgRows / G);
 }
-bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys) {
-  return make_map_bf16_4d(m, p, s.dh, s.Hkv, s.Sk, s.B, 1, keys);
+bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys, int width) {
+  return make_map_bf16_4d(m, p, width, s.Hkv, s.Sk, s.B, 1, keys);
 }
 
 // 64-column chunks of the padded head dim
@@ -1927,7 +2122,7 @@ dim3 row_grid(const Shape& s, int rows) {
   return dim3(s.B * s.Hkv, (s.Sq * G + rows - 1) / rows);
 }
 
-template <int DC, bool kRows>
+template <int DC, int DVC, bool kRows>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                              void* work, const Shape& s, cudaStream_t st) {
   if constexpr (kRows) {
@@ -1937,21 +2132,22 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
     q = w.q;
   }
   CUtensorMap qm, km, vm;
-  if (!row_map<kRows>(&qm, q, s) || !key_map(&km, k, s, fwd_keys(DC)) ||
-      !key_map(&vm, v, s, fwd_keys(DC)))
+  if (!row_map<kRows>(&qm, q, s, s.dh) || !key_map(&km, k, s, fwd_keys(DVC), s.dh) ||
+      !key_map(&vm, v, s, fwd_keys(DVC), s.dv))
     return cudaErrorInvalidValue;
-  static_assert(sizeof(FwdWgSmem<DC>) + 1024 <= kSmemPerBlock, "forward layout over 227 KB");
-  const size_t smem = sizeof(FwdWgSmem<DC>) + 1024;
-  auto kern = flash_fwd_wgmma_kernel<DC, kRows>;
+  static_assert(sizeof(FwdWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
+                "forward layout over 227 KB");
+  const size_t smem = sizeof(FwdWgSmem<DC, DVC>) + 1024;
+  auto kern = flash_fwd_wgmma_kernel<DC, DVC, kRows>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<row_grid(s, kBlockRows), kWsThreads, smem, st>>>(
-      qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window,
+      qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dv, s.causal, s.window,
       s.scale);
   return cudaGetLastError();
 }
 
-template <int DC, bool kRows>
+template <int DC, int DVC, bool kRows>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, void* work, void* dq, void* dk,
                              void* dv, const Shape& s, cudaStream_t st) {
@@ -1964,56 +2160,62 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
     dor = w.dout;
   }
   CUtensorMap qm, dom, km, vm;
-  if (!row_map<kRows>(&qm, qr, s) || !row_map<kRows>(&dom, dor, s) ||
-      !key_map(&km, k, s, kDqKeys) || !key_map(&vm, v, s, kDqKeys))
+  if (!row_map<kRows>(&qm, qr, s, s.dh) || !row_map<kRows>(&dom, dor, s, s.dv) ||
+      !key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
     return cudaErrorInvalidValue;
-  static_assert(sizeof(DqWgSmem<DC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
-  static_assert(sizeof(DkdvWgSmem<DC, kRows>) + 1024 <= kSmemPerBlock,
+  static_assert(sizeof(DqWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
+  static_assert(sizeof(DkdvWgSmem<DC, DVC, kRows>) + 1024 <= kSmemPerBlock,
                 "dK/dV layout over 227 KB");
-  size_t smem = sizeof(DqWgSmem<DC>) + 1024;
-  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, kRows>;
+  size_t smem = sizeof(DqWgSmem<DC, DVC>) + 1024;
+  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, DVC, kRows>;
   cudaError_t e = allow_smem(dq_kern, smem);
   if (e != cudaSuccess) return e;
   constexpr int nc = dq_consumers(DC);
   dq_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
       qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, w.delta,
-      static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+      static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv, s.causal, s.window, s.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr int keys = kv_keys(DC, kRows);
-  if (!key_map(&km, k, s, keys) || !key_map(&vm, v, s, keys)) return cudaErrorInvalidValue;
-  smem = sizeof(DkdvWgSmem<DC, kRows>) + 1024;
-  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, kRows>;
+  constexpr int keys = kv_keys(DC, DVC, kRows);
+  if (!key_map(&km, k, s, keys, s.dh) || !key_map(&vm, v, s, keys, s.dv))
+    return cudaErrorInvalidValue;
+  smem = sizeof(DkdvWgSmem<DC, DVC, kRows>) + 1024;
+  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, DVC, kRows>;
   e = allow_smem(kv_kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(s.B * s.Hkv, (s.Sk + keys - 1) / keys);
   kv_kern<<<grid, kWsThreads, smem, st>>>(qm, km, vm, dom, lse, w.delta, static_cast<bf16*>(dk),
                                           static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh,
-                                          s.causal, s.window, s.scale);
+                                          s.dv, s.causal, s.window, s.scale);
   return cudaGetLastError();
 }
 
-// the launchers above at the head dim's count of column chunks
+// the launchers above at the counts of column chunks of the keys and the
+// values (bad_variant has refused every pair but these)
 template <bool kRows>
 cudaError_t launch_fwd_wgmma_dc(const void* q, const void* k, const void* v, void* o, float* lse,
                                 void* work, const Shape& s, cudaStream_t st) {
+  if (wgmma_chunks(s.dh) == 3 && wgmma_chunks(s.dv) == 2)
+    return launch_fwd_wgmma<3, 2, kRows>(q, k, v, o, lse, work, s, st);
   switch (wgmma_chunks(s.dh)) {
-    case 1: return launch_fwd_wgmma<1, kRows>(q, k, v, o, lse, work, s, st);
-    case 2: return launch_fwd_wgmma<2, kRows>(q, k, v, o, lse, work, s, st);
-    case 3: return launch_fwd_wgmma<3, kRows>(q, k, v, o, lse, work, s, st);
-    default: return launch_fwd_wgmma<4, kRows>(q, k, v, o, lse, work, s, st);
+    case 1: return launch_fwd_wgmma<1, 1, kRows>(q, k, v, o, lse, work, s, st);
+    case 2: return launch_fwd_wgmma<2, 2, kRows>(q, k, v, o, lse, work, s, st);
+    case 3: return launch_fwd_wgmma<3, 3, kRows>(q, k, v, o, lse, work, s, st);
+    default: return launch_fwd_wgmma<4, 4, kRows>(q, k, v, o, lse, work, s, st);
   }
 }
 template <bool kRows>
 cudaError_t launch_bwd_wgmma_dc(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const float* lse, void* work, void* dq,
                                 void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  if (wgmma_chunks(s.dh) == 3 && wgmma_chunks(s.dv) == 2)
+    return launch_bwd_wgmma<3, 2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
   switch (wgmma_chunks(s.dh)) {
-    case 1: return launch_bwd_wgmma<1, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    case 2: return launch_bwd_wgmma<2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    case 3: return launch_bwd_wgmma<3, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    default: return launch_bwd_wgmma<4, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 1: return launch_bwd_wgmma<1, 1, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 2: return launch_bwd_wgmma<2, 2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 3: return launch_bwd_wgmma<3, 3, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    default: return launch_bwd_wgmma<4, 4, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
   }
 }
 
@@ -2078,13 +2280,14 @@ struct X3Work {
   }
 };
 
-// x [B,S,H,dh] into hi/lo rows (if rows) and transposed (if cols, Np wide)
-cudaError_t x3_split(const void* x, int S, int H, float* rows, float* cols, int Np, const Shape& s,
-                     cudaStream_t st) {
+// x [B,S,H,dx] into hi/lo rows (if rows) and transposed (if cols, Np wide),
+// dh wide with zeros past dx
+cudaError_t x3_split(const void* x, int S, int H, int dx, float* rows, float* cols, int Np,
+                     const Shape& s, cudaStream_t st) {
   const int R = S * (H / s.Hkv);
   const dim3 grid(((R > Np ? R : Np) + 31) / 32, (s.dh + 31) / 32, s.B * s.Hkv);
   flash_x3_split_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(x), rows, cols, S, H,
-                                               s.Hkv, s.dh, Np);
+                                               s.Hkv, s.dh, dx, Np);
   return cudaGetLastError();
 }
 
@@ -2102,9 +2305,9 @@ cudaError_t launch_fwd_x3(const void* q, const void* k, const void* v, void* o, 
                           void* work, const Shape& s, cudaStream_t st) {
   const int G = s.Hq / s.Hkv, R = s.Sq * G, Skp = round_up(s.Sk, 8);
   const X3Work w(s, static_cast<float*>(work), false);
-  cudaError_t e = x3_split(q, s.Sq, s.Hq, w.qr, nullptr, R, s, st);
-  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, w.kr, nullptr, s.Sk, s, st);
-  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, nullptr, w.vt, Skp, s, st);
+  cudaError_t e = x3_split(q, s.Sq, s.Hq, s.dh, w.qr, nullptr, R, s, st);
+  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, s.dh, w.kr, nullptr, s.Sk, s, st);
+  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, s.dv, nullptr, w.vt, Skp, s, st);
   if (e != cudaSuccess) return e;
   X3Maps m{};
   if (!x3_rows_map(&m.a1, w.qr, s.dh, R, s, kBlockRows) ||
@@ -2115,7 +2318,8 @@ cudaError_t launch_fwd_x3(const void* q, const void* k, const void* v, void* o, 
   e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<row_grid(s, kBlockRows), kX3Threads, smem, st>>>(
-      m, static_cast<float*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+      m, static_cast<float*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv, s.causal, s.window,
+      s.scale);
   return cudaGetLastError();
 }
 
@@ -2126,15 +2330,15 @@ cudaError_t launch_bwd_x3(const void* q, const void* k, const void* v, const voi
   const int G = s.Hq / s.Hkv, R = s.Sq * G, Rp = round_up(R, 8), R64 = round_up(R, 64);
   const int Skp = round_up(s.Sk, 8), BH = s.B * s.Hkv;
   const X3Work w(s, static_cast<float*>(work), true);
-  cudaError_t e = x3_split(q, s.Sq, s.Hq, w.qr, w.qt, Rp, s, st);
-  if (e == cudaSuccess) e = x3_split(dout, s.Sq, s.Hq, w.dor, w.dot, Rp, s, st);
-  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, w.kr, w.kt, Skp, s, st);
-  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, w.vr, nullptr, s.Sk, s, st);
+  cudaError_t e = x3_split(q, s.Sq, s.Hq, s.dh, w.qr, w.qt, Rp, s, st);
+  if (e == cudaSuccess) e = x3_split(dout, s.Sq, s.Hq, s.dv, w.dor, w.dot, Rp, s, st);
+  if (e == cudaSuccess) e = x3_split(k, s.Sk, s.Hkv, s.dh, w.kr, w.kt, Skp, s, st);
+  if (e == cudaSuccess) e = x3_split(v, s.Sk, s.Hkv, s.dv, w.vr, nullptr, s.Sk, s, st);
   if (e != cudaSuccess) return e;
   const long long warps = (long long)BH * R64;
   flash_x3_row_stats_kernel<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
       static_cast<const float*>(o), static_cast<const float*>(dout), lse, w.lse2, w.delta, s.Sq,
-      s.Hq, s.Hkv, s.dh, R64, BH);
+      s.Hq, s.Hkv, s.dv, R64, BH);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
@@ -2173,7 +2377,8 @@ cudaError_t launch_bwd_x3(const void* q, const void* k, const void* v, const voi
   const long long most = (long long)(R > s.Sk ? R : s.Sk) * s.dh / 4;
   flash_x3_reduce_kernel<<<dim3((unsigned)((most + 255) / 256), BH), 256, 0, st>>>(
       w.dq_part, w.dk_part, w.dv_part, static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.causal, s.window, s.scale);
+      static_cast<float*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv, s.causal, s.window,
+      s.scale);
   return cudaGetLastError();
 }
 
@@ -2185,7 +2390,7 @@ enum Variant { kTf32x3 = 0, kWgmma = 1, kWgmmaRows = 2 };
 
 bool bad_shape(const Shape& s) {
   return s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.Hq % s.Hkv != 0 ||
-         s.dh <= 0 || s.dh > 256 || s.dh % 8 != 0;
+         s.dh <= 0 || s.dh > 256 || s.dh % 8 != 0 || s.dv <= 0 || s.dv > s.dh || s.dv % 8 != 0;
 }
 
 bool bad_variant(const Shape& s, int dtype, int variant) {
@@ -2202,20 +2407,21 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
   // whole positions per 64-row box (wgmma), the gather's grid (wgmma_rows),
   // and the grids' second dimension (the dQ kernel's row blocks are the
   // smallest, the dK/dV kernel's key blocks)
-  const int dc = wgmma_chunks(s.dh);
+  // the pair of column-chunk counts an instantiation takes
+  const int dc = wgmma_chunks(s.dh), dvc = wgmma_chunks(s.dv);
   const bool rows_v = variant == kWgmmaRows;
   const long long rows = dq_consumers(dc) * kWgRows;
-  return (variant == kWgmma && kWgRows % G != 0) ||
+  const int keys = kv_keys(dc, dvc, rows_v);
+  return !wgmma_pair(dc, dvc) || (variant == kWgmma && kWgRows % G != 0) ||
          (variant == kWgmmaRows && rows_gather_blocks(s) > 0x7fffffffLL) ||
-         ((long long)s.Sq * G + rows - 1) / rows > 65535 ||
-         (s.Sk + kv_keys(dc, rows_v) - 1) / kv_keys(dc, rows_v) > 65535;
+         ((long long)s.Sq * G + rows - 1) / rows > 65535 || (s.Sk + keys - 1) / keys > 65535;
 }
 
 }  // namespace
 
 // C entry points (bound with ctypes).  dtype: 0 = fp32, 1 = bf16.  variant:
-// see Variant.  causal: 0/1.  window <= 0 means no window.  lse is fp32
-// [B,Hq,Sq].  work is fp32 scratch of flash_attention_work_floats() floats
+// see Variant.  dv: the width of v, out, dout and dv (dv <= dh).  causal:
+// 0/1.  window <= 0 means no window.  lse is fp32 [B,Hq,Sq].  work is fp32 scratch of flash_attention_work_floats() floats
 // (null where that is 0).  Each returns cudaGetLastError() after its
 // launches (0 on success), or cudaErrorInvalidValue for a shape or variant
 // it refuses.
@@ -2224,10 +2430,11 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
 // the wgmma_rows gathered copies of q (and dout); the wgmma and wgmma_rows
 // backward's delta [B,Hq,Sq]; 0 otherwise.
 extern "C" long long flash_attention_work_floats(int B, int Sq, int Sk, int Hq, int Hkv, int dh,
-                                                 int causal, int window, int variant,
+                                                 int dv, int causal, int window, int variant,
                                                  int backward) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return 0;
-  const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, 0.f};
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dh <= 0 || dv <= 0 || dv > dh)
+    return 0;
+  const Shape s{B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, 0.f};
   if (variant == kTf32x3) return (long long)X3Work(s, nullptr, backward != 0).floats;
   if (variant == kWgmma || variant == kWgmmaRows)
     return (long long)WgWork(s, nullptr, variant == kWgmmaRows, backward != 0).floats;
@@ -2236,9 +2443,9 @@ extern "C" long long flash_attention_work_floats(int B, int Sq, int Sk, int Hq, 
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, void* work, int B, int Sq, int Sk, int Hq, int Hkv,
-                                   int dh, int causal, int window, float scale, int dtype,
+                                   int dh, int dv, int causal, int window, float scale, int dtype,
                                    int variant, void* stream) {
-  const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
+  const Shape s{B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, scale};
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
@@ -2260,9 +2467,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-                                   int dh, int causal, int window, float scale, int dtype,
-                                   int variant, void* stream) {
-  const Shape s{B, Sq, Sk, Hq, Hkv, dh, causal, window, scale};
+                                   int dh, int dvw, int causal, int window, float scale,
+                                   int dtype, int variant, void* stream) {
+  const Shape s{B, Sq, Sk, Hq, Hkv, dh, dvw, causal, window, scale};
   if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);

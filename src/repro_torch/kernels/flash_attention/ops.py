@@ -1,7 +1,12 @@
 """Wrapper of the hand-written flash-attention kernels
 (``csrc/flash_attention.cu``), with the reference wrapper's signature.
 
-``flash_attention`` is a ``torch.autograd.Function`` on CUDA tensors: its
+q is ``[B,Sq,Hq,dh]``, k ``[B,Sk,Hkv,dh]`` and v ``[B,Sk,Hkv,dv]`` with
+``dv <= dh`` (MLA's values are narrower than its keys); the output, its
+gradient and v's gradient are ``dv`` wide.  The kernels take narrower values
+natively: the bf16 kernels at their (keys, values) pairs of 64-column chunks
+(:func:`instance`), the fp32 kernels by zero-filling V past ``dv`` in their
+split.  ``flash_attention`` is a ``torch.autograd.Function`` on CUDA tensors: its
 forward launches the forward kernel, which also writes the per-row
 logsumexp, and its backward launches the two backward kernels.  Which
 kernels take a shape is :func:`variant`'s choice, made from the dtype, the
@@ -9,7 +14,8 @@ head dim and the GQA group before any launch: ``"wgmma"`` (bf16, group
 dividing 64, every head dim), ``"wgmma_rows"`` (bf16, any other group: the
 same kernels on a gathered copy of q and dout) or ``"tf32x3"`` (fp32, every
 head dim and group: each fp32 product as three TF32 products on the tensor
-cores).  A tensor on the CPU goes to the plain version
+cores); the bf16 variants raise for a pair of column-chunk counts no
+instantiation takes.  A tensor on the CPU goes to the plain version
 (:func:`attention_ref`), which autograd differentiates.  A CUDA tensor goes
 to the kernels of its variant, or the wrapper raises: there is no fallback.
 The wrapper allocates the scratch a call needs (the size is the library's
@@ -32,32 +38,59 @@ from .. import build, meta
 from .ref import attention_ref
 
 __all__ = [
-    "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "reset_launches", "variant",
-    "work_floats",
+    "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "instance",
+    "reset_launches", "variant", "work_floats",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("tf32x3", "wgmma", "wgmma_rows")  # index = the kernels' variant number
-_INTS = 8  # B, Sq, Sk, Hq, Hkv, dh, causal, window
+_INTS = 9  # B, Sq, Sk, Hq, Hkv, dh, dv, causal, window
+# the (keys, values) pairs of 64-column chunks the bf16 kernels are
+# instantiated at (wgmma_pair): equal counts, and MLA's keys of 192 and
+# values of 128
+PAIRS = ((1, 1), (2, 2), (3, 3), (4, 4), (3, 2))
 _fns: dict[str, object] = {}
 
 
-def variant(dtype: torch.dtype, dh: int, G: int) -> str:
-    """The kernels that take a shape: ``"wgmma"`` for bf16 with a GQA group
-    G that divides 64 (a 64-row box of q then holds whole positions), at
-    every head dim; ``"wgmma_rows"`` for bf16 with any other G, at every head
-    dim (a gather pass first lays out the rows of each kv head contiguously);
-    ``"tf32x3"`` for fp32 at every head dim and every G.  Raises for what no
-    kernel takes."""
+def chunks(d: int) -> int:
+    """64-column chunks of a width padded to 16 (the kernels' ``wgmma_chunks``)."""
+    return ((d + 15) // 16 * 16 + 63) // 64
+
+
+def variant(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
+    """The kernels that take a shape (values ``dv`` wide, ``dh`` where None):
+    ``"wgmma"`` for bf16 with a GQA group G that divides 64 (a 64-row box of
+    q then holds whole positions), at every head dim; ``"wgmma_rows"`` for
+    bf16 with any other G, at every head dim (a gather pass first lays out
+    the rows of each kv head contiguously); ``"tf32x3"`` for fp32 at every
+    head dim and every G.  The bf16 variants take the pairs of column-chunk
+    counts of ``PAIRS``.  Raises for what no kernel takes."""
+    dv = dh if dv is None else dv
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: no kernel for {dtype}; fp32 or bf16")
     if dh <= 0 or dh > 256 or dh % 8:
         raise ValueError(f"flash_attention: head dim {dh} must be a multiple of 8 up to 256")
+    if dv <= 0 or dv > dh or dv % 8:
+        raise ValueError(f"flash_attention: value width {dv} must be a multiple of 8 up to the "
+                         f"head dim {dh}")
     if G <= 0:
         raise ValueError(f"flash_attention: GQA group {G} must be positive")
     if dtype == torch.float32:
         return "tf32x3"
+    if (chunks(dh), chunks(dv)) not in PAIRS:
+        raise ValueError(
+            f"flash_attention: no bf16 kernel takes keys of {dh} and values of {dv} columns: "
+            f"their 64-column chunks ({chunks(dh)}, {chunks(dv)}) are not a pair of {PAIRS}")
     return "wgmma" if 64 % G == 0 else "wgmma_rows"
+
+
+def instance(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
+    """The instantiation that takes a shape: the variant and, for bf16, the
+    counts of 64-column chunks of the keys and of the values, as "wgmma 3x2"
+    (MLA's keys of 192 and values of 128); "tf32x3" for fp32."""
+    dv = dh if dv is None else dv
+    var = variant(dtype, dh, G, dv)
+    return var if var == "tf32x3" else f"{var} {chunks(dh)}x{chunks(dv)}"
 
 
 def _kernel(name: str, n_ptr: int):
@@ -110,11 +143,13 @@ def _x3_kv_chunks(Sq: int, Sk: int, G: int, causal: int, window: int) -> int:
 
 
 def work_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, dh: int, causal: int,
-                window: int, var: int, backward: bool) -> int:
-    """Floats of fp32 scratch a call needs: the library's
-    ``flash_attention_work_floats`` (``X3Work``, ``WgWork``) in Python, for
-    the meta path, which loads no library.  ``var`` indexes VARIANTS."""
-    if B <= 0 or Sq <= 0 or Sk <= 0 or Hkv <= 0 or Hq % Hkv or dh <= 0:
+                window: int, var: int, backward: bool, dv: int | None = None) -> int:
+    """Floats of fp32 scratch a call needs (values ``dv`` wide, ``dh`` where
+    None): the library's ``flash_attention_work_floats`` (``X3Work``,
+    ``WgWork``) in Python, for the meta path, which loads no library.
+    ``var`` indexes VARIANTS."""
+    dv = dh if dv is None else dv
+    if B <= 0 or Sq <= 0 or Sk <= 0 or Hkv <= 0 or Hq % Hkv or dh <= 0 or not 0 < dv <= dh:
         return 0
     up = lambda x, m: -(-x // m) * m
     if VARIANTS[var] == "tf32x3":
@@ -127,22 +162,24 @@ def work_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, dh: int, causal: in
         return (2 * rows_q + 2 * rows_k + 2 * cols_q + cols_k + 2 * BH * up(R, 64)
                 + _x3_q_chunks(Sq, Sk, G, causal, window) * BH * R * dh
                 + 2 * _x3_kv_chunks(Sq, Sk, G, causal, window) * BH * Sk * dh)
-    rows = B * Hq * Sq * dh // 2 if VARIANTS[var] == "wgmma_rows" else 0
-    return 2 * rows + B * Hq * Sq if backward else rows
+    rows = VARIANTS[var] == "wgmma_rows"  # the gathered q (dh) and dout (dv)
+    q_rows, do_rows = (B * Hq * Sq * d // 2 if rows else 0 for d in (dh, dv))
+    return q_rows + do_rows + B * Hq * Sq if backward else q_rows
 
 
 def _work(args: tuple, backward: bool, device) -> torch.Tensor | None:
     """The fp32 scratch of one call (None where it needs none)."""
     if device.type == "meta":
-        n = work_floats(*args[:8], args[-1], backward)
+        B, Sq, Sk, Hq, Hkv, dh, dv, causal, window = args[:_INTS]
+        n = work_floats(B, Sq, Sk, Hq, Hkv, dh, causal, window, args[-1], backward, dv=dv)
     else:
         fn = _fns.get("work")
         if fn is None:
             fn = build.load("flash_attention").flash_attention_work_floats
-            fn.argtypes = [ctypes.c_int] * 10
+            fn.argtypes = [ctypes.c_int] * (_INTS + 2)
             fn.restype = ctypes.c_longlong
             _fns["work"] = fn
-        n = fn(*args[:8], args[-1], int(backward))
+        n = fn(*args[:_INTS], args[-1], int(backward))
     return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
@@ -155,19 +192,24 @@ def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _cost(q, k, causal: bool, window: int | None, backward: bool) -> tuple[int, int, str]:
+def _cost(q, k, v, causal: bool, window: int | None,
+          backward: bool) -> tuple[int, int, str]:
     """(FLOPs, bytes, unit) of one call, as PERF.md counts the bound.
-    Bytes: forward reads q, k, v and writes out and the fp32 logsumexp;
-    backward reads q, k, v, out, dout and the logsumexp and writes dq, dk,
-    dv.  FLOPs, 2 a multiply-add over the pairs the mask keeps: forward
-    Q.K and P.V (4 per pair and head dim), backward dO.V, P.dO, dS.K and
-    dS.Q (8)."""
+    Bytes: forward reads q, k (dh wide), v (dv) and writes out (dv) and the
+    fp32 logsumexp; backward reads q, k, v, out, dout and the logsumexp and
+    writes dq, dk (dh) and dv (dv).  FLOPs, 2 a multiply-add over the pairs
+    the mask keeps: forward Q.K (dh) and P.V (dv), backward dO.V and P^T.dO
+    (dv), dS.K and dS^T.Q (dh)."""
     B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     isz = q.element_size()
-    qo, kv, lse = B * Sq * Hq * dh * isz, B * Sk * Hkv * dh * isz, B * Hq * Sq * 4
-    nbytes = 4 * qo + 4 * kv + lse if backward else 2 * qo + 2 * kv + lse
-    flops = (8 if backward else 4) * B * Hq * dh * unmasked_pairs(Sq, Sk, causal, window)
+    q_rows, kv_rows, lse = B * Sq * Hq * isz, B * Sk * Hkv * isz, B * Hq * Sq * 4
+    if backward:  # q, dq, k, dk at dh; out, dout, v, dv at dv
+        nbytes = 2 * (q_rows + kv_rows) * (dh + dv) + lse
+    else:  # q, k at dh; out, v at dv
+        nbytes = (q_rows + kv_rows) * (dh + dv) + lse
+    pairs = unmasked_pairs(Sq, Sk, causal, window)
+    flops = (4 if backward else 2) * B * Hq * (dh + dv) * pairs
     return flops, nbytes, "bf16" if q.dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -185,10 +227,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):  # the bf16 kernels load 16 bytes at a time
         raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} are not [B,Sq,Hq,d] and [B,Sk,Hkv,d]"
+            f"v {tuple(v.shape)} are not [B,Sq,Hq,dh], [B,Sk,Hkv,dh] and [B,Sk,Hkv,dv]"
         )
     B, Sq, Hq, dh = q.shape
     Bk, Sk, Hkv, dhk = k.shape
@@ -200,33 +242,45 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
     if dh > 256 or dh % 8:
         raise ValueError(f"flash_attention: head dim {dh} must be a multiple of 8 up to 256")
+    dv = v.shape[-1]
+    if dv <= 0 or dv > dh or dv % 8:
+        raise ValueError(f"flash_attention: value width {dv} must be a multiple of 8 up to the "
+                         f"head dim {dh}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
 
 
-def _shape_args(q, k, causal, window) -> tuple[tuple, str]:
-    """The kernels' shape arguments, and the variant that takes them."""
+def _shape_args(q, k, v, causal, window) -> tuple[tuple, str, str]:
+    """The kernels' shape arguments, the variant and the instantiation that
+    take them."""
     B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    var = variant(q.dtype, dh, Hq // Hkv)
-    return (B, Sq, Sk, Hq, Hkv, dh, int(causal), window or 0,
-            1.0 / math.sqrt(dh), _DTYPES[q.dtype], VARIANTS.index(var)), var
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    var = variant(q.dtype, dh, Hq // Hkv, dv)
+    return ((B, Sq, Sk, Hq, Hkv, dh, dv, int(causal), window or 0,
+             1.0 / math.sqrt(dh), _DTYPES[q.dtype], VARIANTS.index(var)), var,
+            instance(q.dtype, dh, Hq // Hkv, dv))
+
+
+def _count(var: str, inst: str, kind: str) -> None:
+    flash_attention.launches_by_variant[var][kind] += 1
+    by_inst = flash_attention.launches_by_instance.setdefault(inst, {"fwd": 0, "bwd": 0})
+    by_inst[kind] += 1
 
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward kernel: (out [B,Sq,Hq,d] in q's dtype,
+    """One launch of the forward kernel: (out [B,Sq,Hq,dv] in q's dtype,
     lse fp32 [B,Hq,Sq])."""
     _check(q, k, v, window)
     B, Sq, Hq, _ = q.shape
-    out = torch.empty_like(q)
+    out = q.new_empty(B, Sq, Hq, v.shape[-1])
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    args, var = _shape_args(q, k, causal, window)
+    args, var, inst = _shape_args(q, k, v, causal, window)
     work = _work(args, False, q.device)
     if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
-        meta.record("flash_attention_fwd", *_cost(q, k, causal, window, False))
+        meta.record("flash_attention_fwd", *_cost(q, k, v, causal, window, False))
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -237,7 +291,7 @@ def flash_attention_fwd(
     if err != 0:
         raise RuntimeError(f"flash_attention {var} forward launch failed: CUDA error {err}")
     flash_attention.launches_fwd += 1
-    flash_attention.launches_by_variant[var]["fwd"] += 1
+    _count(var, inst, "fwd")
     return out, lse
 
 
@@ -246,25 +300,27 @@ def flash_attention_bwd(
     lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True, window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The two backward kernels (dK/dV per key tile, dQ per row tile):
-    (dq, dk, dv) in the inputs' dtype.  Counts one backward launch.  The
+    (dq, dk, dv) in the inputs' dtype, out and dout [B,Sq,Hq,dv].  Counts
+    one backward launch.  The
     wgmma variant runs dQ first, which writes D = rowsum(dO * O) once into an
     fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads; wgmma_rows first
     gathers q and dout into its scratch, and its dQ kernel sums D = rowsum(P
     * dP) over the keys; the tf32x3 variant first splits q, k, v and dout
     into its scratch and writes D and the logsumexp per row there."""
     _check(q, k, v, window)
-    if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
+    want = (*q.shape[:3], v.shape[-1])
+    if (out.shape != want or dout.shape != want or out.dtype != q.dtype
             or dout.dtype != q.dtype or not (out.is_contiguous() and dout.is_contiguous())
             or dout.data_ptr() % 16):
-        raise ValueError("flash_attention: out and dout must be contiguous, shaped and typed "
-                         "as q, and dout must start on a 16-byte boundary")
+        raise ValueError("flash_attention: out and dout must be contiguous, typed as q and "
+                         "shaped [B,Sq,Hq,dv], and dout must start on a 16-byte boundary")
     if lse.dtype != torch.float32 or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"flash_attention: lse must be fp32 [B,Hq,Sq], got {tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args, var = _shape_args(q, k, causal, window)
+    args, var, inst = _shape_args(q, k, v, causal, window)
     work = _work(args, True, q.device)
     if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
-        meta.record("flash_attention_bwd", *_cost(q, k, causal, window, True))
+        meta.record("flash_attention_bwd", *_cost(q, k, v, causal, window, True))
         return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -276,7 +332,7 @@ def flash_attention_bwd(
     if err != 0:
         raise RuntimeError(f"flash_attention {var} backward launch failed: CUDA error {err}")
     flash_attention.launches_bwd += 1
-    flash_attention.launches_by_variant[var]["bwd"] += 1
+    _count(var, inst, "bwd")
     return dq, dk, dv
 
 
@@ -301,15 +357,15 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(
-    q: torch.Tensor,  # [B,Sq,Hq,d]
-    k: torch.Tensor,  # [B,Sk,Hkv,d]
-    v: torch.Tensor,
+    q: torch.Tensor,  # [B,Sq,Hq,dh]
+    k: torch.Tensor,  # [B,Sk,Hkv,dh]
+    v: torch.Tensor,  # [B,Sk,Hkv,dv], dv <= dh
     *,
     causal: bool = True,
     window: int | None = None,
 ) -> torch.Tensor:
     """Query position s attends key t < Sk with (causal) t <= s and (window)
-    t > s - window.  Returns [B,Sq,Hq,d] in q's dtype; differentiable."""
+    t > s - window.  Returns [B,Sq,Hq,dv] in q's dtype; differentiable."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
@@ -319,13 +375,15 @@ def flash_attention(
 # kernel launches: forward calls and backward calls (each backward call
 # launches the dQ and the dK/dV kernel, after the gather pass of wgmma_rows
 # or the split of tf32x3) that reached the card, and nowhere else;
-# launches_by_variant splits them by variant().  Callers that
-# prove a path went through the kernels reset them (reset_launches) and read
-# them.
+# launches_by_variant splits them by variant(), launches_by_instance by
+# instance() (an instantiation's key appears at its first launch).  Callers
+# that prove a path went through the kernels reset them (reset_launches) and
+# read them.
 def reset_launches() -> None:
     flash_attention.launches_fwd = 0
     flash_attention.launches_bwd = 0
     flash_attention.launches_by_variant = {v: {"fwd": 0, "bwd": 0} for v in VARIANTS}
+    flash_attention.launches_by_instance = {}
 
 
 reset_launches()

@@ -26,17 +26,18 @@ def _scores(q, k, *, causal, window):
 
 
 def attention_ref(
-    q: torch.Tensor,  # [B,Sq,Hq,d]
-    k: torch.Tensor,  # [B,Sk,Hkv,d]
-    v: torch.Tensor,
+    q: torch.Tensor,  # [B,Sq,Hq,dh]
+    k: torch.Tensor,  # [B,Sk,Hkv,dh]
+    v: torch.Tensor,  # [B,Sk,Hkv,dv], dv <= dh (MLA's values are narrower)
     *,
     causal: bool = True,
     window: int | None = None,
 ) -> torch.Tensor:
-    B, Sq, Hq, d = q.shape
+    """[B,Sq,Hq,dv]: the function the kernels compute."""
+    B, Sq, Hq, _ = q.shape
     p = torch.softmax(_scores(q, k, causal=causal, window=window), dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", p, v)
-    return out.reshape(B, Sq, Hq, d)
+    return out.reshape(B, Sq, Hq, v.shape[-1])
 
 
 def attention_lse_ref(
@@ -108,7 +109,7 @@ def attention_tf32x3(
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = einsum_tf32("bkgst,btkd->bskgd", p, v.float(), passes)
     out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, Sq, Hq, d)
+    return out.reshape(B, Sq, Hq, v.shape[-1])
 
 
 # --------------------------------------------------------------------------

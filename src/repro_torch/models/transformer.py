@@ -10,8 +10,8 @@ converted parameters move between the packages unchanged.  A Python loop
 over layers takes the place of ``lax.scan``: ``forward`` unbinds the stacked
 tensors once (their gradient is one stack), the cached path indexes them.
 On the card every full-sequence attention goes through the flash-attention
-kernels (MLA's too: its values are padded with zero columns to the key
-width) and every cached GQA one through a decode-attention kernel
+kernels (MLA's too: they take its values of 128 columns beside keys of 192
+natively) and every cached GQA one through a decode-attention kernel
 (``decode_step``: the fused variant, which also writes the step's K/V row;
 ``prefill_chunk``: the chunk variant, or the split variant after the
 chunk's rows are written); MLA's cached attention is the reference's
@@ -173,15 +173,9 @@ def _full_attention(cfg: LMConfig, q, k, v, is_global: float, causal: bool):
                 block_q=cfg.attn_block_q,
             )
         return gqa_attention(q, k, v, causal=causal, window=window, global_flag=is_global)
-    # on the card: the flash kernels, whatever attention_impl says; a global
-    # layer attends without the window.  The kernels take one head dim for q,
-    # k and v: narrower values get zero columns, which change neither the
-    # softmax nor the other columns of the output, and are cut off again
-    dv = v.shape[-1]
-    if dv < q.shape[-1]:
-        v = F.pad(v, (0, q.shape[-1] - dv))
-    out = flash_attention(q, k, v, causal=causal, window=None if is_global > 0.5 else window)
-    return out if dv == q.shape[-1] else out[..., :dv]
+    # on the card: the flash kernels, whatever attention_impl says, at v's
+    # own width; a global layer attends without the window
+    return flash_attention(q, k, v, causal=causal, window=None if is_global > 0.5 else window)
 
 
 def _attn_block(cfg: LMConfig, p: dict, x, positions, is_global, *, causal=True):

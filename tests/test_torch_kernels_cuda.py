@@ -610,6 +610,98 @@ def test_flash_attention_mla_prefill_shape_with_padded_values(dtype):
         torch.testing.assert_close(got.float(), ref, **tol)
 
 
+# (B, S, Hq, Hkv, dh, dv, causal, window): values narrower than keys, as
+# the kernels take them natively.  deepseek-v2's prefill (MHA over 128 heads,
+# keys 192, values 128: the (3, 2) instantiation), an S not a multiple of a
+# tile, a window that cuts the keys, G 3 (wgmma_rows at (3, 2)), and the smoke
+# config's keys of 24 and values of 16 (one chunk each); then narrower
+# values within equal chunk counts: the smoke widths at G 3 with a window,
+# dh 192 / dv 136 (three chunks each: dK/dV split by columns) and dh 128 / dv
+# 72 at G 3 (two chunks each, wgmma_rows: split by columns too)
+NARROW_CASES = [
+    (1, 1024, 128, 128, 192, 128, True, None),
+    (2, 37, 4, 4, 192, 128, True, None),
+    (1, 300, 8, 8, 192, 128, True, 64),
+    (1, 200, 6, 2, 192, 128, True, None),
+    (2, 90, 4, 4, 24, 16, True, None),
+    (1, 45, 6, 2, 24, 16, True, 16),
+    (1, 130, 4, 2, 192, 136, False, 40),
+    (1, 77, 6, 2, 128, 72, True, None),
+]
+
+
+def _narrow_inputs(case, dtype, seed):
+    B, S, Hq, Hkv, dh, dv, _, _ = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, dv, generator=g, device=dev).to(dtype)
+    dout = torch.randn(B, S, Hq, dv, generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, dtype", [(c, d) for d in (torch.bfloat16, torch.float32)
+                                         for c in NARROW_CASES])
+def test_flash_attention_narrow_values_match_plain(case, dtype):
+    """Forward and backward at values narrower than keys, on the unpadded
+    values: out, lse, dq, dk and dv against fp32 autograd of the plain
+    version; the launches counted under the instantiation ``instance``
+    names (bf16 at dh 192, dv 128: "wgmma 3x2" or "wgmma_rows 3x2"; fp32:
+    tf32x3, its split zero-filling V past dv)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, Hq, Hkv, dh, dv, causal, window = case
+    q, k, v, dout = _narrow_inputs(case, dtype, 11)
+    want = flash_oracle(q, k, v, dout, causal, window)
+    inst = flash_ops.instance(dtype, dh, Hq // Hkv, dv)
+    if dtype == torch.bfloat16 and (dh, dv) == (192, 128):
+        assert inst == ("wgmma 3x2" if Hq // Hkv == 1 else "wgmma_rows 3x2")
+    flash_ops.reset_launches()
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_ops.flash_attention(qg, kg, vg, causal=causal, window=window)
+    dq, dk, dvg = torch.autograd.grad(out, (qg, kg, vg), dout)
+    _, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches_by_instance == {inst: {"fwd": 2, "bwd": 1}}
+    assert tuple(out.shape) == (B, S, Hq, dv) and dvg.shape == v.shape
+    tol = TOLS[dtype]
+    for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, dq, dk, dvg), want):
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [NARROW_CASES[0], NARROW_CASES[3]], ids=["wgmma", "wgmma_rows"])
+def test_flash_attention_narrow_values_backward_is_deterministic(case):
+    """The (3, 2) backward run twice gives equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    causal, window = case[6], case[7]
+    q, k, v, dout = _narrow_inputs(case, torch.bfloat16, 12)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    first = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    second = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_pairs_without_a_kernel():
+    """bf16 keys of 256 and values of 128 (chunks 4 and 2): no instantiation
+    takes them, so the wrapper raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    q = torch.zeros(1, 16, 2, 256, dtype=torch.bfloat16, device=dev)
+    v = torch.zeros(1, 16, 2, 128, dtype=torch.bfloat16, device=dev)
+    flash_ops.reset_launches()
+    with pytest.raises(ValueError, match="no bf16 kernel"):
+        flash_ops.flash_attention(q, q, v)
+    assert flash_ops.flash_attention.launches_fwd == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [1024, None], ids=["local", "global"])
 def test_flash_attention_gemma3_shape_runs_wgmma(window):

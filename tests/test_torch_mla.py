@@ -2,8 +2,8 @@
 CPU, from the same seeded parameters and inputs: ``mla_prefill`` (both
 lowerings), ``mla_decode`` (the absorbed path, at S = 1 and over a chunk,
 with per-sequence starts), the latent cache of ``init_cache``, and the
-padded-value attention the model runs on the card, emulated by the flash
-kernels' plain version.
+flash kernels' plain version on values padded with zero columns, which
+gives the unpadded attention's columns.
 
 Tolerances: fp32 2e-5 absolute and relative (``tests/test_kernels.py``'s);
 bf16 5e-2 of the largest reference value, as
@@ -122,11 +122,12 @@ def test_absorbed_decode_equals_full_attention():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_zero_padded_values_leave_the_attention_unchanged(dtype):
-    """The card runs MLA's prefill attention (key width nope + rope, value
-    width v_dim) on the flash kernels, which take one head dim: the values
-    get zero columns up to the key width and the output is cut back.  The
-    kernels' plain version on the padded values gives the unpadded
-    attention's columns bit for bit."""
+    """MLA's prefill attention has keys of nope + rope columns and values of
+    v_dim.  The flash kernels take the narrower values as they are; values
+    padded with zero columns up to the key width (the model's route on the
+    card before the kernels took them) give, through the kernels' plain
+    version, the unpadded attention's columns bit for bit and zeros past
+    them."""
     cfg = get_config(ARCH, smoke=True)
     m = cfg.mla
     dh, dv, H = m.nope_head_dim + m.rope_head_dim, m.v_head_dim, cfg.n_heads
