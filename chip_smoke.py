@@ -215,6 +215,18 @@ requests through ``ServeEngine(max_len=2048, chunk=64)``, the last of
 variant, 34 kernels a call and no index write, its decode steps on the
 fused one at dh 256), then a chain of 25 64-token ``prefill_chunk`` calls
 over its 2,048-row cache held against ``prefill`` of the same tokens.
+After it, the reference's LM serve cells (``phase_lm_cells``): TinyLlama's
+``prefill_32k`` and ``decode_32k``, gemma3-4b's ``prefill_32k``,
+``decode_32k`` and ``long_500k``, through ``build_serve_step`` at the
+published widths, S or T, window and ``cache_len``, each at the cut (batch,
+or at B 1 depth) the dry-run's ``fit`` takes under 75 GB, the decode cache
+drawn on the card: step ms, tokens a second, the device's idle share, the
+step's peak against its reckoning, every launch ``fused`` or ``wgmma``, the
+kernels at each cell's shape against their plain versions, and each decode
+step at B 2 and 2 layers against the CPU port.  Those checks draw their
+queries or keys so that the scores spread by several units (a near-flat
+softmax would hide a dropped key), and each refuses planted wrong outputs.
+The steps run back to back on expandable allocator segments.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
 ``src/``); without either it fails before printing any result.  Any failed
@@ -222,6 +234,7 @@ check exits non-zero.  The last line is a JSON object naming the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -449,18 +462,23 @@ def phase_kernels(dev) -> dict:
     return {"cases": results, "written": written}
 
 
-def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
+def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms, new=None,
+                 controls: bool = False) -> dict:
     """The variant ``var`` that writes the new K/V rows and attends in one
     launch (fused: S = 1, splits combined in a cluster; chunk: S > 1,
     ``wgmma``; split: two index writes, then its two kernels) against its
     plain version on the same inputs: output within the tolerance, written
     caches and reruns equal bit for bit; then its times beside the split
-    variant's."""
+    variant's.  ``new``: the (K, V) rows written, unit normal where not
+    given.  ``controls``: the output is held against the plain version on
+    fp32 copies of the written caches, within TOL times that output's
+    largest magnitude, and two planted wrong outputs must fail the same
+    check (``planted_controls``)."""
     label, B, S, T, Hq, Hkv, dh, qs_list, window = case
     tname = str(dtype).replace("torch.", "")
     check(ops.variant(S, Hq // Hkv, dh, dtype) == var, f"{label}: not the {var} variant")
-    k_new = torch.randn(B, S, Hkv, dh, generator=gen, device=q.device).to(dtype)
-    v_new = torch.randn(B, S, Hkv, dh, generator=gen, device=q.device).to(dtype)
+    k_new, v_new = new or tuple(torch.randn(B, S, Hkv, dh, generator=gen,
+                                            device=q.device).to(dtype) for _ in range(2))
     k_want, v_want = k.clone(), v.clone()
     want = ops.decode_attention_chunk_plain(q, k_new, v_new, k_want, v_want, q_start,
                                             window=window)
@@ -477,13 +495,24 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
               f"{var} {label} {tname}: launches {before} -> {after}")
         check(torch.equal(k_got, k_want) and torch.equal(v_got, v_want),
               f"{var} {label} {tname}: the written caches differ from the plain version's")
-    err = (runs[0].float() - want.float()).abs().max().item()
     tol = TOL[dtype]
-    print(f"kernel check {label:18s} {tname:8s} {var} max_abs_err {err:.3e} tol {tol:.0e} "
-          f"caches bit-equal reruns bit-equal {torch.equal(runs[0], runs[1])}")
-    check(math.isfinite(err) and err <= tol,
-          f"{var} decode_attention {label} {tname}: max_abs_err {err} > {tol}")
+    if controls:
+        ref = ops.decode_attention_plain(q.float(), k_want.float(), v_want.float(), q_start,
+                                         window=window)
+        largest = ref.abs().max().item()
+        bound = tol * largest
+    else:
+        ref, bound = want, tol
+    err = (runs[0].float() - ref.float()).abs().max().item()
+    print(f"kernel check {label:18s} {tname:8s} {var} max_abs_err {err:.3e} tol {tol:.0e}"
+          + (f" of the largest |out| {largest:.4e}: bound {bound:.4e}" if controls else "")
+          + f" caches bit-equal reruns bit-equal {torch.equal(runs[0], runs[1])}")
+    check(math.isfinite(err) and err <= bound,
+          f"{var} decode_attention {label} {tname}: max_abs_err {err} > {bound}")
     check(torch.equal(runs[0], runs[1]), f"{var} {label} {tname}: reruns differ")
+    planted = (planted_controls(ops, case, q, k_want, v_want, q_start, ref, bound)
+               if controls else None)
+    del ref
 
     def call():  # rewrites the same rows each time: every call does the same work
         return ops.decode_attention_chunk(q, k_new, v_new, k_got, v_got, q_start, window=window)
@@ -502,6 +531,8 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
           f"library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
     res = dict(ms=ms, device_ms=dev_ms, span_ms=span_ms, queued_ms=q_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+    if controls:
+        res.update(largest=largest, held_to=bound, controls=planted)
     if var == "chunk":  # the cluster sizes beside the plan's choice (outputs checked too)
         planned = ops.plan_chunk(B, S, Hq // Hkv, Hkv, T, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
@@ -535,6 +566,31 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms) -> dict:
               + " ".join(f"{n}: {t:.6f}" for n, t in sweep.items()) + f" (planned {planned})")
         res.update(flushed_ms=cold_ms, split_queued_ms=split_ms, sweep=sweep, planned=planned)
     return res
+
+
+def planted_controls(ops, case, q, k, v, q_start, ref, bound) -> dict:
+    """Two wrong outputs that ``written_case``'s check must refuse, so that
+    it is shown to see a fault at this shape: zeros, and the plain version
+    (fp32) over copies of the written caches ``k``, ``v`` whose rows past
+    the fused plan's first split are zeroed, as a kernel that dropped every
+    split but the first would read them (in a windowed layer the window's
+    keys go too).  Each one's max abs error against ``ref`` must lie above
+    ``bound``."""
+    label, B, S, T, Hq, Hkv, dh, qs_list, window = case
+    _, split, n = ops.plan_fused(T, dh, k.dtype)
+    k0, v0 = k.float(), v.float()
+    k0[:, split:], v0[:, split:] = 0, 0
+    planted = {"zeros": torch.zeros_like(ref),
+               "later splits dropped": ops.decode_attention_plain(q.float(), k0, v0, q_start,
+                                                                  window=window)}
+    del k0, v0
+    errs = {name: (p - ref).abs().max().item() for name, p in planted.items()}
+    print(f"kernel check {label:18s} planted controls (each must exceed the bound {bound:.4e}): "
+          f"zeros max_abs_err {errs['zeros']:.4e}; rows past the first of {n} splits "
+          f"({split} keys) zeroed {errs['later splits dropped']:.4e}")
+    check(all(e > bound for e in errs.values()),
+          f"{label}: a planted control passes the check: {errs}, bound {bound}")
+    return errs
 
 
 # --------------------------------------------------------------------------
@@ -740,6 +796,25 @@ def param_bytes(params: dict) -> tuple[int, int]:
     return n_par, n_bytes
 
 
+@contextlib.contextmanager
+def counted_inserts(ops):
+    """Counts, in the one-element list it yields, the index writes of chunk
+    rows (``ops.insert_chunk``, which the split variant's route takes before
+    its kernels) made while it is open."""
+    n = [0]
+    inner = ops.insert_chunk
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return inner(*args, **kwargs)
+
+    ops.insert_chunk = counted
+    try:
+        yield n
+    finally:
+        ops.insert_chunk = inner
+
+
 def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
                  profile: bool = False, max_len: int = 1024,
                  profile_chunk_at: int | None = None) -> dict:
@@ -801,24 +876,18 @@ def serve_engine(dev, cfg, params, prompts, max_new: int, tag: str, label: str,
         return out
 
     engine._prefill, engine._replay = watched_prefill, watched_replay
-    # the index writes a chunk takes before the split kernel: none where the
-    # chunk kernel takes the chunk shape, since it writes its rows itself
-    index_writes = [0]
-    inner_insert = ops.insert_chunk
-
-    def counted_insert(*args, **kwargs):
-        index_writes[0] += 1
-        return inner_insert(*args, **kwargs)
-
-    ops.insert_chunk, moe.route = counted_insert, counted_route
+    moe.route = counted_route
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     by_var = ops.decode_attention.launches_by_variant
+    # the index writes a chunk takes before the split kernel: none where the
+    # chunk kernel takes the chunk shape, since it writes its rows itself
     try:
-        rows = serve_requests(engine, cfg, prompts, max_new, label)
+        with counted_inserts(ops) as index_writes:
+            rows = serve_requests(engine, cfg, prompts, max_new, label)
     finally:
-        ops.insert_chunk, moe.route = inner_insert, inner_route
+        moe.route = inner_route
     launches = dict(by_var)
     graph = engine._graph
     want_graph = {} if cfg.mla is not None else {"fused": cfg.n_layers}
@@ -1424,7 +1493,8 @@ def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = (
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     print(f"profile {label}: wall_ms {wall_us / 1e3:.3f} device_busy_ms {busy_us / 1e3:.3f} "
           f"device_idle_share {1 - busy_us / wall_us:.4f} device_kernels {len(evs)}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n_kernels]:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_kernels]
+    for name, us in top:
         print(f"profile {label}: {us / 1e3:10.3f} ms {us / busy_us:7.2%} {name[:100]}")
     watched = {}
     for w in watch:
@@ -1434,7 +1504,8 @@ def profile_call(label: str, fn, n_kernels: int = 10, watch: tuple[str, ...] = (
         watched[w] = {"ms": sum(hits) / 1e3, "busy_share": sum(hits) / busy_us,
                       "kernels": len(hits)}
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": 1 - busy_us / wall_us, "watch": watched}
+            "idle_share": 1 - busy_us / wall_us, "watch": watched,
+            "top": [[name[:100], us / 1e3] for name, us in top]}
 
 
 def phase_train(dev) -> dict:
@@ -4688,6 +4759,54 @@ def dryrun_steps(train, ftrain, gtrain, cells) -> list[dict]:
     return steps
 
 
+def dryrun_compare(label: str, rec: dict, run: dict, trace_s: float,
+                   data_bound_ms: float | None = None) -> dict:
+    """One measured step against the dry-run's record of it: the reckoned
+    peak within DRYRUN_TOL of the step's own peak (``max_memory_allocated``
+    from a reset after its state was built, less ``run["pre_memory"]``, what
+    the process held before), and the roofline time at most the measured
+    step ms.  ``data_bound_ms``, where the reckoning counts work the run
+    does not do (a decode step's meta path reads every cache key; the run
+    attends ``cache_len`` + 1 of them), is the step's least time from this
+    run's data, which the measured step is held to instead of the roofline."""
+    check(rec["status"] == "ok", f"dry-run {label}: {rec}")
+    # the step's own peak: what the process held before the phase built
+    # the step's state (earlier phases' tensors, cuBLAS workspaces) is not
+    # the step's
+    peak, measured = rec["memory"]["peak_hbm_bytes"], run["max_memory"] - run["pre_memory"]
+    roof_ms = rec["roofline"]["step_time_s"] * 1e3
+    step_ms = run["mean_step_s"] * 1e3
+    counted = rec["roofline"]["flops_per_chip"]
+    r = dict(reckoned_peak=peak, measured_peak=measured, ratio=peak / measured,
+             max_memory_allocated=run["max_memory"], before_the_step=run["pre_memory"],
+             reckoned_argument_bytes=rec["memory"]["argument_bytes"],
+             measured_argument_bytes=run["base_memory"] - run["pre_memory"],
+             roofline_ms=roof_ms, step_ms=step_ms,
+             dominant=rec["roofline"]["dominant"], counted_flops=counted,
+             model_flops=rec["model_flops_global"],
+             counted_over_model=counted / rec["model_flops_global"],
+             trace_s=trace_s)
+    held = "the roofline"
+    if data_bound_ms is not None:
+        r["data_bound_ms"] = data_bound_ms
+        held = f"this run's data bound {data_bound_ms:.3f} ms"
+    print(f"dryrun {label}: reckoned peak {peak} B against the step's measured "
+          f"{measured} (ratio {r['ratio']:.4f}: max_memory_allocated {run['max_memory']} "
+          f"less {run['pre_memory']} held before the step's state); live at the start "
+          f"reckoned {r['reckoned_argument_bytes']}, measured "
+          f"{r['measured_argument_bytes']}; "
+          f"roofline {roof_ms:.3f} ms ({r['dominant']}) against the measured step "
+          f"{step_ms:.3f} ms (held to {held}); FLOPs counted {counted:.6e} against "
+          f"model_flops {r['model_flops']:.6e} ({r['counted_over_model']:.4f}); traced in "
+          f"{trace_s:.3f} s")
+    check(abs(peak - measured) <= DRYRUN_TOL * measured,
+          f"dry-run {label}: reckoned peak {peak} B, measured {measured} B")
+    floor = roof_ms if data_bound_ms is None else data_bound_ms
+    check(floor <= step_ms, f"dry-run {label}: {held} {floor} ms above the measured "
+                            f"{step_ms} ms")
+    return r
+
+
 def phase_dryrun(dev, train, ftrain, gtrain, cells) -> dict:
     """The dry-run (``repro_torch.launch.dryrun``, on the meta device) of
     each step whose peak an earlier phase measured, at the same shape,
@@ -4708,38 +4827,7 @@ def phase_dryrun(dev, train, ftrain, gtrain, cells) -> dict:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(s["arch"], s["cell"], remat=s["remat"], cfg_overrides=s["overrides"],
                               resident=s["resident"])
-        check(rec["status"] == "ok", f"dry-run {s['label']}: {rec}")
-        run = s["run"]
-        # the step's own peak: what the process held before the phase built
-        # the step's state (earlier phases' tensors, cuBLAS workspaces) is not
-        # the step's
-        peak, measured = rec["memory"]["peak_hbm_bytes"], run["max_memory"] - run["pre_memory"]
-        roof_ms = rec["roofline"]["step_time_s"] * 1e3
-        step_ms = run["mean_step_s"] * 1e3
-        counted = rec["roofline"]["flops_per_chip"]
-        r = dict(reckoned_peak=peak, measured_peak=measured, ratio=peak / measured,
-                 max_memory_allocated=run["max_memory"], before_the_step=run["pre_memory"],
-                 reckoned_argument_bytes=rec["memory"]["argument_bytes"],
-                 measured_argument_bytes=run["base_memory"] - run["pre_memory"],
-                 roofline_ms=roof_ms, step_ms=step_ms,
-                 dominant=rec["roofline"]["dominant"], counted_flops=counted,
-                 model_flops=rec["model_flops_global"],
-                 counted_over_model=counted / rec["model_flops_global"],
-                 trace_s=time.perf_counter() - t0)
-        print(f"dryrun {s['label']}: reckoned peak {peak} B against the step's measured "
-              f"{measured} (ratio {r['ratio']:.4f}: max_memory_allocated {run['max_memory']} "
-              f"less {run['pre_memory']} held before the step's state); live at the start "
-              f"reckoned {r['reckoned_argument_bytes']}, measured "
-              f"{r['measured_argument_bytes']}; "
-              f"roofline {roof_ms:.3f} ms ({r['dominant']}) against the measured step "
-              f"{step_ms:.3f} ms; FLOPs counted {counted:.6e} against model_flops "
-              f"{r['model_flops']:.6e} ({r['counted_over_model']:.4f}); traced in "
-              f"{r['trace_s']:.3f} s")
-        check(abs(peak - measured) <= DRYRUN_TOL * measured,
-              f"dry-run {s['label']}: reckoned peak {peak} B, measured {measured} B")
-        check(roof_ms <= step_ms, f"dry-run {s['label']}: roofline {roof_ms} ms above the "
-                                  f"measured {step_ms} ms")
-        rows[s["label"]] = r
+        rows[s["label"]] = dryrun_compare(s["label"], rec, s["run"], time.perf_counter() - t0)
     tl = rows[steps[0]["label"]]  # TinyLlama's
     check(abs(tl["counted_over_model"] - 1) <= DRYRUN_TOL,
           f"dry-run TinyLlama: counted FLOPs {tl['counted_flops']} against model_flops "
@@ -5864,6 +5952,375 @@ def phase_gateway(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase: the reference's LM serve cells at the cuts one card holds
+# --------------------------------------------------------------------------
+LM_CELLS = (("tinyllama-1.1b", "prefill_32k"), ("tinyllama-1.1b", "decode_32k"),
+            ("gemma3-4b", "prefill_32k"), ("gemma3-4b", "decode_32k"),
+            ("gemma3-4b", "long_500k"))
+LM_CELL_STEPS = 3  # timed, after one warm-up; one more runs under the profiler
+LM_BLOCK = 256  # query rows of each block on which the plain version checks the flash forward
+LM_CHECK_LAYERS = 2  # the decode cells' whole step card against CPU: one local, one global
+LM_CHECK_BATCH = 2
+LM_CHECK_TOL = 5e-2  # of the largest |logit|, as tests/test_torch_train.py holds bf16
+LM_CACHE_STD = 0.1  # make_batch's N(0, 0.1^2) draw
+# the spread of the scores in the attention checks: a few of the 32,768 or
+# 524,288 keys take the softmax, so an output is at the values' scale and a
+# dropped or misplaced key shows (at a spread of 0.1 the softmax is nearly
+# flat and every output is about the values' mean)
+LM_KEY_SPREAD = 4.0
+LM_PATH = "LM serve cells"
+
+
+def lm_params(dev, cfg, seed: int) -> dict:
+    """Random bf16 weights from a seeded CUDA generator, the attention
+    projections at their true fan-in (``at_true_fan_in``)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import init_params
+
+    return at_true_fan_in(init_params(torch.Generator(device=dev).manual_seed(seed),
+                                      transformer.lm_specs(cfg), cfg.dtype, dev), cfg)
+
+
+def lm_check_layers(cfg) -> list[tuple[int, int | None]]:
+    """(layer, window) of the first local layer and the first global one
+    (one layer where every layer is global)."""
+    from repro_torch.models import transformer
+
+    picked = {}
+    for i, w in enumerate(transformer._layer_windows(cfg)):
+        picked.setdefault(w is None, (i, w))
+    return [picked[g] for g in (False, True) if g in picked]
+
+
+def lm_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> dict:
+    """The flash forward at the cell's shape (random q, k, v from a seeded
+    CUDA generator, causal, ``window``) against the plain version on three
+    blocks of LM_BLOCK query rows of every sequence (the first, one in the
+    middle, the last), each computed in fp32 as ``decode_attention`` with
+    ``q_start`` at the block's first row over the keys up to its last: the
+    plain attention of the whole S does not fit ([B, H, S, S] scores).
+    q is drawn at LM_KEY_SPREAD, k and v unit normal, so the scores spread
+    by LM_KEY_SPREAD and each output row is at the values' scale.  Two
+    planted wrong outputs must fail the same check: zeros, and each middle
+    and last block attending only to its own 256 keys (every earlier key
+    dropped).  Times: the kernel, the plain version on one last block,
+    SDPA."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.attention import decode_attention
+
+    Hq, Hkv, dh, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(std=LM_KEY_SPREAD,
+                                                                  generator=gen)
+    k = torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    v = torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    out, _ = fops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    mid = S // 2 // LM_BLOCK * LM_BLOCK
+    err = ratio = largest = 0.0
+    planted = {"zeros": 0.0, "earlier keys dropped": 0.0}  # worst ratio of each control
+    zero = torch.tensor([0], dtype=torch.int32, device=dev)
+    for s0 in (0, mid, S - LM_BLOCK):
+        end = s0 + LM_BLOCK
+        for b in range(B):
+            qb = q[b:b + 1, s0:end].float()
+            ref = decode_attention(qb, k[b:b + 1, :end].float(), v[b:b + 1, :end].float(),
+                                   torch.tensor([s0], dtype=torch.int32, device=dev),
+                                   window=window)
+            e, r = assert_close_ratio(out[b:b + 1, s0:end], ref, TOL[bf16])
+            err, ratio, largest = max(err, e), max(ratio, r), max(largest, ref.abs().max().item())
+            wrong = {"zeros": torch.zeros_like(ref)}
+            if s0:
+                wrong["earlier keys dropped"] = decode_attention(
+                    qb, k[b:b + 1, s0:end].float(), v[b:b + 1, s0:end].float(), zero,
+                    window=window)
+            for name, w in wrong.items():
+                planted[name] = max(planted[name], assert_close_ratio(w, ref, TOL[bf16])[1])
+            del ref, wrong
+    del out
+    ms = queued_ms(lambda: fops.flash_attention_fwd(q, k, v, causal=True, window=window),
+                   iters=3)
+    last = (q[:1, S - LM_BLOCK:].float(), k[:1].float(), v[:1].float(),
+            torch.tensor([S - LM_BLOCK], dtype=torch.int32, device=dev))
+    plain_block_ms = cuda_ms(lambda: decode_attention(*last, window=window), iters=3, warmup=1)
+    del last
+    lib = queued_ms(lambda: sdpa(q, k, v, True, window), iters=3)
+    bound, by = flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window), bf16, backward=False)
+    print(f"{label}: flash forward at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} window {window}, "
+          f"{fops.variant(bf16, dh, Hq // Hkv)}: against the plain version on blocks of "
+          f"{LM_BLOCK} rows at 0, {mid} and {S - LM_BLOCK} of each of the {B} sequences "
+          f"(fp32, largest |out| {largest:.4e}): max_abs_err {err:.4e} worst "
+          f"err/(tol + tol*|ref|) {ratio:.4f} (tol {TOL[bf16]}: must be at most 1); planted "
+          f"controls' worst ratios (each must exceed 1): zeros {planted['zeros']:.4f}, the "
+          f"middle and last blocks over their own keys only "
+          f"{planted['earlier keys dropped']:.4f}; queued_ms {ms:.4f} bound_ms {bound:.4f} "
+          f"({by}) plain_ms on one last block {plain_block_ms:.4f} (the whole plain attention "
+          f"does not fit) SDPA {lib:.4f}")
+    check(ratio <= 1.0, f"{label}: flash forward against the plain version: err {err}, "
+                        f"ratio {ratio}")
+    check(min(planted.values()) > 1.0, f"{label}: a planted control passes the check: {planted}")
+    del q, k, v
+    return {"max_abs_err": err, "ratio": ratio, "largest": largest, "controls": planted,
+            "queued_ms": ms, "bound_ms": bound,
+            "bound_by": by, "plain_ms": None, "plain_last_block_ms": plain_block_ms,
+            "library_ms": lib, "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh,
+                                         "causal": True, "window": window}}
+
+
+def lm_decode_check(dev, cfg, k_layer, v_layer, cache_len, window, label: str) -> dict:
+    """One KV layer's ``[B, T, Hkv, dh]`` slice of the cell's cache, cloned,
+    through ``written_case`` (the fused variant writes the new row at
+    ``cache_len`` and attends: against the plain version on fp32 copies,
+    within TOL of its largest output, caches and reruns bit-equal, two
+    planted controls refused; its times), SDPA with a mask beside it.  The
+    queries are drawn at LM_KEY_SPREAD / LM_CACHE_STD and the new rows at
+    the cache's LM_CACHE_STD, so the scores spread by LM_KEY_SPREAD: the
+    softmax picks a few of the 16,385 or 262,145 live keys and the output
+    is at the values' scale, not at their mean's."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    B, T, Hkv, dh = k_layer.shape
+    Hq, bf16 = cfg.n_heads, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = (torch.randn(B, 1, Hq, dh, generator=gen, device=dev)
+         * (LM_KEY_SPREAD / LM_CACHE_STD)).to(bf16)
+    new = tuple((torch.randn(B, 1, Hkv, dh, generator=gen, device=dev) * LM_CACHE_STD).to(bf16)
+                for _ in range(2))
+    case = (label, B, 1, T, Hq, Hkv, dh, cache_len.tolist(), window)
+    lib = queued_ms(lambda: library_call(q, k_layer, v_layer, cache_len, window))
+    print(f"{label}: decode at B {B} T {T} Hq {Hq} Hkv {Hkv} dh {dh} window {window} q_start "
+          f"{case[7][0]}, plan_fused {dops.plan_fused(T, dh, bf16)}")
+    r = written_case(dops, "fused", case, q, k_layer, v_layer, cache_len, gen, bf16, lib,
+                     new=new, controls=True)
+    return {**r, "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "dh": dh,
+                           "q_start": case[7][0], "window": window}}
+
+
+def lm_decode_cpu_check(dev, cfg_full, cell, label: str) -> dict:
+    """The decode cell's step at B LM_CHECK_BATCH, cut to LM_CHECK_LAYERS
+    layers (gemma3-4b's pattern set to one local layer and one global), at
+    the full T and ``cache_len``, on the card (bf16, the fused kernel) and
+    on the CPU through the port's plain path in fp32, from the same weights
+    and batch: the logits within LM_CHECK_TOL of the largest.  The cache is
+    ``make_batch``'s, its keys scaled to LM_KEY_SPREAD and its values to
+    unit scale: the queries have unit scale, so the scores spread by
+    LM_KEY_SPREAD and the attention, not the residual, sets the logits.  A
+    planted control must fail the same check: the card's step over a copy
+    of the cache whose rows past the fused plan's first split are zeroed."""
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.launch.dryrun import batch_cut
+    from repro_torch.models import transformer
+    from repro_torch.train import build_serve_step
+
+    extra = {"local_global": (1, 1)} if cfg_full.local_global else {}
+    cfg = dataclasses.replace(cfg_full, n_layers=LM_CHECK_LAYERS, **extra)
+    windows = transformer._layer_windows(cfg)
+    cell = batch_cut(cell, LM_CHECK_BATCH)
+    params = lm_params(dev, cfg, seed=2)
+    batch = make_batch(cfg, cell, seed=2, generator=torch.Generator(device=dev).manual_seed(3))
+    batch["cache"]["k"].mul_(LM_KEY_SPREAD / LM_CACHE_STD)
+    batch["cache"]["v"].mul_(1 / LM_CACHE_STD)
+    cpu_params, cpu_cache = cpu_f32(params), cpu_f32(batch["cache"])
+    tokens, cache_len = batch["tokens"].cpu(), batch["cache_len"].cpu()
+    step = build_serve_step(cfg, cell)
+    T = cell.params["seq_len"]
+    _, split, n_splits = dops.plan_fused(T, cfg.head_dim, cfg.dtype)
+    planted = {name: c.clone() for name, c in batch["cache"].items()}
+    for c in planted.values():
+        c[:, :, split:] = 0
+    dops.reset_launches()
+    card = step(params, batch["tokens"], batch["cache"], batch["cache_len"])[0].float().cpu()
+    launches = dict(dops.decode_attention.launches_by_variant)
+    wrong = step(params, batch["tokens"], planted, batch["cache_len"])[0].float().cpu()
+    del params, batch, planted
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = build_serve_step(dataclasses.replace(cfg, dtype=torch.float32), cell)(
+        cpu_params, tokens, cpu_cache, cache_len)[0]
+    cpu_s = time.perf_counter() - t0
+    largest = ref.abs().max().item()
+    err, control = ((x - ref).abs().max().item() for x in (card, wrong))
+    print(f"{label} step card vs CPU: B {LM_CHECK_BATCH}, {LM_CHECK_LAYERS} layers (windows "
+          f"{windows}), T {T}, cache_len {cache_len.tolist()}, keys at {LM_KEY_SPREAD}, values "
+          f"at 1: card bf16 logits against the CPU port in fp32 ({cpu_s:.1f} s on the CPU): "
+          f"max_abs_err {err:.4e} largest {largest:.4e} tol {LM_CHECK_TOL:.0e} of the largest "
+          f"({LM_CHECK_TOL * largest:.4e}); planted control (the card's step with the rows past "
+          f"the first of {n_splits} splits, {split} keys, zeroed; must exceed it) {control:.4e}; "
+          f"decode kernels {launches}")
+    check(launches == {"split": 0, "fused": LM_CHECK_LAYERS, "chunk": 0},
+          f"{label} step card vs CPU: decode kernels {launches}")
+    check(math.isfinite(err) and err <= LM_CHECK_TOL * largest,
+          f"{label} step card vs CPU: logits {err} apart (largest {largest})")
+    check(control > LM_CHECK_TOL * largest,
+          f"{label} step card vs CPU: the planted control passes: {control} (largest {largest})")
+    return {"max_abs_err": err, "largest": largest, "control": control, "cpu_s": cpu_s,
+            "launches": launches}
+
+
+def lm_decode_step_bound_ms(cfg, params, cache_len: list[int], T: int) -> float:
+    """A decode step's least time from this run's data: the weights it reads
+    (``decode_bounds``) and, in each layer, the K and V rows its sequences
+    see (``cache_len`` + 1 keys, or the window), over HBM rate."""
+    from repro_torch.models import transformer
+
+    rows = sum(visible_keys(cache_len, 1, T, w) for w in transformer._layer_windows(cfg))
+    cache = 2 * rows * cfg.n_kv_heads * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
+    return (decode_bounds(cfg, params)["weights"][0] + cache) / HBM_BYTES_PER_S * 1e3
+
+
+def lm_cell(dev, arch: str, name: str) -> dict:
+    """One cell through ``build_serve_step`` at the cut the dry-run's
+    ``fit`` takes under FIT_BYTES (the batch, or at B 1 the depth; never a
+    width, S, T, the window or ``cache_len``): one warm-up step, LM_CELL_STEPS
+    steps timed by CUDA events, one more profiled; the launches of those
+    steps by variant (decode all ``fused``, flash all ``wgmma``, no index
+    write); the step's own peak against the reckoning; the kernels against
+    their plain versions at the cell's shape; for decode cells the step card
+    against CPU at B 2 and 2 layers (prefill cells have no such check: the
+    plain attention's [B, H, S, S] scores at S 32,768 do not fit)."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import reset_launches as reset_flash
+    from repro_torch.launch import dryrun
+    from repro_torch.train import build_serve_step
+
+    label = f"lm cell {arch} {name}"
+    published = next(c for c in get_shapes(arch) if c.name == name)
+    t0 = time.perf_counter()
+    cell, overrides, cuts, rec = dryrun.fit(arch, published, FIT_BYTES)
+    trace_s = time.perf_counter() - t0
+    full_cfg = get_config(arch)
+    cfg = dryrun.apply_cfg_overrides(full_cfg, overrides)
+    B, T = cell.params["global_batch"], cell.params["seq_len"]
+    print(f"{label}: the dry-run's cut under {FIT_BYTES} B: {cuts or 'none'} (reckoned peak "
+          f"{rec['memory']['peak_hbm_bytes']} B, roofline "
+          f"{rec['roofline']['step_time_s'] * 1e3:.3f} ms; {trace_s:.1f} s of tracing)")
+    check(rec["status"] == "ok" and T == published.params["seq_len"]
+          and dataclasses.replace(cfg, n_layers=full_cfg.n_layers) == full_cfg,
+          f"{label}: the cut touches more than the batch and the depth: {cell}, {overrides}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = torch.cuda.memory_allocated(dev)
+    params = lm_params(dev, cfg, seed=0)
+    batch = make_batch(cfg, cell, seed=0, generator=torch.Generator(device=dev).manual_seed(1))
+    step = build_serve_step(cfg, cell)
+    decode = cell.kind == "decode"
+    inputs = ((batch["tokens"], batch["cache"], batch["cache_len"]) if decode
+              else (batch["tokens"],))
+
+    def one():
+        return step(params, *inputs)[0]  # the logits; a prefill's cache is dropped here
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_flash()
+    dops.reset_launches()
+    torch.cuda.empty_cache()  # once, before the warm-up: the steps run back to back
+    with counted_inserts(dops) as index_writes:
+        finite = [torch.isfinite(one()).all()]  # warm-up
+        times = []
+        for _ in range(LM_CELL_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = one()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            finite.append(torch.isfinite(logits).all())
+            del logits
+        prof = profile_call(label, one, n_kernels=3)
+    max_mem = torch.cuda.max_memory_allocated(dev)
+    n_steps = LM_CELL_STEPS + 2
+    decode_launches = dict(dops.decode_attention.launches_by_variant)
+    flash_launches = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+    med = sorted(times)[len(times) // 2]
+    per_step = B if decode else B * T
+    run = {"mean_step_s": sum(times) / len(times) / 1e3, "max_memory": max_mem,
+           "base_memory": base, "pre_memory": pre}
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers bf16 B {B} {'T' if decode else 'S'} "
+          f"{T}{f' cache_len {T // 2}' if decode else ''}: step ms median {med:.3f} range "
+          f"{min(times):.3f}-{max(times):.3f} over {LM_CELL_STEPS} (CUDA events), tokens_per_s "
+          f"{per_step / med * 1e3:.1f}; device idle share "
+          f"{prof.get('idle_share', 'not measured')}; the step's own peak {max_mem - pre} B "
+          f"(max_memory_allocated {max_mem} less {pre} held before) against the reckoned "
+          f"{rec['memory']['peak_hbm_bytes']}; launches in the {n_steps} steps: decode "
+          f"{decode_launches}, flash {flash_launches}, index writes {index_writes[0]}")
+    check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    L = cfg.n_layers
+    want_decode = {"split": 0, "fused": n_steps * L if decode else 0, "chunk": 0}
+    want_flash = {v: {"fwd": n_steps * L if (v == "wgmma" and not decode) else 0, "bwd": 0}
+                  for v in flash_launches}
+    check(decode_launches == want_decode and flash_launches == want_flash
+          and index_writes[0] == 0,
+          f"{label}: decode {decode_launches} (wanted {want_decode}), flash {flash_launches} "
+          f"(wanted {want_flash}), index writes {index_writes[0]}")
+    bound = (lm_decode_step_bound_ms(cfg, params, batch["cache_len"].tolist(), T) if decode
+             else None)
+    dr = dryrun_compare(f"{arch} {name} at the cut", rec, run, trace_s, data_bound_ms=bound)
+    out = {"arch": arch, "cell": name, "cuts": cuts, "B": B, "T": T, "layers": L,
+           "step_ms": times, "median_ms": med, "tokens_per_s": per_step / med * 1e3,
+           "profile": prof, "decode_launches": decode_launches,
+           "flash_launches": flash_launches, "dryrun": dr, "kernels": {}}
+
+    # the kernels at the cell's shape, on one layer (local and global for gemma3-4b)
+    if decode:
+        slices = {i: (batch["cache"]["k"][i].clone(), batch["cache"]["v"][i].clone(), w)
+                  for i, w in lm_check_layers(cfg)}
+        cache_len = batch["cache_len"]
+    del params, batch, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if decode:
+        for i in list(slices):
+            k_l, v_l, w = slices.pop(i)
+            out["kernels"][f"layer {i}"] = lm_decode_check(dev, cfg, k_l, v_l, cache_len, w,
+                                                           f"{label} layer {i}")
+            del k_l, v_l
+            torch.cuda.empty_cache()
+        out["cpu_check"] = lm_decode_cpu_check(dev, full_cfg, cell, label)
+    else:
+        for i, w in lm_check_layers(cfg):
+            out["kernels"][f"layer {i}"] = lm_flash_check(dev, cfg, B, T, w,
+                                                          f"{label} layer {i}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_cells(dev) -> dict:
+    """The reference's LM serve cells (``configs/base.py``'s LM_SHAPES:
+    ``prefill_32k``, ``decode_32k``, ``long_500k``; TinyLlama-1.1B's and
+    gemma3-4b's; TinyLlama's ``long_500k`` is the reference's ``skipped``)
+    through ``build_serve_step`` at full width, S or T, window and
+    ``cache_len``, random weights from a seeded CUDA generator at the true
+    fan-in, the batch from ``make_batch`` drawn on the card, each at the
+    cut the dry-run takes under FIT_BYTES, one after another (``lm_cell``)."""
+    # expandable segments: memory a step frees is unmapped, and the next
+    # step's largest allocation (TinyLlama prefill's fp32 [B, S, V] logits,
+    # 39 GiB at B 10) maps it again; with fixed segments, those the first
+    # step left hold 35 GiB free but in pieces, and the second step fails
+    settings = torch._C._accelerator_setAllocatorSettings
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        rows = {f"{arch} {name}": lm_cell(dev, arch, name) for arch, name in LM_CELLS}
+    finally:
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+    fused = sum(r["decode_launches"]["fused"] for r in rows.values())
+    flash = {arch: sum(r["flash_launches"]["wgmma"]["fwd"] for r in rows.values()
+                       if r["arch"] == arch)
+             for arch in ("tinyllama-1.1b", "gemma3-4b")}
+    print(f"lm cells: decode fused kernels {fused}, flash wgmma forwards {flash} over the "
+          f"{len(rows)} cells' steps")
+    return {"rows": rows, "fused": fused, "flash": flash}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -5920,6 +6377,7 @@ def main() -> int:
     cli = timed(phase_client, eng["rows"])
     gwy = timed(phase_gateway)
     g3s = timed(phase_gemma3_serve)
+    lm = timed(phase_lm_cells)
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -5953,7 +6411,22 @@ def main() -> int:
                          "n_edges": [OGB_EDGES, cells["ogb_products"]["cell"].params["n_edges"]],
                          "why": "the full graph's train step needs about 450 GB with remat "
                                 "full (7.3 KB an edge); nodes and edges cut by one factor, the "
-                                f"largest whose dry-run peak lies under {FIT_BYTES} B"}}}
+                                f"largest whose dry-run peak lies under {FIT_BYTES} B"},
+        **{f"{r['arch']} {r['cell']}": {
+            **r["cuts"], "why": "the cell's weights, batch and step do not fit 80 GB; the "
+                                "dry-run's largest cut (batch, or at B 1 depth) whose reckoned "
+                                f"peak lies under {FIT_BYTES} B; widths, S or T, window and "
+                                "cache_len as published"}
+           for r in lm["rows"].values() if r["cuts"]}}}
+    lm_keys = ("queued_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+
+    def at_lm_cells(cell: tuple[str, ...]) -> dict:
+        return {f"{label} {layer}": {"shape": r["shape"], **{k: r[k] for k in lm_keys},
+                                     **{k: r[k] for k in ("plain_last_block_ms", "largest",
+                                                          "controls") if k in r}}
+                for label, row in lm["rows"].items() if row["cell"] in cell or label in cell
+                for layer, r in row["kernels"].items()}
+
     for name, var, case, tname, r, by_path in (
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
          kern["written"][(MAIN_CASE, "bfloat16")],
@@ -5965,7 +6438,8 @@ def main() -> int:
           "deepseek-7b serving decode steps": ds7["launches"]["fused"],
           "qwen2-moe-a2.7b serving decode steps": qwen["launches"]["fused"],
           family_parity: fpar["fused"],
-          "gemma3-4b serving decode steps (dh 256)": g3s["launches"]["fused"]}),
+          "gemma3-4b serving decode steps (dh 256)": g3s["launches"]["fused"],
+          LM_PATH: lm["fused"]}),
         ("decode_attention_chunk", "chunk", CHUNK_CASE, "bfloat16",
          kern["written"][(CHUNK_CASE, "bfloat16")],
          {"serving prefill chunks": eng["launches"]["chunk"],
@@ -6009,6 +6483,7 @@ def main() -> int:
         gemma_served = {label: {k: kern["written"][(label, "bfloat16")][k] for k in timed_keys}
                         for label in GEMMA_SERVED.get(var, ())}
         if var == "fused":
+            entry["at_lm_cells"] = at_lm_cells(("decode_32k", "long_500k"))
             entry["at_gemma3_decode"] = {
                 k: kern["written"][(GEMMA_DECODE, "bfloat16")][k] for k in timed_keys}
             entry["at_gemma3_served"] = gemma_served
@@ -6052,12 +6527,14 @@ def main() -> int:
         ("flash_attention", "fwd",
          {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
           "client": cli["flash"][0], "gateway": gwy["flash"][0], **family_flash,
-          **family_train_flash[0]}),
+          **family_train_flash[0], LM_PATH: lm["flash"]["tinyllama-1.1b"]}),
         ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1],
                                         "client": cli["flash"][1], "gateway": gwy["flash"][1],
                                         **family_train_flash[1]}),
     ):
         r = fm[kind]
+        lm_shapes = {"at_lm_cells": at_lm_cells(("tinyllama-1.1b prefill_32k",))
+                     } if kind == "fwd" else {}
         line["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -6083,6 +6560,7 @@ def main() -> int:
                 label: r["bwd"] for label, r in (
                     ("deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)", ds7["flash"]),
                     ("qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)", qwen["flash"]))},
+            **lm_shapes,
         })
     # MLA's keys of 192 and values of 128 at the (3, 2) chunk instantiation,
     # timed on deepseek-v2's prefill shape beside the padded values of the
@@ -6123,7 +6601,7 @@ def main() -> int:
         ("flash_attention_dh256", "fwd",
          {"gemma3 prefill": gem["prefill_launches"],
           f"gemma3 train ({gtr['depth']} layers, 5 steps, remat full)": gtr["launches"][0],
-          "gemma3 6-layer check": gem["check_launches"]}),
+          "gemma3 6-layer check": gem["check_launches"], LM_PATH: lm["flash"]["gemma3-4b"]}),
         ("flash_attention_dh256_bwd", "bwd",
          {f"gemma3 train ({gtr['depth']} layers, 5 steps)": gtr["launches"][1]}),
     ):
@@ -6158,6 +6636,7 @@ def main() -> int:
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "wgmma_rows_dh256_G3": {k: w[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+            **({"at_lm_cells": at_lm_cells(("gemma3-4b prefill_32k",))} if kind == "fwd" else {}),
         })
     f32_main = flash["cases"][(FLASH_MAIN, "float32")]
     for name, kind, by_path in (
@@ -6335,7 +6814,16 @@ def main() -> int:
         name: {"mean_step_ms": r["mean_step_s"] * 1e3, "max_memory": r["max_memory"],
                **{k: v for k, v in r.items() if k.endswith("_per_s")}}
         for name, r in (("molecule", mol), ("ogb_products", ogb))}
+    dr["steps"].update({f"{r['arch']} {r['cell']} at the cut": r["dryrun"]
+                        for r in lm["rows"].values()})
     line["dryrun"] = dr
+    line["lm_cells"] = {label: {
+        "B": r["B"], "T": r["T"], "layers": r["layers"], "cuts": r["cuts"],
+        "step_ms": r["step_ms"], "median_ms": r["median_ms"], "tokens_per_s": r["tokens_per_s"],
+        "idle_share": r["profile"].get("idle_share"), "top_ops": r["profile"].get("top"),
+        "peak": r["dryrun"]["measured_peak"], "reckoned_peak": r["dryrun"]["reckoned_peak"],
+        **({"card_vs_cpu": {k: r["cpu_check"][k] for k in ("max_abs_err", "largest", "control")}}
+           if "cpu_check" in r else {})} for label, r in lm["rows"].items()}
     line["store_server"] = {**store["tier"], "restore": store["restore"]}
     line["client"] = {
         "policies": {k: v["rows"] for k, v in cli["evaluation"].items()},

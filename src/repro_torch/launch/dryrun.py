@@ -424,6 +424,50 @@ def largest_cut(arch: str, cell: ShapeCell, budget: int, step: int = 512,
     return scaled_cell(cell, n), rec
 
 
+def batch_cut(cell: ShapeCell, global_batch: int) -> ShapeCell:
+    """An LM cell at another ``global_batch``: its sequence length, and with
+    it ``cache_len``, stay the published ones."""
+    return ShapeCell(cell.name, cell.kind, {**cell.params, "global_batch": global_batch},
+                     cell.note)
+
+
+def largest_batch(arch: str, cell: ShapeCell, budget: int, step: int = 1,
+                  **kw) -> tuple[ShapeCell, dict]:
+    """The largest ``global_batch``, a multiple of ``step`` up to the
+    published one, whose dry-run peak lies under ``budget`` bytes: the cut
+    cell and its record."""
+    full = cell.params["global_batch"]
+    B, rec = largest_under(lambda b: run_cell(arch, batch_cut(cell, b), **kw),
+                           step, full // step * step, step, budget)
+    if rec is None:
+        raise RuntimeError(f"no batch of {arch} {cell.name} fits {budget} B")
+    return batch_cut(cell, B), rec
+
+
+def fit(arch: str, cell: ShapeCell, budget: int, **kw) -> tuple[ShapeCell, list[str], dict, dict]:
+    """The cut of an LM cell that one card holds under ``budget`` bytes: the
+    batch first, down to one row, then the depth.  Returns the cell, the
+    config overrides (``n_layers=L`` where the depth is cut), the cuts as
+    ``{"global_batch": [published, cut], "n_layers": [...]}`` (empty where the
+    whole cell fits) and the cut's record."""
+    rec = run_cell(arch, cell, **kw)
+    B = cell.params["global_batch"]
+    if rec["status"] != "ok" or rec["memory"]["peak_hbm_bytes"] < budget:
+        return cell, [], {}, rec
+    cuts = {}
+    if B > 1:
+        one = run_cell(arch, batch_cut(cell, 1), **kw)
+        if one["memory"]["peak_hbm_bytes"] < budget:
+            cut, rec = largest_batch(arch, cell, budget, **kw)
+            return cut, [], {"global_batch": [B, cut.params["global_batch"]]}, rec
+        cell, cuts = batch_cut(cell, 1), {"global_batch": [B, 1]}
+    full = rec["n_layers"]
+    L, rec = deepest(arch, cell, budget, **kw)
+    if rec is None:
+        raise RuntimeError(f"not one layer of {arch} {cell.name} fits {budget} B")
+    return cell, [f"n_layers={L}"], {**cuts, "n_layers": [full, L]}, rec
+
+
 def deepest(arch: str, cell: ShapeCell, budget: int, *, cfg_overrides: list[str] | None = None,
             **kw) -> tuple[int, dict | None]:
     """The most layers of ``arch`` whose dry-run peak lies under ``budget``
@@ -448,6 +492,9 @@ def main() -> None:
         help="config override key=value (python literal), repeatable",
     )
     ap.add_argument("--tag", default="", help="experiment tag")
+    ap.add_argument("--fit", type=float, default=None, metavar="BYTES",
+                    help="LM cells: print the largest batch (or depth, at B 1) whose "
+                         "reckoned peak lies under BYTES, e.g. 75e9")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -459,6 +506,21 @@ def main() -> None:
     for arch in archs:
         for cell in get_shapes(arch):
             if args.shape and cell.name != args.shape:
+                continue
+            if args.fit is not None and cell.kind in ("prefill", "decode", "train"):
+                _, _, cuts, rec = fit(arch, cell, int(args.fit), remat=args.remat,
+                                      cfg_overrides=args.cfg, smoke=args.smoke)
+                n_ok += rec["status"] == "ok"
+                n_fail += rec["status"] == "failed"
+                n_skip += rec["status"] == "skipped"
+                if rec["status"] != "ok":
+                    print(f"[{rec['status']}] {arch:18s} {cell.name:13s} "
+                          f"{rec.get('reason', rec.get('error'))}", flush=True)
+                    continue
+                said = ", ".join(f"{k} {c} of {f}" for k, (f, c) in cuts.items()) or "not cut"
+                print(f"[fit] {arch:18s} {cell.name:13s} {said}: reckoned peak "
+                      f"{rec['memory']['peak_hbm_bytes']} B under {int(args.fit)}, roofline "
+                      f"{rec['roofline']['step_time_s'] * 1e3:.3f} ms", flush=True)
                 continue
             rec = run_cell(arch, cell, remat=args.remat, grad_accum=args.grad_accum,
                            cfg_overrides=args.cfg, tag=args.tag, smoke=args.smoke)

@@ -289,3 +289,47 @@ def test_long_500k_is_skipped_for_full_attention_archs():
     cell = next(c for c in get_shapes("tinyllama-1.1b") if c.name == "long_500k")
     rec = dryrun.run_cell("tinyllama-1.1b", cell)
     assert rec["status"] == "skipped"
+
+
+@pytest.mark.parametrize("kind,step", [("decode", 1), ("decode", 4), ("prefill", 1)])
+def test_largest_batch_of_an_lm_cell(kind, step):
+    """The largest batch (a multiple of ``step``) whose reckoned peak lies
+    under the budget; the next step up is over it; S stays."""
+    cell = ShapeCell("c", kind, {"seq_len": 256, "global_batch": 64})
+    at = lambda B: dryrun.run_cell("tinyllama-1.1b", dryrun.batch_cut(cell, B),  # noqa: E731
+                                   smoke=True)["memory"]["peak_hbm_bytes"]
+    budget = at(20) + 1
+    cut, rec = dryrun.largest_batch("tinyllama-1.1b", cell, budget, step=step, smoke=True)
+    B = cut.params["global_batch"]
+    assert B % step == 0 and cut.params["seq_len"] == 256 and cut.name == cell.name
+    assert rec["memory"]["peak_hbm_bytes"] < budget <= at(B + step)
+    assert B == 20 // step * step
+
+
+def test_fit_cuts_the_batch_then_the_depth():
+    cell = ShapeCell("c", "decode", {"seq_len": 512, "global_batch": 8})
+    peak = lambda c, L=None: dryrun.run_cell(  # noqa: E731
+        "gemma3-4b", c, smoke=True, cfg_overrides=[f"n_layers={L}"] if L else []
+    )["memory"]["peak_hbm_bytes"]
+    full = peak(cell)
+    assert dryrun.fit("gemma3-4b", cell, full + 1, smoke=True)[:3] == (cell, [], {})
+    budget = peak(dryrun.batch_cut(cell, 5)) + 1
+    cut, over, cuts, rec = dryrun.fit("gemma3-4b", cell, budget, smoke=True)
+    assert (cut.params["global_batch"], over, cuts) == (5, [], {"global_batch": [8, 5]})
+    one = dryrun.batch_cut(cell, 1)
+    budget = peak(one, 2) + 1  # one row does not fit at the smoke depth of 3, two layers do
+    cut, over, cuts, rec = dryrun.fit("gemma3-4b", cell, budget, smoke=True)
+    assert (cut, over) == (one, ["n_layers=2"])
+    assert cuts == {"global_batch": [8, 1], "n_layers": [3, 2]}
+    assert rec["memory"]["peak_hbm_bytes"] < budget
+
+
+def test_dryrun_cli_prints_the_fit(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b",
+         "--smoke", "--shape", "decode_32k", "--fit", "1e12", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "[fit] tinyllama-1.1b" in out.stdout and "not cut" in out.stdout

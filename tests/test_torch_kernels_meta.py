@@ -265,3 +265,66 @@ def test_run_cell_outputs_equal_a_cpu_run(arch, cell, remat, kernels):
     make_state, step = dryrun.build_step(cfg, cell, remat=remat)
     out = step(make_state(params), make_batch(cfg, cell, seed=0, device="cpu"))
     assert rec["outputs"] == dryrun.output_shapes(out)
+
+
+def _alloc(nbytes: int) -> int:
+    return -(-nbytes // dryrun.ALLOC_BYTES) * dryrun.ALLOC_BYTES
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,dh,window,plan", [
+    (98, 32_768, 32, 4, 64, None, (128, 4096, 8)),  # TinyLlama decode_32k at its cut
+    (1, 524_288, 8, 4, 256, 1024, (32, 65_536, 8)),  # gemma3-4b long_500k, a local layer
+    (1, 524_288, 8, 4, 256, None, (32, 65_536, 8)),  # and a global one
+], ids=["decode_32k-dh64", "long_500k-local", "long_500k-global"])
+def test_fused_decode_at_the_lm_cells_on_meta(B, T, Hq, Hkv, dh, window, plan):
+    """The fused decode at the serve cells' T on meta: the card path's
+    allocation (its output alone: the splits combine in the cluster), the
+    plan from the static T (at most 8 splits, one cluster a row and KV
+    head), every cache key counted, no launch."""
+    bf16 = torch.bfloat16
+    assert decode_ops.variant(1, Hq // Hkv, dh, bf16) == "fused"
+    assert decode_ops.plan_fused(T, dh, bf16) == plan
+    before = _launch_counts()
+    rk = dryrun.Reckoner()
+    with rk, meta.counting() as counts:
+        q = torch.empty(B, 1, Hq, dh, dtype=bf16, device=M)
+        k_new, v_new = (torch.empty(B, 1, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
+        k, v = (torch.empty(B, T, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
+        q_start = torch.empty(B, dtype=torch.int32, device=M)
+        base = rk.live
+        out = decode_ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start, window=window)
+    assert out.shape == q.shape and out.dtype == bf16 and out.device.type == "meta"
+    assert rk.peak - base == _alloc(out.numel() * 2)
+    assert counts.calls == {"decode_attention_fused": 1} and _launch_counts() == before
+    assert counts.flops["decode_attention_fused"] == 4 * B * T * Hq * dh
+    assert counts.bytes["decode_attention_fused"] >= 2 * B * T * Hkv * dh * 2
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,dh,window", [
+    (10, 32, 4, 64, None),  # TinyLlama prefill_32k at its cut
+    (1, 8, 4, 256, 1024),  # gemma3-4b, a local layer
+    (1, 8, 4, 256, None),  # and a global one
+], ids=["tinyllama", "gemma3-local", "gemma3-global"])
+def test_flash_forward_at_prefill_32k_on_meta(B, Hq, Hkv, dh, window):
+    """The flash forward at S 32,768 on meta: the card path's allocations
+    (the output and the fp32 logsumexp; the wgmma forward takes no
+    scratch), the row grid inside the kernel's 65,535, the FLOPs of the
+    pairs the mask keeps, no launch."""
+    S, bf16 = 32_768, torch.bfloat16
+    G = Hq // Hkv
+    assert flash_ops.variant(bf16, dh, G) == "wgmma"
+    wg = flash_ops.VARIANTS.index("wgmma")
+    assert flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, False) == 0
+    assert -(-(S * G) // 64) <= 65_535
+    before = _launch_counts()
+    rk = dryrun.Reckoner()
+    with rk, meta.counting() as counts:
+        q = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
+        k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
+        base = rk.live
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    assert out.shape == q.shape and lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    assert rk.peak - base == _alloc(out.numel() * 2) + _alloc(lse.numel() * 4)
+    assert counts.calls == {"flash_attention_fwd": 1} and _launch_counts() == before
+    pairs = flash_ops.unmasked_pairs(S, S, True, window)
+    assert counts.flops["flash_attention_fwd"] == 4 * B * Hq * dh * pairs
