@@ -5,13 +5,17 @@
 
 In order it: prints the card's name and power limit; builds every CUDA
 kernel of the port from the sources in this checkout (one nvcc per source,
-all at once); prints ptxas's report of every decode kernel (a chunk kernel
-that spills fails the run); holds the decode-attention kernels against
+all at once); prints ptxas's report of every decode kernel (a chunk or bf16 fused
+kernel that spills fails the run); holds the decode-attention kernels against
 their plain torch versions on the card at TinyLlama-1.1B's attention
 shapes (and gemma3 and smoke shapes), with the kernels', the plain
 versions' and a library call's times: the split variant at every shape,
 then at every shape the variant that writes the new K/V rows and attends
-(fused at one query row per sequence, splits combined in a cluster; chunk
+(fused at one query row per sequence: the grid from ``plan_fused``, each
+block's keys cut from the live length on the card, splits combined in a
+cluster and past it through a workspace, bf16 on ``mma.sync``, and at T
+65,536 and 131,072 too, then one captured call replayed while the length
+crosses split boundaries, bit for bit against eager calls; chunk
 at the bf16 chunk shapes up to dh 256, ``wgmma``, each beside the split
 variant's route at the same shape and a sweep of cluster sizes; split,
 after two index writes, for fp32 and dh 8), with written caches and
@@ -235,6 +239,7 @@ check exits non-zero.  The last line is a JSON object naming the device.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -330,7 +335,21 @@ KERNEL_CASES = [
     ("gemma3 long chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [1536], 1024),
     ("gemma3 global decode", 1, 1, GEMMA_SERVE_LEN, 8, 4, 256, [1600], None),
     ("gemma3 global chunk", 1, 64, GEMMA_SERVE_LEN, 8, 4, 256, [1536], None),
+    # the fused plans past one cluster of splits (T 65,536 and 131,072, B 1,
+    # at TinyLlama's and gemma3-4b's heads): one visible key (q_start 0, and
+    # 1: most splits empty), and B 4 with lengths 10 / T/2 / T-1 / 3
+    ("long T65536 q0", 1, 1, 65536, 32, 4, 64, [0], None),
+    ("long T65536 q1", 1, 1, 65536, 32, 4, 64, [1], None),
+    ("long T65536 B4", 4, 1, 65536, 32, 4, 64, [10, 32768, 65535, 3], None),
+    ("long T131072 q0", 1, 1, 131072, 8, 4, 256, [0], None),
+    ("long T131072 q1", 1, 1, 131072, 8, 4, 256, [1], None),
+    ("long T131072 B4", 4, 1, 131072, 8, 4, 256, [10, 65536, 131071, 3], None),
 ]
+LONG_FUSED = tuple(c[0] for c in KERNEL_CASES if c[0].startswith("long T"))
+# the fused variant's short-T queued_ms under its earlier design (one
+# cluster of splits from the static T, CUDA-core products, two tiles in the
+# ring), measured by this script on an H100 80GB HBM3 at 700 W
+SHORT_FUSED_BEFORE = {"decode B1": 0.0152, "decode B4": 0.0215, "gemma3 decode": 0.0388}
 MAIN_CASE = "decode B1"  # the shape of every decode step on the main path
 # the engine's prefill_chunk call (chunk 64 at q_start 512 over max_len 1024):
 # the chunk variant's shape on the main path
@@ -404,21 +423,22 @@ def library_call(q, k, v, q_start, window):
 
 def print_decode_ptxas() -> None:
     """ptxas's registers and spills for every decode-attention kernel as
-    built; a chunk kernel (``decode_attention_chunk_kernelILi<DC>E``, DC 1
-    to 4) that spills fails the run, and so does a missing instantiation."""
+    built; a chunk or bf16 fused kernel (``decode_attention_chunk_kernelILi<DC>E``,
+    ``decode_attention_fused_mma_kernelILi<DC>E``, DC 1 to 4) that spills
+    fails the run, and so does a missing instantiation."""
     from repro_torch.kernels import build
 
-    chunk_dcs = set()
+    dcs = {"chunk": set(), "fused_mma": set()}
     for row in build.ptxas_report("decode_attention"):
         name = row["kernel"]
         print(f"ptxas {name}: registers {row['registers']} spill stores "
               f"{row['spill_stores']} B loads {row['spill_loads']} B")
-        m = re.search(r"decode_attention_chunk_kernelILi(\d)E", name)
+        m = re.search(r"decode_attention_(chunk|fused_mma)_kernelILi(\d)E", name)
         if m:
-            chunk_dcs.add(int(m.group(1)))
+            dcs[m.group(1)].add(int(m.group(2)))
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"ptxas: {name} spills {row['spill_stores']} B")
-    check(chunk_dcs == {1, 2, 3, 4}, f"ptxas: chunk kernels at DC {sorted(chunk_dcs)}")
+    check(all(d == {1, 2, 3, 4} for d in dcs.values()), f"ptxas: kernels at DC {dcs}")
 
 
 def phase_kernels(dev) -> dict:
@@ -457,9 +477,93 @@ def phase_kernels(dev) -> dict:
             print(f"kernel time  {label:18s} {tname:8s} ms {ms:.6f} device_ms {dev_ms:.6f} "
                   f"device_span_ms {span_ms:.6f} queued_ms {q_ms:.6f} "
                   f"plain_ms {plain_ms:.6f} library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
-            written[(label, tname)] = written_case(ops, ops.variant(S, Hq // Hkv, dh, dtype),
-                                                   case, q, k, v, q_start, gen, dtype, lib_ms)
-    return {"cases": results, "written": written}
+            # the long cases: queries at LM_KEY_SPREAD (a power of two, so
+            # exact in bf16), scores spread so the softmax picks a few of the
+            # live keys, held against fp32 with planted controls
+            long_case = label in LONG_FUSED
+            written[(label, tname)] = written_case(
+                ops, ops.variant(S, Hq // Hkv, dh, dtype), case,
+                q * LM_KEY_SPREAD if long_case else q, k, v, q_start, gen, dtype, lib_ms,
+                controls=long_case)
+            del q, k, v
+    torch.cuda.empty_cache()
+    short = {label: written[(label, "bfloat16")]["queued_ms"] for label in SHORT_FUSED_BEFORE}
+    print("kernel fused short T against the earlier design: " + "; ".join(
+        f"{label} {ms:.6f} ms ({ms / SHORT_FUSED_BEFORE[label]:.3f} times "
+        f"{SHORT_FUSED_BEFORE[label]})" for label, ms in short.items()))
+    return {"cases": results, "written": written, "short": short,
+            "occupancy": fused_occupancy(ops), "graph": fused_graph_check(ops, dev)}
+
+
+def fused_occupancy(ops) -> dict:
+    """The bf16 fused kernel's blocks an SM holds, as the device reckons them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), against what
+    ``plan_fused`` plans with (``fused_blocks_per_sm``): equal, or the grid
+    is not the one wave the plan means."""
+    from repro_torch.kernels import build
+
+    ops._kernel("fused")  # the init sets the kernels' shared-memory limits
+    fn = build.load("decode_attention").decode_attention_fused_blocks_per_sm
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    got = {dh: (fn(dh), ops.fused_blocks_per_sm(dh, torch.bfloat16)) for dh in (64, 128, 192, 256)}
+    print("kernel fused blocks an SM holds (device, plan) by dh: "
+          + ", ".join(f"{dh}: {d}, {p}" for dh, (d, p) in got.items()))
+    check(all(d == p for d, p in got.values()), f"fused occupancy differs from the plan: {got}")
+    return {dh: d for dh, (d, _) in got.items()}
+
+
+def fused_graph_check(ops, dev) -> dict:
+    """One fused call (B 1, T 131,072, gemma3-4b's heads, bf16: 64 splits
+    in 8 clusters) captured once in a CUDA graph and replayed while q_start
+    moves so the live keys cross tile and split boundaries (one key, as
+    many tiles as splits and one either side, sixteen tiles a split, half
+    and all of T): each replay's output and caches equal bit for bit to an
+    eager call's on the same inputs, and the fused kernel counted once a
+    replay.  The graph's kernels are read at capture (``captured_by_variant``,
+    as ``ServeEngine`` reads them), the eager calls' from their launches."""
+    B, T, Hq, Hkv, dh = 1, 131072, 8, 4, 256
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tk, n_splits, cluster = ops.plan_fused(B, Hkv, T, dh, torch.bfloat16, n_sm)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k_new, v_new = (torch.randn(B, 1, h, dh, generator=gen, device=dev).to(torch.bfloat16)
+                       for h in (Hq, Hkv, Hkv))
+    k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    q_start = torch.zeros(B, dtype=torch.int32, device=dev)
+    ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    captured = dict(ops.decode_attention.captured_by_variant)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)
+    in_graph = {v_: n - captured[v_] for v_, n in ops.decode_attention.captured_by_variant.items()}
+    lengths = [0, 1, tk - 1, tk, (n_splits - 1) * tk, n_splits * tk - 1, n_splits * tk,
+               (n_splits + 1) * tk + 5, 16 * n_splits * tk + 3, T // 2, T - 1]
+    equal, eager_n = [], {v_: 0 for v_ in ops.decode_attention.launches_by_variant}
+    for qs in lengths:
+        q_start.fill_(qs)
+        graph.replay()
+        replayed = out.clone()
+        k_rep, v_rep = k.clone(), v.clone()
+        before = dict(ops.decode_attention.launches_by_variant)
+        eager = ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start)
+        torch.cuda.synchronize()
+        for v_, n in ops.decode_attention.launches_by_variant.items():
+            eager_n[v_] += n - before[v_]
+        equal.append(torch.equal(replayed, eager) and torch.equal(k_rep, k)
+                     and torch.equal(v_rep, v) and bool(torch.isfinite(eager).all()))
+    print(f"kernel fused graph: B {B} T {T} Hq {Hq} Hkv {Hkv} dh {dh} bf16, plan "
+          f"{(tk, n_splits, cluster)}; one capture replayed at q_start {lengths}: equal to "
+          f"the eager call {equal}; kernels in the graph {in_graph}, in the eager calls "
+          f"{eager_n}")
+    check(all(equal), f"fused graph replays differ from eager calls: {dict(zip(lengths, equal))}")
+    check(in_graph == {"split": 0, "fused": ops.KERNELS_PER_CALL["fused"], "chunk": 0},
+          f"fused graph: kernels captured {in_graph}")
+    check(eager_n == {"split": 0, "fused": len(lengths) * ops.KERNELS_PER_CALL["fused"],
+                      "chunk": 0}, f"fused graph: eager kernels {eager_n}")
+    del graph, q, k_new, v_new, k, v, out
+    torch.cuda.empty_cache()
+    return {"lengths": lengths, "equal": equal, "plan": [tk, n_splits, cluster]}
 
 
 def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms, new=None,
@@ -505,7 +609,8 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms, new=None,
         ref, bound = want, tol
     err = (runs[0].float() - ref.float()).abs().max().item()
     print(f"kernel check {label:18s} {tname:8s} {var} max_abs_err {err:.3e} tol {tol:.0e}"
-          + (f" of the largest |out| {largest:.4e}: bound {bound:.4e}" if controls else "")
+          + (f" of the largest |out| {largest:.4e}: bound {bound:.4e} (err {err / bound:.4f} "
+             f"of it)" if controls else "")
           + f" caches bit-equal reruns bit-equal {torch.equal(runs[0], runs[1])}")
     check(math.isfinite(err) and err <= bound,
           f"{var} decode_attention {label} {tname}: max_abs_err {err} > {bound}")
@@ -531,6 +636,9 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms, new=None,
           f"library_ms {lib_ms:.6f} bound_ms {bms:.6f} ({by})")
     res = dict(ms=ms, device_ms=dev_ms, span_ms=span_ms, queued_ms=q_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+    if var == "fused":  # cold: each call after a read that evicts the L2
+        res["flushed_ms"] = flushed_ms(call)
+        print(f"kernel cold  {label:18s} {tname:8s} {var} l2_flushed_ms {res['flushed_ms']:.6f}")
     if controls:
         res.update(largest=largest, held_to=bound, controls=planted)
     if var == "chunk":  # the cluster sizes beside the plan's choice (outputs checked too)
@@ -568,26 +676,59 @@ def written_case(ops, var, case, q, k, v, q_start, gen, dtype, lib_ms, new=None,
     return res
 
 
+def first_split_keys(ops, B, Hkv, T, dh, dtype, qs_list, window, dev) -> tuple[list, int]:
+    """The keys (lo, hi) of the fused plan's first split of each sequence's
+    live range (``fused_partition``, as the kernel cuts them on the card),
+    and the plan's splits; with one split a head (nothing past it to drop),
+    its first tile.  A planted control zeroes the keys past them."""
+    tk, n, _ = ops.plan_fused(B, Hkv, T, dh, dtype,
+                              torch.cuda.get_device_properties(dev).multi_processor_count, window)
+    firsts = [ops.fused_partition(qs, T, window, n, tk)[0] for qs in qs_list]
+    if n == 1:
+        firsts = [(lo, min(hi, lo + tk - 1)) for lo, hi in firsts]
+    return firsts, n
+
+
 def planted_controls(ops, case, q, k, v, q_start, ref, bound) -> dict:
     """Two wrong outputs that ``written_case``'s check must refuse, so that
     it is shown to see a fault at this shape: zeros, and the plain version
-    (fp32) over copies of the written caches ``k``, ``v`` whose rows past
-    the fused plan's first split are zeroed, as a kernel that dropped every
-    split but the first would read them (in a windowed layer the window's
-    keys go too).  Each one's max abs error against ``ref`` must lie above
-    ``bound``."""
+    (fp32) over copies of the written caches ``k``, ``v`` whose keys past
+    the fused plan's first split of each sequence's live range are zeroed
+    (``first_split_keys``), as a kernel that dropped every split but the
+    first would read them, in the sequences that have keys both in that
+    split and past it.  Where no sequence has keys both in that split
+    and past it (fewer live tiles than splits leave the first split empty,
+    and dropping the rest is the zeros control again), the second is the
+    plain version with one key past each sequence's live range seen, as a
+    kernel whose mask let one more key through would read it.  Each one's
+    max abs error against ``ref`` must lie above ``bound``."""
     label, B, S, T, Hq, Hkv, dh, qs_list, window = case
-    _, split, n = ops.plan_fused(T, dh, k.dtype)
-    k0, v0 = k.float(), v.float()
-    k0[:, split:], v0[:, split:] = 0, 0
-    planted = {"zeros": torch.zeros_like(ref),
-               "later splits dropped": ops.decode_attention_plain(q.float(), k0, v0, q_start,
-                                                                  window=window)}
-    del k0, v0
+    kept, n = first_split_keys(ops, B, Hkv, T, dh, k.dtype, qs_list, window, k.device)
+    # the sequences with keys both in the first split and past it: only
+    # theirs are zeroed, so the control's error lies in them alone
+    cut = [lo <= hi < min(T - 1, qs + S - 1) for (lo, hi), qs in zip(kept, qs_list)]
+    if any(cut):
+        k0, v0 = k.float(), v.float()
+        for b, (_, hi) in enumerate(kept):
+            if cut[b]:
+                k0[b, hi + 1:], v0[b, hi + 1:] = 0, 0
+        second = "later splits dropped"
+        wrong = ops.decode_attention_plain(q.float(), k0, v0, q_start, window=window)
+        what = (f"rows past the first of {n} splits zeroed in sequences "
+                f"{[b for b in range(B) if cut[b]]} (keys {kept} kept)")
+        del k0, v0
+    else:
+        check(all(qs + S < T for qs in qs_list), f"{label}: no key past the live range to plant")
+        second = "one key more"
+        wrong = ops.decode_attention_plain(q.float(), k.float(), v.float(), q_start + 1,
+                                           window=window)
+        what = (f"no keys both in and past the first of {n} splits ({kept}); one key past "
+                f"each live range seen")
+    planted = {"zeros": torch.zeros_like(ref), second: wrong}
     errs = {name: (p - ref).abs().max().item() for name, p in planted.items()}
     print(f"kernel check {label:18s} planted controls (each must exceed the bound {bound:.4e}): "
-          f"zeros max_abs_err {errs['zeros']:.4e}; rows past the first of {n} splits "
-          f"({split} keys) zeroed {errs['later splits dropped']:.4e}")
+          f"zeros max_abs_err {errs['zeros']:.4e} ({errs['zeros'] / bound:.2f} times the "
+          f"bound); {what}: {errs[second]:.4e} ({errs[second] / bound:.2f} times)")
     check(all(e > bound for e in errs.values()),
           f"{label}: a planted control passes the check: {errs}, bound {bound}")
     return errs
@@ -1062,11 +1203,16 @@ def phase_profile(engine, prompt, max_new: int) -> dict:
     def request():
         _, stats["st"] = engine.generate(prompt, max_new_tokens=max_new)
 
+    # the prefix matches the fused kernel's bf16 and fp32 instances
     prof = profile_call("request", request, n_kernels=8,
-                        watch=("decode_attention_chunk_kernel", "decode_attention_fused_kernel"))
+                        watch=("decode_attention_chunk_kernel", "decode_attention_fused"))
     st = stats["st"]
     print(f"profile request: chunks_skipped {st.chunks_skipped}/{st.n_chunks} "
           f"new_tokens {st.n_new_tokens}")
+    if prof:  # the request's decode steps went through the fused kernel
+        fused = prof["watch"]["decode_attention_fused"]["kernels"]
+        check(fused > 0, f"profile request: no fused decode kernel among the device's "
+                         f"kernels ({st.n_new_tokens} new tokens)")
     return prof
 
 
@@ -2130,8 +2276,9 @@ def phase_gemma3_serve(dev) -> dict:
     print(f"gemma3 serve: {cfg.name} full width and depth, bf16, max_len {GEMMA_SERVE_LEN} "
           f"chunk 64; chunk calls on {chunk_var} (plan_chunk: clusters of {cluster} blocks, "
           f"{-(-64 * G // ops.CHUNK_ROWS) * cfg.n_kv_heads} row tiles, at {n_sm} SMs), decode "
-          f"steps on {step_var} (plan_fused "
-          f"{ops.plan_fused(GEMMA_SERVE_LEN, cfg.head_dim, cfg.dtype)})")
+          f"steps on {step_var} (plan_fused at a local and a global layer "
+          + ", ".join(str(ops.plan_fused(1, cfg.n_kv_heads, GEMMA_SERVE_LEN, cfg.head_dim,
+                                         cfg.dtype, n_sm, w)) for w in (1024, None)) + ")")
     prompts = gemma3_prompts(cfg.vocab)
     run = serve_engine(dev, cfg, params, prompts, ENGINE_NEW, "gemma3-4b", "gemma3-4b req",
                        max_len=GEMMA_SERVE_LEN, profile_chunk_at=GEMMA_LONG - 64)
@@ -6080,6 +6227,7 @@ def lm_decode_check(dev, cfg, k_layer, v_layer, cache_len, window, label: str) -
     from repro_torch.kernels.decode_attention import ops as dops
 
     B, T, Hkv, dh = k_layer.shape
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     Hq, bf16 = cfg.n_heads, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(8)
     q = (torch.randn(B, 1, Hq, dh, generator=gen, device=dev)
@@ -6089,7 +6237,8 @@ def lm_decode_check(dev, cfg, k_layer, v_layer, cache_len, window, label: str) -
     case = (label, B, 1, T, Hq, Hkv, dh, cache_len.tolist(), window)
     lib = queued_ms(lambda: library_call(q, k_layer, v_layer, cache_len, window))
     print(f"{label}: decode at B {B} T {T} Hq {Hq} Hkv {Hkv} dh {dh} window {window} q_start "
-          f"{case[7][0]}, plan_fused {dops.plan_fused(T, dh, bf16)}")
+          f"{case[7][0]}, plan_fused "
+          f"{dops.plan_fused(B, Hkv, T, dh, bf16, n_sm, window)}")
     r = written_case(dops, "fused", case, q, k_layer, v_layer, cache_len, gen, bf16, lib,
                      new=new, controls=True)
     return {**r, "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "dh": dh,
@@ -6106,7 +6255,8 @@ def lm_decode_cpu_check(dev, cfg_full, cell, label: str) -> dict:
     unit scale: the queries have unit scale, so the scores spread by
     LM_KEY_SPREAD and the attention, not the residual, sets the logits.  A
     planted control must fail the same check: the card's step over a copy
-    of the cache whose rows past the fused plan's first split are zeroed."""
+    of the cache whose keys past the fused plan's first split of each
+    sequence's live range (a global layer's plan) are zeroed."""
     from repro_torch.data import make_batch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.launch.dryrun import batch_cut
@@ -6125,10 +6275,13 @@ def lm_decode_cpu_check(dev, cfg_full, cell, label: str) -> dict:
     tokens, cache_len = batch["tokens"].cpu(), batch["cache_len"].cpu()
     step = build_serve_step(cfg, cell)
     T = cell.params["seq_len"]
-    _, split, n_splits = dops.plan_fused(T, cfg.head_dim, cfg.dtype)
+    kept, n_splits = first_split_keys(dops, LM_CHECK_BATCH, cfg.n_kv_heads, T, cfg.head_dim,
+                                      cfg.dtype, batch["cache_len"].tolist(), None, dev)
+    split = f"keys {kept} kept"
     planted = {name: c.clone() for name, c in batch["cache"].items()}
     for c in planted.values():
-        c[:, :, split:] = 0
+        for b, (_, hi) in enumerate(kept):
+            c[:, b, hi + 1:] = 0
     dops.reset_launches()
     card = step(params, batch["tokens"], batch["cache"], batch["cache_len"])[0].float().cpu()
     launches = dict(dops.decode_attention.launches_by_variant)
@@ -6147,7 +6300,7 @@ def lm_decode_cpu_check(dev, cfg_full, cell, label: str) -> dict:
           f"at 1: card bf16 logits against the CPU port in fp32 ({cpu_s:.1f} s on the CPU): "
           f"max_abs_err {err:.4e} largest {largest:.4e} tol {LM_CHECK_TOL:.0e} of the largest "
           f"({LM_CHECK_TOL * largest:.4e}); planted control (the card's step with the rows past "
-          f"the first of {n_splits} splits, {split} keys, zeroed; must exceed it) {control:.4e}; "
+          f"the first of {n_splits} splits zeroed, {split}; must exceed it) {control:.4e}; "
           f"decode kernels {launches}")
     check(launches == {"split": 0, "fused": LM_CHECK_LAYERS, "chunk": 0},
           f"{label} step card vs CPU: decode kernels {launches}")
@@ -6233,7 +6386,8 @@ def lm_cell(dev, arch: str, name: str) -> dict:
             times.append(start.elapsed_time(end))
             finite.append(torch.isfinite(logits).all())
             del logits
-        prof = profile_call(label, one, n_kernels=3)
+        prof = profile_call(label, one, n_kernels=3,
+                            watch=("decode_attention_fused",) if decode else ())
     max_mem = torch.cuda.max_memory_allocated(dev)
     n_steps = LM_CELL_STEPS + 2
     decode_launches = dict(dops.decode_attention.launches_by_variant)
@@ -6423,7 +6577,7 @@ def main() -> int:
     def at_lm_cells(cell: tuple[str, ...]) -> dict:
         return {f"{label} {layer}": {"shape": r["shape"], **{k: r[k] for k in lm_keys},
                                      **{k: r[k] for k in ("plain_last_block_ms", "largest",
-                                                          "controls") if k in r}}
+                                                          "controls", "flushed_ms") if k in r}}
                 for label, row in lm["rows"].items() if row["cell"] in cell or label in cell
                 for layer, r in row["kernels"].items()}
 
@@ -6483,7 +6637,15 @@ def main() -> int:
         gemma_served = {label: {k: kern["written"][(label, "bfloat16")][k] for k in timed_keys}
                         for label in GEMMA_SERVED.get(var, ())}
         if var == "fused":
+            entry["l2_flushed_ms"] = r["flushed_ms"]
             entry["at_lm_cells"] = at_lm_cells(("decode_32k", "long_500k"))
+            entry["at_long_t"] = {f"{label} {tname}": {k: kern["written"][(label, tname)][k]
+                                                       for k in (*timed_keys, "flushed_ms")}
+                                  for label in LONG_FUSED for tname in ("float32", "bfloat16")}
+            entry["short_t_against_earlier"] = {
+                label: [ms, SHORT_FUSED_BEFORE[label]] for label, ms in kern["short"].items()}
+            entry["blocks_per_sm"] = kern["occupancy"]
+            entry["graph_replays_equal_eager"] = kern["graph"]
             entry["at_gemma3_decode"] = {
                 k: kern["written"][(GEMMA_DECODE, "bfloat16")][k] for k in timed_keys}
             entry["at_gemma3_served"] = gemma_served
@@ -6821,6 +6983,8 @@ def main() -> int:
         "B": r["B"], "T": r["T"], "layers": r["layers"], "cuts": r["cuts"],
         "step_ms": r["step_ms"], "median_ms": r["median_ms"], "tokens_per_s": r["tokens_per_s"],
         "idle_share": r["profile"].get("idle_share"), "top_ops": r["profile"].get("top"),
+        "fused_busy_share": r["profile"].get("watch", {}).get(
+            "decode_attention_fused", {}).get("busy_share"),
         "peak": r["dryrun"]["measured_peak"], "reckoned_peak": r["dryrun"]["reckoned_peak"],
         **({"card_vs_cpu": {k: r["cpu_check"][k] for k in ("max_abs_err", "largest", "control")}}
            if "cpu_check" in r else {})} for label, r in lm["rows"].items()}

@@ -44,52 +44,61 @@
 //
 // ---------------------------------------------------------------------------
 // Fused variant (decode_attention_fused_launch): one query row per sequence
-// (S = 1, decode_step) and G <= 16 rows per KV head.  At decode the split
-// variant's time is all fixed cost: two launches, a round trip of the
-// partials through device memory, scalar loads with an integer division per
-// element, serial FMA chains, and two more launches before it for the cache
-// inserts.  This variant is one launch that does all of it:
-//  * Grid (n_splits, B*Hkv), a cluster of the n_splits <= 8 blocks of one
-//    (b, KV head) along x; n_splits comes from the static T (plan_fused), so
-//    q_start stays on the device and the launch can be captured in a CUDA
-//    graph.
-//  * The block whose split holds position q_start[b] writes k_new/v_new into
-//    the cache there, and puts the same 16-byte chunks in its shared tile in
-//    place of the cache row, so the cache is never read back.
-//  * K/V tiles of tk keys (a power of two from 16 to 128 and 16 KB of K at
-//    most: 128 keys at dh 64 in bf16, one tile a split at TinyLlama's decode;
-//    a kernel built for 128-key tiles and one that reads tk at run time)
-//    come in through 16-byte cp.async
-//    copies in their own dtype, double-buffered: the next tile's copies fly
-//    while this tile is scored.  Only rows of visible keys are copied.
-//  * Scores: 128 threads a block, 128/tk per key, each over interleaved
-//    16-byte chunks of the row (the K tile's row stride is padded so that a
-//    quarter-warp's chunks fall in distinct banks), all query rows from fp32
-//    shared memory (G padded with zero rows to GMAX, so no row loop
-//    branches); 32/(128/tk) keys per warp in flight.  Per-row maxima are
-//    reduced across warps in shared memory, the online softmax (m, l) runs
-//    in fp32.
-//  * P·V: each thread owns pairs of output elements and walks the whole
-//    tile, eight keys in flight (rows that are not visible are zero-filled
-//    and have probability 0, so the loop has a fixed count); V pairs are
-//    read as one 4- or 8-byte access.
-//  * Combine: each block leaves (m, l, acc) in its own shared memory; after a
-//    cluster barrier every rank takes 1/n_splits of the head's outputs and
-//    reads all ranks' partials for them through distributed shared memory,
-//    every load in flight at once, summed in split order (reruns are equal
-//    bit for bit), and writes out in q's dtype; a second cluster barrier
-//    keeps every rank's shared memory alive until all have read it.  A block
-//    with no visible key leaves an empty partial (m = -inf, l = 0) and still
-//    reaches both barriers.
-//  * No scratch in device memory; the shared-memory limit is set once, at
-//    load (decode_attention_fused_init).
-//  * Every loop over chunks, rows or keys runs a fixed count with a
-//    predicate.  An earlier form, with loops bounded by the visible range,
-//    gave wrong sums and staged rows past the tile in the G <= 4 kernels on
-//    the card, and was right when built with -Xptxas -O0.  Whether that was a
-//    fault of nvcc 12.9 at -O3 or undefined behaviour in that form is not
-//    known: no reduced reproducer or SASS comparison was kept.
-//  * Positions at or past T write nothing (the engine refuses such requests).
+// (S = 1, decode_step) and G <= 16 rows per KV head, one launch that writes
+// the step's K/V row and attends.  Designed for caches of 1,024 to 524,288
+// keys: at the serve cells (decode_32k, long_500k) a layer reads its whole
+// live cache, so the time is the live K/V over the memory rate if enough
+// bytes are in flight on every SM; at the engine's caches it is the chain
+// of dependent steps in one block.
+//  * The plan (ops.plan_fused) fixes only the grid, from static shapes:
+//    (n_splits, B*Hkv) blocks, as many splits as fill every SM's blocks once
+//    (one block a KV head at TinyLlama's B 98; 66 at long_500k's B 1), none
+//    past the keys a row can see, in clusters of at most 8 (of 2 past one
+//    cluster where an SM holds two blocks).  q_start stays
+//    on the device, so a CUDA graph replays the launch as the cache grows.
+//  * Each block reads q_start[b] and cuts its share of the visible keys
+//    (window included) itself: the keys in tiles from the first visible one,
+//    the tiles shared out evenly and in order (fused_split_range; Python's
+//    ops.fused_partition).  No block is empty while there are as many live
+//    tiles as splits.  A block with no key leaves an empty partial.
+//  * The block that holds q_start writes k_new/v_new into the cache there
+//    and puts the same 16-byte chunks in its tile in place of the cache row,
+//    so the cache is never read back.  Positions at or past T write nothing.
+//  * K/V tiles come in through 16-byte cp.async copies, in a ring of three:
+//    two tiles in flight while one is used, one block barrier a tile.  Rows
+//    past the split are not read (their V rows zeros).
+//  * bf16: products on the tensor cores, mma.sync m16n8k16 with fp32 sums.
+//    The G query rows are one m16 tile (rows past G zeros), its A fragments
+//    loaded from device memory once.  Each of the four warps owns 16 keys of
+//    every tile (64-key tiles up to dh 128; at dh 136-256 32-key tiles, two
+//    warps along the keys and two along O's columns, each forming the same
+//    S): K and V come by ldmatrix from rows padded by 16 bytes (no bank
+//    conflict), S = Q.K^T and the online softmax in registers, then P in
+//    bf16 (the reference's cast of the probabilities) as the A fragment of
+//    O += P.V, as the chunk variant does (P in two bf16 parts, hi and the
+//    rest, errs as fp32 P does but reads up to 16% slower).  The warps
+//    run independently; after the loop their partials meet in shared memory.
+//    Shared memory is the ring alone (55 KB at dh 64: four blocks an SM; 101
+//    KB at dh 256: two), and __launch_bounds__ holds the registers to it.
+//  * fp32 (the parity engines, dh 8 and up): the same plan, partition and
+//    ring, with products on the CUDA cores (128/tk threads a key in the score
+//    pass, over interleaved 16-byte chunks; per-row maxima across warps in
+//    shared memory; each thread owning pairs of output elements in P.V),
+//    three block barriers a tile.
+//  * Combine (fused_combine), in two levels: each block leaves (m, l, acc)
+//    in its shared memory; after a cluster barrier every rank takes 1/n of
+//    the head's outputs and reads all ranks' partials for them through
+//    distributed shared memory, summed in rank order.  With one cluster a
+//    (b, KV head) that is the output.  With more, each cluster's sums go to
+//    an fp32 workspace the wrapper allocates; each block takes an integer
+//    ticket, and the last block of the (b, KV head) sums the clusters' in
+//    cluster order, writes out, and sets the ticket back to 0 for the next
+//    launch or replay.  Every sum runs in a fixed order: reruns are equal
+//    bit for bit.
+//  * Every loop over chunks, rows or keys inside a tile runs a fixed count
+//    with a predicate.  An earlier form, with loops bounded by the visible
+//    range, gave wrong sums in the G <= 4 kernels on the card and was right
+//    when built with -Xptxas -O0 (nvcc 12.9; not reduced further).
 //
 // ---------------------------------------------------------------------------
 // Chunk variant (decode_attention_chunk_launch): prefill_chunk's call, in
@@ -438,44 +447,35 @@ cudaError_t launch_tk(int tk, const void* q, const void* k, const void* v, const
 // ---------------------------------------------------------------------------
 constexpr int kFusedThreads = 128;
 constexpr int kFusedWarps = kFusedThreads / 32;
-constexpr int kFusedMaxSplits = 8;  // the portable cluster size
-// 16-byte chunks of the largest tile the launch takes (16 KB of K), of a
+constexpr int kFusedMaxCluster = 8;  // the portable cluster size
+constexpr int kFusedRows = 16;       // query rows of a KV head a block holds (G <= 16)
+constexpr int kFusedStages = 3;      // K/V tiles in the ring: two in flight while one is used
+// 16-byte chunks of the largest fp32 tile the launch takes (16 KB of K), of a
 // G x dh query block (16 x 256 fp32) and of a row's score pass, per thread:
 // every loop over them runs a fixed count with a predicate
 constexpr int kFusedChunkIters = (16384 / 16) / kFusedThreads;
 
-// Row stride (bytes) of a K tile: a row of dh elements padded so that the
-// 16-byte chunks of a quarter-warp in the score pass ((key, sub) lanes, key
-// stride `stride`, chunk `sub`) fall in distinct banks.
-__host__ __device__ inline int fused_kstride(int row_bytes, int tpk) {
-  const int want = (tpk * 16) & 127;
-  return row_bytes + ((want - (row_bytes & 127)) & 127);
+// The keys [key_lo, key_hi] of split `split` of `n_splits`: the keys a query
+// at qpos sees (window included) cut into tiles of tk keys from the first
+// one, the tiles shared out evenly and in order, so that no split is empty
+// while there are at least as many tiles as splits.  An empty split gets
+// key_lo > key_hi.  ops.fused_partition mirrors it.
+__device__ __forceinline__ void fused_split_range(int qpos, int Tlen, int window, int split,
+                                                  int n_splits, int tk, int& key_lo,
+                                                  int& key_hi) {
+  const int vis_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int vis_hi = min(Tlen - 1, qpos);
+  const int n_tiles = vis_hi >= vis_lo ? (vis_hi - vis_lo) / tk + 1 : 0;
+  const int a = (int)((long long)split * n_tiles / n_splits);
+  const int b = (int)((long long)(split + 1) * n_tiles / n_splits);
+  key_lo = vis_lo + a * tk;
+  key_hi = min(vis_hi, vis_lo + b * tk - 1);
 }
 
-// Dynamic shared memory of one block: q (later the partial acc) [GMAX][dh] fp32,
-// two K and two V tiles, probabilities [GMAX][tk + 1], per-warp row values
-// [warps][GMAX], alpha, m and l [GMAX].
-__host__ __device__ inline size_t fused_smem_bytes(int dh, int isz, int tk, int gmax) {
-  const int row = dh * isz;
-  const int tpk = kFusedThreads / tk;
-  return (size_t)gmax * dh * 4 + 2 * (size_t)tk * fused_kstride(row, tpk) + 2 * (size_t)tk * row +
-         4 * ((size_t)gmax * (tk + 1) + (size_t)kFusedWarps * gmax + 3 * (size_t)gmax);
+template <bool LOG2> __device__ __forceinline__ float fused_exp(float x) {
+  return LOG2 ? fast_exp2(x) : expf(x);
 }
 
-template <typename T>
-__device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&x)[16 / sizeof(T)]) {
-  T e[16 / sizeof(T)];
-  memcpy(e, &raw, 16);
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) x[i] = to_f32(e[i]);
-}
-
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -483,37 +483,170 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// grid: (n_splits, B * Hkv), cluster (n_splits, 1, 1); block: kFusedThreads.
-// tk (16, 32, 64 or 128) keys per tile: TK if it is set at build, else the
-// tk_arg of the launch.  GMAX >= G query rows per KV head.
-template <typename T, int TK, int GMAX>
+// Combines the partials of one (b, KV head) and writes its G output rows
+// (out_bh, contiguous).  Each block has left its partial in its own shared
+// memory: part_m, part_l [G] and the unnormalised part_acc [G][dh], fp32
+// (with LOG2 the maxima are in log2 units).  First over the cs blocks of
+// the cluster: after a cluster barrier each rank takes 1/cs of the head's
+// output pairs and reads every rank's partial of them through distributed
+// shared memory, all loads in flight at once, summed in rank order; a
+// second barrier keeps every rank's shared memory alive until all have read
+// it.  With one cluster a (b, KV head) that is the output.  With more, each
+// cluster's sums go to the workspace `ws` ([BH][n_clusters] m and l of
+// kFusedRows rows, then [BH][n_clusters][G * dh] sums); every block then
+// takes a ticket, and the last block of the (b, KV head) to take one
+// combines the clusters' sums in cluster order, writes out, and sets the
+// ticket back to 0 for the next launch or graph replay.  Every sum runs in
+// a fixed order, so reruns are equal bit for bit; a partial with m = -inf
+// (no visible key) is skipped.  Every thread of the block calls it.
+template <typename T, bool LOG2>
+__device__ void fused_combine(const float* part_m, const float* part_l, const float* part_acc,
+                              int G, int dh, int bh, int n_clusters, T* out_bh, float* ws,
+                              int* tickets) {
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int cs = gridDim.x / n_clusters;
+  const int rank = blockIdx.x % cs;
+  const size_t part0 = (size_t)bh * n_clusters;  // this head's first cluster sum
+  const size_t n_parts = (size_t)gridDim.y * n_clusters;
+  float* ws_m = ws;
+  float* ws_l = ws + n_parts * kFusedRows;
+  float* ws_acc = ws + 2 * n_parts * kFusedRows;
+  const int n_pairs = G * dh / 2;
+  const int per_rank = (n_pairs + cs - 1) / cs;
+  const int p_end = min(n_pairs, (rank + 1) * per_rank);
+  const size_t part = part0 + blockIdx.x / cs;
+  __syncthreads();  // the block's partial is in
+  if (cs > 1) cluster_sync();  // every rank's partial is in
+#pragma unroll 1
+  for (int it = 0; it < kFusedRows; ++it) {  // per_rank <= n_pairs <= kFusedThreads * 16
+    const int pi = rank * per_rank + tid + kFusedThreads * it;
+    if (pi >= p_end) continue;
+    const int g = 2 * pi / dh;
+    float mr[kFusedMaxCluster], lr[kFusedMaxCluster];
+    float2 ar[kFusedMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kFusedMaxCluster; ++r) {
+      if (r < cs) {
+        mr[r] = ld_cluster_f32(cluster_map(part_m + g, r));
+        lr[r] = ld_cluster_f32(cluster_map(part_l + g, r));
+        ar[r] = ld_cluster_f32x2(cluster_map(part_acc + 2 * pi, r));
+      }
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kFusedMaxCluster; ++r)
+      if (r < cs) M = fmaxf(M, mr[r]);
+    float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < kFusedMaxCluster; ++r) {
+      if (r < cs && mr[r] != -INFINITY) {  // skip empty splits
+        const float w = fused_exp<LOG2>(mr[r] - M);
+        L = fmaf(lr[r], w, L);
+        a0 = fmaf(ar[r].x, w, a0);
+        a1 = fmaf(ar[r].y, w, a1);
+      }
+    }
+    if (n_clusters == 1) {
+      const float inv = L > 0.f ? 1.f / L : 0.f;
+      store_pair(out_bh + 2 * pi, a0 * inv, a1 * inv);
+    } else {
+      *reinterpret_cast<float2*>(ws_acc + part * G * dh + 2 * pi) = make_float2(a0, a1);
+      if (2 * pi - g * dh == 0) {  // the row's first pair carries its m and l
+        ws_m[part * kFusedRows + g] = M;
+        ws_l[part * kFusedRows + g] = L;
+      }
+    }
+  }
+  if (cs > 1) cluster_sync();  // every rank's shared memory stays until all have read it
+  if (n_clusters == 1) return;
+
+  __threadfence();  // this block's sums reach the device before its ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + bh, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the sums the other blocks published before their tickets
+#pragma unroll 1
+  for (int it = 0; it < kFusedRows; ++it) {
+    const int pi = tid + kFusedThreads * it;
+    if (pi >= n_pairs) continue;
+    const int g = 2 * pi / dh;
+    float M = -INFINITY;
+#pragma unroll 1
+    for (int c = 0; c < n_clusters; ++c) M = fmaxf(M, __ldcg(ws_m + (part0 + c) * kFusedRows + g));
+    float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < n_clusters; ++c) {
+      const float mc = __ldcg(ws_m + (part0 + c) * kFusedRows + g);
+      if (mc == -INFINITY) continue;  // a cluster with no visible key
+      const float w = fused_exp<LOG2>(mc - M);
+      L = fmaf(__ldcg(ws_l + (part0 + c) * kFusedRows + g), w, L);
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(ws_acc + (part0 + c) * G * dh) + pi);
+      a0 = fmaf(a.x, w, a0);
+      a1 = fmaf(a.y, w, a1);
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    store_pair(out_bh + 2 * pi, a0 * inv, a1 * inv);
+  }
+  if (tid == 0) tickets[bh] = 0;  // for the next launch, or replay of the graph
+}
+
+// ---- fp32: products on the CUDA cores --------------------------------------
+
+// Row stride (bytes) of an fp32 K tile: a row of dh elements padded so that
+// the 16-byte chunks of a quarter-warp in the score pass ((key, sub) lanes,
+// key stride `stride`, chunk `sub`) fall in distinct banks.
+__host__ __device__ inline int fused_kstride(int row_bytes, int tpk) {
+  const int want = (tpk * 16) & 127;
+  return row_bytes + ((want - (row_bytes & 127)) & 127);
+}
+
+// Dynamic shared memory of an fp32 block: q (later the partial acc)
+// [GMAX][dh], the ring's kFusedStages K and V tiles, probabilities
+// [GMAX][tk + 1], per-warp row values [warps][GMAX], alpha, m and l [GMAX].
+__host__ __device__ inline size_t fused_f32_smem_bytes(int dh, int tk, int gmax) {
+  const int row = dh * 4;
+  const int tpk = kFusedThreads / tk;
+  return (size_t)gmax * dh * 4 + kFusedStages * (size_t)tk * (fused_kstride(row, tpk) + row) +
+         4 * ((size_t)gmax * (tk + 1) + (size_t)kFusedWarps * gmax + 3 * (size_t)gmax);
+}
+
+__device__ __forceinline__ void chunk_to_f32(const uint4& raw, float (&x)[4]) {
+  memcpy(x, &raw, 16);
+}
+
+// grid: (n_splits, B * Hkv), cluster (n_splits / n_clusters, 1, 1); block:
+// kFusedThreads.  tk (16, 32, 64 or 128) keys per tile: TK if it is set at
+// build, else the tk_arg of the launch.  GMAX >= G query rows per KV head.
+template <int TK, int GMAX>
 __global__ void __launch_bounds__(kFusedThreads)
-decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
-                              const T* __restrict__ k_new,  // [B,1,Hkv,dh]
-                              const T* __restrict__ v_new,
-                              T* __restrict__ k,            // [B,Tlen,Hkv,dh]
-                              T* __restrict__ v,
-                              const int32_t* __restrict__ q_start,  // [B]
-                              T* __restrict__ out,          // [B,1,Hq,dh]
-                              int Hkv, int G, int Tlen, int dh, int window, int split_len,
-                              int tk_arg) {
+decode_attention_fused_f32_kernel(const float* __restrict__ q,      // [B,1,Hq,dh]
+                                  const float* __restrict__ k_new,  // [B,1,Hkv,dh]
+                                  const float* __restrict__ v_new,
+                                  float* __restrict__ k,            // [B,Tlen,Hkv,dh]
+                                  float* __restrict__ v,
+                                  const int32_t* __restrict__ q_start,  // [B]
+                                  float* __restrict__ out,          // [B,1,Hq,dh]
+                                  float* __restrict__ ws, int* __restrict__ tickets, int Hkv,
+                                  int G, int Tlen, int dh, int window, int n_clusters,
+                                  int tk_arg) {
   const int tk = TK > 0 ? TK : tk_arg;
   const int tpk = kFusedThreads / tk;  // threads per key in the score pass
-  constexpr int EPC = 16 / sizeof(T);      // elements per 16-byte chunk
+  constexpr int EPC = 4;               // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char fsmem[];
-  const int row_bytes = dh * (int)sizeof(T);
+  const int row_bytes = dh * 4;
   const int cpr = row_bytes / 16;  // chunks per K/V row
   const int kstride = fused_kstride(row_bytes, tpk);
   float* q_s = reinterpret_cast<float*>(fsmem);  // [GMAX][dh]; after the loop: the partial acc
-  unsigned char* kb = fsmem + (size_t)GMAX * dh * 4;  // 2 x [tk][kstride]
-  unsigned char* vb = kb + 2 * tk * kstride;      // 2 x [tk][row_bytes]
-  float* p_s = reinterpret_cast<float*>(vb + 2 * tk * row_bytes);  // [GMAX][tk + 1]
-  float* red = p_s + GMAX * (tk + 1);   // [warps][GMAX]
+  unsigned char* kb = fsmem + (size_t)GMAX * dh * 4;   // kFusedStages x [tk][kstride]
+  unsigned char* vb = kb + kFusedStages * tk * kstride;  // kFusedStages x [tk][row_bytes]
+  float* p_s = reinterpret_cast<float*>(vb + kFusedStages * tk * row_bytes);  // [GMAX][tk + 1]
+  float* red = p_s + GMAX * (tk + 1);  // [warps][GMAX]
   float* alpha_s = red + kFusedWarps * GMAX;
   float* part_m = alpha_s + GMAX;
   float* part_l = part_m + GMAX;
 
-  const int split = blockIdx.x;  // the block's rank in its cluster
   const int bh = blockIdx.y;
   const int b = bh / Hkv;
   const int kvh = bh - b * Hkv;
@@ -521,32 +654,28 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  // this split's visible keys [key_lo, key_hi]
+  // this split's share of the visible keys
   const int qpos = q_start[b];
-  const int vis_lo = window > 0 ? max(0, qpos - window + 1) : 0;
-  const int vis_hi = min(Tlen - 1, qpos);
-  const int split_lo = split * split_len;
-  const int split_hi = min(Tlen, split_lo + split_len) - 1;
-  const int key_lo = max(vis_lo, split_lo);
-  const int key_hi = min(vis_hi, split_hi);
+  int key_lo, key_hi;
+  fused_split_range(qpos, Tlen, window, blockIdx.x, gridDim.x, tk, key_lo, key_hi);
   const size_t pos_stride = (size_t)Hkv * dh;  // elements from one position to the next
-  T* krows = k + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;  // position t at t * pos_stride
-  T* vrows = v + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
+  float* krows = k + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;  // position t at t * pos_stride
+  float* vrows = v + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
   const uint4* kn = reinterpret_cast<const uint4*>(k_new + (size_t)bh * dh);
   const uint4* vn = reinterpret_cast<const uint4*>(v_new + (size_t)bh * dh);
 
-  // the split that holds q_start writes the new row into the cache
-  if (qpos >= split_lo && qpos <= split_hi) {
+  // the split that holds q_start (the last visible key, below T) writes the
+  // new row into the cache
+  if (qpos >= key_lo && qpos <= key_hi) {
     for (int c = tid; c < cpr; c += kFusedThreads) {
       reinterpret_cast<uint4*>(krows + (size_t)qpos * pos_stride)[c] = __ldg(kn + c);
       reinterpret_cast<uint4*>(vrows + (size_t)qpos * pos_stride)[c] = __ldg(vn + c);
     }
   }
 
-  // copies of the visible rows of the tile at t0 into buffer `buf`; the new
-  // row comes from k_new/v_new, never from the cache
+  // copies of the visible rows of the tile at t0 into buffer `buf` (one
+  // cp.async group); the new row comes from k_new/v_new, never from the cache
   auto stage = [&](int t0, int buf) {
-    const int r_lo = max(key_lo, t0) - t0;
     const int r_hi = min(key_hi, t0 + tk - 1) - t0;
     unsigned char* kd = kb + buf * tk * kstride;
     unsigned char* vd = vb + buf * tk * row_bytes;
@@ -559,7 +688,7 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
       const int kp = t0 + r;
       uint4* kdst = reinterpret_cast<uint4*>(kd + r * kstride) + ch;
       uint4* vdst = reinterpret_cast<uint4*>(vd + r * row_bytes) + ch;
-      if (r < r_lo || r > r_hi) {  // not visible: its probability is 0, its V row zeros
+      if (r > r_hi) {  // past the split: its probability is 0, its V row zeros
         *vdst = make_uint4(0u, 0u, 0u, 0u);
       } else if (kp == qpos) {
         *kdst = __ldg(kn + ch);
@@ -572,11 +701,9 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
     cp_async_commit();
   };
 
-  const int n_tiles = key_lo <= key_hi ? key_hi / tk - key_lo / tk + 1 : 0;
-  const int t_first = (key_lo / tk) * tk;
+  const int n_tiles = key_lo <= key_hi ? (key_hi - key_lo) / tk + 1 : 0;
   if (n_tiles > 0) {
-    stage(t_first, 0);
-    // this head's G query rows are contiguous: G * dh elements, fp32 in shared
+    // this head's G query rows are contiguous: G * dh elements, in shared
     // memory, and rows G..GMAX-1 zeros (every row loop then runs GMAX rows
     // without a branch; those rows are never written out)
     const uint4* qg = reinterpret_cast<const uint4*>(q + (size_t)bh * G * dh);
@@ -585,11 +712,15 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
       const int c = tid + kFusedThreads * it;
       if (c >= GMAX * cpr) break;
       float x[EPC];
-      chunk_to_f32<T>(c < G * cpr ? __ldg(qg + c) : make_uint4(0u, 0u, 0u, 0u), x);
-#pragma unroll
-      for (int e = 0; e < EPC; e += 4)
-        *reinterpret_cast<float4*>(q_s + c * EPC + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+      chunk_to_f32(c < G * cpr ? __ldg(qg + c) : make_uint4(0u, 0u, 0u, 0u), x);
+      *reinterpret_cast<float4*>(q_s + c * EPC) = make_float4(x[0], x[1], x[2], x[3]);
     }
+  }
+  // the ring's first kFusedStages - 1 tiles (an empty group past the last)
+#pragma unroll
+  for (int s = 0; s < kFusedStages - 1; ++s) {
+    if (s < n_tiles) stage(key_lo + s * tk, s);
+    else cp_async_commit();
   }
 
   const float scale = rsqrtf((float)dh);
@@ -613,11 +744,13 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
   }
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = t_first + it * tk;
-    const int buf = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile `it` (and q) visible; the other buffer fully consumed
-    if (it + 1 < n_tiles) stage(t0 + tk, buf ^ 1);
+    const int t0 = key_lo + it * tk;
+    const int buf = it % kFusedStages;
+    cp_async_wait<kFusedStages - 2>();
+    __syncthreads();  // tile `it` (and q) visible; the buffer of tile it - 1 fully consumed
+    const int ahead = it + kFusedStages - 1;
+    if (ahead < n_tiles) stage(key_lo + ahead * tk, ahead % kFusedStages);
+    else cp_async_commit();
 
     // scores of key j for every row
     float s[GMAX];
@@ -625,25 +758,21 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
     for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
     const unsigned char* krow = kb + buf * tk * kstride + j * kstride;
 #pragma unroll
-    for (int it = 0; it < kFusedChunkIters; ++it) {  // cpr / tpk = tk * cpr / kFusedThreads chunks
-      const int ch = sub + tpk * it;
+    for (int c = 0; c < kFusedChunkIters; ++c) {  // cpr / tpk = tk * cpr / kFusedThreads chunks
+      const int ch = sub + tpk * c;
       if (ch >= cpr) break;
       float kx[EPC];
-      chunk_to_f32<T>(*reinterpret_cast<const uint4*>(krow + ch * 16), kx);
+      chunk_to_f32(*reinterpret_cast<const uint4*>(krow + ch * 16), kx);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
-#pragma unroll
-        for (int e = 0; e < EPC; e += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + g * dh + ch * EPC + e);
-          s[g] = fmaf(qv.x, kx[e], s[g]);
-          s[g] = fmaf(qv.y, kx[e + 1], s[g]);
-          s[g] = fmaf(qv.z, kx[e + 2], s[g]);
-          s[g] = fmaf(qv.w, kx[e + 3], s[g]);
-        }
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + g * dh + ch * EPC);
+        s[g] = fmaf(qv.x, kx[0], s[g]);
+        s[g] = fmaf(qv.y, kx[1], s[g]);
+        s[g] = fmaf(qv.z, kx[2], s[g]);
+        s[g] = fmaf(qv.w, kx[3], s[g]);
       }
     }
-    const int kp = t0 + j;
-    const bool visible = kp >= key_lo && kp <= key_hi;
+    const bool visible = t0 + j <= key_hi;
 #pragma unroll
     for (int o = tpk / 2; o > 0; o >>= 1) {
 #pragma unroll
@@ -683,8 +812,8 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
     }
     __syncthreads();  // probabilities and alpha in
 
-    // acc = acc * alpha + P·V over the whole tile (a key that is not visible
-    // has probability 0 and a zero V row), eight keys in flight
+    // acc = acc * alpha + P·V over the whole tile (a key past the split has
+    // probability 0 and a zero V row), eight keys in flight
     const unsigned char* vt = vb + buf * tk * row_bytes;
 #pragma unroll
     for (int i = 0; i < GMAX; ++i) {
@@ -696,12 +825,12 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
     }
 #pragma unroll 8
     for (int jj = 0; jj < tk; ++jj) {
-      const T* vrow = reinterpret_cast<const T*>(vt + jj * row_bytes);
+      const float* vrow = reinterpret_cast<const float*>(vt + jj * row_bytes);
 #pragma unroll
       for (int i = 0; i < GMAX; ++i) {
         if (tid + kFusedThreads * i < n_pairs) {
           const float p = p_s[pg[i] * (tk + 1) + jj];
-          const float2 vv = load_pair(vrow + pd[i]);
+          const float2 vv = *reinterpret_cast<const float2*>(vrow + pd[i]);
           acc[i][0] = fmaf(p, vv.x, acc[i][0]);
           acc[i][1] = fmaf(p, vv.y, acc[i][1]);
         }
@@ -709,7 +838,8 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
     }
   }
 
-  // this block's partial: l summed over threads, acc into q's place
+  // this block's partial: l summed over threads, acc into q's place (no
+  // thread reads q after the last tile's scores)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
@@ -736,131 +866,366 @@ decode_attention_fused_kernel(const T* __restrict__ q,      // [B,1,Hq,dh]
       part_l[g] = l;
     }
   }
-  cluster_sync();  // every rank's partial is in its shared memory
-
-  // combine: each rank takes a slice of this head's output pairs and reads
-  // every rank's (m, l, acc) for it through distributed shared memory, all
-  // loads in flight at once, summed in split order (reruns are bit-equal)
-  {
-    const int n_splits = gridDim.x;
-    const int per_rank = (n_pairs + n_splits - 1) / n_splits;
-    const int p_end = min(n_pairs, (split + 1) * per_rank);
-    T* o = out + (size_t)bh * G * dh;  // this head's G rows are contiguous
-#pragma unroll 1
-    for (int it = 0; it < GMAX; ++it) {  // per_rank <= n_pairs <= kFusedThreads * GMAX
-      const int pi = split * per_rank + tid + kFusedThreads * it;
-      if (pi >= p_end) continue;
-      const int g = 2 * pi / dh;
-      float mr[kFusedMaxSplits], lr[kFusedMaxSplits];
-      float2 ar[kFusedMaxSplits];
-#pragma unroll
-      for (int r = 0; r < kFusedMaxSplits; ++r) {
-        if (r < n_splits) {
-          mr[r] = ld_cluster_f32(cluster_map(part_m + g, r));
-          lr[r] = ld_cluster_f32(cluster_map(part_l + g, r));
-          ar[r] = ld_cluster_f32x2(cluster_map(part_acc + 2 * pi, r));
-        }
-      }
-      float M = -INFINITY;
-#pragma unroll
-      for (int r = 0; r < kFusedMaxSplits; ++r)
-        if (r < n_splits) M = fmaxf(M, mr[r]);
-      float L = 0.f, a0 = 0.f, a1 = 0.f;
-#pragma unroll
-      for (int r = 0; r < kFusedMaxSplits; ++r) {
-        if (r < n_splits && mr[r] != -INFINITY) {  // skip empty splits
-          const float w = expf(mr[r] - M);
-          L = fmaf(lr[r], w, L);
-          a0 = fmaf(ar[r].x, w, a0);
-          a1 = fmaf(ar[r].y, w, a1);
-        }
-      }
-      const float inv = L > 0.f ? 1.f / L : 0.f;
-      store_pair(o + 2 * pi, a0 * inv, a1 * inv);
-    }
-  }
-  cluster_sync();  // every rank's shared memory stays until all have read it
+  fused_combine<float, false>(part_m, part_l, part_acc, G, dh, bh, n_clusters,
+                              out + (size_t)bh * G * dh, ws, tickets);
 }
 
-template <typename T, int TK, int GMAX>
-size_t fused_max_smem() {
+// ---- bf16: products on the tensor cores (mma.sync m16n8k16) -----------------
+
+// The bf16 kernel at DC column chunks of 64 (dh up to 64 * DC).  The G <= 16
+// query rows of a KV head are one m16 tile; each warp owns 16 keys of every
+// K/V tile (kWk warps along the keys) and, at DC 3 and 4, half of O's
+// columns (kWc warps along them, each forming the same S for its keys).
+template <int DC> struct FusedMma {
+  static constexpr int kWc = DC >= 3 ? 2 : 1;    // warps along O's columns
+  static constexpr int kWk = kFusedWarps / kWc;  // warps along a tile's keys
+  static constexpr int kTk = 16 * kWk;           // keys a tile
+  static constexpr int kRs = 128 * DC + 16;      // bytes a K or V row takes in shared memory
+  static constexpr int kCols = 64 * DC / kWc;    // O's columns a warp owns
+  static constexpr int kNt = kCols / 8;          // its n-tiles of 8
+  static constexpr int kKs = 4 * DC;             // k-steps of 16 over the padded head dim
+  // the ring: kFusedStages x (K, V) x [kTk][kRs], all the dynamic shared memory
+  static constexpr int kRing = kFusedStages * 2 * kTk * kRs;
+  // after the key loop the ring holds the warps' partials (O [kWk][16][64 DC],
+  // m and l [kWk][16]) and the block's (m, l [16], acc [16][64 DC]), fp32
+  static constexpr int kAfter = 4 * (kWk * 16 * 64 * DC + 2 * kWk * 16 + 2 * 16 + 16 * 64 * DC);
+  // blocks an SM holds at that shared memory (233,472 bytes an SM; a block
+  // also takes the combine's static flag, 128 bytes as allocated, and 1,024
+  // reserved); __launch_bounds__ keeps the registers within it
+  static constexpr int kBlocksPerSm = 233472 / (kRing + 128 + 1024);
+};
+template <int DC> constexpr bool fused_mma_fits() {
+  static_assert(FusedMma<DC>::kAfter <= FusedMma<DC>::kRing, "partials outgrow the ring");
+  static_assert(FusedMma<DC>::kRing <= 232448, "ring over 227 KB");
+  return true;
+}
+static_assert(fused_mma_fits<1>() && fused_mma_fits<2>() && fused_mma_fits<3>() &&
+              fused_mma_fits<4>(), "fused layouts");
+
+// grid: (n_splits, B * Hkv), cluster (n_splits / n_clusters, 1, 1); block:
+// kFusedThreads.  sc = log2(e) / sqrt(dh): scores in log2 units.
+template <int DC>
+__global__ void __launch_bounds__(kFusedThreads, FusedMma<DC>::kBlocksPerSm)
+decode_attention_fused_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B,1,Hq,dh]
+                                  const __nv_bfloat16* __restrict__ k_new,  // [B,1,Hkv,dh]
+                                  const __nv_bfloat16* __restrict__ v_new,
+                                  __nv_bfloat16* __restrict__ k,            // [B,Tlen,Hkv,dh]
+                                  __nv_bfloat16* __restrict__ v,
+                                  const int32_t* __restrict__ q_start,      // [B]
+                                  __nv_bfloat16* __restrict__ out,          // [B,1,Hq,dh]
+                                  float* __restrict__ ws, int* __restrict__ tickets, int Hkv,
+                                  int G, int Tlen, int dh, int window, int n_clusters,
+                                  float sc) {
+  using F = FusedMma<DC>;
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  const int bh = blockIdx.y;
+  const int b = bh / Hkv;
+  const int kvh = bh - b * Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wk = warp % F::kWk, wc = warp / F::kWk;
+  const int cpr = dh / 8;  // 16-byte chunks of a row
+  const int g0 = lane >> 2;  // this thread's rows of the m16 tile: g0 and g0 + 8
+  const int col = 2 * (lane & 3);
+
+  const int qpos = q_start[b];
+  int key_lo, key_hi;
+  fused_split_range(qpos, Tlen, window, blockIdx.x, gridDim.x, F::kTk, key_lo, key_hi);
+  const int n_tiles = key_lo <= key_hi ? (key_hi - key_lo) / F::kTk + 1 : 0;
+  const size_t pos_stride = (size_t)Hkv * dh;
+  __nv_bfloat16* krows = k + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
+  __nv_bfloat16* vrows = v + (size_t)b * Tlen * pos_stride + (size_t)kvh * dh;
+  const uint4* kn = reinterpret_cast<const uint4*>(k_new + (size_t)bh * dh);
+  const uint4* vn = reinterpret_cast<const uint4*>(v_new + (size_t)bh * dh);
+
+  // the split that holds q_start (the last visible key, below T) writes the
+  // new row into the cache
+  if (qpos >= key_lo && qpos <= key_hi) {
+    for (int c = tid; c < cpr; c += kFusedThreads) {
+      reinterpret_cast<uint4*>(krows + (size_t)qpos * pos_stride)[c] = __ldg(kn + c);
+      reinterpret_cast<uint4*>(vrows + (size_t)qpos * pos_stride)[c] = __ldg(vn + c);
+    }
+  }
+  // at dh = 16 n + 8 the last k-step and the last column pair reach one
+  // chunk past the row: zeros in every K and V row, written once
+  if (cpr & 1) {
+    for (int r = tid; r < kFusedStages * 2 * F::kTk; r += kFusedThreads)
+      reinterpret_cast<uint4*>(fsmem + (size_t)r * F::kRs)[cpr] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // copies of tile `tile` into buffer `buf` (one cp.async group): rows past
+  // the split are not read, their V zeros; the new row from k_new/v_new
+  auto stage = [&](int tile, int buf) {
+    const int t0 = key_lo + tile * F::kTk;
+    unsigned char* kd = fsmem + (size_t)buf * 2 * F::kTk * F::kRs;
+    unsigned char* vd = kd + F::kTk * F::kRs;
+#pragma unroll
+    for (int it = 0; it < F::kTk * 8 * DC / kFusedThreads; ++it) {
+      const int c = tid + kFusedThreads * it;
+      const int r = c / (8 * DC), ch = c % (8 * DC);
+      if (ch >= cpr) continue;
+      const int kp = t0 + r;
+      uint4* kdst = reinterpret_cast<uint4*>(kd + r * F::kRs) + ch;
+      uint4* vdst = reinterpret_cast<uint4*>(vd + r * F::kRs) + ch;
+      if (kp > key_hi) {
+        *vdst = make_uint4(0u, 0u, 0u, 0u);
+      } else if (kp == qpos) {
+        *kdst = __ldg(kn + ch);
+        *vdst = __ldg(vn + ch);
+      } else {
+        cp_async_16(kdst, reinterpret_cast<const uint4*>(krows + (size_t)kp * pos_stride) + ch);
+        cp_async_16(vdst, reinterpret_cast<const uint4*>(vrows + (size_t)kp * pos_stride) + ch);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kFusedStages - 1; ++s) {
+    if (s < n_tiles) stage(s, s);
+    else cp_async_commit();
+  }
+
+  // Q as the A fragments of the kKs k-steps, from device memory once; rows
+  // past G and columns past dh are zeros
+  uint32_t qa[F::kKs][4];
+  const __nv_bfloat16* qh = q + (size_t)bh * G * dh;
+#pragma unroll
+  for (int kk = 0; kk < F::kKs; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int row = g0 + 8 * (x & 1), c = 16 * kk + col + 8 * (x >> 1);
+      qa[kk][x] = row < G && c < dh && n_tiles > 0
+                      ? __ldg(reinterpret_cast<const unsigned int*>(qh + row * dh + c))
+                      : 0u;
+    }
+  }
+
+  float o[F::kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < F::kNt; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // this lane's ldmatrix rows: K (non-transposed: keys l&7 and +8 by l>>4,
+  // columns +8 by (l>>3)&1) and V (transposed: keys l&7 and +8 by (l>>3)&1,
+  // columns +8 by l>>4)
+  const int k_off = (wk * 16 + (lane & 7) + ((lane >> 4) << 3)) * F::kRs + ((lane >> 3) & 1) * 16;
+  const int v_off = F::kTk * F::kRs + (wk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * F::kRs +
+                    (wc * F::kCols + (lane >> 4) * 8) * 2;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kFusedStages - 2>();
+    __syncthreads();  // tile i in every thread's view; the buffer of tile i - 1 free
+    const int ahead = i + kFusedStages - 1;
+    if (ahead < n_tiles) stage(ahead, ahead % kFusedStages);
+    else cp_async_commit();
+    const unsigned char* tile = fsmem + (size_t)(i % kFusedStages) * 2 * F::kTk * F::kRs;
+
+    // S = Q . K^T over this warp's 16 keys: two n-tiles of 8
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < F::kKs; ++kk) {
+      if (16 * kk < dh) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, tile + k_off + 32 * kk);
+        mma_bf16_16816(s[0], qa[kk], bk[0], bk[1]);
+        mma_bf16_16816(s[1], qa[kk], bk[2], bk[3]);
+      }
+    }
+    // keys past the split (in the last tile only)
+    const int key0 = key_lo + i * F::kTk + wk * 16 + col;
+    if (key0 - col + 15 > key_hi) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * nt + (e & 1) > key_hi) s[nt][e] = -INFINITY;
+    }
+    // online softmax of rows g0 (x 0) and g0 + 8 (x 1), in log2 units
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float mx = fmaxf(fmaxf(s[0][2 * x], s[0][2 * x + 1]), fmaxf(s[1][2 * x], s[1][2 * x + 1]));
+      const float m_new = fmaxf(m_run[x], quad_max(mx) * sc);
+      // a row that has seen no key yet keeps m = -inf, l = 0, O = 0
+      m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[x] = fast_exp2(m_run[x] - m_use[x]);
+      m_run[x] = m_new;
+      l_run[x] *= alpha[x];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[nt][e] * sc - m_use[e >> 1]);
+        l_run[e >> 1] += p;
+        s[nt][e] = p;
+      }
+#pragma unroll
+    for (int nt = 0; nt < F::kNt; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+    // O += P . V, P in bf16 (the reference's cast of the probabilities) as
+    // the A fragment: the accumulators of the two n-tiles are the A layout
+    // of one 16-key k-step
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int np = 0; np < F::kNt / 2; ++np) {
+      if (wc * F::kCols + 16 * np < dh) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, tile + v_off + 32 * np);
+        mma_bf16_16816(o[2 * np], pa, bv[0], bv[1]);
+        mma_bf16_16816(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the warps' partials into the ring, then the block's, in warp order
+#pragma unroll
+  for (int x = 0; x < 2; ++x) l_run[x] = quad_sum(l_run[x]);
+  constexpr int kLd = 64 * DC;  // fp32 row stride of a partial O
+  float* wo = reinterpret_cast<float*>(fsmem);  // [kWk][16][kLd]
+  float* wm = wo + F::kWk * 16 * kLd;           // [kWk][16]
+  float* wl = wm + F::kWk * 16;
+  float* part_m = wl + F::kWk * 16;             // [16]
+  float* part_l = part_m + 16;
+  float* part_acc = part_l + 16;                // [G][dh]
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int nt = 0; nt < F::kNt; ++nt) {
+    const int c = wc * F::kCols + 8 * nt + col;
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      *reinterpret_cast<float2*>(wo + (wk * 16 + g0 + 8 * x) * kLd + c) =
+          make_float2(o[nt][2 * x], o[nt][2 * x + 1]);
+  }
+  if (wc == 0 && (lane & 3) == 0) {  // the column warps hold the same m and l
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      wm[wk * 16 + g0 + 8 * x] = m_run[x];
+      wl[wk * 16 + g0 + 8 * x] = l_run[x];
+    }
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int it = 0; it < kFusedRows; ++it) {  // G * dh / 2 <= kFusedThreads * 16 pairs
+    const int pi = tid + kFusedThreads * it;
+    if (pi >= G * dh / 2) continue;
+    const int g = 2 * pi / dh, d = 2 * pi - g * dh;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < F::kWk; ++w) M = fmaxf(M, wm[w * 16 + g]);
+    float L = 0.f, a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < F::kWk; ++w) {
+      const float mw = wm[w * 16 + g];
+      if (mw == -INFINITY) continue;  // a warp that saw no key
+      const float f = fast_exp2(mw - M);
+      const float2 a = *reinterpret_cast<const float2*>(wo + (w * 16 + g) * kLd + d);
+      L = fmaf(wl[w * 16 + g], f, L);
+      a0 = fmaf(a.x, f, a0);
+      a1 = fmaf(a.y, f, a1);
+    }
+    *reinterpret_cast<float2*>(part_acc + 2 * pi) = make_float2(a0, a1);
+    if (d == 0) {
+      part_m[g] = M;
+      part_l[g] = L;
+    }
+  }
+  fused_combine<__nv_bfloat16, true>(part_m, part_l, part_acc, G, dh, bh, n_clusters,
+                                     out + (size_t)bh * G * dh, ws, tickets);
+}
+
+template <typename K, typename... Args>
+cudaError_t fused_launch(K kernel, size_t smem, int n_splits, int cluster, int BH,
+                         cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_splits, BH, 1);
+  cfg.blockDim = dim3(kFusedThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int TK, int GMAX>
+size_t fused_f32_max_smem() {
   // the largest block over the key tiles the kernel takes: at tk keys the
   // widest row plan_fused gives is 16 KB / tk (at most 256 elements)
   size_t most = 0;
   for (int tk = 16; tk <= 128; tk *= 2) {
     if (TK > 0 && tk != TK) continue;
-    const int widest = (16384 / tk) / (int)sizeof(T);
-    const size_t bytes = fused_smem_bytes(widest < 256 ? widest : 256, sizeof(T), tk, GMAX);
+    const int widest = (16384 / tk) / 4;
+    const size_t bytes = fused_f32_smem_bytes(widest < 256 ? widest : 256, tk, GMAX);
     most = bytes > most ? bytes : most;
   }
   return most;
 }
 
-template <typename T, int TK, int GMAX>
-cudaError_t fused_init_one() {
-  return cudaFuncSetAttribute(decode_attention_fused_kernel<T, TK, GMAX>,
+template <int TK, int GMAX>
+cudaError_t fused_f32_init_one() {
+  return cudaFuncSetAttribute(decode_attention_fused_f32_kernel<TK, GMAX>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)fused_max_smem<T, TK, GMAX>());
+                              (int)fused_f32_max_smem<TK, GMAX>());
 }
 
-template <typename T, int TK, int GMAX>
-cudaError_t fused_launch_typed(const void* q, const void* kn, const void* vn, void* k, void* v,
-                               const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen,
-                               int dh, int window, int n_splits, int split_len, int tk,
-                               cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_splits, B * Hkv, 1);
-  cfg.blockDim = dim3(kFusedThreads, 1, 1);
-  cfg.dynamicSmemBytes = fused_smem_bytes(dh, sizeof(T), tk, GMAX);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_attention_fused_kernel<T, TK, GMAX>, static_cast<const T*>(q),
-      static_cast<const T*>(kn), static_cast<const T*>(vn), static_cast<T*>(k),
-      static_cast<T*>(v), qs, static_cast<T*>(out), Hkv, G, Tlen, dh, window, split_len, tk);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+template <int DC>
+cudaError_t fused_mma_init_one() {
+  return cudaFuncSetAttribute(decode_attention_fused_mma_kernel<DC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, FusedMma<DC>::kRing);
 }
 
-template <typename T, int TK>
-cudaError_t fused_launch_g(const void* q, const void* kn, const void* vn, void* k, void* v,
-                           const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen, int dh,
-                           int window, int n_splits, int split_len, int tk, cudaStream_t st) {
+template <int TK, int GMAX>
+cudaError_t fused_f32_launch(const void* q, const void* kn, const void* vn, void* k, void* v,
+                             const int32_t* qs, void* out, float* ws, int* tickets, int B,
+                             int Hkv, int G, int Tlen, int dh, int window, int n_splits,
+                             int cluster, int tk, cudaStream_t st) {
+  return fused_launch(decode_attention_fused_f32_kernel<TK, GMAX>,
+                      fused_f32_smem_bytes(dh, tk, GMAX), n_splits, cluster, B * Hkv, st,
+                      static_cast<const float*>(q), static_cast<const float*>(kn),
+                      static_cast<const float*>(vn), static_cast<float*>(k),
+                      static_cast<float*>(v), qs, static_cast<float*>(out), ws, tickets, Hkv, G,
+                      Tlen, dh, window, n_splits / cluster, tk);
+}
+
+// 128-key tiles (rows of at most 128 bytes: dh <= 32 in fp32, the smoke
+// models' decode) take a kernel built for them; other tiles share one
+// kernel that reads tk at run time.
+template <int TK>
+cudaError_t fused_f32_launch_g(const void* q, const void* kn, const void* vn, void* k, void* v,
+                               const int32_t* qs, void* out, float* ws, int* tickets, int B,
+                               int Hkv, int G, int Tlen, int dh, int window, int n_splits,
+                               int cluster, int tk, cudaStream_t st) {
   if (G <= 4)
-    return fused_launch_typed<T, TK, 4>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+    return fused_f32_launch<TK, 4>(q, kn, vn, k, v, qs, out, ws, tickets, B, Hkv, G, Tlen, dh, window, n_splits, cluster, tk, st);
   if (G <= 8)
-    return fused_launch_typed<T, TK, 8>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
-  return fused_launch_typed<T, TK, 16>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
+    return fused_f32_launch<TK, 8>(q, kn, vn, k, v, qs, out, ws, tickets, B, Hkv, G, Tlen, dh, window, n_splits, cluster, tk, st);
+  return fused_f32_launch<TK, 16>(q, kn, vn, k, v, qs, out, ws, tickets, B, Hkv, G, Tlen, dh, window, n_splits, cluster, tk, st);
 }
 
-// 128-key tiles (rows of at most 128 bytes: dh <= 64 in bf16, the decode
-// shapes of the smaller models) take a kernel built for them: with the tile
-// read at run time the TinyLlama decode shape took 0.0189 ms instead of
-// 0.0155 on an H100.  Other tiles share one kernel that reads tk at run time.
-template <typename T>
-cudaError_t fused_launch_tk(const void* q, const void* kn, const void* vn, void* k, void* v,
-                            const int32_t* qs, void* out, int B, int Hkv, int G, int Tlen, int dh,
-                            int window, int n_splits, int split_len, int tk, cudaStream_t st) {
-  if (tk == 128)
-    return fused_launch_g<T, 128>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
-  return fused_launch_g<T, 0>(q, kn, vn, k, v, qs, out, B, Hkv, G, Tlen, dh, window, n_splits, split_len, tk, st);
-}
-
-template <typename T>
-cudaError_t fused_init_typed() {
-  const cudaError_t errs[] = {
-      fused_init_one<T, 128, 4>(), fused_init_one<T, 128, 8>(), fused_init_one<T, 128, 16>(),
-      fused_init_one<T, 0, 4>(), fused_init_one<T, 0, 8>(), fused_init_one<T, 0, 16>(),
-  };
-  for (cudaError_t e : errs)
-    if (e != cudaSuccess) return e;
-  return cudaSuccess;
+template <int DC>
+cudaError_t fused_mma_launch(const void* q, const void* kn, const void* vn, void* k, void* v,
+                             const int32_t* qs, void* out, float* ws, int* tickets, int B,
+                             int Hkv, int G, int Tlen, int dh, int window, int n_splits,
+                             int cluster, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  return fused_launch(decode_attention_fused_mma_kernel<DC>, FusedMma<DC>::kRing, n_splits,
+                      cluster, B * Hkv, st, static_cast<const bf*>(q),
+                      static_cast<const bf*>(kn), static_cast<const bf*>(vn),
+                      static_cast<bf*>(k), static_cast<bf*>(v), qs, static_cast<bf*>(out), ws,
+                      tickets, Hkv, G, Tlen, dh, window, n_splits / cluster,
+                      kLog2e / sqrtf((float)dh));
 }
 
 // ---------------------------------------------------------------------------
@@ -1263,40 +1628,82 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
 // Sets the dynamic shared-memory limit of every fused kernel; called once,
 // when the library is loaded, so that no launch (or graph capture) does it.
 extern "C" int decode_attention_fused_init() {
-  cudaError_t e = fused_init_typed<float>();
-  if (e == cudaSuccess) e = fused_init_typed<__nv_bfloat16>();
-  return (int)e;
+  const cudaError_t errs[] = {
+      fused_f32_init_one<128, 4>(), fused_f32_init_one<128, 8>(), fused_f32_init_one<128, 16>(),
+      fused_f32_init_one<0, 4>(),   fused_f32_init_one<0, 8>(),   fused_f32_init_one<0, 16>(),
+      fused_mma_init_one<1>(),      fused_mma_init_one<2>(),      fused_mma_init_one<3>(),
+      fused_mma_init_one<4>(),
+  };
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
+}
+
+// Blocks of the bf16 fused kernel at head dim dh that one SM of this device
+// holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory,
+// after decode_attention_fused_init), or -1: what ops.fused_blocks_per_sm
+// reckons for the plan.
+extern "C" int decode_attention_fused_blocks_per_sm(int dh) {
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dh > 0 && dh <= 64)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, decode_attention_fused_mma_kernel<1>, kFusedThreads, FusedMma<1>::kRing);
+  else if (dh <= 128)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, decode_attention_fused_mma_kernel<2>, kFusedThreads, FusedMma<2>::kRing);
+  else if (dh <= 192)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, decode_attention_fused_mma_kernel<3>, kFusedThreads, FusedMma<3>::kRing);
+  else if (dh <= 256)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, decode_attention_fused_mma_kernel<4>, kFusedThreads, FusedMma<4>::kRing);
+  return e == cudaSuccess ? n : -1;
 }
 
 // C entry point of the fused variant (bound with ctypes).  q [B,1,Hq,dh],
 // k_new/v_new [B,1,Hkv,dh], k/v caches [B,T,Hkv,dh] (row q_start[b] written
-// in place), out [B,1,Hq,dh]; every pointer 16-byte aligned.  dtype: 0 = fp32,
-// 1 = bf16.  window <= 0 means no window.  tk keys per tile (128, 64, 32 or 16,
-// with dh * itemsize * tk <= 16 KB); split_len a multiple of tk, and
-// n_splits = ceil(T / split_len) <= 8.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// in place), out [B,1,Hq,dh]; every pointer 16-byte aligned.  dtype: 0 =
+// fp32 (CUDA-core products; tk keys a tile: 128, 64, 32 or 16, with dh * 4 *
+// tk <= 16 KB), 1 = bf16 (mma.sync; tk 64 up to dh 128, else 32).  window
+// <= 0 means no window.  n_splits blocks a (b, KV head) in clusters of
+// `cluster` (1 to 8, dividing n_splits); with more than one cluster, ws
+// holds the clusters' sums (fp32, n_splits / cluster * B * Hkv * (2 * 16 +
+// G * dh)) and tickets B * Hkv ints, 0 before the launch and after it.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int decode_attention_fused_launch(const void* q, const void* k_new, const void* v_new,
                                              void* k, void* v, const void* q_start, void* out,
-                                             int B, int Hq, int Hkv, int Tlen, int dh, int window,
-                                             int n_splits, int split_len, int tk, int dtype,
-                                             void* stream) {
-  const int isz = dtype == 0 ? 4 : 2;
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 16 || B * Hkv > 65535 || dh <= 0 ||
-      dh > 256 || dh % 8 != 0 || (tk != 128 && tk != 64 && tk != 32 && tk != 16) ||
-      dh * isz * tk > 16384 || split_len <= 0 || split_len % tk != 0 || n_splits <= 0 ||
-      n_splits > kFusedMaxSplits || (n_splits - 1) * split_len >= Tlen ||
-      n_splits * split_len < Tlen)
+                                             void* ws, void* tickets, int B, int Hq, int Hkv,
+                                             int Tlen, int dh, int window, int n_splits,
+                                             int cluster, int tk, int dtype, void* stream) {
+  if (B <= 0 || Tlen <= 0 || Hkv <= 0 || Hq < Hkv || Hq % Hkv != 0 || Hq / Hkv > kFusedRows ||
+      B * Hkv > 65535 || dh <= 0 || dh > 256 || dh % 8 != 0 || cluster < 1 ||
+      cluster > kFusedMaxCluster || n_splits < cluster || n_splits % cluster != 0 ||
+      (n_splits > cluster && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto qs = static_cast<const int32_t*>(q_start);
+  auto w = static_cast<float*>(ws);
+  auto t = static_cast<int*>(tickets);
   const int G = Hq / Hkv;
-  if (dtype == 0)
-    return (int)fused_launch_tk<float>(q, k_new, v_new, k, v, qs, out, B, Hkv, G, Tlen, dh,
-                                       window, n_splits, split_len, tk, st);
-  if (dtype == 1)
-    return (int)fused_launch_tk<__nv_bfloat16>(q, k_new, v_new, k, v, qs, out, B, Hkv, G, Tlen,
-                                               dh, window, n_splits, split_len, tk, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if ((tk != 128 && tk != 64 && tk != 32 && tk != 16) || dh * 4 * tk > 16384)
+      return (int)cudaErrorInvalidValue;
+    if (tk == 128)
+      return (int)fused_f32_launch_g<128>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen,
+                                          dh, window, n_splits, cluster, tk, st);
+    return (int)fused_f32_launch_g<0>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen, dh,
+                                      window, n_splits, cluster, tk, st);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int dc = (dh + 63) / 64;  // the padded width's column chunks of 64
+  if (tk != (dc <= 2 ? FusedMma<1>::kTk : FusedMma<3>::kTk)) return (int)cudaErrorInvalidValue;
+  switch (dc) {
+    case 1: return (int)fused_mma_launch<1>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen, dh, window, n_splits, cluster, st);
+    case 2: return (int)fused_mma_launch<2>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen, dh, window, n_splits, cluster, st);
+    case 3: return (int)fused_mma_launch<3>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen, dh, window, n_splits, cluster, st);
+    default: return (int)fused_mma_launch<4>(q, k_new, v_new, k, v, qs, out, w, t, B, Hkv, G, Tlen, dh, window, n_splits, cluster, st);
+  }
 }
 
 namespace {

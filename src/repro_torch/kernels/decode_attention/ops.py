@@ -5,9 +5,13 @@ Three variants; :func:`variant` names the one that takes the model's cached
 attention call of a shape, from static shapes before any launch:
 
 * ``"fused"``: one query row (S = 1) and at most 16 rows per KV head.  One
-  launch writes the step's K/V row into the cache, attends, and combines its
-  KV splits inside a thread-block cluster.  ``decode_step`` takes it through
-  :func:`decode_attention_chunk` (alias :func:`decode_attention_insert`).
+  launch writes the step's K/V row into the cache and attends (bf16 on the
+  tensor cores); :func:`plan_fused` sizes its grid to the card, each block
+  takes its share of the live keys (:func:`fused_partition`, on the card
+  from ``q_start``), and the splits combine inside a thread-block cluster
+  and, past one cluster, through a workspace the last block of a KV head
+  reads.  ``decode_step`` takes it through :func:`decode_attention_chunk`
+  (alias :func:`decode_attention_insert`).
 * ``"chunk"``: S > 1 query rows in bf16, the head dim padded to 16 at most
   256 (dh 16 and up) and a GQA group dividing 64.  One launch writes the
   chunk's K/V rows into the cache and attends with ``wgmma``; a cluster of
@@ -25,7 +29,8 @@ A tensor on the CPU goes to the plain version
 the wrapper raises: there is no fallback.  A tensor on the ``meta`` device
 (the dry-run) takes an explicit shape-only path: the variant's outputs and
 scratch (the split variant's partials, planned for the H100's SMs) as meta
-tensors, the call's FLOPs and bytes reported to
+tensors (the fused variant's workspace and tickets too), the call's FLOPs
+and bytes reported to
 :mod:`repro_torch.kernels.meta`, and no launch.  The valid lengths are
 values a meta tensor does not hold, so the count takes every key of the
 cache, as ``model_flops`` does for a decode step.
@@ -44,8 +49,9 @@ from .. import build, meta
 
 __all__ = [
     "count_replays", "decode_attention", "decode_attention_chunk", "decode_attention_chunk_plain",
-    "decode_attention_insert", "decode_attention_plain", "plan", "plan_chunk", "plan_fused",
-    "reset_launches", "variant",
+    "decode_attention_insert", "decode_attention_plain", "fused_blocks_per_sm", "fused_partition",
+    "fused_tile", "fused_workspace_floats", "plan", "plan_chunk", "plan_fused", "reset_launches",
+    "variant",
 ]
 
 _WARPS, _ROWS_PER_WARP = 4, 4  # must match kWarps / kRowsPerWarp in the source
@@ -54,7 +60,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("split", "fused", "chunk")
 KERNELS_PER_CALL = {"split": 2, "fused": 1, "chunk": 1}  # split: the split and the combine kernel
 FUSED_MAX_G = 16  # query rows per KV head that one fused block holds
-MAX_CLUSTER = 8  # the portable cluster size: splits of a fused or a chunk call
+MAX_CLUSTER = 8  # the portable cluster size: blocks of a fused or a chunk cluster
+FUSED_THREADS = 128  # threads of a fused block (kFusedThreads)
+FUSED_STAGES = 3  # K/V tiles in a fused block's ring (kFusedStages)
+FUSED_SPLIT_KEYS = 64  # the fewest keys of the static T a fused split is planned for
+CLUSTER_SPLIT_KEYS = 1024  # ... when the splits span more than one cluster
+FUSED_TICKETS = 65_535  # one ticket a (b, KV head): the launch's most B * Hkv
+# an H100 SM: shared memory its blocks share, the part each block reserves,
+# and threads; a fused block's static shared memory (the combine's flag) as
+# allocated
+SM_SMEM_BYTES, BLOCK_SMEM_RESERVED, SM_THREADS = 233_472, 1_024, 2_048
+FUSED_STATIC_SMEM = 128
 CHUNK_ROWS = 64  # query rows of a chunk block (one wgmma tile): G must divide it
 CHUNK_KEYS = 64  # keys of a chunk block's tile
 _fns: dict[str, object] = {}
@@ -75,8 +91,8 @@ def _kernel(name: str):
             if err != 0:
                 raise RuntimeError(f"decode_attention {name} init failed: CUDA error {err}")
             fn = getattr(lib, f"decode_attention_{name}_launch")
-            n_int = 10 if name == "fused" else 8
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            n_ptr, n_int = (9, 10) if name == "fused" else (7, 8)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         else:
             fn = lib.decode_attention_launch
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -119,20 +135,94 @@ def plan(B: int, S: int, Hq: int, Hkv: int, T: int, dh: int, n_sm: int) -> tuple
     return tk, split_len, -(-T // split_len)
 
 
-def plan_fused(T: int, dh: int, dtype: torch.dtype) -> tuple[int, int, int]:
-    """Fused variant: (key tile, split length, number of splits) from the
-    static T only, so a launch never waits on the device's lengths.  A key
-    tile is a power of two from 16 to 128 keys and at most 16 KB of K; a
-    split is a whole number of tiles, aiming at 64 keys or more; at most 8
-    splits, the blocks of one cluster."""
-    row_bytes = dh * torch.finfo(dtype).bits // 8
+def fused_tile(dh: int, dtype: torch.dtype) -> int:
+    """Keys of a fused block's K/V tile.  bf16 (``mma.sync``): 64 up to dh
+    128 (four warps of 16 keys), 32 above (two warps along the keys, two
+    along O's columns).  fp32 (CUDA-core products): a power of two from 16
+    to 128 keys and at most 16 KB of K."""
+    if dtype == torch.bfloat16:
+        return 64 if dh <= 128 else 32
     tk = 128
-    while tk * row_bytes > 16384:
+    while tk * dh * torch.finfo(dtype).bits // 8 > 16384:
         tk //= 2
-    want = max(1, min(MAX_CLUSTER, -(-T // 64)))
-    per_split = -(-T // want)
-    split_len = -(-per_split // tk) * tk
-    return tk, split_len, -(-T // split_len)
+    return tk
+
+
+def fused_blocks_per_sm(dh: int, dtype: torch.dtype) -> int:
+    """Fused blocks an H100 SM holds.  bf16: as many as the ring's shared
+    memory allows (FusedMma::kBlocksPerSm; ``__launch_bounds__`` holds the
+    registers to it, and ``chip_smoke.py`` checks it against the device's
+    own reckoning).  fp32, the parity path, is planned at one."""
+    if dtype != torch.bfloat16:
+        return 1
+    row = 128 * -(-dh // 64) + 16  # bytes of a K or V row, padded against bank conflicts
+    ring = FUSED_STAGES * 2 * fused_tile(dh, dtype) * row
+    return min(SM_THREADS // FUSED_THREADS,
+               SM_SMEM_BYTES // (ring + FUSED_STATIC_SMEM + BLOCK_SMEM_RESERVED))
+
+
+def plan_fused(B: int, Hkv: int, T: int, dh: int, dtype: torch.dtype, n_sm: int,
+               window: int | None = None) -> tuple[int, int, int]:
+    """Fused variant: (key tile, splits a (b, KV head), blocks a cluster),
+    from static shapes only, so a launch never waits on the device's
+    lengths: as many splits as fill every SM's blocks once over the B * Hkv
+    heads, no more than the keys a row can see (T, or the window) hold
+    tiles of FUSED_SPLIT_KEYS, and one cluster of at most MAX_CLUSTER; past
+    one cluster only while each split keeps CLUSTER_SPLIT_KEYS of them, in
+    whole clusters: of MAX_CLUSTER where an SM holds four blocks or more,
+    else of 2 (at two blocks an SM an H100 does not place all of the larger
+    clusters at once: ``tools/decode_ab.py sweep``).  Each block cuts its
+    share from the live length on the card (:func:`fused_partition`)."""
+    tk = fused_tile(dh, dtype)
+    keys = min(T, window) if window else T
+    per_sm = fused_blocks_per_sm(dh, dtype)
+    want = max(1, min(n_sm * per_sm // (B * Hkv), -(-keys // FUSED_SPLIT_KEYS)))
+    if want <= MAX_CLUSTER:
+        return tk, want, want
+    want = min(want, keys // CLUSTER_SPLIT_KEYS)
+    if want <= MAX_CLUSTER:
+        return tk, MAX_CLUSTER, MAX_CLUSTER
+    cluster = MAX_CLUSTER if per_sm >= 4 else 2
+    return tk, max(MAX_CLUSTER, want // cluster * cluster), cluster
+
+
+def fused_partition(q_start: int, T: int, window: int | None, n_splits: int,
+                    tk: int) -> list[tuple[int, int]]:
+    """The keys ``(lo, hi)`` (inclusive; ``lo > hi`` when empty) of each of
+    a fused call's ``n_splits`` splits for a query at ``q_start``, as each
+    block computes them on the card (``fused_split_range``): the visible
+    keys (window included, none at or past T) cut into tiles of ``tk`` from
+    the first one, the tiles shared out evenly and in order, so no split is
+    empty while there are at least as many tiles as splits."""
+    lo = max(0, q_start - window + 1) if window else 0
+    hi = min(T - 1, q_start)
+    n_tiles = (hi - lo) // tk + 1 if hi >= lo else 0
+    first = [s * n_tiles // n_splits * tk for s in range(n_splits + 1)]  # each split's first key
+    return [(lo + a, min(hi, lo + b - 1)) for a, b in zip(first, first[1:])]
+
+
+def fused_workspace_floats(B: int, Hkv: int, G: int, dh: int, n_splits: int, cluster: int) -> int:
+    """fp32 values of a fused call's workspace: none within one cluster; past
+    it, m and l of 16 rows and the G * dh sums of each (b, KV head) and
+    cluster."""
+    n_clusters = n_splits // cluster
+    return 0 if n_clusters == 1 else B * Hkv * n_clusters * (2 * FUSED_MAX_G + G * dh)
+
+
+# The fused variant's tickets, one int32 a (b, KV head) a device, zeros
+# between launches: made once, outside any graph capture, and kept (the
+# kernel sets each back to 0).  Calls on one device run in stream order.
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention fused: the first call past one cluster of splits "
+                               "must run outside a CUDA graph capture")
+        t = _TICKETS[device] = torch.zeros(FUSED_TICKETS, dtype=torch.int32, device=device)
+    return t
 
 
 def plan_chunk(B: int, S: int, G: int, Hkv: int, T: int, n_sm: int) -> int:
@@ -161,14 +251,14 @@ def _record(var: str, q: torch.Tensor, T: int, Hkv: int, writes: bool) -> None:
     """A meta call's count: bytes q read and out written, every cached K/V
     row read (and with ``writes`` the new rows read and written), q_start
     read; FLOPs 4 per (query row, key) pair and head dim in QK^T and PV.
-    The chunk variant's products run on the tensor cores, the split and
-    fused variants' on the CUDA cores in fp32."""
+    The chunk variant's and the bf16 fused variant's products run on the
+    tensor cores, the split variant's and fp32's on the CUDA cores."""
     B, S, Hq, dh = q.shape
     isz = q.element_size()
     nbytes = (2 * B * S * Hq * dh + 2 * B * T * Hkv * dh) * isz + 4 * B
     if writes:
         nbytes += 4 * B * S * Hkv * dh * isz
-    unit = "bf16" if var == "chunk" else "fp32"
+    unit = "bf16" if q.dtype == torch.bfloat16 and var != "split" else "fp32"
     meta.record(f"decode_attention_{var}", 4 * B * S * T * Hq * dh, nbytes, unit)
 
 
@@ -303,6 +393,13 @@ def decode_attention_chunk(
         raise ValueError("decode_attention_chunk: q, k and v must start on a 16-byte boundary")
 
     out = torch.empty_like(q)
+    ws = tickets = None
+    if var == "fused":
+        tk, n_splits, cluster = plan_fused(B, Hkv, T, dh, q.dtype, _sms(q.device), window)
+        n_ws = fused_workspace_floats(B, Hkv, Hq // Hkv, dh, n_splits, cluster)
+        if n_ws:  # splits past one cluster: the clusters' sums and the tickets
+            ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+            tickets = _tickets(q.device)
     if q.device.type == "meta":  # the dry-run: shapes and counts, no launch
         _record(var, q, T, Hkv, writes=True)
         return out
@@ -311,9 +408,10 @@ def decode_attention_chunk(
             v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         if var == "fused":
-            tk, split_len, n_splits = plan_fused(T, dh, q.dtype)
-            err = _kernel("fused")(*ptrs, B, Hq, Hkv, T, dh, window or 0, n_splits, split_len,
-                                   tk, _DTYPES[q.dtype], stream)
+            err = _kernel("fused")(*ptrs, None if ws is None else ws.data_ptr(),
+                                   None if tickets is None else tickets.data_ptr(), B, Hq, Hkv,
+                                   T, dh, window or 0, n_splits, cluster, tk,
+                                   _DTYPES[q.dtype], stream)
         else:
             n_split = plan_chunk(B, S, Hq // Hkv, Hkv, T, _sms(q.device))
             err = _kernel("chunk")(*ptrs, B, S, Hq, Hkv, T, dh, window or 0, n_split, stream)

@@ -169,6 +169,37 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 }
 
 // ---------------------------------------------------------------------------
+// warp-level mma.sync and ldmatrix
+// ---------------------------------------------------------------------------
+// Four 8x8 bf16 matrices from shared memory: lanes 8j..8j+7 give the
+// addresses of matrix j's eight 16-byte rows, and r[j] receives its
+// fragment (lane l: row l/4, elements 2(l%4) and 2(l%4)+1; with .trans the
+// same two elements of column l/4, rows 2(l%4) and 2(l%4)+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// d[16 x 8] (fp32) += A[16 x 16] . B[16 x 8], bf16, one warp.  A: a[0] rows
+// l/4, columns 2(l%4)+{0,1}; a[1] the same 8 rows down; a[2], a[3] the same
+// 8 columns right.  B: b0 rows (k) 2(l%4)+{0,1}, column l/4; b1 8 rows down.
+// d: d[0], d[1] row l/4, columns 2(l%4)+{0,1}; d[2], d[3] 8 rows down.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 // Shared-memory matrix descriptor of a tile of 128-byte rows under the

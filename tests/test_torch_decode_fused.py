@@ -155,26 +155,42 @@ def test_empty_shapes_raise(S, G):
 @pytest.mark.parametrize("dh", range(8, 257, 8))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 def test_fused_plan_covers_every_cache_length(dh, dtype):
-    """For every head dim the fused variant takes, from T = 1 to 4096: at
-    most 8 splits (one cluster), each a whole number of key tiles, covering
-    T with no empty split; a key tile is one the kernel takes (16, 32, 64 or
-    128 keys) and holds at most 16 KB of K, the largest that fits."""
+    """For every head dim the fused variant takes, from T = 1 to 4096 and at
+    the serve cells' T, at B 1 and B 98: a key tile the kernel takes (bf16:
+    64 up to dh 128, else 32; fp32: 16, 32, 64 or 128 keys, at most 16 KB of
+    K, the largest that fits); whole clusters of at most 8 blocks; no more
+    splits than fill every SM once (but one) nor than the keys hold tiles of
+    64; past one cluster, clusters of 8 or 2 and at least 1,024 keys a
+    split; and the splits of the
+    live-length partition cover every visible key once."""
     assert ops.variant(1, 8, dh, dtype) == "fused"
     itemsize = torch.finfo(dtype).bits // 8
-    for T in range(1, 4097):
-        tk, split_len, n_splits = ops.plan_fused(T, dh, dtype)
-        assert tk in (16, 32, 64, 128) and tk * dh * itemsize <= 16384
-        assert tk == 128 or 2 * tk * dh * itemsize > 16384
-        assert split_len % tk == 0
-        assert 1 <= n_splits <= 8
-        assert (n_splits - 1) * split_len < T <= n_splits * split_len
+    for B in (1, 98):
+        for T in [*range(1, 4097), 32_768, 524_288]:
+            tk, n_splits, cluster = ops.plan_fused(B, 4, T, dh, dtype, 132)
+            if dtype == torch.bfloat16:
+                assert tk == (64 if dh <= 128 else 32)
+            else:
+                assert tk in (16, 32, 64, 128) and tk * dh * itemsize <= 16384
+                assert tk == 128 or 2 * tk * dh * itemsize > 16384
+            assert 1 <= cluster <= 8 and n_splits % cluster == 0
+            assert n_splits == 1 or n_splits * B * 4 <= 132 * ops.fused_blocks_per_sm(dh, dtype)
+            assert n_splits <= -(-T // 64)
+            if n_splits > cluster:  # clusters of 8, or of 2 at fewer than 4 blocks an SM
+                assert cluster == (8 if ops.fused_blocks_per_sm(dh, dtype) >= 4 else 2)
+                assert n_splits * 1024 <= T
+            if T % 997 == 0 or T > 4096:  # the partition at a sample of lengths
+                for q_start in (0, T // 3, T - 1):
+                    ranges = ops.fused_partition(q_start, T, None, n_splits, tk)
+                    keys = [t for a, b in ranges for t in range(a, b + 1)]
+                    assert keys == list(range(q_start + 1))
 
 
 def test_fused_plan_at_serving_sizes():
     # the full-width engine's cache (max_len 1024) and the smoke engine's (128)
-    assert ops.plan_fused(1024, 64, torch.bfloat16) == (128, 128, 8)
-    assert ops.plan_fused(128, 8, torch.float32) == (128, 128, 1)
+    assert ops.plan_fused(1, 4, 1024, 64, torch.bfloat16, 132) == (64, 8, 8)
+    assert ops.plan_fused(1, 2, 128, 8, torch.float32, 132) == (128, 2, 2)
     # rows that are not a power of two bytes: the tile rounds down to one
-    assert ops.plan_fused(1024, 96, torch.bfloat16)[0] == 64  # 192-byte rows
-    assert ops.plan_fused(1024, 40, torch.float32)[0] == 64  # 160-byte rows
-    assert ops.plan_fused(1024, 136, torch.bfloat16)[0] == 32
+    assert ops.plan_fused(1, 4, 1024, 96, torch.bfloat16, 132)[0] == 64  # 192-byte rows
+    assert ops.plan_fused(1, 4, 1024, 40, torch.float32, 132)[0] == 64  # 160-byte rows
+    assert ops.plan_fused(1, 4, 1024, 136, torch.bfloat16, 132)[0] == 32

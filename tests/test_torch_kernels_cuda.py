@@ -87,6 +87,15 @@ FUSED_CASES = [
     # deepseek-7b's and qwen2-moe-a2.7b's decode step: G 1 at dh 128
     (1, 32, 32, 1024, 128, [575], None),
     (1, 16, 16, 1024, 128, [600], None),
+    # plans past one cluster of splits (clusters combined through the
+    # workspace and the tickets): one visible key, and mixed lengths
+    (1, 32, 4, 65536, 64, [0], None),
+    (1, 32, 4, 65536, 64, [1], None),
+    (4, 32, 4, 65536, 64, [10, 32768, 65535, 3], None),
+    (1, 8, 4, 131072, 256, [0], None),
+    (1, 8, 4, 131072, 256, [1], None),
+    (4, 8, 4, 131072, 256, [10, 65536, 131071, 3], None),
+    (2, 8, 4, 131072, 256, [70000, 131071], 1024),  # a window over a long cache
 ]
 
 
@@ -193,6 +202,33 @@ def test_fused_decode_attention_counts_graph_replays():
     assert ops.decode_attention.launches_by_variant == {"split": 0, "fused": 3, "chunk": 0}
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
     assert torch.equal(k, k_want)
+
+
+@pytest.mark.cuda
+def test_fused_decode_attention_graph_replays_across_split_boundaries():
+    """One call past one cluster of splits (T 131,072, bf16) captured once:
+    replays while q_start moves across tile, split and cluster boundaries
+    equal eager calls bit for bit (each block cuts its keys from the live
+    length on the card; the tickets are back at 0 after every launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = (1, 8, 4, 131072, 256, [0], None)
+    q, k_new, v_new, k, v, q_start = _fused_inputs(case, torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tk, n_splits, cluster = ops.plan_fused(1, 4, 131072, 256, torch.bfloat16, n_sm)
+    assert n_splits > cluster
+    ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
+    for qs in (0, tk - 1, tk, n_splits * tk - 1, n_splits * tk, 8 * n_splits * tk + 3, 131071):
+        q_start.fill_(qs)
+        graph.replay()
+        replayed = out.clone()
+        eager = ops.decode_attention_insert(q, k_new, v_new, k, v, q_start)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager), qs
 
 
 @pytest.mark.cuda

@@ -272,18 +272,22 @@ def _alloc(nbytes: int) -> int:
 
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,dh,window,plan", [
-    (98, 32_768, 32, 4, 64, None, (128, 4096, 8)),  # TinyLlama decode_32k at its cut
-    (1, 524_288, 8, 4, 256, 1024, (32, 65_536, 8)),  # gemma3-4b long_500k, a local layer
-    (1, 524_288, 8, 4, 256, None, (32, 65_536, 8)),  # and a global one
+    (98, 32_768, 32, 4, 64, None, (64, 1, 1)),  # TinyLlama decode_32k at its cut
+    (1, 524_288, 8, 4, 256, 1024, (32, 8, 8)),  # gemma3-4b long_500k, a local layer
+    (1, 524_288, 8, 4, 256, None, (32, 66, 2)),  # and a global one
 ], ids=["decode_32k-dh64", "long_500k-local", "long_500k-global"])
 def test_fused_decode_at_the_lm_cells_on_meta(B, T, Hq, Hkv, dh, window, plan):
     """The fused decode at the serve cells' T on meta: the card path's
-    allocation (its output alone: the splits combine in the cluster), the
-    plan from the static T (at most 8 splits, one cluster a row and KV
-    head), every cache key counted, no launch."""
+    allocations (its output; past one cluster of splits also the fp32
+    workspace of the clusters' sums and, made once a device, the tickets),
+    the plan from static shapes, every cache key counted, no launch."""
     bf16 = torch.bfloat16
-    assert decode_ops.variant(1, Hq // Hkv, dh, bf16) == "fused"
-    assert decode_ops.plan_fused(T, dh, bf16) == plan
+    G = Hq // Hkv
+    assert decode_ops.variant(1, G, dh, bf16) == "fused"
+    assert decode_ops.plan_fused(B, Hkv, T, dh, bf16, meta.SMS, window) == plan
+    n_ws = decode_ops.fused_workspace_floats(B, Hkv, G, dh, plan[1], plan[2])
+    assert n_ws == (0 if plan[1] == plan[2] else B * Hkv * plan[1] // plan[2] * (32 + G * dh))
+    decode_ops._TICKETS.pop(torch.device(M), None)  # as on a card's first such call
     before = _launch_counts()
     rk = dryrun.Reckoner()
     with rk, meta.counting() as counts:
@@ -294,7 +298,8 @@ def test_fused_decode_at_the_lm_cells_on_meta(B, T, Hq, Hkv, dh, window, plan):
         base = rk.live
         out = decode_ops.decode_attention_chunk(q, k_new, v_new, k, v, q_start, window=window)
     assert out.shape == q.shape and out.dtype == bf16 and out.device.type == "meta"
-    assert rk.peak - base == _alloc(out.numel() * 2)
+    extra = _alloc(n_ws * 4) + _alloc(decode_ops.FUSED_TICKETS * 4) if n_ws else 0
+    assert rk.peak - base == _alloc(out.numel() * 2) + extra
     assert counts.calls == {"decode_attention_fused": 1} and _launch_counts() == before
     assert counts.flops["decode_attention_fused"] == 4 * B * T * Hq * dh
     assert counts.bytes["decode_attention_fused"] >= 2 * B * T * Hkv * dh * 2
