@@ -221,15 +221,25 @@ fused one at dh 256), then a chain of 25 64-token ``prefill_chunk`` calls
 over its 2,048-row cache held against ``prefill`` of the same tokens.
 After it, the reference's LM serve cells (``phase_lm_cells``): TinyLlama's
 ``prefill_32k`` and ``decode_32k``, gemma3-4b's ``prefill_32k``,
-``decode_32k`` and ``long_500k``, through ``build_serve_step`` at the
+``decode_32k`` and ``long_500k``, deepseek-7b's ``prefill_32k`` and
+``decode_32k``, through ``build_serve_step`` at the
 published widths, S or T, window and ``cache_len``, each at the cut (batch,
 or at B 1 depth) the dry-run's ``fit`` takes under 75 GB, the decode cache
 drawn on the card: step ms, tokens a second, the device's idle share, the
 step's peak against its reckoning, every launch ``fused`` or ``wgmma``, the
 kernels at each cell's shape against their plain versions, and each decode
-step at B 2 and 2 layers against the CPU port.  Those checks draw their
+step at B 2 and 2 layers against the CPU port.  Then the ``train_4k`` cell
+(S 4,096) of TinyLlama-1.1B, gemma3-4b and deepseek-7b through
+``build_train_step`` at the cut and remat the dry-run's ``fit`` takes (remat
+full where it keeps more layers than none): the step's gradient at B 1
+through the flash kernels against the plain attention in fp32, step ms,
+tokens a second, losses and gradient norms, the idle share, the peak
+against its reckoning, every flash launch ``wgmma``, and the flash forward
+and backward at the cell's shape against fp32 autograd of the plain
+version.  Those checks draw their
 queries or keys so that the scores spread by several units (a near-flat
-softmax would hide a dropped key), and each refuses planted wrong outputs.
+softmax would hide a dropped key), and each refuses planted wrong outputs
+(the train cells': gradients with the keys past 2,048 dropped).
 The steps run back to back on expandable allocator segments.
 
 It needs a CUDA card and the ``repro_torch`` package beside it (under
@@ -6104,7 +6114,14 @@ def phase_gateway(dev) -> dict:
 # --------------------------------------------------------------------------
 LM_CELLS = (("tinyllama-1.1b", "prefill_32k"), ("tinyllama-1.1b", "decode_32k"),
             ("gemma3-4b", "prefill_32k"), ("gemma3-4b", "decode_32k"),
-            ("gemma3-4b", "long_500k"))
+            ("gemma3-4b", "long_500k"), ("deepseek-7b", "prefill_32k"),
+            ("deepseek-7b", "decode_32k"))
+LM_TRAIN_CELLS = ("tinyllama-1.1b", "gemma3-4b", "deepseek-7b")  # train_4k through each
+# the keys from which the planted controls of the train cells drop the
+# backward's gradient: every train step on the card before these cells
+# stopped at S 2,048
+LM_TRAIN_CUT = 2048
+LM_GRAD_TOL = 5e-2  # the step's gradient against the fp32 oracle's, as family_checks holds it
 LM_CELL_STEPS = 3  # timed, after one warm-up; one more runs under the profiler
 LM_BLOCK = 256  # query rows of each block on which the plain version checks the flash forward
 LM_CHECK_LAYERS = 2  # the decode cells' whole step card against CPU: one local, one global
@@ -6446,6 +6463,298 @@ def lm_cell(dev, arch: str, name: str) -> dict:
     return out
 
 
+def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> dict:
+    """The flash forward and backward at a train cell's shape (bf16, causal,
+    ``window``; q drawn at LM_KEY_SPREAD, k, v and dout unit normal) against
+    fp32 autograd of the plain version, taken one sequence at a time (the
+    plain scores of the whole batch take 13 GB a copy at TinyLlama's B 6):
+    out, lse, dq, dk and dv within TOL.  Two planted controls must fail the
+    same check: zeros, and the kernels' dK and dV with the rows of keys
+    LM_TRAIN_CUT and after zeroed (what a backward that stopped at the S of
+    the earlier train steps gives).  Times: the kernels, the bound, the
+    plain version on one sequence, SDPA at the cell's shape."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    Hq, Hkv, dh, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    tol = TOL[bf16]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(std=LM_KEY_SPREAD,
+                                                                  generator=gen)
+    k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
+            for _ in range(2))
+    dout = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    kw = dict(causal=True, window=window)
+    out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+    got = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                   (out, lse, *fops.flash_attention_bwd(q, k, v, out, lse, dout, **kw))))
+    worst = {name: [0.0, 0.0, 0.0] for name in got}  # max abs err, ratio, largest |ref|
+    cut = f"keys from {LM_TRAIN_CUT} on dropped"
+    planted = {"zeros": 0.0, cut: 0.0}  # worst ratio of each control
+    for b in range(B):
+        want = flash_oracle(q[b:b + 1], k[b:b + 1], v[b:b + 1], dout[b:b + 1], True, window)
+        for (name, g), ref in zip(got.items(), want):
+            e, r = assert_close_ratio(g[b:b + 1], ref, tol)
+            w = worst[name]
+            w[:] = max(w[0], e), max(w[1], r), max(w[2], ref.abs().max().item())
+            planted["zeros"] = max(planted["zeros"],
+                                   assert_close_ratio(torch.zeros_like(ref), ref, tol)[1])
+            if name in ("dk", "dv"):
+                dropped = g[b:b + 1].float()
+                dropped[:, LM_TRAIN_CUT:] = 0
+                planted[cut] = max(planted[cut], assert_close_ratio(dropped, ref, tol)[1])
+        del want
+    ratio = max(w[1] for w in worst.values())
+    print(f"{label}: flash at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} window {window}, "
+          f"{fops.variant(bf16, dh, Hq // Hkv)}: against fp32 autograd of the plain version, one "
+          f"sequence at a time (q at {LM_KEY_SPREAD}): " + ", ".join(
+              f"{n} max_abs_err {w[0]:.4e} ratio {w[1]:.4f} (largest {w[2]:.4e})"
+              for n, w in worst.items())
+          + f"; worst err/(tol + tol*|ref|) {ratio:.4f} (tol {tol}: must be at most 1); planted "
+          f"controls' worst ratios (each must exceed 1): zeros {planted['zeros']:.4f}, {cut} "
+          f"{planted[cut]:.4f}")
+    check(ratio <= 1.0, f"{label}: flash against fp32 autograd: {worst}")
+    check(min(planted.values()) > 1.0, f"{label}: a planted control passes the check: {planted}")
+    o, l = got["out"], got["lse"]
+    del got, out, lse
+    times = {"fwd": {"queued_ms": queued_ms(lambda: fops.flash_attention_fwd(q, k, v, **kw))},
+             "bwd": {"queued_ms": queued_ms(
+                 lambda: fops.flash_attention_bwd(q, k, v, o, l, dout, **kw))}}
+    times["fwd"]["plain_one_sequence_ms"] = cuda_ms(
+        lambda: attention_ref(q[:1], k[:1], v[:1], **kw), iters=3, warmup=1)
+    one = [t[:1].clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = attention_ref(*one, **kw)
+    times["bwd"]["plain_one_sequence_ms"] = backward_ms(plain_out, one, dout[:1], iters=3)
+    del plain_out, one
+    times["fwd"]["library_ms"] = queued_ms(lambda: sdpa(q, k, v, True, window), iters=3)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = sdpa(qg, kg, vg, True, window)
+    times["bwd"]["library_ms"] = backward_ms(lib_out, (qg, kg, vg), dout, iters=3)
+    del lib_out, qg, kg, vg, q, k, v, dout, o, l
+    for kind, names in (("fwd", ("out", "lse")), ("bwd", ("dq", "dk", "dv"))):
+        t = times[kind]
+        t["bound_ms"], t["bound_by"] = flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window),
+                                                      bf16, backward=kind == "bwd")
+        t.update(plain_ms=None, max_abs_err=max(worst[n][0] for n in names),
+                 ratio=max(worst[n][1] for n in names))
+        print(f"{label}: flash {kind} queued_ms {t['queued_ms']:.4f} bound_ms "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}) plain_ms on one sequence "
+              f"{t['plain_one_sequence_ms']:.4f} SDPA {t['library_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return {**times, "controls": planted, "errs": worst,
+            "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "causal": True,
+                      "window": window}}
+
+
+class _KeysDropped(torch.autograd.Function):
+    """The flash kernels, forward and backward, with dK and dV zeroed from key
+    LM_TRAIN_CUT on: the planted control of ``lm_train_grad_check``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        from repro_torch.kernels.flash_attention import ops as fops
+
+        out, lse = fops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention import ops as fops
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fops.flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        dk[:, LM_TRAIN_CUT:] = 0
+        dv[:, LM_TRAIN_CUT:] = 0
+        return dq, dk, dv, None, None
+
+
+def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
+    """One forward and backward of the train cell's loss at its depth and
+    remat, B 1 x S, through four attentions (``family_grads``): the plain
+    version in fp32 (the oracle), the flash kernels, the plain version in
+    bf16, and the planted control (``_KeysDropped``).  The kernels' grad
+    norm and each attention projection leaf must lie within LM_GRAD_TOL of
+    the oracle's, or within the bf16 plain version's own distance where
+    that is larger; the control must not.  Under remat none each plain call
+    recomputes its scores in the backward (a checkpoint around the call,
+    values unchanged): the saved fp32 scores of every layer at S 4,096 do
+    not fit."""
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.launch.dryrun import batch_cut
+    from torch.utils.checkpoint import checkpoint
+
+    one = batch_cut(cell, 1)
+    batch = make_batch(cfg, one, seed=5, generator=torch.Generator(device=dev).manual_seed(5))
+    names = leaf_paths(params)
+    attn_idx = [i for i, n in enumerate(names) if n.startswith("layers/attn/")]
+
+    def plain(dtype):
+        def attn(q, k, v, *, causal=True, window=None):
+            def f(q, k, v):
+                return attention_ref(q.to(dtype), k.to(dtype), v.to(dtype), causal=causal,
+                                     window=window).to(q.dtype)
+            return checkpoint(f, q, k, v, use_reentrant=False) if remat == "none" else f(q, k, v)
+        return attn
+
+    def dropped(q, k, v, *, causal=True, window=None):
+        return _KeysDropped.apply(q, k, v, causal, window)
+
+    def norm(gs):
+        return math.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
+                             for g in gs))
+
+    f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
+    loss, ref, _ = family_grads(params, cfg, batch, remat=remat, attn=plain(torch.float32))
+    n_ref = norm(ref)
+    out = {"fp32 oracle": {"loss": loss, "norm": n_ref}}
+    for name, attn in (("plain bf16", plain(cfg.dtype)), ("kernels", flash_attention),
+                       ("planted", dropped)):
+        loss, grads, _ = family_grads(params, cfg, batch, remat=remat, attn=attn)
+        n = norm(grads)
+        dist = {"grad norm": abs(n - n_ref) / n_ref,
+                **{names[i].split("/")[-1]: rel_diff(grads[i], ref[i]) for i in attn_idx}}
+        out[name] = {"loss": loss, "norm": n, "dist": dist}
+        del grads
+    launches = (flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0)
+    del ref
+    bound = {q: max(LM_GRAD_TOL, d) for q, d in out["plain bf16"]["dist"].items()}
+    kern, ctrl = out["kernels"]["dist"], out["planted"]["dist"]
+    passes = lambda d: all(d[q] <= bound[q] for q in d)  # noqa: E731
+    print(f"{label} gradient check: {cfg.n_layers} layers, remat {remat}, B 1 S "
+          f"{one.params['seq_len']}: " + "; ".join(
+              f"{name} loss {r['loss']:.6f} grad norm {r['norm']:.6e}"
+              + ("" if "dist" not in r else " |x - x_fp32| / |x_fp32|: " + " ".join(
+                  f"{q} {d:.4e}" for q, d in r["dist"].items()))
+              for name, r in out.items())
+          + f"; held to {LM_GRAD_TOL} or the bf16 plain version's distance where larger; the "
+          f"planted control (dK, dV past key {LM_TRAIN_CUT} dropped) must fail; flash launches "
+          f"{launches}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["norm"]) for r in out.values()),
+          f"{label} gradient check: non-finite loss or norm: {out}")
+    check(passes(kern), f"{label} gradient check: the kernels' gradient {kern}, bound {bound}")
+    check(not passes(ctrl), f"{label} gradient check: the planted control passes: {ctrl}")
+    return {**out, "bound": bound, "launches": launches}
+
+
+def lm_train_cell(dev, arch: str) -> dict:
+    """The reference's ``train_4k`` cell through ``build_train_step`` at the
+    cut and remat the dry-run's ``fit_train`` takes (widths, S and the window as
+    published), random bf16 weights at the true fan-in (``lm_params``), a
+    fresh AdamW state, batches from ``make_batch`` drawn on the card: the
+    gradient check (``lm_train_grad_check``, on the parameters alone), one
+    warm-up step, LM_CELL_STEPS steps timed by CUDA events and one more
+    profiled; each step's loss and grad norm finite; the flash launches of
+    those steps (L forwards a step, 2L under remat full, L backwards, all
+    ``wgmma``; no decode kernel); the step's own peak against the
+    reckoning; the flash kernels at the cell's shape on one layer (a local
+    and a global one for gemma3-4b, ``lm_train_flash_check``)."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import reset_launches as reset_flash
+    from repro_torch.launch import dryrun
+    from repro_torch.train import build_train_step, make_train_state
+
+    name = "train_4k"
+    label = f"lm cell {arch} {name}"
+    published = next(c for c in get_shapes(arch) if c.name == name)
+    t0 = time.perf_counter()
+    remat, fits = dryrun.fit_train(arch, published, FIT_BYTES)
+    trace_s = time.perf_counter() - t0
+    cell, overrides, cuts, rec = fits[remat]
+    full_cfg = get_config(arch)
+    cfg = dryrun.apply_cfg_overrides(full_cfg, overrides)
+    B, S, L = cell.params["global_batch"], cell.params["seq_len"], cfg.n_layers
+    for r, (c, _, cu, rc) in fits.items():
+        print(f"{label}: the dry-run's cut under {FIT_BYTES} B at remat {r}: {cu or 'none'} "
+              f"(reckoned peak {rc['memory']['peak_hbm_bytes']} B, {rc['n_layers']} layers)")
+    print(f"{label}: takes remat {remat}: B {B} of {published.params['global_batch']}, {L} of "
+          f"{full_cfg.n_layers} layers, roofline {rec['roofline']['step_time_s'] * 1e3:.3f} ms; "
+          f"{trace_s:.1f} s of tracing")
+    check(rec["status"] == "ok" and S == published.params["seq_len"]
+          and dataclasses.replace(cfg, n_layers=full_cfg.n_layers) == full_cfg,
+          f"{label}: the cut touches more than the batch and the depth: {cell}, {overrides}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = torch.cuda.memory_allocated(dev)
+    params = lm_params(dev, cfg, seed=0)
+    grad = lm_train_grad_check(dev, cfg, cell, remat, params, label)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_train_state(params)
+    del params
+    step = build_train_step(cfg, cell, remat=remat)  # the optimizer dryrun.build_step takes
+    n_steps = LM_CELL_STEPS + 2
+    batches = [make_batch(cfg, cell, seed=i, generator=torch.Generator(device=dev).manual_seed(i))
+               for i in range(n_steps)]
+    check(all(sorted(b) == ["targets", "tokens"] and all(
+        t.shape == (B, S) and t.dtype == torch.int32 for t in b.values()) for b in batches),
+        f"{label}: make_batch gives {[(k, t.shape, t.dtype) for k, t in batches[0].items()]}")
+    metrics = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, batches[len(metrics)])
+        metrics.append(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_flash()
+    dops.reset_launches()
+    torch.cuda.empty_cache()
+    one()  # warm-up
+    times = []
+    for _ in range(LM_CELL_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        one()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    prof = profile_call(label, one, n_kernels=5,
+                        watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"))
+    max_mem = torch.cuda.max_memory_allocated(dev)
+    decode_launches = dict(dops.decode_attention.launches_by_variant)
+    flash_launches = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    med = sorted(times)[len(times) // 2]
+    run = {"mean_step_s": sum(times) / len(times) / 1e3, "max_memory": max_mem,
+           "base_memory": base, "pre_memory": pre}
+    print(f"{label}: {cfg.name} {L} layers bf16 remat {remat} B {B} S {S}: step ms median "
+          f"{med:.3f} range {min(times):.3f}-{max(times):.3f} over {LM_CELL_STEPS} (CUDA events), "
+          f"tokens_per_s {B * S / med * 1e3:.1f}; device idle share "
+          f"{prof.get('idle_share', 'not measured')}; losses "
+          f"{[round(r['loss'], 6) for r in rows]} grad norms "
+          f"{[round(r['grad_norm'], 6) for r in rows]}; the step's own peak {max_mem - pre} B "
+          f"(max_memory_allocated {max_mem} less {pre} held before) against the reckoned "
+          f"{rec['memory']['peak_hbm_bytes']}; launches in the {n_steps} steps: decode "
+          f"{decode_launches}, flash {flash_launches}")
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          f"{label}: non-finite metrics {rows}")
+    per_step = (2 if remat == "full" else 1) * L  # a forward a layer, again where remat recomputes
+    want_flash = {v: {"fwd": n_steps * per_step if v == "wgmma" else 0,
+                      "bwd": n_steps * L if v == "wgmma" else 0} for v in flash_launches}
+    check(all(n == 0 for n in decode_launches.values()) and flash_launches == want_flash,
+          f"{label}: decode {decode_launches}, flash {flash_launches} (wanted {want_flash})")
+    dr = dryrun_compare(f"{arch} {name} at the cut", rec, run, trace_s)
+    out = {"arch": arch, "cell": name, "cuts": cuts, "remat": remat, "B": B, "T": S,
+           "layers": L, "step_ms": times, "median_ms": med, "tokens_per_s": B * S / med * 1e3,
+           "metrics": rows, "profile": prof, "decode_launches": decode_launches,
+           "flash_launches": flash_launches, "dryrun": dr, "grad_check": grad, "kernels": {}}
+    del state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, w in lm_check_layers(cfg):
+        out["kernels"][f"layer {i}"] = lm_train_flash_check(dev, cfg, B, S, w,
+                                                            f"{label} layer {i}")
+    return out
+
+
 def phase_lm_cells(dev) -> dict:
     """The reference's LM serve cells (``configs/base.py``'s LM_SHAPES:
     ``prefill_32k``, ``decode_32k``, ``long_500k``; TinyLlama-1.1B's and
@@ -6453,7 +6762,8 @@ def phase_lm_cells(dev) -> dict:
     through ``build_serve_step`` at full width, S or T, window and
     ``cache_len``, random weights from a seeded CUDA generator at the true
     fan-in, the batch from ``make_batch`` drawn on the card, each at the
-    cut the dry-run takes under FIT_BYTES, one after another (``lm_cell``)."""
+    cut the dry-run takes under FIT_BYTES, one after another (``lm_cell``);
+    then the ``train_4k`` cell of each of LM_TRAIN_CELLS (``lm_train_cell``)."""
     # expandable segments: memory a step frees is unmapped, and the next
     # step's largest allocation (TinyLlama prefill's fp32 [B, S, V] logits,
     # 39 GiB at B 10) maps it again; with fixed segments, those the first
@@ -6463,14 +6773,14 @@ def phase_lm_cells(dev) -> dict:
     settings("expandable_segments:True")
     try:
         rows = {f"{arch} {name}": lm_cell(dev, arch, name) for arch, name in LM_CELLS}
+        rows.update({f"{arch} train_4k": lm_train_cell(dev, arch) for arch in LM_TRAIN_CELLS})
     finally:
         torch.cuda.empty_cache()
         settings("expandable_segments:False")
     fused = sum(r["decode_launches"]["fused"] for r in rows.values())
-    flash = {arch: sum(r["flash_launches"]["wgmma"]["fwd"] for r in rows.values()
-                       if r["arch"] == arch)
-             for arch in ("tinyllama-1.1b", "gemma3-4b")}
-    print(f"lm cells: decode fused kernels {fused}, flash wgmma forwards {flash} over the "
+    flash = {label: r["flash_launches"]["wgmma"] for label, r in rows.items()
+             if any(r["flash_launches"]["wgmma"].values())}
+    print(f"lm cells: decode fused kernels {fused}, flash wgmma launches {flash} over the "
           f"{len(rows)} cells' steps")
     return {"rows": rows, "fused": fused, "flash": flash}
 
@@ -6567,19 +6877,37 @@ def main() -> int:
                                 "full (7.3 KB an edge); nodes and edges cut by one factor, the "
                                 f"largest whose dry-run peak lies under {FIT_BYTES} B"},
         **{f"{r['arch']} {r['cell']}": {
-            **r["cuts"], "why": "the cell's weights, batch and step do not fit 80 GB; the "
-                                "dry-run's largest cut (batch, or at B 1 depth) whose reckoned "
-                                f"peak lies under {FIT_BYTES} B; widths, S or T, window and "
-                                "cache_len as published"}
+            **r["cuts"], **({"remat": r["remat"]} if "remat" in r else {}),
+            "why": "the cell's weights, batch and step do not fit 80 GB; the "
+                   "dry-run's largest cut (batch, or at B 1 depth) whose reckoned "
+                   f"peak lies under {FIT_BYTES} B (a train cell: at remat none, or full "
+                   "where that keeps more layers); widths, S or T, window and "
+                   "cache_len as published"}
            for r in lm["rows"].values() if r["cuts"]}}}
     lm_keys = ("queued_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
 
-    def at_lm_cells(cell: tuple[str, ...]) -> dict:
-        return {f"{label} {layer}": {"shape": r["shape"], **{k: r[k] for k in lm_keys},
-                                     **{k: r[k] for k in ("plain_last_block_ms", "largest",
-                                                          "controls", "flushed_ms") if k in r}}
-                for label, row in lm["rows"].items() if row["cell"] in cell or label in cell
-                for layer, r in row["kernels"].items()}
+    def at_lm_cells(cell: tuple[str, ...], kind: str | None = None) -> dict:
+        """The kernels' checks at the LM cells named (by cell or "arch cell");
+        a train cell's forward or backward by ``kind``."""
+        out = {}
+        for label, row in lm["rows"].items():
+            if not (row["cell"] in cell or label in cell):
+                continue
+            for layer, c in row["kernels"].items():
+                r = c[kind] if kind in c else c
+                out[f"{label} {layer}"] = {
+                    "shape": c["shape"], **{k: r[k] for k in lm_keys},
+                    **{k: r[k] for k in ("plain_last_block_ms", "plain_one_sequence_ms",
+                                         "largest", "flushed_ms") if k in r},
+                    **({"controls": c["controls"]} if "controls" in c else {})}
+        return out
+
+    def lm_flash(archs: tuple[str, ...], kind: str, train: bool) -> int:
+        """Flash launches of kind in the LM cells of ``archs``, the train cells or the serve."""
+        return sum(n[kind] for label, n in lm["flash"].items()
+                   if label.split()[0] in archs and label.endswith("train_4k") == train)
+
+    lm_train_path = "LM train cells (train_4k)"
 
     for name, var, case, tname, r, by_path in (
         ("decode_attention_fused", "fused", MAIN_CASE, "bfloat16",
@@ -6670,6 +6998,7 @@ def main() -> int:
             entry["at_chunk_case"] = {k: split_at_chunk[k] for k in timed_keys}
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
+    dc12 = ("tinyllama-1.1b", "deepseek-7b")  # the LM cells' flash calls at dh 64 and 128
     family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
                     "qwen2-moe-a2.7b prefill": qwen["prefill"]["launches"]}
     # deepseek-v2's flash calls, every one at the (3, 2) instantiation
@@ -6689,14 +7018,18 @@ def main() -> int:
         ("flash_attention", "fwd",
          {"train": train["launches"][0], "prefill": pre["launches"], wf_path: wf["flash"][0],
           "client": cli["flash"][0], "gateway": gwy["flash"][0], **family_flash,
-          **family_train_flash[0], LM_PATH: lm["flash"]["tinyllama-1.1b"]}),
+          **family_train_flash[0], LM_PATH: lm_flash(dc12, "fwd", False),
+          lm_train_path: lm_flash(dc12, "fwd", True)}),
         ("flash_attention_bwd", "bwd", {"train": train["launches"][1], wf_path: wf["flash"][1],
                                         "client": cli["flash"][1], "gateway": gwy["flash"][1],
-                                        **family_train_flash[1]}),
+                                        **family_train_flash[1],
+                                        lm_train_path: lm_flash(dc12, "bwd", True)}),
     ):
         r = fm[kind]
-        lm_shapes = {"at_lm_cells": at_lm_cells(("tinyllama-1.1b prefill_32k",))
-                     } if kind == "fwd" else {}
+        # TinyLlama's (DC 1, G 8) and deepseek-7b's (DC 2, G 1) at the LM cells
+        lm_shapes = {"at_lm_cells": at_lm_cells(
+            (*(("tinyllama-1.1b prefill_32k", "deepseek-7b prefill_32k") if kind == "fwd"
+               else ()), "tinyllama-1.1b train_4k", "deepseek-7b train_4k"), kind)}
         line["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -6763,9 +7096,12 @@ def main() -> int:
         ("flash_attention_dh256", "fwd",
          {"gemma3 prefill": gem["prefill_launches"],
           f"gemma3 train ({gtr['depth']} layers, 5 steps, remat full)": gtr["launches"][0],
-          "gemma3 6-layer check": gem["check_launches"], LM_PATH: lm["flash"]["gemma3-4b"]}),
+          "gemma3 6-layer check": gem["check_launches"],
+          LM_PATH: lm_flash(("gemma3-4b",), "fwd", False),
+          lm_train_path: lm_flash(("gemma3-4b",), "fwd", True)}),
         ("flash_attention_dh256_bwd", "bwd",
-         {f"gemma3 train ({gtr['depth']} layers, 5 steps)": gtr["launches"][1]}),
+         {f"gemma3 train ({gtr['depth']} layers, 5 steps)": gtr["launches"][1],
+          lm_train_path: lm_flash(("gemma3-4b",), "bwd", True)}),
     ):
         r = flash["cases"][(GEMMA_LOCAL, "bfloat16")]
         g = flash["cases"][(GEMMA_GLOBAL, "bfloat16")]
@@ -6798,7 +7134,8 @@ def main() -> int:
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "wgmma_rows_dh256_G3": {k: w[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
-            **({"at_lm_cells": at_lm_cells(("gemma3-4b prefill_32k",))} if kind == "fwd" else {}),
+            "at_lm_cells": at_lm_cells((*(("gemma3-4b prefill_32k",) if kind == "fwd" else ()),
+                                        "gemma3-4b train_4k"), kind),
         })
     f32_main = flash["cases"][(FLASH_MAIN, "float32")]
     for name, kind, by_path in (
@@ -6987,7 +7324,14 @@ def main() -> int:
             "decode_attention_fused", {}).get("busy_share"),
         "peak": r["dryrun"]["measured_peak"], "reckoned_peak": r["dryrun"]["reckoned_peak"],
         **({"card_vs_cpu": {k: r["cpu_check"][k] for k in ("max_abs_err", "largest", "control")}}
-           if "cpu_check" in r else {})} for label, r in lm["rows"].items()}
+           if "cpu_check" in r else {}),
+        **({"remat": r["remat"], "losses": [m["loss"] for m in r["metrics"]],
+            "grad_norms": [m["grad_norm"] for m in r["metrics"]],
+            "flash_busy_share": {w: x["busy_share"] for w, x in r["profile"].get(
+                "watch", {}).items()},
+            "gradient_check": {k: r["grad_check"][k]["dist"] for k in (
+                "kernels", "plain bf16", "planted")}} if "grad_check" in r else {})}
+        for label, r in lm["rows"].items()}
     line["store_server"] = {**store["tier"], "restore": store["restore"]}
     line["client"] = {
         "policies": {k: v["rows"] for k, v in cli["evaluation"].items()},

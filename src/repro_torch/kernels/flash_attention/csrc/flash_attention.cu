@@ -109,9 +109,10 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    at DC 4 the block has one (64 rows; 192 KB rather than 256) and no
 //    register rebalancing, since 256 threads may each hold 255.
 //  * dK/dV: a thread would hold dK and dV for its keys, 2 x DC x 32
-//    registers: 256 at DC 4, more than a thread has.  At DC <= 2 the two
-//    consumer warpgroups own 64 keys each.  At DC 3 and 4 (and at DC 2 for
-//    wgmma_rows: kv_split) both own the same 64 keys and split the head
+//    registers: 256 at DC 4, more than a thread has.  At DC 1 the two
+//    consumer warpgroups own 64 keys each.  At DC 2 to 4 (kv_split: at DC 2
+//    two 64-key halves with the hi + lo operands below spill under ptxas)
+//    both own the same 64 keys and split the head
 //    columns: warpgroup w accumulates dK and dV
 //    for the chunks [w * ceil(DC/2), (w+1) * ceil(DC/2)), 128 registers at
 //    most.  Each needs all of P^T and dS^T, so warpgroup 0 computes S^T
@@ -124,8 +125,8 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    ring is three stages at DC 3 and two at DC 4, which with the hand-off
 //    fills the 227 KB exactly.
 // Values narrower than keys.  V, O and dO take DVC = ceil(dv / 64) column
-// chunks (dv padded to 16) beside the keys' DC: P.V, dP = dO.V^T, D =
-// rowsum(dO * O), dP^T and dV += P^T.dO run over the DVC chunks only, TMA's
+// chunks (dv padded to 16) beside the keys' DC: P.V, dP = dO.V^T (and D =
+// rowsum(P * dP) through it), dP^T and dV += P^T.dO run over the DVC chunks only, TMA's
 // zero fill pads dv to its last chunk, and the stores write dv columns.  The
 // kernels are instantiated at DVC == DC (DC 1 to 4) and at (3, 2), MLA's
 // keys of 192 and values of 128, whose layout differs from DC 3's:
@@ -163,19 +164,22 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    takes a row r as position r/G of head kvh*G + r%G (the masks, the
 //    walks, lse and delta, the output rows), which holds for every G: past
 //    G 64 a 64-row tile is part of one position's heads (pos_lo == pos_hi).
-//  The flag is a template parameter, not a kernel argument, because it also
-//  changes the backward's arithmetic (below) and the registers that takes,
-//  and the wgmma kernels (kRows false) compile without any of it.
-// The precision of the backward at kRows.  A key's dK and dV sum over every
-// row that sees it, G times the positions: 5,040 rows at G 72, S 70.  With
-// P^T and dS^T rounded once to bf16 as the A operands of dV and dK, and D =
-// rowsum(dO * O) taken from the bf16 output, the rounding adds up past the
-// 2e-2 tolerance against the fp32 oracle at such groups (a plain-torch
-// emulation of both arithmetics: tests/test_torch_flash_rows.py).  So at
-// kRows the dQ kernel first walks its key tiles once to sum D = rowsum(P *
-// dP) in fp32 (two more products a tile), and the dK/dV kernel passes P^T and
-// dS^T as hi + lo, hi = bf16(x) and lo = bf16(x - hi), two wgmmas each: six
-// products a tile rather than four.
+//  The flag is a template parameter, not a kernel argument: the map and the
+//  gather are picked at compile time.
+// The precision of the backward.  A key's dK and dV sum over every row that
+// sees it, G times the positions: 5,040 rows at G 72, S 70; 32,768 at G 8,
+// S 4,096.  With P^T and dS^T rounded once to bf16 as the A operands of dV
+// and dK, and D = rowsum(dO * O) taken from the bf16 output, the rounding
+// adds up past the 2e-2 tolerance against the fp32 oracle at such groups,
+// and wherever the scores spread by a few units (the softmax picks a few
+// keys): with queries at 4 times the keys' scale dK misses it by up to 4.7
+// times at S 2,048 and at 4,096 alike, dQ and dV by 1.0 to 1.2 (a
+// plain-torch emulation of both arithmetics: tests/test_torch_flash_rows.py
+// and tests/test_torch_flash_spread.py).  So the dQ kernel first walks its
+// key tiles once to sum D = rowsum(P * dP) in fp32 (two more products a
+// tile), and the dK/dV kernel passes P^T and dS^T as hi + lo, hi = bf16(x)
+// and lo = bf16(x - hi), two wgmmas each: six products a tile rather than
+// four.
 //
 // The softmax and the gradients' elementwise work run on the wgmma
 // accumulators in registers: a thread holds two rows (lane/4 and lane/4 + 8
@@ -208,23 +212,20 @@ __host__ __device__ constexpr bool wgmma_pair(int DC, int DVC) {
 // dK's first DVC column chunks, warpgroup 1 the rest of dK and all of dV
 __host__ __device__ constexpr bool kv_own(int DC, int DVC) { return DVC < DC; }
 // dK/dV at equal chunk counts: whether the two warpgroups split the head
-// columns of 64 shared keys: at DC 3 and 4, and at kRows also at DC 2, where
-// the layout of two 64-key halves spills under ptxas (48 bytes; the wgmma
-// kernel at DC 2 spills 44 and keeps that layout)
-__host__ __device__ constexpr bool kv_split(int DC, bool rows) {
-  return DC >= 3 || (rows && DC == 2);
-}
+// columns of 64 shared keys: from DC 2, where the layout of two 64-key
+// halves with the hi + lo operands spills under ptxas (48 bytes)
+__host__ __device__ constexpr bool kv_split(int DC) { return DC >= 2; }
 // the warpgroups share 64 keys and hand P^T and dP^T over
-__host__ __device__ constexpr bool kv_handoff(int DC, int DVC, bool rows) {
-  return kv_own(DC, DVC) || kv_split(DC, rows);
+__host__ __device__ constexpr bool kv_handoff(int DC, int DVC) {
+  return kv_own(DC, DVC) || kv_split(DC);
 }
-__host__ __device__ constexpr int kv_keys(int DC, int DVC, bool rows) {
-  return kv_handoff(DC, DVC, rows) ? 64 : 128;
+__host__ __device__ constexpr int kv_keys(int DC, int DVC) {
+  return kv_handoff(DC, DVC) ? 64 : 128;
 }
 __host__ __device__ constexpr int kv_stages(int DC) { return DC <= 3 ? 3 : 2; }
 // dK/dV column chunks a consumer warpgroup accumulates
-__host__ __device__ constexpr int kv_chunks(int DC, bool rows) {
-  return kv_split(DC, rows) ? (DC + 1) / 2 : DC;
+__host__ __device__ constexpr int kv_chunks(int DC) {
+  return kv_split(DC) ? (DC + 1) / 2 : DC;
 }
 
 // bytes of one [rows][64] bf16 tile
@@ -457,21 +458,18 @@ struct DqWgSmem {
   alignas(1024) bf16 dout[dq_consumers(DC)][DVC][kWgRows * kChunk];
   alignas(1024) bf16 k[kStages][DC][kDqKeys * kChunk];
   alignas(1024) bf16 v[kStages][DVC][kDqKeys * kChunk];
-  float delta[dq_consumers(DC)][kWgRows];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
-// backward, dQ; also writes D = rowsum(dO * O) into delta [B,Hq,Sq] for
-// the dK/dV kernel (at kRows D = rowsum(P * dP), from a first walk over the
-// key tiles).  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))),
-// heaviest first
+// backward, dQ; also writes D = rowsum(P * dP), summed in a first walk over
+// the key tiles, into delta [B,Hq,Sq] for the dK/dV kernel.  grid: (B*Hkv,
+// ceil(Sq*G / (64 * dq_consumers(DC)))), heaviest first
 template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
                           const __grid_constant__ CUtensorMap do_map,
-                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, float* __restrict__ delta,
                           bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int dh,
                           int dv, int causal, int window, float scale) {
@@ -488,7 +486,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
   const int t_first = key_lo / kDqKeys;
   const int n_tiles = key_hi >= key_lo ? key_hi / kDqKeys - t_first + 1 : 0;
-  const int n_walks = kRows ? 2 : 1;  // the ring carries the key tiles once per walk
+  constexpr int n_walks = 2;  // the ring carries the key tiles once per walk
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -517,7 +515,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kDqKeys));
-        const int t0 = (t_first + (kRows ? i % n_tiles : i)) * kDqKeys;
+        const int t0 = (t_first + i % n_tiles) * kDqKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
           if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
@@ -536,100 +534,60 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const float sc = scale * kLog2e;
 
     float D[2], L[2];  // D and lse * log2(e) of this thread's two rows
-    if constexpr (kRows) {
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int r = r_lo + 8 * x;
-        L[x] = 0.f;
-        if (r < Rtot) {
-          const int sp = r / G, h = kvh * G + (r - sp * G);
-          L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+    for (int x = 0; x < 2; ++x) {
+      const int r = r_lo + 8 * x;
+      L[x] = 0.f;
+      if (r < Rtot) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+      }
+    }
+    // D = rowsum(P * dP) over the key tiles in order: the first walk
+    float dsum[2] = {0.f, 0.f};
+    mbar_wait(&sm.q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int t0 = (t_first + i) * kDqKeys;
+      mbar_wait(&sm.full[s], (i / kStages) & 1);
+      if (rw0 < Rtot && !tile_invisible(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
+        float sacc[32], pacc[32];  // S = Q . K^T and dP = dO . V^T
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < DC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][c]) + kb, wgmma_desc(sm.k[s][c]) + kb,
+                         kc > 0);
+        }
+#pragma unroll
+        for (int kc = 0; kc < DVC * 4; ++kc) {
+          const int c = kc / 4, kb = 2 * (kc % 4);
+          wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
+                         kc > 0);
+        }
+        wgmma_commit();
+        const bool masked = tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window);
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(pacc);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int x = (e >> 1) & 1;
+          const int key = t0 + 8 * (e / 4) + col + (e & 1);
+          const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
+          dsum[x] += ok ? fast_exp2(sacc[e] * sc - L[x]) * pacc[e] : 0.f;
         }
       }
-      // D = rowsum(P * dP) over the key tiles in order: the first walk
-      float dsum[2] = {0.f, 0.f};
-      mbar_wait(&sm.q_full, 0);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        const int t0 = (t_first + i) * kDqKeys;
-        mbar_wait(&sm.full[s], (i / kStages) & 1);
-        if (rw0 < Rtot && !tile_invisible(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
-          float sacc[32], pacc[32];  // S = Q . K^T and dP = dO . V^T
-          wgmma_fence();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
 #pragma unroll
-          for (int kc = 0; kc < DC * 4; ++kc) {
-            const int c = kc / 4, kb = 2 * (kc % 4);
-            wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][c]) + kb, wgmma_desc(sm.k[s][c]) + kb,
-                           kc > 0);
-          }
-#pragma unroll
-          for (int kc = 0; kc < DVC * 4; ++kc) {
-            const int c = kc / 4, kb = 2 * (kc % 4);
-            wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
-                           kc > 0);
-          }
-          wgmma_commit();
-          const bool masked = tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window);
-          wgmma_wait<0>();
-          fence_regs(sacc);
-          fence_regs(pacc);
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int x = (e >> 1) & 1;
-            const int key = t0 + 8 * (e / 4) + col + (e & 1);
-            const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
-            dsum[x] += ok ? fast_exp2(sacc[e] * sc - L[x]) * pacc[e] : 0.f;
-          }
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&sm.empty[s]);
-      }
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        D[x] = quad_sum(dsum[x]);
-        const int r = r_lo + 8 * x;
-        if (lane % 4 == 0 && r < Rtot) {
-          const int sp = r / G, h = kvh * G + (r - sp * G);
-          delta[((size_t)b * Hq + h) * Sq + sp] = D[x];
-        }
-      }
-    } else {
-      // D = rowsum(dO * O) over the dv columns, once per row: two threads a
-      // row, 16 bytes a load
-      {
-        const int i = tid / 2, r = rw0 + i;
-        float acc = 0.f;
-        if (r < Rtot) {
-          const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
-          for (int d = (tid % 2) * 8; d < dv; d += 16) {
-            const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
-            const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
-            const bf16* av = reinterpret_cast<const bf16*>(&a);
-            const bf16* gv = reinterpret_cast<const bf16*>(&g);
-#pragma unroll
-            for (int u = 0; u < 8; ++u)
-              acc = fmaf(__bfloat162float(gv[u]), __bfloat162float(av[u]), acc);
-          }
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        if (tid % 2 == 0) {
-          sm.delta[cw][i] = acc;
-          if (r < Rtot) {
-            const int sp = r / G, h = kvh * G + (r - sp * G);
-            delta[((size_t)b * Hq + h) * Sq + sp] = acc;
-          }
-        }
-      }
-      named_barrier(1 + cw, 128);
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int r = r_lo + 8 * x;
-        D[x] = sm.delta[cw][r - rw0];
-        L[x] = 0.f;
-        if (r < Rtot) {
-          const int sp = r / G, h = kvh * G + (r - sp * G);
-          L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
-        }
+    for (int x = 0; x < 2; ++x) {
+      D[x] = quad_sum(dsum[x]);
+      const int r = r_lo + 8 * x;
+      if (lane % 4 == 0 && r < Rtot) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        delta[((size_t)b * Hq + h) * Sq + sp] = D[x];
       }
     }
 
@@ -721,29 +679,29 @@ constexpr int kBwdRows = 64;  // rows per dK/dV tile
 template <int N> struct Handoff { float4 v[N][128]; };
 template <> struct Handoff<0> {};
 
-template <int DC, int DVC, bool kRows>
+template <int DC, int DVC>
 struct DkdvWgSmem {
-  alignas(1024) bf16 k[DC][kv_keys(DC, DVC, kRows) * kChunk];
-  alignas(1024) bf16 v[DVC][kv_keys(DC, DVC, kRows) * kChunk];
+  alignas(1024) bf16 k[DC][kv_keys(DC, DVC) * kChunk];
+  alignas(1024) bf16 v[DVC][kv_keys(DC, DVC) * kChunk];
   alignas(1024) bf16 q[kv_stages(DC)][DC][kBwdRows * kChunk];
   alignas(1024) bf16 dout[kv_stages(DC)][DVC][kBwdRows * kChunk];
   float lse2[kv_stages(DC)][kBwdRows];   // lse * log2(e) of the tile's rows
   float delta[kv_stages(DC)][kBwdRows];  // D of the tile's rows
   uint64_t kv_full, full[kv_stages(DC)], empty[kv_stages(DC)];
-  Handoff<kv_handoff(DC, DVC, kRows) ? 16 : 0> handoff;
+  Handoff<kv_handoff(DC, DVC) ? 16 : 0> handoff;
 };
 
 // backward, dK and dV, after the dQ kernel has written delta.  Keys are the
 // M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
 // dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
-// ceil(Sk / kv_keys(DC, DVC, kRows))); the first key tiles, which see the
+// ceil(Sk / kv_keys(DC, DVC))); the first key tiles, which see the
 // most rows under causal, launch first.  Where the plan neither splits nor
-// owns (DC <= 2, DC 1 at kRows, DVC == DC) consumer warpgroup w owns keys
+// owns (DC 1) consumer warpgroup w owns keys
 // 64w..64w+63 of the block and every head column; where it splits both own
-// the block's 64 keys and w the column chunks from w * kv_chunks(DC, kRows);
+// the block's 64 keys and w the column chunks from w * kv_chunks(DC);
 // where the values are narrower (kv_own) both own the block's 64 keys,
 // warpgroup 0 dK's first DVC chunks and warpgroup 1 the rest of dK and all
-// of dV.  At kRows P^T and dS^T enter dV and dK as hi + lo (see above).
+// of dV.  P^T and dS^T enter dV and dK as hi + lo (see above).
 template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -754,13 +712,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             bf16* __restrict__ dk, bf16* __restrict__ dvo, int Sq, int Sk,
                             int Hq, int Hkv, int dh, int dv, int causal, int window,
                             float scale) {
-  constexpr int kKvKeys = kv_keys(DC, DVC, kRows), kBwdStages = kv_stages(DC);
+  constexpr int kKvKeys = kv_keys(DC, DVC), kBwdStages = kv_stages(DC);
   constexpr bool kOwn = kv_own(DC, DVC);  // the warpgroups own dK's and dV's chunks apart
-  constexpr bool kSplit = !kOwn && kv_split(DC, kRows);  // the warpgroups split the columns
-  constexpr int CH = kOwn ? DC : kv_chunks(DC, kRows);
+  constexpr bool kSplit = !kOwn && kv_split(DC);  // the warpgroups split the columns
+  constexpr int CH = kOwn ? DC : kv_chunks(DC);
   static_assert(kOwn || DVC == DC, "narrower values take the kv_own plan");
   extern __shared__ char smem_raw[];
-  DkdvWgSmem<DC, DVC, kRows>& sm = smem_layout<DkdvWgSmem<DC, DVC, kRows>>(smem_raw);
+  DkdvWgSmem<DC, DVC>& sm = smem_layout<DkdvWgSmem<DC, DVC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int k0 = blockIdx.y * kKvKeys;
@@ -921,17 +879,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             mine[e] = p;                            // P^T
             other[e] = p * (dp - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
           }
-          constexpr int NL = kRows ? kBwdRows / 16 : 1;  // the lo fragments, at kRows
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4], pl[NL][4], dsl[NL][4];
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];  // hi
+          uint32_t pl[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // lo
 #pragma unroll
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            if constexpr (kRows) {
-              to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
-              to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
-            } else {
-              to_a_frag(&mine[8 * kk], pa[kk]);
-              to_a_frag(&other[8 * kk], dsa[kk]);
-            }
+            to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
+            to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
           }
           wgmma_fence();
           if (cw == 0) {
@@ -941,7 +894,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
               for (int j = 0; j < DVC; ++j) {
                 const uint64_t bq = wgmma_desc(sm.q[s][j]) + kk * 16 * 128 / 16;
                 wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
               }
           } else {
 #pragma unroll
@@ -950,13 +903,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
               for (int j = 0; j < DC - DVC; ++j) {
                 const uint64_t bq = wgmma_desc(sm.q[s][DVC + j]) + kk * 16 * 128 / 16;
                 wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
               }
 #pragma unroll
               for (int j = 0; j < DVC; ++j) {
                 const uint64_t bo = wgmma_desc(sm.dout[s][j]) + kk * 16 * 128 / 16;
                 wgmma_rs_64x64(dkacc[DC - DVC + j], pa[kk], bo);
-                if constexpr (kRows) wgmma_rs_64x64(dkacc[DC - DVC + j], pl[kk], bo);
+                wgmma_rs_64x64(dkacc[DC - DVC + j], pl[kk], bo);
               }
             }
           }
@@ -966,10 +919,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
             fence_regs(pa[kk]);
             fence_regs(dsa[kk]);
-            if constexpr (kRows) {
-              fence_regs(pl[kk]);
-              fence_regs(dsl[kk]);
-            }
+            fence_regs(pl[kk]);
+            fence_regs(dsl[kk]);
           }
 #pragma unroll
           for (int j = 0; j < CH; ++j) fence_regs(dkacc[j]);
@@ -1029,17 +980,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             mine[e] = p;                              // P^T
             other[e] = p * (dp - sm.delta[s][rl]);    // dS^T, rounded to bf16 below
           }
-          constexpr int NL = kRows ? kBwdRows / 16 : 1;  // the lo fragments, at kRows
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4], pl[NL][4], dsl[NL][4];
+          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];  // hi
+          uint32_t pl[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // lo
 #pragma unroll
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            if constexpr (kRows) {
-              to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
-              to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
-            } else {
-              to_a_frag(&mine[8 * kk], pa[kk]);
-              to_a_frag(&other[8 * kk], dsa[kk]);
-            }
+            to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
+            to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
           }
           wgmma_fence();
 #pragma unroll
@@ -1050,9 +996,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                 const uint64_t bo = wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16;
                 const uint64_t bq = wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16;
                 wgmma_rs_64x64(dvacc[j], pa[kk], bo);
-                if constexpr (kRows) wgmma_rs_64x64(dvacc[j], pl[kk], bo);
+                wgmma_rs_64x64(dvacc[j], pl[kk], bo);
                 wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                if constexpr (kRows) wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
               }
           wgmma_commit();
           wgmma_wait<0>();
@@ -1060,10 +1006,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           for (int kk = 0; kk < kBwdRows / 16; ++kk) {
             fence_regs(pa[kk]);
             fence_regs(dsa[kk]);
-            if constexpr (kRows) {
-              fence_regs(pl[kk]);
-              fence_regs(dsl[kk]);
-            }
+            fence_regs(pl[kk]);
+            fence_regs(dsl[kk]);
           }
 #pragma unroll
           for (int j = 0; j < CH; ++j) {
@@ -1103,83 +1047,46 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
           st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
         }
-        if constexpr (kRows) {
-          // dS^T first, then dV and dK with hi and lo fragments, one group
-          wgmma_wait<0>();
-          fence_regs(dpt);
+        // dS^T first, then dV and dK with hi and lo fragments, one group
+        wgmma_wait<0>();
+        fence_regs(dpt);
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int rl = 8 * (e / 4) + col + (e & 1);
-            dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T
-          }
-          uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];
-          uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];
+        for (int e = 0; e < 32; ++e) {
+          const int rl = 8 * (e / 4) + col + (e & 1);
+          dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T
+        }
+        uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];
+        uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
-            to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
-          }
-          wgmma_fence();
+        for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+          to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
+          to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
+        }
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk)
-#pragma unroll
-            for (int c = 0; c < DC; ++c) {
-              const uint64_t bo = wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16;
-              const uint64_t bq = wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16;
-              wgmma_rs_64x64(dvacc[c], pa[kk], bo);
-              wgmma_rs_64x64(dvacc[c], pl[kk], bo);
-              wgmma_rs_64x64(dkacc[c], dsa[kk], bq);
-              wgmma_rs_64x64(dkacc[c], dsl[kk], bq);
-            }
-          wgmma_commit();
-          wgmma_wait<0>();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            fence_regs(pa[kk]);
-            fence_regs(pl[kk]);
-            fence_regs(dsa[kk]);
-            fence_regs(dsl[kk]);
-          }
+        for (int kk = 0; kk < kBwdRows / 16; ++kk)
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
-            fence_regs(dkacc[c]);
-            fence_regs(dvacc[c]);
+            const uint64_t bo = wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16;
+            const uint64_t bq = wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16;
+            wgmma_rs_64x64(dvacc[c], pa[kk], bo);
+            wgmma_rs_64x64(dvacc[c], pl[kk], bo);
+            wgmma_rs_64x64(dkacc[c], dsa[kk], bq);
+            wgmma_rs_64x64(dkacc[c], dsl[kk], bq);
           }
-        } else {
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];
+        wgmma_commit();
+        wgmma_wait<0>();
 #pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&st[8 * kk], pa[kk]);
-          wgmma_fence();
+        for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+          fence_regs(pa[kk]);
+          fence_regs(pl[kk]);
+          fence_regs(dsa[kk]);
+          fence_regs(dsl[kk]);
+        }
 #pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk)
-#pragma unroll
-            for (int c = 0; c < DC; ++c)
-              wgmma_rs_64x64(dvacc[c], pa[kk], wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16);
-          wgmma_commit();
-          wgmma_wait<1>();  // dP^T is done (dV may still run)
-          fence_regs(dpt);
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int rl = 8 * (e / 4) + col + (e & 1);
-            dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
-          }
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frag(&dpt[8 * kk], dsa[kk]);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk)
-#pragma unroll
-            for (int c = 0; c < DC; ++c)
-              wgmma_rs_64x64(dkacc[c], dsa[kk], wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16);
-          wgmma_commit();
-          wgmma_wait<0>();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) fence_regs(pa[kk]);  // read by the dV group
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            fence_regs(dkacc[c]);
-            fence_regs(dvacc[c]);
-          }
+        for (int c = 0; c < DC; ++c) {
+          fence_regs(dkacc[c]);
+          fence_regs(dvacc[c]);
         }
       }
       __syncwarp();
@@ -2148,9 +2055,9 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 }
 
 template <int DC, int DVC, bool kRows>
-cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
-                             const void* dout, const float* lse, void* work, void* dq, void* dk,
-                             void* dv, const Shape& s, cudaStream_t st) {
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, void* work, void* dq, void* dk, void* dv,
+                             const Shape& s, cudaStream_t st) {
   const WgWork w(s, work, kRows, true);
   const void *qr = q, *dor = dout;  // what the row maps read
   if constexpr (kRows) {
@@ -2164,7 +2071,7 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
       !key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
     return cudaErrorInvalidValue;
   static_assert(sizeof(DqWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
-  static_assert(sizeof(DkdvWgSmem<DC, DVC, kRows>) + 1024 <= kSmemPerBlock,
+  static_assert(sizeof(DkdvWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
                 "dK/dV layout over 227 KB");
   size_t smem = sizeof(DqWgSmem<DC, DVC>) + 1024;
   auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, DVC, kRows>;
@@ -2172,15 +2079,15 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   if (e != cudaSuccess) return e;
   constexpr int nc = dq_consumers(DC);
   dq_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
-      qm, km, vm, dom, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, w.delta,
-      static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv, s.causal, s.window, s.scale);
+      qm, km, vm, dom, lse, w.delta, static_cast<bf16*>(dq), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv,
+      s.causal, s.window, s.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr int keys = kv_keys(DC, DVC, kRows);
+  constexpr int keys = kv_keys(DC, DVC);
   if (!key_map(&km, k, s, keys, s.dh) || !key_map(&vm, v, s, keys, s.dv))
     return cudaErrorInvalidValue;
-  smem = sizeof(DkdvWgSmem<DC, DVC, kRows>) + 1024;
+  smem = sizeof(DkdvWgSmem<DC, DVC>) + 1024;
   auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, DVC, kRows>;
   e = allow_smem(kv_kern, smem);
   if (e != cudaSuccess) return e;
@@ -2206,16 +2113,16 @@ cudaError_t launch_fwd_wgmma_dc(const void* q, const void* k, const void* v, voi
   }
 }
 template <bool kRows>
-cudaError_t launch_bwd_wgmma_dc(const void* q, const void* k, const void* v, const void* o,
-                                const void* dout, const float* lse, void* work, void* dq,
-                                void* dk, void* dv, const Shape& s, cudaStream_t st) {
+cudaError_t launch_bwd_wgmma_dc(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, void* work, void* dq, void* dk, void* dv,
+                                const Shape& s, cudaStream_t st) {
   if (wgmma_chunks(s.dh) == 3 && wgmma_chunks(s.dv) == 2)
-    return launch_bwd_wgmma<3, 2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    return launch_bwd_wgmma<3, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
   switch (wgmma_chunks(s.dh)) {
-    case 1: return launch_bwd_wgmma<1, 1, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    case 2: return launch_bwd_wgmma<2, 2, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    case 3: return launch_bwd_wgmma<3, 3, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
-    default: return launch_bwd_wgmma<4, 4, kRows>(q, k, v, o, dout, lse, work, dq, dk, dv, s, st);
+    case 1: return launch_bwd_wgmma<1, 1, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
+    case 2: return launch_bwd_wgmma<2, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
+    case 3: return launch_bwd_wgmma<3, 3, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
+    default: return launch_bwd_wgmma<4, 4, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
   }
 }
 
@@ -2409,9 +2316,8 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
   // smallest, the dK/dV kernel's key blocks)
   // the pair of column-chunk counts an instantiation takes
   const int dc = wgmma_chunks(s.dh), dvc = wgmma_chunks(s.dv);
-  const bool rows_v = variant == kWgmmaRows;
   const long long rows = dq_consumers(dc) * kWgRows;
-  const int keys = kv_keys(dc, dvc, rows_v);
+  const int keys = kv_keys(dc, dvc);
   return !wgmma_pair(dc, dvc) || (variant == kWgmma && kWgRows % G != 0) ||
          (variant == kWgmmaRows && rows_gather_blocks(s) > 0x7fffffffLL) ||
          ((long long)s.Sq * G + rows - 1) / rows > 65535 || (s.Sk + keys - 1) / keys > 65535;
@@ -2482,6 +2388,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
   }
   if (variant == kWgmmaRows)
-    return (int)launch_bwd_wgmma_dc<true>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
-  return (int)launch_bwd_wgmma_dc<false>(q, k, v, o, dout, l, work, dq, dk, dv, s, st);
+    return (int)launch_bwd_wgmma_dc<true>(q, k, v, dout, l, work, dq, dk, dv, s, st);
+  return (int)launch_bwd_wgmma_dc<false>(q, k, v, dout, l, work, dq, dk, dv, s, st);
 }

@@ -302,10 +302,10 @@ def flash_attention_bwd(
     """The two backward kernels (dK/dV per key tile, dQ per row tile):
     (dq, dk, dv) in the inputs' dtype, out and dout [B,Sq,Hq,dv].  Counts
     one backward launch.  The
-    wgmma variant runs dQ first, which writes D = rowsum(dO * O) once into an
-    fp32 [B,Hq,Sq] scratch that the dK/dV kernel reads; wgmma_rows first
-    gathers q and dout into its scratch, and its dQ kernel sums D = rowsum(P
-    * dP) over the keys; the tf32x3 variant first splits q, k, v and dout
+    wgmma variant runs dQ first, which sums D = rowsum(P * dP) over the keys
+    in a first walk and writes it once into an fp32 [B,Hq,Sq] scratch that
+    the dK/dV kernel reads; wgmma_rows first gathers q and dout into its
+    scratch, then runs the same two; the tf32x3 variant first splits q, k, v and dout
     into its scratch and writes D and the logsumexp per row there."""
     _check(q, k, v, window)
     want = (*q.shape[:3], v.shape[-1])

@@ -133,8 +133,9 @@ def dq_consumers(dc: int) -> int:
 
 
 def kv_keys(dc: int) -> int:
-    """Keys of a dK/dV block of the wgmma_rows kernels: 64 where the two
-    warpgroups split the head columns (``kv_split``: from two chunks)."""
+    """Keys of a dK/dV block of the bf16 kernels at keys and values of equal
+    chunks: 64 where the two warpgroups split the head columns
+    (``kv_split``: from two chunks)."""
     return 128 if dc <= 1 else 64
 
 
@@ -299,14 +300,16 @@ def attention_rows_bwd(
     dout: torch.Tensor, *, causal: bool = True, window: int | None = None,
     single_rounding: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward as the wgmma_rows kernels compute it: the dQ kernel's
+    """The backward as the bf16 kernels compute it (``wgmma_rows``, and
+    ``wgmma`` over the caller's rows in place of the gathered copy): the dQ kernel's
     blocks (128 rows, or 64 at dh above 192) each walk their 64-key tiles
     twice, first to sum D = rowsum(P * dP) in fp32, then to add bf16(dS) . K;
     the dK/dV kernel's blocks (128 keys, or 64 above dh 128) walk their
     64-row tiles and add P^T . dO and dS^T . Q with P^T and dS^T as hi + lo
-    bf16.  ``single_rounding`` takes the wgmma kernels' arithmetic instead
-    (D = rowsum(dO * O) from the bf16 output, P^T and dS^T rounded once to
-    bf16).  Returns (dq, dk, dv) bf16.  Used by tests only."""
+    bf16.  ``single_rounding`` takes the cheaper arithmetic instead (D =
+    rowsum(dO * O) from the bf16 output, P^T and dS^T rounded once to bf16),
+    which misses TOL at wide groups and at spread scores.  Returns (dq, dk,
+    dv) bf16.  Used by tests only."""
     B, Sq, Hq, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G, w = Hq // Hkv, window or 0

@@ -468,6 +468,17 @@ def fit(arch: str, cell: ShapeCell, budget: int, **kw) -> tuple[ShapeCell, list[
     return cell, [f"n_layers={L}"], {**cuts, "n_layers": [full, L]}, rec
 
 
+def fit_train(arch: str, cell: ShapeCell, budget: int, **kw) -> tuple[str, dict]:
+    """The cut of a train cell and the remat it runs under: :func:`fit` at
+    remat none (the reference's default); where that cuts the depth, at
+    remat full too; the remat whose cut keeps more layers (none where they
+    tie).  Returns (remat, {remat: fit's result})."""
+    fits = {"none": fit(arch, cell, budget, **kw)}
+    if "n_layers" in fits["none"][2]:
+        fits["full"] = fit(arch, cell, budget, **kw, remat="full")
+    return max(fits, key=lambda r: fits[r][3]["n_layers"]), fits
+
+
 def deepest(arch: str, cell: ShapeCell, budget: int, *, cfg_overrides: list[str] | None = None,
             **kw) -> tuple[int, dict | None]:
     """The most layers of ``arch`` whose dry-run peak lies under ``budget``

@@ -333,3 +333,40 @@ def test_dryrun_cli_prints_the_fit(tmp_path):
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "[fit] tinyllama-1.1b" in out.stdout and "not cut" in out.stdout
+
+
+def test_fit_train_takes_the_remat_that_keeps_more_layers():
+    """The train_4k cell under a budget where remat none holds one row at
+    one layer fewer than the config's and remat full holds every layer (the
+    choice gemma3-4b's whole config meets under 75 GB: none B 1 at 31 of 34
+    layers, full B 2 at 34), on gemma3-smoke: ``fit_train`` takes remat
+    full, with the batch that ``fit`` finds and every layer."""
+    cell = next(c for c in get_shapes("gemma3-4b") if c.name == "train_4k")
+    one = dryrun.batch_cut(cell, 1)
+    n = get_config("gemma3-4b", smoke=True).n_layers
+    peak = lambda remat, L: dryrun.run_cell(  # noqa: E731
+        "gemma3-4b", one, smoke=True, remat=remat, cfg_overrides=[f"n_layers={L}"]
+    )["memory"]["peak_hbm_bytes"]
+    budget = peak("none", n - 1) + 1
+    assert peak("none", n) >= budget > peak("full", n)
+    remat, fits = dryrun.fit_train("gemma3-4b", cell, budget, smoke=True)
+    assert remat == "full" and sorted(fits) == ["full", "none"]
+    cut, over, cuts, rec = fits["none"]
+    assert (cut, over) == (one, [f"n_layers={n - 1}"])
+    assert cuts == {"global_batch": [256, 1], "n_layers": [n, n - 1]}
+    cut, over, cuts, rec = fits["full"]
+    B = cut.params["global_batch"]
+    assert over == [] and cuts == {"global_batch": [256, B]} and rec["n_layers"] == n
+    assert rec["remat"] == "full" and rec["memory"]["peak_hbm_bytes"] < budget
+    assert B >= 1 and cut.params["seq_len"] == 4096
+
+
+def test_fit_train_keeps_remat_none_where_it_cuts_no_layer():
+    """TinyLlama's choice (B 6 at all 22 layers under remat none): where
+    remat none cuts only the batch, ``fit_train`` traces no other remat."""
+    cell = next(c for c in get_shapes("tinyllama-1.1b") if c.name == "train_4k")
+    one = dryrun.run_cell("tinyllama-1.1b", dryrun.batch_cut(cell, 1), smoke=True)
+    budget = one["memory"]["peak_hbm_bytes"] + 1
+    remat, fits = dryrun.fit_train("tinyllama-1.1b", cell, budget, smoke=True)
+    assert remat == "none" and list(fits) == ["none"]
+    assert fits["none"][2] == {"global_batch": [256, 1]} and fits["none"][1] == []

@@ -13,7 +13,7 @@ to mask every tile that holds an invisible one; the emulation, tile by tile
 in 64-row tiles, is held against the reference package's ``attention_ref``
 and its ``jax.vjp`` at G 3, 5, 72 and 128 at the bf16 tolerance of the card
 tests (2e-2 absolute and relative, against fp32 on the same bf16 values);
-and the wgmma kernels' arithmetic (P^T and dS^T rounded once, D from the
+and the single-rounding arithmetic (P^T and dS^T rounded once, D from the
 bf16 output) must miss that tolerance at G 72, where a key's gradient sums
 over 5,040 rows.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
@@ -167,9 +167,9 @@ def test_rows_emulation_matches_reference(case):
 
 
 def test_one_bf16_rounding_misses_the_tolerance_at_G72():
-    """What the hi/lo fragments and the summed D buy: at G 72 the wgmma
-    kernels' arithmetic (P^T and dS^T rounded once to bf16, D from the bf16
-    output) puts dK and dV past the bf16 tolerance."""
+    """What the hi/lo fragments and the summed D buy: at G 72 the
+    single-rounding arithmetic (P^T and dS^T rounded once to bf16, D from the
+    bf16 output) puts dK and dV past the bf16 tolerance."""
     case = CASES[0]
     causal, window = case[5:]
     q, k, v, dout = _inputs(case, sum(case[:5]))

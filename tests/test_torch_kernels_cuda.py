@@ -796,6 +796,58 @@ def test_flash_attention_backward_is_deterministic(case):
         assert torch.equal(a, b)
 
 
+# (B, S, Hq, Hkv, dh, window): the reference's train_4k cell at S 4,096, one
+# sequence of each model's attention (causal): TinyLlama-1.1B (DC 1, G 8),
+# gemma3-4b's local and global layers (DC 4, G 2), deepseek-7b (DC 2, G 1);
+# and TinyLlama's at S 4,160, not a multiple of a tile.  The key walks are
+# twice as long as at the S 2,048 every other case reaches.
+LONG_BWD_CASES = [
+    (1, 4096, 32, 4, 64, None),
+    (1, 4096, 8, 4, 256, 1024),
+    (1, 4096, 8, 4, 256, None),
+    (1, 4096, 32, 32, 128, None),
+    (1, 4160, 32, 4, 64, None),
+]
+KEY_SPREAD = 4.0  # the queries' scale, as chip_smoke.py's LM_KEY_SPREAD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LONG_BWD_CASES, ids=["tinyllama", "gemma3-local",
+                                                      "gemma3-global", "deepseek-7b", "S4160"])
+def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
+    """bf16 forward and backward on the ``wgmma`` kernels at the train_4k
+    cell's S against fp32 autograd of ``attention_ref`` at TOL.  The
+    queries are drawn at KEY_SPREAD, so the scores spread by 4 and the
+    softmax picks a few keys: a key the kernels drop, past 2,048 or
+    anywhere, moves an output row by the values' scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, Hq, Hkv, dh, window = case
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = (torch.randn(B, S, Hq, dh, generator=g, device=dev) * KEY_SPREAD).to(bf16)
+    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(bf16)
+    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(bf16)
+    dout = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(bf16)
+    want = flash_oracle(q, k, v, dout, True, window)
+    assert flash_ops.variant(bf16, dh, Hq // Hkv) == "wgmma"
+    flash_ops.reset_launches()
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches_by_variant["wgmma"] == {"fwd": 1, "bwd": 1}
+    tol = TOLS[bf16]
+    for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), want):
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol, msg=name)
+    # a planted control fails the same check: dK and dV with the rows of keys
+    # 2,048 and after zeroed, what a backward that stopped at S 2,048 gives
+    for got, ref in zip(grads[1:], want[3:]):
+        cut = got.float()
+        cut[:, 2048:] = 0
+        assert ((cut - ref).abs() / (tol + tol * ref.abs())).max() > 1
+
+
 @pytest.mark.cuda
 def test_flash_attention_rejects_bad_inputs():
     if not torch.cuda.is_available():

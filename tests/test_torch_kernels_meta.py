@@ -333,3 +333,41 @@ def test_flash_forward_at_prefill_32k_on_meta(B, Hq, Hkv, dh, window):
     assert counts.calls == {"flash_attention_fwd": 1} and _launch_counts() == before
     pairs = flash_ops.unmasked_pairs(S, S, True, window)
     assert counts.flops["flash_attention_fwd"] == 4 * B * Hq * dh * pairs
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,dh,window", [
+    (6, 32, 4, 64, None),  # TinyLlama train_4k at its cut
+    (2, 8, 4, 256, 1024),  # gemma3-4b at its cut (remat full), a local layer
+    (2, 8, 4, 256, None),  # and a global one
+    (1, 32, 32, 128, None),  # deepseek-7b at its cut
+], ids=["tinyllama", "gemma3-local", "gemma3-global", "deepseek-7b"])
+def test_flash_backward_at_train_4k_on_meta(B, Hq, Hkv, dh, window):
+    """The flash backward at S 4,096 on meta: dq, dk and dv in the inputs'
+    shapes and dtype, and the card path's allocations (those three and the
+    wgmma backward's fp32 D scratch, [B, Hq, S]); the grids inside the
+    kernels' 65,535 (the dQ kernel's row blocks, the dK/dV kernel's key
+    blocks); the FLOPs of the pairs the mask keeps; no launch."""
+    S, bf16 = 4096, torch.bfloat16
+    G = Hq // Hkv
+    assert flash_ops.variant(bf16, dh, G) == "wgmma"
+    wg = flash_ops.VARIANTS.index("wgmma")
+    scratch = flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, True)
+    assert scratch == B * Hq * S
+    assert -(-(S * G) // 64) <= 65_535 and -(-S // 64) <= 65_535
+    before = _launch_counts()
+    rk = dryrun.Reckoner()
+    with rk, meta.counting() as counts:
+        q = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
+        k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
+        out = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
+        dout = torch.empty_like(out)
+        lse = torch.empty(B, Hq, S, dtype=torch.float32, device=M)
+        base = rk.live
+        dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                                   window=window)
+    assert _sig([dq, dk, dv]) == _sig([q, k, v])
+    assert rk.peak - base == (_alloc(q.numel() * 2) + 2 * _alloc(k.numel() * 2)
+                              + _alloc(scratch * 4))
+    assert counts.calls == {"flash_attention_bwd": 1} and _launch_counts() == before
+    pairs = flash_ops.unmasked_pairs(S, S, True, window)
+    assert counts.flops["flash_attention_bwd"] == 8 * B * Hq * dh * pairs

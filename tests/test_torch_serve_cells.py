@@ -85,7 +85,7 @@ def _run(jcfg, tcfg, cell, jp, tp, jb, tb, dtype):
     return want, want32, step(tp, tb["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b"])
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_serve_step_matches_reference(arch, kind, dtype):

@@ -16,7 +16,14 @@ call.  The pieces, in the order given:
   * ``flash``: ``phase_flash``, every flash case with its times;
   * ``ptxas``: ``print_ptxas``; ``work``: ``check_flash_work_floats``;
   * ``dsv2``: ``phase_deepseek_v2``; ``train``: ``family_train`` of
-    deepseek-v2-236b at one layer.
+    deepseek-v2-236b at one layer;
+  * ``train4k``: the bf16 flash forward and backward at the ``train_4k``
+    cells' shapes (S 4,096: TinyLlama-1.1B at B 6, gemma3-4b's local and
+    global layers at B 2, deepseek-7b at B 1), queries at 4 times the keys'
+    scale: ``queued_ms`` of each, and the first sequence's out, lse, dq, dk
+    and dv against fp32 autograd of the plain version (the worst err / (tol
+    + tol |ref|) of each; at most 1 holds TOL), which it prints and does not
+    check.
 
 The first two take a tree from before the pieces they name existed as long
 as its ``chip_smoke.py`` has ``flash_family_case`` and ``phase_flash``.
@@ -33,6 +40,43 @@ import sys
 import time
 
 import torch
+
+
+TRAIN_4K = [  # label, B, S, Hq, Hkv, dh, window: the train_4k cells at their cuts
+    ("tinyllama-1.1b", 6, 4096, 32, 4, 64, None),
+    ("gemma3-4b local", 2, 4096, 8, 4, 256, 1024),
+    ("gemma3-4b global", 2, 4096, 8, 4, 256, None),
+    ("deepseek-7b", 1, 4096, 32, 32, 128, None),
+]
+
+
+def train_4k(cs, dev) -> None:
+    """The ``train4k`` piece, from what every tree's ``chip_smoke.py`` has."""
+    from repro_torch.kernels.flash_attention import ops
+
+    bf16 = torch.bfloat16
+    for label, B, S, Hq, Hkv, dh, window in TRAIN_4K:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        q = (torch.randn(B, S, Hq, dh, generator=gen, device=dev) * 4).to(bf16)
+        k, v = ((torch.randn(B, S, Hkv, dh, generator=gen, device=dev)).to(bf16)
+                for _ in range(2))
+        dout = torch.randn(B, S, Hq, dh, generator=gen, device=dev).to(bf16)
+        kw = dict(causal=True, window=window)
+        out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = cs.flash_oracle(q[:1], k[:1], v[:1], dout[:1], True, window)
+        ratios = {name: cs.assert_close_ratio(g[:1], w, cs.TOL[bf16])[1]
+                  for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads),
+                                        want)}
+        del want, grads
+        fwd = cs.queued_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw))
+        bwd = cs.queued_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+        print(f"train4k {label} B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} window {window}: "
+              f"queued_ms fwd {fwd:.4f} bwd {bwd:.4f}; first sequence against fp32 autograd, "
+              "worst err/(tol + tol*|ref|): "
+              + " ".join(f"{n} {r:.4f}" for n, r in ratios.items()))
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -67,6 +111,7 @@ def main() -> int:
         "work": getattr(cs, "check_flash_work_floats", None),
         "dsv2": lambda: cs.phase_deepseek_v2(dev),
         "train": lambda: cs.family_train(dev, "deepseek-v2-236b", 1),
+        "train4k": lambda: train_4k(cs, dev),
     }
     for name in pieces:
         fn = runs.get(name)
