@@ -221,22 +221,25 @@ fused one at dh 256), then a chain of 25 64-token ``prefill_chunk`` calls
 over its 2,048-row cache held against ``prefill`` of the same tokens.
 After it, the reference's LM serve cells (``phase_lm_cells``): TinyLlama's
 ``prefill_32k`` and ``decode_32k``, gemma3-4b's ``prefill_32k``,
-``decode_32k`` and ``long_500k``, deepseek-7b's ``prefill_32k`` and
-``decode_32k``, through ``build_serve_step`` at the
+``decode_32k`` and ``long_500k``, deepseek-7b's and qwen2-moe-a2.7b's
+``prefill_32k`` and ``decode_32k``, deepseek-v2-236b's ``prefill_32k``,
+``decode_32k`` and ``long_500k``, through ``build_serve_step`` at the
 published widths, S or T, window and ``cache_len``, each at the cut (batch,
 or at B 1 depth) the dry-run's ``fit`` takes under 75 GB, the decode cache
 drawn on the card: step ms, tokens a second, the device's idle share, the
-step's peak against its reckoning, every launch ``fused`` or ``wgmma``, the
-kernels at each cell's shape against their plain versions, and each decode
-step at B 2 and 2 layers against the CPU port.  Then the ``train_4k`` cell
-(S 4,096) of TinyLlama-1.1B, gemma3-4b and deepseek-7b through
+step's peak against its reckoning, every launch ``fused`` or ``wgmma`` (no
+decode kernel at MLA's absorbed decode; MLA's flash at keys of 192 and
+values of 128), MoE's groups and capacity drops, the kernels at each
+cell's shape against their plain versions, and each decode step at B 2
+and 2 layers (MLA 1) against the CPU port, an MoE oracle routing as the
+card.  Then the ``train_4k`` cell (S 4,096) of all five through
 ``build_train_step`` at the cut and remat the dry-run's ``fit`` takes (remat
 full where it keeps more layers than none): the step's gradient at B 1
-through the flash kernels against the plain attention in fp32, step ms,
-tokens a second, losses and gradient norms, the idle share, the peak
-against its reckoning, every flash launch ``wgmma``, and the flash forward
-and backward at the cell's shape against fp32 autograd of the plain
-version.  Those checks draw their
+through the flash kernels against the plain attention in fp32 (MoE's runs
+routing as the kernels' run), step ms, tokens a second, losses and
+gradient norms, the idle share, the peak against its reckoning, every
+flash launch ``wgmma``, and the flash forward and backward at the cell's
+shape against fp32 autograd of the plain version.  Those checks draw their
 queries or keys so that the scores spread by several units (a near-flat
 softmax would hide a dropped key), and each refuses planted wrong outputs
 (the train cells': gradients with the keys past 2,048 dropped).
@@ -1425,24 +1428,26 @@ def flash_pairs(S: int, causal: bool, window: int | None) -> int:
     return n
 
 
-def flash_bound_ms(case, dtype, backward: bool) -> tuple[float, str]:
-    """Least time.  Bytes: forward reads q, k, v once and writes out and the
-    fp32 logsumexp; backward reads q, k, v, out, dout and the logsumexp and
-    writes dq, dk, dv.  Operations (2 per multiply-add over the unmasked
-    pairs): forward Q.K and P.V (4 per pair and head dim); backward
-    dO.V, P.dO, dS.K and dS.Q (8; the recomputation of Q.K is not counted).
+def flash_bound_ms(case, dtype, backward: bool, dv: int | None = None) -> tuple[float, str]:
+    """Least time, with values ``dv`` wide (``dh`` where None; MLA's are
+    narrower than its keys).  Bytes: forward reads q, k, v once and writes
+    out and the fp32 logsumexp; backward reads q, k, v, out, dout and the
+    logsumexp and writes dq, dk, dv (q, k and their gradients dh wide; v,
+    out and their gradients dv).  Operations (2 per multiply-add over the
+    unmasked pairs): forward Q.K (dh) and P.V (dv); backward dO.V and P.dO
+    (dv), dS.K and dS.Q (dh; the recomputation of Q.K is not counted).
     The peak is the rate for the input type, except that fp32 products are
     counted at TF32X3_OPS_PER_S: on this card the least time for an fp32
     product is three TF32 passes on the tensor cores, which the fp32 kernels
     take, not the CUDA cores' 67 TFLOP/s (PEAK_OPS_PER_S, kept for the
     kernels whose fp32 work is not products)."""
     _, B, S, Hq, Hkv, dh, causal, window = case
+    dv = dh if dv is None else dv
     isz = torch.finfo(dtype).bits // 8
-    qo = B * S * Hq * dh * isz
-    kv = B * S * Hkv * dh * isz
+    once = B * S * (Hq + Hkv) * (dh + dv) * isz  # q, k at dh; out (or v), v at dv
     lse = B * Hq * S * 4
-    nbytes = (2 * qo + 2 * kv + lse) if not backward else (4 * qo + 4 * kv + lse)
-    ops = (8 if backward else 4) * B * Hq * dh * flash_pairs(S, causal, window)
+    nbytes = (2 if backward else 1) * once + lse
+    ops = (4 if backward else 2) * B * Hq * (dh + dv) * flash_pairs(S, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = TF32X3_OPS_PER_S if dtype == torch.float32 else PEAK_OPS_PER_S[dtype]
     t_ops = ops / peak * 1e3
@@ -1466,16 +1471,29 @@ def sdpa(q, k, v, causal, window):
     return out.transpose(1, 2)
 
 
-def flash_oracle(q, k, v, dout, causal, window):
+def flash_oracle(q, k, v, dout, causal, window, heads: int | None = None):
     """The plain version plus autograd, in fp32 on the same values: for bf16
-    inputs the tolerance then measures the kernel's rounding alone."""
+    inputs the tolerance then measures the kernel's rounding alone.  Where
+    ``heads`` is given, over groups of that many query heads with their kv
+    heads (each head's attention is its own): the fp32 scores of all of
+    MLA's 128 heads at S 4,096 take 8.6 GB a copy."""
     from repro_torch.kernels.flash_attention import attention_lse_ref, attention_ref
 
-    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
-    out = attention_ref(q32, k32, v32, causal=causal, window=window)
-    dq, dk, dv = torch.autograd.grad(out, (q32, k32, v32), dout.float())
-    lse = attention_lse_ref(q32.detach(), k32.detach(), causal=causal, window=window)
-    return out.detach(), lse, dq, dk, dv
+    Hq, G = q.shape[2], q.shape[2] // k.shape[2]
+    step = heads or Hq
+    parts = []
+    for h in range(0, Hq, step):
+        hq, hk = slice(h, h + step), slice(h // G, (h + step) // G)
+        q32, k32, v32 = (t[:, :, sl].detach().float().requires_grad_(True)
+                         for t, sl in ((q, hq), (k, hk), (v, hk)))
+        out = attention_ref(q32, k32, v32, causal=causal, window=window)
+        grads = torch.autograd.grad(out, (q32, k32, v32), dout[:, :, hq].float())
+        lse = attention_lse_ref(q32.detach(), k32.detach(), causal=causal, window=window)
+        parts.append((out.detach(), lse, *grads))
+        del out, grads, q32, k32, v32
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat([p[i] for p in parts], dim=1 if i == 1 else 2) for i in range(5))
 
 
 def backward_ms(out, inputs, dout, iters) -> float:
@@ -2365,25 +2383,6 @@ def decode_bounds(cfg, params) -> dict[str, tuple[float, float]]:
     return {k: (b, b / HBM_BYTES_PER_S * 1e3) for k, b in out.items()}
 
 
-def flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward: bool = False) -> tuple[float, str]:
-    """Least time of causal MHA with keys of width dh and values of width dv
-    (the function, not the padded call).  Forward: q and k read at dh, v at
-    dv, the output written at dv, the fp32 logsumexp; 2 operations a
-    multiply-add in Q.K (dh) and P.V (dv) over the unmasked pairs.
-    Backward: q, k, v, out, dout and the logsumexp read, dq, dk and dv
-    written; dO.V and P^T.dO (dv), dS.K and dS^T.Q (dh), the recomputation
-    of Q.K not counted."""
-    isz = torch.finfo(dtype).bits // 8
-    if backward:
-        nbytes = B * S * H * (4 * dh + 4 * dv) * isz + B * H * S * 4
-        ops = 2 * B * H * (2 * dh + 2 * dv) * flash_pairs(S, True, None)
-    else:
-        nbytes = B * S * H * (2 * dh + 2 * dv) * isz + B * H * S * 4
-        ops = 2 * B * H * (dh + dv) * flash_pairs(S, True, None)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev) -> dict:
     """The flash forward and backward at a family's prefill and train shape
     (bf16, MHA, causal) on the values as they are, dv wide (MLA: dv < dh,
@@ -2453,7 +2452,8 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     b = row["bwd"]
     row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5, warmup=1)
     row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2)
-    row["bound_ms"], row["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype)
+    case = (label, B, S, H, H, dh, True, None)
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(case, dtype, False, dv)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     plain_out = attention_ref(qg, kg, vg, causal=True)
     b["plain_ms"] = backward_ms(plain_out, (qg, kg, vg), dout, 5)
@@ -2461,7 +2461,7 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     lib_out = sdpa(qg, kg, vg, True, None)
     b["library_ms"] = backward_ms(lib_out, (qg, kg, vg), dout, 10)
     del lib_out, qg, kg, vg
-    b["bound_ms"], b["bound_by"] = flash_bound_mla_ms(B, S, H, dh, dv, dtype, backward=True)
+    b["bound_ms"], b["bound_by"] = flash_bound_ms(case, dtype, True, dv)
     print(f"flash family {label}: B {B} S {S} Hq=Hkv {H} dh {dh} dv {dv} bf16 {var} "
           f"({row['instance']}) max_abs_err {row['max_abs_err']:.3e} worst err/(atol+rtol*|ref|) "
           f"{row['ratio']:.3f}; queued_ms {row['queued_ms']:.6f} l2_flushed_ms "
@@ -3032,20 +3032,27 @@ def family_grads(params, cfg, batch, remat: str = "none", attn=None, route=None)
     return float(loss.detach()), list(grads), routes
 
 
-def replayed_route(recorded: list):
+def replayed_route(recorded: list, flips: list | None = None):
     """``moe.route`` that takes each call's expert ids and slots from
     ``recorded`` and computes the gates from this call's own inputs (so the
-    router still gets its gradient), as ``route`` computes them."""
+    router still gets its gradient), as ``route`` computes them.  Where
+    ``flips`` is given, each call appends the share of the recorded choices
+    that its own routing (``moe.route`` on its inputs) would have flipped
+    (``routing_flips``)."""
+    from repro_torch.models import moe
     from repro_torch.models.moe import groups
 
-    calls = iter(recorded)
+    own, calls = moe.route, iter(recorded)
 
     def route(x, router, dims):
-        _, idx, slot = next(calls)
+        rec = next(calls)
+        _, idx, slot = rec
         B, S, d = x.shape
         G, g, _ = groups(B * S, dims)
         probs = torch.softmax((x.reshape(G, g, d) @ router).float(), dim=-1)
         gates = probs.gather(-1, idx)
+        if flips is not None:
+            flips.append(routing_flips(rec, own(x, router, dims)))
         return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx, slot
     return route
 
@@ -6115,8 +6122,12 @@ def phase_gateway(dev) -> dict:
 LM_CELLS = (("tinyllama-1.1b", "prefill_32k"), ("tinyllama-1.1b", "decode_32k"),
             ("gemma3-4b", "prefill_32k"), ("gemma3-4b", "decode_32k"),
             ("gemma3-4b", "long_500k"), ("deepseek-7b", "prefill_32k"),
-            ("deepseek-7b", "decode_32k"))
-LM_TRAIN_CELLS = ("tinyllama-1.1b", "gemma3-4b", "deepseek-7b")  # train_4k through each
+            ("deepseek-7b", "decode_32k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+            ("qwen2-moe-a2.7b", "decode_32k"), ("deepseek-v2-236b", "prefill_32k"),
+            ("deepseek-v2-236b", "decode_32k"), ("deepseek-v2-236b", "long_500k"))
+# train_4k through each
+LM_TRAIN_CELLS = ("tinyllama-1.1b", "gemma3-4b", "deepseek-7b", "qwen2-moe-a2.7b",
+                  "deepseek-v2-236b")
 # the keys from which the planted controls of the train cells drop the
 # backward's gradient: every train step on the card before these cells
 # stopped at S 2,048
@@ -6125,7 +6136,12 @@ LM_GRAD_TOL = 5e-2  # the step's gradient against the fp32 oracle's, as family_c
 LM_CELL_STEPS = 3  # timed, after one warm-up; one more runs under the profiler
 LM_BLOCK = 256  # query rows of each block on which the plain version checks the flash forward
 LM_CHECK_LAYERS = 2  # the decode cells' whole step card against CPU: one local, one global
+LM_CHECK_LAYERS_MLA = 1  # deepseek-v2's: two of its layers take about 36 GB of host memory in fp32
 LM_CHECK_BATCH = 2
+LM_PEAK_TOL = 0.01  # a cell step's own peak against the dry-run's reckoning
+LM_ORACLE_HEADS = 32  # query heads a group of the fp32 oracle: MLA's 128 at S 4,096 take 8.6 GB
+LM_MOE_C = {"qwen2-moe-a2.7b": 86, "deepseek-v2-236b": 48}  # slots an expert in 1,024 tokens
+LM_MOE_DECODE_C = 4  # capacity's floor: a decode step's group is its batch
 LM_CHECK_TOL = 5e-2  # of the largest |logit|, as tests/test_torch_train.py holds bf16
 LM_CACHE_STD = 0.1  # make_batch's N(0, 0.1^2) draw
 # the spread of the scores in the attention checks: a few of the 32,768 or
@@ -6136,14 +6152,81 @@ LM_KEY_SPREAD = 4.0
 LM_PATH = "LM serve cells"
 
 
+def lm_fit(arch: str, name: str) -> tuple:
+    """(the dry-run's cut of one LM cell under FIT_BYTES, the seconds its
+    tracing took): ``dryrun.fit``'s result, or for ``train_4k``
+    ``dryrun.fit_train``'s remat and fits.  On the CPU alone (meta
+    tensors), so a worker process can run it (``LMFits``)."""
+    on_src_path()
+    from repro_torch.configs import get_shapes
+    from repro_torch.launch import dryrun
+
+    published = next(c for c in get_shapes(arch) if c.name == name)
+    t0 = time.perf_counter()
+    fit = (dryrun.fit_train if name == "train_4k" else dryrun.fit)(arch, published, FIT_BYTES)
+    return fit, time.perf_counter() - t0
+
+
+def on_src_path() -> None:
+    """``src/`` beside this file on ``sys.path``: the package's home, in this
+    process or a spawned one (which unpickles ``repro_torch`` objects)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+
+
+class LMFits:
+    """Every LM cell's ``lm_fit``, traced in one spawned worker process while
+    the earlier phases hold the card: the MoE and MLA cells' traces take tens
+    of seconds each (deepseek-v2's ``train_4k`` searches the depth under both
+    remats).  ``all`` waits for every cell's, then stops the worker (as
+    ``close`` does at exit), so no other process or thread of this one runs
+    while the cells are timed."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing
+
+        on_src_path()  # this process unpickles the worker's results
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        keys = (*LM_CELLS, *((arch, "train_4k") for arch in LM_TRAIN_CELLS))
+        self.results = {key: self.pool.apply_async(lm_fit, key) for key in keys}
+        atexit.register(self.close)
+
+    def all(self) -> dict:
+        try:
+            return {key: r.get() for key, r in self.results.items()}
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
 def lm_params(dev, cfg, seed: int) -> dict:
     """Random bf16 weights from a seeded CUDA generator, the attention
-    projections at their true fan-in (``at_true_fan_in``)."""
+    projections at their true fan-in (``at_true_fan_in``).  ``init_params``
+    draws a leaf in fp32, then casts it: where the bf16 weights and the
+    largest leaf's fp32 draw would pass FIT_BYTES (deepseek-v2's routed
+    experts at 9 layers draw 45 GB in fp32), each stacked layer leaf is
+    drawn a layer at a time into its bf16 stack."""
     from repro_torch.models import transformer
-    from repro_torch.models.layers import init_params
+    from repro_torch.models.layers import abstract_params, init_params
 
-    return at_true_fan_in(init_params(torch.Generator(device=dev).manual_seed(seed),
-                                      transformer.lm_specs(cfg), cfg.dtype, dev), cfg)
+    specs = transformer.lm_specs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes = [math.prod(s.shape) for s in leaves(specs)]
+    isz = torch.finfo(cfg.dtype).bits // 8
+    if sum(sizes) * isz + 4 * max(sizes) <= FIT_BYTES:
+        return at_true_fan_in(init_params(gen, specs, cfg.dtype, dev), cfg)
+    params = init_params(gen, {k: v for k, v in specs.items() if k != "layers"}, cfg.dtype, dev)
+    params["layers"] = abstract_params(specs["layers"], cfg.dtype, dev)
+    one = transformer.lm_specs(dataclasses.replace(cfg, n_layers=1))["layers"]
+    for i in range(cfg.n_layers):  # a leaf of a layer at a time: 7 GB at most beside the stacks
+        for dst, spec in zip(leaves(params["layers"]), leaves(one)):
+            dst[i].copy_(init_params(gen, spec, cfg.dtype, dev)[0])
+    return at_true_fan_in(params, cfg)
 
 
 def lm_check_layers(cfg) -> list[tuple[int, int | None]]:
@@ -6157,6 +6240,87 @@ def lm_check_layers(cfg) -> list[tuple[int, int | None]]:
     return [picked[g] for g in (False, True) if g in picked]
 
 
+def lm_widths(cfg) -> tuple[int, int, int, int]:
+    """(Hq, Hkv, dh, dv) of a cell's flash calls: MLA's keys are nope + rope
+    wide (``head_dim``) and its values ``v_head_dim``."""
+    dv = cfg.head_dim if cfg.mla is None else cfg.mla.v_head_dim
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dv
+
+
+def lm_moe_groups(cfg, n_tokens: int, decode: bool, label: str) -> tuple | None:
+    """``groups()`` (G, g, C) of an MoE step over ``n_tokens``, checked:
+    groups of 1,024 tokens with LM_MOE_C slots an expert (prefill, train),
+    or one group of the batch at capacity's floor (decode)."""
+    if cfg.moe is None:
+        return None
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import groups
+
+    got = groups(n_tokens, transformer._moe_dims(cfg))
+    want = ((1, n_tokens, LM_MOE_DECODE_C) if decode
+            else (n_tokens // 1024, 1024, LM_MOE_C[cfg.name]))
+    check(got == want, f"{label}: MoE groups {got}, wanted {want}")
+    return got
+
+
+@contextlib.contextmanager
+def patched_route(route):
+    """``moe.route`` replaced by ``route`` inside (nothing where None)."""
+    from repro_torch.models import moe
+
+    inner = moe.route
+    moe.route = route or inner
+    try:
+        yield
+    finally:
+        moe.route = inner
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """``moe.route`` counting the routed (token, k) pairs inside and those
+    capacity dropped, as ``serve_engine`` counts them: yields [dropped,
+    routed], filled at the exit (one read of the device)."""
+    from repro_torch.models import moe
+
+    inner, calls, out = moe.route, [], [0, 0]
+
+    def counted(x, router, dims):
+        r = inner(x, router, dims)
+        calls.append(((r[2] < 0).sum(), r[2].numel()))
+        return r
+
+    with patched_route(counted):
+        yield out
+    if calls:
+        out[:] = [int(torch.stack([d for d, _ in calls]).sum()), sum(n for _, n in calls)]
+
+
+def mla_latent_scale(params, cfg, tokens, cache, cache_len) -> tuple[float, float]:
+    """(the spread of layer 0's absorbed scores over each sequence's live
+    cache rows, as drawn; the factor on the latent and rope rows that takes
+    it to LM_KEY_SPREAD): the scores are linear in those rows.  The spread is
+    the scores' standard deviation over heads and keys, in fp32, averaged
+    over the sequences."""
+    from repro_torch.models.attention import _mla_query
+    from repro_torch.models.layers import rms_norm
+
+    m = cfg.mla
+    lp = params["layers"]
+    ap = {k: w[0] for k, w in lp["attn"].items()}
+    h = rms_norm(params["embed"][tokens].to(cfg.dtype), lp["ln1"][0])
+    q_nope, q_rope = _mla_query(h, ap, m.nope_head_dim, cache_len[:, None].long(),
+                                cfg.rope_theta)
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, ap["w_uk"]).float()
+    stds = []
+    for b, n in enumerate(cache_len.tolist()):
+        s = (q_lat[b, 0] @ cache["c_kv"][0, b, :n].float().T
+             + q_rope[b, 0].float() @ cache["k_rope"][0, b, :n].float().T)
+        stds.append((s / math.sqrt(m.nope_head_dim + m.rope_head_dim)).std().item())
+    spread = sum(stds) / len(stds)
+    return spread, LM_KEY_SPREAD / spread
+
+
 def lm_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> dict:
     """The flash forward at the cell's shape (random q, k, v from a seeded
     CUDA generator, causal, ``window``) against the plain version on three
@@ -6168,17 +6332,17 @@ def lm_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> 
     by LM_KEY_SPREAD and each output row is at the values' scale.  Two
     planted wrong outputs must fail the same check: zeros, and each middle
     and last block attending only to its own 256 keys (every earlier key
-    dropped).  Times: the kernel, the plain version on one last block,
-    SDPA."""
+    dropped).  v is ``dv`` wide (MLA's 128 beside keys of 192).  Times: the
+    kernel, the plain version on one last block, SDPA."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.attention import decode_attention
 
-    Hq, Hkv, dh, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    (Hq, Hkv, dh, dv), bf16 = lm_widths(cfg), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(7)
     q = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(std=LM_KEY_SPREAD,
                                                                   generator=gen)
     k = torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
-    v = torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    v = torch.empty(B, S, Hkv, dv, dtype=bf16, device=dev).normal_(generator=gen)
     out, _ = fops.flash_attention_fwd(q, k, v, causal=True, window=window)
     mid = S // 2 // LM_BLOCK * LM_BLOCK
     err = ratio = largest = 0.0
@@ -6209,10 +6373,10 @@ def lm_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> 
     plain_block_ms = cuda_ms(lambda: decode_attention(*last, window=window), iters=3, warmup=1)
     del last
     lib = queued_ms(lambda: sdpa(q, k, v, True, window), iters=3)
-    bound, by = flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window), bf16, backward=False)
-    print(f"{label}: flash forward at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} window {window}, "
-          f"{fops.variant(bf16, dh, Hq // Hkv)}: against the plain version on blocks of "
-          f"{LM_BLOCK} rows at 0, {mid} and {S - LM_BLOCK} of each of the {B} sequences "
+    bound, by = flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window), bf16, False, dv)
+    print(f"{label}: flash forward at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} dv {dv} window "
+          f"{window}, {fops.instance(bf16, dh, Hq // Hkv, dv)}: against the plain version on "
+          f"blocks of {LM_BLOCK} rows at 0, {mid} and {S - LM_BLOCK} of each of the {B} sequences "
           f"(fp32, largest |out| {largest:.4e}): max_abs_err {err:.4e} worst "
           f"err/(tol + tol*|ref|) {ratio:.4f} (tol {TOL[bf16]}: must be at most 1); planted "
           f"controls' worst ratios (each must exceed 1): zeros {planted['zeros']:.4f}, the "
@@ -6228,7 +6392,7 @@ def lm_flash_check(dev, cfg, B: int, S: int, window: int | None, label: str) -> 
             "queued_ms": ms, "bound_ms": bound,
             "bound_by": by, "plain_ms": None, "plain_last_block_ms": plain_block_ms,
             "library_ms": lib, "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh,
-                                         "causal": True, "window": window}}
+                                         "dv": dv, "causal": True, "window": window}}
 
 
 def lm_decode_check(dev, cfg, k_layer, v_layer, cache_len, window, label: str) -> dict:
@@ -6264,92 +6428,138 @@ def lm_decode_check(dev, cfg, k_layer, v_layer, cache_len, window, label: str) -
 
 def lm_decode_cpu_check(dev, cfg_full, cell, label: str) -> dict:
     """The decode cell's step at B LM_CHECK_BATCH, cut to LM_CHECK_LAYERS
-    layers (gemma3-4b's pattern set to one local layer and one global), at
-    the full T and ``cache_len``, on the card (bf16, the fused kernel) and
-    on the CPU through the port's plain path in fp32, from the same weights
-    and batch: the logits within LM_CHECK_TOL of the largest.  The cache is
-    ``make_batch``'s, its keys scaled to LM_KEY_SPREAD and its values to
-    unit scale: the queries have unit scale, so the scores spread by
-    LM_KEY_SPREAD and the attention, not the residual, sets the logits.  A
-    planted control must fail the same check: the card's step over a copy
-    of the cache whose keys past the fused plan's first split of each
-    sequence's live range (a global layer's plan) are zeroed."""
+    layers (gemma3-4b's pattern set to one local layer and one global; an
+    MLA model to LM_CHECK_LAYERS_MLA), at the full T and ``cache_len``, on
+    the card (bf16: the fused kernel, or MLA's absorbed einsums) and on the
+    CPU through the port's plain path in fp32, from the same weights and
+    batch: the logits within LM_CHECK_TOL of the largest.  The cache is
+    ``make_batch``'s, scaled so the scores spread by LM_KEY_SPREAD and the
+    attention, not the residual, sets the logits: GQA's keys to
+    LM_KEY_SPREAD and its values to unit scale (the queries have unit
+    scale); MLA's latent and rope rows by the factor ``mla_latent_scale``
+    measures on layer 0.  An MoE oracle replays the card's expert ids and
+    slots (``replayed_route``) and reads the share of them its own routing
+    would have flipped.  A planted control must fail the same check: the
+    card's step over a copy of the cache whose keys past the fused plan's
+    first split of each sequence's live range (a global layer's plan) are
+    zeroed, or, for MLA, whose latent rows past half of each sequence's live
+    range are."""
     from repro_torch.data import make_batch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.launch.dryrun import batch_cut
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
     from repro_torch.train import build_serve_step
 
+    mla = cfg_full.mla is not None
     extra = {"local_global": (1, 1)} if cfg_full.local_global else {}
-    cfg = dataclasses.replace(cfg_full, n_layers=LM_CHECK_LAYERS, **extra)
+    n_layers = LM_CHECK_LAYERS_MLA if mla else LM_CHECK_LAYERS
+    cfg = dataclasses.replace(cfg_full, n_layers=n_layers, **extra)
     windows = transformer._layer_windows(cfg)
     cell = batch_cut(cell, LM_CHECK_BATCH)
     params = lm_params(dev, cfg, seed=2)
     batch = make_batch(cfg, cell, seed=2, generator=torch.Generator(device=dev).manual_seed(3))
-    batch["cache"]["k"].mul_(LM_KEY_SPREAD / LM_CACHE_STD)
-    batch["cache"]["v"].mul_(1 / LM_CACHE_STD)
-    cpu_params, cpu_cache = cpu_f32(params), cpu_f32(batch["cache"])
+    cache, lens = batch["cache"], batch["cache_len"].tolist()
+    if mla:
+        spread, scale = mla_latent_scale(params, cfg, batch["tokens"], cache,
+                                         batch["cache_len"])
+        for c in cache.values():
+            c.mul_(scale)
+        scaled = (f"latent and rope rows x {scale:.4f} (layer 0's absorbed scores spread "
+                  f"{spread:.4f} as drawn, {LM_KEY_SPREAD} after)")
+        kept = [(0, (n + 1) // 2 - 1) for n in lens]
+        control = f"the latent rows from {[hi + 1 for _, hi in kept]} zeroed"
+    else:
+        cache["k"].mul_(LM_KEY_SPREAD / LM_CACHE_STD)
+        cache["v"].mul_(1 / LM_CACHE_STD)
+        scaled = f"keys at {LM_KEY_SPREAD}, values at 1"
+        kept, n_splits = first_split_keys(dops, LM_CHECK_BATCH, cfg.n_kv_heads, cell.params[
+            "seq_len"], cfg.head_dim, cfg.dtype, lens, None, dev)
+        control = f"the rows past the first of {n_splits} splits zeroed, keys {kept} kept"
+    cpu_params, cpu_cache = cpu_f32(params), cpu_f32(cache)
     tokens, cache_len = batch["tokens"].cpu(), batch["cache_len"].cpu()
     step = build_serve_step(cfg, cell)
     T = cell.params["seq_len"]
-    kept, n_splits = first_split_keys(dops, LM_CHECK_BATCH, cfg.n_kv_heads, T, cfg.head_dim,
-                                      cfg.dtype, batch["cache_len"].tolist(), None, dev)
-    split = f"keys {kept} kept"
-    planted = {name: c.clone() for name, c in batch["cache"].items()}
+    planted = {name: c.clone() for name, c in cache.items()}
     for c in planted.values():
         for b, (_, hi) in enumerate(kept):
             c[:, b, hi + 1:] = 0
+    routes: list = []
+    inner = moe.route
+
+    def recorded(x, router, dims):
+        out = inner(x, router, dims)
+        routes.append(tuple(t.cpu() for t in out))
+        return out
+
     dops.reset_launches()
-    card = step(params, batch["tokens"], batch["cache"], batch["cache_len"])[0].float().cpu()
+    with patched_route(recorded if cfg.moe is not None else None):
+        card = step(params, batch["tokens"], cache, batch["cache_len"])[0].float().cpu()
     launches = dict(dops.decode_attention.launches_by_variant)
     wrong = step(params, batch["tokens"], planted, batch["cache_len"])[0].float().cpu()
-    del params, batch, planted
+    del params, batch, cache, planted
     gc.collect()
     torch.cuda.empty_cache()
+    flips: list = []
     t0 = time.perf_counter()
-    ref = build_serve_step(dataclasses.replace(cfg, dtype=torch.float32), cell)(
-        cpu_params, tokens, cpu_cache, cache_len)[0]
+    with patched_route(replayed_route(routes, flips) if cfg.moe is not None else None):
+        ref = build_serve_step(dataclasses.replace(cfg, dtype=torch.float32), cell)(
+            cpu_params, tokens, cpu_cache, cache_len)[0]
     cpu_s = time.perf_counter() - t0
     largest = ref.abs().max().item()
-    err, control = ((x - ref).abs().max().item() for x in (card, wrong))
-    print(f"{label} step card vs CPU: B {LM_CHECK_BATCH}, {LM_CHECK_LAYERS} layers (windows "
-          f"{windows}), T {T}, cache_len {cache_len.tolist()}, keys at {LM_KEY_SPREAD}, values "
-          f"at 1: card bf16 logits against the CPU port in fp32 ({cpu_s:.1f} s on the CPU): "
-          f"max_abs_err {err:.4e} largest {largest:.4e} tol {LM_CHECK_TOL:.0e} of the largest "
-          f"({LM_CHECK_TOL * largest:.4e}); planted control (the card's step with the rows past "
-          f"the first of {n_splits} splits zeroed, {split}; must exceed it) {control:.4e}; "
-          f"decode kernels {launches}")
-    check(launches == {"split": 0, "fused": LM_CHECK_LAYERS, "chunk": 0},
-          f"{label} step card vs CPU: decode kernels {launches}")
+    err, ctrl = ((x - ref).abs().max().item() for x in (card, wrong))
+    flip = max(flips) if flips else None
+    print(f"{label} step card vs CPU: B {LM_CHECK_BATCH}, {n_layers} layers (windows "
+          f"{windows}), T {T}, cache_len {cache_len.tolist()}, {scaled}: card bf16 logits "
+          f"against the CPU port in fp32 ({cpu_s:.1f} s on the CPU)"
+          + ("" if flip is None else f", the oracle routing as the card (expert ids and slots "
+             f"replayed; its own routing would flip {flip:.6f} of the card's choices at worst "
+             f"in a layer: {[round(f, 6) for f in flips]})")
+          + f": max_abs_err {err:.4e} largest {largest:.4e} tol {LM_CHECK_TOL:.0e} of the "
+          f"largest ({LM_CHECK_TOL * largest:.4e}); planted control (the card's step with "
+          f"{control}; must exceed it) {ctrl:.4e}; decode kernels {launches}")
+    want = {"split": 0, "fused": 0 if mla else n_layers, "chunk": 0}
+    check(launches == want, f"{label} step card vs CPU: decode kernels {launches}, wanted {want}")
     check(math.isfinite(err) and err <= LM_CHECK_TOL * largest,
           f"{label} step card vs CPU: logits {err} apart (largest {largest})")
-    check(control > LM_CHECK_TOL * largest,
-          f"{label} step card vs CPU: the planted control passes: {control} (largest {largest})")
-    return {"max_abs_err": err, "largest": largest, "control": control, "cpu_s": cpu_s,
-            "launches": launches}
+    check(ctrl > LM_CHECK_TOL * largest,
+          f"{label} step card vs CPU: the planted control passes: {ctrl} (largest {largest})")
+    return {"max_abs_err": err, "largest": largest, "control": ctrl, "cpu_s": cpu_s,
+            "launches": launches, "layers": n_layers, "flips": flips}
 
 
-def lm_decode_step_bound_ms(cfg, params, cache_len: list[int], T: int) -> float:
-    """A decode step's least time from this run's data: the weights it reads
-    (``decode_bounds``) and, in each layer, the K and V rows its sequences
-    see (``cache_len`` + 1 keys, or the window), over HBM rate."""
+def lm_decode_step_bound_ms(cfg, params, cache_len: list[int], T: int) -> dict[str, float]:
+    """A decode step's least time from this run's data, over HBM rate: the
+    weights it reads (``decode_bounds``: every parameter but the embedding
+    table; for MoE also the active weights alone, though the step's batched
+    product reads every expert's) and, in each layer, the cache rows its
+    sequences see (``cache_len`` + 1 keys, or the window): K and V of every
+    KV head, or MLA's one latent and rope row (``kv_lora_rank`` +
+    ``rope_head_dim`` columns)."""
     from repro_torch.models import transformer
 
     rows = sum(visible_keys(cache_len, 1, T, w) for w in transformer._layer_windows(cfg))
-    cache = 2 * rows * cfg.n_kv_heads * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
-    return (decode_bounds(cfg, params)["weights"][0] + cache) / HBM_BYTES_PER_S * 1e3
+    m = cfg.mla
+    cols = 2 * cfg.n_kv_heads * cfg.head_dim if m is None else m.kv_lora_rank + m.rope_head_dim
+    cache = rows * cols * torch.finfo(cfg.dtype).bits // 8
+    return {k: (b + cache) / HBM_BYTES_PER_S * 1e3 for k, (b, _) in
+            decode_bounds(cfg, params).items()}
 
 
-def lm_cell(dev, arch: str, name: str) -> dict:
+def lm_cell(dev, arch: str, name: str, fit: tuple | None = None) -> dict:
     """One cell through ``build_serve_step`` at the cut the dry-run's
-    ``fit`` takes under FIT_BYTES (the batch, or at B 1 the depth; never a
-    width, S, T, the window or ``cache_len``): one warm-up step, LM_CELL_STEPS
+    ``fit`` takes under FIT_BYTES (``lm_fit``, or ``fit`` where a worker
+    traced it already; the batch, or at B 1 the depth; never a width, S, T,
+    the window or ``cache_len``): one warm-up step, LM_CELL_STEPS
     steps timed by CUDA events, one more profiled; the launches of those
-    steps by variant (decode all ``fused``, flash all ``wgmma``, no index
-    write); the step's own peak against the reckoning; the kernels against
-    their plain versions at the cell's shape; for decode cells the step card
-    against CPU at B 2 and 2 layers (prefill cells have no such check: the
-    plain attention's [B, H, S, S] scores at S 32,768 do not fit)."""
+    steps by variant (decode all ``fused``, none where MLA's absorbed
+    einsums decode; flash all ``wgmma``, MLA's at the instantiation
+    ``mla_instance`` names; no index write); for MoE the ``groups()`` of the
+    step and the share of routed pairs capacity dropped in the warm-up; the
+    step's own peak against the reckoning, within LM_PEAK_TOL; the kernels
+    against their plain versions at the cell's shape; for decode cells the
+    step card against CPU at B 2 and 2 layers (1 for MLA; prefill cells have
+    no such check: the plain attention's [B, H, S, S] scores at S 32,768 do
+    not fit)."""
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.data import make_batch
     from repro_torch.kernels.decode_attention import ops as dops
@@ -6360,25 +6570,25 @@ def lm_cell(dev, arch: str, name: str) -> dict:
 
     label = f"lm cell {arch} {name}"
     published = next(c for c in get_shapes(arch) if c.name == name)
-    t0 = time.perf_counter()
-    cell, overrides, cuts, rec = dryrun.fit(arch, published, FIT_BYTES)
-    trace_s = time.perf_counter() - t0
+    (cell, overrides, cuts, rec), trace_s = fit or lm_fit(arch, name)
     full_cfg = get_config(arch)
     cfg = dryrun.apply_cfg_overrides(full_cfg, overrides)
     B, T = cell.params["global_batch"], cell.params["seq_len"]
+    decode = cell.kind == "decode"
+    mla = cfg.mla is not None
     print(f"{label}: the dry-run's cut under {FIT_BYTES} B: {cuts or 'none'} (reckoned peak "
           f"{rec['memory']['peak_hbm_bytes']} B, roofline "
           f"{rec['roofline']['step_time_s'] * 1e3:.3f} ms; {trace_s:.1f} s of tracing)")
     check(rec["status"] == "ok" and T == published.params["seq_len"]
           and dataclasses.replace(cfg, n_layers=full_cfg.n_layers) == full_cfg,
           f"{label}: the cut touches more than the batch and the depth: {cell}, {overrides}")
+    groups = lm_moe_groups(cfg, B if decode else B * T, decode, label)
     gc.collect()
     torch.cuda.empty_cache()
     pre = torch.cuda.memory_allocated(dev)
     params = lm_params(dev, cfg, seed=0)
     batch = make_batch(cfg, cell, seed=0, generator=torch.Generator(device=dev).manual_seed(1))
     step = build_serve_step(cfg, cell)
-    decode = cell.kind == "decode"
     inputs = ((batch["tokens"], batch["cache"], batch["cache_len"]) if decode
               else (batch["tokens"],))
 
@@ -6392,7 +6602,8 @@ def lm_cell(dev, arch: str, name: str) -> dict:
     dops.reset_launches()
     torch.cuda.empty_cache()  # once, before the warm-up: the steps run back to back
     with counted_inserts(dops) as index_writes:
-        finite = [torch.isfinite(one()).all()]  # warm-up
+        with counted_drops() as drops:
+            finite = [torch.isfinite(one()).all()]  # warm-up
         times = []
         for _ in range(LM_CELL_STEPS):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6404,15 +6615,19 @@ def lm_cell(dev, arch: str, name: str) -> dict:
             finite.append(torch.isfinite(logits).all())
             del logits
         prof = profile_call(label, one, n_kernels=3,
-                            watch=("decode_attention_fused",) if decode else ())
+                            watch=("decode_attention_fused",) if decode and not mla else ())
     max_mem = torch.cuda.max_memory_allocated(dev)
     n_steps = LM_CELL_STEPS + 2
     decode_launches = dict(dops.decode_attention.launches_by_variant)
     flash_launches = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+    by_inst = {k: dict(n) for k, n in flash_attention.launches_by_instance.items()}
     med = sorted(times)[len(times) // 2]
     per_step = B if decode else B * T
     run = {"mean_step_s": sum(times) / len(times) / 1e3, "max_memory": max_mem,
            "base_memory": base, "pre_memory": pre}
+    moe_part = ("" if groups is None else
+                f"; MoE groups (G, g, C) {groups}, capacity dropped {drops[0]} of {drops[1]} "
+                f"routed pairs in the warm-up step ({drops[0] / drops[1]:.6f})")
     print(f"{label}: {cfg.name} {cfg.n_layers} layers bf16 B {B} {'T' if decode else 'S'} "
           f"{T}{f' cache_len {T // 2}' if decode else ''}: step ms median {med:.3f} range "
           f"{min(times):.3f}-{max(times):.3f} over {LM_CELL_STEPS} (CUDA events), tokens_per_s "
@@ -6420,26 +6635,40 @@ def lm_cell(dev, arch: str, name: str) -> dict:
           f"{prof.get('idle_share', 'not measured')}; the step's own peak {max_mem - pre} B "
           f"(max_memory_allocated {max_mem} less {pre} held before) against the reckoned "
           f"{rec['memory']['peak_hbm_bytes']}; launches in the {n_steps} steps: decode "
-          f"{decode_launches}, flash {flash_launches}, index writes {index_writes[0]}")
+          f"{decode_launches}, flash {flash_launches} by instance {by_inst}, index writes "
+          f"{index_writes[0]}{moe_part}")
     check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
     L = cfg.n_layers
-    want_decode = {"split": 0, "fused": n_steps * L if decode else 0, "chunk": 0}
+    want_decode = {"split": 0, "fused": n_steps * L if decode and not mla else 0, "chunk": 0}
     want_flash = {v: {"fwd": n_steps * L if (v == "wgmma" and not decode) else 0, "bwd": 0}
                   for v in flash_launches}
     check(decode_launches == want_decode and flash_launches == want_flash
           and index_writes[0] == 0,
           f"{label}: decode {decode_launches} (wanted {want_decode}), flash {flash_launches} "
           f"(wanted {want_flash}), index writes {index_writes[0]}")
-    bound = (lm_decode_step_bound_ms(cfg, params, batch["cache_len"].tolist(), T) if decode
-             else None)
-    dr = dryrun_compare(f"{arch} {name} at the cut", rec, run, trace_s, data_bound_ms=bound)
+    if mla and not decode:
+        want = {mla_instance(cfg): {"fwd": n_steps * L, "bwd": 0}}
+        check(by_inst == want, f"{label}: flash launches by instance {by_inst}, wanted {want}")
+    bounds = (lm_decode_step_bound_ms(cfg, params, batch["cache_len"].tolist(), T) if decode
+              else None)
+    if bounds:
+        print(f"{label}: the step's data bounds (weights and visible cache rows at HBM rate): "
+              + "; ".join(f"{k} {ms:.3f} ms ({med / ms:.2f}x)" for k, ms in bounds.items()))
+    dr = dryrun_compare(f"{arch} {name} at the cut", rec, run, trace_s,
+                        data_bound_ms=bounds["weights"] if bounds else None)
+    check(abs(dr["ratio"] - 1) <= LM_PEAK_TOL,
+          f"{label}: the reckoned peak is {dr['ratio']:.4f} of the step's own")
     out = {"arch": arch, "cell": name, "cuts": cuts, "B": B, "T": T, "layers": L,
            "step_ms": times, "median_ms": med, "tokens_per_s": per_step / med * 1e3,
            "profile": prof, "decode_launches": decode_launches,
-           "flash_launches": flash_launches, "dryrun": dr, "kernels": {}}
+           "flash_launches": flash_launches, "flash_by_instance": by_inst, "dryrun": dr,
+           "kernels": {}, "bounds": bounds}
+    if groups is not None:
+        out.update(moe_groups=groups, drops=drops)
 
-    # the kernels at the cell's shape, on one layer (local and global for gemma3-4b)
-    if decode:
+    # the kernels at the cell's shape, on one layer (local and global for
+    # gemma3-4b); none at MLA's decode, whose absorbed attention is einsums
+    if decode and not mla:
         slices = {i: (batch["cache"]["k"][i].clone(), batch["cache"]["v"][i].clone(), w)
                   for i, w in lm_check_layers(cfg)}
         cache_len = batch["cache_len"]
@@ -6447,12 +6676,16 @@ def lm_cell(dev, arch: str, name: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if decode:
-        for i in list(slices):
-            k_l, v_l, w = slices.pop(i)
-            out["kernels"][f"layer {i}"] = lm_decode_check(dev, cfg, k_l, v_l, cache_len, w,
-                                                           f"{label} layer {i}")
-            del k_l, v_l
-            torch.cuda.empty_cache()
+        if mla:
+            print(f"{label}: no decode kernel runs (MLA's absorbed attention over the latent "
+                  f"cache is einsums, as in the reference); the step card vs CPU holds it")
+        else:
+            for i in list(slices):
+                k_l, v_l, w = slices.pop(i)
+                out["kernels"][f"layer {i}"] = lm_decode_check(dev, cfg, k_l, v_l, cache_len, w,
+                                                               f"{label} layer {i}")
+                del k_l, v_l
+                torch.cuda.empty_cache()
         out["cpu_check"] = lm_decode_cpu_check(dev, full_cfg, cell, label)
     else:
         for i, w in lm_check_layers(cfg):
@@ -6467,23 +6700,24 @@ def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: st
     """The flash forward and backward at a train cell's shape (bf16, causal,
     ``window``; q drawn at LM_KEY_SPREAD, k, v and dout unit normal) against
     fp32 autograd of the plain version, taken one sequence at a time (the
-    plain scores of the whole batch take 13 GB a copy at TinyLlama's B 6):
-    out, lse, dq, dk and dv within TOL.  Two planted controls must fail the
-    same check: zeros, and the kernels' dK and dV with the rows of keys
-    LM_TRAIN_CUT and after zeroed (what a backward that stopped at the S of
-    the earlier train steps gives).  Times: the kernels, the bound, the
+    plain scores of the whole batch take 13 GB a copy at TinyLlama's B 6)
+    and LM_ORACLE_HEADS query heads at a time: out, lse, dq, dk and dv
+    within TOL.  v and dout are ``dv`` wide (MLA's 128 beside keys of 192).
+    Two planted controls must fail the same check: zeros, and the kernels'
+    dK and dV with the rows of keys LM_TRAIN_CUT and after zeroed (what a
+    backward that stopped at the S of the earlier train steps gives).  Times: the kernels, the bound, the
     plain version on one sequence, SDPA at the cell's shape."""
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops as fops
 
-    Hq, Hkv, dh, bf16 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    (Hq, Hkv, dh, dv), bf16 = lm_widths(cfg), torch.bfloat16
     tol = TOL[bf16]
     gen = torch.Generator(device=dev).manual_seed(9)
     q = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(std=LM_KEY_SPREAD,
                                                                   generator=gen)
-    k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
-            for _ in range(2))
-    dout = torch.empty(B, S, Hq, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    k = torch.empty(B, S, Hkv, dh, dtype=bf16, device=dev).normal_(generator=gen)
+    v = torch.empty(B, S, Hkv, dv, dtype=bf16, device=dev).normal_(generator=gen)
+    dout = torch.empty(B, S, Hq, dv, dtype=bf16, device=dev).normal_(generator=gen)
     kw = dict(causal=True, window=window)
     out, lse = fops.flash_attention_fwd(q, k, v, **kw)
     got = dict(zip(("out", "lse", "dq", "dk", "dv"),
@@ -6492,7 +6726,8 @@ def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: st
     cut = f"keys from {LM_TRAIN_CUT} on dropped"
     planted = {"zeros": 0.0, cut: 0.0}  # worst ratio of each control
     for b in range(B):
-        want = flash_oracle(q[b:b + 1], k[b:b + 1], v[b:b + 1], dout[b:b + 1], True, window)
+        want = flash_oracle(q[b:b + 1], k[b:b + 1], v[b:b + 1], dout[b:b + 1], True, window,
+                            heads=LM_ORACLE_HEADS)
         for (name, g), ref in zip(got.items(), want):
             e, r = assert_close_ratio(g[b:b + 1], ref, tol)
             w = worst[name]
@@ -6505,9 +6740,10 @@ def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: st
                 planted[cut] = max(planted[cut], assert_close_ratio(dropped, ref, tol)[1])
         del want
     ratio = max(w[1] for w in worst.values())
-    print(f"{label}: flash at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} window {window}, "
-          f"{fops.variant(bf16, dh, Hq // Hkv)}: against fp32 autograd of the plain version, one "
-          f"sequence at a time (q at {LM_KEY_SPREAD}): " + ", ".join(
+    print(f"{label}: flash at B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} dv {dv} window {window}, "
+          f"{fops.instance(bf16, dh, Hq // Hkv, dv)}: against fp32 autograd of the plain "
+          f"version, one sequence and {LM_ORACLE_HEADS} heads at a time (q at "
+          f"{LM_KEY_SPREAD}): " + ", ".join(
               f"{n} max_abs_err {w[0]:.4e} ratio {w[1]:.4f} (largest {w[2]:.4e})"
               for n, w in worst.items())
           + f"; worst err/(tol + tol*|ref|) {ratio:.4f} (tol {tol}: must be at most 1); planted "
@@ -6534,7 +6770,7 @@ def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: st
     for kind, names in (("fwd", ("out", "lse")), ("bwd", ("dq", "dk", "dv"))):
         t = times[kind]
         t["bound_ms"], t["bound_by"] = flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window),
-                                                      bf16, backward=kind == "bwd")
+                                                      bf16, kind == "bwd", dv)
         t.update(plain_ms=None, max_abs_err=max(worst[n][0] for n in names),
                  ratio=max(worst[n][1] for n in names))
         print(f"{label}: flash {kind} queued_ms {t['queued_ms']:.4f} bound_ms "
@@ -6542,7 +6778,7 @@ def lm_train_flash_check(dev, cfg, B: int, S: int, window: int | None, label: st
               f"{t['plain_one_sequence_ms']:.4f} SDPA {t['library_ms']:.4f}")
     torch.cuda.empty_cache()
     return {**times, "controls": planted, "errs": worst,
-            "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "causal": True,
+            "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "dh": dh, "dv": dv, "causal": True,
                       "window": window}}
 
 
@@ -6572,15 +6808,19 @@ class _KeysDropped(torch.autograd.Function):
 
 def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
     """One forward and backward of the train cell's loss at its depth and
-    remat, B 1 x S, through four attentions (``family_grads``): the plain
-    version in fp32 (the oracle), the flash kernels, the plain version in
-    bf16, and the planted control (``_KeysDropped``).  The kernels' grad
-    norm and each attention projection leaf must lie within LM_GRAD_TOL of
-    the oracle's, or within the bf16 plain version's own distance where
-    that is larger; the control must not.  Under remat none each plain call
-    recomputes its scores in the backward (a checkpoint around the call,
-    values unchanged): the saved fp32 scores of every layer at S 4,096 do
-    not fit."""
+    remat, B 1 x S, through four attentions (``family_grads``): the flash
+    kernels, the plain version in fp32 (the oracle), the plain version in
+    bf16, and the planted control (``_KeysDropped``).  An MoE model's other
+    three runs replay the kernels' run's expert ids and slots
+    (``replayed_route``), so the attention's rounding is all that parts them;
+    the share of those choices the oracle's own routing would have flipped
+    is read.  The kernels' grad norm and each attention projection leaf must
+    lie within LM_GRAD_TOL of the oracle's, or within the bf16 plain
+    version's own distance where that is larger; the control must not.
+    Every flash launch of an MLA model is at ``mla_instance``'s.  Under remat
+    none each plain call recomputes its scores in the backward (a checkpoint
+    around the call, values unchanged): the saved fp32 scores of every layer
+    at S 4,096 do not fit."""
     from repro_torch.data import make_batch
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.launch.dryrun import batch_cut
@@ -6606,23 +6846,39 @@ def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
         return math.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
                              for g in gs))
 
+    def run(attn, route=None):
+        """(loss, grad norm, the attention leaves' gradients, the routes)."""
+        loss, grads, routes = family_grads(params, cfg, batch, remat=remat, attn=attn,
+                                           route=route)
+        return loss, norm(grads), [grads[i] for i in attn_idx], routes
+
     f0, b0 = flash_attention.launches_fwd, flash_attention.launches_bwd
-    loss, ref, _ = family_grads(params, cfg, batch, remat=remat, attn=plain(torch.float32))
-    n_ref = norm(ref)
-    out = {"fp32 oracle": {"loss": loss, "norm": n_ref}}
-    for name, attn in (("plain bf16", plain(cfg.dtype)), ("kernels", flash_attention),
-                       ("planted", dropped)):
-        loss, grads, _ = family_grads(params, cfg, batch, remat=remat, attn=attn)
-        n = norm(grads)
-        dist = {"grad norm": abs(n - n_ref) / n_ref,
-                **{names[i].split("/")[-1]: rel_diff(grads[i], ref[i]) for i in attn_idx}}
-        out[name] = {"loss": loss, "norm": n, "dist": dist}
-        del grads
+    inst0 = {k: dict(n) for k, n in flash_attention.launches_by_instance.items()}
+    runs = {"kernels": run(flash_attention)}
+    routes = runs["kernels"][3] if cfg.moe is not None else None
+    flips: list = []
+    replay = lambda f=None: replayed_route(routes, f) if routes else None  # noqa: E731
+    runs["fp32 oracle"] = run(plain(torch.float32), replay(flips))
+    runs["plain bf16"] = run(plain(cfg.dtype), replay())
+    runs["planted"] = run(dropped, replay())
+    _, n_ref, ref, _ = runs["fp32 oracle"]
+    out = {}
+    for name in ("fp32 oracle", "plain bf16", "kernels", "planted"):
+        loss, n, gs, _ = runs[name]
+        out[name] = {"loss": loss, "norm": n}
+        if name != "fp32 oracle":
+            out[name]["dist"] = {"grad norm": abs(n - n_ref) / n_ref, **{
+                names[i].split("/")[-1]: rel_diff(g, r) for i, g, r in zip(attn_idx, gs, ref)}}
     launches = (flash_attention.launches_fwd - f0, flash_attention.launches_bwd - b0)
-    del ref
+    moved = {k: {c: n[c] - inst0.get(k, {}).get(c, 0) for c in n}
+             for k, n in flash_attention.launches_by_instance.items() if n != inst0.get(k)}
+    del runs, ref
     bound = {q: max(LM_GRAD_TOL, d) for q, d in out["plain bf16"]["dist"].items()}
     kern, ctrl = out["kernels"]["dist"], out["planted"]["dist"]
     passes = lambda d: all(d[q] <= bound[q] for q in d)  # noqa: E731
+    flip = (f"; the other runs route as the kernels' (expert ids and slots replayed; the "
+            f"oracle's own routing would flip {max(flips):.6f} of them at worst in a layer)"
+            if flips else "")
     print(f"{label} gradient check: {cfg.n_layers} layers, remat {remat}, B 1 S "
           f"{one.params['seq_len']}: " + "; ".join(
               f"{name} loss {r['loss']:.6f} grad norm {r['norm']:.6e}"
@@ -6631,25 +6887,31 @@ def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
               for name, r in out.items())
           + f"; held to {LM_GRAD_TOL} or the bf16 plain version's distance where larger; the "
           f"planted control (dK, dV past key {LM_TRAIN_CUT} dropped) must fail; flash launches "
-          f"{launches}")
+          f"{launches} by instance {moved}{flip}")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["norm"]) for r in out.values()),
           f"{label} gradient check: non-finite loss or norm: {out}")
     check(passes(kern), f"{label} gradient check: the kernels' gradient {kern}, bound {bound}")
     check(not passes(ctrl), f"{label} gradient check: the planted control passes: {ctrl}")
-    return {**out, "bound": bound, "launches": launches}
+    if cfg.mla is not None:
+        want = {mla_instance(cfg): {"fwd": launches[0], "bwd": launches[1]}}
+        check(moved == want, f"{label} gradient check: flash launches {moved}, wanted {want}")
+    return {**out, "bound": bound, "launches": launches, "flips": flips}
 
 
-def lm_train_cell(dev, arch: str) -> dict:
+def lm_train_cell(dev, arch: str, fit: tuple | None = None) -> dict:
     """The reference's ``train_4k`` cell through ``build_train_step`` at the
-    cut and remat the dry-run's ``fit_train`` takes (widths, S and the window as
+    cut and remat the dry-run's ``fit_train`` takes (``lm_fit``, or ``fit``
+    where a worker traced it already; widths, S and the window as
     published), random bf16 weights at the true fan-in (``lm_params``), a
     fresh AdamW state, batches from ``make_batch`` drawn on the card: the
     gradient check (``lm_train_grad_check``, on the parameters alone), one
     warm-up step, LM_CELL_STEPS steps timed by CUDA events and one more
     profiled; each step's loss and grad norm finite; the flash launches of
     those steps (L forwards a step, 2L under remat full, L backwards, all
-    ``wgmma``; no decode kernel); the step's own peak against the
-    reckoning; the flash kernels at the cell's shape on one layer (a local
+    ``wgmma``, MLA's at ``mla_instance``'s; no decode kernel); for MoE the
+    ``groups()`` of the step and the share of routed pairs capacity dropped
+    in the warm-up; the step's own peak against the reckoning, within
+    LM_PEAK_TOL; the flash kernels at the cell's shape on one layer (a local
     and a global one for gemma3-4b, ``lm_train_flash_check``)."""
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.data import make_batch
@@ -6662,9 +6924,7 @@ def lm_train_cell(dev, arch: str) -> dict:
     name = "train_4k"
     label = f"lm cell {arch} {name}"
     published = next(c for c in get_shapes(arch) if c.name == name)
-    t0 = time.perf_counter()
-    remat, fits = dryrun.fit_train(arch, published, FIT_BYTES)
-    trace_s = time.perf_counter() - t0
+    (remat, fits), trace_s = fit or lm_fit(arch, name)
     cell, overrides, cuts, rec = fits[remat]
     full_cfg = get_config(arch)
     cfg = dryrun.apply_cfg_overrides(full_cfg, overrides)
@@ -6678,6 +6938,7 @@ def lm_train_cell(dev, arch: str) -> dict:
     check(rec["status"] == "ok" and S == published.params["seq_len"]
           and dataclasses.replace(cfg, n_layers=full_cfg.n_layers) == full_cfg,
           f"{label}: the cut touches more than the batch and the depth: {cell}, {overrides}")
+    groups = lm_moe_groups(cfg, B * S, False, label)
     gc.collect()
     torch.cuda.empty_cache()
     pre = torch.cuda.memory_allocated(dev)
@@ -6707,7 +6968,8 @@ def lm_train_cell(dev, arch: str) -> dict:
     reset_flash()
     dops.reset_launches()
     torch.cuda.empty_cache()
-    one()  # warm-up
+    with counted_drops() as drops:
+        one()  # warm-up
     times = []
     for _ in range(LM_CELL_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6721,6 +6983,7 @@ def lm_train_cell(dev, arch: str) -> dict:
     max_mem = torch.cuda.max_memory_allocated(dev)
     decode_launches = dict(dops.decode_attention.launches_by_variant)
     flash_launches = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}
+    by_inst = {k: dict(n) for k, n in flash_attention.launches_by_instance.items()}
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     med = sorted(times)[len(times) // 2]
     run = {"mean_step_s": sum(times) / len(times) / 1e3, "max_memory": max_mem,
@@ -6733,7 +6996,10 @@ def lm_train_cell(dev, arch: str) -> dict:
           f"{[round(r['grad_norm'], 6) for r in rows]}; the step's own peak {max_mem - pre} B "
           f"(max_memory_allocated {max_mem} less {pre} held before) against the reckoned "
           f"{rec['memory']['peak_hbm_bytes']}; launches in the {n_steps} steps: decode "
-          f"{decode_launches}, flash {flash_launches}")
+          f"{decode_launches}, flash {flash_launches} by instance {by_inst}"
+          + ("" if groups is None else
+             f"; MoE groups (G, g, C) {groups}, capacity dropped {drops[0]} of {drops[1]} "
+             f"routed pairs in the warm-up step ({drops[0] / drops[1]:.6f})"))
     check(all(math.isfinite(v) for r in rows for v in r.values()),
           f"{label}: non-finite metrics {rows}")
     per_step = (2 if remat == "full" else 1) * L  # a forward a layer, again where remat recomputes
@@ -6741,11 +7007,19 @@ def lm_train_cell(dev, arch: str) -> dict:
                       "bwd": n_steps * L if v == "wgmma" else 0} for v in flash_launches}
     check(all(n == 0 for n in decode_launches.values()) and flash_launches == want_flash,
           f"{label}: decode {decode_launches}, flash {flash_launches} (wanted {want_flash})")
+    if cfg.mla is not None:
+        want = {mla_instance(cfg): want_flash["wgmma"]}
+        check(by_inst == want, f"{label}: flash launches by instance {by_inst}, wanted {want}")
     dr = dryrun_compare(f"{arch} {name} at the cut", rec, run, trace_s)
+    check(abs(dr["ratio"] - 1) <= LM_PEAK_TOL,
+          f"{label}: the reckoned peak is {dr['ratio']:.4f} of the step's own")
     out = {"arch": arch, "cell": name, "cuts": cuts, "remat": remat, "B": B, "T": S,
            "layers": L, "step_ms": times, "median_ms": med, "tokens_per_s": B * S / med * 1e3,
            "metrics": rows, "profile": prof, "decode_launches": decode_launches,
-           "flash_launches": flash_launches, "dryrun": dr, "grad_check": grad, "kernels": {}}
+           "flash_launches": flash_launches, "flash_by_instance": by_inst, "dryrun": dr,
+           "grad_check": grad, "kernels": {}}
+    if groups is not None:
+        out.update(moe_groups=groups, drops=drops)
     del state, batches, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -6755,15 +7029,18 @@ def lm_train_cell(dev, arch: str) -> dict:
     return out
 
 
-def phase_lm_cells(dev) -> dict:
+def phase_lm_cells(dev, fits: LMFits | None = None) -> dict:
     """The reference's LM serve cells (``configs/base.py``'s LM_SHAPES:
-    ``prefill_32k``, ``decode_32k``, ``long_500k``; TinyLlama-1.1B's and
-    gemma3-4b's; TinyLlama's ``long_500k`` is the reference's ``skipped``)
+    ``prefill_32k``, ``decode_32k``, ``long_500k``; of the five LM configs,
+    LM_CELLS: every pair the reference does not skip, ``long_500k`` of
+    TinyLlama-1.1B, deepseek-7b and qwen2-moe-a2.7b being its ``skipped``)
     through ``build_serve_step`` at full width, S or T, window and
     ``cache_len``, random weights from a seeded CUDA generator at the true
     fan-in, the batch from ``make_batch`` drawn on the card, each at the
     cut the dry-run takes under FIT_BYTES, one after another (``lm_cell``);
-    then the ``train_4k`` cell of each of LM_TRAIN_CELLS (``lm_train_cell``)."""
+    then the ``train_4k`` cell of each of LM_TRAIN_CELLS (``lm_train_cell``).
+    ``fits``, where given, holds the cuts a worker traced meanwhile; it is
+    read, and its worker stopped, before the first cell."""
     # expandable segments: memory a step frees is unmapped, and the next
     # step's largest allocation (TinyLlama prefill's fp32 [B, S, V] logits,
     # 39 GiB at B 10) maps it again; with fixed segments, those the first
@@ -6772,8 +7049,11 @@ def phase_lm_cells(dev) -> dict:
     torch.cuda.empty_cache()
     settings("expandable_segments:True")
     try:
-        rows = {f"{arch} {name}": lm_cell(dev, arch, name) for arch, name in LM_CELLS}
-        rows.update({f"{arch} train_4k": lm_train_cell(dev, arch) for arch in LM_TRAIN_CELLS})
+        got = fits.all() if fits else {}
+        rows = {f"{arch} {name}": lm_cell(dev, arch, name, got.get((arch, name)))
+                for arch, name in LM_CELLS}
+        rows.update({f"{arch} train_4k": lm_train_cell(dev, arch, got.get((arch, "train_4k")))
+                     for arch in LM_TRAIN_CELLS})
     finally:
         torch.cuda.empty_cache()
         settings("expandable_segments:False")
@@ -6789,8 +7069,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
+    on_src_path()
     from repro_torch.kernels import build  # fails where the package is absent
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6803,6 +7082,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = build.build_all()
     print(f"build: {build_s:.3f} s for {len(build.sources())} source(s)")
+    fits = LMFits()  # the LM cells' dry-run cuts, traced on the CPU while the card works
 
     def timed(fn, *args):
         t = time.perf_counter()
@@ -6841,7 +7121,7 @@ def main() -> int:
     cli = timed(phase_client, eng["rows"])
     gwy = timed(phase_gateway)
     g3s = timed(phase_gemma3_serve)
-    lm = timed(phase_lm_cells)
+    lm = timed(phase_lm_cells, fits)
 
     def decode_shape(label, tname):
         c = next(c for c in KERNEL_CASES if c[0] == label)
@@ -6998,14 +7278,19 @@ def main() -> int:
             entry["at_chunk_case"] = {k: split_at_chunk[k] for k in timed_keys}
         line["kernels"].append(entry)
     wf_path = f"workflow ({wf['train_calls']} train, {wf['eval_calls']} eval calls)"
-    dc12 = ("tinyllama-1.1b", "deepseek-7b")  # the LM cells' flash calls at dh 64 and 128
+    # the LM cells' flash calls at dh 64 and 128 (deepseek-7b's and qwen2-moe's, G 1)
+    dc12 = ("tinyllama-1.1b", "deepseek-7b", "qwen2-moe-a2.7b")
     family_flash = {"deepseek-7b prefill": ds7["prefill"]["launches"],
                     "qwen2-moe-a2.7b prefill": qwen["prefill"]["launches"]}
     # deepseek-v2's flash calls, every one at the (3, 2) instantiation
+    mla = ("deepseek-v2-236b",)
     mla_flash = [{f"deepseek-v2-236b forward ({MLA_LAYERS} layers, two witnesses)":
                   sum(dsv2["witness"][k]["launches"] for k in ("reference init", "true fan-in")),
                   "deepseek-v2-236b layer 0 attention (two witnesses)":
-                  sum(w["launches"] for w in dsv2["attention_witness"].values())}, {}]
+                  sum(w["launches"] for w in dsv2["attention_witness"].values()),
+                  LM_PATH: lm_flash(mla, "fwd", False),
+                  lm_train_path: lm_flash(mla, "fwd", True)},
+                 {lm_train_path: lm_flash(mla, "bwd", True)}]
     family_train_flash = [{}, {}]
     for arch, r in ftrain["train"].items():
         into = mla_flash if arch == "deepseek-v2-236b" else family_train_flash
@@ -7026,10 +7311,12 @@ def main() -> int:
                                         lm_train_path: lm_flash(dc12, "bwd", True)}),
     ):
         r = fm[kind]
-        # TinyLlama's (DC 1, G 8) and deepseek-7b's (DC 2, G 1) at the LM cells
+        # TinyLlama's (DC 1, G 8), deepseek-7b's and qwen2-moe's (DC 2, G 1) at
+        # the LM cells
         lm_shapes = {"at_lm_cells": at_lm_cells(
-            (*(("tinyllama-1.1b prefill_32k", "deepseek-7b prefill_32k") if kind == "fwd"
-               else ()), "tinyllama-1.1b train_4k", "deepseek-7b train_4k"), kind)}
+            tuple(f"{a} {c}" for a in dc12 for c in (("prefill_32k", "train_4k")
+                                                     if kind == "fwd" else ("train_4k",))),
+            kind)}
         line["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -7090,6 +7377,8 @@ def main() -> int:
             "padded_values": {"instance": mf["padded"]["instance"],
                               **{k: pad_r[k] for k in ("queued_ms", "l2_flushed_ms", "ms",
                                                         "max_abs_err")}},
+            "at_lm_cells": at_lm_cells((*(("deepseek-v2-236b prefill_32k",) if kind == "fwd"
+                                          else ()), "deepseek-v2-236b train_4k"), kind),
         })
     gtr = gem["train"]
     for name, kind, by_path in (
@@ -7323,14 +7612,19 @@ def main() -> int:
         "fused_busy_share": r["profile"].get("watch", {}).get(
             "decode_attention_fused", {}).get("busy_share"),
         "peak": r["dryrun"]["measured_peak"], "reckoned_peak": r["dryrun"]["reckoned_peak"],
-        **({"card_vs_cpu": {k: r["cpu_check"][k] for k in ("max_abs_err", "largest", "control")}}
+        **({"card_vs_cpu": {k: r["cpu_check"][k] for k in (
+            "max_abs_err", "largest", "control", "layers", "flips")}}
            if "cpu_check" in r else {}),
+        **({"data_bound_ms": r["bounds"]} if r.get("bounds") else {}),
+        **({"moe_groups": r["moe_groups"], "dropped_routed": r["drops"]}
+           if "moe_groups" in r else {}),
         **({"remat": r["remat"], "losses": [m["loss"] for m in r["metrics"]],
             "grad_norms": [m["grad_norm"] for m in r["metrics"]],
             "flash_busy_share": {w: x["busy_share"] for w, x in r["profile"].get(
                 "watch", {}).items()},
             "gradient_check": {k: r["grad_check"][k]["dist"] for k in (
-                "kernels", "plain bf16", "planted")}} if "grad_check" in r else {})}
+                "kernels", "plain bf16", "planted")},
+            "gradient_check_flips": r["grad_check"]["flips"]} if "grad_check" in r else {})}
         for label, r in lm["rows"].items()}
     line["store_server"] = {**store["tier"], "restore": store["restore"]}
     line["client"] = {

@@ -796,47 +796,60 @@ def test_flash_attention_backward_is_deterministic(case):
         assert torch.equal(a, b)
 
 
-# (B, S, Hq, Hkv, dh, window): the reference's train_4k cell at S 4,096, one
-# sequence of each model's attention (causal): TinyLlama-1.1B (DC 1, G 8),
-# gemma3-4b's local and global layers (DC 4, G 2), deepseek-7b (DC 2, G 1);
-# and TinyLlama's at S 4,160, not a multiple of a tile.  The key walks are
-# twice as long as at the S 2,048 every other case reaches.
+# (B, S, Hq, Hkv, dh, dv, window): the reference's train_4k cell at S 4,096,
+# one sequence of each model's attention (causal): TinyLlama-1.1B (DC 1,
+# G 8), gemma3-4b's local and global layers (DC 4, G 2), deepseek-7b (DC 2,
+# G 1), qwen2-moe-a2.7b (DC 2, G 1, 16 heads) and deepseek-v2-236b's MLA
+# (keys 192, values 128: the (3, 2) instantiation, 128 heads); and
+# TinyLlama's at S 4,160, not a multiple of a tile.  The key walks are twice
+# as long as at the S 2,048 every other case reaches.
 LONG_BWD_CASES = [
-    (1, 4096, 32, 4, 64, None),
-    (1, 4096, 8, 4, 256, 1024),
-    (1, 4096, 8, 4, 256, None),
-    (1, 4096, 32, 32, 128, None),
-    (1, 4160, 32, 4, 64, None),
+    (1, 4096, 32, 4, 64, 64, None),
+    (1, 4096, 8, 4, 256, 256, 1024),
+    (1, 4096, 8, 4, 256, 256, None),
+    (1, 4096, 32, 32, 128, 128, None),
+    (1, 4160, 32, 4, 64, 64, None),
+    (1, 4096, 16, 16, 128, 128, None),
+    (1, 4096, 128, 128, 192, 128, None),
 ]
 KEY_SPREAD = 4.0  # the queries' scale, as chip_smoke.py's LM_KEY_SPREAD
+ORACLE_HEADS = 32  # query heads a group of the fp32 oracle: MLA's 128 take 8.6 GB a copy
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", LONG_BWD_CASES, ids=["tinyllama", "gemma3-local",
-                                                      "gemma3-global", "deepseek-7b", "S4160"])
+                                                      "gemma3-global", "deepseek-7b", "S4160",
+                                                      "qwen2-moe", "deepseek-v2-mla"])
 def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
     """bf16 forward and backward on the ``wgmma`` kernels at the train_4k
-    cell's S against fp32 autograd of ``attention_ref`` at TOL.  The
-    queries are drawn at KEY_SPREAD, so the scores spread by 4 and the
+    cell's S against fp32 autograd of ``attention_ref`` at TOL, taken
+    ORACLE_HEADS query heads at a time (each head's attention is its own).
+    The queries are drawn at KEY_SPREAD, so the scores spread by 4 and the
     softmax picks a few keys: a key the kernels drop, past 2,048 or
     anywhere, moves an output row by the values' scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, S, Hq, Hkv, dh, window = case
+    B, S, Hq, Hkv, dh, dv, window = case
     bf16, dev = torch.bfloat16, torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(21)
     q = (torch.randn(B, S, Hq, dh, generator=g, device=dev) * KEY_SPREAD).to(bf16)
     k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(bf16)
-    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(bf16)
-    dout = torch.randn(B, S, Hq, dh, generator=g, device=dev).to(bf16)
-    want = flash_oracle(q, k, v, dout, True, window)
-    assert flash_ops.variant(bf16, dh, Hq // Hkv) == "wgmma"
+    v = torch.randn(B, S, Hkv, dv, generator=g, device=dev).to(bf16)
+    dout = torch.randn(B, S, Hq, dv, generator=g, device=dev).to(bf16)
+    G, step = Hq // Hkv, min(ORACLE_HEADS, Hq)
+    parts = [flash_oracle(q[:, :, h:h + step], k[:, :, h // G:(h + step) // G],
+                          v[:, :, h // G:(h + step) // G], dout[:, :, h:h + step], True, window)
+             for h in range(0, Hq, step)]
+    want = [torch.cat([p[i] for p in parts], dim=1 if i == 1 else 2) for i in range(5)]
+    del parts
+    assert flash_ops.variant(bf16, dh, G, dv) == "wgmma"
     flash_ops.reset_launches()
     out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
     grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_ops.flash_attention.launches_by_variant["wgmma"] == {"fwd": 1, "bwd": 1}
+    inst = flash_ops.instance(bf16, dh, G, dv)
+    assert flash_ops.flash_attention.launches_by_instance == {inst: {"fwd": 1, "bwd": 1}}
     tol = TOLS[bf16]
     for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), want):
         torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol, msg=name)

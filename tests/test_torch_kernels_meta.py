@@ -275,7 +275,8 @@ def _alloc(nbytes: int) -> int:
     (98, 32_768, 32, 4, 64, None, (64, 1, 1)),  # TinyLlama decode_32k at its cut
     (1, 524_288, 8, 4, 256, 1024, (32, 8, 8)),  # gemma3-4b long_500k, a local layer
     (1, 524_288, 8, 4, 256, None, (32, 66, 2)),  # and a global one
-], ids=["decode_32k-dh64", "long_500k-local", "long_500k-global"])
+    (7, 32_768, 16, 16, 128, None, (64, 2, 2)),  # qwen2-moe-a2.7b decode_32k at its cut
+], ids=["decode_32k-dh64", "long_500k-local", "long_500k-global", "qwen2-moe-decode_32k"])
 def test_fused_decode_at_the_lm_cells_on_meta(B, T, Hq, Hkv, dh, window, plan):
     """The fused decode at the serve cells' T on meta: the card path's
     allocations (its output; past one cluster of splits also the fp32
@@ -305,69 +306,78 @@ def test_fused_decode_at_the_lm_cells_on_meta(B, T, Hq, Hkv, dh, window, plan):
     assert counts.bytes["decode_attention_fused"] >= 2 * B * T * Hkv * dh * 2
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,dh,window", [
-    (10, 32, 4, 64, None),  # TinyLlama prefill_32k at its cut
-    (1, 8, 4, 256, 1024),  # gemma3-4b, a local layer
-    (1, 8, 4, 256, None),  # and a global one
-], ids=["tinyllama", "gemma3-local", "gemma3-global"])
-def test_flash_forward_at_prefill_32k_on_meta(B, Hq, Hkv, dh, window):
+@pytest.mark.parametrize("B,Hq,Hkv,dh,dv,window", [
+    (10, 32, 4, 64, 64, None),  # TinyLlama prefill_32k at its cut
+    (1, 8, 4, 256, 256, 1024),  # gemma3-4b, a local layer
+    (1, 8, 4, 256, 256, None),  # and a global one
+    (1, 16, 16, 128, 128, None),  # qwen2-moe-a2.7b at its cut
+    (1, 128, 128, 192, 128, None),  # deepseek-v2-236b's MLA (wgmma 3x2)
+], ids=["tinyllama", "gemma3-local", "gemma3-global", "qwen2-moe", "deepseek-v2-mla"])
+def test_flash_forward_at_prefill_32k_on_meta(B, Hq, Hkv, dh, dv, window):
     """The flash forward at S 32,768 on meta: the card path's allocations
-    (the output and the fp32 logsumexp; the wgmma forward takes no
-    scratch), the row grid inside the kernel's 65,535, the FLOPs of the
-    pairs the mask keeps, no launch."""
+    (the output, ``dv`` wide, and the fp32 logsumexp; the wgmma forward
+    takes no scratch), the row grid inside the kernel's 65,535, the FLOPs of
+    the pairs the mask keeps (Q.K at dh, P.V at dv), no launch."""
     S, bf16 = 32_768, torch.bfloat16
     G = Hq // Hkv
-    assert flash_ops.variant(bf16, dh, G) == "wgmma"
+    assert flash_ops.variant(bf16, dh, G, dv) == "wgmma"
     wg = flash_ops.VARIANTS.index("wgmma")
-    assert flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, False) == 0
+    assert flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, False, dv=dv) == 0
     assert -(-(S * G) // 64) <= 65_535
     before = _launch_counts()
     rk = dryrun.Reckoner()
     with rk, meta.counting() as counts:
         q = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
-        k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
+        k = torch.empty(B, S, Hkv, dh, dtype=bf16, device=M)
+        v = torch.empty(B, S, Hkv, dv, dtype=bf16, device=M)
         base = rk.live
         out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
-    assert out.shape == q.shape and lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    assert out.shape == (B, S, Hq, dv) and out.dtype == bf16
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
     assert rk.peak - base == _alloc(out.numel() * 2) + _alloc(lse.numel() * 4)
     assert counts.calls == {"flash_attention_fwd": 1} and _launch_counts() == before
     pairs = flash_ops.unmasked_pairs(S, S, True, window)
-    assert counts.flops["flash_attention_fwd"] == 4 * B * Hq * dh * pairs
+    assert counts.flops["flash_attention_fwd"] == 2 * B * Hq * (dh + dv) * pairs
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,dh,window", [
-    (6, 32, 4, 64, None),  # TinyLlama train_4k at its cut
-    (2, 8, 4, 256, 1024),  # gemma3-4b at its cut (remat full), a local layer
-    (2, 8, 4, 256, None),  # and a global one
-    (1, 32, 32, 128, None),  # deepseek-7b at its cut
-], ids=["tinyllama", "gemma3-local", "gemma3-global", "deepseek-7b"])
-def test_flash_backward_at_train_4k_on_meta(B, Hq, Hkv, dh, window):
+@pytest.mark.parametrize("B,Hq,Hkv,dh,dv,window", [
+    (6, 32, 4, 64, 64, None),  # TinyLlama train_4k at its cut
+    (2, 8, 4, 256, 256, 1024),  # gemma3-4b at its cut (remat full), a local layer
+    (2, 8, 4, 256, 256, None),  # and a global one
+    (1, 32, 32, 128, 128, None),  # deepseek-7b at its cut
+    (1, 16, 16, 128, 128, None),  # qwen2-moe-a2.7b at its cut
+    (1, 128, 128, 192, 128, None),  # deepseek-v2-236b's MLA (wgmma 3x2)
+], ids=["tinyllama", "gemma3-local", "gemma3-global", "deepseek-7b", "qwen2-moe",
+        "deepseek-v2-mla"])
+def test_flash_backward_at_train_4k_on_meta(B, Hq, Hkv, dh, dv, window):
     """The flash backward at S 4,096 on meta: dq, dk and dv in the inputs'
-    shapes and dtype, and the card path's allocations (those three and the
-    wgmma backward's fp32 D scratch, [B, Hq, S]); the grids inside the
-    kernels' 65,535 (the dQ kernel's row blocks, the dK/dV kernel's key
-    blocks); the FLOPs of the pairs the mask keeps; no launch."""
+    shapes and dtype (dv ``dv`` wide), and the card path's allocations
+    (those three and the wgmma backward's fp32 D scratch, [B, Hq, S]); the
+    grids inside the kernels' 65,535 (the dQ kernel's row blocks, the dK/dV
+    kernel's key blocks); the FLOPs of the pairs the mask keeps; no
+    launch."""
     S, bf16 = 4096, torch.bfloat16
     G = Hq // Hkv
-    assert flash_ops.variant(bf16, dh, G) == "wgmma"
+    assert flash_ops.variant(bf16, dh, G, dv) == "wgmma"
     wg = flash_ops.VARIANTS.index("wgmma")
-    scratch = flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, True)
+    scratch = flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, True, dv=dv)
     assert scratch == B * Hq * S
     assert -(-(S * G) // 64) <= 65_535 and -(-S // 64) <= 65_535
     before = _launch_counts()
     rk = dryrun.Reckoner()
     with rk, meta.counting() as counts:
         q = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
-        k, v = (torch.empty(B, S, Hkv, dh, dtype=bf16, device=M) for _ in range(2))
-        out = torch.empty(B, S, Hq, dh, dtype=bf16, device=M)
+        k = torch.empty(B, S, Hkv, dh, dtype=bf16, device=M)
+        v = torch.empty(B, S, Hkv, dv, dtype=bf16, device=M)
+        out = torch.empty(B, S, Hq, dv, dtype=bf16, device=M)
         dout = torch.empty_like(out)
         lse = torch.empty(B, Hq, S, dtype=torch.float32, device=M)
         base = rk.live
-        dq, dk, dv = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
-                                                   window=window)
-    assert _sig([dq, dk, dv]) == _sig([q, k, v])
-    assert rk.peak - base == (_alloc(q.numel() * 2) + 2 * _alloc(k.numel() * 2)
-                              + _alloc(scratch * 4))
+        dq, dk, dv_ = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                                    window=window)
+    assert _sig([dq, dk, dv_]) == _sig([q, k, v])
+    assert rk.peak - base == (_alloc(q.numel() * 2) + _alloc(k.numel() * 2)
+                              + _alloc(v.numel() * 2) + _alloc(scratch * 4))
     assert counts.calls == {"flash_attention_bwd": 1} and _launch_counts() == before
     pairs = flash_ops.unmasked_pairs(S, S, True, window)
-    assert counts.flops["flash_attention_bwd"] == 8 * B * Hq * dh * pairs
+    assert counts.flops["flash_attention_bwd"] == 4 * B * Hq * (dh + dv) * pairs

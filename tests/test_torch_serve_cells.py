@@ -3,8 +3,12 @@
 against the reference package, at a cut of ``seq_len`` 1,536 and
 ``global_batch`` 3: ``cache_len`` is 768, the keys span two 512-wide
 blocks of the reference's chunked attention, and gemma3-smoke's window of 8
-bites.  Each package draws its own batch from the same seed; the parameters
-are the reference's, converted.  Then ``apply_rope`` at the long positions
+bites.  The MoE archs (qwen2-moe, and deepseek-v2 with MLA's latent cache
+``c_kv``, ``k_rope``) at ``seq_len`` 2,048 and ``global_batch`` 2: a
+prefill's B * S must be a whole number of 1,024-token MoE groups, or both
+packages raise; ``cache_len`` 1,024 spans two 512-key blocks.  Each
+package draws its own batch from the same seed; the parameters are the
+reference's, converted.  Then ``apply_rope`` at the long positions
 of ``prefill_32k`` and ``long_500k``, and ``make_batch``'s draw on a
 ``torch.Generator`` (the one the card's cells use).
 
@@ -36,17 +40,20 @@ from repro_torch.configs.base import input_specs
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import make_batch
 from repro_torch.data import synthetic
+from repro_torch.models import moe
 from repro_torch.models.layers import apply_rope
 from repro_torch.train import build_serve_step
 
 TOLS = {"float32": 1e-4, "bfloat16": 5e-2}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SEQ, BATCH = 1536, 3
+MOE_CUT = {"qwen2-moe-a2.7b": (2048, 2), "deepseek-v2-236b": (2048, 2)}  # (seq_len, batch)
 
 
-def _cell(kind: str) -> ShapeCell:
+def _cell(kind: str, arch: str) -> ShapeCell:
     name = {"prefill": "prefill_32k", "decode": "decode_32k"}[kind]
-    return ShapeCell(name, kind, {"seq_len": SEQ, "global_batch": BATCH})
+    seq, batch = MOE_CUT.get(arch, (SEQ, BATCH))
+    return ShapeCell(name, kind, {"seq_len": seq, "global_batch": batch})
 
 
 def _configs(arch: str, dtype: str):
@@ -74,18 +81,62 @@ def _bound(want, want32, dtype: str) -> float:
                np.abs(want - np.asarray(want32, np.float32)).max())
 
 
+def _tf32(tree):
+    if isinstance(tree, dict):
+        return {k: _tf32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _routed_as(routes: list, record: bool):
+    """``moe.route`` that appends each call's (ids, slots) to ``routes``, or
+    (``record`` False) takes them from it in call order and computes the
+    gates from this call's own inputs, as ``route`` does."""
+    inner = moe.route
+    calls = iter(routes)
+
+    def route(x, router, dims):
+        if record:
+            out = inner(x, router, dims)
+            routes.append(out[1:])
+            return out
+        idx, slot = next(calls)
+        G, g, _ = moe.groups(x.shape[0] * x.shape[1], dims)
+        probs = torch.softmax((x.reshape(G, g, -1) @ router).float(), dim=-1).gather(-1, idx)
+        return probs / probs.sum(-1, keepdim=True).clamp_min(1e-9), idx, slot
+    return route
+
+
 def _run(jcfg, tcfg, cell, jp, tp, jb, tb, dtype):
-    """Both packages' steps: (the reference's outputs, its fp32 run's, the port's)."""
+    """Both packages' steps: (the reference's outputs, its fp32 run's, the
+    port's).  An MoE model's bf16 step routes as the port's fp32 step of the
+    same batch (expert ids and slots replayed): a near tie of two experts'
+    probabilities rounds either way in bf16, and each framework rounds its
+    own, so a token's expert can part between the packages (deepseek-v2-smoke's
+    prefill: 0.6% of the first layer's choices part between the port's bf16
+    and fp32 runs, one of them a sequence's last token's, which moves its
+    logits by 5.6% of the largest).  The reference's own flips stay in its distance from
+    its fp32 run, which the bound takes."""
     want = _jax_step(jcfg, cell, jp, jb)
     want32 = (_jax_step(dataclasses.replace(jcfg, dtype=jnp.float32), cell, _f32(jp), _f32(jb))
               if dtype == "bfloat16" else want)
+    decode = cell.kind == "decode"
+    args = (tp, tb["tokens"], tb["cache"], tb["cache_len"]) if decode else (tp, tb["tokens"])
     step = build_serve_step(tcfg, cell)
-    if cell.kind == "decode":
-        return want, want32, step(tp, tb["tokens"], tb["cache"], tb["cache_len"])
-    return want, want32, step(tp, tb["tokens"])
+    if tcfg.moe is None or dtype == "float32":
+        return want, want32, step(*args)
+    routes, inner = [], moe.route
+    try:
+        moe.route = _routed_as(routes, record=True)
+        build_serve_step(dataclasses.replace(tcfg, dtype=torch.float32), cell)(
+            *(_tf32(a) for a in args))
+        moe.route = _routed_as(routes, record=False)
+        return want, want32, step(*args)
+    finally:
+        moe.route = inner
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-4b", "deepseek-7b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-236b"])
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_serve_step_matches_reference(arch, kind, dtype):
@@ -96,9 +147,11 @@ def test_serve_step_matches_reference(arch, kind, dtype):
     first layer is the reference's less the drawn one; past it the hidden
     states part, since each attended a different row), and the logits and
     every layer's row on the batch with that row zero, as the serving
-    engine keeps a cache's tail."""
+    engine keeps a cache's tail.  MLA's cache is the latent rows."""
     jcfg, tcfg = _configs(arch, dtype)
-    cell = _cell(kind)
+    cell = _cell(kind, arch)
+    seq, batch = cell.params["seq_len"], cell.params["global_batch"]
+    names = ("c_kv", "k_rope") if tcfg.mla is not None else ("k", "v")
     jp = jax_init(jax.random.PRNGKey(0), jax_tf.lm_specs(jcfg), jcfg.dtype)
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     jb = jax_make_batch(jcfg, cell, seed=4)
@@ -106,31 +159,31 @@ def test_serve_step_matches_reference(arch, kind, dtype):
     np.testing.assert_array_equal(tb["tokens"].numpy(), np.asarray(jb["tokens"]))
     # the cache rows the step writes: decode's row at cache_len in every
     # layer, prefill's whole cache
-    at = (slice(None), slice(None), SEQ // 2) if kind == "decode" else (slice(None),)
+    at = (slice(None), slice(None), seq // 2) if kind == "decode" else (slice(None),)
     if kind == "decode":
-        assert int(tb["cache_len"][0]) == SEQ // 2 == int(jb["cache_len"][0])
-        first = (0, slice(None), SEQ // 2)
+        assert int(tb["cache_len"][0]) == seq // 2 == int(jb["cache_len"][0])
+        first = (0, slice(None), seq // 2)
         drawn = {}
-        for name in ("k", "v"):
+        for name in names:
             drawn[name] = np.asarray(jb["cache"][name], np.float32)[first]
             np.testing.assert_array_equal(tb["cache"][name].float().numpy(),
                                           np.asarray(jb["cache"][name], np.float32))
         want, want32, (_, cache, _) = _run(jcfg, tcfg, cell, jp, tp, jb, tb, dtype)
-        for name in ("k", "v"):
+        for name in names:
             w = np.asarray(want[1][name], np.float32)[first] - drawn[name]
             w32 = np.asarray(want32[1][name], np.float32)[first] - drawn[name]
             got = cache[name].float().numpy()[first]
             assert np.abs(got - w).max() <= _bound(w, w32, dtype)
-        jb["cache"] = {n: c.at[:, :, SEQ // 2].set(0) for n, c in jb["cache"].items()}
+        jb["cache"] = {n: c.at[:, :, seq // 2].set(0) for n, c in jb["cache"].items()}
         tb = make_batch(tcfg, cell, seed=4, device="cpu")
         for c in tb["cache"].values():
-            c[:, :, SEQ // 2] = 0
+            c[:, :, seq // 2] = 0
     want, want32, (logits, cache, clen) = _run(jcfg, tcfg, cell, jp, tp, jb, tb, dtype)
-    assert logits.dtype == torch.float32 and logits.shape == (BATCH, jcfg.vocab)
+    assert logits.dtype == torch.float32 and logits.shape == (batch, jcfg.vocab)
     err = np.abs(logits.numpy() - np.asarray(want[0])).max()
     assert err <= _bound(want[0], want32[0], dtype)
     np.testing.assert_array_equal(clen.numpy(), np.asarray(want[2]))
-    for name in ("k", "v"):
+    for name in names:
         g = cache[name].float().numpy()[at]
         w, w32 = np.asarray(want[1][name], np.float32)[at], np.asarray(want32[1][name])[at]
         assert g.shape == w.shape

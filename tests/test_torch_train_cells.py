@@ -4,7 +4,8 @@ port against the reference package, on the CPU: the dry-run's train step
 card's train cells run it) against the reference's ``build_train_step``, at
 a cut of ``seq_len`` 256 and ``global_batch`` 2, fp32, remat none and full,
 on the smoke configs of TinyLlama-1.1B, gemma3-4b (whose local window of 8
-bites at 256) and deepseek-7b.  Both packages take one step from the same
+bites at 256), deepseek-7b, qwen2-moe-a2.7b and deepseek-v2-236b (MoE: the
+512 tokens make one group of 512).  Both packages take one step from the same
 converted parameters and the same batch; then ``make_batch`` on a
 ``torch.Generator`` gives the train cell's specs.
 
@@ -47,7 +48,8 @@ from repro_torch.launch import dryrun
 from repro_torch.train import build_loss_fn
 
 SEQ, BATCH = 256, 2
-TOLS = {"tinyllama-1.1b": 1e-4, "gemma3-4b": 5e-4, "deepseek-7b": 1e-4}
+TOLS = {"tinyllama-1.1b": 1e-4, "gemma3-4b": 5e-4, "deepseek-7b": 1e-4, "qwen2-moe-a2.7b": 1e-4,
+        "deepseek-v2-236b": 1e-4}
 
 
 def _cells(arch: str):
