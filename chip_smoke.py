@@ -27,10 +27,10 @@ variant, no index write) and decodes by replaying a CUDA graph of
 times eager ``decode_step`` against graph replays
 from one cache state; checks an fp32 smoke engine on the card (graph
 replays; its chunks on the split variant) against the same engine on the
-CPU, token for token; prints ptxas's registers and spills for each
-``wgmma``, ``wgmma_rows`` and ``tf32x3`` flash kernel (one of the last two,
-or one of the six at MLA's (3, 2) chunk instantiation, that spills fails the
-run); holds the flash-attention kernels (forward: out
+CPU, token for token; prints ptxas's registers and spills for every flash
+kernel (the ``wgmma``, ``wgmma_rows`` and ``tf32x3`` kernels, the fused bf16
+backward's delta, key-tile and dq conversion kernels; one that spills fails
+the run); holds the flash-attention kernels (forward: out
 and logsumexp; backward: dq, dk, dv) against the plain version plus autograd
 at the training shape, gemma3-4b's local and global layers (dh 256), head
 dims 192 and 136 at G 2 and 8, groups that do not divide 64 (the
@@ -1506,26 +1506,23 @@ MLA_INSTANCE = "ILi3ELi2E"  # the (keys 3, values 2) chunk instantiation, mangle
 
 
 def print_ptxas() -> None:
-    """ptxas's registers and spills for each wgmma, wgmma_rows and tf32x3
-    flash kernel as built (mangled names: a wgmma kernel's template
-    arguments end in ``Lb0E``, a wgmma_rows kernel's in ``Lb1E``, and begin
-    with the key and value chunk counts, ``ILi3ELi2E`` for MLA's; the
-    gather pass is ``flash_rows_gather_kernel``); a tf32x3 or wgmma_rows
-    kernel, or any of the six (3, 2) kernels, that spills fails the run."""
+    """ptxas's registers and spills for every flash kernel as built (mangled
+    names: a wgmma kernel's template arguments end in ``Lb0E``, a wgmma_rows
+    kernel's in ``Lb1E``, and begin with the key and value chunk counts,
+    ``ILi3ELi2E`` for MLA's; the gather pass is ``flash_rows_gather_kernel``,
+    the fused backward's are ``flash_bwd_delta_wgmma_kernel``,
+    ``flash_bwd_fused_wgmma_kernel`` and ``flash_bwd_dq_convert_kernel``); a
+    kernel that spills fails the run."""
     from repro_torch.kernels import build
 
     mla = 0
     for row in build.ptxas_report("flash_attention"):
         name = row["kernel"]
         mla += MLA_INSTANCE in name
-        strict = ("_x3_" in name or "Lb1E" in name or "rows_gather" in name
-                  or MLA_INSTANCE in name)
-        if strict or "wgmma" in name:
-            print(f"ptxas {name}: registers {row['registers']} spill stores "
-                  f"{row['spill_stores']} B loads {row['spill_loads']} B")
-        if strict:
-            check(row["spill_stores"] == row["spill_loads"] == 0,
-                  f"ptxas: {name} spills {row['spill_stores']} B")
+        print(f"ptxas {name}: registers {row['registers']} spill stores "
+              f"{row['spill_stores']} B loads {row['spill_loads']} B")
+        check(row["spill_stores"] == row["spill_loads"] == 0,
+              f"ptxas: {name} spills {row['spill_stores']} B")
     check(mla == 6, f"ptxas: {mla} kernels at the (3, 2) instantiation, wanted 6 (forward, dQ "
                     f"and dK/dV, wgmma and wgmma_rows)")
 
@@ -6898,6 +6895,13 @@ def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
     return {**out, "bound": bound, "launches": launches, "flips": flips}
 
 
+# the flash kernels a train step's profile times apart: the forward; the
+# fused backward's delta, key-tile and dq conversion kernels; the dQ and
+# dK/dV kernels of the pairs the fused kernels do not take
+FLASH_WATCH = ("flash_fwd_wgmma", "flash_bwd_delta_wgmma", "flash_bwd_fused_wgmma",
+               "flash_bwd_dq_convert", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+
+
 def lm_train_cell(dev, arch: str, fit: tuple | None = None) -> dict:
     """The reference's ``train_4k`` cell through ``build_train_step`` at the
     cut and remat the dry-run's ``fit_train`` takes (``lm_fit``, or ``fit``
@@ -6906,7 +6910,9 @@ def lm_train_cell(dev, arch: str, fit: tuple | None = None) -> dict:
     fresh AdamW state, batches from ``make_batch`` drawn on the card: the
     gradient check (``lm_train_grad_check``, on the parameters alone), one
     warm-up step, LM_CELL_STEPS steps timed by CUDA events and one more
-    profiled; each step's loss and grad norm finite; the flash launches of
+    profiled (its flash kernels by name, FLASH_WATCH: the backward's split
+    between the delta, fused and dq conversion kernels, or the dQ and dK/dV
+    kernels); each step's loss and grad norm finite; the flash launches of
     those steps (L forwards a step, 2L under remat full, L backwards, all
     ``wgmma``, MLA's at ``mla_instance``'s; no decode kernel); for MoE the
     ``groups()`` of the step and the share of routed pairs capacity dropped
@@ -6978,8 +6984,15 @@ def lm_train_cell(dev, arch: str, fit: tuple | None = None) -> dict:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    prof = profile_call(label, one, n_kernels=5,
-                        watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"))
+    prof = profile_call(label, one, n_kernels=5, watch=FLASH_WATCH)
+    if prof:
+        w = prof["watch"]
+        print(f"{label}: the flash backward's kernels in the profiled step: D (delta kernel) "
+              f"{w['flash_bwd_delta_wgmma']['ms']:.3f} ms, fused dK/dV/dQ "
+              f"{w['flash_bwd_fused_wgmma']['ms']:.3f} ms, dq conversion "
+              f"{w['flash_bwd_dq_convert']['ms']:.3f} ms; the dQ and dK/dV kernels (the pairs "
+              f"the fused kernels do not take) {w['flash_bwd_dq_wgmma']['ms']:.3f} and "
+              f"{w['flash_bwd_dkdv_wgmma']['ms']:.3f} ms")
     max_mem = torch.cuda.max_memory_allocated(dev)
     decode_launches = dict(dops.decode_attention.launches_by_variant)
     flash_launches = {v: dict(n) for v, n in flash_attention.launches_by_variant.items()}

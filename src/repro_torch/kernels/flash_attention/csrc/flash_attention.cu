@@ -49,10 +49,14 @@
 //  * Key tiles wholly outside the rows' causal/window range are never read
 //    (the TPU kernel computes them and lets alpha wash them out); the ragged
 //    edge t >= Sk is masked here, so the wrapper pads nothing.
-//  * Backward: one block per (b, kv head, key tile) accumulates dK and dV over
-//    every query row of the G heads that sees the tile; one block per (b, kv
-//    head, row tile) accumulates dQ over key tiles.  Both recompute P from Q,
-//    K and the saved logsumexp.  No atomics: the gradients are the same from
+//  * Backward: a block per (b, kv head, key tile) accumulates dK and dV over
+//    every query row of the G heads that sees the tile, recomputing P from Q,
+//    K and the saved logsumexp.  bf16 at one or two column chunks (the
+//    fused kernels, below): a first kernel sums D per row, then persistent
+//    key-tile blocks also add each key tile's partial of dQ into an fp32
+//    accumulator, tile by tile in increasing key order behind a counter.
+//    Elsewhere a block per (b, kv head, row tile) accumulates dQ over key
+//    tiles.  No unordered float atomics: the gradients are the same from
 //    run to run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -179,7 +183,7 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 // key tiles once to sum D = rowsum(P * dP) in fp32 (two more products a
 // tile), and the dK/dV kernel passes P^T and dS^T as hi + lo, hi = bf16(x)
 // and lo = bf16(x - hi), two wgmmas each: six products a tile rather than
-// four.
+// four.  The fused kernels keep both (D in a kernel of its own).
 //
 // The softmax and the gradients' elementwise work run on the wgmma
 // accumulators in registers: a thread holds two rows (lane/4 and lane/4 + 8
@@ -570,12 +574,18 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait<0>();
         fence_regs(sacc);
         fence_regs(pacc);
+        if (masked) {  // the masks' tests only where a pair may be invisible
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int x = (e >> 1) & 1;
-          const int key = t0 + 8 * (e / 4) + col + (e & 1);
-          const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
-          dsum[x] += ok ? fast_exp2(sacc[e] * sc - L[x]) * pacc[e] : 0.f;
+          for (int e = 0; e < 32; ++e) {
+            const int x = (e >> 1) & 1;
+            const int key = t0 + 8 * (e / 4) + col + (e & 1);
+            dsum[x] += visible(key, pos[x], Sk, causal, window)
+                           ? fast_exp2(sacc[e] * sc - L[x]) * pacc[e] : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            dsum[(e >> 1) & 1] += fast_exp2(sacc[e] * sc - L[(e >> 1) & 1]) * pacc[e];
         }
       }
       __syncwarp();
@@ -623,12 +633,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const bool masked = tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window);
         wgmma_wait<1>();  // S is done
         fence_regs(sacc);
+        if (masked) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int x = (e >> 1) & 1;
-          const int key = t0 + 8 * (e / 4) + col + (e & 1);
-          const bool ok = !masked || visible(key, pos[x], Sk, causal, window);
-          sacc[e] = ok ? fast_exp2(sacc[e] * sc - L[x]) : 0.f;  // P
+          for (int e = 0; e < 32; ++e) {
+            const int x = (e >> 1) & 1;
+            const int key = t0 + 8 * (e / 4) + col + (e & 1);
+            sacc[e] = visible(key, pos[x], Sk, causal, window)
+                          ? fast_exp2(sacc[e] * sc - L[x]) : 0.f;  // P
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) sacc[e] = fast_exp2(sacc[e] * sc - L[(e >> 1) & 1]);
         }
         wgmma_wait<0>();
         fence_regs(pacc);
@@ -785,7 +800,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     warpgroup_reg_alloc<kConsumerRegs>();
-    const int cw = wg - 1;
+    // warp-uniform as ptxas sees it, so that the wgmmas under branches on it
+    // are not serialized
+    const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int kw0 = k0 + (kSplit || kOwn ? 0 : cw * kWgRows);  // this warpgroup's first key
     const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
@@ -848,13 +865,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
                                 (causal && tp_lo < kw0 + kWgRows - 1) ||
                                 (window > 0 && tp_hi - window + 1 > kw0);
+            if (masked) {  // the masks' tests (a division by G a row) only here
 #pragma unroll
-            for (int e = 0; e < 32; ++e) {
-              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-              const int r = rt0 + rl;
-              const int key = key_lo + 8 * ((e >> 1) & 1);
-              const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
-              mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+              for (int e = 0; e < 32; ++e) {
+                const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+                const int r = rt0 + rl;
+                const int key = key_lo + 8 * ((e >> 1) & 1);
+                const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+                mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 32; ++e)
+                mine[e] = fast_exp2(mine[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
             }
           }
 #pragma unroll
@@ -949,13 +972,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
                                 (causal && tp_lo < kw0 + kWgRows - 1) ||
                                 (window > 0 && tp_hi - window + 1 > kw0);
+            if (masked) {  // the masks' tests (a division by G a row) only here
 #pragma unroll
-            for (int e = 0; e < 32; ++e) {
-              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-              const int r = rt0 + rl;
-              const int key = key_lo + 8 * ((e >> 1) & 1);
-              const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
-              mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+              for (int e = 0; e < 32; ++e) {
+                const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+                const int r = rt0 + rl;
+                const int key = key_lo + 8 * ((e >> 1) & 1);
+                const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+                mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 32; ++e)
+                mine[e] = fast_exp2(mine[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
             }
           }
 #pragma unroll
@@ -1039,13 +1068,19 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             (window > 0 && tp_hi - window + 1 > kw0);
         wgmma_wait<1>();  // S^T is done
         fence_regs(st);
+        if (masked) {  // the masks' tests (a division by G a row) only here
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-          const int r = rt0 + rl;
-          const int key = key_lo + 8 * ((e >> 1) & 1);
-          const bool ok = !masked || (r < Rtot && visible(key, r / G, Sk, causal, window));
-          st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+          for (int e = 0; e < 32; ++e) {
+            const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+            const int r = rt0 + rl;
+            const int key = key_lo + 8 * ((e >> 1) & 1);
+            const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+            st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            st[e] = fast_exp2(st[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
         }
         // dS^T first, then dV and dK with hi and lo fragments, one group
         wgmma_wait<0>();
@@ -1136,6 +1171,668 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The fused bf16 backward (keys and values of equal chunk counts, DC 1 and
+// 2; fused_bwd): three kernels a call where the dQ and dK/dV kernels above
+// run two, and the dQ kernel's second walk (three products a tile) is gone.
+//  * flash_bwd_delta_wgmma_kernel: D = rowsum(P * dP) of every row, summed
+//    in fp32 over the 64-key tiles in order (the dQ kernel's first walk, on
+//    its own), and lse * log2(e) beside it, both in the rows' order.  Two
+//    products a tile, S and dP in commit groups of their own, the next
+//    tile's issued before this tile's exp2, so that they run under it.
+//  * flash_bwd_fused_wgmma_kernel: per (key block, 64-row tile) S^T and dP^T,
+//    then dV += P^T . dO and dK += dS^T . Q with P^T and dS^T as hi + lo
+//    (the arithmetic above), and dQ's partial dS . K over the warpgroup's 64
+//    keys: bf16(dS^T), rounded once as the dQ kernel rounds it, is staged
+//    in shared memory as the MN-major A operand of that product (K's tile
+//    its MN-major B).  The partial goes through shared memory to the dQ
+//    writers (warps 1 and 2 of the producer warpgroup, one for each of two
+//    buffers, so that two row tiles' adds are in flight), which add it into
+//    an fp32 accumulator [B*Hkv][row tiles][64 x dh] in the wrapper's
+//    scratch by a bulk copy (the first key block to reach a row tile) or a
+//    bulk fp32 add done in the L2 (the others), in increasing key order: a
+//    per-row-tile counter, read with acquire and raised with release, holds
+//    each key block until the one before it has added.  The blocks are
+//    persistent (one an SM) and take their (key block, b*Hkv) items from a
+//    ticket in that order, key block major, so that a block only ever waits
+//    on an item a running block holds; a block walks its row tiles from the
+//    last one down, so that the key blocks of one kv head reach a row tile
+//    one after another, a writer's latency apart, not a walk apart.  The
+//    counters and the ticket are zeroed in-stream before the launch, and a
+//    tile's lse and D come with its Q and dO by bulk copy.
+//  * flash_bwd_dq_convert_kernel: dq = scale x the accumulator, in bf16
+//    (zeros where no key block reached a row tile).
+// The layouts.  At DC 1 a block owns 128 keys, each consumer warpgroup 64
+// of them and every column: per tile S^T, dP^T, dV and dK twice (hi, lo)
+// and its dQ partial, seven products, and the writers add the second
+// warpgroup's partial to the first's in shared memory before the one bulk
+// add.  At DC 2 the two warpgroups share 64 keys and split the columns:
+// each forms S^T and dP^T over the whole head dim itself (nine products a
+// tile where the dK/dV kernel's hand-off of the two does seven, measured
+// faster: the hand-off held both warpgroups in step, idle together) and
+// takes its column chunk of dV, dK and dQ.  Each warpgroup's wgmmas of a
+// tile are issued and retired in one straight block, and dV and dK retire
+// before the dQ product: ptxas serializes the wgmmas (a wait after every
+// one) where a group is in flight across a branch it cannot prove
+// warp-uniform, where an accumulator is written while a group is in
+// flight, or where the live registers run short.  Every sum keeps a fixed
+// order, so the backward gives equal bits from run to run.
+// ---------------------------------------------------------------------------
+__host__ __device__ constexpr bool fused_bwd(int DC, int DVC) { return DVC == DC && DC <= 2; }
+constexpr int kDeltaStages = 4;  // the delta kernel's ring of K/V tiles
+constexpr int kFusedStages = 3;  // the fused kernel's ring of Q/dO row tiles
+constexpr int kDqTileFloats = kBwdRows * kChunk;  // fp32 of one 64 x 64 chunk of a dQ tile
+
+template <int DC, int DVC>
+struct DeltaWgSmem {
+  alignas(1024) bf16 q[dq_consumers(DC)][DC][kWgRows * kChunk];
+  alignas(1024) bf16 dout[dq_consumers(DC)][DVC][kWgRows * kChunk];
+  alignas(1024) bf16 k[kDeltaStages][DC][kDqKeys * kChunk];
+  alignas(1024) bf16 v[kDeltaStages][DVC][kDqKeys * kChunk];
+  uint64_t q_full, full[kDeltaStages], empty[kDeltaStages];
+};
+
+// backward, D = rowsum(P * dP).  It writes D and lse * log2(e) in the rows'
+// order, [B*Hkv][Rp] with Rp the rows rounded up to 64 (zeros past Sq*G):
+// the fused kernel's producer then takes a row tile's 64 of each with one
+// bulk copy.  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))), heaviest
+// first
+template <int DC, int DVC, bool kRows>
+__global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
+flash_bwd_delta_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const float* __restrict__ lse, float* __restrict__ lse2_rows,
+                             float* __restrict__ delta_rows, int Sq, int Sk, int Hq, int Hkv,
+                             int causal, int window, float scale) {
+  constexpr int NC = dq_consumers(DC), kSt = kDeltaStages;
+  extern __shared__ char smem_raw[];
+  DeltaWgSmem<DC, DVC>& sm = smem_layout<DeltaWgSmem<DC, DVC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * NC * kWgRows;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + NC * kWgRows) - 1) / G;
+  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
+  const int t_first = key_lo / kDqKeys;
+  const int n_tiles = key_hi >= key_lo ? key_hi / kDqKeys - t_first + 1 : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], NC * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if constexpr (NC == 2) warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, NC * (DC + DVC) * tile_bytes(kWgRows));
+      for (int w = 0; w < NC; ++w)
+        for (int c = 0; c < DC; ++c) {
+          const int rw = r0 + w * kWgRows;
+          tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, rw, b, kvh, G, Hkv);
+          if (c < DVC)
+            tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
+                                 Hkv);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kSt;
+        if (i >= kSt) mbar_wait(&sm.empty[s], (i / kSt - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kDqKeys));
+        const int t0 = (t_first + i) * kDqKeys;
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+        }
+      }
+    }
+  } else {
+    if constexpr (NC == 2) warpgroup_reg_alloc<kConsumerRegs>();
+    // warp-uniform as ptxas sees it, so that the wgmmas under branches on it
+    // are not serialized
+    const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int rw0 = r0 + cw * kWgRows;
+    const int r_lo = rw0 + 16 * warp + lane / 4;
+    const int pos[2] = {r_lo / G, (r_lo + 8) / G};
+    const int wp_lo = rw0 / G, wp_hi = (min(Rtot, rw0 + kWgRows) - 1) / G;
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;
+    float L[2];  // lse * log2(e) of this thread's two rows
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r_lo + 8 * x;
+      L[x] = 0.f;
+      if (r < Rtot) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        L[x] = lse[((size_t)b * Hq + h) * Sq + sp] * kLog2e;
+      }
+    }
+    float dsum[2] = {0.f, 0.f};
+    mbar_wait(&sm.q_full, 0);
+    // S = Q . K^T and dP = dO . V^T of tile i, two commit groups
+    auto issue = [&](float(&sacc)[32], float(&pacc)[32], int i) {
+      const int s = i % kSt;
+      mbar_wait(&sm.full[s], (i / kSt) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DC * 4; ++kc) {
+        const int c = kc / 4, kb = 2 * (kc % 4);
+        wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][c]) + kb, wgmma_desc(sm.k[s][c]) + kb, kc > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < DVC * 4; ++kc) {
+        const int c = kc / 4, kb = 2 * (kc % 4);
+        wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
+                       kc > 0);
+      }
+      wgmma_commit();
+    };
+    // tile i's share of D from its products, retired: frees its stage
+    auto take = [&](const float(&cs)[32], const float(&cp)[32], int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[i % kSt]);
+      const int t0 = (t_first + i) * kDqKeys;
+      if (tile_needs_mask(t0, kDqKeys, wp_lo, wp_hi, Sk, causal, window)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int x = (e >> 1) & 1;
+          const int key = t0 + 8 * (e / 4) + col + (e & 1);
+          dsum[x] += visible(key, pos[x], Sk, causal, window)
+                         ? fast_exp2(cs[e] * sc - L[x]) * cp[e] : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dsum[(e >> 1) & 1] += fast_exp2(cs[e] * sc - L[(e >> 1) & 1]) * cp[e];
+      }
+    };
+    // the next tile's products are issued before this tile's exp2, so that
+    // they run under it; every wait counts the groups issued after its own
+    if (rw0 < Rtot && n_tiles > 0) {
+      float sa[32], pa[32], sb[32], pb[32];
+      issue(sa, pa, 0);
+      int i = 0;
+      for (; i + 2 < n_tiles; i += 2) {
+        issue(sb, pb, i + 1);
+        wgmma_wait<2>();
+        fence_regs(sa);
+        fence_regs(pa);
+        take(sa, pa, i);
+        issue(sa, pa, i + 2);
+        wgmma_wait<2>();
+        fence_regs(sb);
+        fence_regs(pb);
+        take(sb, pb, i + 1);
+      }
+      if (i + 1 < n_tiles) {
+        issue(sb, pb, i + 1);
+        wgmma_wait<2>();
+        fence_regs(sa);
+        fence_regs(pa);
+        take(sa, pa, i);
+        wgmma_wait<0>();
+        fence_regs(sb);
+        fence_regs(pb);
+        take(sb, pb, i + 1);
+      } else {
+        wgmma_wait<0>();
+        fence_regs(sa);
+        fence_regs(pa);
+        take(sa, pa, i);
+      }
+    } else {  // rows past Sq: the ring's stages are still freed
+      for (int i = 0; i < n_tiles; ++i) {
+        mbar_wait(&sm.full[i % kSt], (i / kSt) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[i % kSt]);
+      }
+    }
+    const int Rp = (Rtot + kBwdRows - 1) / kBwdRows * kBwdRows;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float D = quad_sum(dsum[x]);
+      const int r = r_lo + 8 * x;
+      if (lane % 4 == 0 && r < Rp) {
+        const size_t at = (size_t)blockIdx.x * Rp + r;
+        lse2_rows[at] = r < Rtot ? L[x] : 0.f;
+        delta_rows[at] = r < Rtot ? D : 0.f;
+      }
+    }
+  }
+}
+
+// Waits of the fused kernel (its barriers, and the counters of other
+// blocks): one that lasts 2^36 cycles (some 40 seconds) traps, so that a
+// fault in their bookkeeping fails the launch where it would hang the card.
+constexpr long long kWaitCycles = 1LL << 36;
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+// until *counter == want, read with acquire
+__device__ __forceinline__ void wait_count(const int* counter, int want) {
+  if (ld_acquire_gpu(counter) == want) return;
+  const long long t0 = clock64();
+  while (ld_acquire_gpu(counter) != want)
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+// The 64-row tiles a key block (keys from k0) walks: the rows of the
+// positions that see one of its keys, from row_first, n of them (the dK/dV
+// kernel's walk above).
+struct KvWalk {
+  int row_first, n;
+};
+__device__ __forceinline__ KvWalk kv_row_walk(int k0, int keys, int Sq, int Sk, int G, int causal,
+                                              int window) {
+  const int Rtot = Sq * G;
+  const int k_last = min(Sk, k0 + keys) - 1;
+  const int p_min = causal ? k0 : 0;
+  const int p_max = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int row_first = (min(p_min, Sq) * G / kBwdRows) * kBwdRows;
+  const int row_end = min(Rtot, (p_max + 1) * G);
+  return {row_first, row_end > row_first ? (row_end - row_first + kBwdRows - 1) / kBwdRows : 0};
+}
+// The first key block (of `keys` keys) whose walk holds the row tile from
+// rt0: every key block from it up to the last whose walk starts at or below
+// rt0 holds it, and each adds to the tile's dQ in that order.  Without a
+// window it is 0; with one, the first block with a key at or past the
+// tile's first position less window - 1.
+__host__ __device__ inline int kv_block_first(int rt0, int G, int window, int keys) {
+  const int x = window > 0 ? rt0 / G - window + 1 : 0;
+  return x > 0 ? x / keys : 0;
+}
+
+// A k-step's bf16 A fragment of a [keys x 64 rows] accumulator (to_a_frag's
+// layout: keys `key` and key + 8, the accumulator's columns 16kk..16kk+15,
+// col and col + 1 of each 8) into the transposed tile [keys][64] of 128-byte
+// rows under the 128-byte swizzle: the MN-major A operand of a product over
+// the keys.
+__device__ __forceinline__ void store_frag_t(bf16* tile, int key, int kk, int col,
+                                             const uint32_t (&a)[4]) {
+  char* base = reinterpret_cast<char*>(tile);
+  *reinterpret_cast<uint32_t*>(base + swizzle128(key, 2 * kk) + 2 * col) = a[0];
+  *reinterpret_cast<uint32_t*>(base + swizzle128(key + 8, 2 * kk) + 2 * col) = a[1];
+  *reinterpret_cast<uint32_t*>(base + swizzle128(key, 2 * kk + 1) + 2 * col) = a[2];
+  *reinterpret_cast<uint32_t*>(base + swizzle128(key + 8, 2 * kk + 1) + 2 * col) = a[3];
+}
+
+template <int DC>
+struct FusedWgSmem {
+  alignas(1024) bf16 k[DC][kv_keys(DC, DC) * kChunk];
+  alignas(1024) bf16 v[DC][kv_keys(DC, DC) * kChunk];
+  alignas(1024) bf16 q[kFusedStages][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kFusedStages][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 ds[kConsumers][kWgRows * kChunk];  // each warpgroup's dS^T [keys][rows]
+  // a row tile's dQ partial, as the accumulator's layout: [part * 8 + j]
+  // [thread] holds elements 4j..4j+3 of the thread's accumulator of part:
+  // at DC 1 each warpgroup's partial over its 64 keys (the writers add the
+  // second to the first), at DC 2 the column chunks
+  float4 dq[2][2 * 8][128];
+  alignas(16) float lse2[kFusedStages][kBwdRows];  // the tile's rows' lse * log2(e)
+  alignas(16) float delta[kFusedStages][kBwdRows];  // and D, by bulk copies
+  int item[2];
+  uint64_t kv_full, kv_empty, full[kFusedStages], empty[kFusedStages];
+  uint64_t item_full[2], item_empty[2], dq_full[2], dq_empty[2];
+};
+
+// backward, dK and dV of a key block, and its partial of dQ into dq_acc,
+// after the delta kernel.  Persistent: grid min(items, SMs); item t (taken
+// from *ticket) is key block t / (B*Hkv) of b*Hkv + kvh = t % (B*Hkv).
+// Warp 0 of the producer warpgroup takes the tickets and keeps the TMA ring
+// fed, threads 32 and 64 are the dQ writers (one a buffer, so that two row
+// tiles' adds are in flight), the consumer warpgroups compute (see above).
+template <int DC, int DVC, bool kRows>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const float* __restrict__ lse2_rows,
+                             const float* __restrict__ delta_rows, float* __restrict__ dq_acc, int* __restrict__ counters,
+                             int* __restrict__ ticket, bf16* __restrict__ dk,
+                             bf16* __restrict__ dvo, int B, int Sq, int Sk, int Hq, int Hkv,
+                             int dh, int dv, int causal, int window, float scale) {
+  static_assert(fused_bwd(DC, DVC), "the fused backward takes keys and values of 1 or 2 chunks");
+  constexpr int kKeys = kv_keys(DC, DVC), kSt = kFusedStages;
+  constexpr bool kSplit = kv_split(DC);  // DC 2: 64 shared keys, the columns split
+  static_assert(kv_chunks(DC) == 1, "a warpgroup owns one column chunk of dK, dV and dQ");
+  constexpr uint32_t kDqBytes = DC * kDqTileFloats * 4;
+  extern __shared__ char smem_raw[];
+  FusedWgSmem<DC>& sm = smem_layout<FusedWgSmem<DC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int BH = B * Hkv;
+  const int n_rt = (Rtot + kBwdRows - 1) / kBwdRows;  // row tiles of one kv head; Rp / 64
+  const int n_items = (Sk + kKeys - 1) / kKeys * BH;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, kConsumers * 4);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.item_full[i], 1);
+      mbar_init(&sm.item_empty[i], kConsumers * 4 + 2);  // the consumer warps, the writers
+      mbar_init(&sm.dq_full[i], kConsumers * 4);
+      mbar_init(&sm.dq_empty[i], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {  // tickets and loads
+      int g = 0;             // row tiles through the ring
+      for (int it = 0;; ++it) {
+        const int slot = it & 1;
+        if (it >= 2) mbar_wait_bounded(&sm.item_empty[slot], ((it >> 1) - 1) & 1);
+        const int item = atomicAdd(ticket, 1);
+        sm.item[slot] = item;
+        mbar_arrive(&sm.item_full[slot]);
+        if (item >= n_items) break;
+        const int bh = item % BH, b = bh / Hkv, kvh = bh % Hkv, k0 = item / BH * kKeys;
+        const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
+        if (it >= 1) mbar_wait_bounded(&sm.kv_empty, (it - 1) & 1);
+        mbar_arrive_expect_tx(&sm.kv_full, (DC + DVC) * tile_bytes(kKeys));
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(sm.k[c], &k_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+          if (c < DVC) tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+        }
+        const size_t rows = (size_t)bh * n_rt * kBwdRows;  // this kv head's first row
+        for (int j = 0; j < wk.n; ++j, ++g) {
+          const int s = g % kSt;
+          const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;  // the last tile first
+          if (g >= kSt) mbar_wait_bounded(&sm.empty[s], (g / kSt - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[s],
+                                (DC + DVC) * tile_bytes(kBwdRows) + 2 * kBwdRows * 4);
+          for (int c = 0; c < DC; ++c) {
+            tma_load_rows<kRows>(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, rt0, b, kvh, G,
+                                 Hkv);
+            if (c < DVC)
+              tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
+                                   G, Hkv);
+          }
+          bulk_load(sm.lse2[s], lse2_rows + rows + rt0, kBwdRows * 4, &sm.full[s]);
+          bulk_load(sm.delta[s], delta_rows + rows + rt0, kBwdRows * 4, &sm.full[s]);
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 96) {  // the dQ writers: warps 1 and 2
+      const int wr = threadIdx.x / 32 - 1;  // takes the row tiles g of its parity, buffer wr
+      int g = 0;
+      for (int it = 0;; ++it) {
+        const int slot = it & 1;
+        mbar_wait_bounded(&sm.item_full[slot], (it >> 1) & 1);
+        const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
+        if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
+        if (item >= n_items) break;
+        const int bh = item % BH, kb = item / BH;
+        const KvWalk wk = kv_row_walk(kb * kKeys, kKeys, Sq, Sk, G, causal, window);
+        for (int j = 0; j < wk.n; ++j, ++g) {
+          const int buf = g & 1, u = g >> 1;
+          if (buf != wr) continue;
+          const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
+          const int ordinal = kb - kv_block_first(rt0, G, window, kKeys);
+          const size_t t = (size_t)bh * n_rt + rt0 / kBwdRows;
+          mbar_wait_bounded(&sm.dq_full[buf], u & 1);
+          if constexpr (!kSplit) {  // the second warpgroup's partial into the first's
+            for (int x = lane; x < 8 * 128; x += 32) {
+              const float4 a = sm.dq[buf][x / 128][x % 128], b = sm.dq[buf][8 + x / 128][x % 128];
+              sm.dq[buf][x / 128][x % 128] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+            }
+            fence_proxy_async();
+            __syncwarp();
+          }
+          if (lane == 0) {
+            wait_count(counters + t, ordinal);
+            fence_proxy_async_global();
+            float* dst = dq_acc + t * (DC * kDqTileFloats);
+            if (ordinal == 0)
+              bulk_store(dst, sm.dq[buf], kDqBytes);
+            else
+              bulk_reduce_add_f32(dst, sm.dq[buf], kDqBytes);
+            bulk_commit();
+            bulk_wait<0>();
+            fence_proxy_async_global();
+            red_release_gpu_add(counters + t, 1);
+            mbar_arrive(&sm.dq_empty[buf]);
+          }
+          __syncwarp();
+        }
+      }
+    }
+  } else {
+    warpgroup_reg_alloc<kConsumerRegs>();
+    // warp-uniform as ptxas sees it (as the item below), so that the wgmmas
+    // under branches on what derives from them are not serialized
+    const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32;
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;
+    const int c0 = kSplit ? cw : 0;              // the column chunk this warpgroup owns
+    const int koff = kSplit ? 0 : cw * kWgRows;  // its first key, within the block's
+    int g = 0;
+    for (int it = 0;; ++it) {
+      const int slot = it & 1;
+      mbar_wait_bounded(&sm.item_full[slot], (it >> 1) & 1);
+      const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
+      if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
+      if (item >= n_items) break;
+      const int bh = item % BH, b = bh / Hkv, kvh = bh % Hkv, k0 = item / BH * kKeys;
+      const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
+      const int kw0 = k0 + koff;                      // this warpgroup's first key
+      const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+      float dkacc[32], dvacc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dkacc[e] = dvacc[e] = 0.f;
+      mbar_wait_bounded(&sm.kv_full, it & 1);
+
+      for (int j = 0; j < wk.n; ++j, ++g) {
+        const int s = g % kSt, buf = g & 1, u = g >> 1;
+        const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
+        mbar_wait_bounded(&sm.full[s], (g / kSt) & 1);
+        const int tp_lo = rt0 / G, tp_hi = (min(Rtot, rt0 + kBwdRows) - 1) / G;
+        // the tile's rows against this warpgroup's keys, with rows and keys
+        // swapped in the tests of tile_invisible and tile_needs_mask
+        const int kw_last = min(Sk, kw0 + kWgRows) - 1;
+        const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
+                          (window > 0 && kw_last <= tp_lo - window);
+        const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                            (causal && tp_lo < kw0 + kWgRows - 1) ||
+                            (window > 0 && tp_hi - window + 1 > kw0);
+        float dqacc[32];  // this warpgroup's partial of the tile's dQ
+        // This warpgroup's 64 keys (at DC 1 its own half of the block's,
+        // at DC 2 the block's, shared) against the tile: S^T and dP^T over
+        // the whole head dim, dV and dK of its column chunk c0 with hi and
+        // lo fragments, and dQ's partial of that chunk over its keys from
+        // its own dS^T tile, so that neither warpgroup waits on the other.
+        // Every wgmma of the tile is issued and retired in one straight
+        // block, dV and dK before dQ (see above)
+        if (!skip) {
+          float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < DC * 4; ++kc) {
+            const int c = kc / 4, kb = 2 * (kc % 4);
+            wgmma_ss_64x64(st, wgmma_desc(sm.k[c] + koff * kChunk) + kb,
+                           wgmma_desc(sm.q[s][c]) + kb, kc > 0);
+          }
+#pragma unroll
+          for (int kc = 0; kc < DVC * 4; ++kc) {
+            const int c = kc / 4, kb = 2 * (kc % 4);
+            wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + koff * kChunk) + kb,
+                           wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+          // P^T and dS^T; the masks' tests (a division by G a row) only on
+          // the tiles that hold an invisible pair
+          if (masked) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+              const int r = rt0 + rl;
+              const int key = key_lo + 8 * ((e >> 1) & 1);
+              const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+              st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;
+              dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int rl = 8 * (e / 4) + col + (e & 1);
+              st[e] = fast_exp2(st[e] * sc - sm.lse2[s][rl]);
+              dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
+            }
+          }
+          // P^T's fragments and dV, then dS^T's and dK: half the fragments
+          // are live at a time
+          uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];    // hi, lo
+          uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // hi, lo
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            const uint64_t bo = wgmma_desc(sm.dout[s][c0]) + kk * 16 * 128 / 16;
+            wgmma_rs_64x64(dvacc, pa[kk], bo);
+            wgmma_rs_64x64(dvacc, pl[kk], bo);
+          }
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
+            store_frag_t(sm.ds[cw], 16 * warp + lane / 4, kk, col, dsa[kk]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            const uint64_t bq = wgmma_desc(sm.q[s][c0]) + kk * 16 * 128 / 16;
+            wgmma_rs_64x64(dkacc, dsa[kk], bq);
+            wgmma_rs_64x64(dkacc, dsl[kk], bq);
+          }
+          wgmma_commit();
+          fence_proxy_async();
+          named_barrier(2 + cw, 128);  // this warpgroup's dS^T tile is whole
+          wgmma_wait<0>();
+#pragma unroll
+          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(pl[kk]);
+            fence_regs(dsa[kk]);
+            fence_regs(dsl[kk]);
+          }
+          fence_regs(dkacc);
+          fence_regs(dvacc);
+          // dS (64 rows x these 64 keys) . K (these keys x chunk c0)
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWgRows / 16; ++kk)
+            wgmma_ss_64x64_mn(dqacc, wgmma_desc(sm.ds[cw]) + kk * 16 * 128 / 16,
+                              wgmma_desc(sm.k[c0] + koff * kChunk) + kk * 16 * 128 / 16, kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dqacc);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dqacc[e] = 0.f;
+        }
+        if (u >= 1) mbar_wait_bounded(&sm.dq_empty[buf], (u - 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          sm.dq[buf][cw * 8 + jj][tid] = make_float4(dqacc[4 * jj], dqacc[4 * jj + 1],
+                                                     dqacc[4 * jj + 2], dqacc[4 * jj + 3]);
+        if constexpr (kSplit) fence_proxy_async();  // the bulk copy reads it (at DC 1 the
+                                                    // writers' sum fences)
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.dq_full[buf]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[s]);
+      }
+
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int key = key_lo + 8 * x;
+        if (key >= Sk) continue;
+        const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int cc = kChunk * c0 + 8 * jj + col;
+          if (cc < dh) {
+            const int e = 4 * jj + 2 * x;
+            *reinterpret_cast<__nv_bfloat162*>(dk + row * dh + cc) =
+                __floats2bfloat162_rn(dkacc[e] * scale, dkacc[e + 1] * scale);
+            if (cc < dv)
+              *reinterpret_cast<__nv_bfloat162*>(dvo + row * dv + cc) =
+                  __floats2bfloat162_rn(dvacc[e], dvacc[e + 1]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.kv_empty);
+    }
+  }
+}
+
+// dq [B,Sq,Hq,dh] = scale x the fused kernel's fp32 sums dq_acc [B*Hkv]
+// [n_rt][DC * 8][128] (float4s, the dQ buffers' layout); zeros in a row
+// tile whose counter no key block raised.  One float4 a thread: rows r and
+// r + 8 of its tile, two columns each.
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_convert_kernel(const float4* __restrict__ dq_acc, const int* __restrict__ counters,
+                            bf16* __restrict__ dq, long long total, int n_rt, int DC, int Sq,
+                            int Hq, int Hkv, int dh, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int t = (int)(i % 128);
+  const long long rest = i / 128;
+  const int jj = (int)(rest % (8 * DC));
+  const long long tile = rest / (8 * DC);
+  const int rt = (int)(tile % n_rt), bh = (int)(tile / n_rt);
+  const int lane = t % 32, warp = t / 32;
+  const int cc = kChunk * (jj / 8) + 8 * (jj % 8) + 2 * (lane % 4);
+  if (cc >= dh) return;
+  const float4 v = counters[tile] > 0 ? dq_acc[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int G = Hq / Hkv, Rtot = Sq * G;
+  const int r = rt * kBwdRows + 16 * warp + lane / 4;
+  if (r < Rtot)
+    *reinterpret_cast<__nv_bfloat162*>(dq + row_offset(bh / Hkv, r, G, bh % Hkv, Sq, Hq, dh) +
+                                       cc) = __floats2bfloat162_rn(v.x * scale, v.y * scale);
+  if (r + 8 < Rtot)
+    *reinterpret_cast<__nv_bfloat162*>(dq + row_offset(bh / Hkv, r + 8, G, bh % Hkv, Sq, Hq, dh) +
+                                       cc) = __floats2bfloat162_rn(v.z * scale, v.w * scale);
 }
 
 // x0 [B,S,Hq,dh0] (and x1 [B,S,Hq,dh1], where it is not null) into the
@@ -1967,26 +2664,45 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 // bf16 through wgmma: scratch, tensor maps, shared memory and grids
 
+// 64-column chunks of the padded head dim
+int wgmma_chunks(int dh) { return (pad16(dh) + kChunk - 1) / kChunk; }
+
 // The scratch of one wgmma call, carved from `base` (sizes only when base is
 // null), in floats: at kRows the gathered copies of q, [B*Hkv][Sq*G][dh]
 // bf16, and (backward) of dout, [B*Hkv][Sq*G][dv]; then the backward's delta
-// [B,Hq,Sq].  Each part starts 16-byte aligned (dh and dv are multiples of
-// 8), as TMA needs.
+// [B,Hq,Sq]; or, where the fused kernels take the call (fused_bwd), lse *
+// log2(e) and delta in the rows' order, [B*Hkv][n_rt * 64] each (n_rt row
+// tiles of 64), the fp32 dQ accumulator [B*Hkv][n_rt][DC * 64 * 64] and the
+// int counters [B*Hkv][n_rt] with the ticket after them.  Each part starts
+// 16-byte aligned (every size is rounded up to 4 floats), as TMA and the
+// bulk copies need.
 struct WgWork {
   bf16 *q = nullptr, *dout = nullptr;
-  float* delta = nullptr;
-  size_t floats = 0;
+  float *delta = nullptr, *lse2_rows = nullptr;
+  float* dq_acc = nullptr;
+  int* counters = nullptr;  // n_counters, then the ticket
+  size_t floats = 0, n_counters = 0;
   WgWork(const Shape& s, void* base, bool rows, bool backward) {
     const size_t rows_floats = rows ? (size_t)s.B * s.Hq * s.Sq * s.dh / 2 : 0;
     auto take = [&](size_t n) {
       void* p = base == nullptr ? nullptr : static_cast<float*>(base) + floats;
-      floats += n;
+      floats += (n + 3) / 4 * 4;
       return p;
     };
     q = static_cast<bf16*>(take(rows_floats));
     if (!backward) return;
     dout = static_cast<bf16*>(take(rows ? (size_t)s.B * s.Hq * s.Sq * s.dv / 2 : 0));
-    delta = static_cast<float*>(take((size_t)s.B * s.Hq * s.Sq));
+    const int dc = wgmma_chunks(s.dh);
+    if (!fused_bwd(dc, wgmma_chunks(s.dv))) {
+      delta = static_cast<float*>(take((size_t)s.B * s.Hq * s.Sq));
+      return;
+    }
+    const size_t n_rt = ((size_t)s.Sq * (s.Hq / s.Hkv) + kBwdRows - 1) / kBwdRows;
+    n_counters = (size_t)s.B * s.Hkv * n_rt;
+    lse2_rows = static_cast<float*>(take(n_counters * kBwdRows));
+    delta = static_cast<float*>(take(n_counters * kBwdRows));
+    dq_acc = static_cast<float*>(take(n_counters * dc * kDqTileFloats));
+    counters = static_cast<int*>(take(n_counters + 1));
   }
 };
 
@@ -2020,9 +2736,6 @@ bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys, int width)
   return make_map_bf16_4d(m, p, width, s.Hkv, s.Sk, s.B, 1, keys);
 }
 
-// 64-column chunks of the padded head dim
-int wgmma_chunks(int dh) { return (pad16(dh) + kChunk - 1) / kChunk; }
-
 // a grid over row blocks of `rows` rows
 dim3 row_grid(const Shape& s, int rows) {
   const int G = s.Hq / s.Hkv;
@@ -2054,21 +2767,73 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
+// streaming multiprocessors of the current device: the fused kernel's grid
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev] > 0 ? counts[dev] : 1;
+}
+
+// The fused backward (fused_bwd): the delta kernel, the counters and the
+// ticket zeroed, the fused kernel, the dq conversion; the maps of q and
+// dout (or their gathered copies) made by the caller.
 template <int DC, int DVC, bool kRows>
-cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                             const float* lse, void* work, void* dq, void* dk, void* dv,
-                             const Shape& s, cudaStream_t st) {
-  const WgWork w(s, work, kRows, true);
-  const void *qr = q, *dor = dout;  // what the row maps read
-  if constexpr (kRows) {
-    const cudaError_t e = gather_rows(q, dout, w.q, w.dout, s, st);
-    if (e != cudaSuccess) return e;
-    qr = w.q;
-    dor = w.dout;
-  }
-  CUtensorMap qm, dom, km, vm;
-  if (!row_map<kRows>(&qm, qr, s, s.dh) || !row_map<kRows>(&dom, dor, s, s.dv) ||
-      !key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
+cudaError_t launch_bwd_fused(const CUtensorMap& qm, const CUtensorMap& dom, const void* k,
+                             const void* v, const float* lse, const WgWork& w, void* dq,
+                             void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  CUtensorMap km, vm;
+  if (!key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
+    return cudaErrorInvalidValue;
+  static_assert(sizeof(DeltaWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "delta layout over 227 KB");
+  static_assert(sizeof(FusedWgSmem<DC>) + 1024 <= kSmemPerBlock, "fused layout over 227 KB");
+  size_t smem = sizeof(DeltaWgSmem<DC, DVC>) + 1024;
+  auto delta_kern = flash_bwd_delta_wgmma_kernel<DC, DVC, kRows>;
+  cudaError_t e = allow_smem(delta_kern, smem);
+  if (e != cudaSuccess) return e;
+  constexpr int nc = dq_consumers(DC);
+  delta_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
+      qm, km, vm, dom, lse, w.lse2_rows, w.delta, s.Sq, s.Sk, s.Hq, s.Hkv, s.causal, s.window,
+      s.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaMemsetAsync(w.counters, 0, (w.n_counters + 1) * sizeof(int), st);
+  if (e != cudaSuccess) return e;
+
+  constexpr int keys = kv_keys(DC, DVC);
+  if (!key_map(&km, k, s, keys, s.dh) || !key_map(&vm, v, s, keys, s.dv))
+    return cudaErrorInvalidValue;
+  smem = sizeof(FusedWgSmem<DC>) + 1024;
+  auto kern = flash_bwd_fused_wgmma_kernel<DC, DVC, kRows>;
+  e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)(s.Sk + keys - 1) / keys * s.B * s.Hkv;
+  const int grid = (int)(items < sm_count() ? items : sm_count());
+  kern<<<grid, kWsThreads, smem, st>>>(
+      qm, km, vm, dom, w.lse2_rows, w.delta, w.dq_acc, w.counters, w.counters + w.n_counters,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv,
+      s.causal, s.window, s.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const int n_rt = (int)(w.n_counters / ((size_t)s.B * s.Hkv));
+  const long long total = (long long)w.n_counters * DC * 8 * 128;
+  flash_bwd_dq_convert_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(w.dq_acc), w.counters, static_cast<bf16*>(dq), total, n_rt,
+      DC, s.Sq, s.Hq, s.Hkv, s.dh, s.scale);
+  return cudaGetLastError();
+}
+
+// The other pairs: the dQ kernel, which also writes delta, then the dK/dV
+// kernel.
+template <int DC, int DVC, bool kRows>
+cudaError_t launch_bwd_dq_dkdv(const CUtensorMap& qm, const CUtensorMap& dom, const void* k,
+                               const void* v, const float* lse, const WgWork& w, void* dq,
+                               void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  CUtensorMap km, vm;
+  if (!key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
     return cudaErrorInvalidValue;
   static_assert(sizeof(DqWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
   static_assert(sizeof(DkdvWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
@@ -2096,6 +2861,27 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
                                           static_cast<bf16*>(dv), s.Sq, s.Sk, s.Hq, s.Hkv, s.dh,
                                           s.dv, s.causal, s.window, s.scale);
   return cudaGetLastError();
+}
+
+template <int DC, int DVC, bool kRows>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, void* work, void* dq, void* dk, void* dv,
+                             const Shape& s, cudaStream_t st) {
+  const WgWork w(s, work, kRows, true);
+  const void *qr = q, *dor = dout;  // what the row maps read
+  if constexpr (kRows) {
+    const cudaError_t e = gather_rows(q, dout, w.q, w.dout, s, st);
+    if (e != cudaSuccess) return e;
+    qr = w.q;
+    dor = w.dout;
+  }
+  CUtensorMap qm, dom;
+  if (!row_map<kRows>(&qm, qr, s, s.dh) || !row_map<kRows>(&dom, dor, s, s.dv))
+    return cudaErrorInvalidValue;
+  if constexpr (fused_bwd(DC, DVC))
+    return launch_bwd_fused<DC, DVC, kRows>(qm, dom, k, v, lse, w, dq, dk, dv, s, st);
+  else
+    return launch_bwd_dq_dkdv<DC, DVC, kRows>(qm, dom, k, v, lse, w, dq, dk, dv, s, st);
 }
 
 // the launchers above at the counts of column chunks of the keys and the
@@ -2334,7 +3120,8 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
 
 // Floats of scratch a call needs: the tf32x3 split's operands and row stats;
 // the wgmma_rows gathered copies of q (and dout); the wgmma and wgmma_rows
-// backward's delta [B,Hq,Sq]; 0 otherwise.
+// backward's delta [B,Hq,Sq], or the fused kernels' rows, accumulator and
+// counters (WgWork); 0 otherwise.
 extern "C" long long flash_attention_work_floats(int B, int Sq, int Sk, int Hq, int Hkv, int dh,
                                                  int dv, int causal, int window, int variant,
                                                  int backward) {
@@ -2368,8 +3155,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The backward kernels: the split, then dQ, then dK/dV, then the reduce
-// (tf32x3); dQ, which also writes delta into work, then dK/dV (wgmma); or
-// the gather of q and dout into work, then the same two (wgmma_rows).
+// (tf32x3); for bf16 (wgmma; wgmma_rows first gathers q and dout into work)
+// at one or two column chunks the delta kernel, the zeroing of the
+// counters, the fused kernel and the dq conversion, else dQ, which also
+// writes delta into work, then dK/dV.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,

@@ -8,7 +8,8 @@ natively: the bf16 kernels at their (keys, values) pairs of 64-column chunks
 (:func:`instance`), the fp32 kernels by zero-filling V past ``dv`` in their
 split.  ``flash_attention`` is a ``torch.autograd.Function`` on CUDA tensors: its
 forward launches the forward kernel, which also writes the per-row
-logsumexp, and its backward launches the two backward kernels.  Which
+logsumexp, and its backward launches the backward kernels (:func:`fused_bwd`
+says which design a shape takes).  Which
 kernels take a shape is :func:`variant`'s choice, made from the dtype, the
 head dim and the GQA group before any launch: ``"wgmma"`` (bf16, group
 dividing 64, every head dim), ``"wgmma_rows"`` (bf16, any other group: the
@@ -20,7 +21,8 @@ instantiation takes.  A tensor on the CPU goes to the plain version
 to the kernels of its variant, or the wrapper raises: there is no fallback.
 The wrapper allocates the scratch a call needs (the size is the library's
 ``flash_attention_work_floats``): the tf32x3 split's operands, the
-wgmma_rows gathered copies, the bf16 backward's delta.  A tensor on the
+wgmma_rows gathered copies, the bf16 backward's delta (with, where the fused
+kernels run, lse by rows, the fp32 dQ accumulator and its counters).  A tensor on the
 ``meta`` device (the dry-run) takes an explicit shape-only path: the same
 outputs and scratch (sized by :func:`work_floats`, the library's function in
 Python) as meta tensors, the call's FLOPs and bytes reported to
@@ -38,7 +40,7 @@ from .. import build, meta
 from .ref import attention_ref
 
 __all__ = [
-    "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "instance",
+    "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "fused_bwd", "instance",
     "reset_launches", "variant", "work_floats",
 ]
 
@@ -82,6 +84,16 @@ def variant(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
             f"flash_attention: no bf16 kernel takes keys of {dh} and values of {dv} columns: "
             f"their 64-column chunks ({chunks(dh)}, {chunks(dv)}) are not a pair of {PAIRS}")
     return "wgmma" if 64 % G == 0 else "wgmma_rows"
+
+
+def fused_bwd(dh: int, dv: int | None = None) -> bool:
+    """Whether the bf16 backward at keys ``dh`` and values ``dv`` wide runs
+    the fused kernels (the kernels' ``fused_bwd``: equal chunk counts, one or
+    two): D's walk, one key-tile kernel for dK, dV and dQ's partials summed
+    in key order, and dq's conversion; else the dQ kernel, then the dK/dV
+    kernel."""
+    dc, dvc = chunks(dh), chunks(dh if dv is None else dv)
+    return dc == dvc and dc <= 2
 
 
 def instance(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
@@ -164,7 +176,15 @@ def work_floats(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, dh: int, causal: in
                 + 2 * _x3_kv_chunks(Sq, Sk, G, causal, window) * BH * Sk * dh)
     rows = VARIANTS[var] == "wgmma_rows"  # the gathered q (dh) and dout (dv)
     q_rows, do_rows = (B * Hq * Sq * d // 2 if rows else 0 for d in (dh, dv))
-    return q_rows + do_rows + B * Hq * Sq if backward else q_rows
+    if not backward:
+        return q_rows
+    if not fused_bwd(dh, dv):  # delta [B,Hq,Sq]; every part rounded up to 4 floats
+        return q_rows + do_rows + up(B * Hq * Sq, 4)
+    # lse * log2(e) and delta by rows, the fp32 dQ accumulator of the 64-row
+    # tiles, and their counters with the ticket
+    tiles = B * Hkv * -(-Sq * (Hq // Hkv) // _TILE)
+    return (q_rows + do_rows + 2 * tiles * _TILE + tiles * chunks(dh) * _TILE * _TILE
+            + up(tiles + 1, 4))
 
 
 def _work(args: tuple, backward: bool, device) -> torch.Tensor | None:
@@ -299,14 +319,17 @@ def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True, window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two backward kernels (dK/dV per key tile, dQ per row tile):
-    (dq, dk, dv) in the inputs' dtype, out and dout [B,Sq,Hq,dv].  Counts
-    one backward launch.  The
-    wgmma variant runs dQ first, which sums D = rowsum(P * dP) over the keys
-    in a first walk and writes it once into an fp32 [B,Hq,Sq] scratch that
-    the dK/dV kernel reads; wgmma_rows first gathers q and dout into its
-    scratch, then runs the same two; the tf32x3 variant first splits q, k, v and dout
-    into its scratch and writes D and the logsumexp per row there."""
+    """The backward kernels: (dq, dk, dv) in the inputs' dtype, out and dout
+    [B,Sq,Hq,dv].  Counts one backward launch.  bf16 where :func:`fused_bwd`
+    holds: a delta kernel sums D = rowsum(P * dP) over the keys per row into
+    the scratch, the counters of dQ's row tiles are zeroed, one persistent
+    key-tile kernel accumulates dK and dV and adds each key tile's partial
+    of dQ into an fp32 accumulator in increasing key order, and a last
+    kernel writes dq; other bf16 pairs run the dQ kernel (which writes D
+    first, in a first walk) and then the dK/dV kernel.  wgmma_rows first
+    gathers q and dout into its scratch; the tf32x3 variant first splits q,
+    k, v and dout into its scratch and writes D and the logsumexp per row
+    there."""
     _check(q, k, v, window)
     want = (*q.shape[:3], v.shape[-1])
     if (out.shape != want or dout.shape != want or out.dtype != q.dtype
@@ -373,8 +396,9 @@ def flash_attention(
 
 
 # kernel launches: forward calls and backward calls (each backward call
-# launches the dQ and the dK/dV kernel, after the gather pass of wgmma_rows
-# or the split of tf32x3) that reached the card, and nowhere else;
+# launches its kernels, fused_bwd's three or the dQ and the dK/dV kernel,
+# after the gather pass of wgmma_rows or the split of tf32x3) that reached
+# the card, and nowhere else;
 # launches_by_variant splits them by variant(), launches_by_instance by
 # instance() (an instantiation's key appears at its first launch).  Callers
 # that prove a path went through the kernels reset them (reset_launches) and

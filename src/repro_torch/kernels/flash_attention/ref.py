@@ -132,6 +132,19 @@ def dq_consumers(dc: int) -> int:
     return 2 if dc <= 3 else 1
 
 
+def fused_bwd(dc: int, dvc: int) -> bool:
+    """Whether the bf16 backward at dc and dvc column chunks runs the fused
+    kernels (``fused_bwd``)."""
+    return dc == dvc and dc <= 2
+
+
+def kv_block_first(rt0: int, G: int, window: int, keys: int) -> int:
+    """The first key block (of ``keys`` keys) whose row walk holds the row
+    tile from rt0 (``kv_block_first``): the first to add to its dQ."""
+    x = rt0 // G - window + 1 if window > 0 else 0
+    return x // keys if x > 0 else 0
+
+
 def kv_keys(dc: int) -> int:
     """Keys of a dK/dV block of the bf16 kernels at keys and values of equal
     chunks: 64 where the two warpgroups split the head columns
@@ -237,21 +250,27 @@ def attention_rows_fwd(
     *,
     causal: bool = True,
     window: int | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    p_hilo: bool = False,
+    residual: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """The forward as the wgmma_rows kernel computes it: over the gathered
     rows, block by block (128 rows, two warpgroups of 64), each warpgroup
     over the key tiles its block walks and does not skip, the mask applied
     only where ``tile_needs_mask`` says so, an online softmax, P rounded to
-    bf16 for P.V.  Returns (out [B,Sq,Hq,d] bf16, lse fp32 [B,Hq,Sq]).  Used
-    by tests only."""
+    bf16 for P.V.  Returns (out [B,Sq,Hq,dv] bf16, lse fp32 [B,Hq,Sq]).
+    ``p_hilo`` takes P into P.V as hi + lo bf16 instead, and ``residual``
+    returns o_lo [B,Sq,Hq,dv] bf16 too, the fp32 output less out: a forward
+    that would let the backward take D from its output (studied, not
+    built).  Used by tests and studies only."""
     B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     G, w = Hq // Hkv, window or 0
     R, keys = Sq * G, fwd_keys(column_chunks(dh))
     scale = 1.0 / math.sqrt(dh)
+    pv = _hilo if p_hilo else _bf16
     qr = _padded(gather_rows(q.float(), Hkv), R + 2 * ROWS)
     kr, vr = (_padded(_slabs(x), Sk + keys) for x in (k, v))
-    out = torch.zeros(B * Hkv, R, dh)
+    out = torch.zeros(B * Hkv, R, dv)
     lse = torch.full((B * Hkv, R), -math.inf)
     for r0 in range(0, R, 2 * ROWS):
         tiles = key_walk(r0, 2 * ROWS, Sq, Sk, G, causal, w, keys)
@@ -261,7 +280,7 @@ def attention_rows_fwd(
             qpos = (torch.arange(rw0, rw0 + ROWS) // G)[:, None]
             m = torch.full((B * Hkv, ROWS), -math.inf)
             l = torch.zeros(B * Hkv, ROWS)
-            acc = torch.zeros(B * Hkv, ROWS, dh)
+            acc = torch.zeros(B * Hkv, ROWS, dv)
             for t0 in tiles:
                 if tile_invisible(t0, keys, wp_lo, wp_hi, Sk, causal, w):
                     continue
@@ -275,7 +294,7 @@ def attention_rows_fwd(
                 alpha = torch.exp(m - m_use)
                 p = torch.exp(s - m_use[..., None])
                 l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.einsum("brt,btd->brd", _bf16(p),
+                acc = acc * alpha[..., None] + torch.einsum("brt,btd->brd", pv(p),
                                                             vr[:, t0:t0 + keys])
                 m = m_new
             seen = l > 0
@@ -283,9 +302,10 @@ def attention_rows_fwd(
                                               0.0)[:, :n]
             lse[:, rw0:rw0 + n] = torch.where(seen, m + torch.log(l.clamp_min(1e-30)),
                                               -math.inf)[:, :n]
-    out = out.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
+    out = out.reshape(B, Hkv, Sq, G, dv).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dv)
     lse = lse.reshape(B, Hkv, Sq, G).permute(0, 1, 3, 2).reshape(B, Hq, Sq)
-    return out.to(q.dtype), lse
+    o = out.to(q.dtype)
+    return (o, lse, (out - o.float()).to(q.dtype)) if residual else (o, lse)
 
 
 def _hilo(x: torch.Tensor) -> torch.Tensor:
@@ -298,22 +318,31 @@ def _hilo(x: torch.Tensor) -> torch.Tensor:
 def attention_rows_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     dout: torch.Tensor, *, causal: bool = True, window: int | None = None,
-    single_rounding: bool = False,
+    single_rounding: bool = False, o_lo: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward as the bf16 kernels compute it (``wgmma_rows``, and
-    ``wgmma`` over the caller's rows in place of the gathered copy): the dQ kernel's
-    blocks (128 rows, or 64 at dh above 192) each walk their 64-key tiles
-    twice, first to sum D = rowsum(P * dP) in fp32, then to add bf16(dS) . K;
-    the dK/dV kernel's blocks (128 keys, or 64 above dh 128) walk their
-    64-row tiles and add P^T . dO and dS^T . Q with P^T and dS^T as hi + lo
-    bf16.  ``single_rounding`` takes the cheaper arithmetic instead (D =
-    rowsum(dO * O) from the bf16 output, P^T and dS^T rounded once to bf16),
-    which misses TOL at wide groups and at spread scores.  Returns (dq, dk,
-    dv) bf16.  Used by tests only."""
+    ``wgmma`` over the caller's rows in place of the gathered copy), values
+    ``dv`` wide.  D = rowsum(P * dP) is summed in fp32 over the 64-key tiles
+    of each 64 rows, in order (the delta kernel's walk, or the dQ kernel's
+    first).  The dK/dV blocks (``kv_keys`` keys) walk their 64-row tiles and
+    add P^T . dO and dS^T . Q with P^T and dS^T as hi + lo bf16.  dQ: where
+    the fused kernels take the shape (``fused_bwd``), each consumer
+    warpgroup's partial bf16(dS) . K over its 64 keys, in fp32, the two of a
+    key block added in order, is added to its row tile's fp32 sum in
+    increasing key order, and dq is scale x the sum; else the dQ
+    kernel's blocks (128 rows, or 64 at dh above 192) walk their 64-key
+    tiles a second time and add bf16(dS) . K.  ``single_rounding`` takes the
+    cheaper arithmetic instead (D = rowsum(dO * O) from the bf16 output, P^T
+    and dS^T rounded once to bf16), which misses TOL at wide groups and at
+    spread scores; ``o_lo`` (the forward's fp32 residual in bf16,
+    ``attention_rows_fwd(residual=True)``) takes D = rowsum(dO * (out +
+    o_lo)) from the output instead of the walk, the rest as the kernels.
+    Returns (dq, dk, dv) bf16.  Used by tests and studies only."""
     B, Sq, Hq, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dvw = k.shape[1], k.shape[2], v.shape[-1]
     G, w = Hq // Hkv, window or 0
     R, dc = Sq * G, column_chunks(dh)
+    fused = fused_bwd(dc, column_chunks(dvw))
     BH, scale = B * Hkv, 1.0 / math.sqrt(dh)
     op = _bf16 if single_rounding else _hilo  # the A operands of dV and dK
     qr, dor = (_padded(gather_rows(x.float(), Hkv), R + 2 * ROWS) for x in (q, dout))
@@ -321,8 +350,11 @@ def attention_rows_bwd(
     L = _padded(lse.reshape(B, Hkv, G, Sq).permute(0, 1, 3, 2).reshape(BH, R, 1),
                 R + 2 * ROWS)[..., 0]
     L = torch.where(torch.isfinite(L), L, 0.0)
+    walk = not single_rounding and o_lo is None  # D summed over the keys
     if single_rounding:
         D = (_padded(gather_rows(out.float(), Hkv), R + 2 * ROWS) * dor).sum(-1)
+    elif o_lo is not None:
+        D = (_padded(gather_rows(out.float() + o_lo.float(), Hkv), R + 2 * ROWS) * dor).sum(-1)
     else:
         D = torch.zeros(BH, R + 2 * ROWS)
 
@@ -332,7 +364,7 @@ def attention_rows_bwd(
         dp = torch.einsum("brd,btd->brt", dor[:, r0:r0 + ROWS], vr[:, t0:t0 + nk])
         return s, dp
 
-    # dQ, and D where the kernel sums it
+    # D where the kernels sum it, and dQ by the dQ kernel's second walk
     dq = torch.zeros(BH, R, dh)
     rows = dq_consumers(dc) * ROWS
     for r0 in range(0, R, rows):
@@ -351,12 +383,14 @@ def attention_rows_bwd(
                     p = p.masked_fill(~ok, 0.0)
                 return p
 
-            if not single_rounding:
+            if walk:
                 d = torch.zeros(BH, ROWS)
                 for t0 in live:
                     s, dp = products(rw0, t0, ROWS)
                     d = d + (probs(t0, s) * dp).sum(-1)
                 D[:, rw0:rw0 + ROWS] = d
+            if fused:
+                continue
             acc = torch.zeros(BH, ROWS, dh)
             for t0 in live:
                 s, dp = products(rw0, t0, ROWS)
@@ -364,18 +398,23 @@ def attention_rows_bwd(
                 acc = acc + torch.einsum("brt,btd->brd", _bf16(ds), kr[:, t0:t0 + ROWS])
             dq[:, rw0:rw0 + n] = (acc * scale)[:, :n]
 
-    # dK and dV
-    dk, dv = torch.zeros(BH, Sk, dh), torch.zeros(BH, Sk, dh)
+    # dK and dV, and where fused each key block's partials of dQ
+    dk, dv = torch.zeros(BH, Sk, dh), torch.zeros(BH, Sk, dvw)
+    dq_sum = torch.zeros(BH, R + 2 * ROWS, dh)
     keys = kv_keys(dc)
     for k0 in range(0, Sk, keys):
         tiles = row_walk(k0, keys, Sq, Sk, G, causal, w)
-        for kw0 in range(k0, k0 + keys, ROWS):
-            kacc, vacc = torch.zeros(BH, ROWS, dh), torch.zeros(BH, ROWS, dh)
-            kpos = torch.arange(kw0, kw0 + ROWS)[:, None]
-            for rt0 in tiles:
-                tp_lo, tp_hi = rt0 // G, (min(R, rt0 + ROWS) - 1) // G
+        slices = range(k0, k0 + keys, ROWS)  # a consumer warpgroup's 64 keys each
+        kacc = [torch.zeros(BH, ROWS, dh) for _ in slices]
+        vacc = [torch.zeros(BH, ROWS, dvw) for _ in slices]
+        for rt0 in tiles:
+            tp_lo, tp_hi = rt0 // G, (min(R, rt0 + ROWS) - 1) // G
+            parts = []
+            for i, kw0 in enumerate(slices):
                 if kv_tile_skip(kw0, tp_lo, tp_hi, Sk, causal, w):
+                    parts.append(torch.zeros(BH, ROWS, ROWS))
                     continue
+                kpos = torch.arange(kw0, kw0 + ROWS)[:, None]
                 s, dp = products(rt0, kw0, ROWS)
                 p = torch.exp(s - L[:, rt0:rt0 + ROWS, None])
                 if kv_tile_needs_mask(rt0, R, kw0, tp_lo, tp_hi, Sk, causal, w):
@@ -383,13 +422,24 @@ def attention_rows_bwd(
                     ok = (r < R)[None, :] & _visible(kpos, (r // G)[None, :], Sk, causal, w)
                     p = p.masked_fill(~ok.T, 0.0)
                 ds = p * (dp - D[:, rt0:rt0 + ROWS, None])
-                vacc = vacc + torch.einsum("brt,brd->btd", op(p), dor[:, rt0:rt0 + ROWS])
-                kacc = kacc + torch.einsum("brt,brd->btd", op(ds), qr[:, rt0:rt0 + ROWS])
+                vacc[i] = vacc[i] + torch.einsum("brt,brd->btd", op(p), dor[:, rt0:rt0 + ROWS])
+                kacc[i] = kacc[i] + torch.einsum("brt,brd->btd", op(ds), qr[:, rt0:rt0 + ROWS])
+                parts.append(ds)
+            if fused:  # each slice's partial, added in slice order, then in key order
+                part = None
+                for kw0, ds in zip(slices, parts):
+                    p_ = torch.einsum("brt,btd->brd", _bf16(ds), kr[:, kw0:kw0 + ROWS])
+                    part = p_ if part is None else part + p_
+                dq_sum[:, rt0:rt0 + ROWS] += part
+        for i, kw0 in enumerate(slices):
             n = min(Sk, kw0 + ROWS) - kw0
             if n > 0:
-                dk[:, kw0:kw0 + n] = (kacc * scale)[:, :n]
-                dv[:, kw0:kw0 + n] = vacc[:, :n]
+                dk[:, kw0:kw0 + n] = (kacc[i] * scale)[:, :n]
+                dv[:, kw0:kw0 + n] = vacc[i][:, :n]
+    if fused:
+        dq = dq_sum[:, :R] * scale
 
     dq = dq.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
-    dk, dv = (x.reshape(B, Hkv, Sk, dh).permute(0, 2, 1, 3) for x in (dk, dv))
+    dk = dk.reshape(B, Hkv, Sk, dh).permute(0, 2, 1, 3)
+    dv = dv.reshape(B, Hkv, Sk, dvw).permute(0, 2, 1, 3)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -152,6 +152,59 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory; its bytes complete on `bar`, as a TMA load's do.
+__device__ __forceinline__ void bulk_load(void* sdst, const void* gsrc, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(sdst)),
+      "l"(gsrc), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bulk copies from shared to global memory (16-byte aligned, sizes a
+// multiple of 16): a plain copy, or an fp32 add into what global memory
+// holds (done in the L2, element by element); each completes with the
+// thread's bulk group (bulk_commit, bulk_wait).
+__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gdst),
+               "r"(smem_u32(ssrc)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_reduce_add_f32(float* gdst, const void* ssrc,
+                                                    uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   gdst),
+               "r"(smem_u32(ssrc)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of the thread's bulk groups are pending, their
+// writes to global memory done.
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's global accesses through the generic proxy with those
+// of the async proxy (the bulk copies).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A counter in global memory read with acquire, and raised with release, at
+// the scope of the whole device: what a block wrote before raising it is
+// seen by a block that read the raised value.
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // warpgroups
 // ---------------------------------------------------------------------------
@@ -255,6 +308,33 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t a, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (fp32) += A[64 x 16] . B[16 x 64], A and B bf16 in shared
+// memory, both MN-major (a 128-byte row holds 64 elements along M, or N;
+// successive rows run along K); with accumulate 0, d = A . B.
+__device__ __forceinline__ void wgmma_ss_64x64_mn(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),

@@ -774,6 +774,10 @@ DETERMINISM_CASES = [
     # the families' train shapes: deepseek-7b's MHA at dh 128 (Hq 32) and
     # deepseek-v2's MLA at dh 192 (Hq 128)
     (1, 2048, 32, 32, 128, torch.bfloat16), (1, 2048, 128, 128, 192, torch.bfloat16),
+    # the fused kernels, whose dQ sums run in key order behind counters:
+    # TinyLlama's and qwen2-moe's train_4k sequence, and G 72 (wgmma_rows)
+    (1, 4096, 32, 4, 64, torch.bfloat16), (1, 4096, 16, 16, 128, torch.bfloat16),
+    (1, 70, 72, 1, 64, torch.bfloat16),
 ]
 
 
@@ -802,7 +806,8 @@ def test_flash_attention_backward_is_deterministic(case):
 # G 1), qwen2-moe-a2.7b (DC 2, G 1, 16 heads) and deepseek-v2-236b's MLA
 # (keys 192, values 128: the (3, 2) instantiation, 128 heads); and
 # TinyLlama's at S 4,160, not a multiple of a tile.  The key walks are twice
-# as long as at the S 2,048 every other case reaches.
+# as long as at the S 2,048 every other case reaches.  Then the wgmma_rows
+# kernels under the fused design: G 3 at S 4,096 and G 72 at S 1,024.
 LONG_BWD_CASES = [
     (1, 4096, 32, 4, 64, 64, None),
     (1, 4096, 8, 4, 256, 256, 1024),
@@ -811,6 +816,8 @@ LONG_BWD_CASES = [
     (1, 4160, 32, 4, 64, 64, None),
     (1, 4096, 16, 16, 128, 128, None),
     (1, 4096, 128, 128, 192, 128, None),
+    (1, 4096, 6, 2, 64, 64, None),
+    (1, 1024, 72, 1, 64, 64, None),
 ]
 KEY_SPREAD = 4.0  # the queries' scale, as chip_smoke.py's LM_KEY_SPREAD
 ORACLE_HEADS = 32  # query heads a group of the fp32 oracle: MLA's 128 take 8.6 GB a copy
@@ -819,14 +826,17 @@ ORACLE_HEADS = 32  # query heads a group of the fp32 oracle: MLA's 128 take 8.6 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", LONG_BWD_CASES, ids=["tinyllama", "gemma3-local",
                                                       "gemma3-global", "deepseek-7b", "S4160",
-                                                      "qwen2-moe", "deepseek-v2-mla"])
+                                                      "qwen2-moe", "deepseek-v2-mla",
+                                                      "rows-G3", "rows-G72"])
 def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
-    """bf16 forward and backward on the ``wgmma`` kernels at the train_4k
-    cell's S against fp32 autograd of ``attention_ref`` at TOL, taken
-    ORACLE_HEADS query heads at a time (each head's attention is its own).
-    The queries are drawn at KEY_SPREAD, so the scores spread by 4 and the
-    softmax picks a few keys: a key the kernels drop, past 2,048 or
-    anywhere, moves an output row by the values' scale."""
+    """bf16 forward and backward on the ``wgmma`` kernels (``wgmma_rows``
+    where G does not divide 64) at the train_4k cell's S against fp32
+    autograd of ``attention_ref`` at TOL, taken ORACLE_HEADS query heads at
+    a time, or the heads of one kv head where G is larger (each head's
+    attention is its own).  The queries are drawn at KEY_SPREAD, so the
+    scores spread by 4 and the softmax picks a few keys: a key the kernels
+    drop, past 2,048 (half of S, where S is shorter) or anywhere, moves an
+    output row by the values' scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -837,13 +847,14 @@ def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
     k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(bf16)
     v = torch.randn(B, S, Hkv, dv, generator=g, device=dev).to(bf16)
     dout = torch.randn(B, S, Hq, dv, generator=g, device=dev).to(bf16)
-    G, step = Hq // Hkv, min(ORACLE_HEADS, Hq)
+    G = Hq // Hkv
+    step = min(Hq, max(G, ORACLE_HEADS // G * G))  # whole kv heads
     parts = [flash_oracle(q[:, :, h:h + step], k[:, :, h // G:(h + step) // G],
                           v[:, :, h // G:(h + step) // G], dout[:, :, h:h + step], True, window)
              for h in range(0, Hq, step)]
     want = [torch.cat([p[i] for p in parts], dim=1 if i == 1 else 2) for i in range(5)]
     del parts
-    assert flash_ops.variant(bf16, dh, G, dv) == "wgmma"
+    assert flash_ops.variant(bf16, dh, G, dv) == ("wgmma" if 64 % G == 0 else "wgmma_rows")
     flash_ops.reset_launches()
     out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
     grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
@@ -857,8 +868,74 @@ def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
     # 2,048 and after zeroed, what a backward that stopped at S 2,048 gives
     for got, ref in zip(grads[1:], want[3:]):
         cut = got.float()
-        cut[:, 2048:] = 0
+        cut[:, min(2048, S // 2):] = 0
         assert ((cut - ref).abs() / (tol + tol * ref.abs())).max() > 1
+
+
+# (B, Sq, Sk, Hq, Hkv, dh, window): the fused kernels (dh 64 and 128, G 4
+# and 2, G 3 on wgmma_rows) where the query and key lengths differ under a
+# causal window, every row seeing some key: key blocks whose walks start and
+# end inside the rows, the first adder of a row tile past key block 0
+UNEQUAL_CASES = [
+    (1, 360, 300, 8, 2, 64, 64), (1, 300, 500, 8, 2, 64, 64),
+    (1, 360, 300, 8, 4, 128, 64), (1, 300, 500, 8, 4, 128, 64),
+    (2, 330, 300, 6, 2, 64, 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UNEQUAL_CASES)
+def test_flash_backward_window_with_unequal_lengths(case):
+    """bf16 backward at Sq beside Sk under a window against fp32 autograd of
+    the plain version at TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Sq, Sk, Hq, Hkv, dh, window = case
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = (torch.randn(B, Sq, Hq, dh, generator=g, device=dev) * KEY_SPREAD).to(bf16)
+    k = torch.randn(B, Sk, Hkv, dh, generator=g, device=dev).to(bf16)
+    v = torch.randn(B, Sk, Hkv, dh, generator=g, device=dev).to(bf16)
+    dout = torch.randn(B, Sq, Hq, dh, generator=g, device=dev).to(bf16)
+    assert Sq - 1 - (window - 1) <= Sk - 1  # every row sees a key
+    assert flash_ops.fused_bwd(dh)
+    want = flash_oracle(q, k, v, dout, True, window)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+    torch.cuda.synchronize()
+    tol = TOLS[bf16]
+    for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), want):
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,G", [(64, 8), (128, 1), (64, 3)])
+def test_flash_backward_after_another_shape_gives_the_same_bits(dh, G):
+    """The fused kernels' row-tile counters and ticket are zeroed before
+    every call: a backward after one at another shape (more row tiles, then
+    fewer) gives the bits of the first call at its own shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+
+    def inputs(B, S, Hkv, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn(B, S, Hkv * G, dh, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = flash_ops.flash_attention_fwd(q, k, v)
+        return q, k, v, out, lse, torch.randn_like(out)
+
+    small, large = inputs(1, 700, 2, 5), inputs(2, 1500, 4, 6)
+    first = flash_ops.flash_attention_bwd(*small)
+    flash_ops.flash_attention_bwd(*large)
+    again = flash_ops.flash_attention_bwd(*small)
+    flash_ops.flash_attention_bwd(*inputs(1, 300, 1, 7))
+    after_fewer = flash_ops.flash_attention_bwd(*small)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, after_fewer):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda

@@ -93,7 +93,11 @@ def test_flash_meta_allocates_the_kernels_scratch():
     assert n_bwd > flash_ops.work_floats(*args, False) > 0
     wg = flash_ops.VARIANTS.index("wgmma")
     assert flash_ops.work_floats(*args[:8], wg, False) == 0
-    assert flash_ops.work_floats(*args[:8], wg, True) == B * Hq * S
+    # the bf16 backward at dh 64 (the fused kernels): lse * log2(e) and D by
+    # rows, the fp32 dQ accumulator of B*Hkv x S*G/64 row tiles of 64 x 64,
+    # their counters and the ticket (rounded up to 4 floats)
+    tiles = B * Hkv * (S * (Hq // Hkv) // 64)
+    assert flash_ops.work_floats(*args[:8], wg, True) == 2 * B * Hq * S + tiles * 64 * 64 + 20
     rk = dryrun.Reckoner()
     with rk:
         q = torch.empty(B, S, Hq, dh, device=M)
@@ -352,7 +356,9 @@ def test_flash_forward_at_prefill_32k_on_meta(B, Hq, Hkv, dh, dv, window):
 def test_flash_backward_at_train_4k_on_meta(B, Hq, Hkv, dh, dv, window):
     """The flash backward at S 4,096 on meta: dq, dk and dv in the inputs'
     shapes and dtype (dv ``dv`` wide), and the card path's allocations
-    (those three and the wgmma backward's fp32 D scratch, [B, Hq, S]); the
+    (those three and the wgmma backward's fp32 D scratch, [B, Hq, S], or,
+    where the fused kernels run, D and lse * log2(e) by rows, the fp32 dQ
+    accumulator of its 64-row tiles and their counters and ticket); the
     grids inside the kernels' 65,535 (the dQ kernel's row blocks, the dK/dV
     kernel's key blocks); the FLOPs of the pairs the mask keeps; no
     launch."""
@@ -361,7 +367,9 @@ def test_flash_backward_at_train_4k_on_meta(B, Hq, Hkv, dh, dv, window):
     assert flash_ops.variant(bf16, dh, G, dv) == "wgmma"
     wg = flash_ops.VARIANTS.index("wgmma")
     scratch = flash_ops.work_floats(B, S, S, Hq, Hkv, dh, 1, window or 0, wg, True, dv=dv)
-    assert scratch == B * Hq * S
+    tiles = B * Hkv * S * G // 64
+    fused = B * Hq * S + tiles * flash_ops.chunks(dh) * 64 * 64 + -(-(tiles + 1) // 4) * 4
+    assert scratch == B * Hq * S + (fused if flash_ops.fused_bwd(dh, dv) else 0)
     assert -(-(S * G) // 64) <= 65_535 and -(-S // 64) <= 65_535
     before = _launch_counts()
     rk = dryrun.Reckoner()

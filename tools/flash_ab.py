@@ -23,7 +23,13 @@ call.  The pieces, in the order given:
     scale: ``queued_ms`` of each, and the first sequence's out, lse, dq, dk
     and dv against fp32 autograd of the plain version (the worst err / (tol
     + tol |ref|) of each; at most 1 holds TOL), which it prints and does not
-    check.
+    check;
+  * ``bwd``: the bf16 backward alone at every ``train_4k`` cell's shape
+    (those four, qwen2-moe-a2.7b at B 1 and deepseek-v2-236b's MLA at B 1)
+    and the train shape (B 4, S 2,048): ``queued_ms`` twice, the kernels of
+    one call by the profiler (their count and each one's device ms), the
+    bound and SDPA's backward (``backward_ms``), and whether a second call
+    gives the same bits (it fails where not).
 
 The first two take a tree from before the pieces they name existed as long
 as its ``chip_smoke.py`` has ``flash_family_case`` and ``phase_flash``.
@@ -79,6 +85,50 @@ def train_4k(cs, dev) -> None:
         torch.cuda.empty_cache()
 
 
+BWD_SHAPES = TRAIN_4K + [  # label, B, S, Hq, Hkv, dh, window[, dv]
+    ("qwen2-moe-a2.7b", 1, 4096, 16, 16, 128, None),
+    ("deepseek-v2-236b mla", 1, 4096, 128, 128, 192, None, 128),
+    ("train shape", 4, 2048, 32, 4, 64, None),
+]
+
+
+def bwd(cs, dev) -> None:
+    """The ``bwd`` piece, from what every tree's ``chip_smoke.py`` has."""
+    from repro_torch.kernels.flash_attention import ops
+
+    bf16 = torch.bfloat16
+    for label, B, S, Hq, Hkv, dh, window, *rest in BWD_SHAPES:
+        dv = rest[0] if rest else dh
+        gen = torch.Generator(device=dev).manual_seed(9)
+        q = (torch.randn(B, S, Hq, dh, generator=gen, device=dev) * 4).to(bf16)
+        k = torch.randn(B, S, Hkv, dh, generator=gen, device=dev).to(bf16)
+        v = torch.randn(B, S, Hkv, dv, generator=gen, device=dev).to(bf16)
+        dout = torch.randn(B, S, Hq, dv, generator=gen, device=dev).to(bf16)
+        kw = dict(causal=True, window=window)
+        out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        fn = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        first, again = fn(), fn()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again
+        split: dict[str, float] = {}
+        cs.kernel_device_ms(fn, iters=5, by_kernel=split)
+        ms = [cs.queued_ms(fn), cs.queued_ms(fn)]
+        case = (label, B, S, Hq, Hkv, dh, True, window)
+        bound, by = cs.flash_bound_ms(case, bf16, True, dv)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = cs.sdpa(qg, kg, vg, True, window)
+        lib = cs.backward_ms(lib_out, (qg, kg, vg), dout, 5)
+        del lib_out, qg, kg, vg
+        print(f"bwd {label} B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} dv {dv} window {window} "
+              f"{ops.instance(bf16, dh, Hq // Hkv, dv)}: queued_ms {ms[0]:.4f} {ms[1]:.4f} "
+              f"bound_ms {bound:.4f} ({by}) sdpa_ms {lib:.4f} equal bits {same}; "
+              f"{len(split)} kernels a call: "
+              + " ".join(f"{name[:48]} {t:.4f}" for name, t in split.items()))
+        cs.check(same, f"flash_ab bwd {label}: two backward calls differ")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) < 3:
         print(__doc__, file=sys.stderr)
@@ -112,6 +162,7 @@ def main() -> int:
         "dsv2": lambda: cs.phase_deepseek_v2(dev),
         "train": lambda: cs.family_train(dev, "deepseek-v2-236b", 1),
         "train4k": lambda: train_4k(cs, dev),
+        "bwd": lambda: bwd(cs, dev),
     }
     for name in pieces:
         fn = runs.get(name)
