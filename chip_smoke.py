@@ -1274,6 +1274,33 @@ def kernel_device_ms(fn, iters: int = 20, by_kernel: dict | None = None) -> tupl
     return total / iters / 1e3, span / iters / 1e3
 
 
+def kernels_of_one_call(fn, iters: int = 5) -> dict[str, float]:
+    """Each kernel's device ms a call of ``fn`` (named as ``kernel_device_ms``
+    names them), from the profiler's records of ``iters`` calls.  The tracer
+    can miss the first kernels after it starts, so ``iters`` uncounted calls
+    go first, then a device sleep, and only the kernels after it count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    spins = [e.time_range.end for e in evs if "spin_kernel" in e.name]
+    split: dict[str, float] = {}
+    for e in evs:
+        if spins and e.time_range.start >= max(spins):
+            m = re.search(r"(\w+)[<(]", e.name.replace("(anonymous namespace)::", ""))
+            name = m.group(1) if m else e.name
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    return split
+
+
 def queued_ms(fn, iters: int = 10) -> float:
     """Milliseconds per call by CUDA events around back-to-back calls that
     are queued behind a device sleep, so the host's launch work is hidden
@@ -1503,35 +1530,50 @@ def backward_ms(out, inputs, dout, iters) -> float:
 
 
 MLA_INSTANCE = "ILi3ELi2E"  # the (keys 3, values 2) chunk instantiation, mangled
+# MLA's (3, 2) kernels: the ping-pong forward and the fused backward's two
+# (the delta and key-tile kernels; dq's conversion takes every pair)
+MLA_KERNELS = {"fwd": ("flash_fwd_pp_wgmma_kernel",),
+               "bwd": ("flash_bwd_delta_wgmma_kernel", "flash_bwd_fused_wgmma_kernel")}
 
 
-def print_ptxas() -> None:
-    """ptxas's registers and spills for every flash kernel as built (mangled
-    names: a wgmma kernel's template arguments end in ``Lb0E``, a wgmma_rows
-    kernel's in ``Lb1E``, and begin with the key and value chunk counts,
-    ``ILi3ELi2E`` for MLA's; the gather pass is ``flash_rows_gather_kernel``,
-    the fused backward's are ``flash_bwd_delta_wgmma_kernel``,
-    ``flash_bwd_fused_wgmma_kernel`` and ``flash_bwd_dq_convert_kernel``); a
-    kernel that spills fails the run."""
+def print_ptxas() -> dict:
+    """ptxas's registers, spills and wgmma serialization (its C75xx notes)
+    for every flash kernel as built (mangled names: a wgmma kernel's template
+    arguments end in ``Lb0E``, a wgmma_rows kernel's in ``Lb1E``, and begin
+    with the key and value chunk counts, ``ILi3ELi2E`` for MLA's; the gather
+    pass is ``flash_rows_gather_kernel``, the fused backward's are
+    ``flash_bwd_delta_wgmma_kernel``, ``flash_bwd_fused_wgmma_kernel`` and
+    ``flash_bwd_dq_convert_kernel``); a kernel that spills fails the run, and
+    so does one of MLA's six (3, 2) kernels (MLA_KERNELS, wgmma and
+    wgmma_rows) whose wgmmas ptxas serialized.  Returns those six rows by
+    direction (``fwd``, ``bwd``)."""
     from repro_torch.kernels import build
 
-    mla = 0
+    mla: dict[str, list] = {"fwd": [], "bwd": []}
     for row in build.ptxas_report("flash_attention"):
         name = row["kernel"]
-        mla += MLA_INSTANCE in name
         print(f"ptxas {name}: registers {row['registers']} spill stores "
-              f"{row['spill_stores']} B loads {row['spill_loads']} B")
+              f"{row['spill_stores']} B loads {row['spill_loads']} B"
+              + (f" wgmma serialized ({row['serialized']})" if row["serialized"] else ""))
         check(row["spill_stores"] == row["spill_loads"] == 0,
               f"ptxas: {name} spills {row['spill_stores']} B")
-    check(mla == 6, f"ptxas: {mla} kernels at the (3, 2) instantiation, wanted 6 (forward, dQ "
-                    f"and dK/dV, wgmma and wgmma_rows)")
+        if MLA_INSTANCE in name:
+            kind = next((k for k, names in MLA_KERNELS.items() if any(n in name for n in names)),
+                        None)
+            check(kind is not None, f"ptxas: {name} is no kernel of MLA_KERNELS")
+            check(not row["serialized"], f"ptxas serialized {name}'s wgmmas: {row['serialized']}")
+            mla[kind].append(row)
+    check(len(mla["fwd"]) == 2 and len(mla["bwd"]) == 4,
+          f"ptxas: (3, 2) kernels {[r['kernel'] for v in mla.values() for r in v]}, wanted the "
+          f"ping-pong forward and the delta and key-tile kernels, wgmma and wgmma_rows")
+    return mla
 
 
 def phase_flash(dev) -> dict:
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops
 
-    print_ptxas()
+    mla_ptxas = print_ptxas()
     results = {}
     gen = torch.Generator(device=dev).manual_seed(4321)
     for case in FLASH_CASES:
@@ -1608,7 +1650,7 @@ def phase_flash(dev) -> dict:
             results[(label, tname)] = row
             del q, k, v, dout, out, lse, grads, qg, kg, vg
             torch.cuda.empty_cache()
-    return {"cases": results}
+    return {"cases": results, "mla_ptxas": mla_ptxas}
 
 
 # --------------------------------------------------------------------------
@@ -2436,10 +2478,20 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
               f"flash {label} {what}: launches by instance {moved}")
         fwd = lambda: ops.flash_attention_fwd(q, k, vv, causal=True)
         bwd = lambda: ops.flash_attention_bwd(q, k, vv, out, lse, dd, causal=True)
+        # one profile for both (the tracer kept none of a forward's kernels
+        # in profiles of the forward alone), taken again where it kept none
+        for _ in range(3):
+            split = kernels_of_one_call(lambda: (fwd(), bwd()), iters=10)
+            split_fwd = {n: t for n, t in split.items() if n.startswith("flash_fwd")}
+            split_bwd = {n: t for n, t in split.items() if n not in split_fwd}
+            if split_fwd and split_bwd:
+                break
         row = dict(instance=list(moved)[0], max_abs_err=err, ratio=ratio, queued_ms=queued_ms(fwd),
-                   l2_flushed_ms=flushed_ms(fwd), ms=cuda_ms(fwd, iters=10, warmup=2))
+                   l2_flushed_ms=flushed_ms(fwd), ms=cuda_ms(fwd, iters=10, warmup=2),
+                   kernels=split_fwd)
         row["bwd"] = dict(max_abs_err=berr, ratio=bratio, queued_ms=queued_ms(bwd),
-                          l2_flushed_ms=flushed_ms(bwd), ms=cuda_ms(bwd, iters=10, warmup=2))
+                          l2_flushed_ms=flushed_ms(bwd), ms=cuda_ms(bwd, iters=10, warmup=2),
+                          kernels=split_bwd)
         del out, lse, grads
         return row
 
@@ -2447,6 +2499,15 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     row["variant"] = var
     check(row["instance"] == inst, f"flash {label}: ran {row['instance']}, wanted {inst}")
     b = row["bwd"]
+    if inst == "wgmma 3x2":  # the ping-pong forward; the fused backward's four steps, no more
+        want_f = set(MLA_KERNELS["fwd"])
+        want_b = {*MLA_KERNELS["bwd"], "flash_bwd_dq_convert_kernel", "Memset (Device)"}
+        check(set(row["kernels"]) == want_f and set(b["kernels"]) == want_b,
+              f"flash {label}: kernels of a call: forward {sorted(row['kernels'])}, backward "
+              f"{sorted(b['kernels'])}; wanted {sorted(want_f)} and {sorted(want_b)}")
+    print(f"flash family {label}: kernels of one call (device ms, the profiler): forward "
+          + " ".join(f"{n} {t:.4f}" for n, t in row["kernels"].items()) + "; backward "
+          + " ".join(f"{n} {t:.4f}" for n, t in b["kernels"].items()))
     row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5, warmup=1)
     row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, True, None), iters=10, warmup=2)
     case = (label, B, S, H, H, dh, True, None)
@@ -6895,10 +6956,11 @@ def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
     return {**out, "bound": bound, "launches": launches, "flips": flips}
 
 
-# the flash kernels a train step's profile times apart: the forward; the
-# fused backward's delta, key-tile and dq conversion kernels; the dQ and
+# the flash kernels a train step's profile times apart: the forward (MLA's
+# (3, 2) on flash_fwd_pp_wgmma_kernel, the others on flash_fwd_wgmma_kernel);
+# the fused backward's delta, key-tile and dq conversion kernels; the dQ and
 # dK/dV kernels of the pairs the fused kernels do not take
-FLASH_WATCH = ("flash_fwd_wgmma", "flash_bwd_delta_wgmma", "flash_bwd_fused_wgmma",
+FLASH_WATCH = ("flash_fwd", "flash_bwd_delta_wgmma", "flash_bwd_fused_wgmma",
                "flash_bwd_dq_convert", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
 
 
@@ -7390,6 +7452,13 @@ def main() -> int:
             "padded_values": {"instance": mf["padded"]["instance"],
                               **{k: pad_r[k] for k in ("queued_ms", "l2_flushed_ms", "ms",
                                                         "max_abs_err")}},
+            # the design's kernels (the ping-pong forward; the fused
+            # backward's delta, counters, key tiles and conversion) and each
+            # one's device ms in one call, by the profiler, which reads short
+            "kernels_of_one_call": r["kernels"],
+            "ptxas": {row["kernel"]: {k: row[k] for k in ("registers", "spill_stores",
+                                                          "spill_loads", "serialized")}
+                      for row in flash["mla_ptxas"][kind]},
             "at_lm_cells": at_lm_cells((*(("deepseek-v2-236b prefill_32k",) if kind == "fwd"
                                           else ()), "deepseek-v2-236b train_4k"), kind),
         })

@@ -122,13 +122,20 @@ def load(name: str) -> ctypes.CDLL:
 def ptxas_report(name: str) -> list[dict]:
     """ptxas's report on every kernel of ``kernels/<name>/csrc/<name>.cu``
     as built: [{"kernel" (its mangled name), "registers", "spill_stores",
-    "spill_loads"}] (bytes), or [] for a library built before the report
-    was kept."""
+    "spill_loads"} (bytes), "serialized" (the codes of ptxas's notes that it
+    serialized the kernel's wgmmas, C7510 to C7520, "" where none)], or []
+    for a library built before the report was kept."""
     path = _target(KERNELS_DIR / name / "csrc" / f"{name}.cu").with_suffix(".ptxas.txt")
     if not path.exists():
         return []
+    text = path.read_text()
+    serialized: dict[str, list[str]] = {}
+    for code, kernel in re.findall(
+            r"\((C75\d\d)\) Potential Performance Loss: wgmma\.mma_async instructions are "
+            r"serialized[^']*'(\S+)'", text):
+        serialized.setdefault(kernel, []).append(code)
     rows = []
-    for block in path.read_text().split("Compiling entry function")[1:]:
+    for block in text.split("Compiling entry function")[1:]:
         mangled = re.search(r"'(\S+)'", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
@@ -136,7 +143,9 @@ def ptxas_report(name: str) -> list[dict]:
             rows.append({"kernel": mangled.group(1),
                          "registers": int(regs.group(1)),
                          "spill_stores": int(spill.group(1)),
-                         "spill_loads": int(spill.group(2))})
+                         "spill_loads": int(spill.group(2)),
+                         "serialized": " ".join(sorted(set(serialized.get(mangled.group(1),
+                                                                          []))))})
     return rows
 
 

@@ -51,17 +51,20 @@
 //    edge t >= Sk is masked here, so the wrapper pads nothing.
 //  * Backward: a block per (b, kv head, key tile) accumulates dK and dV over
 //    every query row of the G heads that sees the tile, recomputing P from Q,
-//    K and the saved logsumexp.  bf16 at one or two column chunks (the
-//    fused kernels, below): a first kernel sums D per row, then persistent
-//    key-tile blocks also add each key tile's partial of dQ into an fp32
-//    accumulator, tile by tile in increasing key order behind a counter.
-//    Elsewhere a block per (b, kv head, row tile) accumulates dQ over key
-//    tiles.  No unordered float atomics: the gradients are the same from
-//    run to run.
+//    K and the saved logsumexp.  bf16 at one or two column chunks and at
+//    MLA's (3, 2) (the fused kernels, below): a first kernel sums D per row,
+//    then persistent key-tile blocks also add each key tile's partial of dQ
+//    into an fp32 accumulator, tile by tile in increasing key order behind a
+//    counter.  At three or four equal chunks a block per (b, kv head, row
+//    tile) accumulates dQ over key tiles.  No unordered float atomics: the
+//    gradients are the same from run to run.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -112,11 +115,10 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    ring of 64 keys.  Two consumer warpgroups (128 rows) fit up to DC 3;
 //    at DC 4 the block has one (64 rows; 192 KB rather than 256) and no
 //    register rebalancing, since 256 threads may each hold 255.
-//  * dK/dV: a thread would hold dK and dV for its keys, 2 x DC x 32
-//    registers: 256 at DC 4, more than a thread has.  At DC 1 the two
-//    consumer warpgroups own 64 keys each.  At DC 2 to 4 (kv_split: at DC 2
-//    two 64-key halves with the hi + lo operands below spill under ptxas)
-//    both own the same 64 keys and split the head
+//  * dK/dV (at DC 3 and 4; the fused kernels below take DC 1 and 2): a
+//    thread would hold dK and dV for its keys, 2 x DC x 32 registers: 256
+//    at DC 4, more than a thread has.  So (kv_split) the two consumer
+//    warpgroups own the same 64 keys and split the head
 //    columns: warpgroup w accumulates dK and dV
 //    for the chunks [w * ceil(DC/2), (w+1) * ceil(DC/2)), 128 registers at
 //    most.  Each needs all of P^T and dS^T, so warpgroup 0 computes S^T
@@ -130,24 +132,31 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 //    fills the 227 KB exactly.
 // Values narrower than keys.  V, O and dO take DVC = ceil(dv / 64) column
 // chunks (dv padded to 16) beside the keys' DC: P.V, dP = dO.V^T (and D =
-// rowsum(P * dP) through it), dP^T and dV += P^T.dO run over the DVC chunks only, TMA's
-// zero fill pads dv to its last chunk, and the stores write dv columns.  The
-// kernels are instantiated at DVC == DC (DC 1 to 4) and at (3, 2), MLA's
-// keys of 192 and values of 128, whose layout differs from DC 3's:
-//  * Forward: O takes 2 x 32 registers, so the key tile is 128 keys, as at
-//    DC <= 2 (S 64 registers beside O's 64): half the softmax rescales and
-//    ring hand-offs a key of 64-key tiles.  Q 48 KB, the K ring 2 x 48 KB,
-//    the V ring 2 x 32 KB: 208 KB.
-//  * dQ: dO stays resident at DVC chunks and the V ring carries DVC.
-//  * dK/dV: dK (3 chunks) and dV (2) do not fit one warpgroup's registers
-//    beside the products, so the two warpgroups share 64 keys and own the
-//    five accumulators apart (kv_own).  Warpgroup 0 computes S^T over dh and
-//    accumulates dK's first DVC chunks; warpgroup 1 computes dP^T over dv
-//    and accumulates dK's other DC - DVC chunks and dV's DVC; P^T and dP^T
-//    cross through the 32 KB hand-off.  Four products a tile over dh + dv +
-//    dv + dh columns, where the padded values took 4 x dh, and each
-//    warpgroup issues 20 k-steps of 16 a tile (warpgroup 0 owning all of dK
-//    would issue 24 beside 1's 16, and wait at every hand-off).
+// rowsum(P * dP) through it), dP^T and dV += P^T.dO run over the DVC chunks
+// only, TMA's zero fill pads dv to its last chunk, and the stores write dv
+// columns.  The kernels are instantiated at DVC == DC (DC 1 to 4) and at (3,
+// 2), MLA's keys of 192 and values of 128, which has kernels of its own:
+//  * Forward (flash_fwd_pp_wgmma_kernel, fwd_pingpong): O takes 2 x 32
+//    registers, so the key tile is 128 keys (S 64 registers beside O's 64),
+//    and its products use the N = 128 shapes (S = Q.K^T as 12 m64n128k16,
+//    P.V over both value chunks as 8): an N = 64 product reads its A operand
+//    from shared memory at the 128 bytes a clock the SM has, which the
+//    tensor cores then wait on.  The two consumer warpgroups take turns on
+//    the tensor cores (named barriers, a ping-pong): each issues its tile's S
+//    beside the last tile's P.V, hands the turn over and runs its softmax
+//    while the other's products run, so the exponentials and the rescale of
+//    O overlap the products instead of following them (on one warpgroup's
+//    own, keeping a product in flight across its softmax serialized its
+//    wgmmas under ptxas).  K and V come through rings of their own (a K stage
+//    is free once S is retired).  The grid is the row tiles of one kv head
+//    next to each other, so that the blocks on the card at once read the
+//    same K/V tiles from the L2: with one block a head at a time (MLA's 128
+//    heads) every block streamed its own K/V from memory, which bounded the
+//    earlier kernel.  Q 48 KB, the K ring 2 x 48 KB, the V ring 2 x 32 KB:
+//    208 KB.
+//  * Backward: the fused kernels (below), their dK/dV split between the
+//    warpgroups by accumulator (kv_own), since dK (3 chunks) and dV (2) do
+//    not fit one warpgroup's registers beside the products.
 // Every sum keeps a fixed order: dK/dV over row tiles, dQ over key tiles,
 // with no float atomics, so the backward gives equal bits from run to run.
 //
@@ -207,6 +216,11 @@ constexpr size_t kSmemPerBlock = 232448;    // dynamic shared memory a block may
 // The plan at DC column chunks of the keys and DVC of the values (see
 // above).  The forward's key tile follows the O accumulator, DVC x 32.
 __host__ __device__ constexpr int fwd_keys(int DVC) { return DVC <= 2 ? 128 : 64; }
+// the forward whose two consumer warpgroups take turns on the tensor cores,
+// each issuing a tile's S beside the last tile's P.V (MLA's (3, 2))
+__host__ __device__ constexpr bool fwd_pingpong(int DC, int DVC) { return DC == 3 && DVC == 2; }
+constexpr int kPpKeys = 128;    // keys of its tile
+constexpr int kPpBarrier = 1;   // its named barriers: warpgroup w's turn is kPpBarrier + w
 __host__ __device__ constexpr int dq_consumers(int DC) { return DC <= 3 ? 2 : 1; }
 // the (DC, DVC) pairs the wgmma kernels are instantiated at
 __host__ __device__ constexpr bool wgmma_pair(int DC, int DVC) {
@@ -219,12 +233,10 @@ __host__ __device__ constexpr bool kv_own(int DC, int DVC) { return DVC < DC; }
 // columns of 64 shared keys: from DC 2, where the layout of two 64-key
 // halves with the hi + lo operands spills under ptxas (48 bytes)
 __host__ __device__ constexpr bool kv_split(int DC) { return DC >= 2; }
-// the warpgroups share 64 keys and hand P^T and dP^T over
-__host__ __device__ constexpr bool kv_handoff(int DC, int DVC) {
-  return kv_own(DC, DVC) || kv_split(DC);
-}
+// keys of a dK/dV block: 64 where the warpgroups share them and hand P^T
+// and dP^T over
 __host__ __device__ constexpr int kv_keys(int DC, int DVC) {
-  return kv_handoff(DC, DVC) ? 64 : 128;
+  return kv_own(DC, DVC) || kv_split(DC) ? 64 : 128;
 }
 __host__ __device__ constexpr int kv_stages(int DC) { return DC <= 3 ? 3 : 2; }
 // dK/dV column chunks a consumer warpgroup accumulates
@@ -274,26 +286,26 @@ __device__ __forceinline__ void to_a_frags_hilo(const float* s, uint32_t (&hi)[4
                       s[2 * i + 1] - __uint_as_float(hi[i] & 0xffff0000u));
 }
 
-template <int DC, int DVC>
+template <int DC>
 struct FwdWgSmem {
   alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kStages][DC][fwd_keys(DVC) * kChunk];
-  alignas(1024) bf16 v[kStages][DVC][fwd_keys(DVC) * kChunk];
+  alignas(1024) bf16 k[kStages][DC][fwd_keys(DC) * kChunk];
+  alignas(1024) bf16 v[kStages][DC][fwd_keys(DC) * kChunk];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
 // forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
-template <int DC, int DVC, bool kRows>
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dv,
                        int causal, int window, float scale) {
-  constexpr int kFwdKeys = fwd_keys(DVC);
+  constexpr int kFwdKeys = fwd_keys(DC);
   constexpr int NH = kFwdKeys / 64;  // 64-key blocks of a key tile
   extern __shared__ char smem_raw[];
-  FwdWgSmem<DC, DVC>& sm = smem_layout<FwdWgSmem<DC, DVC>>(smem_raw);
+  FwdWgSmem<DC>& sm = smem_layout<FwdWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -327,11 +339,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kFwdKeys));
+        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kFwdKeys));
         const int t0 = (t_first + i) * kFwdKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
-          if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
         }
       }
     }
@@ -346,9 +358,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
 
-    float oacc[DVC][32];
+    float oacc[DC][32];
 #pragma unroll
-    for (int c = 0; c < DVC; ++c)
+    for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -410,7 +422,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             sacc[h][e] = p;
           }
 #pragma unroll
-        for (int c = 0; c < DVC; ++c)
+        for (int c = 0; c < DC; ++c)
 #pragma unroll
           for (int e = 0; e < 32; ++e) oacc[c][e] *= alpha[(e >> 1) & 1];
         // P in bf16 (the cast of _flash_kernel:76) as the A operand of O += P . V
@@ -421,12 +433,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kk = 0; kk < kFwdKeys / 16; ++kk)
 #pragma unroll
-          for (int c = 0; c < DVC; ++c)
+          for (int c = 0; c < DC; ++c)
             wgmma_rs_64x64(oacc[c], pa[kk], wgmma_desc(sm.v[s][c]) + kk * 16 * 128 / 16);
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int c = 0; c < DVC; ++c) fence_regs(oacc[c]);
+        for (int c = 0; c < DC; ++c) fence_regs(oacc[c]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[s]);
@@ -440,7 +452,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float inv = l > 0.f ? 1.f / l : 0.f;
       const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
 #pragma unroll
-      for (int c = 0; c < DVC; ++c)
+      for (int c = 0; c < DC; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int cc = kChunk * c + 8 * j + col;
@@ -456,19 +468,218 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// The forward at values of two chunks beside keys of three (MLA's (3, 2);
+// fwd_pingpong).  K and V come through rings of their own, so that a K
+// stage is free once S is retired and a V stage once P.V is.
 template <int DC, int DVC>
+struct FwdPpSmem {
+  alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
+  alignas(1024) bf16 k[kStages][DC][kPpKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DVC][kPpKeys * kChunk];
+  uint64_t q_full, k_full[kStages], k_empty[kStages], v_full[kStages], v_empty[kStages];
+};
+
+// forward, the (3, 2) schedule (see above).  grid: (ceil(Sq*G / 128),
+// B*Hkv), the row tiles of one kv head next to each other, heaviest first, so
+// that the blocks on the card at once read the same K and V tiles from the L2
+template <int DC, int DVC, bool kRows>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dv,
+                          int causal, int window, float scale) {
+  static_assert(fwd_pingpong(DC, DVC), "the ping-pong forward takes keys of 3 chunks, values of 2");
+  constexpr int kKeys = kPpKeys, kKs = kPpKeys / 16;  // keys of a tile, k-steps of P.V
+  extern __shared__ char smem_raw[];
+  FwdPpSmem<DC, DVC>& sm = smem_layout<FwdPpSmem<DC, DVC>>(smem_raw);
+  const int G = Hq / Hkv;
+  const int Rtot = Sq * G;
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int r0 = tile * kBlockRows;
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kBlockRows) - 1) / G;
+  const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
+  const int t_first = key_lo / kKeys;
+  const int n_tiles = key_hi >= key_lo ? key_hi / kKeys - t_first + 1 : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], kConsumers * 4);  // one arrival per consumer warp
+      mbar_init(&sm.v_empty[s], kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kConsumers * DC * tile_bytes(kWgRows));
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < DC; ++c)
+          tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, r0 + w * kWgRows,
+                               b, kvh, G, Hkv);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages, ph = (i / kStages - 1) & 1;
+        const int t0 = (t_first + i) * kKeys;
+        if (i >= kStages) mbar_wait(&sm.k_empty[s], ph);
+        mbar_arrive_expect_tx(&sm.k_full[s], DC * tile_bytes(kKeys));
+        for (int c = 0; c < DC; ++c)
+          tma_load_4d(sm.k[s][c], &k_map, &sm.k_full[s], kChunk * c, kvh, t0, b);
+        if (i >= kStages) mbar_wait(&sm.v_empty[s], ph);
+        mbar_arrive_expect_tx(&sm.v_full[s], DVC * tile_bytes(kKeys));
+        for (int c = 0; c < DVC; ++c)
+          tma_load_4d(sm.v[s][c], &v_map, &sm.v_full[s], kChunk * c, kvh, t0, b);
+      }
+    }
+  } else {
+    warpgroup_reg_alloc<kConsumerRegs>();
+    // warp-uniform as ptxas sees it, so that the wgmmas in flight across
+    // the branches below are not serialized
+    const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int rw0 = r0 + cw * kWgRows;  // this warpgroup's first row
+    const int r_lo = rw0 + 16 * warp + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+    const int pos[2] = {r_lo / G, (r_lo + 8) / G};
+    const int wp_lo = rw0 / G, wp_hi = (min(Rtot, rw0 + kWgRows) - 1) / G;
+    const int col = 2 * (lane % 4);
+    const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
+    constexpr uint32_t kVBlock = kPpKeys * kChunk * 2;  // bytes from one V chunk to the next
+
+    float oacc[64];  // O: 64 rows x 128 value columns (DVC chunks)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) oacc[e] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    uint32_t pa[kKs][4];  // P of the tile before, bf16, the A operand of its P.V
+    mbar_wait(&sm.q_full, 0);
+
+    // Every tile's S is issued, also where this warpgroup's rows see none
+    // of its keys (its mask then takes them all): no wgmma stands under a
+    // branch, and such tiles are rare (rows past Sq, a window's edge).
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages, sp = (i + kStages - 1) % kStages;  // this tile's, the last's
+      const int t0 = (t_first + i) * kKeys;
+      mbar_wait(&sm.k_full[s], (i / kStages) & 1);
+      if (i > 0) mbar_wait(&sm.v_full[sp], ((i - 1) / kStages) & 1);
+      // this warpgroup's turn on the tensor cores: S of this tile and P.V
+      // of the last; the other warpgroup's products then run under this
+      // one's softmax
+      if (cw == 1 || i > 0) named_barrier(kPpBarrier + cw, 2 * 128);
+      float sacc[64];  // S = Q . K^T: 64 rows x 128 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DC * 4; ++kc)
+        wgmma_ss_64x128(sacc, wgmma_desc(sm.q[cw][kc / 4]) + 2 * (kc % 4),
+                        wgmma_desc(sm.k[s][kc / 4]) + 2 * (kc % 4), kc > 0);
+      if (i > 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKs; ++kk)
+          wgmma_rs_64x128(oacc, pa[kk], wgmma_desc_mn(sm.v[sp][0], kVBlock) + kk * 16 * 128 / 16);
+      }
+      wgmma_commit();
+      if (cw == 0 || i + 1 < n_tiles) named_barrier_arrive(kPpBarrier + 1 - cw, 2 * 128);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(oacc);
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) fence_regs(pa[kk]);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&sm.k_empty[s]);
+        if (i > 0) mbar_arrive(&sm.v_empty[sp]);
+      }
+
+      if (tile_needs_mask(t0, kKeys, wp_lo, wp_hi, Sk, causal, window) ||
+          tile_invisible(t0, kKeys, wp_lo, wp_hi, Sk, causal, window)) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          const int key = t0 + 8 * (e / 4) + col + (e & 1);
+          if (!visible(key, pos[(e >> 1) & 1], Sk, causal, window)) sacc[e] = -INFINITY;
+        }
+      }
+      // online softmax over the quad's rows: O, which holds the last tile's
+      // P.V now, is rescaled to this tile's maximum
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 64; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float m_new = fmaxf(m_run[x], quad_max(mx[x]) * sc);
+        // rows that have seen no visible key keep m = -inf, l = 0, O = 0
+        m_use[x] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[x] = fast_exp2(m_run[x] - m_use[x]);
+        m_run[x] = m_new;
+        l_run[x] *= alpha[x];
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int x = (e >> 1) & 1;
+        const float p = fast_exp2(sacc[e] * sc - m_use[x]);
+        l_run[x] += p;
+        sacc[e] = p;
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) oacc[e] *= alpha[(e >> 1) & 1];
+      // P in bf16 (the cast of _flash_kernel:76), the A operand of its P.V
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) to_a_frag(&sacc[8 * kk], pa[kk]);
+    }
+    if (n_tiles > 0) {  // the last tile's P.V
+      const int sp = (n_tiles - 1) % kStages;
+      mbar_wait(&sm.v_full[sp], ((n_tiles - 1) / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk)
+        wgmma_rs_64x128(oacc, pa[kk], wgmma_desc_mn(sm.v[sp][0], kVBlock) + kk * 16 * 128 / 16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.v_empty[sp]);
+    }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float l = quad_sum(l_run[x]);
+      const int r = r_lo + 8 * x;
+      if (r >= Rtot) continue;  // rows past Sq write nothing
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int cc = 8 * j + col;
+        if (cc < dv)
+          *reinterpret_cast<__nv_bfloat162*>(o + off + cc) =
+              __floats2bfloat162_rn(oacc[4 * j + 2 * x] * inv, oacc[4 * j + 2 * x + 1] * inv);
+      }
+      if (lane % 4 == 0) {
+        const int sp = r / G, h = kvh * G + (r - sp * G);
+        lse[((size_t)b * Hq + h) * Sq + sp] = l > 0.f ? (m_run[x] + log2f(l)) * kLn2 : -INFINITY;
+      }
+    }
+  }
+}
+
+template <int DC>
 struct DqWgSmem {
   alignas(1024) bf16 q[dq_consumers(DC)][DC][kWgRows * kChunk];
-  alignas(1024) bf16 dout[dq_consumers(DC)][DVC][kWgRows * kChunk];
+  alignas(1024) bf16 dout[dq_consumers(DC)][DC][kWgRows * kChunk];
   alignas(1024) bf16 k[kStages][DC][kDqKeys * kChunk];
-  alignas(1024) bf16 v[kStages][DVC][kDqKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DC][kDqKeys * kChunk];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
 // backward, dQ; also writes D = rowsum(P * dP), summed in a first walk over
 // the key tiles, into delta [B,Hq,Sq] for the dK/dV kernel.  grid: (B*Hkv,
 // ceil(Sq*G / (64 * dq_consumers(DC)))), heaviest first
-template <int DC, int DVC, bool kRows>
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -479,7 +690,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           int dv, int causal, int window, float scale) {
   constexpr int NC = dq_consumers(DC);
   extern __shared__ char smem_raw[];
-  DqWgSmem<DC, DVC>& sm = smem_layout<DqWgSmem<DC, DVC>>(smem_raw);
+  DqWgSmem<DC>& sm = smem_layout<DqWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -506,23 +717,22 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     if constexpr (NC == 2) warpgroup_reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, NC * (DC + DVC) * tile_bytes(kWgRows));
+      mbar_arrive_expect_tx(&sm.q_full, NC * 2 * DC * tile_bytes(kWgRows));
       for (int w = 0; w < NC; ++w)
         for (int c = 0; c < DC; ++c) {
           const int rw = r0 + w * kWgRows;
           tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, rw, b, kvh, G, Hkv);
-          if (c < DVC)
-            tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
-                                 Hkv);
+          tma_load_rows<kRows>(sm.dout[w][c], &do_map, &sm.q_full, kChunk * c, rw, b, kvh, G,
+                               Hkv);
         }
       for (int i = 0; i < n_walks * n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kDqKeys));
+        mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kDqKeys));
         const int t0 = (t_first + i % n_tiles) * kDqKeys;
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[s][c], &k_map, &sm.full[s], kChunk * c, kvh, t0, b);
-          if (c < DVC) tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
+          tma_load_4d(sm.v[s][c], &v_map, &sm.full[s], kChunk * c, kvh, t0, b);
         }
       }
     }
@@ -564,7 +774,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                          kc > 0);
         }
 #pragma unroll
-        for (int kc = 0; kc < DVC * 4; ++kc) {
+        for (int kc = 0; kc < DC * 4; ++kc) {
           const int c = kc / 4, kb = 2 * (kc % 4);
           wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
                          kc > 0);
@@ -624,7 +834,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         wgmma_commit();
 #pragma unroll
-        for (int kc = 0; kc < DVC * 4; ++kc) {
+        for (int kc = 0; kc < DC * 4; ++kc) {
           const int c = kc / 4, kb = 2 * (kc % 4);
           wgmma_ss_64x64(pacc, wgmma_desc(sm.dout[cw][c]) + kb, wgmma_desc(sm.v[s][c]) + kb,
                          kc > 0);
@@ -694,30 +904,27 @@ constexpr int kBwdRows = 64;  // rows per dK/dV tile
 template <int N> struct Handoff { float4 v[N][128]; };
 template <> struct Handoff<0> {};
 
-template <int DC, int DVC>
+template <int DC>
 struct DkdvWgSmem {
-  alignas(1024) bf16 k[DC][kv_keys(DC, DVC) * kChunk];
-  alignas(1024) bf16 v[DVC][kv_keys(DC, DVC) * kChunk];
+  alignas(1024) bf16 k[DC][kv_keys(DC, DC) * kChunk];
+  alignas(1024) bf16 v[DC][kv_keys(DC, DC) * kChunk];
   alignas(1024) bf16 q[kv_stages(DC)][DC][kBwdRows * kChunk];
-  alignas(1024) bf16 dout[kv_stages(DC)][DVC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kv_stages(DC)][DC][kBwdRows * kChunk];
   float lse2[kv_stages(DC)][kBwdRows];   // lse * log2(e) of the tile's rows
   float delta[kv_stages(DC)][kBwdRows];  // D of the tile's rows
   uint64_t kv_full, full[kv_stages(DC)], empty[kv_stages(DC)];
-  Handoff<kv_handoff(DC, DVC) ? 16 : 0> handoff;
+  Handoff<kv_split(DC) ? 16 : 0> handoff;
 };
 
 // backward, dK and dV, after the dQ kernel has written delta.  Keys are the
 // M dimension: S^T = K . Q^T and dP^T = V . dO^T, then dV += P^T . dO and
 // dK += dS^T . Q with P^T and dS^T as register A operands.  grid: (B*Hkv,
-// ceil(Sk / kv_keys(DC, DVC))); the first key tiles, which see the
-// most rows under causal, launch first.  Where the plan neither splits nor
-// owns (DC 1) consumer warpgroup w owns keys
-// 64w..64w+63 of the block and every head column; where it splits both own
-// the block's 64 keys and w the column chunks from w * kv_chunks(DC);
-// where the values are narrower (kv_own) both own the block's 64 keys,
-// warpgroup 0 dK's first DVC chunks and warpgroup 1 the rest of dK and all
-// of dV.  P^T and dS^T enter dV and dK as hi + lo (see above).
-template <int DC, int DVC, bool kRows>
+// ceil(Sk / kv_keys(DC, DC))); the first key tiles, which see the
+// most rows under causal, launch first.  It runs at DC 3 and 4 (the fused
+// kernels take the other pairs), where the two consumer warpgroups split the
+// head columns of the block's 64 keys: warpgroup w the column chunks from w
+// * kv_chunks(DC).  P^T and dS^T enter dV and dK as hi + lo (see above).
+template <int DC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -727,13 +934,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             bf16* __restrict__ dk, bf16* __restrict__ dvo, int Sq, int Sk,
                             int Hq, int Hkv, int dh, int dv, int causal, int window,
                             float scale) {
-  constexpr int kKvKeys = kv_keys(DC, DVC), kBwdStages = kv_stages(DC);
-  constexpr bool kOwn = kv_own(DC, DVC);  // the warpgroups own dK's and dV's chunks apart
-  constexpr bool kSplit = !kOwn && kv_split(DC);  // the warpgroups split the columns
-  constexpr int CH = kOwn ? DC : kv_chunks(DC);
-  static_assert(kOwn || DVC == DC, "narrower values take the kv_own plan");
+  constexpr int kKvKeys = kv_keys(DC, DC), kBwdStages = kv_stages(DC);
+  constexpr int CH = kv_chunks(DC);
+  static_assert(kv_split(DC), "the dK/dV kernel takes DC 3 and 4");
   extern __shared__ char smem_raw[];
-  DkdvWgSmem<DC, DVC>& sm = smem_layout<DkdvWgSmem<DC, DVC>>(smem_raw);
+  DkdvWgSmem<DC>& sm = smem_layout<DkdvWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int k0 = blockIdx.y * kKvKeys;
@@ -763,10 +968,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int lane = threadIdx.x % 32;
     if (threadIdx.x < 32) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.kv_full, (DC + DVC) * tile_bytes(kKvKeys));
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * DC * tile_bytes(kKvKeys));
         for (int c = 0; c < DC; ++c) {
           tma_load_4d(sm.k[c], &k_map, &sm.kv_full, kChunk * c, kvh, k0, b);
-          if (c < DVC) tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
+          tma_load_4d(sm.v[c], &v_map, &sm.kv_full, kChunk * c, kvh, k0, b);
         }
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -774,13 +979,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int rt0 = row_first + i * kBwdRows;
         if (i >= kBwdStages) mbar_wait(&sm.empty[s], (i / kBwdStages - 1) & 1);
         if (lane == 0) {  // the tiles first, so their latency overlaps the loads below
-          mbar_arrive_expect_tx(&sm.full[s], (DC + DVC) * tile_bytes(kBwdRows));
+          mbar_arrive_expect_tx(&sm.full[s], 2 * DC * tile_bytes(kBwdRows));
           for (int c = 0; c < DC; ++c) {
             tma_load_rows<kRows>(sm.q[s][c], &q_map, &sm.full[s], kChunk * c, rt0, b, kvh, G,
                                  Hkv);
-            if (c < DVC)
-              tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
-                                   G, Hkv);
+            tma_load_rows<kRows>(sm.dout[s][c], &do_map, &sm.full[s], kChunk * c, rt0, b, kvh,
+                                 G, Hkv);
           }
         }
         for (int x = lane; x < kBwdRows; x += 32) {
@@ -804,23 +1008,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // are not serialized
     const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int kw0 = k0 + (kSplit || kOwn ? 0 : cw * kWgRows);  // this warpgroup's first key
+    const int kw0 = k0;  // the warpgroups' first key
     const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;
-    const int c0 = kSplit ? cw * CH : 0;  // dK/dV accumulator j holds column chunk c0 + j
+    const int c0 = cw * CH;  // dK/dV accumulator j holds column chunk c0 + j
 
-    // kOwn: dkacc holds this warpgroup's column chunks of dK and dV (see the
-    // store below) and dvacc is not used
-    float dkacc[CH][32], dvacc[kOwn ? 1 : CH][32];
+    float dkacc[CH][32], dvacc[CH][32];
 #pragma unroll
     for (int j = 0; j < CH; ++j)
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dkacc[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < (kOwn ? 1 : CH); ++j)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) dvacc[j][e] = 0.f;
+      for (int e = 0; e < 32; ++e) dkacc[j][e] = dvacc[j][e] = 0.f;
     mbar_wait(&sm.kv_full, 0);
 
     for (int i = 0; i < n_tiles; ++i) {
@@ -833,295 +1031,99 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int kw_last = min(Sk, kw0 + kWgRows) - 1;
       const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
                         (window > 0 && kw_last <= tp_lo - window);
-      if constexpr (kOwn) {
-        if (!skip) {
-          // warpgroup 0 forms P^T from S^T = K . Q^T over the dh columns,
-          // warpgroup 1 dP^T = V . dO^T over the dv columns; they hand the
-          // products over and both form dS^T; warpgroup 0 adds dS^T . Q to
-          // dK's first DVC column chunks, warpgroup 1 to its other DC - DVC
-          // and P^T . dO to dV's DVC chunks
-          const int tid = threadIdx.x % 128;
-          float mine[32], other[32];
-          wgmma_fence();
-          if (cw == 0) {
-#pragma unroll
-            for (int kc = 0; kc < DC * 4; ++kc) {
-              const int c = kc / 4, kb = 2 * (kc % 4);
-              wgmma_ss_64x64(mine, wgmma_desc(sm.k[c]) + kb, wgmma_desc(sm.q[s][c]) + kb,
-                             kc > 0);
-            }
-          } else {
-#pragma unroll
-            for (int kc = 0; kc < DVC * 4; ++kc) {
-              const int c = kc / 4, kb = 2 * (kc % 4);
-              wgmma_ss_64x64(mine, wgmma_desc(sm.v[c]) + kb, wgmma_desc(sm.dout[s][c]) + kb,
-                             kc > 0);
-            }
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(mine);
-          if (cw == 0) {
-            const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
-                                (causal && tp_lo < kw0 + kWgRows - 1) ||
-                                (window > 0 && tp_hi - window + 1 > kw0);
-            if (masked) {  // the masks' tests (a division by G a row) only here
-#pragma unroll
-              for (int e = 0; e < 32; ++e) {
-                const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-                const int r = rt0 + rl;
-                const int key = key_lo + 8 * ((e >> 1) & 1);
-                const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
-                mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
-              }
-            } else {
-#pragma unroll
-              for (int e = 0; e < 32; ++e)
-                mine[e] = fast_exp2(mine[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            sm.handoff.v[cw * 8 + j][tid] =
-                make_float4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
-          named_barrier(1, 2 * 128);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 t = sm.handoff.v[(1 - cw) * 8 + j][tid];
-            other[4 * j] = t.x;
-            other[4 * j + 1] = t.y;
-            other[4 * j + 2] = t.z;
-            other[4 * j + 3] = t.w;
-          }
-          named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int rl = 8 * (e / 4) + col + (e & 1);
-            const float p = cw == 0 ? mine[e] : other[e];
-            const float dp = cw == 0 ? other[e] : mine[e];
-            mine[e] = p;                            // P^T
-            other[e] = p * (dp - sm.delta[s][rl]);  // dS^T, rounded to bf16 below
-          }
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];  // hi
-          uint32_t pl[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // lo
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
-            to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
-          }
-          wgmma_fence();
-          if (cw == 0) {
-#pragma unroll
-            for (int kk = 0; kk < kBwdRows / 16; ++kk)
-#pragma unroll
-              for (int j = 0; j < DVC; ++j) {
-                const uint64_t bq = wgmma_desc(sm.q[s][j]) + kk * 16 * 128 / 16;
-                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
-              }
-          } else {
-#pragma unroll
-            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-#pragma unroll
-              for (int j = 0; j < DC - DVC; ++j) {
-                const uint64_t bq = wgmma_desc(sm.q[s][DVC + j]) + kk * 16 * 128 / 16;
-                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
-              }
-#pragma unroll
-              for (int j = 0; j < DVC; ++j) {
-                const uint64_t bo = wgmma_desc(sm.dout[s][j]) + kk * 16 * 128 / 16;
-                wgmma_rs_64x64(dkacc[DC - DVC + j], pa[kk], bo);
-                wgmma_rs_64x64(dkacc[DC - DVC + j], pl[kk], bo);
-              }
-            }
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            fence_regs(pa[kk]);
-            fence_regs(dsa[kk]);
-            fence_regs(pl[kk]);
-            fence_regs(dsl[kk]);
-          }
-#pragma unroll
-          for (int j = 0; j < CH; ++j) fence_regs(dkacc[j]);
-        }
-      } else if constexpr (kSplit) {
-        if (!skip) {
-          // warpgroup 0 forms P^T from S^T = K . Q^T, warpgroup 1 forms
-          // dP^T = V . dO^T, each over the whole head dim; they hand the
-          // products over, so both hold the same P^T and dP^T and form the
-          // same dS^T, and each adds its own column chunks to dV and dK
-          const int tid = threadIdx.x % 128;
-          const bf16* a_tile = cw == 0 ? sm.k[0] : sm.v[0];
-          const bf16* b_tile = cw == 0 ? sm.q[s][0] : sm.dout[s][0];
-          float mine[32], other[32];
-          wgmma_fence();
-#pragma unroll
-          for (int kc = 0; kc < DC * 4; ++kc) {
-            const int c = kc / 4, kb = 2 * (kc % 4);
-            wgmma_ss_64x64(mine, wgmma_desc(a_tile + c * kKvKeys * kChunk) + kb,
-                           wgmma_desc(b_tile + c * kBwdRows * kChunk) + kb, kc > 0);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(mine);
-          if (cw == 0) {
-            const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
-                                (causal && tp_lo < kw0 + kWgRows - 1) ||
-                                (window > 0 && tp_hi - window + 1 > kw0);
-            if (masked) {  // the masks' tests (a division by G a row) only here
-#pragma unroll
-              for (int e = 0; e < 32; ++e) {
-                const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-                const int r = rt0 + rl;
-                const int key = key_lo + 8 * ((e >> 1) & 1);
-                const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
-                mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
-              }
-            } else {
-#pragma unroll
-              for (int e = 0; e < 32; ++e)
-                mine[e] = fast_exp2(mine[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            sm.handoff.v[cw * 8 + j][tid] =
-                make_float4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
-          named_barrier(1, 2 * 128);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 t = sm.handoff.v[(1 - cw) * 8 + j][tid];
-            other[4 * j] = t.x;
-            other[4 * j + 1] = t.y;
-            other[4 * j + 2] = t.z;
-            other[4 * j + 3] = t.w;
-          }
-          named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int rl = 8 * (e / 4) + col + (e & 1);
-            const float p = cw == 0 ? mine[e] : other[e];
-            const float dp = cw == 0 ? other[e] : mine[e];
-            mine[e] = p;                              // P^T
-            other[e] = p * (dp - sm.delta[s][rl]);    // dS^T, rounded to bf16 below
-          }
-          uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];  // hi
-          uint32_t pl[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // lo
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
-            to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
-          }
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk)
-#pragma unroll
-            for (int j = 0; j < CH; ++j)
-              if (c0 + j < DC) {
-                const uint64_t bo = wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16;
-                const uint64_t bq = wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16;
-                wgmma_rs_64x64(dvacc[j], pa[kk], bo);
-                wgmma_rs_64x64(dvacc[j], pl[kk], bo);
-                wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
-                wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
-              }
-          wgmma_commit();
-          wgmma_wait<0>();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            fence_regs(pa[kk]);
-            fence_regs(dsa[kk]);
-            fence_regs(pl[kk]);
-            fence_regs(dsl[kk]);
-          }
-#pragma unroll
-          for (int j = 0; j < CH; ++j) {
-            fence_regs(dkacc[j]);
-            fence_regs(dvacc[j]);
-          }
-        }
-      } else if (!skip) {
-        // three commit groups: S^T, dP^T, then dV += P^T . dO runs while
-        // dS^T is formed, and dK += dS^T . Q last
-        float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
+      if (!skip) {
+        // warpgroup 0 forms P^T from S^T = K . Q^T, warpgroup 1 forms
+        // dP^T = V . dO^T, each over the whole head dim; they hand the
+        // products over, so both hold the same P^T and dP^T and form the
+        // same dS^T, and each adds its own column chunks to dV and dK
+        const int tid = threadIdx.x % 128;
+        const bf16* a_tile = cw == 0 ? sm.k[0] : sm.v[0];
+        const bf16* b_tile = cw == 0 ? sm.q[s][0] : sm.dout[s][0];
+        float mine[32], other[32];
         wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < DC * 4; ++kc) {
           const int c = kc / 4, kb = 2 * (kc % 4);
-          wgmma_ss_64x64(st, wgmma_desc(sm.k[c] + cw * kWgRows * kChunk) + kb,
-                         wgmma_desc(sm.q[s][c]) + kb, kc > 0);
+          wgmma_ss_64x64(mine, wgmma_desc(a_tile + c * kKvKeys * kChunk) + kb,
+                         wgmma_desc(b_tile + c * kBwdRows * kChunk) + kb, kc > 0);
         }
         wgmma_commit();
-#pragma unroll
-        for (int kc = 0; kc < DVC * 4; ++kc) {
-          const int c = kc / 4, kb = 2 * (kc % 4);
-          wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + cw * kWgRows * kChunk) + kb,
-                         wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
-        }
-        wgmma_commit();
-        const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
-                            (causal && tp_lo < kw0 + kWgRows - 1) ||
-                            (window > 0 && tp_hi - window + 1 > kw0);
-        wgmma_wait<1>();  // S^T is done
-        fence_regs(st);
-        if (masked) {  // the masks' tests (a division by G a row) only here
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-            const int r = rt0 + rl;
-            const int key = key_lo + 8 * ((e >> 1) & 1);
-            const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
-            st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 32; ++e)
-            st[e] = fast_exp2(st[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
-        }
-        // dS^T first, then dV and dK with hi and lo fragments, one group
         wgmma_wait<0>();
-        fence_regs(dpt);
+        fence_regs(mine);
+        if (cw == 0) {
+          const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                              (causal && tp_lo < kw0 + kWgRows - 1) ||
+                              (window > 0 && tp_hi - window + 1 > kw0);
+          if (masked) {  // the masks' tests (a division by G a row) only here
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+              const int r = rt0 + rl;
+              const int key = key_lo + 8 * ((e >> 1) & 1);
+              const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+              mine[e] = ok ? fast_exp2(mine[e] * sc - sm.lse2[s][rl]) : 0.f;  // P^T
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              mine[e] = fast_exp2(mine[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sm.handoff.v[cw * 8 + j][tid] =
+              make_float4(mine[4 * j], mine[4 * j + 1], mine[4 * j + 2], mine[4 * j + 3]);
+        named_barrier(1, 2 * 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 t = sm.handoff.v[(1 - cw) * 8 + j][tid];
+          other[4 * j] = t.x;
+          other[4 * j + 1] = t.y;
+          other[4 * j + 2] = t.z;
+          other[4 * j + 3] = t.w;
+        }
+        named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int rl = 8 * (e / 4) + col + (e & 1);
-          dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);  // dS^T
+          const float p = cw == 0 ? mine[e] : other[e];
+          const float dp = cw == 0 ? other[e] : mine[e];
+          mine[e] = p;                              // P^T
+          other[e] = p * (dp - sm.delta[s][rl]);    // dS^T, rounded to bf16 below
         }
-        uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];
-        uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];
+        uint32_t pa[kBwdRows / 16][4], dsa[kBwdRows / 16][4];  // hi
+        uint32_t pl[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // lo
 #pragma unroll
         for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-          to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
-          to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
+          to_a_frags_hilo(&mine[8 * kk], pa[kk], pl[kk]);
+          to_a_frags_hilo(&other[8 * kk], dsa[kk], dsl[kk]);
         }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBwdRows / 16; ++kk)
 #pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            const uint64_t bo = wgmma_desc(sm.dout[s][c]) + kk * 16 * 128 / 16;
-            const uint64_t bq = wgmma_desc(sm.q[s][c]) + kk * 16 * 128 / 16;
-            wgmma_rs_64x64(dvacc[c], pa[kk], bo);
-            wgmma_rs_64x64(dvacc[c], pl[kk], bo);
-            wgmma_rs_64x64(dkacc[c], dsa[kk], bq);
-            wgmma_rs_64x64(dkacc[c], dsl[kk], bq);
-          }
+          for (int j = 0; j < CH; ++j)
+            if (c0 + j < DC) {
+              const uint64_t bo = wgmma_desc(sm.dout[s][c0 + j]) + kk * 16 * 128 / 16;
+              const uint64_t bq = wgmma_desc(sm.q[s][c0 + j]) + kk * 16 * 128 / 16;
+              wgmma_rs_64x64(dvacc[j], pa[kk], bo);
+              wgmma_rs_64x64(dvacc[j], pl[kk], bo);
+              wgmma_rs_64x64(dkacc[j], dsa[kk], bq);
+              wgmma_rs_64x64(dkacc[j], dsl[kk], bq);
+            }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
         for (int kk = 0; kk < kBwdRows / 16; ++kk) {
           fence_regs(pa[kk]);
-          fence_regs(pl[kk]);
           fence_regs(dsa[kk]);
+          fence_regs(pl[kk]);
           fence_regs(dsl[kk]);
         }
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          fence_regs(dkacc[c]);
-          fence_regs(dvacc[c]);
+        for (int j = 0; j < CH; ++j) {
+          fence_regs(dkacc[j]);
+          fence_regs(dvacc[j]);
         }
       }
       __syncwarp();
@@ -1133,28 +1135,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int key = key_lo + 8 * x;
       if (key >= Sk) continue;
       const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
-      if constexpr (kOwn) {
-        // accumulator j: at warpgroup 0 dK's chunk j (j < DVC); at 1 dK's
-        // chunk DVC + j (j < DC - DVC), then dV's chunk j - (DC - DVC)
-#pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          if (cw == 0 && j >= DVC) continue;
-          const bool is_k = cw == 0 || j < DC - DVC;
-          const int c = cw == 0 ? j : is_k ? DVC + j : j - (DC - DVC);
-          bf16* out = is_k ? dk + row * dh : dvo + row * dv;
-          const int width = is_k ? dh : dv;
-          const float mul = is_k ? scale : 1.f;
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const int cc = kChunk * c + 8 * jj + col;
-            const int e = 4 * jj + 2 * x;
-            if (cc < width)
-              *reinterpret_cast<__nv_bfloat162*>(out + cc) =
-                  __floats2bfloat162_rn(dkacc[j][e] * mul, dkacc[j][e + 1] * mul);
-          }
-        }
-        continue;
-      }
 #pragma unroll
       for (int j = 0; j < CH; ++j)
 #pragma unroll
@@ -1175,8 +1155,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ---------------------------------------------------------------------------
 // The fused bf16 backward (keys and values of equal chunk counts, DC 1 and
-// 2; fused_bwd): three kernels a call where the dQ and dK/dV kernels above
-// run two, and the dQ kernel's second walk (three products a tile) is gone.
+// 2, and MLA's (3, 2); fused_bwd): three kernels a call where the dQ and
+// dK/dV kernels above run two, and the dQ kernel's second walk (three
+// products a tile) is gone.
 //  * flash_bwd_delta_wgmma_kernel: D = rowsum(P * dP) of every row, summed
 //    in fp32 over the 64-key tiles in order (the dQ kernel's first walk, on
 //    its own), and lse * log2(e) beside it, both in the rows' order.  Two
@@ -1217,28 +1198,62 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // before the dQ product: ptxas serializes the wgmmas (a wait after every
 // one) where a group is in flight across a branch it cannot prove
 // warp-uniform, where an accumulator is written while a group is in
-// flight, or where the live registers run short.  Every sum keeps a fixed
-// order, so the backward gives equal bits from run to run.
+// flight, or where the live registers run short.  At (3, 2) the two
+// warpgroups share 64 keys and own the accumulators apart (kv_own):
+// warpgroup 0 forms P^T from S^T over the keys' 192 columns, warpgroup 1
+// dP^T over the values' 128, and the two cross through a 32 KB hand-off;
+// warpgroup 0 forms dS^T, stages its bf16 hi for dQ and takes all three
+// chunks of dK (hi + lo), warpgroup 1 takes both chunks of dV (hi + lo)
+// and dQ's partial bf16(dS) . K over the 192 columns, chunk by chunk into
+// one 48 KB buffer: 36 k-steps of 16 a tile each.  Each warpgroup's loop is
+// compiled apart (its index a template argument), which kept ptxas from
+// serializing them for registers.  The layout: K 24 KB, V 16 KB, a
+// two-stage Q/dO ring of 2 x 40 KB, the dS^T tile 8 KB, the dQ buffer 48 KB
+// and the hand-off 32 KB: 208 KB.  Measured slower (an H100 80GB HBM3 at 700
+// W, deepseek-v2's S 4,096): each warpgroup forming dQ's chunks for its own dK/dV (C7512
+// register serialization), dQ as one product of N = 192, K and V as
+// register A operands, and dQ added from the registers by vector reds with
+// a three-stage ring in place of the buffer (10.3 ms against 8.1).  The
+// tickets take the kv heads in groups of hg (fused_item), each group key
+// block first; the caller picks hg (flash_attention.ref.fused_heads_per_group:
+// all the heads at DC 1 and 2, and at (3, 2), the only pair where groups
+// were measured, as many as keep one group's Q, dO and dQ sums in the L2:
+// key block major over all 128 heads took 17.2 ms with the first layout,
+// against 10.2 in groups of 8).  Every sum keeps a fixed order, so the
+// backward gives equal bits from run to run.
 // ---------------------------------------------------------------------------
-__host__ __device__ constexpr bool fused_bwd(int DC, int DVC) { return DVC == DC && DC <= 2; }
-constexpr int kDeltaStages = 4;  // the delta kernel's ring of K/V tiles
-constexpr int kFusedStages = 3;  // the fused kernel's ring of Q/dO row tiles
+__host__ __device__ constexpr bool fused_bwd(int DC, int DVC) {
+  return (DVC == DC && DC <= 2) || (DC == 3 && DVC == 2);
+}
+// the delta kernel's ring of K/V tiles: four stages, three at (3, 2)
+__host__ __device__ constexpr int delta_stages(int DC, int DVC) { return DC + DVC <= 4 ? 4 : 3; }
+// its grid with the row blocks of one kv head next to each other, so that
+// the blocks on the card share its K/V in the L2: at (3, 2) only, the pair
+// where it was measured (MLA's 128 heads); DC 1 and 2 keep the grid they
+// were measured with
+__host__ __device__ constexpr bool delta_rows_first(int DC, int DVC) { return kv_own(DC, DVC); }
+// The fused kernel's ring of Q/dO row tiles and its buffers of a tile's dQ
+// partial: three and two, and at (3, 2), whose partial is 48 KB, two and one.
+__host__ __device__ constexpr int fused_stages(int DC, int DVC) { return kv_own(DC, DVC) ? 2 : 3; }
+__host__ __device__ constexpr int fused_dq_bufs(int DC, int DVC) { return kv_own(DC, DVC) ? 1 : 2; }
 constexpr int kDqTileFloats = kBwdRows * kChunk;  // fp32 of one 64 x 64 chunk of a dQ tile
 
 template <int DC, int DVC>
 struct DeltaWgSmem {
   alignas(1024) bf16 q[dq_consumers(DC)][DC][kWgRows * kChunk];
   alignas(1024) bf16 dout[dq_consumers(DC)][DVC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kDeltaStages][DC][kDqKeys * kChunk];
-  alignas(1024) bf16 v[kDeltaStages][DVC][kDqKeys * kChunk];
-  uint64_t q_full, full[kDeltaStages], empty[kDeltaStages];
+  alignas(1024) bf16 k[delta_stages(DC, DVC)][DC][kDqKeys * kChunk];
+  alignas(1024) bf16 v[delta_stages(DC, DVC)][DVC][kDqKeys * kChunk];
+  uint64_t q_full, full[delta_stages(DC, DVC)], empty[delta_stages(DC, DVC)];
 };
 
 // backward, D = rowsum(P * dP).  It writes D and lse * log2(e) in the rows'
 // order, [B*Hkv][Rp] with Rp the rows rounded up to 64 (zeros past Sq*G):
 // the fused kernel's producer then takes a row tile's 64 of each with one
 // bulk copy.  grid: (B*Hkv, ceil(Sq*G / (64 * dq_consumers(DC)))), heaviest
-// first
+// first; at delta_rows_first the two swapped, so that the blocks on the card
+// at once are the row blocks of one kv head and read its K and V tiles from
+// the L2 (at MLA's 128 heads one block a head would stream them from memory)
 template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(128 * (1 + dq_consumers(DC)), 1)
 flash_bwd_delta_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1248,14 +1263,18 @@ flash_bwd_delta_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const float* __restrict__ lse, float* __restrict__ lse2_rows,
                              float* __restrict__ delta_rows, int Sq, int Sk, int Hq, int Hkv,
                              int causal, int window, float scale) {
-  constexpr int NC = dq_consumers(DC), kSt = kDeltaStages;
+  constexpr int NC = dq_consumers(DC), kSt = delta_stages(DC, DVC);
+  constexpr bool kRowsFirst = delta_rows_first(DC, DVC);
   extern __shared__ char smem_raw[];
   DeltaWgSmem<DC, DVC>& sm = smem_layout<DeltaWgSmem<DC, DVC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
-  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int n_row = kRowsFirst ? gridDim.x : gridDim.y;
+  const int row_i = kRowsFirst ? blockIdx.x : blockIdx.y;
+  const int bh = kRowsFirst ? blockIdx.y : blockIdx.x;
+  const int tile = causal ? n_row - 1 - row_i : row_i;
   const int r0 = tile * NC * kWgRows;
-  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  const int b = bh / Hkv, kvh = bh % Hkv;
   const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + NC * kWgRows) - 1) / G;
   const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
   const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
@@ -1404,7 +1423,7 @@ flash_bwd_delta_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float D = quad_sum(dsum[x]);
       const int r = r_lo + 8 * x;
       if (lane % 4 == 0 && r < Rp) {
-        const size_t at = (size_t)blockIdx.x * Rp + r;
+        const size_t at = (size_t)bh * Rp + r;
         lse2_rows[at] = r < Rtot ? L[x] : 0.f;
         delta_rows[at] = r < Rtot ? D : 0.f;
       }
@@ -1483,31 +1502,56 @@ __device__ __forceinline__ void store_frag_t(bf16* tile, int key, int kk, int co
   *reinterpret_cast<uint32_t*>(base + swizzle128(key + 8, 2 * kk + 1) + 2 * col) = a[3];
 }
 
-template <int DC>
+// The fused kernel's tickets: item t is key block kb of bh = b*Hkv + kvh.
+// The kv heads go in groups of hg; within a group the items run key block
+// first (a key block's predecessor, whose partials of dQ it waits for, has
+// the earlier ticket), and the groups one after another.  With hg = B*Hkv
+// (DC 1 and 2) that is key block major over every head, which the first
+// line takes with one division: on an H100 80GB HBM3 at 700 W the general
+// form alone cost the DC 1 kernel 8 B of spills under ptxas and 2% at
+// TinyLlama's train_4k, and one warp decoding each ticket for the others
+// through shared memory 3.5%.
+struct FusedItem {
+  int bh, kb;
+};
+__device__ __forceinline__ FusedItem fused_item(int t, int BH, int n_kb, int hg) {
+  if (hg >= BH) return {t % BH, t / BH};
+  const int g = t / (n_kb * hg), r = t - g * n_kb * hg;
+  const int gs = min(hg, BH - g * hg);  // heads of this group
+  return {g * hg + r % gs, r / gs};
+}
+
+template <int DC, int DVC>
 struct FusedWgSmem {
-  alignas(1024) bf16 k[DC][kv_keys(DC, DC) * kChunk];
-  alignas(1024) bf16 v[DC][kv_keys(DC, DC) * kChunk];
-  alignas(1024) bf16 q[kFusedStages][DC][kBwdRows * kChunk];
-  alignas(1024) bf16 dout[kFusedStages][DC][kBwdRows * kChunk];
-  alignas(1024) bf16 ds[kConsumers][kWgRows * kChunk];  // each warpgroup's dS^T [keys][rows]
+  static constexpr int kSt = fused_stages(DC, DVC), kBufs = fused_dq_bufs(DC, DVC);
+  // 64 x 64 fp32 parts of a dQ partial in a buffer: at DC 1 each
+  // warpgroup's partial over its 64 keys (the writers add the second to the
+  // first), else the partial's column chunks
+  static constexpr int kParts = DC == 1 ? 2 : DC;
+  alignas(1024) bf16 k[DC][kv_keys(DC, DVC) * kChunk];
+  alignas(1024) bf16 v[DVC][kv_keys(DC, DVC) * kChunk];
+  alignas(1024) bf16 q[kSt][DC][kBwdRows * kChunk];
+  alignas(1024) bf16 dout[kSt][DVC][kBwdRows * kChunk];
+  // dS^T [keys][rows]: each warpgroup's at DC 1 and 2, warpgroup 0's at (3, 2)
+  alignas(1024) bf16 ds[kv_own(DC, DVC) ? 1 : kConsumers][kWgRows * kChunk];
   // a row tile's dQ partial, as the accumulator's layout: [part * 8 + j]
-  // [thread] holds elements 4j..4j+3 of the thread's accumulator of part:
-  // at DC 1 each warpgroup's partial over its 64 keys (the writers add the
-  // second to the first), at DC 2 the column chunks
-  float4 dq[2][2 * 8][128];
-  alignas(16) float lse2[kFusedStages][kBwdRows];  // the tile's rows' lse * log2(e)
-  alignas(16) float delta[kFusedStages][kBwdRows];  // and D, by bulk copies
+  // [thread] holds elements 4j..4j+3 of the thread's accumulator of part
+  float4 dq[kBufs][kParts * 8][128];
+  Handoff<kv_own(DC, DVC) ? 16 : 0> handoff;  // P^T and dP^T, at (3, 2)
+  alignas(16) float lse2[kSt][kBwdRows];  // the tile's rows' lse * log2(e)
+  alignas(16) float delta[kSt][kBwdRows];  // and D, by bulk copies
   int item[2];
-  uint64_t kv_full, kv_empty, full[kFusedStages], empty[kFusedStages];
-  uint64_t item_full[2], item_empty[2], dq_full[2], dq_empty[2];
+  uint64_t kv_full, kv_empty, full[kSt], empty[kSt];
+  uint64_t item_full[2], item_empty[2], dq_full[kBufs], dq_empty[kBufs];
 };
 
 // backward, dK and dV of a key block, and its partial of dQ into dq_acc,
 // after the delta kernel.  Persistent: grid min(items, SMs); item t (taken
-// from *ticket) is key block t / (B*Hkv) of b*Hkv + kvh = t % (B*Hkv).
-// Warp 0 of the producer warpgroup takes the tickets and keeps the TMA ring
-// fed, threads 32 and 64 are the dQ writers (one a buffer, so that two row
-// tiles' adds are in flight), the consumer warpgroups compute (see above).
+// from *ticket) is fused_item(t, B*Hkv, key blocks, hg).  Warp 0 of the
+// producer warpgroup takes the tickets and keeps the TMA ring fed, the next
+// kBufs warps are the dQ writers (one a buffer, so that at DC 1 and 2 two
+// row tiles' adds are in flight), the consumer warpgroups compute (see
+// above).
 template <int DC, int DVC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1515,22 +1559,26 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap v_map,
                              const __grid_constant__ CUtensorMap do_map,
                              const float* __restrict__ lse2_rows,
-                             const float* __restrict__ delta_rows, float* __restrict__ dq_acc, int* __restrict__ counters,
-                             int* __restrict__ ticket, bf16* __restrict__ dk,
-                             bf16* __restrict__ dvo, int B, int Sq, int Sk, int Hq, int Hkv,
-                             int dh, int dv, int causal, int window, float scale) {
-  static_assert(fused_bwd(DC, DVC), "the fused backward takes keys and values of 1 or 2 chunks");
-  constexpr int kKeys = kv_keys(DC, DVC), kSt = kFusedStages;
-  constexpr bool kSplit = kv_split(DC);  // DC 2: 64 shared keys, the columns split
-  static_assert(kv_chunks(DC) == 1, "a warpgroup owns one column chunk of dK, dV and dQ");
+                             const float* __restrict__ delta_rows, float* __restrict__ dq_acc,
+                             int* __restrict__ counters, int* __restrict__ ticket,
+                             bf16* __restrict__ dk, bf16* __restrict__ dvo, int B, int Sq, int Sk,
+                             int Hq, int Hkv, int dh, int dv, int causal, int window, float scale,
+                             int hg) {
+  static_assert(fused_bwd(DC, DVC), "the fused backward takes (1, 1), (2, 2) and (3, 2)");
+  using Smem = FusedWgSmem<DC, DVC>;
+  constexpr int kKeys = kv_keys(DC, DVC), kSt = Smem::kSt, kBufs = Smem::kBufs;
+  constexpr bool kOwn = kv_own(DC, DVC);  // (3, 2): 64 shared keys, the accumulators owned apart
+  constexpr bool kSplit = !kOwn && kv_split(DC);  // DC 2: 64 shared keys, the columns split
+  static_assert(kOwn || kv_chunks(DC) == 1, "a warpgroup owns one column chunk of dK, dV and dQ");
   constexpr uint32_t kDqBytes = DC * kDqTileFloats * 4;
   extern __shared__ char smem_raw[];
-  FusedWgSmem<DC>& sm = smem_layout<FusedWgSmem<DC>>(smem_raw);
+  Smem& sm = smem_layout<Smem>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
   const int BH = B * Hkv;
   const int n_rt = (Rtot + kBwdRows - 1) / kBwdRows;  // row tiles of one kv head; Rp / 64
-  const int n_items = (Sk + kKeys - 1) / kKeys * BH;
+  const int n_kb = (Sk + kKeys - 1) / kKeys;
+  const int n_items = n_kb * BH;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -1542,8 +1590,10 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     for (int i = 0; i < 2; ++i) {
       mbar_init(&sm.item_full[i], 1);
-      mbar_init(&sm.item_empty[i], kConsumers * 4 + 2);  // the consumer warps, the writers
-      mbar_init(&sm.dq_full[i], kConsumers * 4);
+      mbar_init(&sm.item_empty[i], kConsumers * 4 + kBufs);  // the consumer warps, the writers
+    }
+    for (int i = 0; i < kBufs; ++i) {
+      mbar_init(&sm.dq_full[i], (kOwn ? 1 : kConsumers) * 4);  // the warps that write the partial
       mbar_init(&sm.dq_empty[i], 1);
     }
     mbar_fence_init();
@@ -1561,7 +1611,8 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         sm.item[slot] = item;
         mbar_arrive(&sm.item_full[slot]);
         if (item >= n_items) break;
-        const int bh = item % BH, b = bh / Hkv, kvh = bh % Hkv, k0 = item / BH * kKeys;
+        const FusedItem f = fused_item(item, BH, n_kb, hg);
+        const int bh = f.bh, b = bh / Hkv, kvh = bh % Hkv, k0 = f.kb * kKeys;
         const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
         if (it >= 1) mbar_wait_bounded(&sm.kv_empty, (it - 1) & 1);
         mbar_arrive_expect_tx(&sm.kv_full, (DC + DVC) * tile_bytes(kKeys));
@@ -1587,8 +1638,8 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           bulk_load(sm.delta[s], delta_rows + rows + rt0, kBwdRows * 4, &sm.full[s]);
         }
       }
-    } else if (threadIdx.x >= 32 && threadIdx.x < 96) {  // the dQ writers: warps 1 and 2
-      const int wr = threadIdx.x / 32 - 1;  // takes the row tiles g of its parity, buffer wr
+    } else if (threadIdx.x >= 32 && threadIdx.x < 32 * (1 + kBufs)) {  // the dQ writers
+      const int wr = threadIdx.x / 32 - 1;  // takes the row tiles g with g % kBufs == wr
       int g = 0;
       for (int it = 0;; ++it) {
         const int slot = it & 1;
@@ -1596,16 +1647,17 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
         if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
         if (item >= n_items) break;
-        const int bh = item % BH, kb = item / BH;
+        const FusedItem f = fused_item(item, BH, n_kb, hg);
+        const int bh = f.bh, kb = f.kb;
         const KvWalk wk = kv_row_walk(kb * kKeys, kKeys, Sq, Sk, G, causal, window);
         for (int j = 0; j < wk.n; ++j, ++g) {
-          const int buf = g & 1, u = g >> 1;
+          const int buf = g % kBufs, u = g / kBufs;
           if (buf != wr) continue;
           const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
           const int ordinal = kb - kv_block_first(rt0, G, window, kKeys);
           const size_t t = (size_t)bh * n_rt + rt0 / kBwdRows;
           mbar_wait_bounded(&sm.dq_full[buf], u & 1);
-          if constexpr (!kSplit) {  // the second warpgroup's partial into the first's
+          if constexpr (DC == 1) {  // the second warpgroup's partial into the first's
             for (int x = lane; x < 8 * 128; x += 32) {
               const float4 a = sm.dq[buf][x / 128][x % 128], b = sm.dq[buf][8 + x / 128][x % 128];
               sm.dq[buf][x / 128][x % 128] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -1636,203 +1688,433 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // warp-uniform as ptxas sees it (as the item below), so that the wgmmas
     // under branches on what derives from them are not serialized
     const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
-    const int tid = threadIdx.x % 128, warp = tid / 32;
-    const int col = 2 * (lane % 4);
-    const float sc = scale * kLog2e;
-    const int c0 = kSplit ? cw : 0;              // the column chunk this warpgroup owns
-    const int koff = kSplit ? 0 : cw * kWgRows;  // its first key, within the block's
-    int g = 0;
-    for (int it = 0;; ++it) {
-      const int slot = it & 1;
-      mbar_wait_bounded(&sm.item_full[slot], (it >> 1) & 1);
-      const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
-      if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
-      if (item >= n_items) break;
-      const int bh = item % BH, b = bh / Hkv, kvh = bh % Hkv, k0 = item / BH * kKeys;
-      const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
-      const int kw0 = k0 + koff;                      // this warpgroup's first key
-      const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
-      float dkacc[32], dvacc[32];
+    if constexpr (kOwn) {
+      // (3, 2): both warpgroups take the block's 64 keys.  Warpgroup 0 forms
+      // P^T from S^T = K . Q^T over the dh columns, warpgroup 1 dP^T = V .
+      // dO^T over the dv columns, and the two cross through the hand-off;
+      // warpgroup 0 then forms dS^T, stages its bf16 hi for dQ and adds
+      // dS^T . Q to all of dK, warpgroup 1 adds P^T . dO to all of dV and
+      // forms dQ's partial dS . K from the staged tile, a chunk at a time
+      // into the one buffer: about as much tensor work a tile each.
+      // Each warpgroup runs its own instance of the loop below (W its index
+      // at compile time), so that ptxas allocates each one's registers apart.
+      auto own = [&](auto w) {
+        constexpr int W = decltype(w)::value;
+        const int tid = threadIdx.x % 128, warp = tid / 32;
+        const int col = 2 * (lane % 4);
+        const float sc = scale * kLog2e;
+        int g = 0;
+        for (int it = 0;; ++it) {
+          const int slot = it & 1;
+          mbar_wait_bounded(&sm.item_full[slot], (it >> 1) & 1);
+          const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
+          if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
+          if (item >= n_items) break;
+          const FusedItem f = fused_item(item, BH, n_kb, hg);
+          const int bh = f.bh, kb = f.kb;
+          const int b = bh / Hkv, kvh = bh % Hkv, k0 = kb * kKeys;
+          const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
+          const int key_lo = k0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+          constexpr int kAcc = W == 0 ? DC : DVC;
+          float acc[kAcc][32];  // warpgroup 0: dK's chunks; 1: dV's
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dkacc[e] = dvacc[e] = 0.f;
-      mbar_wait_bounded(&sm.kv_full, it & 1);
+          for (int jj = 0; jj < kAcc; ++jj)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[jj][e] = 0.f;
+          mbar_wait_bounded(&sm.kv_full, it & 1);
+          constexpr int kA = (W == 0 ? DC : DVC) * 4;  // k-steps of S^T or dP^T
 
-      for (int j = 0; j < wk.n; ++j, ++g) {
-        const int s = g % kSt, buf = g & 1, u = g >> 1;
-        const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
-        mbar_wait_bounded(&sm.full[s], (g / kSt) & 1);
-        const int tp_lo = rt0 / G, tp_hi = (min(Rtot, rt0 + kBwdRows) - 1) / G;
-        // the tile's rows against this warpgroup's keys, with rows and keys
-        // swapped in the tests of tile_invisible and tile_needs_mask
-        const int kw_last = min(Sk, kw0 + kWgRows) - 1;
-        const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
-                          (window > 0 && kw_last <= tp_lo - window);
-        const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
-                            (causal && tp_lo < kw0 + kWgRows - 1) ||
-                            (window > 0 && tp_hi - window + 1 > kw0);
-        float dqacc[32];  // this warpgroup's partial of the tile's dQ
-        // This warpgroup's 64 keys (at DC 1 its own half of the block's,
-        // at DC 2 the block's, shared) against the tile: S^T and dP^T over
-        // the whole head dim, dV and dK of its column chunk c0 with hi and
-        // lo fragments, and dQ's partial of that chunk over its keys from
-        // its own dS^T tile, so that neither warpgroup waits on the other.
-        // Every wgmma of the tile is issued and retired in one straight
-        // block, dV and dK before dQ (see above)
-        if (!skip) {
-          float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
-          wgmma_fence();
+          for (int j = 0; j < wk.n; ++j, ++g) {
+            const int s = g % kSt;
+            const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
+            mbar_wait_bounded(&sm.full[s], (g / kSt) & 1);
+            const int tp_lo = rt0 / G, tp_hi = (min(Rtot, rt0 + kBwdRows) - 1) / G;
+            const int k_last = min(Sk, k0 + kWgRows) - 1;
+            const bool live = !(k0 >= Sk || (causal && tp_hi < k0) ||
+                                (window > 0 && k_last <= tp_lo - window));
+            const bool masked = rt0 + kBwdRows > Rtot || k0 + kWgRows > Sk ||
+                                (causal && tp_lo < k0 + kWgRows - 1) ||
+                                (window > 0 && tp_hi - window + 1 > k0);
+            if (live) {
+              float x0[32];  // this warpgroup's product
+              wgmma_fence();
 #pragma unroll
-          for (int kc = 0; kc < DC * 4; ++kc) {
-            const int c = kc / 4, kb = 2 * (kc % 4);
-            wgmma_ss_64x64(st, wgmma_desc(sm.k[c] + koff * kChunk) + kb,
-                           wgmma_desc(sm.q[s][c]) + kb, kc > 0);
-          }
+              for (int kc = 0; kc < kA; ++kc) {
+                const int c = kc / 4, kb = 2 * (kc % 4);
+                wgmma_ss_64x64(x0, wgmma_desc(W == 0 ? sm.k[c] : sm.v[c]) + kb,
+                               wgmma_desc(W == 0 ? sm.q[s][c] : sm.dout[s][c]) + kb, kc > 0);
+              }
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(x0);
+              // P^T; the masks' tests only on the tiles that hold an invisible pair
+              if constexpr (W == 0) {
+                if (masked) {
 #pragma unroll
-          for (int kc = 0; kc < DVC * 4; ++kc) {
-            const int c = kc / 4, kb = 2 * (kc % 4);
-            wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + koff * kChunk) + kb,
-                           wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(st);
-          fence_regs(dpt);
-          // P^T and dS^T; the masks' tests (a division by G a row) only on
-          // the tiles that hold an invisible pair
-          if (masked) {
+                  for (int e = 0; e < 32; ++e) {
+                    const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+                    const int r = rt0 + rl;
+                    const int key = key_lo + 8 * ((e >> 1) & 1);
+                    const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+                    x0[e] = ok ? fast_exp2(x0[e] * sc - sm.lse2[s][rl]) : 0.f;
+                  }
+                } else {
 #pragma unroll
-            for (int e = 0; e < 32; ++e) {
-              const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
-              const int r = rt0 + rl;
-              const int key = key_lo + 8 * ((e >> 1) & 1);
-              const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
-              st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;
-              dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
+                  for (int e = 0; e < 32; ++e)
+                    x0[e] = fast_exp2(x0[e] * sc - sm.lse2[s][8 * (e / 4) + col + (e & 1)]);
+                }
+              }
+#pragma unroll
+              for (int jj = 0; jj < 8; ++jj)
+                sm.handoff.v[W * 8 + jj][tid] =
+                    make_float4(x0[4 * jj], x0[4 * jj + 1], x0[4 * jj + 2], x0[4 * jj + 3]);
+              named_barrier(1, 2 * 128);
+              // the other's product read from the hand-off 8 values at a time,
+              // as the A fragments of one k-step take them
+              if constexpr (W == 0) {
+                // dS^T = P^T * (dP^T - D), hi + lo, its hi staged for dQ
+                uint32_t da[kBwdRows / 16][4], dl[kBwdRows / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+                  const float4 t0 = sm.handoff.v[8 + 2 * kk][tid];
+                  const float4 t1 = sm.handoff.v[8 + 2 * kk + 1][tid];
+                  const float y[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+                  for (int i = 0; i < 8; ++i) {
+                    const int e = 8 * kk + i;
+                    x0[e] *= y[i] - sm.delta[s][8 * (e / 4) + col + (e & 1)];
+                  }
+                  to_a_frags_hilo(&x0[8 * kk], da[kk], dl[kk]);
+                  store_frag_t(sm.ds[0], 16 * warp + lane / 4, kk, col, da[kk]);
+                }
+                named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
+                fence_proxy_async();
+                named_barrier_arrive(2, 2 * 128);  // the dS^T tile is whole
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+                  for (int jj = 0; jj < DC; ++jj) {
+                    const uint64_t bq = wgmma_desc(sm.q[s][jj]) + kk * 16 * 128 / 16;
+                    wgmma_rs_64x64(acc[jj], da[kk], bq);
+                    wgmma_rs_64x64(acc[jj], dl[kk], bq);
+                  }
+                wgmma_commit();
+                wgmma_wait<0>();
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+                  fence_regs(da[kk]);
+                  fence_regs(dl[kk]);
+                }
+              } else {
+                // P^T, hi + lo, into dV += P^T . dO
+                uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+                  const float4 t0 = sm.handoff.v[2 * kk][tid];
+                  const float4 t1 = sm.handoff.v[2 * kk + 1][tid];
+                  const float y[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+                  to_a_frags_hilo(y, pa[kk], pl[kk]);
+                }
+                named_barrier(1, 2 * 128);  // the hand-off is free for the next tile
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk)
+#pragma unroll
+                  for (int jj = 0; jj < DVC; ++jj) {
+                    const uint64_t bo = wgmma_desc(sm.dout[s][jj]) + kk * 16 * 128 / 16;
+                    wgmma_rs_64x64(acc[jj], pa[kk], bo);
+                    wgmma_rs_64x64(acc[jj], pl[kk], bo);
+                  }
+                wgmma_commit();
+                wgmma_wait<0>();
+#pragma unroll
+                for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+                  fence_regs(pa[kk]);
+                  fence_regs(pl[kk]);
+                }
+              }
+#pragma unroll
+              for (int jj = 0; jj < kAcc; ++jj) fence_regs(acc[jj]);
             }
+            if constexpr (W == 1) {
+              // dS (64 rows x the 64 keys) . K (the keys x dh), a chunk at a
+              // time into the buffer, once its last add is done and warpgroup
+              // 0's dS^T tile is whole (one product of N = 192 measured slower)
+              if (g >= 1) mbar_wait_bounded(&sm.dq_empty[0], (g - 1) & 1);
+              if (live) named_barrier(2, 2 * 128);
+#pragma unroll
+              for (int c = 0; c < DC; ++c) {
+                float dq[32];
+                if (live) {
+                  wgmma_fence();
+#pragma unroll
+                  for (int kk = 0; kk < kWgRows / 16; ++kk)
+                    wgmma_ss_64x64_mn(dq, wgmma_desc(sm.ds[0]) + kk * 16 * 128 / 16,
+                                      wgmma_desc(sm.k[c]) + kk * 16 * 128 / 16, kk > 0);
+                  wgmma_commit();
+                  wgmma_wait<0>();
+                  fence_regs(dq);
+                } else {
+#pragma unroll
+                  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+                }
+#pragma unroll
+                for (int x = 0; x < 8; ++x)
+                  sm.dq[0][c * 8 + x][tid] =
+                      make_float4(dq[4 * x], dq[4 * x + 1], dq[4 * x + 2], dq[4 * x + 3]);
+              }
+              fence_proxy_async();  // the bulk copy reads the buffer
+              __syncwarp();
+              if (lane == 0) mbar_arrive(&sm.dq_full[0]);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.empty[s]);
+          }
+
+          // warpgroup 0: dK's chunks in acc[0, DC); 1: dV's in acc[0, DVC)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int key = key_lo + 8 * x;
+            if (key >= Sk) continue;
+            const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
+            bf16* out = W == 0 ? dk + row * dh : dvo + row * dv;
+            const int width = W == 0 ? dh : dv;
+            const float mul = W == 0 ? scale : 1.f;
+#pragma unroll
+            for (int c = 0; c < kAcc; ++c) {
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int cc = kChunk * c + 8 * q + col;
+                const int e = 4 * q + 2 * x;
+                if (cc < width)
+                  *reinterpret_cast<__nv_bfloat162*>(out + cc) =
+                      __floats2bfloat162_rn(acc[c][e] * mul, acc[c][e + 1] * mul);
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&sm.kv_empty);
+        }
+      };
+      if (cw == 0)
+        own(std::integral_constant<int, 0>{});
+      else
+        own(std::integral_constant<int, 1>{});
+    } else {
+      const int tid = threadIdx.x % 128, warp = tid / 32;
+      const int col = 2 * (lane % 4);
+      const float sc = scale * kLog2e;
+      const int c0 = kSplit ? cw : 0;              // the column chunk this warpgroup owns
+      const int koff = kSplit ? 0 : cw * kWgRows;  // its first key, within the block's
+      int g = 0;
+      for (int it = 0;; ++it) {
+        const int slot = it & 1;
+        mbar_wait_bounded(&sm.item_full[slot], (it >> 1) & 1);
+        const int item = __shfl_sync(0xffffffffu, sm.item[slot], 0);
+        if (lane == 0) mbar_arrive(&sm.item_empty[slot]);
+        if (item >= n_items) break;
+        const FusedItem f = fused_item(item, BH, n_kb, hg);
+        const int bh = f.bh, kb = f.kb;
+        const int b = bh / Hkv, kvh = bh % Hkv, k0 = kb * kKeys;
+        const KvWalk wk = kv_row_walk(k0, kKeys, Sq, Sk, G, causal, window);
+        const int kw0 = k0 + koff;                      // this warpgroup's first key
+        const int key_lo = kw0 + 16 * warp + lane / 4;  // this thread's keys: key_lo, key_lo + 8
+        float dkacc[32], dvacc[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dkacc[e] = dvacc[e] = 0.f;
+        mbar_wait_bounded(&sm.kv_full, it & 1);
+
+        for (int j = 0; j < wk.n; ++j, ++g) {
+          const int s = g % kSt, buf = g & 1, u = g >> 1;
+          const int rt0 = wk.row_first + (wk.n - 1 - j) * kBwdRows;
+          mbar_wait_bounded(&sm.full[s], (g / kSt) & 1);
+          const int tp_lo = rt0 / G, tp_hi = (min(Rtot, rt0 + kBwdRows) - 1) / G;
+          // the tile's rows against this warpgroup's keys, with rows and keys
+          // swapped in the tests of tile_invisible and tile_needs_mask
+          const int kw_last = min(Sk, kw0 + kWgRows) - 1;
+          const bool skip = kw0 >= Sk || (causal && tp_hi < kw0) ||
+                            (window > 0 && kw_last <= tp_lo - window);
+          const bool masked = rt0 + kBwdRows > Rtot || kw0 + kWgRows > Sk ||
+                              (causal && tp_lo < kw0 + kWgRows - 1) ||
+                              (window > 0 && tp_hi - window + 1 > kw0);
+          float dqacc[32];  // this warpgroup's partial of the tile's dQ
+          // This warpgroup's 64 keys (at DC 1 its own half of the block's,
+          // at DC 2 the block's, shared) against the tile: S^T and dP^T over
+          // the whole head dim, dV and dK of its column chunk c0 with hi and
+          // lo fragments, and dQ's partial of that chunk over its keys from
+          // its own dS^T tile, so that neither warpgroup waits on the other.
+          // Every wgmma of the tile is issued and retired in one straight
+          // block, dV and dK before dQ (see above)
+          if (!skip) {
+            float st[32], dpt[32];  // S^T = K . Q^T and dP^T = V . dO^T: 64 keys x 64 rows
+            wgmma_fence();
+#pragma unroll
+            for (int kc = 0; kc < DC * 4; ++kc) {
+              const int c = kc / 4, kb = 2 * (kc % 4);
+              wgmma_ss_64x64(st, wgmma_desc(sm.k[c] + koff * kChunk) + kb,
+                             wgmma_desc(sm.q[s][c]) + kb, kc > 0);
+            }
+#pragma unroll
+            for (int kc = 0; kc < DVC * 4; ++kc) {
+              const int c = kc / 4, kb = 2 * (kc % 4);
+              wgmma_ss_64x64(dpt, wgmma_desc(sm.v[c] + koff * kChunk) + kb,
+                             wgmma_desc(sm.dout[s][c]) + kb, kc > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+            // P^T and dS^T; the masks' tests (a division by G a row) only on
+            // the tiles that hold an invisible pair
+            if (masked) {
+#pragma unroll
+              for (int e = 0; e < 32; ++e) {
+                const int rl = 8 * (e / 4) + col + (e & 1);  // the row, within the tile
+                const int r = rt0 + rl;
+                const int key = key_lo + 8 * ((e >> 1) & 1);
+                const bool ok = r < Rtot && visible(key, r / G, Sk, causal, window);
+                st[e] = ok ? fast_exp2(st[e] * sc - sm.lse2[s][rl]) : 0.f;
+                dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 32; ++e) {
+                const int rl = 8 * (e / 4) + col + (e & 1);
+                st[e] = fast_exp2(st[e] * sc - sm.lse2[s][rl]);
+                dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
+              }
+            }
+            // P^T's fragments and dV, then dS^T's and dK: half the fragments
+            // are live at a time
+            uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];    // hi, lo
+            uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // hi, lo
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+              const uint64_t bo = wgmma_desc(sm.dout[s][c0]) + kk * 16 * 128 / 16;
+              wgmma_rs_64x64(dvacc, pa[kk], bo);
+              wgmma_rs_64x64(dvacc, pl[kk], bo);
+            }
+            wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+              to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
+              store_frag_t(sm.ds[cw], 16 * warp + lane / 4, kk, col, dsa[kk]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+              const uint64_t bq = wgmma_desc(sm.q[s][c0]) + kk * 16 * 128 / 16;
+              wgmma_rs_64x64(dkacc, dsa[kk], bq);
+              wgmma_rs_64x64(dkacc, dsl[kk], bq);
+            }
+            wgmma_commit();
+            fence_proxy_async();
+            named_barrier(2 + cw, 128);  // this warpgroup's dS^T tile is whole
+            wgmma_wait<0>();
+#pragma unroll
+            for (int kk = 0; kk < kBwdRows / 16; ++kk) {
+              fence_regs(pa[kk]);
+              fence_regs(pl[kk]);
+              fence_regs(dsa[kk]);
+              fence_regs(dsl[kk]);
+            }
+            fence_regs(dkacc);
+            fence_regs(dvacc);
+            // dS (64 rows x these 64 keys) . K (these keys x chunk c0)
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kWgRows / 16; ++kk)
+              wgmma_ss_64x64_mn(dqacc, wgmma_desc(sm.ds[cw]) + kk * 16 * 128 / 16,
+                                wgmma_desc(sm.k[c0] + koff * kChunk) + kk * 16 * 128 / 16, kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dqacc);
           } else {
 #pragma unroll
-            for (int e = 0; e < 32; ++e) {
-              const int rl = 8 * (e / 4) + col + (e & 1);
-              st[e] = fast_exp2(st[e] * sc - sm.lse2[s][rl]);
-              dpt[e] = st[e] * (dpt[e] - sm.delta[s][rl]);
-            }
+            for (int e = 0; e < 32; ++e) dqacc[e] = 0.f;
           }
-          // P^T's fragments and dV, then dS^T's and dK: half the fragments
-          // are live at a time
-          uint32_t pa[kBwdRows / 16][4], pl[kBwdRows / 16][4];    // hi, lo
-          uint32_t dsa[kBwdRows / 16][4], dsl[kBwdRows / 16][4];  // hi, lo
+          if (u >= 1) mbar_wait_bounded(&sm.dq_empty[buf], (u - 1) & 1);
 #pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) to_a_frags_hilo(&st[8 * kk], pa[kk], pl[kk]);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            const uint64_t bo = wgmma_desc(sm.dout[s][c0]) + kk * 16 * 128 / 16;
-            wgmma_rs_64x64(dvacc, pa[kk], bo);
-            wgmma_rs_64x64(dvacc, pl[kk], bo);
-          }
-          wgmma_commit();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            to_a_frags_hilo(&dpt[8 * kk], dsa[kk], dsl[kk]);
-            store_frag_t(sm.ds[cw], 16 * warp + lane / 4, kk, col, dsa[kk]);
-          }
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            const uint64_t bq = wgmma_desc(sm.q[s][c0]) + kk * 16 * 128 / 16;
-            wgmma_rs_64x64(dkacc, dsa[kk], bq);
-            wgmma_rs_64x64(dkacc, dsl[kk], bq);
-          }
-          wgmma_commit();
-          fence_proxy_async();
-          named_barrier(2 + cw, 128);  // this warpgroup's dS^T tile is whole
-          wgmma_wait<0>();
-#pragma unroll
-          for (int kk = 0; kk < kBwdRows / 16; ++kk) {
-            fence_regs(pa[kk]);
-            fence_regs(pl[kk]);
-            fence_regs(dsa[kk]);
-            fence_regs(dsl[kk]);
-          }
-          fence_regs(dkacc);
-          fence_regs(dvacc);
-          // dS (64 rows x these 64 keys) . K (these keys x chunk c0)
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kWgRows / 16; ++kk)
-            wgmma_ss_64x64_mn(dqacc, wgmma_desc(sm.ds[cw]) + kk * 16 * 128 / 16,
-                              wgmma_desc(sm.k[c0] + koff * kChunk) + kk * 16 * 128 / 16, kk > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(dqacc);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 32; ++e) dqacc[e] = 0.f;
+          for (int jj = 0; jj < 8; ++jj)
+            sm.dq[buf][cw * 8 + jj][tid] = make_float4(dqacc[4 * jj], dqacc[4 * jj + 1],
+                                                       dqacc[4 * jj + 2], dqacc[4 * jj + 3]);
+          if constexpr (kSplit) fence_proxy_async();  // the bulk copy reads it (at DC 1 the
+                                                      // writers' sum fences)
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&sm.dq_full[buf]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&sm.empty[s]);
         }
-        if (u >= 1) mbar_wait_bounded(&sm.dq_empty[buf], (u - 1) & 1);
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          sm.dq[buf][cw * 8 + jj][tid] = make_float4(dqacc[4 * jj], dqacc[4 * jj + 1],
-                                                     dqacc[4 * jj + 2], dqacc[4 * jj + 3]);
-        if constexpr (kSplit) fence_proxy_async();  // the bulk copy reads it (at DC 1 the
-                                                    // writers' sum fences)
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&sm.dq_full[buf]);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&sm.empty[s]);
-      }
 
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int key = key_lo + 8 * x;
-        if (key >= Sk) continue;
-        const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
+        for (int x = 0; x < 2; ++x) {
+          const int key = key_lo + 8 * x;
+          if (key >= Sk) continue;
+          const size_t row = ((size_t)b * Sk + key) * Hkv + kvh;
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int cc = kChunk * c0 + 8 * jj + col;
-          if (cc < dh) {
-            const int e = 4 * jj + 2 * x;
-            *reinterpret_cast<__nv_bfloat162*>(dk + row * dh + cc) =
-                __floats2bfloat162_rn(dkacc[e] * scale, dkacc[e + 1] * scale);
-            if (cc < dv)
-              *reinterpret_cast<__nv_bfloat162*>(dvo + row * dv + cc) =
-                  __floats2bfloat162_rn(dvacc[e], dvacc[e + 1]);
+          for (int jj = 0; jj < 8; ++jj) {
+            const int cc = kChunk * c0 + 8 * jj + col;
+            if (cc < dh) {
+              const int e = 4 * jj + 2 * x;
+              *reinterpret_cast<__nv_bfloat162*>(dk + row * dh + cc) =
+                  __floats2bfloat162_rn(dkacc[e] * scale, dkacc[e + 1] * scale);
+              if (cc < dv)
+                *reinterpret_cast<__nv_bfloat162*>(dvo + row * dv + cc) =
+                    __floats2bfloat162_rn(dvacc[e], dvacc[e + 1]);
+            }
           }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.kv_empty);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&sm.kv_empty);
     }
   }
 }
 
 // dq [B,Sq,Hq,dh] = scale x the fused kernel's fp32 sums dq_acc [B*Hkv]
-// [n_rt][DC * 8][128] (float4s, the dQ buffers' layout); zeros in a row
-// tile whose counter no key block raised.  One float4 a thread: rows r and
-// r + 8 of its tile, two columns each.
+// [n_rt][DC * 8][128] (float4s, the dQ buffers' layout: float4 t of part jj
+// holds columns 8jj + 2(t%4) and one more of rows 16(t/32) + (t%32)/4 and 8
+// more); zeros in a row tile whose counter no key block raised.  A thread a
+// (row pair, 8-column group), the groups of one row pair on neighbouring
+// threads: it reads the pair's four float4s of its group (64 contiguous
+// bytes) and writes 16 bytes to each of the two rows.
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_convert_kernel(const float4* __restrict__ dq_acc, const int* __restrict__ counters,
                             bf16* __restrict__ dq, long long total, int n_rt, int DC, int Sq,
                             int Hq, int Hkv, int dh, float scale) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const int t = (int)(i % 128);
-  const long long rest = i / 128;
-  const int jj = (int)(rest % (8 * DC));
-  const long long tile = rest / (8 * DC);
+  const int groups = DC * 8;
+  const int jj = (int)(i % groups);  // columns 8jj..8jj+7
+  const long long rest = i / groups;
+  const int pair = (int)(rest % 32);  // rows 16(pair / 8) + pair % 8 and 8 more
+  const long long tile = rest / 32;
+  if (8 * jj >= dh) return;
+  float lo[8], hi[8];
+  const bool seen = counters[tile] > 0;
+  const float4* src = dq_acc + (tile * groups + jj) * 128 + 32 * (pair / 8) + 4 * (pair % 8);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = seen ? src[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    lo[2 * q] = v.x * scale, lo[2 * q + 1] = v.y * scale;
+    hi[2 * q] = v.z * scale, hi[2 * q + 1] = v.w * scale;
+  }
   const int rt = (int)(tile % n_rt), bh = (int)(tile / n_rt);
-  const int lane = t % 32, warp = t / 32;
-  const int cc = kChunk * (jj / 8) + 8 * (jj % 8) + 2 * (lane % 4);
-  if (cc >= dh) return;
-  const float4 v = counters[tile] > 0 ? dq_acc[i] : make_float4(0.f, 0.f, 0.f, 0.f);
   const int G = Hq / Hkv, Rtot = Sq * G;
-  const int r = rt * kBwdRows + 16 * warp + lane / 4;
-  if (r < Rtot)
-    *reinterpret_cast<__nv_bfloat162*>(dq + row_offset(bh / Hkv, r, G, bh % Hkv, Sq, Hq, dh) +
-                                       cc) = __floats2bfloat162_rn(v.x * scale, v.y * scale);
-  if (r + 8 < Rtot)
-    *reinterpret_cast<__nv_bfloat162*>(dq + row_offset(bh / Hkv, r + 8, G, bh % Hkv, Sq, Hq, dh) +
-                                       cc) = __floats2bfloat162_rn(v.z * scale, v.w * scale);
+  const int r = rt * kBwdRows + 16 * (pair / 8) + pair % 8;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const float* f = x == 0 ? lo : hi;
+    if (r + 8 * x < Rtot)
+      *reinterpret_cast<uint4*>(dq + row_offset(bh / Hkv, r + 8 * x, G, bh % Hkv, Sq, Hq, dh) +
+                                8 * jj) =
+          make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                     pack_bf16(f[6], f[7]));
+  }
 }
 
 // x0 [B,S,Hq,dh0] (and x1 [B,S,Hq,dh1], where it is not null) into the
@@ -2755,16 +3037,27 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   if (!row_map<kRows>(&qm, q, s, s.dh) || !key_map(&km, k, s, fwd_keys(DVC), s.dh) ||
       !key_map(&vm, v, s, fwd_keys(DVC), s.dv))
     return cudaErrorInvalidValue;
-  static_assert(sizeof(FwdWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
-                "forward layout over 227 KB");
-  const size_t smem = sizeof(FwdWgSmem<DC, DVC>) + 1024;
-  auto kern = flash_fwd_wgmma_kernel<DC, DVC, kRows>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<row_grid(s, kBlockRows), kWsThreads, smem, st>>>(
-      qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dv, s.causal, s.window,
-      s.scale);
-  return cudaGetLastError();
+  auto launch = [&](auto kern, size_t smem, dim3 grid) {
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kWsThreads, smem, st>>>(
+        qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dv, s.causal,
+        s.window, s.scale);
+    return cudaGetLastError();
+  };
+  if constexpr (fwd_pingpong(DC, DVC)) {
+    static_assert(sizeof(FwdPpSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
+                  "ping-pong forward layout over 227 KB");
+    static_assert(fwd_keys(DVC) == kPpKeys, "the maps' boxes are the ping-pong tile's keys");
+    const dim3 g = row_grid(s, kBlockRows);
+    return launch(flash_fwd_pp_wgmma_kernel<DC, DVC, kRows>, sizeof(FwdPpSmem<DC, DVC>) + 1024,
+                  dim3(g.y, g.x));
+  } else {
+    static_assert(DVC == DC, "the forward at (3, 2) is the ping-pong one");
+    static_assert(sizeof(FwdWgSmem<DC>) + 1024 <= kSmemPerBlock, "forward layout over 227 KB");
+    return launch(flash_fwd_wgmma_kernel<DC, kRows>, sizeof(FwdWgSmem<DC>) + 1024,
+                  row_grid(s, kBlockRows));
+  }
 }
 
 // streaming multiprocessors of the current device: the fused kernel's grid
@@ -2780,22 +3073,26 @@ int sm_count() {
 
 // The fused backward (fused_bwd): the delta kernel, the counters and the
 // ticket zeroed, the fused kernel, the dq conversion; the maps of q and
-// dout (or their gathered copies) made by the caller.
+// dout (or their gathered copies) made by the caller, and the kv heads of a
+// group of the fused kernel's tickets, hg (fused_item), chosen by the
+// caller (flash_attention.ref.fused_heads_per_group).
 template <int DC, int DVC, bool kRows>
 cudaError_t launch_bwd_fused(const CUtensorMap& qm, const CUtensorMap& dom, const void* k,
                              const void* v, const float* lse, const WgWork& w, void* dq,
-                             void* dk, void* dv, const Shape& s, cudaStream_t st) {
+                             void* dk, void* dv, const Shape& s, int hg, cudaStream_t st) {
   CUtensorMap km, vm;
   if (!key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
     return cudaErrorInvalidValue;
   static_assert(sizeof(DeltaWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "delta layout over 227 KB");
-  static_assert(sizeof(FusedWgSmem<DC>) + 1024 <= kSmemPerBlock, "fused layout over 227 KB");
+  static_assert(sizeof(FusedWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "fused layout over 227 KB");
   size_t smem = sizeof(DeltaWgSmem<DC, DVC>) + 1024;
   auto delta_kern = flash_bwd_delta_wgmma_kernel<DC, DVC, kRows>;
   cudaError_t e = allow_smem(delta_kern, smem);
   if (e != cudaSuccess) return e;
   constexpr int nc = dq_consumers(DC);
-  delta_kern<<<row_grid(s, nc * kWgRows), 128 * (1 + nc), smem, st>>>(
+  dim3 grid = row_grid(s, nc * kWgRows);
+  if constexpr (delta_rows_first(DC, DVC)) grid = dim3(grid.y, grid.x);
+  delta_kern<<<grid, 128 * (1 + nc), smem, st>>>(
       qm, km, vm, dom, lse, w.lse2_rows, w.delta, s.Sq, s.Sk, s.Hq, s.Hkv, s.causal, s.window,
       s.scale);
   e = cudaGetLastError();
@@ -2805,21 +3102,21 @@ cudaError_t launch_bwd_fused(const CUtensorMap& qm, const CUtensorMap& dom, cons
   constexpr int keys = kv_keys(DC, DVC);
   if (!key_map(&km, k, s, keys, s.dh) || !key_map(&vm, v, s, keys, s.dv))
     return cudaErrorInvalidValue;
-  smem = sizeof(FusedWgSmem<DC>) + 1024;
+  smem = sizeof(FusedWgSmem<DC, DVC>) + 1024;
   auto kern = flash_bwd_fused_wgmma_kernel<DC, DVC, kRows>;
   e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const long long items = (long long)(s.Sk + keys - 1) / keys * s.B * s.Hkv;
-  const int grid = (int)(items < sm_count() ? items : sm_count());
-  kern<<<grid, kWsThreads, smem, st>>>(
+  const int n_blocks = (int)(items < sm_count() ? items : sm_count());
+  kern<<<n_blocks, kWsThreads, smem, st>>>(
       qm, km, vm, dom, w.lse2_rows, w.delta, w.dq_acc, w.counters, w.counters + w.n_counters,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.Hq, s.Hkv, s.dh, s.dv,
-      s.causal, s.window, s.scale);
+      s.causal, s.window, s.scale, hg);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const int n_rt = (int)(w.n_counters / ((size_t)s.B * s.Hkv));
-  const long long total = (long long)w.n_counters * DC * 8 * 128;
+  const long long total = (long long)w.n_counters * 32 * DC * 8;  // row pairs x column groups
   flash_bwd_dq_convert_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       reinterpret_cast<const float4*>(w.dq_acc), w.counters, static_cast<bf16*>(dq), total, n_rt,
       DC, s.Sq, s.Hq, s.Hkv, s.dh, s.scale);
@@ -2835,11 +3132,11 @@ cudaError_t launch_bwd_dq_dkdv(const CUtensorMap& qm, const CUtensorMap& dom, co
   CUtensorMap km, vm;
   if (!key_map(&km, k, s, kDqKeys, s.dh) || !key_map(&vm, v, s, kDqKeys, s.dv))
     return cudaErrorInvalidValue;
-  static_assert(sizeof(DqWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
-  static_assert(sizeof(DkdvWgSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
-                "dK/dV layout over 227 KB");
-  size_t smem = sizeof(DqWgSmem<DC, DVC>) + 1024;
-  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, DVC, kRows>;
+  static_assert(DVC == DC, "the dQ and dK/dV kernels take equal chunk counts");
+  static_assert(sizeof(DqWgSmem<DC>) + 1024 <= kSmemPerBlock, "dQ layout over 227 KB");
+  static_assert(sizeof(DkdvWgSmem<DC>) + 1024 <= kSmemPerBlock, "dK/dV layout over 227 KB");
+  size_t smem = sizeof(DqWgSmem<DC>) + 1024;
+  auto dq_kern = flash_bwd_dq_wgmma_kernel<DC, kRows>;
   cudaError_t e = allow_smem(dq_kern, smem);
   if (e != cudaSuccess) return e;
   constexpr int nc = dq_consumers(DC);
@@ -2849,11 +3146,11 @@ cudaError_t launch_bwd_dq_dkdv(const CUtensorMap& qm, const CUtensorMap& dom, co
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr int keys = kv_keys(DC, DVC);
+  constexpr int keys = kv_keys(DC, DC);
   if (!key_map(&km, k, s, keys, s.dh) || !key_map(&vm, v, s, keys, s.dv))
     return cudaErrorInvalidValue;
-  smem = sizeof(DkdvWgSmem<DC, DVC>) + 1024;
-  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, DVC, kRows>;
+  smem = sizeof(DkdvWgSmem<DC>) + 1024;
+  auto kv_kern = flash_bwd_dkdv_wgmma_kernel<DC, kRows>;
   e = allow_smem(kv_kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(s.B * s.Hkv, (s.Sk + keys - 1) / keys);
@@ -2866,7 +3163,7 @@ cudaError_t launch_bwd_dq_dkdv(const CUtensorMap& qm, const CUtensorMap& dom, co
 template <int DC, int DVC, bool kRows>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, void* work, void* dq, void* dk, void* dv,
-                             const Shape& s, cudaStream_t st) {
+                             const Shape& s, int hg, cudaStream_t st) {
   const WgWork w(s, work, kRows, true);
   const void *qr = q, *dor = dout;  // what the row maps read
   if constexpr (kRows) {
@@ -2879,7 +3176,7 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   if (!row_map<kRows>(&qm, qr, s, s.dh) || !row_map<kRows>(&dom, dor, s, s.dv))
     return cudaErrorInvalidValue;
   if constexpr (fused_bwd(DC, DVC))
-    return launch_bwd_fused<DC, DVC, kRows>(qm, dom, k, v, lse, w, dq, dk, dv, s, st);
+    return launch_bwd_fused<DC, DVC, kRows>(qm, dom, k, v, lse, w, dq, dk, dv, s, hg, st);
   else
     return launch_bwd_dq_dkdv<DC, DVC, kRows>(qm, dom, k, v, lse, w, dq, dk, dv, s, st);
 }
@@ -2901,14 +3198,18 @@ cudaError_t launch_fwd_wgmma_dc(const void* q, const void* k, const void* v, voi
 template <bool kRows>
 cudaError_t launch_bwd_wgmma_dc(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, void* work, void* dq, void* dk, void* dv,
-                                const Shape& s, cudaStream_t st) {
+                                const Shape& s, int hg, cudaStream_t st) {
   if (wgmma_chunks(s.dh) == 3 && wgmma_chunks(s.dv) == 2)
-    return launch_bwd_wgmma<3, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
+    return launch_bwd_wgmma<3, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, hg, st);
   switch (wgmma_chunks(s.dh)) {
-    case 1: return launch_bwd_wgmma<1, 1, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
-    case 2: return launch_bwd_wgmma<2, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
-    case 3: return launch_bwd_wgmma<3, 3, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
-    default: return launch_bwd_wgmma<4, 4, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, st);
+    case 1:
+      return launch_bwd_wgmma<1, 1, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, hg, st);
+    case 2:
+      return launch_bwd_wgmma<2, 2, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, hg, st);
+    case 3:
+      return launch_bwd_wgmma<3, 3, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, hg, st);
+    default:
+      return launch_bwd_wgmma<4, 4, kRows>(q, k, v, dout, lse, work, dq, dk, dv, s, hg, st);
   }
 }
 
@@ -3163,9 +3464,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    const void* dout, const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
                                    int dh, int dvw, int causal, int window, float scale,
-                                   int dtype, int variant, void* stream) {
+                                   int dtype, int variant, int hg, void* stream) {
   const Shape s{B, Sq, Sk, Hq, Hkv, dh, dvw, causal, window, scale};
-  if (bad_variant(s, dtype, variant)) return (int)cudaErrorInvalidValue;
+  if (bad_variant(s, dtype, variant) || hg < 1 || hg > B * Hkv)
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   if (variant == kTf32x3) {
@@ -3177,6 +3479,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
   }
   if (variant == kWgmmaRows)
-    return (int)launch_bwd_wgmma_dc<true>(q, k, v, dout, l, work, dq, dk, dv, s, st);
-  return (int)launch_bwd_wgmma_dc<false>(q, k, v, dout, l, work, dq, dk, dv, s, st);
+    return (int)launch_bwd_wgmma_dc<true>(q, k, v, dout, l, work, dq, dk, dv, s, hg, st);
+  return (int)launch_bwd_wgmma_dc<false>(q, k, v, dout, l, work, dq, dk, dv, s, hg, st);
 }

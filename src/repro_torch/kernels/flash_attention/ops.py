@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import build, meta
-from .ref import attention_ref
+from .ref import attention_ref, fused_heads_per_group
 
 __all__ = [
     "flash_attention", "flash_attention_bwd", "flash_attention_fwd", "fused_bwd", "instance",
@@ -89,11 +89,12 @@ def variant(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
 def fused_bwd(dh: int, dv: int | None = None) -> bool:
     """Whether the bf16 backward at keys ``dh`` and values ``dv`` wide runs
     the fused kernels (the kernels' ``fused_bwd``: equal chunk counts, one or
-    two): D's walk, one key-tile kernel for dK, dV and dQ's partials summed
-    in key order, and dq's conversion; else the dQ kernel, then the dK/dV
-    kernel."""
+    two, and MLA's keys of three chunks beside values of two): D's walk, one
+    key-tile kernel for dK, dV and dQ's partials summed in key order, and
+    dq's conversion; else (three or four equal chunks) the dQ kernel, then
+    the dK/dV kernel."""
     dc, dvc = chunks(dh), chunks(dh if dv is None else dv)
-    return dc == dvc and dc <= 2
+    return (dc == dvc and dc <= 2) or (dc, dvc) == (3, 2)
 
 
 def instance(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
@@ -105,13 +106,16 @@ def instance(dtype: torch.dtype, dh: int, G: int, dv: int | None = None) -> str:
     return var if var == "tf32x3" else f"{var} {chunks(dh)}x{chunks(dv)}"
 
 
-def _kernel(name: str, n_ptr: int):
+def _kernel(name: str, n_ptr: int, n_tail: int = 0):
+    """The library's entry ``name``: n_ptr pointers, the shape, the scale,
+    dtype and variant, n_tail more ints, the stream."""
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.load("flash_attention"), name)
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * _INTS
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * n_tail
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -323,13 +327,14 @@ def flash_attention_bwd(
     [B,Sq,Hq,dv].  Counts one backward launch.  bf16 where :func:`fused_bwd`
     holds: a delta kernel sums D = rowsum(P * dP) over the keys per row into
     the scratch, the counters of dQ's row tiles are zeroed, one persistent
-    key-tile kernel accumulates dK and dV and adds each key tile's partial
-    of dQ into an fp32 accumulator in increasing key order, and a last
-    kernel writes dq; other bf16 pairs run the dQ kernel (which writes D
-    first, in a first walk) and then the dK/dV kernel.  wgmma_rows first
-    gathers q and dout into its scratch; the tf32x3 variant first splits q,
-    k, v and dout into its scratch and writes D and the logsumexp per row
-    there."""
+    key-tile kernel (its tickets taking the kv heads in groups of
+    :func:`~.ref.fused_heads_per_group`) accumulates dK and dV and adds each
+    key tile's partial of dQ into an fp32 accumulator in increasing key
+    order, and a last kernel writes dq; other bf16 pairs run the dQ kernel
+    (which writes D first, in a first walk) and then the dK/dV kernel.
+    wgmma_rows first gathers q and dout into its scratch; the tf32x3 variant
+    first splits q, k, v and dout into its scratch and writes D and the
+    logsumexp per row there."""
     _check(q, k, v, window)
     want = (*q.shape[:3], v.shape[-1])
     if (out.shape != want or dout.shape != want or out.dtype != q.dtype
@@ -347,10 +352,12 @@ def flash_attention_bwd(
         return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_bwd", 10)(
+        B, Sq, _, Hq, Hkv, dh, dv_w = args[:7]
+        err = _kernel("flash_attention_bwd", 10, 1)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), None if work is None else work.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *args, stream,
+            dk.data_ptr(), dv.data_ptr(), *args,
+            fused_heads_per_group(B, Sq, Hq, Hkv, dh, dv_w), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention {var} backward launch failed: CUDA error {err}")

@@ -124,8 +124,12 @@ def column_chunks(dh: int) -> int:
     return ((dh + 15) // 16 * 16 + 63) // 64
 
 
-def fwd_keys(dc: int) -> int:
-    return 128 if dc <= 2 else 64
+def fwd_keys(dvc: int) -> int:
+    """Keys of the forward's tile at ``dvc`` 64-column chunks of the values
+    (``fwd_keys``): 128 where O takes at most two chunks (DC 1 and 2, and
+    MLA's (3, 2), whose kernel issues a tile's S beside the last tile's
+    P.V), else 64."""
+    return 128 if dvc <= 2 else 64
 
 
 def dq_consumers(dc: int) -> int:
@@ -134,8 +138,32 @@ def dq_consumers(dc: int) -> int:
 
 def fused_bwd(dc: int, dvc: int) -> bool:
     """Whether the bf16 backward at dc and dvc column chunks runs the fused
-    kernels (``fused_bwd``)."""
-    return dc == dvc and dc <= 2
+    kernels (``fused_bwd``): (1, 1), (2, 2) and MLA's (3, 2)."""
+    return (dc == dvc and dc <= 2) or (dc, dvc) == (3, 2)
+
+
+def fused_item(t: int, BH: int, n_kb: int, hg: int) -> tuple[int, int]:
+    """(bh, key block) of the fused kernel's ticket t (``fused_item``): the
+    kv heads in groups of hg, each group's items key block first."""
+    g, r = divmod(t, n_kb * hg)
+    gs = min(hg, BH - g * hg)
+    return g * hg + r % gs, r // gs
+
+
+def fused_heads_per_group(B: int, Sq: int, Hq: int, Hkv: int, dh: int, dv: int) -> int:
+    """The kv heads of a group of the fused kernel's tickets (``fused_item``),
+    which the wrapper passes to the kernels: every head (key block major) but
+    at MLA's (3, 2), the one pair where groups were measured, where as many
+    as keep their Q, dO and fp32 dQ sums within 48 MiB of the L2, at most 16:
+    8 heads at deepseek-v2's S 4,096, 16 at 1,024, 1 at 32,768.  On an H100
+    80GB HBM3 at 700 W groups of 8 beat 2, 4 and 16 at S 4,096, 16 beat 8, 33
+    and 66 at 1,024, and key block major over all 128 heads took 1.7 times as
+    long at 4,096."""
+    BH = B * Hkv
+    if (column_chunks(dh), column_chunks(dv)) != (3, 2):
+        return BH
+    per_head = Sq * (Hq // Hkv) * ((dh + dv) * 2 + dh * 4)
+    return max(1, min(BH, 16, (48 << 20) // per_head))
 
 
 def kv_block_first(rt0: int, G: int, window: int, keys: int) -> int:
@@ -265,7 +293,9 @@ def attention_rows_fwd(
     B, Sq, Hq, dh = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     G, w = Hq // Hkv, window or 0
-    R, keys = Sq * G, fwd_keys(column_chunks(dh))
+    dvc = column_chunks(dv)
+    R, keys = Sq * G, fwd_keys(dvc)
+    pingpong = (column_chunks(dh), dvc) == (3, 2)
     scale = 1.0 / math.sqrt(dh)
     pv = _hilo if p_hilo else _bf16
     qr = _padded(gather_rows(q.float(), Hkv), R + 2 * ROWS)
@@ -281,8 +311,13 @@ def attention_rows_fwd(
             m = torch.full((B * Hkv, ROWS), -math.inf)
             l = torch.zeros(B * Hkv, ROWS)
             acc = torch.zeros(B * Hkv, ROWS, dv)
+            pending = None  # (3, 2): the last tile's P . V, added when the next S is issued
             for t0 in tiles:
+                # skipped; the (3, 2) kernel issues such a tile and its mask
+                # takes every key (P 0, alpha 1): the same sums
                 if tile_invisible(t0, keys, wp_lo, wp_hi, Sk, causal, w):
+                    if pending is not None:
+                        acc, pending = acc + pending, None
                     continue
                 s = torch.einsum("brd,btd->brt", qr[:, rw0:rw0 + ROWS],
                                  kr[:, t0:t0 + keys]) * scale
@@ -294,9 +329,16 @@ def attention_rows_fwd(
                 alpha = torch.exp(m - m_use)
                 p = torch.exp(s - m_use[..., None])
                 l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.einsum("brt,btd->brd", pv(p),
-                                                            vr[:, t0:t0 + keys])
+                pv_t = torch.einsum("brt,btd->brd", pv(p), vr[:, t0:t0 + keys])
+                if pingpong:  # O += the last tile's P . V, then O *= alpha
+                    if pending is not None:
+                        acc = acc + pending
+                    acc, pending = acc * alpha[..., None], pv_t
+                else:
+                    acc = acc * alpha[..., None] + pv_t
                 m = m_new
+            if pending is not None:
+                acc = acc + pending
             seen = l > 0
             out[:, rw0:rw0 + n] = torch.where(seen[..., None], acc / l.clamp_min(1e-30)[..., None],
                                               0.0)[:, :n]

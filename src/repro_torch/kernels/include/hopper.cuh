@@ -220,6 +220,11 @@ template <int N> __device__ __forceinline__ void warpgroup_reg_dealloc() {
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// This thread's arrival at barrier `id` without waiting for it: the
+// threads that named_barrier on it wait until `threads` have come.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // warp-level mma.sync and ldmatrix
@@ -267,6 +272,13 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
   d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset
   d |= (uint64_t)1 << 62;            // 128-byte swizzle
   return d;
+}
+
+// The same for an MN-major operand wider than 64 elements along MN: its
+// 64-element column blocks (each a tile of 128-byte rows) lie `lbo` bytes
+// apart, the leading byte offset.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* tile, uint32_t lbo) {
+  return (wgmma_desc(tile) & ~(uint64_t)(0x3FFF << 16)) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -375,6 +387,67 @@ __device__ __forceinline__ void wgmma_rs_64x64(float (&d)[32], const uint32_t (&
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+
+// The N = 128 shapes: one instruction where two of N = 64 would read the
+// A operand twice.  The accumulator's layout is wgmma_ss_64x64's over 128
+// columns: d[4j..4j+3] at columns 8j + 2*(lane%4) and one more, j = 0..15.
+#define REPRO_WGMMA_D128                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                                 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                                 \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                                 \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                                 \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "
+#define REPRO_WGMMA_D128_OUT                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (fp32) += A[64 x 16] . B[16 x 128], A and B bf16 in shared
+// memory, both K-major (B's 128 rows 1024 bytes an 8-row group apart, as
+// wgmma_desc says); with accumulate 0, d = A . B.
+__device__ __forceinline__ void wgmma_ss_64x128(float (&d)[64], uint64_t a, uint64_t b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_WGMMA_D128
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : REPRO_WGMMA_D128_OUT
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] (fp32) += A[64 x 16] . B[16 x 128], A bf16 in registers (as
+// wgmma_rs_64x64), B bf16 in shared memory, MN-major, its two 64-column
+// blocks apart by the descriptor's leading byte offset (wgmma_desc_mn).
+__device__ __forceinline__ void wgmma_rs_64x128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_WGMMA_D128
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : REPRO_WGMMA_D128_OUT
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+#undef REPRO_WGMMA_D128
+#undef REPRO_WGMMA_D128_OUT
 
 // d[64 x 64] (fp32) += A[64 x 8] . B[8 x 64], A and B tf32 (32-bit values
 // whose low 13 mantissa bits are zero) in shared memory, both K-major: a

@@ -173,7 +173,8 @@ def test_every_kernel_source_is_found():
 
 def test_ptxas_report_reads_each_kernel(tmp_path, monkeypatch):
     """The report ptxas leaves beside a library: each kernel's mangled
-    name, registers and spill bytes; none before a build."""
+    name, registers, spill bytes and the codes of its notes that it
+    serialized the kernel's wgmmas; none before a build."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     assert build.ptxas_report("flash_attention") == []
     report = build._target(build.KERNELS_DIR / "flash_attention" / "csrc" /
@@ -192,8 +193,14 @@ def test_ptxas_report_reads_each_kernel(tmp_path, monkeypatch):
         "ptxas info    : Function properties for _ZN49_GLOBAL__N__2c138979\n"
         "    24 bytes stack frame, 28 bytes spill stores, 76 bytes spill loads\n"
         "ptxas info    : Used 255 registers, 384 bytes cmem[0]\n"
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line 90194 by compiler "
+        f"to allow use of registers in GMMA in function '{dkdv}'\n"
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+        f"serialized due to insufficient register resources for the function '{dkdv}'\n"
     )
     assert build.ptxas_report("flash_attention") == [
-        {"kernel": dkdv, "registers": 168, "spill_stores": 0, "spill_loads": 0},
-        {"kernel": fwd, "registers": 255, "spill_stores": 28, "spill_loads": 76},
+        {"kernel": dkdv, "registers": 168, "spill_stores": 0, "spill_loads": 0,
+         "serialized": "C7512"},
+        {"kernel": fwd, "registers": 255, "spill_stores": 28, "spill_loads": 76,
+         "serialized": ""},
     ]

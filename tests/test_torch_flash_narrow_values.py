@@ -151,9 +151,12 @@ def test_work_floats_size_the_gathered_dout_at_dv():
     rows, wg = flash_ops.VARIANTS.index("wgmma_rows"), flash_ops.VARIANTS.index("wgmma")
     args = (B, S, S, Hq, Hkv, dh, 1, 0)
     assert flash_ops.work_floats(*args, rows, False, dv=dv) == B * Hq * S * dh // 2
-    assert flash_ops.work_floats(*args, rows, True, dv=dv) == (
-        B * Hq * S * (dh + dv) // 2 + B * Hq * S)
-    assert flash_ops.work_floats(*args, wg, True, dv=dv) == B * Hq * S
+    # (3, 2) takes the fused kernels: lse and D by rows, three chunks of fp32
+    # dQ a 64-row tile, the counters and the ticket
+    tiles = B * Hkv * -(-S * (Hq // Hkv) // 64)
+    fused = 2 * tiles * 64 + tiles * 3 * 64 * 64 + -(-(tiles + 1) // 4) * 4
+    assert flash_ops.work_floats(*args, rows, True, dv=dv) == B * Hq * S * (dh + dv) // 2 + fused
+    assert flash_ops.work_floats(*args, wg, True, dv=dv) == fused
     assert flash_ops.work_floats(*args, rows, True) == B * Hq * S * dh + B * Hq * S
     x3 = flash_ops.VARIANTS.index("tf32x3")  # the split keeps V dh wide, zero-filled
     assert flash_ops.work_floats(*args, x3, True, dv=dv) == flash_ops.work_floats(*args, x3, True)

@@ -6,6 +6,8 @@ present; on the card they run with
 
 This file imports torch and the port only (no JAX), so it runs on a machine
 that has no JAX installed."""
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -936,6 +938,166 @@ def test_flash_backward_after_another_shape_gives_the_same_bits(dh, G):
     torch.cuda.synchronize()
     for a, b, c in zip(first, again, after_fewer):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _mla_inputs(B, S, Hq, Hkv, seed, spread=1.0):
+    """bf16 q (at ``spread``), k, v and dout at MLA's keys of 192 and values of 128."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(B, S, Hq, 192, generator=g, device=dev) * spread).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, 192, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, 128, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(B, S, Hq, 128, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, dout
+
+
+def _kernels_of(fn) -> set[str]:
+    """The names of the device kernels (and memsets) one call of fn runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:  # "void ...::f<...>(...)": f
+            m = re.search(r"(\w+)[<(]", e.name.replace("(anonymous namespace)::", ""))
+            names.add(m.group(1) if m else e.name)
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (6, 2)], ids=["wgmma", "wgmma_rows"])
+def test_flash_mla_backward_runs_the_fused_kernels(Hq, Hkv):
+    """The (3, 2) backward is the fused design's four steps (the delta
+    kernel, the counters' memset, the key-tile kernel, dq's conversion; after
+    the gather at wgmma_rows), and no dQ or dK/dV kernel; the forward is the
+    ping-pong kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, dout = _mla_inputs(1, 1024, Hq, Hkv, 41)
+    assert flash_ops.fused_bwd(192, 128)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v)
+    bwd = _kernels_of(lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, dout))
+    fwd = _kernels_of(lambda: flash_ops.flash_attention_fwd(q, k, v))
+    gather = {"flash_rows_gather_kernel"} if Hq != Hkv else set()
+    kernels = {n for n in bwd if n.startswith("flash_")}
+    assert kernels == {"flash_bwd_delta_wgmma_kernel", "flash_bwd_fused_wgmma_kernel",
+                       "flash_bwd_dq_convert_kernel", *gather}, bwd
+    assert any("emset" in n for n in bwd), bwd  # the counters zeroed in-stream
+    assert {n for n in fwd if n.startswith("flash_")} == {"flash_fwd_pp_wgmma_kernel", *gather}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,G", [(4, 1), (2, 3)], ids=["wgmma", "wgmma_rows"])
+def test_flash_mla_backward_after_another_shape_gives_the_same_bits(Hkv, G):
+    """The (3, 2) backward's counters, ticket and head groups: reruns, after
+    a call at more heads and a longer S, then at fewer, give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def call(B, S, hkv, seed):
+        q, k, v, dout = _mla_inputs(B, S, hkv * G, hkv, seed, spread=4.0)
+        out, lse = flash_ops.flash_attention_fwd(q, k, v)
+        return lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, dout)
+
+    small = call(1, 700, Hkv, 5)
+    first = small()
+    again = small()
+    call(2, 1500, 2 * Hkv, 6)()
+    after_more = small()
+    call(1, 300, 1, 7)()
+    after_fewer = small()
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(first, again, after_more, after_fewer):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+def test_flash_mla_backward_at_4096_holds_with_planted_controls():
+    """deepseek-v2's train_4k attention (B 1, 128 heads, keys 192, values
+    128, causal) with queries at KEY_SPREAD: out, lse, dq, dk and dv within
+    TOL of fp32 autograd (the worst err / (tol + tol |ref|) at most 1), and
+    two planted controls, dK and dV with the keys from 2,048 on zeroed, far
+    past it (above 40)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _mla_inputs(1, 4096, 128, 128, 23, spread=KEY_SPREAD)
+    parts = [flash_oracle(q[:, :, h:h + ORACLE_HEADS], k[:, :, h:h + ORACLE_HEADS],
+                          v[:, :, h:h + ORACLE_HEADS], dout[:, :, h:h + ORACLE_HEADS], True, None)
+             for h in range(0, 128, ORACLE_HEADS)]
+    want = [torch.cat([p[i] for p in parts], dim=1 if i == 1 else 2) for i in range(5)]
+    del parts
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True)
+    grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    tol = TOLS[torch.bfloat16]
+    ratio = lambda got, ref: ((got.float() - ref).abs() / (tol + tol * ref.abs())).max().item()
+    for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), want):
+        assert ratio(got, ref) <= 1.0, name
+    for name, got, ref in zip(("dk", "dv"), grads[1:], want[3:]):
+        cut = got.float()
+        cut[:, 2048:] = 0
+        assert ratio(cut, ref) > 40, name
+
+
+# (B, S, Hq, Hkv, window): the (3, 2) forward where its tiles are ragged (S
+# not a multiple of 128, the second warpgroup's rows past S), under a window
+# that leaves a warpgroup's tile invisible, at G 3 (wgmma_rows 3x2)
+MLA_FWD_CASES = [(2, 37, 4, 4, None), (1, 1000, 8, 8, None), (1, 700, 8, 8, 100),
+                 (1, 333, 6, 2, 64), (2, 600, 9, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_FWD_CASES)
+def test_flash_mla_forward_matches_plain(case):
+    """The ping-pong forward's out and lse against the plain version in fp32
+    at TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, S, Hq, Hkv, window = case
+    q, k, v, _ = _mla_inputs(B, S, Hq, Hkv, 43, spread=KEY_SPREAD)
+    flash_ops.reset_launches()
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    inst = "wgmma 3x2" if Hq == Hkv else "wgmma_rows 3x2"
+    assert flash_ops.flash_attention.launches_by_instance == {inst: {"fwd": 1, "bwd": 0}}
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    tol = TOLS[torch.bfloat16]
+    torch.testing.assert_close(out.float(), attention_ref(q32, k32, v32, window=window),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, attention_lse_ref(q32, k32, window=window), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_mla_forward_at_32768_matches_plain_on_three_blocks():
+    """The forward at prefill_32k's S (B 1, causal; 16 of deepseek-v2's
+    heads): three 256-row blocks (the first, one in the middle, the last)
+    of out and lse against the plain version in fp32 over the keys they see."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    S, H = 32768, 16
+    q, k, v, _ = _mla_inputs(1, S, H, H, 47, spread=KEY_SPREAD)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = TOLS[torch.bfloat16]
+    for r0 in (0, S // 2 - 128, S - 256):
+        qs = q[:, r0:r0 + 256].float()
+        ks, vs = k[:, :r0 + 256].float(), v[:, :r0 + 256].float()
+        # the block's rows are positions r0.. of the whole: offset the mask
+        s = torch.einsum("bshd,bthd->bhst", qs, ks) / 192 ** 0.5
+        pos = torch.arange(r0, r0 + 256, device=q.device)[:, None]
+        s = s.masked_fill(torch.arange(r0 + 256, device=q.device)[None, :] > pos, -torch.inf)
+        want_lse = torch.logsumexp(s, dim=-1)
+        want = torch.einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1).to(torch.bfloat16).float(),
+                            vs)
+        torch.testing.assert_close(out[:, r0:r0 + 256].float(), want, atol=tol, rtol=tol)
+        torch.testing.assert_close(lse[:, :, r0:r0 + 256], want_lse, atol=tol, rtol=tol)
+        del s
 
 
 @pytest.mark.cuda

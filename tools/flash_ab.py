@@ -25,11 +25,14 @@ call.  The pieces, in the order given:
     + tol |ref|) of each; at most 1 holds TOL), which it prints and does not
     check;
   * ``bwd``: the bf16 backward alone at every ``train_4k`` cell's shape
-    (those four, qwen2-moe-a2.7b at B 1 and deepseek-v2-236b's MLA at B 1)
-    and the train shape (B 4, S 2,048): ``queued_ms`` twice, the kernels of
-    one call by the profiler (their count and each one's device ms), the
-    bound and SDPA's backward (``backward_ms``), and whether a second call
-    gives the same bits (it fails where not).
+    (those four, qwen2-moe-a2.7b at B 1 and deepseek-v2-236b's MLA at B 1),
+    the train shape (B 4, S 2,048) and MLA's other two shapes (S 1,024 and
+    32,768, B 1, 128 heads, keys 192, values 128): ``queued_ms`` twice, the
+    kernels of one call by the profiler (their count and each one's device
+    ms), the bound and SDPA's backward (``backward_ms``), and whether a
+    second call gives the same bits (it fails where not);
+  * ``fwd``: the bf16 forward alone at MLA's three shapes (S 1,024, 4,096
+    and 32,768): the same figures, SDPA's forward beside them.
 
 The first two take a tree from before the pieces they name existed as long
 as its ``chip_smoke.py`` has ``flash_family_case`` and ``phase_flash``.
@@ -85,11 +88,63 @@ def train_4k(cs, dev) -> None:
         torch.cuda.empty_cache()
 
 
+# label, B, S, Hq, Hkv, dh, window, dv: MLA's prefill shape of the family
+# checks, its train_4k cell and its prefill_32k cell
+MLA_SHAPES = [
+    ("deepseek-v2-236b mla S 1024", 1, 1024, 128, 128, 192, None, 128),
+    ("deepseek-v2-236b mla", 1, 4096, 128, 128, 192, None, 128),
+    ("deepseek-v2-236b mla S 32768", 1, 32768, 128, 128, 192, None, 128),
+]
 BWD_SHAPES = TRAIN_4K + [  # label, B, S, Hq, Hkv, dh, window[, dv]
     ("qwen2-moe-a2.7b", 1, 4096, 16, 16, 128, None),
-    ("deepseek-v2-236b mla", 1, 4096, 128, 128, 192, None, 128),
+    MLA_SHAPES[1],
     ("train shape", 4, 2048, 32, 4, 64, None),
+    MLA_SHAPES[0],
+    MLA_SHAPES[2],
 ]
+
+
+def _inputs(dev, B, S, Hq, Hkv, dh, dv):
+    """q at 4 times the keys' scale, k, v and dout from one seeded generator."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = (torch.randn(B, S, Hq, dh, generator=gen, device=dev) * 4).to(bf16)
+    k = torch.randn(B, S, Hkv, dh, generator=gen, device=dev).to(bf16)
+    v = torch.randn(B, S, Hkv, dv, generator=gen, device=dev).to(bf16)
+    dout = torch.randn(B, S, Hq, dv, generator=gen, device=dev).to(bf16)
+    return q, k, v, dout
+
+
+def _iters(S: int) -> int:
+    """Calls a time averages: fewer at S 32,768, where one takes tenths of a second."""
+    return 3 if S >= 32768 else 10
+
+
+def fwd(cs, dev) -> None:
+    """The ``fwd`` piece, from what every tree's ``chip_smoke.py`` has."""
+    from repro_torch.kernels.flash_attention import ops
+
+    bf16 = torch.bfloat16
+    for label, B, S, Hq, Hkv, dh, window, dv in MLA_SHAPES:
+        q, k, v, _ = _inputs(dev, B, S, Hq, Hkv, dh, dv)
+        kw = dict(causal=True, window=window)
+        fn = lambda: ops.flash_attention_fwd(q, k, v, **kw)
+        first, again = fn(), fn()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again
+        split: dict[str, float] = {}
+        cs.kernel_device_ms(fn, iters=_iters(S), by_kernel=split)
+        ms = [cs.queued_ms(fn, _iters(S)), cs.queued_ms(fn, _iters(S))]
+        bound, by = cs.flash_bound_ms((label, B, S, Hq, Hkv, dh, True, window), bf16, False, dv)
+        lib = cs.queued_ms(lambda: cs.sdpa(q, k, v, True, window), _iters(S))
+        print(f"fwd {label} B {B} S {S} Hq {Hq} Hkv {Hkv} dh {dh} dv {dv} window {window} "
+              f"{ops.instance(bf16, dh, Hq // Hkv, dv)}: queued_ms {ms[0]:.4f} {ms[1]:.4f} "
+              f"bound_ms {bound:.4f} ({by}) sdpa_ms {lib:.4f} equal bits {same}; "
+              f"{len(split)} kernels a call: "
+              + " ".join(f"{name[:48]} {t:.4f}" for name, t in split.items()))
+        cs.check(same, f"flash_ab fwd {label}: two forward calls differ")
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def bwd(cs, dev) -> None:
@@ -99,11 +154,7 @@ def bwd(cs, dev) -> None:
     bf16 = torch.bfloat16
     for label, B, S, Hq, Hkv, dh, window, *rest in BWD_SHAPES:
         dv = rest[0] if rest else dh
-        gen = torch.Generator(device=dev).manual_seed(9)
-        q = (torch.randn(B, S, Hq, dh, generator=gen, device=dev) * 4).to(bf16)
-        k = torch.randn(B, S, Hkv, dh, generator=gen, device=dev).to(bf16)
-        v = torch.randn(B, S, Hkv, dv, generator=gen, device=dev).to(bf16)
-        dout = torch.randn(B, S, Hq, dv, generator=gen, device=dev).to(bf16)
+        q, k, v, dout = _inputs(dev, B, S, Hq, Hkv, dh, dv)
         kw = dict(causal=True, window=window)
         out, lse = ops.flash_attention_fwd(q, k, v, **kw)
         fn = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -111,8 +162,8 @@ def bwd(cs, dev) -> None:
         same = all(torch.equal(a, b) for a, b in zip(first, again))
         del first, again
         split: dict[str, float] = {}
-        cs.kernel_device_ms(fn, iters=5, by_kernel=split)
-        ms = [cs.queued_ms(fn), cs.queued_ms(fn)]
+        cs.kernel_device_ms(fn, iters=min(5, _iters(S)), by_kernel=split)
+        ms = [cs.queued_ms(fn, _iters(S)), cs.queued_ms(fn, _iters(S))]
         case = (label, B, S, Hq, Hkv, dh, True, window)
         bound, by = cs.flash_bound_ms(case, bf16, True, dv)
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -163,6 +214,7 @@ def main() -> int:
         "train": lambda: cs.family_train(dev, "deepseek-v2-236b", 1),
         "train4k": lambda: train_4k(cs, dev),
         "bwd": lambda: bwd(cs, dev),
+        "fwd": lambda: fwd(cs, dev),
     }
     for name in pieces:
         fn = runs.get(name)
