@@ -1534,6 +1534,31 @@ MLA_INSTANCE = "ILi3ELi2E"  # the (keys 3, values 2) chunk instantiation, mangle
 # (the delta and key-tile kernels; dq's conversion takes every pair)
 MLA_KERNELS = {"fwd": ("flash_fwd_pp_wgmma_kernel",),
                "bwd": ("flash_bwd_delta_wgmma_kernel", "flash_bwd_fused_wgmma_kernel")}
+# the ping-pong forward, which takes every bf16 forward whose values fit two
+# 64-column chunks, and its instantiations (keys, values, consumer
+# warpgroups: three at one chunk where the grid fills the card), mangled
+PP_KERNEL = MLA_KERNELS["fwd"][0]
+PP_INSTANCES = ("ILi1ELi1ELi2E", "ILi1ELi1ELi3E", "ILi2ELi2ELi2E", MLA_INSTANCE + "Li2E")
+
+
+def fwd_kernel(dh: int, dv: int | None = None) -> str:
+    """The kernel of the bf16 forward at keys ``dh`` and values ``dv`` wide
+    (``dh`` where None): the ping-pong one where the values fit two chunks."""
+    from repro_torch.kernels.flash_attention import ref
+
+    dvc = ref.column_chunks(dh if dv is None else dv)
+    return PP_KERNEL if ref.fwd_pingpong(dvc) else "flash_fwd_wgmma_kernel"
+
+
+def check_fwd_profile(label: str, prof: dict, dh: int, dv: int) -> None:
+    """A profile's flash forwards (its ``flash_fwd`` and PP_KERNEL watches)
+    are all the kernel ``fwd_kernel`` names, and there are some."""
+    w = prof.get("watch", {})
+    n, n_pp = (w.get(k, {}).get("kernels", 0) for k in ("flash_fwd", PP_KERNEL))
+    want = n if fwd_kernel(dh, dv) == PP_KERNEL else 0
+    check(n > 0 and n_pp == want,
+          f"{label}: the profile's flash forwards: {n}, {n_pp} of them {PP_KERNEL}; wanted "
+          f"{want} at keys {dh} and values {dv} wide")
 
 
 def print_ptxas() -> dict:
@@ -1544,12 +1569,14 @@ def print_ptxas() -> dict:
     pass is ``flash_rows_gather_kernel``, the fused backward's are
     ``flash_bwd_delta_wgmma_kernel``, ``flash_bwd_fused_wgmma_kernel`` and
     ``flash_bwd_dq_convert_kernel``); a kernel that spills fails the run, and
-    so does one of MLA's six (3, 2) kernels (MLA_KERNELS, wgmma and
-    wgmma_rows) whose wgmmas ptxas serialized.  Returns those six rows by
-    direction (``fwd``, ``bwd``)."""
+    so does a kernel whose wgmmas ptxas serialized among the eight ping-pong
+    forwards (PP_INSTANCES, wgmma and wgmma_rows) and MLA's four backward
+    kernels (MLA_KERNELS), which must be exactly these; ``flash_fwd_wgmma_kernel``
+    is instantiated at three and four chunks only.  Returns MLA's rows by
+    direction (``fwd``, ``bwd``) and the eight forwards' (``pp``)."""
     from repro_torch.kernels import build
 
-    mla: dict[str, list] = {"fwd": [], "bwd": []}
+    mla: dict[str, list] = {"fwd": [], "bwd": [], "pp": []}
     for row in build.ptxas_report("flash_attention"):
         name = row["kernel"]
         print(f"ptxas {name}: registers {row['registers']} spill stores "
@@ -1557,15 +1584,24 @@ def print_ptxas() -> dict:
               + (f" wgmma serialized ({row['serialized']})" if row["serialized"] else ""))
         check(row["spill_stores"] == row["spill_loads"] == 0,
               f"ptxas: {name} spills {row['spill_stores']} B")
-        if MLA_INSTANCE in name:
+        old_fwd = re.search(r"flash_fwd_wgmma_kernelILi(\d)E", name)
+        check(old_fwd is None or old_fwd.group(1) in "34",
+              f"ptxas: {name} at one or two chunks is not the ping-pong forward")
+        if PP_KERNEL in name or MLA_INSTANCE in name:
             kind = next((k for k, names in MLA_KERNELS.items() if any(n in name for n in names)),
                         None)
             check(kind is not None, f"ptxas: {name} is no kernel of MLA_KERNELS")
             check(not row["serialized"], f"ptxas serialized {name}'s wgmmas: {row['serialized']}")
-            mla[kind].append(row)
-    check(len(mla["fwd"]) == 2 and len(mla["bwd"]) == 4,
-          f"ptxas: (3, 2) kernels {[r['kernel'] for v in mla.values() for r in v]}, wanted the "
-          f"ping-pong forward and the delta and key-tile kernels, wgmma and wgmma_rows")
+            if kind == "fwd":
+                mla["pp"].append(row)
+            if MLA_INSTANCE in name:
+                mla[kind].append(row)
+    pp = sorted(re.search(r"ILi\dELi\dELi\dELb\dE", r["kernel"]).group(0) for r in mla["pp"])
+    want_pp = sorted(f"{i}Lb{b}E" for i in PP_INSTANCES for b in "01")
+    check(pp == want_pp and len(mla["fwd"]) == 2 and len(mla["bwd"]) == 4,
+          f"ptxas: ping-pong forwards {pp}, wanted {want_pp}; (3, 2) kernels "
+          f"{[r['kernel'] for k in ('fwd', 'bwd') for r in mla[k]]}, wanted the ping-pong "
+          f"forward and the delta and key-tile kernels, wgmma and wgmma_rows")
     return mla
 
 
@@ -1625,6 +1661,12 @@ def phase_flash(dev) -> dict:
                 row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
                                  queued_ms=queued_ms(fn), bound_ms=bms, bound_by=by,
                                  max_abs_err=errs[kind], device_ms_by_kernel=split)
+            if dtype == torch.bfloat16:  # the forward's kernel, by the profiler's names
+                fwd_names = {n for n in row["fwd"]["device_ms_by_kernel"] if n.startswith(
+                    "flash_fwd")}
+                check(fwd_names == {fwd_kernel(dh)},
+                      f"flash {label} {tname}: forward kernels {sorted(fwd_names)}, wanted "
+                      f"{fwd_kernel(dh)}")
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
             row["fwd"]["plain_ms"] = cuda_ms(
                 lambda: attention_ref(q, k, v, causal=causal, window=window), iters=iters,
@@ -2428,8 +2470,10 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     which the kernels take natively): out, and dq, dk and dv of the
     backward, against fp32 autograd of the plain version on the same values,
     within TOL; the launches under the instantiation ``ops.instance`` names;
-    each kernel's ``queued_ms`` and cold time (``l2_flushed_ms``) beside the
-    bound, the plain version and SDPA.  Where dv < dh, the values padded with
+    the forward's kernel by the profiler's names (``fwd_kernel``: the
+    ping-pong one up to two value chunks); each kernel's ``queued_ms`` and
+    cold time (``l2_flushed_ms``) beside the bound, the plain version and
+    SDPA.  Where dv < dh, the values padded with
     zero columns to dh (the model's route before the kernels took narrower
     values, the earlier design) run in the same process as the before: their
     first dv output columns and gradient columns held the same way, the
@@ -2499,12 +2543,15 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     row["variant"] = var
     check(row["instance"] == inst, f"flash {label}: ran {row['instance']}, wanted {inst}")
     b = row["bwd"]
-    if inst == "wgmma 3x2":  # the ping-pong forward; the fused backward's four steps, no more
-        want_f = set(MLA_KERNELS["fwd"])
+    want_f = {fwd_kernel(dh, dv)}  # the ping-pong forward up to two value chunks
+    check(set(row["kernels"]) == want_f,
+          f"flash {label}: forward kernels of a call {sorted(row['kernels'])}, wanted "
+          f"{sorted(want_f)}")
+    if inst == "wgmma 3x2":  # the fused backward's four steps, no more
         want_b = {*MLA_KERNELS["bwd"], "flash_bwd_dq_convert_kernel", "Memset (Device)"}
-        check(set(row["kernels"]) == want_f and set(b["kernels"]) == want_b,
-              f"flash {label}: kernels of a call: forward {sorted(row['kernels'])}, backward "
-              f"{sorted(b['kernels'])}; wanted {sorted(want_f)} and {sorted(want_b)}")
+        check(set(b["kernels"]) == want_b,
+              f"flash {label}: kernels of a backward call {sorted(b['kernels'])}, wanted "
+              f"{sorted(want_b)}")
     print(f"flash family {label}: kernels of one call (device ms, the profiler): forward "
           + " ".join(f"{n} {t:.4f}" for n, t in row["kernels"].items()) + "; backward "
           + " ".join(f"{n} {t:.4f}" for n, t in b["kernels"].items()))
@@ -6673,7 +6720,8 @@ def lm_cell(dev, arch: str, name: str, fit: tuple | None = None) -> dict:
             finite.append(torch.isfinite(logits).all())
             del logits
         prof = profile_call(label, one, n_kernels=3,
-                            watch=("decode_attention_fused",) if decode and not mla else ())
+                            watch=(() if mla else ("decode_attention_fused",)) if decode
+                            else ("flash_fwd", PP_KERNEL))
     max_mem = torch.cuda.max_memory_allocated(dev)
     n_steps = LM_CELL_STEPS + 2
     decode_launches = dict(dops.decode_attention.launches_by_variant)
@@ -6696,6 +6744,8 @@ def lm_cell(dev, arch: str, name: str, fit: tuple | None = None) -> dict:
           f"{decode_launches}, flash {flash_launches} by instance {by_inst}, index writes "
           f"{index_writes[0]}{moe_part}")
     check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    if not decode:
+        check_fwd_profile(label, prof, *lm_widths(cfg)[2:])
     L = cfg.n_layers
     want_decode = {"split": 0, "fused": n_steps * L if decode and not mla else 0, "chunk": 0}
     want_flash = {v: {"fwd": n_steps * L if (v == "wgmma" and not decode) else 0, "bwd": 0}
@@ -6956,11 +7006,12 @@ def lm_train_grad_check(dev, cfg, cell, remat: str, params, label: str) -> dict:
     return {**out, "bound": bound, "launches": launches, "flips": flips}
 
 
-# the flash kernels a train step's profile times apart: the forward (MLA's
-# (3, 2) on flash_fwd_pp_wgmma_kernel, the others on flash_fwd_wgmma_kernel);
-# the fused backward's delta, key-tile and dq conversion kernels; the dQ and
-# dK/dV kernels of the pairs the fused kernels do not take
-FLASH_WATCH = ("flash_fwd", "flash_bwd_delta_wgmma", "flash_bwd_fused_wgmma",
+# the flash kernels a train step's profile times apart: the forward, and of
+# it the ping-pong kernel's (values of one or two chunks: every cell but
+# gemma3-4b's dh 256, on flash_fwd_wgmma_kernel); the fused backward's
+# delta, key-tile and dq conversion kernels; the dQ and dK/dV kernels of the
+# pairs the fused kernels do not take
+FLASH_WATCH = ("flash_fwd", PP_KERNEL, "flash_bwd_delta_wgmma", "flash_bwd_fused_wgmma",
                "flash_bwd_dq_convert", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
 
 
@@ -7047,6 +7098,7 @@ def lm_train_cell(dev, arch: str, fit: tuple | None = None) -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
     prof = profile_call(label, one, n_kernels=5, watch=FLASH_WATCH)
+    check_fwd_profile(label, prof, *lm_widths(cfg)[2:])
     if prof:
         w = prof["watch"]
         print(f"{label}: the flash backward's kernels in the profiled step: D (delta kernel) "
@@ -7410,6 +7462,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "held": True,
             "shape": flash_shape,
+            # ptxas on the ping-pong forward at one and two chunks
+            **({"ptxas": {row["kernel"]: {k: row[k] for k in ("registers", "spill_stores",
+                                                               "spill_loads", "serialized")}
+                          for row in flash["mla_ptxas"]["pp"] if MLA_INSTANCE not in row["kernel"]}}
+               if kind == "fwd" else {}),
             "family_cases": {
                 "deepseek-7b (B 1, S 2048, Hq=Hkv 32, dh 128)": ds7["flash"],
                 "qwen2-moe-a2.7b (B 1, S 2048, Hq=Hkv 16, dh 128)": qwen["flash"]}

@@ -106,11 +106,47 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 // holds its layout under the 227 KB a block may have with a static_assert;
 // every layout below is 192 KB of tiles at DC 3 and 4, plus the dK/dV
 // kernel's 32 KB hand-off):
-//  * Forward: the O accumulator, DC x 32 fp32 registers a thread.  At DC
-//    <= 2 a key tile is 128 keys (S two 64-key halves, 64 registers); at DC
-//    3 and 4 it is 64 keys, so S takes 32 registers beside O's 128 and the
-//    two-stage K/V ring fits (at 128 keys DC 4 would need 320 KB).  P.V is
-//    DC wgmmas of N = 64 per 16 keys, one per column chunk of V.
+//  * Forward: the O accumulator, DVC x 32 fp32 registers a thread.
+//    - Values of one or two chunks, (1, 1), (2, 2) and MLA's (3, 2)
+//      (flash_fwd_pp_wgmma_kernel, fwd_pingpong): the key tile is 128 keys
+//      (S 64 registers beside O's 32 or 64), and the products use the N =
+//      128 shapes (S = Q.K^T as 4 DC m64n128k16, P.V as 8 m64n128k16 over
+//      two value chunks or 8 m64n64k16 over one): an N = 64 product reads
+//      its A operand from shared memory at the 128 bytes a clock the SM
+//      has, which the tensor cores then wait on.  The consumer warpgroups
+//      take turns on the tensor cores (named barriers, a ping-pong): each
+//      issues its tile's S beside the last tile's P.V, hands the turn over
+//      and runs its softmax while the others' products run, so the
+//      exponentials and the rescale of O overlap the products instead of
+//      following them (on one warpgroup's own, keeping a product in flight
+//      across its softmax serialized its wgmmas under ptxas).  At DC 1 the
+//      exponentials take about as long as the products (one ex2 for 256
+//      FLOPs), so run one after the other they held the earlier kernel near
+//      half its bound.  K and V come through rings of their own (a K stage
+//      is free once S is retired).  The grid takes the kv heads in groups
+//      whose K and V fit pp_group_bytes of the L2 (one head at the
+//      prefill_32k cells), a group's row tiles together, so that the blocks
+//      on the card at once read the same K/V tiles from the L2: with one
+//      block of every head at a time, each streamed its own K/V from memory
+//      (MLA's 128 heads; 40 (batch, kv head) pairs of 8 MiB at TinyLlama's
+//      prefill of 32,768), which bounded the earlier kernels.  Within a
+//      group the heaviest row tiles go first: with one head's row tiles
+//      after another's, a short call (S 2,048, 16 heads) ended on one head's
+//      heavy tiles alone, 1.36 times slower.  Layouts (pp_consumers,
+//      pp_stages; PERF.md, section 6): three consumer warpgroups at DC 1
+//      (192-row blocks, 160 registers a thread; two took 1.13 times as long
+//      at TinyLlama's prefill) where their grid has a block for every SM,
+//      else two, as at DC 2 and (3, 2); two-stage rings (four at DC 1,
+//      three at DC 2 gained nothing): Q 24 KB, K and V 2 x 16 KB each at DC
+//      1; Q 32 KB, K and V 2 x 32 KB at DC 2; Q 48 KB, K 2 x 48 KB, V 2 x
+//      32 KB at (3, 2).  A share of the exponentials on the FMA pipe (a
+//      Cody-Waite cut and a degree-5 polynomial, tools/flash_fwd_layouts.py
+//      poly) made DC 1 slower, so the MUFU's ex2 is not what holds it back
+//      alone.
+//    - Three or four equal chunks (flash_fwd_wgmma_kernel): the key tile is
+//      64 keys, so S takes 32 registers beside O's 96 or 128 and the
+//      two-stage K/V ring fits (at 128 keys DC 4 would need 320 KB).  P.V is
+//      DC wgmmas of N = 64 per 16 keys, one per column chunk of V.
 //  * dQ: Q and dO stay resident for the block's rows beside a two-stage K/V
 //    ring of 64 keys.  Two consumer warpgroups (128 rows) fit up to DC 3;
 //    at DC 4 the block has one (64 rows; 192 KB rather than 256) and no
@@ -136,24 +172,7 @@ __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
 // only, TMA's zero fill pads dv to its last chunk, and the stores write dv
 // columns.  The kernels are instantiated at DVC == DC (DC 1 to 4) and at (3,
 // 2), MLA's keys of 192 and values of 128, which has kernels of its own:
-//  * Forward (flash_fwd_pp_wgmma_kernel, fwd_pingpong): O takes 2 x 32
-//    registers, so the key tile is 128 keys (S 64 registers beside O's 64),
-//    and its products use the N = 128 shapes (S = Q.K^T as 12 m64n128k16,
-//    P.V over both value chunks as 8): an N = 64 product reads its A operand
-//    from shared memory at the 128 bytes a clock the SM has, which the
-//    tensor cores then wait on.  The two consumer warpgroups take turns on
-//    the tensor cores (named barriers, a ping-pong): each issues its tile's S
-//    beside the last tile's P.V, hands the turn over and runs its softmax
-//    while the other's products run, so the exponentials and the rescale of
-//    O overlap the products instead of following them (on one warpgroup's
-//    own, keeping a product in flight across its softmax serialized its
-//    wgmmas under ptxas).  K and V come through rings of their own (a K stage
-//    is free once S is retired).  The grid is the row tiles of one kv head
-//    next to each other, so that the blocks on the card at once read the
-//    same K/V tiles from the L2: with one block a head at a time (MLA's 128
-//    heads) every block streamed its own K/V from memory, which bounded the
-//    earlier kernel.  Q 48 KB, the K ring 2 x 48 KB, the V ring 2 x 32 KB:
-//    208 KB.
+//  * Forward: the ping-pong kernel, above.
 //  * Backward: the fused kernels (below), their dK/dV split between the
 //    warpgroups by accumulator (kv_own), since dK (3 chunks) and dV (2) do
 //    not fit one warpgroup's registers beside the products.
@@ -216,11 +235,24 @@ constexpr size_t kSmemPerBlock = 232448;    // dynamic shared memory a block may
 // The plan at DC column chunks of the keys and DVC of the values (see
 // above).  The forward's key tile follows the O accumulator, DVC x 32.
 __host__ __device__ constexpr int fwd_keys(int DVC) { return DVC <= 2 ? 128 : 64; }
-// the forward whose two consumer warpgroups take turns on the tensor cores,
-// each issuing a tile's S beside the last tile's P.V (MLA's (3, 2))
-__host__ __device__ constexpr bool fwd_pingpong(int DC, int DVC) { return DC == 3 && DVC == 2; }
+constexpr int kWgFwdKeys = 64;  // keys of flash_fwd_wgmma_kernel's tile (DC 3 and 4)
+// the forward whose consumer warpgroups take turns on the tensor cores,
+// each issuing a tile's S beside the last tile's P.V: (1, 1), (2, 2) and
+// MLA's (3, 2)
+__host__ __device__ constexpr bool fwd_pingpong(int DC, int DVC) { return DVC <= 2; }
 constexpr int kPpKeys = 128;    // keys of its tile
 constexpr int kPpBarrier = 1;   // its named barriers: warpgroup w's turn is kPpBarrier + w
+// its most consumer warpgroups (64 rows each; a grid of fewer blocks than
+// the card has SMs takes two, launch_fwd_wgmma) and the depth of its K and V
+// rings
+__host__ __device__ constexpr int pp_consumers(int DC, int DVC) { return DC == 1 ? 3 : 2; }
+__host__ __device__ constexpr int pp_stages(int DC, int DVC) { return 2; }
+// the L2 its blocks in flight share: the kv heads of a group of its grid
+// (pp_heads_per_group) hold at most these bytes of K and V
+__host__ __device__ constexpr long long pp_group_bytes(int DC, int DVC) { return 8LL << 20; }
+// registers a thread after setmaxnreg: 128 x producer + 128 NC x consumer <= 65,536
+__host__ __device__ constexpr int pp_producer_regs(int NC) { return NC == 2 ? kProducerRegs : 24; }
+__host__ __device__ constexpr int pp_consumer_regs(int NC) { return NC == 2 ? kConsumerRegs : 160; }
 __host__ __device__ constexpr int dq_consumers(int DC) { return DC <= 3 ? 2 : 1; }
 // the (DC, DVC) pairs the wgmma kernels are instantiated at
 __host__ __device__ constexpr bool wgmma_pair(int DC, int DVC) {
@@ -289,12 +321,13 @@ __device__ __forceinline__ void to_a_frags_hilo(const float* s, uint32_t (&hi)[4
 template <int DC>
 struct FwdWgSmem {
   alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kStages][DC][fwd_keys(DC) * kChunk];
-  alignas(1024) bf16 v[kStages][DC][fwd_keys(DC) * kChunk];
+  alignas(1024) bf16 k[kStages][DC][kWgFwdKeys * kChunk];
+  alignas(1024) bf16 v[kStages][DC][kWgFwdKeys * kChunk];
   uint64_t q_full, full[kStages], empty[kStages];
 };
 
-// forward.  grid: (B*Hkv, ceil(Sq*G / 128)), heaviest row tiles first
+// forward at three or four equal chunks.  grid: (B*Hkv, ceil(Sq*G / 128)),
+// heaviest row tiles first
 template <int DC, bool kRows>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -302,8 +335,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dv,
                        int causal, int window, float scale) {
-  constexpr int kFwdKeys = fwd_keys(DC);
-  constexpr int NH = kFwdKeys / 64;  // 64-key blocks of a key tile
+  static_assert(!fwd_pingpong(DC, DC), "one or two chunks take the ping-pong forward");
+  constexpr int kFwdKeys = kWgFwdKeys;
   extern __shared__ char smem_raw[];
   FwdWgSmem<DC>& sm = smem_layout<FwdWgSmem<DC>>(smem_raw);
   const int G = Hq / Hkv;
@@ -371,37 +404,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int t0 = (t_first + i) * kFwdKeys;
       mbar_wait(&sm.full[s], (i / kStages) & 1);
       if (rw0 < Rtot && !tile_invisible(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
-        // S = Q . K^T: 64 rows x kFwdKeys keys, as NH blocks of 64 keys
-        float sacc[NH][32];
+        // S = Q . K^T: 64 rows x 64 keys
+        float sacc[32];
         wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < NH; ++h)
-#pragma unroll
-          for (int kc = 0; kc < DC * 4; ++kc) {
-            const uint64_t da = wgmma_desc(sm.q[cw][kc / 4]) + 2 * (kc % 4);
-            const uint64_t db = wgmma_desc(sm.k[s][kc / 4] + h * 64 * kChunk) + 2 * (kc % 4);
-            wgmma_ss_64x64(sacc[h], da, db, kc > 0);
-          }
+        for (int kc = 0; kc < DC * 4; ++kc)
+          wgmma_ss_64x64(sacc, wgmma_desc(sm.q[cw][kc / 4]) + 2 * (kc % 4),
+                         wgmma_desc(sm.k[s][kc / 4]) + 2 * (kc % 4), kc > 0);
         wgmma_commit();
         wgmma_wait<0>();
-#pragma unroll
-        for (int h = 0; h < NH; ++h) fence_regs(sacc[h]);
+        fence_regs(sacc);
 
         if (tile_needs_mask(t0, kFwdKeys, wp_lo, wp_hi, Sk, causal, window)) {
 #pragma unroll
-          for (int h = 0; h < NH; ++h)
-#pragma unroll
-            for (int e = 0; e < 32; ++e) {
-              const int key = t0 + 64 * h + 8 * (e / 4) + col + (e & 1);
-              if (!visible(key, pos[(e >> 1) & 1], Sk, causal, window)) sacc[h][e] = -INFINITY;
-            }
+          for (int e = 0; e < 32; ++e) {
+            const int key = t0 + 8 * (e / 4) + col + (e & 1);
+            if (!visible(key, pos[(e >> 1) & 1], Sk, causal, window)) sacc[e] = -INFINITY;
+          }
         }
         // online softmax over the quad's rows
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int h = 0; h < NH; ++h)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[h][e]);
+        for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
         float m_use[2], alpha[2];
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
@@ -413,14 +437,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           l_run[x] *= alpha[x];
         }
 #pragma unroll
-        for (int h = 0; h < NH; ++h)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int x = (e >> 1) & 1;
-            const float p = fast_exp2(sacc[h][e] * sc - m_use[x]);
-            l_run[x] += p;
-            sacc[h][e] = p;
-          }
+        for (int e = 0; e < 32; ++e) {
+          const int x = (e >> 1) & 1;
+          const float p = fast_exp2(sacc[e] * sc - m_use[x]);
+          l_run[x] += p;
+          sacc[e] = p;
+        }
 #pragma unroll
         for (int c = 0; c < DC; ++c)
 #pragma unroll
@@ -428,7 +450,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         // P in bf16 (the cast of _flash_kernel:76) as the A operand of O += P . V
         uint32_t pa[kFwdKeys / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kFwdKeys / 16; ++kk) to_a_frag(&sacc[kk / 4][8 * (kk % 4)], pa[kk]);
+        for (int kk = 0; kk < kFwdKeys / 16; ++kk) to_a_frag(&sacc[8 * kk], pa[kk]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kFwdKeys / 16; ++kk)
@@ -468,37 +490,61 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The forward at values of two chunks beside keys of three (MLA's (3, 2);
-// fwd_pingpong).  K and V come through rings of their own, so that a K
-// stage is free once S is retired and a V stage once P.V is.
-template <int DC, int DVC>
+// The ping-pong forward (fwd_pingpong: one or two chunks of values).  K and
+// V come through rings of their own, so that a K stage is free once S is
+// retired and a V stage once P.V is.
+template <int DC, int DVC, int NC>
 struct FwdPpSmem {
-  alignas(1024) bf16 q[kConsumers][DC][kWgRows * kChunk];
-  alignas(1024) bf16 k[kStages][DC][kPpKeys * kChunk];
-  alignas(1024) bf16 v[kStages][DVC][kPpKeys * kChunk];
-  uint64_t q_full, k_full[kStages], k_empty[kStages], v_full[kStages], v_empty[kStages];
+  static constexpr int NS = pp_stages(DC, DVC);
+  alignas(1024) bf16 q[NC][DC][kWgRows * kChunk];
+  alignas(1024) bf16 k[NS][DC][kPpKeys * kChunk];
+  alignas(1024) bf16 v[NS][DVC][kPpKeys * kChunk];
+  uint64_t q_full, k_full[NS], k_empty[NS], v_full[NS], v_empty[NS];
 };
 
-// forward, the (3, 2) schedule (see above).  grid: (ceil(Sq*G / 128),
-// B*Hkv), the row tiles of one kv head next to each other, heaviest first, so
-// that the blocks on the card at once read the same K and V tiles from the L2
-template <int DC, int DVC, bool kRows>
-__global__ void __launch_bounds__(kWsThreads, 1)
+// O (one or two value chunks) += P . V over the 16 keys kk of a tile: one
+// product of N = 64 or N = 128
+template <int DVC>
+__device__ __forceinline__ void pp_pv(float (&oacc)[DVC * 32], const uint32_t (&pa)[4],
+                                      const bf16* v, int kk) {
+  if constexpr (DVC == 2)
+    wgmma_rs_64x128(oacc, pa, wgmma_desc_mn(v, kPpKeys * kChunk * 2) + kk * 16 * 128 / 16);
+  else
+    wgmma_rs_64x64(oacc, pa, wgmma_desc(v) + kk * 16 * 128 / 16);
+}
+
+// forward, the ping-pong schedule (see above), NC consumer warpgroups.
+// grid: (hg, ceil(Sq*G / rows), ceil(B*Hkv / hg)), rows = 64 NC: block (x,
+// y, z) takes
+// kv head z * hg + x (b * Hkv + kvh; past B*Hkv it returns) and row tile y
+// counted from the heaviest under causal.  Blocks start in x, then y, then z
+// order: the heads in groups of hg, a group's blocks row tile major, so that
+// the blocks on the card at once read one group's K and V tiles, which the
+// L2 holds, and the heaviest tiles of a group's heads start first (one
+// head's row tiles after another's left a short call on one head's heavy
+// tiles alone at its end).
+template <int DC, int DVC, int NC, bool kRows>
+__global__ void __launch_bounds__(128 * (1 + NC), 1)
 flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                           float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int dv,
-                          int causal, int window, float scale) {
-  static_assert(fwd_pingpong(DC, DVC), "the ping-pong forward takes keys of 3 chunks, values of 2");
+                          int causal, int window, float scale, int n_bh) {
+  static_assert(fwd_pingpong(DC, DVC), "the ping-pong forward takes values of one or two chunks");
+  static_assert(NC == 2 || NC == pp_consumers(DC, DVC), "two consumers, or the most");
+  constexpr int NS = pp_stages(DC, DVC);
+  constexpr int kRowsBlock = NC * kWgRows;
   constexpr int kKeys = kPpKeys, kKs = kPpKeys / 16;  // keys of a tile, k-steps of P.V
   extern __shared__ char smem_raw[];
-  FwdPpSmem<DC, DVC>& sm = smem_layout<FwdPpSmem<DC, DVC>>(smem_raw);
+  FwdPpSmem<DC, DVC, NC>& sm = smem_layout<FwdPpSmem<DC, DVC, NC>>(smem_raw);
   const int G = Hq / Hkv;
   const int Rtot = Sq * G;
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int r0 = tile * kBlockRows;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kBlockRows) - 1) / G;
+  const int bh = blockIdx.z * gridDim.x + blockIdx.x;
+  if (bh >= n_bh) return;  // the last group's blocks past the kv heads
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * kRowsBlock;
+  const int b = bh / Hkv, kvh = bh % Hkv;
+  const int p_lo = r0 / G, p_hi = (min(Rtot, r0 + kRowsBlock) - 1) / G;
   const int key_lo = window > 0 ? max(0, p_lo - window + 1) : 0;
   const int key_hi = causal ? min(Sk - 1, p_hi) : Sk - 1;
   const int t_first = key_lo / kKeys;
@@ -507,39 +553,39 @@ flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.v_full[s], 1);
-      mbar_init(&sm.k_empty[s], kConsumers * 4);  // one arrival per consumer warp
-      mbar_init(&sm.v_empty[s], kConsumers * 4);
+      mbar_init(&sm.k_empty[s], NC * 4);  // one arrival per consumer warp
+      mbar_init(&sm.v_empty[s], NC * 4);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (wg == 0) {
-    warpgroup_reg_dealloc<kProducerRegs>();
+    warpgroup_reg_dealloc<pp_producer_regs(NC)>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, kConsumers * DC * tile_bytes(kWgRows));
-      for (int w = 0; w < kConsumers; ++w)
+      mbar_arrive_expect_tx(&sm.q_full, NC * DC * tile_bytes(kWgRows));
+      for (int w = 0; w < NC; ++w)
         for (int c = 0; c < DC; ++c)
           tma_load_rows<kRows>(sm.q[w][c], &q_map, &sm.q_full, kChunk * c, r0 + w * kWgRows,
                                b, kvh, G, Hkv);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages, ph = (i / kStages - 1) & 1;
+        const int s = i % NS, ph = (i / NS - 1) & 1;
         const int t0 = (t_first + i) * kKeys;
-        if (i >= kStages) mbar_wait(&sm.k_empty[s], ph);
+        if (i >= NS) mbar_wait(&sm.k_empty[s], ph);
         mbar_arrive_expect_tx(&sm.k_full[s], DC * tile_bytes(kKeys));
         for (int c = 0; c < DC; ++c)
           tma_load_4d(sm.k[s][c], &k_map, &sm.k_full[s], kChunk * c, kvh, t0, b);
-        if (i >= kStages) mbar_wait(&sm.v_empty[s], ph);
+        if (i >= NS) mbar_wait(&sm.v_empty[s], ph);
         mbar_arrive_expect_tx(&sm.v_full[s], DVC * tile_bytes(kKeys));
         for (int c = 0; c < DVC; ++c)
           tma_load_4d(sm.v[s][c], &v_map, &sm.v_full[s], kChunk * c, kvh, t0, b);
       }
     }
   } else {
-    warpgroup_reg_alloc<kConsumerRegs>();
+    warpgroup_reg_alloc<pp_consumer_regs(NC)>();
     // warp-uniform as ptxas sees it, so that the wgmmas in flight across
     // the branches below are not serialized
     const int cw = __shfl_sync(0xffffffffu, wg, 0) - 1;
@@ -550,27 +596,30 @@ flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int wp_lo = rw0 / G, wp_hi = (min(Rtot, rw0 + kWgRows) - 1) / G;
     const int col = 2 * (lane % 4);
     const float sc = scale * kLog2e;  // exp(x * scale) = exp2(x * sc)
-    constexpr uint32_t kVBlock = kPpKeys * kChunk * 2;  // bytes from one V chunk to the next
 
-    float oacc[64];  // O: 64 rows x 128 value columns (DVC chunks)
+    float oacc[DVC * 32];  // O: 64 rows x 64 DVC value columns
 #pragma unroll
-    for (int e = 0; e < 64; ++e) oacc[e] = 0.f;
+    for (int e = 0; e < DVC * 32; ++e) oacc[e] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
     uint32_t pa[kKs][4];  // P of the tile before, bf16, the A operand of its P.V
     mbar_wait(&sm.q_full, 0);
 
     // Every tile's S is issued, also where this warpgroup's rows see none
     // of its keys (its mask then takes them all): no wgmma stands under a
-    // branch, and such tiles are rare (rows past Sq, a window's edge).
+    // branch, and such tiles are rare (rows past Sq, a window's edge, the
+    // diagonal's last tile).  The warpgroups take their turns in order, 0
+    // to NC - 1, tile by tile.
     for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages, sp = (i + kStages - 1) % kStages;  // this tile's, the last's
+      const int s = i % NS, sp = (i + NS - 1) % NS;  // this tile's stage, the last's
       const int t0 = (t_first + i) * kKeys;
-      mbar_wait(&sm.k_full[s], (i / kStages) & 1);
-      if (i > 0) mbar_wait(&sm.v_full[sp], ((i - 1) / kStages) & 1);
+      mbar_wait(&sm.k_full[s], (i / NS) & 1);
+      if (i > 0) mbar_wait(&sm.v_full[sp], ((i - 1) / NS) & 1);
       // this warpgroup's turn on the tensor cores: S of this tile and P.V
-      // of the last; the other warpgroup's products then run under this
-      // one's softmax
-      if (cw == 1 || i > 0) named_barrier(kPpBarrier + cw, 2 * 128);
+      // of the last; the other warpgroups' products then run under this
+      // one's softmax.  At two warpgroups the turns are written as 1 - cw:
+      // the general (cw + 1) % NC ran MLA's (3, 2) 1.5 to 2.6% slower
+      // (PERF.md, section 6), with the same loop but for the barrier's operand.
+      if ((NC == 2 ? cw == 1 : cw > 0) || i > 0) named_barrier(kPpBarrier + cw, 2 * 128);
       float sacc[64];  // S = Q . K^T: 64 rows x 128 keys
       wgmma_fence();
 #pragma unroll
@@ -579,11 +628,11 @@ flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                         wgmma_desc(sm.k[s][kc / 4]) + 2 * (kc % 4), kc > 0);
       if (i > 0) {
 #pragma unroll
-        for (int kk = 0; kk < kKs; ++kk)
-          wgmma_rs_64x128(oacc, pa[kk], wgmma_desc_mn(sm.v[sp][0], kVBlock) + kk * 16 * 128 / 16);
+        for (int kk = 0; kk < kKs; ++kk) pp_pv<DVC>(oacc, pa[kk], sm.v[sp][0], kk);
       }
       wgmma_commit();
-      if (cw == 0 || i + 1 < n_tiles) named_barrier_arrive(kPpBarrier + 1 - cw, 2 * 128);
+      if (NC == 2 ? (cw == 0 || i + 1 < n_tiles) : (cw + 1 < NC || i + 1 < n_tiles))
+        named_barrier_arrive(NC == 2 ? kPpBarrier + 1 - cw : kPpBarrier + (cw + 1) % NC, 2 * 128);
       wgmma_wait<0>();
       fence_regs(sacc);
       fence_regs(oacc);
@@ -626,18 +675,17 @@ flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         sacc[e] = p;
       }
 #pragma unroll
-      for (int e = 0; e < 64; ++e) oacc[e] *= alpha[(e >> 1) & 1];
+      for (int e = 0; e < DVC * 32; ++e) oacc[e] *= alpha[(e >> 1) & 1];
       // P in bf16 (the cast of _flash_kernel:76), the A operand of its P.V
 #pragma unroll
       for (int kk = 0; kk < kKs; ++kk) to_a_frag(&sacc[8 * kk], pa[kk]);
     }
     if (n_tiles > 0) {  // the last tile's P.V
-      const int sp = (n_tiles - 1) % kStages;
-      mbar_wait(&sm.v_full[sp], ((n_tiles - 1) / kStages) & 1);
+      const int sp = (n_tiles - 1) % NS;
+      mbar_wait(&sm.v_full[sp], ((n_tiles - 1) / NS) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKs; ++kk)
-        wgmma_rs_64x128(oacc, pa[kk], wgmma_desc_mn(sm.v[sp][0], kVBlock) + kk * 16 * 128 / 16);
+      for (int kk = 0; kk < kKs; ++kk) pp_pv<DVC>(oacc, pa[kk], sm.v[sp][0], kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -653,7 +701,7 @@ flash_fwd_pp_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float inv = l > 0.f ? 1.f / l : 0.f;
       const size_t off = row_offset(b, r, G, kvh, Sq, Hq, dv);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < DVC * 8; ++j) {
         const int cc = 8 * j + col;
         if (cc < dv)
           *reinterpret_cast<__nv_bfloat162*>(o + off + cc) =
@@ -3018,6 +3066,29 @@ bool key_map(CUtensorMap* m, const void* p, const Shape& s, int keys, int width)
   return make_map_bf16_4d(m, p, width, s.Hkv, s.Sk, s.B, 1, keys);
 }
 
+// streaming multiprocessors of the current device: the fused kernel's grid,
+// and the ping-pong forward's choice of consumers
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev] > 0 ? counts[dev] : 1;
+}
+
+// the ping-pong forward's row tiles of a kv head at nc consumer
+// warpgroups, and the kv heads of a group of its grid: as many as keep the
+// group's K and V within pp_group_bytes, at least one
+long long pp_row_tiles(const Shape& s, int nc) {
+  return ((long long)s.Sq * (s.Hq / s.Hkv) + nc * kWgRows - 1) / (nc * kWgRows);
+}
+int pp_heads_per_group(const Shape& s, int DC, int DVC) {
+  const long long kv = (long long)s.Sk * (DC + DVC) * kChunk * 2, bh = (long long)s.B * s.Hkv;
+  return (int)std::max(1LL, std::min(bh, pp_group_bytes(DC, DVC) / kv));
+}
+
 // a grid over row blocks of `rows` rows
 dim3 row_grid(const Shape& s, int rows) {
   const int G = s.Hq / s.Hkv;
@@ -3037,39 +3108,44 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   if (!row_map<kRows>(&qm, q, s, s.dh) || !key_map(&km, k, s, fwd_keys(DVC), s.dh) ||
       !key_map(&vm, v, s, fwd_keys(DVC), s.dv))
     return cudaErrorInvalidValue;
-  auto launch = [&](auto kern, size_t smem, dim3 grid) {
+  auto launch = [&](auto kern, size_t smem, dim3 grid, int threads, auto... more) {
     cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    kern<<<grid, kWsThreads, smem, st>>>(
+    kern<<<grid, threads, smem, st>>>(
         qm, km, vm, static_cast<bf16*>(o), lse, s.Sq, s.Sk, s.Hq, s.Hkv, s.dv, s.causal,
-        s.window, s.scale);
+        s.window, s.scale, more...);
     return cudaGetLastError();
   };
   if constexpr (fwd_pingpong(DC, DVC)) {
-    static_assert(sizeof(FwdPpSmem<DC, DVC>) + 1024 <= kSmemPerBlock,
-                  "ping-pong forward layout over 227 KB");
     static_assert(fwd_keys(DVC) == kPpKeys, "the maps' boxes are the ping-pong tile's keys");
-    const dim3 g = row_grid(s, kBlockRows);
-    return launch(flash_fwd_pp_wgmma_kernel<DC, DVC, kRows>, sizeof(FwdPpSmem<DC, DVC>) + 1024,
-                  dim3(g.y, g.x));
+    const int hg = pp_heads_per_group(s, DC, DVC), n_bh = s.B * s.Hkv;
+    auto pp_launch = [&](auto nc_) {
+      constexpr int nc = decltype(nc_)::value;
+      static_assert(sizeof(FwdPpSmem<DC, DVC, nc>) + 1024 <= kSmemPerBlock,
+                    "ping-pong forward layout over 227 KB");
+      static_assert(128 * pp_producer_regs(nc) + 128 * nc * pp_consumer_regs(nc) <= 65536,
+                    "ping-pong forward registers over the SM's");
+      return launch(flash_fwd_pp_wgmma_kernel<DC, DVC, nc, kRows>,
+                    sizeof(FwdPpSmem<DC, DVC, nc>) + 1024,
+                    dim3(hg, (unsigned)pp_row_tiles(s, nc), (n_bh + hg - 1) / hg), 128 * (1 + nc),
+                    n_bh);
+    };
+    // the most consumers where their grid fills the card, else two: a short
+    // call (G 72 at S 70) took 1.27 times as long on fewer, larger blocks
+    constexpr int most = pp_consumers(DC, DVC);
+    if constexpr (most != 2) {
+      if (pp_row_tiles(s, most) * n_bh >= sm_count())
+        return pp_launch(std::integral_constant<int, most>{});
+    }
+    return pp_launch(std::integral_constant<int, 2>{});
   } else {
-    static_assert(DVC == DC, "the forward at (3, 2) is the ping-pong one");
+    static_assert(DVC == DC && fwd_keys(DVC) == kWgFwdKeys, "three or four equal chunks");
     static_assert(sizeof(FwdWgSmem<DC>) + 1024 <= kSmemPerBlock, "forward layout over 227 KB");
     return launch(flash_fwd_wgmma_kernel<DC, kRows>, sizeof(FwdWgSmem<DC>) + 1024,
-                  row_grid(s, kBlockRows));
+                  row_grid(s, kBlockRows), kWsThreads);
   }
 }
 
-// streaming multiprocessors of the current device: the fused kernel's grid
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
-  if (counts[dev] == 0 &&
-      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    counts[dev] = 0;
-  return counts[dev] > 0 ? counts[dev] : 1;
-}
 
 // The fused backward (fused_bwd): the delta kernel, the counters and the
 // ticket zeroed, the fused kernel, the dq conversion; the maps of q and
@@ -3400,14 +3476,17 @@ bool bad_variant(const Shape& s, int dtype, int variant) {
   if ((variant != kWgmma && variant != kWgmmaRows) || dtype != 1) return true;
   // whole positions per 64-row box (wgmma), the gather's grid (wgmma_rows),
   // and the grids' second dimension (the dQ kernel's row blocks are the
-  // smallest, the dK/dV kernel's key blocks)
+  // smallest, the dK/dV kernel's key blocks, the ping-pong forward's row
+  // tiles and groups of kv heads)
   // the pair of column-chunk counts an instantiation takes
   const int dc = wgmma_chunks(s.dh), dvc = wgmma_chunks(s.dv);
   const long long rows = dq_consumers(dc) * kWgRows;
   const int keys = kv_keys(dc, dvc);
   return !wgmma_pair(dc, dvc) || (variant == kWgmma && kWgRows % G != 0) ||
          (variant == kWgmmaRows && rows_gather_blocks(s) > 0x7fffffffLL) ||
-         ((long long)s.Sq * G + rows - 1) / rows > 65535 || (s.Sk + keys - 1) / keys > 65535;
+         ((long long)s.Sq * G + rows - 1) / rows > 65535 || (s.Sk + keys - 1) / keys > 65535 ||
+         (fwd_pingpong(dc, dvc) &&
+          (pp_row_tiles(s, 2) > 65535 || (long long)s.B * s.Hkv > 65535));
 }
 
 }  // namespace

@@ -126,10 +126,54 @@ def column_chunks(dh: int) -> int:
 
 def fwd_keys(dvc: int) -> int:
     """Keys of the forward's tile at ``dvc`` 64-column chunks of the values
-    (``fwd_keys``): 128 where O takes at most two chunks (DC 1 and 2, and
-    MLA's (3, 2), whose kernel issues a tile's S beside the last tile's
-    P.V), else 64."""
+    (``fwd_keys``): 128 where O takes at most two chunks (the ping-pong
+    forward, ``fwd_pingpong``), else 64."""
     return 128 if dvc <= 2 else 64
+
+
+def fwd_pingpong(dvc: int) -> bool:
+    """Whether the forward at ``dvc`` 64-column chunks of the values is the
+    ping-pong kernel (``fwd_pingpong``: (1, 1), (2, 2) and MLA's (3, 2)),
+    which issues a tile's S beside the last tile's P.V: O takes the last
+    tile's P.V, then is rescaled to this tile's maximum."""
+    return dvc <= 2
+
+
+def pp_consumers(dc: int) -> int:
+    """The most consumer warpgroups of the ping-pong forward at ``dc`` column
+    chunks of the keys (``pp_consumers``): three (192-row blocks) at one
+    chunk, else two."""
+    return 3 if dc == 1 else 2
+
+
+def pp_launch_consumers(dc: int, B: int, Sq: int, G: int, Hkv: int, sms: int = 132) -> int:
+    """The consumer warpgroups a launch of the ping-pong forward takes
+    (``launch_fwd_wgmma``): the most where their grid has a block for every
+    SM of the card (132 on the H100), else two."""
+    most = pp_consumers(dc)
+    return most if -(-Sq * G // (most * ROWS)) * B * Hkv >= sms else 2
+
+
+PP_GROUP_BYTES = 8 << 20  # pp_group_bytes: K and V of a group of the ping-pong grid's heads
+
+
+def pp_heads_per_group(B: int, Sk: int, Hkv: int, dc: int, dvc: int,
+                       group_bytes: int = PP_GROUP_BYTES) -> int:
+    """kv heads of a group of the ping-pong forward's grid
+    (``pp_heads_per_group``): as many as keep the group's K and V (Sk keys
+    of dc + dvc 64-column chunks in bf16 each) within ``group_bytes``, at
+    least one."""
+    return max(1, min(B * Hkv, group_bytes // (Sk * (dc + dvc) * 64 * 2)))
+
+
+def pp_block(i: int, n_rt: int, n_bh: int, hg: int, causal: bool) -> tuple[int, int] | None:
+    """(row tile, b * Hkv + kvh) of the i-th block to start of the ping-pong
+    forward's grid (hg, n_rt, ceil(n_bh / hg)), x first: kv head z * hg + x,
+    row tile y counted from the heaviest under causal; None for the last
+    group's blocks past the kv heads, which return at once."""
+    x, y, z = i % hg, i // hg % n_rt, i // (hg * n_rt)
+    bh = z * hg + x
+    return None if bh >= n_bh else ((n_rt - 1 - y if causal else y), bh)
 
 
 def dq_consumers(dc: int) -> int:
@@ -281,11 +325,15 @@ def attention_rows_fwd(
     p_hilo: bool = False,
     residual: bool = False,
 ) -> tuple[torch.Tensor, ...]:
-    """The forward as the wgmma_rows kernel computes it: over the gathered
-    rows, block by block (128 rows, two warpgroups of 64), each warpgroup
-    over the key tiles its block walks and does not skip, the mask applied
-    only where ``tile_needs_mask`` says so, an online softmax, P rounded to
-    bf16 for P.V.  Returns (out [B,Sq,Hq,dv] bf16, lse fp32 [B,Hq,Sq]).
+    """The forward as the wgmma_rows kernel computes it (and the wgmma one,
+    over the caller's rows): over the gathered rows, block by block (128
+    rows, two warpgroups of 64; ``pp_launch_consumers`` of them in the
+    ping-pong kernel), each warpgroup over the key tiles its block
+    walks and does not skip, the mask applied only where ``tile_needs_mask``
+    says so, an online softmax, P rounded to bf16 for P.V, and, where the
+    ping-pong kernel runs (``fwd_pingpong``), each tile's P.V added before O
+    is rescaled to the next tile's maximum.  Returns (out [B,Sq,Hq,dv] bf16,
+    lse fp32 [B,Hq,Sq]).
     ``p_hilo`` takes P into P.V as hi + lo bf16 instead, and ``residual``
     returns o_lo [B,Sq,Hq,dv] bf16 too, the fp32 output less out: a forward
     that would let the backward take D from its output (studied, not
@@ -295,26 +343,28 @@ def attention_rows_fwd(
     G, w = Hq // Hkv, window or 0
     dvc = column_chunks(dv)
     R, keys = Sq * G, fwd_keys(dvc)
-    pingpong = (column_chunks(dh), dvc) == (3, 2)
+    pingpong = fwd_pingpong(dvc)
+    nc = pp_launch_consumers(column_chunks(dh), B, Sq, G, Hkv) if pingpong else 2
+    block = nc * ROWS
     scale = 1.0 / math.sqrt(dh)
     pv = _hilo if p_hilo else _bf16
     qr = _padded(gather_rows(q.float(), Hkv), R + 2 * ROWS)
     kr, vr = (_padded(_slabs(x), Sk + keys) for x in (k, v))
     out = torch.zeros(B * Hkv, R, dv)
     lse = torch.full((B * Hkv, R), -math.inf)
-    for r0 in range(0, R, 2 * ROWS):
-        tiles = key_walk(r0, 2 * ROWS, Sq, Sk, G, causal, w, keys)
-        for rw0 in range(r0, min(r0 + 2 * ROWS, R), ROWS):
+    for r0 in range(0, R, block):
+        tiles = key_walk(r0, block, Sq, Sk, G, causal, w, keys)
+        for rw0 in range(r0, min(r0 + block, R), ROWS):
             n = min(R, rw0 + ROWS) - rw0
             wp_lo, wp_hi = rw0 // G, (rw0 + n - 1) // G
             qpos = (torch.arange(rw0, rw0 + ROWS) // G)[:, None]
             m = torch.full((B * Hkv, ROWS), -math.inf)
             l = torch.zeros(B * Hkv, ROWS)
             acc = torch.zeros(B * Hkv, ROWS, dv)
-            pending = None  # (3, 2): the last tile's P . V, added when the next S is issued
+            pending = None  # ping-pong: the last tile's P . V, added when the next S is issued
             for t0 in tiles:
-                # skipped; the (3, 2) kernel issues such a tile and its mask
-                # takes every key (P 0, alpha 1): the same sums
+                # skipped; the ping-pong kernel issues such a tile and its
+                # mask takes every key (P 0, alpha 1): the same sums
                 if tile_invisible(t0, keys, wp_lo, wp_hi, Sk, causal, w):
                     if pending is not None:
                         acc, pending = acc + pending, None

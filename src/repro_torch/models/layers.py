@@ -104,6 +104,21 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     return (y * scale + bias).to(x.dtype)
 
 
+def batch_stat_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    """BatchNorm with the batch's own statistics (training mode, no running
+    averages), in fp32: the mean and population variance reduce over every
+    leading dim, one pair a feature."""
+    xf = x.float()
+    red = tuple(range(x.ndim - 1))
+    if not red:  # a 1-D x has no leading dim: each value is its own batch
+        mu, var = xf, torch.zeros_like(xf)
+    else:
+        mu = xf.mean(dim=red, keepdim=True)
+        var = (xf - mu).square().mean(dim=red, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
     g = x @ w_gate
     u = x @ w_up

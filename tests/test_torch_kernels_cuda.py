@@ -1100,6 +1100,42 @@ def test_flash_mla_forward_at_32768_matches_plain_on_three_blocks():
         del s
 
 
+# (B, S, Hq, Hkv, dh, window): the ping-pong forward at one and two column
+# chunks (dh 64, 40 and 128), G 1, 3 (wgmma_rows), 4 and 8, S ragged against
+# its 128-row blocks and 128-key tiles, under windows that leave a
+# warpgroup's tile invisible
+PP_FWD_CASES = [(2, 37, 8, 1, 64, None), (1, 1000, 32, 4, 64, None), (1, 700, 8, 2, 64, 100),
+                (1, 333, 6, 2, 64, 64), (2, 600, 16, 16, 128, None), (1, 517, 8, 2, 128, 90),
+                (1, 300, 9, 3, 128, None), (1, 259, 4, 1, 40, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PP_FWD_CASES)
+def test_flash_forward_at_one_and_two_chunks_runs_the_pingpong_kernel(case):
+    """Every bf16 forward whose values fit two chunks is the ping-pong kernel
+    (after the gather at wgmma_rows): its out and lse, with queries at
+    KEY_SPREAD, against the plain version in fp32 at TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, S, Hq, Hkv, dh, window = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(S + dh)
+    q = (torch.randn(B, S, Hq, dh, generator=g, device=dev) * KEY_SPREAD).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    fwd = _kernels_of(lambda: flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window))
+    gather = {"flash_rows_gather_kernel"} if 64 % (Hq // Hkv) else set()
+    assert {n for n in fwd if n.startswith("flash_")} == {"flash_fwd_pp_wgmma_kernel", *gather}
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    tol = TOLS[torch.bfloat16]
+    torch.testing.assert_close(out.float(), attention_ref(q32, k32, v32, window=window),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, attention_lse_ref(q32, k32, window=window), atol=tol,
+                               rtol=tol)
+
+
 @pytest.mark.cuda
 def test_flash_attention_rejects_bad_inputs():
     if not torch.cuda.is_available():

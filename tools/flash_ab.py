@@ -32,7 +32,11 @@ call.  The pieces, in the order given:
     ms), the bound and SDPA's backward (``backward_ms``), and whether a
     second call gives the same bits (it fails where not);
   * ``fwd``: the bf16 forward alone at MLA's three shapes (S 1,024, 4,096
-    and 32,768): the same figures, SDPA's forward beside them.
+    and 32,768) and at one and two column chunks (DC12_SHAPES: the
+    ``prefill_32k`` cells of TinyLlama-1.1B at B 10, deepseek-7b and
+    qwen2-moe-a2.7b at B 1; TinyLlama's and deepseek-7b's ``train_4k``
+    forwards; the train shape, B 4 x S 2,048; deepseek-7b and qwen2-moe at
+    S 2,048): the same figures, SDPA's forward beside them.
 
 The first two take a tree from before the pieces they name existed as long
 as its ``chip_smoke.py`` has ``flash_family_case`` and ``phase_flash``.
@@ -95,6 +99,19 @@ MLA_SHAPES = [
     ("deepseek-v2-236b mla", 1, 4096, 128, 128, 192, None, 128),
     ("deepseek-v2-236b mla S 32768", 1, 32768, 128, 128, 192, None, 128),
 ]
+# the bf16 forward at one and two 64-column chunks (the ping-pong kernel's
+# (1, 1) and (2, 2)): the prefill_32k cells, the train_4k cells' and the
+# train shape's forwards, and deepseek-7b's and qwen2-moe's at S 2,048
+DC12_SHAPES = [
+    ("tinyllama-1.1b prefill_32k", 10, 32768, 32, 4, 64, None, 64),
+    ("deepseek-7b prefill_32k", 1, 32768, 32, 32, 128, None, 128),
+    ("qwen2-moe-a2.7b prefill_32k", 1, 32768, 16, 16, 128, None, 128),
+    ("tinyllama-1.1b train_4k", 6, 4096, 32, 4, 64, None, 64),
+    ("train shape", 4, 2048, 32, 4, 64, None, 64),
+    ("deepseek-7b train_4k", 1, 4096, 32, 32, 128, None, 128),
+    ("deepseek-7b S 2048", 1, 2048, 32, 32, 128, None, 128),
+    ("qwen2-moe-a2.7b S 2048", 1, 2048, 16, 16, 128, None, 128),
+]
 BWD_SHAPES = TRAIN_4K + [  # label, B, S, Hq, Hkv, dh, window[, dv]
     ("qwen2-moe-a2.7b", 1, 4096, 16, 16, 128, None),
     MLA_SHAPES[1],
@@ -125,7 +142,7 @@ def fwd(cs, dev) -> None:
     from repro_torch.kernels.flash_attention import ops
 
     bf16 = torch.bfloat16
-    for label, B, S, Hq, Hkv, dh, window, dv in MLA_SHAPES:
+    for label, B, S, Hq, Hkv, dh, window, dv in MLA_SHAPES + DC12_SHAPES:
         q, k, v, _ = _inputs(dev, B, S, Hq, Hkv, dh, dv)
         kw = dict(causal=True, window=window)
         fn = lambda: ops.flash_attention_fwd(q, k, v, **kw)
