@@ -1442,7 +1442,7 @@ FLASH_MAIN = "train"  # the shape of every attention call of the train step
 GEMMA_LOCAL, GEMMA_GLOBAL = "gemma3-like", "gemma3 global"  # gemma3-4b's attention calls
 FLASH_ROWS = "dh256 G3"  # the timed bf16 case on the wgmma_rows kernels
 FLASH_ROWS_CASES = (FLASH_ROWS, "G72 S70", "G5 dh256")  # every bf16 case on them
-FLASH_BITS = "gemma3 global"  # its fp32 backward runs twice and must give equal bits
+FLASH_BITS = "gemma3 global"  # its fp32 and bf16 backwards run twice and must give equal bits
 
 
 def flash_pairs(S: int, causal: bool, window: int | None) -> int:
@@ -1539,6 +1539,20 @@ MLA_KERNELS = {"fwd": ("flash_fwd_pp_wgmma_kernel",),
 # warpgroups: three at one chunk where the grid fills the card), mangled
 PP_KERNEL = MLA_KERNELS["fwd"][0]
 PP_INSTANCES = ("ILi1ELi1ELi2E", "ILi1ELi1ELi3E", "ILi2ELi2ELi2E", MLA_INSTANCE + "Li2E")
+# the kernels of a bf16 backward call (the gather first at wgmma_rows): the
+# fused design's delta and key-tile kernels and dq's conversion, with the
+# counters' memset, where ops.fused_bwd holds; else the dQ kernel, then the
+# dK/dV kernel
+FUSED_BWD_KERNELS = (*MLA_KERNELS["bwd"], "flash_bwd_dq_convert_kernel")
+SPLIT_BWD_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
+
+
+def bwd_kernels(dh: int, dv: int | None = None) -> set[str]:
+    """The flash kernels of the bf16 backward at keys ``dh`` and values ``dv``
+    wide, by the profiler's names, but the gather."""
+    from repro_torch.kernels.flash_attention import ops
+
+    return set(FUSED_BWD_KERNELS if ops.fused_bwd(dh, dv) else SPLIT_BWD_KERNELS)
 
 
 def fwd_kernel(dh: int, dv: int | None = None) -> str:
@@ -1639,7 +1653,7 @@ def phase_flash(dev) -> dict:
                 kind = "fwd" if name in ("out", "lse") else "bwd"
                 errs[kind] = max(errs[kind], err)
             del want
-            if (label, dtype) == (FLASH_BITS, torch.float32):  # a full-width fp32 backward, twice
+            if label == FLASH_BITS:  # a full-width backward, twice, in fp32 and bf16
                 again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                                 window=window)
                 same = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -1661,12 +1675,17 @@ def phase_flash(dev) -> dict:
                 row[kind] = dict(ms=cuda_ms(fn, iters=iters, warmup=2), device_ms=dms, span_ms=sms,
                                  queued_ms=queued_ms(fn), bound_ms=bms, bound_by=by,
                                  max_abs_err=errs[kind], device_ms_by_kernel=split)
-            if dtype == torch.bfloat16:  # the forward's kernel, by the profiler's names
+            if dtype == torch.bfloat16:  # the kernels, by the profiler's names
                 fwd_names = {n for n in row["fwd"]["device_ms_by_kernel"] if n.startswith(
                     "flash_fwd")}
                 check(fwd_names == {fwd_kernel(dh)},
                       f"flash {label} {tname}: forward kernels {sorted(fwd_names)}, wanted "
                       f"{fwd_kernel(dh)}")
+                bwd_names = {n for n in row["bwd"]["device_ms_by_kernel"]
+                             if n.startswith("flash_bwd")}
+                check(bwd_names == bwd_kernels(dh),
+                      f"flash {label} {tname}: backward kernels {sorted(bwd_names)}, wanted "
+                      f"{sorted(bwd_kernels(dh))}")
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
             row["fwd"]["plain_ms"] = cuda_ms(
                 lambda: attention_ref(q, k, v, causal=causal, window=window), iters=iters,
@@ -2547,8 +2566,8 @@ def flash_family_case(label: str, B: int, S: int, H: int, dh: int, dv: int, dev)
     check(set(row["kernels"]) == want_f,
           f"flash {label}: forward kernels of a call {sorted(row['kernels'])}, wanted "
           f"{sorted(want_f)}")
-    if inst == "wgmma 3x2":  # the fused backward's four steps, no more
-        want_b = {*MLA_KERNELS["bwd"], "flash_bwd_dq_convert_kernel", "Memset (Device)"}
+    if ops.fused_bwd(dh, dv):  # the fused backward's four steps, no more
+        want_b = {*bwd_kernels(dh, dv), "Memset (Device)"}
         check(set(b["kernels"]) == want_b,
               f"flash {label}: kernels of a backward call {sorted(b['kernels'])}, wanted "
               f"{sorted(want_b)}")
@@ -7562,6 +7581,9 @@ def main() -> int:
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
             "wgmma_rows_dh256_G3": {k: w[kind][k] for k in (
                 "queued_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+            # each kernel's device ms in one call (the profiler, which reads short)
+            "kernels_of_one_call": {"local": r[kind]["device_ms_by_kernel"],
+                                    "global": g[kind]["device_ms_by_kernel"]},
             "at_lm_cells": at_lm_cells((*(("gemma3-4b prefill_32k",) if kind == "fwd" else ()),
                                         "gemma3-4b train_4k"), kind),
         })

@@ -9,7 +9,8 @@ ordinal, its key block less ``kv_block_first`` of the tile.  That holds only
 if the key blocks whose row walks hold a tile are a run of consecutive
 blocks starting at ``kv_block_first``; here the walks (``row_walk``, the
 kernels' formulas) are enumerated at causal, windowed and non-causal shapes,
-Sq beside Sk, and groups up to 72, and at MLA's 64-key blocks.  The tickets
+Sq beside Sk, and groups up to 72, and at the 64-key blocks of MLA and
+of gemma3-4b's dh 256 (the walks its dQ and dK/dV kernels share).  The tickets
 (``fused_item``) hand out every item once, each key block after the one
 before it of its kv head, so that no block waits on an item no running
 block holds.  Also the scratch the wrapper sizes for the fused kernels
@@ -66,6 +67,21 @@ def test_mla_key_blocks_of_a_row_tile_start_at_kv_block_first(case):
     _check_walks(case, 64)
 
 
+# gemma3-4b's 64-key blocks (dh 256, DC 4: the dQ and dK/dV kernels' walks)
+# at G 2 under its local window of 1,024 (train_4k and the B 1 x S 2,048
+# step) and its global layers, and a non-causal window
+GEMMA_WALK_CASES = [
+    (4096, 4096, 2, True, 1024), (2048, 2048, 2, True, 1024), (4096, 4096, 2, True, 0),
+    (1100, 1100, 2, False, 1024),
+]
+
+
+@pytest.mark.parametrize("case", GEMMA_WALK_CASES)
+def test_gemma3_key_blocks_of_a_row_tile_start_at_kv_block_first(case):
+    assert ref.kv_keys(ref.column_chunks(256)) == 64
+    _check_walks(case, 64)
+
+
 def test_fused_bwd_takes_one_or_two_equal_chunks_and_mla_3x2():
     widths = (8, 64, 72, 128, 136, 192, 256)
     for dh in widths:
@@ -80,9 +96,12 @@ def test_fused_bwd_takes_one_or_two_equal_chunks_and_mla_3x2():
 
 
 # (B*Hkv, key blocks, heads a group): every head key block first (DC 1 and
-# 2), deepseek-v2's 128 heads in groups at S 1,024, 4,096 and 32,768, and a
-# last group smaller than the rest
-TICKET_CASES = [(2, 4, 2), (24, 64, 24), (128, 16, 16), (128, 64, 8), (128, 512, 1), (10, 7, 4)]
+# 2), deepseek-v2's 128 heads in groups at S 1,024, 4,096 and 32,768, a
+# last group smaller than the rest, and gemma3-4b's head and key-block
+# counts (train_4k's 8 heads in groups of 3, the B 1 x S 2,048 step's 4
+# together)
+TICKET_CASES = [(2, 4, 2), (24, 64, 24), (128, 16, 16), (128, 64, 8), (128, 512, 1), (10, 7, 4),
+                (8, 64, 3), (4, 32, 4)]
 
 
 @pytest.mark.parametrize("case", TICKET_CASES)
@@ -104,9 +123,25 @@ def test_fused_heads_per_group_follows_the_l2_budget():
     # deepseek-v2's MLA: 16 heads at S 1,024 (the cap), 8 at 4,096, 1 at 32,768
     for S, want in ((1024, 16), (4096, 8), (32768, 1)):
         assert ref.fused_heads_per_group(1, S, 128, 128, 192, 128) == want
-    # every head elsewhere: DC 1 and 2 keep key block major over all of them
+    # every head at DC 1 and 2: key block major over all of them
     assert ref.fused_heads_per_group(6, 4096, 32, 4, 64, 64) == 24
     assert ref.fused_heads_per_group(1, 4096, 32, 32, 128, 128) == 32
+
+
+# (B, S, Hq, Hkv, dh) at three and four equal chunks: gemma3-4b's train_4k
+# (8 heads of 16 MiB of Q, dO and fp32 dQ sums), its B 1 x S 2,048 step,
+# dh 192 at S 4,096, one sequence of 32,768 and G 3: every head, key block
+# major, as at DC 1 and 2 (the L2 rule holds at MLA's (3, 2) alone)
+WIDE_GROUP_CASES = [
+    (2, 4096, 8, 4, 256), (1, 2048, 8, 4, 256), (2, 4096, 8, 4, 192),
+    (1, 32768, 8, 4, 256), (1, 300, 6, 2, 256), (1, 2048, 8, 4, 136),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_GROUP_CASES)
+def test_fused_heads_per_group_at_three_and_four_chunks(case):
+    B, S, Hq, Hkv, dh = case
+    assert ref.fused_heads_per_group(B, S, Hq, Hkv, dh, dh) == B * Hkv
 
 
 # (B, S, Hq, Hkv, dh, dv): DC 1 and 2 at G 8 and 1 (fused), G 3 (fused, the

@@ -17,8 +17,9 @@ backward does.  The emulation takes, as the kernels do, the fused kernels'
 order of dQ's sums where they run (keys and values of one or two equal
 64-column chunks: each key block's bf16(dS) . K summed in fp32 into its row
 tile in increasing key order), and the dQ kernel's walk elsewhere; it is
-held at two more shapes, deepseek-v2's keys of 192 beside values of 128
-(the (3, 2) instantiation) and a group of 3 (``wgmma_rows``).  The kernels
+held at three more shapes, deepseek-v2's keys of 192 beside values of 128
+(the (3, 2) instantiation), a group of 3 (``wgmma_rows``) and gemma3-4b's
+dh 256 at a group of 3 and no window (the dQ and dK/dV kernels).  The kernels
 themselves run only on the card (``tests/test_torch_kernels_cuda.py``,
 ``-k 4096``)."""
 import numpy as np
@@ -39,13 +40,14 @@ CASES = [
     (1, 384, 4, 2, 256, True, 64),
 ]
 IDS = ["tinyllama-heads", "deepseek-7b-heads", "gemma3-local-heads"]
-# keys of 192 beside values of 128 (MLA, the (3, 2) instantiation) and G 3
-# (wgmma_rows, the fused kernels at dh 64)
+# keys of 192 beside values of 128 (MLA, the (3, 2) instantiation), G 3
+# (wgmma_rows, the fused kernels at dh 64) and G 3 at dh 256 (four chunks)
 MORE_CASES = [
     (1, 320, 4, 4, 192, True, None, 128),
     (1, 300, 6, 2, 64, True, None),
+    (1, 320, 6, 2, 256, True, None),
 ]
-MORE_IDS = ["deepseek-v2-mla-heads", "g3-heads"]
+MORE_IDS = ["deepseek-v2-mla-heads", "g3-heads", "dh256-g3-global-heads"]
 
 
 def _inputs(case):

@@ -780,6 +780,11 @@ DETERMINISM_CASES = [
     # TinyLlama's and qwen2-moe's train_4k sequence, and G 72 (wgmma_rows)
     (1, 4096, 32, 4, 64, torch.bfloat16), (1, 4096, 16, 16, 128, torch.bfloat16),
     (1, 70, 72, 1, 64, torch.bfloat16),
+    # and the dQ and dK/dV kernels at three and four equal chunks:
+    # gemma3-4b's train_4k sequences (B 2), dh 192 G 2 and dh 256 G 3
+    # (wgmma_rows)
+    (2, 4096, 8, 4, 256, torch.bfloat16), (1, 2048, 8, 4, 192, torch.bfloat16),
+    (1, 1000, 6, 2, 256, torch.bfloat16),
 ]
 
 
@@ -804,7 +809,8 @@ def test_flash_attention_backward_is_deterministic(case):
 
 # (B, S, Hq, Hkv, dh, dv, window): the reference's train_4k cell at S 4,096,
 # one sequence of each model's attention (causal): TinyLlama-1.1B (DC 1,
-# G 8), gemma3-4b's local and global layers (DC 4, G 2), deepseek-7b (DC 2,
+# G 8), gemma3-4b's local and global layers (DC 4, G 2; and both of the
+# cell's B 2 sequences), deepseek-7b (DC 2,
 # G 1), qwen2-moe-a2.7b (DC 2, G 1, 16 heads) and deepseek-v2-236b's MLA
 # (keys 192, values 128: the (3, 2) instantiation, 128 heads); and
 # TinyLlama's at S 4,160, not a multiple of a tile.  The key walks are twice
@@ -814,6 +820,8 @@ LONG_BWD_CASES = [
     (1, 4096, 32, 4, 64, 64, None),
     (1, 4096, 8, 4, 256, 256, 1024),
     (1, 4096, 8, 4, 256, 256, None),
+    (2, 4096, 8, 4, 256, 256, 1024),
+    (2, 4096, 8, 4, 256, 256, None),
     (1, 4096, 32, 32, 128, 128, None),
     (1, 4160, 32, 4, 64, 64, None),
     (1, 4096, 16, 16, 128, 128, None),
@@ -827,7 +835,8 @@ ORACLE_HEADS = 32  # query heads a group of the fp32 oracle: MLA's 128 take 8.6 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", LONG_BWD_CASES, ids=["tinyllama", "gemma3-local",
-                                                      "gemma3-global", "deepseek-7b", "S4160",
+                                                      "gemma3-global", "gemma3-local-B2",
+                                                      "gemma3-global-B2", "deepseek-7b", "S4160",
                                                       "qwen2-moe", "deepseek-v2-mla",
                                                       "rows-G3", "rows-G72"])
 def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
@@ -877,11 +886,14 @@ def test_flash_backward_at_train_4096_matches_fp32_autograd(case):
 # (B, Sq, Sk, Hq, Hkv, dh, window): the fused kernels (dh 64 and 128, G 4
 # and 2, G 3 on wgmma_rows) where the query and key lengths differ under a
 # causal window, every row seeing some key: key blocks whose walks start and
-# end inside the rows, the first adder of a row tile past key block 0
+# end inside the rows, the first adder of a row tile past key block 0; and
+# the dQ and dK/dV kernels there (dh 192 and 256)
 UNEQUAL_CASES = [
     (1, 360, 300, 8, 2, 64, 64), (1, 300, 500, 8, 2, 64, 64),
     (1, 360, 300, 8, 4, 128, 64), (1, 300, 500, 8, 4, 128, 64),
     (2, 330, 300, 6, 2, 64, 48),
+    (1, 360, 300, 8, 4, 256, 64), (1, 300, 500, 8, 4, 192, 64),
+    (2, 330, 300, 6, 2, 256, 48),
 ]
 
 
@@ -901,7 +913,7 @@ def test_flash_backward_window_with_unequal_lengths(case):
     v = torch.randn(B, Sk, Hkv, dh, generator=g, device=dev).to(bf16)
     dout = torch.randn(B, Sq, Hq, dh, generator=g, device=dev).to(bf16)
     assert Sq - 1 - (window - 1) <= Sk - 1  # every row sees a key
-    assert flash_ops.fused_bwd(dh)
+    assert flash_ops.fused_bwd(dh) == (dh <= 128)
     want = flash_oracle(q, k, v, dout, True, window)
     out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, window=window)
     grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
@@ -988,6 +1000,30 @@ def test_flash_mla_backward_runs_the_fused_kernels(Hq, Hkv):
                        "flash_bwd_dq_convert_kernel", *gather}, bwd
     assert any("emset" in n for n in bwd), bwd  # the counters zeroed in-stream
     assert {n for n in fwd if n.startswith("flash_")} == {"flash_fwd_pp_wgmma_kernel", *gather}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [256, 192])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 4), (6, 2)], ids=["wgmma", "wgmma_rows"])
+def test_flash_backward_at_three_and_four_chunks_runs_the_dq_and_dkdv_kernels(dh, Hq, Hkv):
+    """The backward at dh 256 and 192 (four and three equal chunks) is the
+    dQ kernel, then the dK/dV kernel (after the gather at wgmma_rows), and
+    nothing else: none of the fused design's kernels, no memset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43)
+    q = torch.randn(1, 1024, Hq, dh, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, 1024, Hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    dout = torch.randn_like(q)
+    assert not flash_ops.fused_bwd(dh)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, window=512)
+    bwd = _kernels_of(lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, dout, window=512))
+    gather = {"flash_rows_gather_kernel"} if Hq // Hkv == 3 else set()
+    kernels = {n for n in bwd if n.startswith("flash_")}
+    assert kernels == {"flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel", *gather}, bwd
+    assert not any("emset" in n for n in bwd), bwd
 
 
 @pytest.mark.cuda

@@ -26,11 +26,15 @@ call.  The pieces, in the order given:
     check;
   * ``bwd``: the bf16 backward alone at every ``train_4k`` cell's shape
     (those four, qwen2-moe-a2.7b at B 1 and deepseek-v2-236b's MLA at B 1),
-    the train shape (B 4, S 2,048) and MLA's other two shapes (S 1,024 and
-    32,768, B 1, 128 heads, keys 192, values 128): ``queued_ms`` twice, the
-    kernels of one call by the profiler (their count and each one's device
-    ms), the bound and SDPA's backward (``backward_ms``), and whether a
-    second call gives the same bits (it fails where not);
+    the train shape (B 4, S 2,048), MLA's other two shapes (S 1,024 and
+    32,768, B 1, 128 heads, keys 192, values 128) and DC34_SHAPES (three and
+    four equal chunks: gemma3-4b's B 1 x S 2,048 layers, dh 256 at G 3 and
+    5, dh 192 and 136 at G 2 and 8): ``queued_ms`` twice, the kernels of one
+    call by the profiler (their count and each one's device ms), the bound
+    and SDPA's backward (``backward_ms``), and whether a second call gives
+    the same bits (it fails where not); ``bwd34``: the same at the shapes
+    above dh 128 alone, MLA's at S 32,768 aside (gemma3-4b's, MLA's and
+    DC34_SHAPES);
   * ``fwd``: the bf16 forward alone at MLA's three shapes (S 1,024, 4,096
     and 32,768) and at one and two column chunks (DC12_SHAPES: the
     ``prefill_32k`` cells of TinyLlama-1.1B at B 10, deepseek-7b and
@@ -112,13 +116,27 @@ DC12_SHAPES = [
     ("deepseek-7b S 2048", 1, 2048, 32, 32, 128, None, 128),
     ("qwen2-moe-a2.7b S 2048", 1, 2048, 16, 16, 128, None, 128),
 ]
+# the bf16 backward at three and four equal chunks besides gemma3-4b's
+# train_4k layers: its B 1 x S 2,048 train step's local and global layers,
+# the wgmma_rows cases at dh 256 (G 3 and G 5) and dh 192 and 136 at G 2 and
+# G 8 (chip_smoke.py's flash cases)
+DC34_SHAPES = [
+    ("gemma3-4b local S 2048", 1, 2048, 8, 4, 256, 1024),
+    ("gemma3-4b global S 2048", 1, 2048, 8, 4, 256, None),
+    ("wgmma_rows dh 256 G 3", 1, 2048, 6, 2, 256, 1024),
+    ("wgmma_rows dh 256 G 5", 2, 150, 10, 2, 256, 64),
+    ("dh 192 G 2", 1, 2048, 8, 4, 192, None),
+    ("dh 192 G 8", 1, 2048, 32, 4, 192, None),
+    ("dh 136 G 2", 1, 2048, 8, 4, 136, None),
+    ("dh 136 G 8", 1, 2048, 32, 4, 136, None),
+]
 BWD_SHAPES = TRAIN_4K + [  # label, B, S, Hq, Hkv, dh, window[, dv]
     ("qwen2-moe-a2.7b", 1, 4096, 16, 16, 128, None),
     MLA_SHAPES[1],
     ("train shape", 4, 2048, 32, 4, 64, None),
     MLA_SHAPES[0],
     MLA_SHAPES[2],
-]
+] + DC34_SHAPES
 
 
 def _inputs(dev, B, S, Hq, Hkv, dh, dv):
@@ -164,12 +182,13 @@ def fwd(cs, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def bwd(cs, dev) -> None:
-    """The ``bwd`` piece, from what every tree's ``chip_smoke.py`` has."""
+def bwd(cs, dev, shapes=BWD_SHAPES) -> None:
+    """The ``bwd`` piece (``bwd34``: at three and four chunks alone), from
+    what every tree's ``chip_smoke.py`` has."""
     from repro_torch.kernels.flash_attention import ops
 
     bf16 = torch.bfloat16
-    for label, B, S, Hq, Hkv, dh, window, *rest in BWD_SHAPES:
+    for label, B, S, Hq, Hkv, dh, window, *rest in shapes:
         dv = rest[0] if rest else dh
         q, k, v, dout = _inputs(dev, B, S, Hq, Hkv, dh, dv)
         kw = dict(causal=True, window=window)
@@ -231,6 +250,7 @@ def main() -> int:
         "train": lambda: cs.family_train(dev, "deepseek-v2-236b", 1),
         "train4k": lambda: train_4k(cs, dev),
         "bwd": lambda: bwd(cs, dev),
+        "bwd34": lambda: bwd(cs, dev, [s for s in BWD_SHAPES if s[5] > 128 and s[2] < 32768]),
         "fwd": lambda: fwd(cs, dev),
     }
     for name in pieces:
